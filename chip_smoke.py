@@ -9,17 +9,26 @@ script exits non-zero without its last line:
 1. environment: versions, the card's name and power limit, TF32 off, and
    the CUDA kernels built from the checkout's sources;
 2. kernel vs plain version on the card: ``apc_gather``/``apc_scatter``
-   against their plain PyTorch versions at ragged shapes and at the main
-   path's shapes, float64 and float32;
-3. the main path at full size: a 32768 x 16384 tall Gaussian system on
-   16 workers (float64), ``analyze``, then ``solve`` on the kernel path —
-   error to x_true, one launch of each kernel per iteration, the history
-   against the unfused path, and a bit-identical repeat;
-4. ``solve_many`` with 8 right-hand sides through the same kernels;
-5. the CLI entry point ``repro_torch.launch.solve`` in-process;
-6. CUDA-event times of each kernel, its plain version, one torch.matmul
-   of the same product and the whole iteration, beside each kernel's
-   bound, printed as one ``{"kernels": [...]}`` line.
+   and ``cimmino_gather``/``cimmino_scatter`` against their plain PyTorch
+   versions at ragged shapes and at the main path's shapes, float64 and
+   float32, with a batch row bit-identical to a k = 1 call;
+3. the APC main path at full size: a 32768 x 16384 tall Gaussian system
+   on 16 workers (float64), ``analyze``, then ``solve`` on the kernel
+   path — error to x_true, one launch of each kernel per iteration, the
+   history against the unfused path, and a bit-identical repeat;
+4. APC ``solve_many`` with 8 right-hand sides through the same kernels;
+5. block Cimmino and consensus on the same system: ``solve`` on the
+   kernel path (exactly one launch of each of its kernels per iteration,
+   at k = 1), the history against the unfused path, a bit-identical
+   repeat, and Cimmino ``solve_many`` with 8 right-hand sides;
+6. the paper's comparison: all eight solvers for the same number of
+   iterations, with parameters from ONE spectral analysis (X and AᵀA);
+   final residual, iters_to_tol, theoretical and measured rate;
+7. the CLI entry point ``repro_torch.launch.solve`` in-process, for
+   ``--method apc`` and ``--method cimmino``, both with ``--use-kernel``;
+8. CUDA-event times of each kernel, its plain version, one torch.matmul
+   of the same product and the whole APC and Cimmino iterations, beside
+   each kernel's bound, then the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports only torch,
 numpy and repro_torch.
@@ -27,6 +36,7 @@ numpy and repro_torch.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -53,7 +63,13 @@ CARDS = [("H100 PCIe", 2.0e12, 51e12, 51e12),
          ("H100", 3.35e12, 67e12, 67e12)]
 SOURCE = "src/repro_torch/kernels/csrc/block_projection.cu"
 REPLACES = {"apc_gather": "src/repro/kernels/block_projection.py:173",
-            "apc_scatter": "src/repro/kernels/block_projection.py:210"}
+            "apc_scatter": "src/repro/kernels/block_projection.py:210",
+            "cimmino_gather": "src/repro/kernels/block_projection.py:246",
+            "cimmino_scatter": "src/repro/kernels/block_projection.py:274"}
+# the kernels each kernel-path solver launches, once per iteration
+USES = {"apc": ("apc_gather", "apc_scatter"),
+        "consensus": ("apc_gather", "apc_scatter"),
+        "cimmino": ("cimmino_gather", "cimmino_scatter")}
 
 
 def say(*parts) -> None:
@@ -85,8 +101,8 @@ def ptxas_summary(log: str) -> list[str]:
     from nvcc's -Xptxas=-v output."""
     out, kernel = [], None
     for line in log.splitlines():
-        hit = re.search(r"entry function '\S*?(apc_\w+?)_kernelI([df])Li(\d+)",
-                        line)
+        hit = re.search(r"entry function '\S*?((?:apc|cimmino)_\w+?)_kernel"
+                        r"I([df])Li(\d+)", line)
         if hit:
             kernel = (f"{hit[1]} {'f64' if hit[2] == 'd' else 'f32'} "
                       f"KC={hit[3]}")
@@ -117,16 +133,32 @@ def median_ms(fn, reps: int = 25) -> float:
 
 
 def inputs(m, p, n, k, dtype, seed, *, transposed=False):
-    """Seeded A (m,p,n), B (m,n,p), X (m,k,n), X̄ (k,n) on the card.
+    """Seeded A (m,p,n), B (m,n,p), X (m,k,n), X̄ (k,n), V (m,k,p) on the
+    card.
 
-    ``transposed`` gives X as the (m, k, n) view of a (k, m, n) tensor,
-    the layout solve_many hands the kernels."""
+    ``transposed`` gives X and V as the (m, k, .) views of (k, m, .)
+    tensors, the layout solve_many hands the kernels."""
     rng = np.random.default_rng(seed)
     g = lambda *s: torch.as_tensor(rng.standard_normal(s),  # noqa: E731
                                    device="cuda").to(dtype)
     A, B = g(m, p, n), g(m, n, p)
-    X = g(k, m, n).transpose(0, 1) if transposed else g(m, k, n)
-    return A, B, X, g(k, n)
+    if transposed:
+        X, V = g(k, m, n).transpose(0, 1), g(k, m, p).transpose(0, 1)
+    else:
+        X, V = g(m, k, n), g(m, k, p)
+    return A, B, X, g(k, n), V
+
+
+def decay(res: torch.Tensor, floor: float = 1e-12):
+    """Measured per-step residual decay over the second half of the
+    history above ``floor``: (r_j / r_i)^(1/(j-i)), or None."""
+    r = res.double().cpu().numpy()
+    above = np.nonzero(r > floor)[0]
+    if len(above) < 4:
+        return None
+    j = int(above[-1])
+    i = j // 2
+    return float((r[j] / r[i]) ** (1.0 / (j - i)))
 
 
 def main() -> int:
@@ -136,12 +168,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import solvers
+    from repro_torch.core import spectral
     from repro_torch.core.apc import APCState
     from repro_torch.core.partition import BlockSystem
     from repro_torch.data import linsys
     from repro_torch.kernels import block_projection as bp
     from repro_torch.kernels import ops
     from repro_torch.launch import solve as cli
+    from repro_torch.solvers.projection import CimminoState
 
     # 1. environment ------------------------------------------------------
     t0 = time.time()
@@ -164,33 +198,53 @@ def main() -> int:
     # 2. kernel vs plain version ------------------------------------------
     max_abs = dict.fromkeys(bp.KERNELS, 0.0)
 
-    def compare(A, B, X, Xb, gamma, label, record=False):
+    def check(kname, got, want, dt, label, record):
+        e, d = rel_err(got, want)
+        assert e < TOL[dt], (kname, label, dt, e)
+        if record:
+            max_abs[kname] = max(max_abs[kname], d)
+        return e
+
+    def compare(A, B, X, Xb, V, gamma, label, record=False):
+        """All four kernels against their plain versions; V stands in for
+        both the APC scatter's U and the Cimmino scatter's V."""
         dt = A.dtype
-        u = ops.proj_gather(A, X, Xb)
-        u_ref = ops.apc_gather_ref(A, X, Xb)
-        y = ops.proj_scatter(B, X, Xb, u_ref, gamma)
-        y_ref = ops.apc_scatter_ref(B, X, Xb, u_ref, gamma)
+        outs = {
+            "apc_gather": (ops.proj_gather(A, X, Xb),
+                           ops.apc_gather_ref(A, X, Xb)),
+            "apc_scatter": (ops.proj_scatter(B, X, Xb, V, gamma),
+                            ops.apc_scatter_ref(B, X, Xb, V, gamma)),
+            "cimmino_gather": (ops.cimmino_gather(A, Xb),
+                               ops.cimmino_gather_ref(A, Xb)),
+            "cimmino_scatter": (ops.cimmino_scatter(B, V),
+                                ops.cimmino_scatter_ref(B, V)),
+        }
         torch.cuda.synchronize()
-        (eu, du), (ey, dy) = rel_err(u, u_ref), rel_err(y, y_ref)
-        say(f"phase 2 {label} {str(dt)[6:]}: apc_gather {eu:.3e} "
-            f"apc_scatter {ey:.3e} (tol {TOL[dt]:.0e})")
-        assert eu < TOL[dt] and ey < TOL[dt], (label, dt, eu, ey)
+        errs = {kn: check(kn, got, want, dt, label, record)
+                for kn, (got, want) in outs.items()}
+        say(f"phase 2 {label} {str(dt)[6:]}: " + " ".join(
+            f"{kn} {e:.3e}" for kn, e in errs.items())
+            + f" (tol {TOL[dt]:.0e})")
         if X.dim() == 3:    # a batch row is bit-identical to a k=1 call
             i = X.shape[1] - 1
-            assert torch.equal(ops.proj_gather(A, X[:, i], Xb[i]), u[:, i])
-            assert torch.equal(ops.proj_scatter(B, X[:, i], Xb[i],
-                                                u_ref[:, i], gamma),
-                               y[:, i])
-        if record:
-            max_abs["apc_gather"] = max(max_abs["apc_gather"], du)
-            max_abs["apc_scatter"] = max(max_abs["apc_scatter"], dy)
+            rows = {
+                "apc_gather": ops.proj_gather(A, X[:, i], Xb[i]),
+                "apc_scatter": ops.proj_scatter(B, X[:, i], Xb[i], V[:, i],
+                                                gamma),
+                "cimmino_gather": ops.cimmino_gather(A, Xb[i]),
+                "cimmino_scatter": ops.cimmino_scatter(B, V[:, i]),
+            }
+            for kn, row in rows.items():
+                assert torch.equal(row, outs[kn][0][:, i]), (kn, label)
 
     for dt in TOL:
         for (p, n) in RAGGED:
-            for k in (1, 5, 11):
-                compare(*inputs(3, p, n, k, dt, seed=p * n + k,
-                                transposed=k > 1), 0.83,
-                        f"m=3 p={p} n={n} k={k}")
+            for k in (1, 5, K_MANY, 11):
+                A, B, X, Xb, V = inputs(3, p, n, k, dt, seed=p * n + k,
+                                        transposed=k > 1)
+                if k == 1:
+                    X, Xb, V = X[:, 0], Xb[0], V[:, 0]
+                compare(A, B, X, Xb, V, 0.83, f"m=3 p={p} n={n} k={k}")
 
     t = time.time()
     sys_ = linsys.tall_gaussian(**FULL, seed=0, device="cuda")
@@ -204,16 +258,18 @@ def main() -> int:
     for k in (1, K_MANY):
         X = torch.as_tensor(rng.standard_normal((k, m, n)), device="cuda")
         Xb = torch.as_tensor(rng.standard_normal((k, n)), device="cuda")
+        V = torch.as_tensor(rng.standard_normal((k, m, p)), device="cuda")
         for dt in TOL:
             A, B = factors.A.to(dt), factors.B.to(dt)
             Xd, Xbd = X.to(dt).transpose(0, 1), Xb.to(dt)
+            Vd = V.to(dt).transpose(0, 1)
             if k == 1:
-                Xd, Xbd = Xd[:, 0], Xbd[0]
-            compare(A, B, Xd, Xbd, 0.9, f"main path m={m} p={p} n={n} "
+                Xd, Xbd, Vd = Xd[:, 0], Xbd[0], Vd[:, 0]
+            compare(A, B, Xd, Xbd, Vd, 0.9, f"main path m={m} p={p} n={n} "
                     f"k={k}", record=dt == torch.float64)
             del A, B
 
-    # 3. the main path at full size ---------------------------------------
+    # 3. the APC main path at full size -----------------------------------
     t = time.time()
     params, rho = solver.analyze(sys_)
     torch.cuda.synchronize()
@@ -234,7 +290,8 @@ def main() -> int:
         f"rel-error {err:.3e} iters_to_tol {res.iters_to_tol} "
         f"launches {launches}")
     assert err <= 1e-8, err
-    assert launches == dict.fromkeys(bp.KERNELS, ITERS), launches
+    assert launches == {kn: ITERS if kn in USES["apc"] else 0
+                        for kn in bp.KERNELS}, launches
     res_u = solver.solve(sys_, iters=ITERS,
                          plan=solvers.ExecutionPlan(factors=factors),
                          **params)
@@ -255,41 +312,144 @@ def main() -> int:
     xs = torch.as_tensor(np.random.default_rng(2).standard_normal(
         (K_MANY, n)), device="cuda")
     Bm = (sys_.A_blocks.reshape(sys_.N, n) @ xs.T).T      # (k, N)
-    ops.reset_launch_counts()
+
+    def many_vs_rows(s, prm, label, check_x):
+        """solve_many with K_MANY rows through one launch of each kernel
+        per step, each row against its single solve (``check_x`` also
+        holds it to the row's x_true)."""
+        ops.reset_launch_counts()
+        t = time.time()
+        many = s.solve_many(sys_, Bm, iters=ITERS, plan=solvers.ExecutionPlan(
+            kernel=True, factors=factors), **prm)
+        torch.cuda.synchronize()
+        t_many = time.time() - t
+        got = ops.launch_counts()
+        assert got == {kn: ITERS if kn in USES[s.name] else 0
+                       for kn in bp.KERNELS}, got
+        worst = 0.0
+        for i in range(K_MANY):
+            row = BlockSystem(sys_.A_blocks, Bm[i].reshape(m, p), xs[i],
+                              mode="square")
+            one = s.solve(row, iters=ITERS, plan=solvers.ExecutionPlan(
+                kernel=True, factors=factors), **prm)
+            d = float(torch.linalg.norm(many.x[i] - one.x)
+                      / torch.linalg.norm(one.x))
+            worst = max(worst, d)
+            assert d <= 1e-12, (label, i, d)
+            if check_x:
+                assert float(torch.linalg.norm(many.x[i] - xs[i])
+                             / torch.linalg.norm(xs[i])) <= 1e-8
+        say(f"phase {label} solve_many k={K_MANY}: {ITERS} iters in "
+            f"{t_many:.2f} s, launches {got}, max row vs single solve "
+            f"{worst:.3e}")
+
+    many_vs_rows(solver, params, "4", check_x=True)
+
+    # 5. Cimmino and consensus at full size --------------------------------
     t = time.time()
-    many = solver.solve_many(sys_, Bm, iters=ITERS, plan=kplan, **params)
+    mu = spectral.mu_extremes(spectral.x_matrix(sys_))
+    lam = spectral.ata_extremes(sys_)
     torch.cuda.synchronize()
-    t_many = time.time() - t
-    launches_many = ops.launch_counts()
-    assert launches_many == dict.fromkeys(bp.KERNELS, ITERS), launches_many
-    worst = 0.0
-    for i in range(K_MANY):
-        row = BlockSystem(sys_.A_blocks, Bm[i].reshape(m, p), xs[i],
-                          mode="square")
-        one = solver.solve(row, iters=ITERS, plan=solvers.ExecutionPlan(
-            kernel=True, factors=factors), **params)
-        d = float(torch.linalg.norm(many.x[i] - one.x)
-                  / torch.linalg.norm(one.x))
-        worst = max(worst, d)
-        assert d <= 1e-10, (i, d)
-        assert float(torch.linalg.norm(many.x[i] - xs[i])
-                     / torch.linalg.norm(xs[i])) <= 1e-8
-    say(f"phase 4 solve_many k={K_MANY}: {ITERS} iters in {t_many:.2f} s, "
-        f"launches {launches_many}, max row vs single solve {worst:.3e}")
+    t_spec = time.time() - t
+    say(f"phase 5 spectrum: mu(X) [{mu[0]:.6e}, {mu[1]:.6e}] "
+        f"lambda(AᵀA) [{lam[0]:.6e}, {lam[1]:.6e}] in {t_spec:.2f} s")
+    # every solver's pinned parameters and theoretical rate from this one
+    # analysis (the closed forms each solver's analyze() applies)
+    apc_p = spectral.apc_optimal(*mu)
+    nu_m, rho_cim = spectral.cimmino_optimal(*mu)
+    a_dgd, rho_dgd = spectral.dgd_optimal(*lam)
+    a_nag, b_nag, rho_nag = spectral.dnag_optimal(*lam)
+    a_hbm, b_hbm, rho_hbm = spectral.dhbm_optimal(*lam)
+    a_p, b_p, rho_p = spectral.dhbm_optimal(m * mu[0], m * mu[1])
+    pinned = {
+        "apc": ({"gamma": apc_p.gamma, "eta": apc_p.eta}, apc_p.rho),
+        "cimmino": ({"nu": nu_m / m}, rho_cim),
+        "consensus": ({"gamma": 1.0, "eta": 1.0},
+                      spectral.consensus_rate(mu[0])),
+        "dgd": ({"alpha": a_dgd}, rho_dgd),
+        "dhbm": ({"alpha": a_hbm, "beta": b_hbm}, rho_hbm),
+        "dnag": ({"alpha": a_nag, "beta": b_nag}, rho_nag),
+        "madmm": ({"xi": 1.0}, None),
+        "pdhbm": ({"alpha": a_p, "beta": b_p}, rho_p),
+    }
+    assert sorted(pinned) == solvers.available()
+    for key in params:     # the same closed form as phase 3's analyze()
+        assert math.isclose(pinned["apc"][0][key], params[key],
+                            rel_tol=1e-9), key
+    cim_launches = {}
+    kernel_runs = {}
+    for sname in ("cimmino", "consensus"):
+        s = solvers.get(sname)
+        prm = pinned[sname][0]
+        ops.reset_launch_counts()
+        t = time.time()
+        r = s.solve(sys_, iters=ITERS, plan=kplan, **prm)
+        torch.cuda.synchronize()
+        t_solve = time.time() - t
+        got = ops.launch_counts()
+        assert got == {kn: ITERS if kn in USES[sname] else 0
+                       for kn in bp.KERNELS}, (sname, got)
+        if sname == "cimmino":
+            cim_launches = got
+        r_u = s.solve(sys_, iters=ITERS,
+                      plan=solvers.ExecutionPlan(factors=factors), **prm)
+        d = float((r.residuals - r_u.residuals).abs().max())
+        assert torch.allclose(r.residuals, r_u.residuals, rtol=1e-6,
+                              atol=1e-12), (sname, d)
+        assert torch.allclose(r.errors, r_u.errors, rtol=1e-6, atol=1e-12)
+        r2 = s.solve(sys_, iters=ITERS, plan=kplan, **prm)
+        assert torch.equal(r2.residuals, r.residuals), sname
+        assert torch.equal(r2.x, r.x), sname
+        assert torch.isfinite(r.residuals).all()
+        assert float(r.residuals[-1]) < float(r.residuals[0]), sname
+        kernel_runs[sname] = r
+        say(f"phase 5 {sname} solve kernel=True: {ITERS} iters in "
+            f"{t_solve:.2f} s (prepare included), residual "
+            f"{float(r.residuals[-1]):.3e} iters_to_tol {r.iters_to_tol} "
+            f"launches {got}; kernel vs unfused history max|Δ| {d:.3e}; "
+            f"repeat bit-identical")
+    many_vs_rows(solvers.get("cimmino"), pinned["cimmino"][0], "5",
+                 check_x=False)
 
-    # 5. the CLI entry point ----------------------------------------------
-    ops.reset_launch_counts()
-    rc = cli.main(CLI_ARGS)
-    assert rc == 0, rc
-    launches_cli = ops.launch_counts()
-    assert all(v > 0 for v in launches_cli.values()), launches_cli
-    say(f"phase 5 cli {' '.join(CLI_ARGS)}: rc {rc} launches "
-        f"{launches_cli}")
+    # 6. the paper's comparison -------------------------------------------
+    kernel_runs["apc"] = res
+    for sname, (prm, rho_th) in pinned.items():
+        s = solvers.get(sname)
+        t = time.time()
+        if sname not in kernel_runs:
+            kernel_runs[sname] = s.solve(sys_, iters=ITERS, **prm)
+            torch.cuda.synchronize()
+        r = kernel_runs[sname]
+        assert torch.isfinite(r.residuals).all(), sname
+        assert float(r.residuals[-1]) < float(r.residuals[0]), sname
+        dec = decay(r.residuals)
+        say(f"phase 6 {s.paper_name or sname:>9} ({sname}, "
+            f"{'kernel' if sname in USES else 'unfused'}): residual "
+            f"{float(r.residuals[-1]):.3e} after {ITERS} iters, "
+            f"iters_to_tol {r.iters_to_tol}, rho theory "
+            f"{'n/a' if rho_th is None else f'{rho_th:.6f}'} measured "
+            f"{'n/a' if dec is None else f'{dec:.6f}'}"
+            + ("" if sname in USES else
+               f", {time.time() - t:.2f} s with prepare"))
+    del kernel_runs
 
-    # 6. times --------------------------------------------------------------
+    # 7. the CLI entry point ----------------------------------------------
+    for method in ("apc", "cimmino"):
+        ops.reset_launch_counts()
+        rc = cli.main(CLI_ARGS + ["--method", method])
+        assert rc == 0, rc
+        got = ops.launch_counts()
+        assert all((got[kn] > 0) == (kn in USES[method])
+                   for kn in bp.KERNELS), (method, got)
+        say(f"phase 7 cli {' '.join(CLI_ARGS)} --method {method}: rc {rc} "
+            f"launches {got}")
+
+    # 8. times --------------------------------------------------------------
     rows = {}
     itemsize = 8
     b = sys_.b_blocks
+    nu = pinned["cimmino"][0]["nu"]
+    cim = solvers.get("cimmino")
     for k in (1, K_MANY):
         rng = np.random.default_rng(3 + k)
         X = torch.as_tensor(rng.standard_normal((k, m, n)), device="cuda")
@@ -297,50 +457,74 @@ def main() -> int:
         Xb = torch.as_tensor(rng.standard_normal((k, n)), device="cuda")
         A, B = factors.A, factors.B
         U = bp.apc_gather(A, X3, Xb)
+        V = (b.expand(k, m, p).transpose(0, 1)
+             - bp.cimmino_gather(A, Xb))             # (m, k, p)
         D = Xb - X3
-        g_bytes = itemsize * (m * p * n + m * k * n + k * n + m * k * p)
-        s_bytes = itemsize * (m * n * p + 2 * m * k * n + k * n + m * k * p)
-        g_ops = 2 * m * k * p * n + m * k * n
-        s_ops = 2 * m * k * p * n + 4 * m * k * n
-        t_g = median_ms(lambda: bp.apc_gather(A, X3, Xb))
-        t_gp = median_ms(lambda: ops.apc_gather_ref(A, X3, Xb))
-        t_gl = median_ms(lambda: torch.matmul(D, A.transpose(1, 2)))
-        t_s = median_ms(lambda: bp.apc_scatter(B, X3, Xb, U, 0.9))
-        t_sp = median_ms(lambda: ops.apc_scatter_ref(B, X3, Xb, U, 0.9))
-        t_sl = median_ms(lambda: torch.matmul(U, B.transpose(1, 2)))
+        mkn, mkp, kn_, mpn = m * k * n, m * k * p, k * n, m * p * n
+        work = {   # (bytes, ops): each input read once, each output once
+            "apc_gather": (itemsize * (mpn + mkn + kn_ + mkp),
+                           2 * m * k * p * n + mkn),
+            "apc_scatter": (itemsize * (mpn + 2 * mkn + kn_ + mkp),
+                            2 * m * k * p * n + 4 * mkn),
+            "cimmino_gather": (itemsize * (mpn + kn_ + mkp),
+                               2 * m * k * p * n),
+            "cimmino_scatter": (itemsize * (mpn + mkp + mkn),
+                                2 * m * k * p * n),
+        }
+        timed = {
+            "apc_gather": (lambda: bp.apc_gather(A, X3, Xb),
+                           lambda: ops.apc_gather_ref(A, X3, Xb),
+                           lambda: torch.matmul(D, A.transpose(1, 2))),
+            "apc_scatter": (lambda: bp.apc_scatter(B, X3, Xb, U, 0.9),
+                            lambda: ops.apc_scatter_ref(B, X3, Xb, U, 0.9),
+                            lambda: torch.matmul(U, B.transpose(1, 2))),
+            "cimmino_gather": (lambda: bp.cimmino_gather(A, Xb),
+                               lambda: ops.cimmino_gather_ref(A, Xb),
+                               lambda: torch.matmul(Xb, A.transpose(1, 2))),
+            "cimmino_scatter": (lambda: bp.cimmino_scatter(B, V),
+                                lambda: ops.cimmino_scatter_ref(B, V),
+                                lambda: torch.matmul(V, B.transpose(1, 2))),
+        }
         if k == 1:
             st = APCState(x=X[0], xbar=Xb[0], t=0)
-            t_it = median_ms(lambda: solver.step_residual(
-                factors, b, st, params))
+            cst = CimminoState(xbar=Xb[0], t=0)
+            bb = b
         else:
             st = APCState(x=X, xbar=Xb, t=0)
+            cst = CimminoState(xbar=Xb, t=0)
             bb = b.expand(k, m, p)
-            t_it = median_ms(lambda: solver.step_many_residual(
-                factors, bb, st, params))
-        for kname, t_k, t_p, t_l, nbytes, nops in (
-                ("apc_gather", t_g, t_gp, t_gl, g_bytes, g_ops),
-                ("apc_scatter", t_s, t_sp, t_sl, s_bytes, s_ops)):
+        t_it = median_ms(lambda: solver.step_many_residual(
+            factors, bb, st, params))
+        t_cit = median_ms(lambda: cim.step_many_residual(
+            factors, bb, cst, {"nu": nu}))
+        for kname, (f_k, f_p, f_l) in timed.items():
+            nbytes, nops = work[kname]
             t_bytes = nbytes / bw * 1e3
             t_ops = nops / peak[torch.float64] * 1e3
-            rows[(kname, k)] = dict(
-                ms=t_k, plain_ms=t_p, library_ms=t_l,
+            t_k = median_ms(f_k)
+            rows[(kname, k)] = r = dict(
+                ms=t_k, plain_ms=median_ms(f_p), library_ms=median_ms(f_l),
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
-            r = rows[(kname, k)]
-            say(f"phase 6 {kname} k={k} m={m} p={p} n={n} float64: "
+            say(f"phase 8 {kname} k={k} m={m} p={p} n={n} float64: "
                 f"{t_k:.4f} ms (bound {r['bound_ms']:.4f} ms by "
                 f"{r['bound_by']}, {r['bound_ms'] / t_k:.1%} of it), plain "
-                f"{t_p:.4f} ms, torch.matmul {t_l:.4f} ms")
-        say(f"phase 6 iteration k={k}: {t_it:.4f} ms per step "
-            f"(gather + scatter + master update + residual)")
-        del U, D
+                f"{r['plain_ms']:.4f} ms, torch.matmul "
+                f"{r['library_ms']:.4f} ms")
+        say(f"phase 8 iteration k={k}: APC {t_it:.4f} ms per step "
+            f"(gather + scatter + master update + residual); Cimmino "
+            f"{t_cit:.4f} ms per step (gather + v = b − u + scatter + "
+            f"worker sum + master update + residual)")
+        del U, V, D
 
+    main_launches = {kn: (launches if kn in USES["apc"] else cim_launches)[kn]
+                     for kn in bp.KERNELS}
     kernels = []
     for kname in bp.KERNELS:
         r = rows[(kname, 1)]
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[kname], "launches": launches[kname],
+            "replaces": REPLACES[kname], "launches": main_launches[kname],
             "max_abs_err": max_abs[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -2,10 +2,12 @@
 
 The module layout mirrors ``repro`` so each module's counterpart is easy
 to find: ``core`` (block systems, dense block ops, spectral analysis, the
-APC building blocks), ``data`` (the seeded generators), ``solvers`` (the
-registry, the solve drivers and the APC solver), ``kernels`` (the
-hand-written CUDA ``apc_gather``/``apc_scatter`` pair, with their plain
-PyTorch versions) and ``launch`` (the solve driver CLI).
+APC building blocks, preconditioning), ``data`` (the seeded generators),
+``solvers`` (the registry, ``solve``/``solve_many`` and the reference's
+eight solvers), ``kernels`` (the hand-written CUDA kernels
+``apc_gather``, ``apc_scatter``, ``cimmino_gather`` and
+``cimmino_scatter``, with their plain PyTorch versions) and ``launch``
+(the solve CLI).
 
 The package imports torch and numpy only — never jax, and nothing of
 ``repro``.  Every entry point runs on ``cuda`` unless the caller passes

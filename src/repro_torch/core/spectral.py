@@ -1,10 +1,11 @@
-"""Spectral analysis and the optimal APC hyper-parameters (Theorem 1).
+"""Spectral analysis and the optimal hyper-parameters of every solver.
 
-Counterpart of ``repro.core.spectral`` for what the APC solver needs:
-``x_matrix``, ``mu_extremes``, ``apc_optimal`` and ``convergence_time``.
-Analysis-time work, done once per system: X and its eigenvalues are
-computed with torch on the system's device in float64 (the reference's
-numpy loop would take minutes at the sizes one card solves).
+Counterpart of ``repro.core.spectral``: the X matrix and its extremes,
+the extremes of AᵀA, Theorem 1's APC optimum and the Section-4 closed
+forms of the baselines, and ``rates_summary``.  Analysis-time work, done
+once per system: X, AᵀA and their eigenvalues are computed with torch on
+the system's device in float64 (the reference's numpy loop would take
+minutes at the sizes one card solves).
 """
 from __future__ import annotations
 
@@ -35,6 +36,19 @@ def x_matrix(sys: BlockSystem) -> torch.Tensor:
 def mu_extremes(X: torch.Tensor) -> tuple[float, float]:
     """(mu_min, mu_max) of X.  Eigenvalues lie in [0, 1]."""
     w = torch.linalg.eigvalsh(X)
+    return float(w[0]), float(w[-1])
+
+
+def kappa(X: torch.Tensor) -> float:
+    """Condition number mu_max / mu_min of X."""
+    mu_min, mu_max = mu_extremes(X)
+    return mu_max / mu_min
+
+
+def ata_extremes(sys: BlockSystem) -> tuple[float, float]:
+    """(lambda_min, lambda_max) of AᵀA — drives the gradient-family rates."""
+    A = sys.dense()[0].to(torch.float64)
+    w = torch.linalg.eigvalsh(A.T @ A)
     return float(w[0]), float(w[-1])
 
 
@@ -70,6 +84,50 @@ def apc_optimal(mu_min: float, mu_max: float) -> APCParams:
     return APCParams(gamma=gamma, eta=eta, rho=rho)
 
 
+def dgd_optimal(lmin: float, lmax: float) -> tuple[float, float]:
+    """(alpha*, rho*) for distributed gradient descent on ||Ax-b||^2:
+    alpha = 2/(lmin+lmax), rho = (kappa-1)/(kappa+1)."""
+    alpha = 2.0 / (lmin + lmax)
+    rho = (lmax - lmin) / (lmax + lmin)
+    return alpha, rho
+
+
+def dnag_optimal(lmin: float, lmax: float) -> tuple[float, float, float]:
+    """(alpha*, beta*, rho*) for Nesterov on a quadratic (Lessard et al.):
+    alpha = 4/(3 lmax + lmin), beta = (s-2)/(s+2), rho = 1 - 2/s with
+    s = sqrt(3 kappa + 1)."""
+    k = lmax / lmin
+    alpha = 4.0 / (3.0 * lmax + lmin)
+    s = math.sqrt(3.0 * k + 1.0)
+    beta = (s - 2.0) / (s + 2.0)
+    rho = 1.0 - 2.0 / s
+    return alpha, beta, rho
+
+
+def dhbm_optimal(lmin: float, lmax: float) -> tuple[float, float, float]:
+    """(alpha*, beta*, rho*) for heavy-ball on a quadratic (Polyak):
+    alpha = (2/(sqrt(lmax)+sqrt(lmin)))^2, beta = rho^2,
+    rho = (sqrt(kappa)-1)/(sqrt(kappa)+1)."""
+    sl, sm = math.sqrt(lmax), math.sqrt(lmin)
+    alpha = (2.0 / (sl + sm)) ** 2
+    rho = (sl - sm) / (sl + sm)
+    return alpha, rho ** 2, rho
+
+
+def cimmino_optimal(mu_min: float, mu_max: float) -> tuple[float, float]:
+    """(nu*m, rho*) for block Cimmino: the error iteration is
+    e <- (I - nu m X) e, optimal at nu m = 2/(mu_min+mu_max) with
+    rho = (kappa-1)/(kappa+1).  The caller divides by m."""
+    nu_m = 2.0 / (mu_min + mu_max)
+    rho = (mu_max - mu_min) / (mu_max + mu_min)
+    return nu_m, rho
+
+
+def consensus_rate(mu_min: float) -> float:
+    """Plain projection consensus: rho = 1 - mu_min(X)."""
+    return 1.0 - mu_min
+
+
 def convergence_time(rho: float) -> float:
     """T = 1 / (-log rho)   (paper Section 5; ~ 1/(1-rho))."""
     if rho >= 1.0:
@@ -77,3 +135,22 @@ def convergence_time(rho: float) -> float:
     if rho <= 0.0:
         return 0.0
     return 1.0 / (-math.log(rho))
+
+
+def rates_summary(sys: BlockSystem) -> dict[str, float]:
+    """Optimal convergence rates of every method in the paper for ``sys``
+    (the reference's keys)."""
+    mu_min, mu_max = mu_extremes(x_matrix(sys))
+    lmin, lmax = ata_extremes(sys)
+    return {
+        "mu_min": mu_min,
+        "mu_max": mu_max,
+        "kappa_X": mu_max / mu_min,
+        "kappa_AtA": lmax / lmin,
+        "DGD": dgd_optimal(lmin, lmax)[1],
+        "D-NAG": dnag_optimal(lmin, lmax)[2],
+        "D-HBM": dhbm_optimal(lmin, lmax)[2],
+        "Consensus": consensus_rate(mu_min),
+        "B-Cimmino": cimmino_optimal(mu_min, mu_max)[1],
+        "APC": apc_optimal(mu_min, mu_max).rho,
+    }

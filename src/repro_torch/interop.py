@@ -1,10 +1,13 @@
 """Carry the reference's objects across into the port.
 
 The functions take plain numpy arrays (``np.asarray`` of a reference
-``BlockSystem``/``ProjFactors``/``APCState`` field), so a system, its
-factors or an iteration state of ``repro`` continue in ``repro_torch``
-without this package importing anything of ``repro``.  They copy: the
-port's tensors never alias the reference's (read-only) buffers.
+``BlockSystem`` field, or of each field of a reference state or factors
+NamedTuple), so a system, its factors or an iteration state of ``repro``
+continue in ``repro_torch`` without this package importing anything of
+``repro``.  They copy: the port's tensors never alias the reference's
+(read-only) buffers.  Every state and factors type of the port has its
+reference namesake's fields in the same order, so :func:`from_numpy`
+converts any of them.
 """
 from __future__ import annotations
 
@@ -13,9 +16,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch import device as dev
-from repro_torch.core.apc import APCState
 from repro_torch.core.partition import BlockSystem
-from repro_torch.solvers.projection import ProjFactors
 
 
 def system_from_numpy(A_blocks, b_blocks, x_true=None,
@@ -27,17 +28,22 @@ def system_from_numpy(A_blocks, b_blocks, x_true=None,
                        None if x_true is None else t(x_true), mode=mode)
 
 
-def factors_from_numpy(A, chol, B=None, device=None) -> ProjFactors:
-    """APC ``ProjFactors`` from (m, p, n) / (m, p, p) / (m, n, p) arrays."""
-    t = lambda a: dev.as_tensor(np.array(a, order="C"),  # noqa: E731
-                                device=device)
-    return ProjFactors(A=t(A), chol=t(chol), B=None if B is None else t(B))
+def from_numpy(cls, *fields, device=None):
+    """The port's state or factors NamedTuple ``cls`` (``APCState``,
+    ``ProjFactors``, ``CimminoState``, ``DGDState``, ``GradFactors``,
+    ``ADMMFactors``, ...) from its reference namesake's fields, in order.
+    None stays None; the iteration counter ``t`` — a scalar, or the
+    reference's per-row (k,) counters after ``solve_many`` — becomes an
+    int."""
+    def convert(name, a):
+        if a is None:
+            return None
+        if name == "t":
+            return int(np.max(np.asarray(a)))
+        return dev.as_tensor(np.array(a, order="C"), device=device)
 
+    if len(fields) != len(cls._fields):
+        raise ValueError(f"{cls.__name__} has fields {cls._fields}, got "
+                         f"{len(fields)} arrays")
+    return cls(*(convert(name, a) for name, a in zip(cls._fields, fields)))
 
-def state_from_numpy(x, xbar, t, device=None) -> APCState:
-    """An ``APCState`` from x (m, n) or (k, m, n), x̄ (n,) or (k, n) and
-    the iteration counter (a scalar, or the reference's per-row (k,)
-    counters after ``solve_many``)."""
-    return APCState(x=dev.as_tensor(np.array(x), device=device),
-                    xbar=dev.as_tensor(np.array(xbar), device=device),
-                    t=int(np.max(np.asarray(t))))

@@ -1,10 +1,12 @@
-"""Hand-written CUDA kernels for the per-iteration hot spot of APC.
+"""Hand-written CUDA kernels for the per-iteration hot spot of the
+projection family.
 
-block_projection.py — builds ``csrc/block_projection.cu`` (``apc_gather``
-  and ``apc_scatter`` for sm_90a) at first use, binds it with ctypes and
-  launches it, counting launches.
+block_projection.py — builds ``csrc/block_projection.cu`` (``apc_gather``,
+  ``apc_scatter``, ``cimmino_gather`` and ``cimmino_scatter`` for sm_90a)
+  at first use, binds it with ctypes and launches it, counting launches.
 ops.py — the public ops ``proj_gather``/``proj_scatter``/
-  ``block_projection`` with a worker axis, dispatching on the tensors'
+  ``block_projection`` and ``cimmino_gather``/``cimmino_scatter``/
+  ``cimmino_update`` with a worker axis, dispatching on the tensors'
   device (CUDA -> kernel, CPU -> the plain PyTorch versions beside them).
 
 Modules here never build or import anything for the GPU at import time.

@@ -1,6 +1,7 @@
-"""Build, bind and launch the CUDA ``apc_gather``/``apc_scatter`` kernels.
+"""Build, bind and launch the CUDA kernels of the projection family:
+``apc_gather``/``apc_scatter`` and ``cimmino_gather``/``cimmino_scatter``.
 
-Counterpart of ``repro.kernels.block_projection`` (the Pallas TPU pair).
+Counterpart of ``repro.kernels.block_projection`` (the Pallas TPU kernels).
 The kernels live in ``csrc/block_projection.cu`` (see the note there for
 their design); this module compiles them with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface at first use, keyed by a
@@ -38,7 +39,8 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-KERNELS = ("apc_gather", "apc_scatter")
+KERNELS = ("apc_gather", "apc_scatter", "cimmino_gather",
+           "cimmino_scatter")
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 
 _launches = dict.fromkeys(KERNELS, 0)
@@ -116,6 +118,10 @@ ARGTYPES = {
     # sy_w, sy_k, stream
     "apc_scatter": [_PTR] * 4 + [ctypes.c_double, _PTR] + [_I64] * 11
     + [_PTR],
+    # A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k, stream
+    "cimmino_gather": [_PTR] * 3 + [_I64] * 7 + [_PTR],
+    # B, V, R, m, n, p, k, sv_w, sv_k, sr_w, sr_k, stream
+    "cimmino_scatter": [_PTR] * 3 + [_I64] * 8 + [_PTR],
 }
 
 
@@ -132,39 +138,57 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, M: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor,
-           rows_axis: int) -> None:
-    """Shared launcher checks: CUDA tensors on one device, one supported
-    dtype, a contiguous (m, ., .) matrix stack, unit-stride rows."""
-    tensors = {"matrix": M, "X": X, "Xbar": Xbar}
+def _check(name: str, **operands) -> dict:
+    """Shared launcher checks; returns the size of every named axis.
+
+    ``operands`` maps a label to ``(tensor, axes)``, ``axes`` naming each
+    dimension ("mpn", "mkn", "kn", ...): every tensor must be on one CUDA
+    device in one float32/float64 dtype, every axis letter must bind to
+    one size, the first operand (the matrix stack) must be contiguous and
+    the others need a unit stride along their last axis.
+    """
+    tensors = {label: t for label, (t, _) in operands.items()}
     for label, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name}: {label} is on {t.device}; the kernel "
                              f"takes CUDA tensors")
     if len({t.device for t in tensors.values()}) != 1:
         raise ValueError(f"{name}: tensors on different devices")
-    if M.dtype not in _DTYPES:
-        raise TypeError(f"{name}: dtype {M.dtype} unsupported; the kernel "
-                        f"takes float64 or float32")
-    if any(t.dtype != M.dtype for t in tensors.values()):
-        raise TypeError(f"{name}: mixed dtypes "
-                        f"{sorted({str(t.dtype) for t in tensors.values()})}"
-                        f"; A/B, X and Xbar must share one dtype")
-    if M.dim() != 3 or not M.is_contiguous():
-        raise ValueError(f"{name}: the matrix stack must be a contiguous "
-                         f"(m, ., .) tensor, got shape {tuple(M.shape)}")
-    if X.dim() != 3 or Xbar.dim() != 2:
-        raise ValueError(f"{name}: X must be (m, k, n) and Xbar (k, n)")
-    m, k, n = X.shape
-    if X.shape[0] != M.shape[0] or Xbar.shape != (k, n):
-        raise ValueError(f"{name}: X {tuple(X.shape)} / Xbar "
-                         f"{tuple(Xbar.shape)} do not match the matrix "
-                         f"stack {tuple(M.shape)}")
-    if M.shape[rows_axis] != n:
-        raise ValueError(f"{name}: n={n} of X does not match the matrix "
-                         f"stack {tuple(M.shape)}")
-    if (n > 1 and (X.stride(2) != 1 or Xbar.stride(1) != 1)):
-        raise ValueError(f"{name}: X and Xbar need unit stride along n")
+    dtypes = {t.dtype for t in tensors.values()}
+    if len(dtypes) != 1:
+        raise TypeError(f"{name}: mixed dtypes {sorted(map(str, dtypes))}; "
+                        f"every operand must share one dtype")
+    if not dtypes <= set(_DTYPES):
+        raise TypeError(f"{name}: dtype {dtypes.pop()} unsupported; the "
+                        f"kernel takes float64 or float32")
+    sizes: dict = {}
+    for i, (label, (t, axes)) in enumerate(operands.items()):
+        if t.dim() != len(axes) or any(
+                sizes.setdefault(ax, n) != n for ax, n in zip(axes, t.shape)):
+            raise ValueError(
+                f"{name}: {label} has shape {tuple(t.shape)}, expected "
+                f"({', '.join(axes)}) with "
+                f"{ {ax: sizes[ax] for ax in axes if ax in sizes} }")
+        if i == 0 and not t.is_contiguous():
+            raise ValueError(f"{name}: the matrix stack {label} must be "
+                             f"contiguous")
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: {label} needs a unit stride along "
+                             f"its last axis")
+    return sizes
+
+
+def _launch(name: str, dtype: torch.dtype, device: torch.device,
+            *args) -> None:
+    """Launch one C entry on ``device``'s current stream, count it, and
+    raise on a nonzero ``cudaGetLastError()``."""
+    fn = getattr(_library(), f"{name}_{_DTYPES[dtype]}")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launches[name] += 1
+        err = fn(*args, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def apc_gather(A: torch.Tensor, X: torch.Tensor,
@@ -175,19 +199,12 @@ def apc_gather(A: torch.Tensor, X: torch.Tensor,
     worker/row strides); X̄ (k, n) shared by all workers.  Returns U
     (m, k, p), contiguous, in A's dtype.
     """
-    _check("apc_gather", A, X, Xbar, rows_axis=2)
-    m, p, n = A.shape
-    k = X.shape[1]
-    U = torch.empty((m, k, p), dtype=A.dtype, device=A.device)
-    fn = getattr(_library(), f"apc_gather_{_DTYPES[A.dtype]}")
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launches["apc_gather"] += 1
-        err = fn(A.data_ptr(), X.data_ptr(), Xbar.data_ptr(), U.data_ptr(),
-                 m, p, n, k, X.stride(0), X.stride(1), Xbar.stride(0),
-                 U.stride(0), U.stride(1), stream)
-    if err:
-        raise RuntimeError(f"apc_gather launch failed: CUDA error {err}")
+    d = _check("apc_gather", A=(A, "mpn"), X=(X, "mkn"), Xbar=(Xbar, "kn"))
+    U = torch.empty((d["m"], d["k"], d["p"]), dtype=A.dtype, device=A.device)
+    _launch("apc_gather", A.dtype, A.device, A.data_ptr(), X.data_ptr(),
+            Xbar.data_ptr(), U.data_ptr(), d["m"], d["p"], d["n"], d["k"],
+            X.stride(0), X.stride(1), Xbar.stride(0), U.stride(0),
+            U.stride(1))
     return U
 
 
@@ -199,23 +216,41 @@ def apc_scatter(B: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor,
     along their last axis; X̄ (k, n) shared by all workers; γ a Python
     float (a runtime kernel argument).  Y is allocated in X's layout.
     """
-    _check("apc_scatter", B, X, Xbar, rows_axis=1)
-    m, n, p = B.shape
-    k = X.shape[1]
-    if (not U.is_cuda or U.device != B.device or U.dtype != B.dtype
-            or U.shape != (m, k, p) or (p > 1 and U.stride(2) != 1)):
-        raise ValueError(f"apc_scatter: U must be a ({m}, {k}, {p}) "
-                         f"{B.dtype} CUDA tensor with unit stride along p, "
-                         f"got {tuple(U.shape)} {U.dtype} on {U.device}")
+    d = _check("apc_scatter", B=(B, "mnp"), X=(X, "mkn"), Xbar=(Xbar, "kn"),
+               U=(U, "mkp"))
     Y = torch.empty_like(X)
-    fn = getattr(_library(), f"apc_scatter_{_DTYPES[B.dtype]}")
-    with torch.cuda.device(B.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launches["apc_scatter"] += 1
-        err = fn(B.data_ptr(), X.data_ptr(), Xbar.data_ptr(), U.data_ptr(),
-                 float(gamma), Y.data_ptr(), m, n, p, k, X.stride(0),
-                 X.stride(1), Xbar.stride(0), U.stride(0), U.stride(1),
-                 Y.stride(0), Y.stride(1), stream)
-    if err:
-        raise RuntimeError(f"apc_scatter launch failed: CUDA error {err}")
+    _launch("apc_scatter", B.dtype, B.device, B.data_ptr(), X.data_ptr(),
+            Xbar.data_ptr(), U.data_ptr(), float(gamma), Y.data_ptr(),
+            d["m"], d["n"], d["p"], d["k"], X.stride(0), X.stride(1),
+            Xbar.stride(0), U.stride(0), U.stride(1), Y.stride(0),
+            Y.stride(1))
     return Y
+
+
+def cimmino_gather(A: torch.Tensor, Xbar: torch.Tensor) -> torch.Tensor:
+    """U = X̄·Aᵀ for every worker, in one launch.
+
+    A (m, p, n) contiguous; X̄ (k, n) with unit stride along n, shared by
+    all workers.  Returns U (m, k, p), contiguous, in A's dtype.
+    """
+    d = _check("cimmino_gather", A=(A, "mpn"), Xbar=(Xbar, "kn"))
+    U = torch.empty((d["m"], d["k"], d["p"]), dtype=A.dtype, device=A.device)
+    _launch("cimmino_gather", A.dtype, A.device, A.data_ptr(),
+            Xbar.data_ptr(), U.data_ptr(), d["m"], d["p"], d["n"], d["k"],
+            Xbar.stride(0), U.stride(0), U.stride(1))
+    return U
+
+
+def cimmino_scatter(B: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """R = V·Bᵀ for every worker, in one launch.
+
+    B (m, n, p) contiguous; V (m, k, p) with unit stride along p (any
+    worker/row strides, so the (m, k, p) view of a (k, m, p) batch goes
+    in uncopied).  Returns R (m, k, n), contiguous, in B's dtype.
+    """
+    d = _check("cimmino_scatter", B=(B, "mnp"), V=(V, "mkp"))
+    R = torch.empty((d["m"], d["k"], d["n"]), dtype=B.dtype, device=B.device)
+    _launch("cimmino_scatter", B.dtype, B.device, B.data_ptr(), V.data_ptr(),
+            R.data_ptr(), d["m"], d["n"], d["p"], d["k"], V.stride(0),
+            V.stride(1), R.stride(0), R.stride(1))
+    return R

@@ -1,39 +1,47 @@
-// Hand-written CUDA kernels for the APC worker update, for Hopper (sm_90a).
+// Hand-written CUDA kernels for the projection family's worker update,
+// for Hopper (sm_90a).
 //
 // Replace the Pallas TPU kernels of src/repro/kernels/block_projection.py:
 //
-//   apc_gather   (repro.kernels.block_projection:apc_gather)
+//   apc_gather       (repro.kernels.block_projection:apc_gather)
 //       U[w, i, l] = sum_j (X̄[i, j] − X[w, i, j]) · A[w, l, j]
-//   apc_scatter  (repro.kernels.block_projection:apc_scatter)
+//   apc_scatter      (repro.kernels.block_projection:apc_scatter)
 //       Y[w, i, j] = X + γ·((X̄ − X) − sum_l U[w, i, l] · B[w, j, l])
+//   cimmino_gather   (repro.kernels.block_projection:cimmino_gather)
+//       U[w, i, l] = sum_j X̄[i, j] · A[w, l, j]
+//   cimmino_scatter  (repro.kernels.block_projection:cimmino_scatter)
+//       R[w, i, j] = sum_l V[w, i, l] · B[w, j, l]
 //
 // for all m workers w in ONE launch each: A (m, p, n) and B (m, n, p)
-// row-major and contiguous; X (m, k, n), X̄ (k, n), U (m, k, p) and Y
-// (m, k, n) addressed through their worker/row strides with a unit
+// row-major and contiguous; X (m, k, n), X̄ (k, n), U and V (m, k, p), Y
+// and R (m, k, n) addressed through their worker/row strides with a unit
 // stride along the last axis.  The kernels take strides rather than
-// copying: solve_many holds its iterate as (k, m, n) and hands the kernels
-// the (m, k, n) transposed view, and Y is written in the same layout.  X̄
-// is read from its one (k, n) buffer by every worker.
+// copying: solve_many holds its iterate as (k, m, n) and its right-hand
+// sides as (k, m, p) and hands the kernels the (m, k, .) transposed
+// views, and Y is written in the same layout.  X̄ is read from its one
+// (k, n) buffer by every worker.
 //
-// What bounds them on an H100: bytes.  Per step the gather streams all of
-// A and the scatter all of B (m·p·n elements each) and do 2k flops per
-// element; at k = 1 that is 2 flops per 8-byte f64 element, far below the
-// card's flop/byte balance, so each kernel's floor is |A| (or |B|) over
-// the HBM rate.  The design therefore streams each A/B element exactly
-// once, with coalesced loads, and keeps everything else out of HBM:
+// What bounds them on an H100: bytes.  Per step each gather streams all
+// of A and each scatter all of B (m·p·n elements each) and does 2k flops
+// per element; at k = 1 that is 2 flops per 8-byte f64 element, far below
+// the card's flop/byte balance, so each kernel's floor is |A| (or |B|)
+// over the HBM rate.  The design therefore streams each A/B element
+// exactly once, with coalesced loads, and keeps everything else out of
+// HBM:
 //
-//   * Both kernels are the same "row dot" over a row-major matrix M
-//     (gather: M = A_w, rows l, columns j; scatter: M = B_w, rows j,
-//     columns l) against a small right operand V (gather: D = X̄ − X,
-//     formed on the fly; scatter: U).  A block of 8 warps owns 8·R
-//     consecutive rows of M (R = 4, or 2 for the k-chunk-8 scatter) and
-//     all KC ≤ 8 batch rows of its k-chunk; each lane reads consecutive
-//     columns, so a warp reads 256 contiguous bytes of a row per load, and
-//     each loaded element of M feeds KC FMAs.  Two blocks fit on an SM, so
-//     one block's loads overlap the other's barriers.
-//   * V is staged through shared memory in 256-column chunks, once per
-//     block, so the (k, cols) operand is read from L2 once per 8·R rows of
-//     M rather than once per row.
+//   * All four kernels are the same "row dot" over a row-major matrix M
+//     (gathers: M = A_w, rows l, columns j; scatters: M = B_w, rows j,
+//     columns l) against a small right operand (APC gather: D = X̄ − X,
+//     formed on the fly; Cimmino gather: X̄; scatters: U or V).  A block
+//     of 8 warps owns 8·R consecutive rows of M (R = 4, or 2 for the
+//     k-chunk-8 scatters) and all KC ≤ 8 batch rows of its k-chunk; each
+//     lane reads consecutive columns, so a warp reads 256 contiguous bytes
+//     of a row per load, and each loaded element of M feeds KC FMAs.  Two
+//     blocks fit on an SM, so one block's loads overlap the other's
+//     barriers.
+//   * The right operand is staged through shared memory in 256-column
+//     chunks, once per block, so the (k, cols) operand is read from L2
+//     once per 8·R rows of M rather than once per row.
 //   * The reduction over columns (the Pallas kernels' sequential grid
 //     revisits) is a loop inside the block: per-lane partial sums in
 //     registers, then a fixed warp-shuffle tree.  No atomics, no split
@@ -43,16 +51,20 @@
 //   * Ragged edges (p = 7, n = 130, p = 1) are masked inside the kernel:
 //     out-of-range loads read 0, out-of-range outputs are not written.
 //     No padding copies of A or B.
-//   * The scatter fuses the AXPY X + γ(X̄ − X) into the epilogue of the
-//     rank-p correction; γ is a runtime argument, so a new γ builds
-//     nothing.
+//   * The APC scatter fuses the AXPY X + γ(X̄ − X) into the epilogue of
+//     the rank-p correction; γ is a runtime argument, so a new γ builds
+//     nothing.  The Cimmino scatter writes the accumulator as it is: the
+//     v = b − u before it and the master sum ν Σ_w r_w after it stay
+//     outside, as in the reference.
 //
 // f64 accumulates in f64, f32 in f32 (FFMA; no tensor cores, no TF32),
-// with A/B in the same type as X; the wrapper rejects anything else.
-// Every entry returns cudaGetLastError() after its launch.
+// with A/B in the same type as the right operand; the wrapper rejects
+// anything else.  Every entry returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -64,7 +76,7 @@ constexpr int kChunk = 256;                            // staged columns
 // registers a thread.  Left to itself ptxas gave even the k = 1 gather
 // 141 registers, one block per SM, and too few loads in flight to reach
 // the HBM rate (PERF.md).  A warp owns R rows of M and holds R x KC
-// accumulators: R = 4, except R = 2 for the KC = 8 scatter, which spills
+// accumulators: R = 4, except R = 2 for the KC = 8 scatters, which spill
 // under the cap at R = 4.
 constexpr int kMinBlocks = 2;
 template <int KC>
@@ -124,9 +136,10 @@ __device__ __forceinline__ void row_dot(const T* __restrict__ M,
     }
 }
 
-// Gather staging: Vs[kk][c] = X̄[i, c0 + c] − X[w, i, c0 + c], i = k0 + kk.
-template <typename T, int KC>
-struct StageD {
+// Gather staging: Vs[kk][c] = X̄[i, c0 + c] − X[w, i, c0 + c] (APC,
+// kDiff) or X̄[i, c0 + c] (Cimmino, X unused), i = k0 + kk.
+template <typename T, int KC, bool kDiff>
+struct StageXbar {
   const T* X;
   const T* Xbar;
   int64_t n, kvalid, sx_k, sxb_k;
@@ -136,14 +149,16 @@ struct StageD {
       const int c = idx % kChunk;
       const int64_t col = c0 + c;
       T v = T(0);
-      if (kk < kvalid && col < n)
-        v = Xbar[kk * sxb_k + col] - X[kk * sx_k + col];
+      if (kk < kvalid && col < n) {
+        v = Xbar[kk * sxb_k + col];
+        if constexpr (kDiff) v -= X[kk * sx_k + col];
+      }
       Vs[kk][c] = v;
     }
   }
 };
 
-// Scatter staging: Vs[kk][c] = U[w, i, c0 + c].
+// Scatter staging: Vs[kk][c] = U[w, i, c0 + c] (or V for Cimmino).
 template <typename T, int KC>
 struct StageU {
   const T* U;
@@ -158,20 +173,21 @@ struct StageU {
   }
 };
 
+// The gather of block (blockIdx.x, w, k-chunk): U[w, i, l] for this
+// block's 8 R rows l of A_w against the X̄-staged operand.
 // grid (ceil(p / (8 R)), m, ceil(k / KC))
-template <typename T, int KC, int R>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-apc_gather_kernel(const T* __restrict__ A, const T* __restrict__ X,
-                  const T* __restrict__ Xbar, T* __restrict__ U,
-                  int64_t p, int64_t n, int64_t k, int64_t sx_w,
-                  int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  __shared__ T Vs[KC][kChunk];
+template <typename T, int KC, int R, bool kDiff>
+__device__ __forceinline__ void gather_block(
+    const T* __restrict__ A, const T* __restrict__ X,
+    const T* __restrict__ Xbar, T* __restrict__ U, int64_t p, int64_t n,
+    int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k, int64_t su_w,
+    int64_t su_k, T (*Vs)[kChunk]) {
   const int64_t w = blockIdx.y;
   const int64_t k0 = static_cast<int64_t>(blockIdx.z) * KC;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (kWarps * R);
   const int64_t kvalid = k - k0 < KC ? k - k0 : KC;
-  StageD<T, KC> stage{X + w * sx_w + k0 * sx_k, Xbar + k0 * sxb_k, n,
-                      kvalid, sx_k, sxb_k};
+  StageXbar<T, KC, kDiff> stage{kDiff ? X + w * sx_w + k0 * sx_k : X,
+                                Xbar + k0 * sxb_k, n, kvalid, sx_k, sxb_k};
   T acc[R][KC];
   row_dot<T, KC, R>(A + w * p * n, p, n, row0, stage, Vs, acc);
   if (threadIdx.x % 32 != 0) return;
@@ -184,16 +200,18 @@ apc_gather_kernel(const T* __restrict__ A, const T* __restrict__ X,
       if (wrow0 + r < p && kk < kvalid) Uw[kk * su_k + wrow0 + r] = acc[r][kk];
 }
 
+// The scatter of block (blockIdx.x, w, k-chunk): the rank-p product of
+// this block's 8 R rows j of B_w with the staged U (or V), then the
+// epilogue, coalesced along j: Y = X + γ((X̄ − X) − B·U) under kAxpy
+// (APC), Y = B·V otherwise (Cimmino; X and X̄ unused).
 // grid (ceil(n / (8 R)), m, ceil(k / KC))
-template <typename T, int KC, int R>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-apc_scatter_kernel(const T* __restrict__ B, const T* __restrict__ X,
-                   const T* __restrict__ Xbar, const T* __restrict__ U,
-                   T gamma, T* __restrict__ Y, int64_t n, int64_t p,
-                   int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
-                   int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
-  __shared__ T Vs[KC][kChunk];
-  __shared__ T Cs[KC][(kWarps * R)];      // the reduced B·U per row
+template <typename T, int KC, int R, bool kAxpy>
+__device__ __forceinline__ void scatter_block(
+    const T* __restrict__ B, const T* __restrict__ X,
+    const T* __restrict__ Xbar, const T* __restrict__ U, T gamma,
+    T* __restrict__ Y, int64_t n, int64_t p, int64_t k, int64_t sx_w,
+    int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k, int64_t sy_w,
+    int64_t sy_k, T (*Vs)[kChunk], T (*Cs)[kWarps * R]) {
   const int64_t w = blockIdx.y;
   const int64_t k0 = static_cast<int64_t>(blockIdx.z) * KC;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (kWarps * R);
@@ -209,23 +227,83 @@ apc_scatter_kernel(const T* __restrict__ B, const T* __restrict__ X,
       for (int kk = 0; kk < KC; ++kk) Cs[kk][wr + r] = acc[r][kk];
   }
   __syncthreads();
-  // epilogue: coalesced along j, the fused AXPY
-  const T* Xw = X + w * sx_w + k0 * sx_k;
-  const T* Xb = Xbar + k0 * sxb_k;
   T* Yw = Y + w * sy_w + k0 * sy_k;
   for (int idx = threadIdx.x; idx < KC * (kWarps * R); idx += kThreads) {
     const int kk = idx / (kWarps * R);
     const int jj = idx % (kWarps * R);
     const int64_t j = row0 + jj;
     if (kk < kvalid && j < n) {
-      const T x = Xw[kk * sx_k + j];
-      const T d = Xb[kk * sxb_k + j] - x;
-      Yw[kk * sy_k + j] = x + gamma * (d - Cs[kk][jj]);
+      if constexpr (kAxpy) {
+        const T x = X[w * sx_w + (k0 + kk) * sx_k + j];
+        const T d = Xbar[(k0 + kk) * sxb_k + j] - x;
+        Yw[kk * sy_k + j] = x + gamma * (d - Cs[kk][jj]);
+      } else {
+        Yw[kk * sy_k + j] = Cs[kk][jj];
+      }
     }
   }
 }
 
+template <typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+apc_gather_kernel(const T* __restrict__ A, const T* __restrict__ X,
+                  const T* __restrict__ Xbar, T* __restrict__ U,
+                  int64_t p, int64_t n, int64_t k, int64_t sx_w,
+                  int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k) {
+  __shared__ T Vs[KC][kChunk];
+  gather_block<T, KC, R, true>(A, X, Xbar, U, p, n, k, sx_w, sx_k, sxb_k,
+                               su_w, su_k, Vs);
+}
+
+template <typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+cimmino_gather_kernel(const T* __restrict__ A, const T* __restrict__ Xbar,
+                      T* __restrict__ U, int64_t p, int64_t n, int64_t k,
+                      int64_t sxb_k, int64_t su_w, int64_t su_k) {
+  __shared__ T Vs[KC][kChunk];
+  gather_block<T, KC, R, false>(A, nullptr, Xbar, U, p, n, k, 0, 0, sxb_k,
+                                su_w, su_k, Vs);
+}
+
+template <typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+apc_scatter_kernel(const T* __restrict__ B, const T* __restrict__ X,
+                   const T* __restrict__ Xbar, const T* __restrict__ U,
+                   T gamma, T* __restrict__ Y, int64_t n, int64_t p,
+                   int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
+                   int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
+  __shared__ T Vs[KC][kChunk];
+  __shared__ T Cs[KC][kWarps * R];        // the reduced B·U per row
+  scatter_block<T, KC, R, true>(B, X, Xbar, U, gamma, Y, n, p, k, sx_w,
+                                sx_k, sxb_k, su_w, su_k, sy_w, sy_k, Vs,
+                                Cs);
+}
+
+template <typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+cimmino_scatter_kernel(const T* __restrict__ B, const T* __restrict__ V,
+                       T* __restrict__ Rout, int64_t n, int64_t p,
+                       int64_t k, int64_t sv_w, int64_t sv_k, int64_t sr_w,
+                       int64_t sr_k) {
+  __shared__ T Vs[KC][kChunk];
+  __shared__ T Cs[KC][kWarps * R];        // the reduced B·V per row
+  scatter_block<T, KC, R, false>(B, nullptr, nullptr, V, T(0), Rout, n, p,
+                                 k, 0, 0, 0, sv_w, sv_k, sr_w, sr_k, Vs,
+                                 Cs);
+}
+
 inline int kc_for(int64_t k) { return k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : 8; }
+
+// Calls f(std::integral_constant<int, KC>) with the k-chunk for k.
+template <typename F>
+void with_kc(int64_t k, F&& f) {
+  switch (kc_for(k)) {
+    case 1: f(std::integral_constant<int, 1>{}); break;
+    case 2: f(std::integral_constant<int, 2>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    default: f(std::integral_constant<int, 8>{}); break;
+  }
+}
 
 inline dim3 grid_for(int64_t rows, int64_t m, int64_t k, int kc, int r) {
   const int64_t rb = kWarps * r;                       // rows per block
@@ -234,77 +312,75 @@ inline dim3 grid_for(int64_t rows, int64_t m, int64_t k, int kc, int r) {
               static_cast<unsigned>((k + kc - 1) / kc));
 }
 
-template <typename T, int KC>
-void launch_gather(const T* a, const T* x, const T* xb, T* u, int64_t m,
-                   int64_t p, int64_t n, int64_t k, int64_t sx_w,
-                   int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-                   cudaStream_t s) {
-  apc_gather_kernel<T, KC, kGatherRows>
-      <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
-          a, x, xb, u, p, n, k, sx_w, sx_k, sxb_k, su_w, su_k);
-}
-
-template <typename T, int KC>
-void launch_scatter(const T* b, const T* x, const T* xb, const T* u, T g,
-                    T* y, int64_t m, int64_t n, int64_t p, int64_t k,
-                    int64_t sx_w, int64_t sx_k, int64_t sxb_k, int64_t su_w,
-                    int64_t su_k, int64_t sy_w, int64_t sy_k,
-                    cudaStream_t s) {
-  constexpr int R = scatter_rows<KC>();
-  apc_scatter_kernel<T, KC, R>
-      <<<grid_for(n, m, k, KC, R), kThreads, 0, s>>>(
-          b, x, xb, u, g, y, n, p, k, sx_w, sx_k, sxb_k, su_w, su_k, sy_w,
-          sy_k);
-}
-
 template <typename T>
-int gather(const void* A, const void* X, const void* Xbar, void* U,
-           int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w,
-           int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-           void* stream) {
+int apc_gather(const void* A, const void* X, const void* Xbar, void* U,
+               int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w,
+               int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
+               void* stream) {
   if (m == 0 || p == 0 || k == 0) return 0;
-  const T* a = static_cast<const T*>(A);
-  const T* x = static_cast<const T*>(X);
-  const T* xb = static_cast<const T*>(Xbar);
-  T* u = static_cast<T*>(U);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kc_for(k)) {
-    case 1: launch_gather<T, 1>(a, x, xb, u, m, p, n, k, sx_w, sx_k, sxb_k,
-                                su_w, su_k, s); break;
-    case 2: launch_gather<T, 2>(a, x, xb, u, m, p, n, k, sx_w, sx_k, sxb_k,
-                                su_w, su_k, s); break;
-    case 4: launch_gather<T, 4>(a, x, xb, u, m, p, n, k, sx_w, sx_k, sxb_k,
-                                su_w, su_k, s); break;
-    default: launch_gather<T, 8>(a, x, xb, u, m, p, n, k, sx_w, sx_k, sxb_k,
-                                 su_w, su_k, s); break;
-  }
+  with_kc(k, [&](auto kc) {
+    constexpr int KC = decltype(kc)::value;
+    apc_gather_kernel<T, KC, kGatherRows>
+        <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
+            static_cast<const T*>(A), static_cast<const T*>(X),
+            static_cast<const T*>(Xbar), static_cast<T*>(U), p, n, k, sx_w,
+            sx_k, sxb_k, su_w, su_k);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int scatter(const void* B, const void* X, const void* Xbar, const void* U,
-            double gamma, void* Y, int64_t m, int64_t n, int64_t p,
-            int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
-            int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k,
-            void* stream) {
-  if (m == 0 || n == 0 || k == 0) return 0;
-  const T* b = static_cast<const T*>(B);
-  const T* x = static_cast<const T*>(X);
-  const T* xb = static_cast<const T*>(Xbar);
-  const T* u = static_cast<const T*>(U);
-  T* y = static_cast<T*>(Y);
-  const T g = static_cast<T>(gamma);
+int cimmino_gather(const void* A, const void* Xbar, void* U, int64_t m,
+                   int64_t p, int64_t n, int64_t k, int64_t sxb_k,
+                   int64_t su_w, int64_t su_k, void* stream) {
+  if (m == 0 || p == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kc_for(k)) {
-    case 1: launch_scatter<T, 1>(b, x, xb, u, g, y, m, n, p, k, sx_w, sx_k,
-                                 sxb_k, su_w, su_k, sy_w, sy_k, s); break;
-    case 2: launch_scatter<T, 2>(b, x, xb, u, g, y, m, n, p, k, sx_w, sx_k,
-                                 sxb_k, su_w, su_k, sy_w, sy_k, s); break;
-    case 4: launch_scatter<T, 4>(b, x, xb, u, g, y, m, n, p, k, sx_w, sx_k,
-                                 sxb_k, su_w, su_k, sy_w, sy_k, s); break;
-    default: launch_scatter<T, 8>(b, x, xb, u, g, y, m, n, p, k, sx_w, sx_k,
-                                  sxb_k, su_w, su_k, sy_w, sy_k, s); break;
-  }
+  with_kc(k, [&](auto kc) {
+    constexpr int KC = decltype(kc)::value;
+    cimmino_gather_kernel<T, KC, kGatherRows>
+        <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
+            static_cast<const T*>(A), static_cast<const T*>(Xbar),
+            static_cast<T*>(U), p, n, k, sxb_k, su_w, su_k);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int apc_scatter(const void* B, const void* X, const void* Xbar,
+                const void* U, double gamma, void* Y, int64_t m, int64_t n,
+                int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
+                int64_t sxb_k, int64_t su_w, int64_t su_k, int64_t sy_w,
+                int64_t sy_k, void* stream) {
+  if (m == 0 || n == 0 || k == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  with_kc(k, [&](auto kc) {
+    constexpr int KC = decltype(kc)::value;
+    constexpr int R = scatter_rows<KC>();
+    apc_scatter_kernel<T, KC, R>
+        <<<grid_for(n, m, k, KC, R), kThreads, 0, s>>>(
+            static_cast<const T*>(B), static_cast<const T*>(X),
+            static_cast<const T*>(Xbar), static_cast<const T*>(U),
+            static_cast<T>(gamma), static_cast<T*>(Y), n, p, k, sx_w, sx_k,
+            sxb_k, su_w, su_k, sy_w, sy_k);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int cimmino_scatter(const void* B, const void* V, void* Rout, int64_t m,
+                    int64_t n, int64_t p, int64_t k, int64_t sv_w,
+                    int64_t sv_k, int64_t sr_w, int64_t sr_k, void* stream) {
+  if (m == 0 || n == 0 || k == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  with_kc(k, [&](auto kc) {
+    constexpr int KC = decltype(kc)::value;
+    constexpr int R = scatter_rows<KC>();
+    cimmino_scatter_kernel<T, KC, R>
+        <<<grid_for(n, m, k, KC, R), kThreads, 0, s>>>(
+            static_cast<const T*>(B), static_cast<const T*>(V),
+            static_cast<T*>(Rout), n, p, k, sv_w, sv_k, sr_w, sr_k);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -316,16 +392,16 @@ int apc_gather_f64(const void* A, const void* X, const void* Xbar, void* U,
                    int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w,
                    int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
                    void* stream) {
-  return gather<double>(A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k, su_w,
-                        su_k, stream);
+  return apc_gather<double>(A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k,
+                            su_w, su_k, stream);
 }
 
 int apc_gather_f32(const void* A, const void* X, const void* Xbar, void* U,
                    int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w,
                    int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
                    void* stream) {
-  return gather<float>(A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k, su_w,
-                       su_k, stream);
+  return apc_gather<float>(A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k,
+                           su_w, su_k, stream);
 }
 
 int apc_scatter_f64(const void* B, const void* X, const void* Xbar,
@@ -333,8 +409,8 @@ int apc_scatter_f64(const void* B, const void* X, const void* Xbar,
                     int64_t n, int64_t p, int64_t k, int64_t sx_w,
                     int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
                     int64_t sy_w, int64_t sy_k, void* stream) {
-  return scatter<double>(B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w, sx_k,
-                         sxb_k, su_w, su_k, sy_w, sy_k, stream);
+  return apc_scatter<double>(B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w,
+                             sx_k, sxb_k, su_w, su_k, sy_w, sy_k, stream);
 }
 
 int apc_scatter_f32(const void* B, const void* X, const void* Xbar,
@@ -342,8 +418,38 @@ int apc_scatter_f32(const void* B, const void* X, const void* Xbar,
                     int64_t n, int64_t p, int64_t k, int64_t sx_w,
                     int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
                     int64_t sy_w, int64_t sy_k, void* stream) {
-  return scatter<float>(B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w, sx_k,
-                        sxb_k, su_w, su_k, sy_w, sy_k, stream);
+  return apc_scatter<float>(B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w,
+                            sx_k, sxb_k, su_w, su_k, sy_w, sy_k, stream);
+}
+
+int cimmino_gather_f64(const void* A, const void* Xbar, void* U, int64_t m,
+                       int64_t p, int64_t n, int64_t k, int64_t sxb_k,
+                       int64_t su_w, int64_t su_k, void* stream) {
+  return cimmino_gather<double>(A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k,
+                                stream);
+}
+
+int cimmino_gather_f32(const void* A, const void* Xbar, void* U, int64_t m,
+                       int64_t p, int64_t n, int64_t k, int64_t sxb_k,
+                       int64_t su_w, int64_t su_k, void* stream) {
+  return cimmino_gather<float>(A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k,
+                               stream);
+}
+
+int cimmino_scatter_f64(const void* B, const void* V, void* R, int64_t m,
+                        int64_t n, int64_t p, int64_t k, int64_t sv_w,
+                        int64_t sv_k, int64_t sr_w, int64_t sr_k,
+                        void* stream) {
+  return cimmino_scatter<double>(B, V, R, m, n, p, k, sv_w, sv_k, sr_w,
+                                 sr_k, stream);
+}
+
+int cimmino_scatter_f32(const void* B, const void* V, void* R, int64_t m,
+                        int64_t n, int64_t p, int64_t k, int64_t sv_w,
+                        int64_t sv_k, int64_t sr_w, int64_t sr_k,
+                        void* stream) {
+  return cimmino_scatter<float>(B, V, R, m, n, p, k, sv_w, sv_k, sr_w, sr_k,
+                                stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
 """Distributed solve driver of the port (local subset of
 ``repro.launch.solve``).
 
-Partitions a dense linear system across workers, runs APC with its
-auto-tuned optimal parameters on the card (or ``--device cpu``), and
-prints the same lines as the reference driver.  ``--use-kernel`` routes
-the worker update through the hand-written CUDA kernels.  The mesh
+Partitions a dense linear system across workers, runs any registered
+solver (``--method``, APC by default) with its auto-tuned optimal
+parameters on the card (or ``--device cpu``), and prints the same lines
+as the reference's CLI.  ``--use-kernel`` routes the worker update of
+apc, consensus and cimmino through the hand-written CUDA kernels; the
+other solvers have no kernel and reject it.  The mesh
 backend, redundancy, checkpoints and the factor store are not offered
 yet (ROADMAP A12, A14, A15).
 
@@ -37,12 +39,20 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--use-kernel", action="store_true",
                     help="route the per-worker update through the CUDA "
-                         "apc_gather/apc_scatter kernels")
+                         "kernels: apc_gather/apc_scatter for apc and "
+                         "consensus, cimmino_gather/cimmino_scatter for "
+                         "cimmino (no other method has a kernel)")
     ap.add_argument("--x64", action=argparse.BooleanOptionalAction,
                     default=True, help="float64 math (default on)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
+    solver = solvers.get(args.method)
+    if args.use_kernel and not solver.supports_kernel:
+        kernel_methods = [n for n in solvers.available()
+                          if solvers.get(n).supports_kernel]
+        ap.error(f"--use-kernel: solver {args.method!r} has no kernel path "
+                 f"(kernel methods: {', '.join(kernel_methods)})")
 
     device = dev.resolve(args.device)
     dtype = torch.float64 if args.x64 else torch.float32
@@ -52,7 +62,6 @@ def main(argv=None):
     A, b = pad_to_blocks(*sys_.dense(), args.workers)
     sys_ = partition(A, b, args.workers, x_true=sys_.x_true, mode=sys_.mode)
 
-    solver = solvers.get(args.method)
     params, rho = solver.analyze(sys_)   # one spectral pass for both
     print(f"problem {args.problem}: N={sys_.N} n={sys_.n} m={sys_.m}  "
           f"method={args.method}")

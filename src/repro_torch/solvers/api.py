@@ -80,8 +80,12 @@ class Solver:
     """Base class / protocol for every registered solver."""
 
     name: str = "solver"
+    paper_name: str = ""           # display name used in the paper's tables
     supports_kernel: bool = False  # hand-written kernel path available
     param_names: Tuple[str, ...] = ()
+    # True when a prior state warm-starts a PERTURBED right-hand side
+    # (the state holds no b-dependent cache); read by serving (ROADMAP A13)
+    warm_rhs_ok: bool = False
     # System classes this solver handles; checked at dispatch against the
     # system's (mode, structure) — see solvers/capability.py.
     supports: frozenset = frozenset({"square"})
@@ -116,8 +120,10 @@ class Solver:
     def step_many(self, factors: Any, Bb: torch.Tensor, states: Any,
                   params: Dict[str, float], *,
                   use_kernel: bool = False) -> Any:
-        """One iteration over a (k,)-batched RHS/state bundle."""
-        raise NotImplementedError
+        """One iteration over a (k,)-batched RHS/state bundle: ``step`` on
+        the batched state (every hook is batch-polymorphic), so the kernel
+        path is ONE launch of each kernel for all k rows."""
+        return self.step(factors, Bb, states, params, use_kernel=use_kernel)
 
     def extract(self, state: Any) -> torch.Tensor:
         """The global estimate x (n,) — or (k, n) — carried by ``state``."""
@@ -130,8 +136,8 @@ class Solver:
 
     def step_many_residual(self, factors: Any, Bb: torch.Tensor,
                            states: Any, params: Dict[str, float]):
-        raise NotImplementedError(
-            f"solver {self.name!r} does not implement the fused residual")
+        """``step_residual`` on the batched state; rsq is (k,)."""
+        return self.step_residual(factors, Bb, states, params)
 
     def analyze(self, sys: BlockSystem):
         """(auto-tuned params, theoretical rho or None) in ONE spectral

@@ -41,16 +41,17 @@ def check_capability(solver, sys, *, context: str = "solve") -> None:
             f"{sorted(missing)} systems: {context} was called with a "
             f"mode={sys.mode!r}, structure={sys.structure!r} system but "
             f"{solver.name!r} declares supports="
-            f"{sorted(solver.supports)}.")
+            f"{sorted(solver.supports)} (the port's least-squares and "
+            f"sparse capabilities are ROADMAP A9).")
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """The validated execution surface of one solve (local subset).
 
-    ``kernel=True`` routes the worker update through the hand-written
-    CUDA ``apc_gather``/``apc_scatter`` pair (their plain PyTorch versions
-    for tensors on the CPU).  ``warm_state`` resumes from a prior state;
+    ``kernel=True`` routes the worker update of apc, consensus and
+    cimmino through the hand-written CUDA kernels (their plain PyTorch
+    versions for tensors on the CPU).  ``warm_state`` resumes from a prior state;
     ``factors`` skips the one-time factorization.
     """
 

@@ -1,0 +1,214 @@
+"""Gradient-family solvers: DGD, D-NAG, D-HBM and preconditioned D-HBM
+(counterpart of ``repro.solvers.gradient``, dense and local).
+
+Each worker computes its partial gradient g_i = A_i^T (A_i x - b_i); the
+master sums them.  P-DHBM (paper Sec 6) premultiplies each local block by
+S_i = (A_i A_i^T)^{-1/2} so that heavy-ball attains the APC rate — S
+depends only on A, so it lives in ``prepare``; the transformed RHS S_i b_i
+is cached in the state at ``init`` time.  The family has no kernel: its
+two products per step are plain einsums, as the reference left them to
+XLA.  Every hook is batch-polymorphic (x (k, n), b (k, m, p)).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import spectral
+from repro_torch.core.partition import BlockSystem
+from repro_torch.core.precond import block_inv_sqrt
+
+from .api import Solver
+from .registry import register
+
+
+class GradFactors(NamedTuple):
+    A: torch.Tensor      # (m, p, n) row blocks
+
+
+class PrecondFactors(NamedTuple):
+    C: torch.Tensor      # (m, p, n) preconditioned blocks S_i A_i
+    S: torch.Tensor      # (m, p, p) per-worker (A_i A_i^T)^{-1/2}
+
+
+def _grad(A, b, x):
+    """Full gradient sum_i A_i^T (A_i x - b_i) of (1/2)||Ax-b||^2, for x
+    (n,) / b (m, p) or a batch x (k, n) / b (k, m, p)."""
+    r = torch.einsum("mpn,...n->...mp", A, x) - b
+    return torch.einsum("mpn,...mp->...n", A, r)
+
+
+class _GradientSolver(Solver):
+    """Shared lifecycle of the gradient family: the summed gradient of
+    (1/2)||Cx-d||^2 over ``_blocks``/``_rhs``, handed to the per-solver
+    master update ``_update``.
+
+    The iteration re-reads b every step, so a prior state warm-starts a
+    perturbed right-hand side too (``warm_rhs_ok``) — except P-DHBM,
+    whose state caches S b.  The reference also runs least-squares and
+    sparse systems; in the port those are ROADMAP A9.
+    """
+
+    warm_rhs_ok = True
+    supports = frozenset({"square"})
+
+    def prepare(self, A, params):
+        return GradFactors(A=A)
+
+    def _blocks(self, factors):
+        """The (m, p, n) row blocks the gradient runs over."""
+        return factors.A
+
+    def _rhs(self, factors, b, state):
+        """The right-hand side paired with ``_blocks``."""
+        return b
+
+    def _update(self, state, g, params):
+        """Master update from the summed gradient g (override)."""
+        raise NotImplementedError
+
+    def step(self, factors, b, state, params, *, use_kernel=False):
+        g = _grad(self._blocks(factors), self._rhs(factors, b, state),
+                  state.x)
+        return self._update(state, g, params)
+
+    def _zeros(self, factors, b):
+        """x = 0 in the blocks' dtype: (n,), or (k, n) for a batch b."""
+        A = self._blocks(factors)
+        return A.new_zeros(b.shape[:-2] + (A.shape[2],))
+
+    def extract(self, state):
+        return state.x
+
+
+class DGDState(NamedTuple):
+    x: torch.Tensor
+    t: int
+
+
+@register("dgd")
+class DGDSolver(_GradientSolver):
+    """Distributed gradient descent, Eq. (8)."""
+
+    paper_name = "DGD"
+    param_names = ("alpha",)
+
+    def default_params(self, sys: BlockSystem):
+        return self.analyze(sys)[0]
+
+    def analyze(self, sys: BlockSystem):
+        alpha, rho = spectral.dgd_optimal(*spectral.ata_extremes(sys))
+        return {"alpha": alpha}, rho
+
+    def init(self, factors, b, params):
+        return DGDState(x=self._zeros(factors, b), t=0)
+
+    def _update(self, state, g, params):
+        return DGDState(x=state.x - params["alpha"] * g, t=state.t + 1)
+
+
+class DNAGState(NamedTuple):
+    x: torch.Tensor
+    y_prev: torch.Tensor
+    t: int
+
+
+@register("dnag")
+class DNAGSolver(_GradientSolver):
+    """Distributed Nesterov accelerated gradient, Eq. (10)."""
+
+    paper_name = "D-NAG"
+    param_names = ("alpha", "beta")
+
+    def default_params(self, sys: BlockSystem):
+        return self.analyze(sys)[0]
+
+    def analyze(self, sys: BlockSystem):
+        a, b_, rho = spectral.dnag_optimal(*spectral.ata_extremes(sys))
+        return {"alpha": a, "beta": b_}, rho
+
+    def init(self, factors, b, params):
+        z = self._zeros(factors, b)
+        return DNAGState(x=z, y_prev=z, t=0)
+
+    def _update(self, state, g, params):
+        alpha, beta = params["alpha"], params["beta"]
+        y = state.x - alpha * g
+        return DNAGState(x=(1.0 + beta) * y - beta * state.y_prev, y_prev=y,
+                         t=state.t + 1)
+
+
+class DHBMState(NamedTuple):
+    x: torch.Tensor
+    z: torch.Tensor
+    t: int
+
+
+@register("dhbm")
+class DHBMSolver(_GradientSolver):
+    """Distributed heavy-ball method, Eq. (12)."""
+
+    paper_name = "D-HBM"
+    param_names = ("alpha", "beta")
+
+    def default_params(self, sys: BlockSystem):
+        return self.analyze(sys)[0]
+
+    def analyze(self, sys: BlockSystem):
+        a, b_, rho = spectral.dhbm_optimal(*spectral.ata_extremes(sys))
+        return {"alpha": a, "beta": b_}, rho
+
+    def init(self, factors, b, params):
+        z = self._zeros(factors, b)
+        return DHBMState(x=z, z=z, t=0)
+
+    def _update(self, state, g, params):
+        z_new = params["beta"] * state.z + g
+        return DHBMState(x=state.x - params["alpha"] * z_new, z=z_new,
+                         t=state.t + 1)
+
+
+class PDHBMState(NamedTuple):
+    x: torch.Tensor
+    z: torch.Tensor
+    t: int
+    d: torch.Tensor      # (m, p) or (k, m, p) cached RHS S_i b_i
+
+
+@register("pdhbm")
+class PDHBMSolver(DHBMSolver):
+    """D-HBM on the Sec-6 preconditioned system — matches the APC rate.
+
+    C^T C = m X exactly, so the optimal (alpha, beta) come from the
+    spectrum of X scaled by m, with no eigensolve on C itself.
+    """
+
+    paper_name = "P-DHBM"
+    warm_rhs_ok = False     # the state caches S b — stale under a new RHS
+
+    def analyze(self, sys: BlockSystem):
+        mu_min, mu_max = spectral.mu_extremes(spectral.x_matrix(sys))
+        a, b_, rho = spectral.dhbm_optimal(sys.m * mu_min, sys.m * mu_max)
+        return {"alpha": a, "beta": b_}, rho
+
+    def prepare(self, A, params):
+        S = block_inv_sqrt(A)
+        C = S @ A.to(torch.float64)
+        return PrecondFactors(C=C.to(A.dtype), S=S.to(A.dtype))
+
+    def init(self, factors, b, params):
+        z = self._zeros(factors, b)
+        return PDHBMState(x=z, z=z, t=0,
+                          d=torch.einsum("mpq,...mq->...mp", factors.S, b))
+
+    def _blocks(self, factors):
+        return factors.C
+
+    def _rhs(self, factors, b, state):
+        return state.d
+
+    def _update(self, state, g, params):
+        z_new = params["beta"] * state.z + g
+        return PDHBMState(x=state.x - params["alpha"] * z_new, z=z_new,
+                          t=state.t + 1, d=state.d)

@@ -1,15 +1,20 @@
-"""The APC solver (counterpart of ``repro.solvers.projection.APCSolver``).
+"""The projection family: APC, consensus and block Cimmino (counterpart
+of ``repro.solvers.projection``, dense and local).
 
-Shares the per-worker null-space projection of ``core/apc.py`` (Gram
-Cholesky factors, P_i v = v − A_iᵀ G_i⁻¹ A_i v), runs the kernel path
-(``kernel=True``: the CUDA ``apc_gather``/``apc_scatter`` pair on the
-card, their plain versions on the CPU) and auto-tunes (gamma, eta) from
-the Theorem-1 spectral analysis of X when none are given.  Consensus and
-Cimmino are ROADMAP A6.
+APC shares the per-worker null-space projection of ``core/apc.py`` (Gram
+Cholesky factors, P_i v = v − A_iᵀ G_i⁻¹ A_i v) and auto-tunes (gamma,
+eta) from the Theorem-1 spectral analysis of X when none are given;
+consensus is APC with gamma = eta = 1; Cimmino sums the row projections
+A_iᵀ G_i⁻¹ (b_i − A_i x̄) into x̄.  ``kernel=True`` runs the worker update
+through the CUDA kernels on the card (APC and consensus:
+``apc_gather``/``apc_scatter``; Cimmino: ``cimmino_gather``/
+``cimmino_scatter``), at every batch size, and through their plain
+versions on the CPU.
 
 Every hook is batch-polymorphic: states may carry a leading (k,) RHS
-axis — x (k, m, n), x̄ (k, n) — so ``step_many`` is ``step`` on a batched
-state and ONE launch of each kernel serves all k rows and m workers.
+axis — x (k, m, n), x̄ (k, n), b (k, m, p) — so ``step_many`` is ``step``
+on a batched state and ONE launch of each kernel serves all k rows and m
+workers.
 """
 from __future__ import annotations
 
@@ -59,6 +64,7 @@ def _min_norm_solutions(factors: ProjFactors,
 class APCSolver(Solver):
     """Accelerated Projection-based Consensus (paper Algorithm 1)."""
 
+    paper_name = "APC"
     supports_kernel = True
     param_names = ("gamma", "eta")
     # the paper's convergence theory (Theorem 1) assumes an exact solution
@@ -108,11 +114,6 @@ class APCSolver(Solver):
         x_new, _ = self._step_u(factors, state, params["gamma"], use_kernel)
         return apc_core.master_update(x_new, state, params["eta"])
 
-    def step_many(self, factors, Bb, states, params, *, use_kernel=False):
-        """``step`` on a batched (k, m, n) state: one kernel launch each
-        for the whole batch."""
-        return self.step(factors, Bb, states, params, use_kernel=use_kernel)
-
     def step_residual(self, factors, b, state, params):
         """(new state, ‖A x̄ − b‖² of the consumed state) — the kernel
         path whenever the factors carry B, as in the reference."""
@@ -121,8 +122,93 @@ class APCSolver(Solver):
         return (apc_core.master_update(x_new, state, params["eta"]),
                 torch.sum(u * u, dim=(-2, -1)))
 
-    def step_many_residual(self, factors, Bb, states, params):
-        return self.step_residual(factors, Bb, states, params)
+    def extract(self, state):
+        return state.xbar
+
+
+@register("consensus")
+class ConsensusSolver(APCSolver):
+    """Plain projection consensus == APC with gamma = eta = 1."""
+
+    paper_name = "Consensus"
+
+    def default_params(self, sys: BlockSystem):
+        return {"gamma": 1.0, "eta": 1.0}
+
+    def analyze(self, sys: BlockSystem):
+        mu_min, _ = spectral.mu_extremes(spectral.x_matrix(sys))
+        return self.default_params(sys), spectral.consensus_rate(mu_min)
+
+
+class CimminoState(NamedTuple):
+    xbar: torch.Tensor    # (n,) or (k, n) master estimate
+    t: int                # iteration counter
+
+
+@register("cimmino")
+class CimminoSolver(Solver):
+    """Block Cimmino row projections (Sec 4.5; Proposition 2: APC with
+    gamma = 1 and eta = m nu)."""
+
+    paper_name = "B-Cimmino"
+    supports_kernel = True
+    param_names = ("nu",)
+    # the state is the master estimate alone and b enters every step, so
+    # a prior state warm-starts perturbed right-hand sides too
+    warm_rhs_ok = True
+    # least-squares mode and sparse blocks are ROADMAP A9 in the port
+    supports = frozenset({"square"})
+    # The gather result u = A x̄ gives the consumed state's residual
+    # blocks directly: A x̄ − b = −v, v = b − u the scatter's operand.
+    supports_fused_residual = True
+
+    def default_params(self, sys: BlockSystem):
+        return self.analyze(sys)[0]
+
+    def analyze(self, sys: BlockSystem):
+        X = spectral.x_matrix(sys)
+        nu_m, rho = spectral.cimmino_optimal(*spectral.mu_extremes(X))
+        return {"nu": nu_m / sys.m}, rho
+
+    def prepare(self, A, params):
+        return _proj_prepare(A, params.get("jitter", 0.0))
+
+    def kernel_factors(self, factors):
+        return _with_pinv(factors)
+
+    def init(self, factors, b, params):
+        """x̄ = 0 in b's dtype: (n,), or (k, n) for a batch b (k, m, p)."""
+        return CimminoState(
+            xbar=b.new_zeros(b.shape[:-2] + (factors.A.shape[2],)), t=0)
+
+    def _r_v(self, factors, b, xbar, use_kernel):
+        """(Σ_i r_i, v): the summed row projections r_i = A_iᵀG_i⁻¹v_i and
+        v = b − A x̄, the residual source, in b's layout.  The kernel path
+        hands the kernels the (m, k, p) view of a batched b (no copy)."""
+        if not use_kernel:
+            v = b - torch.einsum("mpn,...n->...mp", factors.A, xbar)
+            r = torch.einsum("mpn,...mp->...mn", factors.A,
+                             _gram_solve(factors.chol, v))
+            return r.sum(dim=-2), v
+        factors = _with_pinv(factors)
+        batched = b.dim() == 3
+        v = kops.cimmino_residual(b.transpose(0, 1) if batched else b,
+                                  kops.cimmino_gather(factors.A, xbar))
+        r = kops.cimmino_scatter(factors.B, v).sum(dim=0)
+        return r, v.transpose(0, 1) if batched else v
+
+    def step(self, factors, b, state, params, *, use_kernel=False):
+        r, _ = self._r_v(factors, b, state.xbar, use_kernel)
+        return CimminoState(xbar=state.xbar + params["nu"] * r,
+                            t=state.t + 1)
+
+    def step_residual(self, factors, b, state, params):
+        """(new state, ‖A x̄ − b‖² of the consumed state) — the kernel
+        path whenever the factors carry B, as in the reference."""
+        r, v = self._r_v(factors, b, state.xbar, factors.B is not None)
+        return (CimminoState(xbar=state.xbar + params["nu"] * r,
+                             t=state.t + 1),
+                torch.sum(v * v, dim=(-2, -1)))
 
     def extract(self, state):
         return state.xbar

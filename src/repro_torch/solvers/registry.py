@@ -2,7 +2,8 @@
 
     from repro_torch import solvers
     res = solvers.get("apc").solve(sys, iters=500)
-    solvers.available()   # ['apc'] in this slice of the port
+    solvers.available()   # apc, cimmino, consensus, dgd, dhbm, dnag,
+                          # madmm, pdhbm
 """
 from __future__ import annotations
 

@@ -18,10 +18,12 @@ from repro import solvers as ref_solvers  # noqa: E402
 from repro.data import linsys as ref_linsys  # noqa: E402
 from repro.launch import solve as ref_cli  # noqa: E402
 from repro_torch import interop, solvers  # noqa: E402
+from repro_torch.core.apc import APCState  # noqa: E402
 from repro_torch.core.partition import partition  # noqa: E402
 from repro_torch.data import linsys  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import solve as cli  # noqa: E402
+from repro_torch.solvers.projection import ProjFactors  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -62,7 +64,7 @@ def test_params_match(systems):
     for key in p_ref:
         assert p_port[key] == pytest.approx(p_ref[key], rel=1e-10)
     assert rho_port == pytest.approx(rho_ref, rel=1e-10)
-    assert solvers.available() == ["apc"]
+    assert solvers.available() == ref_solvers.available()
 
 
 @pytest.mark.parametrize("kernel,iters", [(False, 150), (True, 20)])
@@ -130,11 +132,11 @@ def test_reference_state_continues_in_port(systems, params, kernel):
     for _ in range(3):
         st_ref = s_ref.step(f_ref, ref_sys.b_blocks, st_ref, params,
                             use_kernel=kernel)
-    f = interop.factors_from_numpy(
-        *(None if a is None else np.asarray(a) for a in f_ref),
+    f = interop.from_numpy(
+        ProjFactors, *(None if a is None else np.asarray(a) for a in f_ref),
         device="cpu")
-    st = interop.state_from_numpy(*(np.asarray(a) for a in st_ref),
-                                  device="cpu")
+    st = interop.from_numpy(APCState, *(np.asarray(a) for a in st_ref),
+                            device="cpu")
     b = interop.system_from_numpy(ref_sys.A_blocks, ref_sys.b_blocks,
                                   device="cpu").b_blocks
     assert st.t == 3
