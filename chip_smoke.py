@@ -10,8 +10,12 @@ script exits non-zero without its last line:
    the CUDA kernels built from the checkout's sources;
 2. kernel vs plain version on the card: ``apc_gather``/``apc_scatter``
    and ``cimmino_gather``/``cimmino_scatter`` against their plain PyTorch
-   versions at ragged shapes and at the main path's shapes, float64 and
-   float32, with a batch row bit-identical to a k = 1 call;
+   versions at ragged shapes and at the main path's shapes, and
+   ``sparse_gather``/``sparse_cimmino_gather``/``sparse_scatter`` at the
+   reference's sparse corner shapes (odd support width, p = 1, even), a
+   support width of one chunk and a bit, and the sparse path's shapes;
+   float64 and float32, k = 1..11, a batch row bit-identical to a k = 1
+   call;
 3. the APC main path at full size: a 32768 x 16384 tall Gaussian system
    on 16 workers (float64), ``analyze``, then ``solve`` on the kernel
    path — error to x_true, one launch of each kernel per iteration, the
@@ -26,15 +30,31 @@ script exits non-zero without its last line:
    final residual, iters_to_tol, theoretical and measured rate;
 7. the CLI entry point ``repro_torch.launch.solve`` in-process, for
    ``--method apc`` and ``--method cimmino``, both with ``--use-kernel``;
-8. CUDA-event times of each kernel, its plain version, one torch.matmul
-   of the same product and the whole APC and Cimmino iterations, beside
-   each kernel's bound, then the ``{"kernels": [...]}`` line.
+8. CUDA-event times of each dense kernel, its plain version, one
+   torch.matmul of the same product and the whole APC and Cimmino
+   iterations, beside each kernel's bound;
+9. the sparse path at full size: a banded 32768 x 32768 system on 16
+   workers (float64, support width 2064), one spectral analysis, then
+   APC, consensus and Cimmino on the sparse kernels — exactly one launch
+   of each of its kernels per iteration, the history against the
+   unfused sparse path, x against the densified system's dense-kernel
+   solve, a bit-identical repeat — and APC and Cimmino ``solve_many``
+   with 8 right-hand sides;
+10. least squares: the CLI on ``tall_noisy`` (Cimmino on its kernels,
+   DGD), an 8192 x 4096 noisy system solved by Cimmino and DGD against
+   each solver's ``ls_reference``, and the CLI on ``banded`` with APC on
+   the sparse kernels;
+11. CUDA-event times of the sparse kernels (plain version, torch.bmm on
+   the pre-gathered operands, bound) and of the sparse and densified
+   iterations, then the ``{"kernels": [...]}`` line with all seven.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports only torch,
 numpy and repro_torch.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -55,6 +75,14 @@ CLI_ARGS = ["--problem", "ash608", "--workers", "4", "--iters", "200",
 # kernel vs plain: max|Δ| / (max|plain| + 1), tests/test_kernels.py TOL
 TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
 RAGGED = [(7, 130), (1, 128), (24, 896)]
+# the sparse path's system, and the banded corner systems of phase 2
+# (tests/test_kernel_corners.py, plus a support one chunk and a bit wide)
+SPARSE = dict(n=32768, m=16, bandwidth=8)
+SPARSE_CORNERS = [dict(n=130, m=2, bandwidth=6), dict(n=24, m=24, bandwidth=2),
+                  dict(n=192, m=4, bandwidth=6),
+                  dict(n=1024, m=4, bandwidth=8)]
+LS_MID = dict(N=8192, n=4096, m=8, noise=0.5, seed=0)
+LS_ITERS = 600
 # (HBM bytes/s, float64 and float32 peak op/s) from NVIDIA's data sheets,
 # matched on the name nvidia-smi reports; the first match wins
 CARDS = [("H100 PCIe", 2.0e12, 51e12, 51e12),
@@ -65,11 +93,18 @@ SOURCE = "src/repro_torch/kernels/csrc/block_projection.cu"
 REPLACES = {"apc_gather": "src/repro/kernels/block_projection.py:173",
             "apc_scatter": "src/repro/kernels/block_projection.py:210",
             "cimmino_gather": "src/repro/kernels/block_projection.py:246",
-            "cimmino_scatter": "src/repro/kernels/block_projection.py:274"}
+            "cimmino_scatter": "src/repro/kernels/block_projection.py:274",
+            "sparse_gather": "src/repro/kernels/block_projection.py:313",
+            "sparse_cimmino_gather":
+                "src/repro/kernels/block_projection.py:314",
+            "sparse_scatter": "src/repro/kernels/block_projection.py:315"}
 # the kernels each kernel-path solver launches, once per iteration
 USES = {"apc": ("apc_gather", "apc_scatter"),
         "consensus": ("apc_gather", "apc_scatter"),
         "cimmino": ("cimmino_gather", "cimmino_scatter")}
+SPARSE_USES = {"apc": ("sparse_gather", "sparse_scatter"),
+               "consensus": ("sparse_gather", "sparse_scatter"),
+               "cimmino": ("sparse_cimmino_gather", "sparse_scatter")}
 
 
 def say(*parts) -> None:
@@ -98,14 +133,18 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 
 def ptxas_summary(log: str) -> list[str]:
     """'apc_gather f64 KC=8 spill 0 B: 168 regs' per kernel instance,
-    from nvcc's -Xptxas=-v output."""
+    from nvcc's -Xptxas=-v output (the sparse scatter's two forms are
+    tagged apc/cimmino)."""
     out, kernel = [], None
     for line in log.splitlines():
-        hit = re.search(r"entry function '\S*?((?:apc|cimmino)_\w+?)_kernel"
-                        r"I([df])Li(\d+)", line)
+        hit = re.search(r"entry function '\S*?((?:apc|cimmino|sparse)_\w+?)"
+                        r"_kernelI([df])Li(\d+)E(?:Li\d+E)?(?:Lb([01]))?",
+                        line)
         if hit:
             kernel = (f"{hit[1]} {'f64' if hit[2] == 'd' else 'f32'} "
-                      f"KC={hit[3]}")
+                      f"KC={hit[3]}"
+                      + ("" if hit[4] is None else
+                         " apc" if hit[4] == "1" else " cimmino"))
         spill = re.search(r"(\d+) bytes spill stores", line)
         if kernel and spill:
             kernel += f" spill {spill[1]} B"
@@ -168,9 +207,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import solvers
-    from repro_torch.core import spectral
+    from repro_torch.core import partition, spectral
     from repro_torch.core.apc import APCState
-    from repro_torch.core.partition import BlockSystem
     from repro_torch.data import linsys
     from repro_torch.kernels import block_projection as bp
     from repro_torch.kernels import ops
@@ -206,7 +244,7 @@ def main() -> int:
         return e
 
     def compare(A, B, X, Xb, V, gamma, label, record=False):
-        """All four kernels against their plain versions; V stands in for
+        """The four dense kernels against their plain versions; V stands in for
         both the APC scatter's U and the Cimmino scatter's V."""
         dt = A.dtype
         outs = {
@@ -236,6 +274,87 @@ def main() -> int:
             }
             for kn, row in rows.items():
                 assert torch.equal(row, outs[kn][0][:, i]), (kn, label)
+
+    def compare_sparse(vals, cols, Bv, X, Xb, V, gamma, label,
+                       record=False):
+        """The three sparse kernels against their plain versions, through
+        the two sparse ops: U of each op is its gather's result, Y and R
+        the two forms of ``sparse_scatter``; V is the Cimmino b."""
+        dt = vals.dtype
+        Y, U = ops.sparse_proj_update(vals, cols, Bv, X, Xb, gamma)
+        R, Uc = ops.sparse_cimmino_update(vals, cols, Bv, V, Xb)
+        Yr, Ur = ops.sparse_proj_update_ref(vals, cols, Bv, X, Xb, gamma)
+        Rr, Ucr = ops.sparse_cimmino_update_ref(vals, cols, Bv, V, Xb)
+        torch.cuda.synchronize()
+        pairs = {"sparse_gather": [(U, Ur)],
+                 "sparse_cimmino_gather": [(Uc, Ucr)],
+                 "sparse_scatter": [(Y, Yr), (R, Rr)]}
+        errs = {kn: max(check(kn, got, want, dt, label, record)
+                        for got, want in pr) for kn, pr in pairs.items()}
+        say(f"phase 2 {label} {str(dt)[6:]}: " + " ".join(
+            f"{kn} {e:.3e}" for kn, e in errs.items())
+            + f" (tol {TOL[dt]:.0e})")
+        if X.dim() == 3:    # a batch row is bit-identical to a k=1 call
+            i = X.shape[1] - 1
+            Y1, U1 = ops.sparse_proj_update(vals, cols, Bv, X[:, i], Xb[i],
+                                            gamma)
+            R1, Uc1 = ops.sparse_cimmino_update(vals, cols, Bv, V[:, i],
+                                                Xb[i])
+            for row, full in ((U1, U), (Y1, Y), (Uc1, Uc), (R1, R)):
+                assert torch.equal(row, full[:, i]), label
+
+    def sparse_inputs(vals, cols, n, k, dt, seed):
+        """Seeded X (m,k,n), X̄ (k,n), V (m,k,p) as (m, k, .) views of
+        (k, m, .) tensors (k = 1: without the k axis), vals/cols as given."""
+        m, p, _ = vals.shape
+        rng = np.random.default_rng(seed)
+        g = lambda *s: torch.as_tensor(rng.standard_normal(s),  # noqa: E731
+                                       device="cuda").to(dt)
+        X, Xb, V = g(k, m, n).transpose(0, 1), g(k, n), \
+            g(k, m, p).transpose(0, 1)
+        if k == 1:
+            X, Xb, V = X[:, 0], Xb[0], V[:, 0]
+        return X, Xb, V
+
+    for spec in SPARSE_CORNERS:
+        csys = linsys.banded_system(seed=0, device="cuda", **spec)
+        cf = solvers.get("apc").kernel_factors(
+            solvers.get("apc").prepare(csys.A_op, {}))
+        for dt in TOL:
+            for k in (1, 5, K_MANY, 11):
+                X, Xb, V = sparse_inputs(cf.A.vals, csys.cols, csys.n, k, dt,
+                                         seed=csys.n + k)
+                compare_sparse(cf.A.vals.to(dt), csys.cols, cf.B.to(dt), X,
+                               Xb, V, 0.83, f"banded n={csys.n} m={csys.m} "
+                               f"p={csys.p} w={csys.cols.shape[1]} k={k}")
+    # the sparse path's shapes: its band support, seeded values, and the
+    # padded slots zeroed as as_sparse leaves them
+    sn, sm, sbw = SPARSE["n"], SPARSE["m"], SPARSE["bandwidth"]
+    sp_p = sn // sm
+    band = np.zeros((sm, sn), bool)
+    for i in range(sm):
+        band[i, max(i * sp_p - sbw, 0):(i + 1) * sp_p + sbw] = True
+    scols = torch.as_tensor(partition.support_cols(band), device="cuda")
+    sw = scols.shape[1]
+    rng = np.random.default_rng(11)
+    svals = torch.as_tensor(rng.standard_normal((sm, sp_p, sw)),
+                            device="cuda")
+    sBv = torch.as_tensor(rng.standard_normal((sm, sw, sp_p)), device="cuda")
+    for i in range(sm):          # every slot of a repeated (pad) column
+        c = scols[i].cpu().numpy()
+        _, inv, counts = np.unique(c, return_inverse=True,
+                                   return_counts=True)
+        pad = torch.as_tensor(np.flatnonzero(counts[inv] > 1),
+                              device="cuda")
+        svals[i][:, pad] = 0.0
+        sBv[i][pad] = 0.0
+    for k in (1, K_MANY):
+        for dt in TOL:
+            X, Xb, V = sparse_inputs(svals, scols, sn, k, dt, seed=k)
+            compare_sparse(svals.to(dt), scols, sBv.to(dt), X, Xb, V, 0.9,
+                           f"sparse path m={sm} p={sp_p} w={sw} n={sn} k={k}",
+                           record=dt == torch.float64)
+    del svals, sBv
 
     for dt in TOL:
         for (p, n) in RAGGED:
@@ -309,29 +428,33 @@ def main() -> int:
         f"repeat bit-identical")
 
     # 4. solve_many -------------------------------------------------------
-    xs = torch.as_tensor(np.random.default_rng(2).standard_normal(
-        (K_MANY, n)), device="cuda")
-    Bm = (sys_.A_blocks.reshape(sys_.N, n) @ xs.T).T      # (k, N)
+    def consistent_rhs(system, seed):
+        """K_MANY seeded solutions xs and their right-hand sides A xs."""
+        xs = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+            (K_MANY, system.n)), device="cuda")
+        return xs, (system.A_blocks.reshape(system.N, system.n) @ xs.T).T
 
-    def many_vs_rows(s, prm, label, check_x):
+    def many_vs_rows(s, prm, label, check_x, system, facs, xs, Bm, uses):
         """solve_many with K_MANY rows through one launch of each kernel
         per step, each row against its single solve (``check_x`` also
         holds it to the row's x_true)."""
         ops.reset_launch_counts()
         t = time.time()
-        many = s.solve_many(sys_, Bm, iters=ITERS, plan=solvers.ExecutionPlan(
-            kernel=True, factors=factors), **prm)
+        many = s.solve_many(system, Bm, iters=ITERS,
+                            plan=solvers.ExecutionPlan(kernel=True,
+                                                       factors=facs), **prm)
         torch.cuda.synchronize()
         t_many = time.time() - t
         got = ops.launch_counts()
-        assert got == {kn: ITERS if kn in USES[s.name] else 0
+        assert got == {kn: ITERS if kn in uses[s.name] else 0
                        for kn in bp.KERNELS}, got
         worst = 0.0
         for i in range(K_MANY):
-            row = BlockSystem(sys_.A_blocks, Bm[i].reshape(m, p), xs[i],
-                              mode="square")
+            row = dataclasses.replace(
+                system, b_blocks=Bm[i].reshape(system.m, system.p),
+                x_true=xs[i], mode="square")
             one = s.solve(row, iters=ITERS, plan=solvers.ExecutionPlan(
-                kernel=True, factors=factors), **prm)
+                kernel=True, factors=facs), **prm)
             d = float(torch.linalg.norm(many.x[i] - one.x)
                       / torch.linalg.norm(one.x))
             worst = max(worst, d)
@@ -343,7 +466,8 @@ def main() -> int:
             f"{t_many:.2f} s, launches {got}, max row vs single solve "
             f"{worst:.3e}")
 
-    many_vs_rows(solver, params, "4", check_x=True)
+    xs, Bm = consistent_rhs(sys_, 2)
+    many_vs_rows(solver, params, "4", True, sys_, factors, xs, Bm, USES)
 
     # 5. Cimmino and consensus at full size --------------------------------
     t = time.time()
@@ -408,8 +532,8 @@ def main() -> int:
             f"{float(r.residuals[-1]):.3e} iters_to_tol {r.iters_to_tol} "
             f"launches {got}; kernel vs unfused history max|Δ| {d:.3e}; "
             f"repeat bit-identical")
-    many_vs_rows(solvers.get("cimmino"), pinned["cimmino"][0], "5",
-                 check_x=False)
+    many_vs_rows(solvers.get("cimmino"), pinned["cimmino"][0], "5", False,
+                 sys_, factors, xs, Bm, USES)
 
     # 6. the paper's comparison -------------------------------------------
     kernel_runs["apc"] = res
@@ -447,6 +571,24 @@ def main() -> int:
     # 8. times --------------------------------------------------------------
     rows = {}
     itemsize = 8
+
+    def time_kernel(phase, kname, k, shape, fns, work, library):
+        """CUDA-event medians of a kernel, its plain version and the
+        library yardstick, beside the kernel's bound from ``work`` =
+        (bytes, operations); kept in ``rows`` and printed."""
+        f_k, f_p, f_l = fns
+        nbytes, nops = work
+        t_bytes = nbytes / bw * 1e3
+        t_ops = nops / peak[torch.float64] * 1e3
+        t_k = median_ms(f_k)
+        rows[(kname, k)] = r = dict(
+            ms=t_k, plain_ms=median_ms(f_p), library_ms=median_ms(f_l),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        say(f"phase {phase} {kname} k={k} {shape} float64: "
+            f"{t_k:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, {r['bound_ms'] / t_k:.1%} of it), plain "
+            f"{r['plain_ms']:.4f} ms, {library} {r['library_ms']:.4f} ms")
     b = sys_.b_blocks
     nu = pinned["cimmino"][0]["nu"]
     cim = solvers.get("cimmino")
@@ -497,20 +639,9 @@ def main() -> int:
             factors, bb, st, params))
         t_cit = median_ms(lambda: cim.step_many_residual(
             factors, bb, cst, {"nu": nu}))
-        for kname, (f_k, f_p, f_l) in timed.items():
-            nbytes, nops = work[kname]
-            t_bytes = nbytes / bw * 1e3
-            t_ops = nops / peak[torch.float64] * 1e3
-            t_k = median_ms(f_k)
-            rows[(kname, k)] = r = dict(
-                ms=t_k, plain_ms=median_ms(f_p), library_ms=median_ms(f_l),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-            say(f"phase 8 {kname} k={k} m={m} p={p} n={n} float64: "
-                f"{t_k:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-                f"{r['bound_by']}, {r['bound_ms'] / t_k:.1%} of it), plain "
-                f"{r['plain_ms']:.4f} ms, torch.matmul "
-                f"{r['library_ms']:.4f} ms")
+        for kname, fns in timed.items():
+            time_kernel(8, kname, k, f"m={m} p={p} n={n}", fns, work[kname],
+                        "torch.matmul")
         say(f"phase 8 iteration k={k}: APC {t_it:.4f} ms per step "
             f"(gather + scatter + master update + residual); Cimmino "
             f"{t_cit:.4f} ms per step (gather + v = b − u + scatter + "
@@ -518,7 +649,214 @@ def main() -> int:
         del U, V, D
 
     main_launches = {kn: (launches if kn in USES["apc"] else cim_launches)[kn]
-                     for kn in bp.KERNELS}
+                     for kn in USES["apc"] + USES["cimmino"]}
+    del sys_, factors, res, res_u, res2, A, B, X, X3, Xb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. the sparse path at full size -------------------------------------
+    t = time.time()
+    sp = linsys.banded_system(**SPARSE, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    m, p, n, w = sp.m, sp.p, sp.n, sp.cols.shape[1]
+    say(f"phase 9 data: banded_system n={n} m={m} bandwidth="
+        f"{SPARSE['bandwidth']} float64: p={p} w={w}, generator "
+        f"{time.time() - t:.2f} s")
+    t = time.time()
+    X = spectral.x_matrix(sp)
+    mu = spectral.mu_extremes(X)
+    del X
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    apc_p = spectral.apc_optimal(*mu)
+    nu_m, rho_cim = spectral.cimmino_optimal(*mu)
+    sp_pinned = {
+        "apc": ({"gamma": apc_p.gamma, "eta": apc_p.eta}, apc_p.rho),
+        "consensus": ({"gamma": 1.0, "eta": 1.0},
+                      spectral.consensus_rate(mu[0])),
+        "cimmino": ({"nu": nu_m / m}, rho_cim)}
+    say(f"phase 9 spectrum: mu(X) [{mu[0]:.6e}, {mu[1]:.6e}] in "
+        f"{time.time() - t:.2f} s (x_matrix + eigvalsh of {n}^2); rho "
+        + " ".join(f"{k} {v[1]:.6f}" for k, v in sp_pinned.items()))
+    dn = sp.densified()
+    t = time.time()
+    fs = solver.kernel_factors(solver.prepare(sp.A_op, {}))
+    fd = solver.kernel_factors(solver.prepare(dn.A_op, {}))
+    torch.cuda.synchronize()
+    say(f"phase 9 factors: sparse (vals, Bvals {tuple(fs.B.shape)}) and "
+        f"densified (B {tuple(fd.B.shape)}) in {time.time() - t:.2f} s")
+    sparse_launches = {}
+    for sname in ("apc", "consensus", "cimmino"):
+        s = solvers.get(sname)
+        prm = sp_pinned[sname][0]
+        ops.reset_launch_counts()
+        t = time.time()
+        r = s.solve(sp, iters=ITERS, plan=kplan, **prm)
+        torch.cuda.synchronize()
+        t_solve = time.time() - t
+        got = sparse_launches[sname] = ops.launch_counts()
+        assert got == {kn: ITERS if kn in SPARSE_USES[sname] else 0
+                       for kn in bp.KERNELS}, (sname, got)
+        r_u = s.solve(sp, iters=ITERS, plan=solvers.ExecutionPlan(factors=fs),
+                      **prm)
+        dres = float((r.residuals - r_u.residuals).abs().max())
+        assert torch.allclose(r.residuals, r_u.residuals, rtol=1e-6,
+                              atol=1e-12), (sname, dres)
+        assert torch.allclose(r.errors, r_u.errors, rtol=1e-6, atol=1e-12)
+        r_d = s.solve(dn, iters=ITERS, plan=solvers.ExecutionPlan(
+            kernel=True, factors=fd), **prm)
+        dx = float((r.x - r_d.x).abs().max())
+        # tests/test_modes.py::test_sparse_matches_densified
+        assert torch.allclose(r.x, r_d.x, rtol=1e-8, atol=1e-10), (sname, dx)
+        r2 = s.solve(sp, iters=ITERS, plan=kplan, **prm)
+        assert torch.equal(r2.residuals, r.residuals), sname
+        assert torch.equal(r2.x, r.x), sname
+        assert torch.isfinite(r.residuals).all()
+        assert float(r.residuals[-1]) < float(r.residuals[0]), sname
+        err = float(torch.linalg.norm(r.x - sp.x_true)
+                    / torch.linalg.norm(sp.x_true))
+        say(f"phase 9 {sname} sparse solve kernel=True: {ITERS} iters in "
+            f"{t_solve:.2f} s (prepare included), residual "
+            f"{float(r.residuals[-1]):.3e} rel-error {err:.3e} iters_to_tol "
+            f"{r.iters_to_tol} launches {got}; vs unfused sparse history "
+            f"max|Δ| {dres:.3e}; vs densified dense-kernel x max|Δ| "
+            f"{dx:.3e}; repeat bit-identical")
+        if sname == "apc":
+            assert err <= 1e-8, err
+    xs, Bm = consistent_rhs(sp, 4)
+    for sname in ("apc", "cimmino"):
+        many_vs_rows(solvers.get(sname), sp_pinned[sname][0], "9", False, sp,
+                     fs, xs, Bm, SPARSE_USES)
+    del r, r_u, r_d, r2, xs, Bm
+
+    # 10. least squares -----------------------------------------------------
+    ls_cli = ["--problem", "tall_noisy", "--workers", "4", "--iters", "300"]
+    for method, extra in (("cimmino", ["--use-kernel"]), ("dgd", [])):
+        ops.reset_launch_counts()
+        rc = cli.main(ls_cli + ["--method", method] + extra)
+        assert rc == 0, rc
+        got = ops.launch_counts()
+        assert all((got[kn] > 0) == (kn in USES.get(method, ()) and bool(extra))
+                   for kn in bp.KERNELS), (method, got)
+        say(f"phase 10 cli {' '.join(ls_cli)} --method {method} "
+            f"{' '.join(extra)}: rc {rc} launches {got}")
+    t = time.time()
+    ls = linsys.tall_gaussian(**LS_MID, device="cuda")
+    say(f"phase 10 data: tall_gaussian {LS_MID} ({ls.mode}) in "
+        f"{time.time() - t:.2f} s")
+    for sname, plan in (("cimmino", kplan), ("dgd", solvers.ExecutionPlan())):
+        s = solvers.get(sname)
+        prm, rho = s.analyze(ls)
+        t = time.time()
+        ref = s.ls_reference(ls)
+        t_ref = time.time() - t
+        ops.reset_launch_counts()
+        t = time.time()
+        r = s.solve(ls, iters=LS_ITERS, plan=plan, **prm)
+        torch.cuda.synchronize()
+        t_solve = time.time() - t
+        got = ops.launch_counts()
+        assert got == {kn: LS_ITERS if plan.kernel and kn in USES[sname]
+                       else 0 for kn in bp.KERNELS}, (sname, got)
+        e = float(torch.linalg.norm(r.x - ref) / torch.linalg.norm(ref))
+        assert e <= 1e-6, (sname, e)
+        assert float(r.residuals[-1]) < 1e-8, sname
+        say(f"phase 10 {sname} least squares "
+            f"{'kernel' if plan.kernel else 'unfused'}: {LS_ITERS} iters in "
+            f"{t_solve:.2f} s, optimality residual "
+            f"{float(r.residuals[-1]):.3e}, iters_to_tol {r.iters_to_tol}, "
+            f"rel-error to ls_reference {e:.3e} (ls_reference "
+            f"{t_ref:.2f} s on the host), rho {rho:.6f}, launches {got}")
+    del ls, r
+    sp_cli = ["--problem", "banded", "--workers", "4", "--iters", "200",
+              "--method", "apc", "--use-kernel"]
+    ops.reset_launch_counts()
+    rc = cli.main(sp_cli)
+    assert rc == 0, rc
+    got = ops.launch_counts()
+    assert all((got[kn] > 0) == (kn in SPARSE_USES["apc"])
+               for kn in bp.KERNELS), got
+    say(f"phase 10 cli {' '.join(sp_cli)}: rc {rc} launches {got}")
+
+    # 11. sparse times ------------------------------------------------------
+    vals, cols, Bv = fs.A.vals, fs.A.cols, fs.B
+    b = sp.b_blocks
+    prm_apc, prm_cim = sp_pinned["apc"][0], sp_pinned["cimmino"][0]
+    for k in (1, K_MANY):
+        rng = np.random.default_rng(7 + k)
+        X = torch.as_tensor(rng.standard_normal((k, m, n)), device="cuda")
+        X3 = X.transpose(0, 1)                       # (m, k, n) view
+        Xb = torch.as_tensor(rng.standard_normal((k, n)), device="cuda")
+        idx = cols[:, None, :].expand(m, k, w)
+        U = bp.sparse_gather(vals, cols, X3, Xb)
+        V = (b.expand(k, m, p).transpose(0, 1)
+             - bp.sparse_cimmino_gather(vals, cols, Xb)).contiguous()
+        Y0 = X3 + 0.9 * (Xb - X3)
+        R0 = torch.zeros_like(Y0)
+        # the library yardstick's operands, gathered beforehand
+        Ds = torch.take_along_dim(Xb - X3, idx, dim=-1)
+        Xs = torch.take_along_dim(Xb.expand(m, k, n), idx, dim=-1)
+        mkw, mkp, mwp = m * k * w, m * k * p, m * w * p
+        flops = 2 * m * k * p * w
+        work = {   # (bytes, ops): each input read once, each output once;
+            # the support columns of X/X̄ are what the gathers read, cols
+            # is int64
+            "sparse_gather": (itemsize * (mwp + m * w + 2 * mkw + mkp),
+                              flops + mkw),
+            "sparse_cimmino_gather": (itemsize * (mwp + m * w + mkw + mkp),
+                                      flops),
+            "sparse_scatter": (itemsize * (mwp + m * w + mkp + 3 * mkw),
+                               flops + 4 * mkw),
+        }
+        timed = {
+            "sparse_gather": (
+                lambda: bp.sparse_gather(vals, cols, X3, Xb),
+                lambda: ops.sparse_gather_ref(vals, cols, X3, Xb),
+                lambda: torch.bmm(Ds, vals.transpose(1, 2))),
+            "sparse_cimmino_gather": (
+                lambda: bp.sparse_cimmino_gather(vals, cols, Xb),
+                lambda: ops.sparse_cimmino_gather_ref(vals, cols, Xb),
+                lambda: torch.bmm(Xs, vals.transpose(1, 2))),
+            "sparse_scatter": (
+                lambda: bp.sparse_scatter(Bv, cols, U, Y0, X=X3, Xbar=Xb,
+                                          gamma=0.9),
+                lambda: ops.sparse_scatter_ref(Bv, cols, U, Y0, X3, Xb,
+                                               0.9),
+                lambda: torch.bmm(U, Bv.transpose(1, 2))),
+        }
+        for kname, fns in timed.items():
+            time_kernel(11, kname, k, f"m={m} p={p} w={w} n={n}", fns,
+                        work[kname], "torch.bmm (operands gathered "
+                        "beforehand, gather/scatter excluded)")
+        t_cs = median_ms(lambda: bp.sparse_scatter(Bv, cols, V, R0))
+        t_csp = median_ms(lambda: ops.sparse_scatter_ref(Bv, cols, V, R0))
+        say(f"phase 11 sparse_scatter Cimmino form k={k}: {t_cs:.4f} ms, "
+            f"plain {t_csp:.4f} ms")
+        if k == 1:
+            st = APCState(x=X[0], xbar=Xb[0], t=0)
+            cst = CimminoState(xbar=Xb[0], t=0)
+            bb = b
+        else:
+            st = APCState(x=X, xbar=Xb, t=0)
+            cst = CimminoState(xbar=Xb, t=0)
+            bb = b.expand(k, m, p)
+        its = {}
+        for label, f in (("sparse", fs), ("densified", fd)):
+            its[("APC", label)] = median_ms(lambda: solver.step_many_residual(
+                f, bb, st, prm_apc))
+            its[("Cimmino", label)] = median_ms(lambda: cim.step_many_residual(
+                f, bb, cst, prm_cim))
+        for meth in ("APC", "Cimmino"):
+            sp_ms, dn_ms = its[(meth, "sparse")], its[(meth, "densified")]
+            say(f"phase 11 iteration k={k} {meth}: sparse {sp_ms:.4f} ms, "
+                f"densified {dn_ms:.4f} ms per step (step_residual), "
+                f"ratio {dn_ms / sp_ms:.2f} (n/w = {n / w:.2f})")
+        del U, V, Y0, R0, Ds, Xs
+
+    main_launches.update(
+        {kn: sparse_launches["apc" if kn in SPARSE_USES["apc"]
+                             else "cimmino"][kn]
+         for kn in SPARSE_USES["apc"] + SPARSE_USES["cimmino"]})
     kernels = []
     for kname in bp.KERNELS:
         r = rows[(kname, 1)]

@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import blockops
 
 class APCState(NamedTuple):
     """Checkpointable iteration state (global shapes)."""
@@ -50,9 +51,10 @@ def project_nullspace(A: torch.Tensor, chol: torch.Tensor,
 
 
 def _project_u(A, chol, v):
-    """(P_i v_i, A_i v_i): the projection and its gather result."""
-    u = torch.einsum("mpn,...mn->...mp", A, v)
-    return v - torch.einsum("mpn,...mp->...mn", A, _gram_solve(chol, u)), u
+    """(P_i v_i, A_i v_i): the projection and its gather result, for
+    dense or sparse (``blockops.SparseBlocks``) blocks A."""
+    u = blockops.bmatvec_each(A, v)
+    return v - blockops.brmatvec(A, _gram_solve(chol, u)), u
 
 
 def worker_update(A: torch.Tensor, chol: torch.Tensor, state: APCState,

@@ -30,12 +30,31 @@ def x_matrix(sys: BlockSystem) -> torch.Tensor:
         Ai = A[i]
         G = Ai @ Ai.T                                  # (p, p) Gram
         X.addmm_(Ai.T, torch.linalg.solve(G, Ai))
-    return X / m
+    return X.div_(m)
+
+
+# cuSOLVER's syevd, PyTorch's default eigensolver on CUDA, rejects an
+# n = 32768 matrix (CUSOLVER_STATUS_INVALID_VALUE from its buffer-size
+# query; torch 2.11 with CUDA 12.8 on an H100); MAGMA's solves it.
+_CUSOLVER_EIGH_MAX_N = 32767
+
+
+def eigvalsh(M: torch.Tensor) -> torch.Tensor:
+    """Ascending eigenvalues of the symmetric matrix M, by MAGMA for a
+    CUDA matrix larger than cuSOLVER takes, else by PyTorch's default."""
+    if not (M.is_cuda and M.shape[-1] > _CUSOLVER_EIGH_MAX_N):
+        return torch.linalg.eigvalsh(M)
+    backend = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("magma")
+    try:
+        return torch.linalg.eigvalsh(M)
+    finally:
+        torch.backends.cuda.preferred_linalg_library(backend)
 
 
 def mu_extremes(X: torch.Tensor) -> tuple[float, float]:
     """(mu_min, mu_max) of X.  Eigenvalues lie in [0, 1]."""
-    w = torch.linalg.eigvalsh(X)
+    w = eigvalsh(X)
     return float(w[0]), float(w[-1])
 
 
@@ -48,7 +67,7 @@ def kappa(X: torch.Tensor) -> float:
 def ata_extremes(sys: BlockSystem) -> tuple[float, float]:
     """(lambda_min, lambda_max) of AᵀA — drives the gradient-family rates."""
     A = sys.dense()[0].to(torch.float64)
-    w = torch.linalg.eigvalsh(A.T @ A)
+    w = eigvalsh(A.T @ A)
     return float(w[0]), float(w[-1])
 
 

@@ -16,16 +16,25 @@ from typing import Optional
 import numpy as np
 
 from repro_torch import device as dev
+from repro_torch.core.blockops import SparseBlocks
 from repro_torch.core.partition import BlockSystem
 
 
+def _int64(a, device):
+    return dev.as_tensor(np.array(a, dtype=np.int64), device=device)
+
+
 def system_from_numpy(A_blocks, b_blocks, x_true=None,
-                      mode: Optional[str] = None,
+                      mode: Optional[str] = None, cols=None,
                       device=None) -> BlockSystem:
-    """A dense ``BlockSystem`` from (m, p, n) / (m, p) / (n,) arrays."""
+    """A ``BlockSystem`` from (m, p, n) / (m, p) / (n,) arrays; a sparse
+    one when the reference's (m, w) ``cols`` support is given."""
     t = lambda a: dev.as_tensor(np.array(a), device=device)  # noqa: E731
-    return BlockSystem(t(A_blocks), t(b_blocks),
-                       None if x_true is None else t(x_true), mode=mode)
+    A = t(A_blocks)
+    return BlockSystem(
+        A, t(b_blocks), None if x_true is None else t(x_true),
+        structure="dense" if cols is None else "sparse",
+        cols=None if cols is None else _int64(cols, A.device), mode=mode)
 
 
 def from_numpy(cls, *fields, device=None):
@@ -34,12 +43,18 @@ def from_numpy(cls, *fields, device=None):
     ``ADMMFactors``, ...) from its reference namesake's fields, in order.
     None stays None; the iteration counter ``t`` — a scalar, or the
     reference's per-row (k,) counters after ``solve_many`` — becomes an
-    int."""
+    int; a reference ``SparseBlocks`` operand (a NamedTuple with the
+    fields vals, cols, span) becomes the port's, with int64 cols.  The
+    sparse factors' compressed Bvals (m, w, p) convert as any array."""
     def convert(name, a):
         if a is None:
             return None
         if name == "t":
             return int(np.max(np.asarray(a)))
+        if getattr(a, "_fields", None) == SparseBlocks._fields:
+            vals = convert("vals", a.vals)
+            return SparseBlocks(vals=vals, cols=_int64(a.cols, vals.device),
+                                span=convert("span", a.span))
         return dev.as_tensor(np.array(a, order="C"), device=device)
 
     if len(fields) != len(cls._fields):

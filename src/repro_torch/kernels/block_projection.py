@@ -1,5 +1,7 @@
 """Build, bind and launch the CUDA kernels of the projection family:
-``apc_gather``/``apc_scatter`` and ``cimmino_gather``/``cimmino_scatter``.
+``apc_gather``/``apc_scatter``, ``cimmino_gather``/``cimmino_scatter``
+and, over the compressed support of sparse systems, ``sparse_gather``,
+``sparse_cimmino_gather`` and ``sparse_scatter``.
 
 Counterpart of ``repro.kernels.block_projection`` (the Pallas TPU kernels).
 The kernels live in ``csrc/block_projection.cu`` (see the note there for
@@ -40,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("apc_gather", "apc_scatter", "cimmino_gather",
-           "cimmino_scatter")
+           "cimmino_scatter", "sparse_gather", "sparse_cimmino_gather",
+           "sparse_scatter")
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 
 _launches = dict.fromkeys(KERNELS, 0)
@@ -122,6 +125,15 @@ ARGTYPES = {
     "cimmino_gather": [_PTR] * 3 + [_I64] * 7 + [_PTR],
     # B, V, R, m, n, p, k, sv_w, sv_k, sr_w, sr_k, stream
     "cimmino_scatter": [_PTR] * 3 + [_I64] * 8 + [_PTR],
+    # vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k, sxb_k, su_w, su_k,
+    # stream
+    "sparse_gather": [_PTR] * 5 + [_I64] * 9 + [_PTR],
+    # vals, cols, Xbar, U, m, p, w, k, sxb_k, su_w, su_k, stream
+    "sparse_cimmino_gather": [_PTR] * 4 + [_I64] * 7 + [_PTR],
+    # Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, k, sx_w, sx_k, sxb_k,
+    # su_w, su_k, sy_w, sy_k, stream (X and Xbar null: the Cimmino form)
+    "sparse_scatter": [_PTR] * 5 + [ctypes.c_double, _PTR] + [_I64] * 11
+    + [_PTR],
 }
 
 
@@ -138,15 +150,26 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, **operands) -> dict:
+def _check(name: str, index=None, **operands) -> dict:
     """Shared launcher checks; returns the size of every named axis.
 
     ``operands`` maps a label to ``(tensor, axes)``, ``axes`` naming each
     dimension ("mpn", "mkn", "kn", ...): every tensor must be on one CUDA
     device in one float32/float64 dtype, every axis letter must bind to
     one size, the first operand (the matrix stack) must be contiguous and
-    the others need a unit stride along their last axis.
+    the others need a unit stride along their last axis.  ``index`` is
+    the sparse kernels' ``(cols, "mw")``: a contiguous int64 tensor on the
+    same device, whose axes bind like the others'.  Its values are not
+    read here: ``0 <= cols < n`` is checked once, when the sparse system
+    is built, not per launch.
     """
+    if index is not None:
+        cols = index[0]
+        if cols.dtype != torch.int64 or not cols.is_contiguous():
+            raise TypeError(f"{name}: cols must be a contiguous int64 "
+                            f"tensor, got {cols.dtype} with strides "
+                            f"{cols.stride()}")
+        operands["cols"] = index
     tensors = {label: t for label, (t, _) in operands.items()}
     for label, t in tensors.items():
         if not t.is_cuda:
@@ -154,7 +177,7 @@ def _check(name: str, **operands) -> dict:
                              f"takes CUDA tensors")
     if len({t.device for t in tensors.values()}) != 1:
         raise ValueError(f"{name}: tensors on different devices")
-    dtypes = {t.dtype for t in tensors.values()}
+    dtypes = {t.dtype for label, t in tensors.items() if label != "cols"}
     if len(dtypes) != 1:
         raise TypeError(f"{name}: mixed dtypes {sorted(map(str, dtypes))}; "
                         f"every operand must share one dtype")
@@ -254,3 +277,80 @@ def cimmino_scatter(B: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
             R.data_ptr(), d["m"], d["n"], d["p"], d["k"], V.stride(0),
             V.stride(1), R.stride(0), R.stride(1))
     return R
+
+
+def sparse_gather(vals: torch.Tensor, cols: torch.Tensor, X: torch.Tensor,
+                  Xbar: torch.Tensor) -> torch.Tensor:
+    """U = vals·(X̄ − X)[cols]ᵀ for every worker, in one launch: the
+    support gather happens in the kernel's staged loads.
+
+    vals (m, p, w) contiguous; cols (m, w) contiguous int64 with values
+    in [0, n); X (m, k, n) with unit stride along n (any worker/row
+    strides); X̄ (k, n) shared by all workers.  Returns U (m, k, p),
+    contiguous.
+    """
+    d = _check("sparse_gather", index=(cols, "mw"), vals=(vals, "mpw"),
+               X=(X, "mkn"), Xbar=(Xbar, "kn"))
+    U = torch.empty((d["m"], d["k"], d["p"]), dtype=vals.dtype,
+                    device=vals.device)
+    _launch("sparse_gather", vals.dtype, vals.device, vals.data_ptr(),
+            cols.data_ptr(), X.data_ptr(), Xbar.data_ptr(), U.data_ptr(),
+            d["m"], d["p"], d["w"], d["k"], X.stride(0), X.stride(1),
+            Xbar.stride(0), U.stride(0), U.stride(1))
+    return U
+
+
+def sparse_cimmino_gather(vals: torch.Tensor, cols: torch.Tensor,
+                          Xbar: torch.Tensor) -> torch.Tensor:
+    """U = vals·X̄[cols]ᵀ for every worker, in one launch.
+
+    vals (m, p, w) contiguous; cols (m, w) contiguous int64 with values
+    in [0, n); X̄ (k, n) with unit stride along n.  Returns U (m, k, p),
+    contiguous.
+    """
+    d = _check("sparse_cimmino_gather", index=(cols, "mw"),
+               vals=(vals, "mpw"), Xbar=(Xbar, "kn"))
+    U = torch.empty((d["m"], d["k"], d["p"]), dtype=vals.dtype,
+                    device=vals.device)
+    _launch("sparse_cimmino_gather", vals.dtype, vals.device,
+            vals.data_ptr(), cols.data_ptr(), Xbar.data_ptr(), U.data_ptr(),
+            d["m"], d["p"], d["w"], d["k"], Xbar.stride(0), U.stride(0),
+            U.stride(1))
+    return U
+
+
+def sparse_scatter(Bvals: torch.Tensor, cols: torch.Tensor, U: torch.Tensor,
+                   out: torch.Tensor, *, X: torch.Tensor = None,
+                   Xbar: torch.Tensor = None,
+                   gamma: float = 0.0) -> torch.Tensor:
+    """C = U·Bvalsᵀ for every worker, in one launch, stored into ``out``
+    (m, k, n) at each worker's support columns; the other columns of
+    ``out`` are left as they are.
+
+    Cimmino form (no X): ``out[w, i, cols[w, j]] = C[w, i, j]``, ``out``
+    zeroed by the caller.  APC form (X and X̄ given):
+    ``out[w, i, c] = X + γ((X̄ − X) − C)`` at ``c = cols[w, j]``, ``out``
+    holding the AXPY X + γ(X̄ − X) off the support; ``out`` must not
+    alias X.  Both forms store, never add: a repeated index in ``cols``
+    names an all-zero column, whose Bvals row is zero, so every copy
+    stores the same value (checked when the sparse system is built).
+
+    Bvals (m, w, p) contiguous; cols (m, w) contiguous int64; U, X and
+    out with unit stride along their last axis (any worker/row strides);
+    X̄ (k, n).  Returns ``out``.
+    """
+    cimmino = X is None
+    operands = dict(Bvals=(Bvals, "mwp"), U=(U, "mkp"), out=(out, "mkn"))
+    if not cimmino:
+        operands.update(X=(X, "mkn"), Xbar=(Xbar, "kn"))
+        if out.data_ptr() == X.data_ptr():
+            raise ValueError("sparse_scatter: out must not alias X")
+    d = _check("sparse_scatter", index=(cols, "mw"), **operands)
+    _launch("sparse_scatter", Bvals.dtype, Bvals.device, Bvals.data_ptr(),
+            cols.data_ptr(), None if cimmino else X.data_ptr(),
+            None if cimmino else Xbar.data_ptr(), U.data_ptr(), float(gamma),
+            out.data_ptr(), d["m"], d["w"], d["p"], d["k"],
+            0 if cimmino else X.stride(0), 0 if cimmino else X.stride(1),
+            0 if cimmino else Xbar.stride(0), U.stride(0), U.stride(1),
+            out.stride(0), out.stride(1))
+    return out

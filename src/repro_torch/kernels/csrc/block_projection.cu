@@ -12,6 +12,20 @@
 //   cimmino_scatter  (repro.kernels.block_projection:cimmino_scatter)
 //       R[w, i, j] = sum_l V[w, i, l] · B[w, j, l]
 //
+// and, over the compressed support of a sparse system (vals (m, p, w) on
+// the global columns cols (m, w), Bvals (m, w, p)), the three kernels the
+// reference aliases to the dense ones over a (p, w) tile:
+//
+//   sparse_gather          (repro.kernels.block_projection:sparse_gather)
+//       U[w, i, l] = sum_c (X̄[i, cols[w, c]] − X[w, i, cols[w, c]])
+//                          · vals[w, l, c]
+//   sparse_cimmino_gather  (...:sparse_cimmino_gather)
+//       U[w, i, l] = sum_c X̄[i, cols[w, c]] · vals[w, l, c]
+//   sparse_scatter         (...:sparse_scatter)
+//       C[w, i, c] = sum_l U[w, i, l] · Bvals[w, c, l], stored at column
+//       cols[w, c] of a per-worker (m, k, n) output: APC form
+//       Y = X + γ((X̄ − X) − C), Cimmino form R = C.
+//
 // for all m workers w in ONE launch each: A (m, p, n) and B (m, n, p)
 // row-major and contiguous; X (m, k, n), X̄ (k, n), U and V (m, k, p), Y
 // and R (m, k, n) addressed through their worker/row strides with a unit
@@ -29,10 +43,11 @@
 // exactly once, with coalesced loads, and keeps everything else out of
 // HBM:
 //
-//   * All four kernels are the same "row dot" over a row-major matrix M
-//     (gathers: M = A_w, rows l, columns j; scatters: M = B_w, rows j,
-//     columns l) against a small right operand (APC gather: D = X̄ − X,
-//     formed on the fly; Cimmino gather: X̄; scatters: U or V).  A block
+//   * All seven kernels are the same "row dot" over a row-major matrix M
+//     (gathers: M = A_w or vals_w, rows l, columns j; scatters: M = B_w
+//     or Bvals_w, rows j, columns l) against a small right operand (APC
+//     gather: D = X̄ − X, formed on the fly; Cimmino gather: X̄;
+//     scatters: U or V).  A block
 //     of 8 warps owns 8·R consecutive rows of M (R = 4, or 2 for the
 //     k-chunk-8 scatters) and all KC ≤ 8 batch rows of its k-chunk; each
 //     lane reads consecutive columns, so a warp reads 256 contiguous bytes
@@ -56,6 +71,18 @@
 //     nothing.  The Cimmino scatter writes the accumulator as it is: the
 //     v = b − u before it and the master sum ν Σ_w r_w after it stay
 //     outside, as in the reference.
+//   * The sparse kernels are the same row dots over the compressed tiles
+//     (each streams vals or Bvals once: about w/n of the dense bytes).
+//     The TPU version gathers X[:, cols] before its kernel and
+//     scatter-adds the result after it in XLA; here the gather is part of
+//     the staged load (cols is read once per chunk, and no (m, k, w) copy
+//     of the support columns is ever written), and the scatter is the
+//     epilogue, which STORES each row's value at its column cols[w, j].
+//     That is exact because a block repeats only the index of an all-zero
+//     column (the padding of as_sparse), whose Bvals row is zero, so every
+//     copy stores the same value; the system's constructor checks it.
+//     The APC form stores X + γ((X̄ − X) − C) on the support; the
+//     off-support columns of Y come from the caller's AXPY pre-pass.
 //
 // f64 accumulates in f64, f32 in f32 (FFMA; no tensor cores, no TF32),
 // with A/B in the same type as the right operand; the wrapper rejects
@@ -136,12 +163,15 @@ __device__ __forceinline__ void row_dot(const T* __restrict__ M,
     }
 }
 
-// Gather staging: Vs[kk][c] = X̄[i, c0 + c] − X[w, i, c0 + c] (APC,
-// kDiff) or X̄[i, c0 + c] (Cimmino, X unused), i = k0 + kk.
-template <typename T, int KC, bool kDiff>
+// Gather staging: Vs[kk][c] = X̄[i, g] − X[w, i, g] (APC, kDiff) or
+// X̄[i, g] (Cimmino, X unused), i = k0 + kk, at the global column
+// g = c0 + c, or g = cols[c0 + c] of this worker's support (kSparse; n is
+// then the support width).
+template <typename T, int KC, bool kDiff, bool kSparse>
 struct StageXbar {
   const T* X;
   const T* Xbar;
+  const int64_t* cols;
   int64_t n, kvalid, sx_k, sxb_k;
   __device__ void operator()(int64_t c0, T (*Vs)[kChunk]) const {
     for (int idx = threadIdx.x; idx < KC * kChunk; idx += kThreads) {
@@ -150,8 +180,9 @@ struct StageXbar {
       const int64_t col = c0 + c;
       T v = T(0);
       if (kk < kvalid && col < n) {
-        v = Xbar[kk * sxb_k + col];
-        if constexpr (kDiff) v -= X[kk * sx_k + col];
+        const int64_t g = kSparse ? cols[col] : col;
+        v = Xbar[kk * sxb_k + g];
+        if constexpr (kDiff) v -= X[kk * sx_k + g];
       }
       Vs[kk][c] = v;
     }
@@ -174,20 +205,23 @@ struct StageU {
 };
 
 // The gather of block (blockIdx.x, w, k-chunk): U[w, i, l] for this
-// block's 8 R rows l of A_w against the X̄-staged operand.
+// block's 8 R rows l of A_w (p x n; vals_w, p x w, under kSparse)
+// against the X̄-staged operand.
 // grid (ceil(p / (8 R)), m, ceil(k / KC))
-template <typename T, int KC, int R, bool kDiff>
+template <typename T, int KC, int R, bool kDiff, bool kSparse>
 __device__ __forceinline__ void gather_block(
     const T* __restrict__ A, const T* __restrict__ X,
-    const T* __restrict__ Xbar, T* __restrict__ U, int64_t p, int64_t n,
-    int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k, int64_t su_w,
-    int64_t su_k, T (*Vs)[kChunk]) {
+    const T* __restrict__ Xbar, const int64_t* __restrict__ cols,
+    T* __restrict__ U, int64_t p, int64_t n, int64_t k, int64_t sx_w,
+    int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
+    T (*Vs)[kChunk]) {
   const int64_t w = blockIdx.y;
   const int64_t k0 = static_cast<int64_t>(blockIdx.z) * KC;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (kWarps * R);
   const int64_t kvalid = k - k0 < KC ? k - k0 : KC;
-  StageXbar<T, KC, kDiff> stage{kDiff ? X + w * sx_w + k0 * sx_k : X,
-                                Xbar + k0 * sxb_k, n, kvalid, sx_k, sxb_k};
+  StageXbar<T, KC, kDiff, kSparse> stage{
+      kDiff ? X + w * sx_w + k0 * sx_k : X, Xbar + k0 * sxb_k,
+      kSparse ? cols + w * n : cols, n, kvalid, sx_k, sxb_k};
   T acc[R][KC];
   row_dot<T, KC, R>(A + w * p * n, p, n, row0, stage, Vs, acc);
   if (threadIdx.x % 32 != 0) return;
@@ -201,17 +235,19 @@ __device__ __forceinline__ void gather_block(
 }
 
 // The scatter of block (blockIdx.x, w, k-chunk): the rank-p product of
-// this block's 8 R rows j of B_w with the staged U (or V), then the
-// epilogue, coalesced along j: Y = X + γ((X̄ − X) − B·U) under kAxpy
-// (APC), Y = B·V otherwise (Cimmino; X and X̄ unused).
+// this block's 8 R rows j of B_w (n x p; Bvals_w, w x p, under kSparse)
+// with the staged U (or V), then the epilogue at output column j (dense,
+// coalesced along j) or cols[w, j] (kSparse): Y = X + γ((X̄ − X) − B·U)
+// under kAxpy (APC), Y = B·V otherwise (Cimmino; X and X̄ unused).
 // grid (ceil(n / (8 R)), m, ceil(k / KC))
-template <typename T, int KC, int R, bool kAxpy>
+template <typename T, int KC, int R, bool kAxpy, bool kSparse>
 __device__ __forceinline__ void scatter_block(
-    const T* __restrict__ B, const T* __restrict__ X,
-    const T* __restrict__ Xbar, const T* __restrict__ U, T gamma,
-    T* __restrict__ Y, int64_t n, int64_t p, int64_t k, int64_t sx_w,
-    int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k, int64_t sy_w,
-    int64_t sy_k, T (*Vs)[kChunk], T (*Cs)[kWarps * R]) {
+    const T* __restrict__ B, const int64_t* __restrict__ cols,
+    const T* __restrict__ X, const T* __restrict__ Xbar,
+    const T* __restrict__ U, T gamma, T* __restrict__ Y, int64_t n,
+    int64_t p, int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
+    int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k,
+    T (*Vs)[kChunk], T (*Cs)[kWarps * R]) {
   const int64_t w = blockIdx.y;
   const int64_t k0 = static_cast<int64_t>(blockIdx.z) * KC;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (kWarps * R);
@@ -233,12 +269,13 @@ __device__ __forceinline__ void scatter_block(
     const int jj = idx % (kWarps * R);
     const int64_t j = row0 + jj;
     if (kk < kvalid && j < n) {
+      const int64_t jo = kSparse ? cols[w * n + j] : j;
       if constexpr (kAxpy) {
-        const T x = X[w * sx_w + (k0 + kk) * sx_k + j];
-        const T d = Xbar[(k0 + kk) * sxb_k + j] - x;
-        Yw[kk * sy_k + j] = x + gamma * (d - Cs[kk][jj]);
+        const T x = X[w * sx_w + (k0 + kk) * sx_k + jo];
+        const T d = Xbar[(k0 + kk) * sxb_k + jo] - x;
+        Yw[kk * sy_k + jo] = x + gamma * (d - Cs[kk][jj]);
       } else {
-        Yw[kk * sy_k + j] = Cs[kk][jj];
+        Yw[kk * sy_k + jo] = Cs[kk][jj];
       }
     }
   }
@@ -251,8 +288,8 @@ apc_gather_kernel(const T* __restrict__ A, const T* __restrict__ X,
                   int64_t p, int64_t n, int64_t k, int64_t sx_w,
                   int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k) {
   __shared__ T Vs[KC][kChunk];
-  gather_block<T, KC, R, true>(A, X, Xbar, U, p, n, k, sx_w, sx_k, sxb_k,
-                               su_w, su_k, Vs);
+  gather_block<T, KC, R, true, false>(A, X, Xbar, nullptr, U, p, n, k,
+                                      sx_w, sx_k, sxb_k, su_w, su_k, Vs);
 }
 
 template <typename T, int KC, int R>
@@ -261,8 +298,8 @@ cimmino_gather_kernel(const T* __restrict__ A, const T* __restrict__ Xbar,
                       T* __restrict__ U, int64_t p, int64_t n, int64_t k,
                       int64_t sxb_k, int64_t su_w, int64_t su_k) {
   __shared__ T Vs[KC][kChunk];
-  gather_block<T, KC, R, false>(A, nullptr, Xbar, U, p, n, k, 0, 0, sxb_k,
-                                su_w, su_k, Vs);
+  gather_block<T, KC, R, false, false>(A, nullptr, Xbar, nullptr, U, p, n,
+                                       k, 0, 0, sxb_k, su_w, su_k, Vs);
 }
 
 template <typename T, int KC, int R>
@@ -274,9 +311,9 @@ apc_scatter_kernel(const T* __restrict__ B, const T* __restrict__ X,
                    int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
   __shared__ T Vs[KC][kChunk];
   __shared__ T Cs[KC][kWarps * R];        // the reduced B·U per row
-  scatter_block<T, KC, R, true>(B, X, Xbar, U, gamma, Y, n, p, k, sx_w,
-                                sx_k, sxb_k, su_w, su_k, sy_w, sy_k, Vs,
-                                Cs);
+  scatter_block<T, KC, R, true, false>(B, nullptr, X, Xbar, U, gamma, Y, n,
+                                       p, k, sx_w, sx_k, sxb_k, su_w, su_k,
+                                       sy_w, sy_k, Vs, Cs);
 }
 
 template <typename T, int KC, int R>
@@ -287,9 +324,52 @@ cimmino_scatter_kernel(const T* __restrict__ B, const T* __restrict__ V,
                        int64_t sr_k) {
   __shared__ T Vs[KC][kChunk];
   __shared__ T Cs[KC][kWarps * R];        // the reduced B·V per row
-  scatter_block<T, KC, R, false>(B, nullptr, nullptr, V, T(0), Rout, n, p,
-                                 k, 0, 0, 0, sv_w, sv_k, sr_w, sr_k, Vs,
-                                 Cs);
+  scatter_block<T, KC, R, false, false>(B, nullptr, nullptr, nullptr, V,
+                                        T(0), Rout, n, p, k, 0, 0, 0, sv_w,
+                                        sv_k, sr_w, sr_k, Vs, Cs);
+}
+
+// The sparse kernels: w is the support width, the row-dot's column count
+// (gathers) or row count (scatters).
+template <typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+sparse_gather_kernel(const T* __restrict__ vals,
+                     const int64_t* __restrict__ cols,
+                     const T* __restrict__ X, const T* __restrict__ Xbar,
+                     T* __restrict__ U, int64_t p, int64_t w, int64_t k,
+                     int64_t sx_w, int64_t sx_k, int64_t sxb_k, int64_t su_w,
+                     int64_t su_k) {
+  __shared__ T Vs[KC][kChunk];
+  gather_block<T, KC, R, true, true>(vals, X, Xbar, cols, U, p, w, k, sx_w,
+                                     sx_k, sxb_k, su_w, su_k, Vs);
+}
+
+template <typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+sparse_cimmino_gather_kernel(const T* __restrict__ vals,
+                             const int64_t* __restrict__ cols,
+                             const T* __restrict__ Xbar, T* __restrict__ U,
+                             int64_t p, int64_t w, int64_t k, int64_t sxb_k,
+                             int64_t su_w, int64_t su_k) {
+  __shared__ T Vs[KC][kChunk];
+  gather_block<T, KC, R, false, true>(vals, nullptr, Xbar, cols, U, p, w,
+                                      k, 0, 0, sxb_k, su_w, su_k, Vs);
+}
+
+template <typename T, int KC, int R, bool kAxpy>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+sparse_scatter_kernel(const T* __restrict__ Bvals,
+                      const int64_t* __restrict__ cols,
+                      const T* __restrict__ X, const T* __restrict__ Xbar,
+                      const T* __restrict__ U, T gamma, T* __restrict__ Y,
+                      int64_t w, int64_t p, int64_t k, int64_t sx_w,
+                      int64_t sx_k, int64_t sxb_k, int64_t su_w,
+                      int64_t su_k, int64_t sy_w, int64_t sy_k) {
+  __shared__ T Vs[KC][kChunk];
+  __shared__ T Cs[KC][kWarps * R];        // the reduced Bvals·U per row
+  scatter_block<T, KC, R, kAxpy, true>(Bvals, cols, X, Xbar, U, gamma, Y, w,
+                                       p, k, sx_w, sx_k, sxb_k, su_w, su_k,
+                                       sy_w, sy_k, Vs, Cs);
 }
 
 inline int kc_for(int64_t k) { return k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : 8; }
@@ -384,6 +464,72 @@ int cimmino_scatter(const void* B, const void* V, void* Rout, int64_t m,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int sparse_gather(const void* vals, const void* cols, const void* X,
+                  const void* Xbar, void* U, int64_t m, int64_t p,
+                  int64_t w, int64_t k, int64_t sx_w, int64_t sx_k,
+                  int64_t sxb_k, int64_t su_w, int64_t su_k, void* stream) {
+  if (m == 0 || p == 0 || k == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  with_kc(k, [&](auto kc) {
+    constexpr int KC = decltype(kc)::value;
+    sparse_gather_kernel<T, KC, kGatherRows>
+        <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
+            static_cast<const T*>(vals), static_cast<const int64_t*>(cols),
+            static_cast<const T*>(X), static_cast<const T*>(Xbar),
+            static_cast<T*>(U), p, w, k, sx_w, sx_k, sxb_k, su_w, su_k);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int sparse_cimmino_gather(const void* vals, const void* cols,
+                          const void* Xbar, void* U, int64_t m, int64_t p,
+                          int64_t w, int64_t k, int64_t sxb_k, int64_t su_w,
+                          int64_t su_k, void* stream) {
+  if (m == 0 || p == 0 || k == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  with_kc(k, [&](auto kc) {
+    constexpr int KC = decltype(kc)::value;
+    sparse_cimmino_gather_kernel<T, KC, kGatherRows>
+        <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
+            static_cast<const T*>(vals), static_cast<const int64_t*>(cols),
+            static_cast<const T*>(Xbar), static_cast<T*>(U), p, w, k, sxb_k,
+            su_w, su_k);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Both forms of sparse_scatter: the APC form when X is given (it reads X
+// and X̄), the Cimmino form when X is null.
+template <typename T>
+int sparse_scatter(const void* Bvals, const void* cols, const void* X,
+                   const void* Xbar, const void* U, double gamma, void* Y,
+                   int64_t m, int64_t w, int64_t p, int64_t k, int64_t sx_w,
+                   int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
+                   int64_t sy_w, int64_t sy_k, void* stream) {
+  if (m == 0 || w == 0 || k == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  with_kc(k, [&](auto kc) {
+    constexpr int KC = decltype(kc)::value;
+    constexpr int R = scatter_rows<KC>();
+    const dim3 grid = grid_for(w, m, k, KC, R);
+    const auto launch = [&](auto kernel) {
+      kernel<<<grid, kThreads, 0, s>>>(
+          static_cast<const T*>(Bvals), static_cast<const int64_t*>(cols),
+          static_cast<const T*>(X), static_cast<const T*>(Xbar),
+          static_cast<const T*>(U), static_cast<T>(gamma),
+          static_cast<T*>(Y), w, p, k, sx_w, sx_k, sxb_k, su_w, su_k, sy_w,
+          sy_k);
+    };
+    if (X != nullptr)
+      launch(sparse_scatter_kernel<T, KC, R, true>);
+    else
+      launch(sparse_scatter_kernel<T, KC, R, false>);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -450,6 +596,62 @@ int cimmino_scatter_f32(const void* B, const void* V, void* R, int64_t m,
                         void* stream) {
   return cimmino_scatter<float>(B, V, R, m, n, p, k, sv_w, sv_k, sr_w, sr_k,
                                 stream);
+}
+
+int sparse_gather_f64(const void* vals, const void* cols, const void* X,
+                      const void* Xbar, void* U, int64_t m, int64_t p,
+                      int64_t w, int64_t k, int64_t sx_w, int64_t sx_k,
+                      int64_t sxb_k, int64_t su_w, int64_t su_k,
+                      void* stream) {
+  return sparse_gather<double>(vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k,
+                          sxb_k, su_w, su_k, stream);
+}
+
+int sparse_gather_f32(const void* vals, const void* cols, const void* X,
+                      const void* Xbar, void* U, int64_t m, int64_t p,
+                      int64_t w, int64_t k, int64_t sx_w, int64_t sx_k,
+                      int64_t sxb_k, int64_t su_w, int64_t su_k,
+                      void* stream) {
+  return sparse_gather<float>(vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k,
+                          sxb_k, su_w, su_k, stream);
+}
+
+int sparse_cimmino_gather_f64(const void* vals, const void* cols,
+                              const void* Xbar, void* U, int64_t m,
+                              int64_t p, int64_t w, int64_t k, int64_t sxb_k,
+                              int64_t su_w, int64_t su_k, void* stream) {
+  return sparse_cimmino_gather<double>(vals, cols, Xbar, U, m, p, w, k, sxb_k,
+                                  su_w, su_k, stream);
+}
+
+int sparse_cimmino_gather_f32(const void* vals, const void* cols,
+                              const void* Xbar, void* U, int64_t m,
+                              int64_t p, int64_t w, int64_t k, int64_t sxb_k,
+                              int64_t su_w, int64_t su_k, void* stream) {
+  return sparse_cimmino_gather<float>(vals, cols, Xbar, U, m, p, w, k, sxb_k,
+                                  su_w, su_k, stream);
+}
+
+int sparse_scatter_f64(const void* Bvals, const void* cols, const void* X,
+                       const void* Xbar, const void* U, double gamma, void* Y,
+                       int64_t m, int64_t w, int64_t p, int64_t k,
+                       int64_t sx_w, int64_t sx_k, int64_t sxb_k,
+                       int64_t su_w, int64_t su_k, int64_t sy_w,
+                       int64_t sy_k, void* stream) {
+  return sparse_scatter<double>(Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, k,
+                           sx_w, sx_k, sxb_k, su_w, su_k, sy_w, sy_k,
+                           stream);
+}
+
+int sparse_scatter_f32(const void* Bvals, const void* cols, const void* X,
+                       const void* Xbar, const void* U, double gamma, void* Y,
+                       int64_t m, int64_t w, int64_t p, int64_t k,
+                       int64_t sx_w, int64_t sx_k, int64_t sxb_k,
+                       int64_t su_w, int64_t su_k, int64_t sy_w,
+                       int64_t sy_k, void* stream) {
+  return sparse_scatter<float>(Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, k,
+                           sx_w, sx_k, sxb_k, su_w, su_k, sy_w, sy_k,
+                           stream);
 }
 
 }  // extern "C"

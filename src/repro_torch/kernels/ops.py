@@ -2,12 +2,14 @@
 
 Counterpart of ``repro.kernels.ops`` (``proj_gather``, ``proj_scatter``,
 ``block_projection``; ``cimmino_gather``, ``cimmino_scatter``,
-``cimmino_update``) and of ``repro.kernels.ref`` (their plain versions).
-Each op takes every worker at once — A (m, p, n), B (m, n, p), X (m, k, n)
-or (m, n), right-hand sides b/V (m, k, p) or (m, p), and X̄ (k, n) or (n,)
-shared by all workers (the reference's worker-vmapped ops with ``xbar``
-unbatched) — and each call is ONE launch of each kernel for all m
-workers.
+``cimmino_update``; ``sparse_proj_update``, ``sparse_cimmino_update``)
+and of ``repro.kernels.ref`` (their plain versions).  Each op takes every
+worker at once — A (m, p, n), B (m, n, p), X (m, k, n) or (m, n),
+right-hand sides b/V (m, k, p) or (m, p), and X̄ (k, n) or (n,) shared by
+all workers (the reference's worker-vmapped ops with ``xbar``
+unbatched); the sparse ops take the compressed vals (m, p, w), cols
+(m, w) int64 and Bvals (m, w, p) in place of A and B — and each call is
+ONE launch of each kernel for all m workers.
 
 Dispatch is on the tensors' device, and only there: CUDA tensors launch
 the hand-written kernels (``block_projection``), CPU tensors take the
@@ -63,6 +65,55 @@ def cimmino_update_ref(A, B, b, Xbar):
     return cimmino_scatter_ref(B, b - cimmino_gather_ref(A, Xbar))
 
 
+def _support(cols, D):
+    """D (m, [k,] n) at each worker's support columns -> (m, [k,] w), and
+    the index it took."""
+    idx = cols if D.dim() == 2 else cols[:, None, :].expand(
+        D.shape[:-1] + (-1,))
+    return torch.take_along_dim(D, idx, dim=-1), idx
+
+
+def sparse_gather_ref(vals, cols, X, Xbar):
+    """U = vals_w (X̄ − X_w)[cols_w] per worker: vals (m, p, w); cols
+    (m, w); X (m, n) or (m, k, n); X̄ (n,) or (k, n) -> (m, [k,] p)."""
+    return torch.einsum("mpw,m...w->m...p", vals,
+                        _support(cols, Xbar - X)[0])
+
+
+def sparse_cimmino_gather_ref(vals, cols, Xbar):
+    """U = vals_w X̄[cols_w] per worker -> (m, p) or (m, k, p)."""
+    Xb = Xbar.expand((vals.shape[0],) + Xbar.shape)   # (m, [k,] n)
+    return torch.einsum("mpw,m...w->m...p", vals, _support(cols, Xb)[0])
+
+
+def sparse_scatter_ref(Bvals, cols, U, out, X=None, Xbar=None, gamma=0.0):
+    """``out`` (m, [k,] n) with C = Bvals_w U_w scatter-added at cols_w,
+    as the reference adds: C itself (Cimmino form), or −γC when X and X̄
+    are given (APC form; ``out`` then already holds X + γ(X̄ − X)).
+    Returns a new tensor."""
+    C = torch.einsum("mwp,m...p->m...w", Bvals, U)
+    idx = _support(cols, out)[1]
+    return out.scatter_add(-1, idx, C if X is None else -gamma * C)
+
+
+def sparse_proj_update_ref(vals, cols, Bvals, X, Xbar, gamma):
+    """The sparse APC/consensus worker update on the compressed support
+    (the reference's ``sparse_proj_update_ref`` per worker): returns
+    (Y, U), Y = X + γ(X̄ − X) − γ Bvals U at cols."""
+    U = sparse_gather_ref(vals, cols, X, Xbar)
+    Y = X + gamma * (Xbar - X)
+    return sparse_scatter_ref(Bvals, cols, U, Y, X, Xbar, gamma), U
+
+
+def sparse_cimmino_update_ref(vals, cols, Bvals, b, Xbar):
+    """The sparse block-Cimmino row projection (the reference's
+    ``sparse_cimmino_update_ref`` per worker): returns (R, U), R =
+    Bvals (b − U) at cols and zero elsewhere, U = vals X̄[cols]."""
+    U = sparse_cimmino_gather_ref(vals, cols, Xbar)
+    R = U.new_zeros(U.shape[:-1] + Xbar.shape[-1:])
+    return sparse_scatter_ref(Bvals, cols, b - U, R), U
+
+
 # ---------------------------------------------------------------------------
 # The ops
 # ---------------------------------------------------------------------------
@@ -81,6 +132,14 @@ def _on_cuda(op: str, *tensors: torch.Tensor) -> bool:
         raise TypeError(f"{op}: dtypes {sorted(map(str, dtypes))}; expected "
                         f"one of float32/float64 for every operand")
     return kinds == {"cuda"}
+
+
+def _index_on(cols, like):
+    """The plain sparse versions index with int64 cols on the values'
+    device."""
+    if cols.dtype != torch.int64 or cols.device != like.device:
+        raise TypeError(f"cols must be int64 on {like.device}, got "
+                        f"{cols.dtype} on {cols.device}")
 
 
 def _rows(X, Xbar):
@@ -145,3 +204,39 @@ def cimmino_update(A, B, b, Xbar):
     scatter launch for all m workers (and all k batch rows).  The master
     update x̄ += ν Σ_w r_w stays outside, as in the reference."""
     return cimmino_scatter(B, cimmino_residual(b, cimmino_gather(A, Xbar)))
+
+
+def sparse_proj_update(vals, cols, Bvals, X, Xbar, gamma: float):
+    """The sparse APC/consensus worker update for every worker -> (Y, U),
+    Y in X's shape, U (m, [k,] p) = vals_w (X̄ − X_w)[cols_w], the fused
+    residual source.  On CUDA: one ``sparse_gather`` launch (the support
+    gather happens in its staged loads), the AXPY pre-pass
+    Y = X + γ(X̄ − X) for the off-support columns, and one
+    ``sparse_scatter`` launch that stores the support columns of Y."""
+    if not _on_cuda("sparse_proj_update", vals, X, Xbar, Bvals):
+        _index_on(cols, vals)
+        return sparse_proj_update_ref(vals, cols, Bvals, X, Xbar, gamma)
+    X3, Xb2, squeeze = _rows(X, Xbar)
+    U = bp.sparse_gather(vals, cols, X3, Xb2)
+    Y = X3 + gamma * (Xb2 - X3)
+    bp.sparse_scatter(Bvals, cols, U, Y, X=X3, Xbar=Xb2, gamma=gamma)
+    return (Y.squeeze(1), U.squeeze(1)) if squeeze else (Y, U)
+
+
+def sparse_cimmino_update(vals, cols, Bvals, b, Xbar):
+    """The sparse block-Cimmino row projection for every worker -> (R, U):
+    R (m, [k,] n) = Bvals_w (b_w − U_w) at cols_w and zero elsewhere,
+    U = vals_w X̄[cols_w] (the residual block is U − b).  On CUDA: one
+    ``sparse_cimmino_gather`` and one ``sparse_scatter`` launch; the
+    worker sum of R stays outside, as in the reference."""
+    if not _on_cuda("sparse_cimmino_update", vals, b, Xbar, Bvals):
+        _index_on(cols, vals)
+        return sparse_cimmino_update_ref(vals, cols, Bvals, b, Xbar)
+    squeeze = Xbar.dim() == 1
+    U = bp.sparse_cimmino_gather(vals, cols,
+                                 Xbar.unsqueeze(0) if squeeze else Xbar)
+    V = cimmino_residual(b.unsqueeze(1) if squeeze else b, U)
+    m, k, _ = U.shape
+    R = U.new_zeros((m, k, Xbar.shape[-1]))
+    bp.sparse_scatter(Bvals, cols, V, R)
+    return (R.squeeze(1), U.squeeze(1)) if squeeze else (R, U)

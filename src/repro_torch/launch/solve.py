@@ -1,12 +1,14 @@
 """Distributed solve driver of the port (local subset of
 ``repro.launch.solve``).
 
-Partitions a dense linear system across workers, runs any registered
-solver (``--method``, APC by default) with its auto-tuned optimal
-parameters on the card (or ``--device cpu``), and prints the same lines
-as the reference's CLI.  ``--use-kernel`` routes the worker update of
-apc, consensus and cimmino through the hand-written CUDA kernels; the
-other solvers have no kernel and reject it.  The mesh
+Partitions a linear system (any ``--problem`` of the reference: dense,
+least-squares ``tall_noisy``, or sparse, whose structure survives the
+re-partition) across workers, runs any registered solver (``--method``,
+APC by default) with its auto-tuned optimal parameters on the card (or
+``--device cpu``), and prints the same lines as the reference's CLI.
+``--use-kernel`` routes the worker update of apc, consensus and cimmino
+through the hand-written CUDA kernels (the sparse ones on a sparse
+problem); the other solvers have no kernel and reject it.  The mesh
 backend, redundancy, checkpoints and the factor store are not offered
 yet (ROADMAP A12, A14, A15).
 
@@ -24,7 +26,7 @@ import torch
 from repro_torch import device as dev
 from repro_torch import solvers
 from repro_torch.core import spectral
-from repro_torch.core.partition import pad_to_blocks, partition
+from repro_torch.core.partition import as_sparse, pad_to_blocks, partition
 from repro_torch.data import linsys
 
 
@@ -58,9 +60,13 @@ def main(argv=None):
     dtype = torch.float64 if args.x64 else torch.float32
     sys_ = linsys.ALL_PROBLEMS[args.problem](seed=args.seed, dtype=dtype,
                                              device=device)
-    # re-partition to the requested worker count, preserving the mode
+    # re-partition to the requested worker count, preserving the system's
+    # mode (least-squares stays least-squares) and sparse structure
+    was_sparse = sys_.is_sparse
     A, b = pad_to_blocks(*sys_.dense(), args.workers)
     sys_ = partition(A, b, args.workers, x_true=sys_.x_true, mode=sys_.mode)
+    if was_sparse:
+        sys_ = as_sparse(sys_)
 
     params, rho = solver.analyze(sys_)   # one spectral pass for both
     print(f"problem {args.problem}: N={sys_.N} n={sys_.n} m={sys_.m}  "

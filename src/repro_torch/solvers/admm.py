@@ -1,5 +1,5 @@
 """Modified consensus-ADMM (paper Sec 4.4; counterpart of
-``repro.solvers.admm``, dense and local).
+``repro.solvers.admm``, local backend).
 
 Native consensus-ADMM with the y_i-update disabled (y_i == 0), which the
 paper reports as a significant speedup for consistent systems.  Each
@@ -7,8 +7,9 @@ worker solves its p x p (not n x n) system by the matrix inversion lemma:
 
     (A^T A + xi I)^{-1} v = (v - A^T (G + xi I)^{-1} A v) / xi.
 
-No kernel: the per-step products are plain einsums, as the reference
-left them to XLA.  Every hook is batch-polymorphic.
+No kernel: the per-step products go through ``core.blockops`` (dense
+or sparse blocks), as the reference left them to XLA.  Every hook is
+batch-polymorphic.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import blockops
 from repro_torch.core.apc import _gram_solve
 from repro_torch.core.partition import BlockSystem
 
@@ -24,7 +26,7 @@ from .registry import register
 
 
 class ADMMFactors(NamedTuple):
-    A: torch.Tensor      # (m, p, n) row blocks
+    A: object            # (m, p, n) row blocks, or a blockops.SparseBlocks
     chol: torch.Tensor   # (m, p, p) Cholesky of G + xi I
 
 
@@ -39,30 +41,30 @@ class MADMMSolver(Solver):
     paper_name = "M-ADMM"
     param_names = ("xi",)
     # the y_i == 0 simplification is only exact for consistent systems
-    # (paper Sec 4.4), so no least-squares mode; sparse blocks are
-    # ROADMAP A9 in the port
-    supports = frozenset({"square"})
+    # (paper Sec 4.4), so no least-squares mode; sparse blocks are fine
+    supports = frozenset({"square", "sparse"})
 
     def default_params(self, sys: BlockSystem):
         return {"xi": 1.0}
 
     def prepare(self, A, params):
-        G = A @ A.transpose(-1, -2)
+        G = blockops.bgram(A)
         eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
         return ADMMFactors(A=A,
                            chol=torch.linalg.cholesky(G + params["xi"] * eye))
 
     def init(self, factors, b, params):
         A = factors.A
-        return ADMMState(xbar=A.new_zeros(b.shape[:-2] + (A.shape[2],)), t=0,
-                         Atb=torch.einsum("mpn,...mp->...mn", A, b))
+        return ADMMState(
+            xbar=b.new_zeros(b.shape[:-2] + (blockops.ncols(A),),
+                             dtype=blockops.block_dtype(A)),
+            t=0, Atb=blockops.brmatvec(A, b))
 
     def step(self, factors, b, state, params, *, use_kernel=False):
         xi = params["xi"]
         v = state.Atb + xi * state.xbar[..., None, :]
-        w = _gram_solve(factors.chol,
-                        torch.einsum("mpn,...mn->...mp", factors.A, v))
-        x_new = (v - torch.einsum("mpn,...mp->...mn", factors.A, w)) / xi
+        w = _gram_solve(factors.chol, blockops.bmatvec_each(factors.A, v))
+        x_new = (v - blockops.brmatvec(factors.A, w)) / xi
         return ADMMState(xbar=x_new.mean(dim=-2), t=state.t + 1,
                          Atb=state.Atb)
 

@@ -148,6 +148,43 @@ class Solver:
         """Augment factors with kernel-path precomputation (idempotent)."""
         return factors
 
+    # ----- least-squares mode hooks ---------------------------------------
+    # A solver declaring "least_squares" in ``supports`` implements both.
+    # ``ls_moment`` is its optimality map, the (weighted) normal-equation
+    # residual its fixed point zeroes: Aᵀ(Ax−b) for the gradient family,
+    # Σ_i A_iᵀG_i⁻¹(A_i x−b_i) for Cimmino.  LS-mode histories record
+    # ‖ls_moment(x)‖ / ‖ls_moment(0)‖, and ``iters_to_tol`` keys off it.
+
+    def ls_moment(self, factors: Any, A, b: torch.Tensor, x: torch.Tensor,
+                  params: Dict[str, float]) -> torch.Tensor:
+        """The (..., n) optimality vector this solver drives to zero, for
+        x (n,) / b (m, p) or a batch x (k, n) / b (k, m, p)."""
+        raise NotImplementedError(
+            f"solver {self.name!r} does not support least-squares mode")
+
+    def ls_reference(self, sys: BlockSystem) -> torch.Tensor:
+        """The (n,) solution this solver converges to on an inconsistent
+        system: what ``errors`` compares against when ``sys.x_true`` is
+        absent."""
+        raise NotImplementedError(
+            f"solver {self.name!r} does not support least-squares mode")
+
+    def _ls_residual_fn(self, sys: BlockSystem, factors: Any,
+                        prm: Dict[str, float], b: torch.Tensor):
+        """The LS-mode residual ``x -> ‖ls_moment(x)‖/‖ls_moment(0)‖`` for
+        right-hand sides b (scalar, or (k,) for a batch), or None in
+        square mode; the denominator is taken once."""
+        if sys.mode != "least_squares":
+            return None
+        A_op = sys.A_op
+
+        def optim(x):
+            mom = self.ls_moment(factors, A_op, b, x, prm)
+            return torch.sqrt(torch.sum(mom * mom, dim=-1))
+
+        zero = optim(b.new_zeros(b.shape[:-2] + (sys.n,)))
+        return lambda x: optim(x) / zero
+
     # ----- shared drivers --------------------------------------------------
     def resolve_params(self, sys: BlockSystem,
                        **overrides) -> Dict[str, float]:
@@ -175,6 +212,9 @@ class Solver:
         ``plan.kernel`` runs the worker update through the kernel pair and
         records the residual from the gather pass (the fused residual);
         ``plan.factors`` skips ``prepare``; ``plan.warm_state`` resumes.
+        In least-squares mode the history is the optimality residual
+        (``ls_moment``), the fused residual is off, and ``errors`` are
+        taken against ``ls_reference`` when ``sys.x_true`` is None.
         """
         plan = resolve_plan(self, sys, plan or ExecutionPlan(),
                             context="solve")
@@ -184,17 +224,22 @@ class Solver:
                  if plan.warm_state is None else plan.warm_state)
         step = lambda f, b, s: self.step(f, b, s, prm,      # noqa: E731
                                          use_kernel=plan.kernel)
+        residual_fn = self._ls_residual_fn(sys, factors, prm, sys.b_blocks)
+        xt = sys.x_true
+        if xt is None and sys.mode == "least_squares":
+            xt = self.ls_reference(sys)
         step_res = None
-        if plan.kernel and self.supports_fused_residual and iters > 0:
+        if (plan.kernel and self.supports_fused_residual
+                and residual_fn is None and iters > 0):
             step_res = lambda f, b, s: self.step_residual(  # noqa: E731
                 f, b, s, prm)
         state, res, err = _history_scan(step, self.extract, factors,
                                         sys.b_blocks, state, sys.A_op,
-                                        sys.x_true, iters,
+                                        xt, iters, residual_fn=residual_fn,
                                         step_residual=step_res)
         return SolveResult(
             name=self.name, x=self.extract(state), state=state,
-            residuals=res, errors=err if sys.x_true is not None else None,
+            residuals=res, errors=err if xt is not None else None,
             params=prm, iters_to_tol=iters_to_tolerance(res, tol), tol=tol)
 
     def solve_many(self, sys: BlockSystem, B, *, iters: int = 1000,
@@ -219,13 +264,15 @@ class Solver:
         states = self.init(factors, Bb, prm)
         step_many = lambda f, bb, s: self.step_many(        # noqa: E731
             f, bb, s, prm, use_kernel=plan.kernel)
+        residual_fn = self._ls_residual_fn(sys, factors, prm, Bb)
         step_many_res = None
-        if plan.kernel and self.supports_fused_residual and iters > 0:
+        if (plan.kernel and self.supports_fused_residual
+                and residual_fn is None and iters > 0):
             step_many_res = lambda f, bb, s: self.step_many_residual(  # noqa: E731,E501
                 f, bb, s, prm)
         states, res = _history_scan_many(
             step_many, self.extract, factors, Bb, states, sys.A_op, iters,
-            step_many_residual=step_many_res)
+            residual_fn=residual_fn, step_many_residual=step_many_res)
         return SolveResult(
             name=self.name, x=self.extract(states), state=states,
             residuals=res, errors=None, params=prm,
@@ -244,11 +291,13 @@ def _stack(records, like: torch.Tensor) -> torch.Tensor:
 
 
 def _history_scan(step, extract, factors, b, state, A, x_true, iters: int,
-                  step_residual=None):
+                  residual_fn=None, step_residual=None):
     """Run ``step`` for ``iters`` iterations recording residual/error.
 
     Entry t is the residual ‖Ax−b‖/‖b‖ (and error ‖x−x*‖/‖x*‖) after step
-    t+1.  ``step_residual(factors, b, state) -> (state, rsq)`` switches
+    t+1; ``A`` is the dense stack or a ``SparseBlocks`` operand.
+    ``residual_fn(x)`` (LS mode) replaces the plain residual.
+    ``step_residual(factors, b, state) -> (state, rsq)`` switches
     to the FUSED residual: each step harvests ‖Ax−b‖² of the state it
     consumed from its own gather pass, so the record of step t is the
     residual before it; the records shift by one and close with ONE
@@ -263,6 +312,9 @@ def _history_scan(step, extract, factors, b, state, A, x_true, iters: int,
         if step_residual is not None:
             state, rsq = step_residual(factors, b, state)
             res.append(torch.sqrt(rsq) / b_norm)
+        elif residual_fn is not None:
+            state = step(factors, b, state)
+            res.append(residual_fn(extract(state)))
         else:
             state = step(factors, b, state)
             r = blockops.bmatvec(A, extract(state)) - b
@@ -279,10 +331,12 @@ def _history_scan(step, extract, factors, b, state, A, x_true, iters: int,
 
 
 def _history_scan_many(step_many, extract, factors, Bb, states, A,
-                       iters: int, step_many_residual=None):
+                       iters: int, residual_fn=None,
+                       step_many_residual=None):
     """Batched variant: states/Bb carry a leading (k,) RHS axis; returns
-    the (k, T) residual history (same lagged-shift contract as
-    ``_history_scan`` for ``step_many_residual``)."""
+    the (k, T) residual history (``residual_fn`` is the batched LS
+    residual; same lagged-shift contract as ``_history_scan`` for
+    ``step_many_residual``)."""
     b_norms = torch.sqrt(torch.sum(Bb * Bb, dim=(1, 2)))
 
     def true_res(states):
@@ -294,6 +348,9 @@ def _history_scan_many(step_many, extract, factors, Bb, states, A,
         if step_many_residual is not None:
             states, rsq = step_many_residual(factors, Bb, states)
             res.append(torch.sqrt(rsq) / b_norms)
+        elif residual_fn is not None:
+            states = step_many(factors, Bb, states)
+            res.append(residual_fn(extract(states)))
         else:
             states = step_many(factors, Bb, states)
             res.append(true_res(states))

@@ -9,12 +9,18 @@ and :func:`resolve_plan` checks the system and the plan against it before
 any work happens.  The plan fields whose execution is not ported yet —
 ``store`` (ROADMAP A12), ``backend="mesh"`` (A14), ``redundancy > 1``
 (A15) and ``precision="mixed"`` (A10) — raise ``NotImplementedError``
-naming their item; they never degrade silently.
+naming their item; they never degrade silently.  The one downgrade is
+the reference's own, and it warns: ``kernel=True`` on a sparse system
+for a solver without a kernel runs the unfused sparse path.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
+import warnings
 from typing import Any
+
+log = logging.getLogger(__name__)
 
 PRECISIONS = ("default", "mixed")
 
@@ -41,8 +47,27 @@ def check_capability(solver, sys, *, context: str = "solve") -> None:
             f"{sorted(missing)} systems: {context} was called with a "
             f"mode={sys.mode!r}, structure={sys.structure!r} system but "
             f"{solver.name!r} declares supports="
-            f"{sorted(solver.supports)} (the port's least-squares and "
-            f"sparse capabilities are ROADMAP A9).")
+            f"{sorted(solver.supports)}. Pick an LS/sparse-capable solver "
+            f"(e.g. 'cimmino' or the gradient family) or densify/square "
+            f"the system.")
+
+
+def resolve_use_kernel(solver, sys, use_kernel: bool) -> bool:
+    """The ``kernel`` flag that actually runs.
+
+    A sparse system handed ``kernel=True`` on a solver with no kernel
+    (dgd, dnag, dhbm, madmm) warns (``RuntimeWarning`` and a log line)
+    and runs the unfused sparse path, as the reference does.  On a dense
+    system the same request stays an error (:func:`resolve_plan`).
+    """
+    if use_kernel and sys.is_sparse and not solver.supports_kernel:
+        msg = (f"use_kernel=True on a sparse system: solver "
+               f"{solver.name!r} declares supports_kernel=False (no "
+               f"kernel); falling back to the unfused sparse path")
+        warnings.warn(msg, RuntimeWarning, stacklevel=4)
+        log.warning(msg)
+        return False
+    return use_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +98,12 @@ class ExecutionPlan:
 
 def resolve_plan(solver, sys, plan: ExecutionPlan, *,
                  context: str = "solve") -> ExecutionPlan:
-    """Validate ``plan`` against ``solver``/``sys`` once, before any work."""
+    """Validate ``plan`` against ``solver``/``sys`` once, before any work;
+    returns the plan with ``kernel`` resolved (:func:`resolve_use_kernel`)."""
     check_capability(solver, sys, context=context)
+    kernel = resolve_use_kernel(solver, sys, plan.kernel)
+    if kernel != plan.kernel:
+        plan = dataclasses.replace(plan, kernel=kernel)
     if plan.backend == "mesh":
         raise NotImplementedError(
             "backend='mesh' is not ported yet (ROADMAP A14)")

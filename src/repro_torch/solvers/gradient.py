@@ -1,20 +1,23 @@
 """Gradient-family solvers: DGD, D-NAG, D-HBM and preconditioned D-HBM
-(counterpart of ``repro.solvers.gradient``, dense and local).
+(counterpart of ``repro.solvers.gradient``, local backend).
 
 Each worker computes its partial gradient g_i = A_i^T (A_i x - b_i); the
 master sums them.  P-DHBM (paper Sec 6) premultiplies each local block by
 S_i = (A_i A_i^T)^{-1/2} so that heavy-ball attains the APC rate — S
 depends only on A, so it lives in ``prepare``; the transformed RHS S_i b_i
 is cached in the state at ``init`` time.  The family has no kernel: its
-two products per step are plain einsums, as the reference left them to
-XLA.  Every hook is batch-polymorphic (x (k, n), b (k, m, p)).
+two products per step go through ``core.blockops`` (dense or sparse
+blocks), as the reference left them to XLA.  Every hook is
+batch-polymorphic (x (k, n), b (k, m, p)).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import blockops
 from repro_torch.core import spectral
 from repro_torch.core.partition import BlockSystem
 from repro_torch.core.precond import block_inv_sqrt
@@ -24,7 +27,7 @@ from .registry import register
 
 
 class GradFactors(NamedTuple):
-    A: torch.Tensor      # (m, p, n) row blocks
+    A: object            # (m, p, n) row blocks, or a blockops.SparseBlocks
 
 
 class PrecondFactors(NamedTuple):
@@ -35,8 +38,7 @@ class PrecondFactors(NamedTuple):
 def _grad(A, b, x):
     """Full gradient sum_i A_i^T (A_i x - b_i) of (1/2)||Ax-b||^2, for x
     (n,) / b (m, p) or a batch x (k, n) / b (k, m, p)."""
-    r = torch.einsum("mpn,...n->...mp", A, x) - b
-    return torch.einsum("mpn,...mp->...n", A, r)
+    return blockops.brmatvec_sum(A, blockops.bmatvec(A, x) - b)
 
 
 class _GradientSolver(Solver):
@@ -46,12 +48,15 @@ class _GradientSolver(Solver):
 
     The iteration re-reads b every step, so a prior state warm-starts a
     perturbed right-hand side too (``warm_rhs_ok``) — except P-DHBM,
-    whose state caches S b.  The reference also runs least-squares and
-    sparse systems; in the port those are ROADMAP A9.
+    whose state caches S b.
+
+    The family is gradient descent on (1/2)||Ax-b||^2, whose minimizer is
+    the least-squares solution: inconsistent systems are first-class,
+    with the plain normal equations as the optimality moment.
     """
 
     warm_rhs_ok = True
-    supports = frozenset({"square"})
+    supports = frozenset({"square", "least_squares", "sparse"})
 
     def prepare(self, A, params):
         return GradFactors(A=A)
@@ -76,10 +81,23 @@ class _GradientSolver(Solver):
     def _zeros(self, factors, b):
         """x = 0 in the blocks' dtype: (n,), or (k, n) for a batch b."""
         A = self._blocks(factors)
-        return A.new_zeros(b.shape[:-2] + (A.shape[2],))
+        return b.new_zeros(b.shape[:-2] + (blockops.ncols(A),),
+                           dtype=blockops.block_dtype(A))
 
     def extract(self, state):
         return state.x
+
+    # ----- least-squares mode ---------------------------------------------
+    def ls_moment(self, factors, A, b, x, params):
+        """Normal-equations optimality moment Aᵀ(Ax − b)."""
+        return _grad(A, b, x)
+
+    def ls_reference(self, sys: BlockSystem) -> torch.Tensor:
+        """numpy ``lstsq`` of the dense system, on the host."""
+        A, b = (t.cpu().double().numpy() for t in sys.dense())
+        x, *_ = np.linalg.lstsq(A, b, rcond=None)
+        return torch.as_tensor(x, dtype=sys.b_blocks.dtype,
+                               device=sys.device)
 
 
 class DGDState(NamedTuple):
@@ -186,6 +204,9 @@ class PDHBMSolver(DHBMSolver):
 
     paper_name = "P-DHBM"
     warm_rhs_ok = False     # the state caches S b — stale under a new RHS
+    # the preconditioner eigendecomposes the dense blocks, and the
+    # transformed system is only equivalent for consistent systems
+    supports = frozenset({"square"})
 
     def analyze(self, sys: BlockSystem):
         mu_min, mu_max = spectral.mu_extremes(spectral.x_matrix(sys))

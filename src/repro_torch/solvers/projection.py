@@ -1,5 +1,5 @@
 """The projection family: APC, consensus and block Cimmino (counterpart
-of ``repro.solvers.projection``, dense and local).
+of ``repro.solvers.projection``, local backend, dense and sparse blocks).
 
 APC shares the per-worker null-space projection of ``core/apc.py`` (Gram
 Cholesky factors, P_i v = v − A_iᵀ G_i⁻¹ A_i v) and auto-tunes (gamma,
@@ -8,8 +8,10 @@ consensus is APC with gamma = eta = 1; Cimmino sums the row projections
 A_iᵀ G_i⁻¹ (b_i − A_i x̄) into x̄.  ``kernel=True`` runs the worker update
 through the CUDA kernels on the card (APC and consensus:
 ``apc_gather``/``apc_scatter``; Cimmino: ``cimmino_gather``/
-``cimmino_scatter``), at every batch size, and through their plain
-versions on the CPU.
+``cimmino_scatter``; on sparse systems ``sparse_gather``/
+``sparse_cimmino_gather``/``sparse_scatter`` over the compressed
+support), at every batch size, and through their plain versions on the
+CPU.
 
 Every hook is batch-polymorphic: states may carry a leading (k,) RHS
 axis — x (k, m, n), x̄ (k, n), b (k, m, p) — so ``step_many`` is ``step``
@@ -20,9 +22,11 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import apc as apc_core
+from repro_torch.core import blockops
 from repro_torch.core import spectral
 from repro_torch.core.apc import APCState, _gram_chol, _gram_solve
 from repro_torch.core.partition import BlockSystem
@@ -34,21 +38,32 @@ from .registry import register
 
 class ProjFactors(NamedTuple):
     """b-independent per-worker factors (leading axis = worker)."""
-    A: torch.Tensor       # (m, p, n) row blocks
+    A: object             # (m, p, n) row blocks, or a blockops.SparseBlocks
     chol: torch.Tensor    # (m, p, p) Cholesky of Gram A_i A_i^T
-    B: Optional[torch.Tensor] = None  # (m, n, p) pinv factors A_iᵀ G_i⁻¹,
-                                      # contiguous (kernel path only)
+    B: Optional[torch.Tensor] = None  # pinv factors A_iᵀ G_i⁻¹, contiguous
+                                      # (kernel path only): (m, n, p)
+                                      # dense, (m, w, p) on the support of
+                                      # a SparseBlocks operand
 
 
-def _proj_prepare(A: torch.Tensor, jitter: float) -> ProjFactors:
-    return ProjFactors(A=A, chol=_gram_chol(A, jitter))
+def _proj_prepare(A, jitter: float) -> ProjFactors:
+    """The Gram Cholesky factors; a sparse operand's Gram comes from its
+    compressed values (exact: padded columns carry zeros)."""
+    return ProjFactors(A=A, chol=_gram_chol(
+        A.vals if blockops.is_sparse(A) else A, jitter))
 
 
 def _with_pinv(factors: ProjFactors) -> ProjFactors:
-    """Precompute B_i = A_iᵀ G_i⁻¹ once (iteration-invariant); idempotent."""
+    """Precompute B_i = A_iᵀ G_i⁻¹ once (iteration-invariant); idempotent.
+
+    A sparse operand gets the support-compressed factor Bvals_i =
+    (G_i⁻¹ vals_i)ᵀ, (m, w, p) on the same ``cols``: a padded slot's zero
+    vals column gives an exactly zero Bvals row.
+    """
     if factors.B is not None:
         return factors
-    B = torch.cholesky_solve(factors.A, factors.chol)      # (m, p, n)
+    A = factors.A.vals if blockops.is_sparse(factors.A) else factors.A
+    B = torch.cholesky_solve(A, factors.chol)              # (m, p, n|w)
     return factors._replace(B=B.transpose(-1, -2).contiguous())
 
 
@@ -56,8 +71,14 @@ def _min_norm_solutions(factors: ProjFactors,
                         b: torch.Tensor) -> torch.Tensor:
     """x0_i = A_iᵀ (A_i A_iᵀ)⁻¹ b_i — the min-norm local solutions, for b
     (m, p) or a batch (k, m, p)."""
-    return torch.einsum("mpn,...mp->...mn", factors.A,
-                        _gram_solve(factors.chol, b))
+    return blockops.brmatvec(factors.A, _gram_solve(factors.chol, b))
+
+
+def _row_projections(A, chol, b, xbar):
+    """(r, v): the row projections r_i = A_iᵀG_i⁻¹v_i (..., m, n) of
+    v = b − A x̄, unfused, for dense or sparse A."""
+    v = b - blockops.bmatvec(A, xbar)
+    return blockops.brmatvec(A, _gram_solve(chol, v)), v
 
 
 @register("apc")
@@ -68,8 +89,8 @@ class APCSolver(Solver):
     supports_kernel = True
     param_names = ("gamma", "eta")
     # the paper's convergence theory (Theorem 1) assumes an exact solution
-    # exists; sparse blocks are ROADMAP A9
-    supports = frozenset({"square"})
+    # exists, so APC keeps its square-only contract; sparse blocks are fine
+    supports = frozenset({"square", "sparse"})
     # The iterates satisfy A_i x_i = b_i exactly (min-norm init, kept by
     # the projection since A_i B_i = I), so the gather result
     # u_i = A_i(x̄ − x_i) IS the residual block A_i x̄ − b_i of the consumed
@@ -104,8 +125,13 @@ class APCSolver(Solver):
         factors = _with_pinv(factors)
         batched = state.x.dim() == 3
         X = state.x.transpose(0, 1) if batched else state.x
-        u = kops.proj_gather(factors.A, X, state.xbar)
-        x_new = kops.proj_scatter(factors.B, X, state.xbar, u, gamma)
+        if blockops.is_sparse(factors.A):
+            Asp = factors.A
+            x_new, u = kops.sparse_proj_update(Asp.vals, Asp.cols, factors.B,
+                                               X, state.xbar, gamma)
+        else:
+            u = kops.proj_gather(factors.A, X, state.xbar)
+            x_new = kops.proj_scatter(factors.B, X, state.xbar, u, gamma)
         if batched:
             return x_new.transpose(0, 1), u.transpose(0, 1)
         return x_new, u
@@ -156,8 +182,9 @@ class CimminoSolver(Solver):
     # the state is the master estimate alone and b enters every step, so
     # a prior state warm-starts perturbed right-hand sides too
     warm_rhs_ok = True
-    # least-squares mode and sparse blocks are ROADMAP A9 in the port
-    supports = frozenset({"square"})
+    # the fixed point Σ A_iᵀG_i⁻¹(b_i − A_i x̄) = 0 is the G⁻¹-weighted
+    # least-squares optimum, well-defined for inconsistent systems too
+    supports = frozenset({"square", "least_squares", "sparse"})
     # The gather result u = A x̄ gives the consumed state's residual
     # blocks directly: A x̄ − b = −v, v = b − u the scatter's operand.
     supports_fused_residual = True
@@ -179,23 +206,29 @@ class CimminoSolver(Solver):
     def init(self, factors, b, params):
         """x̄ = 0 in b's dtype: (n,), or (k, n) for a batch b (k, m, p)."""
         return CimminoState(
-            xbar=b.new_zeros(b.shape[:-2] + (factors.A.shape[2],)), t=0)
+            xbar=b.new_zeros(b.shape[:-2] + (blockops.ncols(factors.A),)),
+            t=0)
 
     def _r_v(self, factors, b, xbar, use_kernel):
         """(Σ_i r_i, v): the summed row projections r_i = A_iᵀG_i⁻¹v_i and
         v = b − A x̄, the residual source, in b's layout.  The kernel path
         hands the kernels the (m, k, p) view of a batched b (no copy)."""
         if not use_kernel:
-            v = b - torch.einsum("mpn,...n->...mp", factors.A, xbar)
-            r = torch.einsum("mpn,...mp->...mn", factors.A,
-                             _gram_solve(factors.chol, v))
+            r, v = _row_projections(factors.A, factors.chol, b, xbar)
             return r.sum(dim=-2), v
         factors = _with_pinv(factors)
         batched = b.dim() == 3
-        v = kops.cimmino_residual(b.transpose(0, 1) if batched else b,
-                                  kops.cimmino_gather(factors.A, xbar))
-        r = kops.cimmino_scatter(factors.B, v).sum(dim=0)
-        return r, v.transpose(0, 1) if batched else v
+        bw = b.transpose(0, 1) if batched else b
+        if blockops.is_sparse(factors.A):
+            Asp = factors.A
+            R, u = kops.sparse_cimmino_update(Asp.vals, Asp.cols, factors.B,
+                                              bw, xbar)
+            v = bw - u
+        else:
+            v = kops.cimmino_residual(bw, kops.cimmino_gather(factors.A,
+                                                              xbar))
+            R = kops.cimmino_scatter(factors.B, v)
+        return R.sum(dim=0), v.transpose(0, 1) if batched else v
 
     def step(self, factors, b, state, params, *, use_kernel=False):
         r, _ = self._r_v(factors, b, state.xbar, use_kernel)
@@ -212,3 +245,24 @@ class CimminoSolver(Solver):
 
     def extract(self, state):
         return state.xbar
+
+    # ----- least-squares mode ---------------------------------------------
+    # The Cimmino fixed point minimizes Σᵢ ‖L_i⁻¹(A_i x − b_i)‖², the
+    # Gram-whitened least-squares problem: ``ls_moment`` is exactly the
+    # update direction (zero at the optimum), ``ls_reference`` solves the
+    # whitened system directly, in numpy on the host.
+    def ls_moment(self, factors, A, b, x, params):
+        return _row_projections(A, factors.chol, b, x)[0].sum(dim=-2)
+
+    def ls_reference(self, sys: BlockSystem) -> torch.Tensor:
+        A = sys.A_blocks.cpu().double().numpy()
+        b = sys.b_blocks.cpu().double().numpy()
+        rows, rhs = [], []
+        for Ai, bi in zip(A, b):
+            L = np.linalg.cholesky(Ai @ Ai.T)
+            rows.append(np.linalg.solve(L, Ai))       # L_i⁻¹ A_i
+            rhs.append(np.linalg.solve(L, bi))        # L_i⁻¹ b_i
+        x, *_ = np.linalg.lstsq(np.concatenate(rows), np.concatenate(rhs),
+                                rcond=None)
+        return torch.as_tensor(x, dtype=sys.b_blocks.dtype,
+                               device=sys.device)

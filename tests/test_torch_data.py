@@ -34,6 +34,10 @@ def _same(ref_sys, port_sys):
         assert a.dtype == b.dtype == np.float64, field
         assert np.array_equal(a, b), field
     assert ref_sys.mode == port_sys.mode
+    assert ref_sys.structure == port_sys.structure
+    if ref_sys.is_sparse:
+        assert port_sys.cols.dtype == torch.int64
+        assert np.array_equal(np.asarray(ref_sys.cols), port_sys.cols.numpy())
 
 
 @pytest.mark.parametrize("name", sorted(GENERATORS))
@@ -54,9 +58,9 @@ def test_all_problems_bit_identical(key):
 
 
 def test_all_problems_are_the_reference_dense_entries():
-    dense = {k for k in ref_linsys.ALL_PROBLEMS
-             if "sparse" not in k and k not in ("banded", "tall_noisy")}
-    assert set(linsys.ALL_PROBLEMS) == dense
+    """Every entry of the reference's ALL_PROBLEMS, the sparse and
+    least-squares ones included."""
+    assert set(linsys.ALL_PROBLEMS) == set(ref_linsys.ALL_PROBLEMS)
     assert linsys.MM_PROXIES == {
         k: linsys.MatrixMarketProxy(*v.__dict__.values())
         for k, v in ref_linsys.MM_PROXIES.items()}
@@ -137,10 +141,12 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 
 def test_sparse_and_least_squares_generators_not_ported():
-    with pytest.raises(NotImplementedError, match="A9"):
-        linsys.tall_gaussian(N=16, n=8, m=2, noise=0.5, device="cpu")
+    """Ported since: a noisy tall system is a least-squares system, and a
+    sparse system needs its cols support."""
+    ls = linsys.tall_gaussian(N=16, n=8, m=2, noise=0.5, device="cpu")
+    assert ls.mode == "least_squares"
     A = torch.zeros(2, 2, 4, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="cols"):
         partition.BlockSystem(A, torch.zeros(2, 2), structure="sparse")
 
 

@@ -1,0 +1,188 @@
+"""chip_smoke.py's control flow, rehearsed on the CPU with a faked card.
+
+The card is the only place the CUDA kernels execute, so a fault in the
+script's own control flow (a name, a shape, a launch count, a layout the
+launchers refuse) would otherwise show only there.  This test runs the whole
+script at a tiny size with the card faked: ``torch.cuda`` reports one
+device, tensors asked for on ``cuda`` stay on the CPU, and each
+launcher of ``kernels.block_projection`` is replaced by a counting
+stand-in that asserts the launcher's contract (matrix stacks contiguous,
+a unit stride along every operand's last axis, ``cols`` a contiguous
+int64 (m, w) tensor, the scatter's output not aliasing X) and computes
+its result row by row from the plain versions, storing the sparse
+scatter's support columns as the kernel does.  It also checks that the
+script refuses to run without a card.
+"""
+import importlib.util
+import json
+import pathlib
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import device as dev  # noqa: E402
+from repro_torch.kernels import block_projection as bp  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _load_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert _load_smoke().main() != 0
+    out = capsys.readouterr()
+    assert '"ok"' not in out.out and "CUDA device" in out.err
+
+
+class _Event:
+    def __init__(self, **_):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def _contract(name, matrix, operands, cols=None):
+    assert matrix.is_contiguous(), (name, "matrix stack not contiguous")
+    for t in operands:
+        assert t.shape[-1] <= 1 or t.stride(-1) == 1, (name, t.stride())
+    if cols is not None:
+        assert cols.dtype == torch.int64 and cols.is_contiguous(), name
+        assert cols.dim() == 2 and cols.shape[0] == matrix.shape[0], name
+    bp._launches[name] += 1
+
+
+def _by_row(k, f):
+    """A kernel's result: each batch row on its own, as the kernels
+    compute it, so a batch row equals a k = 1 call."""
+    return torch.cat([f(slice(i, i + 1)) for i in range(k)], dim=1)
+
+
+def _fake_launchers():
+    def apc_gather(A, X, Xb):
+        _contract("apc_gather", A, [X, Xb])
+        return _by_row(Xb.shape[0], lambda i: ops.apc_gather_ref(
+            A, X[:, i], Xb[i])).contiguous()
+
+    def apc_scatter(B, X, Xb, U, gamma):
+        _contract("apc_scatter", B, [X, Xb, U])
+        return _by_row(Xb.shape[0], lambda i: ops.apc_scatter_ref(
+            B, X[:, i], Xb[i], U[:, i], gamma))
+
+    def cimmino_gather(A, Xb):
+        _contract("cimmino_gather", A, [Xb])
+        return _by_row(Xb.shape[0], lambda i: ops.cimmino_gather_ref(
+            A, Xb[i])).contiguous()
+
+    def cimmino_scatter(B, V):
+        _contract("cimmino_scatter", B, [V])
+        return _by_row(V.shape[1], lambda i: ops.cimmino_scatter_ref(
+            B, V[:, i])).contiguous()
+
+    def sparse_gather(vals, cols, X, Xb):
+        _contract("sparse_gather", vals, [X, Xb], cols)
+        return _by_row(Xb.shape[0], lambda i: ops.sparse_gather_ref(
+            vals, cols, X[:, i], Xb[i])).contiguous()
+
+    def sparse_cimmino_gather(vals, cols, Xb):
+        _contract("sparse_cimmino_gather", vals, [Xb], cols)
+        return _by_row(Xb.shape[0], lambda i: ops.sparse_cimmino_gather_ref(
+            vals, cols, Xb[i])).contiguous()
+
+    def sparse_scatter(Bv, cols, U, out, *, X=None, Xbar=None, gamma=0.0):
+        _contract("sparse_scatter", Bv,
+                  [U, out] + ([] if X is None else [X, Xbar]), cols)
+        C = _by_row(U.shape[1], lambda i: torch.einsum(
+            "mwp,mkp->mkw", Bv, U[:, i]))
+        idx = cols[:, None, :].expand(out.shape[:-1] + (-1,))
+        if X is not None:
+            assert out.data_ptr() != X.data_ptr()
+            x = torch.take_along_dim(X, idx, -1)
+            xb = torch.take_along_dim(Xbar.expand(X.shape), idx, -1)
+            C = x + gamma * ((xb - x) - C)
+        return out.scatter_(-1, idx, C)          # the kernel stores
+
+    return {f.__name__: f for f in (
+        apc_gather, apc_scatter, cimmino_gather, cimmino_scatter,
+        sparse_gather, sparse_cimmino_gather, sparse_scatter)}
+
+
+def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
+                                                    tmp_path):
+    smoke = _load_smoke()
+    for name, value in dict(
+            FULL=dict(N=256, n=128, m=4),
+            SPARSE=dict(n=640, m=4, bandwidth=8),
+            SPARSE_CORNERS=[dict(n=130, m=2, bandwidth=6),
+                            dict(n=24, m=24, bandwidth=2)],
+            LS_MID=dict(N=256, n=128, m=4, noise=0.5, seed=0),
+            ITERS=40, LS_ITERS=900,
+            smi=lambda: "NVIDIA H100 80GB HBM3, 700.00 W").items():
+        monkeypatch.setattr(smoke, name, value)
+    median_ms = smoke.median_ms
+    monkeypatch.setattr(smoke, "median_ms",
+                        lambda fn, reps=1: median_ms(fn, reps=1))
+    as_tensor = torch.as_tensor
+
+    def cpu_as_tensor(*a, **k):
+        if str(k.get("device")) == "cuda":
+            k["device"] = "cpu"
+        return as_tensor(*a, **k)
+    monkeypatch.setattr(torch, "as_tensor", cpu_as_tensor)
+    for name, value in dict(
+            is_available=lambda: True, synchronize=lambda *a: None,
+            empty_cache=lambda: None, device_count=lambda: 1,
+            get_device_name=lambda *a: "NVIDIA H100 80GB HBM3",
+            Event=_Event).items():
+        monkeypatch.setattr(torch.cuda, name, value)
+    monkeypatch.setattr(dev, "resolve", lambda d=None: torch.device("cpu"))
+    on_cuda = ops._on_cuda
+    monkeypatch.setattr(ops, "_on_cuda",
+                        lambda op, *t: on_cuda(op, *t) or True)
+    lib = tmp_path / "libblock_projection.so"
+    lib.write_text("")
+    lib.with_suffix(".log").write_text(
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121sparse_"
+        "scatter_kernelIdLi8ELi2ELb1EEEvPKT_' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers\n")
+    monkeypatch.setattr(bp, "build", lambda sources=bp.SOURCES: {
+        "block_projection.cu": lib})
+    for name, fn in _fake_launchers().items():
+        monkeypatch.setattr(bp, name, fn)
+    monkeypatch.setattr(bp, "_launches", dict.fromkeys(bp.KERNELS, 0))
+
+    assert smoke.main() == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-1] == ('{"ok": true, "device": {"platform": "gpu", "kind": '
+                         '"NVIDIA H100 80GB HBM3", "count": 1}}')
+    assert lines[-2] == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert "sparse_scatter f64 KC=8 apc spill 0 B: 128 regs" in "\n".join(
+        lines)
+    kernels = json.loads(next(x for x in lines if x.startswith(
+        '{"kernels"')))["kernels"]
+    assert [k["name"] for k in kernels] == list(bp.KERNELS)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for k in kernels:
+        assert set(k) == keys and k["launches"] == 40, k
+        assert np.isfinite([k["ms"], k["plain_ms"], k["bound_ms"]]).all()
+    assert [k["replaces"].rsplit(":", 1)[1] for k in kernels] == [
+        "173", "210", "246", "274", "313", "314", "315"]
