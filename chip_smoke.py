@@ -7,7 +7,9 @@ Phases, one stdout line (or a few) each; any failure raises and the
 script exits non-zero without its last line:
 
 1. environment: versions, the card's name and power limit, TF32 off, and
-   the CUDA kernels built from the checkout's sources;
+   the CUDA kernels built from the checkout's sources, with each
+   instance's registers, shared memory and spill bytes (none allowed in
+   the float64 ring instances);
 2. kernel vs plain version on the card: ``apc_gather``/``apc_scatter``
    and ``cimmino_gather``/``cimmino_scatter`` against their plain PyTorch
    versions at ragged shapes and at the main path's shapes, and
@@ -15,7 +17,9 @@ script exits non-zero without its last line:
    reference's sparse corner shapes (odd support width, p = 1, even), a
    support width of one chunk and a bit, and the sparse path's shapes;
    float64 and float32, k = 1..11, a batch row bit-identical to a k = 1
-   call;
+   call; both instances of ``apc_gather`` and ``sparse_gather`` (the
+   ring, where its alignment admits the shape, and the row dot) against
+   the plain version and bit-identical to each other;
 3. the APC main path at full size: a 32768 x 16384 tall Gaussian system
    on 16 workers (float64), ``analyze``, then ``solve`` on the kernel
    path — error to x_true, one launch of each kernel per iteration, the
@@ -31,7 +35,8 @@ script exits non-zero without its last line:
 7. the CLI entry point ``repro_torch.launch.solve`` in-process, for
    ``--method apc`` and ``--method cimmino``, both with ``--use-kernel``;
 8. CUDA-event times of each dense kernel, its plain version, one
-   torch.matmul of the same product and the whole APC and Cimmino
+   torch.matmul of the same product (and, for ``apc_gather``, its
+   row-dot instance), timed in turns, and of the whole APC and Cimmino
    iterations, beside each kernel's bound;
 9. the sparse path at full size: a banded 32768 x 32768 system on 16
    workers (float64, support width 2064), one spectral analysis, then
@@ -45,8 +50,13 @@ script exits non-zero without its last line:
    each solver's ``ls_reference``, and the CLI on ``banded`` with APC on
    the sparse kernels;
 11. CUDA-event times of the sparse kernels (plain version, torch.bmm on
-   the pre-gathered operands, bound) and of the sparse and densified
-   iterations, then the ``{"kernels": [...]}`` line with all seven.
+   the pre-gathered operands, ``sparse_gather``'s row-dot instance,
+   bound), timed in turns, and of the sparse and densified iterations,
+   then the ``{"kernels": [...]}`` line with all seven.
+
+Every time is the median over rounds of a run of back-to-back calls
+between two CUDA events, divided by the run's length: the host's time
+to launch a call then overlaps the card's work on the one before.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports only torch,
 numpy and repro_torch.
@@ -131,44 +141,60 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return d / (float(want.double().abs().max()) + 1.0), d
 
 
-def ptxas_summary(log: str) -> list[str]:
-    """'apc_gather f64 KC=8 spill 0 B: 168 regs' per kernel instance,
-    from nvcc's -Xptxas=-v output (the sparse scatter's two forms are
-    tagged apc/cimmino)."""
+def ptxas_summary(log: str, dynamic_smem) -> list[str]:
+    """'apc_gather f64 KC=8 spill 0 B: 128 regs, smem 16384 B' per kernel
+    instance, from nvcc's -Xptxas=-v output (the sparse scatter's two
+    forms are tagged apc/cimmino; a ring instance's shared memory adds
+    ``dynamic_smem(dtype, KC)`` bytes of dynamic shared memory)."""
     out, kernel = [], None
     for line in log.splitlines():
         hit = re.search(r"entry function '\S*?((?:apc|cimmino|sparse)_\w+?)"
                         r"_kernelI([df])Li(\d+)E(?:Li\d+E)?(?:Lb([01]))?",
                         line)
         if hit:
+            dtype = torch.float64 if hit[2] == "d" else torch.float32
             kernel = (f"{hit[1]} {'f64' if hit[2] == 'd' else 'f32'} "
                       f"KC={hit[3]}"
                       + ("" if hit[4] is None else
                          " apc" if hit[4] == "1" else " cimmino"))
+            ring = hit[1].endswith("_ring")
+            kc = int(hit[3])
         spill = re.search(r"(\d+) bytes spill stores", line)
         if kernel and spill:
             kernel += f" spill {spill[1]} B"
         regs = re.search(r"Used (\d+) registers", line)
         if kernel and regs:
-            out.append(f"{kernel}: {regs[1]} regs")
+            smem = re.search(r"(\d+) bytes smem", line)
+            kernel += f": {regs[1]} regs, smem {smem[1] if smem else 0} B"
+            if ring:
+                kernel += f" + {dynamic_smem(dtype, kc)} B dynamic"
+            out.append(kernel)
             kernel = None
     return out
 
 
-def median_ms(fn, reps: int = 25) -> float:
-    for _ in range(3):
-        fn()
+def medians_ms(fns: dict, reps: int = 15, batch: int = 10) -> dict:
+    """CUDA-event medians, ms a call, of each function in ``fns``, timed
+    in turns (f1, f2, ..., f1, f2, ...): a sample is a run of ``batch``
+    back-to-back calls between two events, over ``batch``.  One call
+    between two events would also time the host's launch of it, as the
+    card idles until the launch arrives (phase 11 prints how much)."""
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
     torch.cuda.synchronize()
-    times = []
+    times = {name: [] for name in fns}
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(batch):
+                fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / batch)
+    return {name: float(np.median(t)) for name, t in times.items()}
 
 
 def inputs(m, p, n, k, dtype, seed, *, transposed=False):
@@ -230,8 +256,11 @@ def main() -> int:
     tb = time.time()
     lib = bp.build()["block_projection.cu"]
     say(f"phase 1 build: {time.time() - tb:.2f} s ({SOURCE}, sm_90a)")
-    say("phase 1 ptxas: " + "; ".join(ptxas_summary(
-        lib.with_suffix(".log").read_text())))
+    ptxas = ptxas_summary(lib.with_suffix(".log").read_text(),
+                          bp.ring_smem_bytes)
+    say("phase 1 ptxas: " + "; ".join(ptxas))
+    rings = [x for x in ptxas if "_ring f64" in x]
+    assert rings and all(" spill 0 B:" in x for x in rings), rings
 
     # 2. kernel vs plain version ------------------------------------------
     max_abs = dict.fromkeys(bp.KERNELS, 0.0)
@@ -242,6 +271,21 @@ def main() -> int:
         if record:
             max_abs[kname] = max(max_abs[kname], d)
         return e
+
+    def instances(kname, launch, want, matrix, copied, dt, label, record):
+        """Both instances of an APC gather, ``launch(instance)``: the row
+        dot, and the ring where ``gather_instance`` admits these
+        operands; each against the plain version, and the two
+        bit-identical.  Returns the instances that ran."""
+        ring = bp.gather_instance(matrix, *copied) == "ring"
+        outs = {inst: launch(inst) for inst in bp.INSTANCES
+                if inst == "row_dot" or ring}
+        torch.cuda.synchronize()
+        for got in outs.values():
+            check(kname, got.reshape(want.shape), want, dt, label, record)
+        if ring:
+            assert torch.equal(outs["ring"], outs["row_dot"]), (kname, label)
+        return "ring≡row_dot" if ring else "row_dot"
 
     def compare(A, B, X, Xb, V, gamma, label, record=False):
         """The four dense kernels against their plain versions; V stands in for
@@ -260,9 +304,13 @@ def main() -> int:
         torch.cuda.synchronize()
         errs = {kn: check(kn, got, want, dt, label, record)
                 for kn, (got, want) in outs.items()}
+        X3, Xb3 = (X, Xb) if X.dim() == 3 else (X[:, None], Xb[None])
+        ran = instances("apc_gather", lambda inst: bp.apc_gather(
+            A, X3, Xb3, _instance=inst), outs["apc_gather"][1], A,
+            (X3, Xb3), dt, label, record)
         say(f"phase 2 {label} {str(dt)[6:]}: " + " ".join(
             f"{kn} {e:.3e}" for kn, e in errs.items())
-            + f" (tol {TOL[dt]:.0e})")
+            + f" (tol {TOL[dt]:.0e}); apc_gather {ran}")
         if X.dim() == 3:    # a batch row is bit-identical to a k=1 call
             i = X.shape[1] - 1
             rows = {
@@ -291,9 +339,13 @@ def main() -> int:
                  "sparse_scatter": [(Y, Yr), (R, Rr)]}
         errs = {kn: max(check(kn, got, want, dt, label, record)
                         for got, want in pr) for kn, pr in pairs.items()}
+        X3, Xb3 = (X, Xb) if X.dim() == 3 else (X[:, None], Xb[None])
+        ran = instances("sparse_gather", lambda inst: bp.sparse_gather(
+            vals, cols, X3, Xb3, _instance=inst), Ur, vals, (), dt, label,
+            record)
         say(f"phase 2 {label} {str(dt)[6:]}: " + " ".join(
             f"{kn} {e:.3e}" for kn, e in errs.items())
-            + f" (tol {TOL[dt]:.0e})")
+            + f" (tol {TOL[dt]:.0e}); sparse_gather {ran}")
         if X.dim() == 3:    # a batch row is bit-identical to a k=1 call
             i = X.shape[1] - 1
             Y1, U1 = ops.sparse_proj_update(vals, cols, Bv, X[:, i], Xb[i],
@@ -573,22 +625,26 @@ def main() -> int:
     itemsize = 8
 
     def time_kernel(phase, kname, k, shape, fns, work, library):
-        """CUDA-event medians of a kernel, its plain version and the
-        library yardstick, beside the kernel's bound from ``work`` =
+        """CUDA-event medians, in turns, of a kernel (``fns["ms"]``), its
+        plain version (``plain_ms``), the library yardstick
+        (``library_ms``) and, for an APC gather, its row-dot instance
+        (``row_dot_ms``), beside the kernel's bound from ``work`` =
         (bytes, operations); kept in ``rows`` and printed."""
-        f_k, f_p, f_l = fns
         nbytes, nops = work
         t_bytes = nbytes / bw * 1e3
         t_ops = nops / peak[torch.float64] * 1e3
-        t_k = median_ms(f_k)
-        rows[(kname, k)] = r = dict(
-            ms=t_k, plain_ms=median_ms(f_p), library_ms=median_ms(f_l),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rows[(kname, k)] = r = medians_ms(fns)
+        r.update(bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+        t_k = r["ms"]
         say(f"phase {phase} {kname} k={k} {shape} float64: "
             f"{t_k:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}, {r['bound_ms'] / t_k:.1%} of it), plain "
-            f"{r['plain_ms']:.4f} ms, {library} {r['library_ms']:.4f} ms")
+            f"{r['bound_by']}, {r['bound_ms'] / t_k:.1%} of it), "
+            + (f"row-dot instance {r['row_dot_ms']:.4f} ms "
+               f"({r['bound_ms'] / r['row_dot_ms']:.1%}), "
+               if "row_dot_ms" in r else "")
+            + f"plain {r['plain_ms']:.4f} ms, {library} "
+            f"{r['library_ms']:.4f} ms")
     b = sys_.b_blocks
     nu = pinned["cimmino"][0]["nu"]
     cim = solvers.get("cimmino")
@@ -614,19 +670,26 @@ def main() -> int:
                                 2 * m * k * p * n),
         }
         timed = {
-            "apc_gather": (lambda: bp.apc_gather(A, X3, Xb),
-                           lambda: ops.apc_gather_ref(A, X3, Xb),
-                           lambda: torch.matmul(D, A.transpose(1, 2))),
-            "apc_scatter": (lambda: bp.apc_scatter(B, X3, Xb, U, 0.9),
-                            lambda: ops.apc_scatter_ref(B, X3, Xb, U, 0.9),
-                            lambda: torch.matmul(U, B.transpose(1, 2))),
-            "cimmino_gather": (lambda: bp.cimmino_gather(A, Xb),
-                               lambda: ops.cimmino_gather_ref(A, Xb),
-                               lambda: torch.matmul(Xb, A.transpose(1, 2))),
-            "cimmino_scatter": (lambda: bp.cimmino_scatter(B, V),
-                                lambda: ops.cimmino_scatter_ref(B, V),
-                                lambda: torch.matmul(V, B.transpose(1, 2))),
+            "apc_gather": dict(
+                ms=lambda: bp.apc_gather(A, X3, Xb),
+                row_dot_ms=lambda: bp.apc_gather(A, X3, Xb,
+                                                 _instance="row_dot"),
+                plain_ms=lambda: ops.apc_gather_ref(A, X3, Xb),
+                library_ms=lambda: torch.matmul(D, A.transpose(1, 2))),
+            "apc_scatter": dict(
+                ms=lambda: bp.apc_scatter(B, X3, Xb, U, 0.9),
+                plain_ms=lambda: ops.apc_scatter_ref(B, X3, Xb, U, 0.9),
+                library_ms=lambda: torch.matmul(U, B.transpose(1, 2))),
+            "cimmino_gather": dict(
+                ms=lambda: bp.cimmino_gather(A, Xb),
+                plain_ms=lambda: ops.cimmino_gather_ref(A, Xb),
+                library_ms=lambda: torch.matmul(Xb, A.transpose(1, 2))),
+            "cimmino_scatter": dict(
+                ms=lambda: bp.cimmino_scatter(B, V),
+                plain_ms=lambda: ops.cimmino_scatter_ref(B, V),
+                library_ms=lambda: torch.matmul(V, B.transpose(1, 2))),
         }
+        assert bp.gather_instance(A, X3, Xb) == "ring"
         if k == 1:
             st = APCState(x=X[0], xbar=Xb[0], t=0)
             cst = CimminoState(xbar=Xb[0], t=0)
@@ -635,10 +698,12 @@ def main() -> int:
             st = APCState(x=X, xbar=Xb, t=0)
             cst = CimminoState(xbar=Xb, t=0)
             bb = b.expand(k, m, p)
-        t_it = median_ms(lambda: solver.step_many_residual(
-            factors, bb, st, params))
-        t_cit = median_ms(lambda: cim.step_many_residual(
-            factors, bb, cst, {"nu": nu}))
+        its = medians_ms({
+            "APC": lambda: solver.step_many_residual(factors, bb, st,
+                                                     params),
+            "Cimmino": lambda: cim.step_many_residual(factors, bb, cst,
+                                                      {"nu": nu})})
+        t_it, t_cit = its["APC"], its["Cimmino"]
         for kname, fns in timed.items():
             time_kernel(8, kname, k, f"m={m} p={p} n={n}", fns, work[kname],
                         "torch.matmul")
@@ -809,27 +874,39 @@ def main() -> int:
                                flops + 4 * mkw),
         }
         timed = {
-            "sparse_gather": (
-                lambda: bp.sparse_gather(vals, cols, X3, Xb),
-                lambda: ops.sparse_gather_ref(vals, cols, X3, Xb),
-                lambda: torch.bmm(Ds, vals.transpose(1, 2))),
-            "sparse_cimmino_gather": (
-                lambda: bp.sparse_cimmino_gather(vals, cols, Xb),
-                lambda: ops.sparse_cimmino_gather_ref(vals, cols, Xb),
-                lambda: torch.bmm(Xs, vals.transpose(1, 2))),
-            "sparse_scatter": (
-                lambda: bp.sparse_scatter(Bv, cols, U, Y0, X=X3, Xbar=Xb,
-                                          gamma=0.9),
-                lambda: ops.sparse_scatter_ref(Bv, cols, U, Y0, X3, Xb,
-                                               0.9),
-                lambda: torch.bmm(U, Bv.transpose(1, 2))),
+            "sparse_gather": dict(
+                ms=lambda: bp.sparse_gather(vals, cols, X3, Xb),
+                row_dot_ms=lambda: bp.sparse_gather(vals, cols, X3, Xb,
+                                                    _instance="row_dot"),
+                plain_ms=lambda: ops.sparse_gather_ref(vals, cols, X3, Xb),
+                library_ms=lambda: torch.bmm(Ds, vals.transpose(1, 2))),
+            "sparse_cimmino_gather": dict(
+                ms=lambda: bp.sparse_cimmino_gather(vals, cols, Xb),
+                plain_ms=lambda: ops.sparse_cimmino_gather_ref(vals, cols,
+                                                               Xb),
+                library_ms=lambda: torch.bmm(Xs, vals.transpose(1, 2))),
+            "sparse_scatter": dict(
+                ms=lambda: bp.sparse_scatter(Bv, cols, U, Y0, X=X3, Xbar=Xb,
+                                             gamma=0.9),
+                plain_ms=lambda: ops.sparse_scatter_ref(Bv, cols, U, Y0, X3,
+                                                        Xb, 0.9),
+                library_ms=lambda: torch.bmm(U, Bv.transpose(1, 2))),
         }
+        assert bp.gather_instance(vals) == "ring"
         for kname, fns in timed.items():
             time_kernel(11, kname, k, f"m={m} p={p} w={w} n={n}", fns,
                         work[kname], "torch.bmm (operands gathered "
                         "beforehand, gather/scatter excluded)")
-        t_cs = median_ms(lambda: bp.sparse_scatter(Bv, cols, V, R0))
-        t_csp = median_ms(lambda: ops.sparse_scatter_ref(Bv, cols, V, R0))
+        if k == 1:      # what a single call between two events also times
+            one = medians_ms({"ms": timed["sparse_gather"]["ms"]},
+                             batch=1)["ms"]
+            say(f"phase 11 timing method: sparse_gather k=1, one call "
+                f"between two events {one:.4f} ms, in runs of 10 calls "
+                f"{rows[('sparse_gather', 1)]['ms']:.4f} ms a call")
+        cs = medians_ms({
+            "kernel": lambda: bp.sparse_scatter(Bv, cols, V, R0),
+            "plain": lambda: ops.sparse_scatter_ref(Bv, cols, V, R0)})
+        t_cs, t_csp = cs["kernel"], cs["plain"]
         say(f"phase 11 sparse_scatter Cimmino form k={k}: {t_cs:.4f} ms, "
             f"plain {t_csp:.4f} ms")
         if k == 1:
@@ -840,12 +917,13 @@ def main() -> int:
             st = APCState(x=X, xbar=Xb, t=0)
             cst = CimminoState(xbar=Xb, t=0)
             bb = b.expand(k, m, p)
-        its = {}
-        for label, f in (("sparse", fs), ("densified", fd)):
-            its[("APC", label)] = median_ms(lambda: solver.step_many_residual(
-                f, bb, st, prm_apc))
-            its[("Cimmino", label)] = median_ms(lambda: cim.step_many_residual(
-                f, bb, cst, prm_cim))
+        its = medians_ms({
+            (meth, label): (
+                (lambda f=f: solver.step_many_residual(f, bb, st, prm_apc))
+                if meth == "APC" else
+                (lambda f=f: cim.step_many_residual(f, bb, cst, prm_cim)))
+            for label, f in (("sparse", fs), ("densified", fd))
+            for meth in ("APC", "Cimmino")})
         for meth in ("APC", "Cimmino"):
             sp_ms, dn_ms = its[(meth, "sparse")], its[(meth, "densified")]
             say(f"phase 11 iteration k={k} {meth}: sparse {sp_ms:.4f} ms, "

@@ -19,6 +19,12 @@ operands' device and its current stream, and raise on a nonzero
 :func:`launch_counts`, so a run can show that it went through the
 kernels.  The plain PyTorch versions and the device dispatch are in
 ``ops``.
+
+``apc_gather`` and ``sparse_gather`` have two instances, one kernel
+each: the "ring" for Hopper (producer warps streaming 16-byte copies
+through a shared-memory ring to consumer warps), and the "row dot" the
+other five kernels share.  :func:`gather_instance` picks one by the
+operands' shape and alignment alone, and both count as the same kernel.
 """
 from __future__ import annotations
 
@@ -45,6 +51,12 @@ KERNELS = ("apc_gather", "apc_scatter", "cimmino_gather",
            "cimmino_scatter", "sparse_gather", "sparse_cimmino_gather",
            "sparse_scatter")
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
+
+#: the instances of apc_gather / sparse_gather, by the int64 their C
+#: entries take (csrc/block_projection.cu kRowDot, kRing)
+INSTANCES = {"row_dot": 0, "ring": 1}
+# the ring's copies move 16 bytes between 16-byte-aligned addresses
+_ALIGN = 16
 
 _launches = dict.fromkeys(KERNELS, 0)
 _libs: dict = {}
@@ -115,8 +127,9 @@ _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
 #: ctypes argument types of each C entry (``<kernel>_f64``/``_f32``), in
 #: the order of the extern "C" signatures in csrc/block_projection.cu
 ARGTYPES = {
-    # A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k, su_w, su_k, stream
-    "apc_gather": [_PTR] * 4 + [_I64] * 9 + [_PTR],
+    # A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k, su_w, su_k, instance,
+    # stream
+    "apc_gather": [_PTR] * 4 + [_I64] * 10 + [_PTR],
     # B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w, sx_k, sxb_k, su_w, su_k,
     # sy_w, sy_k, stream
     "apc_scatter": [_PTR] * 4 + [ctypes.c_double, _PTR] + [_I64] * 11
@@ -126,8 +139,8 @@ ARGTYPES = {
     # B, V, R, m, n, p, k, sv_w, sv_k, sr_w, sr_k, stream
     "cimmino_scatter": [_PTR] * 3 + [_I64] * 8 + [_PTR],
     # vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k, sxb_k, su_w, su_k,
-    # stream
-    "sparse_gather": [_PTR] * 5 + [_I64] * 9 + [_PTR],
+    # instance, stream
+    "sparse_gather": [_PTR] * 5 + [_I64] * 10 + [_PTR],
     # vals, cols, Xbar, U, m, p, w, k, sxb_k, su_w, su_k, stream
     "sparse_cimmino_gather": [_PTR] * 4 + [_I64] * 7 + [_PTR],
     # Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, k, sx_w, sx_k, sxb_k,
@@ -135,6 +148,8 @@ ARGTYPES = {
     "sparse_scatter": [_PTR] * 5 + [ctypes.c_double, _PTR] + [_I64] * 11
     + [_PTR],
 }
+#: the ring's dynamic shared memory query: (itemsize, k) -> bytes
+RING_SMEM_ARGTYPES = [_I64, _I64]
 
 
 def _library() -> ctypes.CDLL:
@@ -146,8 +161,49 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, f"{kernel}_{dt}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    lib.gather_ring_smem.argtypes = RING_SMEM_ARGTYPES
+    lib.gather_ring_smem.restype = _I64
     _libs["block_projection"] = lib
     return lib
+
+
+def ring_smem_bytes(dtype: torch.dtype, k: int) -> int:
+    """Dynamic shared memory of the ring instance that a k-row batch of
+    ``dtype`` launches, in bytes (from the built library)."""
+    return int(_library().gather_ring_smem(
+        torch.empty((), dtype=dtype).element_size(), k))
+
+
+def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
+                    forced: str = None) -> str:
+    """The instance of ``apc_gather``/``sparse_gather`` for these
+    operands: "ring" when every row it copies in 16-byte pieces is a
+    non-empty 16-byte multiple at a 16-byte-aligned address — the rows of
+    ``matrix`` (A, or vals), and every base address and row stride of it
+    and of the ``copied`` operands (dense: X and X̄; the sparse kernel
+    gathers X and X̄ element by element) — else "row_dot".  Strides of
+    axes of size 1 are never used and do not count.
+
+    ``forced`` names an instance to take instead (chip_smoke.py times
+    both at the main path's shapes); forcing "ring" on operands it cannot
+    take raises, as does an unknown name.  Decided by shape alone: no
+    launch is tried and caught.
+    """
+    if forced is not None and forced not in INSTANCES:
+        raise ValueError(f"unknown instance {forced!r}; expected one of "
+                         f"{sorted(INSTANCES)}")
+    size = matrix.element_size()
+    tensors = (matrix, *copied)
+    steps = [matrix.shape[-1]] + [
+        t.stride(i) for t in tensors for i in range(t.dim() - 1)
+        if t.shape[i] > 1]
+    fits = matrix.shape[-1] > 0 and all(
+        s * size % _ALIGN == 0 for s in steps) and all(
+        t.data_ptr() % _ALIGN == 0 for t in tensors)
+    if forced == "ring" and not fits:
+        raise ValueError("the ring instance needs 16-byte rows, strides and "
+                         "base addresses; these operands take the row dot")
+    return forced or ("ring" if fits else "row_dot")
 
 
 def _check(name: str, index=None, **operands) -> dict:
@@ -214,20 +270,22 @@ def _launch(name: str, dtype: torch.dtype, device: torch.device,
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def apc_gather(A: torch.Tensor, X: torch.Tensor,
-               Xbar: torch.Tensor) -> torch.Tensor:
+def apc_gather(A: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor, *,
+               _instance: str = None) -> torch.Tensor:
     """U = (X̄ − X)·Aᵀ for every worker, in one launch.
 
     A (m, p, n) contiguous; X (m, k, n) with unit stride along n (any
     worker/row strides); X̄ (k, n) shared by all workers.  Returns U
-    (m, k, p), contiguous, in A's dtype.
+    (m, k, p), contiguous, in A's dtype.  The instance is
+    ``gather_instance(A, X, Xbar)``, or ``_instance`` where given.
     """
     d = _check("apc_gather", A=(A, "mpn"), X=(X, "mkn"), Xbar=(Xbar, "kn"))
+    instance = gather_instance(A, X, Xbar, forced=_instance)
     U = torch.empty((d["m"], d["k"], d["p"]), dtype=A.dtype, device=A.device)
     _launch("apc_gather", A.dtype, A.device, A.data_ptr(), X.data_ptr(),
             Xbar.data_ptr(), U.data_ptr(), d["m"], d["p"], d["n"], d["k"],
             X.stride(0), X.stride(1), Xbar.stride(0), U.stride(0),
-            U.stride(1))
+            U.stride(1), INSTANCES[instance])
     return U
 
 
@@ -280,23 +338,26 @@ def cimmino_scatter(B: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
 
 
 def sparse_gather(vals: torch.Tensor, cols: torch.Tensor, X: torch.Tensor,
-                  Xbar: torch.Tensor) -> torch.Tensor:
+                  Xbar: torch.Tensor, *, _instance: str = None
+                  ) -> torch.Tensor:
     """U = vals·(X̄ − X)[cols]ᵀ for every worker, in one launch: the
     support gather happens in the kernel's staged loads.
 
     vals (m, p, w) contiguous; cols (m, w) contiguous int64 with values
     in [0, n); X (m, k, n) with unit stride along n (any worker/row
     strides); X̄ (k, n) shared by all workers.  Returns U (m, k, p),
-    contiguous.
+    contiguous.  The instance is ``gather_instance(vals)``, or
+    ``_instance`` where given.
     """
     d = _check("sparse_gather", index=(cols, "mw"), vals=(vals, "mpw"),
                X=(X, "mkn"), Xbar=(Xbar, "kn"))
+    instance = gather_instance(vals, forced=_instance)
     U = torch.empty((d["m"], d["k"], d["p"]), dtype=vals.dtype,
                     device=vals.device)
     _launch("sparse_gather", vals.dtype, vals.device, vals.data_ptr(),
             cols.data_ptr(), X.data_ptr(), Xbar.data_ptr(), U.data_ptr(),
             d["m"], d["p"], d["w"], d["k"], X.stride(0), X.stride(1),
-            Xbar.stride(0), U.stride(0), U.stride(1))
+            Xbar.stride(0), U.stride(0), U.stride(1), INSTANCES[instance])
     return U
 
 

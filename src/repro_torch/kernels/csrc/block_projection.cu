@@ -43,7 +43,7 @@
 // exactly once, with coalesced loads, and keeps everything else out of
 // HBM:
 //
-//   * All seven kernels are the same "row dot" over a row-major matrix M
+//   * All seven kernels have the same "row dot" over a row-major matrix M
 //     (gathers: M = A_w or vals_w, rows l, columns j; scatters: M = B_w
 //     or Bvals_w, rows j, columns l) against a small right operand (APC
 //     gather: D = X̄ − X, formed on the fly; Cimmino gather: X̄;
@@ -84,6 +84,62 @@
 //     The APC form stores X + γ((X̄ − X) − C) on the support; the
 //     off-support columns of Y come from the caller's AXPY pre-pass.
 //
+// The two APC gathers (apc_gather, sparse_gather) have a second, Hopper
+// instance, the "ring", which the launcher takes wherever its 16-byte
+// copies can (below); the row dot stays for the shapes they cannot take.
+// Both are bound by bytes (|A| or |vals| over the HBM rate), but at k = 8
+// the row dot reached only about half its bound: each 256-column chunk
+// stages 8 batch rows of X̄ and X between two barriers with no load of A
+// in flight, its 32 f64 accumulators spill under the 128-register cap,
+// and a lane holds at most R = 4 loads of A in flight.  The ring instead:
+//
+//   * runs one persistent block per SM (grid = min(SMs, 64-row tiles)):
+//     8 consumer warps and 4 producer warps.  Block b takes an equal,
+//     contiguous share of the m·ceil(k/KC)·p rows (worker-major, to
+//     within one row), cut into tiles of at most 64 rows that never
+//     cross a worker or a k-chunk, so no SM idles while others finish a
+//     last wave (fixed 64-row tiles left 512 tiles on 132 SMs: 3.88
+//     waves), and neighbouring tiles share X_w and X̄ in L2.
+//   * streams A (or vals) through a ring of S stages of dynamic shared
+//     memory, 512 bytes of each of the tile's rows a stage (64 f64 or 128
+//     f32 columns), with 16-byte cp.async: no register holds a load.  A
+//     "full" mbarrier per stage counts the 128 producer threads whose
+//     copies have landed (cp.async.mbarrier.arrive), an "empty" one the
+//     consumer warps done reading it.  S is what fits in 200 KiB: 6
+//     stages at KC = 1, 5 above, so 128–165 KiB are in flight per SM.
+//   * stages the right operand with the A stage that uses it: the stage's
+//     KC rows of X̄ and X (dense: 16 bytes a lane; sparse: one cp.async of
+//     one element a lane at the support column cols[w, c], which the
+//     producer reads once, a step ahead, so no copy waits on it).  The
+//     operand costs 2·KC/64 of A's bytes, from L2, beside A and not
+//     between barriers.
+//   * gives each consumer warp 8 rows and all KC batch rows: 8·KC
+//     accumulators (64 f64 at KC = 8: 128 of its 168 registers; the
+//     tile's coordinates wait in shared memory meanwhile, so nothing
+//     spills).  Lane l sums the
+//     columns ≡ l (mod 32) in increasing order, reading A and forming
+//     X̄ − X from the stage, and the warp reduces with the row dot's
+//     xor-shuffle tree: every output is the row dot's sequence of
+//     operations, so the two instances are bit-identical.
+//   * copies only the valid bytes of the last, ragged chunk, and loops
+//     over its valid columns only.
+//
+// Tried on the card and dropped, each slower than this design or not
+// working (PERF.md): one 1-D bulk copy (cp.async.bulk) per 512-byte row
+// segment, about half the bound; no producer warp, every warp copying
+// its own rows; 7 rows a consumer warp at KC = 8, to fit 168 registers;
+// and setmaxnreg, moving registers from the producers to the consumers,
+// which hung the kernel.
+//
+// A 16-byte cp.async moves 16 bytes between 16-byte-aligned addresses.
+// So the ring needs the rows of A (vals) and every base and row stride
+// it copies from (dense: X and X̄ too) to be 16-byte multiples: f64 with
+// an even row length, f32 with one divisible by 4.  Other shapes
+// (n = 130 or 7 in f32, an odd support width, a view at an odd offset,
+// an empty row) take the row dot.  The choice is by shape, made once in
+// the Python wrapper (block_projection.gather_instance) and passed to
+// the entry as one int64 (kRowDot or kRing).
+//
 // f64 accumulates in f64, f32 in f32 (FFMA; no tensor cores, no TF32),
 // with A/B in the same type as the right operand; the wrapper rejects
 // anything else.  Every entry returns cudaGetLastError() after its launch.
@@ -91,24 +147,53 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
+
+__host__ __device__ constexpr int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 256;                            // staged columns
 
-// Every instance is compiled for two blocks per SM, which caps it at 128
-// registers a thread.  Left to itself ptxas gave even the k = 1 gather
-// 141 registers, one block per SM, and too few loads in flight to reach
-// the HBM rate (PERF.md).  A warp owns R rows of M and holds R x KC
+// Every row-dot instance is compiled for two blocks per SM, which caps it
+// at 128 registers a thread.  Left to itself ptxas gave even the k = 1
+// gather 141 registers, one block per SM, and too few loads in flight to
+// reach the HBM rate (PERF.md).  A warp owns R rows of M and holds R x KC
 // accumulators: R = 4, except R = 2 for the KC = 8 scatters, which spill
 // under the cap at R = 4.
 constexpr int kMinBlocks = 2;
 template <int KC>
 constexpr int scatter_rows() { return KC >= 8 ? 2 : 4; }
 constexpr int kGatherRows = 4;
+
+// The ring instance of the APC gathers (header): 64-row tiles, 8 rows
+// per consumer warp, 512-byte row segments per stage, as many stages as
+// fit in 200 KiB of the SM's 227 KB (one block per SM; the rest is left
+// to L1).  12 warps put 3 on each of the SM's 4 schedulers, which share
+// its 16384 registers a lane: 168 a thread.
+constexpr int64_t kRowDot = 0, kRing = 1;          // the entries' instance
+constexpr int kRingWarps = 8;                      // consumer warps
+constexpr int kRingWarpRows = 8;
+constexpr int kRingRows = kRingWarps * kRingWarpRows;
+constexpr int kRingLoaders = 4;                    // producer warps
+constexpr int kRingThreads = 32 * (kRingWarps + kRingLoaders);
+constexpr int kRingSegment = 512;                  // bytes of a row a stage
+constexpr int kRingBudget = 200 * 1024;
+
+template <typename T, int KC>
+struct Ring {
+  static constexpr int kCols = kRingSegment / sizeof(T);
+  // a stage: M[kRingRows][kCols], then X̄[KC][kCols] and X[KC][kCols]
+  static constexpr int kStageBytes = (kRingRows + 2 * KC) * kRingSegment;
+  static constexpr int kStages = kRingBudget / kStageBytes;
+  static constexpr int kSmem = kStages * kStageBytes;
+  static_assert(kStages >= 2 && kCols % 32 == 0, "ring shape");
+};
 
 // Per-lane partial dot products of this warp's R rows of the
 // row-major (rows x cols) matrix M with the KC staged right-operand rows,
@@ -372,6 +457,399 @@ sparse_scatter_kernel(const T* __restrict__ Bvals,
                                        sy_w, sy_k, Vs, Cs);
 }
 
+// ---------------------------------------------------------------------------
+// The ring instance of apc_gather and sparse_gather (see the header)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// 16 bytes from global to shared, asynchronously, both 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+// One element from global to shared, asynchronously.
+template <typename T>
+__device__ __forceinline__ void cp_async_element(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "n"(sizeof(T)) : "memory");
+}
+
+// An arrival on bar once this thread's cp.asyncs so far have landed,
+// counted in the barrier's init count (.noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// A tile: rows row0 .. row0 + rows of worker w's matrix against its
+// batch rows k0 .. k0 + kvalid.
+struct RingTile {
+  int64_t w, k0, row0;
+  int rows, kvalid;
+};
+
+// A consumer warp's place in the walk: the next tile's first row g of
+// its range [g, end), and the tile it computes.
+struct RingWalk {
+  int64_t g, end;
+  RingTile tl;
+};
+
+// The ring's shared memory: the stages (dynamic), their full and empty
+// barriers, and each consumer warp's walk.  Declared here, their
+// addresses are constants: no register holds them.
+constexpr int kRingMaxStages = 8;
+extern __shared__ __align__(128) unsigned char ring_smem[];
+__shared__ __align__(8) uint64_t ring_full[kRingMaxStages];
+__shared__ __align__(8) uint64_t ring_empty[kRingMaxStages];
+__shared__ RingWalk ring_walks[kRingWarps];
+
+// The walk's rows are g = (w · k_tiles + k-chunk) · p + row, worker-major;
+// block b takes the rows [total·b / grid, total·(b + 1) / grid), an equal
+// share to within one row, cut into tiles of at most 64 rows that never
+// cross a worker or a k-chunk.  This is the tile at row g of [g, end).
+template <int KC>
+__device__ __forceinline__ RingTile ring_tile(int64_t g, int64_t end,
+                                              int64_t p, int64_t k) {
+  const int64_t unit = g / p;
+  const int64_t k_tiles = (k + KC - 1) / KC;
+  RingTile r;
+  r.w = unit / k_tiles;
+  r.k0 = unit % k_tiles * KC;
+  r.row0 = g - unit * p;
+  r.rows = static_cast<int>(min64(min64(p - r.row0, end - g), kRingRows));
+  r.kvalid = static_cast<int>(min64(k - r.k0, KC));
+  return r;
+}
+
+// The support columns of the step at column c0 of worker w's cols that
+// lane l copies X̄ and X at: cols[w, c0 + l + 32 j] (0 past the end).
+template <int C>
+__device__ __forceinline__ void ring_cols(int64_t (&g)[C / 32],
+                                          const int64_t* __restrict__ cols,
+                                          int64_t w, int64_t c0, int64_t n) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < C / 32; ++j)
+    g[j] = c0 + lane + 32 * j < n ? cols[w * n + c0 + lane + 32 * j] : 0;
+}
+
+// A producer warp (pw of kRingLoaders): for every chunk of the tile, wait
+// for its stage to empty, then copy its share into it — rows pw, pw + 4,
+// ... of the tile's rows of M (16 bytes a lane) and rows q = pw,
+// pw + 4, ... < 2·KC of the right operand (X̄ row q, or X row q − KC;
+// dense: 16 bytes a lane, sparse: one element a lane at its support
+// column) — and arrive on the stage's full barrier once they have
+// landed.  Under kSparse, `g` holds the support columns of the step and
+// is refilled with the next step's (the next tile's first, of worker
+// next_w, after the last chunk): each index is read a step before the
+// copies that need it.  `it` counts the block's (tile, chunk) steps:
+// stage it % S, round it / S.
+template <typename T, int KC, bool kSparse>
+__device__ __forceinline__ void ring_produce(
+    const RingTile& tl, int64_t next_w, int64_t (&g)[Ring<T, KC>::kCols / 32],
+    const T* __restrict__ M, const int64_t* __restrict__ cols,
+    const T* __restrict__ X, const T* __restrict__ Xbar, int64_t p,
+    int64_t n, int64_t sx_w, int64_t sx_k, int64_t sxb_k, uint32_t& it) {
+  using Cfg = Ring<T, KC>;
+  constexpr int C = Cfg::kCols;
+  constexpr int kPer = 16 / sizeof(T);               // elements a piece
+  const int pw = threadIdx.x / 32 - kRingWarps;
+  const int lane = threadIdx.x % 32;
+  const T* Mt = M + (tl.w * p + tl.row0) * n + lane * kPer;
+  for (int64_t c0 = 0; c0 < n; c0 += C, ++it) {
+    const int s = it % Cfg::kStages;
+    const int nv = static_cast<int>(min64(n - c0, C));
+    const int pieces = nv * static_cast<int>(sizeof(T)) / 16;
+    T* Ms = reinterpret_cast<T*>(ring_smem + s * Cfg::kStageBytes);
+    T* XBs = Ms + kRingRows * C;
+    T* Xs = XBs + KC * C;
+    mbar_wait(&ring_empty[s], ((it / Cfg::kStages) & 1) ^ 1);
+    int64_t gc[C / 32] = {};
+    if (kSparse && pw < 2 * KC) {
+#pragma unroll
+      for (int j = 0; j < C / 32; ++j) gc[j] = g[j];
+      if (c0 + C < n)
+        ring_cols<C>(g, cols, tl.w, c0 + C, n);
+      else if (next_w >= 0)
+        ring_cols<C>(g, cols, next_w, 0, n);
+    }
+    if (lane < pieces)
+      for (int r = pw; r < tl.rows; r += kRingLoaders)
+        cp_async16(Ms + r * C + lane * kPer, Mt + r * n + c0);
+    for (int q = pw; q < 2 * KC; q += kRingLoaders) {
+      const int kk = q % KC;
+      if (kk >= tl.kvalid) continue;
+      T* dst = (q < KC ? XBs : Xs) + kk * C;
+      const T* src = q < KC ? Xbar + (tl.k0 + kk) * sxb_k
+                            : X + tl.w * sx_w + (tl.k0 + kk) * sx_k;
+      if constexpr (kSparse) {
+#pragma unroll
+        for (int j = 0; j < C / 32; ++j)
+          if (lane + 32 * j < nv)
+            cp_async_element(dst + lane + 32 * j, src + gc[j]);
+      } else if (lane < pieces) {
+        cp_async16(dst + lane * kPer, src + c0 + lane * kPer);
+      }
+    }
+    cp_async_arrive(&ring_full[s]);
+  }
+}
+
+// Column c of a stage against a consumer warp's 8 rows, for the batch
+// rows K0 .. K1 − 1.
+template <typename T, int KC, int C, int K0 = 0, int K1 = KC>
+__device__ __forceinline__ void ring_column(const T* Ms, const T* XBs,
+                                            const T* Xs, int c,
+                                            T (&acc)[kRingWarpRows][KC]) {
+  T d[K1 - K0];
+#pragma unroll
+  for (int kk = K0; kk < K1; ++kk)
+    d[kk - K0] = XBs[kk * C + c] - Xs[kk * C + c];
+#pragma unroll
+  for (int r = 0; r < kRingWarpRows; ++r) {
+    const T a = Ms[r * C + c];
+#pragma unroll
+    for (int kk = K0; kk < K1; ++kk)
+      acc[r][kk] = fma(a, d[kk - K0], acc[r][kk]);
+  }
+}
+
+// A consumer warp's columns of one stage: lane l takes the stage's
+// columns l, l + 32, ... below nv, in increasing order.  At f64 and
+// KC = 8 the 64 accumulators (128 of the 168 registers) leave room for
+// neither a second column's loads nor all 8 values of X̄ − X: that loop
+// is not unrolled, and takes each column in two halves of the batch
+// rows, reading the column of A twice.
+template <typename T, int KC, int C, bool kRagged>
+__device__ __forceinline__ void ring_columns(const T* Ms, const T* XBs,
+                                             const T* Xs, int nv,
+                                             T (&acc)[kRingWarpRows][KC]) {
+  const int lane = threadIdx.x % 32;
+  if constexpr (KC * sizeof(T) >= 64) {
+#pragma unroll 1
+    for (int c = lane; c < (kRagged ? nv : C); c += 32) {
+      ring_column<T, KC, C, 0, KC / 2>(Ms, XBs, Xs, c, acc);
+      ring_column<T, KC, C, KC / 2, KC>(Ms, XBs, Xs, c, acc);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < C / 32; ++i) {
+      if (kRagged && lane + 32 * i >= nv) break;
+      ring_column<T, KC, C>(Ms, XBs, Xs, lane + 32 * i, acc);
+    }
+  }
+}
+
+
+// A consumer warp, over the rows [g, end): for each tile, its 8 rows
+// against every chunk as it lands, then the row dot's shuffle tree and
+// the store of its outputs.  A warp with no rows in the tile
+// still waits for and releases every stage, so the empty barriers count
+// all 8 warps.  Its place in the walk waits in shared memory while the
+// accumulators hold the registers.
+template <typename T, int KC>
+__device__ __forceinline__ void ring_consume(int64_t g, int64_t end,
+                                             T* __restrict__ U, int64_t p,
+                                             int64_t n, int64_t k,
+                                             int64_t su_w, int64_t su_k) {
+  using Cfg = Ring<T, KC>;
+  constexpr int C = Cfg::kCols;
+  constexpr int R = kRingWarpRows;
+  RingWalk* walk = &ring_walks[threadIdx.x / 32];
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * R;
+  if (lane == 0) {
+    walk->g = g;
+    walk->end = end;
+  }
+  uint32_t it = 0;
+  for (;;) {
+    bool active;
+    {
+      __syncwarp();                    // lane 0's last writes are seen
+      const int64_t g = walk->g, end = walk->end;
+      if (g >= end) return;
+      const RingTile tl = ring_tile<KC>(g, end, p, k);
+      __syncwarp();                    // every lane has read them
+      if (lane == 0) {
+        walk->tl = tl;
+        walk->g = g + tl.rows;
+      }
+      __syncwarp();
+      active = r0 < tl.rows;
+    }
+    T acc[R][KC];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) acc[r][kk] = T(0);
+    for (int64_t c0 = 0; c0 < n; c0 += C, ++it) {
+      const int s = it % Cfg::kStages;
+      const T* Ms =
+          reinterpret_cast<const T*>(ring_smem + s * Cfg::kStageBytes);
+      const T* XBs = Ms + kRingRows * C;
+      const T* Xs = XBs + KC * C;
+      mbar_wait(&ring_full[s], (it / Cfg::kStages) & 1);
+      if (active) {
+        if (c0 + C <= n)
+          ring_columns<T, KC, C, false>(Ms + r0 * C, XBs, Xs, C, acc);
+        else
+          ring_columns<T, KC, C, true>(Ms + r0 * C, XBs, Xs,
+                                       static_cast<int>(n - c0), acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&ring_empty[s]);
+    }
+    if (!active) continue;
+    // the row dot's xor-shuffle tree, one level at a time over all the
+    // accumulators in place (each sees the same additions in the same
+    // order; the tree per accumulator, interleaved by ptxas, spilled)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk)
+          acc[r][kk] += __shfl_xor_sync(0xffffffffu, acc[r][kk], off);
+    if (lane != 0) continue;
+    const RingTile tl = walk->tl;
+    T* Ut = U + tl.w * su_w + tl.k0 * su_k + tl.row0 + r0;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+        if (r0 + r < tl.rows && kk < tl.kvalid) Ut[kk * su_k + r] = acc[r][kk];
+  }
+}
+
+// U[w, i, l] = sum_j (X̄[i, g_j] − X[w, i, g_j]) · M[w, l, j] with
+// g_j = j (dense: M = A) or cols[w, j] (kSparse: M = vals, n = w).
+// Warps 0..7 compute, warps 8..11 copy; both walk the block's tiles.
+template <typename T, int KC, bool kSparse>
+__device__ __forceinline__ void gather_ring(
+    const T* __restrict__ M, const int64_t* __restrict__ cols,
+    const T* __restrict__ X, const T* __restrict__ Xbar, T* __restrict__ U,
+    int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
+    int64_t sxb_k, int64_t su_w, int64_t su_k) {
+  using Cfg = Ring<T, KC>;
+  static_assert(Cfg::kStages <= kRingMaxStages, "ring barriers");
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cfg::kStages; ++s) {
+      mbar_init(&ring_full[s], 32 * kRingLoaders);  // every producer thread
+      mbar_init(&ring_empty[s], kRingWarps);        // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int64_t total = m * ((k + KC - 1) / KC) * p;
+  const int64_t end = total * (blockIdx.x + 1) / gridDim.x;
+  int64_t g = total * blockIdx.x / gridDim.x;
+  const int warp = threadIdx.x / 32;
+  if (warp >= kRingWarps) {
+    uint32_t it = 0;
+    RingTile tl = ring_tile<KC>(g, end, p, k);
+    int64_t cg[Cfg::kCols / 32] = {};      // support columns, a step ahead
+    if (kSparse && g < end) ring_cols<Cfg::kCols>(cg, cols, tl.w, 0, n);
+    while (g < end) {
+      const int64_t gn = g + tl.rows;
+      const RingTile next = gn < end ? ring_tile<KC>(gn, end, p, k) : tl;
+      ring_produce<T, KC, kSparse>(tl, gn < end ? next.w : -1, cg, M, cols,
+                                   X, Xbar, p, n, sx_w, sx_k, sxb_k, it);
+      g = gn;
+      tl = next;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    ring_consume<T, KC>(g, end, U, p, n, k, su_w, su_k);
+  }
+}
+
+template <typename T, int KC>
+__global__ void __launch_bounds__(kRingThreads, 1)
+apc_gather_ring_kernel(const T* __restrict__ A,
+                       const int64_t* __restrict__ cols,
+                       const T* __restrict__ X, const T* __restrict__ Xbar,
+                       T* __restrict__ U, int64_t m, int64_t p, int64_t n,
+                       int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
+                       int64_t su_w, int64_t su_k) {
+  gather_ring<T, KC, false>(A, cols, X, Xbar, U, m, p, n, k, sx_w, sx_k,
+                            sxb_k, su_w, su_k);
+}
+
+template <typename T, int KC>
+__global__ void __launch_bounds__(kRingThreads, 1)
+sparse_gather_ring_kernel(const T* __restrict__ vals,
+                          const int64_t* __restrict__ cols,
+                          const T* __restrict__ X,
+                          const T* __restrict__ Xbar, T* __restrict__ U,
+                          int64_t m, int64_t p, int64_t w, int64_t k,
+                          int64_t sx_w, int64_t sx_k, int64_t sxb_k,
+                          int64_t su_w, int64_t su_k) {
+  gather_ring<T, KC, true>(vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k,
+                           sxb_k, su_w, su_k);
+}
+
+// One persistent block per SM (the ring's shared memory admits no
+// second), and no more blocks than 64-row tiles.  The dynamic shared
+// memory above 48 KB is opted into once per device.
+template <typename T, int KC, bool kSparse>
+void launch_ring(const void* M, const void* cols, const void* X,
+                 const void* Xbar, void* U, int64_t m, int64_t p, int64_t n,
+                 int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
+                 int64_t su_w, int64_t su_k, cudaStream_t s) {
+  const auto kernel = kSparse ? &sparse_gather_ring_kernel<T, KC>
+                              : &apc_gather_ring_kernel<T, KC>;
+  static std::atomic<uint64_t> opted_in{0};          // a bit per device
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return;
+  const uint64_t bit = uint64_t{1} << (dev % 64);
+  if (!(opted_in.load() & bit)) {
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Ring<T, KC>::kSmem) != cudaSuccess)
+      return;
+    opted_in.fetch_or(bit);
+  }
+  const int64_t tiles = (m * ((k + KC - 1) / KC) * p + kRingRows - 1) /
+                        kRingRows;
+  kernel<<<static_cast<unsigned>(min64(sms, tiles)),
+           kRingThreads, Ring<T, KC>::kSmem, s>>>(
+      static_cast<const T*>(M), static_cast<const int64_t*>(cols),
+      static_cast<const T*>(X), static_cast<const T*>(Xbar),
+      static_cast<T*>(U), m, p, n, k, sx_w, sx_k, sxb_k, su_w, su_k);
+}
+
 inline int kc_for(int64_t k) { return k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : 8; }
 
 // Calls f(std::integral_constant<int, KC>) with the k-chunk for k.
@@ -392,15 +870,22 @@ inline dim3 grid_for(int64_t rows, int64_t m, int64_t k, int kc, int r) {
               static_cast<unsigned>((k + kc - 1) / kc));
 }
 
+// instance: kRing or kRowDot, as the wrapper chose it by shape.
 template <typename T>
 int apc_gather(const void* A, const void* X, const void* Xbar, void* U,
                int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w,
                int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-               void* stream) {
+               int64_t instance, void* stream) {
+  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
   if (m == 0 || p == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
+    if (instance == kRing) {
+      launch_ring<T, KC, false>(A, nullptr, X, Xbar, U, m, p, n, k, sx_w,
+                                sx_k, sxb_k, su_w, su_k, s);
+      return;
+    }
     apc_gather_kernel<T, KC, kGatherRows>
         <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
             static_cast<const T*>(A), static_cast<const T*>(X),
@@ -468,11 +953,18 @@ template <typename T>
 int sparse_gather(const void* vals, const void* cols, const void* X,
                   const void* Xbar, void* U, int64_t m, int64_t p,
                   int64_t w, int64_t k, int64_t sx_w, int64_t sx_k,
-                  int64_t sxb_k, int64_t su_w, int64_t su_k, void* stream) {
+                  int64_t sxb_k, int64_t su_w, int64_t su_k,
+                  int64_t instance, void* stream) {
+  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
   if (m == 0 || p == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
+    if (instance == kRing) {
+      launch_ring<T, KC, true>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,
+                               sx_k, sxb_k, su_w, su_k, s);
+      return;
+    }
     sparse_gather_kernel<T, KC, kGatherRows>
         <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
             static_cast<const T*>(vals), static_cast<const int64_t*>(cols),
@@ -537,17 +1029,17 @@ extern "C" {
 int apc_gather_f64(const void* A, const void* X, const void* Xbar, void* U,
                    int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w,
                    int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-                   void* stream) {
+                   int64_t instance, void* stream) {
   return apc_gather<double>(A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k,
-                            su_w, su_k, stream);
+                            su_w, su_k, instance, stream);
 }
 
 int apc_gather_f32(const void* A, const void* X, const void* Xbar, void* U,
                    int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w,
                    int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-                   void* stream) {
+                   int64_t instance, void* stream) {
   return apc_gather<float>(A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k,
-                           su_w, su_k, stream);
+                           su_w, su_k, instance, stream);
 }
 
 int apc_scatter_f64(const void* B, const void* X, const void* Xbar,
@@ -602,18 +1094,18 @@ int sparse_gather_f64(const void* vals, const void* cols, const void* X,
                       const void* Xbar, void* U, int64_t m, int64_t p,
                       int64_t w, int64_t k, int64_t sx_w, int64_t sx_k,
                       int64_t sxb_k, int64_t su_w, int64_t su_k,
-                      void* stream) {
+                      int64_t instance, void* stream) {
   return sparse_gather<double>(vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k,
-                          sxb_k, su_w, su_k, stream);
+                          sxb_k, su_w, su_k, instance, stream);
 }
 
 int sparse_gather_f32(const void* vals, const void* cols, const void* X,
                       const void* Xbar, void* U, int64_t m, int64_t p,
                       int64_t w, int64_t k, int64_t sx_w, int64_t sx_k,
                       int64_t sxb_k, int64_t su_w, int64_t su_k,
-                      void* stream) {
+                      int64_t instance, void* stream) {
   return sparse_gather<float>(vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k,
-                          sxb_k, su_w, su_k, stream);
+                          sxb_k, su_w, su_k, instance, stream);
 }
 
 int sparse_cimmino_gather_f64(const void* vals, const void* cols,
@@ -652,6 +1144,17 @@ int sparse_scatter_f32(const void* Bvals, const void* cols, const void* X,
   return sparse_scatter<float>(Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, k,
                            sx_w, sx_k, sxb_k, su_w, su_k, sy_w, sy_k,
                            stream);
+}
+
+// The ring instance's dynamic shared memory at the k-chunk of k, in
+// bytes, for a type of itemsize bytes (4 or 8).
+int64_t gather_ring_smem(int64_t itemsize, int64_t k) {
+  int64_t bytes = 0;
+  with_kc(k, [&](auto kc) {
+    constexpr int KC = decltype(kc)::value;
+    bytes = itemsize == 8 ? Ring<double, KC>::kSmem : Ring<float, KC>::kSmem;
+  });
+  return bytes;
 }
 
 }  // extern "C"

@@ -142,12 +142,101 @@ def test_ctypes_signatures_match_the_cuda_source():
     body = src[src.index('extern "C" {'):]
     kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
              "int64_t": ctypes.c_int64, "double": ctypes.c_double}
+    def types(params):
+        return [kinds[re.sub(r"\s+\w+$", "", p.strip())]
+                for p in params.split(",")]
+
     found = 0
     for name, params in re.findall(r"int (\w+)\(([^)]*)\)", body):
         kernel, dt = name.rsplit("_", 1)
         assert dt in ("f64", "f32") and kernel in bp.ARGTYPES, name
-        types = [kinds[re.sub(r"\s+\w+$", "", p.strip())]
-                 for p in params.split(",")]
-        assert types == bp.ARGTYPES[kernel], name
+        assert types(params) == bp.ARGTYPES[kernel], name
         found += 1
     assert found == 2 * len(bp.KERNELS)
+    # the ring's shared-memory query returns int64_t
+    (params,) = re.findall(r"int64_t gather_ring_smem\(([^)]*)\)", body)
+    assert types(params) == bp.RING_SMEM_ARGTYPES
+    # the APC gathers take their instance as the int64 before the stream
+    for kernel in ("apc_gather", "sparse_gather"):
+        assert bp.ARGTYPES[kernel][-2:] == [ctypes.c_int64, ctypes.c_void_p]
+    assert "kRowDot = {row_dot}, kRing = {ring};".format(
+        **bp.INSTANCES) in src
+
+
+def _gather_operands(n, dtype, m=2, p=3, k=4):
+    """A (m, p, n), X (m, k, n) as the transposed view solve_many hands the
+    kernels, X̄ (k, n)."""
+    return (torch.empty((m, p, n), dtype=dtype),
+            torch.empty((k, m, n), dtype=dtype).transpose(0, 1),
+            torch.empty((k, n), dtype=dtype))
+
+
+def _offset(t):
+    """A copy of t's shape whose data starts one element past an aligned
+    base, as a view at an odd offset does."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype)
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("n,dtype,want", [
+    (16384, torch.float64, "ring"),      # the main path's A rows
+    (128, torch.float32, "ring"),        # 512 bytes
+    (130, torch.float64, "ring"),        # 1040 bytes
+    (130, torch.float32, "row_dot"),     # 520 bytes: not a 16-byte multiple
+    (7, torch.float32, "row_dot"),
+    (7, torch.float64, "row_dot"),
+    (0, torch.float64, "row_dot"),       # an empty row
+])
+def test_gather_instance_by_row_length(n, dtype, want):
+    """The ring takes rows whose 16-byte pieces it can copy, the row dot
+    the others; k = 1 and m = 1 strides do not count."""
+    assert bp.gather_instance(*_gather_operands(n, dtype)) == want
+    A, X, Xb = _gather_operands(n, dtype, m=1, k=1)
+    assert bp.gather_instance(A, X, Xb) == want
+
+
+@pytest.mark.parametrize("which", ["A", "X", "Xbar"])
+def test_gather_instance_misaligned_base_takes_the_row_dot(which):
+    ops_ = dict(zip(("A", "X", "Xbar"), _gather_operands(16384,
+                                                         torch.float64)))
+    assert bp.gather_instance(*ops_.values()) == "ring"
+    ops_[which] = _offset(ops_[which])
+    assert bp.gather_instance(*ops_.values()) == "row_dot"
+
+
+def test_gather_instance_strides_count():
+    """A batch row stride that is not a 16-byte multiple (an X whose rows
+    sit 129 f32 apart) takes the row dot, though the rows themselves are
+    512 bytes."""
+    A = torch.empty((2, 3, 128), dtype=torch.float32)
+    X = torch.empty((2, 4, 129), dtype=torch.float32)[..., :128]
+    Xb = torch.empty((4, 128), dtype=torch.float32)
+    assert bp.gather_instance(A, X, Xb) == "row_dot"
+    assert bp.gather_instance(A, X[:, :1], Xb[:1]) == "ring"   # k = 1
+
+
+def test_forced_instance():
+    """``forced`` (the wrappers' ``_instance``) picks the row dot anywhere
+    and the ring only where it fits; anything else raises."""
+    A, X, Xb = _gather_operands(16384, torch.float64)
+    assert bp.gather_instance(A, X, Xb, forced="row_dot") == "row_dot"
+    assert bp.gather_instance(A, X, Xb, forced="ring") == "ring"
+    with pytest.raises(ValueError, match="row dot"):
+        bp.gather_instance(*_gather_operands(130, torch.float32),
+                           forced="ring")
+    with pytest.raises(ValueError, match="unknown instance"):
+        bp.gather_instance(A, X, Xb, forced="tensor_core")
+
+
+@pytest.mark.parametrize("instance", [None, "ring", "row_dot"])
+def test_gather_instance_argument_never_reaches_the_cpu(instance):
+    """``_instance`` is keyword-only, and whatever it names, a CPU tensor
+    still gets the launcher's refusal: no instance is a plain fallback."""
+    A, B, X, Xb = (torch.as_tensor(a) for a in _inputs(4, 16, 2,
+                                                        np.float64))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        bp.apc_gather(A, X, Xb, _instance=instance)
+    with pytest.raises(TypeError):
+        bp.apc_gather(A, X, Xb, instance)
+    assert ops.launch_counts() == before

@@ -76,8 +76,9 @@ def _by_row(k, f):
 
 
 def _fake_launchers():
-    def apc_gather(A, X, Xb):
+    def apc_gather(A, X, Xb, *, _instance=None):
         _contract("apc_gather", A, [X, Xb])
+        bp.gather_instance(A, X, Xb, forced=_instance)
         return _by_row(Xb.shape[0], lambda i: ops.apc_gather_ref(
             A, X[:, i], Xb[i])).contiguous()
 
@@ -96,8 +97,9 @@ def _fake_launchers():
         return _by_row(V.shape[1], lambda i: ops.cimmino_scatter_ref(
             B, V[:, i])).contiguous()
 
-    def sparse_gather(vals, cols, X, Xb):
+    def sparse_gather(vals, cols, X, Xb, *, _instance=None):
         _contract("sparse_gather", vals, [X, Xb], cols)
+        bp.gather_instance(vals, forced=_instance)
         return _by_row(Xb.shape[0], lambda i: ops.sparse_gather_ref(
             vals, cols, X[:, i], Xb[i])).contiguous()
 
@@ -136,9 +138,9 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             ITERS=40, LS_ITERS=900,
             smi=lambda: "NVIDIA H100 80GB HBM3, 700.00 W").items():
         monkeypatch.setattr(smoke, name, value)
-    median_ms = smoke.median_ms
-    monkeypatch.setattr(smoke, "median_ms",
-                        lambda fn, reps=1: median_ms(fn, reps=1))
+    medians_ms = smoke.medians_ms
+    monkeypatch.setattr(smoke, "medians_ms", lambda fns, reps=1, batch=1:
+                        medians_ms(fns, reps=1, batch=1))
     as_tensor = torch.as_tensor
 
     def cpu_as_tensor(*a, **k):
@@ -162,9 +164,17 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121sparse_"
         "scatter_kernelIdLi8ELi2ELb1EEEvPKT_' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-        "ptxas info    : Used 128 registers, used 1 barriers\n")
+        "ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes "
+        "smem\n"
+        "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__fa3dee60_"
+        "19_block_projection_cu_8ac00be022apc_gather_ring_kernelIdLi8EEEvPKT_"
+        "' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 128 bytes smem"
+        "\n")
     monkeypatch.setattr(bp, "build", lambda sources=bp.SOURCES: {
         "block_projection.cu": lib})
+    monkeypatch.setattr(bp, "ring_smem_bytes", lambda dtype, k: 204800)
     for name, fn in _fake_launchers().items():
         monkeypatch.setattr(bp, name, fn)
     monkeypatch.setattr(bp, "_launches", dict.fromkeys(bp.KERNELS, 0))
@@ -174,8 +184,17 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert lines[-1] == ('{"ok": true, "device": {"platform": "gpu", "kind": '
                          '"NVIDIA H100 80GB HBM3", "count": 1}}')
     assert lines[-2] == "NVIDIA H100 80GB HBM3, 700.00 W"
-    assert "sparse_scatter f64 KC=8 apc spill 0 B: 128 regs" in "\n".join(
-        lines)
+    text = "\n".join(lines)
+    assert ("sparse_scatter f64 KC=8 apc spill 0 B: 128 regs, smem 16384 B; "
+            "apc_gather_ring f64 KC=8 spill 0 B: 168 regs, smem 128 B + "
+            "204800 B dynamic") in text
+    # both instances of the APC gathers where the ring fits, the row dot
+    # alone where it does not (f32 rows of 130)
+    assert "apc_gather ring≡row_dot" in text
+    assert "sparse_gather ring≡row_dot" in text
+    assert any("n=130" in x and "float32" in x and "apc_gather row_dot" in x
+               for x in lines)
+    assert "row-dot instance" in text
     kernels = json.loads(next(x for x in lines if x.startswith(
         '{"kernels"')))["kernels"]
     assert [k["name"] for k in kernels] == list(bp.KERNELS)

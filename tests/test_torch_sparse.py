@@ -310,6 +310,50 @@ def test_sparse_launchers_take_cuda_tensors_only(corner):
     assert ops.launch_counts() == before
 
 
+# the corner systems' support widths and the instance of sparse_gather
+# each takes: vals rows of 71 (odd) or 5 f64 are not 16-byte multiples
+@pytest.mark.parametrize("key,dtype,want", [
+    ("odd-w-n130", np.float64, "row_dot"),
+    ("p1", np.float64, "row_dot"),
+    ("even", np.float64, "ring"),
+    ("even", np.float32, "ring"),
+])
+def test_sparse_gather_instance_at_the_corners(corner, key, dtype, want):
+    vals, cols, Bv, X, Xb, b = (torch.as_tensor(a) for a in _op_inputs(
+        corner(key)[1], 3, dtype))
+    assert vals.shape[-1] == {"odd-w-n130": 71, "p1": 5, "even": 60}[key]
+    assert bp.gather_instance(vals) == want
+
+
+def test_sparse_gather_instance_on_the_sparse_path():
+    """The sparse path's banded system (m = 16, p = 2048) has support
+    width 2064: 16512-byte f64 rows take the ring, whatever its p; f32 rows
+    of 8256 bytes too; an odd width does not, nor a view at an odd
+    offset."""
+    for dtype in (torch.float64, torch.float32):
+        assert bp.gather_instance(torch.empty((2, 3, 2064),
+                                              dtype=dtype)) == "ring"
+        assert bp.gather_instance(torch.empty((2, 3, 2063),
+                                              dtype=dtype)) == "row_dot"
+    flat = torch.empty(2 * 3 * 2064 + 1, dtype=torch.float64)
+    assert bp.gather_instance(flat[1:].view(2, 3, 2064)) == "row_dot"
+    with pytest.raises(ValueError, match="row dot"):
+        bp.gather_instance(flat[1:].view(2, 3, 2064), forced="ring")
+
+
+@pytest.mark.parametrize("instance", [None, "ring", "row_dot"])
+def test_sparse_gather_instance_argument_never_reaches_the_cpu(corner,
+                                                               instance):
+    vals, cols, Bv, X, Xb, b = (torch.as_tensor(a) for a in _op_inputs(
+        corner("even")[1], 2, np.float64))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        bp.sparse_gather(vals, cols, X, Xb, _instance=instance)
+    with pytest.raises(TypeError):
+        bp.sparse_gather(vals, cols, X, Xb, instance)
+    assert ops.launch_counts() == before
+
+
 def test_compressed_factors_keep_the_fused_residual_exact(sparse_sys):
     """APC's sparse u is the residual block only because A_i B_i = I on
     the compressed factors; padded support slots carry zero Bvals rows."""
