@@ -17,9 +17,9 @@ script exits non-zero without its last line:
    reference's sparse corner shapes (odd support width, p = 1, even), a
    support width of one chunk and a bit, and the sparse path's shapes;
    float64 and float32, k = 1..11, a batch row bit-identical to a k = 1
-   call; both instances of ``apc_gather`` and ``sparse_gather`` (the
-   ring, where its alignment admits the shape, and the row dot) against
-   the plain version and bit-identical to each other;
+   call; both instances of each of the four gathers (the ring, where its
+   alignment admits the shape, and the row dot) against the plain version
+   and bit-identical to each other;
 3. the APC main path at full size: a 32768 x 16384 tall Gaussian system
    on 16 workers (float64), ``analyze``, then ``solve`` on the kernel
    path — error to x_true, one launch of each kernel per iteration, the
@@ -35,9 +35,10 @@ script exits non-zero without its last line:
 7. the CLI entry point ``repro_torch.launch.solve`` in-process, for
    ``--method apc`` and ``--method cimmino``, both with ``--use-kernel``;
 8. CUDA-event times of each dense kernel, its plain version, one
-   torch.matmul of the same product (and, for ``apc_gather``, its
-   row-dot instance), timed in turns, and of the whole APC and Cimmino
-   iterations, beside each kernel's bound;
+   torch.matmul of the same product (and, for a gather, its row-dot
+   instance), timed in turns, and of the whole APC and Cimmino
+   iterations, beside each kernel's bound, with the card's clocks, power,
+   temperature and throttle reasons at the phase's start and end;
 9. the sparse path at full size: a banded 32768 x 32768 system on 16
    workers (float64, support width 2064), one spectral analysis, then
    APC, consensus and Cimmino on the sparse kernels — exactly one launch
@@ -50,9 +51,10 @@ script exits non-zero without its last line:
    each solver's ``ls_reference``, and the CLI on ``banded`` with APC on
    the sparse kernels;
 11. CUDA-event times of the sparse kernels (plain version, torch.bmm on
-   the pre-gathered operands, ``sparse_gather``'s row-dot instance,
-   bound), timed in turns, and of the sparse and densified iterations,
-   then the ``{"kernels": [...]}`` line with all seven.
+   the pre-gathered operands, the gathers' row-dot instances, bound),
+   timed in turns, and of the sparse and densified iterations, with the
+   card's clocks as in phase 8, then the ``{"kernels": [...]}`` line
+   with all seven.
 
 Every time is the median over rounds of a run of back-to-back calls
 between two CUDA events, divided by the run's length: the host's time
@@ -128,6 +130,25 @@ def smi() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
+CLOCK_QUERY = ("clocks.sm,clocks.max.sm,power.draw,temperature.gpu,"
+               "clocks_throttle_reasons.active")
+
+
+def clocks(label: str) -> None:
+    """Print the card's SM clock, its maximum, power draw, temperature
+    and active throttle reasons on a line of its own, so a change of
+    rate within a run shows beside the times it would move.  Gates
+    nothing: without nvidia-smi it says so and goes on."""
+    try:
+        r = subprocess.run(["nvidia-smi", f"--query-gpu={CLOCK_QUERY}",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=30)
+        got = (r.stdout + r.stderr).strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        got = f"nvidia-smi not available ({e})"
+    say(f"{label} clocks ({CLOCK_QUERY}): {got}")
+
+
 def card_rates(name: str):
     for key, bw, f64, f32 in CARDS:
         if key in name:
@@ -145,7 +166,8 @@ def ptxas_summary(log: str, dynamic_smem) -> list[str]:
     """'apc_gather f64 KC=8 spill 0 B: 128 regs, smem 16384 B' per kernel
     instance, from nvcc's -Xptxas=-v output (the sparse scatter's two
     forms are tagged apc/cimmino; a ring instance's shared memory adds
-    ``dynamic_smem(dtype, KC)`` bytes of dynamic shared memory)."""
+    ``dynamic_smem(dtype, KC, form)`` bytes of dynamic shared memory, the
+    form "cimmino" for the Cimmino gathers' rings, else "apc")."""
     out, kernel = [], None
     for line in log.splitlines():
         hit = re.search(r"entry function '\S*?((?:apc|cimmino|sparse)_\w+?)"
@@ -158,6 +180,7 @@ def ptxas_summary(log: str, dynamic_smem) -> list[str]:
                       + ("" if hit[4] is None else
                          " apc" if hit[4] == "1" else " cimmino"))
             ring = hit[1].endswith("_ring")
+            form = "cimmino" if "cimmino" in hit[1] else "apc"
             kc = int(hit[3])
         spill = re.search(r"(\d+) bytes spill stores", line)
         if kernel and spill:
@@ -167,7 +190,7 @@ def ptxas_summary(log: str, dynamic_smem) -> list[str]:
             smem = re.search(r"(\d+) bytes smem", line)
             kernel += f": {regs[1]} regs, smem {smem[1] if smem else 0} B"
             if ring:
-                kernel += f" + {dynamic_smem(dtype, kc)} B dynamic"
+                kernel += f" + {dynamic_smem(dtype, kc, form)} B dynamic"
             out.append(kernel)
             kernel = None
     return out
@@ -260,7 +283,9 @@ def main() -> int:
                           bp.ring_smem_bytes)
     say("phase 1 ptxas: " + "; ".join(ptxas))
     rings = [x for x in ptxas if "_ring f64" in x]
-    assert rings and all(" spill 0 B:" in x for x in rings), rings
+    assert all(" spill 0 B:" in x for x in rings), rings
+    assert {x.split()[0] for x in rings} == {
+        f"{kn}_ring" for kn in bp.GATHERS}, rings
 
     # 2. kernel vs plain version ------------------------------------------
     max_abs = dict.fromkeys(bp.KERNELS, 0.0)
@@ -273,10 +298,10 @@ def main() -> int:
         return e
 
     def instances(kname, launch, want, matrix, copied, dt, label, record):
-        """Both instances of an APC gather, ``launch(instance)``: the row
-        dot, and the ring where ``gather_instance`` admits these
-        operands; each against the plain version, and the two
-        bit-identical.  Returns the instances that ran."""
+        """Both instances of a gather, ``launch(instance)``: the row dot,
+        and the ring where ``gather_instance`` admits these operands;
+        each against the plain version, and the two bit-identical.
+        Returns the instances that ran."""
         ring = bp.gather_instance(matrix, *copied) == "ring"
         outs = {inst: launch(inst) for inst in bp.INSTANCES
                 if inst == "row_dot" or ring}
@@ -308,9 +333,13 @@ def main() -> int:
         ran = instances("apc_gather", lambda inst: bp.apc_gather(
             A, X3, Xb3, _instance=inst), outs["apc_gather"][1], A,
             (X3, Xb3), dt, label, record)
+        ran_c = instances("cimmino_gather", lambda inst: bp.cimmino_gather(
+            A, Xb3, _instance=inst), outs["cimmino_gather"][1], A, (Xb3,),
+            dt, label, record)
         say(f"phase 2 {label} {str(dt)[6:]}: " + " ".join(
             f"{kn} {e:.3e}" for kn, e in errs.items())
-            + f" (tol {TOL[dt]:.0e}); apc_gather {ran}")
+            + f" (tol {TOL[dt]:.0e}); apc_gather {ran}; cimmino_gather "
+            f"{ran_c}")
         if X.dim() == 3:    # a batch row is bit-identical to a k=1 call
             i = X.shape[1] - 1
             rows = {
@@ -343,9 +372,14 @@ def main() -> int:
         ran = instances("sparse_gather", lambda inst: bp.sparse_gather(
             vals, cols, X3, Xb3, _instance=inst), Ur, vals, (), dt, label,
             record)
+        ran_c = instances(
+            "sparse_cimmino_gather", lambda inst: bp.sparse_cimmino_gather(
+                vals, cols, Xb3, _instance=inst), Ucr, vals, (), dt, label,
+            record)
         say(f"phase 2 {label} {str(dt)[6:]}: " + " ".join(
             f"{kn} {e:.3e}" for kn, e in errs.items())
-            + f" (tol {TOL[dt]:.0e}); sparse_gather {ran}")
+            + f" (tol {TOL[dt]:.0e}); sparse_gather {ran}; "
+            f"sparse_cimmino_gather {ran_c}")
         if X.dim() == 3:    # a batch row is bit-identical to a k=1 call
             i = X.shape[1] - 1
             Y1, U1 = ops.sparse_proj_update(vals, cols, Bv, X[:, i], Xb[i],
@@ -627,7 +661,7 @@ def main() -> int:
     def time_kernel(phase, kname, k, shape, fns, work, library):
         """CUDA-event medians, in turns, of a kernel (``fns["ms"]``), its
         plain version (``plain_ms``), the library yardstick
-        (``library_ms``) and, for an APC gather, its row-dot instance
+        (``library_ms``) and, for a gather, its row-dot instance
         (``row_dot_ms``), beside the kernel's bound from ``work`` =
         (bytes, operations); kept in ``rows`` and printed."""
         nbytes, nops = work
@@ -648,6 +682,7 @@ def main() -> int:
     b = sys_.b_blocks
     nu = pinned["cimmino"][0]["nu"]
     cim = solvers.get("cimmino")
+    clocks("phase 8 start")
     for k in (1, K_MANY):
         rng = np.random.default_rng(3 + k)
         X = torch.as_tensor(rng.standard_normal((k, m, n)), device="cuda")
@@ -682,6 +717,8 @@ def main() -> int:
                 library_ms=lambda: torch.matmul(U, B.transpose(1, 2))),
             "cimmino_gather": dict(
                 ms=lambda: bp.cimmino_gather(A, Xb),
+                row_dot_ms=lambda: bp.cimmino_gather(A, Xb,
+                                                     _instance="row_dot"),
                 plain_ms=lambda: ops.cimmino_gather_ref(A, Xb),
                 library_ms=lambda: torch.matmul(Xb, A.transpose(1, 2))),
             "cimmino_scatter": dict(
@@ -690,6 +727,7 @@ def main() -> int:
                 library_ms=lambda: torch.matmul(V, B.transpose(1, 2))),
         }
         assert bp.gather_instance(A, X3, Xb) == "ring"
+        assert bp.gather_instance(A, Xb) == "ring"
         if k == 1:
             st = APCState(x=X[0], xbar=Xb[0], t=0)
             cst = CimminoState(xbar=Xb[0], t=0)
@@ -712,6 +750,7 @@ def main() -> int:
             f"{t_cit:.4f} ms per step (gather + v = b − u + scatter + "
             f"worker sum + master update + residual)")
         del U, V, D
+    clocks("phase 8 end")
 
     main_launches = {kn: (launches if kn in USES["apc"] else cim_launches)[kn]
                      for kn in USES["apc"] + USES["cimmino"]}
@@ -847,6 +886,7 @@ def main() -> int:
     vals, cols, Bv = fs.A.vals, fs.A.cols, fs.B
     b = sp.b_blocks
     prm_apc, prm_cim = sp_pinned["apc"][0], sp_pinned["cimmino"][0]
+    clocks("phase 11 start")
     for k in (1, K_MANY):
         rng = np.random.default_rng(7 + k)
         X = torch.as_tensor(rng.standard_normal((k, m, n)), device="cuda")
@@ -882,6 +922,8 @@ def main() -> int:
                 library_ms=lambda: torch.bmm(Ds, vals.transpose(1, 2))),
             "sparse_cimmino_gather": dict(
                 ms=lambda: bp.sparse_cimmino_gather(vals, cols, Xb),
+                row_dot_ms=lambda: bp.sparse_cimmino_gather(
+                    vals, cols, Xb, _instance="row_dot"),
                 plain_ms=lambda: ops.sparse_cimmino_gather_ref(vals, cols,
                                                                Xb),
                 library_ms=lambda: torch.bmm(Xs, vals.transpose(1, 2))),
@@ -892,7 +934,7 @@ def main() -> int:
                                                         Xb, 0.9),
                 library_ms=lambda: torch.bmm(U, Bv.transpose(1, 2))),
         }
-        assert bp.gather_instance(vals) == "ring"
+        assert bp.gather_instance(vals) == "ring"     # both sparse gathers
         for kname, fns in timed.items():
             time_kernel(11, kname, k, f"m={m} p={p} w={w} n={n}", fns,
                         work[kname], "torch.bmm (operands gathered "
@@ -930,6 +972,7 @@ def main() -> int:
                 f"densified {dn_ms:.4f} ms per step (step_residual), "
                 f"ratio {dn_ms / sp_ms:.2f} (n/w = {n / w:.2f})")
         del U, V, Y0, R0, Ds, Xs
+    clocks("phase 11 end")
 
     main_launches.update(
         {kn: sparse_launches["apc" if kn in SPARSE_USES["apc"]

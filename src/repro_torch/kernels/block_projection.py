@@ -20,11 +20,12 @@ operands' device and its current stream, and raise on a nonzero
 kernels.  The plain PyTorch versions and the device dispatch are in
 ``ops``.
 
-``apc_gather`` and ``sparse_gather`` have two instances, one kernel
-each: the "ring" for Hopper (producer warps streaming 16-byte copies
-through a shared-memory ring to consumer warps), and the "row dot" the
-other five kernels share.  :func:`gather_instance` picks one by the
-operands' shape and alignment alone, and both count as the same kernel.
+The four gathers (``apc_gather``, ``sparse_gather``, ``cimmino_gather``,
+``sparse_cimmino_gather``) have two instances, one kernel each: the
+"ring" for Hopper (producer warps streaming 16-byte copies through a
+shared-memory ring to consumer warps), and the "row dot" the three
+scatters share.  :func:`gather_instance` picks one by the operands'
+shape and alignment alone, and both count as the same kernel.
 """
 from __future__ import annotations
 
@@ -50,11 +51,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("apc_gather", "apc_scatter", "cimmino_gather",
            "cimmino_scatter", "sparse_gather", "sparse_cimmino_gather",
            "sparse_scatter")
+#: the kernels with a ring instance beside the row dot
+GATHERS = ("apc_gather", "cimmino_gather", "sparse_gather",
+           "sparse_cimmino_gather")
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 
-#: the instances of apc_gather / sparse_gather, by the int64 their C
-#: entries take (csrc/block_projection.cu kRowDot, kRing)
+#: the instances of the four gathers, by the int64 their C entries take
+#: (csrc/block_projection.cu kRowDot, kRing)
 INSTANCES = {"row_dot": 0, "ring": 1}
+#: the ring's forms, by the int64 gather_ring_smem takes (kApcForm,
+#: kCimminoForm): the APC gathers stage X̄ and X, the Cimmino ones X̄
+FORMS = {"apc": 0, "cimmino": 1}
 # the ring's copies move 16 bytes between 16-byte-aligned addresses
 _ALIGN = 16
 
@@ -134,22 +141,22 @@ ARGTYPES = {
     # sy_w, sy_k, stream
     "apc_scatter": [_PTR] * 4 + [ctypes.c_double, _PTR] + [_I64] * 11
     + [_PTR],
-    # A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k, stream
-    "cimmino_gather": [_PTR] * 3 + [_I64] * 7 + [_PTR],
+    # A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k, instance, stream
+    "cimmino_gather": [_PTR] * 3 + [_I64] * 8 + [_PTR],
     # B, V, R, m, n, p, k, sv_w, sv_k, sr_w, sr_k, stream
     "cimmino_scatter": [_PTR] * 3 + [_I64] * 8 + [_PTR],
     # vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k, sxb_k, su_w, su_k,
     # instance, stream
     "sparse_gather": [_PTR] * 5 + [_I64] * 10 + [_PTR],
-    # vals, cols, Xbar, U, m, p, w, k, sxb_k, su_w, su_k, stream
-    "sparse_cimmino_gather": [_PTR] * 4 + [_I64] * 7 + [_PTR],
+    # vals, cols, Xbar, U, m, p, w, k, sxb_k, su_w, su_k, instance, stream
+    "sparse_cimmino_gather": [_PTR] * 4 + [_I64] * 8 + [_PTR],
     # Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, k, sx_w, sx_k, sxb_k,
     # su_w, su_k, sy_w, sy_k, stream (X and Xbar null: the Cimmino form)
     "sparse_scatter": [_PTR] * 5 + [ctypes.c_double, _PTR] + [_I64] * 11
     + [_PTR],
 }
-#: the ring's dynamic shared memory query: (itemsize, k) -> bytes
-RING_SMEM_ARGTYPES = [_I64, _I64]
+#: the ring's dynamic shared memory query: (itemsize, k, form) -> bytes
+RING_SMEM_ARGTYPES = [_I64, _I64, _I64]
 
 
 def _library() -> ctypes.CDLL:
@@ -167,22 +174,24 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def ring_smem_bytes(dtype: torch.dtype, k: int) -> int:
-    """Dynamic shared memory of the ring instance that a k-row batch of
-    ``dtype`` launches, in bytes (from the built library)."""
+def ring_smem_bytes(dtype: torch.dtype, k: int, form: str) -> int:
+    """Dynamic shared memory of the ring instance of ``form`` ("apc" or
+    "cimmino", a key of :data:`FORMS`) that a k-row batch of ``dtype``
+    launches, in bytes (from the built library)."""
     return int(_library().gather_ring_smem(
-        torch.empty((), dtype=dtype).element_size(), k))
+        torch.empty((), dtype=dtype).element_size(), k, FORMS[form]))
 
 
 def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
                     forced: str = None) -> str:
-    """The instance of ``apc_gather``/``sparse_gather`` for these
-    operands: "ring" when every row it copies in 16-byte pieces is a
-    non-empty 16-byte multiple at a 16-byte-aligned address — the rows of
-    ``matrix`` (A, or vals), and every base address and row stride of it
-    and of the ``copied`` operands (dense: X and X̄; the sparse kernel
-    gathers X and X̄ element by element) — else "row_dot".  Strides of
-    axes of size 1 are never used and do not count.
+    """The instance of a gather for these operands: "ring" when every
+    row it copies in 16-byte pieces is a non-empty 16-byte multiple at a
+    16-byte-aligned address — the rows of ``matrix`` (A, or vals), and
+    every base address and row stride of it and of the ``copied``
+    operands (``apc_gather``: X and X̄; ``cimmino_gather``: X̄; the
+    sparse kernels gather X and X̄ element by element and copy none) —
+    else "row_dot".  Strides of axes of size 1 are never used and do not
+    count.
 
     ``forced`` names an instance to take instead (chip_smoke.py times
     both at the main path's shapes); forcing "ring" on operands it cannot
@@ -308,17 +317,21 @@ def apc_scatter(B: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor,
     return Y
 
 
-def cimmino_gather(A: torch.Tensor, Xbar: torch.Tensor) -> torch.Tensor:
+def cimmino_gather(A: torch.Tensor, Xbar: torch.Tensor, *,
+                   _instance: str = None) -> torch.Tensor:
     """U = X̄·Aᵀ for every worker, in one launch.
 
     A (m, p, n) contiguous; X̄ (k, n) with unit stride along n, shared by
-    all workers.  Returns U (m, k, p), contiguous, in A's dtype.
+    all workers.  Returns U (m, k, p), contiguous, in A's dtype.  The
+    instance is ``gather_instance(A, Xbar)``, or ``_instance`` where
+    given.
     """
     d = _check("cimmino_gather", A=(A, "mpn"), Xbar=(Xbar, "kn"))
+    instance = gather_instance(A, Xbar, forced=_instance)
     U = torch.empty((d["m"], d["k"], d["p"]), dtype=A.dtype, device=A.device)
     _launch("cimmino_gather", A.dtype, A.device, A.data_ptr(),
             Xbar.data_ptr(), U.data_ptr(), d["m"], d["p"], d["n"], d["k"],
-            Xbar.stride(0), U.stride(0), U.stride(1))
+            Xbar.stride(0), U.stride(0), U.stride(1), INSTANCES[instance])
     return U
 
 
@@ -362,21 +375,24 @@ def sparse_gather(vals: torch.Tensor, cols: torch.Tensor, X: torch.Tensor,
 
 
 def sparse_cimmino_gather(vals: torch.Tensor, cols: torch.Tensor,
-                          Xbar: torch.Tensor) -> torch.Tensor:
+                          Xbar: torch.Tensor, *, _instance: str = None
+                          ) -> torch.Tensor:
     """U = vals·X̄[cols]ᵀ for every worker, in one launch.
 
     vals (m, p, w) contiguous; cols (m, w) contiguous int64 with values
     in [0, n); X̄ (k, n) with unit stride along n.  Returns U (m, k, p),
-    contiguous.
+    contiguous.  The instance is ``gather_instance(vals)``, or
+    ``_instance`` where given.
     """
     d = _check("sparse_cimmino_gather", index=(cols, "mw"),
                vals=(vals, "mpw"), Xbar=(Xbar, "kn"))
+    instance = gather_instance(vals, forced=_instance)
     U = torch.empty((d["m"], d["k"], d["p"]), dtype=vals.dtype,
                     device=vals.device)
     _launch("sparse_cimmino_gather", vals.dtype, vals.device,
             vals.data_ptr(), cols.data_ptr(), Xbar.data_ptr(), U.data_ptr(),
             d["m"], d["p"], d["w"], d["k"], Xbar.stride(0), U.stride(0),
-            U.stride(1))
+            U.stride(1), INSTANCES[instance])
     return U
 
 

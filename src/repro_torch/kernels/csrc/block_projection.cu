@@ -84,12 +84,13 @@
 //     The APC form stores X + γ((X̄ − X) − C) on the support; the
 //     off-support columns of Y come from the caller's AXPY pre-pass.
 //
-// The two APC gathers (apc_gather, sparse_gather) have a second, Hopper
-// instance, the "ring", which the launcher takes wherever its 16-byte
-// copies can (below); the row dot stays for the shapes they cannot take.
-// Both are bound by bytes (|A| or |vals| over the HBM rate), but at k = 8
-// the row dot reached only about half its bound: each 256-column chunk
-// stages 8 batch rows of X̄ and X between two barriers with no load of A
+// The four gathers (apc_gather, sparse_gather, cimmino_gather,
+// sparse_cimmino_gather) have a second, Hopper instance, the "ring",
+// which the launcher takes wherever its 16-byte copies can (below); the
+// row dot stays for the shapes they cannot take.  All four are bound by
+// bytes (|A| or |vals| over the HBM rate), but at k = 8 the row dot
+// reached only about half its bound: each 256-column chunk stages 8
+// batch rows of the right operand between two barriers with no load of A
 // in flight, its 32 f64 accumulators spill under the 128-register cap,
 // and a lane holds at most R = 4 loads of A in flight.  The ring instead:
 //
@@ -105,21 +106,22 @@
 //     f32 columns), with 16-byte cp.async: no register holds a load.  A
 //     "full" mbarrier per stage counts the 128 producer threads whose
 //     copies have landed (cp.async.mbarrier.arrive), an "empty" one the
-//     consumer warps done reading it.  S is what fits in 200 KiB: 6
-//     stages at KC = 1, 5 above, so 128–165 KiB are in flight per SM.
+//     consumer warps done reading it.  S is what fits in 200 KiB: 5 or 6
+//     stages, so 128–165 KiB are in flight per SM.
 //   * stages the right operand with the A stage that uses it: the stage's
-//     KC rows of X̄ and X (dense: 16 bytes a lane; sparse: one cp.async of
-//     one element a lane at the support column cols[w, c], which the
-//     producer reads once, a step ahead, so no copy waits on it).  The
-//     operand costs 2·KC/64 of A's bytes, from L2, beside A and not
-//     between barriers.
+//     KC rows of X̄ and, in the APC form, of X (dense: 16 bytes a lane;
+//     sparse: one cp.async of one element a lane at the support column
+//     cols[w, c], which the producer reads once, a step ahead, so no copy
+//     waits on it).  The operand costs 2·KC/64 of A's bytes (APC) or
+//     KC/64 (Cimmino: X̄ alone, the one (k, n) buffer every worker
+//     reads), from L2, beside A and not between barriers.
 //   * gives each consumer warp 8 rows and all KC batch rows: 8·KC
 //     accumulators (64 f64 at KC = 8: 128 of its 168 registers; the
 //     tile's coordinates wait in shared memory meanwhile, so nothing
 //     spills).  Lane l sums the
-//     columns ≡ l (mod 32) in increasing order, reading A and forming
-//     X̄ − X from the stage, and the warp reduces with the row dot's
-//     xor-shuffle tree: every output is the row dot's sequence of
+//     columns ≡ l (mod 32) in increasing order, reading A and X̄ (or
+//     forming X̄ − X) from the stage, and the warp reduces with the row
+//     dot's xor-shuffle tree: every output is the row dot's sequence of
 //     operations, so the two instances are bit-identical.
 //   * copies only the valid bytes of the last, ragged chunk, and loops
 //     over its valid columns only.
@@ -133,12 +135,12 @@
 //
 // A 16-byte cp.async moves 16 bytes between 16-byte-aligned addresses.
 // So the ring needs the rows of A (vals) and every base and row stride
-// it copies from (dense: X and X̄ too) to be 16-byte multiples: f64 with
-// an even row length, f32 with one divisible by 4.  Other shapes
-// (n = 130 or 7 in f32, an odd support width, a view at an odd offset,
-// an empty row) take the row dot.  The choice is by shape, made once in
-// the Python wrapper (block_projection.gather_instance) and passed to
-// the entry as one int64 (kRowDot or kRing).
+// it copies from (dense: X̄, and X in the APC form) to be 16-byte
+// multiples: f64 with an even row length, f32 with one divisible by 4.
+// Other shapes (n = 130 or 7 in f32, an odd support width, a view at an
+// odd offset, an empty row) take the row dot.  The choice is by shape,
+// made once in the Python wrapper (block_projection.gather_instance) and
+// passed to the entry as one int64 (kRowDot or kRing).
 //
 // f64 accumulates in f64, f32 in f32 (FFMA; no tensor cores, no TF32),
 // with A/B in the same type as the right operand; the wrapper rejects
@@ -171,12 +173,14 @@ template <int KC>
 constexpr int scatter_rows() { return KC >= 8 ? 2 : 4; }
 constexpr int kGatherRows = 4;
 
-// The ring instance of the APC gathers (header): 64-row tiles, 8 rows
-// per consumer warp, 512-byte row segments per stage, as many stages as
-// fit in 200 KiB of the SM's 227 KB (one block per SM; the rest is left
-// to L1).  12 warps put 3 on each of the SM's 4 schedulers, which share
-// its 16384 registers a lane: 168 a thread.
+// The ring instance of the gathers (header): 64-row tiles, 8 rows per
+// consumer warp, 512-byte row segments per stage, as many stages as fit
+// in 200 KiB of the SM's 227 KB (one block per SM; the rest is left to
+// L1).  12 warps put 3 on each of the SM's 4 schedulers, which share its
+// 16384 registers a lane: 168 a thread.  A ring is of the APC form
+// (kDiff: the operand X̄ − X) or the Cimmino form (X̄).
 constexpr int64_t kRowDot = 0, kRing = 1;          // the entries' instance
+constexpr int64_t kApcForm = 0, kCimminoForm = 1;  // gather_ring_smem's form
 constexpr int kRingWarps = 8;                      // consumer warps
 constexpr int kRingWarpRows = 8;
 constexpr int kRingRows = kRingWarps * kRingWarpRows;
@@ -185,11 +189,14 @@ constexpr int kRingThreads = 32 * (kRingWarps + kRingLoaders);
 constexpr int kRingSegment = 512;                  // bytes of a row a stage
 constexpr int kRingBudget = 200 * 1024;
 
-template <typename T, int KC>
+template <typename T, int KC, bool kDiff>
 struct Ring {
   static constexpr int kCols = kRingSegment / sizeof(T);
-  // a stage: M[kRingRows][kCols], then X̄[KC][kCols] and X[KC][kCols]
-  static constexpr int kStageBytes = (kRingRows + 2 * KC) * kRingSegment;
+  // a stage: M[kRingRows][kCols], then X̄[KC][kCols] and, under kDiff,
+  // X[KC][kCols]: kOperandRows rows of the right operand
+  static constexpr int kOperandRows = (kDiff ? 2 : 1) * KC;
+  static constexpr int kStageBytes =
+      (kRingRows + kOperandRows) * kRingSegment;
   static constexpr int kStages = kRingBudget / kStageBytes;
   static constexpr int kSmem = kStages * kStageBytes;
   static_assert(kStages >= 2 && kCols % 32 == 0, "ring shape");
@@ -564,21 +571,22 @@ __device__ __forceinline__ void ring_cols(int64_t (&g)[C / 32],
 // A producer warp (pw of kRingLoaders): for every chunk of the tile, wait
 // for its stage to empty, then copy its share into it — rows pw, pw + 4,
 // ... of the tile's rows of M (16 bytes a lane) and rows q = pw,
-// pw + 4, ... < 2·KC of the right operand (X̄ row q, or X row q − KC;
-// dense: 16 bytes a lane, sparse: one element a lane at its support
-// column) — and arrive on the stage's full barrier once they have
-// landed.  Under kSparse, `g` holds the support columns of the step and
-// is refilled with the next step's (the next tile's first, of worker
-// next_w, after the last chunk): each index is read a step before the
-// copies that need it.  `it` counts the block's (tile, chunk) steps:
-// stage it % S, round it / S.
-template <typename T, int KC, bool kSparse>
+// pw + 4, ... of the right operand's KC (Cimmino) or 2·KC (kDiff) rows
+// (X̄ row q, or X row q − KC; dense: 16 bytes a lane, sparse: one
+// element a lane at its support column) — and arrive on the stage's full
+// barrier once they have landed.  Under kSparse, `g` holds the support
+// columns of the step and is refilled with the next step's (the next
+// tile's first, of worker next_w, after the last chunk): each index is
+// read a step before the copies that need it.  `it` counts the block's
+// (tile, chunk) steps: stage it % S, round it / S.
+template <typename T, int KC, bool kDiff, bool kSparse>
 __device__ __forceinline__ void ring_produce(
-    const RingTile& tl, int64_t next_w, int64_t (&g)[Ring<T, KC>::kCols / 32],
-    const T* __restrict__ M, const int64_t* __restrict__ cols,
-    const T* __restrict__ X, const T* __restrict__ Xbar, int64_t p,
-    int64_t n, int64_t sx_w, int64_t sx_k, int64_t sxb_k, uint32_t& it) {
-  using Cfg = Ring<T, KC>;
+    const RingTile& tl, int64_t next_w,
+    int64_t (&g)[Ring<T, KC, kDiff>::kCols / 32], const T* __restrict__ M,
+    const int64_t* __restrict__ cols, const T* __restrict__ X,
+    const T* __restrict__ Xbar, int64_t p, int64_t n, int64_t sx_w,
+    int64_t sx_k, int64_t sxb_k, uint32_t& it) {
+  using Cfg = Ring<T, KC, kDiff>;
   constexpr int C = Cfg::kCols;
   constexpr int kPer = 16 / sizeof(T);               // elements a piece
   const int pw = threadIdx.x / 32 - kRingWarps;
@@ -593,7 +601,7 @@ __device__ __forceinline__ void ring_produce(
     T* Xs = XBs + KC * C;
     mbar_wait(&ring_empty[s], ((it / Cfg::kStages) & 1) ^ 1);
     int64_t gc[C / 32] = {};
-    if (kSparse && pw < 2 * KC) {
+    if (kSparse && pw < Cfg::kOperandRows) {
 #pragma unroll
       for (int j = 0; j < C / 32; ++j) gc[j] = g[j];
       if (c0 + C < n)
@@ -604,7 +612,7 @@ __device__ __forceinline__ void ring_produce(
     if (lane < pieces)
       for (int r = pw; r < tl.rows; r += kRingLoaders)
         cp_async16(Ms + r * C + lane * kPer, Mt + r * n + c0);
-    for (int q = pw; q < 2 * KC; q += kRingLoaders) {
+    for (int q = pw; q < Cfg::kOperandRows; q += kRingLoaders) {
       const int kk = q % KC;
       if (kk >= tl.kvalid) continue;
       T* dst = (q < KC ? XBs : Xs) + kk * C;
@@ -624,15 +632,17 @@ __device__ __forceinline__ void ring_produce(
 }
 
 // Column c of a stage against a consumer warp's 8 rows, for the batch
-// rows K0 .. K1 − 1.
-template <typename T, int KC, int C, int K0 = 0, int K1 = KC>
+// rows K0 .. K1 − 1: the operand is X̄ − X (kDiff) or X̄.
+template <typename T, int KC, int C, bool kDiff, int K0 = 0, int K1 = KC>
 __device__ __forceinline__ void ring_column(const T* Ms, const T* XBs,
                                             const T* Xs, int c,
                                             T (&acc)[kRingWarpRows][KC]) {
   T d[K1 - K0];
 #pragma unroll
-  for (int kk = K0; kk < K1; ++kk)
-    d[kk - K0] = XBs[kk * C + c] - Xs[kk * C + c];
+  for (int kk = K0; kk < K1; ++kk) {
+    d[kk - K0] = XBs[kk * C + c];
+    if constexpr (kDiff) d[kk - K0] -= Xs[kk * C + c];
+  }
 #pragma unroll
   for (int r = 0; r < kRingWarpRows; ++r) {
     const T a = Ms[r * C + c];
@@ -644,11 +654,13 @@ __device__ __forceinline__ void ring_column(const T* Ms, const T* XBs,
 
 // A consumer warp's columns of one stage: lane l takes the stage's
 // columns l, l + 32, ... below nv, in increasing order.  At f64 and
-// KC = 8 the 64 accumulators (128 of the 168 registers) leave room for
-// neither a second column's loads nor all 8 values of X̄ − X: that loop
-// is not unrolled, and takes each column in two halves of the batch
-// rows, reading the column of A twice.
-template <typename T, int KC, int C, bool kRagged>
+// KC = 8 the 64 accumulators (128 of the 168 registers) leave no room
+// for a second column's loads: that loop is not unrolled.  Nor, in the
+// APC form, for the 16 loads of X̄ and X behind the 8 values of X̄ − X:
+// it takes each column in two halves of the batch rows, reading the
+// column of A twice.  The Cimmino form loads only the 8 values of X̄ and
+// takes a column in one pass.
+template <typename T, int KC, int C, bool kDiff, bool kRagged>
 __device__ __forceinline__ void ring_columns(const T* Ms, const T* XBs,
                                              const T* Xs, int nv,
                                              T (&acc)[kRingWarpRows][KC]) {
@@ -656,14 +668,18 @@ __device__ __forceinline__ void ring_columns(const T* Ms, const T* XBs,
   if constexpr (KC * sizeof(T) >= 64) {
 #pragma unroll 1
     for (int c = lane; c < (kRagged ? nv : C); c += 32) {
-      ring_column<T, KC, C, 0, KC / 2>(Ms, XBs, Xs, c, acc);
-      ring_column<T, KC, C, KC / 2, KC>(Ms, XBs, Xs, c, acc);
+      if constexpr (kDiff) {
+        ring_column<T, KC, C, kDiff, 0, KC / 2>(Ms, XBs, Xs, c, acc);
+        ring_column<T, KC, C, kDiff, KC / 2, KC>(Ms, XBs, Xs, c, acc);
+      } else {
+        ring_column<T, KC, C, kDiff>(Ms, XBs, Xs, c, acc);
+      }
     }
   } else {
 #pragma unroll
     for (int i = 0; i < C / 32; ++i) {
       if (kRagged && lane + 32 * i >= nv) break;
-      ring_column<T, KC, C>(Ms, XBs, Xs, lane + 32 * i, acc);
+      ring_column<T, KC, C, kDiff>(Ms, XBs, Xs, lane + 32 * i, acc);
     }
   }
 }
@@ -675,12 +691,12 @@ __device__ __forceinline__ void ring_columns(const T* Ms, const T* XBs,
 // still waits for and releases every stage, so the empty barriers count
 // all 8 warps.  Its place in the walk waits in shared memory while the
 // accumulators hold the registers.
-template <typename T, int KC>
+template <typename T, int KC, bool kDiff>
 __device__ __forceinline__ void ring_consume(int64_t g, int64_t end,
                                              T* __restrict__ U, int64_t p,
                                              int64_t n, int64_t k,
                                              int64_t su_w, int64_t su_k) {
-  using Cfg = Ring<T, KC>;
+  using Cfg = Ring<T, KC, kDiff>;
   constexpr int C = Cfg::kCols;
   constexpr int R = kRingWarpRows;
   RingWalk* walk = &ring_walks[threadIdx.x / 32];
@@ -720,10 +736,11 @@ __device__ __forceinline__ void ring_consume(int64_t g, int64_t end,
       mbar_wait(&ring_full[s], (it / Cfg::kStages) & 1);
       if (active) {
         if (c0 + C <= n)
-          ring_columns<T, KC, C, false>(Ms + r0 * C, XBs, Xs, C, acc);
+          ring_columns<T, KC, C, kDiff, false>(Ms + r0 * C, XBs, Xs, C,
+                                               acc);
         else
-          ring_columns<T, KC, C, true>(Ms + r0 * C, XBs, Xs,
-                                       static_cast<int>(n - c0), acc);
+          ring_columns<T, KC, C, kDiff, true>(Ms + r0 * C, XBs, Xs,
+                                              static_cast<int>(n - c0), acc);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&ring_empty[s]);
@@ -750,16 +767,17 @@ __device__ __forceinline__ void ring_consume(int64_t g, int64_t end,
   }
 }
 
-// U[w, i, l] = sum_j (X̄[i, g_j] − X[w, i, g_j]) · M[w, l, j] with
-// g_j = j (dense: M = A) or cols[w, j] (kSparse: M = vals, n = w).
-// Warps 0..7 compute, warps 8..11 copy; both walk the block's tiles.
-template <typename T, int KC, bool kSparse>
+// U[w, i, l] = sum_j (X̄[i, g_j] − X[w, i, g_j]) · M[w, l, j] (kDiff;
+// X̄[i, g_j] alone otherwise, X unused) with g_j = j (dense: M = A) or
+// cols[w, j] (kSparse: M = vals, n = w).  Warps 0..7 compute, warps
+// 8..11 copy; both walk the block's tiles.
+template <typename T, int KC, bool kDiff, bool kSparse>
 __device__ __forceinline__ void gather_ring(
     const T* __restrict__ M, const int64_t* __restrict__ cols,
     const T* __restrict__ X, const T* __restrict__ Xbar, T* __restrict__ U,
     int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
     int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  using Cfg = Ring<T, KC>;
+  using Cfg = Ring<T, KC, kDiff>;
   static_assert(Cfg::kStages <= kRingMaxStages, "ring barriers");
   if (threadIdx.x == 0) {
     for (int s = 0; s < Cfg::kStages; ++s) {
@@ -781,17 +799,20 @@ __device__ __forceinline__ void gather_ring(
     while (g < end) {
       const int64_t gn = g + tl.rows;
       const RingTile next = gn < end ? ring_tile<KC>(gn, end, p, k) : tl;
-      ring_produce<T, KC, kSparse>(tl, gn < end ? next.w : -1, cg, M, cols,
-                                   X, Xbar, p, n, sx_w, sx_k, sxb_k, it);
+      ring_produce<T, KC, kDiff, kSparse>(tl, gn < end ? next.w : -1, cg, M,
+                                          cols, X, Xbar, p, n, sx_w, sx_k,
+                                          sxb_k, it);
       g = gn;
       tl = next;
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   } else {
-    ring_consume<T, KC>(g, end, U, p, n, k, su_w, su_k);
+    ring_consume<T, KC, kDiff>(g, end, U, p, n, k, su_w, su_k);
   }
 }
 
+// The four ring kernels share one parameter list; a dense kernel does not
+// read cols, nor a Cimmino one X and its strides.
 template <typename T, int KC>
 __global__ void __launch_bounds__(kRingThreads, 1)
 apc_gather_ring_kernel(const T* __restrict__ A,
@@ -800,8 +821,8 @@ apc_gather_ring_kernel(const T* __restrict__ A,
                        T* __restrict__ U, int64_t m, int64_t p, int64_t n,
                        int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                        int64_t su_w, int64_t su_k) {
-  gather_ring<T, KC, false>(A, cols, X, Xbar, U, m, p, n, k, sx_w, sx_k,
-                            sxb_k, su_w, su_k);
+  gather_ring<T, KC, true, false>(A, cols, X, Xbar, U, m, p, n, k, sx_w,
+                                  sx_k, sxb_k, su_w, su_k);
 }
 
 template <typename T, int KC>
@@ -813,20 +834,51 @@ sparse_gather_ring_kernel(const T* __restrict__ vals,
                           int64_t m, int64_t p, int64_t w, int64_t k,
                           int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                           int64_t su_w, int64_t su_k) {
-  gather_ring<T, KC, true>(vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k,
-                           sxb_k, su_w, su_k);
+  gather_ring<T, KC, true, true>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,
+                                 sx_k, sxb_k, su_w, su_k);
+}
+
+template <typename T, int KC>
+__global__ void __launch_bounds__(kRingThreads, 1)
+cimmino_gather_ring_kernel(const T* __restrict__ A,
+                           const int64_t* __restrict__ cols,
+                           const T* __restrict__ X,
+                           const T* __restrict__ Xbar, T* __restrict__ U,
+                           int64_t m, int64_t p, int64_t n, int64_t k,
+                           int64_t sx_w, int64_t sx_k, int64_t sxb_k,
+                           int64_t su_w, int64_t su_k) {
+  gather_ring<T, KC, false, false>(A, cols, X, Xbar, U, m, p, n, k, sx_w,
+                                   sx_k, sxb_k, su_w, su_k);
+}
+
+template <typename T, int KC>
+__global__ void __launch_bounds__(kRingThreads, 1)
+sparse_cimmino_gather_ring_kernel(const T* __restrict__ vals,
+                                  const int64_t* __restrict__ cols,
+                                  const T* __restrict__ X,
+                                  const T* __restrict__ Xbar,
+                                  T* __restrict__ U, int64_t m, int64_t p,
+                                  int64_t w, int64_t k, int64_t sx_w,
+                                  int64_t sx_k, int64_t sxb_k, int64_t su_w,
+                                  int64_t su_k) {
+  gather_ring<T, KC, false, true>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,
+                                  sx_k, sxb_k, su_w, su_k);
 }
 
 // One persistent block per SM (the ring's shared memory admits no
 // second), and no more blocks than 64-row tiles.  The dynamic shared
 // memory above 48 KB is opted into once per device.
-template <typename T, int KC, bool kSparse>
+template <typename T, int KC, bool kDiff, bool kSparse>
 void launch_ring(const void* M, const void* cols, const void* X,
                  const void* Xbar, void* U, int64_t m, int64_t p, int64_t n,
                  int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                  int64_t su_w, int64_t su_k, cudaStream_t s) {
-  const auto kernel = kSparse ? &sparse_gather_ring_kernel<T, KC>
-                              : &apc_gather_ring_kernel<T, KC>;
+  using Cfg = Ring<T, KC, kDiff>;
+  const auto kernel =
+      kDiff ? (kSparse ? &sparse_gather_ring_kernel<T, KC>
+                       : &apc_gather_ring_kernel<T, KC>)
+            : (kSparse ? &sparse_cimmino_gather_ring_kernel<T, KC>
+                       : &cimmino_gather_ring_kernel<T, KC>);
   static std::atomic<uint64_t> opted_in{0};          // a bit per device
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -837,14 +889,14 @@ void launch_ring(const void* M, const void* cols, const void* X,
   if (!(opted_in.load() & bit)) {
     if (cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Ring<T, KC>::kSmem) != cudaSuccess)
+                             Cfg::kSmem) != cudaSuccess)
       return;
     opted_in.fetch_or(bit);
   }
   const int64_t tiles = (m * ((k + KC - 1) / KC) * p + kRingRows - 1) /
                         kRingRows;
   kernel<<<static_cast<unsigned>(min64(sms, tiles)),
-           kRingThreads, Ring<T, KC>::kSmem, s>>>(
+           kRingThreads, Cfg::kSmem, s>>>(
       static_cast<const T*>(M), static_cast<const int64_t*>(cols),
       static_cast<const T*>(X), static_cast<const T*>(Xbar),
       static_cast<T*>(U), m, p, n, k, sx_w, sx_k, sxb_k, su_w, su_k);
@@ -882,8 +934,8 @@ int apc_gather(const void* A, const void* X, const void* Xbar, void* U,
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_ring<T, KC, false>(A, nullptr, X, Xbar, U, m, p, n, k, sx_w,
-                                sx_k, sxb_k, su_w, su_k, s);
+      launch_ring<T, KC, true, false>(A, nullptr, X, Xbar, U, m, p, n, k,
+                                      sx_w, sx_k, sxb_k, su_w, su_k, s);
       return;
     }
     apc_gather_kernel<T, KC, kGatherRows>
@@ -898,11 +950,18 @@ int apc_gather(const void* A, const void* X, const void* Xbar, void* U,
 template <typename T>
 int cimmino_gather(const void* A, const void* Xbar, void* U, int64_t m,
                    int64_t p, int64_t n, int64_t k, int64_t sxb_k,
-                   int64_t su_w, int64_t su_k, void* stream) {
+                   int64_t su_w, int64_t su_k, int64_t instance,
+                   void* stream) {
+  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
   if (m == 0 || p == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
+    if (instance == kRing) {
+      launch_ring<T, KC, false, false>(A, nullptr, nullptr, Xbar, U, m, p, n,
+                                       k, 0, 0, sxb_k, su_w, su_k, s);
+      return;
+    }
     cimmino_gather_kernel<T, KC, kGatherRows>
         <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
             static_cast<const T*>(A), static_cast<const T*>(Xbar),
@@ -961,8 +1020,8 @@ int sparse_gather(const void* vals, const void* cols, const void* X,
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_ring<T, KC, true>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,
-                               sx_k, sxb_k, su_w, su_k, s);
+      launch_ring<T, KC, true, true>(vals, cols, X, Xbar, U, m, p, w, k,
+                                     sx_w, sx_k, sxb_k, su_w, su_k, s);
       return;
     }
     sparse_gather_kernel<T, KC, kGatherRows>
@@ -978,11 +1037,17 @@ template <typename T>
 int sparse_cimmino_gather(const void* vals, const void* cols,
                           const void* Xbar, void* U, int64_t m, int64_t p,
                           int64_t w, int64_t k, int64_t sxb_k, int64_t su_w,
-                          int64_t su_k, void* stream) {
+                          int64_t su_k, int64_t instance, void* stream) {
+  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
   if (m == 0 || p == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
+    if (instance == kRing) {
+      launch_ring<T, KC, false, true>(vals, cols, nullptr, Xbar, U, m, p, w,
+                                      k, 0, 0, sxb_k, su_w, su_k, s);
+      return;
+    }
     sparse_cimmino_gather_kernel<T, KC, kGatherRows>
         <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
             static_cast<const T*>(vals), static_cast<const int64_t*>(cols),
@@ -1062,16 +1127,18 @@ int apc_scatter_f32(const void* B, const void* X, const void* Xbar,
 
 int cimmino_gather_f64(const void* A, const void* Xbar, void* U, int64_t m,
                        int64_t p, int64_t n, int64_t k, int64_t sxb_k,
-                       int64_t su_w, int64_t su_k, void* stream) {
+                       int64_t su_w, int64_t su_k, int64_t instance,
+                       void* stream) {
   return cimmino_gather<double>(A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k,
-                                stream);
+                                instance, stream);
 }
 
 int cimmino_gather_f32(const void* A, const void* Xbar, void* U, int64_t m,
                        int64_t p, int64_t n, int64_t k, int64_t sxb_k,
-                       int64_t su_w, int64_t su_k, void* stream) {
+                       int64_t su_w, int64_t su_k, int64_t instance,
+                       void* stream) {
   return cimmino_gather<float>(A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k,
-                               stream);
+                               instance, stream);
 }
 
 int cimmino_scatter_f64(const void* B, const void* V, void* R, int64_t m,
@@ -1111,17 +1178,19 @@ int sparse_gather_f32(const void* vals, const void* cols, const void* X,
 int sparse_cimmino_gather_f64(const void* vals, const void* cols,
                               const void* Xbar, void* U, int64_t m,
                               int64_t p, int64_t w, int64_t k, int64_t sxb_k,
-                              int64_t su_w, int64_t su_k, void* stream) {
+                              int64_t su_w, int64_t su_k, int64_t instance,
+                              void* stream) {
   return sparse_cimmino_gather<double>(vals, cols, Xbar, U, m, p, w, k, sxb_k,
-                                  su_w, su_k, stream);
+                                  su_w, su_k, instance, stream);
 }
 
 int sparse_cimmino_gather_f32(const void* vals, const void* cols,
                               const void* Xbar, void* U, int64_t m,
                               int64_t p, int64_t w, int64_t k, int64_t sxb_k,
-                              int64_t su_w, int64_t su_k, void* stream) {
+                              int64_t su_w, int64_t su_k, int64_t instance,
+                              void* stream) {
   return sparse_cimmino_gather<float>(vals, cols, Xbar, U, m, p, w, k, sxb_k,
-                                  su_w, su_k, stream);
+                                  su_w, su_k, instance, stream);
 }
 
 int sparse_scatter_f64(const void* Bvals, const void* cols, const void* X,
@@ -1147,12 +1216,19 @@ int sparse_scatter_f32(const void* Bvals, const void* cols, const void* X,
 }
 
 // The ring instance's dynamic shared memory at the k-chunk of k, in
-// bytes, for a type of itemsize bytes (4 or 8).
-int64_t gather_ring_smem(int64_t itemsize, int64_t k) {
+// bytes, for a type of itemsize bytes (4 or 8) and a form (kApcForm or
+// kCimminoForm; 0 for any other).
+int64_t gather_ring_smem(int64_t itemsize, int64_t k, int64_t form) {
+  if (form != kApcForm && form != kCimminoForm) return 0;
   int64_t bytes = 0;
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
-    bytes = itemsize == 8 ? Ring<double, KC>::kSmem : Ring<float, KC>::kSmem;
+    if (form == kApcForm)
+      bytes = itemsize == 8 ? Ring<double, KC, true>::kSmem
+                            : Ring<float, KC, true>::kSmem;
+    else
+      bytes = itemsize == 8 ? Ring<double, KC, false>::kSmem
+                            : Ring<float, KC, false>::kSmem;
   });
   return bytes;
 }

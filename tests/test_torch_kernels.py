@@ -153,22 +153,40 @@ def test_ctypes_signatures_match_the_cuda_source():
         assert types(params) == bp.ARGTYPES[kernel], name
         found += 1
     assert found == 2 * len(bp.KERNELS)
-    # the ring's shared-memory query returns int64_t
+    # the ring's shared-memory query returns int64_t and takes the form
     (params,) = re.findall(r"int64_t gather_ring_smem\(([^)]*)\)", body)
     assert types(params) == bp.RING_SMEM_ARGTYPES
-    # the APC gathers take their instance as the int64 before the stream
-    for kernel in ("apc_gather", "sparse_gather"):
+    assert params.split(",")[-1].split() == ["int64_t", "form"]
+    assert "kApcForm = {apc}, kCimminoForm = {cimmino};".format(
+        **bp.FORMS) in src
+    # the four gathers take their instance as the int64 before the stream
+    for kernel in bp.GATHERS:
         assert bp.ARGTYPES[kernel][-2:] == [ctypes.c_int64, ctypes.c_void_p]
+        for dt in ("f64", "f32"):
+            (params,) = re.findall(rf"int {kernel}_{dt}\(([^)]*)\)", body)
+            assert params.split(",")[-2].split() == ["int64_t", "instance"]
     assert "kRowDot = {row_dot}, kRing = {ring};".format(
         **bp.INSTANCES) in src
+    # each gather has its ring kernel
+    for kernel in bp.GATHERS:
+        assert f"{kernel}_ring_kernel(" in src, kernel
 
 
-def _gather_operands(n, dtype, m=2, p=3, k=4):
-    """A (m, p, n), X (m, k, n) as the transposed view solve_many hands the
-    kernels, X̄ (k, n)."""
-    return (torch.empty((m, p, n), dtype=dtype),
-            torch.empty((k, m, n), dtype=dtype).transpose(0, 1),
-            torch.empty((k, n), dtype=dtype))
+#: the operands gather_instance reads, by gather form: apc_gather's
+#: (A, X, X̄), cimmino_gather's (A, X̄), and the sparse gathers' vals
+#: (m, p, w) alone (they gather X and X̄ element by element)
+FORMS = {"apc": ("A", "X", "Xbar"), "cimmino": ("A", "Xbar"),
+         "sparse": ("A",)}
+
+
+def _gather_operands(n, dtype, m=2, p=3, k=4, form="apc"):
+    """The operands of ``form``'s gather_instance: A (m, p, n) (the
+    sparse form's vals, n its support width), X (m, k, n) as the
+    transposed view solve_many hands the kernels, X̄ (k, n)."""
+    ops_ = dict(A=torch.empty((m, p, n), dtype=dtype),
+                X=torch.empty((k, m, n), dtype=dtype).transpose(0, 1),
+                Xbar=torch.empty((k, n), dtype=dtype))
+    return [ops_[name] for name in FORMS[form]]
 
 
 def _offset(t):
@@ -178,6 +196,7 @@ def _offset(t):
     return flat[1:].view(t.shape)
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("n,dtype,want", [
     (16384, torch.float64, "ring"),      # the main path's A rows
     (128, torch.float32, "ring"),        # 512 bytes
@@ -187,45 +206,56 @@ def _offset(t):
     (7, torch.float64, "row_dot"),
     (0, torch.float64, "row_dot"),       # an empty row
 ])
-def test_gather_instance_by_row_length(n, dtype, want):
+def test_gather_instance_by_row_length(n, dtype, want, form):
     """The ring takes rows whose 16-byte pieces it can copy, the row dot
     the others; k = 1 and m = 1 strides do not count."""
-    assert bp.gather_instance(*_gather_operands(n, dtype)) == want
-    A, X, Xb = _gather_operands(n, dtype, m=1, k=1)
-    assert bp.gather_instance(A, X, Xb) == want
+    assert bp.gather_instance(*_gather_operands(n, dtype, form=form)) == want
+    assert bp.gather_instance(*_gather_operands(n, dtype, m=1, k=1,
+                                                form=form)) == want
 
 
-@pytest.mark.parametrize("which", ["A", "X", "Xbar"])
-def test_gather_instance_misaligned_base_takes_the_row_dot(which):
-    ops_ = dict(zip(("A", "X", "Xbar"), _gather_operands(16384,
-                                                         torch.float64)))
+@pytest.mark.parametrize("form,which", [
+    (form, which) for form, names in FORMS.items() for which in names])
+def test_gather_instance_misaligned_base_takes_the_row_dot(which, form):
+    ops_ = dict(zip(FORMS[form], _gather_operands(16384, torch.float64,
+                                                  form=form)))
     assert bp.gather_instance(*ops_.values()) == "ring"
     ops_[which] = _offset(ops_[which])
     assert bp.gather_instance(*ops_.values()) == "row_dot"
 
 
-def test_gather_instance_strides_count():
-    """A batch row stride that is not a 16-byte multiple (an X whose rows
-    sit 129 f32 apart) takes the row dot, though the rows themselves are
-    512 bytes."""
+@pytest.mark.parametrize("form", ["apc", "cimmino"])
+def test_gather_instance_strides_count(form):
+    """A batch row stride that is not a 16-byte multiple (an X, or X̄,
+    whose rows sit 129 f32 apart) takes the row dot, though the rows
+    themselves are 512 bytes."""
     A = torch.empty((2, 3, 128), dtype=torch.float32)
     X = torch.empty((2, 4, 129), dtype=torch.float32)[..., :128]
     Xb = torch.empty((4, 128), dtype=torch.float32)
-    assert bp.gather_instance(A, X, Xb) == "row_dot"
-    assert bp.gather_instance(A, X[:, :1], Xb[:1]) == "ring"   # k = 1
+    if form == "apc":
+        assert bp.gather_instance(A, X, Xb) == "row_dot"
+        assert bp.gather_instance(A, X[:, :1], Xb[:1]) == "ring"   # k = 1
+    else:
+        Xw = torch.empty((4, 129), dtype=torch.float32)[:, :128]
+        assert bp.gather_instance(A, Xw) == "row_dot"
+        assert bp.gather_instance(A, Xw[:1]) == "ring"             # k = 1
+        assert bp.gather_instance(A, Xb) == "ring"
+    # the sparse gathers copy no operand row: vals alone decides
+    assert bp.gather_instance(A) == "ring"
 
 
-def test_forced_instance():
+@pytest.mark.parametrize("form", FORMS)
+def test_forced_instance(form):
     """``forced`` (the wrappers' ``_instance``) picks the row dot anywhere
     and the ring only where it fits; anything else raises."""
-    A, X, Xb = _gather_operands(16384, torch.float64)
-    assert bp.gather_instance(A, X, Xb, forced="row_dot") == "row_dot"
-    assert bp.gather_instance(A, X, Xb, forced="ring") == "ring"
+    fits = _gather_operands(16384, torch.float64, form=form)
+    assert bp.gather_instance(*fits, forced="row_dot") == "row_dot"
+    assert bp.gather_instance(*fits, forced="ring") == "ring"
     with pytest.raises(ValueError, match="row dot"):
-        bp.gather_instance(*_gather_operands(130, torch.float32),
+        bp.gather_instance(*_gather_operands(130, torch.float32, form=form),
                            forced="ring")
     with pytest.raises(ValueError, match="unknown instance"):
-        bp.gather_instance(A, X, Xb, forced="tensor_core")
+        bp.gather_instance(*fits, forced="tensor_core")
 
 
 @pytest.mark.parametrize("instance", [None, "ring", "row_dot"])
@@ -234,9 +264,37 @@ def test_gather_instance_argument_never_reaches_the_cpu(instance):
     still gets the launcher's refusal: no instance is a plain fallback."""
     A, B, X, Xb = (torch.as_tensor(a) for a in _inputs(4, 16, 2,
                                                         np.float64))
+    cols = torch.arange(M * 16).reshape(M, 16) % 16
     before = ops.launch_counts()
-    with pytest.raises(ValueError, match="CUDA"):
-        bp.apc_gather(A, X, Xb, _instance=instance)
-    with pytest.raises(TypeError):
-        bp.apc_gather(A, X, Xb, instance)
+    launches = {
+        "apc_gather": (bp.apc_gather, (A, X, Xb)),
+        "cimmino_gather": (bp.cimmino_gather, (A, Xb)),
+        "sparse_gather": (bp.sparse_gather, (A, cols, X, Xb)),
+        "sparse_cimmino_gather": (bp.sparse_cimmino_gather, (A, cols, Xb)),
+    }
+    assert sorted(launches) == sorted(bp.GATHERS)
+    for launcher, args in launches.values():
+        with pytest.raises(ValueError, match="CUDA"):
+            launcher(*args, _instance=instance)
+        with pytest.raises(TypeError):
+            launcher(*args, instance)
     assert ops.launch_counts() == before
+
+
+def test_ring_smem_bytes_takes_the_form(monkeypatch):
+    """``ring_smem_bytes`` hands the library the itemsize, k and the
+    form's int64; an unknown form raises before the library is asked."""
+    asked = []
+
+    class Lib:
+        def gather_ring_smem(self, itemsize, k, form):
+            asked.append((itemsize, k, form))
+            return 1
+
+    monkeypatch.setattr(bp, "_library", Lib)
+    assert bp.ring_smem_bytes(torch.float64, 8, "cimmino") == 1
+    assert bp.ring_smem_bytes(torch.float32, 3, "apc") == 1
+    assert asked == [(8, 8, bp.FORMS["cimmino"]), (4, 3, bp.FORMS["apc"])]
+    with pytest.raises(KeyError):
+        bp.ring_smem_bytes(torch.float64, 8, "sparse")
+    assert len(asked) == 2

@@ -87,8 +87,9 @@ def _fake_launchers():
         return _by_row(Xb.shape[0], lambda i: ops.apc_scatter_ref(
             B, X[:, i], Xb[i], U[:, i], gamma))
 
-    def cimmino_gather(A, Xb):
+    def cimmino_gather(A, Xb, *, _instance=None):
         _contract("cimmino_gather", A, [Xb])
+        bp.gather_instance(A, Xb, forced=_instance)
         return _by_row(Xb.shape[0], lambda i: ops.cimmino_gather_ref(
             A, Xb[i])).contiguous()
 
@@ -103,8 +104,9 @@ def _fake_launchers():
         return _by_row(Xb.shape[0], lambda i: ops.sparse_gather_ref(
             vals, cols, X[:, i], Xb[i])).contiguous()
 
-    def sparse_cimmino_gather(vals, cols, Xb):
+    def sparse_cimmino_gather(vals, cols, Xb, *, _instance=None):
         _contract("sparse_cimmino_gather", vals, [Xb], cols)
+        bp.gather_instance(vals, forced=_instance)
         return _by_row(Xb.shape[0], lambda i: ops.sparse_cimmino_gather_ref(
             vals, cols, Xb[i])).contiguous()
 
@@ -160,21 +162,27 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                         lambda op, *t: on_cuda(op, *t) or True)
     lib = tmp_path / "libblock_projection.so"
     lib.write_text("")
+    ring = ("ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__"
+            "fa3dee60_19_block_projection_cu_8ac00be0{}IdLi8EEEvPKT_' for "
+            "'sm_90a'\n"
+            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+            "loads\n"
+            "ptxas info    : Used 168 registers, used 1 barriers, 128 bytes "
+            "smem\n")
     lib.with_suffix(".log").write_text(
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121sparse_"
         "scatter_kernelIdLi8ELi2ELb1EEEvPKT_' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes "
-        "smem\n"
-        "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__fa3dee60_"
-        "19_block_projection_cu_8ac00be022apc_gather_ring_kernelIdLi8EEEvPKT_"
-        "' for 'sm_90a'\n"
-        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-        "ptxas info    : Used 168 registers, used 1 barriers, 128 bytes smem"
-        "\n")
+        "smem\n" + "".join(
+            ring.format(f"{len(kn) + 12}{kn}_ring_kernel")
+            for kn in bp.GATHERS))
     monkeypatch.setattr(bp, "build", lambda sources=bp.SOURCES: {
         "block_projection.cu": lib})
-    monkeypatch.setattr(bp, "ring_smem_bytes", lambda dtype, k: 204800)
+    # the two forms' stage sizes at KC = 8: (64 + 16) and (64 + 8) rows of
+    # 512 bytes, 5 stages each
+    monkeypatch.setattr(bp, "ring_smem_bytes", lambda dtype, k, form: {
+        "apc": 204800, "cimmino": 184320}[form])
     for name, fn in _fake_launchers().items():
         monkeypatch.setattr(bp, name, fn)
     monkeypatch.setattr(bp, "_launches", dict.fromkeys(bp.KERNELS, 0))
@@ -188,13 +196,27 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert ("sparse_scatter f64 KC=8 apc spill 0 B: 128 regs, smem 16384 B; "
             "apc_gather_ring f64 KC=8 spill 0 B: 168 regs, smem 128 B + "
             "204800 B dynamic") in text
-    # both instances of the APC gathers where the ring fits, the row dot
+    # each ring's dynamic shared memory by its form
+    assert ("cimmino_gather_ring f64 KC=8 spill 0 B: 168 regs, smem 128 B + "
+            "184320 B dynamic") in text
+    assert ("sparse_cimmino_gather_ring f64 KC=8 spill 0 B: 168 regs, smem "
+            "128 B + 184320 B dynamic") in text
+    # both instances of the four gathers where the ring fits, the row dot
     # alone where it does not (f32 rows of 130)
-    assert "apc_gather ring≡row_dot" in text
-    assert "sparse_gather ring≡row_dot" in text
+    for kn in bp.GATHERS:
+        assert f"{kn} ring≡row_dot" in text, kn
     assert any("n=130" in x and "float32" in x and "apc_gather row_dot" in x
-               for x in lines)
-    assert "row-dot instance" in text
+               and "cimmino_gather row_dot" in x for x in lines)
+    # phases 8 and 11 time every gather's row-dot instance beside its ring
+    for phase, kn in ((8, "apc_gather"), (8, "cimmino_gather"),
+                      (11, "sparse_gather"), (11, "sparse_cimmino_gather")):
+        assert sum(x.startswith(f"phase {phase} {kn} k=")
+                   and "row-dot instance" in x for x in lines) == 2, kn
+    # the card's clocks at the start and end of phases 8 and 11 (no
+    # nvidia-smi here: the lines say so and the run goes on)
+    for label in ("phase 8 start", "phase 8 end", "phase 11 start",
+                  "phase 11 end"):
+        assert sum(x.startswith(f"{label} clocks") for x in lines) == 1
     kernels = json.loads(next(x for x in lines if x.startswith(
         '{"kernels"')))["kernels"]
     assert [k["name"] for k in kernels] == list(bp.KERNELS)
