@@ -9,17 +9,19 @@ script exits non-zero without its last line:
 1. environment: versions, the card's name and power limit, TF32 off, and
    the CUDA kernels built from the checkout's sources, with each
    instance's registers, shared memory and spill bytes (none allowed in
-   the float64 ring instances);
+   the ring instances that compute in float64, the bf16-stored ones
+   included);
 2. kernel vs plain version on the card: ``apc_gather``/``apc_scatter``
    and ``cimmino_gather``/``cimmino_scatter`` against their plain PyTorch
    versions at ragged shapes and at the main path's shapes, and
    ``sparse_gather``/``sparse_cimmino_gather``/``sparse_scatter`` at the
    reference's sparse corner shapes (odd support width, p = 1, even), a
    support width of one chunk and a bit, and the sparse path's shapes;
-   float64 and float32, k = 1..11, a batch row bit-identical to a k = 1
-   call; both instances of each of the four gathers (the ring, where its
-   alignment admits the shape, and the row dot) against the plain version
-   and bit-identical to each other;
+   float64 and float32, each with its matrix in its own dtype and in
+   bfloat16 (the mixed forms), k = 1..11, a batch row bit-identical to a
+   k = 1 call; both instances of each of the four gathers (the ring,
+   where its alignment admits the shape, and the row dot) against the
+   plain version and bit-identical to each other;
 3. the APC main path at full size: a 32768 x 16384 tall Gaussian system
    on 16 workers (float64), ``analyze``, then ``solve`` on the kernel
    path — error to x_true, one launch of each kernel per iteration, the
@@ -36,8 +38,9 @@ script exits non-zero without its last line:
    ``--method apc`` and ``--method cimmino``, both with ``--use-kernel``;
 8. CUDA-event times of each dense kernel, its plain version, one
    torch.matmul of the same product (and, for a gather, its row-dot
-   instance), timed in turns, and of the whole APC and Cimmino
-   iterations, beside each kernel's bound, with the card's clocks, power,
+   instance) and its bf16/float64 and bf16/float32 forms, timed in
+   turns, and of the whole APC and Cimmino iterations, float64 and
+   mixed, beside each kernel's bound, with the card's clocks, power,
    temperature and throttle reasons at the phase's start and end;
 9. the sparse path at full size: a banded 32768 x 32768 system on 16
    workers (float64, support width 2064), one spectral analysis, then
@@ -51,10 +54,19 @@ script exits non-zero without its last line:
    each solver's ``ls_reference``, and the CLI on ``banded`` with APC on
    the sparse kernels;
 11. CUDA-event times of the sparse kernels (plain version, torch.bmm on
-   the pre-gathered operands, the gathers' row-dot instances, bound),
-   timed in turns, and of the sparse and densified iterations, with the
-   card's clocks as in phase 8, then the ``{"kernels": [...]}`` line
-   with all seven.
+   the pre-gathered operands, the gathers' row-dot instances, the mixed
+   forms, bound), timed in turns, and of the sparse and densified
+   iterations and the sparse mixed ones, with the card's clocks as in
+   phase 8, then the ``{"kernels": [...]}`` line with all seven, each
+   with its forms;
+12. ``precision="mixed"`` (bf16-stored A and B, float64 x), in two
+   halves: after phase 7 on the dense system and after phase 9 on the
+   sparse one, APC, consensus and Cimmino — exactly one launch of each
+   of its kernels per iteration, a bit-identical repeat, the history of
+   the "upcast twin" (the default solve on the bf16-rounded factors
+   widened to float64, through the float64 kernels) within 1e-9, and the
+   float64 run's within the reference's bf16 envelope — and dense APC
+   ``solve_many`` with 8 right-hand sides.
 
 Every time is the median over rounds of a run of back-to-back calls
 between two CUDA events, divided by the run's length: the host's time
@@ -84,8 +96,20 @@ ITERS = 150
 K_MANY = 8
 CLI_ARGS = ["--problem", "ash608", "--workers", "4", "--iters", "200",
             "--use-kernel"]
-# kernel vs plain: max|Δ| / (max|plain| + 1), tests/test_kernels.py TOL
+# kernel vs plain: max|Δ| / (max|plain| + 1), tests/test_kernels.py TOL,
+# by the compute dtype (a bf16 matrix is widened exactly)
 TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
+BF16 = torch.bfloat16
+# precision="mixed" against the float64 run: the reference's bf16
+# envelope (tests/test_kernel_corners.py MIXED_TOL); against its upcast
+# twin: 1e-9 absolute
+MIXED_TOL = dict(rtol=0.5, atol=5e-2)
+TWIN_TOL = 1e-9
+# the kernels' (matrix, compute) dtype forms beside float64/float64
+MIXED_FORMS = ((BF16, torch.float64), (BF16, torch.float32))
+NO_LIBRARY = ("none: torch.matmul and torch.bmm refuse a bfloat16 matrix "
+              "with float64 or float32 operands, and upcasting first is "
+              "a second pass over the matrix")
 RAGGED = [(7, 130), (1, 128), (24, 896)]
 # the sparse path's system, and the banded corner systems of phase 2
 # (tests/test_kernel_corners.py, plus a support one chunk and a bit wide)
@@ -162,26 +186,39 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return d / (float(want.double().abs().max()) + 1.0), d
 
 
+def pair_label(matrix: torch.Tensor, x: torch.Tensor) -> str:
+    """'float64/float64', 'bfloat16/float64', ...: a kernel's form."""
+    return f"{str(matrix.dtype)[6:]}/{str(x.dtype)[6:]}"
+
+
+# the mangled matrix/compute types of a kernel instance, and their names
+MANGLED = {"d": (torch.float64, "f64"), "f": (torch.float32, "f32"),
+           "13__nv_bfloat16": (BF16, "bf16")}
+
+
 def ptxas_summary(log: str, dynamic_smem) -> list[str]:
     """'apc_gather f64 KC=8 spill 0 B: 128 regs, smem 16384 B' per kernel
-    instance, from nvcc's -Xptxas=-v output (the sparse scatter's two
-    forms are tagged apc/cimmino; a ring instance's shared memory adds
-    ``dynamic_smem(dtype, KC, form)`` bytes of dynamic shared memory, the
-    form "cimmino" for the Cimmino gathers' rings, else "apc")."""
+    instance, from nvcc's -Xptxas=-v output ('bf16/f64' for a bf16-stored
+    matrix with float64 compute; the sparse scatter's two forms are tagged
+    apc/cimmino; a ring instance's shared memory adds
+    ``dynamic_smem(matrix dtype, dtype, KC, form)`` bytes of dynamic
+    shared memory, the form "cimmino" for the Cimmino gathers' rings,
+    else "apc")."""
     out, kernel = [], None
     for line in log.splitlines():
         hit = re.search(r"entry function '\S*?((?:apc|cimmino|sparse)_\w+?)"
-                        r"_kernelI([df])Li(\d+)E(?:Li\d+E)?(?:Lb([01]))?",
-                        line)
+                        r"_kernelI(d|f|13__nv_bfloat16)([df])Li(\d+)E"
+                        r"(?:Li\d+E)?(?:Lb([01]))?", line)
         if hit:
-            dtype = torch.float64 if hit[2] == "d" else torch.float32
-            kernel = (f"{hit[1]} {'f64' if hit[2] == 'd' else 'f32'} "
-                      f"KC={hit[3]}"
-                      + ("" if hit[4] is None else
-                         " apc" if hit[4] == "1" else " cimmino"))
+            mdtype, mname = MANGLED[hit[2]]
+            dtype, name = MANGLED[hit[3]]
+            tag = name if mname == name else f"{mname}/{name}"
+            kernel = (f"{hit[1]} {tag} KC={hit[4]}"
+                      + ("" if hit[5] is None else
+                         " apc" if hit[5] == "1" else " cimmino"))
             ring = hit[1].endswith("_ring")
             form = "cimmino" if "cimmino" in hit[1] else "apc"
-            kc = int(hit[3])
+            kc = int(hit[4])
         spill = re.search(r"(\d+) bytes spill stores", line)
         if kernel and spill:
             kernel += f" spill {spill[1]} B"
@@ -190,7 +227,8 @@ def ptxas_summary(log: str, dynamic_smem) -> list[str]:
             smem = re.search(r"(\d+) bytes smem", line)
             kernel += f": {regs[1]} regs, smem {smem[1] if smem else 0} B"
             if ring:
-                kernel += f" + {dynamic_smem(dtype, kc, form)} B dynamic"
+                kernel += (f" + {dynamic_smem(mdtype, dtype, kc, form)} B "
+                           f"dynamic")
             out.append(kernel)
             kernel = None
     return out
@@ -256,13 +294,21 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import solvers
-    from repro_torch.core import partition, spectral
+    from repro_torch.core import blockops, partition, spectral
     from repro_torch.core.apc import APCState
     from repro_torch.data import linsys
     from repro_torch.kernels import block_projection as bp
     from repro_torch.kernels import ops
     from repro_torch.launch import solve as cli
-    from repro_torch.solvers.projection import CimminoState
+    from repro_torch.solvers.projection import CimminoState, ProjFactors
+
+    def form_launches(pair):
+        """The launches since the last reset, by kernel; every one of them
+        must have gone through the C entries of ``pair`` (a value of
+        bp.PAIRS: "f64", "bf16_f64", "bf16_f32")."""
+        got = ops.launch_counts(pair)
+        assert got == ops.launch_counts(), (pair, ops.launch_counts())
+        return got
 
     # 1. environment ------------------------------------------------------
     t0 = time.time()
@@ -282,22 +328,26 @@ def main() -> int:
     ptxas = ptxas_summary(lib.with_suffix(".log").read_text(),
                           bp.ring_smem_bytes)
     say("phase 1 ptxas: " + "; ".join(ptxas))
-    rings = [x for x in ptxas if "_ring f64" in x]
-    assert all(" spill 0 B:" in x for x in rings), rings
-    assert {x.split()[0] for x in rings} == {
-        f"{kn}_ring" for kn in bp.GATHERS}, rings
+    for tag in ("f64", "bf16/f64"):      # every float64-compute ring
+        rings = [x for x in ptxas if x.split()[1] == tag and "_ring " in x]
+        assert all(" spill 0 B:" in x for x in rings), rings
+        assert {x.split()[0] for x in rings} == {
+            f"{kn}_ring" for kn in bp.GATHERS}, rings
 
     # 2. kernel vs plain version ------------------------------------------
-    max_abs = dict.fromkeys(bp.KERNELS, 0.0)
+    max_abs = {}             # (kernel, form) -> max|Δ| at the main shapes
 
-    def check(kname, got, want, dt, label, record):
+    def check(kname, got, want, pr, label, record):
+        """got (in the compute dtype) against the plain version, at the
+        compute dtype's tolerance; ``pr`` is the form (pair_label)."""
+        assert got.dtype == want.dtype, (kname, label, pr, got.dtype)
         e, d = rel_err(got, want)
-        assert e < TOL[dt], (kname, label, dt, e)
+        assert e < TOL[got.dtype], (kname, label, pr, e)
         if record:
-            max_abs[kname] = max(max_abs[kname], d)
+            max_abs[(kname, pr)] = max(max_abs.get((kname, pr), 0.0), d)
         return e
 
-    def instances(kname, launch, want, matrix, copied, dt, label, record):
+    def instances(kname, launch, want, matrix, copied, pr, label, record):
         """Both instances of a gather, ``launch(instance)``: the row dot,
         and the ring where ``gather_instance`` admits these operands;
         each against the plain version, and the two bit-identical.
@@ -307,15 +357,16 @@ def main() -> int:
                 if inst == "row_dot" or ring}
         torch.cuda.synchronize()
         for got in outs.values():
-            check(kname, got.reshape(want.shape), want, dt, label, record)
+            check(kname, got.reshape(want.shape), want, pr, label, record)
         if ring:
             assert torch.equal(outs["ring"], outs["row_dot"]), (kname, label)
         return "ring≡row_dot" if ring else "row_dot"
 
     def compare(A, B, X, Xb, V, gamma, label, record=False):
         """The four dense kernels against their plain versions; V stands in for
-        both the APC scatter's U and the Cimmino scatter's V."""
-        dt = A.dtype
+        both the APC scatter's U and the Cimmino scatter's V.  A and B in
+        X's dtype or in bfloat16 (a mixed form)."""
+        pr = pair_label(A, X)
         outs = {
             "apc_gather": (ops.proj_gather(A, X, Xb),
                            ops.apc_gather_ref(A, X, Xb)),
@@ -327,18 +378,18 @@ def main() -> int:
                                 ops.cimmino_scatter_ref(B, V)),
         }
         torch.cuda.synchronize()
-        errs = {kn: check(kn, got, want, dt, label, record)
+        errs = {kn: check(kn, got, want, pr, label, record)
                 for kn, (got, want) in outs.items()}
         X3, Xb3 = (X, Xb) if X.dim() == 3 else (X[:, None], Xb[None])
         ran = instances("apc_gather", lambda inst: bp.apc_gather(
             A, X3, Xb3, _instance=inst), outs["apc_gather"][1], A,
-            (X3, Xb3), dt, label, record)
+            (X3, Xb3), pr, label, record)
         ran_c = instances("cimmino_gather", lambda inst: bp.cimmino_gather(
             A, Xb3, _instance=inst), outs["cimmino_gather"][1], A, (Xb3,),
-            dt, label, record)
-        say(f"phase 2 {label} {str(dt)[6:]}: " + " ".join(
+            pr, label, record)
+        say(f"phase 2 {label} {pr}: " + " ".join(
             f"{kn} {e:.3e}" for kn, e in errs.items())
-            + f" (tol {TOL[dt]:.0e}); apc_gather {ran}; cimmino_gather "
+            + f" (tol {TOL[X.dtype]:.0e}); apc_gather {ran}; cimmino_gather "
             f"{ran_c}")
         if X.dim() == 3:    # a batch row is bit-identical to a k=1 call
             i = X.shape[1] - 1
@@ -356,8 +407,9 @@ def main() -> int:
                        record=False):
         """The three sparse kernels against their plain versions, through
         the two sparse ops: U of each op is its gather's result, Y and R
-        the two forms of ``sparse_scatter``; V is the Cimmino b."""
-        dt = vals.dtype
+        the two forms of ``sparse_scatter``; V is the Cimmino b.  vals and
+        Bvals in X's dtype or in bfloat16 (a mixed form)."""
+        pr = pair_label(vals, X)
         Y, U = ops.sparse_proj_update(vals, cols, Bv, X, Xb, gamma)
         R, Uc = ops.sparse_cimmino_update(vals, cols, Bv, V, Xb)
         Yr, Ur = ops.sparse_proj_update_ref(vals, cols, Bv, X, Xb, gamma)
@@ -366,19 +418,19 @@ def main() -> int:
         pairs = {"sparse_gather": [(U, Ur)],
                  "sparse_cimmino_gather": [(Uc, Ucr)],
                  "sparse_scatter": [(Y, Yr), (R, Rr)]}
-        errs = {kn: max(check(kn, got, want, dt, label, record)
-                        for got, want in pr) for kn, pr in pairs.items()}
+        errs = {kn: max(check(kn, got, want, pr, label, record)
+                        for got, want in outs) for kn, outs in pairs.items()}
         X3, Xb3 = (X, Xb) if X.dim() == 3 else (X[:, None], Xb[None])
         ran = instances("sparse_gather", lambda inst: bp.sparse_gather(
-            vals, cols, X3, Xb3, _instance=inst), Ur, vals, (), dt, label,
+            vals, cols, X3, Xb3, _instance=inst), Ur, vals, (), pr, label,
             record)
         ran_c = instances(
             "sparse_cimmino_gather", lambda inst: bp.sparse_cimmino_gather(
-                vals, cols, Xb3, _instance=inst), Ucr, vals, (), dt, label,
+                vals, cols, Xb3, _instance=inst), Ucr, vals, (), pr, label,
             record)
-        say(f"phase 2 {label} {str(dt)[6:]}: " + " ".join(
+        say(f"phase 2 {label} {pr}: " + " ".join(
             f"{kn} {e:.3e}" for kn, e in errs.items())
-            + f" (tol {TOL[dt]:.0e}); sparse_gather {ran}; "
+            + f" (tol {TOL[X.dtype]:.0e}); sparse_gather {ran}; "
             f"sparse_cimmino_gather {ran_c}")
         if X.dim() == 3:    # a batch row is bit-identical to a k=1 call
             i = X.shape[1] - 1
@@ -410,9 +462,11 @@ def main() -> int:
             for k in (1, 5, K_MANY, 11):
                 X, Xb, V = sparse_inputs(cf.A.vals, csys.cols, csys.n, k, dt,
                                          seed=csys.n + k)
-                compare_sparse(cf.A.vals.to(dt), csys.cols, cf.B.to(dt), X,
-                               Xb, V, 0.83, f"banded n={csys.n} m={csys.m} "
-                               f"p={csys.p} w={csys.cols.shape[1]} k={k}")
+                for mdt in (dt, BF16):
+                    compare_sparse(cf.A.vals.to(mdt), csys.cols,
+                                   cf.B.to(mdt), X, Xb, V, 0.83,
+                                   f"banded n={csys.n} m={csys.m} "
+                                   f"p={csys.p} w={csys.cols.shape[1]} k={k}")
     # the sparse path's shapes: its band support, seeded values, and the
     # padded slots zeroed as as_sparse leaves them
     sn, sm, sbw = SPARSE["n"], SPARSE["m"], SPARSE["bandwidth"]
@@ -437,9 +491,10 @@ def main() -> int:
     for k in (1, K_MANY):
         for dt in TOL:
             X, Xb, V = sparse_inputs(svals, scols, sn, k, dt, seed=k)
-            compare_sparse(svals.to(dt), scols, sBv.to(dt), X, Xb, V, 0.9,
-                           f"sparse path m={sm} p={sp_p} w={sw} n={sn} k={k}",
-                           record=dt == torch.float64)
+            for mdt in (dt, BF16):
+                compare_sparse(svals.to(mdt), scols, sBv.to(mdt), X, Xb, V,
+                               0.9, f"sparse path m={sm} p={sp_p} w={sw} "
+                               f"n={sn} k={k}", record=True)
     del svals, sBv
 
     for dt in TOL:
@@ -449,7 +504,9 @@ def main() -> int:
                                         transposed=k > 1)
                 if k == 1:
                     X, Xb, V = X[:, 0], Xb[0], V[:, 0]
-                compare(A, B, X, Xb, V, 0.83, f"m=3 p={p} n={n} k={k}")
+                for mdt in (dt, BF16):
+                    compare(A.to(mdt), B.to(mdt), X, Xb, V, 0.83,
+                            f"m=3 p={p} n={n} k={k}")
 
     t = time.time()
     sys_ = linsys.tall_gaussian(**FULL, seed=0, device="cuda")
@@ -465,14 +522,15 @@ def main() -> int:
         Xb = torch.as_tensor(rng.standard_normal((k, n)), device="cuda")
         V = torch.as_tensor(rng.standard_normal((k, m, p)), device="cuda")
         for dt in TOL:
-            A, B = factors.A.to(dt), factors.B.to(dt)
             Xd, Xbd = X.to(dt).transpose(0, 1), Xb.to(dt)
             Vd = V.to(dt).transpose(0, 1)
             if k == 1:
                 Xd, Xbd, Vd = Xd[:, 0], Xbd[0], Vd[:, 0]
-            compare(A, B, Xd, Xbd, Vd, 0.9, f"main path m={m} p={p} n={n} "
-                    f"k={k}", record=dt == torch.float64)
-            del A, B
+            for mdt in (dt, BF16):
+                A, B = factors.A.to(mdt), factors.B.to(mdt)
+                compare(A, B, Xd, Xbd, Vd, 0.9, f"main path m={m} p={p} "
+                        f"n={n} k={k}", record=True)
+                del A, B
 
     # 3. the APC main path at full size -----------------------------------
     t = time.time()
@@ -487,7 +545,7 @@ def main() -> int:
     res = solver.solve(sys_, iters=ITERS, plan=kplan, **params)
     torch.cuda.synchronize()
     t_solve = time.time() - t
-    launches = ops.launch_counts()
+    launches = form_launches("f64")
     err = float(torch.linalg.norm(res.x - sys_.x_true)
                 / torch.linalg.norm(sys_.x_true))
     say(f"phase 3 solve kernel=True: {ITERS} iters in {t_solve:.2f} s "
@@ -520,18 +578,19 @@ def main() -> int:
             (K_MANY, system.n)), device="cuda")
         return xs, (system.A_blocks.reshape(system.N, system.n) @ xs.T).T
 
-    def many_vs_rows(s, prm, label, check_x, system, facs, xs, Bm, uses):
+    def many_vs_rows(s, prm, label, check_x, system, facs, xs, Bm, uses,
+                     precision="default"):
         """solve_many with K_MANY rows through one launch of each kernel
         per step, each row against its single solve (``check_x`` also
         holds it to the row's x_true)."""
+        kplan_p = solvers.ExecutionPlan(kernel=True, factors=facs,
+                                        precision=precision)
         ops.reset_launch_counts()
         t = time.time()
-        many = s.solve_many(system, Bm, iters=ITERS,
-                            plan=solvers.ExecutionPlan(kernel=True,
-                                                       factors=facs), **prm)
+        many = s.solve_many(system, Bm, iters=ITERS, plan=kplan_p, **prm)
         torch.cuda.synchronize()
         t_many = time.time() - t
-        got = ops.launch_counts()
+        got = form_launches("f64" if precision == "default" else "bf16_f64")
         assert got == {kn: ITERS if kn in uses[s.name] else 0
                        for kn in bp.KERNELS}, got
         worst = 0.0
@@ -539,8 +598,7 @@ def main() -> int:
             row = dataclasses.replace(
                 system, b_blocks=Bm[i].reshape(system.m, system.p),
                 x_true=xs[i], mode="square")
-            one = s.solve(row, iters=ITERS, plan=solvers.ExecutionPlan(
-                kernel=True, factors=facs), **prm)
+            one = s.solve(row, iters=ITERS, plan=kplan_p, **prm)
             d = float(torch.linalg.norm(many.x[i] - one.x)
                       / torch.linalg.norm(one.x))
             worst = max(worst, d)
@@ -548,7 +606,9 @@ def main() -> int:
             if check_x:
                 assert float(torch.linalg.norm(many.x[i] - xs[i])
                              / torch.linalg.norm(xs[i])) <= 1e-8
-        say(f"phase {label} solve_many k={K_MANY}: {ITERS} iters in "
+        say(f"phase {label} solve_many k={K_MANY}"
+            + ("" if precision == "default" else f" precision={precision}")
+            + f": {ITERS} iters in "
             f"{t_many:.2f} s, launches {got}, max row vs single solve "
             f"{worst:.3e}")
 
@@ -596,7 +656,7 @@ def main() -> int:
         r = s.solve(sys_, iters=ITERS, plan=kplan, **prm)
         torch.cuda.synchronize()
         t_solve = time.time() - t
-        got = ops.launch_counts()
+        got = form_launches("f64")
         assert got == {kn: ITERS if kn in USES[sname] else 0
                        for kn in bp.KERNELS}, (sname, got)
         if sname == "cimmino":
@@ -641,6 +701,7 @@ def main() -> int:
             f"{'n/a' if dec is None else f'{dec:.6f}'}"
             + ("" if sname in USES else
                f", {time.time() - t:.2f} s with prepare"))
+    f64_hist = {sname: kernel_runs[sname].residuals for sname in USES}
     del kernel_runs
 
     # 7. the CLI entry point ----------------------------------------------
@@ -654,22 +715,146 @@ def main() -> int:
         say(f"phase 7 cli {' '.join(CLI_ARGS)} --method {method}: rc {rc} "
             f"launches {got}")
 
+    # 12. precision="mixed", dense half -------------------------------------
+    def upcast_twin(facs):
+        """The bf16-rounded factors widened to float64: the default solve
+        on them is what the mixed solve computes."""
+        A = facs.A
+        A = (A._replace(vals=A.vals.double()) if blockops.is_sparse(A)
+             else A.double())
+        return ProjFactors(A=A, chol=facs.chol, B=facs.B.double())
+
+    # launches of each mixed run, by (system, solver): of the bf16/float64
+    # form, and of the bf16/float32 form in float32_mixed
+    mixed_launches, mixed32_launches = {}, {}
+
+    def mixed_solves(label, system, facs, prm_of, uses, f64_runs):
+        """APC, consensus and Cimmino with precision="mixed" on ``facs``
+        (the cast kernel factors): launches of the bf16/float64 form
+        only, a bit-identical repeat, the upcast twin (float64 form only)
+        within TWIN_TOL, the float64 history within the reference's bf16
+        envelope."""
+        twin = upcast_twin(facs)
+        mplan = solvers.ExecutionPlan(kernel=True, precision="mixed",
+                                      factors=facs)
+        for sname in ("apc", "consensus", "cimmino"):
+            s = solvers.get(sname)
+            prm = prm_of[sname][0]
+            ops.reset_launch_counts()
+            t = time.time()
+            r = s.solve(system, iters=ITERS, plan=mplan, **prm)
+            torch.cuda.synchronize()
+            t_solve = time.time() - t
+            got = mixed_launches[(label, sname)] = form_launches("bf16_f64")
+            want = {kn: ITERS if kn in uses[sname] else 0
+                    for kn in bp.KERNELS}
+            assert got == want, (label, sname, got)
+            r2 = s.solve(system, iters=ITERS, plan=mplan, **prm)
+            assert torch.equal(r2.residuals, r.residuals), (label, sname)
+            assert torch.equal(r2.x, r.x), (label, sname)
+            ops.reset_launch_counts()
+            tw = s.solve(system, iters=ITERS, plan=solvers.ExecutionPlan(
+                kernel=True, factors=twin), **prm)
+            assert form_launches("f64") == want, (label, sname)
+            d_tw = float((r.residuals - tw.residuals).abs().max())
+            d_tx = float((r.x - tw.x).abs().max())
+            assert d_tw <= TWIN_TOL and torch.allclose(
+                r.errors, tw.errors, rtol=0, atol=TWIN_TOL), (sname, d_tw)
+            assert torch.isfinite(r.residuals).all(), (label, sname)
+            ref = f64_runs[sname]
+            assert torch.allclose(r.residuals, ref, **MIXED_TOL), sname
+            err = float(torch.linalg.norm(r.x - system.x_true)
+                        / torch.linalg.norm(system.x_true))
+            say(f"phase 12 {label} {sname} precision=mixed: {ITERS} iters "
+                f"in {t_solve:.2f} s, residual {float(r.residuals[-1]):.3e} "
+                f"(float64 run {float(ref[-1]):.3e}, max|Δ| "
+                f"{float((r.residuals - ref).abs().max()):.3e}) rel-error "
+                f"{err:.3e} launches {got}; upcast twin history max|Δ| "
+                f"{d_tw:.3e}, x max|Δ| {d_tx:.3e}; repeat bit-identical")
+        del twin
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def float32_mixed(label, system, facs, prm_of, uses, f64_runs):
+        """APC and Cimmino with precision="mixed" in float32, the kernels'
+        bfloat16/float32 form: the system in float32 and ``facs`` (bf16 A
+        and B) with its Cholesky factor in float32.  Launches of that form
+        only, a bit-identical repeat, the float64 history within the
+        reference's bf16 envelope."""
+        sys32 = dataclasses.replace(
+            system, A_blocks=system.A_blocks.float(),
+            b_blocks=system.b_blocks.float(), x_true=system.x_true.float())
+        plan32 = solvers.ExecutionPlan(
+            kernel=True, precision="mixed",
+            factors=facs._replace(chol=facs.chol.float()))
+        for sname in ("apc", "cimmino"):
+            s = solvers.get(sname)
+            prm = prm_of[sname][0]
+            ops.reset_launch_counts()
+            t = time.time()
+            r = s.solve(sys32, iters=ITERS, plan=plan32, **prm)
+            torch.cuda.synchronize()
+            t_solve = time.time() - t
+            got = mixed32_launches[(label, sname)] = form_launches(
+                "bf16_f32")
+            assert got == {kn: ITERS if kn in uses[sname] else 0
+                           for kn in bp.KERNELS}, (label, sname, got)
+            assert r.x.dtype == torch.float32, r.x.dtype
+            r2 = s.solve(sys32, iters=ITERS, plan=plan32, **prm)
+            assert torch.equal(r2.residuals, r.residuals), (label, sname)
+            assert torch.equal(r2.x, r.x), (label, sname)
+            assert torch.isfinite(r.residuals).all(), (label, sname)
+            ref = f64_runs[sname]
+            d = float((r.residuals.double() - ref).abs().max())
+            assert torch.allclose(r.residuals.double(), ref,
+                                  **MIXED_TOL), (label, sname, d)
+            say(f"phase 12 {label} {sname} precision=mixed float32: "
+                f"{ITERS} iters in {t_solve:.2f} s, residual "
+                f"{float(r.residuals[-1]):.3e} (float64 run "
+                f"{float(ref[-1]):.3e}, max|Δ| {d:.3e}) launches {got}; "
+                f"repeat bit-identical")
+        del sys32, plan32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    mf = solver.cast_factors(factors, "mixed")
+    say(f"phase 12 dense factors: A {tuple(mf.A.shape)} {mf.A.dtype}, B "
+        f"{tuple(mf.B.shape)} {mf.B.dtype}, chol {mf.chol.dtype}")
+    mixed_solves("dense", sys_, mf, pinned, USES, f64_hist)
+    float32_mixed("dense", sys_, mf, pinned, USES, f64_hist)
+    many_vs_rows(solver, params, "12", False, sys_, mf, xs, Bm, USES,
+                 precision="mixed")
+
     # 8. times --------------------------------------------------------------
     rows = {}
     itemsize = 8
 
-    def time_kernel(phase, kname, k, shape, fns, work, library):
-        """CUDA-event medians, in turns, of a kernel (``fns["ms"]``), its
-        plain version (``plain_ms``), the library yardstick
-        (``library_ms``) and, for a gather, its row-dot instance
-        (``row_dot_ms``), beside the kernel's bound from ``work`` =
-        (bytes, operations); kept in ``rows`` and printed."""
+    def bound(work, dtype):
+        """(bound ms, "bytes" or "operations") of ``work`` = (bytes,
+        operations in ``dtype``)."""
         nbytes, nops = work
         t_bytes = nbytes / bw * 1e3
-        t_ops = nops / peak[torch.float64] * 1e3
-        rows[(kname, k)] = r = medians_ms(fns)
-        r.update(bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+        t_ops = nops / peak[dtype] * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    def time_kernel(phase, kname, k, shape, fns, work, library, forms):
+        """CUDA-event medians, in turns, of a kernel (``fns["ms"]``), its
+        plain version (``plain_ms``), the library yardstick
+        (``library_ms``), for a gather its row-dot instance
+        (``row_dot_ms``), and its mixed forms (``forms``: form label ->
+        (call, work, compute dtype)), beside each one's bound from its
+        work = (bytes, operations); kept in ``rows`` and printed."""
+        timed = dict(fns)
+        timed.update({pr: fn for pr, (fn, _, _) in forms.items()})
+        rows[(kname, k)] = r = medians_ms(timed)
+        b, by = bound(work, torch.float64)
+        r.update(bound_ms=b, bound_by=by)
+        r["forms"] = {"float64/float64": dict(ms=r["ms"], bound_ms=b,
+                                              bound_by=by)}
+        for pr, (_, w, dt) in forms.items():
+            b, by = bound(w, dt)
+            r["forms"][pr] = dict(ms=r.pop(pr), bound_ms=b, bound_by=by)
         t_k = r["ms"]
         say(f"phase {phase} {kname} k={k} {shape} float64: "
             f"{t_k:.4f} ms (bound {r['bound_ms']:.4f} ms by "
@@ -679,6 +864,18 @@ def main() -> int:
                if "row_dot_ms" in r else "")
             + f"plain {r['plain_ms']:.4f} ms, {library} "
             f"{r['library_ms']:.4f} ms")
+        say(f"phase {phase} {kname} k={k} {shape} mixed forms: " + "; ".join(
+            f"{pr} {f['ms']:.4f} ms (bound {f['bound_ms']:.4f} ms by "
+            f"{f['bound_by']}, {f['bound_ms'] / f['ms']:.1%} of it)"
+            for pr, f in r["forms"].items() if pr != "float64/float64")
+            + f"; library {NO_LIBRARY}")
+    def pair_bounds(k, uses):
+        """The bounds of an iteration's two kernels at k, summed: the
+        bf16/float64 form's and the float64 form's, ms."""
+        return (sum(rows[(kn, k)]["forms"]["bfloat16/float64"]["bound_ms"]
+                    for kn in uses),
+                sum(rows[(kn, k)]["bound_ms"] for kn in uses))
+
     b = sys_.b_blocks
     nu = pinned["cimmino"][0]["nu"]
     cim = solvers.get("cimmino")
@@ -689,20 +886,40 @@ def main() -> int:
         X3 = X.transpose(0, 1)                       # (m, k, n) view
         Xb = torch.as_tensor(rng.standard_normal((k, n)), device="cuda")
         A, B = factors.A, factors.B
+        A16, B16 = mf.A, mf.B
         U = bp.apc_gather(A, X3, Xb)
         V = (b.expand(k, m, p).transpose(0, 1)
              - bp.cimmino_gather(A, Xb))             # (m, k, p)
         D = Xb - X3
+        X3f, Xbf, Uf, Vf = X3.float(), Xb.float(), U.float(), V.float()
         mkn, mkp, kn_, mpn = m * k * n, m * k * p, k * n, m * p * n
-        work = {   # (bytes, ops): each input read once, each output once
-            "apc_gather": (itemsize * (mpn + mkn + kn_ + mkp),
-                           2 * m * k * p * n + mkn),
-            "apc_scatter": (itemsize * (mpn + 2 * mkn + kn_ + mkp),
-                            2 * m * k * p * n + 4 * mkn),
-            "cimmino_gather": (itemsize * (mpn + kn_ + mkp),
-                               2 * m * k * p * n),
-            "cimmino_scatter": (itemsize * (mpn + mkp + mkn),
-                                2 * m * k * p * n),
+
+        def dense_work(ms, xs):
+            """(bytes, ops) of each kernel with its matrix at ``ms`` bytes
+            an element and the rest at ``xs``: each input read once, each
+            output written once."""
+            return {
+                "apc_gather": (ms * mpn + xs * (mkn + kn_ + mkp),
+                               2 * m * k * p * n + mkn),
+                "apc_scatter": (ms * mpn + xs * (2 * mkn + kn_ + mkp),
+                                2 * m * k * p * n + 4 * mkn),
+                "cimmino_gather": (ms * mpn + xs * (kn_ + mkp),
+                                   2 * m * k * p * n),
+                "cimmino_scatter": (ms * mpn + xs * (mkp + mkn),
+                                    2 * m * k * p * n),
+            }
+        work = dense_work(itemsize, itemsize)
+        mixed_work = {"bfloat16/float64": (dense_work(2, 8), torch.float64),
+                      "bfloat16/float32": (dense_work(2, 4), torch.float32)}
+        mixed_calls = {
+            "apc_gather": (lambda: bp.apc_gather(A16, X3, Xb),
+                           lambda: bp.apc_gather(A16, X3f, Xbf)),
+            "apc_scatter": (lambda: bp.apc_scatter(B16, X3, Xb, U, 0.9),
+                            lambda: bp.apc_scatter(B16, X3f, Xbf, Uf, 0.9)),
+            "cimmino_gather": (lambda: bp.cimmino_gather(A16, Xb),
+                               lambda: bp.cimmino_gather(A16, Xbf)),
+            "cimmino_scatter": (lambda: bp.cimmino_scatter(B16, V),
+                                lambda: bp.cimmino_scatter(B16, Vf)),
         }
         timed = {
             "apc_gather": dict(
@@ -726,8 +943,9 @@ def main() -> int:
                 plain_ms=lambda: ops.cimmino_scatter_ref(B, V),
                 library_ms=lambda: torch.matmul(V, B.transpose(1, 2))),
         }
-        assert bp.gather_instance(A, X3, Xb) == "ring"
-        assert bp.gather_instance(A, Xb) == "ring"
+        for M_, X_, Xb_ in ((A, X3, Xb), (A16, X3, Xb), (A16, X3f, Xbf)):
+            assert bp.gather_instance(M_, X_, Xb_) == "ring"
+            assert bp.gather_instance(M_, Xb_) == "ring"
         if k == 1:
             st = APCState(x=X[0], xbar=Xb[0], t=0)
             cst = CimminoState(xbar=Xb[0], t=0)
@@ -740,21 +958,33 @@ def main() -> int:
             "APC": lambda: solver.step_many_residual(factors, bb, st,
                                                      params),
             "Cimmino": lambda: cim.step_many_residual(factors, bb, cst,
-                                                      {"nu": nu})})
+                                                      {"nu": nu}),
+            "APC mixed": lambda: solver.step_many_residual(mf, bb, st,
+                                                           params),
+            "Cimmino mixed": lambda: cim.step_many_residual(mf, bb, cst,
+                                                            {"nu": nu})})
         t_it, t_cit = its["APC"], its["Cimmino"]
         for kname, fns in timed.items():
+            forms = {pr: (call, mixed_work[pr][0][kname], mixed_work[pr][1])
+                     for pr, call in zip(mixed_work, mixed_calls[kname])}
             time_kernel(8, kname, k, f"m={m} p={p} n={n}", fns, work[kname],
-                        "torch.matmul")
+                        "torch.matmul", forms)
         say(f"phase 8 iteration k={k}: APC {t_it:.4f} ms per step "
             f"(gather + scatter + master update + residual); Cimmino "
             f"{t_cit:.4f} ms per step (gather + v = b − u + scatter + "
             f"worker sum + master update + residual)")
-        del U, V, D
+        say(f"phase 8 iteration k={k} precision=mixed: " + "; ".join(
+            f"{meth} {its[meth + ' mixed']:.4f} ms per step (float64 "
+            f"{its[meth]:.4f}; bound of its two kernels bf16/float64 "
+            "{:.4f} ms, float64 {:.4f} ms)".format(
+                *pair_bounds(k, USES[meth.lower()]))
+            for meth in ("APC", "Cimmino")))
+        del U, V, D, X3f, Xbf, Uf, Vf
     clocks("phase 8 end")
 
     main_launches = {kn: (launches if kn in USES["apc"] else cim_launches)[kn]
                      for kn in USES["apc"] + USES["cimmino"]}
-    del sys_, factors, res, res_u, res2, A, B, X, X3, Xb
+    del sys_, factors, mf, res, res_u, res2, A, B, A16, B16, X, X3, Xb
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -789,7 +1019,7 @@ def main() -> int:
     torch.cuda.synchronize()
     say(f"phase 9 factors: sparse (vals, Bvals {tuple(fs.B.shape)}) and "
         f"densified (B {tuple(fd.B.shape)}) in {time.time() - t:.2f} s")
-    sparse_launches = {}
+    sparse_launches, sp_hist = {}, {}
     for sname in ("apc", "consensus", "cimmino"):
         s = solvers.get(sname)
         prm = sp_pinned[sname][0]
@@ -798,9 +1028,10 @@ def main() -> int:
         r = s.solve(sp, iters=ITERS, plan=kplan, **prm)
         torch.cuda.synchronize()
         t_solve = time.time() - t
-        got = sparse_launches[sname] = ops.launch_counts()
+        got = sparse_launches[sname] = form_launches("f64")
         assert got == {kn: ITERS if kn in SPARSE_USES[sname] else 0
                        for kn in bp.KERNELS}, (sname, got)
+        sp_hist[sname] = r.residuals
         r_u = s.solve(sp, iters=ITERS, plan=solvers.ExecutionPlan(factors=fs),
                       **prm)
         dres = float((r.residuals - r_u.residuals).abs().max())
@@ -832,6 +1063,13 @@ def main() -> int:
         many_vs_rows(solvers.get(sname), sp_pinned[sname][0], "9", False, sp,
                      fs, xs, Bm, SPARSE_USES)
     del r, r_u, r_d, r2, xs, Bm
+
+    # 12. precision="mixed", sparse half ------------------------------------
+    msf = solver.cast_factors(fs, "mixed")
+    say(f"phase 12 sparse factors: vals {tuple(msf.A.vals.shape)} "
+        f"{msf.A.vals.dtype}, Bvals {tuple(msf.B.shape)} {msf.B.dtype}")
+    mixed_solves("sparse", sp, msf, sp_pinned, SPARSE_USES, sp_hist)
+    float32_mixed("sparse", sp, msf, sp_pinned, SPARSE_USES, sp_hist)
 
     # 10. least squares -----------------------------------------------------
     ls_cli = ["--problem", "tall_noisy", "--workers", "4", "--iters", "300"]
@@ -884,6 +1122,7 @@ def main() -> int:
 
     # 11. sparse times ------------------------------------------------------
     vals, cols, Bv = fs.A.vals, fs.A.cols, fs.B
+    vals16, Bv16 = msf.A.vals, msf.B
     b = sp.b_blocks
     prm_apc, prm_cim = sp_pinned["apc"][0], sp_pinned["cimmino"][0]
     clocks("phase 11 start")
@@ -903,15 +1142,36 @@ def main() -> int:
         Xs = torch.take_along_dim(Xb.expand(m, k, n), idx, dim=-1)
         mkw, mkp, mwp = m * k * w, m * k * p, m * w * p
         flops = 2 * m * k * p * w
-        work = {   # (bytes, ops): each input read once, each output once;
-            # the support columns of X/X̄ are what the gathers read, cols
-            # is int64
-            "sparse_gather": (itemsize * (mwp + m * w + 2 * mkw + mkp),
-                              flops + mkw),
-            "sparse_cimmino_gather": (itemsize * (mwp + m * w + mkw + mkp),
-                                      flops),
-            "sparse_scatter": (itemsize * (mwp + m * w + mkp + 3 * mkw),
-                               flops + 4 * mkw),
+        X3f, Xbf, Uf, Y0f = X3.float(), Xb.float(), U.float(), Y0.float()
+
+        def sparse_work(ms, xs):
+            """(bytes, ops) with vals/Bvals at ``ms`` bytes an element and
+            X, X̄, U, Y at ``xs``: each input read once, each output once;
+            the support columns of X/X̄ are what the gathers read, cols is
+            int64."""
+            return {
+                "sparse_gather": (ms * mwp + 8 * m * w
+                                  + xs * (2 * mkw + mkp), flops + mkw),
+                "sparse_cimmino_gather": (ms * mwp + 8 * m * w
+                                          + xs * (mkw + mkp), flops),
+                "sparse_scatter": (ms * mwp + 8 * m * w
+                                   + xs * (mkp + 3 * mkw), flops + 4 * mkw),
+            }
+        work = sparse_work(itemsize, itemsize)
+        mixed_work = {"bfloat16/float64": (sparse_work(2, 8), torch.float64),
+                      "bfloat16/float32": (sparse_work(2, 4), torch.float32)}
+        mixed_calls = {
+            "sparse_gather": (
+                lambda: bp.sparse_gather(vals16, cols, X3, Xb),
+                lambda: bp.sparse_gather(vals16, cols, X3f, Xbf)),
+            "sparse_cimmino_gather": (
+                lambda: bp.sparse_cimmino_gather(vals16, cols, Xb),
+                lambda: bp.sparse_cimmino_gather(vals16, cols, Xbf)),
+            "sparse_scatter": (
+                lambda: bp.sparse_scatter(Bv16, cols, U, Y0, X=X3, Xbar=Xb,
+                                          gamma=0.9),
+                lambda: bp.sparse_scatter(Bv16, cols, Uf, Y0f, X=X3f,
+                                          Xbar=Xbf, gamma=0.9)),
         }
         timed = {
             "sparse_gather": dict(
@@ -935,10 +1195,13 @@ def main() -> int:
                 library_ms=lambda: torch.bmm(U, Bv.transpose(1, 2))),
         }
         assert bp.gather_instance(vals) == "ring"     # both sparse gathers
+        assert bp.gather_instance(vals16) == "ring"
         for kname, fns in timed.items():
+            forms = {pr: (call, mixed_work[pr][0][kname], mixed_work[pr][1])
+                     for pr, call in zip(mixed_work, mixed_calls[kname])}
             time_kernel(11, kname, k, f"m={m} p={p} w={w} n={n}", fns,
                         work[kname], "torch.bmm (operands gathered "
-                        "beforehand, gather/scatter excluded)")
+                        "beforehand, gather/scatter excluded)", forms)
         if k == 1:      # what a single call between two events also times
             one = medians_ms({"ms": timed["sparse_gather"]["ms"]},
                              batch=1)["ms"]
@@ -964,29 +1227,57 @@ def main() -> int:
                 (lambda f=f: solver.step_many_residual(f, bb, st, prm_apc))
                 if meth == "APC" else
                 (lambda f=f: cim.step_many_residual(f, bb, cst, prm_cim)))
-            for label, f in (("sparse", fs), ("densified", fd))
+            for label, f in (("sparse", fs), ("densified", fd),
+                             ("mixed", msf))
             for meth in ("APC", "Cimmino")})
         for meth in ("APC", "Cimmino"):
             sp_ms, dn_ms = its[(meth, "sparse")], its[(meth, "densified")]
             say(f"phase 11 iteration k={k} {meth}: sparse {sp_ms:.4f} ms, "
                 f"densified {dn_ms:.4f} ms per step (step_residual), "
                 f"ratio {dn_ms / sp_ms:.2f} (n/w = {n / w:.2f})")
-        del U, V, Y0, R0, Ds, Xs
+            b16, b64 = pair_bounds(k, SPARSE_USES[meth.lower()])
+            say(f"phase 11 iteration k={k} {meth} precision=mixed: sparse "
+                f"{its[(meth, 'mixed')]:.4f} ms per step (float64 "
+                f"{sp_ms:.4f}; bound of its two kernels bf16/float64 "
+                f"{b16:.4f} ms, float64 {b64:.4f} ms)")
+        del U, V, Y0, R0, Ds, Xs, X3f, Xbf, Uf, Y0f
     clocks("phase 11 end")
 
     main_launches.update(
         {kn: sparse_launches["apc" if kn in SPARSE_USES["apc"]
                              else "cimmino"][kn]
          for kn in SPARSE_USES["apc"] + SPARSE_USES["cimmino"]})
+    # each form's launches, each from its own runs (counts reset just
+    # before each and read by form just after): dense APC and Cimmino,
+    # sparse APC and Cimmino
+    def by_kernel(runs):
+        return {kn: runs[(label, sname)][kn]
+                for label, uses in (("dense", USES), ("sparse", SPARSE_USES))
+                for sname in ("apc", "cimmino") for kn in uses[sname]}
+
+    form_main = {"float64/float64": main_launches,
+                 "bfloat16/float64": by_kernel(mixed_launches),
+                 "bfloat16/float32": by_kernel(mixed32_launches)}
     kernels = []
     for kname in bp.KERNELS:
         r = rows[(kname, 1)]
+        forms = []
+        for pr, f in r["forms"].items():
+            forms.append({
+                "pair": pr, "k": 1, "ms": f["ms"], "bound_ms": f["bound_ms"],
+                "bound_by": f["bound_by"],
+                "launches": form_main[pr][kname],
+                "max_abs_err": max_abs[(kname, pr)],
+                "library_ms": r["library_ms"] if pr == "float64/float64"
+                else None,
+                "library": None if pr == "float64/float64" else NO_LIBRARY})
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[kname], "launches": main_launches[kname],
-            "max_abs_err": max_abs[kname], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "max_abs_err": max_abs[(kname, "float64/float64")],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "forms": forms})
     say(json.dumps({"kernels": kernels}))
     say(f"total {time.time() - t0:.1f} s")
     say(card)

@@ -9,6 +9,10 @@ columns, gathering with ``torch.take_along_dim``/indexing and scattering
 back with ``scatter_add``/``index_add`` on int64 indices.  These are the
 plain, unfused sparse path; the fused one is ``kernels.ops``.
 
+Blocks stored in a narrower dtype than the vector they meet (bfloat16
+under ``precision="mixed"``) are promoted to the vector's dtype first,
+as JAX's promotion does; ``torch.einsum`` would refuse the pair.
+
 Every operation is batch-polymorphic: vectors may carry leading batch
 axes (x (n,) or (k, n); per-block (m, n) or (k, m, n); (m, p) or
 (k, m, p)), as the port's solvers write the reference's vmaps out.
@@ -62,6 +66,12 @@ def block_dtype(A) -> torch.dtype:
     return A.vals.dtype if is_sparse(A) else A.dtype
 
 
+def _promoted(V: torch.Tensor, x: torch.Tensor):
+    """(V, x) in their promoted dtype (no copy where it is theirs)."""
+    dt = torch.promote_types(V.dtype, x.dtype)
+    return V.to(dt), x.to(dt)
+
+
 def _gather(A: SparseBlocks, D: torch.Tensor) -> torch.Tensor:
     """Per-block support columns of (..., m, n) D -> (..., m, w)."""
     return torch.take_along_dim(D, A.cols.expand(D.shape[:-1] + (-1,)),
@@ -70,22 +80,24 @@ def _gather(A: SparseBlocks, D: torch.Tensor) -> torch.Tensor:
 
 def _contr(A: SparseBlocks, u: torch.Tensor) -> torch.Tensor:
     """A_iᵀ u_i on the support: (..., m, p) -> (..., m, w)."""
-    return torch.einsum("mpw,...mp->...mw", A.vals, u)
+    return torch.einsum("mpw,...mp->...mw", *_promoted(A.vals, u))
 
 
 def bmatvec(A, x):
     """Per-block matvec ``A_i x`` -> (..., m, p) for a shared (..., n) x."""
     if is_sparse(A):
-        return torch.einsum("mpw,...mw->...mp", A.vals, x[..., A.cols])
-    return torch.einsum("mpn,...n->...mp", A, x)
+        return torch.einsum("mpw,...mw->...mp",
+                            *_promoted(A.vals, x[..., A.cols]))
+    return torch.einsum("mpn,...n->...mp", *_promoted(A, x))
 
 
 def bmatvec_each(A, D):
     """Per-block matvec ``A_i d_i`` -> (..., m, p) for per-block
     (..., m, n) D."""
     if is_sparse(A):
-        return torch.einsum("mpw,...mw->...mp", A.vals, _gather(A, D))
-    return torch.einsum("mpn,...mn->...mp", A, D)
+        return torch.einsum("mpw,...mw->...mp",
+                            *_promoted(A.vals, _gather(A, D)))
+    return torch.einsum("mpn,...mn->...mp", *_promoted(A, D))
 
 
 def bmatvec_many(A, X):
@@ -99,7 +111,7 @@ def brmatvec(A, u):
         c = _contr(A, u)
         out = c.new_zeros(c.shape[:-1] + (ncols(A),))
         return out.scatter_add_(-1, A.cols.expand(c.shape), c)
-    return torch.einsum("mpn,...mp->...mn", A, u)
+    return torch.einsum("mpn,...mp->...mn", *_promoted(A, u))
 
 
 def brmatvec_sum(A, u):
@@ -109,7 +121,7 @@ def brmatvec_sum(A, u):
         out = c.new_zeros(c.shape[:-2] + (ncols(A),))
         return out.index_add_(-1, A.cols.reshape(-1),
                               c.reshape(c.shape[:-2] + (-1,)))
-    return torch.einsum("mpn,...mp->...n", A, u)
+    return torch.einsum("mpn,...mp->...n", *_promoted(A, u))
 
 
 def brmatvec_sum_many(A, U):

@@ -7,13 +7,17 @@ continue in ``repro_torch`` without this package importing anything of
 ``repro``.  They copy: the port's tensors never alias the reference's
 (read-only) buffers.  Every state and factors type of the port has its
 reference namesake's fields in the same order, so :func:`from_numpy`
-converts any of them.
+converts any of them.  A bfloat16 array (``np.asarray`` of a JAX
+bfloat16 array has the ``ml_dtypes`` dtype, which ``torch.as_tensor``
+refuses) crosses by its bits, so the reference's ``precision="mixed"``
+factors arrive as they are.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch import device as dev
 from repro_torch.core.blockops import SparseBlocks
@@ -24,12 +28,22 @@ def _int64(a, device):
     return dev.as_tensor(np.array(a, dtype=np.int64), device=device)
 
 
+def _tensor(a, device):
+    """A copy of array ``a`` as a tensor; a bfloat16 array by its 16-bit
+    patterns, reinterpreted as ``torch.bfloat16``."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return dev.as_tensor(a.view(np.int16), device=device).view(
+            torch.bfloat16)
+    return dev.as_tensor(a, device=device)
+
+
 def system_from_numpy(A_blocks, b_blocks, x_true=None,
                       mode: Optional[str] = None, cols=None,
                       device=None) -> BlockSystem:
     """A ``BlockSystem`` from (m, p, n) / (m, p) / (n,) arrays; a sparse
     one when the reference's (m, w) ``cols`` support is given."""
-    t = lambda a: dev.as_tensor(np.array(a), device=device)  # noqa: E731
+    t = lambda a: _tensor(a, device)  # noqa: E731
     A = t(A_blocks)
     return BlockSystem(
         A, t(b_blocks), None if x_true is None else t(x_true),
@@ -45,7 +59,8 @@ def from_numpy(cls, *fields, device=None):
     reference's per-row (k,) counters after ``solve_many`` — becomes an
     int; a reference ``SparseBlocks`` operand (a NamedTuple with the
     fields vals, cols, span) becomes the port's, with int64 cols.  The
-    sparse factors' compressed Bvals (m, w, p) convert as any array."""
+    sparse factors' compressed Bvals (m, w, p) convert as any array, a
+    bfloat16 one by its bits."""
     def convert(name, a):
         if a is None:
             return None
@@ -55,7 +70,7 @@ def from_numpy(cls, *fields, device=None):
             vals = convert("vals", a.vals)
             return SparseBlocks(vals=vals, cols=_int64(a.cols, vals.device),
                                 span=convert("span", a.span))
-        return dev.as_tensor(np.array(a, order="C"), device=device)
+        return _tensor(a, device)
 
     if len(fields) != len(cls._fields):
         raise ValueError(f"{cls.__name__} has fields {cls._fields}, got "

@@ -16,9 +16,9 @@ shape and strides happens here, before a pointer reaches the kernel.
 They allocate their outputs with ``torch.empty``, launch on the
 operands' device and its current stream, and raise on a nonzero
 ``cudaGetLastError()``.  Each launch adds one to its counter in
-:func:`launch_counts`, so a run can show that it went through the
-kernels.  The plain PyTorch versions and the device dispatch are in
-``ops``.
+:func:`launch_counts`, kept per kernel and dtype pair, so a run can show
+that it went through the kernels, and through which form of each.
+The plain PyTorch versions and the device dispatch are in ``ops``.
 
 The four gathers (``apc_gather``, ``sparse_gather``, ``cimmino_gather``,
 ``sparse_cimmino_gather``) have two instances, one kernel each: the
@@ -26,6 +26,13 @@ The four gathers (``apc_gather``, ``sparse_gather``, ``cimmino_gather``,
 shared-memory ring to consumer warps), and the "row dot" the three
 scatters share.  :func:`gather_instance` picks one by the operands'
 shape and alignment alone, and both count as the same kernel.
+
+Each kernel takes its matrix (A, B, vals or Bvals) in a storage dtype
+beside the compute dtype of the other operands, which is also its
+accumulation and output dtype (the reference's ``_acc_dtype`` follows
+X): float64/float64, float32/float32, and the bf16-stored forms of
+``precision="mixed"``, bfloat16/float64 and bfloat16/float32.  Each
+pair has its own C entries (:data:`PAIRS`).
 """
 from __future__ import annotations
 
@@ -54,7 +61,12 @@ KERNELS = ("apc_gather", "apc_scatter", "cimmino_gather",
 #: the kernels with a ring instance beside the row dot
 GATHERS = ("apc_gather", "cimmino_gather", "sparse_gather",
            "sparse_cimmino_gather")
-_DTYPES = {torch.float64: "f64", torch.float32: "f32"}
+#: the C entries' suffix of each (matrix dtype, compute dtype) pair the
+#: kernels take: <kernel>_<suffix>
+PAIRS = {(torch.float64, torch.float64): "f64",
+         (torch.float32, torch.float32): "f32",
+         (torch.bfloat16, torch.float64): "bf16_f64",
+         (torch.bfloat16, torch.float32): "bf16_f32"}
 
 #: the instances of the four gathers, by the int64 their C entries take
 #: (csrc/block_projection.cu kRowDot, kRing)
@@ -65,13 +77,24 @@ FORMS = {"apc": 0, "cimmino": 1}
 # the ring's copies move 16 bytes between 16-byte-aligned addresses
 _ALIGN = 16
 
-_launches = dict.fromkeys(KERNELS, 0)
+#: launches so far, by (kernel, suffix of its dtype pair's C entry)
+_launches = {(name, suffix): 0 for name in KERNELS
+             for suffix in PAIRS.values()}
 _libs: dict = {}
 
 
-def launch_counts() -> dict:
-    """Kernel launches so far, by kernel name."""
-    return dict(_launches)
+def launch_counts(pair: str | None = None) -> dict:
+    """Kernel launches so far, by kernel name: of every dtype pair, or of
+    the one whose C entries end in ``pair`` (a value of :data:`PAIRS`,
+    "f64", "bf16_f64", ...)."""
+    if pair is not None and pair not in PAIRS.values():
+        raise ValueError(f"unknown dtype pair {pair!r}; expected one of "
+                         f"{sorted(PAIRS.values())}")
+    counts = dict.fromkeys(KERNELS, 0)
+    for (name, suffix), n in _launches.items():
+        if pair in (None, suffix):
+            counts[name] += n
+    return counts
 
 
 def reset_launch_counts() -> None:
@@ -131,8 +154,9 @@ def build(sources=SOURCES) -> dict:
 
 
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
-#: ctypes argument types of each C entry (``<kernel>_f64``/``_f32``), in
-#: the order of the extern "C" signatures in csrc/block_projection.cu
+#: ctypes argument types of each C entry (``<kernel>_<suffix>``, every
+#: suffix of :data:`PAIRS`), in the order of the extern "C" signatures in
+#: csrc/block_projection.cu
 ARGTYPES = {
     # A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k, su_w, su_k, instance,
     # stream
@@ -155,8 +179,9 @@ ARGTYPES = {
     "sparse_scatter": [_PTR] * 5 + [ctypes.c_double, _PTR] + [_I64] * 11
     + [_PTR],
 }
-#: the ring's dynamic shared memory query: (itemsize, k, form) -> bytes
-RING_SMEM_ARGTYPES = [_I64, _I64, _I64]
+#: the ring's dynamic shared memory query: (matrix itemsize, itemsize, k,
+#: form) -> bytes
+RING_SMEM_ARGTYPES = [_I64] * 4
 
 
 def _library() -> ctypes.CDLL:
@@ -164,8 +189,8 @@ def _library() -> ctypes.CDLL:
         return _libs["block_projection"]
     lib = ctypes.CDLL(str(build()["block_projection.cu"]))
     for kernel, argtypes in ARGTYPES.items():
-        for dt in _DTYPES.values():
-            fn = getattr(lib, f"{kernel}_{dt}")
+        for suffix in PAIRS.values():
+            fn = getattr(lib, f"{kernel}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     lib.gather_ring_smem.argtypes = RING_SMEM_ARGTYPES
@@ -174,12 +199,15 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def ring_smem_bytes(dtype: torch.dtype, k: int, form: str) -> int:
+def ring_smem_bytes(matrix_dtype: torch.dtype, dtype: torch.dtype, k: int,
+                    form: str) -> int:
     """Dynamic shared memory of the ring instance of ``form`` ("apc" or
-    "cimmino", a key of :data:`FORMS`) that a k-row batch of ``dtype``
-    launches, in bytes (from the built library)."""
-    return int(_library().gather_ring_smem(
-        torch.empty((), dtype=dtype).element_size(), k, FORMS[form]))
+    "cimmino", a key of :data:`FORMS`) that a k-row batch launches, with
+    its matrix in ``matrix_dtype`` and the compute type ``dtype``, in
+    bytes (from the built library)."""
+    size = lambda dt: torch.empty((), dtype=dt).element_size()  # noqa: E731
+    return int(_library().gather_ring_smem(size(matrix_dtype), size(dtype),
+                                           k, FORMS[form]))
 
 
 def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
@@ -190,8 +218,9 @@ def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
     every base address and row stride of it and of the ``copied``
     operands (``apc_gather``: X and X̄; ``cimmino_gather``: X̄; the
     sparse kernels gather X and X̄ element by element and copy none) —
-    else "row_dot".  Strides of axes of size 1 are never used and do not
-    count.
+    else "row_dot".  Each tensor's strides count in its own element size
+    (a bf16 matrix beside float64 operands).  Strides of axes of size 1
+    are never used and do not count.
 
     ``forced`` names an instance to take instead (chip_smoke.py times
     both at the main path's shapes); forcing "ring" on operands it cannot
@@ -201,13 +230,12 @@ def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
     if forced is not None and forced not in INSTANCES:
         raise ValueError(f"unknown instance {forced!r}; expected one of "
                          f"{sorted(INSTANCES)}")
-    size = matrix.element_size()
     tensors = (matrix, *copied)
-    steps = [matrix.shape[-1]] + [
-        t.stride(i) for t in tensors for i in range(t.dim() - 1)
-        if t.shape[i] > 1]
+    steps = [matrix.shape[-1] * matrix.element_size()] + [
+        t.stride(i) * t.element_size() for t in tensors
+        for i in range(t.dim() - 1) if t.shape[i] > 1]
     fits = matrix.shape[-1] > 0 and all(
-        s * size % _ALIGN == 0 for s in steps) and all(
+        s % _ALIGN == 0 for s in steps) and all(
         t.data_ptr() % _ALIGN == 0 for t in tensors)
     if forced == "ring" and not fits:
         raise ValueError("the ring instance needs 16-byte rows, strides and "
@@ -220,13 +248,14 @@ def _check(name: str, index=None, **operands) -> dict:
 
     ``operands`` maps a label to ``(tensor, axes)``, ``axes`` naming each
     dimension ("mpn", "mkn", "kn", ...): every tensor must be on one CUDA
-    device in one float32/float64 dtype, every axis letter must bind to
-    one size, the first operand (the matrix stack) must be contiguous and
-    the others need a unit stride along their last axis.  ``index`` is
-    the sparse kernels' ``(cols, "mw")``: a contiguous int64 tensor on the
-    same device, whose axes bind like the others'.  Its values are not
-    read here: ``0 <= cols < n`` is checked once, when the sparse system
-    is built, not per launch.
+    device, the first operand (the matrix stack) in the matrix dtype and
+    every other in one compute dtype, a pair of :data:`PAIRS`; every
+    axis letter must bind to one size, the matrix stack must be
+    contiguous and the others need a unit stride along their last axis.
+    ``index`` is the sparse kernels' ``(cols, "mw")``: a contiguous int64
+    tensor on the same device, whose axes bind like the others'.  Its
+    values are not read here: ``0 <= cols < n`` is checked once, when the
+    sparse system is built, not per launch.
     """
     if index is not None:
         cols = index[0]
@@ -242,13 +271,17 @@ def _check(name: str, index=None, **operands) -> dict:
                              f"takes CUDA tensors")
     if len({t.device for t in tensors.values()}) != 1:
         raise ValueError(f"{name}: tensors on different devices")
-    dtypes = {t.dtype for label, t in tensors.items() if label != "cols"}
+    matrix, *rest = [t for label, t in tensors.items() if label != "cols"]
+    dtypes = {t.dtype for t in rest}
     if len(dtypes) != 1:
-        raise TypeError(f"{name}: mixed dtypes {sorted(map(str, dtypes))}; "
-                        f"every operand must share one dtype")
-    if not dtypes <= set(_DTYPES):
-        raise TypeError(f"{name}: dtype {dtypes.pop()} unsupported; the "
-                        f"kernel takes float64 or float32")
+        raise TypeError(f"{name}: operand dtypes "
+                        f"{sorted(map(str, dtypes))}; every operand but "
+                        f"the matrix must share one dtype")
+    pair = (matrix.dtype, dtypes.pop())
+    if pair not in PAIRS:
+        raise TypeError(f"{name}: matrix {pair[0]} with operands {pair[1]} "
+                        f"unsupported; the kernel takes "
+                        + ", ".join(f"{a}/{b}" for a, b in PAIRS))
     sizes: dict = {}
     for i, (label, (t, axes)) in enumerate(operands.items()):
         if t.dim() != len(axes) or any(
@@ -266,14 +299,16 @@ def _check(name: str, index=None, **operands) -> dict:
     return sizes
 
 
-def _launch(name: str, dtype: torch.dtype, device: torch.device,
+def _launch(name: str, matrix: torch.Tensor, out: torch.Tensor,
             *args) -> None:
-    """Launch one C entry on ``device``'s current stream, count it, and
-    raise on a nonzero ``cudaGetLastError()``."""
-    fn = getattr(_library(), f"{name}_{_DTYPES[dtype]}")
-    with torch.cuda.device(device):
+    """Launch the C entry of ``matrix``'s and ``out``'s dtype pair on
+    their device's current stream, count it, and raise on a nonzero
+    ``cudaGetLastError()``."""
+    suffix = PAIRS[(matrix.dtype, out.dtype)]
+    fn = getattr(_library(), f"{name}_{suffix}")
+    with torch.cuda.device(matrix.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launches[name] += 1
+        _launches[(name, suffix)] += 1
         err = fn(*args, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -285,13 +320,13 @@ def apc_gather(A: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor, *,
 
     A (m, p, n) contiguous; X (m, k, n) with unit stride along n (any
     worker/row strides); X̄ (k, n) shared by all workers.  Returns U
-    (m, k, p), contiguous, in A's dtype.  The instance is
+    (m, k, p), contiguous, in X's dtype.  The instance is
     ``gather_instance(A, X, Xbar)``, or ``_instance`` where given.
     """
     d = _check("apc_gather", A=(A, "mpn"), X=(X, "mkn"), Xbar=(Xbar, "kn"))
     instance = gather_instance(A, X, Xbar, forced=_instance)
-    U = torch.empty((d["m"], d["k"], d["p"]), dtype=A.dtype, device=A.device)
-    _launch("apc_gather", A.dtype, A.device, A.data_ptr(), X.data_ptr(),
+    U = torch.empty((d["m"], d["k"], d["p"]), dtype=X.dtype, device=A.device)
+    _launch("apc_gather", A, U, A.data_ptr(), X.data_ptr(),
             Xbar.data_ptr(), U.data_ptr(), d["m"], d["p"], d["n"], d["k"],
             X.stride(0), X.stride(1), Xbar.stride(0), U.stride(0),
             U.stride(1), INSTANCES[instance])
@@ -309,7 +344,7 @@ def apc_scatter(B: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor,
     d = _check("apc_scatter", B=(B, "mnp"), X=(X, "mkn"), Xbar=(Xbar, "kn"),
                U=(U, "mkp"))
     Y = torch.empty_like(X)
-    _launch("apc_scatter", B.dtype, B.device, B.data_ptr(), X.data_ptr(),
+    _launch("apc_scatter", B, Y, B.data_ptr(), X.data_ptr(),
             Xbar.data_ptr(), U.data_ptr(), float(gamma), Y.data_ptr(),
             d["m"], d["n"], d["p"], d["k"], X.stride(0), X.stride(1),
             Xbar.stride(0), U.stride(0), U.stride(1), Y.stride(0),
@@ -322,14 +357,15 @@ def cimmino_gather(A: torch.Tensor, Xbar: torch.Tensor, *,
     """U = X̄·Aᵀ for every worker, in one launch.
 
     A (m, p, n) contiguous; X̄ (k, n) with unit stride along n, shared by
-    all workers.  Returns U (m, k, p), contiguous, in A's dtype.  The
+    all workers.  Returns U (m, k, p), contiguous, in X̄'s dtype.  The
     instance is ``gather_instance(A, Xbar)``, or ``_instance`` where
     given.
     """
     d = _check("cimmino_gather", A=(A, "mpn"), Xbar=(Xbar, "kn"))
     instance = gather_instance(A, Xbar, forced=_instance)
-    U = torch.empty((d["m"], d["k"], d["p"]), dtype=A.dtype, device=A.device)
-    _launch("cimmino_gather", A.dtype, A.device, A.data_ptr(),
+    U = torch.empty((d["m"], d["k"], d["p"]), dtype=Xbar.dtype,
+                    device=A.device)
+    _launch("cimmino_gather", A, U, A.data_ptr(),
             Xbar.data_ptr(), U.data_ptr(), d["m"], d["p"], d["n"], d["k"],
             Xbar.stride(0), U.stride(0), U.stride(1), INSTANCES[instance])
     return U
@@ -340,11 +376,11 @@ def cimmino_scatter(B: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
 
     B (m, n, p) contiguous; V (m, k, p) with unit stride along p (any
     worker/row strides, so the (m, k, p) view of a (k, m, p) batch goes
-    in uncopied).  Returns R (m, k, n), contiguous, in B's dtype.
+    in uncopied).  Returns R (m, k, n), contiguous, in V's dtype.
     """
     d = _check("cimmino_scatter", B=(B, "mnp"), V=(V, "mkp"))
-    R = torch.empty((d["m"], d["k"], d["n"]), dtype=B.dtype, device=B.device)
-    _launch("cimmino_scatter", B.dtype, B.device, B.data_ptr(), V.data_ptr(),
+    R = torch.empty((d["m"], d["k"], d["n"]), dtype=V.dtype, device=B.device)
+    _launch("cimmino_scatter", B, R, B.data_ptr(), V.data_ptr(),
             R.data_ptr(), d["m"], d["n"], d["p"], d["k"], V.stride(0),
             V.stride(1), R.stride(0), R.stride(1))
     return R
@@ -359,15 +395,15 @@ def sparse_gather(vals: torch.Tensor, cols: torch.Tensor, X: torch.Tensor,
     vals (m, p, w) contiguous; cols (m, w) contiguous int64 with values
     in [0, n); X (m, k, n) with unit stride along n (any worker/row
     strides); X̄ (k, n) shared by all workers.  Returns U (m, k, p),
-    contiguous.  The instance is ``gather_instance(vals)``, or
-    ``_instance`` where given.
+    contiguous, in X's dtype.  The instance is ``gather_instance(vals)``,
+    or ``_instance`` where given.
     """
     d = _check("sparse_gather", index=(cols, "mw"), vals=(vals, "mpw"),
                X=(X, "mkn"), Xbar=(Xbar, "kn"))
     instance = gather_instance(vals, forced=_instance)
-    U = torch.empty((d["m"], d["k"], d["p"]), dtype=vals.dtype,
+    U = torch.empty((d["m"], d["k"], d["p"]), dtype=X.dtype,
                     device=vals.device)
-    _launch("sparse_gather", vals.dtype, vals.device, vals.data_ptr(),
+    _launch("sparse_gather", vals, U, vals.data_ptr(),
             cols.data_ptr(), X.data_ptr(), Xbar.data_ptr(), U.data_ptr(),
             d["m"], d["p"], d["w"], d["k"], X.stride(0), X.stride(1),
             Xbar.stride(0), U.stride(0), U.stride(1), INSTANCES[instance])
@@ -381,18 +417,18 @@ def sparse_cimmino_gather(vals: torch.Tensor, cols: torch.Tensor,
 
     vals (m, p, w) contiguous; cols (m, w) contiguous int64 with values
     in [0, n); X̄ (k, n) with unit stride along n.  Returns U (m, k, p),
-    contiguous.  The instance is ``gather_instance(vals)``, or
-    ``_instance`` where given.
+    contiguous, in X̄'s dtype.  The instance is ``gather_instance(vals)``,
+    or ``_instance`` where given.
     """
     d = _check("sparse_cimmino_gather", index=(cols, "mw"),
                vals=(vals, "mpw"), Xbar=(Xbar, "kn"))
     instance = gather_instance(vals, forced=_instance)
-    U = torch.empty((d["m"], d["k"], d["p"]), dtype=vals.dtype,
+    U = torch.empty((d["m"], d["k"], d["p"]), dtype=Xbar.dtype,
                     device=vals.device)
-    _launch("sparse_cimmino_gather", vals.dtype, vals.device,
-            vals.data_ptr(), cols.data_ptr(), Xbar.data_ptr(), U.data_ptr(),
-            d["m"], d["p"], d["w"], d["k"], Xbar.stride(0), U.stride(0),
-            U.stride(1), INSTANCES[instance])
+    _launch("sparse_cimmino_gather", vals, U, vals.data_ptr(),
+            cols.data_ptr(), Xbar.data_ptr(), U.data_ptr(), d["m"], d["p"],
+            d["w"], d["k"], Xbar.stride(0), U.stride(0), U.stride(1),
+            INSTANCES[instance])
     return U
 
 
@@ -423,7 +459,7 @@ def sparse_scatter(Bvals: torch.Tensor, cols: torch.Tensor, U: torch.Tensor,
         if out.data_ptr() == X.data_ptr():
             raise ValueError("sparse_scatter: out must not alias X")
     d = _check("sparse_scatter", index=(cols, "mw"), **operands)
-    _launch("sparse_scatter", Bvals.dtype, Bvals.device, Bvals.data_ptr(),
+    _launch("sparse_scatter", Bvals, out, Bvals.data_ptr(),
             cols.data_ptr(), None if cimmino else X.data_ptr(),
             None if cimmino else Xbar.data_ptr(), U.data_ptr(), float(gamma),
             out.data_ptr(), d["m"], d["w"], d["p"], d["k"],

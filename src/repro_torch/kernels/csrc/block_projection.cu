@@ -103,11 +103,13 @@
 //     waves), and neighbouring tiles share X_w and X̄ in L2.
 //   * streams A (or vals) through a ring of S stages of dynamic shared
 //     memory, 512 bytes of each of the tile's rows a stage (64 f64 or 128
-//     f32 columns), with 16-byte cp.async: no register holds a load.  A
+//     f32 columns; a bf16 matrix: the compute type's columns, see below),
+//     with 16-byte cp.async: no register holds a load.  A
 //     "full" mbarrier per stage counts the 128 producer threads whose
 //     copies have landed (cp.async.mbarrier.arrive), an "empty" one the
 //     consumer warps done reading it.  S is what fits in 200 KiB: 5 or 6
-//     stages, so 128–165 KiB are in flight per SM.
+//     stages, so 128–165 KiB are in flight per SM (bf16: 8 to 16 smaller
+//     stages).
 //   * stages the right operand with the A stage that uses it: the stage's
 //     KC rows of X̄ and, in the APC form, of X (dense: 16 bytes a lane;
 //     sparse: one cp.async of one element a lane at the support column
@@ -142,10 +144,23 @@
 // made once in the Python wrapper (block_projection.gather_instance) and
 // passed to the entry as one int64 (kRowDot or kRing).
 //
-// f64 accumulates in f64, f32 in f32 (FFMA; no tensor cores, no TF32),
-// with A/B in the same type as the right operand; the wrapper rejects
-// anything else.  Every entry returns cudaGetLastError() after its launch.
+// Two types name every kernel: the matrix type TM of A, B, vals and
+// Bvals, and the compute type T of X, X̄, U, V, Y, R and the
+// accumulators.  f64 accumulates in f64, f32 in f32 (DFMA/FFMA; no
+// tensor cores, no TF32).  The entries <kernel>_f64 and <kernel>_f32
+// take TM = T; <kernel>_bf16_f64 and <kernel>_bf16_f32 take a bf16
+// matrix (the reference's precision="mixed": the accumulation type
+// follows X, not the stored A/B).  The consumer widens each element of
+// the matrix to T once, exactly (bf16 ⊂ f32 ⊂ f64), and feeds the
+// widened value to all KC batch rows.  The ring sizes its stage by the
+// compute type: C = 512 / sizeof(T) columns a stage, so the operand's
+// rows are 512 bytes as in the f64/f32 rings, and the matrix's rows
+// C·sizeof(TM) bytes (128 for bf16/f64, 256 for bf16/f32); the stages
+// are smaller, so more of them fit (at most kRingMaxStages).  The
+// wrapper rejects every other pair.  Every entry returns
+// cudaGetLastError() after its launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -158,6 +173,30 @@ __host__ __device__ constexpr int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
+// An element of the matrix in the compute type: exact, as bf16 ⊂ f32 ⊂
+// f64.
+template <typename T, typename TM>
+__device__ __forceinline__ T widen(TM x) {
+  return static_cast<T>(x);
+}
+
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(
+    __nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// bf16 -> f64 through f32 (F2F.F64.F32).  A probe on the card timed two
+// integer constructions of the f64 bits against it (the f32 bits shifted
+// into the f64 fields and rescaled by 2^896 in one exact multiply; the
+// exponent rebiased, zeros and subnormals on a branch): both were slower
+// in the ring gathers at k = 1 and k = 8 (PERF.md).
+template <>
+__device__ __forceinline__ double widen<double, __nv_bfloat16>(
+    __nv_bfloat16 x) {
+  return static_cast<double>(__bfloat162float(x));
+}
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 256;                            // staged columns
@@ -166,11 +205,16 @@ constexpr int kChunk = 256;                            // staged columns
 // at 128 registers a thread.  Left to itself ptxas gave even the k = 1
 // gather 141 registers, one block per SM, and too few loads in flight to
 // reach the HBM rate (PERF.md).  A warp owns R rows of M and holds R x KC
-// accumulators: R = 4, except R = 2 for the KC = 8 scatters, which spill
-// under the cap at R = 4.
+// accumulators: R = 4, except R = 2 for the f64 and f32 KC = 8 scatters,
+// which spill under the cap at R = 4.  The bf16 (packed) scatters fit
+// R = 4 at KC = 8 (no spill), and each read of the staged operand then
+// feeds four rows: faster than R = 2 in a probe on the card
+// (PERF.md).
 constexpr int kMinBlocks = 2;
-template <int KC>
-constexpr int scatter_rows() { return KC >= 8 ? 2 : 4; }
+template <typename TM, int KC>
+constexpr int scatter_rows() {
+  return KC >= 8 && sizeof(TM) != 2 ? 2 : 4;
+}
 constexpr int kGatherRows = 4;
 
 // The ring instance of the gathers (header): 64-row tiles, 8 rows per
@@ -186,28 +230,55 @@ constexpr int kRingWarpRows = 8;
 constexpr int kRingRows = kRingWarps * kRingWarpRows;
 constexpr int kRingLoaders = 4;                    // producer warps
 constexpr int kRingThreads = 32 * (kRingWarps + kRingLoaders);
-constexpr int kRingSegment = 512;                  // bytes of a row a stage
+constexpr int kRingSegment = 512;       // bytes of an operand row a stage
 constexpr int kRingBudget = 200 * 1024;
+constexpr int kRingMaxStages = 16;
 
-template <typename T, int KC, bool kDiff>
+// A stage holds C = kCols columns: M[kRingRows][kCols] in TM, then
+// X̄[KC][kCols] and, under kDiff, X[KC][kCols] in T (kOperandRows rows
+// of the right operand, 512 bytes each).  A matrix row segment is
+// kPieces 16-byte copies.
+template <typename TM, typename T, int KC, bool kDiff>
 struct Ring {
   static constexpr int kCols = kRingSegment / sizeof(T);
-  // a stage: M[kRingRows][kCols], then X̄[KC][kCols] and, under kDiff,
-  // X[KC][kCols]: kOperandRows rows of the right operand
+  static constexpr int kRowBytes = kCols * sizeof(TM);
+  static constexpr int kPieces = kRowBytes / 16;
+  static constexpr int kMatrixBytes = kRingRows * kRowBytes;
   static constexpr int kOperandRows = (kDiff ? 2 : 1) * KC;
   static constexpr int kStageBytes =
-      (kRingRows + kOperandRows) * kRingSegment;
-  static constexpr int kStages = kRingBudget / kStageBytes;
+      kMatrixBytes + kOperandRows * kRingSegment;
+  static constexpr int kStages =
+      static_cast<int>(min64(kRingBudget / kStageBytes, kRingMaxStages));
   static constexpr int kSmem = kStages * kStageBytes;
-  static_assert(kStages >= 2 && kCols % 32 == 0, "ring shape");
+  static_assert(kStages >= 2 && kCols % 32 == 0 && 32 % kPieces == 0,
+                "ring shape");
 };
+
+// A packed row dot (the bf16 scatters) loads 16 bytes of a row a lane:
+// lane l takes the kPack consecutive columns c0 + kPack·l ... of each
+// 256-column chunk, and the staged operand is stored permuted, column
+// c0 + kPack·l + j at Vs[kk][32·j + l], so the lanes read it without bank
+// conflicts.  The scalar row dot's lane l takes the columns ≡ l (mod 32),
+// in the ring's order (the gathers' two instances are bit-identical);
+// with 2-byte elements it issues four times the loads per byte of f64
+// and was bound by them (PERF.md).  No ring copies a scatter's
+// matrix, so its order is free.
+constexpr int kPack = 16 / sizeof(__nv_bfloat16);
+static_assert(kChunk == 32 * kPack, "one pack a lane a chunk");
+
+__device__ __forceinline__ int packed_slot(int c) {
+  return (c % kPack) * 32 + c / kPack;
+}
 
 // Per-lane partial dot products of this warp's R rows of the
 // row-major (rows x cols) matrix M with the KC staged right-operand rows,
 // reduced over the lanes at the end.  `stage(c0, Vs)` fills
-// Vs[kk][c] = V[kk][c0 + c], zero outside the valid range.
-template <typename T, int KC, int R, typename Stage>
-__device__ __forceinline__ void row_dot(const T* __restrict__ M,
+// Vs[kk][c] = V[kk][c0 + c] (Vs[kk][packed_slot(c)] under kPacked), zero
+// outside the valid range.  Each loaded element of M is widened to T once
+// and feeds KC FMAs.
+template <typename TM, typename T, int KC, int R, bool kPacked,
+          typename Stage>
+__device__ __forceinline__ void row_dot(const TM* __restrict__ M,
                                         int64_t rows, int64_t cols,
                                         int64_t row0, Stage stage,
                                         T (*Vs)[kChunk],
@@ -220,10 +291,43 @@ __device__ __forceinline__ void row_dot(const T* __restrict__ M,
     for (int kk = 0; kk < KC; ++kk) acc[r][kk] = T(0);
 
   const int64_t wrow0 = row0 + warp * R;
+  // 16-byte loads need 16-byte rows at a 16-byte-aligned base
+  [[maybe_unused]] const bool aligned =
+      cols * static_cast<int64_t>(sizeof(TM)) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(M) % 16 == 0;
   for (int64_t c0 = 0; c0 < cols; c0 += kChunk) {
     __syncthreads();                 // the previous chunk is consumed
     stage(c0, Vs);
     __syncthreads();
+    if constexpr (kPacked) {
+      static_assert(sizeof(TM) * kPack == 16, "a pack is 16 bytes");
+      const int64_t col = c0 + kPack * lane;
+      uint4 raw[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int64_t row = wrow0 + r;
+        const TM* src = M + row * cols + col;
+        if (row < rows && aligned && col + kPack <= cols) {
+          raw[r] = *reinterpret_cast<const uint4*>(src);
+        } else {
+          TM* e = reinterpret_cast<TM*>(&raw[r]);
+#pragma unroll
+          for (int j = 0; j < kPack; ++j)
+            e[j] = (row < rows && col + j < cols) ? src[j] : TM(0.0f);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kPack; ++j) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const T a = widen<T>(reinterpret_cast<const TM*>(&raw[r])[j]);
+#pragma unroll
+          for (int kk = 0; kk < KC; ++kk)
+            acc[r][kk] = fma(a, Vs[kk][32 * j + lane], acc[r][kk]);
+        }
+      }
+      continue;
+    }
 #pragma unroll
     for (int i = 0; i < kChunk / 32; ++i) {
       const int c = lane + 32 * i;
@@ -232,7 +336,8 @@ __device__ __forceinline__ void row_dot(const T* __restrict__ M,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int64_t row = wrow0 + r;
-        a[r] = (row < rows && col < cols) ? M[row * cols + col] : T(0);
+        a[r] = (row < rows && col < cols) ? widen<T>(M[row * cols + col])
+                                          : T(0);
       }
 #pragma unroll
       for (int kk = 0; kk < KC; ++kk) {
@@ -281,8 +386,9 @@ struct StageXbar {
   }
 };
 
-// Scatter staging: Vs[kk][c] = U[w, i, c0 + c] (or V for Cimmino).
-template <typename T, int KC>
+// Scatter staging: Vs[kk][c] = U[w, i, c0 + c] (or V for Cimmino), at
+// Vs[kk][packed_slot(c)] for a packed row dot.
+template <typename T, int KC, bool kPacked>
 struct StageU {
   const T* U;
   int64_t p, kvalid, su_k;
@@ -291,7 +397,8 @@ struct StageU {
       const int kk = idx / kChunk;
       const int c = idx % kChunk;
       const int64_t col = c0 + c;
-      Vs[kk][c] = (kk < kvalid && col < p) ? U[kk * su_k + col] : T(0);
+      Vs[kk][kPacked ? packed_slot(c) : c] =
+          (kk < kvalid && col < p) ? U[kk * su_k + col] : T(0);
     }
   }
 };
@@ -300,9 +407,9 @@ struct StageU {
 // block's 8 R rows l of A_w (p x n; vals_w, p x w, under kSparse)
 // against the X̄-staged operand.
 // grid (ceil(p / (8 R)), m, ceil(k / KC))
-template <typename T, int KC, int R, bool kDiff, bool kSparse>
+template <typename TM, typename T, int KC, int R, bool kDiff, bool kSparse>
 __device__ __forceinline__ void gather_block(
-    const T* __restrict__ A, const T* __restrict__ X,
+    const TM* __restrict__ A, const T* __restrict__ X,
     const T* __restrict__ Xbar, const int64_t* __restrict__ cols,
     T* __restrict__ U, int64_t p, int64_t n, int64_t k, int64_t sx_w,
     int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
@@ -315,7 +422,7 @@ __device__ __forceinline__ void gather_block(
       kDiff ? X + w * sx_w + k0 * sx_k : X, Xbar + k0 * sxb_k,
       kSparse ? cols + w * n : cols, n, kvalid, sx_k, sxb_k};
   T acc[R][KC];
-  row_dot<T, KC, R>(A + w * p * n, p, n, row0, stage, Vs, acc);
+  row_dot<TM, T, KC, R, false>(A + w * p * n, p, n, row0, stage, Vs, acc);
   if (threadIdx.x % 32 != 0) return;
   const int64_t wrow0 = row0 + (threadIdx.x / 32) * R;
   T* Uw = U + w * su_w + k0 * su_k;
@@ -332,9 +439,9 @@ __device__ __forceinline__ void gather_block(
 // coalesced along j) or cols[w, j] (kSparse): Y = X + γ((X̄ − X) − B·U)
 // under kAxpy (APC), Y = B·V otherwise (Cimmino; X and X̄ unused).
 // grid (ceil(n / (8 R)), m, ceil(k / KC))
-template <typename T, int KC, int R, bool kAxpy, bool kSparse>
+template <typename TM, typename T, int KC, int R, bool kAxpy, bool kSparse>
 __device__ __forceinline__ void scatter_block(
-    const T* __restrict__ B, const int64_t* __restrict__ cols,
+    const TM* __restrict__ B, const int64_t* __restrict__ cols,
     const T* __restrict__ X, const T* __restrict__ Xbar,
     const T* __restrict__ U, T gamma, T* __restrict__ Y, int64_t n,
     int64_t p, int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
@@ -344,9 +451,12 @@ __device__ __forceinline__ void scatter_block(
   const int64_t k0 = static_cast<int64_t>(blockIdx.z) * KC;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (kWarps * R);
   const int64_t kvalid = k - k0 < KC ? k - k0 : KC;
-  StageU<T, KC> stage{U + w * su_w + k0 * su_k, p, kvalid, su_k};
+  // a bf16 matrix takes the packed row dot
+  constexpr bool kPacked = sizeof(TM) * kPack == 16;
+  StageU<T, KC, kPacked> stage{U + w * su_w + k0 * su_k, p, kvalid, su_k};
   T acc[R][KC];
-  row_dot<T, KC, R>(B + w * n * p, n, p, row0, stage, Vs, acc);
+  row_dot<TM, T, KC, R, kPacked>(B + w * n * p, n, p, row0, stage, Vs,
+                                 acc);
   if (threadIdx.x % 32 == 0) {
     const int wr = (threadIdx.x / 32) * R;
 #pragma unroll
@@ -373,84 +483,84 @@ __device__ __forceinline__ void scatter_block(
   }
 }
 
-template <typename T, int KC, int R>
+template <typename TM, typename T, int KC, int R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-apc_gather_kernel(const T* __restrict__ A, const T* __restrict__ X,
+apc_gather_kernel(const TM* __restrict__ A, const T* __restrict__ X,
                   const T* __restrict__ Xbar, T* __restrict__ U,
                   int64_t p, int64_t n, int64_t k, int64_t sx_w,
                   int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k) {
   __shared__ T Vs[KC][kChunk];
-  gather_block<T, KC, R, true, false>(A, X, Xbar, nullptr, U, p, n, k,
+  gather_block<TM, T, KC, R, true, false>(A, X, Xbar, nullptr, U, p, n, k,
                                       sx_w, sx_k, sxb_k, su_w, su_k, Vs);
 }
 
-template <typename T, int KC, int R>
+template <typename TM, typename T, int KC, int R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-cimmino_gather_kernel(const T* __restrict__ A, const T* __restrict__ Xbar,
+cimmino_gather_kernel(const TM* __restrict__ A, const T* __restrict__ Xbar,
                       T* __restrict__ U, int64_t p, int64_t n, int64_t k,
                       int64_t sxb_k, int64_t su_w, int64_t su_k) {
   __shared__ T Vs[KC][kChunk];
-  gather_block<T, KC, R, false, false>(A, nullptr, Xbar, nullptr, U, p, n,
+  gather_block<TM, T, KC, R, false, false>(A, nullptr, Xbar, nullptr, U, p, n,
                                        k, 0, 0, sxb_k, su_w, su_k, Vs);
 }
 
-template <typename T, int KC, int R>
+template <typename TM, typename T, int KC, int R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-apc_scatter_kernel(const T* __restrict__ B, const T* __restrict__ X,
+apc_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ X,
                    const T* __restrict__ Xbar, const T* __restrict__ U,
                    T gamma, T* __restrict__ Y, int64_t n, int64_t p,
                    int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                    int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
   __shared__ T Vs[KC][kChunk];
   __shared__ T Cs[KC][kWarps * R];        // the reduced B·U per row
-  scatter_block<T, KC, R, true, false>(B, nullptr, X, Xbar, U, gamma, Y, n,
+  scatter_block<TM, T, KC, R, true, false>(B, nullptr, X, Xbar, U, gamma, Y, n,
                                        p, k, sx_w, sx_k, sxb_k, su_w, su_k,
                                        sy_w, sy_k, Vs, Cs);
 }
 
-template <typename T, int KC, int R>
+template <typename TM, typename T, int KC, int R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-cimmino_scatter_kernel(const T* __restrict__ B, const T* __restrict__ V,
+cimmino_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ V,
                        T* __restrict__ Rout, int64_t n, int64_t p,
                        int64_t k, int64_t sv_w, int64_t sv_k, int64_t sr_w,
                        int64_t sr_k) {
   __shared__ T Vs[KC][kChunk];
   __shared__ T Cs[KC][kWarps * R];        // the reduced B·V per row
-  scatter_block<T, KC, R, false, false>(B, nullptr, nullptr, nullptr, V,
+  scatter_block<TM, T, KC, R, false, false>(B, nullptr, nullptr, nullptr, V,
                                         T(0), Rout, n, p, k, 0, 0, 0, sv_w,
                                         sv_k, sr_w, sr_k, Vs, Cs);
 }
 
 // The sparse kernels: w is the support width, the row-dot's column count
 // (gathers) or row count (scatters).
-template <typename T, int KC, int R>
+template <typename TM, typename T, int KC, int R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-sparse_gather_kernel(const T* __restrict__ vals,
+sparse_gather_kernel(const TM* __restrict__ vals,
                      const int64_t* __restrict__ cols,
                      const T* __restrict__ X, const T* __restrict__ Xbar,
                      T* __restrict__ U, int64_t p, int64_t w, int64_t k,
                      int64_t sx_w, int64_t sx_k, int64_t sxb_k, int64_t su_w,
                      int64_t su_k) {
   __shared__ T Vs[KC][kChunk];
-  gather_block<T, KC, R, true, true>(vals, X, Xbar, cols, U, p, w, k, sx_w,
+  gather_block<TM, T, KC, R, true, true>(vals, X, Xbar, cols, U, p, w, k, sx_w,
                                      sx_k, sxb_k, su_w, su_k, Vs);
 }
 
-template <typename T, int KC, int R>
+template <typename TM, typename T, int KC, int R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-sparse_cimmino_gather_kernel(const T* __restrict__ vals,
+sparse_cimmino_gather_kernel(const TM* __restrict__ vals,
                              const int64_t* __restrict__ cols,
                              const T* __restrict__ Xbar, T* __restrict__ U,
                              int64_t p, int64_t w, int64_t k, int64_t sxb_k,
                              int64_t su_w, int64_t su_k) {
   __shared__ T Vs[KC][kChunk];
-  gather_block<T, KC, R, false, true>(vals, nullptr, Xbar, cols, U, p, w,
+  gather_block<TM, T, KC, R, false, true>(vals, nullptr, Xbar, cols, U, p, w,
                                       k, 0, 0, sxb_k, su_w, su_k, Vs);
 }
 
-template <typename T, int KC, int R, bool kAxpy>
+template <typename TM, typename T, int KC, int R, bool kAxpy>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-sparse_scatter_kernel(const T* __restrict__ Bvals,
+sparse_scatter_kernel(const TM* __restrict__ Bvals,
                       const int64_t* __restrict__ cols,
                       const T* __restrict__ X, const T* __restrict__ Xbar,
                       const T* __restrict__ U, T gamma, T* __restrict__ Y,
@@ -459,7 +569,7 @@ sparse_scatter_kernel(const T* __restrict__ Bvals,
                       int64_t su_k, int64_t sy_w, int64_t sy_k) {
   __shared__ T Vs[KC][kChunk];
   __shared__ T Cs[KC][kWarps * R];        // the reduced Bvals·U per row
-  scatter_block<T, KC, R, kAxpy, true>(Bvals, cols, X, Xbar, U, gamma, Y, w,
+  scatter_block<TM, T, KC, R, kAxpy, true>(Bvals, cols, X, Xbar, U, gamma, Y, w,
                                        p, k, sx_w, sx_k, sxb_k, su_w, su_k,
                                        sy_w, sy_k, Vs, Cs);
 }
@@ -532,7 +642,6 @@ struct RingWalk {
 // The ring's shared memory: the stages (dynamic), their full and empty
 // barriers, and each consumer warp's walk.  Declared here, their
 // addresses are constants: no register holds them.
-constexpr int kRingMaxStages = 8;
 extern __shared__ __align__(128) unsigned char ring_smem[];
 __shared__ __align__(8) uint64_t ring_full[kRingMaxStages];
 __shared__ __align__(8) uint64_t ring_empty[kRingMaxStages];
@@ -569,35 +678,41 @@ __device__ __forceinline__ void ring_cols(int64_t (&g)[C / 32],
 }
 
 // A producer warp (pw of kRingLoaders): for every chunk of the tile, wait
-// for its stage to empty, then copy its share into it — rows pw, pw + 4,
-// ... of the tile's rows of M (16 bytes a lane) and rows q = pw,
-// pw + 4, ... of the right operand's KC (Cimmino) or 2·KC (kDiff) rows
-// (X̄ row q, or X row q − KC; dense: 16 bytes a lane, sparse: one
-// element a lane at its support column) — and arrive on the stage's full
-// barrier once they have landed.  Under kSparse, `g` holds the support
-// columns of the step and is refilled with the next step's (the next
-// tile's first, of worker next_w, after the last chunk): each index is
-// read a step before the copies that need it.  `it` counts the block's
-// (tile, chunk) steps: stage it % S, round it / S.
-template <typename T, int KC, bool kDiff, bool kSparse>
+// for its stage to empty, then copy its share into it — rows of M (16
+// bytes a lane; a row segment is kPieces copies, so a warp copies
+// 32 / kPieces rows at once: rows pw, pw + 4, ... in f64 and f32) and
+// rows q = pw, pw + 4, ... of the right operand's KC (Cimmino) or 2·KC
+// (kDiff) rows (X̄ row q, or X row q − KC; dense: 16 bytes a lane,
+// sparse: one element a lane at its support column) — and arrive on the
+// stage's full barrier once they have landed.  Under kSparse, `g` holds
+// the support columns of the step and is refilled with the next step's
+// (the next tile's first, of worker next_w, after the last chunk): each
+// index is read a step before the copies that need it.  `it` counts the
+// block's (tile, chunk) steps: stage it % S, round it / S.
+template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
 __device__ __forceinline__ void ring_produce(
     const RingTile& tl, int64_t next_w,
-    int64_t (&g)[Ring<T, KC, kDiff>::kCols / 32], const T* __restrict__ M,
-    const int64_t* __restrict__ cols, const T* __restrict__ X,
-    const T* __restrict__ Xbar, int64_t p, int64_t n, int64_t sx_w,
-    int64_t sx_k, int64_t sxb_k, uint32_t& it) {
-  using Cfg = Ring<T, KC, kDiff>;
+    int64_t (&g)[Ring<TM, T, KC, kDiff>::kCols / 32],
+    const TM* __restrict__ M, const int64_t* __restrict__ cols,
+    const T* __restrict__ X, const T* __restrict__ Xbar, int64_t p,
+    int64_t n, int64_t sx_w, int64_t sx_k, int64_t sxb_k, uint32_t& it) {
+  using Cfg = Ring<TM, T, KC, kDiff>;
   constexpr int C = Cfg::kCols;
-  constexpr int kPer = 16 / sizeof(T);               // elements a piece
+  constexpr int kPer = 16 / sizeof(T);           // operand elements a piece
+  constexpr int kMPer = 16 / sizeof(TM);         // matrix elements a piece
+  constexpr int kRowsAtOnce = 32 / Cfg::kPieces;
   const int pw = threadIdx.x / 32 - kRingWarps;
   const int lane = threadIdx.x % 32;
-  const T* Mt = M + (tl.w * p + tl.row0) * n + lane * kPer;
+  const int piece = lane % Cfg::kPieces;
+  const TM* Mt = M + (tl.w * p + tl.row0) * n + piece * kMPer;
   for (int64_t c0 = 0; c0 < n; c0 += C, ++it) {
     const int s = it % Cfg::kStages;
     const int nv = static_cast<int>(min64(n - c0, C));
-    const int pieces = nv * static_cast<int>(sizeof(T)) / 16;
-    T* Ms = reinterpret_cast<T*>(ring_smem + s * Cfg::kStageBytes);
-    T* XBs = Ms + kRingRows * C;
+    const int mpieces = nv * static_cast<int>(sizeof(TM)) / 16;
+    const int opieces = nv * static_cast<int>(sizeof(T)) / 16;
+    unsigned char* stage = ring_smem + s * Cfg::kStageBytes;
+    TM* Ms = reinterpret_cast<TM*>(stage);
+    T* XBs = reinterpret_cast<T*>(stage + Cfg::kMatrixBytes);
     T* Xs = XBs + KC * C;
     mbar_wait(&ring_empty[s], ((it / Cfg::kStages) & 1) ^ 1);
     int64_t gc[C / 32] = {};
@@ -609,9 +724,10 @@ __device__ __forceinline__ void ring_produce(
       else if (next_w >= 0)
         ring_cols<C>(g, cols, next_w, 0, n);
     }
-    if (lane < pieces)
-      for (int r = pw; r < tl.rows; r += kRingLoaders)
-        cp_async16(Ms + r * C + lane * kPer, Mt + r * n + c0);
+    if (piece < mpieces)
+      for (int r = pw * kRowsAtOnce + lane / Cfg::kPieces; r < tl.rows;
+           r += kRingLoaders * kRowsAtOnce)
+        cp_async16(Ms + r * C + piece * kMPer, Mt + r * n + c0);
     for (int q = pw; q < Cfg::kOperandRows; q += kRingLoaders) {
       const int kk = q % KC;
       if (kk >= tl.kvalid) continue;
@@ -623,7 +739,7 @@ __device__ __forceinline__ void ring_produce(
         for (int j = 0; j < C / 32; ++j)
           if (lane + 32 * j < nv)
             cp_async_element(dst + lane + 32 * j, src + gc[j]);
-      } else if (lane < pieces) {
+      } else if (lane < opieces) {
         cp_async16(dst + lane * kPer, src + c0 + lane * kPer);
       }
     }
@@ -631,25 +747,48 @@ __device__ __forceinline__ void ring_produce(
   }
 }
 
-// Column c of a stage against a consumer warp's 8 rows, for the batch
-// rows K0 .. K1 − 1: the operand is X̄ − X (kDiff) or X̄.
-template <typename T, int KC, int C, bool kDiff, int K0 = 0, int K1 = KC>
-__device__ __forceinline__ void ring_column(const T* Ms, const T* XBs,
-                                            const T* Xs, int c,
-                                            T (&acc)[kRingWarpRows][KC]) {
-  T d[K1 - K0];
+// The operand at column c of a stage for the batch rows K0 .. K1 − 1:
+// X̄ − X (kDiff) or X̄.
+template <typename T, int KC, int C, bool kDiff, int K0, int K1>
+__device__ __forceinline__ void ring_operand(const T* XBs, const T* Xs,
+                                             int c, T (&d)[K1 - K0]) {
 #pragma unroll
   for (int kk = K0; kk < K1; ++kk) {
     d[kk - K0] = XBs[kk * C + c];
     if constexpr (kDiff) d[kk - K0] -= Xs[kk * C + c];
   }
+}
+
+// Column c of a stage against a consumer warp's 8 rows, for the batch
+// rows K0 .. K1 − 1; each element of M widened to T as it is read.
+template <typename TM, typename T, int KC, int C, bool kDiff, int K0 = 0,
+          int K1 = KC>
+__device__ __forceinline__ void ring_column(const TM* Ms, const T* XBs,
+                                            const T* Xs, int c,
+                                            T (&acc)[kRingWarpRows][KC]) {
+  T d[K1 - K0];
+  ring_operand<T, KC, C, kDiff, K0, K1>(XBs, Xs, c, d);
 #pragma unroll
   for (int r = 0; r < kRingWarpRows; ++r) {
-    const T a = Ms[r * C + c];
+    const T a = widen<T>(Ms[r * C + c]);
 #pragma unroll
     for (int kk = K0; kk < K1; ++kk)
       acc[r][kk] = fma(a, d[kk - K0], acc[r][kk]);
   }
+}
+
+// The same against the column of M already widened.
+template <typename T, int KC, int C, bool kDiff, int K0, int K1>
+__device__ __forceinline__ void ring_column_widened(
+    const T (&a)[kRingWarpRows], const T* XBs, const T* Xs, int c,
+    T (&acc)[kRingWarpRows][KC]) {
+  T d[K1 - K0];
+  ring_operand<T, KC, C, kDiff, K0, K1>(XBs, Xs, c, d);
+#pragma unroll
+  for (int r = 0; r < kRingWarpRows; ++r)
+#pragma unroll
+    for (int kk = K0; kk < K1; ++kk)
+      acc[r][kk] = fma(a[r], d[kk - K0], acc[r][kk]);
 }
 
 // A consumer warp's columns of one stage: lane l takes the stage's
@@ -658,32 +797,38 @@ __device__ __forceinline__ void ring_column(const T* Ms, const T* XBs,
 // for a second column's loads: that loop is not unrolled.  Nor, in the
 // APC form, for the 16 loads of X̄ and X behind the 8 values of X̄ − X:
 // it takes each column in two halves of the batch rows, reading the
-// column of A twice.  The Cimmino form loads only the 8 values of X̄ and
+// column of A twice; a bf16 A is widened once, into 8 registers, before
+// the two halves.  The Cimmino form loads only the 8 values of X̄ and
 // takes a column in one pass.
-template <typename T, int KC, int C, bool kDiff, bool kRagged>
-__device__ __forceinline__ void ring_columns(const T* Ms, const T* XBs,
+template <typename TM, typename T, int KC, int C, bool kDiff, bool kRagged>
+__device__ __forceinline__ void ring_columns(const TM* Ms, const T* XBs,
                                              const T* Xs, int nv,
                                              T (&acc)[kRingWarpRows][KC]) {
   const int lane = threadIdx.x % 32;
   if constexpr (KC * sizeof(T) >= 64) {
 #pragma unroll 1
     for (int c = lane; c < (kRagged ? nv : C); c += 32) {
-      if constexpr (kDiff) {
-        ring_column<T, KC, C, kDiff, 0, KC / 2>(Ms, XBs, Xs, c, acc);
-        ring_column<T, KC, C, kDiff, KC / 2, KC>(Ms, XBs, Xs, c, acc);
+      if constexpr (kDiff && std::is_same_v<TM, T>) {
+        ring_column<TM, T, KC, C, kDiff, 0, KC / 2>(Ms, XBs, Xs, c, acc);
+        ring_column<TM, T, KC, C, kDiff, KC / 2, KC>(Ms, XBs, Xs, c, acc);
+      } else if constexpr (kDiff) {
+        T a[kRingWarpRows];
+#pragma unroll
+        for (int r = 0; r < kRingWarpRows; ++r) a[r] = widen<T>(Ms[r * C + c]);
+        ring_column_widened<T, KC, C, kDiff, 0, KC / 2>(a, XBs, Xs, c, acc);
+        ring_column_widened<T, KC, C, kDiff, KC / 2, KC>(a, XBs, Xs, c, acc);
       } else {
-        ring_column<T, KC, C, kDiff>(Ms, XBs, Xs, c, acc);
+        ring_column<TM, T, KC, C, kDiff>(Ms, XBs, Xs, c, acc);
       }
     }
   } else {
 #pragma unroll
     for (int i = 0; i < C / 32; ++i) {
       if (kRagged && lane + 32 * i >= nv) break;
-      ring_column<T, KC, C, kDiff>(Ms, XBs, Xs, lane + 32 * i, acc);
+      ring_column<TM, T, KC, C, kDiff>(Ms, XBs, Xs, lane + 32 * i, acc);
     }
   }
 }
-
 
 // A consumer warp, over the rows [g, end): for each tile, its 8 rows
 // against every chunk as it lands, then the row dot's shuffle tree and
@@ -691,12 +836,12 @@ __device__ __forceinline__ void ring_columns(const T* Ms, const T* XBs,
 // still waits for and releases every stage, so the empty barriers count
 // all 8 warps.  Its place in the walk waits in shared memory while the
 // accumulators hold the registers.
-template <typename T, int KC, bool kDiff>
+template <typename TM, typename T, int KC, bool kDiff>
 __device__ __forceinline__ void ring_consume(int64_t g, int64_t end,
                                              T* __restrict__ U, int64_t p,
                                              int64_t n, int64_t k,
                                              int64_t su_w, int64_t su_k) {
-  using Cfg = Ring<T, KC, kDiff>;
+  using Cfg = Ring<TM, T, KC, kDiff>;
   constexpr int C = Cfg::kCols;
   constexpr int R = kRingWarpRows;
   RingWalk* walk = &ring_walks[threadIdx.x / 32];
@@ -729,18 +874,18 @@ __device__ __forceinline__ void ring_consume(int64_t g, int64_t end,
       for (int kk = 0; kk < KC; ++kk) acc[r][kk] = T(0);
     for (int64_t c0 = 0; c0 < n; c0 += C, ++it) {
       const int s = it % Cfg::kStages;
-      const T* Ms =
-          reinterpret_cast<const T*>(ring_smem + s * Cfg::kStageBytes);
-      const T* XBs = Ms + kRingRows * C;
+      const unsigned char* stage = ring_smem + s * Cfg::kStageBytes;
+      const TM* Ms = reinterpret_cast<const TM*>(stage);
+      const T* XBs = reinterpret_cast<const T*>(stage + Cfg::kMatrixBytes);
       const T* Xs = XBs + KC * C;
       mbar_wait(&ring_full[s], (it / Cfg::kStages) & 1);
       if (active) {
         if (c0 + C <= n)
-          ring_columns<T, KC, C, kDiff, false>(Ms + r0 * C, XBs, Xs, C,
-                                               acc);
+          ring_columns<TM, T, KC, C, kDiff, false>(Ms + r0 * C, XBs, Xs, C,
+                                                   acc);
         else
-          ring_columns<T, KC, C, kDiff, true>(Ms + r0 * C, XBs, Xs,
-                                              static_cast<int>(n - c0), acc);
+          ring_columns<TM, T, KC, C, kDiff, true>(
+              Ms + r0 * C, XBs, Xs, static_cast<int>(n - c0), acc);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&ring_empty[s]);
@@ -771,14 +916,13 @@ __device__ __forceinline__ void ring_consume(int64_t g, int64_t end,
 // X̄[i, g_j] alone otherwise, X unused) with g_j = j (dense: M = A) or
 // cols[w, j] (kSparse: M = vals, n = w).  Warps 0..7 compute, warps
 // 8..11 copy; both walk the block's tiles.
-template <typename T, int KC, bool kDiff, bool kSparse>
+template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
 __device__ __forceinline__ void gather_ring(
-    const T* __restrict__ M, const int64_t* __restrict__ cols,
+    const TM* __restrict__ M, const int64_t* __restrict__ cols,
     const T* __restrict__ X, const T* __restrict__ Xbar, T* __restrict__ U,
     int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
     int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  using Cfg = Ring<T, KC, kDiff>;
-  static_assert(Cfg::kStages <= kRingMaxStages, "ring barriers");
+  using Cfg = Ring<TM, T, KC, kDiff>;
   if (threadIdx.x == 0) {
     for (int s = 0; s < Cfg::kStages; ++s) {
       mbar_init(&ring_full[s], 32 * kRingLoaders);  // every producer thread
@@ -799,7 +943,7 @@ __device__ __forceinline__ void gather_ring(
     while (g < end) {
       const int64_t gn = g + tl.rows;
       const RingTile next = gn < end ? ring_tile<KC>(gn, end, p, k) : tl;
-      ring_produce<T, KC, kDiff, kSparse>(tl, gn < end ? next.w : -1, cg, M,
+      ring_produce<TM, T, KC, kDiff, kSparse>(tl, gn < end ? next.w : -1, cg, M,
                                           cols, X, Xbar, p, n, sx_w, sx_k,
                                           sxb_k, it);
       g = gn;
@@ -807,53 +951,53 @@ __device__ __forceinline__ void gather_ring(
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   } else {
-    ring_consume<T, KC, kDiff>(g, end, U, p, n, k, su_w, su_k);
+    ring_consume<TM, T, KC, kDiff>(g, end, U, p, n, k, su_w, su_k);
   }
 }
 
 // The four ring kernels share one parameter list; a dense kernel does not
 // read cols, nor a Cimmino one X and its strides.
-template <typename T, int KC>
+template <typename TM, typename T, int KC>
 __global__ void __launch_bounds__(kRingThreads, 1)
-apc_gather_ring_kernel(const T* __restrict__ A,
+apc_gather_ring_kernel(const TM* __restrict__ A,
                        const int64_t* __restrict__ cols,
                        const T* __restrict__ X, const T* __restrict__ Xbar,
                        T* __restrict__ U, int64_t m, int64_t p, int64_t n,
                        int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                        int64_t su_w, int64_t su_k) {
-  gather_ring<T, KC, true, false>(A, cols, X, Xbar, U, m, p, n, k, sx_w,
+  gather_ring<TM, T, KC, true, false>(A, cols, X, Xbar, U, m, p, n, k, sx_w,
                                   sx_k, sxb_k, su_w, su_k);
 }
 
-template <typename T, int KC>
+template <typename TM, typename T, int KC>
 __global__ void __launch_bounds__(kRingThreads, 1)
-sparse_gather_ring_kernel(const T* __restrict__ vals,
+sparse_gather_ring_kernel(const TM* __restrict__ vals,
                           const int64_t* __restrict__ cols,
                           const T* __restrict__ X,
                           const T* __restrict__ Xbar, T* __restrict__ U,
                           int64_t m, int64_t p, int64_t w, int64_t k,
                           int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                           int64_t su_w, int64_t su_k) {
-  gather_ring<T, KC, true, true>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,
+  gather_ring<TM, T, KC, true, true>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,
                                  sx_k, sxb_k, su_w, su_k);
 }
 
-template <typename T, int KC>
+template <typename TM, typename T, int KC>
 __global__ void __launch_bounds__(kRingThreads, 1)
-cimmino_gather_ring_kernel(const T* __restrict__ A,
+cimmino_gather_ring_kernel(const TM* __restrict__ A,
                            const int64_t* __restrict__ cols,
                            const T* __restrict__ X,
                            const T* __restrict__ Xbar, T* __restrict__ U,
                            int64_t m, int64_t p, int64_t n, int64_t k,
                            int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                            int64_t su_w, int64_t su_k) {
-  gather_ring<T, KC, false, false>(A, cols, X, Xbar, U, m, p, n, k, sx_w,
+  gather_ring<TM, T, KC, false, false>(A, cols, X, Xbar, U, m, p, n, k, sx_w,
                                    sx_k, sxb_k, su_w, su_k);
 }
 
-template <typename T, int KC>
+template <typename TM, typename T, int KC>
 __global__ void __launch_bounds__(kRingThreads, 1)
-sparse_cimmino_gather_ring_kernel(const T* __restrict__ vals,
+sparse_cimmino_gather_ring_kernel(const TM* __restrict__ vals,
                                   const int64_t* __restrict__ cols,
                                   const T* __restrict__ X,
                                   const T* __restrict__ Xbar,
@@ -861,24 +1005,24 @@ sparse_cimmino_gather_ring_kernel(const T* __restrict__ vals,
                                   int64_t w, int64_t k, int64_t sx_w,
                                   int64_t sx_k, int64_t sxb_k, int64_t su_w,
                                   int64_t su_k) {
-  gather_ring<T, KC, false, true>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,
+  gather_ring<TM, T, KC, false, true>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,
                                   sx_k, sxb_k, su_w, su_k);
 }
 
 // One persistent block per SM (the ring's shared memory admits no
 // second), and no more blocks than 64-row tiles.  The dynamic shared
 // memory above 48 KB is opted into once per device.
-template <typename T, int KC, bool kDiff, bool kSparse>
+template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
 void launch_ring(const void* M, const void* cols, const void* X,
                  const void* Xbar, void* U, int64_t m, int64_t p, int64_t n,
                  int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                  int64_t su_w, int64_t su_k, cudaStream_t s) {
-  using Cfg = Ring<T, KC, kDiff>;
+  using Cfg = Ring<TM, T, KC, kDiff>;
   const auto kernel =
-      kDiff ? (kSparse ? &sparse_gather_ring_kernel<T, KC>
-                       : &apc_gather_ring_kernel<T, KC>)
-            : (kSparse ? &sparse_cimmino_gather_ring_kernel<T, KC>
-                       : &cimmino_gather_ring_kernel<T, KC>);
+      kDiff ? (kSparse ? &sparse_gather_ring_kernel<TM, T, KC>
+                       : &apc_gather_ring_kernel<TM, T, KC>)
+            : (kSparse ? &sparse_cimmino_gather_ring_kernel<TM, T, KC>
+                       : &cimmino_gather_ring_kernel<TM, T, KC>);
   static std::atomic<uint64_t> opted_in{0};          // a bit per device
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -897,7 +1041,7 @@ void launch_ring(const void* M, const void* cols, const void* X,
                         kRingRows;
   kernel<<<static_cast<unsigned>(min64(sms, tiles)),
            kRingThreads, Cfg::kSmem, s>>>(
-      static_cast<const T*>(M), static_cast<const int64_t*>(cols),
+      static_cast<const TM*>(M), static_cast<const int64_t*>(cols),
       static_cast<const T*>(X), static_cast<const T*>(Xbar),
       static_cast<T*>(U), m, p, n, k, sx_w, sx_k, sxb_k, su_w, su_k);
 }
@@ -923,7 +1067,7 @@ inline dim3 grid_for(int64_t rows, int64_t m, int64_t k, int kc, int r) {
 }
 
 // instance: kRing or kRowDot, as the wrapper chose it by shape.
-template <typename T>
+template <typename TM, typename T>
 int apc_gather(const void* A, const void* X, const void* Xbar, void* U,
                int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w,
                int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
@@ -934,20 +1078,20 @@ int apc_gather(const void* A, const void* X, const void* Xbar, void* U,
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_ring<T, KC, true, false>(A, nullptr, X, Xbar, U, m, p, n, k,
+      launch_ring<TM, T, KC, true, false>(A, nullptr, X, Xbar, U, m, p, n, k,
                                       sx_w, sx_k, sxb_k, su_w, su_k, s);
       return;
     }
-    apc_gather_kernel<T, KC, kGatherRows>
+    apc_gather_kernel<TM, T, KC, kGatherRows>
         <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
-            static_cast<const T*>(A), static_cast<const T*>(X),
+            static_cast<const TM*>(A), static_cast<const T*>(X),
             static_cast<const T*>(Xbar), static_cast<T*>(U), p, n, k, sx_w,
             sx_k, sxb_k, su_w, su_k);
   });
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename TM, typename T>
 int cimmino_gather(const void* A, const void* Xbar, void* U, int64_t m,
                    int64_t p, int64_t n, int64_t k, int64_t sxb_k,
                    int64_t su_w, int64_t su_k, int64_t instance,
@@ -958,19 +1102,19 @@ int cimmino_gather(const void* A, const void* Xbar, void* U, int64_t m,
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_ring<T, KC, false, false>(A, nullptr, nullptr, Xbar, U, m, p, n,
+      launch_ring<TM, T, KC, false, false>(A, nullptr, nullptr, Xbar, U, m, p, n,
                                        k, 0, 0, sxb_k, su_w, su_k, s);
       return;
     }
-    cimmino_gather_kernel<T, KC, kGatherRows>
+    cimmino_gather_kernel<TM, T, KC, kGatherRows>
         <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
-            static_cast<const T*>(A), static_cast<const T*>(Xbar),
+            static_cast<const TM*>(A), static_cast<const T*>(Xbar),
             static_cast<T*>(U), p, n, k, sxb_k, su_w, su_k);
   });
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename TM, typename T>
 int apc_scatter(const void* B, const void* X, const void* Xbar,
                 const void* U, double gamma, void* Y, int64_t m, int64_t n,
                 int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
@@ -980,10 +1124,10 @@ int apc_scatter(const void* B, const void* X, const void* Xbar,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
-    constexpr int R = scatter_rows<KC>();
-    apc_scatter_kernel<T, KC, R>
+    constexpr int R = scatter_rows<TM, KC>();
+    apc_scatter_kernel<TM, T, KC, R>
         <<<grid_for(n, m, k, KC, R), kThreads, 0, s>>>(
-            static_cast<const T*>(B), static_cast<const T*>(X),
+            static_cast<const TM*>(B), static_cast<const T*>(X),
             static_cast<const T*>(Xbar), static_cast<const T*>(U),
             static_cast<T>(gamma), static_cast<T*>(Y), n, p, k, sx_w, sx_k,
             sxb_k, su_w, su_k, sy_w, sy_k);
@@ -991,7 +1135,7 @@ int apc_scatter(const void* B, const void* X, const void* Xbar,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename TM, typename T>
 int cimmino_scatter(const void* B, const void* V, void* Rout, int64_t m,
                     int64_t n, int64_t p, int64_t k, int64_t sv_w,
                     int64_t sv_k, int64_t sr_w, int64_t sr_k, void* stream) {
@@ -999,16 +1143,16 @@ int cimmino_scatter(const void* B, const void* V, void* Rout, int64_t m,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
-    constexpr int R = scatter_rows<KC>();
-    cimmino_scatter_kernel<T, KC, R>
+    constexpr int R = scatter_rows<TM, KC>();
+    cimmino_scatter_kernel<TM, T, KC, R>
         <<<grid_for(n, m, k, KC, R), kThreads, 0, s>>>(
-            static_cast<const T*>(B), static_cast<const T*>(V),
+            static_cast<const TM*>(B), static_cast<const T*>(V),
             static_cast<T*>(Rout), n, p, k, sv_w, sv_k, sr_w, sr_k);
   });
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename TM, typename T>
 int sparse_gather(const void* vals, const void* cols, const void* X,
                   const void* Xbar, void* U, int64_t m, int64_t p,
                   int64_t w, int64_t k, int64_t sx_w, int64_t sx_k,
@@ -1020,20 +1164,20 @@ int sparse_gather(const void* vals, const void* cols, const void* X,
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_ring<T, KC, true, true>(vals, cols, X, Xbar, U, m, p, w, k,
+      launch_ring<TM, T, KC, true, true>(vals, cols, X, Xbar, U, m, p, w, k,
                                      sx_w, sx_k, sxb_k, su_w, su_k, s);
       return;
     }
-    sparse_gather_kernel<T, KC, kGatherRows>
+    sparse_gather_kernel<TM, T, KC, kGatherRows>
         <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
-            static_cast<const T*>(vals), static_cast<const int64_t*>(cols),
+            static_cast<const TM*>(vals), static_cast<const int64_t*>(cols),
             static_cast<const T*>(X), static_cast<const T*>(Xbar),
             static_cast<T*>(U), p, w, k, sx_w, sx_k, sxb_k, su_w, su_k);
   });
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename TM, typename T>
 int sparse_cimmino_gather(const void* vals, const void* cols,
                           const void* Xbar, void* U, int64_t m, int64_t p,
                           int64_t w, int64_t k, int64_t sxb_k, int64_t su_w,
@@ -1044,13 +1188,13 @@ int sparse_cimmino_gather(const void* vals, const void* cols,
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_ring<T, KC, false, true>(vals, cols, nullptr, Xbar, U, m, p, w,
+      launch_ring<TM, T, KC, false, true>(vals, cols, nullptr, Xbar, U, m, p, w,
                                       k, 0, 0, sxb_k, su_w, su_k, s);
       return;
     }
-    sparse_cimmino_gather_kernel<T, KC, kGatherRows>
+    sparse_cimmino_gather_kernel<TM, T, KC, kGatherRows>
         <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
-            static_cast<const T*>(vals), static_cast<const int64_t*>(cols),
+            static_cast<const TM*>(vals), static_cast<const int64_t*>(cols),
             static_cast<const T*>(Xbar), static_cast<T*>(U), p, w, k, sxb_k,
             su_w, su_k);
   });
@@ -1059,7 +1203,7 @@ int sparse_cimmino_gather(const void* vals, const void* cols,
 
 // Both forms of sparse_scatter: the APC form when X is given (it reads X
 // and X̄), the Cimmino form when X is null.
-template <typename T>
+template <typename TM, typename T>
 int sparse_scatter(const void* Bvals, const void* cols, const void* X,
                    const void* Xbar, const void* U, double gamma, void* Y,
                    int64_t m, int64_t w, int64_t p, int64_t k, int64_t sx_w,
@@ -1069,20 +1213,20 @@ int sparse_scatter(const void* Bvals, const void* cols, const void* X,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
-    constexpr int R = scatter_rows<KC>();
+    constexpr int R = scatter_rows<TM, KC>();
     const dim3 grid = grid_for(w, m, k, KC, R);
     const auto launch = [&](auto kernel) {
       kernel<<<grid, kThreads, 0, s>>>(
-          static_cast<const T*>(Bvals), static_cast<const int64_t*>(cols),
+          static_cast<const TM*>(Bvals), static_cast<const int64_t*>(cols),
           static_cast<const T*>(X), static_cast<const T*>(Xbar),
           static_cast<const T*>(U), static_cast<T>(gamma),
           static_cast<T*>(Y), w, p, k, sx_w, sx_k, sxb_k, su_w, su_k, sy_w,
           sy_k);
     };
     if (X != nullptr)
-      launch(sparse_scatter_kernel<T, KC, R, true>);
+      launch(sparse_scatter_kernel<TM, T, KC, R, true>);
     else
-      launch(sparse_scatter_kernel<T, KC, R, false>);
+      launch(sparse_scatter_kernel<TM, T, KC, R, false>);
   });
   return static_cast<int>(cudaGetLastError());
 }
@@ -1091,144 +1235,99 @@ int sparse_scatter(const void* Bvals, const void* cols, const void* X,
 
 extern "C" {
 
-int apc_gather_f64(const void* A, const void* X, const void* Xbar, void* U,
-                   int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w,
-                   int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-                   int64_t instance, void* stream) {
-  return apc_gather<double>(A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k,
-                            su_w, su_k, instance, stream);
-}
+// The C entries of each (matrix, compute) type pair: <kernel>_<SUFFIX>.
+#define REPRO_ENTRIES(SUFFIX, TM, T)                                         \
+  int apc_gather_##SUFFIX(const void* A, const void* X, const void* Xbar,    \
+                          void* U, int64_t m, int64_t p, int64_t n,          \
+                          int64_t k, int64_t sx_w, int64_t sx_k,             \
+                          int64_t sxb_k, int64_t su_w, int64_t su_k,         \
+                          int64_t instance, void* stream) {                  \
+    return apc_gather<TM, T>(A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k,   \
+                             su_w, su_k, instance, stream);                  \
+  }                                                                          \
+  int apc_scatter_##SUFFIX(const void* B, const void* X, const void* Xbar,   \
+                           const void* U, double gamma, void* Y, int64_t m,  \
+                           int64_t n, int64_t p, int64_t k, int64_t sx_w,    \
+                           int64_t sx_k, int64_t sxb_k, int64_t su_w,        \
+                           int64_t su_k, int64_t sy_w, int64_t sy_k,         \
+                           void* stream) {                                   \
+    return apc_scatter<TM, T>(B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w,     \
+                              sx_k, sxb_k, su_w, su_k, sy_w, sy_k, stream);  \
+  }                                                                          \
+  int cimmino_gather_##SUFFIX(const void* A, const void* Xbar, void* U,      \
+                              int64_t m, int64_t p, int64_t n, int64_t k,    \
+                              int64_t sxb_k, int64_t su_w, int64_t su_k,     \
+                              int64_t instance, void* stream) {              \
+    return cimmino_gather<TM, T>(A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k,  \
+                                 instance, stream);                          \
+  }                                                                          \
+  int cimmino_scatter_##SUFFIX(const void* B, const void* V, void* R,        \
+                               int64_t m, int64_t n, int64_t p, int64_t k,   \
+                               int64_t sv_w, int64_t sv_k, int64_t sr_w,     \
+                               int64_t sr_k, void* stream) {                 \
+    return cimmino_scatter<TM, T>(B, V, R, m, n, p, k, sv_w, sv_k, sr_w,     \
+                                  sr_k, stream);                             \
+  }                                                                          \
+  int sparse_gather_##SUFFIX(const void* vals, const void* cols,             \
+                             const void* X, const void* Xbar, void* U,       \
+                             int64_t m, int64_t p, int64_t w, int64_t k,     \
+                             int64_t sx_w, int64_t sx_k, int64_t sxb_k,      \
+                             int64_t su_w, int64_t su_k, int64_t instance,   \
+                             void* stream) {                                 \
+    return sparse_gather<TM, T>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,    \
+                                sx_k, sxb_k, su_w, su_k, instance, stream);  \
+  }                                                                          \
+  int sparse_cimmino_gather_##SUFFIX(                                        \
+      const void* vals, const void* cols, const void* Xbar, void* U,         \
+      int64_t m, int64_t p, int64_t w, int64_t k, int64_t sxb_k,             \
+      int64_t su_w, int64_t su_k, int64_t instance, void* stream) {          \
+    return sparse_cimmino_gather<TM, T>(vals, cols, Xbar, U, m, p, w, k,     \
+                                        sxb_k, su_w, su_k, instance,         \
+                                        stream);                             \
+  }                                                                          \
+  int sparse_scatter_##SUFFIX(const void* Bvals, const void* cols,           \
+                              const void* X, const void* Xbar,               \
+                              const void* U, double gamma, void* Y,          \
+                              int64_t m, int64_t w, int64_t p, int64_t k,    \
+                              int64_t sx_w, int64_t sx_k, int64_t sxb_k,     \
+                              int64_t su_w, int64_t su_k, int64_t sy_w,      \
+                              int64_t sy_k, void* stream) {                  \
+    return sparse_scatter<TM, T>(Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, \
+                                 k, sx_w, sx_k, sxb_k, su_w, su_k, sy_w,     \
+                                 sy_k, stream);                              \
+  }
 
-int apc_gather_f32(const void* A, const void* X, const void* Xbar, void* U,
-                   int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w,
-                   int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-                   int64_t instance, void* stream) {
-  return apc_gather<float>(A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k,
-                           su_w, su_k, instance, stream);
-}
+REPRO_ENTRIES(f64, double, double)
+REPRO_ENTRIES(f32, float, float)
+REPRO_ENTRIES(bf16_f64, __nv_bfloat16, double)
+REPRO_ENTRIES(bf16_f32, __nv_bfloat16, float)
 
-int apc_scatter_f64(const void* B, const void* X, const void* Xbar,
-                    const void* U, double gamma, void* Y, int64_t m,
-                    int64_t n, int64_t p, int64_t k, int64_t sx_w,
-                    int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-                    int64_t sy_w, int64_t sy_k, void* stream) {
-  return apc_scatter<double>(B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w,
-                             sx_k, sxb_k, su_w, su_k, sy_w, sy_k, stream);
-}
-
-int apc_scatter_f32(const void* B, const void* X, const void* Xbar,
-                    const void* U, double gamma, void* Y, int64_t m,
-                    int64_t n, int64_t p, int64_t k, int64_t sx_w,
-                    int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-                    int64_t sy_w, int64_t sy_k, void* stream) {
-  return apc_scatter<float>(B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w,
-                            sx_k, sxb_k, su_w, su_k, sy_w, sy_k, stream);
-}
-
-int cimmino_gather_f64(const void* A, const void* Xbar, void* U, int64_t m,
-                       int64_t p, int64_t n, int64_t k, int64_t sxb_k,
-                       int64_t su_w, int64_t su_k, int64_t instance,
-                       void* stream) {
-  return cimmino_gather<double>(A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k,
-                                instance, stream);
-}
-
-int cimmino_gather_f32(const void* A, const void* Xbar, void* U, int64_t m,
-                       int64_t p, int64_t n, int64_t k, int64_t sxb_k,
-                       int64_t su_w, int64_t su_k, int64_t instance,
-                       void* stream) {
-  return cimmino_gather<float>(A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k,
-                               instance, stream);
-}
-
-int cimmino_scatter_f64(const void* B, const void* V, void* R, int64_t m,
-                        int64_t n, int64_t p, int64_t k, int64_t sv_w,
-                        int64_t sv_k, int64_t sr_w, int64_t sr_k,
-                        void* stream) {
-  return cimmino_scatter<double>(B, V, R, m, n, p, k, sv_w, sv_k, sr_w,
-                                 sr_k, stream);
-}
-
-int cimmino_scatter_f32(const void* B, const void* V, void* R, int64_t m,
-                        int64_t n, int64_t p, int64_t k, int64_t sv_w,
-                        int64_t sv_k, int64_t sr_w, int64_t sr_k,
-                        void* stream) {
-  return cimmino_scatter<float>(B, V, R, m, n, p, k, sv_w, sv_k, sr_w, sr_k,
-                                stream);
-}
-
-int sparse_gather_f64(const void* vals, const void* cols, const void* X,
-                      const void* Xbar, void* U, int64_t m, int64_t p,
-                      int64_t w, int64_t k, int64_t sx_w, int64_t sx_k,
-                      int64_t sxb_k, int64_t su_w, int64_t su_k,
-                      int64_t instance, void* stream) {
-  return sparse_gather<double>(vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k,
-                          sxb_k, su_w, su_k, instance, stream);
-}
-
-int sparse_gather_f32(const void* vals, const void* cols, const void* X,
-                      const void* Xbar, void* U, int64_t m, int64_t p,
-                      int64_t w, int64_t k, int64_t sx_w, int64_t sx_k,
-                      int64_t sxb_k, int64_t su_w, int64_t su_k,
-                      int64_t instance, void* stream) {
-  return sparse_gather<float>(vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k,
-                          sxb_k, su_w, su_k, instance, stream);
-}
-
-int sparse_cimmino_gather_f64(const void* vals, const void* cols,
-                              const void* Xbar, void* U, int64_t m,
-                              int64_t p, int64_t w, int64_t k, int64_t sxb_k,
-                              int64_t su_w, int64_t su_k, int64_t instance,
-                              void* stream) {
-  return sparse_cimmino_gather<double>(vals, cols, Xbar, U, m, p, w, k, sxb_k,
-                                  su_w, su_k, instance, stream);
-}
-
-int sparse_cimmino_gather_f32(const void* vals, const void* cols,
-                              const void* Xbar, void* U, int64_t m,
-                              int64_t p, int64_t w, int64_t k, int64_t sxb_k,
-                              int64_t su_w, int64_t su_k, int64_t instance,
-                              void* stream) {
-  return sparse_cimmino_gather<float>(vals, cols, Xbar, U, m, p, w, k, sxb_k,
-                                  su_w, su_k, instance, stream);
-}
-
-int sparse_scatter_f64(const void* Bvals, const void* cols, const void* X,
-                       const void* Xbar, const void* U, double gamma, void* Y,
-                       int64_t m, int64_t w, int64_t p, int64_t k,
-                       int64_t sx_w, int64_t sx_k, int64_t sxb_k,
-                       int64_t su_w, int64_t su_k, int64_t sy_w,
-                       int64_t sy_k, void* stream) {
-  return sparse_scatter<double>(Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, k,
-                           sx_w, sx_k, sxb_k, su_w, su_k, sy_w, sy_k,
-                           stream);
-}
-
-int sparse_scatter_f32(const void* Bvals, const void* cols, const void* X,
-                       const void* Xbar, const void* U, double gamma, void* Y,
-                       int64_t m, int64_t w, int64_t p, int64_t k,
-                       int64_t sx_w, int64_t sx_k, int64_t sxb_k,
-                       int64_t su_w, int64_t su_k, int64_t sy_w,
-                       int64_t sy_k, void* stream) {
-  return sparse_scatter<float>(Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, k,
-                           sx_w, sx_k, sxb_k, su_w, su_k, sy_w, sy_k,
-                           stream);
-}
+#undef REPRO_ENTRIES
 
 // The ring instance's dynamic shared memory at the k-chunk of k, in
-// bytes, for a type of itemsize bytes (4 or 8) and a form (kApcForm or
-// kCimminoForm; 0 for any other).
-int64_t gather_ring_smem(int64_t itemsize, int64_t k, int64_t form) {
+// bytes, for a matrix of matrix_itemsize bytes (8, 4 or 2), a compute
+// type of itemsize bytes (8 or 4) and a form (kApcForm or
+// kCimminoForm); 0 for any other.
+int64_t gather_ring_smem(int64_t matrix_itemsize, int64_t itemsize,
+                         int64_t k, int64_t form) {
   if (form != kApcForm && form != kCimminoForm) return 0;
   int64_t bytes = 0;
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
-    if (form == kApcForm)
-      bytes = itemsize == 8 ? Ring<double, KC, true>::kSmem
-                            : Ring<float, KC, true>::kSmem;
-    else
-      bytes = itemsize == 8 ? Ring<double, KC, false>::kSmem
-                            : Ring<float, KC, false>::kSmem;
+    const auto of = [&](auto tm, auto t) {
+      using TM = decltype(tm);
+      using T = decltype(t);
+      bytes = form == kApcForm ? Ring<TM, T, KC, true>::kSmem
+                               : Ring<TM, T, KC, false>::kSmem;
+    };
+    if (matrix_itemsize == 8 && itemsize == 8)
+      of(double{}, double{});
+    else if (matrix_itemsize == 4 && itemsize == 4)
+      of(float{}, float{});
+    else if (matrix_itemsize == 2 && itemsize == 8)
+      of(__nv_bfloat16{}, double{});
+    else if (matrix_itemsize == 2 && itemsize == 4)
+      of(__nv_bfloat16{}, float{});
   });
   return bytes;
 }

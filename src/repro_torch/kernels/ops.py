@@ -14,8 +14,15 @@ ONE launch of each kernel for all m workers.
 Dispatch is on the tensors' device, and only there: CUDA tensors launch
 the hand-written kernels (``block_projection``), CPU tensors take the
 plain PyTorch versions below, anything else raises.  Nothing falls back
-from one to the other.  Tile choice and the measured fused-vs-unfused
-engine of the reference (``pick_tiles``/``use_fused``) are ROADMAP A11.
+from one to the other.  Both take the matrices (A, B, vals, Bvals) in a
+storage dtype beside the compute dtype of the other operands, a pair of
+``block_projection.PAIRS``: float64 or float32 throughout, or, under
+``precision="mixed"``, bfloat16 matrices with float64 or float32
+operands; results come in the compute dtype.  The plain versions widen a
+bfloat16 matrix to the compute dtype first (exact), as JAX promotes
+where ``torch.einsum`` refuses mixed dtypes.  Tile choice and the
+measured fused-vs-unfused engine of the reference (``pick_tiles``/
+``use_fused``) are ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -23,8 +30,6 @@ import torch
 
 from . import block_projection as bp
 from .block_projection import launch_counts, reset_launch_counts  # noqa: F401
-
-_DTYPES = (torch.float32, torch.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -35,13 +40,14 @@ _DTYPES = (torch.float32, torch.float64)
 def apc_gather_ref(A, X, Xbar):
     """U = A_w (X̄ − X_w) per worker: A (m, p, n); X (m, n) or (m, k, n);
     X̄ (n,) or (k, n) -> U (m, p) or (m, k, p)."""
-    return torch.einsum("mpn,m...n->m...p", A, Xbar - X)
+    return torch.einsum("mpn,m...n->m...p", A.to(X.dtype), Xbar - X)
 
 
 def apc_scatter_ref(B, X, Xbar, U, gamma):
     """Y = X_w + γ((X̄ − X_w) − B_w U_w) per worker: B (m, n, p)."""
     d = Xbar - X
-    return X + gamma * (d - torch.einsum("mnp,m...p->m...n", B, U))
+    return X + gamma * (d - torch.einsum("mnp,m...p->m...n", B.to(U.dtype),
+                                         U))
 
 
 def block_projection_ref(A, B, X, Xbar, gamma):
@@ -52,12 +58,12 @@ def block_projection_ref(A, B, X, Xbar, gamma):
 def cimmino_gather_ref(A, Xbar):
     """U = A_w X̄ per worker: A (m, p, n); X̄ (n,) or (k, n) -> U (m, p) or
     (m, k, p)."""
-    return torch.einsum("mpn,...n->m...p", A, Xbar)
+    return torch.einsum("mpn,...n->m...p", A.to(Xbar.dtype), Xbar)
 
 
 def cimmino_scatter_ref(B, V):
     """R = B_w V_w per worker: B (m, n, p); V (m, p) or (m, k, p)."""
-    return torch.einsum("mnp,m...p->m...n", B, V)
+    return torch.einsum("mnp,m...p->m...n", B.to(V.dtype), V)
 
 
 def cimmino_update_ref(A, B, b, Xbar):
@@ -76,14 +82,15 @@ def _support(cols, D):
 def sparse_gather_ref(vals, cols, X, Xbar):
     """U = vals_w (X̄ − X_w)[cols_w] per worker: vals (m, p, w); cols
     (m, w); X (m, n) or (m, k, n); X̄ (n,) or (k, n) -> (m, [k,] p)."""
-    return torch.einsum("mpw,m...w->m...p", vals,
+    return torch.einsum("mpw,m...w->m...p", vals.to(X.dtype),
                         _support(cols, Xbar - X)[0])
 
 
 def sparse_cimmino_gather_ref(vals, cols, Xbar):
     """U = vals_w X̄[cols_w] per worker -> (m, p) or (m, k, p)."""
     Xb = Xbar.expand((vals.shape[0],) + Xbar.shape)   # (m, [k,] n)
-    return torch.einsum("mpw,m...w->m...p", vals, _support(cols, Xb)[0])
+    return torch.einsum("mpw,m...w->m...p", vals.to(Xbar.dtype),
+                        _support(cols, Xb)[0])
 
 
 def sparse_scatter_ref(Bvals, cols, U, out, X=None, Xbar=None, gamma=0.0):
@@ -91,7 +98,7 @@ def sparse_scatter_ref(Bvals, cols, U, out, X=None, Xbar=None, gamma=0.0):
     as the reference adds: C itself (Cimmino form), or −γC when X and X̄
     are given (APC form; ``out`` then already holds X + γ(X̄ − X)).
     Returns a new tensor."""
-    C = torch.einsum("mwp,m...p->m...w", Bvals, U)
+    C = torch.einsum("mwp,m...p->m...w", Bvals.to(U.dtype), U)
     idx = _support(cols, out)[1]
     return out.scatter_add(-1, idx, C if X is None else -gamma * C)
 
@@ -119,18 +126,24 @@ def sparse_cimmino_update_ref(vals, cols, Bvals, b, Xbar):
 # ---------------------------------------------------------------------------
 
 
-def _on_cuda(op: str, *tensors: torch.Tensor) -> bool:
+def _on_cuda(op: str, matrices: tuple, *operands: torch.Tensor) -> bool:
     """True for all-CUDA operands, False for all-CPU ones; raises on
-    mixed or other devices and on dtypes the kernels do not take."""
-    kinds = {t.device.type for t in tensors}
+    mixed or other devices and on dtypes the kernels do not take: the
+    ``matrices`` in one dtype and the ``operands`` in one, a pair of
+    ``block_projection.PAIRS``."""
+    kinds = {t.device.type for t in (*matrices, *operands)}
     if kinds not in ({"cuda"}, {"cpu"}):
         raise ValueError(f"{op}: operands on {sorted(kinds)}; expected all "
                          f"on CUDA (kernel) or all on the CPU (plain "
                          f"version)")
-    dtypes = {t.dtype for t in tensors}
-    if len(dtypes) != 1 or not dtypes <= set(_DTYPES):
-        raise TypeError(f"{op}: dtypes {sorted(map(str, dtypes))}; expected "
-                        f"one of float32/float64 for every operand")
+    mats = {t.dtype for t in matrices}
+    dtypes = {t.dtype for t in operands}
+    if (len(mats) != 1 or len(dtypes) != 1
+            or (*mats, *dtypes) not in bp.PAIRS):
+        raise TypeError(
+            f"{op}: dtypes {sorted(map(str, mats))} (matrices) with "
+            f"{sorted(map(str, dtypes))} (operands); expected one of "
+            + ", ".join(f"{a}/{b}" for a, b in bp.PAIRS))
     return kinds == {"cuda"}
 
 
@@ -152,7 +165,7 @@ def _rows(X, Xbar):
 
 def proj_gather(A, X, Xbar):
     """u_w = A_w (x̄ − x_w) for every worker -> (m, p) or (m, k, p)."""
-    if not _on_cuda("proj_gather", A, X, Xbar):
+    if not _on_cuda("proj_gather", (A,), X, Xbar):
         return apc_gather_ref(A, X, Xbar)
     X3, Xb2, squeeze = _rows(X, Xbar)
     U = bp.apc_gather(A, X3, Xb2)
@@ -161,7 +174,7 @@ def proj_gather(A, X, Xbar):
 
 def proj_scatter(B, X, Xbar, U, gamma: float):
     """y_w = x_w + γ((x̄ − x_w) − B_w u_w) for every worker, in X's shape."""
-    if not _on_cuda("proj_scatter", B, X, Xbar, U):
+    if not _on_cuda("proj_scatter", (B,), X, Xbar, U):
         return apc_scatter_ref(B, X, Xbar, U, gamma)
     X3, Xb2, squeeze = _rows(X, Xbar)
     Y = bp.apc_scatter(B, X3, Xb2, U.unsqueeze(1) if squeeze else U, gamma)
@@ -176,7 +189,7 @@ def block_projection(A, B, X, Xbar, gamma: float):
 
 def cimmino_gather(A, Xbar):
     """u_w = A_w x̄ for every worker -> (m, p) or (m, k, p)."""
-    if not _on_cuda("cimmino_gather", A, Xbar):
+    if not _on_cuda("cimmino_gather", (A,), Xbar):
         return cimmino_gather_ref(A, Xbar)
     U = bp.cimmino_gather(A, Xbar.unsqueeze(0) if Xbar.dim() == 1 else Xbar)
     return U.squeeze(1) if Xbar.dim() == 1 else U
@@ -185,7 +198,7 @@ def cimmino_gather(A, Xbar):
 def cimmino_scatter(B, V):
     """r_w = B_w v_w for every worker -> (m, n) or (m, k, n).  V may be the
     (m, k, p) transposed view of a (k, m, p) batch (no copy)."""
-    if not _on_cuda("cimmino_scatter", B, V):
+    if not _on_cuda("cimmino_scatter", (B,), V):
         return cimmino_scatter_ref(B, V)
     R = bp.cimmino_scatter(B, V.unsqueeze(1) if V.dim() == 2 else V)
     return R.squeeze(1) if V.dim() == 2 else R
@@ -213,7 +226,7 @@ def sparse_proj_update(vals, cols, Bvals, X, Xbar, gamma: float):
     gather happens in its staged loads), the AXPY pre-pass
     Y = X + γ(X̄ − X) for the off-support columns, and one
     ``sparse_scatter`` launch that stores the support columns of Y."""
-    if not _on_cuda("sparse_proj_update", vals, X, Xbar, Bvals):
+    if not _on_cuda("sparse_proj_update", (vals, Bvals), X, Xbar):
         _index_on(cols, vals)
         return sparse_proj_update_ref(vals, cols, Bvals, X, Xbar, gamma)
     X3, Xb2, squeeze = _rows(X, Xbar)
@@ -229,7 +242,7 @@ def sparse_cimmino_update(vals, cols, Bvals, b, Xbar):
     U = vals_w X̄[cols_w] (the residual block is U − b).  On CUDA: one
     ``sparse_cimmino_gather`` and one ``sparse_scatter`` launch; the
     worker sum of R stays outside, as in the reference."""
-    if not _on_cuda("sparse_cimmino_update", vals, b, Xbar, Bvals):
+    if not _on_cuda("sparse_cimmino_update", (vals, Bvals), b, Xbar):
         _index_on(cols, vals)
         return sparse_cimmino_update_ref(vals, cols, Bvals, b, Xbar)
     squeeze = Xbar.dim() == 1

@@ -8,7 +8,9 @@ APC by default) with its auto-tuned optimal parameters on the card (or
 ``--device cpu``), and prints the same lines as the reference's CLI.
 ``--use-kernel`` routes the worker update of apc, consensus and cimmino
 through the hand-written CUDA kernels (the sparse ones on a sparse
-problem); the other solvers have no kernel and reject it.  The mesh
+problem); the other solvers have no kernel: on a sparse problem they
+warn and run the unfused sparse path, on a dense one they raise, as the
+library's ``resolve_plan`` decides.  The mesh
 backend, redundancy, checkpoints and the factor store are not offered
 yet (ROADMAP A12, A14, A15).
 
@@ -43,18 +45,14 @@ def main(argv=None):
                     help="route the per-worker update through the CUDA "
                          "kernels: apc_gather/apc_scatter for apc and "
                          "consensus, cimmino_gather/cimmino_scatter for "
-                         "cimmino (no other method has a kernel)")
+                         "cimmino (no other method has a kernel: on a "
+                         "sparse problem it warns and runs unfused)")
     ap.add_argument("--x64", action=argparse.BooleanOptionalAction,
                     default=True, help="float64 math (default on)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
     solver = solvers.get(args.method)
-    if args.use_kernel and not solver.supports_kernel:
-        kernel_methods = [n for n in solvers.available()
-                          if solvers.get(n).supports_kernel]
-        ap.error(f"--use-kernel: solver {args.method!r} has no kernel path "
-                 f"(kernel methods: {', '.join(kernel_methods)})")
 
     device = dev.resolve(args.device)
     dtype = torch.float64 if args.x64 else torch.float32

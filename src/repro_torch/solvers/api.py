@@ -148,6 +148,35 @@ class Solver:
         """Augment factors with kernel-path precomputation (idempotent)."""
         return factors
 
+    # ----- mixed-precision matrix streams ----------------------------------
+    def cast_factors(self, factors: Any, precision: str) -> Any:
+        """The factors with the kernels' matrix streams in the storage
+        precision.
+
+        ``precision="mixed"`` stores the streamed A/B (or vals/Bvals) in
+        bfloat16 while every kernel contraction accumulates in the
+        working dtype and the Cholesky factors stay in it.  Idempotent.
+        """
+        if precision == "default":
+            return factors
+        raise NotImplementedError(
+            f"solver {self.name!r} does not implement precision="
+            f"{precision!r}")
+
+    def _check_precision(self, precision: str, use_kernel: bool) -> None:
+        if precision == "default":
+            return
+        if precision != "mixed":
+            raise ValueError(f"unknown precision {precision!r}; expected "
+                             f"'default' or 'mixed'")
+        if not (use_kernel and self.supports_kernel):
+            raise ValueError(
+                "precision='mixed' casts the kernels' matrix streams "
+                "(bf16 storage, accumulation in the working dtype) and "
+                "therefore requires use_kernel=True on a kernel-capable "
+                f"solver; {self.name!r} was dispatched with use_kernel="
+                f"{use_kernel} (supports_kernel={self.supports_kernel})")
+
     # ----- least-squares mode hooks ---------------------------------------
     # A solver declaring "least_squares" in ``supports`` implements both.
     # ``ls_moment`` is its optimality map, the (weighted) normal-equation
@@ -202,6 +231,8 @@ class Solver:
             factors = self.prepare(sys.A_op, prm)
         if plan.kernel:
             factors = self.kernel_factors(factors)
+        if plan.precision != "default":
+            factors = self.cast_factors(factors, plan.precision)
         return factors
 
     def solve(self, sys: BlockSystem, *, iters: int = 1000, tol: float = 1e-6,
@@ -211,6 +242,8 @@ class Solver:
 
         ``plan.kernel`` runs the worker update through the kernel pair and
         records the residual from the gather pass (the fused residual);
+        ``plan.precision="mixed"`` stores its matrix streams in bfloat16
+        (``cast_factors``, after ``kernel_factors`` and before ``init``);
         ``plan.factors`` skips ``prepare``; ``plan.warm_state`` resumes.
         In least-squares mode the history is the optimality residual
         (``ls_moment``), the fused residual is off, and ``errors`` are

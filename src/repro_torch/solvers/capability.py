@@ -7,9 +7,10 @@ A solver declares the system classes it supports::
 
 and :func:`resolve_plan` checks the system and the plan against it before
 any work happens.  The plan fields whose execution is not ported yet —
-``store`` (ROADMAP A12), ``backend="mesh"`` (A14), ``redundancy > 1``
-(A15) and ``precision="mixed"`` (A10) — raise ``NotImplementedError``
-naming their item; they never degrade silently.  The one downgrade is
+``store`` (ROADMAP A12), ``backend="mesh"`` (A14) and ``redundancy > 1``
+(A15) — raise ``NotImplementedError`` naming their item; they never
+degrade silently.  ``precision`` is checked as the reference checks it
+(``Solver._check_precision``), after the kernel flag is resolved.  The one downgrade is
 the reference's own, and it warns: ``kernel=True`` on a sparse system
 for a solver without a kernel runs the unfused sparse path.
 """
@@ -21,8 +22,6 @@ import warnings
 from typing import Any
 
 log = logging.getLogger(__name__)
-
-PRECISIONS = ("default", "mixed")
 
 
 class CapabilityError(ValueError):
@@ -99,9 +98,12 @@ class ExecutionPlan:
 def resolve_plan(solver, sys, plan: ExecutionPlan, *,
                  context: str = "solve") -> ExecutionPlan:
     """Validate ``plan`` against ``solver``/``sys`` once, before any work;
-    returns the plan with ``kernel`` resolved (:func:`resolve_use_kernel`)."""
+    returns the plan with ``kernel`` resolved (:func:`resolve_use_kernel`).
+    The order is the reference's: the sparse downgrade, then the
+    precision check against the resolved flag."""
     check_capability(solver, sys, context=context)
     kernel = resolve_use_kernel(solver, sys, plan.kernel)
+    solver._check_precision(plan.precision, kernel)
     if kernel != plan.kernel:
         plan = dataclasses.replace(plan, kernel=kernel)
     if plan.backend == "mesh":
@@ -110,12 +112,6 @@ def resolve_plan(solver, sys, plan: ExecutionPlan, *,
     if plan.backend != "local":
         raise ValueError(f"unknown backend {plan.backend!r}; "
                          "expected 'local' or 'mesh'")
-    if plan.precision == "mixed":
-        raise NotImplementedError(
-            "precision='mixed' is not ported yet (ROADMAP A10)")
-    if plan.precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {plan.precision!r}; expected "
-                         f"'default' or 'mixed'")
     if plan.redundancy > 1:
         raise NotImplementedError(
             "redundant execution is not ported yet (ROADMAP A15)")

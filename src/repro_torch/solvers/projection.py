@@ -11,7 +11,8 @@ through the CUDA kernels on the card (APC and consensus:
 ``cimmino_scatter``; on sparse systems ``sparse_gather``/
 ``sparse_cimmino_gather``/``sparse_scatter`` over the compressed
 support), at every batch size, and through their plain versions on the
-CPU.
+CPU.  ``precision="mixed"`` stores the kernels' A and B in bfloat16
+(``cast_factors``).
 
 Every hook is batch-polymorphic: states may carry a leading (k,) RHS
 axis — x (k, m, n), x̄ (k, n), b (k, m, p) — so ``step_many`` is ``step``
@@ -67,6 +68,28 @@ def _with_pinv(factors: ProjFactors) -> ProjFactors:
     return factors._replace(B=B.transpose(-1, -2).contiguous())
 
 
+def _cast_proj_factors(factors: ProjFactors, precision: str) -> ProjFactors:
+    """``precision="mixed"``: bfloat16 storage for the streamed A (or a
+    ``SparseBlocks``' vals) and B.
+
+    The Cholesky factors stay in the working dtype, and the kernels
+    accumulate every contraction in the dtype of x (float64 on the main
+    path: the A/B stream goes from 8 bytes an element to 2).  Every
+    consumer of the cast blocks promotes them back to x's dtype, so
+    ``init`` and the steps run on the bf16-rounded A, as the reference's
+    do.  Idempotent.
+    """
+    if precision == "default":
+        return factors
+    bf16 = torch.bfloat16
+    if blockops.is_sparse(factors.A):
+        A = factors.A._replace(vals=factors.A.vals.to(bf16))
+    else:
+        A = factors.A.to(bf16)
+    B = None if factors.B is None else factors.B.to(bf16)
+    return ProjFactors(A=A, chol=factors.chol, B=B)
+
+
 def _min_norm_solutions(factors: ProjFactors,
                         b: torch.Tensor) -> torch.Tensor:
     """x0_i = A_iᵀ (A_i A_iᵀ)⁻¹ b_i — the min-norm local solutions, for b
@@ -110,6 +133,9 @@ class APCSolver(Solver):
 
     def kernel_factors(self, factors):
         return _with_pinv(factors)
+
+    def cast_factors(self, factors, precision):
+        return _cast_proj_factors(factors, precision)
 
     def init(self, factors, b, params):
         x0 = _min_norm_solutions(factors, b)
@@ -202,6 +228,9 @@ class CimminoSolver(Solver):
 
     def kernel_factors(self, factors):
         return _with_pinv(factors)
+
+    def cast_factors(self, factors, precision):
+        return _cast_proj_factors(factors, precision)
 
     def init(self, factors, b, params):
         """x̄ = 0 in b's dtype: (n,), or (k, n) for a batch b (k, m, p)."""

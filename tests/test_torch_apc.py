@@ -166,10 +166,14 @@ def test_plan_rejections(systems):
     s, sys_ = solvers.get("apc"), systems[1]
     for plan, item in [(solvers.ExecutionPlan(backend="mesh"), "A14"),
                        (solvers.ExecutionPlan(store=object()), "A12"),
-                       (solvers.ExecutionPlan(redundancy=2), "A15"),
-                       (solvers.ExecutionPlan(precision="mixed"), "A10")]:
+                       (solvers.ExecutionPlan(redundancy=2), "A15")]:
         with pytest.raises(NotImplementedError, match=item):
             s.solve(sys_, iters=1, plan=plan, gamma=1.0, eta=1.0)
+    # precision="mixed" is ported; without the kernel path it is the
+    # reference's error (tests/test_torch_mixed.py holds the rest)
+    with pytest.raises(ValueError, match="use_kernel"):
+        s.solve(sys_, iters=1, plan=solvers.ExecutionPlan(precision="mixed"),
+                gamma=1.0, eta=1.0)
     with pytest.raises(ValueError, match="backend"):
         s.solve(sys_, iters=1, plan=solvers.ExecutionPlan(backend="tpu"))
     A = torch.as_tensor(np.random.default_rng(0).standard_normal((12, 5)))

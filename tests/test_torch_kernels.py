@@ -7,6 +7,8 @@ seeded inputs, the reference's tolerances (tests/test_kernels.py TOL,
 relative to max|ref| + 1).  The CUDA kernels themselves are held against
 the same plain versions on the card by chip_smoke.py.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -139,7 +141,8 @@ def test_ctypes_signatures_match_the_cuda_source():
     import ctypes
     import re
     src = (bp.CSRC / "block_projection.cu").read_text()
-    body = src[src.index('extern "C" {'):]
+    # the entries come from one macro, instantiated once per dtype pair
+    body = src[src.index('extern "C" {'):].replace("\\\n", "\n")
     kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
              "int64_t": ctypes.c_int64, "double": ctypes.c_double}
     def types(params):
@@ -147,12 +150,17 @@ def test_ctypes_signatures_match_the_cuda_source():
                 for p in params.split(",")]
 
     found = 0
-    for name, params in re.findall(r"int (\w+)\(([^)]*)\)", body):
-        kernel, dt = name.rsplit("_", 1)
-        assert dt in ("f64", "f32") and kernel in bp.ARGTYPES, name
-        assert types(params) == bp.ARGTYPES[kernel], name
+    for kernel, params in re.findall(r"int (\w+)_##SUFFIX\(([^)]*)\)",
+                                     body):
+        assert kernel in bp.ARGTYPES, kernel
+        assert types(params) == bp.ARGTYPES[kernel], kernel
         found += 1
-    assert found == 2 * len(bp.KERNELS)
+    assert found == len(bp.KERNELS)
+    cxx = {torch.float64: "double", torch.float32: "float",
+           torch.bfloat16: "__nv_bfloat16"}
+    assert re.findall(r"^REPRO_ENTRIES\((\w+), (\w+), (\w+)\)$", body,
+                      re.M) == [(suffix, cxx[tm], cxx[t])
+                                for (tm, t), suffix in bp.PAIRS.items()]
     # the ring's shared-memory query returns int64_t and takes the form
     (params,) = re.findall(r"int64_t gather_ring_smem\(([^)]*)\)", body)
     assert types(params) == bp.RING_SMEM_ARGTYPES
@@ -162,9 +170,8 @@ def test_ctypes_signatures_match_the_cuda_source():
     # the four gathers take their instance as the int64 before the stream
     for kernel in bp.GATHERS:
         assert bp.ARGTYPES[kernel][-2:] == [ctypes.c_int64, ctypes.c_void_p]
-        for dt in ("f64", "f32"):
-            (params,) = re.findall(rf"int {kernel}_{dt}\(([^)]*)\)", body)
-            assert params.split(",")[-2].split() == ["int64_t", "instance"]
+        (params,) = re.findall(rf"int {kernel}_##SUFFIX\(([^)]*)\)", body)
+        assert params.split(",")[-2].split() == ["int64_t", "instance"]
     assert "kRowDot = {row_dot}, kRing = {ring};".format(
         **bp.INSTANCES) in src
     # each gather has its ring kernel
@@ -282,19 +289,61 @@ def test_gather_instance_argument_never_reaches_the_cpu(instance):
 
 
 def test_ring_smem_bytes_takes_the_form(monkeypatch):
-    """``ring_smem_bytes`` hands the library the itemsize, k and the
-    form's int64; an unknown form raises before the library is asked."""
+    """``ring_smem_bytes`` hands the library the matrix's and the compute
+    type's itemsizes, k and the form's int64; an unknown form raises
+    before the library is asked."""
     asked = []
 
     class Lib:
-        def gather_ring_smem(self, itemsize, k, form):
-            asked.append((itemsize, k, form))
+        def gather_ring_smem(self, matrix_itemsize, itemsize, k, form):
+            asked.append((matrix_itemsize, itemsize, k, form))
             return 1
 
     monkeypatch.setattr(bp, "_library", Lib)
-    assert bp.ring_smem_bytes(torch.float64, 8, "cimmino") == 1
-    assert bp.ring_smem_bytes(torch.float32, 3, "apc") == 1
-    assert asked == [(8, 8, bp.FORMS["cimmino"]), (4, 3, bp.FORMS["apc"])]
+    assert bp.ring_smem_bytes(torch.float64, torch.float64, 8,
+                              "cimmino") == 1
+    assert bp.ring_smem_bytes(torch.float32, torch.float32, 3, "apc") == 1
+    assert bp.ring_smem_bytes(torch.bfloat16, torch.float64, 2, "apc") == 1
+    assert asked == [(8, 8, 8, bp.FORMS["cimmino"]),
+                     (4, 4, 3, bp.FORMS["apc"]), (2, 8, 2, bp.FORMS["apc"])]
     with pytest.raises(KeyError):
-        bp.ring_smem_bytes(torch.float64, 8, "sparse")
-    assert len(asked) == 2
+        bp.ring_smem_bytes(torch.float64, torch.float64, 8, "sparse")
+    assert len(asked) == 3
+
+
+@pytest.mark.parametrize("pair", list(bp.PAIRS))
+def test_launch_counts_by_dtype_pair(monkeypatch, pair):
+    """``_launch`` calls the C entry of the matrix's and the output's
+    dtype pair and counts the launch under that pair alone:
+    ``launch_counts(suffix)`` reads one pair, ``launch_counts()`` all of
+    them, and an unknown suffix raises."""
+    called = []
+
+    class Lib:
+        def __getattr__(self, entry):
+            return lambda *args: called.append((entry, args)) or 0
+
+    class Stream:
+        cuda_stream = 7
+
+    monkeypatch.setattr(bp, "_library", Lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda _: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    monkeypatch.setattr(bp, "_launches", dict.fromkeys(bp._launches, 0))
+    matrix_dtype, dtype = pair
+    suffix = bp.PAIRS[pair]
+    bp._launch("cimmino_scatter", torch.zeros(1, dtype=matrix_dtype),
+               torch.zeros(1, dtype=dtype), 1, 2)
+    bp._launch("cimmino_scatter", torch.zeros(1, dtype=matrix_dtype),
+               torch.zeros(1, dtype=dtype), 3, 4)
+    assert called == [(f"cimmino_scatter_{suffix}", (1, 2, 7)),
+                      (f"cimmino_scatter_{suffix}", (3, 4, 7))]
+    want = {kn: 2 if kn == "cimmino_scatter" else 0 for kn in bp.KERNELS}
+    assert bp.launch_counts() == bp.launch_counts(suffix) == want
+    for other in set(bp.PAIRS.values()) - {suffix}:
+        assert bp.launch_counts(other) == dict.fromkeys(bp.KERNELS, 0)
+    with pytest.raises(ValueError):
+        bp.launch_counts("f16")
+    bp.reset_launch_counts()
+    assert bp.launch_counts(suffix) == dict.fromkeys(bp.KERNELS, 0)

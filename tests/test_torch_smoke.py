@@ -7,8 +7,9 @@ script at a tiny size with the card faked: ``torch.cuda`` reports one
 device, tensors asked for on ``cuda`` stay on the CPU, and each
 launcher of ``kernels.block_projection`` is replaced by a counting
 stand-in that asserts the launcher's contract (matrix stacks contiguous,
-a unit stride along every operand's last axis, ``cols`` a contiguous
-int64 (m, w) tensor, the scatter's output not aliasing X) and computes
+the matrix and operand dtypes a pair the kernels take, a unit stride
+along every operand's last axis, ``cols`` a contiguous int64 (m, w)
+tensor, the scatter's output not aliasing X) and computes
 its result row by row from the plain versions, storing the sparse
 scatter's support columns as the kernel does.  It also checks that the
 script refuses to run without a card.
@@ -61,12 +62,14 @@ class _Event:
 
 def _contract(name, matrix, operands, cols=None):
     assert matrix.is_contiguous(), (name, "matrix stack not contiguous")
+    assert len({t.dtype for t in operands}) == 1, name
+    assert (matrix.dtype, operands[0].dtype) in bp.PAIRS, name
     for t in operands:
         assert t.shape[-1] <= 1 or t.stride(-1) == 1, (name, t.stride())
     if cols is not None:
         assert cols.dtype == torch.int64 and cols.is_contiguous(), name
         assert cols.dim() == 2 and cols.shape[0] == matrix.shape[0], name
-    bp._launches[name] += 1
+    bp._launches[(name, bp.PAIRS[(matrix.dtype, operands[0].dtype)])] += 1
 
 
 def _by_row(k, f):
@@ -114,7 +117,7 @@ def _fake_launchers():
         _contract("sparse_scatter", Bv,
                   [U, out] + ([] if X is None else [X, Xbar]), cols)
         C = _by_row(U.shape[1], lambda i: torch.einsum(
-            "mwp,mkp->mkw", Bv, U[:, i]))
+            "mwp,mkp->mkw", Bv.to(U.dtype), U[:, i]))
         idx = cols[:, None, :].expand(out.shape[:-1] + (-1,))
         if X is not None:
             assert out.data_ptr() != X.data_ptr()
@@ -163,7 +166,7 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     lib = tmp_path / "libblock_projection.so"
     lib.write_text("")
     ring = ("ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__"
-            "fa3dee60_19_block_projection_cu_8ac00be0{}IdLi8EEEvPKT_' for "
+            "fa3dee60_19_block_projection_cu_8ac00be0{}I{}dLi8EEEvPKT_' for "
             "'sm_90a'\n"
             "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
             "loads\n"
@@ -171,21 +174,21 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             "smem\n")
     lib.with_suffix(".log").write_text(
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121sparse_"
-        "scatter_kernelIdLi8ELi2ELb1EEEvPKT_' for 'sm_90a'\n"
+        "scatter_kernelIddLi8ELi2ELb1EEEvPKT_' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes "
         "smem\n" + "".join(
-            ring.format(f"{len(kn) + 12}{kn}_ring_kernel")
-            for kn in bp.GATHERS))
+            ring.format(f"{len(kn) + 12}{kn}_ring_kernel", tm)
+            for kn in bp.GATHERS for tm in ("d", "13__nv_bfloat16")))
     monkeypatch.setattr(bp, "build", lambda sources=bp.SOURCES: {
         "block_projection.cu": lib})
     # the two forms' stage sizes at KC = 8: (64 + 16) and (64 + 8) rows of
     # 512 bytes, 5 stages each
-    monkeypatch.setattr(bp, "ring_smem_bytes", lambda dtype, k, form: {
+    monkeypatch.setattr(bp, "ring_smem_bytes", lambda mdt, dt, k, form: {
         "apc": 204800, "cimmino": 184320}[form])
     for name, fn in _fake_launchers().items():
         monkeypatch.setattr(bp, name, fn)
-    monkeypatch.setattr(bp, "_launches", dict.fromkeys(bp.KERNELS, 0))
+    monkeypatch.setattr(bp, "_launches", dict.fromkeys(bp._launches, 0))
 
     assert smoke.main() == 0
     lines = capsys.readouterr().out.splitlines()
@@ -201,6 +204,9 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             "184320 B dynamic") in text
     assert ("sparse_cimmino_gather_ring f64 KC=8 spill 0 B: 168 regs, smem "
             "128 B + 184320 B dynamic") in text
+    # and the bf16-stored instances, tagged by their matrix/compute types
+    assert ("apc_gather_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem 128 B "
+            "+ 204800 B dynamic") in text
     # both instances of the four gathers where the ring fits, the row dot
     # alone where it does not (f32 rows of 130)
     for kn in bp.GATHERS:
@@ -217,13 +223,51 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     for label in ("phase 8 start", "phase 8 end", "phase 11 start",
                   "phase 11 end"):
         assert sum(x.startswith(f"{label} clocks") for x in lines) == 1
+    # phase 2 holds every kernel's mixed forms against the plain versions
+    for pr in ("bfloat16/float64", "bfloat16/float32"):
+        assert sum(x.startswith("phase 2 ") and f" {pr}: " in x
+                   for x in lines) >= 8, pr
+    # phase 12: the mixed path, dense and sparse, and its solve_many
+    for half in ("dense", "sparse"):
+        for sname in ("apc", "consensus", "cimmino"):
+            assert sum(x.startswith(f"phase 12 {half} {sname} precision="
+                                    "mixed:") and "upcast twin" in x
+                       for x in lines) == 1, (half, sname)
+    assert sum(x.startswith("phase 12 solve_many k=8 precision=mixed:")
+               for x in lines) == 1
+    # and in float32, the kernels' bfloat16/float32 form
+    for half in ("dense", "sparse"):
+        for sname in ("apc", "cimmino"):
+            assert sum(x.startswith(f"phase 12 {half} {sname} precision="
+                                    "mixed float32:") for x in lines) == 1
+    # phases 8 and 11 time every kernel's mixed forms and the mixed
+    # iterations
+    for phase, kns in ((8, bp.KERNELS[:4]), (11, bp.KERNELS[4:])):
+        for kn in kns:
+            assert sum(x.startswith(f"phase {phase} {kn} k=")
+                       and "mixed forms: bfloat16/float64" in x
+                       for x in lines) == 2, kn
+    assert sum(x.startswith("phase 8 iteration k=") and "precision=mixed" in x
+               for x in lines) == 2
+    assert sum(x.startswith("phase 11 iteration k=")
+               and "precision=mixed" in x for x in lines) == 4
     kernels = json.loads(next(x for x in lines if x.startswith(
         '{"kernels"')))["kernels"]
     assert [k["name"] for k in kernels] == list(bp.KERNELS)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "forms"}
+    form_keys = {"pair", "k", "ms", "bound_ms", "bound_by", "launches",
+                 "max_abs_err", "library_ms", "library"}
     for k in kernels:
         assert set(k) == keys and k["launches"] == 40, k
         assert np.isfinite([k["ms"], k["plain_ms"], k["bound_ms"]]).all()
+        assert [f["pair"] for f in k["forms"]] == [
+            "float64/float64", "bfloat16/float64", "bfloat16/float32"]
+        # each form's count from its own runs
+        assert [f["launches"] for f in k["forms"]] == [40, 40, 40], k
+        for f in k["forms"]:
+            assert set(f) == form_keys and np.isfinite(f["ms"]), f
+        assert k["forms"][1]["library_ms"] is None
+        assert k["forms"][1]["library"].startswith("none")
     assert [k["replaces"].rsplit(":", 1)[1] for k in kernels] == [
         "173", "210", "246", "274", "313", "314", "315"]

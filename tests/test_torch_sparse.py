@@ -578,3 +578,20 @@ def test_cli_runs_a_sparse_problem():
     with contextlib.redirect_stdout(io.StringIO()):
         assert cli.main(argv + ["--device", "cpu", "--method", "cimmino",
                                 "--use-kernel"]) == 0
+    # a method without a kernel, --use-kernel on a sparse problem: both
+    # CLIs warn and solve unfused, and print the same lines
+    kern = ["--method", "dgd", "--iters", "5", "--use-kernel"]
+    outs = []
+    for main, extra in ((ref_cli.main, []), (cli.main, ["--device", "cpu"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), pytest.warns(
+                RuntimeWarning, match="unfused sparse path"):
+            assert main(argv + kern + extra) == 0
+        outs.append(buf.getvalue().splitlines())
+    ref_lines, lines = outs
+    assert lines[:-1] == ref_lines[:-1]
+    assert lines[-1].split(":", 1)[1] == ref_lines[-1].split(":", 1)[1]
+    # on a dense problem the same request is the library's ValueError
+    with pytest.raises(ValueError, match="no kernel path"):
+        cli.main(["--problem", "std_gaussian", "--workers", "4", "--iters",
+                  "5", "--method", "dgd", "--use-kernel", "--device", "cpu"])
