@@ -10,7 +10,7 @@ script exits non-zero without its last line:
    the CUDA kernels built from the checkout's sources, with each
    instance's registers, shared memory and spill bytes (none allowed in
    the ring instances that compute in float64, the bf16-stored ones
-   included);
+   included, and each of the six rings present);
 2. kernel vs plain version on the card: ``apc_gather``/``apc_scatter``
    and ``cimmino_gather``/``cimmino_scatter`` against their plain PyTorch
    versions at ragged shapes and at the main path's shapes, and
@@ -19,9 +19,12 @@ script exits non-zero without its last line:
    support width of one chunk and a bit, and the sparse path's shapes;
    float64 and float32, each with its matrix in its own dtype and in
    bfloat16 (the mixed forms), k = 1..11, a batch row bit-identical to a
-   k = 1 call; both instances of each of the four gathers (the ring,
-   where its alignment admits the shape, and the row dot) against the
-   plain version and bit-identical to each other;
+   k = 1 call; both instances of each of the four gathers, of
+   ``cimmino_scatter`` and of both forms of ``sparse_scatter`` (the
+   ring, where its alignment admits the shape, and the row dot) against
+   the plain version and bit-identical to each other (a bf16-stored
+   scatter's ring to the ring on its matrix widened, as its row dot sums
+   in another order);
 3. the APC main path at full size: a 32768 x 16384 tall Gaussian system
    on 16 workers (float64), ``analyze``, then ``solve`` on the kernel
    path — error to x_true, one launch of each kernel per iteration, the
@@ -36,12 +39,15 @@ script exits non-zero without its last line:
    final residual, iters_to_tol, theoretical and measured rate;
 7. the CLI entry point ``repro_torch.launch.solve`` in-process, for
    ``--method apc`` and ``--method cimmino``, both with ``--use-kernel``;
-8. CUDA-event times of each dense kernel, its plain version, one
-   torch.matmul of the same product (and, for a gather, its row-dot
-   instance) and its bf16/float64 and bf16/float32 forms, timed in
-   turns, and of the whole APC and Cimmino iterations, float64 and
-   mixed, beside each kernel's bound, with the card's clocks, power,
-   temperature and throttle reasons at the phase's start and end;
+8. CUDA-event times of each dense kernel in each of its forms
+   (float64, float32, bf16/float64, bf16/float32), timed in turns beside
+   each form's bound: the float64 form's plain version, one torch.matmul
+   of the same product where the matrix and the operands share a dtype,
+   the row-dot instance of a gather (float64) and of ``cimmino_scatter``
+   (every form), with the ring asserted to be the instance the main
+   path's shapes take; and of the whole APC and Cimmino iterations,
+   float64 and mixed, with the card's clocks, power, temperature and
+   throttle reasons at the phase's start and end;
 9. the sparse path at full size: a banded 32768 x 32768 system on 16
    workers (float64, support width 2064), one spectral analysis, then
    APC, consensus and Cimmino on the sparse kernels — exactly one launch
@@ -53,12 +59,12 @@ script exits non-zero without its last line:
    DGD), an 8192 x 4096 noisy system solved by Cimmino and DGD against
    each solver's ``ls_reference``, and the CLI on ``banded`` with APC on
    the sparse kernels;
-11. CUDA-event times of the sparse kernels (plain version, torch.bmm on
-   the pre-gathered operands, the gathers' row-dot instances, the mixed
-   forms, bound), timed in turns, and of the sparse and densified
-   iterations and the sparse mixed ones, with the card's clocks as in
-   phase 8, then the ``{"kernels": [...]}`` line with all seven, each
-   with its forms;
+11. CUDA-event times of the sparse kernels as in phase 8 (torch.bmm on
+   the pre-gathered operands; both forms of ``sparse_scatter``, each
+   with its row-dot instance in every form), and of the sparse and
+   densified iterations and the sparse mixed ones, with the card's
+   clocks as in phase 8, then the ``{"kernels": [...]}`` line with all
+   seven, each with its forms;
 12. ``precision="mixed"`` (bf16-stored A and B, float64 x), in two
    halves: after phase 7 on the dense system and after phase 9 on the
    sparse one, APC, consensus and Cimmino — exactly one launch of each
@@ -66,7 +72,9 @@ script exits non-zero without its last line:
    the "upcast twin" (the default solve on the bf16-rounded factors
    widened to float64, through the float64 kernels) within 1e-9, and the
    float64 run's within the reference's bf16 envelope — and dense APC
-   ``solve_many`` with 8 right-hand sides.
+   ``solve_many`` with 8 right-hand sides; then APC and Cimmino on a
+   float32 copy of each system, default (the kernels' float32 form) and
+   mixed (bf16/float32).
 
 Every time is the median over rounds of a run of back-to-back calls
 between two CUDA events, divided by the run's length: the host's time
@@ -105,6 +113,10 @@ BF16 = torch.bfloat16
 # twin: 1e-9 absolute
 MIXED_TOL = dict(rtol=0.5, atol=5e-2)
 TWIN_TOL = 1e-9
+# the default solve in float32 against the float64 run: about 80 float32
+# epsilons absolute (the residual's own rounding is some 6 of them), so a
+# float32 history that stalls or converges at another rate fails
+F32_TOL = dict(rtol=1e-3, atol=1e-5)
 # the kernels' (matrix, compute) dtype forms beside float64/float64
 MIXED_FORMS = ((BF16, torch.float64), (BF16, torch.float32))
 NO_LIBRARY = ("none: torch.matmul and torch.bmm refuse a bfloat16 matrix "
@@ -202,8 +214,8 @@ def ptxas_summary(log: str, dynamic_smem) -> list[str]:
     matrix with float64 compute; the sparse scatter's two forms are tagged
     apc/cimmino; a ring instance's shared memory adds
     ``dynamic_smem(matrix dtype, dtype, KC, form)`` bytes of dynamic
-    shared memory, the form "cimmino" for the Cimmino gathers' rings,
-    else "apc")."""
+    shared memory, the form "apc" for the APC gathers' rings, else
+    "cimmino": the Cimmino gathers' and the scatters' stage)."""
     out, kernel = [], None
     for line in log.splitlines():
         hit = re.search(r"entry function '\S*?((?:apc|cimmino|sparse)_\w+?)"
@@ -217,7 +229,9 @@ def ptxas_summary(log: str, dynamic_smem) -> list[str]:
                       + ("" if hit[5] is None else
                          " apc" if hit[5] == "1" else " cimmino"))
             ring = hit[1].endswith("_ring")
-            form = "cimmino" if "cimmino" in hit[1] else "apc"
+            form = ("apc" if hit[1] in ("apc_gather_ring",
+                                        "sparse_gather_ring")
+                    else "cimmino")
             kc = int(hit[4])
         spill = re.search(r"(\d+) bytes spill stores", line)
         if kernel and spill:
@@ -332,7 +346,7 @@ def main() -> int:
         rings = [x for x in ptxas if x.split()[1] == tag and "_ring " in x]
         assert all(" spill 0 B:" in x for x in rings), rings
         assert {x.split()[0] for x in rings} == {
-            f"{kn}_ring" for kn in bp.GATHERS}, rings
+            f"{kn}_ring" for kn in bp.RINGS}, rings
 
     # 2. kernel vs plain version ------------------------------------------
     max_abs = {}             # (kernel, form) -> max|Δ| at the main shapes
@@ -348,19 +362,26 @@ def main() -> int:
         return e
 
     def instances(kname, launch, want, matrix, copied, pr, label, record):
-        """Both instances of a gather, ``launch(instance)``: the row dot,
-        and the ring where ``gather_instance`` admits these operands;
-        each against the plain version, and the two bit-identical.
-        Returns the instances that ran."""
+        """Both instances of a kernel of bp.RINGS, ``launch(instance,
+        matrix)``: the row dot, and the ring where ``gather_instance``
+        admits these operands; each against the plain version, and the
+        two bit-identical — but for a bf16-stored scatter, whose row dot
+        sums in the packed order: its ring is bit-identical to the ring on
+        the matrix widened to the compute dtype.  Returns what held."""
         ring = bp.gather_instance(matrix, *copied) == "ring"
-        outs = {inst: launch(inst) for inst in bp.INSTANCES
+        outs = {inst: launch(inst, matrix) for inst in bp.INSTANCES
                 if inst == "row_dot" or ring}
         torch.cuda.synchronize()
         for got in outs.values():
             check(kname, got.reshape(want.shape), want, pr, label, record)
-        if ring:
-            assert torch.equal(outs["ring"], outs["row_dot"]), (kname, label)
-        return "ring≡row_dot" if ring else "row_dot"
+        if not ring:
+            return "row_dot"
+        if kname in bp.SCATTERS and matrix.dtype == BF16:
+            wide = launch("ring", matrix.to(copied[0].dtype))
+            assert torch.equal(outs["ring"], wide), (kname, label)
+            return "ring≡widened ring"
+        assert torch.equal(outs["ring"], outs["row_dot"]), (kname, label)
+        return "ring≡row_dot"
 
     def compare(A, B, X, Xb, V, gamma, label, record=False):
         """The four dense kernels against their plain versions; V stands in for
@@ -381,16 +402,24 @@ def main() -> int:
         errs = {kn: check(kn, got, want, pr, label, record)
                 for kn, (got, want) in outs.items()}
         X3, Xb3 = (X, Xb) if X.dim() == 3 else (X[:, None], Xb[None])
-        ran = instances("apc_gather", lambda inst: bp.apc_gather(
-            A, X3, Xb3, _instance=inst), outs["apc_gather"][1], A,
-            (X3, Xb3), pr, label, record)
-        ran_c = instances("cimmino_gather", lambda inst: bp.cimmino_gather(
-            A, Xb3, _instance=inst), outs["cimmino_gather"][1], A, (Xb3,),
-            pr, label, record)
+        V3 = V if V.dim() == 3 else V[:, None]
+        ran = {
+            "apc_gather": instances(
+                "apc_gather", lambda inst, M: bp.apc_gather(
+                    M, X3, Xb3, _instance=inst), outs["apc_gather"][1], A,
+                (X3, Xb3), pr, label, record),
+            "cimmino_gather": instances(
+                "cimmino_gather", lambda inst, M: bp.cimmino_gather(
+                    M, Xb3, _instance=inst), outs["cimmino_gather"][1], A,
+                (Xb3,), pr, label, record),
+            "cimmino_scatter": instances(
+                "cimmino_scatter", lambda inst, M: bp.cimmino_scatter(
+                    M, V3, _instance=inst), outs["cimmino_scatter"][1], B,
+                (V3,), pr, label, record)}
         say(f"phase 2 {label} {pr}: " + " ".join(
             f"{kn} {e:.3e}" for kn, e in errs.items())
-            + f" (tol {TOL[X.dtype]:.0e}); apc_gather {ran}; cimmino_gather "
-            f"{ran_c}")
+            + f" (tol {TOL[X.dtype]:.0e}); "
+            + "; ".join(f"{kn} {how}" for kn, how in ran.items()))
         if X.dim() == 3:    # a batch row is bit-identical to a k=1 call
             i = X.shape[1] - 1
             rows = {
@@ -421,17 +450,33 @@ def main() -> int:
         errs = {kn: max(check(kn, got, want, pr, label, record)
                         for got, want in outs) for kn, outs in pairs.items()}
         X3, Xb3 = (X, Xb) if X.dim() == 3 else (X[:, None], Xb[None])
-        ran = instances("sparse_gather", lambda inst: bp.sparse_gather(
-            vals, cols, X3, Xb3, _instance=inst), Ur, vals, (), pr, label,
-            record)
-        ran_c = instances(
-            "sparse_cimmino_gather", lambda inst: bp.sparse_cimmino_gather(
-                vals, cols, Xb3, _instance=inst), Ucr, vals, (), pr, label,
-            record)
+        V3 = V if V.dim() == 3 else V[:, None]
+        Ur3 = Ur if Ur.dim() == 3 else Ur[:, None]
+        ran = {
+            "sparse_gather": instances(
+                "sparse_gather", lambda inst, M: bp.sparse_gather(
+                    M, cols, X3, Xb3, _instance=inst), Ur, vals, (), pr,
+                label, record),
+            "sparse_cimmino_gather": instances(
+                "sparse_cimmino_gather", lambda inst, M:
+                bp.sparse_cimmino_gather(M, cols, Xb3, _instance=inst), Ucr,
+                vals, (), pr, label, record)}
+        # both forms of sparse_scatter on the plain gathers' U (APC, into
+        # the AXPY pre-pass) and on V (Cimmino, into zeros)
+        Y0 = X3 + gamma * (Xb3 - X3)
+        for form, U_, out0, kw in (
+                ("apc", Ur3, Y0, dict(X=X3, Xbar=Xb3, gamma=gamma)),
+                ("cimmino", V3, torch.zeros_like(Y0), {})):
+            want = ops.sparse_scatter_ref(Bv, cols, U_, out0, kw.get("X"),
+                                          kw.get("Xbar"), gamma)
+            ran[f"sparse_scatter {form}"] = instances(
+                "sparse_scatter", lambda inst, M: bp.sparse_scatter(
+                    M, cols, U_, out0.clone(), **kw, _instance=inst), want,
+                Bv, (U_,), pr, label, record)
         say(f"phase 2 {label} {pr}: " + " ".join(
             f"{kn} {e:.3e}" for kn, e in errs.items())
-            + f" (tol {TOL[X.dtype]:.0e}); sparse_gather {ran}; "
-            f"sparse_cimmino_gather {ran_c}")
+            + f" (tol {TOL[X.dtype]:.0e}); "
+            + "; ".join(f"{kn} {how}" for kn, how in ran.items()))
         if X.dim() == 3:    # a batch row is bit-identical to a k=1 call
             i = X.shape[1] - 1
             Y1, U1 = ops.sparse_proj_update(vals, cols, Bv, X[:, i], Xb[i],
@@ -725,8 +770,8 @@ def main() -> int:
         return ProjFactors(A=A, chol=facs.chol, B=facs.B.double())
 
     # launches of each mixed run, by (system, solver): of the bf16/float64
-    # form, and of the bf16/float32 form in float32_mixed
-    mixed_launches, mixed32_launches = {}, {}
+    # form, and in float32_solves of the bf16/float32 and float32 forms
+    mixed_launches, mixed32_launches, f32_launches = {}, {}, {}
 
     def mixed_solves(label, system, facs, prm_of, uses, f64_runs):
         """APC, consensus and Cimmino with precision="mixed" on ``facs``
@@ -775,45 +820,59 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    def float32_mixed(label, system, facs, prm_of, uses, f64_runs):
-        """APC and Cimmino with precision="mixed" in float32, the kernels'
-        bfloat16/float32 form: the system in float32 and ``facs`` (bf16 A
-        and B) with its Cholesky factor in float32.  Launches of that form
-        only, a bit-identical repeat, the float64 history within the
-        reference's bf16 envelope."""
+    def as_float32(facs):
+        """Kernel factors with every tensor cast to float32."""
+        A = facs.A
+        A = (A._replace(vals=A.vals.float()) if blockops.is_sparse(A)
+             else A.float())
+        return ProjFactors(A=A, chol=facs.chol.float(), B=facs.B.float())
+
+    def float32_solves(label, system, facs, mfacs, prm_of, uses, f64_runs):
+        """APC and Cimmino in float32: the default solve on ``facs`` cast
+        to float32 (the kernels' float32/float32 form) and the
+        precision="mixed" one on ``mfacs`` (bf16 A and B) with its
+        Cholesky factor in float32 (the bfloat16/float32 form), on the
+        system in float32.  Launches of the run's form only, a
+        bit-identical repeat, the float64 history within F32_TOL (the
+        float32 form) or the reference's bf16 envelope (the bf16/float32
+        form)."""
         sys32 = dataclasses.replace(
             system, A_blocks=system.A_blocks.float(),
             b_blocks=system.b_blocks.float(), x_true=system.x_true.float())
-        plan32 = solvers.ExecutionPlan(
-            kernel=True, precision="mixed",
-            factors=facs._replace(chol=facs.chol.float()))
-        for sname in ("apc", "cimmino"):
-            s = solvers.get(sname)
-            prm = prm_of[sname][0]
-            ops.reset_launch_counts()
-            t = time.time()
-            r = s.solve(sys32, iters=ITERS, plan=plan32, **prm)
-            torch.cuda.synchronize()
-            t_solve = time.time() - t
-            got = mixed32_launches[(label, sname)] = form_launches(
-                "bf16_f32")
-            assert got == {kn: ITERS if kn in uses[sname] else 0
-                           for kn in bp.KERNELS}, (label, sname, got)
-            assert r.x.dtype == torch.float32, r.x.dtype
-            r2 = s.solve(sys32, iters=ITERS, plan=plan32, **prm)
-            assert torch.equal(r2.residuals, r.residuals), (label, sname)
-            assert torch.equal(r2.x, r.x), (label, sname)
-            assert torch.isfinite(r.residuals).all(), (label, sname)
-            ref = f64_runs[sname]
-            d = float((r.residuals.double() - ref).abs().max())
-            assert torch.allclose(r.residuals.double(), ref,
-                                  **MIXED_TOL), (label, sname, d)
-            say(f"phase 12 {label} {sname} precision=mixed float32: "
-                f"{ITERS} iters in {t_solve:.2f} s, residual "
-                f"{float(r.residuals[-1]):.3e} (float64 run "
-                f"{float(ref[-1]):.3e}, max|Δ| {d:.3e}) launches {got}; "
-                f"repeat bit-identical")
-        del sys32, plan32
+        runs = (("float32", "f32", f32_launches, F32_TOL,
+                 solvers.ExecutionPlan(kernel=True,
+                                       factors=as_float32(facs))),
+                ("precision=mixed float32", "bf16_f32", mixed32_launches,
+                 MIXED_TOL, solvers.ExecutionPlan(
+                     kernel=True, precision="mixed",
+                     factors=mfacs._replace(chol=mfacs.chol.float()))))
+        for what, pair, counts, tol, plan32 in runs:
+            for sname in ("apc", "cimmino"):
+                s = solvers.get(sname)
+                prm = prm_of[sname][0]
+                ops.reset_launch_counts()
+                t = time.time()
+                r = s.solve(sys32, iters=ITERS, plan=plan32, **prm)
+                torch.cuda.synchronize()
+                t_solve = time.time() - t
+                got = counts[(label, sname)] = form_launches(pair)
+                assert got == {kn: ITERS if kn in uses[sname] else 0
+                               for kn in bp.KERNELS}, (label, sname, got)
+                assert r.x.dtype == torch.float32, r.x.dtype
+                r2 = s.solve(sys32, iters=ITERS, plan=plan32, **prm)
+                assert torch.equal(r2.residuals, r.residuals), (label, sname)
+                assert torch.equal(r2.x, r.x), (label, sname)
+                assert torch.isfinite(r.residuals).all(), (label, sname)
+                ref = f64_runs[sname]
+                d = float((r.residuals.double() - ref).abs().max())
+                assert torch.allclose(r.residuals.double(), ref,
+                                      **tol), (label, sname, d)
+                say(f"phase 12 {label} {sname} {what}: "
+                    f"{ITERS} iters in {t_solve:.2f} s, residual "
+                    f"{float(r.residuals[-1]):.3e} (float64 run "
+                    f"{float(ref[-1]):.3e}, max|Δ| {d:.3e}) launches {got}; "
+                    f"repeat bit-identical")
+        del sys32, runs
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -821,13 +880,13 @@ def main() -> int:
     say(f"phase 12 dense factors: A {tuple(mf.A.shape)} {mf.A.dtype}, B "
         f"{tuple(mf.B.shape)} {mf.B.dtype}, chol {mf.chol.dtype}")
     mixed_solves("dense", sys_, mf, pinned, USES, f64_hist)
-    float32_mixed("dense", sys_, mf, pinned, USES, f64_hist)
+    float32_solves("dense", sys_, factors, mf, pinned, USES, f64_hist)
     many_vs_rows(solver, params, "12", False, sys_, mf, xs, Bm, USES,
                  precision="mixed")
 
     # 8. times --------------------------------------------------------------
     rows = {}
-    itemsize = 8
+    F64, F32 = "float64/float64", "float32/float32"
 
     def bound(work, dtype):
         """(bound ms, "bytes" or "operations") of ``work`` = (bytes,
@@ -838,40 +897,59 @@ def main() -> int:
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
 
-    def time_kernel(phase, kname, k, shape, fns, work, library, forms):
-        """CUDA-event medians, in turns, of a kernel (``fns["ms"]``), its
-        plain version (``plain_ms``), the library yardstick
-        (``library_ms``), for a gather its row-dot instance
-        (``row_dot_ms``), and its mixed forms (``forms``: form label ->
-        (call, work, compute dtype)), beside each one's bound from its
-        work = (bytes, operations); kept in ``rows`` and printed."""
-        timed = dict(fns)
-        timed.update({pr: fn for pr, (fn, _, _) in forms.items()})
-        rows[(kname, k)] = r = medians_ms(timed)
-        b, by = bound(work, torch.float64)
-        r.update(bound_ms=b, bound_by=by)
-        r["forms"] = {"float64/float64": dict(ms=r["ms"], bound_ms=b,
-                                              bound_by=by)}
-        for pr, (_, w, dt) in forms.items():
-            b, by = bound(w, dt)
-            r["forms"][pr] = dict(ms=r.pop(pr), bound_ms=b, bound_by=by)
-        t_k = r["ms"]
-        say(f"phase {phase} {kname} k={k} {shape} float64: "
-            f"{t_k:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}, {r['bound_ms'] / t_k:.1%} of it), "
-            + (f"row-dot instance {r['row_dot_ms']:.4f} ms "
-               f"({r['bound_ms'] / r['row_dot_ms']:.1%}), "
-               if "row_dot_ms" in r else "")
-            + f"plain {r['plain_ms']:.4f} ms, {library} "
-            f"{r['library_ms']:.4f} ms")
-        say(f"phase {phase} {kname} k={k} {shape} mixed forms: " + "; ".join(
-            f"{pr} {f['ms']:.4f} ms (bound {f['bound_ms']:.4f} ms by "
-            f"{f['bound_by']}, {f['bound_ms'] / f['ms']:.1%} of it)"
-            for pr, f in r["forms"].items() if pr != "float64/float64")
-            + f"; library {NO_LIBRARY}")
+    def form_calls(kname, pr, calls):
+        """The calls timed of ``kname`` in form ``pr``: the kernel
+        (``ms``, the instance its launcher picks), its row-dot instance
+        (``row_dot_ms``: a gather's in float64, a redesigned scatter's in
+        every form), a redesigned scatter's ring instance (``ring_ms``,
+        every form: gather_instance picks the row dot at k = 1 in float64
+        and float32), its plain version (float64) and the library
+        yardstick (where the matrix and the operands share a dtype)."""
+        keep = {"ms"}
+        if kname in bp.SCATTERS or (kname in bp.GATHERS and pr == F64):
+            keep.add("row_dot_ms")
+        if kname in bp.SCATTERS:
+            keep.add("ring_ms")
+        if pr == F64:
+            keep.add("plain_ms")
+        if not pr.startswith("bfloat16"):
+            keep.add("library_ms")
+        return {key: fn for key, fn in calls.items() if key in keep}
+
+    def time_kernel(phase, kname, k, shape, forms, library, key=None):
+        """CUDA-event medians, in turns, of a kernel in each of its forms
+        (``forms``: form label -> (calls, work, compute dtype), the calls
+        those of form_calls), each beside its bound from its work =
+        (bytes, operations); kept in ``rows[(key or kname, k)]`` (the
+        float64 form's numbers at the top, every form's under "forms") and
+        printed, a line a form."""
+        timed = {(pr, name): fn for pr, (calls, _, _) in forms.items()
+                 for name, fn in form_calls(kname, pr, calls).items()}
+        t = medians_ms(timed)
+        r = {"forms": {}}
+        for pr, (_, work, dt) in forms.items():
+            f = {name: v for (fpr, name), v in t.items() if fpr == pr}
+            f["bound_ms"], f["bound_by"] = bound(work, dt)
+            r["forms"][pr] = f
+            b = f["bound_ms"]
+            say(f"phase {phase} {kname} k={k} {shape} {pr}: "
+                f"{f['ms']:.4f} ms (bound {b:.4f} ms by {f['bound_by']}, "
+                f"{b / f['ms']:.1%} of it)"
+                + "".join(f", {inst} instance {f[key]:.4f} ms "
+                          f"({b / f[key]:.1%})"
+                          for inst, key in (("ring", "ring_ms"),
+                                            ("row-dot", "row_dot_ms"))
+                          if key in f)
+                + (f", plain {f['plain_ms']:.4f} ms" if "plain_ms" in f
+                   else "")
+                + (f", {library} {f['library_ms']:.4f} ms"
+                   if "library_ms" in f else ", library none"))
+        r.update(r["forms"][F64])
+        rows[(key or kname, k)] = r
+
     def pair_bounds(k, uses):
-        """The bounds of an iteration's two kernels at k, summed: the
-        bf16/float64 form's and the float64 form's, ms."""
+        """The bounds of an iteration's two kernels (rows keys) at k,
+        summed: the bf16/float64 form's and the float64 form's, ms."""
         return (sum(rows[(kn, k)]["forms"]["bfloat16/float64"]["bound_ms"]
                     for kn in uses),
                 sum(rows[(kn, k)]["bound_ms"] for kn in uses))
@@ -879,19 +957,21 @@ def main() -> int:
     b = sys_.b_blocks
     nu = pinned["cimmino"][0]["nu"]
     cim = solvers.get("cimmino")
+    A, B = factors.A, factors.B
+    A16, B16 = mf.A, mf.B
+    A32, B32 = A.float(), B.float()
+    say(f"phase 8 library yardstick of the bf16-stored forms: {NO_LIBRARY}")
     clocks("phase 8 start")
     for k in (1, K_MANY):
         rng = np.random.default_rng(3 + k)
         X = torch.as_tensor(rng.standard_normal((k, m, n)), device="cuda")
         X3 = X.transpose(0, 1)                       # (m, k, n) view
         Xb = torch.as_tensor(rng.standard_normal((k, n)), device="cuda")
-        A, B = factors.A, factors.B
-        A16, B16 = mf.A, mf.B
         U = bp.apc_gather(A, X3, Xb)
         V = (b.expand(k, m, p).transpose(0, 1)
              - bp.cimmino_gather(A, Xb))             # (m, k, p)
         D = Xb - X3
-        X3f, Xbf, Uf, Vf = X3.float(), Xb.float(), U.float(), V.float()
+        X3f, Xbf, Uf, Vf, Df = (t.float() for t in (X3, Xb, U, V, D))
         mkn, mkp, kn_, mpn = m * k * n, m * k * p, k * n, m * p * n
 
         def dense_work(ms, xs):
@@ -908,44 +988,58 @@ def main() -> int:
                 "cimmino_scatter": (ms * mpn + xs * (mkp + mkn),
                                     2 * m * k * p * n),
             }
-        work = dense_work(itemsize, itemsize)
-        mixed_work = {"bfloat16/float64": (dense_work(2, 8), torch.float64),
-                      "bfloat16/float32": (dense_work(2, 4), torch.float32)}
-        mixed_calls = {
-            "apc_gather": (lambda: bp.apc_gather(A16, X3, Xb),
-                           lambda: bp.apc_gather(A16, X3f, Xbf)),
-            "apc_scatter": (lambda: bp.apc_scatter(B16, X3, Xb, U, 0.9),
-                            lambda: bp.apc_scatter(B16, X3f, Xbf, Uf, 0.9)),
-            "cimmino_gather": (lambda: bp.cimmino_gather(A16, Xb),
-                               lambda: bp.cimmino_gather(A16, Xbf)),
-            "cimmino_scatter": (lambda: bp.cimmino_scatter(B16, V),
-                                lambda: bp.cimmino_scatter(B16, Vf)),
-        }
-        timed = {
-            "apc_gather": dict(
-                ms=lambda: bp.apc_gather(A, X3, Xb),
-                row_dot_ms=lambda: bp.apc_gather(A, X3, Xb,
-                                                 _instance="row_dot"),
-                plain_ms=lambda: ops.apc_gather_ref(A, X3, Xb),
-                library_ms=lambda: torch.matmul(D, A.transpose(1, 2))),
-            "apc_scatter": dict(
-                ms=lambda: bp.apc_scatter(B, X3, Xb, U, 0.9),
-                plain_ms=lambda: ops.apc_scatter_ref(B, X3, Xb, U, 0.9),
-                library_ms=lambda: torch.matmul(U, B.transpose(1, 2))),
-            "cimmino_gather": dict(
-                ms=lambda: bp.cimmino_gather(A, Xb),
-                row_dot_ms=lambda: bp.cimmino_gather(A, Xb,
+
+        def dense_calls(A_, B_, X_, Xb_, U_, V_, D_):
+            """Every call form_calls may time, of each dense kernel, on one
+            form's operands."""
+            return {
+                "apc_gather": dict(
+                    ms=lambda: bp.apc_gather(A_, X_, Xb_),
+                    row_dot_ms=lambda: bp.apc_gather(A_, X_, Xb_,
                                                      _instance="row_dot"),
-                plain_ms=lambda: ops.cimmino_gather_ref(A, Xb),
-                library_ms=lambda: torch.matmul(Xb, A.transpose(1, 2))),
-            "cimmino_scatter": dict(
-                ms=lambda: bp.cimmino_scatter(B, V),
-                plain_ms=lambda: ops.cimmino_scatter_ref(B, V),
-                library_ms=lambda: torch.matmul(V, B.transpose(1, 2))),
-        }
-        for M_, X_, Xb_ in ((A, X3, Xb), (A16, X3, Xb), (A16, X3f, Xbf)):
-            assert bp.gather_instance(M_, X_, Xb_) == "ring"
-            assert bp.gather_instance(M_, Xb_) == "ring"
+                    plain_ms=lambda: ops.apc_gather_ref(A_, X_, Xb_),
+                    library_ms=lambda: torch.matmul(D_, A_.transpose(1, 2))),
+                "apc_scatter": dict(
+                    ms=lambda: bp.apc_scatter(B_, X_, Xb_, U_, 0.9),
+                    plain_ms=lambda: ops.apc_scatter_ref(B_, X_, Xb_, U_,
+                                                         0.9),
+                    library_ms=lambda: torch.matmul(U_, B_.transpose(1, 2))),
+                "cimmino_gather": dict(
+                    ms=lambda: bp.cimmino_gather(A_, Xb_),
+                    row_dot_ms=lambda: bp.cimmino_gather(
+                        A_, Xb_, _instance="row_dot"),
+                    plain_ms=lambda: ops.cimmino_gather_ref(A_, Xb_),
+                    library_ms=lambda: torch.matmul(Xb_,
+                                                    A_.transpose(1, 2))),
+                "cimmino_scatter": dict(
+                    ms=lambda: bp.cimmino_scatter(B_, V_),
+                    ring_ms=lambda: bp.cimmino_scatter(
+                        B_, V_, _instance="ring"),
+                    row_dot_ms=lambda: bp.cimmino_scatter(
+                        B_, V_, _instance="row_dot"),
+                    plain_ms=lambda: ops.cimmino_scatter_ref(B_, V_),
+                    library_ms=lambda: torch.matmul(V_, B_.transpose(1, 2))),
+            }
+        forms = {
+            F64: (dense_calls(A, B, X3, Xb, U, V, D), dense_work(8, 8),
+                  torch.float64),
+            F32: (dense_calls(A32, B32, X3f, Xbf, Uf, Vf, Df),
+                  dense_work(4, 4), torch.float32),
+            "bfloat16/float64": (dense_calls(A16, B16, X3, Xb, U, V, D),
+                                 dense_work(2, 8), torch.float64),
+            "bfloat16/float32": (dense_calls(A16, B16, X3f, Xbf, Uf, Vf, Df),
+                                 dense_work(2, 4), torch.float32)}
+        # the ring is the instance the main path's shapes take, in every
+        # form, but for the scatter's fixed rule: the row dot at k = 1
+        # with a float64 or float32 matrix
+        for A_, B_, X_, Xb_, V_ in ((A, B, X3, Xb, V),
+                                    (A32, B32, X3f, Xbf, Vf),
+                                    (A16, B16, X3, Xb, V),
+                                    (A16, B16, X3f, Xbf, Vf)):
+            assert bp.gather_instance(A_, X_, Xb_) == "ring"
+            assert bp.gather_instance(A_, Xb_) == "ring"
+            assert bp.gather_instance(B_, V_, scatter=True) == (
+                "row_dot" if k == 1 and B_.dtype != BF16 else "ring")
         if k == 1:
             st = APCState(x=X[0], xbar=Xb[0], t=0)
             cst = CimminoState(xbar=Xb[0], t=0)
@@ -964,11 +1058,11 @@ def main() -> int:
             "Cimmino mixed": lambda: cim.step_many_residual(mf, bb, cst,
                                                             {"nu": nu})})
         t_it, t_cit = its["APC"], its["Cimmino"]
-        for kname, fns in timed.items():
-            forms = {pr: (call, mixed_work[pr][0][kname], mixed_work[pr][1])
-                     for pr, call in zip(mixed_work, mixed_calls[kname])}
-            time_kernel(8, kname, k, f"m={m} p={p} n={n}", fns, work[kname],
-                        "torch.matmul", forms)
+        for kname in USES["apc"] + USES["cimmino"]:
+            time_kernel(8, kname, k, f"m={m} p={p} n={n}",
+                        {pr: (calls[kname], work[kname], dt)
+                         for pr, (calls, work, dt) in forms.items()},
+                        "torch.matmul")
         say(f"phase 8 iteration k={k}: APC {t_it:.4f} ms per step "
             f"(gather + scatter + master update + residual); Cimmino "
             f"{t_cit:.4f} ms per step (gather + v = b − u + scatter + "
@@ -979,12 +1073,13 @@ def main() -> int:
             "{:.4f} ms, float64 {:.4f} ms)".format(
                 *pair_bounds(k, USES[meth.lower()]))
             for meth in ("APC", "Cimmino")))
-        del U, V, D, X3f, Xbf, Uf, Vf
+        del U, V, D, X3f, Xbf, Uf, Vf, Df, forms
     clocks("phase 8 end")
 
     main_launches = {kn: (launches if kn in USES["apc"] else cim_launches)[kn]
                      for kn in USES["apc"] + USES["cimmino"]}
-    del sys_, factors, mf, res, res_u, res2, A, B, A16, B16, X, X3, Xb
+    del sys_, factors, mf, res, res_u, res2, A, B, A16, B16, A32, B32, X, \
+        X3, Xb
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1069,7 +1164,7 @@ def main() -> int:
     say(f"phase 12 sparse factors: vals {tuple(msf.A.vals.shape)} "
         f"{msf.A.vals.dtype}, Bvals {tuple(msf.B.shape)} {msf.B.dtype}")
     mixed_solves("sparse", sp, msf, sp_pinned, SPARSE_USES, sp_hist)
-    float32_mixed("sparse", sp, msf, sp_pinned, SPARSE_USES, sp_hist)
+    float32_solves("sparse", sp, fs, msf, sp_pinned, SPARSE_USES, sp_hist)
 
     # 10. least squares -----------------------------------------------------
     ls_cli = ["--problem", "tall_noisy", "--workers", "4", "--iters", "300"]
@@ -1123,6 +1218,7 @@ def main() -> int:
     # 11. sparse times ------------------------------------------------------
     vals, cols, Bv = fs.A.vals, fs.A.cols, fs.B
     vals16, Bv16 = msf.A.vals, msf.B
+    vals32, Bv32 = vals.float(), Bv.float()
     b = sp.b_blocks
     prm_apc, prm_cim = sp_pinned["apc"][0], sp_pinned["cimmino"][0]
     clocks("phase 11 start")
@@ -1142,7 +1238,8 @@ def main() -> int:
         Xs = torch.take_along_dim(Xb.expand(m, k, n), idx, dim=-1)
         mkw, mkp, mwp = m * k * w, m * k * p, m * w * p
         flops = 2 * m * k * p * w
-        X3f, Xbf, Uf, Y0f = X3.float(), Xb.float(), U.float(), Y0.float()
+        X3f, Xbf, Uf, Vf, Y0f, R0f, Dsf, Xsf = (
+            t.float() for t in (X3, Xb, U, V, Y0, R0, Ds, Xs))
 
         def sparse_work(ms, xs):
             """(bytes, ops) with vals/Bvals at ``ms`` bytes an element and
@@ -1156,64 +1253,88 @@ def main() -> int:
                                           + xs * (mkw + mkp), flops),
                 "sparse_scatter": (ms * mwp + 8 * m * w
                                    + xs * (mkp + 3 * mkw), flops + 4 * mkw),
+                "sparse_scatter cimmino": (ms * mwp + 8 * m * w
+                                           + xs * (mkp + mkw), flops),
             }
-        work = sparse_work(itemsize, itemsize)
-        mixed_work = {"bfloat16/float64": (sparse_work(2, 8), torch.float64),
-                      "bfloat16/float32": (sparse_work(2, 4), torch.float32)}
-        mixed_calls = {
-            "sparse_gather": (
-                lambda: bp.sparse_gather(vals16, cols, X3, Xb),
-                lambda: bp.sparse_gather(vals16, cols, X3f, Xbf)),
-            "sparse_cimmino_gather": (
-                lambda: bp.sparse_cimmino_gather(vals16, cols, Xb),
-                lambda: bp.sparse_cimmino_gather(vals16, cols, Xbf)),
-            "sparse_scatter": (
-                lambda: bp.sparse_scatter(Bv16, cols, U, Y0, X=X3, Xbar=Xb,
-                                          gamma=0.9),
-                lambda: bp.sparse_scatter(Bv16, cols, Uf, Y0f, X=X3f,
-                                          Xbar=Xbf, gamma=0.9)),
-        }
-        timed = {
-            "sparse_gather": dict(
-                ms=lambda: bp.sparse_gather(vals, cols, X3, Xb),
-                row_dot_ms=lambda: bp.sparse_gather(vals, cols, X3, Xb,
-                                                    _instance="row_dot"),
-                plain_ms=lambda: ops.sparse_gather_ref(vals, cols, X3, Xb),
-                library_ms=lambda: torch.bmm(Ds, vals.transpose(1, 2))),
-            "sparse_cimmino_gather": dict(
-                ms=lambda: bp.sparse_cimmino_gather(vals, cols, Xb),
-                row_dot_ms=lambda: bp.sparse_cimmino_gather(
-                    vals, cols, Xb, _instance="row_dot"),
-                plain_ms=lambda: ops.sparse_cimmino_gather_ref(vals, cols,
-                                                               Xb),
-                library_ms=lambda: torch.bmm(Xs, vals.transpose(1, 2))),
-            "sparse_scatter": dict(
-                ms=lambda: bp.sparse_scatter(Bv, cols, U, Y0, X=X3, Xbar=Xb,
-                                             gamma=0.9),
-                plain_ms=lambda: ops.sparse_scatter_ref(Bv, cols, U, Y0, X3,
-                                                        Xb, 0.9),
-                library_ms=lambda: torch.bmm(U, Bv.transpose(1, 2))),
-        }
-        assert bp.gather_instance(vals) == "ring"     # both sparse gathers
-        assert bp.gather_instance(vals16) == "ring"
-        for kname, fns in timed.items():
-            forms = {pr: (call, mixed_work[pr][0][kname], mixed_work[pr][1])
-                     for pr, call in zip(mixed_work, mixed_calls[kname])}
-            time_kernel(11, kname, k, f"m={m} p={p} w={w} n={n}", fns,
-                        work[kname], "torch.bmm (operands gathered "
-                        "beforehand, gather/scatter excluded)", forms)
+
+        def sparse_calls(vals_, Bv_, X_, Xb_, U_, V_, Y0_, R0_, Ds_, Xs_):
+            """Every call form_calls may time, of each sparse kernel (and
+            the Cimmino form of sparse_scatter), on one form's
+            operands."""
+            return {
+                "sparse_gather": dict(
+                    ms=lambda: bp.sparse_gather(vals_, cols, X_, Xb_),
+                    row_dot_ms=lambda: bp.sparse_gather(
+                        vals_, cols, X_, Xb_, _instance="row_dot"),
+                    plain_ms=lambda: ops.sparse_gather_ref(vals_, cols, X_,
+                                                           Xb_),
+                    library_ms=lambda: torch.bmm(Ds_,
+                                                 vals_.transpose(1, 2))),
+                "sparse_cimmino_gather": dict(
+                    ms=lambda: bp.sparse_cimmino_gather(vals_, cols, Xb_),
+                    row_dot_ms=lambda: bp.sparse_cimmino_gather(
+                        vals_, cols, Xb_, _instance="row_dot"),
+                    plain_ms=lambda: ops.sparse_cimmino_gather_ref(
+                        vals_, cols, Xb_),
+                    library_ms=lambda: torch.bmm(Xs_,
+                                                 vals_.transpose(1, 2))),
+                "sparse_scatter": dict(
+                    ms=lambda: bp.sparse_scatter(Bv_, cols, U_, Y0_, X=X_,
+                                                 Xbar=Xb_, gamma=0.9),
+                    ring_ms=lambda: bp.sparse_scatter(
+                        Bv_, cols, U_, Y0_, X=X_, Xbar=Xb_, gamma=0.9,
+                        _instance="ring"),
+                    row_dot_ms=lambda: bp.sparse_scatter(
+                        Bv_, cols, U_, Y0_, X=X_, Xbar=Xb_, gamma=0.9,
+                        _instance="row_dot"),
+                    plain_ms=lambda: ops.sparse_scatter_ref(
+                        Bv_, cols, U_, Y0_, X_, Xb_, 0.9),
+                    library_ms=lambda: torch.bmm(U_, Bv_.transpose(1, 2))),
+                "sparse_scatter cimmino": dict(
+                    ms=lambda: bp.sparse_scatter(Bv_, cols, V_, R0_),
+                    ring_ms=lambda: bp.sparse_scatter(
+                        Bv_, cols, V_, R0_, _instance="ring"),
+                    row_dot_ms=lambda: bp.sparse_scatter(
+                        Bv_, cols, V_, R0_, _instance="row_dot"),
+                    plain_ms=lambda: ops.sparse_scatter_ref(Bv_, cols, V_,
+                                                            R0_),
+                    library_ms=lambda: torch.bmm(V_, Bv_.transpose(1, 2))),
+            }
+        forms = {
+            F64: (sparse_calls(vals, Bv, X3, Xb, U, V, Y0, R0, Ds, Xs),
+                  sparse_work(8, 8), torch.float64),
+            F32: (sparse_calls(vals32, Bv32, X3f, Xbf, Uf, Vf, Y0f, R0f,
+                               Dsf, Xsf), sparse_work(4, 4), torch.float32),
+            "bfloat16/float64": (
+                sparse_calls(vals16, Bv16, X3, Xb, U, V, Y0, R0, Ds, Xs),
+                sparse_work(2, 8), torch.float64),
+            "bfloat16/float32": (
+                sparse_calls(vals16, Bv16, X3f, Xbf, Uf, Vf, Y0f, R0f, Dsf,
+                             Xsf), sparse_work(2, 4), torch.float32)}
+        # the ring is the instance the sparse path's shapes take, in every
+        # form: both sparse gathers (vals alone decides) and both forms of
+        # the scatter (Bvals and U), but for the scatter's fixed rule
+        for vals_, Bv_, U_ in ((vals, Bv, U), (vals32, Bv32, Uf),
+                               (vals16, Bv16, U), (vals16, Bv16, Uf)):
+            assert bp.gather_instance(vals_) == "ring"
+            for U2 in (U_, V.to(U_.dtype)):
+                assert bp.gather_instance(Bv_, U2, scatter=True) == (
+                    "row_dot" if k == 1 and Bv_.dtype != BF16 else "ring")
+        for key in SPARSE_USES["apc"] + ("sparse_cimmino_gather",
+                                         "sparse_scatter cimmino"):
+            kname, _, form = key.partition(" ")
+            time_kernel(11, kname, k, f"m={m} p={p} w={w} n={n}"
+                        + (f" ({form.capitalize()} form)" if form else ""),
+                        {pr: (calls[key], work[key], dt)
+                         for pr, (calls, work, dt) in forms.items()},
+                        "torch.bmm (operands gathered beforehand, "
+                        "gather/scatter excluded)", key=key)
         if k == 1:      # what a single call between two events also times
-            one = medians_ms({"ms": timed["sparse_gather"]["ms"]},
+            one = medians_ms({"ms": forms[F64][0]["sparse_gather"]["ms"]},
                              batch=1)["ms"]
             say(f"phase 11 timing method: sparse_gather k=1, one call "
                 f"between two events {one:.4f} ms, in runs of 10 calls "
                 f"{rows[('sparse_gather', 1)]['ms']:.4f} ms a call")
-        cs = medians_ms({
-            "kernel": lambda: bp.sparse_scatter(Bv, cols, V, R0),
-            "plain": lambda: ops.sparse_scatter_ref(Bv, cols, V, R0)})
-        t_cs, t_csp = cs["kernel"], cs["plain"]
-        say(f"phase 11 sparse_scatter Cimmino form k={k}: {t_cs:.4f} ms, "
-            f"plain {t_csp:.4f} ms")
         if k == 1:
             st = APCState(x=X[0], xbar=Xb[0], t=0)
             cst = CimminoState(xbar=Xb[0], t=0)
@@ -1230,17 +1351,19 @@ def main() -> int:
             for label, f in (("sparse", fs), ("densified", fd),
                              ("mixed", msf))
             for meth in ("APC", "Cimmino")})
-        for meth in ("APC", "Cimmino"):
+        for meth, uses in (("APC", SPARSE_USES["apc"]),
+                           ("Cimmino", ("sparse_cimmino_gather",
+                                        "sparse_scatter cimmino"))):
             sp_ms, dn_ms = its[(meth, "sparse")], its[(meth, "densified")]
             say(f"phase 11 iteration k={k} {meth}: sparse {sp_ms:.4f} ms, "
                 f"densified {dn_ms:.4f} ms per step (step_residual), "
                 f"ratio {dn_ms / sp_ms:.2f} (n/w = {n / w:.2f})")
-            b16, b64 = pair_bounds(k, SPARSE_USES[meth.lower()])
+            b16, b64 = pair_bounds(k, uses)
             say(f"phase 11 iteration k={k} {meth} precision=mixed: sparse "
                 f"{its[(meth, 'mixed')]:.4f} ms per step (float64 "
                 f"{sp_ms:.4f}; bound of its two kernels bf16/float64 "
                 f"{b16:.4f} ms, float64 {b64:.4f} ms)")
-        del U, V, Y0, R0, Ds, Xs, X3f, Xbf, Uf, Y0f
+        del U, V, Y0, R0, Ds, Xs, X3f, Xbf, Uf, Vf, Y0f, R0f, Dsf, Xsf, forms
     clocks("phase 11 end")
 
     main_launches.update(
@@ -1255,7 +1378,7 @@ def main() -> int:
                 for label, uses in (("dense", USES), ("sparse", SPARSE_USES))
                 for sname in ("apc", "cimmino") for kn in uses[sname]}
 
-    form_main = {"float64/float64": main_launches,
+    form_main = {F64: main_launches, F32: by_kernel(f32_launches),
                  "bfloat16/float64": by_kernel(mixed_launches),
                  "bfloat16/float32": by_kernel(mixed32_launches)}
     kernels = []
@@ -1264,13 +1387,14 @@ def main() -> int:
         forms = []
         for pr, f in r["forms"].items():
             forms.append({
-                "pair": pr, "k": 1, "ms": f["ms"], "bound_ms": f["bound_ms"],
+                "pair": pr, "k": 1, "ms": f["ms"],
+                "row_dot_ms": f.get("row_dot_ms"),
+                "ring_ms": f.get("ring_ms"), "bound_ms": f["bound_ms"],
                 "bound_by": f["bound_by"],
                 "launches": form_main[pr][kname],
                 "max_abs_err": max_abs[(kname, pr)],
-                "library_ms": r["library_ms"] if pr == "float64/float64"
-                else None,
-                "library": None if pr == "float64/float64" else NO_LIBRARY})
+                "library_ms": f.get("library_ms"),
+                "library": None if "library_ms" in f else NO_LIBRARY})
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[kname], "launches": main_launches[kname],

@@ -21,11 +21,13 @@ that it went through the kernels, and through which form of each.
 The plain PyTorch versions and the device dispatch are in ``ops``.
 
 The four gathers (``apc_gather``, ``sparse_gather``, ``cimmino_gather``,
-``sparse_cimmino_gather``) have two instances, one kernel each: the
-"ring" for Hopper (producer warps streaming 16-byte copies through a
-shared-memory ring to consumer warps), and the "row dot" the three
-scatters share.  :func:`gather_instance` picks one by the operands'
-shape and alignment alone, and both count as the same kernel.
+``sparse_cimmino_gather``) and two scatters (``cimmino_scatter``,
+``sparse_scatter`` in both forms) have two instances, one kernel each:
+the "ring" for Hopper (producer warps streaming 16-byte copies through a
+shared-memory ring to consumer warps), and the "row dot" that
+``apc_scatter`` has alone.  :func:`gather_instance` picks one by the
+operands' shape and alignment (and, for a scatter, its dtype pair at
+k = 1), and both count as the same kernel.
 
 Each kernel takes its matrix (A, B, vals or Bvals) in a storage dtype
 beside the compute dtype of the other operands, which is also its
@@ -58,9 +60,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("apc_gather", "apc_scatter", "cimmino_gather",
            "cimmino_scatter", "sparse_gather", "sparse_cimmino_gather",
            "sparse_scatter")
-#: the kernels with a ring instance beside the row dot
+#: the gathers and the scatters with a ring instance beside the row dot
 GATHERS = ("apc_gather", "cimmino_gather", "sparse_gather",
            "sparse_cimmino_gather")
+SCATTERS = ("cimmino_scatter", "sparse_scatter")
+RINGS = GATHERS + SCATTERS
 #: the C entries' suffix of each (matrix dtype, compute dtype) pair the
 #: kernels take: <kernel>_<suffix>
 PAIRS = {(torch.float64, torch.float64): "f64",
@@ -68,11 +72,12 @@ PAIRS = {(torch.float64, torch.float64): "f64",
          (torch.bfloat16, torch.float64): "bf16_f64",
          (torch.bfloat16, torch.float32): "bf16_f32"}
 
-#: the instances of the four gathers, by the int64 their C entries take
-#: (csrc/block_projection.cu kRowDot, kRing)
+#: the instances of the kernels in :data:`RINGS`, by the int64 their C
+#: entries take (csrc/block_projection.cu kRowDot, kRing)
 INSTANCES = {"row_dot": 0, "ring": 1}
 #: the ring's forms, by the int64 gather_ring_smem takes (kApcForm,
-#: kCimminoForm): the APC gathers stage X̄ and X, the Cimmino ones X̄
+#: kCimminoForm): the APC gathers stage X̄ and X, the Cimmino gathers X̄,
+#: the scatters U (or V), each in the Cimmino form's stage
 FORMS = {"apc": 0, "cimmino": 1}
 # the ring's copies move 16 bytes between 16-byte-aligned addresses
 _ALIGN = 16
@@ -167,16 +172,17 @@ ARGTYPES = {
     + [_PTR],
     # A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k, instance, stream
     "cimmino_gather": [_PTR] * 3 + [_I64] * 8 + [_PTR],
-    # B, V, R, m, n, p, k, sv_w, sv_k, sr_w, sr_k, stream
-    "cimmino_scatter": [_PTR] * 3 + [_I64] * 8 + [_PTR],
+    # B, V, R, m, n, p, k, sv_w, sv_k, sr_w, sr_k, instance, stream
+    "cimmino_scatter": [_PTR] * 3 + [_I64] * 9 + [_PTR],
     # vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k, sxb_k, su_w, su_k,
     # instance, stream
     "sparse_gather": [_PTR] * 5 + [_I64] * 10 + [_PTR],
     # vals, cols, Xbar, U, m, p, w, k, sxb_k, su_w, su_k, instance, stream
     "sparse_cimmino_gather": [_PTR] * 4 + [_I64] * 8 + [_PTR],
     # Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, k, sx_w, sx_k, sxb_k,
-    # su_w, su_k, sy_w, sy_k, stream (X and Xbar null: the Cimmino form)
-    "sparse_scatter": [_PTR] * 5 + [ctypes.c_double, _PTR] + [_I64] * 11
+    # su_w, su_k, sy_w, sy_k, instance, stream (X and Xbar null: the
+    # Cimmino form)
+    "sparse_scatter": [_PTR] * 5 + [ctypes.c_double, _PTR] + [_I64] * 12
     + [_PTR],
 }
 #: the ring's dynamic shared memory query: (matrix itemsize, itemsize, k,
@@ -211,21 +217,31 @@ def ring_smem_bytes(matrix_dtype: torch.dtype, dtype: torch.dtype, k: int,
 
 
 def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
-                    forced: str = None) -> str:
-    """The instance of a gather for these operands: "ring" when every
-    row it copies in 16-byte pieces is a non-empty 16-byte multiple at a
-    16-byte-aligned address — the rows of ``matrix`` (A, or vals), and
-    every base address and row stride of it and of the ``copied``
-    operands (``apc_gather``: X and X̄; ``cimmino_gather``: X̄; the
-    sparse kernels gather X and X̄ element by element and copy none) —
-    else "row_dot".  Each tensor's strides count in its own element size
-    (a bf16 matrix beside float64 operands).  Strides of axes of size 1
-    are never used and do not count.
+                    forced: str = None, scatter: bool = False) -> str:
+    """The instance of a kernel of :data:`RINGS` for these operands:
+    "ring" when every row it copies in 16-byte pieces is a non-empty
+    16-byte multiple at a 16-byte-aligned address — the rows of
+    ``matrix`` (A, vals, B or Bvals), and every base address and row
+    stride of it and of the ``copied`` operands — else "row_dot".  The
+    copied operands: ``apc_gather`` X and X̄; ``cimmino_gather`` X̄;
+    ``cimmino_scatter`` V and ``sparse_scatter`` U (the staged operand;
+    the sparse APC form reads X and X̄ element by element in its
+    epilogue, and every scatter writes its output there); the sparse
+    gathers gather X and X̄ element by element and copy none.  Each
+    tensor's strides count in its own element size (a bf16 matrix beside
+    float64 operands).  Strides of axes of size 1 are never used and do
+    not count.
+
+    ``scatter`` marks a scatter's operands (``copied`` its staged V or U,
+    (m, k, p)).  There one fixed rule on the dtype pair and k comes on
+    top: a float64 or float32 matrix at k = 1 takes the row dot, which
+    the chip timed ahead of the ring in that case alone (PERF.md §6); a
+    bf16 matrix, or k > 1, takes the ring where it fits.
 
     ``forced`` names an instance to take instead (chip_smoke.py times
     both at the main path's shapes); forcing "ring" on operands it cannot
-    take raises, as does an unknown name.  Decided by shape alone: no
-    launch is tried and caught.
+    take raises, as does an unknown name.  Decided by shape and dtype
+    alone: no launch is tried and caught, and nothing is timed.
     """
     if forced is not None and forced not in INSTANCES:
         raise ValueError(f"unknown instance {forced!r}; expected one of "
@@ -240,7 +256,11 @@ def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
     if forced == "ring" and not fits:
         raise ValueError("the ring instance needs 16-byte rows, strides and "
                          "base addresses; these operands take the row dot")
-    return forced or ("ring" if fits else "row_dot")
+    if forced:
+        return forced
+    if scatter and matrix.dtype != torch.bfloat16 and copied[0].shape[-2] == 1:
+        return "row_dot"
+    return "ring" if fits else "row_dot"
 
 
 def _check(name: str, index=None, **operands) -> dict:
@@ -371,18 +391,22 @@ def cimmino_gather(A: torch.Tensor, Xbar: torch.Tensor, *,
     return U
 
 
-def cimmino_scatter(B: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+def cimmino_scatter(B: torch.Tensor, V: torch.Tensor, *,
+                    _instance: str = None) -> torch.Tensor:
     """R = V·Bᵀ for every worker, in one launch.
 
     B (m, n, p) contiguous; V (m, k, p) with unit stride along p (any
     worker/row strides, so the (m, k, p) view of a (k, m, p) batch goes
-    in uncopied).  Returns R (m, k, n), contiguous, in V's dtype.
+    in uncopied).  Returns R (m, k, n), contiguous, in V's dtype.  The
+    instance is ``gather_instance(B, V, scatter=True)``, or ``_instance``
+    where given.
     """
     d = _check("cimmino_scatter", B=(B, "mnp"), V=(V, "mkp"))
+    instance = gather_instance(B, V, forced=_instance, scatter=True)
     R = torch.empty((d["m"], d["k"], d["n"]), dtype=V.dtype, device=B.device)
     _launch("cimmino_scatter", B, R, B.data_ptr(), V.data_ptr(),
             R.data_ptr(), d["m"], d["n"], d["p"], d["k"], V.stride(0),
-            V.stride(1), R.stride(0), R.stride(1))
+            V.stride(1), R.stride(0), R.stride(1), INSTANCES[instance])
     return R
 
 
@@ -434,8 +458,8 @@ def sparse_cimmino_gather(vals: torch.Tensor, cols: torch.Tensor,
 
 def sparse_scatter(Bvals: torch.Tensor, cols: torch.Tensor, U: torch.Tensor,
                    out: torch.Tensor, *, X: torch.Tensor = None,
-                   Xbar: torch.Tensor = None,
-                   gamma: float = 0.0) -> torch.Tensor:
+                   Xbar: torch.Tensor = None, gamma: float = 0.0,
+                   _instance: str = None) -> torch.Tensor:
     """C = U·Bvalsᵀ for every worker, in one launch, stored into ``out``
     (m, k, n) at each worker's support columns; the other columns of
     ``out`` are left as they are.
@@ -450,7 +474,9 @@ def sparse_scatter(Bvals: torch.Tensor, cols: torch.Tensor, U: torch.Tensor,
 
     Bvals (m, w, p) contiguous; cols (m, w) contiguous int64; U, X and
     out with unit stride along their last axis (any worker/row strides);
-    X̄ (k, n).  Returns ``out``.
+    X̄ (k, n).  Returns ``out``.  The instance is
+    ``gather_instance(Bvals, U, scatter=True)``, or ``_instance`` where
+    given.
     """
     cimmino = X is None
     operands = dict(Bvals=(Bvals, "mwp"), U=(U, "mkp"), out=(out, "mkn"))
@@ -459,11 +485,13 @@ def sparse_scatter(Bvals: torch.Tensor, cols: torch.Tensor, U: torch.Tensor,
         if out.data_ptr() == X.data_ptr():
             raise ValueError("sparse_scatter: out must not alias X")
     d = _check("sparse_scatter", index=(cols, "mw"), **operands)
+    instance = gather_instance(Bvals, U, forced=_instance,
+                               scatter=True)
     _launch("sparse_scatter", Bvals, out, Bvals.data_ptr(),
             cols.data_ptr(), None if cimmino else X.data_ptr(),
             None if cimmino else Xbar.data_ptr(), U.data_ptr(), float(gamma),
             out.data_ptr(), d["m"], d["w"], d["p"], d["k"],
             0 if cimmino else X.stride(0), 0 if cimmino else X.stride(1),
             0 if cimmino else Xbar.stride(0), U.stride(0), U.stride(1),
-            out.stride(0), out.stride(1))
+            out.stride(0), out.stride(1), INSTANCES[instance])
     return out

@@ -85,14 +85,17 @@
 //     off-support columns of Y come from the caller's AXPY pre-pass.
 //
 // The four gathers (apc_gather, sparse_gather, cimmino_gather,
-// sparse_cimmino_gather) have a second, Hopper instance, the "ring",
+// sparse_cimmino_gather) and two scatters (cimmino_scatter, and both
+// forms of sparse_scatter) have a second, Hopper instance, the "ring",
 // which the launcher takes wherever its 16-byte copies can (below); the
-// row dot stays for the shapes they cannot take.  All four are bound by
+// row dot stays for the shapes they cannot take (and apc_scatter has
+// only the row dot).  All are bound by
 // bytes (|A| or |vals| over the HBM rate), but at k = 8 the row dot
 // reached only about half its bound: each 256-column chunk stages 8
 // batch rows of the right operand between two barriers with no load of A
 // in flight, its 32 f64 accumulators spill under the 128-register cap,
-// and a lane holds at most R = 4 loads of A in flight.  The ring instead:
+// and a lane holds at most R = 4 loads of A in flight (the f64 and f32
+// scatters only R = 2 at KC = 8).  The ring instead:
 //
 //   * runs one persistent block per SM (grid = min(SMs, 64-row tiles)):
 //     8 consumer warps and 4 producer warps.  Block b takes an equal,
@@ -128,21 +131,38 @@
 //   * copies only the valid bytes of the last, ragged chunk, and loops
 //     over its valid columns only.
 //
-// Tried on the card and dropped, each slower than this design or not
-// working (PERF.md): one 1-D bulk copy (cp.async.bulk) per 512-byte row
-// segment, about half the bound; no producer warp, every warp copying
-// its own rows; 7 rows a consumer warp at KC = 8, to fit 168 registers;
-// and setmaxnreg, moving registers from the producers to the consumers,
-// which hung the kernel.
+// A scatter is the Cimmino form of the ring over the rows j of B_w
+// (n x p; Bvals_w, w x p) with U_w (or V_w) in X̄'s place: the
+// producers copy the stage's KC operand rows, 16 bytes a lane, from the
+// tile's own worker (ring_produce's kPerWorker), so the stage, its size
+// (gather_ring_smem's Cimmino form) and the consumers' loop are the
+// Cimmino gather's.  Only the epilogue differs: the shuffle tree runs as
+// a reduce-scatter, halving the sums a lane keeps at each level (the
+// same additions in the same order as the tree), so each lane ends with
+// its own 1–2 of the warp's 8·KC sums and the 32 lanes store at once —
+// R[w, i, j]; sparse: at cols[w, j], C or, in the APC form,
+// X + γ((X̄ − X) − C), reading X, X̄ and cols only there, after the
+// accumulators are gone.
+//
+// Tried on the card and dropped for the gathers, each slower than this
+// design or not working (PERF.md): one 1-D bulk copy (cp.async.bulk) per
+// 512-byte row segment, about half the bound; no producer warp, every
+// warp copying its own rows; 7 rows a consumer warp at KC = 8, to fit
+// 168 registers; and setmaxnreg, moving registers from the producers to
+// the consumers, which hung the kernel.
 //
 // A 16-byte cp.async moves 16 bytes between 16-byte-aligned addresses.
-// So the ring needs the rows of A (vals) and every base and row stride
-// it copies from (dense: X̄, and X in the APC form) to be 16-byte
-// multiples: f64 with an even row length, f32 with one divisible by 4.
-// Other shapes (n = 130 or 7 in f32, an odd support width, a view at an
-// odd offset, an empty row) take the row dot.  The choice is by shape,
+// So the ring needs the rows of its matrix (A, vals, B, Bvals) and every
+// base and row stride it copies from (dense gathers: X̄, and X in the
+// APC form; scatters: U or V) to be 16-byte multiples: f64 with an even
+// row length, f32 with one divisible by 4, bf16 by 8.  Other shapes
+// (n = 130 or 7 in f32, an odd support width, p = 7, a view at an odd
+// offset, an empty row) take the row dot.  The choice is by shape,
 // made once in the Python wrapper (block_projection.gather_instance) and
-// passed to the entry as one int64 (kRowDot or kRing).
+// passed to the entry as one int64 (kRowDot or kRing); a scatter with a
+// float64 or float32 matrix at k = 1 takes the row dot there too, a
+// fixed rule from the chip's timings (its one batch row is no stage's
+// worth of reuse, and the ring's per-tile cost is not earned back).
 //
 // Two types name every kernel: the matrix type TM of A, B, vals and
 // Bvals, and the compute type T of X, X̄, U, V, Y, R and the
@@ -261,8 +281,9 @@ struct Ring {
 // conflicts.  The scalar row dot's lane l takes the columns ≡ l (mod 32),
 // in the ring's order (the gathers' two instances are bit-identical);
 // with 2-byte elements it issues four times the loads per byte of f64
-// and was bound by them (PERF.md).  No ring copies a scatter's
-// matrix, so its order is free.
+// and was bound by them (PERF.md).  So a bf16 scatter's two instances
+// sum in two orders: its ring is bit-identical to the f64 (f32) ring on
+// the matrix widened, its packed row dot is not.
 constexpr int kPack = 16 / sizeof(__nv_bfloat16);
 static_assert(kChunk == 32 * kPack, "one pack a lane a chunk");
 
@@ -687,16 +708,21 @@ __device__ __forceinline__ void ring_cols(int64_t (&g)[C / 32],
 // stage's full barrier once they have landed.  Under kSparse, `g` holds
 // the support columns of the step and is refilled with the next step's
 // (the next tile's first, of worker next_w, after the last chunk): each
-// index is read a step before the copies that need it.  `it` counts the
-// block's (tile, chunk) steps: stage it % S, round it / S.
-template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
+// index is read a step before the copies that need it.  Under
+// kPerWorker (the scatters: the Cimmino form, dense) the operand is
+// worker w's own rows, at Xbar + w·sxb_w, not the one shared X̄.  `it`
+// counts the block's (tile, chunk) steps: stage it % S, round it / S.
+template <typename TM, typename T, int KC, bool kDiff, bool kSparse,
+          bool kPerWorker>
 __device__ __forceinline__ void ring_produce(
     const RingTile& tl, int64_t next_w,
     int64_t (&g)[Ring<TM, T, KC, kDiff>::kCols / 32],
     const TM* __restrict__ M, const int64_t* __restrict__ cols,
     const T* __restrict__ X, const T* __restrict__ Xbar, int64_t p,
-    int64_t n, int64_t sx_w, int64_t sx_k, int64_t sxb_k, uint32_t& it) {
+    int64_t n, int64_t sx_w, int64_t sx_k, int64_t sxb_k, uint32_t& it,
+    int64_t sxb_w) {
   using Cfg = Ring<TM, T, KC, kDiff>;
+  static_assert(!kPerWorker || !(kDiff || kSparse), "a scatter's operand");
   constexpr int C = Cfg::kCols;
   constexpr int kPer = 16 / sizeof(T);           // operand elements a piece
   constexpr int kMPer = 16 / sizeof(TM);         // matrix elements a piece
@@ -734,6 +760,7 @@ __device__ __forceinline__ void ring_produce(
       T* dst = (q < KC ? XBs : Xs) + kk * C;
       const T* src = q < KC ? Xbar + (tl.k0 + kk) * sxb_k
                             : X + tl.w * sx_w + (tl.k0 + kk) * sx_k;
+      if constexpr (kPerWorker) src += tl.w * sxb_w;
       if constexpr (kSparse) {
 #pragma unroll
         for (int j = 0; j < C / 32; ++j)
@@ -831,16 +858,15 @@ __device__ __forceinline__ void ring_columns(const TM* Ms, const T* XBs,
 }
 
 // A consumer warp, over the rows [g, end): for each tile, its 8 rows
-// against every chunk as it lands, then the row dot's shuffle tree and
-// the store of its outputs.  A warp with no rows in the tile
+// against every chunk as it lands, then `store` (the shuffle tree and
+// the epilogue).  A warp with no rows in the tile
 // still waits for and releases every stage, so the empty barriers count
 // all 8 warps.  Its place in the walk waits in shared memory while the
 // accumulators hold the registers.
-template <typename TM, typename T, int KC, bool kDiff>
+template <typename TM, typename T, int KC, bool kDiff, typename Store>
 __device__ __forceinline__ void ring_consume(int64_t g, int64_t end,
-                                             T* __restrict__ U, int64_t p,
-                                             int64_t n, int64_t k,
-                                             int64_t su_w, int64_t su_k) {
+                                             int64_t p, int64_t n,
+                                             int64_t k, Store store) {
   using Cfg = Ring<TM, T, KC, kDiff>;
   constexpr int C = Cfg::kCols;
   constexpr int R = kRingWarpRows;
@@ -890,10 +916,22 @@ __device__ __forceinline__ void ring_consume(int64_t g, int64_t end,
       __syncwarp();
       if (lane == 0) mbar_arrive(&ring_empty[s]);
     }
-    if (!active) continue;
-    // the row dot's xor-shuffle tree, one level at a time over all the
-    // accumulators in place (each sees the same additions in the same
-    // order; the tree per accumulator, interleaved by ptxas, spilled)
+    if (active) store(acc, walk, r0, lane);
+  }
+}
+
+// A gather's epilogue: the row dot's xor-shuffle tree, one level at a
+// time over all the accumulators in place (each sees the same additions
+// in the same order; the tree per accumulator, interleaved by ptxas,
+// spilled), then lane 0 stores U[w, k0 + kk, row0 + r0 + r].
+template <typename T, int KC>
+struct RingGatherStore {
+  T* __restrict__ U;
+  int64_t su_w, su_k;
+  __device__ __forceinline__ void operator()(T (&acc)[kRingWarpRows][KC],
+                                             const RingWalk* walk, int r0,
+                                             int lane) const {
+    constexpr int R = kRingWarpRows;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
@@ -901,7 +939,7 @@ __device__ __forceinline__ void ring_consume(int64_t g, int64_t end,
 #pragma unroll
         for (int kk = 0; kk < KC; ++kk)
           acc[r][kk] += __shfl_xor_sync(0xffffffffu, acc[r][kk], off);
-    if (lane != 0) continue;
+    if (lane != 0) return;
     const RingTile tl = walk->tl;
     T* Ut = U + tl.w * su_w + tl.k0 * su_k + tl.row0 + r0;
 #pragma unroll
@@ -910,18 +948,103 @@ __device__ __forceinline__ void ring_consume(int64_t g, int64_t end,
       for (int kk = 0; kk < KC; ++kk)
         if (r0 + r < tl.rows && kk < tl.kvalid) Ut[kk * su_k + r] = acc[r][kk];
   }
+};
+
+// The row dot's xor-shuffle tree over a warp's N partial sums, each
+// level halving the sums a lane keeps (a reduce-scatter): at offset kOff
+// a lane whose bit kOff is set keeps the upper half of its kCount sums,
+// the other the lower, and adds its partner's partial of each; once one
+// is left, the levels go on as the tree.  Each sum is the tree's own:
+// own + partner's partial at every level, in the tree's order.  Lane l
+// ends with the sums l·N/32, ... (max(N/32, 1) of them, the first in
+// v[0]; below 32 sums, 32/N lanes hold each).
+template <int kOff, int kCount, typename T, int N>
+__device__ __forceinline__ void reduce_scatter(T (&v)[N], int lane) {
+  if constexpr (kOff > 0) {
+    if constexpr (kCount > 1) {
+      constexpr int h = kCount / 2;
+      const bool hi = lane & kOff;
+#pragma unroll
+      for (int j = 0; j < h; ++j) {
+        const T send = hi ? v[j] : v[j + h];
+        const T keep = hi ? v[j + h] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
+      }
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], kOff);
+    }
+    reduce_scatter<kOff / 2, (kCount > 1 ? kCount / 2 : 1)>(v, lane);
+  }
 }
 
-// U[w, i, l] = sum_j (X̄[i, g_j] − X[w, i, g_j]) · M[w, l, j] (kDiff;
-// X̄[i, g_j] alone otherwise, X unused) with g_j = j (dense: M = A) or
-// cols[w, j] (kSparse: M = vals, n = w).  Warps 0..7 compute, warps
-// 8..11 copy; both walk the block's tiles.
-template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
-__device__ __forceinline__ void gather_ring(
+// A scatter's epilogue: the tree as a reduce-scatter over the warp's 8
+// rows × KC sums, so every lane holds its own 1–2 and the lanes store
+// together: out[w, k0 + kk, j'] for the tile's row j = row0 + r0 + r and
+// kk < kvalid, at j' = j (dense) or cols[w, j] (kSparse; `rows` is the
+// support width), of C (R = V·Bᵀ, the Cimmino forms) or, under kAxpy,
+// of X + γ((X̄ − X) − C) (the sparse APC form), as the row dot stores
+// them.  The sums are laid out so that lane l holds row r = q % 8 and
+// batch rows kk = (q / 8)·H + h, h < H = max(KC / 4, 1), with q = l (or
+// the l·N/32 of the lanes that hold a sum each below 32 sums): each
+// store (one h) writes 8 consecutive rows of a batch row from 8
+// neighbouring lanes, and reads X and X̄ so.  The reduce-scatter leaves
+// at most 2 sums live, so X, X̄ and cols cost no register the
+// accumulators need.
+template <typename T, int KC, bool kAxpy, bool kSparse>
+struct RingScatterStore {
+  const int64_t* __restrict__ cols;
+  const T* __restrict__ X;
+  const T* __restrict__ Xbar;
+  T gamma;
+  T* __restrict__ Y;
+  int64_t rows, sx_w, sx_k, sxb_k, sy_w, sy_k;
+  __device__ __forceinline__ void operator()(T (&acc)[kRingWarpRows][KC],
+                                             const RingWalk* walk, int r0,
+                                             int lane) const {
+    constexpr int N = kRingWarpRows * KC;
+    constexpr int H = N >= 32 ? N / 32 : 1;        // sums a lane holds
+    T v[N];
+#pragma unroll
+    for (int r = 0; r < kRingWarpRows; ++r)
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+        v[((kk / H) * kRingWarpRows + r) * H + kk % H] = acc[r][kk];
+    reduce_scatter<16, N>(v, lane);
+    if constexpr (N < 32)
+      if (lane % (32 / N) != 0) return;            // another lane's copy
+    const int q = lane * N / 32 / H;
+    const int r = q % kRingWarpRows;
+    const RingTile tl = walk->tl;
+    if (r0 + r >= tl.rows) return;
+    const int64_t j = tl.row0 + r0 + r;
+    const int64_t jo = kSparse ? cols[tl.w * rows + j] : j;
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int kk = q / kRingWarpRows * H + h;
+      if (kk >= tl.kvalid) continue;
+      const int64_t i = tl.k0 + kk;
+      T* y = Y + tl.w * sy_w + i * sy_k + jo;
+      if constexpr (kAxpy) {
+        const T x = X[tl.w * sx_w + i * sx_k + jo];
+        const T d = Xbar[i * sxb_k + jo] - x;
+        *y = x + gamma * (d - v[h]);
+      } else {
+        *y = v[h];
+      }
+    }
+  }
+};
+
+// The ring over the m·ceil(k/KC)·p rows of M (p x n a worker): warps
+// 8..11 copy (ring_produce), warps 0..7 compute and hand each tile's sums
+// to `store`; both walk the block's tiles.
+template <typename TM, typename T, int KC, bool kDiff, bool kSparse,
+          bool kPerWorker, typename Store>
+__device__ __forceinline__ void ring_run(
     const TM* __restrict__ M, const int64_t* __restrict__ cols,
-    const T* __restrict__ X, const T* __restrict__ Xbar, T* __restrict__ U,
-    int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
-    int64_t sxb_k, int64_t su_w, int64_t su_k) {
+    const T* __restrict__ X, const T* __restrict__ Xbar, int64_t m,
+    int64_t p, int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
+    int64_t sxb_w, int64_t sxb_k, Store store) {
   using Cfg = Ring<TM, T, KC, kDiff>;
   if (threadIdx.x == 0) {
     for (int s = 0; s < Cfg::kStages; ++s) {
@@ -943,20 +1066,51 @@ __device__ __forceinline__ void gather_ring(
     while (g < end) {
       const int64_t gn = g + tl.rows;
       const RingTile next = gn < end ? ring_tile<KC>(gn, end, p, k) : tl;
-      ring_produce<TM, T, KC, kDiff, kSparse>(tl, gn < end ? next.w : -1, cg, M,
-                                          cols, X, Xbar, p, n, sx_w, sx_k,
-                                          sxb_k, it);
+      ring_produce<TM, T, KC, kDiff, kSparse, kPerWorker>(
+          tl, gn < end ? next.w : -1, cg, M, cols, X, Xbar, p, n, sx_w, sx_k,
+          sxb_k, it, sxb_w);
       g = gn;
       tl = next;
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   } else {
-    ring_consume<TM, T, KC, kDiff>(g, end, U, p, n, k, su_w, su_k);
+    ring_consume<TM, T, KC, kDiff>(g, end, p, n, k, store);
   }
 }
 
-// The four ring kernels share one parameter list; a dense kernel does not
-// read cols, nor a Cimmino one X and its strides.
+// U[w, i, l] = sum_j (X̄[i, g_j] − X[w, i, g_j]) · M[w, l, j] (kDiff;
+// X̄[i, g_j] alone otherwise, X unused) with g_j = j (dense: M = A) or
+// cols[w, j] (kSparse: M = vals, n = w).
+template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
+__device__ __forceinline__ void gather_ring(
+    const TM* __restrict__ M, const int64_t* __restrict__ cols,
+    const T* __restrict__ X, const T* __restrict__ Xbar, T* __restrict__ U,
+    int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
+    int64_t sxb_k, int64_t su_w, int64_t su_k) {
+  ring_run<TM, T, KC, kDiff, kSparse, false>(
+      M, cols, X, Xbar, m, p, n, k, sx_w, sx_k, 0, sxb_k,
+      RingGatherStore<T, KC>{U, su_w, su_k});
+}
+
+// C[w, i, j] = sum_l U[w, i, l] · M[w, j, l] over the rows j of M = B_w
+// (n x p; Bvals_w, w x p, under kSparse), streamed as the Cimmino
+// gathers stream A with U_w (V_w) as their X̄, then the scatter's
+// epilogue (RingScatterStore).
+template <typename TM, typename T, int KC, bool kAxpy, bool kSparse>
+__device__ __forceinline__ void scatter_ring(
+    const TM* __restrict__ M, const int64_t* __restrict__ cols,
+    const T* __restrict__ X, const T* __restrict__ Xbar,
+    const T* __restrict__ U, T gamma, T* __restrict__ Y, int64_t m,
+    int64_t n, int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
+    int64_t sxb_k, int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
+  ring_run<TM, T, KC, false, false, true>(
+      M, nullptr, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
+      RingScatterStore<T, KC, kAxpy, kSparse>{cols, X, Xbar, gamma, Y, n,
+                                              sx_w, sx_k, sxb_k, sy_w, sy_k});
+}
+
+// The four gather ring kernels share one parameter list; a dense kernel
+// does not read cols, nor a Cimmino one X and its strides.
 template <typename TM, typename T, int KC>
 __global__ void __launch_bounds__(kRingThreads, 1)
 apc_gather_ring_kernel(const TM* __restrict__ A,
@@ -1009,20 +1163,44 @@ sparse_cimmino_gather_ring_kernel(const TM* __restrict__ vals,
                                   sx_k, sxb_k, su_w, su_k);
 }
 
-// One persistent block per SM (the ring's shared memory admits no
-// second), and no more blocks than 64-row tiles.  The dynamic shared
-// memory above 48 KB is opted into once per device.
-template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
-void launch_ring(const void* M, const void* cols, const void* X,
-                 const void* Xbar, void* U, int64_t m, int64_t p, int64_t n,
-                 int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
-                 int64_t su_w, int64_t su_k, cudaStream_t s) {
-  using Cfg = Ring<TM, T, KC, kDiff>;
-  const auto kernel =
-      kDiff ? (kSparse ? &sparse_gather_ring_kernel<TM, T, KC>
-                       : &apc_gather_ring_kernel<TM, T, KC>)
-            : (kSparse ? &sparse_cimmino_gather_ring_kernel<TM, T, KC>
-                       : &cimmino_gather_ring_kernel<TM, T, KC>);
+// The scatter ring kernels: the parameter lists of their row-dot twins
+// with m (n is the sparse kernel's w).
+template <typename TM, typename T, int KC>
+__global__ void __launch_bounds__(kRingThreads, 1)
+cimmino_scatter_ring_kernel(const TM* __restrict__ B,
+                            const T* __restrict__ V, T* __restrict__ Rout,
+                            int64_t m, int64_t n, int64_t p, int64_t k,
+                            int64_t sv_w, int64_t sv_k, int64_t sr_w,
+                            int64_t sr_k) {
+  scatter_ring<TM, T, KC, false, false>(B, nullptr, nullptr, nullptr, V, T(0),
+                                        Rout, m, n, p, k, 0, 0, 0, sv_w, sv_k,
+                                        sr_w, sr_k);
+}
+
+template <typename TM, typename T, int KC, bool kAxpy>
+__global__ void __launch_bounds__(kRingThreads, 1)
+sparse_scatter_ring_kernel(const TM* __restrict__ Bvals,
+                           const int64_t* __restrict__ cols,
+                           const T* __restrict__ X,
+                           const T* __restrict__ Xbar,
+                           const T* __restrict__ U, T gamma,
+                           T* __restrict__ Y, int64_t m, int64_t w,
+                           int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
+                           int64_t sxb_k, int64_t su_w, int64_t su_k,
+                           int64_t sy_w, int64_t sy_k) {
+  scatter_ring<TM, T, KC, kAxpy, true>(Bvals, cols, X, Xbar, U, gamma, Y, m,
+                                       w, p, k, sx_w, sx_k, sxb_k, su_w,
+                                       su_k, sy_w, sy_k);
+}
+
+// Launches kKernel, a ring kernel, over the m·ceil(k/KC)·rows rows of its
+// walk with smem bytes of dynamic shared memory: one persistent block per
+// SM (the ring's shared memory admits no second), and no more blocks
+// than 64-row tiles.  The dynamic shared memory above 48 KB is opted into
+// once per device and kernel.
+template <auto kKernel, int KC, typename... Args>
+void launch_ring(int smem, int64_t m, int64_t rows, int64_t k,
+                 cudaStream_t s, Args... args) {
   static std::atomic<uint64_t> opted_in{0};          // a bit per device
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -1031,19 +1209,35 @@ void launch_ring(const void* M, const void* cols, const void* X,
     return;
   const uint64_t bit = uint64_t{1} << (dev % 64);
   if (!(opted_in.load() & bit)) {
-    if (cudaFuncSetAttribute(kernel,
+    if (cudaFuncSetAttribute(kKernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Cfg::kSmem) != cudaSuccess)
+                             smem) != cudaSuccess)
       return;
     opted_in.fetch_or(bit);
   }
-  const int64_t tiles = (m * ((k + KC - 1) / KC) * p + kRingRows - 1) /
+  const int64_t tiles = (m * ((k + KC - 1) / KC) * rows + kRingRows - 1) /
                         kRingRows;
-  kernel<<<static_cast<unsigned>(min64(sms, tiles)),
-           kRingThreads, Cfg::kSmem, s>>>(
-      static_cast<const TM*>(M), static_cast<const int64_t*>(cols),
-      static_cast<const T*>(X), static_cast<const T*>(Xbar),
-      static_cast<T*>(U), m, p, n, k, sx_w, sx_k, sxb_k, su_w, su_k);
+  kKernel<<<static_cast<unsigned>(min64(sms, tiles)), kRingThreads, smem,
+            s>>>(args...);
+}
+
+// The gathers' ring: the kernel of its form, over the rows of A (vals).
+template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
+void launch_gather_ring(const void* M, const void* cols, const void* X,
+                        const void* Xbar, void* U, int64_t m, int64_t p,
+                        int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
+                        int64_t sxb_k, int64_t su_w, int64_t su_k,
+                        cudaStream_t s) {
+  constexpr auto kernel =
+      kDiff ? (kSparse ? &sparse_gather_ring_kernel<TM, T, KC>
+                       : &apc_gather_ring_kernel<TM, T, KC>)
+            : (kSparse ? &sparse_cimmino_gather_ring_kernel<TM, T, KC>
+                       : &cimmino_gather_ring_kernel<TM, T, KC>);
+  launch_ring<kernel, KC>(
+      Ring<TM, T, KC, kDiff>::kSmem, m, p, k, s, static_cast<const TM*>(M),
+      static_cast<const int64_t*>(cols), static_cast<const T*>(X),
+      static_cast<const T*>(Xbar), static_cast<T*>(U), m, p, n, k, sx_w, sx_k,
+      sxb_k, su_w, su_k);
 }
 
 inline int kc_for(int64_t k) { return k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : 8; }
@@ -1078,8 +1272,9 @@ int apc_gather(const void* A, const void* X, const void* Xbar, void* U,
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_ring<TM, T, KC, true, false>(A, nullptr, X, Xbar, U, m, p, n, k,
-                                      sx_w, sx_k, sxb_k, su_w, su_k, s);
+      launch_gather_ring<TM, T, KC, true, false>(
+          A, nullptr, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k, su_w, su_k,
+          s);
       return;
     }
     apc_gather_kernel<TM, T, KC, kGatherRows>
@@ -1102,8 +1297,9 @@ int cimmino_gather(const void* A, const void* Xbar, void* U, int64_t m,
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_ring<TM, T, KC, false, false>(A, nullptr, nullptr, Xbar, U, m, p, n,
-                                       k, 0, 0, sxb_k, su_w, su_k, s);
+      launch_gather_ring<TM, T, KC, false, false>(
+          A, nullptr, nullptr, Xbar, U, m, p, n, k, 0, 0, sxb_k, su_w, su_k,
+          s);
       return;
     }
     cimmino_gather_kernel<TM, T, KC, kGatherRows>
@@ -1138,11 +1334,20 @@ int apc_scatter(const void* B, const void* X, const void* Xbar,
 template <typename TM, typename T>
 int cimmino_scatter(const void* B, const void* V, void* Rout, int64_t m,
                     int64_t n, int64_t p, int64_t k, int64_t sv_w,
-                    int64_t sv_k, int64_t sr_w, int64_t sr_k, void* stream) {
+                    int64_t sv_k, int64_t sr_w, int64_t sr_k,
+                    int64_t instance, void* stream) {
+  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
   if (m == 0 || n == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
+    if (instance == kRing) {
+      launch_ring<&cimmino_scatter_ring_kernel<TM, T, KC>, KC>(
+          Ring<TM, T, KC, false>::kSmem, m, n, k, s,
+          static_cast<const TM*>(B), static_cast<const T*>(V),
+          static_cast<T*>(Rout), m, n, p, k, sv_w, sv_k, sr_w, sr_k);
+      return;
+    }
     constexpr int R = scatter_rows<TM, KC>();
     cimmino_scatter_kernel<TM, T, KC, R>
         <<<grid_for(n, m, k, KC, R), kThreads, 0, s>>>(
@@ -1164,8 +1369,9 @@ int sparse_gather(const void* vals, const void* cols, const void* X,
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_ring<TM, T, KC, true, true>(vals, cols, X, Xbar, U, m, p, w, k,
-                                     sx_w, sx_k, sxb_k, su_w, su_k, s);
+      launch_gather_ring<TM, T, KC, true, true>(
+          vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k, sxb_k, su_w, su_k,
+          s);
       return;
     }
     sparse_gather_kernel<TM, T, KC, kGatherRows>
@@ -1188,8 +1394,9 @@ int sparse_cimmino_gather(const void* vals, const void* cols,
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_ring<TM, T, KC, false, true>(vals, cols, nullptr, Xbar, U, m, p, w,
-                                      k, 0, 0, sxb_k, su_w, su_k, s);
+      launch_gather_ring<TM, T, KC, false, true>(
+          vals, cols, nullptr, Xbar, U, m, p, w, k, 0, 0, sxb_k, su_w, su_k,
+          s);
       return;
     }
     sparse_cimmino_gather_kernel<TM, T, KC, kGatherRows>
@@ -1208,11 +1415,30 @@ int sparse_scatter(const void* Bvals, const void* cols, const void* X,
                    const void* Xbar, const void* U, double gamma, void* Y,
                    int64_t m, int64_t w, int64_t p, int64_t k, int64_t sx_w,
                    int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-                   int64_t sy_w, int64_t sy_k, void* stream) {
+                   int64_t sy_w, int64_t sy_k, int64_t instance,
+                   void* stream) {
+  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
   if (m == 0 || w == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
+    if (instance == kRing) {
+      const auto ring = [&](auto axpy) {
+        launch_ring<&sparse_scatter_ring_kernel<TM, T, KC, decltype(axpy)::value>,
+                    KC>(
+            Ring<TM, T, KC, false>::kSmem, m, w, k, s,
+            static_cast<const TM*>(Bvals), static_cast<const int64_t*>(cols),
+            static_cast<const T*>(X), static_cast<const T*>(Xbar),
+            static_cast<const T*>(U), static_cast<T>(gamma),
+            static_cast<T*>(Y), m, w, p, k, sx_w, sx_k, sxb_k, su_w, su_k,
+            sy_w, sy_k);
+      };
+      if (X != nullptr)
+        ring(std::true_type{});
+      else
+        ring(std::false_type{});
+      return;
+    }
     constexpr int R = scatter_rows<TM, KC>();
     const dim3 grid = grid_for(w, m, k, KC, R);
     const auto launch = [&](auto kernel) {
@@ -1264,9 +1490,10 @@ extern "C" {
   int cimmino_scatter_##SUFFIX(const void* B, const void* V, void* R,        \
                                int64_t m, int64_t n, int64_t p, int64_t k,   \
                                int64_t sv_w, int64_t sv_k, int64_t sr_w,     \
-                               int64_t sr_k, void* stream) {                 \
+                               int64_t sr_k, int64_t instance,               \
+                               void* stream) {                               \
     return cimmino_scatter<TM, T>(B, V, R, m, n, p, k, sv_w, sv_k, sr_w,     \
-                                  sr_k, stream);                             \
+                                  sr_k, instance, stream);                   \
   }                                                                          \
   int sparse_gather_##SUFFIX(const void* vals, const void* cols,             \
                              const void* X, const void* Xbar, void* U,       \
@@ -1291,10 +1518,11 @@ extern "C" {
                               int64_t m, int64_t w, int64_t p, int64_t k,    \
                               int64_t sx_w, int64_t sx_k, int64_t sxb_k,     \
                               int64_t su_w, int64_t su_k, int64_t sy_w,      \
-                              int64_t sy_k, void* stream) {                  \
+                              int64_t sy_k, int64_t instance,                \
+                              void* stream) {                                \
     return sparse_scatter<TM, T>(Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, \
                                  k, sx_w, sx_k, sxb_k, su_w, su_k, sy_w,     \
-                                 sy_k, stream);                              \
+                                 sy_k, instance, stream);                    \
   }
 
 REPRO_ENTRIES(f64, double, double)

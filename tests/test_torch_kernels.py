@@ -167,32 +167,43 @@ def test_ctypes_signatures_match_the_cuda_source():
     assert params.split(",")[-1].split() == ["int64_t", "form"]
     assert "kApcForm = {apc}, kCimminoForm = {cimmino};".format(
         **bp.FORMS) in src
-    # the four gathers take their instance as the int64 before the stream
-    for kernel in bp.GATHERS:
-        assert bp.ARGTYPES[kernel][-2:] == [ctypes.c_int64, ctypes.c_void_p]
+    # the four gathers and the two redesigned scatters take their instance
+    # as the int64 before the stream; apc_scatter has the row dot alone
+    for kernel in bp.KERNELS:
         (params,) = re.findall(rf"int {kernel}_##SUFFIX\(([^)]*)\)", body)
-        assert params.split(",")[-2].split() == ["int64_t", "instance"]
+        has = params.split(",")[-2].split() == ["int64_t", "instance"]
+        assert has == (kernel in bp.RINGS), kernel
+        if has:
+            assert bp.ARGTYPES[kernel][-2:] == [ctypes.c_int64,
+                                                ctypes.c_void_p]
     assert "kRowDot = {row_dot}, kRing = {ring};".format(
         **bp.INSTANCES) in src
-    # each gather has its ring kernel
-    for kernel in bp.GATHERS:
+    # each of them has its ring kernel
+    for kernel in bp.RINGS:
         assert f"{kernel}_ring_kernel(" in src, kernel
+    assert "apc_scatter_ring_kernel" not in src
 
 
-#: the operands gather_instance reads, by gather form: apc_gather's
-#: (A, X, X̄), cimmino_gather's (A, X̄), and the sparse gathers' vals
-#: (m, p, w) alone (they gather X and X̄ element by element)
+#: the operands gather_instance reads, by kernel form: apc_gather's
+#: (A, X, X̄), cimmino_gather's (A, X̄), the sparse gathers' vals
+#: (m, p, w) alone (they gather X and X̄ element by element), and the
+#: scatters' matrix (B (m, n, p), or Bvals (m, w, p)) with the operand
+#: they stage (V, or U, (m, k, p))
 FORMS = {"apc": ("A", "X", "Xbar"), "cimmino": ("A", "Xbar"),
-         "sparse": ("A",)}
+         "sparse": ("A",), "scatter": ("B", "V")}
 
 
 def _gather_operands(n, dtype, m=2, p=3, k=4, form="apc"):
-    """The operands of ``form``'s gather_instance: A (m, p, n) (the
-    sparse form's vals, n its support width), X (m, k, n) as the
-    transposed view solve_many hands the kernels, X̄ (k, n)."""
+    """The operands of ``form``'s gather_instance, n the row length of
+    the matrix: A (m, p, n) (the sparse form's vals, n its support
+    width), X (m, k, n) as the transposed view solve_many hands the
+    kernels, X̄ (k, n); a scatter's B (m, p, n) (p its rows, n its
+    columns: the dense p, or w) and V (m, k, n) as the transposed view."""
     ops_ = dict(A=torch.empty((m, p, n), dtype=dtype),
                 X=torch.empty((k, m, n), dtype=dtype).transpose(0, 1),
-                Xbar=torch.empty((k, n), dtype=dtype))
+                Xbar=torch.empty((k, n), dtype=dtype),
+                B=torch.empty((m, p, n), dtype=dtype),
+                V=torch.empty((k, m, n), dtype=dtype).transpose(0, 1))
     return [ops_[name] for name in FORMS[form]]
 
 
@@ -206,11 +217,14 @@ def _offset(t):
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("n,dtype,want", [
     (16384, torch.float64, "ring"),      # the main path's A rows
+    (2048, torch.float64, "ring"),       # its B (and Bvals) rows: p
     (128, torch.float32, "ring"),        # 512 bytes
     (130, torch.float64, "ring"),        # 1040 bytes
     (130, torch.float32, "row_dot"),     # 520 bytes: not a 16-byte multiple
     (7, torch.float32, "row_dot"),
     (7, torch.float64, "row_dot"),
+    (6, torch.float64, "ring"),          # 48 bytes
+    (6, torch.float32, "row_dot"),       # 24 bytes
     (0, torch.float64, "row_dot"),       # an empty row
 ])
 def test_gather_instance_by_row_length(n, dtype, want, form):
@@ -231,10 +245,10 @@ def test_gather_instance_misaligned_base_takes_the_row_dot(which, form):
     assert bp.gather_instance(*ops_.values()) == "row_dot"
 
 
-@pytest.mark.parametrize("form", ["apc", "cimmino"])
+@pytest.mark.parametrize("form", ["apc", "cimmino", "scatter"])
 def test_gather_instance_strides_count(form):
-    """A batch row stride that is not a 16-byte multiple (an X, or X̄,
-    whose rows sit 129 f32 apart) takes the row dot, though the rows
+    """A batch row stride that is not a 16-byte multiple (an X, X̄ or
+    V whose rows sit 129 f32 apart) takes the row dot, though the rows
     themselves are 512 bytes."""
     A = torch.empty((2, 3, 128), dtype=torch.float32)
     X = torch.empty((2, 4, 129), dtype=torch.float32)[..., :128]
@@ -242,11 +256,24 @@ def test_gather_instance_strides_count(form):
     if form == "apc":
         assert bp.gather_instance(A, X, Xb) == "row_dot"
         assert bp.gather_instance(A, X[:, :1], Xb[:1]) == "ring"   # k = 1
-    else:
+    elif form == "cimmino":
         Xw = torch.empty((4, 129), dtype=torch.float32)[:, :128]
         assert bp.gather_instance(A, Xw) == "row_dot"
         assert bp.gather_instance(A, Xw[:1]) == "ring"             # k = 1
         assert bp.gather_instance(A, Xb) == "ring"
+    else:
+        # V (m, k, p) in its rows of 129, and as the (m, k, p) view of a
+        # (k, m, p) batch whose worker rows sit 129 apart
+        assert bp.gather_instance(A, X) == "row_dot"
+        # k = 1: the worker stride, 4·129 f32 = 2064 bytes, is a multiple
+        assert bp.gather_instance(A, X[:, :1]) == "ring"
+        Vt = torch.empty((4, 2, 129), dtype=torch.float32)[..., :128]
+        assert bp.gather_instance(A, Vt.transpose(0, 1)) == "row_dot"
+        assert bp.gather_instance(A, Vt[:1].transpose(0, 1)) == "row_dot"
+        V = torch.empty((4, 2, 128), dtype=torch.float32)
+        assert bp.gather_instance(A, V.transpose(0, 1)) == "ring"
+        assert bp.gather_instance(A, V[:1].transpose(0, 1)) == "ring"
+        assert bp.gather_instance(A, X[:1, :1]) == "ring"    # m = k = 1
     # the sparse gathers copy no operand row: vals alone decides
     assert bp.gather_instance(A) == "ring"
 
@@ -265,27 +292,99 @@ def test_forced_instance(form):
         bp.gather_instance(*fits, forced="tensor_core")
 
 
+@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("matrix,operand,ring_at_k1", [
+    (torch.float64, torch.float64, False),
+    (torch.float32, torch.float32, False),
+    (torch.bfloat16, torch.float64, True),
+    (torch.bfloat16, torch.float32, True)])
+def test_scatter_instance_at_k1_follows_the_dtype_pair(matrix, operand,
+                                                       ring_at_k1, k):
+    """A scatter's fixed rule: at k = 1 a float64 or float32 matrix takes
+    the row dot though the ring fits, a bf16 one the ring; at k > 1 every
+    pair takes the ring.  Forcing either instance still holds, and the
+    gathers' operands (no ``scatter``) are not touched by the rule."""
+    B = torch.empty((2, 5, 2048), dtype=matrix)              # (m, n, p)
+    V = torch.empty((k, 2, 2048), dtype=operand).transpose(0, 1)
+    want = "ring" if k > 1 or ring_at_k1 else "row_dot"
+    assert bp.gather_instance(B, V, scatter=True) == want
+    assert bp.gather_instance(B, V) == "ring"
+    for forced in bp.INSTANCES:
+        assert bp.gather_instance(B, V, forced=forced,
+                                  scatter=True) == forced
+    # rows the ring cannot copy take the row dot whatever the rule says
+    assert bp.gather_instance(B[..., :7], V[..., :7],
+                              scatter=True) == "row_dot"
+
+
 @pytest.mark.parametrize("instance", [None, "ring", "row_dot"])
 def test_gather_instance_argument_never_reaches_the_cpu(instance):
     """``_instance`` is keyword-only, and whatever it names, a CPU tensor
-    still gets the launcher's refusal: no instance is a plain fallback."""
+    still gets the launcher's refusal: no instance is a plain fallback
+    (the gathers' and the redesigned scatters')."""
     A, B, X, Xb = (torch.as_tensor(a) for a in _inputs(4, 16, 2,
                                                         np.float64))
     cols = torch.arange(M * 16).reshape(M, 16) % 16
+    U = torch.zeros(M, 2, 4, dtype=A.dtype)
     before = ops.launch_counts()
     launches = {
         "apc_gather": (bp.apc_gather, (A, X, Xb)),
         "cimmino_gather": (bp.cimmino_gather, (A, Xb)),
         "sparse_gather": (bp.sparse_gather, (A, cols, X, Xb)),
         "sparse_cimmino_gather": (bp.sparse_cimmino_gather, (A, cols, Xb)),
+        "cimmino_scatter": (bp.cimmino_scatter, (B, U)),
+        "sparse_scatter": (bp.sparse_scatter, (B, cols, U, X.clone())),
     }
-    assert sorted(launches) == sorted(bp.GATHERS)
+    assert sorted(launches) == sorted(bp.RINGS)
     for launcher, args in launches.values():
         with pytest.raises(ValueError, match="CUDA"):
             launcher(*args, _instance=instance)
         with pytest.raises(TypeError):
             launcher(*args, instance)
     assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("p,k,forced,want", [
+    (8, 3, None, "ring"), (8, 3, "row_dot", "row_dot"),
+    (8, 3, "ring", "ring"), (7, 3, None, "row_dot"),
+    (7, 3, "ring", ValueError), (8, 1, None, "row_dot"),
+    (8, 1, "ring", "ring")])
+@pytest.mark.parametrize("kernel", bp.SCATTERS)
+def test_scatter_launchers_pass_their_instance(monkeypatch, kernel, p, k,
+                                               forced, want):
+    """The redesigned scatters hand their C entry the instance that
+    ``gather_instance(matrix, staged operand, scatter=True)`` picks (the
+    row dot at k = 1 in float64), or the forced one, as the int64 before
+    the stream; forcing the ring on rows it cannot copy raises before any
+    launch.  (The entries cannot run here: the device checks and the
+    launch are stood in for.)"""
+    calls = []
+
+    def check(name, index=None, **operands):       # the sizes alone
+        return {ax: n for t, axes in operands.values()
+                for ax, n in zip(axes, t.shape)}
+
+    monkeypatch.setattr(bp, "_check", check)
+    monkeypatch.setattr(bp, "_launch", lambda name, matrix, out, *args:
+                        calls.append((name, args)))
+    B = torch.empty((2, 5, p), dtype=torch.float64)         # (m, n, p)
+    V = torch.empty((k, 2, p), dtype=torch.float64).transpose(0, 1)
+
+    def launch():
+        if kernel == "cimmino_scatter":
+            return bp.cimmino_scatter(B, V, _instance=forced)
+        return bp.sparse_scatter(B, torch.zeros((2, 5), dtype=torch.int64),
+                                 V, torch.empty((2, k, 9), dtype=B.dtype),
+                                 _instance=forced)
+
+    if want is ValueError:
+        with pytest.raises(ValueError, match="row dot"):
+            launch()
+        assert calls == []
+        return
+    launch()
+    ((name, args),) = calls
+    assert name == kernel and args[-1] == bp.INSTANCES[want]
 
 
 def test_ring_smem_bytes_takes_the_form(monkeypatch):

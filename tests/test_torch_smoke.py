@@ -9,7 +9,8 @@ launcher of ``kernels.block_projection`` is replaced by a counting
 stand-in that asserts the launcher's contract (matrix stacks contiguous,
 the matrix and operand dtypes a pair the kernels take, a unit stride
 along every operand's last axis, ``cols`` a contiguous int64 (m, w)
-tensor, the scatter's output not aliasing X) and computes
+tensor, the scatter's output not aliasing X, a forced instance that
+``gather_instance`` admits) and computes
 its result row by row from the plain versions, storing the sparse
 scatter's support columns as the kernel does.  It also checks that the
 script refuses to run without a card.
@@ -96,8 +97,9 @@ def _fake_launchers():
         return _by_row(Xb.shape[0], lambda i: ops.cimmino_gather_ref(
             A, Xb[i])).contiguous()
 
-    def cimmino_scatter(B, V):
+    def cimmino_scatter(B, V, *, _instance=None):
         _contract("cimmino_scatter", B, [V])
+        bp.gather_instance(B, V, forced=_instance, scatter=True)
         return _by_row(V.shape[1], lambda i: ops.cimmino_scatter_ref(
             B, V[:, i])).contiguous()
 
@@ -113,9 +115,11 @@ def _fake_launchers():
         return _by_row(Xb.shape[0], lambda i: ops.sparse_cimmino_gather_ref(
             vals, cols, Xb[i])).contiguous()
 
-    def sparse_scatter(Bv, cols, U, out, *, X=None, Xbar=None, gamma=0.0):
+    def sparse_scatter(Bv, cols, U, out, *, X=None, Xbar=None, gamma=0.0,
+                       _instance=None):
         _contract("sparse_scatter", Bv,
                   [U, out] + ([] if X is None else [X, Xbar]), cols)
+        bp.gather_instance(Bv, U, forced=_instance, scatter=True)
         C = _by_row(U.shape[1], lambda i: torch.einsum(
             "mwp,mkp->mkw", Bv.to(U.dtype), U[:, i]))
         idx = cols[:, None, :].expand(out.shape[:-1] + (-1,))
@@ -166,7 +170,7 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     lib = tmp_path / "libblock_projection.so"
     lib.write_text("")
     ring = ("ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__"
-            "fa3dee60_19_block_projection_cu_8ac00be0{}I{}dLi8EEEvPKT_' for "
+            "fa3dee60_19_block_projection_cu_8ac00be0{}I{}dLi8E{}EEvPKT_' for "
             "'sm_90a'\n"
             "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
             "loads\n"
@@ -178,12 +182,13 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes "
         "smem\n" + "".join(
-            ring.format(f"{len(kn) + 12}{kn}_ring_kernel", tm)
-            for kn in bp.GATHERS for tm in ("d", "13__nv_bfloat16")))
+            ring.format(f"{len(kn) + 12}{kn}_ring_kernel", tm,
+                        "Lb1E" if kn == "sparse_scatter" else "")
+            for kn in bp.RINGS for tm in ("d", "13__nv_bfloat16")))
     monkeypatch.setattr(bp, "build", lambda sources=bp.SOURCES: {
         "block_projection.cu": lib})
     # the two forms' stage sizes at KC = 8: (64 + 16) and (64 + 8) rows of
-    # 512 bytes, 5 stages each
+    # 512 bytes, 5 stages each (the scatters' rings: the Cimmino form)
     monkeypatch.setattr(bp, "ring_smem_bytes", lambda mdt, dt, k, form: {
         "apc": 204800, "cimmino": 184320}[form])
     for name, fn in _fake_launchers().items():
@@ -204,20 +209,42 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             "184320 B dynamic") in text
     assert ("sparse_cimmino_gather_ring f64 KC=8 spill 0 B: 168 regs, smem "
             "128 B + 184320 B dynamic") in text
+    assert ("cimmino_scatter_ring f64 KC=8 spill 0 B: 168 regs, smem 128 B "
+            "+ 184320 B dynamic") in text
+    assert ("sparse_scatter_ring f64 KC=8 apc spill 0 B: 168 regs, smem 128 "
+            "B + 184320 B dynamic") in text
     # and the bf16-stored instances, tagged by their matrix/compute types
     assert ("apc_gather_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem 128 B "
             "+ 204800 B dynamic") in text
-    # both instances of the four gathers where the ring fits, the row dot
-    # alone where it does not (f32 rows of 130)
-    for kn in bp.GATHERS:
+    # both instances of the four gathers and both scatters (both forms of
+    # sparse_scatter) where the ring fits, the row dot alone where it does
+    # not (f32 rows of 130, p = 7); a bf16-stored scatter's ring equals
+    # the ring on the widened matrix
+    scatters = ("cimmino_scatter", "sparse_scatter apc",
+                "sparse_scatter cimmino")
+    for kn in bp.GATHERS + scatters:
         assert f"{kn} ring≡row_dot" in text, kn
+    for kn in scatters:
+        assert any(f" bfloat16/float64: " in x and f"{kn} ring≡widened ring"
+                   in x for x in lines), kn
     assert any("n=130" in x and "float32" in x and "apc_gather row_dot" in x
-               and "cimmino_gather row_dot" in x for x in lines)
+               and "cimmino_gather row_dot" in x
+               and "cimmino_scatter row_dot" in x for x in lines)
     # phases 8 and 11 time every gather's row-dot instance beside its ring
-    for phase, kn in ((8, "apc_gather"), (8, "cimmino_gather"),
-                      (11, "sparse_gather"), (11, "sparse_cimmino_gather")):
+    # (float64), and each redesigned scatter's in every form
+    for phase, kn, n in ((8, "apc_gather", 2), (8, "cimmino_gather", 2),
+                         (8, "cimmino_scatter", 8), (11, "sparse_gather", 2),
+                         (11, "sparse_cimmino_gather", 2),
+                         (11, "sparse_scatter", 16)):
         assert sum(x.startswith(f"phase {phase} {kn} k=")
-                   and "row-dot instance" in x for x in lines) == 2, kn
+                   and "row-dot instance" in x for x in lines) == n, kn
+        # and each redesigned scatter's ring beside it, forced where the
+        # launcher takes the row dot (k = 1, float64 and float32)
+        assert sum(x.startswith(f"phase {phase} {kn} k=")
+                   and "ring instance" in x for x in lines) == (
+            n if kn in bp.SCATTERS else 0), kn
+    assert sum(x.startswith("phase 11 sparse_scatter k=")
+               and "(Cimmino form)" in x for x in lines) == 8
     # the card's clocks at the start and end of phases 8 and 11 (no
     # nvidia-smi here: the lines say so and the run goes on)
     for label in ("phase 8 start", "phase 8 end", "phase 11 start",
@@ -235,18 +262,25 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                        for x in lines) == 1, (half, sname)
     assert sum(x.startswith("phase 12 solve_many k=8 precision=mixed:")
                for x in lines) == 1
-    # and in float32, the kernels' bfloat16/float32 form
+    # and in float32, the kernels' bfloat16/float32 and float32 forms
     for half in ("dense", "sparse"):
         for sname in ("apc", "cimmino"):
-            assert sum(x.startswith(f"phase 12 {half} {sname} precision="
-                                    "mixed float32:") for x in lines) == 1
-    # phases 8 and 11 time every kernel's mixed forms and the mixed
-    # iterations
+            for what in ("precision=mixed float32", "float32"):
+                assert sum(x.startswith(f"phase 12 {half} {sname} {what}:")
+                           for x in lines) == 1, (half, sname, what)
+    # phases 8 and 11 time every kernel in every form (the float32 one
+    # beside its library call) and the mixed iterations
+    pairs = ("float64/float64", "float32/float32", "bfloat16/float64",
+             "bfloat16/float32")
     for phase, kns in ((8, bp.KERNELS[:4]), (11, bp.KERNELS[4:])):
         for kn in kns:
-            assert sum(x.startswith(f"phase {phase} {kn} k=")
-                       and "mixed forms: bfloat16/float64" in x
-                       for x in lines) == 2, kn
+            for pr in pairs:
+                got = [x for x in lines if x.startswith(f"phase {phase} {kn} "
+                                                        "k=")
+                       and f" {pr}: " in x]
+                assert len(got) == (4 if kn == "sparse_scatter" else 2), (
+                    kn, pr)
+                assert all(("torch." in x) == (pr[0] == "f") for x in got)
     assert sum(x.startswith("phase 8 iteration k=") and "precision=mixed" in x
                for x in lines) == 2
     assert sum(x.startswith("phase 11 iteration k=")
@@ -256,18 +290,24 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert [k["name"] for k in kernels] == list(bp.KERNELS)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "forms"}
-    form_keys = {"pair", "k", "ms", "bound_ms", "bound_by", "launches",
-                 "max_abs_err", "library_ms", "library"}
+    form_keys = {"pair", "k", "ms", "row_dot_ms", "ring_ms", "bound_ms",
+                 "bound_by", "launches", "max_abs_err", "library_ms",
+                 "library"}
     for k in kernels:
         assert set(k) == keys and k["launches"] == 40, k
         assert np.isfinite([k["ms"], k["plain_ms"], k["bound_ms"]]).all()
-        assert [f["pair"] for f in k["forms"]] == [
-            "float64/float64", "bfloat16/float64", "bfloat16/float32"]
+        assert [f["pair"] for f in k["forms"]] == list(pairs)
         # each form's count from its own runs
-        assert [f["launches"] for f in k["forms"]] == [40, 40, 40], k
+        assert [f["launches"] for f in k["forms"]] == [40] * 4, k
         for f in k["forms"]:
             assert set(f) == form_keys and np.isfinite(f["ms"]), f
-        assert k["forms"][1]["library_ms"] is None
-        assert k["forms"][1]["library"].startswith("none")
+            assert (f["row_dot_ms"] is None) == (
+                k["name"] not in bp.RINGS or (k["name"] in bp.GATHERS
+                                              and f is not k["forms"][0]))
+            assert (f["ring_ms"] is None) == (k["name"] not in bp.SCATTERS)
+        assert np.isfinite(k["forms"][1]["library_ms"])
+        for f in k["forms"][2:]:
+            assert f["library_ms"] is None
+            assert f["library"].startswith("none")
     assert [k["replaces"].rsplit(":", 1)[1] for k in kernels] == [
         "173", "210", "246", "274", "313", "314", "315"]
