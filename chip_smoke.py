@@ -10,7 +10,7 @@ script exits non-zero without its last line:
    the CUDA kernels built from the checkout's sources, with each
    instance's registers, shared memory and spill bytes (none allowed in
    the ring instances that compute in float64, the bf16-stored ones
-   included, and each of the six rings present);
+   included, and each of the seven rings present);
 2. kernel vs plain version on the card: ``apc_gather``/``apc_scatter``
    and ``cimmino_gather``/``cimmino_scatter`` against their plain PyTorch
    versions at ragged shapes and at the main path's shapes, and
@@ -20,11 +20,11 @@ script exits non-zero without its last line:
    float64 and float32, each with its matrix in its own dtype and in
    bfloat16 (the mixed forms), k = 1..11, a batch row bit-identical to a
    k = 1 call; both instances of each of the four gathers, of
-   ``cimmino_scatter`` and of both forms of ``sparse_scatter`` (the
-   ring, where its alignment admits the shape, and the row dot) against
-   the plain version and bit-identical to each other (a bf16-stored
-   scatter's ring to the ring on its matrix widened, as its row dot sums
-   in another order);
+   ``apc_scatter``, of ``cimmino_scatter`` and of both forms of
+   ``sparse_scatter`` (the ring, where its alignment admits the shape,
+   and the row dot) against the plain version and bit-identical to each
+   other (a bf16-stored scatter's ring to the ring on its matrix widened,
+   as its row dot sums in another order);
 3. the APC main path at full size: a 32768 x 16384 tall Gaussian system
    on 16 workers (float64), ``analyze``, then ``solve`` on the kernel
    path — error to x_true, one launch of each kernel per iteration, the
@@ -43,9 +43,11 @@ script exits non-zero without its last line:
    (float64, float32, bf16/float64, bf16/float32), timed in turns beside
    each form's bound: the float64 form's plain version, one torch.matmul
    of the same product where the matrix and the operands share a dtype,
-   the row-dot instance of a gather (float64) and of ``cimmino_scatter``
-   (every form), with the ring asserted to be the instance the main
-   path's shapes take; and of the whole APC and Cimmino iterations,
+   the row-dot instance of a gather (float64) and of ``apc_scatter`` and
+   ``cimmino_scatter`` (every form, each beside its ring forced), with
+   the ring asserted to be the instance the main path's shapes take (but
+   a float64 or float32 scatter at k = 1: the row dot); and of the whole
+   APC and Cimmino iterations,
    float64 and mixed, with the card's clocks, power, temperature and
    throttle reasons at the phase's start and end;
 9. the sparse path at full size: a banded 32768 x 32768 system on 16
@@ -408,6 +410,10 @@ def main() -> int:
                 "apc_gather", lambda inst, M: bp.apc_gather(
                     M, X3, Xb3, _instance=inst), outs["apc_gather"][1], A,
                 (X3, Xb3), pr, label, record),
+            "apc_scatter": instances(
+                "apc_scatter", lambda inst, M: bp.apc_scatter(
+                    M, X3, Xb3, V3, gamma, _instance=inst),
+                outs["apc_scatter"][1], B, (V3,), pr, label, record),
             "cimmino_gather": instances(
                 "cimmino_gather", lambda inst, M: bp.cimmino_gather(
                     M, Xb3, _instance=inst), outs["cimmino_gather"][1], A,
@@ -900,8 +906,8 @@ def main() -> int:
     def form_calls(kname, pr, calls):
         """The calls timed of ``kname`` in form ``pr``: the kernel
         (``ms``, the instance its launcher picks), its row-dot instance
-        (``row_dot_ms``: a gather's in float64, a redesigned scatter's in
-        every form), a redesigned scatter's ring instance (``ring_ms``,
+        (``row_dot_ms``: a gather's in float64, a scatter's in every
+        form), a scatter's ring instance (``ring_ms``,
         every form: gather_instance picks the row dot at k = 1 in float64
         and float32), its plain version (float64) and the library
         yardstick (where the matrix and the operands share a dtype)."""
@@ -1001,6 +1007,10 @@ def main() -> int:
                     library_ms=lambda: torch.matmul(D_, A_.transpose(1, 2))),
                 "apc_scatter": dict(
                     ms=lambda: bp.apc_scatter(B_, X_, Xb_, U_, 0.9),
+                    ring_ms=lambda: bp.apc_scatter(B_, X_, Xb_, U_, 0.9,
+                                                   _instance="ring"),
+                    row_dot_ms=lambda: bp.apc_scatter(
+                        B_, X_, Xb_, U_, 0.9, _instance="row_dot"),
                     plain_ms=lambda: ops.apc_scatter_ref(B_, X_, Xb_, U_,
                                                          0.9),
                     library_ms=lambda: torch.matmul(U_, B_.transpose(1, 2))),
@@ -1030,16 +1040,17 @@ def main() -> int:
             "bfloat16/float32": (dense_calls(A16, B16, X3f, Xbf, Uf, Vf, Df),
                                  dense_work(2, 4), torch.float32)}
         # the ring is the instance the main path's shapes take, in every
-        # form, but for the scatter's fixed rule: the row dot at k = 1
+        # form, but for the scatters' fixed rule: the row dot at k = 1
         # with a float64 or float32 matrix
-        for A_, B_, X_, Xb_, V_ in ((A, B, X3, Xb, V),
-                                    (A32, B32, X3f, Xbf, Vf),
-                                    (A16, B16, X3, Xb, V),
-                                    (A16, B16, X3f, Xbf, Vf)):
+        for A_, B_, X_, Xb_, U_, V_ in ((A, B, X3, Xb, U, V),
+                                        (A32, B32, X3f, Xbf, Uf, Vf),
+                                        (A16, B16, X3, Xb, U, V),
+                                        (A16, B16, X3f, Xbf, Uf, Vf)):
             assert bp.gather_instance(A_, X_, Xb_) == "ring"
             assert bp.gather_instance(A_, Xb_) == "ring"
-            assert bp.gather_instance(B_, V_, scatter=True) == (
-                "row_dot" if k == 1 and B_.dtype != BF16 else "ring")
+            for S_ in (U_, V_):
+                assert bp.gather_instance(B_, S_, scatter=True) == (
+                    "row_dot" if k == 1 and B_.dtype != BF16 else "ring")
         if k == 1:
             st = APCState(x=X[0], xbar=Xb[0], t=0)
             cst = CimminoState(xbar=Xb[0], t=0)

@@ -20,14 +20,15 @@ operands' device and its current stream, and raise on a nonzero
 that it went through the kernels, and through which form of each.
 The plain PyTorch versions and the device dispatch are in ``ops``.
 
-The four gathers (``apc_gather``, ``sparse_gather``, ``cimmino_gather``,
-``sparse_cimmino_gather``) and two scatters (``cimmino_scatter``,
-``sparse_scatter`` in both forms) have two instances, one kernel each:
-the "ring" for Hopper (producer warps streaming 16-byte copies through a
-shared-memory ring to consumer warps), and the "row dot" that
-``apc_scatter`` has alone.  :func:`gather_instance` picks one by the
-operands' shape and alignment (and, for a scatter, its dtype pair at
-k = 1), and both count as the same kernel.
+All seven kernels (the four gathers ``apc_gather``, ``sparse_gather``,
+``cimmino_gather``, ``sparse_cimmino_gather``, and the three scatters
+``apc_scatter``, ``cimmino_scatter``, ``sparse_scatter`` in both forms)
+have two instances, one kernel each: the "ring" for Hopper (producer
+warps streaming 16-byte copies through a shared-memory ring to consumer
+warps), and the "row dot" for the shapes the ring cannot copy.
+:func:`gather_instance` picks one by the operands' shape and alignment
+(and, for a scatter, its dtype pair at k = 1), and both count as the
+same kernel.
 
 Each kernel takes its matrix (A, B, vals or Bvals) in a storage dtype
 beside the compute dtype of the other operands, which is also its
@@ -60,10 +61,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("apc_gather", "apc_scatter", "cimmino_gather",
            "cimmino_scatter", "sparse_gather", "sparse_cimmino_gather",
            "sparse_scatter")
-#: the gathers and the scatters with a ring instance beside the row dot
+#: the gathers and the scatters, every kernel with a ring instance beside
+#: the row dot
 GATHERS = ("apc_gather", "cimmino_gather", "sparse_gather",
            "sparse_cimmino_gather")
-SCATTERS = ("cimmino_scatter", "sparse_scatter")
+SCATTERS = ("apc_scatter", "cimmino_scatter", "sparse_scatter")
 RINGS = GATHERS + SCATTERS
 #: the C entries' suffix of each (matrix dtype, compute dtype) pair the
 #: kernels take: <kernel>_<suffix>
@@ -167,8 +169,8 @@ ARGTYPES = {
     # stream
     "apc_gather": [_PTR] * 4 + [_I64] * 10 + [_PTR],
     # B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w, sx_k, sxb_k, su_w, su_k,
-    # sy_w, sy_k, stream
-    "apc_scatter": [_PTR] * 4 + [ctypes.c_double, _PTR] + [_I64] * 11
+    # sy_w, sy_k, instance, stream
+    "apc_scatter": [_PTR] * 4 + [ctypes.c_double, _PTR] + [_I64] * 12
     + [_PTR],
     # A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k, instance, stream
     "cimmino_gather": [_PTR] * 3 + [_I64] * 8 + [_PTR],
@@ -224,9 +226,9 @@ def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
     ``matrix`` (A, vals, B or Bvals), and every base address and row
     stride of it and of the ``copied`` operands — else "row_dot".  The
     copied operands: ``apc_gather`` X and X̄; ``cimmino_gather`` X̄;
-    ``cimmino_scatter`` V and ``sparse_scatter`` U (the staged operand;
-    the sparse APC form reads X and X̄ element by element in its
-    epilogue, and every scatter writes its output there); the sparse
+    ``cimmino_scatter`` V, ``apc_scatter`` and ``sparse_scatter`` U (the
+    staged operand; the APC forms read X and X̄ element by element in
+    their epilogue, and every scatter writes its output there); the sparse
     gathers gather X and X̄ element by element and copy none.  Each
     tensor's strides count in its own element size (a bf16 matrix beside
     float64 operands).  Strides of axes of size 1 are never used and do
@@ -354,21 +356,25 @@ def apc_gather(A: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor, *,
 
 
 def apc_scatter(B: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor,
-                U: torch.Tensor, gamma: float) -> torch.Tensor:
+                U: torch.Tensor, gamma: float, *,
+                _instance: str = None) -> torch.Tensor:
     """Y = X + γ((X̄ − X) − U·Bᵀ) for every worker, in one launch.
 
     B (m, n, p) contiguous; X (m, k, n) and U (m, k, p) with unit stride
     along their last axis; X̄ (k, n) shared by all workers; γ a Python
     float (a runtime kernel argument).  Y is allocated in X's layout.
+    The instance is ``gather_instance(B, U, scatter=True)``, or
+    ``_instance`` where given.
     """
     d = _check("apc_scatter", B=(B, "mnp"), X=(X, "mkn"), Xbar=(Xbar, "kn"),
                U=(U, "mkp"))
+    instance = gather_instance(B, U, forced=_instance, scatter=True)
     Y = torch.empty_like(X)
     _launch("apc_scatter", B, Y, B.data_ptr(), X.data_ptr(),
             Xbar.data_ptr(), U.data_ptr(), float(gamma), Y.data_ptr(),
             d["m"], d["n"], d["p"], d["k"], X.stride(0), X.stride(1),
             Xbar.stride(0), U.stride(0), U.stride(1), Y.stride(0),
-            Y.stride(1))
+            Y.stride(1), INSTANCES[instance])
     return Y
 
 

@@ -84,12 +84,12 @@
 //     The APC form stores X + γ((X̄ − X) − C) on the support; the
 //     off-support columns of Y come from the caller's AXPY pre-pass.
 //
-// The four gathers (apc_gather, sparse_gather, cimmino_gather,
-// sparse_cimmino_gather) and two scatters (cimmino_scatter, and both
-// forms of sparse_scatter) have a second, Hopper instance, the "ring",
-// which the launcher takes wherever its 16-byte copies can (below); the
-// row dot stays for the shapes they cannot take (and apc_scatter has
-// only the row dot).  All are bound by
+// All seven kernels (the four gathers apc_gather, sparse_gather,
+// cimmino_gather, sparse_cimmino_gather, and the scatters apc_scatter,
+// cimmino_scatter and both forms of sparse_scatter) have a second,
+// Hopper instance, the "ring", which the launcher takes wherever its
+// 16-byte copies can (below); the row dot stays only for the shapes
+// they cannot take.  All are bound by
 // bytes (|A| or |vals| over the HBM rate), but at k = 8 the row dot
 // reached only about half its bound: each 256-column chunk stages 8
 // batch rows of the right operand between two barriers with no load of A
@@ -139,9 +139,10 @@
 // Cimmino gather's.  Only the epilogue differs: the shuffle tree runs as
 // a reduce-scatter, halving the sums a lane keeps at each level (the
 // same additions in the same order as the tree), so each lane ends with
-// its own 1–2 of the warp's 8·KC sums and the 32 lanes store at once —
-// R[w, i, j]; sparse: at cols[w, j], C or, in the APC form,
-// X + γ((X̄ − X) − C), reading X, X̄ and cols only there, after the
+// its own 1–2 of the warp's 8·KC sums and the 32 lanes store at once:
+// at column j (dense) or cols[w, j] (sparse), C in the Cimmino forms
+// (R = V·Bᵀ) and X + γ((X̄ − X) − C) in the APC forms (apc_scatter, and
+// sparse_scatter given X), reading X, X̄ and cols only there, after the
 // accumulators are gone.
 //
 // Tried on the card and dropped for the gathers, each slower than this
@@ -596,7 +597,7 @@ sparse_scatter_kernel(const TM* __restrict__ Bvals,
 }
 
 // ---------------------------------------------------------------------------
-// The ring instance of apc_gather and sparse_gather (see the header)
+// The ring instance of every kernel (see the header)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -982,27 +983,69 @@ __device__ __forceinline__ void reduce_scatter(T (&v)[N], int lane) {
 // together: out[w, k0 + kk, j'] for the tile's row j = row0 + r0 + r and
 // kk < kvalid, at j' = j (dense) or cols[w, j] (kSparse; `rows` is the
 // support width), of C (R = V·Bᵀ, the Cimmino forms) or, under kAxpy,
-// of X + γ((X̄ − X) − C) (the sparse APC form), as the row dot stores
-// them.  The sums are laid out so that lane l holds row r = q % 8 and
-// batch rows kk = (q / 8)·H + h, h < H = max(KC / 4, 1), with q = l (or
+// of X + γ((X̄ − X) − C) (the APC forms: apc_scatter, and sparse_scatter
+// given X), as the row dot stores them.  The sums are laid out so that
+// lane l holds row r = q % 8 and batch rows kk = (q / 8)·H + h,
+// h < H = max(KC / 4, 1), with q = l (or
 // the l·N/32 of the lanes that hold a sum each below 32 sums): each
 // store (one h) writes 8 consecutive rows of a batch row from 8
 // neighbouring lanes, and reads X and X̄ so.  The reduce-scatter leaves
 // at most 2 sums live, so X, X̄ and cols cost no register the
 // accumulators need.
+//
+// The dense APC form (apc_scatter) copies X and X̄ at its lane's outputs
+// into shared memory before the tree (`prefetch`: one cp.async of one
+// element each, so no register holds them while the tree runs) and reads
+// them there after it: the loads' latency hides behind the tree.  Loaded
+// after the tree, it sat at the end of every one of the ~31 tiles a
+// block walks at the main path's shapes, where at k = 8 the consumers
+// set the ring's pace: in probes on the card that form trailed the
+// Cimmino ring by a few per cent in f64 and more in f32; loaded into
+// registers before the tree, X and X̄ spilled the f64 instance (PERF.md).
+// The sparse form reads cols first and keeps its loads after the tree.
 template <typename T, int KC, bool kAxpy, bool kSparse>
 struct RingScatterStore {
+  static constexpr int N = kRingWarpRows * KC;
+  static constexpr int H = N >= 32 ? N / 32 : 1;   // sums a lane holds
+  static constexpr bool kStaged = kAxpy && !kSparse;
   const int64_t* __restrict__ cols;
   const T* __restrict__ X;
   const T* __restrict__ Xbar;
   T gamma;
   T* __restrict__ Y;
   int64_t rows, sx_w, sx_k, sxb_k, sy_w, sy_k;
+
+  // This warp's copies of X (row 2h) and X̄ (row 2h + 1), lane by lane.
+  __device__ static T (*staged())[32] {
+    __shared__ T slots[kRingWarps][2 * H][32];
+    return slots[threadIdx.x / 32];
+  }
+
+  // The copies of X and X̄ at the lane's outputs (lane l holds the sums
+  // q = l·N/32/H, ... of operator()), where it stores any.
+  __device__ __forceinline__ void prefetch(const RingTile& tl, int r0,
+                                           int lane) const {
+    if constexpr (N < 32)
+      if (lane % (32 / N) != 0) return;
+    const int q = lane * N / 32 / H;
+    const int r = q % kRingWarpRows;
+    if (r0 + r >= tl.rows) return;
+    const int64_t j = tl.row0 + r0 + r;
+    T (*s)[32] = staged();
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int kk = q / kRingWarpRows * H + h;
+      if (kk >= tl.kvalid) continue;
+      const int64_t i = tl.k0 + kk;
+      cp_async_element(&s[2 * h][lane], X + tl.w * sx_w + i * sx_k + j);
+      cp_async_element(&s[2 * h + 1][lane], Xbar + i * sxb_k + j);
+    }
+  }
+
   __device__ __forceinline__ void operator()(T (&acc)[kRingWarpRows][KC],
                                              const RingWalk* walk, int r0,
                                              int lane) const {
-    constexpr int N = kRingWarpRows * KC;
-    constexpr int H = N >= 32 ? N / 32 : 1;        // sums a lane holds
+    if constexpr (kStaged) prefetch(walk->tl, r0, lane);
     T v[N];
 #pragma unroll
     for (int r = 0; r < kRingWarpRows; ++r)
@@ -1018,13 +1061,18 @@ struct RingScatterStore {
     if (r0 + r >= tl.rows) return;
     const int64_t j = tl.row0 + r0 + r;
     const int64_t jo = kSparse ? cols[tl.w * rows + j] : j;
+    if constexpr (kStaged) asm volatile("cp.async.wait_all;\n" ::: "memory");
 #pragma unroll
     for (int h = 0; h < H; ++h) {
       const int kk = q / kRingWarpRows * H + h;
       if (kk >= tl.kvalid) continue;
       const int64_t i = tl.k0 + kk;
       T* y = Y + tl.w * sy_w + i * sy_k + jo;
-      if constexpr (kAxpy) {
+      if constexpr (kStaged) {
+        const T x = staged()[2 * h][lane];
+        const T d = staged()[2 * h + 1][lane] - x;
+        *y = x + gamma * (d - v[h]);
+      } else if constexpr (kAxpy) {
         const T x = X[tl.w * sx_w + i * sx_k + jo];
         const T d = Xbar[i * sxb_k + jo] - x;
         *y = x + gamma * (d - v[h]);
@@ -1165,6 +1213,19 @@ sparse_cimmino_gather_ring_kernel(const TM* __restrict__ vals,
 
 // The scatter ring kernels: the parameter lists of their row-dot twins
 // with m (n is the sparse kernel's w).
+template <typename TM, typename T, int KC>
+__global__ void __launch_bounds__(kRingThreads, 1)
+apc_scatter_ring_kernel(const TM* __restrict__ B, const T* __restrict__ X,
+                        const T* __restrict__ Xbar, const T* __restrict__ U,
+                        T gamma, T* __restrict__ Y, int64_t m, int64_t n,
+                        int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
+                        int64_t sxb_k, int64_t su_w, int64_t su_k,
+                        int64_t sy_w, int64_t sy_k) {
+  scatter_ring<TM, T, KC, true, false>(B, nullptr, X, Xbar, U, gamma, Y, m,
+                                       n, p, k, sx_w, sx_k, sxb_k, su_w,
+                                       su_k, sy_w, sy_k);
+}
+
 template <typename TM, typename T, int KC>
 __global__ void __launch_bounds__(kRingThreads, 1)
 cimmino_scatter_ring_kernel(const TM* __restrict__ B,
@@ -1315,11 +1376,21 @@ int apc_scatter(const void* B, const void* X, const void* Xbar,
                 const void* U, double gamma, void* Y, int64_t m, int64_t n,
                 int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
                 int64_t sxb_k, int64_t su_w, int64_t su_k, int64_t sy_w,
-                int64_t sy_k, void* stream) {
+                int64_t sy_k, int64_t instance, void* stream) {
+  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
   if (m == 0 || n == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(k, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
+    if (instance == kRing) {
+      launch_ring<&apc_scatter_ring_kernel<TM, T, KC>, KC>(
+          Ring<TM, T, KC, false>::kSmem, m, n, k, s,
+          static_cast<const TM*>(B), static_cast<const T*>(X),
+          static_cast<const T*>(Xbar), static_cast<const T*>(U),
+          static_cast<T>(gamma), static_cast<T*>(Y), m, n, p, k, sx_w, sx_k,
+          sxb_k, su_w, su_k, sy_w, sy_k);
+      return;
+    }
     constexpr int R = scatter_rows<TM, KC>();
     apc_scatter_kernel<TM, T, KC, R>
         <<<grid_for(n, m, k, KC, R), kThreads, 0, s>>>(
@@ -1476,9 +1547,10 @@ extern "C" {
                            int64_t n, int64_t p, int64_t k, int64_t sx_w,    \
                            int64_t sx_k, int64_t sxb_k, int64_t su_w,        \
                            int64_t su_k, int64_t sy_w, int64_t sy_k,         \
-                           void* stream) {                                   \
+                           int64_t instance, void* stream) {                 \
     return apc_scatter<TM, T>(B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w,     \
-                              sx_k, sxb_k, su_w, su_k, sy_w, sy_k, stream);  \
+                              sx_k, sxb_k, su_w, su_k, sy_w, sy_k, instance, \
+                              stream);                                       \
   }                                                                          \
   int cimmino_gather_##SUFFIX(const void* A, const void* Xbar, void* U,      \
                               int64_t m, int64_t p, int64_t n, int64_t k,    \

@@ -167,8 +167,9 @@ def test_ctypes_signatures_match_the_cuda_source():
     assert params.split(",")[-1].split() == ["int64_t", "form"]
     assert "kApcForm = {apc}, kCimminoForm = {cimmino};".format(
         **bp.FORMS) in src
-    # the four gathers and the two redesigned scatters take their instance
-    # as the int64 before the stream; apc_scatter has the row dot alone
+    # every kernel, the four gathers and the three scatters, takes its
+    # instance as the int64 before the stream
+    assert sorted(bp.RINGS) == sorted(bp.KERNELS)
     for kernel in bp.KERNELS:
         (params,) = re.findall(rf"int {kernel}_##SUFFIX\(([^)]*)\)", body)
         has = params.split(",")[-2].split() == ["int64_t", "instance"]
@@ -181,7 +182,6 @@ def test_ctypes_signatures_match_the_cuda_source():
     # each of them has its ring kernel
     for kernel in bp.RINGS:
         assert f"{kernel}_ring_kernel(" in src, kernel
-    assert "apc_scatter_ring_kernel" not in src
 
 
 #: the operands gather_instance reads, by kernel form: apc_gather's
@@ -321,7 +321,7 @@ def test_scatter_instance_at_k1_follows_the_dtype_pair(matrix, operand,
 def test_gather_instance_argument_never_reaches_the_cpu(instance):
     """``_instance`` is keyword-only, and whatever it names, a CPU tensor
     still gets the launcher's refusal: no instance is a plain fallback
-    (the gathers' and the redesigned scatters')."""
+    (the gathers' and the scatters')."""
     A, B, X, Xb = (torch.as_tensor(a) for a in _inputs(4, 16, 2,
                                                         np.float64))
     cols = torch.arange(M * 16).reshape(M, 16) % 16
@@ -332,6 +332,7 @@ def test_gather_instance_argument_never_reaches_the_cpu(instance):
         "cimmino_gather": (bp.cimmino_gather, (A, Xb)),
         "sparse_gather": (bp.sparse_gather, (A, cols, X, Xb)),
         "sparse_cimmino_gather": (bp.sparse_cimmino_gather, (A, cols, Xb)),
+        "apc_scatter": (bp.apc_scatter, (B, X, Xb, U, 1.0)),
         "cimmino_scatter": (bp.cimmino_scatter, (B, U)),
         "sparse_scatter": (bp.sparse_scatter, (B, cols, U, X.clone())),
     }
@@ -352,7 +353,7 @@ def test_gather_instance_argument_never_reaches_the_cpu(instance):
 @pytest.mark.parametrize("kernel", bp.SCATTERS)
 def test_scatter_launchers_pass_their_instance(monkeypatch, kernel, p, k,
                                                forced, want):
-    """The redesigned scatters hand their C entry the instance that
+    """The scatters hand their C entry the instance that
     ``gather_instance(matrix, staged operand, scatter=True)`` picks (the
     row dot at k = 1 in float64), or the forced one, as the int64 before
     the stream; forcing the ring on rows it cannot copy raises before any
@@ -371,6 +372,10 @@ def test_scatter_launchers_pass_their_instance(monkeypatch, kernel, p, k,
     V = torch.empty((k, 2, p), dtype=torch.float64).transpose(0, 1)
 
     def launch():
+        if kernel == "apc_scatter":
+            X = torch.empty((2, k, 5), dtype=B.dtype)
+            return bp.apc_scatter(B, X, torch.empty((k, 5), dtype=B.dtype),
+                                  V, 0.9, _instance=forced)
         if kernel == "cimmino_scatter":
             return bp.cimmino_scatter(B, V, _instance=forced)
         return bp.sparse_scatter(B, torch.zeros((2, 5), dtype=torch.int64),

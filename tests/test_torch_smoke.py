@@ -86,8 +86,9 @@ def _fake_launchers():
         return _by_row(Xb.shape[0], lambda i: ops.apc_gather_ref(
             A, X[:, i], Xb[i])).contiguous()
 
-    def apc_scatter(B, X, Xb, U, gamma):
+    def apc_scatter(B, X, Xb, U, gamma, *, _instance=None):
         _contract("apc_scatter", B, [X, Xb, U])
+        bp.gather_instance(B, U, forced=_instance, scatter=True)
         return _by_row(Xb.shape[0], lambda i: ops.apc_scatter_ref(
             B, X[:, i], Xb[i], U[:, i], gamma))
 
@@ -216,11 +217,11 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     # and the bf16-stored instances, tagged by their matrix/compute types
     assert ("apc_gather_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem 128 B "
             "+ 204800 B dynamic") in text
-    # both instances of the four gathers and both scatters (both forms of
-    # sparse_scatter) where the ring fits, the row dot alone where it does
-    # not (f32 rows of 130, p = 7); a bf16-stored scatter's ring equals
-    # the ring on the widened matrix
-    scatters = ("cimmino_scatter", "sparse_scatter apc",
+    # both instances of the four gathers and the three scatters (both
+    # forms of sparse_scatter) where the ring fits, the row dot alone where
+    # it does not (f32 rows of 130, p = 7); a bf16-stored scatter's ring
+    # equals the ring on the widened matrix
+    scatters = ("apc_scatter", "cimmino_scatter", "sparse_scatter apc",
                 "sparse_scatter cimmino")
     for kn in bp.GATHERS + scatters:
         assert f"{kn} ring≡row_dot" in text, kn
@@ -228,17 +229,19 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
         assert any(f" bfloat16/float64: " in x and f"{kn} ring≡widened ring"
                    in x for x in lines), kn
     assert any("n=130" in x and "float32" in x and "apc_gather row_dot" in x
+               and "apc_scatter row_dot" in x
                and "cimmino_gather row_dot" in x
                and "cimmino_scatter row_dot" in x for x in lines)
     # phases 8 and 11 time every gather's row-dot instance beside its ring
-    # (float64), and each redesigned scatter's in every form
-    for phase, kn, n in ((8, "apc_gather", 2), (8, "cimmino_gather", 2),
+    # (float64), and each scatter's in every form
+    for phase, kn, n in ((8, "apc_gather", 2), (8, "apc_scatter", 8),
+                         (8, "cimmino_gather", 2),
                          (8, "cimmino_scatter", 8), (11, "sparse_gather", 2),
                          (11, "sparse_cimmino_gather", 2),
                          (11, "sparse_scatter", 16)):
         assert sum(x.startswith(f"phase {phase} {kn} k=")
                    and "row-dot instance" in x for x in lines) == n, kn
-        # and each redesigned scatter's ring beside it, forced where the
+        # and each scatter's ring beside it, forced where the
         # launcher takes the row dot (k = 1, float64 and float32)
         assert sum(x.startswith(f"phase {phase} {kn} k=")
                    and "ring instance" in x for x in lines) == (
