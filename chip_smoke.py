@@ -48,7 +48,8 @@ script exits non-zero without its last line:
    the ring asserted to be the instance the main path's shapes take (but
    a float64 or float32 scatter at k = 1: the row dot); and of the whole
    APC and Cimmino iterations,
-   float64 and mixed, with the card's clocks, power, temperature and
+   float64 and mixed, eager and inside a captured 10-step CUDA graph,
+   with the card's clocks, power, temperature and
    throttle reasons at the phase's start and end;
 9. the sparse path at full size: a banded 32768 x 32768 system on 16
    workers (float64, support width 2064), one spectral analysis, then
@@ -64,9 +65,10 @@ script exits non-zero without its last line:
 11. CUDA-event times of the sparse kernels as in phase 8 (torch.bmm on
    the pre-gathered operands; both forms of ``sparse_scatter``, each
    with its row-dot instance in every form), and of the sparse and
-   densified iterations and the sparse mixed ones, with the card's
-   clocks as in phase 8, then the ``{"kernels": [...]}`` line with all
-   seven, each with its forms;
+   densified iterations and the sparse mixed ones (the sparse ones also
+   in a captured 10-step graph), with the card's clocks as in phase 8,
+   then the ``{"kernels": [...]}`` line with all seven, each with its
+   forms;
 12. ``precision="mixed"`` (bf16-stored A and B, float64 x), in two
    halves: after phase 7 on the dense system and after phase 9 on the
    sparse one, APC, consensus and Cimmino — exactly one launch of each
@@ -76,7 +78,24 @@ script exits non-zero without its last line:
    float64 run's within the reference's bf16 envelope — and dense APC
    ``solve_many`` with 8 right-hand sides; then APC and Cimmino on a
    float32 copy of each system, default (the kernels' float32 form) and
-   mixed (bf16/float32).
+   mixed (bf16/float32);
+13. compile-once execution (every ``solve``/``solve_many`` above already
+   ran its history captured into a CUDA graph), in two halves: after
+   phase 8 on the dense system and after phase 11 on the sparse one,
+   APC, consensus and Cimmino on the kernels, default and mixed, k = 1
+   and K_MANY — the captured histories and x ``torch.equal`` to the eager
+   loop's (``executor.disable_capture``), 150 launches of each kernel
+   counted from the replays, the kernel instances the capture took those
+   of the eager loop, a bit-identical repeat — and DGD (cuBLAS glue)
+   within 1e-12; the whole solve's time per iteration, eager against
+   captured, in turns (host clock around work ending in synchronize());
+   the dense solves' peak memory, eager and captured; the device's idle
+   share over one sparse k = 1 APC solve, float64 and mixed, eager and
+   captured (``torch.profiler``); and a ``LocalExecutor`` serving three
+   batches of new right-hand sides of the sparse system — one build, one
+   capture, the second and third runs quiet under
+   ``tracecheck(steady_state=True)``, the first batch's x intact after
+   the third, each batch against ``solve_many``.
 
 Every time is the median over rounds of a run of back-to-back calls
 between two CUDA events, divided by the run's length: the host's time
@@ -87,6 +106,7 @@ numpy and repro_torch.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -310,12 +330,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import solvers
+    from repro_torch.analysis import tracecheck
     from repro_torch.core import blockops, partition, spectral
     from repro_torch.core.apc import APCState
     from repro_torch.data import linsys
     from repro_torch.kernels import block_projection as bp
     from repro_torch.kernels import ops
     from repro_torch.launch import solve as cli
+    from repro_torch.solvers import executor
     from repro_torch.solvers.projection import CimminoState, ProjFactors
 
     def form_launches(pair):
@@ -766,6 +788,196 @@ def main() -> int:
         say(f"phase 7 cli {' '.join(CLI_ARGS)} --method {method}: rc {rc} "
             f"launches {got}")
 
+    # 13. compile-once execution: the checks of each half -------------------
+    def solve_k(s, system, k, plan, prm, Bk):
+        """``solve`` (k = 1, the system's own b) or ``solve_many`` on the
+        K_MANY right-hand sides ``Bk``."""
+        if k == 1:
+            return s.solve(system, iters=ITERS, plan=plan, **prm)
+        return s.solve_many(system, Bk, iters=ITERS, plan=plan, **prm)
+
+    def launched_instances(run):
+        """(``run()``, the set of (kernel, instance) its launches took):
+        a captured solve decides each instance once, at capture."""
+        seen, launch = set(), bp._launch
+        names = {v: inst for inst, v in bp.INSTANCES.items()}
+
+        def spy(name, matrix, out, *args):
+            seen.add((name, names[args[-1]]))
+            return launch(name, matrix, out, *args)
+        bp._launch = spy
+        try:
+            return run(), seen
+        finally:
+            bp._launch = launch
+
+    def captured_vs_eager(label, system, facs_of, prm_of, uses, Bk):
+        """APC, consensus and Cimmino on the kernels, default and mixed,
+        k = 1 and K_MANY: the captured solve's residual and error
+        histories and x torch.equal to the eager loop's
+        (``executor.disable_capture``), launches of each kernel 150 a
+        solve (the replays counted), the instances it took those of the
+        eager loop, and a bit-identical repeat."""
+        for precision, facs in facs_of.items():
+            pair = "f64" if precision == "default" else "bf16_f64"
+            plan = solvers.ExecutionPlan(kernel=True, precision=precision,
+                                         factors=facs)
+            for sname in ("apc", "consensus", "cimmino"):
+                s, prm = solvers.get(sname), prm_of[sname][0]
+                for k in (1, K_MANY):
+                    run = lambda: solve_k(s, system, k, plan, prm, Bk)  # noqa: E731,E501
+                    ops.reset_launch_counts()
+                    r, cap = launched_instances(run)
+                    torch.cuda.synchronize()
+                    got = form_launches(pair)
+                    assert got == {kn: ITERS if kn in uses[sname] else 0
+                                   for kn in bp.KERNELS}, (label, sname, got)
+                    with executor.disable_capture():
+                        e, eag = launched_instances(run)
+                    r2 = run()
+                    torch.cuda.synchronize()
+                    assert cap == eag, (label, sname, precision, k, cap, eag)
+                    for what in ("residuals", "errors", "x"):
+                        a = getattr(r, what)
+                        if a is None:
+                            continue
+                        assert torch.equal(a, getattr(e, what)), (
+                            label, sname, precision, k, what)
+                        assert torch.equal(a, getattr(r2, what)), (
+                            label, sname, precision, k, what)
+                    say(f"phase 13 {label} {sname} {precision} k={k}: "
+                        f"captured ≡ eager loop (residuals, "
+                        f"{'errors, ' if r.errors is not None else ''}x), "
+                        f"launches {got}; instances captured "
+                        f"{sorted(cap)} eager {sorted(eag)}; repeat "
+                        f"bit-identical")
+
+    def dgd_vs_eager(label, system, prm, Bk):
+        """DGD, whose glue is cuBLAS: captured against the eager loop
+        within 1e-12 relative, and whether it came out bit-identical."""
+        s = solvers.get("dgd")
+        for k in (1, K_MANY):
+            run = lambda: solve_k(s, system, k, solvers.ExecutionPlan(),  # noqa: E731,E501
+                                  prm, Bk)
+            r = run()
+            with executor.disable_capture():
+                e = run()
+            torch.cuda.synchronize()
+            d = float(((r.residuals - e.residuals).abs()
+                       / e.residuals.abs()).max())
+            dx = float(torch.linalg.norm(r.x - e.x) / torch.linalg.norm(e.x))
+            assert d <= 1e-12 and dx <= 1e-12, (label, k, d, dx)
+            same = torch.equal(r.residuals, e.residuals) and torch.equal(
+                r.x, e.x)
+            say(f"phase 13 {label} dgd k={k} (cuBLAS glue): captured vs "
+                f"eager loop max relative residual Δ {d:.3e}, x {dx:.3e} "
+                f"(tol 1e-12); bit-identical {same}")
+
+    def solve_times(label, system, facs_of, prm_of, snames, Bk, rounds=4):
+        """Each solver's whole solve on the kernels per iteration, eager
+        loop against captured, host clock around work ending in
+        synchronize(), in turns, medians of ``rounds``."""
+        plans = {precision: solvers.ExecutionPlan(
+            kernel=True, precision=precision, factors=facs)
+            for precision, facs in facs_of.items()}
+        times = {(sname, precision, k, how): [] for sname in snames
+                 for precision in plans for k in (1, K_MANY)
+                 for how in ("eager", "captured")}
+        for _ in range(rounds):
+            for sname, precision, k, how in times:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with (executor.disable_capture() if how == "eager"
+                      else contextlib.nullcontext()):
+                    solve_k(solvers.get(sname), system, k, plans[precision],
+                            prm_of[sname][0], Bk)
+                torch.cuda.synchronize()
+                times[(sname, precision, k, how)].append(
+                    (time.perf_counter() - t) / ITERS * 1e3)
+        med = {key: float(np.median(v)) for key, v in times.items()}
+        for sname, precision, k, how in times:
+            if how == "eager":
+                e, c = med[(sname, precision, k, how)], med[
+                    (sname, precision, k, "captured")]
+                say(f"phase 13 {label} {sname} k={k} {precision}: whole "
+                    f"solve {e:.4f} ms per iteration eager, {c:.4f} ms "
+                    f"captured (ratio {e / c:.2f}; host clock to "
+                    f"synchronize(), {ITERS} iterations, median of {rounds} "
+                    f"in turns) [{card}]")
+        return med
+
+    def graphed(fn, n=10):
+        """``n`` calls of ``fn`` captured into one CUDA graph (after an
+        eager call): its replay."""
+        fn()
+        torch.cuda.synchronize()
+        graph, _ = executor._capture(lambda: [fn() for _ in range(n)],
+                                     "chip_smoke steps")
+        return graph.replay
+
+    def memory_of(run):
+        """(bytes allocated at ``run()``'s peak above what was resident,
+        for each CUDA graph captured in it the bytes it reserved for its
+        private pool — device memory reserved across the capture, the
+        cache emptied first — and the capture's host time in ms, from the
+        device idle to the graph instantiated)."""
+        pools, capture = [], executor._capture
+
+        def spy(body, name):
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_reserved()
+            t = time.perf_counter()
+            out = capture(body, name)
+            pools.append((torch.cuda.memory_reserved() - before,
+                          (time.perf_counter() - t) * 1e3))
+            return out
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        executor._capture = spy
+        try:
+            run()
+        finally:
+            executor._capture = capture
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, pools
+
+    def idle_share(label, run, unprofiled_ms):
+        """The device's idle share over ``run()``: kernel time summed from
+        the profiler's key_averages() over the wall window, and over the
+        same run's unprofiled wall time ``unprofiled_ms``.  Without device
+        time in the profile, the CUDA-event span instead, and the share
+        not measured."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)) / 1e3
+        if busy > 0:
+            say(f"phase 13 {label}: device idle share {1 - busy / wall:.1%} "
+                f"of the profiled window (kernels {busy:.3f} ms of "
+                f"{wall:.3f} ms wall, profiler on), "
+                f"{1 - busy / unprofiled_ms:.1%} of the unprofiled solve "
+                f"({unprofiled_ms:.3f} ms wall) [{card}]")
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        say(f"phase 13 {label}: the profiler shows no device time; the "
+            f"CUDA-event span of the solve is {start.elapsed_time(end):.3f} "
+            f"ms; device idle share not measured [{card}]")
+
     # 12. precision="mixed", dense half -------------------------------------
     def upcast_twin(facs):
         """The bf16-rounded factors widened to float64: the default solve
@@ -1069,6 +1281,20 @@ def main() -> int:
             "Cimmino mixed": lambda: cim.step_many_residual(mf, bb, cst,
                                                             {"nu": nu})})
         t_it, t_cit = its["APC"], its["Cimmino"]
+        steps = {
+            "APC": lambda: solver.step_many_residual(factors, bb, st, params),
+            "Cimmino": lambda: cim.step_many_residual(factors, bb, cst,
+                                                      {"nu": nu}),
+            "APC mixed": lambda: solver.step_many_residual(mf, bb, st,
+                                                           params),
+            "Cimmino mixed": lambda: cim.step_many_residual(mf, bb, cst,
+                                                            {"nu": nu})}
+        g10 = medians_ms({meth: graphed(fn) for meth, fn in steps.items()},
+                         batch=1)
+        say(f"phase 8 iteration k={k} captured: " + "; ".join(
+            f"{meth} {g10[meth] / 10:.4f} ms per step in a 10-step CUDA "
+            f"graph (eager {its[meth]:.4f})" for meth in steps)
+            + f" [{card}]")
         for kname in USES["apc"] + USES["cimmino"]:
             time_kernel(8, kname, k, f"m={m} p={p} n={n}",
                         {pr: (calls[kname], work[kname], dt)
@@ -1086,6 +1312,33 @@ def main() -> int:
             for meth in ("APC", "Cimmino")))
         del U, V, D, X3f, Xbf, Uf, Vf, Df, forms
     clocks("phase 8 end")
+
+    # 13. compile-once execution, dense half ---------------------------------
+    dense_facs = {"default": factors, "mixed": mf}
+    captured_vs_eager("dense", sys_, dense_facs, pinned, USES, Bm)
+    dgd_vs_eager("dense", sys_, pinned["dgd"][0], Bm)
+    aplan = solvers.ExecutionPlan(kernel=True, factors=factors)
+    a_bytes = factors.A.numel() * factors.A.element_size()
+    for k in (1, K_MANY):
+        peaks, pools = {}, {}
+        for how in ("eager", "captured"):
+            def run():
+                with (executor.disable_capture() if how == "eager"
+                      else contextlib.nullcontext()):
+                    solve_k(solver, sys_, k, aplan, pinned["apc"][0], Bm)
+            peaks[how], pools[how] = memory_of(run)
+        say(f"phase 13 dense apc k={k} memory: peak above the resident "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB: eager "
+            f"{peaks['eager'] / 1e9:.4f} GB, captured "
+            f"{peaks['captured'] / 1e9:.4f} GB (max_memory_allocated); "
+            f"the 16-step graph's pool {pools['captured'][0][0] / 1e6:.1f} "
+            f"MB (memory_reserved across its capture; A and B "
+            f"{a_bytes / 1e9:.3f} GB each), its capture "
+            f"{pools['captured'][0][1]:.2f} ms on the host")
+        # the pool holds a few steps' intermediates, never A or B
+        assert pools["eager"] == [] and len(pools["captured"]) == 1
+        assert pools["captured"][0][0] < a_bytes // 16, pools
+    solve_times("dense", sys_, dense_facs, pinned, ("apc",), Bm)
 
     main_launches = {kn: (launches if kn in USES["apc"] else cim_launches)[kn]
                      for kn in USES["apc"] + USES["cimmino"]}
@@ -1362,6 +1615,17 @@ def main() -> int:
             for label, f in (("sparse", fs), ("densified", fd),
                              ("mixed", msf))
             for meth in ("APC", "Cimmino")})
+        g10 = medians_ms({key: graphed(fn) for key, fn in (
+            ((meth, label), (
+                (lambda f=f: solver.step_many_residual(f, bb, st, prm_apc))
+                if meth == "APC" else
+                (lambda f=f: cim.step_many_residual(f, bb, cst, prm_cim))))
+            for label, f in (("sparse", fs), ("mixed", msf))
+            for meth in ("APC", "Cimmino"))}, batch=1)
+        say(f"phase 11 iteration k={k} captured: " + "; ".join(
+            f"{meth} {label} {ms / 10:.4f} ms per step in a 10-step CUDA "
+            f"graph (eager {its[(meth, label)]:.4f})"
+            for (meth, label), ms in g10.items()) + f" [{card}]")
         for meth, uses in (("APC", SPARSE_USES["apc"]),
                            ("Cimmino", ("sparse_cimmino_gather",
                                         "sparse_scatter cimmino"))):
@@ -1376,6 +1640,97 @@ def main() -> int:
                 f"{b16:.4f} ms, float64 {b64:.4f} ms)")
         del U, V, Y0, R0, Ds, Xs, X3f, Xbf, Uf, Vf, Y0f, R0f, Dsf, Xsf, forms
     clocks("phase 11 end")
+
+    # 13. compile-once execution, sparse half --------------------------------
+    xs, Bm = consistent_rhs(sp, 4)
+    sparse_facs = {"default": fs, "mixed": msf}
+    captured_vs_eager("sparse", sp, sparse_facs, sp_pinned, SPARSE_USES, Bm)
+    # a safe DGD step: λmax(AᵀA) <= ‖A‖_F²
+    dgd_vs_eager("sparse", sp, {"alpha": 1.0 / float(
+        torch.sum(fs.A.vals * fs.A.vals))}, Bm)
+    med = solve_times("sparse", sp, sparse_facs, sp_pinned,
+                      ("apc", "cimmino"), Bm)
+    for precision, facs in sparse_facs.items():
+        plan = solvers.ExecutionPlan(kernel=True, precision=precision,
+                                     factors=facs)
+        _, pools = memory_of(lambda: solver.solve(
+            sp, iters=ITERS, plan=plan, **sp_pinned["apc"][0]))
+        say(f"phase 13 sparse apc k=1 {precision}: the 16-step graph's "
+            f"capture {pools[0][1]:.2f} ms on the host, its pool "
+            f"{pools[0][0] / 1e6:.1f} MB [{card}]")
+        for how in ("eager", "captured"):
+            def run():
+                with (executor.disable_capture() if how == "eager"
+                      else contextlib.nullcontext()):
+                    solver.solve(sp, iters=ITERS, plan=plan,
+                                 **sp_pinned["apc"][0])
+            idle_share(f"sparse apc k=1 {precision} {how}", run,
+                       med[("apc", precision, 1, how)] * ITERS)
+    # the serving executor: 3 batches of new right-hand sides, one system
+    s, prm = solvers.get("apc"), sp_pinned["apc"][0]
+    ex = executor.LocalExecutor(s, prm, ITERS, use_kernel=True)
+    key = executor.executor_key(s, sp, prm, kplan, K_MANY, ITERS)
+    batches = [consistent_rhs(sp, seed)[1].reshape(K_MANY, m, p)
+               for seed in (5, 6, 7)]
+    outs = []
+    with tracecheck() as tc:
+        _, ex_pools = memory_of(
+            lambda: outs.append(ex.run(sp.A_op, fs, batches[0])))
+    x1 = outs[0][1].clone()
+    with tracecheck(steady_state=True):
+        outs += [ex.run(sp.A_op, fs, Bb) for Bb in batches[1:]]
+    torch.cuda.synchronize()
+    assert (ex.builds, ex.captures, ex.cache_size()) == (1, 1, 1), (
+        ex.builds, ex.captures)
+    assert torch.equal(outs[0][1], x1)
+    assert [e.fun for e in tc.traces()] == ["build apc.cold",
+                                            "capture apc.cold"], tc.summary()
+    worst, same = 0.0, True
+    for Bb, (_, X, res) in zip(batches, outs):
+        ref = s.solve_many(sp, Bb.reshape(K_MANY, -1), iters=ITERS,
+                           plan=solvers.ExecutionPlan(kernel=True,
+                                                      factors=fs), **prm)
+        d = float(torch.linalg.norm(X - ref.x) / torch.linalg.norm(ref.x))
+        worst = max(worst, d)
+        same = same and torch.equal(X, ref.x) and torch.equal(
+            res, ref.residuals)
+        assert d <= 1e-12 and torch.allclose(res, ref.residuals, rtol=1e-9,
+                                             atol=1e-14), d
+    say(f"phase 13 executor apc k={K_MANY} sparse, 3 batches: builds "
+        f"{ex.builds} captures {ex.captures} cache {ex.cache_size()}; "
+        f"runs 2-3 quiet under tracecheck(steady_state=True); first x "
+        f"intact after the third; vs solve_many x max rel {worst:.3e}, "
+        f"bit-identical {same}; its graph's pool "
+        f"{ex_pools[0][0] / 1e6:.1f} MB, its capture {ex_pools[0][1]:.2f} "
+        f"ms; key {key}; first run: "
+        + "; ".join(str(e) for e in tc.traces()))
+    # serving's steady state: a replay of the executor's program against
+    # solve_many of the same batch, eager and captured, in turns
+    kfs = solvers.ExecutionPlan(kernel=True, factors=fs)
+    served = {"executor replay": lambda: ex.run(sp.A_op, fs, batches[1]),
+              "solve_many eager": lambda: s.solve_many(
+                  sp, batches[1].reshape(K_MANY, -1), iters=ITERS,
+                  plan=kfs, **prm),
+              "solve_many captured": lambda: s.solve_many(
+                  sp, batches[1].reshape(K_MANY, -1), iters=ITERS,
+                  plan=kfs, **prm)}
+    times = {how: [] for how in served}
+    for _ in range(4):
+        for how, run in served.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with (executor.disable_capture() if how.endswith("eager")
+                  else contextlib.nullcontext()):
+                run()
+            torch.cuda.synchronize()
+            times[how].append((time.perf_counter() - t) / ITERS * 1e3)
+    assert (ex.builds, ex.captures) == (1, 1)
+    say(f"phase 13 executor apc k={K_MANY} sparse, a batch of {ITERS} "
+        "iterations: " + "; ".join(
+            f"{how} {float(np.median(v)):.4f} ms per iteration"
+            for how, v in times.items())
+        + f" (host clock to synchronize(), median of 4 in turns) [{card}]")
+    del ex, outs, batches, xs, Bm
 
     main_launches.update(
         {kn: sparse_launches["apc" if kn in SPARSE_USES["apc"]

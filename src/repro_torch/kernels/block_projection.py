@@ -17,7 +17,9 @@ They allocate their outputs with ``torch.empty``, launch on the
 operands' device and its current stream, and raise on a nonzero
 ``cudaGetLastError()``.  Each launch adds one to its counter in
 :func:`launch_counts`, kept per kernel and dtype pair, so a run can show
-that it went through the kernels, and through which form of each.
+that it went through the kernels, and through which form of each.  A
+launch captured into a CUDA graph runs at each replay of the graph, and
+counts there (:func:`captured_launches`, :func:`add_launches`).
 The plain PyTorch versions and the device dispatch are in ``ops``.
 
 All seven kernels (the four gathers ``apc_gather``, ``sparse_gather``,
@@ -39,6 +41,7 @@ pair has its own C entries (:data:`PAIRS`).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -108,6 +111,31 @@ def reset_launch_counts() -> None:
     """Set every launch counter back to 0."""
     for name in _launches:
         _launches[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Count the launches made inside as a CUDA graph's capture, which
+    runs none of them: on exit they are taken back out of the counts and
+    left in the dict this yields, by (kernel, pair), for
+    :func:`add_launches` to add at each replay of the graph.  The counts
+    then hold the launches the device ran."""
+    before = dict(_launches)
+    held: dict = {}
+    try:
+        yield held
+    finally:
+        for key, n in _launches.items():
+            if n != before[key]:
+                held[key] = n - before[key]
+            _launches[key] = before[key]
+
+
+def add_launches(held: dict) -> None:
+    """Add a replayed graph's launches (from :func:`captured_launches`)
+    to the counts."""
+    for key, n in held.items():
+        _launches[key] += n
 
 
 def _nvcc() -> str:

@@ -126,16 +126,24 @@ def sparse_cimmino_update_ref(vals, cols, Bvals, b, Xbar):
 # ---------------------------------------------------------------------------
 
 
-def _on_cuda(op: str, matrices: tuple, *operands: torch.Tensor) -> bool:
-    """True for all-CUDA operands, False for all-CPU ones; raises on
-    mixed or other devices and on dtypes the kernels do not take: the
-    ``matrices`` in one dtype and the ``operands`` in one, a pair of
-    ``block_projection.PAIRS``."""
-    kinds = {t.device.type for t in (*matrices, *operands)}
+def on_cuda(op: str, *tensors: torch.Tensor) -> bool:
+    """True for all-CUDA tensors, False for all-CPU ones; raises on mixed
+    or other devices.  The one device predicate of the port's kernel
+    paths: the ops below and the captured histories
+    (``solvers.executor``)."""
+    kinds = {t.device.type for t in tensors}
     if kinds not in ({"cuda"}, {"cpu"}):
         raise ValueError(f"{op}: operands on {sorted(kinds)}; expected all "
                          f"on CUDA (kernel) or all on the CPU (plain "
                          f"version)")
+    return kinds == {"cuda"}
+
+
+def _on_cuda(op: str, matrices: tuple, *operands: torch.Tensor) -> bool:
+    """:func:`on_cuda` of every tensor; raises, besides, on dtypes the
+    kernels do not take: the ``matrices`` in one dtype and the
+    ``operands`` in one, a pair of ``block_projection.PAIRS``."""
+    cuda = on_cuda(op, *matrices, *operands)
     mats = {t.dtype for t in matrices}
     dtypes = {t.dtype for t in operands}
     if (len(mats) != 1 or len(dtypes) != 1
@@ -144,7 +152,7 @@ def _on_cuda(op: str, matrices: tuple, *operands: torch.Tensor) -> bool:
             f"{op}: dtypes {sorted(map(str, mats))} (matrices) with "
             f"{sorted(map(str, dtypes))} (operands); expected one of "
             + ", ".join(f"{a}/{b}" for a, b in bp.PAIRS))
-    return kinds == {"cuda"}
+    return cuda
 
 
 def _index_on(cols, like):

@@ -15,11 +15,13 @@ and inherits the shared drivers
 ``prepare`` never looks at the right-hand side, so ``solve_many`` shares
 one factorization across a batch.  ``init`` and ``step`` accept states
 and right-hand sides with a leading (k,) batch axis (the port writes the
-batch dimension out where the reference vmaps).  The histories are
-Python loops over the steps that keep every value on the device; the
-host reads them once, at the end.  The loose-kwarg shim of the
-reference (``_coerce_plan``) is ROADMAP item A18: ``plan=`` is the only
-execution surface here.
+batch dimension out where the reference vmaps).  The histories run
+through ``executor.run_history``: on the card the step loop is captured
+into a CUDA graph and replayed, as the reference compiles its
+``lax.scan``; every record stays on the device, and the host reads them
+once, at the end.  The loose-kwarg shim of the reference
+(``_coerce_plan``) is ROADMAP item A18: ``plan=`` is the only execution
+surface here.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 
 from repro_torch.core import blockops
 from repro_torch.core.partition import BlockSystem
+from repro_torch.solvers import executor
 from repro_torch.solvers.capability import ExecutionPlan, resolve_plan
 
 __all__ = ["Solver", "SolveResult", "iters_to_tolerance"]
@@ -205,13 +208,16 @@ class Solver:
         square mode; the denominator is taken once."""
         if sys.mode != "least_squares":
             return None
-        A_op = sys.A_op
+        return self._ls_residual(sys.A_op, factors, prm, b)
 
+    def _ls_residual(self, A, factors: Any, prm: Dict[str, float],
+                     b: torch.Tensor):
+        """``x -> ‖ls_moment(x)‖/‖ls_moment(0)‖`` on the blocks ``A``."""
         def optim(x):
-            mom = self.ls_moment(factors, A_op, b, x, prm)
+            mom = self.ls_moment(factors, A, b, x, prm)
             return torch.sqrt(torch.sum(mom * mom, dim=-1))
 
-        zero = optim(b.new_zeros(b.shape[:-2] + (sys.n,)))
+        zero = optim(b.new_zeros(b.shape[:-2] + (blockops.ncols(A),)))
         return lambda x: optim(x) / zero
 
     # ----- shared drivers --------------------------------------------------
@@ -266,10 +272,11 @@ class Solver:
                 and residual_fn is None and iters > 0):
             step_res = lambda f, b, s: self.step_residual(  # noqa: E731
                 f, b, s, prm)
-        state, res, err = _history_scan(step, self.extract, factors,
-                                        sys.b_blocks, state, sys.A_op,
-                                        xt, iters, residual_fn=residual_fn,
-                                        step_residual=step_res)
+        h = executor.History(step, self.extract, factors, sys.b_blocks,
+                             sys.A_op, x_true=xt, residual_fn=residual_fn,
+                             step_residual=step_res)
+        state, res, err = executor.run_history(h, state, iters,
+                                               name=f"{self.name}.solve")
         return SolveResult(
             name=self.name, x=self.extract(state), state=state,
             residuals=res, errors=err if xt is not None else None,
@@ -303,9 +310,11 @@ class Solver:
                 and residual_fn is None and iters > 0):
             step_many_res = lambda f, bb, s: self.step_many_residual(  # noqa: E731,E501
                 f, bb, s, prm)
-        states, res = _history_scan_many(
-            step_many, self.extract, factors, Bb, states, sys.A_op, iters,
-            residual_fn=residual_fn, step_many_residual=step_many_res)
+        h = executor.History(step_many, self.extract, factors, Bb,
+                             sys.A_op, residual_fn=residual_fn,
+                             step_residual=step_many_res, batched=True)
+        states, res, _ = executor.run_history(
+            h, states, iters, name=f"{self.name}.solve_many")
         return SolveResult(
             name=self.name, x=self.extract(states), state=states,
             residuals=res, errors=None, params=prm,
@@ -313,83 +322,26 @@ class Solver:
 
 
 # ---------------------------------------------------------------------------
-# History drivers (Python loops; every record stays on the device)
+# The eager history loops (what the captured histories are held to)
 # ---------------------------------------------------------------------------
-
-
-def _stack(records, like: torch.Tensor) -> torch.Tensor:
-    if not records:
-        return like.new_zeros((0,))
-    return torch.stack(records)
 
 
 def _history_scan(step, extract, factors, b, state, A, x_true, iters: int,
                   residual_fn=None, step_residual=None):
-    """Run ``step`` for ``iters`` iterations recording residual/error.
-
-    Entry t is the residual ‖Ax−b‖/‖b‖ (and error ‖x−x*‖/‖x*‖) after step
-    t+1; ``A`` is the dense stack or a ``SparseBlocks`` operand.
-    ``residual_fn(x)`` (LS mode) replaces the plain residual.
-    ``step_residual(factors, b, state) -> (state, rsq)`` switches
-    to the FUSED residual: each step harvests ‖Ax−b‖² of the state it
-    consumed from its own gather pass, so the record of step t is the
-    residual before it; the records shift by one and close with ONE
-    true-A residual of the final state — the same indexing as the plain
-    path.
-    """
-    b_norm = torch.sqrt(torch.sum(b * b))
-    xt = x_true
-    xt_norm = None if xt is None else torch.linalg.norm(xt)
-    res, err = [], []
-    for _ in range(iters):
-        if step_residual is not None:
-            state, rsq = step_residual(factors, b, state)
-            res.append(torch.sqrt(rsq) / b_norm)
-        elif residual_fn is not None:
-            state = step(factors, b, state)
-            res.append(residual_fn(extract(state)))
-        else:
-            state = step(factors, b, state)
-            r = blockops.bmatvec(A, extract(state)) - b
-            res.append(torch.sqrt(torch.sum(r * r)) / b_norm)
-        if xt is not None:
-            err.append(torch.linalg.norm(extract(state) - xt) / xt_norm)
-    res = _stack(res, b)
-    if step_residual is not None:
-        r = blockops.bmatvec(A, extract(state)) - b
-        final = torch.sqrt(torch.sum(r * r)) / b_norm
-        res = torch.cat([res[1:], final[None]])
-    err = res if xt is None else _stack(err, b)
-    return state, res, err
+    """The eager loop of ``iters`` steps recording residual/error
+    (``executor.History`` for the records and the fused residual's
+    shift): (state, residuals (T,), errors (T,))."""
+    return executor.eager_history(executor.History(
+        step, extract, factors, b, A, x_true=x_true,
+        residual_fn=residual_fn, step_residual=step_residual), state, iters)
 
 
 def _history_scan_many(step_many, extract, factors, Bb, states, A,
                        iters: int, residual_fn=None,
                        step_many_residual=None):
     """Batched variant: states/Bb carry a leading (k,) RHS axis; returns
-    the (k, T) residual history (``residual_fn`` is the batched LS
-    residual; same lagged-shift contract as ``_history_scan`` for
-    ``step_many_residual``)."""
-    b_norms = torch.sqrt(torch.sum(Bb * Bb, dim=(1, 2)))
-
-    def true_res(states):
-        r = blockops.bmatvec_many(A, extract(states)) - Bb
-        return torch.sqrt(torch.sum(r * r, dim=(1, 2))) / b_norms
-
-    res = []
-    for _ in range(iters):
-        if step_many_residual is not None:
-            states, rsq = step_many_residual(factors, Bb, states)
-            res.append(torch.sqrt(rsq) / b_norms)
-        elif residual_fn is not None:
-            states = step_many(factors, Bb, states)
-            res.append(residual_fn(extract(states)))
-        else:
-            states = step_many(factors, Bb, states)
-            res.append(true_res(states))
-    if not res:
-        return states, Bb.new_zeros((Bb.shape[0], 0))
-    res = torch.stack(res)                                   # (T, k)
-    if step_many_residual is not None:
-        res = torch.cat([res[1:], true_res(states)[None]])
-    return states, res.T
+    (states, the (k, T) residual history)."""
+    states, res, _ = executor.eager_history(executor.History(
+        step_many, extract, factors, Bb, A, residual_fn=residual_fn,
+        step_residual=step_many_residual, batched=True), states, iters)
+    return states, res

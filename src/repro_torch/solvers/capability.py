@@ -94,6 +94,18 @@ class ExecutionPlan:
                 f"ExecutionPlan.redundancy must be an int >= 1, got "
                 f"{self.redundancy!r}")
 
+    def signature(self) -> tuple:
+        """Hashable dispatch identity: which compiled program this plan
+        selects, the reference's tuple (``backend, kernel, precision,
+        redundancy, has an alive schedule, worker axes, model axis``).
+        The port's plan has no schedule and no mesh axes yet (ROADMAP
+        A14, A15): those fields are False and the reference's default
+        axes, ``("data",)`` and ``"model"``, which its local backend
+        never reads, so a local plan's signature equals the reference's.
+        Payload fields (store, warm_state, factors) are not part of it."""
+        return (self.backend, self.kernel, self.precision,
+                int(self.redundancy), False, ("data",), "model")
+
 
 def resolve_plan(solver, sys, plan: ExecutionPlan, *,
                  context: str = "solve") -> ExecutionPlan:

@@ -12,9 +12,15 @@ along every operand's last axis, ``cols`` a contiguous int64 (m, w)
 tensor, the scatter's output not aliasing X, a forced instance that
 ``gather_instance`` admits) and computes
 its result row by row from the plain versions, storing the sparse
-scatter's support columns as the kernel does.  It also checks that the
-script refuses to run without a card.
+scatter's support columns as the kernel does.  ``torch.cuda.CUDAGraph``
+and the streams are faked too (:func:`fake_cuda_graphs`): a capture
+records the tensor operations of its body and leaves every tensor
+that existed before it as it was, as a capture on the card runs nothing;
+``replay()`` runs the recorded operations again on the same tensors.  So
+the captured solves run here, and their launch counts come from the
+replays.  It also checks that the script refuses to run without a card.
 """
+import contextlib
 import importlib.util
 import json
 import pathlib
@@ -24,6 +30,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch.utils import _pytree as pytree  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch import device as dev  # noqa: E402
 from repro_torch.kernels import block_projection as bp  # noqa: E402
@@ -59,6 +67,133 @@ class _Event:
 
     def elapsed_time(self, other):
         return (other.t - self.t) * 1e3
+
+
+class _Profile:
+    """torch.profiler.profile on the faked card: a trace with no device
+    time (the CPU build's profiler fails on every event of a faked
+    card)."""
+
+    def __init__(self, **_):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+    def key_averages(self):
+        return []
+
+
+def _written(func, args, kwargs):
+    """The tensors ``func`` writes into (in place, or ``out=``)."""
+    for i, arg in enumerate(func._schema.arguments):
+        if arg.alias_info is None or not arg.alias_info.is_write:
+            continue
+        value = args[i] if i < len(args) else kwargs.get(arg.name)
+        yield from (t for t in pytree.tree_leaves(value)
+                    if isinstance(t, torch.Tensor))
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+# what the card refuses inside a capture: a copy to the host
+_HOST_SYNCS = (torch.ops.aten._local_scalar_dense.default,
+               torch.ops.aten.equal.default)
+
+
+class _Graph:
+    """torch.cuda.CUDAGraph on the faked card: ``ops`` are the tensor
+    operations of its capture (between ``capture_begin`` and
+    ``capture_end``), each with the tensors it was given and gave;
+    ``replay()`` runs them again on those tensors (a view needs no work;
+    an operation that made a new tensor writes its result into the one it
+    made at capture), as a graph replays its kernels on the addresses
+    they were captured with."""
+
+    def __init__(self):
+        self.ops = []
+        self._capture = None
+
+    def capture_begin(self):
+        self._capture = _Capture(self)
+        self._capture.__enter__()
+
+    def capture_end(self):
+        capture, self._capture = self._capture, None
+        capture.__exit__(None, None, None)
+
+    def replay(self):
+        for func, args, kwargs, out in self.ops:
+            if func.is_view:
+                continue
+            got = func(*args, **kwargs)
+            if next(_written(func, args, kwargs), None) is not None:
+                continue                  # it wrote into its operands
+            for old, new in zip(pytree.tree_leaves(out),
+                                pytree.tree_leaves(got)):
+                if isinstance(old, torch.Tensor):
+                    old.copy_(new)
+
+
+class _Capture(TorchDispatchMode):
+    """A capture into ``g`` on the faked card: records every operation,
+    and on exit puts back every tensor made before the capture that the
+    body wrote into (a capture on the card writes nothing)."""
+
+    def __init__(self, graph):
+        super().__init__()
+        self.graph, self.made, self.saved = graph, set(), []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        assert func not in _HOST_SYNCS, f"{func}: a host sync in a capture"
+        for t in _written(func, args, kwargs):
+            if _storage(t) not in self.made:
+                self.saved.append((t, t.clone()))
+        out = func(*args, **kwargs)
+        # new storage only: a view (or any alias) shares its input's
+        given = {_storage(t) for t in pytree.tree_leaves((args, kwargs))
+                 if isinstance(t, torch.Tensor)}
+        self.made.update(_storage(t) for t in pytree.tree_leaves(out)
+                         if isinstance(t, torch.Tensor)
+                         and _storage(t) not in given)
+        self.graph.ops.append((func, args, kwargs, out))
+        return out
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        for t, before in reversed(self.saved):
+            t.copy_(before)
+
+
+class _Stream:
+    """torch.cuda.Stream on the faked card: one queue, the CPU's."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def wait_stream(self, other):
+        pass
+
+
+def fake_cuda_graphs(monkeypatch):
+    """CUDA graphs, streams and the cuSOLVER preference on the faked card
+    (the CPU build has none of them)."""
+    for name, value in dict(
+            CUDAGraph=_Graph, Stream=_Stream, current_device=lambda: 0,
+            current_stream=lambda *a: _Stream(),
+            stream=lambda s: contextlib.nullcontext()).items():
+        monkeypatch.setattr(torch.cuda, name, value)
+    # the CPU build refuses a cuSOLVER preference; the stand-in keeps it
+    backend = ["default"]
+    monkeypatch.setattr(torch.backends.cuda, "preferred_linalg_library",
+                        lambda b=None: backend.__setitem__(0, b) if b
+                        else backend[0])
 
 
 def _contract(name, matrix, operands, cols=None):
@@ -162,12 +297,17 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             is_available=lambda: True, synchronize=lambda *a: None,
             empty_cache=lambda: None, device_count=lambda: 1,
             get_device_name=lambda *a: "NVIDIA H100 80GB HBM3",
-            Event=_Event).items():
+            Event=_Event, reset_peak_memory_stats=lambda *a: None,
+            memory_allocated=lambda *a: 0, memory_reserved=lambda *a: 0,
+            max_memory_allocated=lambda *a: 0).items():
         monkeypatch.setattr(torch.cuda, name, value)
+    monkeypatch.setattr(torch.profiler, "profile", _Profile)
+    fake_cuda_graphs(monkeypatch)
     monkeypatch.setattr(dev, "resolve", lambda d=None: torch.device("cpu"))
     on_cuda = ops._on_cuda
     monkeypatch.setattr(ops, "_on_cuda",
                         lambda op, *t: on_cuda(op, *t) or True)
+    monkeypatch.setattr(ops, "on_cuda", lambda op, *t: True)
     lib = tmp_path / "libblock_projection.so"
     lib.write_text("")
     ring = ("ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__"
@@ -288,6 +428,34 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                for x in lines) == 2
     assert sum(x.startswith("phase 11 iteration k=")
                and "precision=mixed" in x for x in lines) == 4
+    # phase 13: every kernel-path solve captured and held to the eager
+    # loop, DGD beside it, the solve times in turns, the idle share (no
+    # device time in the faked profile: not measured), the executor
+    for half in ("dense", "sparse"):
+        for sname in ("apc", "consensus", "cimmino"):
+            for precision in ("default", "mixed"):
+                for k in (1, 8):
+                    assert sum(x.startswith(
+                        f"phase 13 {half} {sname} {precision} k={k}: "
+                        "captured ≡ eager loop") for x in lines) == 1, (
+                        half, sname, precision, k)
+        assert sum(x.startswith(f"phase 13 {half} dgd k=")
+                   and "bit-identical True" in x for x in lines) == 2
+    assert sum(x.startswith("phase 13 ") and "whole solve" in x
+               for x in lines) == 4 + 8
+    assert sum(x.startswith("phase 13 dense apc k=") and " memory: " in x
+               for x in lines) == 2
+    assert sum(x.startswith("phase 13 sparse apc k=1 ")
+               and "idle share not measured" in x for x in lines) == 4
+    assert sum(x.startswith("phase 13 executor apc k=8")
+               and "builds 1 captures 1 cache 1" in x for x in lines) == 1
+    assert sum(x.startswith("phase 13 executor apc k=8")
+               and "executor replay" in x for x in lines) == 1
+    assert sum(x.startswith("phase 13 sparse apc k=1 ")
+               and "graph's capture" in x for x in lines) == 2
+    for phase in (8, 11):
+        assert sum(x.startswith(f"phase {phase} iteration k=")
+                   and " captured: " in x for x in lines) == 2, phase
     kernels = json.loads(next(x for x in lines if x.startswith(
         '{"kernels"')))["kernels"]
     assert [k["name"] for k in kernels] == list(bp.KERNELS)
