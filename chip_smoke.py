@@ -95,7 +95,26 @@ script exits non-zero without its last line:
    batches of new right-hand sides of the sparse system — one build, one
    capture, the second and third runs quiet under
    ``tracecheck(steady_state=True)``, the first batch's x intact after
-   the third, each batch against ``solve_many``.
+   the third, each batch against ``solve_many``;
+14. serving (after phase 13): the dense main path regenerated and served
+   by ``LinsysServer`` over a ``FactorStore`` (APC on the kernels, k =
+   K_MANY, 29 seeded consistent right-hand sides: 4 batches, 3 pad
+   slots) — 1 store miss then 3 hits, 1 executor build and 1 capture,
+   batches 2-4 quiet under ``tracecheck(steady_state=True)``, 150
+   launches of each kernel a steady batch from the replays, the
+   placement the store's entry (no second copy of A or B), peak memory,
+   each x within 1e-12 of ``solve_many`` and 1e-8 of x_true, RHS/s, ms a
+   batch, the fingerprint's time, and one batch split into the
+   executor's cold and warm programs and ``init`` eagerly on cuSOLVER and
+   MAGMA; the same traffic through ``AsyncLinsysServer`` (bit-equal, 0
+   shed, latency p50/p95/p99) and an overload (``admit_capacity``,
+   explicit ``Shed``); on the sparse system APC at ``precision="mixed"``
+   through both servers (a bf16 store entry in each, bit-equal), a warm
+   Cimmino server on perturbed right-hand sides (the warm program
+   captured once), and the disk tier under ``build/`` (a fresh store: a
+   disk hit, x bit-equal, write and read times); the ``serve_linsys``
+   CLI sync and ``--async`` on one ``--store-dir`` (the second run a disk
+   hit) and the solve CLI with ``--ckpt-dir``/``--resume`` twice.
 
 Every time is the median over rounds of a run of back-to-back calls
 between two CUDA events, divided by the run's length: the host's time
@@ -109,10 +128,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -321,6 +342,383 @@ def decay(res: torch.Tensor, floor: float = 1e-12):
     j = int(above[-1])
     i = j // 2
     return float((r[j] / r[i]) ** (1.0 / (j - i)))
+
+
+def timed_ms(fn):
+    """(fn(), host ms from the card idle to the card idle after it)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+@contextlib.contextmanager
+def linalg_library(lib: str):
+    """``torch.backends.cuda.preferred_linalg_library(lib)`` inside."""
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library(lib)
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def captured_stdout(fn, label, card):
+    """Run ``fn()`` with its standard output captured; print each line
+    after ``label``, and the card it ran on after it.  Returns (fn(), the
+    output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        say(f"{label}: {line} [{card}]")
+    return out, text
+
+
+def consistent(system, count, seed):
+    """``count`` seeded solutions xs (on the card) and their right-hand
+    sides A xs on the host, as a client sends them."""
+    xs = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (count, system.n)), device="cuda")
+    B = (system.A_blocks.reshape(system.N, system.n) @ xs.T).T
+    return xs, B.cpu().numpy()
+
+
+def groups(rhs, k):
+    """The server's batches of ``rhs``: FIFO groups of k, the last padded
+    by repeating its last request."""
+    out = []
+    for i in range(0, len(rhs), k):
+        rows = list(rhs[i:i + k])
+        out.append(np.stack(rows + [rows[-1]] * (k - len(rows))))
+    return out
+
+
+def serving_phase(card, form_launches, dprm, sp, sp_pinned) -> None:
+    """Phase 14: ``LinsysServer`` and ``AsyncLinsysServer`` over a
+    ``FactorStore`` on the dense main path and the sparse path, the disk
+    tier, and the two CLIs (module docstring)."""
+    from repro_torch import solvers
+    from repro_torch.analysis import tracecheck
+    from repro_torch.data import linsys
+    from repro_torch.kernels import block_projection as bp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_linsys as serve_cli
+    from repro_torch.launch import solve as solve_cli
+    from repro_torch.solvers import executor
+    from repro_torch.solvers.pipeline import Shed
+
+    s = solvers.get("apc")
+    head = min(executor.CHUNK, ITERS)
+    uses = lambda kns, n: {kn: n if kn in kns else 0  # noqa: E731
+                           for kn in bp.KERNELS}
+
+    # -- the dense main path, sync ---------------------------------------
+    t = time.time()
+    dsys = linsys.tall_gaussian(**FULL, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    a_bytes = dsys.A_blocks.numel() * dsys.A_blocks.element_size()
+    n_req = 3 * K_MANY + 5
+    xs, rhs = consistent(dsys, n_req, 14)
+    say(f"phase 14 data: tall_gaussian N={dsys.N} n={dsys.n} m={dsys.m} "
+        f"float64 in {time.time() - t:.2f} s; {n_req} right-hand sides")
+    fp_key, fp_ms = timed_ms(lambda: solvers.fingerprint("apc", dsys, dprm))
+    say(f"phase 14 fingerprint: A {a_bytes / 1e9:.2f} GB copied from the "
+        f"card and hashed (sha256) on the host in {fp_ms:.1f} ms "
+        f"({a_bytes / fp_ms / 1e6:.2f} GB/s) [{card}]")
+    store = solvers.FactorStore()
+    srv = solvers.LinsysServer(store, solver="apc", iters=ITERS,
+                               batch=K_MANY, use_kernel=True, **dprm)
+    fp = srv.register(dsys)
+    assert fp == fp_key
+    for b in rhs:
+        srv.submit(fp, b)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs, ms, launched = [], [], []
+    ops.reset_launch_counts()
+    with tracecheck() as tc:
+        out, t_ms = timed_ms(srv.step)
+    launched.append(form_launches("f64"))
+    outs.append(out)
+    ms.append(t_ms)
+    resident = torch.cuda.memory_allocated()
+    first_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with tracecheck(steady_state=True):
+        for _ in range(3):
+            ops.reset_launch_counts()
+            out, t_ms = timed_ms(srv.step)
+            launched.append(form_launches("f64"))
+            outs.append(out)
+            ms.append(t_ms)
+    steady_peak = torch.cuda.max_memory_allocated()
+    assert srv.step() == []
+    assert [e.fun for e in tc.traces()] == ["build apc.cold",
+                                            "capture apc.cold"], tc.summary()
+    (ex,) = srv._executors.values()
+    st = store.stats
+    assert (st.misses, st.hits, st.disk_hits) == (1, 3, 0), st
+    assert srv.stats.executor_builds == 1, srv.stats
+    assert (ex.builds, ex.captures, ex.cache_size()) == (1, 1, 1)
+    assert (srv.stats.served, srv.stats.padded, srv.stats.batches) == (
+        n_req, 3, 4), srv.stats
+    assert launched[0] == uses(USES["apc"], head + ITERS), launched[0]
+    for got in launched[1:]:
+        assert got == uses(USES["apc"], ITERS), got
+    # one copy of A and of B: the placement IS the store's entry
+    entry, ent = store._mem[fp], srv._systems[fp]
+    assert entry.A is dsys.A_op and ent.A_placed is dsys.A_op
+    assert ent.factors_placed is entry
+    b_bytes = entry.B.numel() * entry.B.element_size()
+    assert resident - base < a_bytes + b_bytes, (resident, base)
+    assert steady_peak - resident < a_bytes // 4, (steady_peak, resident)
+    served = [r for out in outs for r in out]
+    assert [r.rid for r in served] == list(range(n_req))
+    worst, same, err = 0.0, True, 0.0
+    kfs = solvers.ExecutionPlan(kernel=True, factors=entry)
+    for i, (Bg, out) in enumerate(zip(groups(rhs, K_MANY), outs)):
+        ref = s.solve_many(dsys, Bg, iters=ITERS, plan=kfs, **dprm)
+        for j, r in enumerate(out):
+            xr = ref.x[j].cpu().numpy()
+            d = float(np.linalg.norm(r.x - xr) / np.linalg.norm(xr))
+            worst = max(worst, d)
+            same = same and np.array_equal(r.x, xr)
+            assert d <= 1e-12, (i, j, d)
+            xt = xs[r.rid].cpu().numpy()
+            err = max(err, float(np.linalg.norm(r.x - xt)
+                                 / np.linalg.norm(xt)))
+            assert np.isfinite(r.residual)
+    assert err <= 1e-8, err
+    say(f"phase 14 dense apc server k={K_MANY}, {ITERS} iterations: "
+        f"{n_req} requests in 4 batches (the last 5 real + 3 padded); "
+        f"store misses {st.misses} hits {st.hits}; executor builds "
+        f"{srv.stats.executor_builds}, captures {ex.captures}; batches "
+        f"2-4 quiet under tracecheck(steady_state=True); launches a batch "
+        f"{[launched[i]['apc_gather'] for i in range(4)]} (apc_gather) "
+        f"{[launched[i]['apc_scatter'] for i in range(4)]} (apc_scatter), "
+        f"the first with the {head}-step eager head; served x vs "
+        f"solve_many max rel {worst:.3e}, bit-identical {same}; vs x_true "
+        f"max rel {err:.3e}")
+    say(f"phase 14 dense apc server: ms a batch {', '.join(f'{v:.1f}' for v in ms)} "
+        f"(the first with prepare, the pinv factors and the capture); "
+        f"{n_req / sum(ms) * 1e3:.2f} RHS/s over the 4 batches, "
+        f"{(n_req - K_MANY) / sum(ms[1:]) * 1e3:.2f} RHS/s over batches "
+        f"2-4, padding excluded (host clock to synchronize()) [{card}]")
+    say(f"phase 14 dense apc server memory: resident {base / 1e9:.3f} GB "
+        f"before (A and b), +{(resident - base) / 1e9:.3f} GB after the "
+        f"first batch (B {b_bytes / 1e9:.3f} GB, the Cholesky factors, the "
+        f"graph's pool), peak +{(first_peak - base) / 1e9:.3f} GB in it "
+        f"(prepare); batches 2-4 peak {steady_peak / 1e9:.3f} GB "
+        f"(max_memory_allocated), +{(steady_peak - resident) / 1e6:.1f} MB "
+        f"above the resident; the store's entry is the placement (A is the "
+        f"system's own) [{card}]")
+
+    # one batch split: the executor's cold program (init + the steps)
+    # against its warm program (the steps alone), and init eagerly on
+    # cuSOLVER (what the graph holds) and on MAGMA (eager solve_many's)
+    ex2 = executor.LocalExecutor(s, dprm, ITERS, use_kernel=True,
+                                 device=dsys.device)
+    Bb = ex2.place_B(groups(rhs, K_MANY)[0].reshape(K_MANY, dsys.m,
+                                                    dsys.p))
+    warm = ex2.run(dsys.A_op, entry, Bb)[0]
+    ex2.run(dsys.A_op, entry, Bb, warm)
+    assert (ex2.builds, ex2.captures) == (2, 2)
+
+    def init_on(lib):
+        with linalg_library(lib):
+            s.init(entry, Bb, dprm)
+    split = medians_ms({
+        "cold program": lambda: ex2.run(dsys.A_op, entry, Bb),
+        "warm program": lambda: ex2.run(dsys.A_op, entry, Bb, warm),
+        "init cuSOLVER": lambda: init_on("cusolver"),
+        "init MAGMA": lambda: init_on("magma")}, reps=3, batch=1)
+    say(f"phase 14 one batch (dense apc k={K_MANY}, CUDA events, median of "
+        f"3 in turns): cold program {split['cold program']:.3f} ms, warm "
+        f"program ({ITERS} steps) {split['warm program']:.3f} ms = "
+        f"{split['warm program'] / ITERS:.4f} ms a step, so init in the "
+        f"graph {split['cold program'] - split['warm program']:.3f} ms; "
+        f"init eagerly: cuSOLVER {split['init cuSOLVER']:.3f} ms, MAGMA "
+        f"{split['init MAGMA']:.3f} ms [{card}]")
+    del ex2, Bb, warm
+
+    # -- the same traffic through the async pipeline ---------------------
+    asrv = solvers.AsyncLinsysServer(store, solver="apc", iters=ITERS,
+                                     batch=K_MANY, use_kernel=True,
+                                     pipeline_depth=2, **dprm)
+    afp = asrv.register(dsys)
+    for b in rhs:
+        asrv.submit(afp, b)
+    ops.reset_launch_counts()
+    aout, a_ms = timed_ms(asrv.drain)
+    a_launched = form_launches("f64")
+    asrv.close()
+    assert [r.rid for r in aout] == list(range(n_req))
+    for r, e in zip(aout, served):
+        assert np.array_equal(r.x, e.x) and r.residual == e.residual, r.rid
+    assert (asrv.stats.served, asrv.stats.shed) == (n_req, 0), asrv.stats
+    assert a_launched == uses(USES["apc"], head + 4 * ITERS), a_launched
+    rep = asrv.latency_report()
+    say(f"phase 14 dense apc async (pipeline_depth 2): {n_req} requests "
+        f"bit-equal to the sync server's in rid order, 0 shed; launches "
+        f"{a_launched['apc_gather']} of each kernel; {a_ms:.1f} ms, "
+        f"{n_req / a_ms * 1e3:.2f} RHS/s (its first batch captures); "
+        f"latency p50/p95/p99 {rep['p50_ms']:.1f}/{rep['p95_ms']:.1f}/"
+        f"{rep['p99_ms']:.1f} ms, mean {rep['mean_ms']:.1f}, max "
+        f"{rep['max_ms']:.1f} (all submitted at t=0) [{card}]")
+    osrv = solvers.AsyncLinsysServer(store, solver="apc", iters=ITERS,
+                                     batch=K_MANY, use_kernel=True,
+                                     admit_capacity=K_MANY, **dprm)
+    ofp = osrv.register(dsys)
+    tickets = [osrv.submit(ofp, b) for b in rhs[:20]]
+    assert all(t.future.done() and isinstance(t.result(), Shed)
+               for t in tickets[K_MANY:])
+    assert (osrv.stats.admitted, osrv.stats.shed) == (K_MANY, 20 - K_MANY)
+    oout = osrv.drain()
+    osrv.close()
+    assert [r.rid for r in oout] == list(range(20))
+    assert all(isinstance(r, Shed) for r in oout[K_MANY:])
+    for r, e in zip(oout[:K_MANY], served):
+        assert not isinstance(r, Shed) and np.array_equal(r.x, e.x)
+    say(f"phase 14 overload (admit_capacity {K_MANY}, 20 submitted before "
+        f"the pipeline starts): admitted {osrv.stats.admitted}, each of "
+        f"the {osrv.stats.shed} others an explicit Shed; the admitted "
+        f"bit-equal to the sync server's")
+    del srv, asrv, osrv, store, entry, ent, ex, dsys, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the sparse path: mixed APC, sync (over a store with a disk tier)
+    # and async (a store without one: its miss casts on the assembly
+    # thread); then a fresh store on the sync one's directory, as a
+    # restarted process: a disk hit
+    sprm, cprm = sp_pinned["apc"][0], sp_pinned["cimmino"][0]
+    xs, srhs = consistent(sp, 2 * K_MANY, 15)
+    sdir = ROOT / "build" / "phase14_factors"
+    shutil.rmtree(sdir, ignore_errors=True)
+    io_ms = {}
+
+    def timing(store, name):
+        """``store`` with its method ``name`` timed into ``io_ms``."""
+        fn = getattr(store, name)
+
+        def timed(*a, **k):
+            out, io_ms[name] = timed_ms(lambda: fn(*a, **k))
+            return out
+        setattr(store, name, timed)
+        return store
+
+    mixed = {}
+    for label, cls, mstore in (
+            ("sync", solvers.LinsysServer, timing(solvers.FactorStore(
+                directory=str(sdir)), "_disk_store")),
+            ("async", solvers.AsyncLinsysServer, solvers.FactorStore()),
+            ("restarted", solvers.LinsysServer, timing(solvers.FactorStore(
+                directory=str(sdir)), "_disk_load"))):
+        msrv = cls(mstore, solver="apc", iters=ITERS, batch=K_MANY,
+                   use_kernel=True, precision="mixed", **sprm)
+        mfp = msrv.register(sp)
+        for b in srhs:
+            msrv.submit(mfp, b)
+        ops.reset_launch_counts()
+        out, t_ms = timed_ms(msrv.drain)
+        got = form_launches("bf16_f64")
+        if cls is solvers.AsyncLinsysServer:
+            msrv.close()
+        me = mstore._mem[mfp]
+        assert me.A.vals.dtype == me.B.dtype == BF16, (label, me.B.dtype)
+        assert mstore.stats.hits == 1, (label, mstore.stats)
+        assert got == uses(SPARSE_USES["apc"], head + 2 * ITERS), got
+        mixed[label] = (out, t_ms, me, mstore.stats)
+    (sout, s_ms, me, st1), (aout, a_ms, _, _), (rout, r_ms, _, st2) = \
+        mixed.values()
+    assert (st1.misses, st1.disk_writes) == (1, 1), st1
+    assert (st2.disk_hits, st2.misses) == (1, 0), st2
+    assert [r.rid for r in aout] == [r.rid for r in sout]
+    for r, e, d in zip(aout, sout, rout):
+        assert np.array_equal(r.x, e.x) and r.residual == e.residual
+        assert np.array_equal(d.x, e.x) and d.residual == e.residual
+    worst = 0.0
+    kfs = solvers.ExecutionPlan(kernel=True, precision="mixed", factors=me)
+    for Bg, out in zip(groups(srhs, K_MANY), (sout[:K_MANY],
+                                              sout[K_MANY:])):
+        ref = s.solve_many(sp, Bg, iters=ITERS, plan=kfs, **sprm)
+        for j, r in enumerate(out):
+            xr = ref.x[j].cpu().numpy()
+            d = float(np.linalg.norm(r.x - xr) / np.linalg.norm(xr))
+            worst = max(worst, d)
+            assert d <= 1e-12, d
+    size = sum(f.stat().st_size for f in sdir.rglob("*") if f.is_file())
+    say(f"phase 14 sparse apc precision=mixed k={K_MANY}: the store's "
+        f"entry bf16 (vals, Bvals) in the sync and the async server; async "
+        f"bit-equal to sync; sync vs solve_many max rel {worst:.3e}; "
+        f"{2 * K_MANY} requests in {s_ms:.1f} ms sync (with the disk "
+        f"write), {a_ms:.1f} ms async (each with its first batch's "
+        f"capture) [{card}]")
+    say(f"phase 14 disk tier (sparse apc mixed): the sync server missed "
+        f"and wrote {size / 1e6:.1f} MB in {io_ms['_disk_store']:.1f} ms; "
+        f"a fresh store on the directory: disk_hits {st2.disk_hits} misses "
+        f"{st2.misses}, read in {io_ms['_disk_load']:.1f} ms, the entry "
+        f"bf16, served x bit-equal to the first server's; {2 * K_MANY} "
+        f"requests in {r_ms:.1f} ms [{card}]")
+    shutil.rmtree(sdir, ignore_errors=True)
+    del mixed, me, sout, aout, rout
+
+    # -- a warm Cimmino server on perturbed right-hand sides ---------------
+    wsrv = solvers.LinsysServer(solvers.FactorStore(), solver="cimmino",
+                                iters=ITERS, batch=K_MANY, use_kernel=True,
+                                warm_start=True, **cprm)
+    wfp = wsrv.register(sp)
+    noise = np.random.default_rng(16).standard_normal(srhs[:K_MANY].shape)
+    events, res = [], []
+    for i in range(4):
+        for b in srhs[:K_MANY] + 1e-3 * i * noise:
+            wsrv.submit(wfp, b)
+        with tracecheck() as tc:
+            out = wsrv.drain()
+        events.append([e.fun for e in tc.traces()])
+        assert [r.warm for r in out] == [i > 0] * K_MANY
+        res.append(max(r.residual for r in out))
+    (wex,) = wsrv._executors.values()
+    assert events == [["build cimmino.cold", "capture cimmino.cold"],
+                      ["build cimmino.warm", "capture cimmino.warm"], [],
+                      []], events
+    assert wsrv.stats.warm_batches == 3 and wex.captures == 2
+    say(f"phase 14 sparse cimmino warm_start k={K_MANY}: 4 batches of "
+        f"perturbed right-hand sides, warm_batches "
+        f"{wsrv.stats.warm_batches}; the warm program captured once "
+        f"(batches 3-4 quiet); worst final residual a batch "
+        + ", ".join(f"{v:.3e}" for v in res))
+    del wsrv, wex, xs
+
+    # -- the CLIs ---------------------------------------------------------
+    cdir = ROOT / "build" / "phase14_cli"
+    shutil.rmtree(cdir, ignore_errors=True)
+    args = ["--requests", "12", "--systems", "2", "--batch", "4",
+            "--iters", "400", "--use-kernel", "--store-dir",
+            str(cdir / "store")]
+    texts = []
+    for extra in ([], ["--async"]):
+        rc, text = captured_stdout(lambda: serve_cli.main(args + extra),
+                                   "phase 14 serve_linsys "
+                                   + " ".join(extra or ["sync"]), card)
+        assert rc == 0
+        texts.append(text)
+    assert "misses=2" in texts[0] and "disk_hits=2" in texts[1], texts
+    assert "misses=0" in texts[1] and "0 shed" in texts[1]
+    for i in range(2):
+        rc, text = captured_stdout(lambda: solve_cli.main(
+            CLI_ARGS + ["--ckpt-dir", str(cdir / "ckpt"), "--resume",
+                        "--store-dir", str(cdir / "solve_store")]),
+            f"phase 14 solve run {i + 1}", card)
+        assert rc == 0
+        assert (f"checkpointed at iter {200 * (i + 1)}" in text
+                and ("resuming from checkpointed state at iter 200" in text)
+                == (i == 1)), text
+    shutil.rmtree(cdir, ignore_errors=True)
 
 
 def main() -> int:
@@ -1731,6 +2129,9 @@ def main() -> int:
             for how, v in times.items())
         + f" (host clock to synchronize(), median of 4 in turns) [{card}]")
     del ex, outs, batches, xs, Bm
+
+    # 14. serving: the factor store, the servers, the CLI -----------------
+    serving_phase(card, form_launches, pinned["apc"][0], sp, sp_pinned)
 
     main_launches.update(
         {kn: sparse_launches["apc" if kn in SPARSE_USES["apc"]

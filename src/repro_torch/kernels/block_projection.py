@@ -48,6 +48,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -109,33 +110,50 @@ def launch_counts(pair: str | None = None) -> dict:
 
 def reset_launch_counts() -> None:
     """Set every launch counter back to 0."""
-    for name in _launches:
-        _launches[name] = 0
+    with _count_lock:
+        for name in _launches:
+            _launches[name] = 0
+
+
+# the counts are shared by every thread (a serving pipeline launches from
+# several); a capture holds back only its own thread's launches
+_count_lock = threading.Lock()
+_capture = threading.local()
+
+
+def count_launch(name: str, suffix: str) -> None:
+    """Count one launch of kernel ``name``'s C entry ``suffix``: into the
+    capture under way on this thread (:func:`captured_launches`), if
+    any, else into the counts."""
+    held = getattr(_capture, "held", None)
+    if held is not None:
+        held[(name, suffix)] = held.get((name, suffix), 0) + 1
+        return
+    with _count_lock:
+        _launches[(name, suffix)] += 1
 
 
 @contextlib.contextmanager
 def captured_launches():
-    """Count the launches made inside as a CUDA graph's capture, which
-    runs none of them: on exit they are taken back out of the counts and
-    left in the dict this yields, by (kernel, pair), for
-    :func:`add_launches` to add at each replay of the graph.  The counts
-    then hold the launches the device ran."""
-    before = dict(_launches)
-    held: dict = {}
+    """Count the launches this thread makes inside as a CUDA graph's
+    capture, which runs none of them: they stay out of the counts, in the
+    dict this yields, by (kernel, pair), for :func:`add_launches` to add
+    at each replay of the graph.  The counts then hold the launches the
+    device ran, whatever other threads launch meanwhile."""
+    prev, held = getattr(_capture, "held", None), {}
+    _capture.held = held
     try:
         yield held
     finally:
-        for key, n in _launches.items():
-            if n != before[key]:
-                held[key] = n - before[key]
-            _launches[key] = before[key]
+        _capture.held = prev
 
 
 def add_launches(held: dict) -> None:
     """Add a replayed graph's launches (from :func:`captured_launches`)
     to the counts."""
-    for key, n in held.items():
-        _launches[key] += n
+    with _count_lock:
+        for key, n in held.items():
+            _launches[key] += n
 
 
 def _nvcc() -> str:
@@ -358,7 +376,7 @@ def _launch(name: str, matrix: torch.Tensor, out: torch.Tensor,
     fn = getattr(_library(), f"{name}_{suffix}")
     with torch.cuda.device(matrix.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launches[(name, suffix)] += 1
+        count_launch(name, suffix)
         err = fn(*args, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -10,9 +10,12 @@ APC by default) with its auto-tuned optimal parameters on the card (or
 through the hand-written CUDA kernels (the sparse ones on a sparse
 problem); the other solvers have no kernel: on a sparse problem they
 warn and run the unfused sparse path, on a dense one they raise, as the
-library's ``resolve_plan`` decides.  The mesh
-backend, redundancy, checkpoints and the factor store are not offered
-yet (ROADMAP A12, A14, A15).
+library's ``resolve_plan`` decides.  Every factorization comes from a
+``FactorStore`` (``--store-dir`` gives it a disk tier, so a resumed run's
+prepare is a disk hit); ``--ckpt-dir`` checkpoints the final solver state
+(in the reference's layout: either package resumes the other's), and
+``--resume`` warm-starts from the latest one.  The mesh backend and
+redundancy are not offered yet (ROADMAP A14, A15).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.solve --problem ash608 \
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch import device as dev
 from repro_torch import solvers
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import spectral
 from repro_torch.core.partition import as_sparse, pad_to_blocks, partition
 from repro_torch.data import linsys
@@ -41,6 +45,13 @@ def main(argv=None):
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--iters", type=int, default=500)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--store-dir", default=None,
+                    help="disk tier for the factor store — cached "
+                         "factorizations survive restarts, so a resumed "
+                         "run's prepare becomes a disk hit")
+    ap.add_argument("--resume", action="store_true",
+                    help="warm-start from the latest checkpoint in --ckpt-dir")
     ap.add_argument("--use-kernel", action="store_true",
                     help="route the per-worker update through the CUDA "
                          "kernels: apc_gather/apc_scatter for apc and "
@@ -75,12 +86,35 @@ def main(argv=None):
              if rho is not None else ""))
 
     t0 = time.time()
-    plan = solvers.ExecutionPlan(kernel=args.use_kernel)
+    # ALL factor acquisition goes through the content-addressed store: the
+    # resume's restore template and the solve share ONE entry, and a resume
+    # that has to re-prepare is counted (store.stats.resume_misses)
+    store = solvers.FactorStore(directory=args.store_dir)
+    warm = None
+    if args.resume:
+        if not args.ckpt_dir:
+            ap.error("--resume requires --ckpt-dir")
+        step = ckpt.latest_step(args.ckpt_dir)
+        if step is None:
+            print(f"WARNING: no checkpoint found in {args.ckpt_dir}; "
+                  "starting cold")
+        else:
+            factors = store.factors(solver, sys_, resume=True, **params)
+            probe = solver.init(factors, sys_.b_blocks, params)
+            warm = ckpt.restore(args.ckpt_dir, probe)
+            print(f"resuming from checkpointed state at iter {step} "
+                  f"(factor store: {store.stats})")
+    plan = solvers.ExecutionPlan(kernel=args.use_kernel, warm_state=warm,
+                                 store=store)
     res = solver.solve(sys_, iters=args.iters, plan=plan, **params)
     final_res = float(res.residuals[-1])
     if res.iters_to_tol != -1:
         print(f"reached residual < {res.tol:.0e} after "
               f"{res.iters_to_tol} iters")
+    if args.ckpt_dir:
+        total = int(res.state.t) if hasattr(res.state, "t") else args.iters
+        ckpt.save(args.ckpt_dir, total, res.state)
+        print(f"solver state checkpointed at iter {total}")
     err = (float(torch.linalg.norm(res.x - sys_.x_true)
                  / torch.linalg.norm(sys_.x_true))
            if sys_.x_true is not None else float("nan"))

@@ -26,6 +26,7 @@ surface here.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -37,6 +38,8 @@ from repro_torch.solvers import executor
 from repro_torch.solvers.capability import ExecutionPlan, resolve_plan
 
 __all__ = ["Solver", "SolveResult", "iters_to_tolerance"]
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +102,9 @@ class Solver:
     # then record ‖Ax−b‖ without a second read of A per iteration: the
     # lagged records shift by one and close with one true-A residual.
     supports_fused_residual: bool = False
+    # True when ``prepare`` is per-block independent and every factor
+    # leaf carries the leading worker axis (``FactorStore``'s block tier)
+    supports_block_store: bool = False
 
     # ----- lifecycle hooks (override) -------------------------------------
     def default_params(self, sys: BlockSystem) -> Dict[str, float]:
@@ -231,9 +237,27 @@ class Solver:
         return {**self.default_params(sys), **given}
 
     def _factors(self, sys: BlockSystem, plan: ExecutionPlan,
-                 prm: Dict[str, float]) -> Any:
+                 prm: Dict[str, float], *, resume: bool = False) -> Any:
+        """``plan.factors``, or the store's (``plan.store``: a
+        content-addressed lookup, memory LRU and disk tier, counted as a
+        resume miss when ``resume`` misses), or a fresh ``prepare``; then
+        the kernel augmentation and the precision cast (both
+        idempotent)."""
         factors = plan.factors
-        if factors is None:
+        if factors is None and plan.store is not None:
+            factors = plan.store.factors(
+                self, sys, use_kernel=plan.kernel, resume=resume,
+                precision=plan.precision, **prm)
+        elif factors is None:
+            if resume:
+                # a warm-start resume silently repaying the full
+                # b-independent prepare is the cost a FactorStore exists
+                # to amortize — make it visible
+                log.info(
+                    "solve(warm_state=...) without cached factors: "
+                    "re-running the full prepare for %r (pass "
+                    "ExecutionPlan(store=...) to count and amortize this "
+                    "as a cache miss)", self.name)
             factors = self.prepare(sys.A_op, prm)
         if plan.kernel:
             factors = self.kernel_factors(factors)
@@ -250,7 +274,9 @@ class Solver:
         records the residual from the gather pass (the fused residual);
         ``plan.precision="mixed"`` stores its matrix streams in bfloat16
         (``cast_factors``, after ``kernel_factors`` and before ``init``);
-        ``plan.factors`` skips ``prepare``; ``plan.warm_state`` resumes.
+        ``plan.factors`` skips ``prepare``; ``plan.store`` (a ``FactorStore``)
+        turns it into a content-addressed lookup; ``plan.warm_state``
+        resumes (a store miss then counts as a resume miss).
         In least-squares mode the history is the optimality residual
         (``ls_moment``), the fused residual is off, and ``errors`` are
         taken against ``ls_reference`` when ``sys.x_true`` is None.
@@ -258,7 +284,8 @@ class Solver:
         plan = resolve_plan(self, sys, plan or ExecutionPlan(),
                             context="solve")
         prm = self.resolve_params(sys, **params)
-        factors = self._factors(sys, plan, prm)
+        factors = self._factors(sys, plan, prm,
+                                resume=plan.warm_state is not None)
         state = (self.init(factors, sys.b_blocks, prm)
                  if plan.warm_state is None else plan.warm_state)
         step = lambda f, b, s: self.step(f, b, s, prm,      # noqa: E731

@@ -7,12 +7,13 @@ A solver declares the system classes it supports::
 
 and :func:`resolve_plan` checks the system and the plan against it before
 any work happens.  The plan fields whose execution is not ported yet —
-``store`` (ROADMAP A12), ``backend="mesh"`` (A14) and ``redundancy > 1``
-(A15) — raise ``NotImplementedError`` naming their item; they never
-degrade silently.  ``precision`` is checked as the reference checks it
-(``Solver._check_precision``), after the kernel flag is resolved.  The one downgrade is
-the reference's own, and it warns: ``kernel=True`` on a sparse system
-for a solver without a kernel runs the unfused sparse path.
+``backend="mesh"`` (ROADMAP A14) and ``redundancy > 1`` (A15) — raise
+``NotImplementedError`` naming their item; they never degrade silently.
+``precision`` is checked as the reference checks it
+(``Solver._check_precision``), after the kernel flag is resolved.  The
+one downgrade is the reference's own, and it warns: ``kernel=True`` on a
+sparse system for a solver without a kernel runs the unfused sparse
+path.
 """
 from __future__ import annotations
 
@@ -76,7 +77,8 @@ class ExecutionPlan:
     ``kernel=True`` routes the worker update of apc, consensus and
     cimmino through the hand-written CUDA kernels (their plain PyTorch
     versions for tensors on the CPU).  ``warm_state`` resumes from a prior state;
-    ``factors`` skips the one-time factorization.
+    ``factors`` skips the one-time factorization; ``store`` (a
+    ``FactorStore``) obtains it through the content-addressed cache.
     """
 
     backend: str = "local"
@@ -127,9 +129,6 @@ def resolve_plan(solver, sys, plan: ExecutionPlan, *,
     if plan.redundancy > 1:
         raise NotImplementedError(
             "redundant execution is not ported yet (ROADMAP A15)")
-    if plan.store is not None:
-        raise NotImplementedError(
-            "the factor store is not ported yet (ROADMAP A12)")
     if plan.kernel and not solver.supports_kernel:
         raise ValueError(f"solver {solver.name!r} has no kernel path "
                          f"(kernel=True unsupported)")

@@ -36,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import threading
 from typing import Any, Optional
 
 import torch
@@ -71,19 +72,45 @@ def _capturing(b: torch.Tensor) -> bool:
     return ops.on_cuda("history", b) and not _capture_disabled
 
 
-@contextlib.contextmanager
-def _cusolver():
-    """cuSOLVER for ``torch.cholesky_solve`` (the unfused steps' Gram
-    solves, ``core.apc._gram_solve``) while a history runs on the card:
-    PyTorch's default sends a batch of solves to MAGMA, whose batched
-    solve stages its pointer arrays in host memory, which a graph cannot
-    capture."""
+class _Shared:
+    """A process-wide setting held while any thread is inside: the first
+    to enter applies it (``enter() -> what to restore``), the last to
+    leave restores it.  The settings below are global to the process, and
+    serving runs histories on several threads at once."""
+
+    def __init__(self, enter, leave):
+        self._enter, self._leave = enter, leave
+        self._lock = threading.Lock()
+        self._depth, self._saved = 0, None
+
+    @contextlib.contextmanager
+    def __call__(self):
+        with self._lock:
+            if self._depth == 0:
+                self._saved = self._enter()
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._depth -= 1
+                if self._depth == 0:
+                    self._leave(self._saved)
+
+
+def _use_cusolver():
     prev = torch.backends.cuda.preferred_linalg_library()
     torch.backends.cuda.preferred_linalg_library("cusolver")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.preferred_linalg_library(prev)
+    return prev
+
+
+#: cuSOLVER for ``torch.cholesky_solve`` (the unfused steps' Gram solves,
+#: ``core.apc._gram_solve``) while a history runs on the card: PyTorch's
+#: default sends a batch of solves to MAGMA, whose batched solve stages
+#: its pointer arrays in host memory, which a graph cannot capture.
+_cusolver = _Shared(
+    _use_cusolver,
+    lambda prev: torch.backends.cuda.preferred_linalg_library(prev))
 
 
 # ---------------------------------------------------------------------------
@@ -198,20 +225,18 @@ def _static(t: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(t).copy_(t)
 
 
-@contextlib.contextmanager
-def _no_collection():
-    """No cyclic garbage collection inside: a CUDA graph it destroyed
-    there would invalidate the capture under way."""
+def _gc_off():
     was = gc.isenabled()
     gc.disable()
-    try:
-        yield
-    finally:
-        if was:
-            gc.enable()
+    return was
 
 
-_capture_streams: dict = {}
+#: no cyclic garbage collection inside: a CUDA graph it destroyed there
+#: would invalidate the capture under way
+_no_collection = _Shared(_gc_off, lambda was: gc.enable() if was else None)
+
+#: each thread's side stream of each device, for its captures
+_capture_streams = threading.local()
 
 
 def _capture(body, name: str):
@@ -220,23 +245,27 @@ def _capture(body, name: str):
     ran nothing and are taken back out of the counts; the replays add
     them.
 
-    The capture runs on a side stream of its own (a graph cannot be
-    captured on the default stream) that first waits for the current
+    The capture runs on a side stream of its own thread (a graph cannot
+    be captured on the default stream) that first waits for the current
     one.  It calls ``CUDAGraph.capture_begin``/``capture_end`` itself
     rather than entering ``torch.cuda.graph``, which first synchronizes
     the device and empties the allocator's cache: work a one-shot solve
-    pays on every call, and needs neither.
+    pays on every call, and needs neither.  The capture is thread-local:
+    another thread's work on the card meanwhile (a serving pipeline
+    copies the next batch in while a pool thread captures) does not
+    invalidate it.
     """
     record(f"capture {name}")
     device = torch.cuda.current_device()
-    side = _capture_streams.get(device)
+    streams = vars(_capture_streams).setdefault("by_device", {})
+    side = streams.get(device)
     if side is None:
-        side = _capture_streams[device] = torch.cuda.Stream(device)
+        side = streams[device] = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
     with _no_collection(), bp.captured_launches() as launches, \
             torch.cuda.stream(side):
-        graph.capture_begin()
+        graph.capture_begin(capture_error_mode="thread_local")
         try:
             body()
         finally:
@@ -385,19 +414,56 @@ class LocalExecutor:
     ``builds`` counts programs built (key misses, on any device),
     ``captures`` the graphs captured; :meth:`cache_size` is the number of
     programs held (the reference's ``jit_cache_size``).
+
+    Serving (``solvers.serve``): :meth:`place_system` and :meth:`place_B`
+    put a system and a batch on ``device``; :meth:`drop` frees the
+    programs of a placement the server replaced.  Runs may come from
+    several threads at once (the async pipeline's pool): a lock held from
+    the copy into the static buffers to the clone out of the outputs
+    keeps them from racing, and the copies, the replay and the clones go
+    to the calling thread's current stream, whose order protects the
+    buffers after the lock is released.
     """
 
     def __init__(self, solver, prm, iters: int, use_kernel: bool = False,
-                 ls_mode: bool = False):
+                 ls_mode: bool = False, device=None):
         self.solver, self.prm, self.iters = solver, dict(prm), iters
         self.use_kernel, self.ls_mode = use_kernel, ls_mode
+        self.device = torch.device("cpu" if device is None else device)
         self.fused = (use_kernel and solver.supports_fused_residual
                       and not ls_mode and iters > 0)
         self.builds = self.captures = 0
         self._programs: dict = {}
+        self._lock = threading.Lock()
 
     def cache_size(self) -> int:
         return len(self._programs)
+
+    def place_system(self, sys, factors):
+        """(A, factors) as the programs read them: the system's own
+        operand and the factors as given, on the system's device — no
+        copy of A or B is made."""
+        return sys.A_op, factors
+
+    def place_B(self, Bb) -> torch.Tensor:
+        """A (k, m, p) right-hand-side batch on the executor's device,
+        copied in on the calling thread (the async pipeline's assembly
+        thread copies batch B+1 in while batch B runs)."""
+        return torch.as_tensor(Bb, device=self.device)
+
+    def drop(self, A, factors) -> int:
+        """Free the programs of the placement (A, factors), which the
+        graphs read by address: an evicted store entry must not live on
+        in a graph.  Waits for the device first, as a replay of them may
+        still run.  Returns the number dropped."""
+        placement = _placement(A, factors)
+        with self._lock:
+            stale = [k for k in self._programs if k[1] == placement]
+            if stale and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            for k in stale:
+                del self._programs[k]
+        return len(stale)
 
     def _history(self, served: _Served) -> History:
         s, prm, Bb = self.solver, self.prm, served.Bb
@@ -448,7 +514,8 @@ class LocalExecutor:
         key = (states is None, _placement(A, factors), tuple(Bb.shape),
                Bb.dtype, Bb.device)
         capture = _capturing(Bb)
-        with _cusolver() if capture else contextlib.nullcontext():
+        with self._lock, \
+                _cusolver() if capture else contextlib.nullcontext():
             served = self._programs.get(key)
             if served is None:
                 served = self._build(A, factors, Bb, states, key)
@@ -457,9 +524,9 @@ class LocalExecutor:
                 for buf, t in zip(served.static, _tensors(states)):
                     buf.copy_(t)
             served.program.run()
-        out_states, X, res = served.out
+            out_states, X, res = served.out
+            out_states = _with_tensors(out_states, [
+                t.clone() for t in _tensors(out_states)])
+            X, res = X.clone(), res.clone()
         t0 = 0 if states is None else states.t
-        out_states = _with_tensors(out_states, [
-            t.clone() for t in _tensors(out_states)])._replace(
-                t=t0 + self.iters)
-        return out_states, X.clone(), res.clone()
+        return out_states._replace(t=t0 + self.iters), X, res

@@ -119,6 +119,9 @@ class APCSolver(Solver):
     # u_i = A_i(x̄ − x_i) IS the residual block A_i x̄ − b_i of the consumed
     # state: the history needs no second read of A per iteration.
     supports_fused_residual = True
+    # per-block Gram Cholesky, every factor leaf with a leading m axis
+    # (store.FactorStore.blockwise_factors)
+    supports_block_store = True
 
     def default_params(self, sys: BlockSystem):
         return self.analyze(sys)[0]
@@ -214,6 +217,7 @@ class CimminoSolver(Solver):
     # The gather result u = A x̄ gives the consumed state's residual
     # blocks directly: A x̄ − b = −v, v = b − u the scatter's operand.
     supports_fused_residual = True
+    supports_block_store = True    # per-block Gram Cholesky, leading m axis
 
     def default_params(self, sys: BlockSystem):
         return self.analyze(sys)[0]

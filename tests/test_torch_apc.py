@@ -165,10 +165,17 @@ def test_warm_state_resumes_exactly(systems, params):
 def test_plan_rejections(systems):
     s, sys_ = solvers.get("apc"), systems[1]
     for plan, item in [(solvers.ExecutionPlan(backend="mesh"), "A14"),
-                       (solvers.ExecutionPlan(store=object()), "A12"),
                        (solvers.ExecutionPlan(redundancy=2), "A15")]:
         with pytest.raises(NotImplementedError, match=item):
             s.solve(sys_, iters=1, plan=plan, gamma=1.0, eta=1.0)
+    # the store is ported (A12, tests/test_torch_store.py): the plan takes
+    # a FactorStore, and anything else fails where the store is used
+    with pytest.raises(AttributeError, match="factors"):
+        s.solve(sys_, iters=1, plan=solvers.ExecutionPlan(store=object()),
+                gamma=1.0, eta=1.0)
+    r = s.solve(sys_, iters=1, gamma=1.0, eta=1.0,
+                plan=solvers.ExecutionPlan(store=solvers.FactorStore()))
+    assert r.state.t == 1
     # precision="mixed" is ported; without the kernel path it is the
     # reference's error (tests/test_torch_mixed.py holds the rest)
     with pytest.raises(ValueError, match="use_kernel"):

@@ -119,7 +119,10 @@ class _Graph:
         self.ops = []
         self._capture = None
 
-    def capture_begin(self):
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        # a capture on the faked card records its own thread's operations
+        # only (a dispatch mode is thread-local): "thread_local" mode
+        assert capture_error_mode in ("global", "thread_local", "relaxed")
         self._capture = _Capture(self)
         self._capture.__enter__()
 
@@ -205,7 +208,7 @@ def _contract(name, matrix, operands, cols=None):
     if cols is not None:
         assert cols.dtype == torch.int64 and cols.is_contiguous(), name
         assert cols.dim() == 2 and cols.shape[0] == matrix.shape[0], name
-    bp._launches[(name, bp.PAIRS[(matrix.dtype, operands[0].dtype)])] += 1
+    bp.count_launch(name, bp.PAIRS[(matrix.dtype, operands[0].dtype)])
 
 
 def _by_row(k, f):
@@ -456,6 +459,29 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     for phase in (8, 11):
         assert sum(x.startswith(f"phase {phase} iteration k=")
                    and " captured: " in x for x in lines) == 2, phase
+    # phase 14: serving, dense and sparse, sync and async, the disk tier
+    # and the CLIs; its launch counts come from the replays
+    p14 = [x for x in lines if x.startswith("phase 14 ")]
+    for label in ("fingerprint:", "dense apc server k=8",
+                  "dense apc server:", "dense apc server memory:",
+                  "one batch", "dense apc async", "overload",
+                  "sparse apc precision=mixed", "sparse cimmino warm_start",
+                  "disk tier"):
+        assert sum(x.startswith(f"phase 14 {label}") for x in p14) == 1, (
+            label, p14)
+    assert any("store misses 1 hits 3; executor builds 1, captures 1" in x
+               and "launches a batch [56, 40, 40, 40] (apc_gather)" in x
+               for x in p14), p14
+    assert any("launches 176 of each kernel" in x for x in p14), p14
+    assert any("warm_batches 3; the warm program captured once" in x
+               for x in p14), p14
+    assert any("disk_hits 1 misses 0" in x for x in p14), p14
+    assert any(x.startswith("phase 14 serve_linsys --async: async pipeline")
+               and "0 shed" in x for x in p14), p14
+    assert any(x.startswith("phase 14 serve_linsys --async: factor store")
+               and "disk_hits=2" in x for x in p14), p14
+    assert any(x.startswith("phase 14 solve run 2: resuming from "
+                            "checkpointed state at iter 200") for x in p14)
     kernels = json.loads(next(x for x in lines if x.startswith(
         '{"kernels"')))["kernels"]
     assert [k["name"] for k in kernels] == list(bp.KERNELS)
