@@ -105,14 +105,19 @@ script exits non-zero without its last line:
    placement the store's entry (no second copy of A or B), peak memory,
    each x within 1e-12 of ``solve_many`` and 1e-8 of x_true, RHS/s, ms a
    batch, the fingerprint's time, and one batch split into the
-   executor's cold and warm programs and ``init`` eagerly on cuSOLVER and
-   MAGMA; the same traffic through ``AsyncLinsysServer`` (bit-equal, 0
-   shed, latency p50/p95/p99) and an overload (``admit_capacity``,
-   explicit ``Shed``); on the sparse system APC at ``precision="mixed"``
-   through both servers (a bf16 store entry in each, bit-equal), a warm
-   Cimmino server on perturbed right-hand sides (the warm program
-   captured once), and the disk tier under ``build/`` (a fresh store: a
-   disk hit, x bit-equal, write and read times); the ``serve_linsys``
+   executor's cold run (``init`` eagerly, outside the graph, then the
+   graph) and warm run (the graph alone), and ``init`` alone on the
+   process's own linalg library, cuSOLVER and MAGMA; the same traffic
+   through ``AsyncLinsysServer`` (bit-equal, 0 shed, latency
+   p50/p95/p99) and an overload (``admit_capacity``, explicit ``Shed``);
+   APC at ``precision="mixed"`` on the sparse system and a second one
+   (its rows doubled) from a cold store, requests interleaved, through
+   both servers (bf16 store entries in each, bit-equal: the async
+   server's second miss runs while the first system's program is
+   captured), a warm Cimmino server on perturbed right-hand sides (the
+   warm program captured once), and the disk tier under ``build/`` (a
+   fresh store: two disk hits, x bit-equal, write and read times); the
+   ``serve_linsys``
    CLI sync and ``--async`` on one ``--store-dir`` (the second run a disk
    hit) and the solve CLI with ``--ckpt-dir``/``--resume`` twice.
 
@@ -517,13 +522,14 @@ def serving_phase(card, form_launches, dprm, sp, sp_pinned) -> None:
         f"above the resident; the store's entry is the placement (A is the "
         f"system's own) [{card}]")
 
-    # one batch split: the executor's cold program (init + the steps)
-    # against its warm program (the steps alone), and init eagerly on
-    # cuSOLVER (what the graph holds) and on MAGMA (eager solve_many's)
-    ex2 = executor.LocalExecutor(s, dprm, ITERS, use_kernel=True,
-                                 device=dsys.device)
+    # one batch split: the executor's cold run (init eagerly, outside the
+    # graph, then the graph's steps) against its warm run (the graph's
+    # steps alone), and init alone on the process's own library (what the
+    # executor and eager solve_many run it on), on cuSOLVER and on MAGMA
+    ex2 = executor.LocalExecutor(s, dprm, ITERS, use_kernel=True)
     Bb = ex2.place_B(groups(rhs, K_MANY)[0].reshape(K_MANY, dsys.m,
-                                                    dsys.p))
+                                                    dsys.p), dsys.A_op)
+    assert Bb.device == dsys.device
     warm = ex2.run(dsys.A_op, entry, Bb)[0]
     ex2.run(dsys.A_op, entry, Bb, warm)
     assert (ex2.builds, ex2.captures) == (2, 2)
@@ -532,17 +538,19 @@ def serving_phase(card, form_launches, dprm, sp, sp_pinned) -> None:
         with linalg_library(lib):
             s.init(entry, Bb, dprm)
     split = medians_ms({
-        "cold program": lambda: ex2.run(dsys.A_op, entry, Bb),
-        "warm program": lambda: ex2.run(dsys.A_op, entry, Bb, warm),
+        "cold run": lambda: ex2.run(dsys.A_op, entry, Bb),
+        "warm run": lambda: ex2.run(dsys.A_op, entry, Bb, warm),
+        "init own": lambda: s.init(entry, Bb, dprm),
         "init cuSOLVER": lambda: init_on("cusolver"),
         "init MAGMA": lambda: init_on("magma")}, reps=3, batch=1)
     say(f"phase 14 one batch (dense apc k={K_MANY}, CUDA events, median of "
-        f"3 in turns): cold program {split['cold program']:.3f} ms, warm "
-        f"program ({ITERS} steps) {split['warm program']:.3f} ms = "
-        f"{split['warm program'] / ITERS:.4f} ms a step, so init in the "
-        f"graph {split['cold program'] - split['warm program']:.3f} ms; "
-        f"init eagerly: cuSOLVER {split['init cuSOLVER']:.3f} ms, MAGMA "
-        f"{split['init MAGMA']:.3f} ms [{card}]")
+        f"3 in turns): cold run {split['cold run']:.3f} ms, warm run "
+        f"({ITERS} steps, the graph alone) {split['warm run']:.3f} ms = "
+        f"{split['warm run'] / ITERS:.4f} ms a step, so init (eager, "
+        f"outside the graph) {split['cold run'] - split['warm run']:.3f} "
+        f"ms; init alone: the process's own library "
+        f"{split['init own']:.3f} ms, cuSOLVER {split['init cuSOLVER']:.3f}"
+        f" ms, MAGMA {split['init MAGMA']:.3f} ms [{card}]")
     del ex2, Bb, warm
 
     # -- the same traffic through the async pipeline ---------------------
@@ -591,12 +599,18 @@ def serving_phase(card, form_launches, dprm, sp, sp_pinned) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- the sparse path: mixed APC, sync (over a store with a disk tier)
-    # and async (a store without one: its miss casts on the assembly
-    # thread); then a fresh store on the sync one's directory, as a
-    # restarted process: a disk hit
+    # -- the sparse path: mixed APC over two systems from a cold store
+    # (sp and sp2, its rows doubled: its own fingerprint, factors and
+    # placement, b doubled, the same x), sync (over a store with a disk
+    # tier) and async (a store without one: its second miss runs on the
+    # assembly thread while a pool thread captures the first system's
+    # program); then a fresh store on the sync one's directory, as a
+    # restarted process: two disk hits
     sprm, cprm = sp_pinned["apc"][0], sp_pinned["cimmino"][0]
     xs, srhs = consistent(sp, 2 * K_MANY, 15)
+    sp2 = dataclasses.replace(sp, A_blocks=2 * sp.A_blocks,
+                              b_blocks=2 * sp.b_blocks)
+    pairs = ((sp, 1.0), (sp2, 2.0))
     sdir = ROOT / "build" / "phase14_factors"
     shutil.rmtree(sdir, ignore_errors=True)
     io_ms = {}
@@ -606,7 +620,8 @@ def serving_phase(card, form_launches, dprm, sp, sp_pinned) -> None:
         fn = getattr(store, name)
 
         def timed(*a, **k):
-            out, io_ms[name] = timed_ms(lambda: fn(*a, **k))
+            out, t_ms = timed_ms(lambda: fn(*a, **k))
+            io_ms.setdefault(name, []).append(t_ms)
             return out
         setattr(store, name, timed)
         return store
@@ -620,52 +635,66 @@ def serving_phase(card, form_launches, dprm, sp, sp_pinned) -> None:
                 directory=str(sdir)), "_disk_load"))):
         msrv = cls(mstore, solver="apc", iters=ITERS, batch=K_MANY,
                    use_kernel=True, precision="mixed", **sprm)
-        mfp = msrv.register(sp)
-        for b in srhs:
-            msrv.submit(mfp, b)
+        mfps = [msrv.register(system) for system, _ in pairs]
+        for b in srhs:                  # interleaved: rid 2i sp, 2i+1 sp2
+            for mfp, (_, scale) in zip(mfps, pairs):
+                msrv.submit(mfp, scale * b)
         ops.reset_launch_counts()
         out, t_ms = timed_ms(msrv.drain)
         got = form_launches("bf16_f64")
         if cls is solvers.AsyncLinsysServer:
             msrv.close()
-        me = mstore._mem[mfp]
-        assert me.A.vals.dtype == me.B.dtype == BF16, (label, me.B.dtype)
-        assert mstore.stats.hits == 1, (label, mstore.stats)
-        assert got == uses(SPARSE_USES["apc"], head + 2 * ITERS), got
-        mixed[label] = (out, t_ms, me, mstore.stats)
-    (sout, s_ms, me, st1), (aout, a_ms, _, _), (rout, r_ms, _, st2) = \
-        mixed.values()
-    assert (st1.misses, st1.disk_writes) == (1, 1), st1
-    assert (st2.disk_hits, st2.misses) == (1, 0), st2
-    assert [r.rid for r in aout] == [r.rid for r in sout]
+        (mex,) = msrv._executors.values()
+        entries = [mstore._mem[mfp] for mfp in mfps]
+        for me in entries:
+            assert me.A.vals.dtype == me.B.dtype == BF16, (label, me.B.dtype)
+        assert mstore.stats.hits == 2, (label, mstore.stats)
+        assert (mex.builds, mex.captures) == (2, 2), label
+        assert got == uses(SPARSE_USES["apc"], 2 * head + 4 * ITERS), got
+        mixed[label] = (sorted(out, key=lambda r: r.rid), t_ms, entries,
+                        mstore.stats, mfps)
+    (sout, s_ms, mes, st1, mfps), (aout, a_ms, _, _, _), \
+        (rout, r_ms, _, st2, _) = mixed.values()
+    assert (st1.misses, st1.disk_writes) == (2, 2), st1
+    assert (st2.disk_hits, st2.misses) == (2, 0), st2
+    assert [r.rid for r in aout] == [r.rid for r in sout] == list(
+        range(4 * K_MANY))
     for r, e, d in zip(aout, sout, rout):
         assert np.array_equal(r.x, e.x) and r.residual == e.residual
         assert np.array_equal(d.x, e.x) and d.residual == e.residual
     worst = 0.0
-    kfs = solvers.ExecutionPlan(kernel=True, precision="mixed", factors=me)
-    for Bg, out in zip(groups(srhs, K_MANY), (sout[:K_MANY],
-                                              sout[K_MANY:])):
-        ref = s.solve_many(sp, Bg, iters=ITERS, plan=kfs, **sprm)
-        for j, r in enumerate(out):
-            xr = ref.x[j].cpu().numpy()
-            d = float(np.linalg.norm(r.x - xr) / np.linalg.norm(xr))
-            worst = max(worst, d)
-            assert d <= 1e-12, d
+    for (system, scale), mfp, me in zip(pairs, mfps, mes):
+        kfs = solvers.ExecutionPlan(kernel=True, precision="mixed",
+                                    factors=me)
+        mine = [r for r in sout if r.fp == mfp]
+        for i, Bg in enumerate(groups(srhs, K_MANY)):
+            ref = s.solve_many(system, scale * Bg, iters=ITERS, plan=kfs,
+                               **sprm)
+            for j, r in enumerate(mine[i * K_MANY:(i + 1) * K_MANY]):
+                xr = ref.x[j].cpu().numpy()
+                d = float(np.linalg.norm(r.x - xr) / np.linalg.norm(xr))
+                worst = max(worst, d)
+                assert d <= 1e-12, d
     size = sum(f.stat().st_size for f in sdir.rglob("*") if f.is_file())
-    say(f"phase 14 sparse apc precision=mixed k={K_MANY}: the store's "
-        f"entry bf16 (vals, Bvals) in the sync and the async server; async "
-        f"bit-equal to sync; sync vs solve_many max rel {worst:.3e}; "
-        f"{2 * K_MANY} requests in {s_ms:.1f} ms sync (with the disk "
-        f"write), {a_ms:.1f} ms async (each with its first batch's "
-        f"capture) [{card}]")
+    say(f"phase 14 sparse apc precision=mixed k={K_MANY}, two systems from "
+        f"a cold store (sp, and sp2 its rows doubled), requests "
+        f"interleaved: the store's entries bf16 (vals, Bvals) in the sync "
+        f"and the async server; async bit-equal to sync for both; vs "
+        f"solve_many max rel {worst:.3e}; {4 * K_MANY} requests in "
+        f"{s_ms:.1f} ms sync (with the disk writes), {a_ms:.1f} ms async "
+        f"(each with its two placements' captures) [{card}]")
     say(f"phase 14 disk tier (sparse apc mixed): the sync server missed "
-        f"and wrote {size / 1e6:.1f} MB in {io_ms['_disk_store']:.1f} ms; "
-        f"a fresh store on the directory: disk_hits {st2.disk_hits} misses "
-        f"{st2.misses}, read in {io_ms['_disk_load']:.1f} ms, the entry "
-        f"bf16, served x bit-equal to the first server's; {2 * K_MANY} "
-        f"requests in {r_ms:.1f} ms [{card}]")
+        f"twice and wrote {size / 1e6:.1f} MB in "
+        + " + ".join(f"{v:.1f}" for v in io_ms["_disk_store"])
+        + f" ms; a fresh store on the directory: disk_hits "
+        f"{st2.disk_hits} misses {st2.misses}, read in "
+        + " + ".join(f"{v:.1f}" for v in io_ms["_disk_load"])
+        + f" ms, the entries bf16, served x bit-equal to the first "
+        f"server's; {4 * K_MANY} requests in {r_ms:.1f} ms [{card}]")
     shutil.rmtree(sdir, ignore_errors=True)
-    del mixed, me, sout, aout, rout
+    del mixed, mes, sout, aout, rout, sp2, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- a warm Cimmino server on perturbed right-hand sides ---------------
     wsrv = solvers.LinsysServer(solvers.FactorStore(), solver="cimmino",

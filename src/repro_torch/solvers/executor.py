@@ -41,14 +41,16 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch import device as dev
 from repro_torch.analysis.tracecheck import record
 from repro_torch.core import blockops
 from repro_torch.kernels import block_projection as bp
 from repro_torch.kernels import ops
 from repro_torch.solvers.capability import resolve_plan
 
-__all__ = ["CHUNK", "History", "LocalExecutor", "disable_capture",
-           "eager_history", "executor_key", "run_history"]
+__all__ = ["CHUNK", "History", "LocalExecutor", "default_linalg",
+           "disable_capture", "eager_history", "executor_key",
+           "run_history"]
 
 #: the steps one captured graph of a one-shot solve holds
 CHUNK = 16
@@ -98,19 +100,59 @@ class _Shared:
                     self._leave(self._saved)
 
 
-def _use_cusolver():
-    prev = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
-    return prev
+class _Linalg:
+    """The linalg backend preference
+    (``torch.backends.cuda.preferred_linalg_library``), global to the
+    process, held by section: inside ``_linalg("cusolver")`` it is
+    cuSOLVER, inside ``_linalg(None)`` the process's own.  Sections of one
+    kind share the setting (the first to enter applies it, the last to
+    leave restores it); sections of the two kinds exclude each other.  So
+    what runs in a ``None`` section (the servers' factorizations and
+    inits) takes the same library whichever other thread is capturing
+    meanwhile.  A thread never enters one kind inside the other."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._kind = self._saved = None
+        self._depth = 0
+
+    @contextlib.contextmanager
+    def __call__(self, library: Optional[str]):
+        with self._cv:
+            while self._depth and self._kind != library:
+                self._cv.wait()
+            if self._depth == 0:
+                self._kind = library
+                if library is not None:
+                    self._saved = \
+                        torch.backends.cuda.preferred_linalg_library()
+                    torch.backends.cuda.preferred_linalg_library(library)
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._depth -= 1
+                if self._depth == 0:
+                    if self._kind is not None:
+                        torch.backends.cuda.preferred_linalg_library(
+                            self._saved)
+                    self._cv.notify_all()
 
 
 #: cuSOLVER for ``torch.cholesky_solve`` (the unfused steps' Gram solves,
-#: ``core.apc._gram_solve``) while a history runs on the card: PyTorch's
+#: ``core.apc._gram_solve``) while a history is captured: PyTorch's
 #: default sends a batch of solves to MAGMA, whose batched solve stages
 #: its pointer arrays in host memory, which a graph cannot capture.
-_cusolver = _Shared(
-    _use_cusolver,
-    lambda prev: torch.backends.cuda.preferred_linalg_library(prev))
+_linalg = _Linalg()
+
+
+def default_linalg():
+    """A section on the process's own linalg preference: no capture's
+    cuSOLVER section runs meanwhile (``_Linalg``).  The servers compute
+    their store misses in one, so an entry's bits do not depend on the
+    schedule of the pipeline's threads."""
+    return _linalg(None)
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +369,7 @@ def run_history(h: History, state, iters: int, *, name: str = "history"):
     if _capture_disabled or iters == 0:
         return eager_history(h, state, iters)
     capture = _capturing(h.b)
-    with _cusolver() if capture else contextlib.nullcontext():
+    with _linalg("cusolver") if capture else contextlib.nullcontext():
         t0 = state.t
         head = min(CHUNK, iters)
         state, res, err = h.steps(state, head)
@@ -380,14 +422,15 @@ def _placement(A, factors) -> tuple:
 @dataclasses.dataclass
 class _Served:
     """One program of an executor: the placed A and factors it reads, its
-    static right-hand sides (and states, warm), and its outputs."""
+    static right-hand sides and states, and its outputs."""
     A: Any
     factors: Any
     Bb: torch.Tensor
-    static: Optional[list] = None     # warm: the states' buffers
-    states: Any = None                # warm: the states, on them
+    static: list                      # the states' buffers
+    states: Any                       # the states, on them
     program: Optional[_Program] = None
     out: Any = None                   # (states, X, res) of the last run
+    done: Any = None                  # the card: an event after the last run
 
 
 class LocalExecutor:
@@ -395,17 +438,20 @@ class LocalExecutor:
     batch: the counterpart of the reference's ``_LocalExecutor``.
 
     ``run(A, factors, Bb, states=None) -> (states, X, res)`` runs the cold
-    program (init + ``iters`` steps) or the warm one (``iters`` steps from
-    ``states``), with the lagged fused residual (``use_kernel`` on a
-    solver that has it, outside least squares) and the least-squares
-    optimality residual (``ls_mode``).  X is (k, n), res (k, iters).
+    program (``init`` from Bb, then ``iters`` steps) or the warm one
+    (``iters`` steps from ``states``), with the lagged fused residual
+    (``use_kernel`` on a solver that has it, outside least squares) and
+    the least-squares optimality residual (``ls_mode``).  X is (k, n), res
+    (k, iters).
 
     On the card the first run of a program — per cold/warm, placement of
-    A and the factors (their addresses), and batch shape — copies Bb (and
-    the states) into buffers the executor owns, runs a warm-up head
-    eagerly (init and the first :data:`CHUNK` steps), and captures the
-    program into one CUDA graph; every run then only copies its inputs
-    into those buffers and replays.  What it returns is cloned out of the
+    A and the factors (their addresses), and batch shape — copies Bb and
+    the states into buffers the executor owns, runs a warm-up head
+    eagerly (the first :data:`CHUNK` steps), and captures the ``iters``
+    steps into one CUDA graph; every run then only copies its inputs into
+    those buffers and replays.  ``init`` runs eagerly, outside the graph,
+    on the process's own linalg library (:func:`default_linalg`), as
+    ``solve_many``'s does.  What a run returns is cloned out of the
     graph's outputs, so a later replay never overwrites it.  The executor
     holds the placed A and factors, which the graph reads by address: a
     new placement is a new build and a new capture.  On the CPU the same
@@ -416,20 +462,19 @@ class LocalExecutor:
     programs held (the reference's ``jit_cache_size``).
 
     Serving (``solvers.serve``): :meth:`place_system` and :meth:`place_B`
-    put a system and a batch on ``device``; :meth:`drop` frees the
-    programs of a placement the server replaced.  Runs may come from
-    several threads at once (the async pipeline's pool): a lock held from
-    the copy into the static buffers to the clone out of the outputs
-    keeps them from racing, and the copies, the replay and the clones go
-    to the calling thread's current stream, whose order protects the
-    buffers after the lock is released.
+    put a system and a batch where the programs read them; :meth:`drop`
+    frees the programs of a placement the server no longer holds.  Runs
+    may come from several threads at once (the async pipeline's pool): a
+    lock held from the copy into the static buffers to the clone out of
+    the outputs keeps them from racing, and the copies, the replay and the
+    clones go to the calling thread's current stream, whose order protects
+    the buffers after the lock is released.
     """
 
     def __init__(self, solver, prm, iters: int, use_kernel: bool = False,
-                 ls_mode: bool = False, device=None):
+                 ls_mode: bool = False):
         self.solver, self.prm, self.iters = solver, dict(prm), iters
         self.use_kernel, self.ls_mode = use_kernel, ls_mode
-        self.device = torch.device("cpu" if device is None else device)
         self.fused = (use_kernel and solver.supports_fused_residual
                       and not ls_mode and iters > 0)
         self.builds = self.captures = 0
@@ -445,24 +490,28 @@ class LocalExecutor:
         copy of A or B is made."""
         return sys.A_op, factors
 
-    def place_B(self, Bb) -> torch.Tensor:
-        """A (k, m, p) right-hand-side batch on the executor's device,
-        copied in on the calling thread (the async pipeline's assembly
-        thread copies batch B+1 in while batch B runs)."""
-        return torch.as_tensor(Bb, device=self.device)
+    def place_B(self, Bb, A=None) -> torch.Tensor:
+        """A (k, m, p) right-hand-side batch on the device of the placed
+        ``A`` (:meth:`place_system`'s), or without it on the port's
+        default device (``device.resolve()``: the card), copied in on the
+        calling thread (the async pipeline's assembly thread copies batch
+        B+1 in while batch B runs)."""
+        where = (dev.resolve() if A is None
+                 else (A.vals if blockops.is_sparse(A) else A).device)
+        return torch.as_tensor(Bb, device=where)
 
     def drop(self, A, factors) -> int:
         """Free the programs of the placement (A, factors), which the
         graphs read by address: an evicted store entry must not live on
-        in a graph.  Waits for the device first, as a replay of them may
-        still run.  Returns the number dropped."""
+        in a graph.  First waits for each one's last run on the card,
+        which may still be under way.  Returns the number dropped."""
         placement = _placement(A, factors)
         with self._lock:
-            stale = [k for k in self._programs if k[1] == placement]
-            if stale and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            for k in stale:
-                del self._programs[k]
+            stale = [self._programs.pop(k) for k in list(self._programs)
+                     if k[1] == placement]
+        for served in stale:
+            if served.done is not None:
+                served.done.synchronize()
         return len(stale)
 
     def _history(self, served: _Served) -> History:
@@ -478,55 +527,53 @@ class LocalExecutor:
             s.extract, served.factors, Bb, served.A,
             residual_fn=residual_fn, step_residual=step_res, batched=True)
 
-    def _states(self, served: _Served):
-        if served.states is None:
-            return self.solver.init(served.factors, served.Bb, self.prm)
-        return served.states
-
     def _body(self, served: _Served, iters: int) -> None:
-        states, res, _ = eager_history(self._history(served),
-                                       self._states(served), iters)
+        states, res, _ = eager_history(self._history(served), served.states,
+                                       iters)
         served.out = (states, self.solver.extract(states), res)
 
     def _build(self, A, factors, Bb, states, key) -> _Served:
         self.builds += 1
-        cold = states is None
-        record(
-            f"build {self.solver.name}.{'cold' if cold else 'warm'}",
-            f"Bb {tuple(Bb.shape)} {Bb.dtype} {Bb.device}")
-        served = _Served(A=A, factors=factors, Bb=_static(Bb))
-        if not cold:
-            served.static = [_static(t) for t in _tensors(states)]
-            served.states = _with_tensors(states, served.static)
+        name = f"{self.solver.name}.{'cold' if key[0] else 'warm'}"
+        record(f"build {name}",
+               f"Bb {tuple(Bb.shape)} {Bb.dtype} {Bb.device}")
+        static = [_static(t) for t in _tensors(states)]
+        served = _Served(A=A, factors=factors, Bb=_static(Bb), static=static,
+                         states=_with_tensors(states, static))
+        if ops.on_cuda("history", Bb):
+            served.done = torch.cuda.Event()
         capture = _capturing(Bb)
-        if capture:
-            # the warm-up head: every kernel instance, library handle and
-            # module the graph launches is first launched outside it
-            self._body(served, min(CHUNK, self.iters))
-            self.captures += 1
-        served.program = _Program(
-            lambda: self._body(served, self.iters), capture=capture,
-            name=f"{self.solver.name}.{'cold' if cold else 'warm'}")
+        with _linalg("cusolver") if capture else contextlib.nullcontext():
+            if capture:
+                # the warm-up head: every kernel instance, library handle
+                # and module the graph launches is first launched outside
+                self._body(served, min(CHUNK, self.iters))
+                self.captures += 1
+            served.program = _Program(
+                lambda: self._body(served, self.iters), capture=capture,
+                name=name)
         self._programs[key] = served
         return served
 
     def run(self, A, factors, Bb: torch.Tensor, states=None):
-        key = (states is None, _placement(A, factors), tuple(Bb.shape),
-               Bb.dtype, Bb.device)
-        capture = _capturing(Bb)
-        with self._lock, \
-                _cusolver() if capture else contextlib.nullcontext():
+        cold = states is None
+        key = (cold, _placement(A, factors), tuple(Bb.shape), Bb.dtype,
+               Bb.device)
+        if cold:
+            with default_linalg():
+                states = self.solver.init(factors, Bb, self.prm)
+        with self._lock:
             served = self._programs.get(key)
             if served is None:
                 served = self._build(A, factors, Bb, states, key)
             served.Bb.copy_(Bb)
-            if states is not None:
-                for buf, t in zip(served.static, _tensors(states)):
-                    buf.copy_(t)
+            for buf, t in zip(served.static, _tensors(states)):
+                buf.copy_(t)
             served.program.run()
             out_states, X, res = served.out
             out_states = _with_tensors(out_states, [
                 t.clone() for t in _tensors(out_states)])
             X, res = X.clone(), res.clone()
-        t0 = 0 if states is None else states.t
-        return out_states._replace(t=t0 + self.iters), X, res
+            if served.done is not None:
+                served.done.record()
+        return out_states._replace(t=states.t + self.iters), X, res

@@ -42,11 +42,11 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, List, NamedTuple, Optional, Union
+from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
 
-from .serve import LinsysServer, Served, take_group
+from .serve import LinsysServer, Served, _Batch, take_group
 from .store import FactorStore
 
 __all__ = ["AsyncLinsysServer", "Shed", "Ticket"]
@@ -80,22 +80,6 @@ class _AsyncRequest(NamedTuple):
     rhs: np.ndarray
     future: Future
     t_submit: float
-
-
-class _Work(NamedTuple):
-    """One assembled batch handed from the assembly stage to the executor
-    pool: the placement it runs on and its batch already on the device."""
-    fp: str
-    ent: Any
-    ex: Any
-    group: List[_AsyncRequest]
-    n_real: int
-    A: Any                  # the placement (LocalExecutor.place_system)
-    factors: Any
-    src: Any                # the store entry it was placed from
-    Bb: np.ndarray          # host copy (warm-start repeat detection)
-    Bb_dev: Any             # device copy (place_B on the assembly thread)
-    warm: bool
 
 
 class AsyncLinsysServer(LinsysServer):
@@ -265,6 +249,9 @@ class AsyncLinsysServer(LinsysServer):
                     item = self._next_group()
             fp, group, n_real = item
             try:
+                # the sync server's assembly (store with the server's
+                # precision, placement, the batch's copy to the device) on
+                # THIS thread: the copy of batch B+1 overlaps batch B
                 work = self._assemble(fp, group, n_real)
             except Exception as e:               # noqa: BLE001 — stage must
                 self._complete_error(fp, group[:n_real], e)   # not die
@@ -276,32 +263,8 @@ class AsyncLinsysServer(LinsysServer):
                 self._inflight += 1
             self._pool.submit(self._execute, work)
 
-    def _assemble(self, fp: str, group, n_real: int) -> _Work:
-        """Store lookup, executor acquisition, placement and the batch's
-        copy to the device, as the sync ``step()`` does them (one assembly
-        thread, so the placement and executor caches need no lock).  The
-        store call passes the server's ``precision``: a mixed server's
-        entry is the bf16-cast one on this path too."""
-        ent = self._systems[fp]
-        factors = self.store.factors(self.solver, ent.sys, key=fp,
-                                     use_kernel=ent.use_kernel,
-                                     precision=self.precision, **ent.prm)
-        ex = self._executor(ent)
-        A, f, stale = self._place(ent, ex, factors)
-        if stale is not None:
-            ex.drop(*stale)
-        Bb = np.stack([r.rhs for r in group]).reshape(
-            len(group), ent.sys.m, ent.sys.p)
-        warm = self._warm_ok(ent, Bb)
-        # host->device on THIS thread: the copy of the next batch
-        # double-buffers behind the executing one
-        Bb_dev = ex.place_B(Bb)
-        return _Work(fp=fp, ent=ent, ex=ex, group=list(group),
-                     n_real=n_real, A=A, factors=f, src=factors, Bb=Bb,
-                     Bb_dev=Bb_dev, warm=warm)
-
     # ----- stage 3+4: execution pool, streaming completion ------------------
-    def _execute(self, w: _Work) -> None:
+    def _execute(self, w: _Batch) -> None:
         try:
             states, X, res = w.ex.run(
                 w.A, w.factors, w.Bb_dev,

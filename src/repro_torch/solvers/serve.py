@@ -113,8 +113,25 @@ class _System:
     A_placed: Any = None            # placed A (the system's own operand)
     factors_placed: Any = None      # placed factors (the store's entry)
     placed_src: Any = None          # store factors the placement came from
+                                    # (None: not placed, or released)
     last_states: Any = None         # prior batch's final states (warm start)
     last_Bb: Optional[np.ndarray] = None
+
+
+class _Batch(NamedTuple):
+    """One assembled batch (``LinsysServer._assemble``): the placement it
+    runs on and its right-hand sides, on the host and on the device."""
+    fp: str
+    ent: _System
+    ex: Any                 # its executor.LocalExecutor
+    group: list             # the requests, padding included
+    n_real: int
+    A: Any                  # the placement (LocalExecutor.place_system)
+    factors: Any
+    src: Any                # the store entry it was placed from
+    Bb: np.ndarray          # host copy (warm-start repeat detection)
+    Bb_dev: Any             # device copy (LocalExecutor.place_B)
+    warm: bool
 
 
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
@@ -255,8 +272,7 @@ class LinsysServer:
             self.stats.executor_builds += 1
             ex = executor.LocalExecutor(
                 self.solver, ent.prm, self.iters, use_kernel=ent.use_kernel,
-                ls_mode=ent.sys.mode == "least_squares",
-                device=ent.sys.device)
+                ls_mode=ent.sys.mode == "least_squares")
             self._executors[key] = ex
         return ex
 
@@ -267,19 +283,48 @@ class LinsysServer:
         executors meanwhile.)"""
         return sum(ex.cache_size() for ex in list(self._executors.values()))
 
-    def _place(self, ent: _System, ex, factors):
-        """Place ``factors`` for ``ent`` on the first batch and after the
-        store replaced its entry (an eviction): ``(A, factors, stale)``,
-        ``stale`` the replaced placement, whose programs the caller drops
-        (``LocalExecutor.drop``), or None."""
-        stale = None
-        if ent.placed_src is not factors:     # first batch / post-eviction
-            if ent.placed_src is not None:
-                stale = (ent.A_placed, ent.factors_placed)
+    def _release_evicted(self) -> None:
+        """Drop the placement of every system whose store entry the memory
+        tier no longer holds (an LRU eviction, a replaced entry), and the
+        executor's programs that read it: an evicted entry must not live
+        on, on the card, in a placement or a graph.  (Snapshots the
+        systems: ``register`` may add one meanwhile.)"""
+        for fp, ent in list(self._systems.items()):
+            if ent.placed_src is None or self.store.holds(fp,
+                                                          ent.placed_src):
+                continue
+            ex = self._executors.get(ent.executor_key)
+            if ex is not None:
+                ex.drop(ent.A_placed, ent.factors_placed)
+            ent.A_placed = ent.factors_placed = ent.placed_src = None
+
+    def _assemble(self, fp: str, group, n_real: int) -> _Batch:
+        """Everything a batch needs before it runs, for ``step`` and the
+        async server's assembly thread alike: the factors through the
+        store (with the server's ``precision``, on the process's own
+        linalg library whatever another thread captures meanwhile), the
+        release of evicted placements, the executor, this system's
+        placement, the warm-start decision and the batch's copy to the
+        device (on the calling thread)."""
+        ent = self._systems[fp]
+        with executor.default_linalg():
+            factors = self.store.factors(self.solver, ent.sys, key=fp,
+                                         use_kernel=ent.use_kernel,
+                                         precision=self.precision,
+                                         **ent.prm)
+        self._release_evicted()
+        ex = self._executor(ent)
+        if ent.placed_src is None:
             ent.A_placed, ent.factors_placed = ex.place_system(ent.sys,
                                                                factors)
             ent.placed_src = factors
-        return ent.A_placed, ent.factors_placed, stale
+        Bb = np.stack([r.rhs for r in group]).reshape(
+            len(group), ent.sys.m, ent.sys.p)
+        return _Batch(fp=fp, ent=ent, ex=ex, group=list(group),
+                      n_real=n_real, A=ent.A_placed,
+                      factors=ent.factors_placed, src=factors, Bb=Bb,
+                      Bb_dev=ex.place_B(Bb, ent.A_placed),
+                      warm=self._warm_ok(ent, Bb))
 
     def _results(self, fp, group, n_real, X, res, warm):
         X = X.cpu().numpy()
@@ -310,31 +355,17 @@ class LinsysServer:
         if not pending:
             return []
         fp = min(pending)[1]
-        ent = self._systems[fp]
         group, n_real = take_group(self._queues[fp], self.batch)
-
-        # every factor acquisition goes through the store (key precomputed
-        # at register(); the kernel augmentation once per slot)
-        factors = self.store.factors(self.solver, ent.sys, key=fp,
-                                     use_kernel=ent.use_kernel,
-                                     precision=self.precision, **ent.prm)
-        ex = self._executor(ent)
-        A, f, stale = self._place(ent, ex, factors)
-        if stale is not None:
-            ex.drop(*stale)
-
-        Bb = np.stack([r.rhs for r in group]).reshape(
-            len(group), ent.sys.m, ent.sys.p)
-        warm = self._warm_ok(ent, Bb)
-        states, X, res = ex.run(A, f, ex.place_B(Bb),
-                                ent.last_states if warm else None)
-        ent.last_states, ent.last_Bb = states, Bb
+        b = self._assemble(fp, group, n_real)
+        states, X, res = b.ex.run(b.A, b.factors, b.Bb_dev,
+                                  b.ent.last_states if b.warm else None)
+        b.ent.last_states, b.ent.last_Bb = states, b.Bb
 
         self.stats.batches += 1
         self.stats.served += n_real
         self.stats.padded += len(group) - n_real
-        self.stats.warm_batches += int(warm)
-        return self._results(fp, group, n_real, X, res, warm)
+        self.stats.warm_batches += int(b.warm)
+        return self._results(fp, group, n_real, X, res, b.warm)
 
     def drain(self):
         """Serve until every queue is empty; results in served order."""

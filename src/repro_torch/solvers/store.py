@@ -259,6 +259,11 @@ class FactorStore:
         """Drop the memory tier (the disk tier, if any, is untouched)."""
         self._mem.clear()
 
+    def holds(self, key: str, factors: Any) -> bool:
+        """Whether the memory tier's entry under ``key`` is ``factors``
+        itself (not evicted, not replaced).  Counts nothing."""
+        return self._mem.get(key) is factors
+
     # ----- keys ------------------------------------------------------------
     @staticmethod
     def _as_solver(solver):

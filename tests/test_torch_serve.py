@@ -11,8 +11,9 @@ for bit, backpressure and shedding.  Beyond them: served x against the
 reference server's at the parity tolerances; ``precision="mixed"``
 through the async server caches the bf16 entry the sync server caches
 (the reference's async server caches float64 factors under the mixed
-key, ROADMAP C); a store eviction drops the replaced placement's
-programs; the pipeline passes the reference's lock-discipline checker;
+key, ROADMAP C); a store eviction releases the evicted system's
+placement and programs; only a build and its capture hold cuSOLVER; a
+default-built executor places on the card; the pipeline passes the reference's lock-discipline checker;
 and the ``serve_linsys`` CLI prints the reference's lines.  Two tests run
 the captured path itself through the faked card's CUDA graphs of
 tests/test_torch_smoke.py, one of them with two executors capturing on
@@ -329,23 +330,117 @@ def test_distinct_params_get_distinct_executors(sys_a, sys_b):
 
 def test_eviction_drops_the_replaced_placement(sys_a, sys_b):
     """A store of capacity 1 over two systems: every batch evicts the
-    other system's entry and re-places its own.  The executor (shared:
-    same key) holds one program per LIVE placement, never one per
-    placement ever made, and no program holds an evicted entry."""
+    other system's entry, and the server releases that system's placement
+    and the executor's program that reads it at once, whether or not the
+    system is requested again.  The executor (shared: same key) holds the
+    one LIVE placement's program, and no program holds an evicted
+    entry."""
     store = FactorStore(capacity=1)
     srv = LinsysServer(store, solver="apc", iters=5, batch=1, **PRM)
     fps = [srv.register(sys_a), srv.register(sys_b)]
     rng = np.random.default_rng(1)
-    (ex,) = [None]
     for i in range(6):
         srv.submit(fps[i % 2], rng.standard_normal(48))
         srv.step()
         (ex,) = srv._executors.values()
-        assert ex.cache_size() == min(i + 1, 2), i
-        live = {id(srv._systems[fp].factors_placed) for fp in fps}
-        assert {id(p.factors) for p in ex._programs.values()} <= live
+        live, gone = srv._systems[fps[i % 2]], srv._systems[fps[1 - i % 2]]
+        assert ex.cache_size() == 1, i
+        (prog,) = ex._programs.values()
+        assert prog.factors is live.factors_placed
+        assert live.factors_placed is store._mem[fps[i % 2]]
+        assert gone.placed_src is None and gone.factors_placed is None
     assert store.stats.evictions == 5 and store.stats.misses == 6
     assert ex.builds == 6                     # every re-placement rebuilds
+
+
+def test_evicted_system_never_requested_again_is_released(sys_a, sys_b):
+    """A system whose entry the LRU evicts and which gets no more
+    requests keeps nothing: its placement and its program go at the next
+    batch of any system, also across executors (distinct parameters)."""
+    store = FactorStore(capacity=1)
+    srv = LinsysServer(store, solver="apc", iters=5, batch=1)
+    fa = srv.register(sys_a, **PRM)
+    fb = srv.register(sys_b, gamma=1.0, eta=0.5)
+    rng = np.random.default_rng(2)
+    srv.submit(fa, rng.standard_normal(48))
+    srv.step()
+    ex_a = srv._executors[srv._systems[fa].executor_key]
+    assert ex_a.cache_size() == 1
+    for _ in range(2):
+        srv.submit(fb, rng.standard_normal(48))
+        srv.step()
+        assert ex_a.cache_size() == 0
+        assert srv._systems[fa].placed_src is None
+        assert fa not in store
+    ex_b = srv._executors[srv._systems[fb].executor_key]
+    assert ex_b is not ex_a and ex_b.cache_size() == 1
+    assert srv.jit_cache_size() == 1
+
+
+def test_default_executor_places_on_the_card(sys_a, monkeypatch):
+    """``LocalExecutor`` takes no device: a batch goes where the placed A
+    lies, and without an A to the port's default device, the card (on a
+    host without one, ``device.resolve`` refuses)."""
+    ex = executor.LocalExecutor(solvers.get("apc"), PRM, 3)
+    Bb = np.zeros((2, sys_a.m, sys_a.p))
+    A, _ = ex.place_system(sys_a, None)
+    assert ex.place_B(Bb, A).device == sys_a.device
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ex.place_B(Bb)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    asked = []
+    as_tensor = torch.as_tensor
+    monkeypatch.setattr(torch, "as_tensor", lambda x, device=None: (
+        asked.append(device), as_tensor(x))[1])
+    ex.place_B(Bb)
+    assert asked == [torch.device("cuda")]
+
+
+def test_only_captures_hold_cusolver(sys_a, monkeypatch):
+    """The cuSOLVER preference is held around a build and its capture,
+    never around ``init`` (eager, outside the graph, as ``solve_many``'s)
+    or a replay; and a section on the process's own preference (a store
+    miss on the assembly thread) waits while another thread captures, so
+    a factorization's library never depends on the schedule."""
+    import threading
+    from test_torch_smoke import _Graph, fake_cuda_graphs
+    fake_cuda_graphs(monkeypatch)
+    monkeypatch.setattr(executor, "_capturing", lambda b: True)
+    lib = torch.backends.cuda.preferred_linalg_library
+    seen = []
+    s = solvers.get("apc")
+    init, replay = s.init, _Graph.replay
+    monkeypatch.setattr(s, "init", lambda *a: (seen.append(("init", lib())),
+                                               init(*a))[1])
+    monkeypatch.setattr(_Graph, "replay", lambda g: (
+        seen.append(("replay", lib())), replay(g))[1])
+    srv = _server(iters=20, batch=2, use_kernel=True)
+    fp = srv.register(sys_a)
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        for _ in range(2):
+            srv.submit(fp, rng.standard_normal(48))
+        srv.drain()
+    assert seen == [("init", "default"), ("replay", "default")] * 3, seen
+
+    entered, release = threading.Event(), threading.Event()
+    order = []
+
+    def capture():
+        with executor._linalg("cusolver"):
+            entered.set()
+            release.wait(10)
+            order.append(("capture", lib()))
+
+    t = threading.Thread(target=capture)
+    t.start()
+    entered.wait(10)
+    threading.Timer(0.2, release.set).start()
+    with executor.default_linalg():
+        order.append(("store miss", lib()))
+    t.join()
+    assert order == [("capture", "cusolver"), ("store miss", "default")]
 
 
 def test_served_through_captured_graphs(sys_a, monkeypatch):

@@ -475,7 +475,9 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert any("launches 176 of each kernel" in x for x in p14), p14
     assert any("warm_batches 3; the warm program captured once" in x
                for x in p14), p14
-    assert any("disk_hits 1 misses 0" in x for x in p14), p14
+    assert any("disk_hits 2 misses 0" in x for x in p14), p14
+    assert any("two systems from a cold store" in x
+               and "async bit-equal to sync for both" in x for x in p14), p14
     assert any(x.startswith("phase 14 serve_linsys --async: async pipeline")
                and "0 shed" in x for x in p14), p14
     assert any(x.startswith("phase 14 serve_linsys --async: factor store")
