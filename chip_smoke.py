@@ -119,7 +119,26 @@ script exits non-zero without its last line:
    fresh store: two disk hits, x bit-equal, write and read times); the
    ``serve_linsys``
    CLI sync and ``--async`` on one ``--store-dir`` (the second run a disk
-   hit) and the solve CLI with ``--ckpt-dir``/``--resume`` twice.
+   hit) and the solve CLI with ``--ckpt-dir``/``--resume`` twice;
+15. the kernel ops layer (after phase 14, with the card's clocks as in
+   phase 8): (a) the all-bf16 ``apc_gather``/``apc_scatter`` at the dense
+   main path's shapes, k = 1 and K_MANY, every instance
+   ``gather_instance`` admits against the plain version (8e-2 of
+   max|plain| + 1), timed beside the bytes bound, the plain version and
+   ``torch.matmul`` in bf16, and ``ops.block_projection`` all-bf16 end to
+   end; (b) the measured engine verdict (``ops.use_fused``, no pin) of the
+   four families at the dense and sparse main path's shapes, k = 1 and
+   K_MANY, with both times, then APC and Cimmino ``solve_many`` (k =
+   K_MANY, 150 iterations) on each system with no pin: the kernels
+   launched exactly where the verdict says fused, and the history within
+   1e-6 relative of the pinned-fused one; (c) each k-chunk pin
+   (``REPRO_KERNEL_BK`` 1, 2, 4, 8) on a K_MANY gather and scatter of the
+   main path against the plain version, timed in turns, the outputs of
+   the pins compared bit for bit, and the measured KC.
+
+Every other phase runs under ``REPRO_KERNEL_ENGINE=fused``, the pin the
+reference's own benchmarks use: the kernels those phases hold, count
+and time run whatever the measured engine verdict would choose.
 
 Every time is the median over rounds of a run of back-to-back calls
 between two CUDA events, divided by the run's length: the host's time
@@ -136,6 +155,7 @@ import gc
 import io
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -179,12 +199,18 @@ SPARSE_CORNERS = [dict(n=130, m=2, bandwidth=6), dict(n=24, m=24, bandwidth=2),
                   dict(n=1024, m=4, bandwidth=8)]
 LS_MID = dict(N=8192, n=4096, m=8, noise=0.5, seed=0)
 LS_ITERS = 600
-# (HBM bytes/s, float64 and float32 peak op/s) from NVIDIA's data sheets,
-# matched on the name nvidia-smi reports; the first match wins
-CARDS = [("H100 PCIe", 2.0e12, 51e12, 51e12),
-         ("H100 NVL", 3.9e12, 60e12, 60e12),
-         ("H200", 4.8e12, 67e12, 67e12),
-         ("H100", 3.35e12, 67e12, 67e12)]
+# (HBM bytes/s, float64, float32 and dense bf16 peak op/s) from NVIDIA's
+# data sheets, matched on the name nvidia-smi reports; the first match
+# wins
+CARDS = [("H100 PCIe", 2.0e12, 51e12, 51e12, 756e12),
+         ("H100 NVL", 3.9e12, 60e12, 60e12, 835e12),
+         ("H200", 4.8e12, 67e12, 67e12, 989e12),
+         ("H100", 3.35e12, 67e12, 67e12, 989e12)]
+# the all-bf16 form against its plain version: tests/test_kernels.py's
+# bf16 TOL, relative to max|plain| + 1
+BF16_TOL = 8e-2
+BF = "bfloat16/bfloat16"
+ENGINE_ENV, BK_ENV = "REPRO_KERNEL_ENGINE", "REPRO_KERNEL_BK"
 SOURCE = "src/repro_torch/kernels/csrc/block_projection.cu"
 REPLACES = {"apc_gather": "src/repro/kernels/block_projection.py:173",
             "apc_scatter": "src/repro/kernels/block_projection.py:210",
@@ -234,10 +260,37 @@ def clocks(label: str) -> None:
 
 
 def card_rates(name: str):
-    for key, bw, f64, f32 in CARDS:
+    for key, bw, f64, f32, b16 in CARDS:
         if key in name:
-            return bw, {torch.float64: f64, torch.float32: f32}
+            return bw, {torch.float64: f64, torch.float32: f32,
+                        torch.bfloat16: b16}
     raise RuntimeError(f"no bandwidth/peak entry for card {name!r}")
+
+
+@contextlib.contextmanager
+def env_var(name: str, value):
+    """The environment variable ``name`` set to ``value`` (removed for
+    None) inside, as it was after."""
+    prev = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+
+
+def randn(seed: int, *shape, dtype=torch.float64) -> torch.Tensor:
+    """Seeded standard normals made on the card (a host array of the main
+    path's size takes seconds to fill), in ``dtype``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=gen, device="cuda",
+                       dtype=torch.float32).to(dtype)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -252,6 +305,8 @@ def pair_label(matrix: torch.Tensor, x: torch.Tensor) -> str:
 
 
 # the mangled matrix/compute types of a kernel instance, and their names
+# (a substitution, "S<n>_", for the compute type: it repeats the matrix
+# type, the all-bf16 form)
 MANGLED = {"d": (torch.float64, "f64"), "f": (torch.float32, "f32"),
            "13__nv_bfloat16": (BF16, "bf16")}
 
@@ -267,11 +322,11 @@ def ptxas_summary(log: str, dynamic_smem) -> list[str]:
     out, kernel = [], None
     for line in log.splitlines():
         hit = re.search(r"entry function '\S*?((?:apc|cimmino|sparse)_\w+?)"
-                        r"_kernelI(d|f|13__nv_bfloat16)([df])Li(\d+)E"
+                        r"_kernelI(d|f|13__nv_bfloat16)([df]|S\d*_)Li(\d+)E"
                         r"(?:Li\d+E)?(?:Lb([01]))?", line)
         if hit:
             mdtype, mname = MANGLED[hit[2]]
-            dtype, name = MANGLED[hit[3]]
+            dtype, name = MANGLED.get(hit[3], (mdtype, mname))
             tag = name if mname == name else f"{mname}/{name}"
             kernel = (f"{hit[1]} {tag} KC={hit[4]}"
                       + ("" if hit[5] is None else
@@ -755,6 +810,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs a CUDA device", file=sys.stderr)
         return 1
+    with env_var(ENGINE_ENV, "fused"):
+        return phases()
+
+
+def phases() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import solvers
     from repro_torch.analysis import tracecheck
@@ -798,6 +858,10 @@ def main() -> int:
         assert all(" spill 0 B:" in x for x in rings), rings
         assert {x.split()[0] for x in rings} == {
             f"{kn}_ring" for kn in bp.RINGS}, rings
+    # the all-bf16 form: the APC pair's two instances alone
+    assert {x.split()[0] for x in ptxas if x.split()[1] == "bf16"} == {
+        f"{kn}{inst}" for kn in bp.ALL_BF16 for inst in ("", "_ring")}, \
+        ptxas
 
     # 2. kernel vs plain version ------------------------------------------
     max_abs = {}             # (kernel, form) -> max|Δ| at the main shapes
@@ -1230,7 +1294,7 @@ def main() -> int:
         names = {v: inst for inst, v in bp.INSTANCES.items()}
 
         def spy(name, matrix, out, *args):
-            seen.add((name, names[args[-1]]))
+            seen.add((name, names[args[-2]]))     # the instance, then kc
             return launch(name, matrix, out, *args)
         bp._launch = spy
         try:
@@ -2162,6 +2226,195 @@ def main() -> int:
     # 14. serving: the factor store, the servers, the CLI -----------------
     serving_phase(card, form_launches, pinned["apc"][0], sp, sp_pinned)
 
+    # 15. the kernel ops layer: all-bf16, engine verdicts, k-chunks --------
+    t15 = time.time()
+    clocks("phase 15 start")
+    dm, dp, dn = FULL["m"], FULL["N"] // FULL["m"], FULL["n"]
+    shape = f"m={dm} p={dp} n={dn}"
+    # (a) the all-bf16 apc_gather/apc_scatter at the dense main path's
+    # shapes; the scatter takes the plain gather's U (bf16, as between the
+    # two passes)
+    bf_launches = {}
+    A16 = randn(151, dm, dp, dn, dtype=BF16)
+    B16 = randn(152, dm, dn, dp, dtype=BF16)
+    for k in (1, K_MANY):
+        X16 = randn(153 + k, k, dm, dn, dtype=BF16).transpose(0, 1)
+        Xb16 = randn(154 + k, k, dn, dtype=BF16)
+        U16 = ops.apc_gather_ref(A16, X16, Xb16)
+        Y16 = ops.apc_scatter_ref(B16, X16, Xb16, U16, 0.9)
+        torch.cuda.synchronize()
+        mkn, mkp, kn_, mpn = dm * k * dn, dm * k * dp, k * dn, dm * dp * dn
+        specs = {
+            "apc_gather": dict(
+                launch=lambda inst=None: bp.apc_gather(A16, X16, Xb16,
+                                                      _instance=inst),
+                want=U16, fits=bp.gather_instance(A16, X16, Xb16),
+                default=bp.gather_instance(A16, X16, Xb16),
+                plain=lambda: ops.apc_gather_ref(A16, X16, Xb16),
+                library=lambda D=Xb16 - X16: torch.matmul(
+                    D, A16.transpose(1, 2)),
+                work=(2 * (mpn + mkn + kn_ + mkp), 2 * dm * k * dp * dn
+                      + mkn)),
+            "apc_scatter": dict(
+                launch=lambda inst=None: bp.apc_scatter(
+                    B16, X16, Xb16, U16, 0.9, _instance=inst),
+                want=Y16, fits=bp.gather_instance(B16, U16),
+                default=bp.gather_instance(B16, U16, scatter=True),
+                plain=lambda: ops.apc_scatter_ref(B16, X16, Xb16, U16, 0.9),
+                library=lambda: torch.matmul(U16, B16.transpose(1, 2)),
+                work=(2 * (mpn + 2 * mkn + kn_ + mkp), 2 * dm * k * dp * dn
+                      + 4 * mkn)),
+        }
+        timed = {}
+        for kname, sp_ in specs.items():
+            insts = [i for i in bp.INSTANCES
+                     if i == "row_dot" or sp_["fits"] == "ring"]
+            outs = {i: sp_["launch"](i) for i in insts}
+            torch.cuda.synchronize()
+            errs = {i: rel_err(o, sp_["want"]) for i, o in outs.items()}
+            for i, (e, _) in errs.items():
+                assert outs[i].dtype == BF16 and e < BF16_TOL, (kname, k, i,
+                                                                e)
+            max_abs[(kname, BF)] = max(
+                [max_abs.get((kname, BF), 0.0)]
+                + [d for _, d in errs.values()])
+            same = (torch.equal(outs["ring"], outs["row_dot"])
+                    if "ring" in outs else None)
+            say(f"phase 15 {kname} k={k} {shape} {BF}: " + "; ".join(
+                f"{i} {e:.3e}" for i, (e, _) in errs.items())
+                + f" (tol {BF16_TOL:.0e}); ring≡row_dot {same}; the "
+                f"launcher takes the {sp_['default']}")
+            timed.update({(kname, "ms"): sp_["launch"],
+                          (kname, "row_dot_ms"): lambda f=sp_["launch"]: f(
+                              "row_dot"),
+                          (kname, "plain_ms"): sp_["plain"],
+                          (kname, "library_ms"): sp_["library"]})
+            if kname in bp.SCATTERS and sp_["fits"] == "ring":
+                timed[(kname, "ring_ms")] = lambda f=sp_["launch"]: f("ring")
+        t = medians_ms(timed)
+        for kname, sp_ in specs.items():
+            f = {key: v for (kn, key), v in t.items() if kn == kname}
+            f["bound_ms"], f["bound_by"] = bound(sp_["work"], BF16)
+            rows[(kname, k)]["forms"][BF] = f
+            b_ = f["bound_ms"]
+            say(f"phase 15 {kname} k={k} {shape} {BF}: {f['ms']:.4f} ms "
+                f"(bound {b_:.4f} ms by {f['bound_by']}, "
+                f"{b_ / f['ms']:.1%} of it), row-dot instance "
+                f"{f['row_dot_ms']:.4f} ms"
+                + (f", ring instance {f['ring_ms']:.4f} ms"
+                   if "ring_ms" in f else "")
+                + f", plain {f['plain_ms']:.4f} ms, torch.matmul bf16 "
+                f"{f['library_ms']:.4f} ms [{card}]")
+        # ops.block_projection all-bf16 end to end (k = 1: no batch axis)
+        Xe, Xbe = (X16[:, 0], Xb16[0]) if k == 1 else (X16, Xb16)
+        ops.reset_launch_counts()
+        Y = ops.block_projection(A16, B16, Xe, Xbe, 0.9)
+        got = bf_launches[k] = form_launches("bf16_bf16")
+        assert got == {kn: 1 if kn in USES["apc"] else 0
+                       for kn in bp.KERNELS}, got
+        e, _ = rel_err(Y, ops.block_projection_ref(A16, B16, Xe, Xbe, 0.9))
+        assert Y.dtype == BF16 and Y.shape == Xe.shape and e < BF16_TOL, e
+        say(f"phase 15 ops.block_projection k={k} {shape} {BF}: vs plain "
+            f"{e:.3e} (tol {BF16_TOL:.0e}), launches {got}")
+        del X16, Xb16, U16, Y16, Y, timed, specs
+    del A16, B16
+    # (b) the measured engine verdicts, no pin, then solves under them
+    t = time.time()
+    dsys = linsys.tall_gaussian(**FULL, seed=0, device="cuda")
+    dfac = solver.kernel_factors(solver.prepare(dsys.A_op, {}))
+    torch.cuda.synchronize()
+    say(f"phase 15 data: the dense main path regenerated, its kernel "
+        f"factors, in {time.time() - t:.2f} s")
+    sw = fs.A.vals.shape[2]
+    where = {"apc": (dfac.A, dp, dn, None), "cimmino": (dfac.A, dp, dn, None),
+             "apc_sparse": (fs.A.vals, sp.p, sp.n, sw),
+             "cimmino_sparse": (fs.A.vals, sp.p, sp.n, sw)}
+    verdicts = {}
+    with env_var(ENGINE_ENV, None):
+        for family, (M, fp_, fn_, fw) in where.items():
+            for k in (1, K_MANY):
+                t = time.time()
+                v = verdicts[(family, k)] = ops.use_fused(
+                    family, fp_, fn_, k, M.dtype, w=fw, device=M.device,
+                    compute_dtype=torch.float64)
+                times = ops.engine_times.get(ops.engine_key(
+                    family, fp_, fn_, k, M.dtype, w=fw))
+                say(f"phase 15 engine {family} k={k} p={fp_} n={fn_}"
+                    + ("" if fw is None else f" w={fw}") + " float64: "
+                    + ("not measured (the heuristic)" if times is None else
+                       f"fused {times[0] * 1e3:.4f} ms, unfused "
+                       f"{times[1] * 1e3:.4f} ms (best of 5, "
+                       f"{ops._MEAS_WORKERS} workers; fused wins within "
+                       f"{ops._ENGINE_MARGIN})")
+                    + f" -> {'fused' if v else 'unfused'}, resolved in "
+                    f"{time.time() - t:.2f} s [{card}]")
+    for label, system, facs, prm_of, uses, fam in (
+            ("dense", dsys, dfac, pinned, USES, ""),
+            ("sparse", sp, fs, sp_pinned, SPARSE_USES, "_sparse")):
+        _, Bk = consistent_rhs(system, 9)
+        plan = solvers.ExecutionPlan(kernel=True, factors=facs)
+        for sname in ("apc", "cimmino"):
+            s, prm = solvers.get(sname), prm_of[sname][0]
+            fused = verdicts[(sname + fam, K_MANY)]
+            with env_var(ENGINE_ENV, None):
+                ops.reset_launch_counts()
+                r = s.solve_many(system, Bk, iters=ITERS, plan=plan, **prm)
+                torch.cuda.synchronize()
+                got = ops.launch_counts()
+            assert got == {kn: ITERS if fused and kn in uses[sname] else 0
+                           for kn in bp.KERNELS}, (label, sname, got)
+            r_f = s.solve_many(system, Bk, iters=ITERS, plan=plan, **prm)
+            d = float(((r.residuals - r_f.residuals).abs()
+                       / r_f.residuals.abs()).max())
+            assert torch.allclose(r.residuals, r_f.residuals, rtol=1e-6,
+                                  atol=1e-12), (label, sname, d)
+            say(f"phase 15 {label} {sname} solve_many k={K_MANY} no pin: "
+                f"verdict {'fused' if fused else 'unfused'}, launches "
+                f"{got}; history vs the pinned-fused one max rel "
+                f"{d:.3e}")
+    # (c) each k-chunk pin on a K_MANY gather and scatter of the main path
+    X8 = randn(160, K_MANY, dm, dn).transpose(0, 1)
+    Xb8 = randn(161, K_MANY, dn)
+    U8 = ops.apc_gather_ref(dfac.A, X8, Xb8)
+    Y8 = ops.apc_scatter_ref(dfac.B, X8, Xb8, U8, 0.9)
+    outs = {}
+    for kc in bp.KC_VALUES:
+        with env_var(BK_ENV, str(kc)):
+            outs[kc] = (ops.proj_gather(dfac.A, X8, Xb8),
+                        ops.proj_scatter(dfac.B, X8, Xb8, U8, 0.9))
+        torch.cuda.synchronize()
+        for got, want in zip(outs[kc], (U8, Y8)):
+            assert rel_err(got, want)[0] < TOL[torch.float64], kc
+    with env_var(BK_ENV, "16"):     # divides k = 16, not instantiated
+        try:
+            ops.proj_gather(randn(162, 2, 8, 128), randn(163, 2, 16, 128),
+                            randn(164, 16, 128))
+            raise AssertionError("REPRO_KERNEL_BK=16 launched")
+        except ValueError as e:
+            refused = str(e)
+    same = all(torch.equal(outs[kc][i], outs[1][i]) for kc in bp.KC_VALUES
+               for i in (0, 1))
+    kc_ms = medians_ms({(kn, kc): (
+        (lambda kc=kc: bp.apc_gather(dfac.A, X8, Xb8, kc=kc))
+        if kn == "apc_gather" else
+        (lambda kc=kc: bp.apc_scatter(dfac.B, X8, Xb8, U8, 0.9, kc=kc)))
+        for kn in USES["apc"] for kc in bp.KC_VALUES})
+    measured = {key: v for key, v in ops.tile_cache().items()
+                if key[:3] == (K_MANY, dp, dn)}
+    say(f"phase 15 KC pins k={K_MANY} {shape} float64: each against the "
+        f"plain version within {TOL[torch.float64]:.0e}; outputs bit-equal "
+        f"across the pins {same}; " + "; ".join(
+            f"KC={kc} apc_gather {kc_ms[('apc_gather', kc)]:.4f} ms "
+            f"apc_scatter {kc_ms[('apc_scatter', kc)]:.4f} ms"
+            for kc in bp.KC_VALUES)
+        + f" (in turns); the tile cache at these shapes {measured}; a pin "
+        f"of 16 refused: {refused} [{card}]")
+    del dsys, dfac, X8, Xb8, U8, Y8, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    clocks("phase 15 end")
+    say(f"phase 15: {time.time() - t15:.1f} s")
+
     main_launches.update(
         {kn: sparse_launches["apc" if kn in SPARSE_USES["apc"]
                              else "cimmino"][kn]
@@ -2176,7 +2429,8 @@ def main() -> int:
 
     form_main = {F64: main_launches, F32: by_kernel(f32_launches),
                  "bfloat16/float64": by_kernel(mixed_launches),
-                 "bfloat16/float32": by_kernel(mixed32_launches)}
+                 "bfloat16/float32": by_kernel(mixed32_launches),
+                 BF: bf_launches[1]}
     kernels = []
     for kname in bp.KERNELS:
         r = rows[(kname, 1)]

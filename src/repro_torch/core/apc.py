@@ -13,7 +13,7 @@ Cholesky solve against the stored factor L_i of G_i = A_i A_i^T.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -86,3 +86,26 @@ def apc_step(A: torch.Tensor, chol: torch.Tensor, state: APCState,
     """One full unfused APC iteration (all workers + master)."""
     return master_update(worker_update(A, chol, state, gamma)[0], state,
                          eta)
+
+
+def solve(sys, *, iters: int = 1000, gamma: Optional[float] = None,
+          eta: Optional[float] = None, use_kernel: bool = False,
+          jitter: float = 0.0):
+    """Deprecated shim — delegates to ``repro_torch.solvers.get("apc")
+    .solve`` (the reference's ``repro.core.apc.solve``, silent as it is).
+
+    New code goes through the registry, which also provides
+    ``solve_many`` and warm starts (``ExecutionPlan(warm_state=...)``).
+    """
+    from repro_torch import solvers
+    return solvers.get("apc").solve(
+        sys, iters=iters, plan=solvers.ExecutionPlan(kernel=use_kernel),
+        gamma=gamma, eta=eta, jitter=jitter)
+
+
+def __getattr__(name):
+    # lazy alias of the unified result type (no import cycle at init)
+    if name == "SolveResult":
+        from repro_torch.solvers.api import SolveResult
+        return SolveResult
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

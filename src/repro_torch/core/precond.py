@@ -6,10 +6,12 @@ and in parallel (O(p^2 n) one-time work).  The transformed global system
 C x = d has kappa(C^T C) = kappa(X), so distributed heavy-ball on it
 attains the APC rate.  The p x p inverse square roots come from
 ``torch.linalg.eigh`` of all m Grams at once, in float64 on the system's
-device.  The deprecated ``preconditioned_dhbm`` shim is ROADMAP A18;
-``repro_torch.solvers.get("pdhbm")`` is the solve surface.
+device.  ``repro_torch.solvers.get("pdhbm")`` is the solve surface;
+``preconditioned_dhbm`` is its deprecated shim.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -39,3 +41,17 @@ def precondition(sys: BlockSystem) -> BlockSystem:
     d = torch.einsum("mpq,mq->mp", S, sys.b_blocks.to(torch.float64))
     dt = sys.A_blocks.dtype
     return BlockSystem(C.to(dt), d.to(dt), sys.x_true)
+
+
+def preconditioned_dhbm(sys: BlockSystem, *, iters: int = 1000,
+                        alpha: Optional[float] = None,
+                        beta: Optional[float] = None):
+    """Deprecated shim — delegates to ``repro_torch.solvers.get("pdhbm")``
+    (the reference's, silent as it is).
+
+    C^T C = m X exactly, so the optimal (alpha, beta) come from the
+    spectrum of X without an eigensolve on C.
+    """
+    from repro_torch import solvers
+    return solvers.get("pdhbm").solve(sys, iters=iters, alpha=alpha,
+                                      beta=beta)

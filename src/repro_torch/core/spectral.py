@@ -103,6 +103,11 @@ def apc_optimal(mu_min: float, mu_max: float) -> APCParams:
     return APCParams(gamma=gamma, eta=eta, rho=rho)
 
 
+def apc_rate(mu_min: float, mu_max: float) -> float:
+    """Theorem 1's optimal APC rate rho for the extremes of X."""
+    return apc_optimal(mu_min, mu_max).rho
+
+
 def dgd_optimal(lmin: float, lmax: float) -> tuple[float, float]:
     """(alpha*, rho*) for distributed gradient descent on ||Ax-b||^2:
     alpha = 2/(lmin+lmax), rho = (kappa-1)/(kappa+1)."""

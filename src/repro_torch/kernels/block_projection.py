@@ -33,11 +33,20 @@ warps), and the "row dot" for the shapes the ring cannot copy.
 same kernel.
 
 Each kernel takes its matrix (A, B, vals or Bvals) in a storage dtype
-beside the compute dtype of the other operands, which is also its
-accumulation and output dtype (the reference's ``_acc_dtype`` follows
-X): float64/float64, float32/float32, and the bf16-stored forms of
-``precision="mixed"``, bfloat16/float64 and bfloat16/float32.  Each
-pair has its own C entries (:data:`PAIRS`).
+beside the compute dtype of the other operands, which is also its output
+dtype and, but for bfloat16, its accumulation dtype (the reference's
+``_acc_dtype`` follows X): float64/float64, float32/float32, the
+bf16-stored forms of ``precision="mixed"``, bfloat16/float64 and
+bfloat16/float32, and for ``apc_gather``/``apc_scatter`` alone the
+all-bf16 form, bfloat16/bfloat16, which accumulates in float32 and
+rounds U and Y to bfloat16 (:data:`ALL_BF16`).  Each pair has its own C
+entries (:data:`PAIRS`).
+
+Every launcher takes ``kc``, the k-chunk of its launch (the batch rows a
+block carries: one of :data:`KC_VALUES`, the instances the library
+holds; ``None`` for the library's own choice, the smallest that holds k
+rows, at most 8).  ``ops`` passes a pinned or measured one
+(``REPRO_KERNEL_BK``, ``ops.pick_tiles``).
 """
 from __future__ import annotations
 
@@ -76,7 +85,24 @@ RINGS = GATHERS + SCATTERS
 PAIRS = {(torch.float64, torch.float64): "f64",
          (torch.float32, torch.float32): "f32",
          (torch.bfloat16, torch.float64): "bf16_f64",
-         (torch.bfloat16, torch.float32): "bf16_f32"}
+         (torch.bfloat16, torch.float32): "bf16_f32",
+         (torch.bfloat16, torch.bfloat16): "bf16_bf16"}
+#: the kernels with the all-bf16 entries (the reference reaches its
+#: bfloat16 x only through ``ops.block_projection``); the other five take
+#: the first four pairs of :data:`PAIRS`
+ALL_BF16 = ("apc_gather", "apc_scatter")
+#: the k-chunks the library instantiates (csrc/block_projection.cu
+#: with_kc)
+KC_VALUES = (1, 2, 4, 8)
+
+
+def pairs(name: str) -> dict:
+    """The dtype pairs of :data:`PAIRS` that kernel ``name`` has C entries
+    for."""
+    if name in ALL_BF16:
+        return PAIRS
+    return {pr: sfx for pr, sfx in PAIRS.items() if sfx != "bf16_bf16"}
+
 
 #: the instances of the kernels in :data:`RINGS`, by the int64 their C
 #: entries take (csrc/block_projection.cu kRowDot, kRing)
@@ -90,7 +116,7 @@ _ALIGN = 16
 
 #: launches so far, by (kernel, suffix of its dtype pair's C entry)
 _launches = {(name, suffix): 0 for name in KERNELS
-             for suffix in PAIRS.values()}
+             for suffix in pairs(name).values()}
 _libs: dict = {}
 
 
@@ -139,7 +165,9 @@ def captured_launches():
     capture, which runs none of them: they stay out of the counts, in the
     dict this yields, by (kernel, pair), for :func:`add_launches` to add
     at each replay of the graph.  The counts then hold the launches the
-    device ran, whatever other threads launch meanwhile."""
+    device ran, whatever other threads launch meanwhile.  ``ops``' engine
+    and tile measurements run inside too: their launches on dummy
+    operands are no launch of the path they choose for."""
     prev, held = getattr(_capture, "held", None), {}
     _capture.held = held
     try:
@@ -208,29 +236,30 @@ def build(sources=SOURCES) -> dict:
 
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
 #: ctypes argument types of each C entry (``<kernel>_<suffix>``, every
-#: suffix of :data:`PAIRS`), in the order of the extern "C" signatures in
-#: csrc/block_projection.cu
+#: suffix of :func:`pairs`), in the order of the extern "C" signatures in
+#: csrc/block_projection.cu; ``kc`` 0 is the library's own k-chunk
 ARGTYPES = {
     # A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k, su_w, su_k, instance,
-    # stream
-    "apc_gather": [_PTR] * 4 + [_I64] * 10 + [_PTR],
+    # kc, stream
+    "apc_gather": [_PTR] * 4 + [_I64] * 11 + [_PTR],
     # B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w, sx_k, sxb_k, su_w, su_k,
-    # sy_w, sy_k, instance, stream
-    "apc_scatter": [_PTR] * 4 + [ctypes.c_double, _PTR] + [_I64] * 12
+    # sy_w, sy_k, instance, kc, stream
+    "apc_scatter": [_PTR] * 4 + [ctypes.c_double, _PTR] + [_I64] * 13
     + [_PTR],
-    # A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k, instance, stream
-    "cimmino_gather": [_PTR] * 3 + [_I64] * 8 + [_PTR],
-    # B, V, R, m, n, p, k, sv_w, sv_k, sr_w, sr_k, instance, stream
-    "cimmino_scatter": [_PTR] * 3 + [_I64] * 9 + [_PTR],
+    # A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k, instance, kc, stream
+    "cimmino_gather": [_PTR] * 3 + [_I64] * 9 + [_PTR],
+    # B, V, R, m, n, p, k, sv_w, sv_k, sr_w, sr_k, instance, kc, stream
+    "cimmino_scatter": [_PTR] * 3 + [_I64] * 10 + [_PTR],
     # vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k, sxb_k, su_w, su_k,
-    # instance, stream
-    "sparse_gather": [_PTR] * 5 + [_I64] * 10 + [_PTR],
-    # vals, cols, Xbar, U, m, p, w, k, sxb_k, su_w, su_k, instance, stream
-    "sparse_cimmino_gather": [_PTR] * 4 + [_I64] * 8 + [_PTR],
+    # instance, kc, stream
+    "sparse_gather": [_PTR] * 5 + [_I64] * 11 + [_PTR],
+    # vals, cols, Xbar, U, m, p, w, k, sxb_k, su_w, su_k, instance, kc,
+    # stream
+    "sparse_cimmino_gather": [_PTR] * 4 + [_I64] * 9 + [_PTR],
     # Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, k, sx_w, sx_k, sxb_k,
-    # su_w, su_k, sy_w, sy_k, instance, stream (X and Xbar null: the
+    # su_w, su_k, sy_w, sy_k, instance, kc, stream (X and Xbar null: the
     # Cimmino form)
-    "sparse_scatter": [_PTR] * 5 + [ctypes.c_double, _PTR] + [_I64] * 12
+    "sparse_scatter": [_PTR] * 5 + [ctypes.c_double, _PTR] + [_I64] * 13
     + [_PTR],
 }
 #: the ring's dynamic shared memory query: (matrix itemsize, itemsize, k,
@@ -243,7 +272,7 @@ def _library() -> ctypes.CDLL:
         return _libs["block_projection"]
     lib = ctypes.CDLL(str(build()["block_projection.cu"]))
     for kernel, argtypes in ARGTYPES.items():
-        for suffix in PAIRS.values():
+        for suffix in pairs(kernel).values():
             fn = getattr(lib, f"{kernel}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -311,13 +340,24 @@ def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
     return "ring" if fits else "row_dot"
 
 
+def _kc(kc) -> int:
+    """The entries' kc argument: 0 (the library's own) for None, else one
+    of :data:`KC_VALUES`."""
+    if kc is None:
+        return 0
+    if kc not in KC_VALUES:
+        raise ValueError(f"k-chunk {kc!r} is not instantiated; the kernels "
+                         f"take KC in {KC_VALUES}")
+    return int(kc)
+
+
 def _check(name: str, index=None, **operands) -> dict:
     """Shared launcher checks; returns the size of every named axis.
 
     ``operands`` maps a label to ``(tensor, axes)``, ``axes`` naming each
     dimension ("mpn", "mkn", "kn", ...): every tensor must be on one CUDA
     device, the first operand (the matrix stack) in the matrix dtype and
-    every other in one compute dtype, a pair of :data:`PAIRS`; every
+    every other in one compute dtype, a pair of ``pairs(name)``; every
     axis letter must bind to one size, the matrix stack must be
     contiguous and the others need a unit stride along their last axis.
     ``index`` is the sparse kernels' ``(cols, "mw")``: a contiguous int64
@@ -346,10 +386,10 @@ def _check(name: str, index=None, **operands) -> dict:
                         f"{sorted(map(str, dtypes))}; every operand but "
                         f"the matrix must share one dtype")
     pair = (matrix.dtype, dtypes.pop())
-    if pair not in PAIRS:
+    if pair not in pairs(name):
         raise TypeError(f"{name}: matrix {pair[0]} with operands {pair[1]} "
                         f"unsupported; the kernel takes "
-                        + ", ".join(f"{a}/{b}" for a, b in PAIRS))
+                        + ", ".join(f"{a}/{b}" for a, b in pairs(name)))
     sizes: dict = {}
     for i, (label, (t, axes)) in enumerate(operands.items()):
         if t.dim() != len(axes) or any(
@@ -383,7 +423,7 @@ def _launch(name: str, matrix: torch.Tensor, out: torch.Tensor,
 
 
 def apc_gather(A: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor, *,
-               _instance: str = None) -> torch.Tensor:
+               kc: int = None, _instance: str = None) -> torch.Tensor:
     """U = (X̄ − X)·Aᵀ for every worker, in one launch.
 
     A (m, p, n) contiguous; X (m, k, n) with unit stride along n (any
@@ -397,12 +437,12 @@ def apc_gather(A: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor, *,
     _launch("apc_gather", A, U, A.data_ptr(), X.data_ptr(),
             Xbar.data_ptr(), U.data_ptr(), d["m"], d["p"], d["n"], d["k"],
             X.stride(0), X.stride(1), Xbar.stride(0), U.stride(0),
-            U.stride(1), INSTANCES[instance])
+            U.stride(1), INSTANCES[instance], _kc(kc))
     return U
 
 
 def apc_scatter(B: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor,
-                U: torch.Tensor, gamma: float, *,
+                U: torch.Tensor, gamma: float, *, kc: int = None,
                 _instance: str = None) -> torch.Tensor:
     """Y = X + γ((X̄ − X) − U·Bᵀ) for every worker, in one launch.
 
@@ -420,11 +460,11 @@ def apc_scatter(B: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor,
             Xbar.data_ptr(), U.data_ptr(), float(gamma), Y.data_ptr(),
             d["m"], d["n"], d["p"], d["k"], X.stride(0), X.stride(1),
             Xbar.stride(0), U.stride(0), U.stride(1), Y.stride(0),
-            Y.stride(1), INSTANCES[instance])
+            Y.stride(1), INSTANCES[instance], _kc(kc))
     return Y
 
 
-def cimmino_gather(A: torch.Tensor, Xbar: torch.Tensor, *,
+def cimmino_gather(A: torch.Tensor, Xbar: torch.Tensor, *, kc: int = None,
                    _instance: str = None) -> torch.Tensor:
     """U = X̄·Aᵀ for every worker, in one launch.
 
@@ -439,11 +479,12 @@ def cimmino_gather(A: torch.Tensor, Xbar: torch.Tensor, *,
                     device=A.device)
     _launch("cimmino_gather", A, U, A.data_ptr(),
             Xbar.data_ptr(), U.data_ptr(), d["m"], d["p"], d["n"], d["k"],
-            Xbar.stride(0), U.stride(0), U.stride(1), INSTANCES[instance])
+            Xbar.stride(0), U.stride(0), U.stride(1), INSTANCES[instance],
+            _kc(kc))
     return U
 
 
-def cimmino_scatter(B: torch.Tensor, V: torch.Tensor, *,
+def cimmino_scatter(B: torch.Tensor, V: torch.Tensor, *, kc: int = None,
                     _instance: str = None) -> torch.Tensor:
     """R = V·Bᵀ for every worker, in one launch.
 
@@ -458,13 +499,14 @@ def cimmino_scatter(B: torch.Tensor, V: torch.Tensor, *,
     R = torch.empty((d["m"], d["k"], d["n"]), dtype=V.dtype, device=B.device)
     _launch("cimmino_scatter", B, R, B.data_ptr(), V.data_ptr(),
             R.data_ptr(), d["m"], d["n"], d["p"], d["k"], V.stride(0),
-            V.stride(1), R.stride(0), R.stride(1), INSTANCES[instance])
+            V.stride(1), R.stride(0), R.stride(1), INSTANCES[instance],
+            _kc(kc))
     return R
 
 
 def sparse_gather(vals: torch.Tensor, cols: torch.Tensor, X: torch.Tensor,
-                  Xbar: torch.Tensor, *, _instance: str = None
-                  ) -> torch.Tensor:
+                  Xbar: torch.Tensor, *, kc: int = None,
+                  _instance: str = None) -> torch.Tensor:
     """U = vals·(X̄ − X)[cols]ᵀ for every worker, in one launch: the
     support gather happens in the kernel's staged loads.
 
@@ -482,13 +524,14 @@ def sparse_gather(vals: torch.Tensor, cols: torch.Tensor, X: torch.Tensor,
     _launch("sparse_gather", vals, U, vals.data_ptr(),
             cols.data_ptr(), X.data_ptr(), Xbar.data_ptr(), U.data_ptr(),
             d["m"], d["p"], d["w"], d["k"], X.stride(0), X.stride(1),
-            Xbar.stride(0), U.stride(0), U.stride(1), INSTANCES[instance])
+            Xbar.stride(0), U.stride(0), U.stride(1), INSTANCES[instance],
+            _kc(kc))
     return U
 
 
 def sparse_cimmino_gather(vals: torch.Tensor, cols: torch.Tensor,
-                          Xbar: torch.Tensor, *, _instance: str = None
-                          ) -> torch.Tensor:
+                          Xbar: torch.Tensor, *, kc: int = None,
+                          _instance: str = None) -> torch.Tensor:
     """U = vals·X̄[cols]ᵀ for every worker, in one launch.
 
     vals (m, p, w) contiguous; cols (m, w) contiguous int64 with values
@@ -504,14 +547,14 @@ def sparse_cimmino_gather(vals: torch.Tensor, cols: torch.Tensor,
     _launch("sparse_cimmino_gather", vals, U, vals.data_ptr(),
             cols.data_ptr(), Xbar.data_ptr(), U.data_ptr(), d["m"], d["p"],
             d["w"], d["k"], Xbar.stride(0), U.stride(0), U.stride(1),
-            INSTANCES[instance])
+            INSTANCES[instance], _kc(kc))
     return U
 
 
 def sparse_scatter(Bvals: torch.Tensor, cols: torch.Tensor, U: torch.Tensor,
                    out: torch.Tensor, *, X: torch.Tensor = None,
                    Xbar: torch.Tensor = None, gamma: float = 0.0,
-                   _instance: str = None) -> torch.Tensor:
+                   kc: int = None, _instance: str = None) -> torch.Tensor:
     """C = U·Bvalsᵀ for every worker, in one launch, stored into ``out``
     (m, k, n) at each worker's support columns; the other columns of
     ``out`` are left as they are.
@@ -545,5 +588,5 @@ def sparse_scatter(Bvals: torch.Tensor, cols: torch.Tensor, U: torch.Tensor,
             out.data_ptr(), d["m"], d["w"], d["p"], d["k"],
             0 if cimmino else X.stride(0), 0 if cimmino else X.stride(1),
             0 if cimmino else Xbar.stride(0), U.stride(0), U.stride(1),
-            out.stride(0), out.stride(1), INSTANCES[instance])
+            out.stride(0), out.stride(1), INSTANCES[instance], _kc(kc))
     return out

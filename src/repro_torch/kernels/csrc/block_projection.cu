@@ -166,26 +166,42 @@
 // worth of reuse, and the ring's per-tile cost is not earned back).
 //
 // Two types name every kernel: the matrix type TM of A, B, vals and
-// Bvals, and the compute type T of X, X̄, U, V, Y, R and the
-// accumulators.  f64 accumulates in f64, f32 in f32 (DFMA/FFMA; no
-// tensor cores, no TF32).  The entries <kernel>_f64 and <kernel>_f32
-// take TM = T; <kernel>_bf16_f64 and <kernel>_bf16_f32 take a bf16
-// matrix (the reference's precision="mixed": the accumulation type
-// follows X, not the stored A/B).  The consumer widens each element of
-// the matrix to T once, exactly (bf16 ⊂ f32 ⊂ f64), and feeds the
-// widened value to all KC batch rows.  The ring sizes its stage by the
-// compute type: C = 512 / sizeof(T) columns a stage, so the operand's
-// rows are 512 bytes as in the f64/f32 rings, and the matrix's rows
-// C·sizeof(TM) bytes (128 for bf16/f64, 256 for bf16/f32); the stages
-// are smaller, so more of them fit (at most kRingMaxStages).  The
-// wrapper rejects every other pair.  Every entry returns
-// cudaGetLastError() after its launch.
+// Bvals, and the compute type T of X, X̄, U, V, Y and R; a third
+// follows from T, the accumulator type Acc<T>.  f64 accumulates in f64,
+// f32 in f32 (DFMA/FFMA; no tensor cores, no TF32).  The entries
+// <kernel>_f64 and <kernel>_f32 take TM = T; <kernel>_bf16_f64 and
+// <kernel>_bf16_f32 take a bf16 matrix (the reference's
+// precision="mixed": the accumulation type follows X, not the stored
+// A/B).  The consumer widens each element of the matrix to Acc<T> once,
+// exactly (bf16 ⊂ f32 ⊂ f64), and feeds the widened value to all KC
+// batch rows.  The all-bf16 form (apc_gather_bf16_bf16,
+// apc_scatter_bf16_bf16: the reference's apc_gather/apc_scatter on bf16
+// x) takes T = bf16 and accumulates in f32 (_acc_dtype): each operand
+// element is widened to f32 as it is read, the difference X̄ − X is
+// taken in f32, γ is the bf16-rounded value in f32, and each output is
+// rounded to bf16 as it is stored (U between the two passes, and Y).
+// Its scatter ring reads X and X̄ after the tree (a one-element
+// cp.async moves at least 4 bytes).  The other five kernels take the
+// first four pairs only.  The ring sizes its stage by the compute type:
+// C = 512 / sizeof(T) columns a stage, so the operand's rows are 512
+// bytes as in the f64/f32 rings, and the matrix's rows C·sizeof(TM)
+// bytes (128 for bf16/f64, 256 for bf16/f32, 512 for bf16/bf16); the
+// stages are smaller, so more of them fit (at most kRingMaxStages); the
+// all-bf16 APC stage at KC = 8 is 40 KiB, five stages in the 200 KiB
+// budget.  The wrapper rejects every other pair.
+//
+// KC, the batch rows a block (a ring tile) carries, is 1, 2, 4 or 8: the
+// entry's kc argument where the caller pins or measured one
+// (kernels/ops.py, REPRO_KERNEL_BK), else the smallest that holds all k
+// rows, at most 8.  Every entry returns cudaGetLastError() after its
+// launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <cstring>
 #include <type_traits>
 
 namespace {
@@ -216,6 +232,53 @@ template <>
 __device__ __forceinline__ double widen<double, __nv_bfloat16>(
     __nv_bfloat16 x) {
   return static_cast<double>(__bfloat162float(x));
+}
+
+// The accumulator type of a compute (operand) type T: T itself for f64
+// and f32; f32 for bf16 (the all-bf16 form, the reference's _acc_dtype).
+// Every operand element is widened to it as it is read, and every output
+// is narrowed back to T as it is stored; for f64 and f32 both are the
+// identity, so those forms compile to what they compiled to before.
+template <typename T>
+struct AccOf {
+  using type = T;
+};
+template <>
+struct AccOf<__nv_bfloat16> {
+  using type = float;
+};
+template <typename T>
+using Acc = typename AccOf<T>::type;
+
+// An accumulator value in the output type T.
+template <typename T, typename TA>
+__device__ __forceinline__ T narrow(TA x) {
+  return static_cast<T>(x);
+}
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(
+    float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// γ as the kernels apply it: in T's accumulator type, after rounding to
+// T (the reference's jnp.asarray(gamma, x.dtype)): a float rounded to
+// the nearest bf16, ties to even, for the all-bf16 form.
+template <typename T>
+Acc<T> gamma_of(double g) {
+  return static_cast<T>(g);
+}
+
+template <>
+float gamma_of<__nv_bfloat16>(double g) {
+  float f = static_cast<float>(g);
+  uint32_t u;
+  memcpy(&u, &f, sizeof u);
+  if ((u & 0x7f800000u) != 0x7f800000u) u += 0x7fffu + ((u >> 16) & 1u);
+  u &= 0xffff0000u;
+  memcpy(&f, &u, sizeof f);
+  return f;
 }
 
 constexpr int kThreads = 256;
@@ -385,23 +448,24 @@ __device__ __forceinline__ void row_dot(const TM* __restrict__ M,
 // Gather staging: Vs[kk][c] = X̄[i, g] − X[w, i, g] (APC, kDiff) or
 // X̄[i, g] (Cimmino, X unused), i = k0 + kk, at the global column
 // g = c0 + c, or g = cols[c0 + c] of this worker's support (kSparse; n is
-// then the support width).
+// then the support width), in the accumulator type.
 template <typename T, int KC, bool kDiff, bool kSparse>
 struct StageXbar {
+  using TA = Acc<T>;
   const T* X;
   const T* Xbar;
   const int64_t* cols;
   int64_t n, kvalid, sx_k, sxb_k;
-  __device__ void operator()(int64_t c0, T (*Vs)[kChunk]) const {
+  __device__ void operator()(int64_t c0, TA (*Vs)[kChunk]) const {
     for (int idx = threadIdx.x; idx < KC * kChunk; idx += kThreads) {
       const int kk = idx / kChunk;
       const int c = idx % kChunk;
       const int64_t col = c0 + c;
-      T v = T(0);
+      TA v = TA(0);
       if (kk < kvalid && col < n) {
         const int64_t g = kSparse ? cols[col] : col;
-        v = Xbar[kk * sxb_k + g];
-        if constexpr (kDiff) v -= X[kk * sx_k + g];
+        v = widen<TA>(Xbar[kk * sxb_k + g]);
+        if constexpr (kDiff) v -= widen<TA>(X[kk * sx_k + g]);
       }
       Vs[kk][c] = v;
     }
@@ -409,18 +473,19 @@ struct StageXbar {
 };
 
 // Scatter staging: Vs[kk][c] = U[w, i, c0 + c] (or V for Cimmino), at
-// Vs[kk][packed_slot(c)] for a packed row dot.
+// Vs[kk][packed_slot(c)] for a packed row dot, in the accumulator type.
 template <typename T, int KC, bool kPacked>
 struct StageU {
+  using TA = Acc<T>;
   const T* U;
   int64_t p, kvalid, su_k;
-  __device__ void operator()(int64_t c0, T (*Vs)[kChunk]) const {
+  __device__ void operator()(int64_t c0, TA (*Vs)[kChunk]) const {
     for (int idx = threadIdx.x; idx < KC * kChunk; idx += kThreads) {
       const int kk = idx / kChunk;
       const int c = idx % kChunk;
       const int64_t col = c0 + c;
       Vs[kk][kPacked ? packed_slot(c) : c] =
-          (kk < kvalid && col < p) ? U[kk * su_k + col] : T(0);
+          (kk < kvalid && col < p) ? widen<TA>(U[kk * su_k + col]) : TA(0);
     }
   }
 };
@@ -435,7 +500,7 @@ __device__ __forceinline__ void gather_block(
     const T* __restrict__ Xbar, const int64_t* __restrict__ cols,
     T* __restrict__ U, int64_t p, int64_t n, int64_t k, int64_t sx_w,
     int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-    T (*Vs)[kChunk]) {
+    Acc<T> (*Vs)[kChunk]) {
   const int64_t w = blockIdx.y;
   const int64_t k0 = static_cast<int64_t>(blockIdx.z) * KC;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (kWarps * R);
@@ -443,8 +508,9 @@ __device__ __forceinline__ void gather_block(
   StageXbar<T, KC, kDiff, kSparse> stage{
       kDiff ? X + w * sx_w + k0 * sx_k : X, Xbar + k0 * sxb_k,
       kSparse ? cols + w * n : cols, n, kvalid, sx_k, sxb_k};
-  T acc[R][KC];
-  row_dot<TM, T, KC, R, false>(A + w * p * n, p, n, row0, stage, Vs, acc);
+  Acc<T> acc[R][KC];
+  row_dot<TM, Acc<T>, KC, R, false>(A + w * p * n, p, n, row0, stage, Vs,
+                                    acc);
   if (threadIdx.x % 32 != 0) return;
   const int64_t wrow0 = row0 + (threadIdx.x / 32) * R;
   T* Uw = U + w * su_w + k0 * su_k;
@@ -452,7 +518,8 @@ __device__ __forceinline__ void gather_block(
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk)
-      if (wrow0 + r < p && kk < kvalid) Uw[kk * su_k + wrow0 + r] = acc[r][kk];
+      if (wrow0 + r < p && kk < kvalid)
+        Uw[kk * su_k + wrow0 + r] = narrow<T>(acc[r][kk]);
 }
 
 // The scatter of block (blockIdx.x, w, k-chunk): the rank-p product of
@@ -465,10 +532,11 @@ template <typename TM, typename T, int KC, int R, bool kAxpy, bool kSparse>
 __device__ __forceinline__ void scatter_block(
     const TM* __restrict__ B, const int64_t* __restrict__ cols,
     const T* __restrict__ X, const T* __restrict__ Xbar,
-    const T* __restrict__ U, T gamma, T* __restrict__ Y, int64_t n,
+    const T* __restrict__ U, Acc<T> gamma, T* __restrict__ Y, int64_t n,
     int64_t p, int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
     int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k,
-    T (*Vs)[kChunk], T (*Cs)[kWarps * R]) {
+    Acc<T> (*Vs)[kChunk], Acc<T> (*Cs)[kWarps * R]) {
+  using TA = Acc<T>;
   const int64_t w = blockIdx.y;
   const int64_t k0 = static_cast<int64_t>(blockIdx.z) * KC;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (kWarps * R);
@@ -476,9 +544,9 @@ __device__ __forceinline__ void scatter_block(
   // a bf16 matrix takes the packed row dot
   constexpr bool kPacked = sizeof(TM) * kPack == 16;
   StageU<T, KC, kPacked> stage{U + w * su_w + k0 * su_k, p, kvalid, su_k};
-  T acc[R][KC];
-  row_dot<TM, T, KC, R, kPacked>(B + w * n * p, n, p, row0, stage, Vs,
-                                 acc);
+  TA acc[R][KC];
+  row_dot<TM, TA, KC, R, kPacked>(B + w * n * p, n, p, row0, stage, Vs,
+                                  acc);
   if (threadIdx.x % 32 == 0) {
     const int wr = (threadIdx.x / 32) * R;
 #pragma unroll
@@ -495,11 +563,11 @@ __device__ __forceinline__ void scatter_block(
     if (kk < kvalid && j < n) {
       const int64_t jo = kSparse ? cols[w * n + j] : j;
       if constexpr (kAxpy) {
-        const T x = X[w * sx_w + (k0 + kk) * sx_k + jo];
-        const T d = Xbar[(k0 + kk) * sxb_k + jo] - x;
-        Yw[kk * sy_k + jo] = x + gamma * (d - Cs[kk][jj]);
+        const TA x = widen<TA>(X[w * sx_w + (k0 + kk) * sx_k + jo]);
+        const TA d = widen<TA>(Xbar[(k0 + kk) * sxb_k + jo]) - x;
+        Yw[kk * sy_k + jo] = narrow<T>(x + gamma * (d - Cs[kk][jj]));
       } else {
-        Yw[kk * sy_k + jo] = Cs[kk][jj];
+        Yw[kk * sy_k + jo] = narrow<T>(Cs[kk][jj]);
       }
     }
   }
@@ -511,7 +579,7 @@ apc_gather_kernel(const TM* __restrict__ A, const T* __restrict__ X,
                   const T* __restrict__ Xbar, T* __restrict__ U,
                   int64_t p, int64_t n, int64_t k, int64_t sx_w,
                   int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  __shared__ T Vs[KC][kChunk];
+  __shared__ Acc<T> Vs[KC][kChunk];
   gather_block<TM, T, KC, R, true, false>(A, X, Xbar, nullptr, U, p, n, k,
                                       sx_w, sx_k, sxb_k, su_w, su_k, Vs);
 }
@@ -521,7 +589,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 cimmino_gather_kernel(const TM* __restrict__ A, const T* __restrict__ Xbar,
                       T* __restrict__ U, int64_t p, int64_t n, int64_t k,
                       int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  __shared__ T Vs[KC][kChunk];
+  __shared__ Acc<T> Vs[KC][kChunk];
   gather_block<TM, T, KC, R, false, false>(A, nullptr, Xbar, nullptr, U, p, n,
                                        k, 0, 0, sxb_k, su_w, su_k, Vs);
 }
@@ -530,11 +598,11 @@ template <typename TM, typename T, int KC, int R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 apc_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ X,
                    const T* __restrict__ Xbar, const T* __restrict__ U,
-                   T gamma, T* __restrict__ Y, int64_t n, int64_t p,
+                   Acc<T> gamma, T* __restrict__ Y, int64_t n, int64_t p,
                    int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                    int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
-  __shared__ T Vs[KC][kChunk];
-  __shared__ T Cs[KC][kWarps * R];        // the reduced B·U per row
+  __shared__ Acc<T> Vs[KC][kChunk];
+  __shared__ Acc<T> Cs[KC][kWarps * R];        // the reduced B·U per row
   scatter_block<TM, T, KC, R, true, false>(B, nullptr, X, Xbar, U, gamma, Y, n,
                                        p, k, sx_w, sx_k, sxb_k, su_w, su_k,
                                        sy_w, sy_k, Vs, Cs);
@@ -546,10 +614,10 @@ cimmino_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ V,
                        T* __restrict__ Rout, int64_t n, int64_t p,
                        int64_t k, int64_t sv_w, int64_t sv_k, int64_t sr_w,
                        int64_t sr_k) {
-  __shared__ T Vs[KC][kChunk];
-  __shared__ T Cs[KC][kWarps * R];        // the reduced B·V per row
+  __shared__ Acc<T> Vs[KC][kChunk];
+  __shared__ Acc<T> Cs[KC][kWarps * R];        // the reduced B·V per row
   scatter_block<TM, T, KC, R, false, false>(B, nullptr, nullptr, nullptr, V,
-                                        T(0), Rout, n, p, k, 0, 0, 0, sv_w,
+                                        Acc<T>(0), Rout, n, p, k, 0, 0, 0, sv_w,
                                         sv_k, sr_w, sr_k, Vs, Cs);
 }
 
@@ -563,7 +631,7 @@ sparse_gather_kernel(const TM* __restrict__ vals,
                      T* __restrict__ U, int64_t p, int64_t w, int64_t k,
                      int64_t sx_w, int64_t sx_k, int64_t sxb_k, int64_t su_w,
                      int64_t su_k) {
-  __shared__ T Vs[KC][kChunk];
+  __shared__ Acc<T> Vs[KC][kChunk];
   gather_block<TM, T, KC, R, true, true>(vals, X, Xbar, cols, U, p, w, k, sx_w,
                                      sx_k, sxb_k, su_w, su_k, Vs);
 }
@@ -575,7 +643,7 @@ sparse_cimmino_gather_kernel(const TM* __restrict__ vals,
                              const T* __restrict__ Xbar, T* __restrict__ U,
                              int64_t p, int64_t w, int64_t k, int64_t sxb_k,
                              int64_t su_w, int64_t su_k) {
-  __shared__ T Vs[KC][kChunk];
+  __shared__ Acc<T> Vs[KC][kChunk];
   gather_block<TM, T, KC, R, false, true>(vals, nullptr, Xbar, cols, U, p, w,
                                       k, 0, 0, sxb_k, su_w, su_k, Vs);
 }
@@ -585,12 +653,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 sparse_scatter_kernel(const TM* __restrict__ Bvals,
                       const int64_t* __restrict__ cols,
                       const T* __restrict__ X, const T* __restrict__ Xbar,
-                      const T* __restrict__ U, T gamma, T* __restrict__ Y,
-                      int64_t w, int64_t p, int64_t k, int64_t sx_w,
+                      const T* __restrict__ U, Acc<T> gamma,
+                      T* __restrict__ Y, int64_t w, int64_t p, int64_t k,
+                      int64_t sx_w,
                       int64_t sx_k, int64_t sxb_k, int64_t su_w,
                       int64_t su_k, int64_t sy_w, int64_t sy_k) {
-  __shared__ T Vs[KC][kChunk];
-  __shared__ T Cs[KC][kWarps * R];        // the reduced Bvals·U per row
+  __shared__ Acc<T> Vs[KC][kChunk];
+  __shared__ Acc<T> Cs[KC][kWarps * R];        // the reduced Bvals·U per row
   scatter_block<TM, T, KC, R, kAxpy, true>(Bvals, cols, X, Xbar, U, gamma, Y, w,
                                        p, k, sx_w, sx_k, sxb_k, su_w, su_k,
                                        sy_w, sy_k, Vs, Cs);
@@ -636,6 +705,7 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 // One element from global to shared, asynchronously.
 template <typename T>
 __device__ __forceinline__ void cp_async_element(T* dst, const T* src) {
+  static_assert(sizeof(T) >= 4, "a cp.async moves 4, 8 or 16 bytes");
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
                    smem_addr(dst)), "l"(src), "n"(sizeof(T)) : "memory");
 }
@@ -776,14 +846,14 @@ __device__ __forceinline__ void ring_produce(
 }
 
 // The operand at column c of a stage for the batch rows K0 .. K1 − 1:
-// X̄ − X (kDiff) or X̄.
+// X̄ − X (kDiff) or X̄, in the accumulator type.
 template <typename T, int KC, int C, bool kDiff, int K0, int K1>
 __device__ __forceinline__ void ring_operand(const T* XBs, const T* Xs,
-                                             int c, T (&d)[K1 - K0]) {
+                                             int c, Acc<T> (&d)[K1 - K0]) {
 #pragma unroll
   for (int kk = K0; kk < K1; ++kk) {
-    d[kk - K0] = XBs[kk * C + c];
-    if constexpr (kDiff) d[kk - K0] -= Xs[kk * C + c];
+    d[kk - K0] = widen<Acc<T>>(XBs[kk * C + c]);
+    if constexpr (kDiff) d[kk - K0] -= widen<Acc<T>>(Xs[kk * C + c]);
   }
 }
 
@@ -791,14 +861,14 @@ __device__ __forceinline__ void ring_operand(const T* XBs, const T* Xs,
 // rows K0 .. K1 − 1; each element of M widened to T as it is read.
 template <typename TM, typename T, int KC, int C, bool kDiff, int K0 = 0,
           int K1 = KC>
-__device__ __forceinline__ void ring_column(const TM* Ms, const T* XBs,
-                                            const T* Xs, int c,
-                                            T (&acc)[kRingWarpRows][KC]) {
-  T d[K1 - K0];
+__device__ __forceinline__ void ring_column(
+    const TM* Ms, const T* XBs, const T* Xs, int c,
+    Acc<T> (&acc)[kRingWarpRows][KC]) {
+  Acc<T> d[K1 - K0];
   ring_operand<T, KC, C, kDiff, K0, K1>(XBs, Xs, c, d);
 #pragma unroll
   for (int r = 0; r < kRingWarpRows; ++r) {
-    const T a = widen<T>(Ms[r * C + c]);
+    const Acc<T> a = widen<Acc<T>>(Ms[r * C + c]);
 #pragma unroll
     for (int kk = K0; kk < K1; ++kk)
       acc[r][kk] = fma(a, d[kk - K0], acc[r][kk]);
@@ -808,9 +878,9 @@ __device__ __forceinline__ void ring_column(const TM* Ms, const T* XBs,
 // The same against the column of M already widened.
 template <typename T, int KC, int C, bool kDiff, int K0, int K1>
 __device__ __forceinline__ void ring_column_widened(
-    const T (&a)[kRingWarpRows], const T* XBs, const T* Xs, int c,
-    T (&acc)[kRingWarpRows][KC]) {
-  T d[K1 - K0];
+    const Acc<T> (&a)[kRingWarpRows], const T* XBs, const T* Xs, int c,
+    Acc<T> (&acc)[kRingWarpRows][KC]) {
+  Acc<T> d[K1 - K0];
   ring_operand<T, KC, C, kDiff, K0, K1>(XBs, Xs, c, d);
 #pragma unroll
   for (int r = 0; r < kRingWarpRows; ++r)
@@ -831,18 +901,19 @@ __device__ __forceinline__ void ring_column_widened(
 template <typename TM, typename T, int KC, int C, bool kDiff, bool kRagged>
 __device__ __forceinline__ void ring_columns(const TM* Ms, const T* XBs,
                                              const T* Xs, int nv,
-                                             T (&acc)[kRingWarpRows][KC]) {
+                                             Acc<T> (&acc)[kRingWarpRows][KC]) {
+  using TA = Acc<T>;
   const int lane = threadIdx.x % 32;
-  if constexpr (KC * sizeof(T) >= 64) {
+  if constexpr (KC * sizeof(TA) >= 64) {
 #pragma unroll 1
     for (int c = lane; c < (kRagged ? nv : C); c += 32) {
-      if constexpr (kDiff && std::is_same_v<TM, T>) {
+      if constexpr (kDiff && std::is_same_v<TM, TA>) {
         ring_column<TM, T, KC, C, kDiff, 0, KC / 2>(Ms, XBs, Xs, c, acc);
         ring_column<TM, T, KC, C, kDiff, KC / 2, KC>(Ms, XBs, Xs, c, acc);
       } else if constexpr (kDiff) {
-        T a[kRingWarpRows];
+        TA a[kRingWarpRows];
 #pragma unroll
-        for (int r = 0; r < kRingWarpRows; ++r) a[r] = widen<T>(Ms[r * C + c]);
+        for (int r = 0; r < kRingWarpRows; ++r) a[r] = widen<TA>(Ms[r * C + c]);
         ring_column_widened<T, KC, C, kDiff, 0, KC / 2>(a, XBs, Xs, c, acc);
         ring_column_widened<T, KC, C, kDiff, KC / 2, KC>(a, XBs, Xs, c, acc);
       } else {
@@ -894,11 +965,11 @@ __device__ __forceinline__ void ring_consume(int64_t g, int64_t end,
       __syncwarp();
       active = r0 < tl.rows;
     }
-    T acc[R][KC];
+    Acc<T> acc[R][KC];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int kk = 0; kk < KC; ++kk) acc[r][kk] = T(0);
+      for (int kk = 0; kk < KC; ++kk) acc[r][kk] = Acc<T>(0);
     for (int64_t c0 = 0; c0 < n; c0 += C, ++it) {
       const int s = it % Cfg::kStages;
       const unsigned char* stage = ring_smem + s * Cfg::kStageBytes;
@@ -929,9 +1000,9 @@ template <typename T, int KC>
 struct RingGatherStore {
   T* __restrict__ U;
   int64_t su_w, su_k;
-  __device__ __forceinline__ void operator()(T (&acc)[kRingWarpRows][KC],
-                                             const RingWalk* walk, int r0,
-                                             int lane) const {
+  __device__ __forceinline__ void operator()(
+      Acc<T> (&acc)[kRingWarpRows][KC], const RingWalk* walk, int r0,
+      int lane) const {
     constexpr int R = kRingWarpRows;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -947,7 +1018,8 @@ struct RingGatherStore {
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int kk = 0; kk < KC; ++kk)
-        if (r0 + r < tl.rows && kk < tl.kvalid) Ut[kk * su_k + r] = acc[r][kk];
+        if (r0 + r < tl.rows && kk < tl.kvalid)
+          Ut[kk * su_k + r] = narrow<T>(acc[r][kk]);
   }
 };
 
@@ -1007,11 +1079,14 @@ template <typename T, int KC, bool kAxpy, bool kSparse>
 struct RingScatterStore {
   static constexpr int N = kRingWarpRows * KC;
   static constexpr int H = N >= 32 ? N / 32 : 1;   // sums a lane holds
-  static constexpr bool kStaged = kAxpy && !kSparse;
+  // a one-element cp.async moves 4, 8 or 16 bytes: a bf16 X reads after
+  // the tree, as the sparse form does
+  static constexpr bool kStaged = kAxpy && !kSparse && sizeof(T) >= 4;
+  using TA = Acc<T>;
   const int64_t* __restrict__ cols;
   const T* __restrict__ X;
   const T* __restrict__ Xbar;
-  T gamma;
+  TA gamma;
   T* __restrict__ Y;
   int64_t rows, sx_w, sx_k, sxb_k, sy_w, sy_k;
 
@@ -1042,11 +1117,11 @@ struct RingScatterStore {
     }
   }
 
-  __device__ __forceinline__ void operator()(T (&acc)[kRingWarpRows][KC],
+  __device__ __forceinline__ void operator()(TA (&acc)[kRingWarpRows][KC],
                                              const RingWalk* walk, int r0,
                                              int lane) const {
     if constexpr (kStaged) prefetch(walk->tl, r0, lane);
-    T v[N];
+    TA v[N];
 #pragma unroll
     for (int r = 0; r < kRingWarpRows; ++r)
 #pragma unroll
@@ -1069,15 +1144,15 @@ struct RingScatterStore {
       const int64_t i = tl.k0 + kk;
       T* y = Y + tl.w * sy_w + i * sy_k + jo;
       if constexpr (kStaged) {
-        const T x = staged()[2 * h][lane];
-        const T d = staged()[2 * h + 1][lane] - x;
-        *y = x + gamma * (d - v[h]);
+        const TA x = staged()[2 * h][lane];
+        const TA d = staged()[2 * h + 1][lane] - x;
+        *y = narrow<T>(x + gamma * (d - v[h]));
       } else if constexpr (kAxpy) {
-        const T x = X[tl.w * sx_w + i * sx_k + jo];
-        const T d = Xbar[i * sxb_k + jo] - x;
-        *y = x + gamma * (d - v[h]);
+        const TA x = widen<TA>(X[tl.w * sx_w + i * sx_k + jo]);
+        const TA d = widen<TA>(Xbar[i * sxb_k + jo]) - x;
+        *y = narrow<T>(x + gamma * (d - v[h]));
       } else {
-        *y = v[h];
+        *y = narrow<T>(v[h]);
       }
     }
   }
@@ -1148,7 +1223,7 @@ template <typename TM, typename T, int KC, bool kAxpy, bool kSparse>
 __device__ __forceinline__ void scatter_ring(
     const TM* __restrict__ M, const int64_t* __restrict__ cols,
     const T* __restrict__ X, const T* __restrict__ Xbar,
-    const T* __restrict__ U, T gamma, T* __restrict__ Y, int64_t m,
+    const T* __restrict__ U, Acc<T> gamma, T* __restrict__ Y, int64_t m,
     int64_t n, int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
     int64_t sxb_k, int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
   ring_run<TM, T, KC, false, false, true>(
@@ -1217,7 +1292,7 @@ template <typename TM, typename T, int KC>
 __global__ void __launch_bounds__(kRingThreads, 1)
 apc_scatter_ring_kernel(const TM* __restrict__ B, const T* __restrict__ X,
                         const T* __restrict__ Xbar, const T* __restrict__ U,
-                        T gamma, T* __restrict__ Y, int64_t m, int64_t n,
+                        Acc<T> gamma, T* __restrict__ Y, int64_t m, int64_t n,
                         int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
                         int64_t sxb_k, int64_t su_w, int64_t su_k,
                         int64_t sy_w, int64_t sy_k) {
@@ -1233,7 +1308,8 @@ cimmino_scatter_ring_kernel(const TM* __restrict__ B,
                             int64_t m, int64_t n, int64_t p, int64_t k,
                             int64_t sv_w, int64_t sv_k, int64_t sr_w,
                             int64_t sr_k) {
-  scatter_ring<TM, T, KC, false, false>(B, nullptr, nullptr, nullptr, V, T(0),
+  scatter_ring<TM, T, KC, false, false>(B, nullptr, nullptr, nullptr, V,
+                                        Acc<T>(0),
                                         Rout, m, n, p, k, 0, 0, 0, sv_w, sv_k,
                                         sr_w, sr_k);
 }
@@ -1244,7 +1320,7 @@ sparse_scatter_ring_kernel(const TM* __restrict__ Bvals,
                            const int64_t* __restrict__ cols,
                            const T* __restrict__ X,
                            const T* __restrict__ Xbar,
-                           const T* __restrict__ U, T gamma,
+                           const T* __restrict__ U, Acc<T> gamma,
                            T* __restrict__ Y, int64_t m, int64_t w,
                            int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
                            int64_t sxb_k, int64_t su_w, int64_t su_k,
@@ -1282,6 +1358,21 @@ void launch_ring(int smem, int64_t m, int64_t rows, int64_t k,
             s>>>(args...);
 }
 
+// The gather ring kernel of a form, the only one instantiated (the
+// all-bf16 pair has the APC form alone: a sparse gather's ring copies
+// 2-byte elements, which cp.async does not move).
+template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
+constexpr auto gather_ring_kernel() {
+  if constexpr (kDiff && kSparse)
+    return &sparse_gather_ring_kernel<TM, T, KC>;
+  else if constexpr (kDiff)
+    return &apc_gather_ring_kernel<TM, T, KC>;
+  else if constexpr (kSparse)
+    return &sparse_cimmino_gather_ring_kernel<TM, T, KC>;
+  else
+    return &cimmino_gather_ring_kernel<TM, T, KC>;
+}
+
 // The gathers' ring: the kernel of its form, over the rows of A (vals).
 template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
 void launch_gather_ring(const void* M, const void* cols, const void* X,
@@ -1289,11 +1380,7 @@ void launch_gather_ring(const void* M, const void* cols, const void* X,
                         int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
                         int64_t sxb_k, int64_t su_w, int64_t su_k,
                         cudaStream_t s) {
-  constexpr auto kernel =
-      kDiff ? (kSparse ? &sparse_gather_ring_kernel<TM, T, KC>
-                       : &apc_gather_ring_kernel<TM, T, KC>)
-            : (kSparse ? &sparse_cimmino_gather_ring_kernel<TM, T, KC>
-                       : &cimmino_gather_ring_kernel<TM, T, KC>);
+  constexpr auto kernel = gather_ring_kernel<TM, T, KC, kDiff, kSparse>();
   launch_ring<kernel, KC>(
       Ring<TM, T, KC, kDiff>::kSmem, m, p, k, s, static_cast<const TM*>(M),
       static_cast<const int64_t*>(cols), static_cast<const T*>(X),
@@ -1301,12 +1388,25 @@ void launch_gather_ring(const void* M, const void* cols, const void* X,
       sxb_k, su_w, su_k);
 }
 
+// The k-chunk KC, the batch rows one block (a ring tile) carries: the
+// entry's kc argument where the caller gives one (1, 2, 4 or 8: the
+// instances the library holds), else the smallest that holds all k rows,
+// at most 8.  Every batch row sees the same sequence of operations
+// whatever KC is, so the choice moves time, not bits.
 inline int kc_for(int64_t k) { return k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : 8; }
 
-// Calls f(std::integral_constant<int, KC>) with the k-chunk for k.
+inline bool kc_valid(int64_t kc) {
+  return kc == 0 || kc == 1 || kc == 2 || kc == 4 || kc == 8;
+}
+
+inline int kc_of(int64_t k, int64_t kc) {
+  return kc > 0 ? static_cast<int>(kc) : kc_for(k);
+}
+
+// Calls f(std::integral_constant<int, KC>) with the k-chunk kc.
 template <typename F>
-void with_kc(int64_t k, F&& f) {
-  switch (kc_for(k)) {
+void with_kc(int kc, F&& f) {
+  switch (kc) {
     case 1: f(std::integral_constant<int, 1>{}); break;
     case 2: f(std::integral_constant<int, 2>{}); break;
     case 4: f(std::integral_constant<int, 4>{}); break;
@@ -1326,11 +1426,12 @@ template <typename TM, typename T>
 int apc_gather(const void* A, const void* X, const void* Xbar, void* U,
                int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w,
                int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-               int64_t instance, void* stream) {
-  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
+               int64_t instance, int64_t kc, void* stream) {
+  if ((instance != kRowDot && instance != kRing) || !kc_valid(kc))
+    return cudaErrorInvalidValue;
   if (m == 0 || p == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  with_kc(k, [&](auto kc) {
+  with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
       launch_gather_ring<TM, T, KC, true, false>(
@@ -1350,12 +1451,13 @@ int apc_gather(const void* A, const void* X, const void* Xbar, void* U,
 template <typename TM, typename T>
 int cimmino_gather(const void* A, const void* Xbar, void* U, int64_t m,
                    int64_t p, int64_t n, int64_t k, int64_t sxb_k,
-                   int64_t su_w, int64_t su_k, int64_t instance,
+                   int64_t su_w, int64_t su_k, int64_t instance, int64_t kc,
                    void* stream) {
-  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
+  if ((instance != kRowDot && instance != kRing) || !kc_valid(kc))
+    return cudaErrorInvalidValue;
   if (m == 0 || p == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  with_kc(k, [&](auto kc) {
+  with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
       launch_gather_ring<TM, T, KC, false, false>(
@@ -1376,18 +1478,19 @@ int apc_scatter(const void* B, const void* X, const void* Xbar,
                 const void* U, double gamma, void* Y, int64_t m, int64_t n,
                 int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
                 int64_t sxb_k, int64_t su_w, int64_t su_k, int64_t sy_w,
-                int64_t sy_k, int64_t instance, void* stream) {
-  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
+                int64_t sy_k, int64_t instance, int64_t kc, void* stream) {
+  if ((instance != kRowDot && instance != kRing) || !kc_valid(kc))
+    return cudaErrorInvalidValue;
   if (m == 0 || n == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  with_kc(k, [&](auto kc) {
+  with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
       launch_ring<&apc_scatter_ring_kernel<TM, T, KC>, KC>(
           Ring<TM, T, KC, false>::kSmem, m, n, k, s,
           static_cast<const TM*>(B), static_cast<const T*>(X),
           static_cast<const T*>(Xbar), static_cast<const T*>(U),
-          static_cast<T>(gamma), static_cast<T*>(Y), m, n, p, k, sx_w, sx_k,
+          gamma_of<T>(gamma), static_cast<T*>(Y), m, n, p, k, sx_w, sx_k,
           sxb_k, su_w, su_k, sy_w, sy_k);
       return;
     }
@@ -1396,7 +1499,7 @@ int apc_scatter(const void* B, const void* X, const void* Xbar,
         <<<grid_for(n, m, k, KC, R), kThreads, 0, s>>>(
             static_cast<const TM*>(B), static_cast<const T*>(X),
             static_cast<const T*>(Xbar), static_cast<const T*>(U),
-            static_cast<T>(gamma), static_cast<T*>(Y), n, p, k, sx_w, sx_k,
+            gamma_of<T>(gamma), static_cast<T*>(Y), n, p, k, sx_w, sx_k,
             sxb_k, su_w, su_k, sy_w, sy_k);
   });
   return static_cast<int>(cudaGetLastError());
@@ -1406,11 +1509,12 @@ template <typename TM, typename T>
 int cimmino_scatter(const void* B, const void* V, void* Rout, int64_t m,
                     int64_t n, int64_t p, int64_t k, int64_t sv_w,
                     int64_t sv_k, int64_t sr_w, int64_t sr_k,
-                    int64_t instance, void* stream) {
-  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
+                    int64_t instance, int64_t kc, void* stream) {
+  if ((instance != kRowDot && instance != kRing) || !kc_valid(kc))
+    return cudaErrorInvalidValue;
   if (m == 0 || n == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  with_kc(k, [&](auto kc) {
+  with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
       launch_ring<&cimmino_scatter_ring_kernel<TM, T, KC>, KC>(
@@ -1433,11 +1537,12 @@ int sparse_gather(const void* vals, const void* cols, const void* X,
                   const void* Xbar, void* U, int64_t m, int64_t p,
                   int64_t w, int64_t k, int64_t sx_w, int64_t sx_k,
                   int64_t sxb_k, int64_t su_w, int64_t su_k,
-                  int64_t instance, void* stream) {
-  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
+                  int64_t instance, int64_t kc, void* stream) {
+  if ((instance != kRowDot && instance != kRing) || !kc_valid(kc))
+    return cudaErrorInvalidValue;
   if (m == 0 || p == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  with_kc(k, [&](auto kc) {
+  with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
       launch_gather_ring<TM, T, KC, true, true>(
@@ -1458,11 +1563,12 @@ template <typename TM, typename T>
 int sparse_cimmino_gather(const void* vals, const void* cols,
                           const void* Xbar, void* U, int64_t m, int64_t p,
                           int64_t w, int64_t k, int64_t sxb_k, int64_t su_w,
-                          int64_t su_k, int64_t instance, void* stream) {
-  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
+                          int64_t su_k, int64_t instance, int64_t kc, void* stream) {
+  if ((instance != kRowDot && instance != kRing) || !kc_valid(kc))
+    return cudaErrorInvalidValue;
   if (m == 0 || p == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  with_kc(k, [&](auto kc) {
+  with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
       launch_gather_ring<TM, T, KC, false, true>(
@@ -1486,12 +1592,13 @@ int sparse_scatter(const void* Bvals, const void* cols, const void* X,
                    const void* Xbar, const void* U, double gamma, void* Y,
                    int64_t m, int64_t w, int64_t p, int64_t k, int64_t sx_w,
                    int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-                   int64_t sy_w, int64_t sy_k, int64_t instance,
+                   int64_t sy_w, int64_t sy_k, int64_t instance, int64_t kc,
                    void* stream) {
-  if (instance != kRowDot && instance != kRing) return cudaErrorInvalidValue;
+  if ((instance != kRowDot && instance != kRing) || !kc_valid(kc))
+    return cudaErrorInvalidValue;
   if (m == 0 || w == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  with_kc(k, [&](auto kc) {
+  with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
       const auto ring = [&](auto axpy) {
@@ -1500,7 +1607,7 @@ int sparse_scatter(const void* Bvals, const void* cols, const void* X,
             Ring<TM, T, KC, false>::kSmem, m, w, k, s,
             static_cast<const TM*>(Bvals), static_cast<const int64_t*>(cols),
             static_cast<const T*>(X), static_cast<const T*>(Xbar),
-            static_cast<const T*>(U), static_cast<T>(gamma),
+            static_cast<const T*>(U), gamma_of<T>(gamma),
             static_cast<T*>(Y), m, w, p, k, sx_w, sx_k, sxb_k, su_w, su_k,
             sy_w, sy_k);
       };
@@ -1516,7 +1623,7 @@ int sparse_scatter(const void* Bvals, const void* cols, const void* X,
       kernel<<<grid, kThreads, 0, s>>>(
           static_cast<const TM*>(Bvals), static_cast<const int64_t*>(cols),
           static_cast<const T*>(X), static_cast<const T*>(Xbar),
-          static_cast<const T*>(U), static_cast<T>(gamma),
+          static_cast<const T*>(U), gamma_of<T>(gamma),
           static_cast<T*>(Y), w, p, k, sx_w, sx_k, sxb_k, su_w, su_k, sy_w,
           sy_k);
     };
@@ -1533,55 +1640,63 @@ int sparse_scatter(const void* Bvals, const void* cols, const void* X,
 extern "C" {
 
 // The C entries of each (matrix, compute) type pair: <kernel>_<SUFFIX>.
-#define REPRO_ENTRIES(SUFFIX, TM, T)                                         \
+// kc is the k-chunk (0: the library's own, kc_for(k)).  The APC pair has
+// an entry for every pair of block_projection.PAIRS, the all-bf16 one
+// (bf16_bf16) included; the other five for the first four.
+#define REPRO_APC_ENTRIES(SUFFIX, TM, T)                                     \
   int apc_gather_##SUFFIX(const void* A, const void* X, const void* Xbar,    \
                           void* U, int64_t m, int64_t p, int64_t n,          \
                           int64_t k, int64_t sx_w, int64_t sx_k,             \
                           int64_t sxb_k, int64_t su_w, int64_t su_k,         \
-                          int64_t instance, void* stream) {                  \
+                          int64_t instance, int64_t kc, void* stream) {      \
     return apc_gather<TM, T>(A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k,   \
-                             su_w, su_k, instance, stream);                  \
+                             su_w, su_k, instance, kc, stream);              \
   }                                                                          \
   int apc_scatter_##SUFFIX(const void* B, const void* X, const void* Xbar,   \
                            const void* U, double gamma, void* Y, int64_t m,  \
                            int64_t n, int64_t p, int64_t k, int64_t sx_w,    \
                            int64_t sx_k, int64_t sxb_k, int64_t su_w,        \
                            int64_t su_k, int64_t sy_w, int64_t sy_k,         \
-                           int64_t instance, void* stream) {                 \
+                           int64_t instance, int64_t kc, void* stream) {     \
     return apc_scatter<TM, T>(B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w,     \
                               sx_k, sxb_k, su_w, su_k, sy_w, sy_k, instance, \
-                              stream);                                       \
-  }                                                                          \
+                              kc, stream);                                   \
+  }
+
+#define REPRO_ENTRIES(SUFFIX, TM, T)                                         \
+  REPRO_APC_ENTRIES(SUFFIX, TM, T)                                           \
   int cimmino_gather_##SUFFIX(const void* A, const void* Xbar, void* U,      \
                               int64_t m, int64_t p, int64_t n, int64_t k,    \
                               int64_t sxb_k, int64_t su_w, int64_t su_k,     \
-                              int64_t instance, void* stream) {              \
+                              int64_t instance, int64_t kc, void* stream) {  \
     return cimmino_gather<TM, T>(A, Xbar, U, m, p, n, k, sxb_k, su_w, su_k,  \
-                                 instance, stream);                          \
+                                 instance, kc, stream);                      \
   }                                                                          \
   int cimmino_scatter_##SUFFIX(const void* B, const void* V, void* R,        \
                                int64_t m, int64_t n, int64_t p, int64_t k,   \
                                int64_t sv_w, int64_t sv_k, int64_t sr_w,     \
-                               int64_t sr_k, int64_t instance,               \
+                               int64_t sr_k, int64_t instance, int64_t kc,   \
                                void* stream) {                               \
     return cimmino_scatter<TM, T>(B, V, R, m, n, p, k, sv_w, sv_k, sr_w,     \
-                                  sr_k, instance, stream);                   \
+                                  sr_k, instance, kc, stream);               \
   }                                                                          \
   int sparse_gather_##SUFFIX(const void* vals, const void* cols,             \
                              const void* X, const void* Xbar, void* U,       \
                              int64_t m, int64_t p, int64_t w, int64_t k,     \
                              int64_t sx_w, int64_t sx_k, int64_t sxb_k,      \
                              int64_t su_w, int64_t su_k, int64_t instance,   \
-                             void* stream) {                                 \
+                             int64_t kc, void* stream) {                     \
     return sparse_gather<TM, T>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,    \
-                                sx_k, sxb_k, su_w, su_k, instance, stream);  \
+                                sx_k, sxb_k, su_w, su_k, instance, kc,       \
+                                stream);                                     \
   }                                                                          \
   int sparse_cimmino_gather_##SUFFIX(                                        \
       const void* vals, const void* cols, const void* Xbar, void* U,         \
       int64_t m, int64_t p, int64_t w, int64_t k, int64_t sxb_k,             \
-      int64_t su_w, int64_t su_k, int64_t instance, void* stream) {          \
+      int64_t su_w, int64_t su_k, int64_t instance, int64_t kc,              \
+      void* stream) {                                                        \
     return sparse_cimmino_gather<TM, T>(vals, cols, Xbar, U, m, p, w, k,     \
-                                        sxb_k, su_w, su_k, instance,         \
+                                        sxb_k, su_w, su_k, instance, kc,     \
                                         stream);                             \
   }                                                                          \
   int sparse_scatter_##SUFFIX(const void* Bvals, const void* cols,           \
@@ -1590,29 +1705,31 @@ extern "C" {
                               int64_t m, int64_t w, int64_t p, int64_t k,    \
                               int64_t sx_w, int64_t sx_k, int64_t sxb_k,     \
                               int64_t su_w, int64_t su_k, int64_t sy_w,      \
-                              int64_t sy_k, int64_t instance,                \
+                              int64_t sy_k, int64_t instance, int64_t kc,    \
                               void* stream) {                                \
     return sparse_scatter<TM, T>(Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, \
                                  k, sx_w, sx_k, sxb_k, su_w, su_k, sy_w,     \
-                                 sy_k, instance, stream);                    \
+                                 sy_k, instance, kc, stream);                \
   }
 
 REPRO_ENTRIES(f64, double, double)
 REPRO_ENTRIES(f32, float, float)
 REPRO_ENTRIES(bf16_f64, __nv_bfloat16, double)
 REPRO_ENTRIES(bf16_f32, __nv_bfloat16, float)
+REPRO_APC_ENTRIES(bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 
 #undef REPRO_ENTRIES
+#undef REPRO_APC_ENTRIES
 
 // The ring instance's dynamic shared memory at the k-chunk of k, in
 // bytes, for a matrix of matrix_itemsize bytes (8, 4 or 2), a compute
-// type of itemsize bytes (8 or 4) and a form (kApcForm or
-// kCimminoForm); 0 for any other.
+// type of itemsize bytes (8, 4, or 2 beside a bf16 matrix) and a form
+// (kApcForm or kCimminoForm); 0 for any other.
 int64_t gather_ring_smem(int64_t matrix_itemsize, int64_t itemsize,
                          int64_t k, int64_t form) {
   if (form != kApcForm && form != kCimminoForm) return 0;
   int64_t bytes = 0;
-  with_kc(k, [&](auto kc) {
+  with_kc(kc_for(k), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     const auto of = [&](auto tm, auto t) {
       using TM = decltype(tm);
@@ -1628,6 +1745,8 @@ int64_t gather_ring_smem(int64_t matrix_itemsize, int64_t itemsize,
       of(__nv_bfloat16{}, double{});
     else if (matrix_itemsize == 2 && itemsize == 4)
       of(__nv_bfloat16{}, float{});
+    else if (matrix_itemsize == 2 && itemsize == 2)
+      of(__nv_bfloat16{}, __nv_bfloat16{});
   });
   return bytes;
 }

@@ -19,14 +19,15 @@ batch dimension out where the reference vmaps).  The histories run
 through ``executor.run_history``: on the card the step loop is captured
 into a CUDA graph and replayed, as the reference compiles its
 ``lax.scan``; every record stays on the device, and the host reads them
-once, at the end.  The loose-kwarg shim of the reference
-(``_coerce_plan``) is ROADMAP item A18: ``plan=`` is the only execution
-surface here.
+once, at the end.  ``plan=`` is the execution surface; the reference's
+loose execution kwargs (``use_kernel=``, ``warm_state=``, ...) survive as
+its deprecation shim, :func:`_coerce_plan`.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -40,6 +41,67 @@ from repro_torch.solvers.capability import ExecutionPlan, resolve_plan
 __all__ = ["Solver", "SolveResult", "iters_to_tolerance"]
 
 log = logging.getLogger(__name__)
+
+_UNSET = object()     # sentinel distinguishing "not passed" from None
+
+# legacy kwarg -> ExecutionPlan field (the use_kernel rename is the only
+# non-identity entry); everything here goes through the deprecation shim
+_LEGACY_PLAN_KWARGS = {
+    "use_kernel": "kernel", "precision": "precision",
+    "warm_state": "warm_state", "factors": "factors", "store": "store",
+    "backend": "backend", "mesh": "mesh", "worker_axes": "worker_axes",
+    "model_axis": "model_axis", "redundancy": "redundancy",
+    "alive_schedule": "alive_schedule",
+}
+# the legacy kwargs naming plan fields the port's plan does not have yet,
+# and the ROADMAP item that brings each
+_UNPORTED_PLAN_KWARGS = {"mesh": "A14", "worker_axes": "A14",
+                         "model_axis": "A14", "alive_schedule": "A15"}
+
+
+def _coerce_plan(plan: Optional[ExecutionPlan], legacy: Dict[str, Any],
+                 *, context: str) -> ExecutionPlan:
+    """Resolve the plan/legacy-kwarg split of a solve call (the
+    reference's shim).
+
+    Exactly one of the two surfaces may be used: an explicit ``plan=``
+    wins, loose legacy kwargs build one and emit exactly ONE
+    ``DeprecationWarning`` per call (however many were passed), and
+    mixing the two is a ``ValueError``: silently merging would make the
+    plan lie about what runs.  A loose kwarg naming a plan field the port
+    has not ported (``mesh``, ``worker_axes``, ``model_axis``,
+    ``alive_schedule``) raises ``NotImplementedError`` naming its ROADMAP
+    item, after the warning; ``backend="mesh"`` and ``redundancy=`` reach
+    ``resolve_plan``, which raises so.
+    """
+    given = {k: v for k, v in legacy.items() if v is not _UNSET}
+    if plan is not None:
+        if given:
+            raise ValueError(
+                f"{context} was called with both plan= and the legacy "
+                f"kwargs {sorted(given)}; put everything on the "
+                f"ExecutionPlan")
+        if not isinstance(plan, ExecutionPlan):
+            raise TypeError(f"plan= must be an ExecutionPlan, got "
+                            f"{type(plan).__name__}")
+        return plan
+    if not given:
+        return ExecutionPlan()
+    warnings.warn(
+        f"passing {sorted(given)} to {context} as loose kwargs is "
+        f"deprecated; build an ExecutionPlan and pass plan= instead "
+        f"(e.g. plan=ExecutionPlan("
+        + ", ".join(f"{_LEGACY_PLAN_KWARGS[k]}=..." for k in sorted(given))
+        + "))", DeprecationWarning, stacklevel=3)
+    unported = sorted(k for k in given if k in _UNPORTED_PLAN_KWARGS)
+    if unported:
+        raise NotImplementedError(
+            f"{context}: {unported} name plan fields that are not ported "
+            f"yet (ROADMAP "
+            + ", ".join(sorted({_UNPORTED_PLAN_KWARGS[k] for k in unported}))
+            + ")")
+    return ExecutionPlan(**{_LEGACY_PLAN_KWARGS[k]: v
+                            for k, v in given.items()})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,9 +215,22 @@ class Solver:
         pass."""
         return self.default_params(sys), None
 
+    def theoretical_rate(self, sys: BlockSystem) -> Optional[float]:
+        """Closed-form optimal spectral radius rho, if known (Table 1):
+        ``analyze``'s."""
+        return self.analyze(sys)[1]
+
     def kernel_factors(self, factors: Any) -> Any:
         """Augment factors with kernel-path precomputation (idempotent)."""
         return factors
+
+    def resolve_engine(self, factors: Any, k: int,
+                       dtype: torch.dtype) -> None:
+        """Resolve every engine and tile verdict the kernel path's steps
+        on ``factors`` with k right-hand sides in ``dtype`` read
+        (``kernels.ops.use_fused``, ``pick_tiles``), measuring where they
+        measure: called before a build or capture, so a captured step
+        reads only their caches.  Solvers without a kernel have none."""
 
     # ----- mixed-precision matrix streams ----------------------------------
     def cast_factors(self, factors: Any, precision: str) -> Any:
@@ -267,6 +342,12 @@ class Solver:
 
     def solve(self, sys: BlockSystem, *, iters: int = 1000, tol: float = 1e-6,
               plan: Optional[ExecutionPlan] = None,
+              use_kernel: Any = _UNSET, precision: Any = _UNSET,
+              warm_state: Any = _UNSET,
+              factors: Any = _UNSET, store: Any = _UNSET,
+              backend: Any = _UNSET, mesh: Any = _UNSET,
+              worker_axes: Any = _UNSET, model_axis: Any = _UNSET,
+              redundancy: Any = _UNSET, alive_schedule: Any = _UNSET,
               **params) -> SolveResult:
         """End-to-end solve: prepare -> init (or warm start) -> T steps.
 
@@ -280,9 +361,16 @@ class Solver:
         In least-squares mode the history is the optimality residual
         (``ls_moment``), the fused residual is off, and ``errors`` are
         taken against ``ls_reference`` when ``sys.x_true`` is None.
+        The loose kwargs (``use_kernel=``, ``warm_state=``, ...) are the
+        deprecated shim of :func:`_coerce_plan`.
         """
-        plan = resolve_plan(self, sys, plan or ExecutionPlan(),
-                            context="solve")
+        plan = _coerce_plan(plan, dict(
+            use_kernel=use_kernel, precision=precision,
+            warm_state=warm_state, factors=factors, store=store,
+            backend=backend, mesh=mesh, worker_axes=worker_axes,
+            model_axis=model_axis, redundancy=redundancy,
+            alive_schedule=alive_schedule), context="solve")
+        plan = resolve_plan(self, sys, plan, context="solve")
         prm = self.resolve_params(sys, **params)
         factors = self._factors(sys, plan, prm,
                                 resume=plan.warm_state is not None)
@@ -311,14 +399,26 @@ class Solver:
 
     def solve_many(self, sys: BlockSystem, B, *, iters: int = 1000,
                    tol: float = 1e-6, plan: Optional[ExecutionPlan] = None,
+                   use_kernel: Any = _UNSET, precision: Any = _UNSET,
+                   factors: Any = _UNSET, store: Any = _UNSET,
+                   backend: Any = _UNSET,
+                   mesh: Any = _UNSET, worker_axes: Any = _UNSET,
+                   model_axis: Any = _UNSET,
+                   redundancy: Any = _UNSET, alive_schedule: Any = _UNSET,
                    **params) -> SolveResult:
         """Batched multi-RHS solve sharing ONE ``prepare`` factorization.
 
         ``B`` is (k, N) — k right-hand sides for the same A.  Returns a
         batched SolveResult: x (k, n), residuals (k, T), errors None.
+        The loose kwargs are the same deprecated shim as ``solve``'s.
         """
-        plan = resolve_plan(self, sys, plan or ExecutionPlan(),
-                            context="solve_many")
+        plan = _coerce_plan(plan, dict(
+            use_kernel=use_kernel, precision=precision, factors=factors,
+            store=store, backend=backend, mesh=mesh,
+            worker_axes=worker_axes, model_axis=model_axis,
+            redundancy=redundancy, alive_schedule=alive_schedule),
+            context="solve_many")
+        plan = resolve_plan(self, sys, plan, context="solve_many")
         B = torch.as_tensor(B, dtype=sys.b_blocks.dtype, device=sys.device)
         if B.ndim == 1:
             B = B[None, :]

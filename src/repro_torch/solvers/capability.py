@@ -79,6 +79,7 @@ class ExecutionPlan:
     versions for tensors on the CPU).  ``warm_state`` resumes from a prior state;
     ``factors`` skips the one-time factorization; ``store`` (a
     ``FactorStore``) obtains it through the content-addressed cache.
+    Plans are frozen: derive variants with :meth:`replace`.
     """
 
     backend: str = "local"
@@ -95,6 +96,10 @@ class ExecutionPlan:
             raise ValueError(
                 f"ExecutionPlan.redundancy must be an int >= 1, got "
                 f"{self.redundancy!r}")
+
+    def replace(self, **changes) -> "ExecutionPlan":
+        """A copy with ``changes`` applied (plans are immutable)."""
+        return dataclasses.replace(self, **changes)
 
     def signature(self) -> tuple:
         """Hashable dispatch identity: which compiled program this plan
@@ -119,7 +124,7 @@ def resolve_plan(solver, sys, plan: ExecutionPlan, *,
     kernel = resolve_use_kernel(solver, sys, plan.kernel)
     solver._check_precision(plan.precision, kernel)
     if kernel != plan.kernel:
-        plan = dataclasses.replace(plan, kernel=kernel)
+        plan = plan.replace(kernel=kernel)
     if plan.backend == "mesh":
         raise NotImplementedError(
             "backend='mesh' is not ported yet (ROADMAP A14)")

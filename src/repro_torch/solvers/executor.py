@@ -12,7 +12,9 @@ through ``ctypes``, and PyTorch's glue) without the host's launch work.
 * :func:`run_history`, the history of ``Solver.solve``/``solve_many``:
   the first :data:`CHUNK` steps run eagerly (they are real iterations,
   and they make the first launch of every kernel instance, library handle
-  and module outside the capture); one CHUNK-step graph is captured from
+  and module outside the capture, and resolve the engine and tile
+  verdicts the steps read, ``kernels.ops``); one CHUNK-step graph is
+  captured from
   the state they leave and replayed ⌊(T−C)/C⌋ times; the last
   (T−C) mod C steps run eagerly.  No graph outlives the call.
 * :class:`LocalExecutor`, the reusable program of serving (ROADMAP A13):
@@ -562,6 +564,9 @@ class LocalExecutor:
         if cold:
             with default_linalg():
                 states = self.solver.init(factors, Bb, self.prm)
+        if self.use_kernel:
+            # the engine and tile verdicts, before any build or capture
+            self.solver.resolve_engine(factors, Bb.shape[0], Bb.dtype)
         with self._lock:
             served = self._programs.get(key)
             if served is None:

@@ -10,8 +10,10 @@ through the CUDA kernels on the card (APC and consensus:
 ``apc_gather``/``apc_scatter``; Cimmino: ``cimmino_gather``/
 ``cimmino_scatter``; on sparse systems ``sparse_gather``/
 ``sparse_cimmino_gather``/``sparse_scatter`` over the compressed
-support), at every batch size, and through their plain versions on the
-CPU.  ``precision="mixed"`` stores the kernels' A and B in bfloat16
+support), and through their plain versions on the CPU, wherever the
+engine verdict (``kernels.ops.use_fused``, the reference's dispatch)
+says fused; where it says unfused, the step is the unfused one, bit for
+bit.  ``precision="mixed"`` stores the kernels' A and B in bfloat16
 (``cast_factors``).
 
 Every hook is batch-polymorphic: states may carry a leading (k,) RHS
@@ -97,6 +99,30 @@ def _min_norm_solutions(factors: ProjFactors,
     return blockops.brmatvec(factors.A, _gram_solve(factors.chol, b))
 
 
+def _fused(family: str, A, k: int, dtype: torch.dtype) -> bool:
+    """The engine verdict (``kernels.ops.use_fused``) of ``family``'s
+    kernel pair on the operand A (dense, or the ``_sparse`` family's on a
+    ``SparseBlocks``) with k right-hand sides in ``dtype``, asked with
+    A's stored dtype as the reference asks it."""
+    if blockops.is_sparse(A):
+        V = A.vals
+        return kops.use_fused(f"{family}_sparse", V.shape[1],
+                              blockops.ncols(A), k, V.dtype, w=V.shape[2],
+                              device=V.device, compute_dtype=dtype)
+    return kops.use_fused(family, A.shape[1], A.shape[2], k, A.dtype,
+                          device=A.device, compute_dtype=dtype)
+
+
+def _resolve(family: str, factors: ProjFactors, k: int,
+             dtype: torch.dtype) -> None:
+    """Every verdict a kernel-path step of ``family`` on ``factors`` with
+    k right-hand sides reads: the engine's, and where it says fused, the
+    kernels' k-chunk (``kernels.ops.launch_kc``)."""
+    if _fused(family, factors.A, k, dtype):
+        M = factors.A.vals if blockops.is_sparse(factors.A) else factors.A
+        kops.launch_kc(M, M.shape[2], M.shape[1], k, dtype)
+
+
 def _row_projections(A, chol, b, xbar):
     """(r, v): the row projections r_i = A_iᵀG_i⁻¹v_i (..., m, n) of
     v = b − A x̄, unfused, for dense or sparse A."""
@@ -144,15 +170,23 @@ class APCSolver(Solver):
         x0 = _min_norm_solutions(factors, b)
         return APCState(x=x0, xbar=x0.mean(dim=-2), t=0)
 
+    def resolve_engine(self, factors, k, dtype):
+        _resolve("apc", factors, k, dtype)
+
     def _step_u(self, factors, state, gamma, use_kernel):
         """The worker update (Eq. 2a) and its gather result u, in the
         state's layout.  The kernel path hands the kernels the (m, k, n)
-        view of a batched (k, m, n) iterate — a transpose, not a copy."""
+        view of a batched (k, m, n) iterate — a transpose, not a copy —
+        where the engine verdict says fused; else the unfused update."""
+        batched = state.x.dim() == 3
+        if use_kernel:
+            use_kernel = _fused("apc", factors.A,
+                                state.x.shape[0] if batched else 1,
+                                state.x.dtype)
         if not use_kernel:
             return apc_core.worker_update(factors.A, factors.chol, state,
                                           gamma)
         factors = _with_pinv(factors)
-        batched = state.x.dim() == 3
         X = state.x.transpose(0, 1) if batched else state.x
         if blockops.is_sparse(factors.A):
             Asp = factors.A
@@ -242,15 +276,22 @@ class CimminoSolver(Solver):
             xbar=b.new_zeros(b.shape[:-2] + (blockops.ncols(factors.A),)),
             t=0)
 
+    def resolve_engine(self, factors, k, dtype):
+        _resolve("cimmino", factors, k, dtype)
+
     def _r_v(self, factors, b, xbar, use_kernel):
         """(Σ_i r_i, v): the summed row projections r_i = A_iᵀG_i⁻¹v_i and
         v = b − A x̄, the residual source, in b's layout.  The kernel path
-        hands the kernels the (m, k, p) view of a batched b (no copy)."""
+        hands the kernels the (m, k, p) view of a batched b (no copy)
+        where the engine verdict says fused; else the unfused step."""
+        batched = b.dim() == 3
+        if use_kernel:
+            use_kernel = _fused("cimmino", factors.A,
+                                b.shape[0] if batched else 1, b.dtype)
         if not use_kernel:
             r, v = _row_projections(factors.A, factors.chol, b, xbar)
             return r.sum(dim=-2), v
         factors = _with_pinv(factors)
-        batched = b.dim() == 3
         bw = b.transpose(0, 1) if batched else b
         if blockops.is_sparse(factors.A):
             Asp = factors.A

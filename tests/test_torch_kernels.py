@@ -130,8 +130,9 @@ def test_no_fallback_between_kernel_and_plain_version():
     with pytest.raises(TypeError, match="dtypes"):
         ops.proj_gather(A, X.float(), Xb)
     with pytest.raises(TypeError, match="dtypes"):
-        ops.block_projection(A.bfloat16(), B.bfloat16(), X.bfloat16(),
-                             Xb.bfloat16(), 1.0)
+        ops.cimmino_update(A.bfloat16(), B.bfloat16(),
+                           torch.zeros(M, 4, dtype=torch.bfloat16),
+                           Xb.bfloat16())
     assert ops.launch_counts() == before
 
 
@@ -158,9 +159,20 @@ def test_ctypes_signatures_match_the_cuda_source():
     assert found == len(bp.KERNELS)
     cxx = {torch.float64: "double", torch.float32: "float",
            torch.bfloat16: "__nv_bfloat16"}
+    # every kernel's entries for the first four pairs, the APC pair's
+    # alone for the all-bf16 one
     assert re.findall(r"^REPRO_ENTRIES\((\w+), (\w+), (\w+)\)$", body,
-                      re.M) == [(suffix, cxx[tm], cxx[t])
-                                for (tm, t), suffix in bp.PAIRS.items()]
+                      re.M) == [(suffix, cxx[tm], cxx[t]) for (tm, t), suffix
+                                in bp.pairs("cimmino_gather").items()]
+    assert re.findall(r"^REPRO_APC_ENTRIES\((\w+), (\w+), (\w+)\)$",
+                      body, re.M) == [
+        (suffix, cxx[tm], cxx[t]) for (tm, t), suffix in bp.PAIRS.items()
+        if (tm, t) not in bp.pairs("cimmino_gather")]
+    assert all(bp.pairs(kn) == bp.PAIRS for kn in bp.ALL_BF16)
+    assert [kn for kn in bp.KERNELS if re.search(
+        rf"int {kn}_##SUFFIX", body[body.index("#define REPRO_APC_ENTRIES"):
+                                    body.index("#define REPRO_ENTRIES")])
+            ] == list(bp.ALL_BF16)
     # the ring's shared-memory query returns int64_t and takes the form
     (params,) = re.findall(r"int64_t gather_ring_smem\(([^)]*)\)", body)
     assert types(params) == bp.RING_SMEM_ARGTYPES
@@ -168,15 +180,16 @@ def test_ctypes_signatures_match_the_cuda_source():
     assert "kApcForm = {apc}, kCimminoForm = {cimmino};".format(
         **bp.FORMS) in src
     # every kernel, the four gathers and the three scatters, takes its
-    # instance as the int64 before the stream
+    # instance and then its k-chunk as the two int64 before the stream
     assert sorted(bp.RINGS) == sorted(bp.KERNELS)
     for kernel in bp.KERNELS:
         (params,) = re.findall(rf"int {kernel}_##SUFFIX\(([^)]*)\)", body)
-        has = params.split(",")[-2].split() == ["int64_t", "instance"]
+        has = [x.split() for x in params.split(",")[-3:-1]] == [
+            ["int64_t", "instance"], ["int64_t", "kc"]]
         assert has == (kernel in bp.RINGS), kernel
         if has:
-            assert bp.ARGTYPES[kernel][-2:] == [ctypes.c_int64,
-                                                ctypes.c_void_p]
+            assert bp.ARGTYPES[kernel][-3:] == [ctypes.c_int64] * 2 + [
+                ctypes.c_void_p]
     assert "kRowDot = {row_dot}, kRing = {ring};".format(
         **bp.INSTANCES) in src
     # each of them has its ring kernel
@@ -356,7 +369,8 @@ def test_scatter_launchers_pass_their_instance(monkeypatch, kernel, p, k,
     """The scatters hand their C entry the instance that
     ``gather_instance(matrix, staged operand, scatter=True)`` picks (the
     row dot at k = 1 in float64), or the forced one, as the int64 before
-    the stream; forcing the ring on rows it cannot copy raises before any
+    the k-chunk (0, the library's own, unless one is given) and the
+    stream; forcing the ring on rows it cannot copy raises before any
     launch.  (The entries cannot run here: the device checks and the
     launch are stood in for.)"""
     calls = []
@@ -389,7 +403,7 @@ def test_scatter_launchers_pass_their_instance(monkeypatch, kernel, p, k,
         return
     launch()
     ((name, args),) = calls
-    assert name == kernel and args[-1] == bp.INSTANCES[want]
+    assert name == kernel and args[-2:] == (bp.INSTANCES[want], 0)
 
 
 def test_ring_smem_bytes_takes_the_form(monkeypatch):
@@ -437,13 +451,17 @@ def test_launch_counts_by_dtype_pair(monkeypatch, pair):
     monkeypatch.setattr(bp, "_launches", dict.fromkeys(bp._launches, 0))
     matrix_dtype, dtype = pair
     suffix = bp.PAIRS[pair]
-    bp._launch("cimmino_scatter", torch.zeros(1, dtype=matrix_dtype),
+    # a kernel with the pair's entries: the all-bf16 pair is the APC
+    # kernels' alone
+    kname = ("cimmino_scatter" if pair in bp.pairs("cimmino_scatter")
+             else "apc_scatter")
+    bp._launch(kname, torch.zeros(1, dtype=matrix_dtype),
                torch.zeros(1, dtype=dtype), 1, 2)
-    bp._launch("cimmino_scatter", torch.zeros(1, dtype=matrix_dtype),
+    bp._launch(kname, torch.zeros(1, dtype=matrix_dtype),
                torch.zeros(1, dtype=dtype), 3, 4)
-    assert called == [(f"cimmino_scatter_{suffix}", (1, 2, 7)),
-                      (f"cimmino_scatter_{suffix}", (3, 4, 7))]
-    want = {kn: 2 if kn == "cimmino_scatter" else 0 for kn in bp.KERNELS}
+    assert called == [(f"{kname}_{suffix}", (1, 2, 7)),
+                      (f"{kname}_{suffix}", (3, 4, 7))]
+    want = {kn: 2 if kn == kname else 0 for kn in bp.KERNELS}
     assert bp.launch_counts() == bp.launch_counts(suffix) == want
     for other in set(bp.PAIRS.values()) - {suffix}:
         assert bp.launch_counts(other) == dict.fromkeys(bp.KERNELS, 0)

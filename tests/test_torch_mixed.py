@@ -252,14 +252,15 @@ def test_mixed_sparse_ops_match_reference(systems, k, dtype):
     (torch.bfloat16, torch.float32, True),
     (torch.float64, torch.float64, True),
     (torch.float32, torch.float32, True),
-    (torch.bfloat16, torch.bfloat16, False),   # the all-bf16 form: B1b
+    (torch.bfloat16, torch.bfloat16, True),    # the all-bf16 form (B1b)
     (torch.float32, torch.float64, False),
     (torch.float64, torch.float32, False),
     (torch.bfloat16, torch.float16, False),
 ])
 def test_ops_admit_exactly_the_kernels_dtype_pairs(matrix, operands, ok):
-    """The ops take the four pairs the CUDA kernels have entries for and
-    refuse every other before a plain version (or a kernel) runs."""
+    """The APC ops take the five pairs the CUDA kernels have entries for
+    (the all-bf16 one too) and refuse every other before a plain version
+    (or a kernel) runs."""
     A = torch.ones((2, 3, 16), dtype=matrix)
     X = torch.ones((2, 16), dtype=operands)
     Xb = torch.ones(16, dtype=operands)

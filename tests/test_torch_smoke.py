@@ -199,10 +199,11 @@ def fake_cuda_graphs(monkeypatch):
                         else backend[0])
 
 
-def _contract(name, matrix, operands, cols=None):
+def _contract(name, matrix, operands, cols=None, kc=None):
     assert matrix.is_contiguous(), (name, "matrix stack not contiguous")
     assert len({t.dtype for t in operands}) == 1, name
-    assert (matrix.dtype, operands[0].dtype) in bp.PAIRS, name
+    assert (matrix.dtype, operands[0].dtype) in bp.pairs(name), name
+    assert kc is None or kc in bp.KC_VALUES, (name, kc)
     for t in operands:
         assert t.shape[-1] <= 1 or t.stride(-1) == 1, (name, t.stride())
     if cols is not None:
@@ -218,46 +219,46 @@ def _by_row(k, f):
 
 
 def _fake_launchers():
-    def apc_gather(A, X, Xb, *, _instance=None):
-        _contract("apc_gather", A, [X, Xb])
+    def apc_gather(A, X, Xb, *, kc=None, _instance=None):
+        _contract("apc_gather", A, [X, Xb], kc=kc)
         bp.gather_instance(A, X, Xb, forced=_instance)
         return _by_row(Xb.shape[0], lambda i: ops.apc_gather_ref(
             A, X[:, i], Xb[i])).contiguous()
 
-    def apc_scatter(B, X, Xb, U, gamma, *, _instance=None):
-        _contract("apc_scatter", B, [X, Xb, U])
+    def apc_scatter(B, X, Xb, U, gamma, *, kc=None, _instance=None):
+        _contract("apc_scatter", B, [X, Xb, U], kc=kc)
         bp.gather_instance(B, U, forced=_instance, scatter=True)
         return _by_row(Xb.shape[0], lambda i: ops.apc_scatter_ref(
             B, X[:, i], Xb[i], U[:, i], gamma))
 
-    def cimmino_gather(A, Xb, *, _instance=None):
-        _contract("cimmino_gather", A, [Xb])
+    def cimmino_gather(A, Xb, *, kc=None, _instance=None):
+        _contract("cimmino_gather", A, [Xb], kc=kc)
         bp.gather_instance(A, Xb, forced=_instance)
         return _by_row(Xb.shape[0], lambda i: ops.cimmino_gather_ref(
             A, Xb[i])).contiguous()
 
-    def cimmino_scatter(B, V, *, _instance=None):
-        _contract("cimmino_scatter", B, [V])
+    def cimmino_scatter(B, V, *, kc=None, _instance=None):
+        _contract("cimmino_scatter", B, [V], kc=kc)
         bp.gather_instance(B, V, forced=_instance, scatter=True)
         return _by_row(V.shape[1], lambda i: ops.cimmino_scatter_ref(
             B, V[:, i])).contiguous()
 
-    def sparse_gather(vals, cols, X, Xb, *, _instance=None):
-        _contract("sparse_gather", vals, [X, Xb], cols)
+    def sparse_gather(vals, cols, X, Xb, *, kc=None, _instance=None):
+        _contract("sparse_gather", vals, [X, Xb], cols, kc)
         bp.gather_instance(vals, forced=_instance)
         return _by_row(Xb.shape[0], lambda i: ops.sparse_gather_ref(
             vals, cols, X[:, i], Xb[i])).contiguous()
 
-    def sparse_cimmino_gather(vals, cols, Xb, *, _instance=None):
-        _contract("sparse_cimmino_gather", vals, [Xb], cols)
+    def sparse_cimmino_gather(vals, cols, Xb, *, kc=None, _instance=None):
+        _contract("sparse_cimmino_gather", vals, [Xb], cols, kc)
         bp.gather_instance(vals, forced=_instance)
         return _by_row(Xb.shape[0], lambda i: ops.sparse_cimmino_gather_ref(
             vals, cols, Xb[i])).contiguous()
 
     def sparse_scatter(Bv, cols, U, out, *, X=None, Xbar=None, gamma=0.0,
-                       _instance=None):
+                       kc=None, _instance=None):
         _contract("sparse_scatter", Bv,
-                  [U, out] + ([] if X is None else [X, Xbar]), cols)
+                  [U, out] + ([] if X is None else [X, Xbar]), cols, kc)
         bp.gather_instance(Bv, U, forced=_instance, scatter=True)
         C = _by_row(U.shape[1], lambda i: torch.einsum(
             "mwp,mkp->mkw", Bv.to(U.dtype), U[:, i]))
@@ -296,6 +297,10 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             k["device"] = "cpu"
         return as_tensor(*a, **k)
     monkeypatch.setattr(torch, "as_tensor", cpu_as_tensor)
+    monkeypatch.setattr(smoke, "randn", lambda seed, *shape,
+                        dtype=torch.float64: torch.randn(
+                            shape, generator=torch.Generator().manual_seed(
+                                seed)).to(dtype))
     for name, value in dict(
             is_available=lambda: True, synchronize=lambda *a: None,
             empty_cache=lambda: None, device_count=lambda: 1,
@@ -328,7 +333,14 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
         "smem\n" + "".join(
             ring.format(f"{len(kn) + 12}{kn}_ring_kernel", tm,
                         "Lb1E" if kn == "sparse_scatter" else "")
-            for kn in bp.RINGS for tm in ("d", "13__nv_bfloat16")))
+            for kn in bp.RINGS for tm in ("d", "13__nv_bfloat16"))
+        # the all-bf16 APC pair (its compute type mangled as "S0_"), both
+        # instances
+        + "".join(
+            ring.format(f"{len(kn) + len(inst) + 7}{kn}{inst}_kernel",
+                        "13__nv_bfloat16", "").replace(
+                "bfloat16dLi8E", "bfloat16S0_Li8E")
+            for kn in bp.ALL_BF16 for inst in ("", "_ring")))
     monkeypatch.setattr(bp, "build", lambda sources=bp.SOURCES: {
         "block_projection.cu": lib})
     # the two forms' stage sizes at KC = 8: (64 + 16) and (64 + 8) rows of
@@ -492,21 +504,55 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     form_keys = {"pair", "k", "ms", "row_dot_ms", "ring_ms", "bound_ms",
                  "bound_by", "launches", "max_abs_err", "library_ms",
                  "library"}
+    bf = "bfloat16/bfloat16"
     for k in kernels:
         assert set(k) == keys and k["launches"] == 40, k
         assert np.isfinite([k["ms"], k["plain_ms"], k["bound_ms"]]).all()
-        assert [f["pair"] for f in k["forms"]] == list(pairs)
+        # the APC pair's all-bf16 form beside the four others, its
+        # launches from phase 15's ops.block_projection
+        allbf = k["name"] in bp.ALL_BF16
+        assert [f["pair"] for f in k["forms"]] == list(pairs) + [bf] * allbf
         # each form's count from its own runs
-        assert [f["launches"] for f in k["forms"]] == [40] * 4, k
+        assert [f["launches"] for f in k["forms"]] == [40] * 4 + [1] * allbf
         for f in k["forms"]:
             assert set(f) == form_keys and np.isfinite(f["ms"]), f
             assert (f["row_dot_ms"] is None) == (
-                k["name"] not in bp.RINGS or (k["name"] in bp.GATHERS
-                                              and f is not k["forms"][0]))
+                k["name"] not in bp.RINGS or (
+                    k["name"] in bp.GATHERS and f is not k["forms"][0]
+                    and f["pair"] != bf))
             assert (f["ring_ms"] is None) == (k["name"] not in bp.SCATTERS)
         assert np.isfinite(k["forms"][1]["library_ms"])
-        for f in k["forms"][2:]:
+        for f in k["forms"][2:4]:
             assert f["library_ms"] is None
             assert f["library"].startswith("none")
+        for f in k["forms"][4:]:
+            assert np.isfinite([f["library_ms"], f["bound_ms"],
+                                f["max_abs_err"]]).all(), f
+            assert f["library"] is None and f["bound_by"] == "bytes", f
+    # phase 15: the all-bf16 pair at k = 1 and 8 (every instance, then
+    # its times) and end to end, the engine verdicts without a pin (the
+    # faked card is the CPU: the heuristic), the solves under them, the
+    # k-chunk pins
+    p15 = [x for x in lines if x.startswith("phase 15 ")]
+    for kn in bp.ALL_BF16:
+        for k in (1, 8):
+            got = [x for x in p15 if x.startswith(f"phase 15 {kn} k={k} ")]
+            assert len(got) == 2 and "row_dot" in got[0] and (
+                "torch.matmul bf16" in got[1]), got
+    assert sum(x.startswith("phase 15 ops.block_projection k=")
+               for x in p15) == 2
+    engine = [x for x in p15 if x.startswith("phase 15 engine ")]
+    assert len(engine) == 8 and all(
+        "not measured (the heuristic)" in x for x in engine), engine
+    for half in ("dense", "sparse"):
+        for sname in ("apc", "cimmino"):
+            assert sum(x.startswith(f"phase 15 {half} {sname} solve_many "
+                                    "k=8 no pin: verdict fused")
+                       for x in p15) == 1, (half, sname)
+    assert any(x.startswith("phase 15 KC pins k=8")
+               and "bit-equal across the pins True" in x
+               and "a pin of 16 refused" in x for x in p15), p15
+    for label in ("phase 15 start", "phase 15 end"):
+        assert sum(x.startswith(f"{label} clocks") for x in lines) == 1
     assert [k["replaces"].rsplit(":", 1)[1] for k in kernels] == [
         "173", "210", "246", "274", "313", "314", "315"]
