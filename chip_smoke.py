@@ -134,7 +134,27 @@ script exits non-zero without its last line:
    1e-6 relative of the pinned-fused one; (c) each k-chunk pin
    (``REPRO_KERNEL_BK`` 1, 2, 4, 8) on a K_MANY gather and scatter of the
    main path against the plain version, timed in turns, the outputs of
-   the pins compared bit for bit, and the measured KC.
+   the pins compared bit for bit, and the measured KC;
+16. the mesh backend (after phase 15, on its dense system and phase 9's
+   sparse one): (a) one rank over NCCL on the card — APC, consensus and
+   Cimmino on the kernels with ``backend="mesh"`` (the on-mesh prepare)
+   against ``backend="local"``, x and the histories within the contract
+   of tests/test_mesh_backend.py (x rtol 1e-8 / atol 1e-10, histories
+   rtol 1e-6 / atol 1e-12, ``iters_to_tol`` equal), 150 launches of each
+   kernel, the whole solve's time mesh and local in turns; APC
+   ``solve_many`` k = K_MANY; sparse APC and Cimmino on the sparse
+   kernels; APC at ``precision="mixed"``; (b) two ranks on the one card
+   over gloo (NCCL refuses two ranks on one GPU), spawned as
+   ``chip_smoke.py --mesh-rank R DIR CONFIG``: meshes 1 data x 2 model
+   (the split gather -> ``all_reduce`` -> scatter on column shards of
+   n/2) and 2 data x 1 model, APC and Cimmino on the kernels, each held
+   to (a)'s local run within the same contract; each rank's four dense
+   kernels held against their plain versions on the operands of their
+   first launch in that run (the rank's own shards); each rank's
+   resident memory, the instances its launches took, launches, ms an
+   iteration, and, from one more run with every ``all_reduce`` timed
+   between two synchronizes, that run's ms an iteration and the
+   ``all_reduce``'s ms and share of it.
 
 Every other phase runs under ``REPRO_KERNEL_ENGINE=fused``, the pin the
 reference's own benchmarks use: the kernels those phases hold, count
@@ -211,6 +231,11 @@ CARDS = [("H100 PCIe", 2.0e12, 51e12, 51e12, 756e12),
 BF16_TOL = 8e-2
 BF = "bfloat16/bfloat16"
 ENGINE_ENV, BK_ENV = "REPRO_KERNEL_ENGINE", "REPRO_KERNEL_BK"
+# phase 16: the mesh against the local backend (tests/test_mesh_backend.py)
+MESH_X = dict(rtol=1e-8, atol=1e-10)
+MESH_H = dict(rtol=1e-6, atol=1e-12)
+MESH_SHAPES = ((1, 2), (2, 1))       # (data, model) of the two-rank runs
+MESH_DEADLINE = 150.0                # seconds for the two ranks
 SOURCE = "src/repro_torch/kernels/csrc/block_projection.cu"
 REPLACES = {"apc_gather": "src/repro/kernels/block_projection.py:173",
             "apc_scatter": "src/repro/kernels/block_projection.py:210",
@@ -227,10 +252,58 @@ USES = {"apc": ("apc_gather", "apc_scatter"),
 SPARSE_USES = {"apc": ("sparse_gather", "sparse_scatter"),
                "consensus": ("sparse_gather", "sparse_scatter"),
                "cimmino": ("sparse_cimmino_gather", "sparse_scatter")}
+# the dense kernels' wrappers in kernels/ops.py, which the mesh hooks call
+# apart (the gather, the all_reduce of u over the model axis, the
+# scatter), and their plain versions there
+WRAPPERS = {"apc_gather": ("proj_gather", "apc_gather_ref"),
+            "apc_scatter": ("proj_scatter", "apc_scatter_ref"),
+            "cimmino_gather": ("cimmino_gather", "cimmino_gather_ref"),
+            "cimmino_scatter": ("cimmino_scatter", "cimmino_scatter_ref")}
 
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def launched_instances(run):
+    """(``run()``, the set of (kernel, instance) its launches took): a
+    captured solve decides each instance once, at capture."""
+    from repro_torch.kernels import block_projection as bp
+    seen, launch = set(), bp._launch
+    names = {v: inst for inst, v in bp.INSTANCES.items()}
+
+    def spy(name, matrix, out, *args):
+        seen.add((name, names[args[-2]]))     # the instance, then kc
+        return launch(name, matrix, out, *args)
+    bp._launch = spy
+    try:
+        return run(), seen
+    finally:
+        bp._launch = launch
+
+
+@contextlib.contextmanager
+def kernel_calls(ops, kernels):
+    """Inside, the first call of each of ``kernels``' wrappers in ``ops``
+    (``WRAPPERS``) is kept: {kernel: (wrapper, its arguments)}, the
+    operands after the matrix cloned, so the kernel can be held against
+    its plain version on the very inputs a run gave it."""
+    calls, real = {}, {kn: getattr(ops, WRAPPERS[kn][0]) for kn in kernels}
+
+    def spy(kn):
+        def call(matrix, *args):
+            calls.setdefault(kn, (real[kn], (matrix, *(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args))))
+            return real[kn](matrix, *args)
+        return call
+    for kn in kernels:
+        setattr(ops, WRAPPERS[kn][0], spy(kn))
+    try:
+        yield calls
+    finally:
+        for kn in kernels:
+            setattr(ops, WRAPPERS[kn][0], real[kn])
 
 
 def smi() -> str:
@@ -805,7 +878,308 @@ def serving_phase(card, form_launches, dprm, sp, sp_pinned) -> None:
     shutil.rmtree(cdir, ignore_errors=True)
 
 
+def mesh_check(label, x, res, err, itt, loc) -> tuple[float, float]:
+    """Hold a mesh run (x, residuals, errors, iters_to_tol) to the local
+    SolveResult ``loc`` within the mesh contract: (max|Δx|, max|Δ
+    history|)."""
+    x = torch.as_tensor(x).to(loc.x)
+    res = torch.as_tensor(res).to(loc.residuals)
+    dx = float((x - loc.x).abs().max())
+    dh = float((res - loc.residuals).abs().max())
+    assert torch.allclose(x, loc.x, **MESH_X), (label, dx)
+    assert torch.allclose(res, loc.residuals, **MESH_H), (label, dh)
+    if err is not None and loc.errors is not None:
+        assert torch.allclose(torch.as_tensor(err).to(loc.errors),
+                              loc.errors, **MESH_H), label
+    assert np.array_equal(np.asarray(itt), np.asarray(loc.iters_to_tol)), \
+        (label, itt, loc.iters_to_tol)
+    return dx, dh
+
+
+def mesh_phase(card, dsys, dfac, sp, fs, pinned, sp_pinned,
+               form_launches) -> dict:
+    """Phase 16: the mesh backend on the card.  Returns the launches of
+    each kernel in (a)'s mesh runs, counted from 0 just before each."""
+    import torch.distributed as dist
+
+    from repro_torch import device as dev
+    from repro_torch import solvers
+    from repro_torch.kernels import block_projection as bp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    t16 = time.time()
+    # (a) one rank over NCCL: the default group this process starts
+    created = not dist.is_initialized()
+    mesh = mesh_lib.solver_mesh(1, 1)
+    say(f"phase 16 (a) mesh (('data', 1), ('model', 1)) over "
+        f"{dist.get_world_size()} rank(s), {dist.get_backend()} on "
+        f"{mesh_lib.mesh_device(mesh)}")
+    mplan = solvers.ExecutionPlan(backend="mesh", mesh=mesh, kernel=True)
+    lplan = solvers.ExecutionPlan(kernel=True, factors=dfac)
+    mesh_launches, local = {}, {}
+
+    def turns(fns, reps=4):
+        """Median host ms of each whole solve (card idle to idle), the
+        solves timed in turns."""
+        got = {k: [] for k in fns}
+        for _ in range(reps):
+            for k, fn in fns.items():
+                got[k].append(timed_ms(fn)[1])
+        return {k: float(np.median(v)) for k, v in got.items()}
+
+    for sname in ("apc", "consensus", "cimmino"):
+        s, prm = solvers.get(sname), pinned[sname][0]
+        loc = local[sname] = s.solve(dsys, iters=ITERS, plan=lplan, **prm)
+        ops.reset_launch_counts()
+        r = s.solve(dsys, iters=ITERS, plan=mplan, **prm)  # on-mesh prepare
+        torch.cuda.synchronize()
+        got = form_launches("f64")
+        assert got == {kn: ITERS if kn in USES[sname] else 0
+                       for kn in bp.KERNELS}, (sname, got)
+        for kn in USES[sname]:
+            mesh_launches.setdefault(kn, got[kn])
+        dx, dh = mesh_check(sname, r.x, r.residuals, r.errors,
+                            r.iters_to_tol, loc)
+        fplan = mplan.replace(factors=dfac)
+        ms = turns({
+            "mesh": lambda: s.solve(dsys, iters=ITERS, plan=fplan, **prm),
+            "local": lambda: s.solve(dsys, iters=ITERS, plan=lplan, **prm)})
+        say(f"phase 16 (a) {sname} dense kernel=True {ITERS} iters: mesh vs "
+            f"local max|Δx| {dx:.3e} max|Δ history| {dh:.3e} (x rtol "
+            f"{MESH_X['rtol']:.0e} atol {MESH_X['atol']:.0e}, history rtol "
+            f"{MESH_H['rtol']:.0e} atol {MESH_H['atol']:.0e}), iters_to_tol "
+            f"{r.iters_to_tol} both; launches {got}; whole solve ms an "
+            f"iteration (factors given, median of 4 in turns): mesh "
+            f"{ms['mesh'] / ITERS:.4f} (eager) local "
+            f"{ms['local'] / ITERS:.4f} (captured) [{card}]")
+    s, prm = solvers.get("apc"), pinned["apc"][0]
+    _, Bk = consistent(dsys, K_MANY, 16)
+    loc = s.solve_many(dsys, Bk, iters=ITERS, plan=lplan, **prm)
+    ops.reset_launch_counts()
+    r = s.solve_many(dsys, Bk, iters=ITERS, plan=mplan.replace(factors=dfac),
+                     **prm)
+    torch.cuda.synchronize()
+    got = form_launches("f64")
+    assert got == {kn: ITERS if kn in USES["apc"] else 0
+                   for kn in bp.KERNELS}, got
+    dx, dh = mesh_check("solve_many", r.x, r.residuals, None,
+                        r.iters_to_tol, loc)
+    say(f"phase 16 (a) apc solve_many k={K_MANY}: mesh vs local max|Δx| "
+        f"{dx:.3e} max|Δ history| {dh:.3e}; launches {got} [{card}]")
+    for sname in ("apc", "cimmino"):
+        s, prm = solvers.get(sname), sp_pinned[sname][0]
+        loc = s.solve(sp, iters=ITERS, plan=solvers.ExecutionPlan(
+            kernel=True, factors=fs), **prm)
+        ops.reset_launch_counts()
+        r = s.solve(sp, iters=ITERS, plan=mplan, **prm)
+        torch.cuda.synchronize()
+        got = form_launches("f64")
+        assert got == {kn: ITERS if kn in SPARSE_USES[sname] else 0
+                       for kn in bp.KERNELS}, (sname, got)
+        for kn in SPARSE_USES[sname]:
+            mesh_launches.setdefault(kn, got[kn])
+        dx, dh = mesh_check(f"sparse {sname}", r.x, r.residuals, r.errors,
+                            r.iters_to_tol, loc)
+        say(f"phase 16 (a) {sname} sparse kernel=True: mesh vs local "
+            f"max|Δx| {dx:.3e} max|Δ history| {dh:.3e}; launches {got} "
+            f"[{card}]")
+    s, prm = solvers.get("apc"), pinned["apc"][0]
+    mixed = dict(kernel=True, precision="mixed", factors=dfac)
+    loc = s.solve(dsys, iters=ITERS, plan=solvers.ExecutionPlan(**mixed),
+                  **prm)
+    ops.reset_launch_counts()
+    r = s.solve(dsys, iters=ITERS, plan=mplan.replace(**mixed), **prm)
+    torch.cuda.synchronize()
+    got = form_launches("bf16_f64")
+    assert got == {kn: ITERS if kn in USES["apc"] else 0
+                   for kn in bp.KERNELS}, got
+    dx, dh = mesh_check("mixed", r.x, r.residuals, r.errors,
+                        r.iters_to_tol, loc)
+    say(f"phase 16 (a) apc precision=mixed: mesh vs local max|Δx| {dx:.3e} "
+        f"max|Δ history| {dh:.3e}; launches {got} [{card}]")
+    if created:
+        dist.destroy_process_group()
+
+    # (b) two ranks on the one card over gloo, each a process of its own
+    out = ROOT / "build" / "phase16"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cfg = dict(full=FULL, iters=ITERS, world=2, shapes=MESH_SHAPES,
+               device=dev.resolve("cuda").type,
+               params={k: pinned[k][0] for k in ("apc", "cimmino")})
+    t = time.time()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--mesh-rank", str(r), str(out),
+                               json.dumps(cfg)]) for r in range(2)]
+    try:
+        for p in procs:
+            rc = p.wait(timeout=max(1.0, MESH_DEADLINE - (time.time() - t)))
+            assert rc == 0, f"phase 16 (b): a rank exited with {rc}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(2)]
+    say(f"phase 16 (b) two ranks over gloo on {cfg['device']}: the system "
+        f"{FULL} made on each rank's host in "
+        f"{float(ranks[0]['t_data']):.2f} s, each rank copying its own "
+        f"shard alone; {time.time() - t:.1f} s in all")
+    for shape in MESH_SHAPES:
+        tag = "x".join(map(str, shape))
+        for sname in ("apc", "cimmino"):
+            key = f"{tag}/{sname}"
+            assert np.array_equal(ranks[1][f"{key}/x"], ranks[0][f"{key}/x"])
+            g = ranks[0]
+            dx, dh = mesh_check(key, g[f"{key}/x"], g[f"{key}/res"],
+                                g[f"{key}/err"], g[f"{key}/itt"],
+                                local[sname])
+            for rk in ranks:
+                if cfg["device"] == "cuda":
+                    assert rk[f"{key}/launches"].tolist() == [ITERS] * 2, key
+                    took = dict(x.split(":") for x in rk[f"{key}/inst"])
+                    # one instance a kernel; the gathers' contiguous shards
+                    # admit the ring, so a launch on a strided view (the
+                    # row dot) fails here
+                    assert len(took) == len(rk[f"{key}/inst"]) and \
+                        sorted(took) == sorted(USES[sname]), (key, took)
+                    assert took[USES[sname][0]] == "ring", (key, took)
+            per = "; ".join(
+                f"rank {i}: resident {float(rk[f'{key}/gb']):.3f} GB, "
+                f"instances launched "
+                f"{', '.join(rk[f'{key}/inst'].tolist()) or 'none (plain versions)'}, "
+                f"launches {rk[f'{key}/launches'].tolist()}, kernel vs "
+                f"plain on its shards "
+                + ", ".join(
+                    f"{kn} {tuple(rk[f'{key}/{kn}/shape'].tolist())} "
+                    f"max|Δ| {float(rk[f'{key}/{kn}/err']):.3e}"
+                    for kn in USES[sname])
+                + f"; {float(rk[f'{key}/ms']) / ITERS:.4f} ms an iteration; "
+                f"a run with every all_reduce between two synchronizes: "
+                f"{float(rk[f'{key}/ms_sync']) / ITERS:.4f} ms an "
+                f"iteration, all_reduce "
+                f"{float(rk[f'{key}/ms_ar']) / ITERS:.4f} ms of it "
+                f"({100 * float(rk[f'{key}/ms_ar'] / rk[f'{key}/ms_sync']):.1f} %)"
+                for i, rk in enumerate(ranks))
+            say(f"phase 16 (b) mesh (data, model) {shape} {sname} "
+                f"kernel=True {ITERS} iters: vs (a)'s local max|Δx| "
+                f"{dx:.3e} max|Δ history| {dh:.3e}, x the same on both "
+                f"ranks; kernels vs plain within "
+                f"{TOL[torch.float64]:.0e} of max|plain| + 1; {per} [{card}]")
+    say(f"phase 16: {time.time() - t16:.1f} s")
+    return mesh_launches
+
+
+def mesh_rank(argv) -> int:
+    """Phase 16 (b)'s rank ``argv[0]``: ``chip_smoke.py --mesh-rank R DIR
+    CONFIG`` joins a gloo group through a FileStore in DIR, makes the
+    CONFIG's dense system on the host, and runs APC and Cimmino on the
+    kernels on each of its meshes; it writes rank R's records to
+    DIR/rankR.npz and prints nothing."""
+    rank, out, cfg = int(argv[0]), pathlib.Path(argv[1]), json.loads(argv[2])
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch import solvers
+    from repro_torch.data import linsys
+    from repro_torch.kernels import block_projection as bp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.solvers import mesh as mesh_backend
+    torch.set_num_threads(1)
+    device = torch.device(cfg["device"])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(out / "store"), cfg["world"]), rank=rank,
+        world_size=cfg["world"])
+    got = {}
+    # the all_reduce's share: each call timed between two synchronizes
+    spent, real = [0.0, False], dist.all_reduce
+
+    def all_reduce(tensor, *a, **k):
+        if not spent[1]:
+            return real(tensor, *a, **k)
+        sync()
+        t0 = time.perf_counter()
+        work = real(tensor, *a, **k)
+        sync()
+        spent[0] += time.perf_counter() - t0
+        return work
+
+    dist.all_reduce = all_reduce
+    try:
+        t = time.time()
+        system = linsys.tall_gaussian(**cfg["full"], seed=0, device="cpu")
+        got["t_data"] = time.time() - t
+        with env_var(ENGINE_ENV, "fused"):
+            for shape in cfg["shapes"]:
+                mesh = mesh_lib.make_mesh(shape, ("data", "model"),
+                                          device=device)
+                for sname in ("apc", "cimmino"):
+                    key = f"{'x'.join(map(str, shape))}/{sname}"
+                    s = solvers.get(sname)
+                    cs = mesh_backend.compile_solve(
+                        s, system, mesh=mesh, iters=cfg["iters"],
+                        use_kernel=True, **cfg["params"][sname])
+                    sync()
+                    got[f"{key}/gb"] = (torch.cuda.memory_allocated() / 1e9
+                                        if cuda else 0.0)
+                    ops.reset_launch_counts()
+                    with kernel_calls(ops, USES[sname]) as calls:
+                        (state, res, err), seen = launched_instances(
+                            lambda: cs.run(*cs.args))
+                        sync()
+                    launches = ops.launch_counts()
+                    got[f"{key}/launches"] = np.asarray(
+                        [launches[kn] for kn in USES[sname]])
+                    got[f"{key}/inst"] = np.asarray(sorted(
+                        f"{kn}:{inst}" for kn, inst in seen))
+                    got[f"{key}/x"] = s.extract(state).cpu().numpy()
+                    got[f"{key}/res"] = res.cpu().numpy()
+                    got[f"{key}/err"] = err.cpu().numpy()
+                    got[f"{key}/itt"] = np.asarray(
+                        solvers.iters_to_tolerance(res, 1e-6))
+                    # each kernel on the operands of its first launch in
+                    # the run (this rank's shards) against its plain version
+                    for kn, (wrapper, args) in calls.items():
+                        y = wrapper(*args)
+                        sync()
+                        e, d = rel_err(y, getattr(ops, WRAPPERS[kn][1])(
+                            *args))
+                        assert e < TOL[y.dtype], (key, kn, e)
+                        got[f"{key}/{kn}/err"] = d
+                        got[f"{key}/{kn}/shape"] = np.asarray(
+                            args[0].shape)
+                    sync()
+                    t = time.perf_counter()
+                    cs.run(*cs.args)
+                    sync()
+                    got[f"{key}/ms"] = (time.perf_counter() - t) * 1e3
+                    # the all_reduce's share, from one run whose every
+                    # all_reduce is timed between two synchronizes: the
+                    # share is of that run's own time
+                    spent[:] = [0.0, True]
+                    t = time.perf_counter()
+                    cs.run(*cs.args)
+                    sync()
+                    got[f"{key}/ms_sync"] = (time.perf_counter() - t) * 1e3
+                    got[f"{key}/ms_ar"] = spent[0] * 1e3
+                    spent[1] = False
+                    # the next solve's resident GB holds none of these
+                    del cs, state, calls, wrapper, args, y
+    finally:
+        dist.all_reduce = real
+        dist.destroy_process_group()
+    np.savez(out / f"rank{rank}.npz", **got)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs a CUDA device", file=sys.stderr)
@@ -1286,21 +1660,6 @@ def phases() -> int:
         if k == 1:
             return s.solve(system, iters=ITERS, plan=plan, **prm)
         return s.solve_many(system, Bk, iters=ITERS, plan=plan, **prm)
-
-    def launched_instances(run):
-        """(``run()``, the set of (kernel, instance) its launches took):
-        a captured solve decides each instance once, at capture."""
-        seen, launch = set(), bp._launch
-        names = {v: inst for inst, v in bp.INSTANCES.items()}
-
-        def spy(name, matrix, out, *args):
-            seen.add((name, names[args[-2]]))     # the instance, then kc
-            return launch(name, matrix, out, *args)
-        bp._launch = spy
-        try:
-            return run(), seen
-        finally:
-            bp._launch = launch
 
     def captured_vs_eager(label, system, facs_of, prm_of, uses, Bk):
         """APC, consensus and Cimmino on the kernels, default and mixed,
@@ -2409,11 +2768,18 @@ def phases() -> int:
             for kc in bp.KC_VALUES)
         + f" (in turns); the tile cache at these shapes {measured}; a pin "
         f"of 16 refused: {refused} [{card}]")
-    del dsys, dfac, X8, Xb8, U8, Y8, outs
+    del X8, Xb8, U8, Y8, outs
     gc.collect()
     torch.cuda.empty_cache()
     clocks("phase 15 end")
     say(f"phase 15: {time.time() - t15:.1f} s")
+
+    # 16. the mesh backend ------------------------------------------------
+    mesh_launches = mesh_phase(card, dsys, dfac, sp, fs, pinned, sp_pinned,
+                               form_launches)
+    del dsys, dfac
+    gc.collect()
+    torch.cuda.empty_cache()
 
     main_launches.update(
         {kn: sparse_launches["apc" if kn in SPARSE_USES["apc"]
@@ -2448,6 +2814,7 @@ def phases() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[kname], "launches": main_launches[kname],
+            "mesh_launches": mesh_launches[kname],
             "max_abs_err": max_abs[(kname, "float64/float64")],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

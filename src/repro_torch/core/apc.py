@@ -29,7 +29,12 @@ class APCState(NamedTuple):
 def _gram_chol(A: torch.Tensor, jitter: float) -> torch.Tensor:
     """Cholesky factors of the Grams A_i A_i^T of (..., p, n) blocks, with
     the trace-scaled jitter ``jitter * tr(G)/p * I`` when nonzero."""
-    G = A @ A.transpose(-1, -2)
+    return _jittered_chol(A @ A.transpose(-1, -2), jitter)
+
+
+def _jittered_chol(G: torch.Tensor, jitter: float) -> torch.Tensor:
+    """Cholesky factors of the (..., p, p) Grams G, jittered by
+    ``jitter * tr(G)/p * I`` when nonzero."""
     if jitter:
         p = G.shape[-1]
         tr = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)[..., None, None]

@@ -45,6 +45,14 @@ its names and environment variables:
   compile time: BN and BP are validated, cached and returned as the
   reference's heuristic, and select nothing.
 
+Inside the mesh backend's step loop (:func:`rank0_decides`, with a
+``torch.distributed`` group of several ranks up), a measured verdict or
+k-chunk is measured on rank 0 alone and broadcast (:func:`_on_rank0`):
+ranks that measured apart could disagree, take different branches, issue
+different collectives and hang.  The ranks ask the same questions in the
+same order, as they run one program.  Everywhere else (a local solve,
+whatever group is up) a rank measures for itself.
+
 Every measurement runs eagerly, records itself with
 ``analysis.tracecheck``, counts no launch, and raises inside a CUDA graph
 capture: the solvers resolve their verdicts before a capture
@@ -55,6 +63,7 @@ invalid while another thread captures).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
@@ -518,6 +527,43 @@ def _best_s(run, reps: int, device: torch.device) -> float:
     return best
 
 
+#: the device of the mesh whose step loop this thread runs
+#: (:func:`rank0_decides`), or None
+_DECIDING = threading.local()
+
+
+@contextlib.contextmanager
+def rank0_decides(device):
+    """Inside, on this thread, a measured engine verdict or k-chunk is
+    taken on rank 0 of the default process group alone and broadcast to
+    every rank, in a buffer on ``device`` (the mesh's, on which its
+    group's backend communicates): the mesh backend's step loop, whose
+    ranks must branch alike.  Outside, every measurement is this
+    process's own, whatever group is up."""
+    prev = getattr(_DECIDING, "device", None)
+    _DECIDING.device = torch.device(device)
+    try:
+        yield
+    finally:
+        _DECIDING.device = prev
+
+
+def _on_rank0(measure, n: int) -> tuple:
+    """``measure()``'s n numbers: taken here alone, or, inside
+    :func:`rank0_decides` with a process group of several ranks up, on
+    rank 0 alone and broadcast to every rank (in float64)."""
+    import torch.distributed as dist
+    device = getattr(_DECIDING, "device", None)
+    if device is None or not (dist.is_available() and dist.is_initialized()
+                              and dist.get_world_size() > 1):
+        return tuple(measure())
+    buf = torch.zeros(n, dtype=torch.float64, device=device)
+    if dist.get_rank() == 0:
+        buf.copy_(torch.tensor(measure(), dtype=torch.float64))
+    dist.broadcast(buf, src=0)
+    return tuple(buf.tolist())
+
+
 def _randn(gen, device, dtype, *shape) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device,
                        dtype=torch.float64).to(dtype)
@@ -594,9 +640,10 @@ def pick_tiles(n_pad: int, p_pad: int = 8, k_pad: int = 1,
                 cands = [kc for kc in bp.KC_VALUES if k_pad % kc == 0]
                 if (device.type == "cuda" and _autotune_enabled(True)
                         and len(cands) > 1):
-                    hit = (int(p_pad), _measure_kc(
+                    kc, = _on_rank0(lambda: (_measure_kc(
                         key[0], key[1], key[2], dtype, device,
-                        compute_dtype, cands))
+                        compute_dtype, cands),), 1)
+                    hit = (int(p_pad), int(kc))
                     _KC_MEASURED.add(key)
                 else:
                     hit = (int(p_pad), int(k_pad))
@@ -779,10 +826,11 @@ def use_fused(family: str, p: int, n: int, k: int = 1,
         if hit is None:
             device = _device(device)
             if _autotune_enabled(device.type == "cuda"):
-                times = engine_times[key] = _measure_engine(
-                    family, p_pad, n_pad, k_pad, dtype, device,
-                    w=int(w) if sparse else None,
-                    compute_dtype=compute_dtype)
+                times = engine_times[key] = _on_rank0(
+                    lambda: _measure_engine(
+                        family, p_pad, n_pad, k_pad, dtype, device,
+                        w=int(w) if sparse else None,
+                        compute_dtype=compute_dtype), 2)
                 hit = times[0] <= _ENGINE_MARGIN * times[1]
             else:
                 # the reference's measured trend: fused wins wherever the

@@ -25,8 +25,8 @@ result).  The run ends with the SLO latency report (p50/p95/p99).
     PYTHONPATH=src python -m repro_torch.launch.serve_linsys --async \
         --requests 24 --arrival-rate 50 --pipeline-depth 2
 
-``--backend mesh`` is refused: the mesh backend is not ported yet
-(ROADMAP A14).
+``--backend mesh`` is refused: mesh serving is not ported yet (ROADMAP
+A14b: rank 0 admits the requests and broadcasts each batch).
 """
 from __future__ import annotations
 
@@ -87,8 +87,8 @@ def main(argv=None):
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
     if args.backend == "mesh":
-        ap.error("--backend mesh is not ported yet (ROADMAP A14); the port "
-                 "serves on one device (--backend local)")
+        ap.error("--backend mesh serving is not ported yet (ROADMAP A14b); "
+                 "the port serves on one device (--backend local)")
 
     device = dev.resolve(args.device)
     dtype = torch.float64 if args.x64 else torch.float32

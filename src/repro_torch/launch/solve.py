@@ -14,12 +14,17 @@ library's ``resolve_plan`` decides.  Every factorization comes from a
 ``FactorStore`` (``--store-dir`` gives it a disk tier, so a resumed run's
 prepare is a disk hit); ``--ckpt-dir`` checkpoints the final solver state
 (in the reference's layout: either package resumes the other's), and
-``--resume`` warm-starts from the latest one.  The mesh backend and
-redundancy are not offered yet (ROADMAP A14, A15).
+``--resume`` warm-starts from the latest one.  ``--use-mesh`` runs the
+method through the ``torch.distributed`` mesh backend, one rank a
+process: alone, a one-rank group; under ``torchrun``, the ranks it
+starts (rank 0 prints and checkpoints).  Redundancy is not offered yet
+(ROADMAP A15).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.solve --problem ash608 \
         --workers 4 --iters 200 --use-kernel
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.solve \
+        --workers 4 --use-mesh --device cpu
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as dev
 from repro_torch import solvers
@@ -34,6 +40,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.core import spectral
 from repro_torch.core.partition import as_sparse, pad_to_blocks, partition
 from repro_torch.data import linsys
+from repro_torch.launch import mesh as mesh_lib
 
 
 def main(argv=None):
@@ -58,6 +65,9 @@ def main(argv=None):
                          "consensus, cimmino_gather/cimmino_scatter for "
                          "cimmino (no other method has a kernel: on a "
                          "sparse problem it warns and runs unfused)")
+    ap.add_argument("--use-mesh", action="store_true",
+                    help="run --method through the torch.distributed mesh "
+                         "backend (under torchrun: one rank a process)")
     ap.add_argument("--x64", action=argparse.BooleanOptionalAction,
                     default=True, help="float64 math (default on)")
     ap.add_argument("--device", default="cuda",
@@ -66,6 +76,13 @@ def main(argv=None):
     solver = solvers.get(args.method)
 
     device = dev.resolve(args.device)
+    mesh, say = None, print
+    if args.use_mesh:
+        # the mesh first: under torchrun it decides this rank's device
+        mesh = mesh_lib.solver_mesh_for(args.workers, device=device)
+        device = mesh_lib.mesh_device(mesh)
+        if dist.get_rank() != 0:
+            say = lambda *a, **k: None      # noqa: E731 (rank 0 prints)
     dtype = torch.float64 if args.x64 else torch.float32
     sys_ = linsys.ALL_PROBLEMS[args.problem](seed=args.seed, dtype=dtype,
                                              device=device)
@@ -78,12 +95,12 @@ def main(argv=None):
         sys_ = as_sparse(sys_)
 
     params, rho = solver.analyze(sys_)   # one spectral pass for both
-    print(f"problem {args.problem}: N={sys_.N} n={sys_.n} m={sys_.m}  "
-          f"method={args.method}")
-    print(f"optimal params {({k: round(v, 4) for k, v in params.items()})}"
-          + (f"  rho={rho:.6f} "
-             f"(T={spectral.convergence_time(rho):.1f} iters/decade)"
-             if rho is not None else ""))
+    say(f"problem {args.problem}: N={sys_.N} n={sys_.n} m={sys_.m}  "
+        f"method={args.method}")
+    say(f"optimal params {({k: round(v, 4) for k, v in params.items()})}"
+        + (f"  rho={rho:.6f} "
+           f"(T={spectral.convergence_time(rho):.1f} iters/decade)"
+           if rho is not None else ""))
 
     t0 = time.time()
     # ALL factor acquisition goes through the content-addressed store: the
@@ -96,30 +113,34 @@ def main(argv=None):
             ap.error("--resume requires --ckpt-dir")
         step = ckpt.latest_step(args.ckpt_dir)
         if step is None:
-            print(f"WARNING: no checkpoint found in {args.ckpt_dir}; "
-                  "starting cold")
+            say(f"WARNING: no checkpoint found in {args.ckpt_dir}; "
+                "starting cold")
         else:
             factors = store.factors(solver, sys_, resume=True, **params)
             probe = solver.init(factors, sys_.b_blocks, params)
             warm = ckpt.restore(args.ckpt_dir, probe)
-            print(f"resuming from checkpointed state at iter {step} "
-                  f"(factor store: {store.stats})")
-    plan = solvers.ExecutionPlan(kernel=args.use_kernel, warm_state=warm,
-                                 store=store)
+            say(f"resuming from checkpointed state at iter {step} "
+                f"(factor store: {store.stats})")
+    if mesh is not None:
+        shape = tuple(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        say(f"mesh backend: {shape} over {dist.get_world_size()} rank(s)")
+    plan = solvers.ExecutionPlan(
+        backend="mesh" if args.use_mesh else "local", mesh=mesh,
+        kernel=args.use_kernel, warm_state=warm, store=store)
     res = solver.solve(sys_, iters=args.iters, plan=plan, **params)
     final_res = float(res.residuals[-1])
     if res.iters_to_tol != -1:
-        print(f"reached residual < {res.tol:.0e} after "
-              f"{res.iters_to_tol} iters")
-    if args.ckpt_dir:
+        say(f"reached residual < {res.tol:.0e} after "
+            f"{res.iters_to_tol} iters")
+    if args.ckpt_dir and (mesh is None or dist.get_rank() == 0):
         total = int(res.state.t) if hasattr(res.state, "t") else args.iters
         ckpt.save(args.ckpt_dir, total, res.state)
-        print(f"solver state checkpointed at iter {total}")
+        say(f"solver state checkpointed at iter {total}")
     err = (float(torch.linalg.norm(res.x - sys_.x_true)
                  / torch.linalg.norm(sys_.x_true))
            if sys_.x_true is not None else float("nan"))
-    print(f"done in {time.time()-t0:.2f}s: residual {final_res:.3e}  "
-          f"rel-error {err:.3e}")
+    say(f"done in {time.time()-t0:.2f}s: residual {final_res:.3e}  "
+        f"rel-error {err:.3e}")
     return 0
 
 

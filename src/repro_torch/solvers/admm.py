@@ -9,7 +9,9 @@ worker solves its p x p (not n x n) system by the matrix inversion lemma:
 
 No kernel: the per-step products go through ``core.blockops`` (dense
 or sparse blocks), as the reference left them to XLA.  Every hook is
-batch-polymorphic.
+batch-polymorphic.  On the mesh (``solvers/mesh.py``) the Gram and A_i v
+are summed over the model axis, and x̄ is the workers' ``all_reduce``
+over m.
 """
 from __future__ import annotations
 
@@ -70,3 +72,24 @@ class MADMMSolver(Solver):
 
     def extract(self, state):
         return state.xbar
+
+    # ----- mesh backend ---------------------------------------------------
+    def mesh_placements(self, use_kernel=False):
+        return (ADMMFactors(A=("w", None, "n"), chol=("w", None, None)),
+                ADMMState(xbar=("n",), t=None, Atb=("w", "n")))
+
+    def mesh_prepare(self, A, params, ctx, use_kernel=False):
+        G = ctx.psum_model(blockops.bgram(A))
+        eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
+        return ADMMFactors(A=A,
+                           chol=torch.linalg.cholesky(G + params["xi"] * eye))
+
+    def mesh_step(self, factors, b, state, params, ctx, *, use_kernel=False):
+        xi = params["xi"]
+        v = state.Atb + xi * state.xbar[..., None, :]
+        Av = ctx.psum_model(blockops.bmatvec_each(factors.A, v))
+        x_new = (v - blockops.brmatvec(factors.A,
+                                       _gram_solve(factors.chol, Av))) / xi
+        m = ctx.workers_total(x_new.shape[-2])
+        return ADMMState(xbar=ctx.psum_workers(x_new.sum(dim=-2)) / m,
+                         t=state.t + 1, Atb=state.Atb)

@@ -22,6 +22,13 @@ into a CUDA graph and replayed, as the reference compiles its
 once, at the end.  ``plan=`` is the execution surface; the reference's
 loose execution kwargs (``use_kernel=``, ``warm_state=``, ...) survive as
 its deprecation shim, :func:`_coerce_plan`.
+
+``ExecutionPlan(backend="mesh", mesh=...)`` runs the same lifecycle
+sharded over the ranks of a ``torch.distributed`` mesh
+(``solvers/mesh.py``) through the ``mesh_*`` hooks below: the row blocks
+over the worker axes, n optionally over the model axis, every master
+update a sum over the workers.  The least-squares hooks are written once
+against that psum contract and run locally with :data:`LOCAL_PSUM`.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from repro_torch.core.partition import BlockSystem
 from repro_torch.solvers import executor
 from repro_torch.solvers.capability import ExecutionPlan, resolve_plan
 
-__all__ = ["Solver", "SolveResult", "iters_to_tolerance"]
+__all__ = ["LOCAL_PSUM", "Solver", "SolveResult", "iters_to_tolerance"]
 
 log = logging.getLogger(__name__)
 
@@ -55,8 +62,7 @@ _LEGACY_PLAN_KWARGS = {
 }
 # the legacy kwargs naming plan fields the port's plan does not have yet,
 # and the ROADMAP item that brings each
-_UNPORTED_PLAN_KWARGS = {"mesh": "A14", "worker_axes": "A14",
-                         "model_axis": "A14", "alive_schedule": "A15"}
+_UNPORTED_PLAN_KWARGS = {"alive_schedule": "A15"}
 
 
 def _coerce_plan(plan: Optional[ExecutionPlan], legacy: Dict[str, Any],
@@ -69,9 +75,8 @@ def _coerce_plan(plan: Optional[ExecutionPlan], legacy: Dict[str, Any],
     ``DeprecationWarning`` per call (however many were passed), and
     mixing the two is a ``ValueError``: silently merging would make the
     plan lie about what runs.  A loose kwarg naming a plan field the port
-    has not ported (``mesh``, ``worker_axes``, ``model_axis``,
-    ``alive_schedule``) raises ``NotImplementedError`` naming its ROADMAP
-    item, after the warning; ``backend="mesh"`` and ``redundancy=`` reach
+    has not ported (``alive_schedule``) raises ``NotImplementedError``
+    naming its ROADMAP item, after the warning; ``redundancy=`` reaches
     ``resolve_plan``, which raises so.
     """
     given = {k: v for k, v in legacy.items() if v is not _UNSET}
@@ -102,6 +107,10 @@ def _coerce_plan(plan: Optional[ExecutionPlan], legacy: Dict[str, Any],
             + ")")
     return ExecutionPlan(**{_LEGACY_PLAN_KWARGS[k]: v
                             for k, v in given.items()})
+
+
+#: the identity psum context of the local backend
+LOCAL_PSUM = executor.LOCAL_PSUM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,9 +278,10 @@ class Solver:
     # ‖ls_moment(x)‖ / ‖ls_moment(0)‖, and ``iters_to_tol`` keys off it.
 
     def ls_moment(self, factors: Any, A, b: torch.Tensor, x: torch.Tensor,
-                  params: Dict[str, float]) -> torch.Tensor:
+                  params: Dict[str, float], ctx=LOCAL_PSUM) -> torch.Tensor:
         """The (..., n) optimality vector this solver drives to zero, for
-        x (n,) / b (m, p) or a batch x (k, n) / b (k, m, p)."""
+        x (n,) / b (m, p) or a batch x (k, n) / b (k, m, p); on the mesh,
+        from local shards, summed through ``ctx``."""
         raise NotImplementedError(
             f"solver {self.name!r} does not support least-squares mode")
 
@@ -292,14 +302,73 @@ class Solver:
         return self._ls_residual(sys.A_op, factors, prm, b)
 
     def _ls_residual(self, A, factors: Any, prm: Dict[str, float],
-                     b: torch.Tensor):
-        """``x -> ‖ls_moment(x)‖/‖ls_moment(0)‖`` on the blocks ``A``."""
+                     b: torch.Tensor, ctx=LOCAL_PSUM):
+        """``x -> ‖ls_moment(x)‖/‖ls_moment(0)‖`` on the blocks ``A`` (on
+        the mesh, this rank's shards, summed through ``ctx``)."""
         def optim(x):
-            mom = self.ls_moment(factors, A, b, x, prm)
-            return torch.sqrt(torch.sum(mom * mom, dim=-1))
+            mom = self.ls_moment(factors, A, b, x, prm, ctx=ctx)
+            return torch.sqrt(ctx.psum_model(torch.sum(mom * mom, dim=-1)))
 
         zero = optim(b.new_zeros(b.shape[:-2] + (blockops.ncols(A),)))
         return lambda x: optim(x) / zero
+
+    # ----- mesh-backend hooks (solvers/mesh.py) -----------------------------
+    # Every array argument is this rank's shard (the worker axis and, with
+    # a model axis, n cut); sums across shards go through the
+    # ``MeshContext`` (``ctx.psum_workers``, ``ctx.psum_model``).  Like the
+    # local hooks, they take a leading (k,) RHS batch.
+
+    def mesh_placements(self, use_kernel: bool = False):
+        """(factor placements, state placements): trees of the factors'
+        and the state's structure whose leaves are placement tuples —
+        ``"w"`` for the axis the workers shard, ``"n"`` for the column
+        axis, None for a whole one (the reference's PartitionSpecs)."""
+        raise NotImplementedError(
+            f"solver {self.name!r} does not implement the mesh backend")
+
+    def mesh_factors(self, factors: Any, use_kernel: bool = False) -> Any:
+        """Global factors as the mesh takes them (host-only fields
+        stripped; the kernel path's pinv factors ensured)."""
+        return factors
+
+    def mesh_prepare(self, A, params: Dict[str, float], ctx,
+                     use_kernel: bool = False) -> Any:
+        """On-mesh ``prepare`` from the local (m_loc, p, n_loc) shard."""
+        raise NotImplementedError(
+            f"solver {self.name!r} does not implement the mesh backend")
+
+    def mesh_init(self, factors: Any, b: torch.Tensor,
+                  params: Dict[str, float], ctx) -> Any:
+        """On-mesh ``init``: ``init`` itself wherever it sums nothing
+        across shards."""
+        return self.init(factors, b, params)
+
+    def mesh_step(self, factors: Any, b: torch.Tensor, state: Any,
+                  params: Dict[str, float], ctx, *,
+                  use_kernel: bool = False) -> Any:
+        """One iteration on local shards (collectives through ``ctx``)."""
+        raise NotImplementedError(
+            f"solver {self.name!r} does not implement the mesh backend")
+
+    def mesh_step_residual(self, factors: Any, b: torch.Tensor, state: Any,
+                           params: Dict[str, float], ctx):
+        """``step_residual`` on local shards: (state, the GLOBAL squared
+        residual of the consumed state)."""
+        raise NotImplementedError(
+            f"solver {self.name!r} does not implement the fused residual")
+
+    def mesh_step_many(self, factors: Any, Bb: torch.Tensor, states: Any,
+                       params: Dict[str, float], ctx, *,
+                       use_kernel: bool = False) -> Any:
+        """The batched mesh step: ``mesh_step`` on the batched state (one
+        launch of each kernel for all k rows)."""
+        return self.mesh_step(factors, Bb, states, params, ctx,
+                              use_kernel=use_kernel)
+
+    def mesh_step_many_residual(self, factors: Any, Bb: torch.Tensor,
+                                states: Any, params: Dict[str, float], ctx):
+        """``mesh_step_residual`` on the batched state; rsq is (k,)."""
+        return self.mesh_step_residual(factors, Bb, states, params, ctx)
 
     # ----- shared drivers --------------------------------------------------
     def resolve_params(self, sys: BlockSystem,
@@ -371,6 +440,14 @@ class Solver:
             model_axis=model_axis, redundancy=redundancy,
             alive_schedule=alive_schedule), context="solve")
         plan = resolve_plan(self, sys, plan, context="solve")
+        if plan.backend == "mesh":
+            from . import mesh as mesh_backend
+            return mesh_backend.solve_mesh(
+                self, sys, mesh=plan.mesh, iters=iters, tol=tol,
+                worker_axes=plan.worker_axes, model_axis=plan.model_axis,
+                warm_state=plan.warm_state, factors=plan.factors,
+                store=plan.store, use_kernel=plan.kernel,
+                precision=plan.precision, **params)
         prm = self.resolve_params(sys, **params)
         factors = self._factors(sys, plan, prm,
                                 resume=plan.warm_state is not None)
@@ -419,6 +496,13 @@ class Solver:
             redundancy=redundancy, alive_schedule=alive_schedule),
             context="solve_many")
         plan = resolve_plan(self, sys, plan, context="solve_many")
+        if plan.backend == "mesh":
+            from . import mesh as mesh_backend
+            return mesh_backend.solve_many_mesh(
+                self, sys, B, mesh=plan.mesh, iters=iters, tol=tol,
+                worker_axes=plan.worker_axes, model_axis=plan.model_axis,
+                factors=plan.factors, store=plan.store,
+                use_kernel=plan.kernel, precision=plan.precision, **params)
         B = torch.as_tensor(B, dtype=sys.b_blocks.dtype, device=sys.device)
         if B.ndim == 1:
             B = B[None, :]

@@ -1,14 +1,16 @@
 """Per-solver capability declarations and the ExecutionPlan, checked ONCE
-at dispatch (the local subset of ``repro.solvers.capability``).
+at dispatch (counterpart of ``repro.solvers.capability``).
 
 A solver declares the system classes it supports::
 
     supports = frozenset({"square"})
 
 and :func:`resolve_plan` checks the system and the plan against it before
-any work happens.  The plan fields whose execution is not ported yet —
-``backend="mesh"`` (ROADMAP A14) and ``redundancy > 1`` (A15) — raise
-``NotImplementedError`` naming their item; they never degrade silently.
+any work happens.  ``backend="mesh"`` runs the solve sharded over a
+``torch.distributed`` mesh (``solvers/mesh.py``); a mesh handed to the
+local backend is the reference's ``ValueError``.  ``redundancy > 1``, not
+ported yet (ROADMAP A15), raises ``NotImplementedError`` naming its item;
+it never degrades silently.
 ``precision`` is checked as the reference checks it
 (``Solver._check_precision``), after the kernel flag is resolved.  The
 one downgrade is the reference's own, and it warns: ``kernel=True`` on a
@@ -20,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import warnings
-from typing import Any
+from typing import Any, Optional, Tuple
 
 log = logging.getLogger(__name__)
 
@@ -72,11 +74,14 @@ def resolve_use_kernel(solver, sys, use_kernel: bool) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """The validated execution surface of one solve (local subset).
+    """The validated execution surface of one solve.
 
     ``kernel=True`` routes the worker update of apc, consensus and
     cimmino through the hand-written CUDA kernels (their plain PyTorch
-    versions for tensors on the CPU).  ``warm_state`` resumes from a prior state;
+    versions for tensors on the CPU).  ``backend="mesh"`` shards the
+    solve over ``mesh`` (a ``DeviceMesh``; None builds one over the
+    process group), the row blocks over ``worker_axes`` and n over
+    ``model_axis``.  ``warm_state`` resumes from a prior state;
     ``factors`` skips the one-time factorization; ``store`` (a
     ``FactorStore``) obtains it through the content-addressed cache.
     Plans are frozen: derive variants with :meth:`replace`.
@@ -86,11 +91,16 @@ class ExecutionPlan:
     kernel: bool = False
     precision: str = "default"
     redundancy: int = 1
+    worker_axes: Tuple[str, ...] = ("data",)
+    model_axis: Optional[str] = "model"
+    # payload fields
+    mesh: Any = None
     store: Any = None
     warm_state: Any = None
     factors: Any = None
 
     def __post_init__(self):
+        object.__setattr__(self, "worker_axes", tuple(self.worker_axes))
         object.__setattr__(self, "kernel", bool(self.kernel))
         if not isinstance(self.redundancy, int) or self.redundancy < 1:
             raise ValueError(
@@ -105,13 +115,12 @@ class ExecutionPlan:
         """Hashable dispatch identity: which compiled program this plan
         selects, the reference's tuple (``backend, kernel, precision,
         redundancy, has an alive schedule, worker axes, model axis``).
-        The port's plan has no schedule and no mesh axes yet (ROADMAP
-        A14, A15): those fields are False and the reference's default
-        axes, ``("data",)`` and ``"model"``, which its local backend
-        never reads, so a local plan's signature equals the reference's.
-        Payload fields (store, warm_state, factors) are not part of it."""
+        The port's plan has no schedule yet (ROADMAP A15): that field is
+        False.  Payload fields (mesh, store, warm_state, factors) are not
+        part of it."""
         return (self.backend, self.kernel, self.precision,
-                int(self.redundancy), False, ("data",), "model")
+                int(self.redundancy), False, self.worker_axes,
+                self.model_axis)
 
 
 def resolve_plan(solver, sys, plan: ExecutionPlan, *,
@@ -125,10 +134,11 @@ def resolve_plan(solver, sys, plan: ExecutionPlan, *,
     solver._check_precision(plan.precision, kernel)
     if kernel != plan.kernel:
         plan = plan.replace(kernel=kernel)
-    if plan.backend == "mesh":
-        raise NotImplementedError(
-            "backend='mesh' is not ported yet (ROADMAP A14)")
-    if plan.backend != "local":
+    if plan.backend == "local":
+        if plan.mesh is not None:
+            raise ValueError("a mesh was passed but backend is 'local' "
+                             "— did you mean backend='mesh'?")
+    elif plan.backend != "mesh":
         raise ValueError(f"unknown backend {plan.backend!r}; "
                          "expected 'local' or 'mesh'")
     if plan.redundancy > 1:

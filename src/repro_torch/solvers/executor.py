@@ -50,9 +50,9 @@ from repro_torch.kernels import block_projection as bp
 from repro_torch.kernels import ops
 from repro_torch.solvers.capability import resolve_plan
 
-__all__ = ["CHUNK", "History", "LocalExecutor", "default_linalg",
-           "disable_capture", "eager_history", "executor_key",
-           "run_history"]
+__all__ = ["CHUNK", "History", "LOCAL_PSUM", "LocalExecutor",
+           "default_linalg", "disable_capture", "eager_history",
+           "executor_key", "residual", "run_history"]
 
 #: the steps one captured graph of a one-shot solve holds
 CHUNK = 16
@@ -162,6 +162,34 @@ def default_linalg():
 # ---------------------------------------------------------------------------
 
 
+class _LocalPsum:
+    """The psum context of the local backend: one shard, so both sums are
+    identities.  Lets the records and the least-squares hooks be written
+    once against the ``MeshContext`` psum contract
+    (``solvers/mesh.py``) and run on both backends."""
+
+    @staticmethod
+    def psum_workers(x):
+        return x
+
+    @staticmethod
+    def psum_model(x):
+        return x
+
+
+LOCAL_PSUM = _LocalPsum()
+
+
+def residual(A, b, x, b_norm, ctx=LOCAL_PSUM) -> torch.Tensor:
+    """‖Ax − b‖/‖b‖: x (n,) with b (m, p), or a batch x (k, n) with b (k,
+    m, p) -> (k,).  On the mesh from local shards (A and x cut along n
+    over the model axis, the blocks over the workers), summed through
+    ``ctx``; the result is replicated."""
+    r = ctx.psum_model(blockops.bmatvec(A, x)) - b
+    return torch.sqrt(ctx.psum_workers(torch.sum(r * r, dim=(-2, -1)))) \
+        / b_norm
+
+
 class History:
     """The body of one history: a step and what it records.
 
@@ -174,25 +202,30 @@ class History:
     ‖Ax−b‖² of the state it consumed from its own gather pass, so its
     record is the residual before it; :meth:`close` shifts the records by
     one and ends them with ONE true-A residual of the final state — the
-    same indexing as the plain path.
+    same indexing as the plain path.  ``ctx`` sums the norms across
+    shards: the identity locally, a ``MeshContext`` on the mesh backend,
+    where every argument is this rank's shard and every record is
+    replicated.
     """
 
     def __init__(self, step, extract, factors, b, A, *, x_true=None,
-                 residual_fn=None, step_residual=None, batched=False):
+                 residual_fn=None, step_residual=None, batched=False,
+                 ctx=LOCAL_PSUM):
         self.step, self.extract, self.factors = step, extract, factors
         self.b, self.A, self.batched = b, A, batched
         self.residual_fn, self.step_residual = residual_fn, step_residual
-        self.x_true = x_true
-        self.xt_norm = None if x_true is None else torch.linalg.norm(x_true)
-        self.b_norm = (torch.sqrt(torch.sum(b * b, dim=(1, 2))) if batched
-                       else torch.sqrt(torch.sum(b * b)))
+        self.x_true, self.ctx = x_true, ctx
+        self.xt_norm = None if x_true is None else self._norm(x_true)
+        self.b_norm = torch.sqrt(ctx.psum_workers(
+            torch.sum(b * b, dim=(-2, -1))))
+
+    def _norm(self, v: torch.Tensor) -> torch.Tensor:
+        """‖v‖ of an (n,) vector cut along n over the model axis."""
+        return torch.sqrt(self.ctx.psum_model(torch.sum(v * v)))
 
     def true_res(self, state) -> torch.Tensor:
-        if self.batched:
-            r = blockops.bmatvec_many(self.A, self.extract(state)) - self.b
-            return torch.sqrt(torch.sum(r * r, dim=(1, 2))) / self.b_norm
-        r = blockops.bmatvec(self.A, self.extract(state)) - self.b
-        return torch.sqrt(torch.sum(r * r)) / self.b_norm
+        return residual(self.A, self.b, self.extract(state), self.b_norm,
+                        self.ctx)
 
     def one(self, state):
         """One step: (state, residual record, error record or None)."""
@@ -204,8 +237,7 @@ class History:
             res = (self.true_res(state) if self.residual_fn is None
                    else self.residual_fn(self.extract(state)))
         err = None if self.x_true is None else (
-            torch.linalg.norm(self.extract(state) - self.x_true)
-            / self.xt_norm)
+            self._norm(self.extract(state) - self.x_true) / self.xt_norm)
         return state, res, err
 
     def steps(self, state, n: int):

@@ -9,6 +9,11 @@ is cached in the state at ``init`` time.  The family has no kernel: its
 two products per step go through ``core.blockops`` (dense or sparse
 blocks), as the reference left them to XLA.  Every hook is
 batch-polymorphic (x (k, n), b (k, m, p)).
+
+On the mesh (``solvers/mesh.py``) each rank sums its workers' partial
+gradients over its column shard, A x summed over the model axis first,
+and the master's sum is an ``all_reduce`` over the workers; P-DHBM's
+(A_iA_iᵀ)^{-1/2} comes from the Gram summed over the model axis.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from repro_torch.core import spectral
 from repro_torch.core.partition import BlockSystem
 from repro_torch.core.precond import block_inv_sqrt
 
-from .api import Solver
+from .api import LOCAL_PSUM, Solver
 from .registry import register
 
 
@@ -88,9 +93,11 @@ class _GradientSolver(Solver):
         return state.x
 
     # ----- least-squares mode ---------------------------------------------
-    def ls_moment(self, factors, A, b, x, params):
-        """Normal-equations optimality moment Aᵀ(Ax − b)."""
-        return _grad(A, b, x)
+    def ls_moment(self, factors, A, b, x, params, ctx=LOCAL_PSUM):
+        """Normal-equations optimality moment Aᵀ(Ax − b) (summed over the
+        mesh through ``ctx``)."""
+        r = ctx.psum_model(blockops.bmatvec(A, x)) - b
+        return ctx.psum_workers(blockops.brmatvec_sum(A, r))
 
     def ls_reference(self, sys: BlockSystem) -> torch.Tensor:
         """numpy ``lstsq`` of the dense system, on the host."""
@@ -98,6 +105,23 @@ class _GradientSolver(Solver):
         x, *_ = np.linalg.lstsq(A, b, rcond=None)
         return torch.as_tensor(x, dtype=sys.b_blocks.dtype,
                                device=sys.device)
+
+    # ----- mesh backend ---------------------------------------------------
+    #: the state's placements (per solver)
+    _mesh_state: tuple = ()
+
+    def mesh_placements(self, use_kernel=False):
+        return GradFactors(A=("w", None, "n")), self._mesh_state
+
+    def mesh_prepare(self, A, params, ctx, use_kernel=False):
+        return GradFactors(A=A)
+
+    def mesh_step(self, factors, b, state, params, ctx, *, use_kernel=False):
+        A = self._blocks(factors)
+        Ax = ctx.psum_model(blockops.bmatvec(A, state.x))
+        g = ctx.psum_workers(blockops.brmatvec_sum(
+            A, Ax - self._rhs(factors, b, state)))
+        return self._update(state, g, params)
 
 
 class DGDState(NamedTuple):
@@ -124,6 +148,8 @@ class DGDSolver(_GradientSolver):
 
     def _update(self, state, g, params):
         return DGDState(x=state.x - params["alpha"] * g, t=state.t + 1)
+
+    _mesh_state = DGDState(x=("n",), t=None)
 
 
 class DNAGState(NamedTuple):
@@ -156,6 +182,8 @@ class DNAGSolver(_GradientSolver):
         return DNAGState(x=(1.0 + beta) * y - beta * state.y_prev, y_prev=y,
                          t=state.t + 1)
 
+    _mesh_state = DNAGState(x=("n",), y_prev=("n",), t=None)
+
 
 class DHBMState(NamedTuple):
     x: torch.Tensor
@@ -185,6 +213,8 @@ class DHBMSolver(_GradientSolver):
         z_new = params["beta"] * state.z + g
         return DHBMState(x=state.x - params["alpha"] * z_new, z=z_new,
                          t=state.t + 1)
+
+    _mesh_state = DHBMState(x=("n",), z=("n",), t=None)
 
 
 class PDHBMState(NamedTuple):
@@ -233,3 +263,21 @@ class PDHBMSolver(DHBMSolver):
         z_new = params["beta"] * state.z + g
         return PDHBMState(x=state.x - params["alpha"] * z_new, z=z_new,
                           t=state.t + 1, d=state.d)
+
+    _mesh_state = PDHBMState(x=("n",), z=("n",), t=None, d=("w", None))
+
+    def mesh_placements(self, use_kernel=False):
+        return (PrecondFactors(C=("w", None, "n"), S=("w", None, None)),
+                self._mesh_state)
+
+    def mesh_prepare(self, A, params, ctx, use_kernel=False):
+        """On-mesh (A_iA_iᵀ)^{-1/2} in A's dtype: the Gram summed over the
+        column shards, the p x p inverse square root an ``eigh`` on every
+        worker's, its eigenvalues clamped at the dtype's tiny (as
+        ``core.precond`` clamps) so a rank-deficient block gives a large
+        but finite preconditioner."""
+        G = ctx.psum_model(blockops.bgram(A))
+        w, V = torch.linalg.eigh(G)
+        w = torch.clamp_min(w, torch.finfo(w.dtype).tiny)
+        S = torch.einsum("mpq,mq,mrq->mpr", V, 1.0 / torch.sqrt(w), V)
+        return PrecondFactors(C=S @ A, S=S)

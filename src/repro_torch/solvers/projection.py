@@ -20,6 +20,17 @@ Every hook is batch-polymorphic: states may carry a leading (k,) RHS
 axis — x (k, m, n), x̄ (k, n), b (k, m, p) — so ``step_many`` is ``step``
 on a batched state and ONE launch of each kernel serves all k rows and m
 workers.
+
+The ``mesh_*`` hooks run the same maths on a rank's shards
+(``solvers/mesh.py``).  With n sharded over the model axis, the Gram is
+summed over it before its Cholesky (the jitter from the FULL Gram's
+trace), the pinv factor B_loc = A_locᵀ G⁻¹ is shard-local, and the
+kernel path launches the gather and the scatter apart, with the sum of u
+over the model axis between them: ``proj_gather`` → ``psum_model`` →
+``proj_scatter`` (APC, consensus), ``cimmino_gather`` → ``psum_model`` →
+``cimmino_scatter`` (Cimmino), each on the (p, n/model) shard.  The
+sparse kernels run per worker, with the model axis off.  As in the
+reference, the mesh's kernel path asks no engine verdict.
 """
 from __future__ import annotations
 
@@ -31,11 +42,12 @@ import torch
 from repro_torch.core import apc as apc_core
 from repro_torch.core import blockops
 from repro_torch.core import spectral
-from repro_torch.core.apc import APCState, _gram_chol, _gram_solve
+from repro_torch.core.apc import (APCState, _gram_chol, _gram_solve,
+                                  _jittered_chol)
 from repro_torch.core.partition import BlockSystem
 from repro_torch.kernels import ops as kops
 
-from .api import Solver
+from .api import LOCAL_PSUM, Solver
 from .registry import register
 
 
@@ -123,11 +135,40 @@ def _resolve(family: str, factors: ProjFactors, k: int,
         kops.launch_kc(M, M.shape[2], M.shape[1], k, dtype)
 
 
-def _row_projections(A, chol, b, xbar):
+def _row_projections(A, chol, b, xbar, ctx=LOCAL_PSUM):
     """(r, v): the row projections r_i = A_iᵀG_i⁻¹v_i (..., m, n) of
-    v = b − A x̄, unfused, for dense or sparse A."""
-    v = b - blockops.bmatvec(A, xbar)
+    v = b − A x̄, unfused, for dense or sparse A (on the mesh: from local
+    shards, A x̄ summed over the model axis)."""
+    v = b - ctx.psum_model(blockops.bmatvec(A, xbar))
     return blockops.brmatvec(A, _gram_solve(chol, v)), v
+
+
+def _mesh_gram_chol(A, jitter: float, ctx):
+    """Cholesky of the full Gram A_i A_iᵀ from column-sharded blocks."""
+    return _jittered_chol(ctx.psum_model(blockops.bgram(A)), jitter)
+
+
+def _proj_placements(use_kernel: bool) -> ProjFactors:
+    """The projection factors' placements (a sparse operand's ``A`` is
+    patched in by the mesh backend)."""
+    return ProjFactors(A=("w", None, "n"), chol=("w", None, None),
+                       B=("w", "n", None) if use_kernel else None)
+
+
+def _mesh_factors(factors: ProjFactors, use_kernel: bool) -> ProjFactors:
+    """Global factors for the mesh: the pinv factors ensured on the
+    kernel path (idempotent), dropped otherwise (kernel-only)."""
+    return _with_pinv(factors) if use_kernel else factors._replace(B=None)
+
+
+def _mesh_prepare(A, params, ctx, use_kernel: bool) -> ProjFactors:
+    """On-mesh prepare: the full Gram's Cholesky; on the kernel path
+    B_loc = A_locᵀ G⁻¹, shard-local given that Cholesky (the solve acts
+    on the p axis only), so no rank holds the whole A."""
+    factors = ProjFactors(A=A, chol=_mesh_gram_chol(
+        A.vals if blockops.is_sparse(A) else A, params.get("jitter", 0.0),
+        ctx))
+    return _with_pinv(factors) if use_kernel else factors
 
 
 @register("apc")
@@ -213,6 +254,70 @@ class APCSolver(Solver):
 
     def extract(self, state):
         return state.xbar
+
+    # ----- mesh backend ---------------------------------------------------
+    def mesh_placements(self, use_kernel=False):
+        return (_proj_placements(use_kernel),
+                APCState(x=("w", "n"), xbar=("n",), t=None))
+
+    def mesh_factors(self, factors, use_kernel=False):
+        return _mesh_factors(factors, use_kernel)
+
+    def mesh_prepare(self, A, params, ctx, use_kernel=False):
+        return _mesh_prepare(A, params, ctx, use_kernel)
+
+    def mesh_init(self, factors, b, params, ctx):
+        x0 = _min_norm_solutions(factors, b)
+        m = ctx.workers_total(x0.shape[-2])
+        return APCState(x=x0, xbar=ctx.psum_workers(x0.sum(dim=-2)) / m,
+                        t=0)
+
+    def _mesh_step_u(self, factors, state, gamma, ctx, use_kernel):
+        """Eq. 2a on local shards: (x_new, the full u = A_i(x̄ − x_i)), in
+        the state's layout.  The kernel path: the gather on the shard, u
+        summed over the model axis, the scatter (the sparse pair per
+        worker, whose u is already full)."""
+        if not (use_kernel and factors.B is not None):
+            d = state.xbar[..., None, :] - state.x
+            u = ctx.psum_model(blockops.bmatvec_each(factors.A, d))
+            proj = d - blockops.brmatvec(factors.A,
+                                         _gram_solve(factors.chol, u))
+            return state.x + gamma * proj, u
+        batched = state.x.dim() == 3
+        X = state.x.transpose(0, 1) if batched else state.x
+        if blockops.is_sparse(factors.A):
+            Asp = factors.A
+            x_new, u = kops.sparse_proj_update(Asp.vals, Asp.cols, factors.B,
+                                               X, state.xbar, gamma)
+            u = ctx.psum_model(u)
+        else:
+            u = ctx.psum_model(kops.proj_gather(factors.A, X, state.xbar))
+            x_new = kops.proj_scatter(factors.B, X, state.xbar, u, gamma)
+        if batched:
+            return x_new.transpose(0, 1), u.transpose(0, 1)
+        return x_new, u
+
+    def _mesh_master(self, x_new, state, eta, ctx):
+        """Eq. 2b: x̄ <- (eta/m) Σ_i x_i + (1 − eta) x̄, the sum over the
+        workers an ``all_reduce``."""
+        m = ctx.workers_total(x_new.shape[-2])
+        s = ctx.psum_workers(x_new.sum(dim=-2))
+        return APCState(x=x_new, xbar=(eta / m) * s + (1.0 - eta) * state.xbar,
+                        t=state.t + 1)
+
+    def mesh_step(self, factors, b, state, params, ctx, *, use_kernel=False):
+        x_new, _ = self._mesh_step_u(factors, state, params["gamma"], ctx,
+                                     use_kernel)
+        return self._mesh_master(x_new, state, params["eta"], ctx)
+
+    def mesh_step_residual(self, factors, b, state, params, ctx):
+        """The mesh step and the consumed state's global ‖A x̄ − b‖², from
+        the gather results — the kernel path whenever the factors carry
+        B, as in the reference."""
+        x_new, u = self._mesh_step_u(factors, state, params["gamma"], ctx,
+                                     True)
+        return (self._mesh_master(x_new, state, params["eta"], ctx),
+                ctx.psum_workers(torch.sum(u * u, dim=(-2, -1))))
 
 
 @register("consensus")
@@ -320,13 +425,61 @@ class CimminoSolver(Solver):
     def extract(self, state):
         return state.xbar
 
+    # ----- mesh backend ---------------------------------------------------
+    def mesh_placements(self, use_kernel=False):
+        return (_proj_placements(use_kernel),
+                CimminoState(xbar=("n",), t=None))
+
+    def mesh_factors(self, factors, use_kernel=False):
+        return _mesh_factors(factors, use_kernel)
+
+    def mesh_prepare(self, A, params, ctx, use_kernel=False):
+        return _mesh_prepare(A, params, ctx, use_kernel)
+
+    def _mesh_r_v(self, factors, b, xbar, ctx, use_kernel):
+        """(the local workers' Σ_i r_i, the full v = b − A x̄) from local
+        shards, in b's layout.  The kernel path: the gather on the shard,
+        u summed over the model axis, the scatter (the sparse pair per
+        worker)."""
+        if not (use_kernel and factors.B is not None):
+            r, v = _row_projections(factors.A, factors.chol, b, xbar, ctx)
+            return r.sum(dim=-2), v
+        batched = b.dim() == 3
+        bw = b.transpose(0, 1) if batched else b
+        if blockops.is_sparse(factors.A):
+            Asp = factors.A
+            R, u = kops.sparse_cimmino_update(Asp.vals, Asp.cols, factors.B,
+                                              bw, xbar)
+            v = bw - ctx.psum_model(u)
+        else:
+            v = kops.cimmino_residual(bw, ctx.psum_model(
+                kops.cimmino_gather(factors.A, xbar)))
+            R = kops.cimmino_scatter(factors.B, v)
+        return R.sum(dim=0), v.transpose(0, 1) if batched else v
+
+    def mesh_step(self, factors, b, state, params, ctx, *, use_kernel=False):
+        r, _ = self._mesh_r_v(factors, b, state.xbar, ctx, use_kernel)
+        return CimminoState(
+            xbar=state.xbar + params["nu"] * ctx.psum_workers(r),
+            t=state.t + 1)
+
+    def mesh_step_residual(self, factors, b, state, params, ctx):
+        """The mesh step and ‖A x̄ − b‖² of the consumed state, from the
+        gather pass (v = b − A x̄)."""
+        r, v = self._mesh_r_v(factors, b, state.xbar, ctx, True)
+        return (CimminoState(
+            xbar=state.xbar + params["nu"] * ctx.psum_workers(r),
+            t=state.t + 1),
+            ctx.psum_workers(torch.sum(v * v, dim=(-2, -1))))
+
     # ----- least-squares mode ---------------------------------------------
     # The Cimmino fixed point minimizes Σᵢ ‖L_i⁻¹(A_i x − b_i)‖², the
     # Gram-whitened least-squares problem: ``ls_moment`` is exactly the
     # update direction (zero at the optimum), ``ls_reference`` solves the
     # whitened system directly, in numpy on the host.
-    def ls_moment(self, factors, A, b, x, params):
-        return _row_projections(A, factors.chol, b, x)[0].sum(dim=-2)
+    def ls_moment(self, factors, A, b, x, params, ctx=LOCAL_PSUM):
+        r = _row_projections(A, factors.chol, b, x, ctx)[0]
+        return ctx.psum_workers(r.sum(dim=-2))
 
     def ls_reference(self, sys: BlockSystem) -> torch.Tensor:
         A = sys.A_blocks.cpu().double().numpy()

@@ -33,8 +33,10 @@ the next one.  Repeated right-hand sides always qualify; PERTURBED ones
 only for solvers whose state caches nothing RHS-dependent
 (``Solver.warm_rhs_ok``: the gradient family and Cimmino).
 
-The mesh backend (``backend="mesh"``) is not ported yet (ROADMAP A14):
-it raises ``NotImplementedError`` at construction.
+Mesh serving (``backend="mesh"``) is not ported yet (ROADMAP A14b: every
+rank must see the same batches in the same order, so rank 0 admits the
+requests and broadcasts each batch): it raises ``NotImplementedError`` at
+construction.
 """
 from __future__ import annotations
 
@@ -182,9 +184,10 @@ class LinsysServer:
         else:
             plan = ExecutionPlan(backend=backend, kernel=use_kernel,
                                  precision=precision)
-        if backend == "mesh" or mesh is not None:
+        if backend == "mesh" or mesh is not None or (
+                plan is not None and plan.mesh is not None):
             raise NotImplementedError(
-                "backend='mesh' serving is not ported yet (ROADMAP A14): "
+                "backend='mesh' serving is not ported yet (ROADMAP A14b): "
                 "the port serves on one device (backend='local')")
         if backend != "local":
             raise ValueError(f"unknown backend {backend!r}; "

@@ -36,9 +36,15 @@ classes (``repro_torch.solvers.projection:ProjFactors``, ...), so the port
 does not read a factor directory the reference wrote (nor the other way
 round): an entry naming another package's classes is refused loudly.
 
+Factors obtained here round-trip both backends: the mesh backend
+(``solvers/mesh.py``) shards a hit's global factors; on a miss it runs
+its on-mesh prepare, gathers the factors to global shapes and
+``insert``s them (``persist`` on rank 0 alone, which writes the disk
+tier), so later solves on either backend hit them.
+
 Kernel path: ``factors(..., use_kernel=True)`` augments the cached entry
 with the pinv factors ONCE (``Solver.kernel_factors`` is idempotent) and
-writes the augmented factors back into the slot.  A ``precision="mixed"``
+writes the augmented factors back into the slot, on either backend.  A ``precision="mixed"``
 entry lives under its own fingerprint and is cast LAST: it stays bf16.
 """
 from __future__ import annotations
@@ -340,10 +346,12 @@ class FactorStore:
     def insert(self, solver, sys: BlockSystem, factors, *,
                resume: bool = False, key: Optional[str] = None,
                use_kernel: bool = False, precision: str = "default",
-               **params):
+               persist: bool = True, **params):
         """Record a caller-prepared factorization: counts the miss, adds
         the pinv augmentation (``use_kernel``), casts a non-default
-        ``precision`` LAST, persists to the disk tier and caches it."""
+        ``precision`` LAST, persists to the disk tier (unless
+        ``persist=False``: the mesh's ranks but rank 0, whose entry is
+        the same) and caches it."""
         solver = self._as_solver(solver)
         prm = solver.resolve_params(sys, **params)
         if key is None:
@@ -360,7 +368,8 @@ class FactorStore:
                 "the full b-independent prepare for solver %r (configure "
                 "a disk tier to amortize resumes across processes)",
                 solver.name)
-        self._disk_store(key, solver, sys, prm, factors)
+        if persist:
+            self._disk_store(key, solver, sys, prm, factors)
         self._insert(key, factors)
         return factors
 

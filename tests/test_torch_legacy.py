@@ -3,9 +3,10 @@
 * The loose-kwarg shim of ``solve``/``solve_many`` (``_coerce_plan``):
   a warm start passed as ``warm_state=`` resumes, one
   ``DeprecationWarning`` per call, ``plan=`` mixed with loose kwargs is a
-  ``ValueError``, a plan of another type a ``TypeError``, and the plan
-  fields the port has not ported (mesh, redundancy) raise naming their
-  ROADMAP item — the local cases of tests/test_execution_plan.py.
+  ``ValueError``, a plan of another type a ``TypeError``, the mesh
+  fields (ported, ROADMAP A14) run on a one-rank mesh, and the plan
+  fields the port has not ported (redundancy) raise naming their ROADMAP
+  item — the local cases of tests/test_execution_plan.py.
 * ``ExecutionPlan.replace``, ``Solver.theoretical_rate`` and
   ``core.spectral.apc_rate``.
 * The deprecated ``core`` shims (``apc.solve``, ``baselines``,
@@ -182,17 +183,27 @@ def test_one_warning_however_many_kwargs(plan_sys):
     ({"alive_schedule": np.ones((5, 4), bool)}, "A15"),
 ])
 def test_unported_plan_fields_raise_naming_their_item(plan_sys, kw, item):
-    """backend="mesh" and redundancy= reach resolve_plan, the kwargs for
-    plan fields the port lacks raise in the shim: each after the one
-    warning, naming its ROADMAP item, for solve and solve_many."""
+    """The mesh kwargs (A14, ported) run on a one-rank mesh with
+    backend="mesh" (a mesh object with the local backend is the
+    reference's ValueError); redundancy= reaches resolve_plan and
+    alive_schedule= raises in the shim, naming A15.  Each after the one
+    warning, for solve and solve_many."""
     _, ps = plan_sys
     s = solvers.get("apc")
     for call, args in ((s.solve, {}), (s.solve_many,
                                        {"B": np.ones((2, ps.N))})):
         with warnings.catch_warnings(record=True) as rec:
             warnings.simplefilter("always")
-            with pytest.raises(NotImplementedError, match=item):
-                call(ps, iters=5, **args, **kw)
+            if item == "A15":
+                with pytest.raises(NotImplementedError, match=item):
+                    call(ps, iters=5, **args, **kw)
+            elif "mesh" in kw:
+                with pytest.raises(ValueError, match="backend='mesh'"):
+                    call(ps, iters=5, **args, **kw)
+            else:
+                r = call(ps, iters=5, **args, **{"backend": "mesh", **kw})
+                assert r.residuals.shape[-1] == 5
+                assert torch.isfinite(r.residuals).all()
         assert len([w for w in rec
                     if issubclass(w.category, DeprecationWarning)]) == 1
 

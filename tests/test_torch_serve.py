@@ -3,7 +3,7 @@
 ``repro_torch.solvers.serve.LinsysServer`` and ``.pipeline
 .AsyncLinsysServer`` are held to the local cases of
 tests/test_linsys_server.py and tests/test_pipeline_server.py (the mesh
-cases wait for ROADMAP A14): FIFO coalescing and padding, true no-op
+cases wait for ROADMAP A14b): FIFO coalescing and padding, true no-op
 ``step``/``drain``, the validation messages, served x ``array_equal`` to
 the port's ``solve_many``, the steady state quiet under
 ``tracecheck(steady_state=True)``, warm-start gating, async ≡ sync bit
@@ -160,12 +160,12 @@ def test_submit_validation(sys_a):
 
 
 def test_unported_and_unservable_plans_are_refused():
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A14b"):
         LinsysServer(FactorStore(), backend="mesh")
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A14b"):
         LinsysServer(FactorStore(),
                      plan=solvers.ExecutionPlan(backend="mesh"))
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A14b"):
         AsyncLinsysServer(FactorStore(), mesh=object())
     with pytest.raises(ValueError, match="not servable"):
         LinsysServer(FactorStore(),
@@ -898,7 +898,7 @@ def test_serve_linsys_cli_store_dir_and_mesh(tmp_path, capsys):
     assert "disk_hits=1" in out and "misses=0" in out
     with pytest.raises(SystemExit):
         cli.main(["--backend", "mesh", "--device", "cpu"])
-    assert "A14" in capsys.readouterr().err
+    assert "A14b" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------

@@ -500,13 +500,15 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
         '{"kernels"')))["kernels"]
     assert [k["name"] for k in kernels] == list(bp.KERNELS)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "forms"}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "forms",
+            "mesh_launches"}
     form_keys = {"pair", "k", "ms", "row_dot_ms", "ring_ms", "bound_ms",
                  "bound_by", "launches", "max_abs_err", "library_ms",
                  "library"}
     bf = "bfloat16/bfloat16"
     for k in kernels:
         assert set(k) == keys and k["launches"] == 40, k
+        assert k["mesh_launches"] == 40, k          # phase 16 (a)
         assert np.isfinite([k["ms"], k["plain_ms"], k["bound_ms"]]).all()
         # the APC pair's all-bf16 form beside the four others, its
         # launches from phase 15's ops.block_projection
@@ -556,3 +558,34 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
         assert sum(x.startswith(f"{label} clocks") for x in lines) == 1
     assert [k["replaces"].rsplit(":", 1)[1] for k in kernels] == [
         "173", "210", "246", "274", "313", "314", "315"]
+    # phase 16: the mesh backend; (a) in this process on a one-rank group
+    # (gloo here, the faked card being the CPU), (b) two spawned ranks,
+    # which see no faked card: they run on the CPU, plain versions
+    p16 = [x for x in lines if x.startswith("phase 16 ")]
+    assert p16[0].startswith("phase 16 (a) mesh (('data', 1), ('model', 1))"
+                             " over 1 rank(s), gloo"), p16
+    for sname in ("apc", "consensus", "cimmino"):
+        assert sum(x.startswith(f"phase 16 (a) {sname} dense kernel=True")
+                   and "iters_to_tol" in x and "mesh " in x and "local " in x
+                   for x in p16) == 1, sname
+    for label in ("apc solve_many k=8", "apc sparse kernel=True",
+                  "cimmino sparse kernel=True", "apc precision=mixed"):
+        assert sum(x.startswith(f"phase 16 (a) {label}")
+                   for x in p16) == 1, label
+    assert all("launches {" in x and ": 40" in x for x in p16
+               if x.startswith("phase 16 (a) ") and "kernel=True" in x)
+    assert any(x.startswith("phase 16 (b) two ranks over gloo on cpu")
+               for x in p16), p16
+    for shape in ("(1, 2)", "(2, 1)"):
+        for sname in ("apc", "cimmino"):
+            got = [x for x in p16 if x.startswith(
+                f"phase 16 (b) mesh (data, model) {shape} {sname} ")]
+            assert len(got) == 1 and "rank 0:" in got[0] and \
+                "rank 1:" in got[0] and "all_reduce" in got[0], got
+            # each kernel held to its plain version on the rank's shards
+            uses = (("apc_gather", "apc_scatter") if sname == "apc" else
+                    ("cimmino_gather", "cimmino_scatter"))
+            assert all(got[0].count(f"{kn} (") == 2 for kn in uses), got
+    # the spawned ranks see no faked card: they launch nothing
+    assert all(x.count("instances launched none (plain versions)") == 2
+               for x in p16 if x.startswith("phase 16 (b) mesh")), p16
