@@ -236,6 +236,15 @@ MESH_X = dict(rtol=1e-8, atol=1e-10)
 MESH_H = dict(rtol=1e-6, atol=1e-12)
 MESH_SHAPES = ((1, 2), (2, 1))       # (data, model) of the two-rank runs
 MESH_DEADLINE = 150.0                # seconds for the two ranks
+# phase 17: a served answer's final residual against the local server's
+SERVE_RES_REL = 1e-6
+SERVE_DEADLINE = 240.0               # seconds for phases 17 (b), 18's ranks
+# phase 17 (b): the serving CLI at world 2, on a system cut to n = 2048
+SERVE_CLI_ARGS = ["--backend", "mesh", "--requests", "12", "--systems", "1",
+                  "--batch", "4", "--n", "2048", "--workers", "16",
+                  "--iters", "150", "--use-kernel"]
+# phase 18: the system of the elastic recovery and of the two gloo ranks
+RED_CUT = dict(N=8192, n=4096, m=16)
 SOURCE = "src/repro_torch/kernels/csrc/block_projection.cu"
 REPLACES = {"apc_gather": "src/repro/kernels/block_projection.py:173",
             "apc_scatter": "src/repro/kernels/block_projection.py:210",
@@ -1001,26 +1010,12 @@ def mesh_phase(card, dsys, dfac, sp, fs, pinned, sp_pinned,
         dist.destroy_process_group()
 
     # (b) two ranks on the one card over gloo, each a process of its own
-    out = ROOT / "build" / "phase16"
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
     cfg = dict(full=FULL, iters=ITERS, world=2, shapes=MESH_SHAPES,
                device=dev.resolve("cuda").type,
                params={k: pinned[k][0] for k in ("apc", "cimmino")})
     t = time.time()
-    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                               "--mesh-rank", str(r), str(out),
-                               json.dumps(cfg)]) for r in range(2)]
-    try:
-        for p in procs:
-            rc = p.wait(timeout=max(1.0, MESH_DEADLINE - (time.time() - t)))
-            assert rc == 0, f"phase 16 (b): a rank exited with {rc}"
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(2)]
+    ranks = spawn_ranks("--mesh-rank", ROOT / "build" / "phase16", cfg,
+                        MESH_DEADLINE)
     say(f"phase 16 (b) two ranks over gloo on {cfg['device']}: the system "
         f"{FULL} made on each rank's host in "
         f"{float(ranks[0]['t_data']):.2f} s, each rank copying its own "
@@ -1092,24 +1087,8 @@ def mesh_rank(argv) -> int:
     if cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    dist.init_process_group("gloo", store=dist.FileStore(
-        str(out / "store"), cfg["world"]), rank=rank,
-        world_size=cfg["world"])
+    join_group(rank, out, cfg["world"])
     got = {}
-    # the all_reduce's share: each call timed between two synchronizes
-    spent, real = [0.0, False], dist.all_reduce
-
-    def all_reduce(tensor, *a, **k):
-        if not spent[1]:
-            return real(tensor, *a, **k)
-        sync()
-        t0 = time.perf_counter()
-        work = real(tensor, *a, **k)
-        sync()
-        spent[0] += time.perf_counter() - t0
-        return work
-
-    dist.all_reduce = all_reduce
     try:
         t = time.time()
         system = linsys.tall_gaussian(**cfg["full"], seed=0, device="cpu")
@@ -1161,25 +1140,738 @@ def mesh_rank(argv) -> int:
                     # the all_reduce's share, from one run whose every
                     # all_reduce is timed between two synchronizes: the
                     # share is of that run's own time
-                    spent[:] = [0.0, True]
-                    t = time.perf_counter()
-                    cs.run(*cs.args)
-                    sync()
+                    with timed_collective("all_reduce", [0.0]) as spent:
+                        t = time.perf_counter()
+                        cs.run(*cs.args)
+                        sync()
                     got[f"{key}/ms_sync"] = (time.perf_counter() - t) * 1e3
-                    got[f"{key}/ms_ar"] = spent[0] * 1e3
-                    spent[1] = False
+                    got[f"{key}/ms_ar"] = spent[0]
                     # the next solve's resident GB holds none of these
                     del cs, state, calls, wrapper, args, y
     finally:
-        dist.all_reduce = real
+        dist.destroy_process_group()
+    np.savez(out / f"rank{rank}.npz", **got)
+    return 0
+
+
+def spawn_ranks(flag: str, out: pathlib.Path, cfg: dict,
+                deadline: float) -> list:
+    """Run ``chip_smoke.py FLAG R OUT CONFIG`` for each rank R of
+    ``cfg["world"]``, all at once; past ``deadline`` seconds every one is
+    killed and the phase fails, as it does when a rank exits non-zero.
+    Every rank's records (OUT/rankR.npz)."""
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t = time.time()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               flag, str(r), str(out), json.dumps(cfg)])
+             for r in range(cfg["world"])]
+    try:
+        for p in procs:
+            rc = p.wait(timeout=max(1.0, deadline - (time.time() - t)))
+            assert rc == 0, f"{flag}: a rank exited with {rc}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [dict(np.load(out / f"rank{r}.npz", allow_pickle=True))
+            for r in range(cfg["world"])]
+
+
+def join_group(rank: int, out: pathlib.Path, world: int):
+    """A spawned rank's gloo group, through a FileStore in ``out``."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(out / "store"), world), rank=rank, world_size=world)
+
+
+@contextlib.contextmanager
+def timed_collective(name: str, spent: list):
+    """Inside, each ``torch.distributed.<name>`` call is timed between
+    two synchronizes of the card, its ms added to ``spent[0]``."""
+    import torch.distributed as dist
+    real = getattr(dist, name)
+    sync = (torch.cuda.synchronize if torch.cuda.is_available()
+            else (lambda: None))
+
+    def timed(*a, **k):
+        sync()
+        t = time.perf_counter()
+        work = real(*a, **k)
+        sync()
+        spent[0] += (time.perf_counter() - t) * 1e3
+        return work
+    setattr(dist, name, timed)
+    try:
+        yield spent
+    finally:
+        setattr(dist, name, real)
+
+
+def served_close(label, xs, residuals, ref,
+                 residual_tol=None) -> tuple[float, float]:
+    """Hold served answers (x rows, final residuals) to ``ref``, the
+    local server's ``Served`` for the same requests: x within the mesh
+    contract, the residual within 1e-6 relative (tests/test_linsys_server
+    .py), or within ``residual_tol`` (``np.isclose`` keywords) where the
+    residuals sit at the rounding floor.  (max|Δx|, max relative Δ
+    residual)."""
+    assert len(xs) == len(ref), label
+    dx = dr = 0.0
+    for x, res, e in zip(xs, residuals, ref):
+        assert np.allclose(x, e.x, **MESH_X), (label, e.rid)
+        d = abs(res - e.residual) / abs(e.residual)
+        assert (d <= SERVE_RES_REL if residual_tol is None else
+                np.isclose(res, e.residual, **residual_tol)), (label, e.rid,
+                                                               d)
+        dx, dr = max(dx, float(np.abs(x - e.x).max())), max(dr, d)
+    return dx, dr
+
+
+def mesh_serving_phase(card, form_launches, dsys, sp, pinned,
+                       sp_pinned) -> dict:
+    """Phase 17: mesh serving.  Returns the launches of each kernel in a
+    mesh-served batch, counted from 0 just before each mesh server's
+    batch and read just after."""
+    import torch.distributed as dist
+
+    from repro_torch import device as dev
+    from repro_torch import solvers
+    from repro_torch.data import linsys
+    from repro_torch.kernels import block_projection as bp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    t17 = time.time()
+    uses = lambda kns, n: {kn: n if kn in kns else 0  # noqa: E731
+                           for kn in bp.KERNELS}
+    created = not dist.is_initialized()
+    mesh = mesh_lib.solver_mesh(1, 1)
+    say(f"phase 17 (a) mesh serving, mesh (('data', 1), ('model', 1)) over "
+        f"{dist.get_world_size()} rank(s), {dist.get_backend()} on "
+        f"{mesh_lib.mesh_device(mesh)}")
+    dprm = pinned["apc"][0]
+    n_req = 3 * K_MANY + 5
+    xs, rhs = consistent(dsys, n_req, 14)
+    store = solvers.FactorStore()
+    kw = dict(solver="apc", iters=ITERS, batch=K_MANY, use_kernel=True)
+    srvs = {"local": solvers.LinsysServer(store, **kw, **dprm),
+            "mesh": solvers.LinsysServer(store, backend="mesh", mesh=mesh,
+                                         **kw, **dprm)}
+    fps = {tag: srv.register(dsys) for tag, srv in srvs.items()}
+    assert fps["local"] == fps["mesh"]
+    for tag, srv in srvs.items():
+        for b in rhs:
+            srv.submit(fps[tag], b)
+    outs = {tag: [] for tag in srvs}
+    ms = {tag: [] for tag in srvs}
+    launched = []
+    for _ in range(4):                  # the batches, local and mesh in turns
+        for tag, srv in srvs.items():
+            ops.reset_launch_counts()
+            out, t_ms = timed_ms(srv.step)
+            if tag == "mesh":
+                launched.append(form_launches("f64"))
+            outs[tag] += out
+            ms[tag].append(t_ms)
+    assert all(srv.step() == [] for srv in srvs.values())
+    for got in launched:
+        assert got == uses(USES["apc"], ITERS), got
+    msrv, local = srvs["mesh"], outs["local"]
+    assert msrv.stats.executor_builds == 1 and msrv.jit_cache_size() == 1
+    assert [r.rid for r in outs["mesh"]] == list(range(n_req))
+    dx, dr = served_close("dense apc", [r.x for r in outs["mesh"]],
+                          [r.residual for r in outs["mesh"]], local)
+    err = max(float(np.linalg.norm(r.x - xs[r.rid].cpu().numpy())
+                    / np.linalg.norm(xs[r.rid].cpu().numpy()))
+              for r in outs["mesh"])
+    assert err <= 1e-8, err
+    rate = {t: (n_req - K_MANY) / sum(v[1:]) * 1e3 for t, v in ms.items()}
+    say(f"phase 17 (a) dense apc mesh server k={K_MANY}, {ITERS} "
+        f"iterations, {n_req} requests in 4 batches (3 pad slots): vs the "
+        f"local server's answers max|Δx| {dx:.3e} (rtol "
+        f"{MESH_X['rtol']:.0e} atol {MESH_X['atol']:.0e}), max rel Δ "
+        f"residual {dr:.3e} (tol {SERVE_RES_REL:.0e}); vs x_true max rel "
+        f"{err:.3e}; launches a batch "
+        f"{[g['apc_gather'] for g in launched]} (apc_gather) "
+        f"{[g['apc_scatter'] for g in launched]} (apc_scatter); ms a batch "
+        f"mesh (eager) {', '.join(f'{v:.1f}' for v in ms['mesh'])}, local "
+        f"(captured) {', '.join(f'{v:.1f}' for v in ms['local'])} (in "
+        f"turns; local's first with the store miss's prepare and its "
+        f"capture); RHS/s over batches 2-4 mesh {rate['mesh']:.2f}, local "
+        f"{rate['local']:.2f} (padding excluded; host clock to "
+        f"synchronize()) [{card}]")
+    mesh_launches = {kn: launched[-1][kn] for kn in USES["apc"]}
+    asrv = solvers.AsyncLinsysServer(store, backend="mesh", mesh=mesh,
+                                     pipeline_depth=2, **kw, **dprm)
+    afp = asrv.register(dsys)
+    for b in rhs:
+        asrv.submit(afp, b)
+    ops.reset_launch_counts()
+    aout, a_ms = timed_ms(asrv.drain)
+    a_launched = form_launches("f64")
+    asrv.close()
+    assert a_launched == uses(USES["apc"], 4 * ITERS), a_launched
+    adx, adr = served_close("async", [r.x for r in aout],
+                            [r.residual for r in aout], local)
+    same = all(np.array_equal(a.x, m.x) for a, m in zip(aout,
+                                                        outs["mesh"]))
+    rep = asrv.latency_report()
+    say(f"phase 17 (a) dense apc async mesh server (its assembly thread "
+        f"announces and runs each batch): {n_req} requests in {a_ms:.1f} ms "
+        f"({n_req / a_ms * 1e3:.2f} RHS/s), latency p50/p95/p99 "
+        f"{rep['p50_ms']:.1f}/{rep['p95_ms']:.1f}/{rep['p99_ms']:.1f} ms "
+        f"(all sent at t = 0); vs local max|Δx| {adx:.3e} max rel Δ "
+        f"residual {adr:.3e}; bit-equal to the sync mesh server {same}; "
+        f"launches {a_launched} [{card}]")
+    del srvs, msrv, asrv, aout, store
+    gc.collect()
+    # the other kernels: one batch each of dense Cimmino (on the cut
+    # system of phase 18: a new system's fingerprint hashes its A on the
+    # host, 5-6 s at the main path's size), sparse APC at
+    # precision="mixed" (the serving phase's sparse traffic) and sparse
+    # Cimmino, mesh against local
+    csys = linsys.tall_gaussian(**RED_CUT, seed=1, device="cuda")
+    for sname, system, prm, precision, kernels, pair in (
+            ("cimmino", csys, solvers.get("cimmino").resolve_params(csys),
+             "default", USES["cimmino"], "f64"),
+            ("apc", sp, sp_pinned["apc"][0], "mixed", SPARSE_USES["apc"],
+             "bf16_f64"),
+            ("cimmino", sp, sp_pinned["cimmino"][0], "default",
+             SPARSE_USES["cimmino"], "f64")):
+        _, Bs = consistent(system, K_MANY, 17)
+        store = solvers.FactorStore()
+        got = {}
+        for tag, extra in (("local", {}),
+                           ("mesh", dict(backend="mesh", mesh=mesh))):
+            srv = solvers.LinsysServer(store, solver=sname, iters=ITERS,
+                                       batch=K_MANY, use_kernel=True,
+                                       precision=precision, **extra, **prm)
+            fp = srv.register(system)
+            for b in Bs:
+                srv.submit(fp, b)
+            ops.reset_launch_counts()
+            got[tag] = timed_ms(srv.drain)
+            if tag == "mesh":
+                counts = form_launches(pair)
+        assert counts == uses(kernels, ITERS), (sname, counts)
+        for kn in kernels:
+            mesh_launches.setdefault(kn, counts[kn])
+        mout = got["mesh"][0]
+        sdx, sdr = served_close(f"{system.structure} {sname}",
+                                [r.x for r in mout],
+                                [r.residual for r in mout], got["local"][0])
+        say(f"phase 17 (a) {system.structure} {sname} precision={precision} "
+            f"mesh server k={K_MANY}, N={system.N} n={system.n} m={system.m}, "
+            f"one batch: vs local max|Δx| "
+            f"{sdx:.3e} max rel Δ residual {sdr:.3e}; ms mesh "
+            f"{got['mesh'][1]:.1f}, local {got['local'][1]:.1f} (its first "
+            f"batch: the store's miss, the capture); launches {counts} "
+            f"[{card}]")
+        del store, srv, got, mout
+    del csys
+    if created:
+        dist.destroy_process_group()
+    # the spawned ranks need the memory this process's allocator caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on the one card over gloo: rank 0 admits, the other
+    # follows; then the serving CLI at world 2 on a cut system
+    rdir = ROOT / "build" / "phase17"
+    rhs_file = ROOT / "build" / "phase17_rhs.npy"
+    rhs_file.parent.mkdir(parents=True, exist_ok=True)
+    np.save(rhs_file, rhs)
+    cfg = dict(full=FULL, iters=ITERS, k=K_MANY, world=2,
+               device=dev.resolve("cuda").type, params=dprm,
+               rhs=str(rhs_file), cli=SERVE_CLI_ARGS)
+    t = time.time()
+    g0, g1 = spawn_ranks("--serve-rank", rdir, cfg, SERVE_DEADLINE)
+    rhs_file.unlink()
+    # two ranks sum u over column shards: the residuals, at the rounding
+    # floor after 150 iterations, are held to the history contract
+    bdx, bdr = served_close("two ranks", g0["x"], g0["res"], local,
+                            residual_tol=MESH_H)
+    assert int(g1["served"]) == 4 and "rank 0 admits" in str(g1["refused"])
+    share = float(g0["ms_bcast"] / g0["ms_sync"])
+    insts = []
+    for i, g in enumerate((g0, g1)):
+        if cfg["device"] == "cuda":
+            # the four batches and the synchronized one
+            assert g["launches"].tolist() == [5 * ITERS] * 2, g["launches"]
+            took = dict(x.split(":") for x in g["inst"])
+            assert sorted(took) == sorted(USES["apc"]), took
+        insts.append(f"rank {i}: instances "
+                     f"{', '.join(g['inst'].tolist()) or 'none (plain versions)'}"
+                     f", launches {g['launches'].tolist()}")
+    say(f"phase 17 (b) two ranks over gloo on {cfg['device']}, mesh (data, "
+        f"model) (1, 2), the system {FULL} made and registered on each "
+        f"rank (fingerprints compared): rank 0 admitted {n_req} requests "
+        f"in 4 batches and answered them, the follower served "
+        f"{int(g1['served'])} batches and stopped on the stop flag, "
+        f"answering none; vs (a)'s local answers max|Δx| {bdx:.3e} (rtol "
+        f"{MESH_X['rtol']:.0e} atol {MESH_X['atol']:.0e}), max rel Δ "
+        f"residual {bdr:.3e} (rtol {MESH_H['rtol']:.0e} atol "
+        f"{MESH_H['atol']:.0e}: the residuals sit at the rounding floor, "
+        f"{min(float(r) for r in g0['res']):.1e} and up); ms a batch "
+        f"{', '.join(f'{v:.1f}' for v in g0['ms'])}; a batch with every "
+        f"broadcast between two synchronizes {float(g0['ms_sync']):.1f} ms, "
+        f"the header's and the right-hand sides' broadcasts "
+        f"{float(g0['ms_bcast']):.2f} ms of it ({100 * share:.2f} %); "
+        f"{'; '.join(insts)}; {time.time() - t:.1f} s in all [{card}]")
+    cut = " ".join(SERVE_CLI_ARGS)
+    for line in g0["cli"]:
+        say(f"phase 17 (b) serve_linsys --backend mesh at world 2 ({cut}): "
+            f"{line} [{card}]")
+    assert list(g1["cli"]) == []
+    assert any(str(x).startswith("served ") for x in g0["cli"]), g0["cli"]
+    say(f"phase 17 (b) the CLI's system is cut to {cut}: it draws "
+        f"conditioned_gaussian systems, whose orthogonal basis is a QR of "
+        f"an n x n Gaussian on each rank's host, O(n^3): minutes at the "
+        f"main path's n = {FULL['n']} on the card's shared cores")
+    say(f"phase 17: {time.time() - t17:.1f} s")
+    return mesh_launches
+
+
+def serve_rank(argv) -> int:
+    """Phase 17 (b)'s rank ``argv[0]``: ``chip_smoke.py --serve-rank R DIR
+    CONFIG`` joins a gloo group through a FileStore in DIR, makes and
+    registers the CONFIG's dense system, and serves it on a 1 x 2 mesh:
+    rank 0 admits the requests of CONFIG's ``rhs`` file and answers, the
+    other follows; then both run the serving CLI.  It writes rank R's
+    records to DIR/rankR.npz and prints nothing."""
+    rank, out, cfg = int(argv[0]), pathlib.Path(argv[1]), json.loads(argv[2])
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch import solvers
+    from repro_torch.data import linsys
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve_linsys as serve_cli
+    torch.set_num_threads(1)
+    device = torch.device(cfg["device"])
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    join_group(rank, out, cfg["world"])
+    got = {}
+    try:
+        system = linsys.tall_gaussian(**cfg["full"], seed=0, device=device)
+        mesh = mesh_lib.make_mesh((1, cfg["world"]), ("data", "model"),
+                                  device=device)
+        with env_var(ENGINE_ENV, "fused"):
+            srv = solvers.LinsysServer(
+                solvers.FactorStore(), solver="apc", iters=cfg["iters"],
+                batch=cfg["k"], backend="mesh", mesh=mesh, use_kernel=True,
+                **cfg["params"])
+            fp = srv.register(system)
+            ops.reset_launch_counts()
+            if rank == 0:
+                rhs = np.load(cfg["rhs"])
+                for b in rhs:
+                    srv.submit(fp, b)
+                served, ms = [], []
+
+                def batches():
+                    while True:
+                        sync()
+                        t = time.perf_counter()
+                        batch = srv.step()
+                        sync()
+                        if not batch:
+                            return
+                        ms.append((time.perf_counter() - t) * 1e3)
+                        served.extend(batch)
+                _, seen = launched_instances(batches)
+                # one more batch, every broadcast between two synchronizes
+                spent = [0.0]
+                srv.submit(fp, rhs[0])
+                with timed_collective("broadcast", spent):
+                    sync()
+                    t = time.perf_counter()
+                    srv.step()
+                    sync()
+                got["ms_sync"] = (time.perf_counter() - t) * 1e3
+                got["ms_bcast"] = spent[0]
+                srv.close()
+                got["x"] = np.stack([r.x for r in served])
+                got["res"] = np.asarray([r.residual for r in served])
+                got["ms"] = np.asarray(ms)
+            else:
+                try:
+                    srv.submit(fp, np.zeros(system.N))
+                    got["refused"] = np.asarray("")
+                except RuntimeError as e:
+                    got["refused"] = np.asarray(str(e))
+                n, seen = launched_instances(srv.serve_follower)
+                got["served"] = np.asarray(n - 1)   # less the timed batch
+            launches = ops.launch_counts()
+            got["launches"] = np.asarray([launches["apc_gather"],
+                                          launches["apc_scatter"]])
+            got["inst"] = np.asarray(sorted(f"{kn}:{inst}"
+                                            for kn, inst in seen))
+            del srv, system
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert serve_cli.main(
+                    cfg["cli"] + ["--device", cfg["device"]]) == 0
+            got["cli"] = np.asarray(buf.getvalue().splitlines(),
+                                    dtype=object)
+    finally:
+        dist.destroy_process_group()
+    np.savez(out / f"rank{rank}.npz", **got)
+    return 0
+
+
+def redundancy_phase(card, dsys, chol, pinned) -> None:
+    """Phase 18: redundant execution and the elastic runtime on the dense
+    main path (no kernel: the replicated layout has none)."""
+    import torch.distributed as dist
+
+    from repro_torch import device as dev
+    from repro_torch import solvers
+    from repro_torch.data import linsys
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime.fault import HeartbeatMonitor
+    from repro_torch.solvers import executor, redundant
+    from repro_torch.solvers.projection import (ProjFactors,
+                                                _cho_solve_replicas)
+    t18 = time.time()
+    name = torch.cuda.get_device_name(0)
+    m = dsys.m
+    rot = rotating_straggler(m)
+    F = ProjFactors(A=dsys.A_blocks, chol=chol)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    say(f"phase 18 data: the dense main path's A and Cholesky factors "
+        f"resident, {base / 1e9:.3f} GB (the kernels' B freed)")
+    Plan = solvers.ExecutionPlan
+    for sname in ("apc", "consensus", "cimmino"):
+        s, prm = solvers.get(sname), pinned[sname][0]
+        plain = s.solve(dsys, iters=ITERS, plan=Plan(factors=F), **prm)
+        rplan = Plan(redundancy=2, alive_schedule=rot, factors=F)
+        r = s.solve(dsys, iters=ITERS, plan=rplan, **prm)
+        again = s.solve(dsys, iters=ITERS, plan=rplan, **prm)
+        with executor.disable_capture():
+            eager = s.solve(dsys, iters=ITERS, plan=rplan, **prm)
+        torch.cuda.synchronize()
+        dx, dh = mesh_check(f"redundant {sname}", r.x, r.residuals,
+                            r.errors, r.iters_to_tol, plain)
+        repeat = torch.equal(again.x, r.x) and torch.equal(
+            again.residuals, r.residuals)
+        vs_eager = torch.equal(eager.x, r.x) and torch.equal(
+            eager.residuals, r.residuals)
+        assert repeat, sname
+        assert vs_eager, (sname, float((eager.x - r.x).abs().max()))
+        line = (f"phase 18 {sname} redundancy=2, a rotating straggler, "
+                f"{ITERS} iters: vs the plain unfused solve max|Δx| "
+                f"{dx:.3e} max|Δ history| {dh:.3e} (x rtol "
+                f"{MESH_X['rtol']:.0e} atol {MESH_X['atol']:.0e}, history "
+                f"rtol {MESH_H['rtol']:.0e} atol {MESH_H['atol']:.0e}), "
+                f"iters_to_tol {r.iters_to_tol} both; repeat bit-identical "
+                f"{repeat}; captured ≡ eager (disable_capture) {vs_eager}")
+        del plain, r, again, eager
+        if sname != "apc":              # the same bytes as APC's
+            say(f"{line} [{card}]")
+            continue
+        # ms an iteration: one engine's segment of ITERS steps, captured
+        # (replays) and eager, against the plain unfused solve, in turns
+        engine = redundant.RedundantEngine(s, dsys, r=2, factors=F, **prm)
+        W = engine.lower(redundant.resolve_schedule(rot, m, ITERS))
+        st0 = engine.init_state()
+        engine.run(st0, W)
+        turns = {"captured": [], "eager": [], "plain": []}
+        for _ in range(3):
+            for how in turns:
+                def run(how=how):
+                    if how == "plain":
+                        return s.solve(dsys, iters=ITERS,
+                                       plan=Plan(factors=F), **prm)
+                    with (executor.disable_capture() if how == "eager"
+                          else contextlib.nullcontext()):
+                        return engine.run(st0, W)
+                turns[how].append(timed_ms(run)[1] / ITERS)
+        med = {how: float(np.median(v)) for how, v in turns.items()}
+        say(f"{line}; ms an iteration (median of 3 "
+            f"in turns, host clock to synchronize()): redundant captured "
+            f"{med['captured']:.4f}, eager {med['eager']:.4f} (a "
+            f"{ITERS}-step segment of one engine), plain unfused "
+            f"{med['plain']:.4f} (the whole solve) = "
+            f"{med['captured'] / med['plain']:.3f}x; engine captures "
+            f"{engine.captures} [{card}]")
+        # where a redundant iteration's time goes: its pieces on the
+        # engine's replicated factors, CUDA events, and the Cholesky
+        # solve the steps do not take (cuSOLVER's, MAGMA's) beside it
+        f, st = engine._frep, st0
+        d = st.xbar[None, None, :] - st.x
+        u = torch.einsum("mrpn,mrn->mrp", f.A, d)
+
+        def cho(lib):
+            with linalg_library(lib):
+                return torch.cholesky_solve(u.unsqueeze(-1), f.chol)
+        h = engine._history
+        part = medians_ms({
+            "gather einsum": lambda: torch.einsum("mrpn,mrn->mrp", f.A, d),
+            "two triangular solves": lambda: _cho_solve_replicas(f.chol, u),
+            "scatter einsum": lambda: torch.einsum("mrpn,mrp->mrn", f.A, u),
+            "residual": lambda: h.true_res(st),
+            "cholesky_solve cuSOLVER": lambda: cho("cusolver"),
+            "cholesky_solve MAGMA": lambda: cho("magma")}, reps=5, batch=3)
+        a_rep = f.A.numel() * f.A.element_size()
+        say(f"phase 18 apc redundant iteration, its pieces (CUDA events, "
+            f"median of 5 runs of 3 in turns; the replicated A "
+            f"{a_rep / 1e9:.2f} GB, {tuple(f.chol.shape)} Cholesky "
+            f"factors): " + "; ".join(f"{k} {v:.4f} ms"
+                                      for k, v in part.items())
+            + f"; bytes bound of an iteration (the replicated A twice, A "
+            f"once) {(2 * a_rep + a_rep / 2) / card_rates(name)[0] * 1e3:.4f}"
+            f" ms [{card}]")
+        del engine, st0, W, f, st, d, u, h
+        gc.collect()
+        torch.cuda.empty_cache()
+    red_peak = torch.cuda.max_memory_allocated()
+
+    # the elastic runtime: a death, a same-size rejoin, a join 16 -> 17
+    s, prm = solvers.get("apc"), pinned["apc"][0]
+    mon = HeartbeatMonitor(n_workers=m)
+    t = time.time()
+    # a store that keeps one system and one block: its block tier would
+    # otherwise hold a copy of every block of A
+    rt = solvers.ElasticRuntime(
+        s, dsys, plan=Plan(redundancy=2, store=solvers.FactorStore(
+            capacity=1, block_capacity=1)), monitor=mon, segment=25, **prm)
+    t_build = time.time() - t
+    mask = np.ones(m, bool)
+    mask[2] = False
+    death = ITERS // 3                  # worker 2 dies after this many
+    sched = np.stack([np.ones(m, bool)] * death + [mask] * (ITERS - death))
+    ref = s.solve(dsys, iters=ITERS, plan=Plan(
+        redundancy=2, alive_schedule=sched, factors=rt._current.factors),
+        **prm)
+    gc.collect()
+    rep1 = rt.run(iters=death)
+    sizes = rt.engine_cache_sizes()
+    mon.mark_dead(2)
+    t = time.time()
+    rep2 = rt.run(iters=ITERS - death)
+    torch.cuda.synchronize()
+    t_death = time.time() - t
+    bit = torch.equal(rep2.x, ref.x) and torch.equal(
+        torch.cat([rep1.residuals, rep2.residuals]), ref.residuals)
+    assert bit and rep2.relowerings == 1 and rep2.iters == ITERS
+    assert rt.engine_cache_sizes() == sizes and rt.engine.captures == 1, (
+        sizes, rt.engine_cache_sizes())
+    del ref
+    mon.rejoin(2, resynced=True)
+    rep3 = rt.run(iters=25)
+    assert rep3.repartitions == 0 and rep3.fleet == tuple(range(m))
+    assert rt.engine_cache_sizes() == sizes
+    mon.join(resynced=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.time()
+    rep4 = rt.run(iters=25)
+    torch.cuda.synchronize()
+    t_join = time.time() - t
+    assert rep4.repartitions == 1 and rt.sys.m == m + 1, rep4.fleet
+    assert bool(torch.isfinite(rep4.residuals).all())
+    caps = {size: part.engine.captures for size, part in rt._parts.items()}
+    assert caps == {m: 1, m + 1: 1}, caps
+    el_peak = torch.cuda.max_memory_allocated()
+    say(f"phase 18 elastic apc redundancy=2, segments of 25: built in "
+        f"{t_build:.2f} s (the blocks' fingerprints and factors through "
+        f"the store's block tier); worker 2 dies after {death} iterations: "
+        f"re-lowered ({rep2.relowerings}), {ITERS - death} more in "
+        f"{t_death:.2f} s, "
+        f"x and history bit-equal to the one-shot solve on the same "
+        f"schedule {bit}, the engine's programs {sizes} before and after "
+        f"(captures 1); rejoin at the same size: repartitions "
+        f"{rep3.repartitions}, fleet of {len(rep3.fleet)}; a join grows the "
+        f"fleet {m} -> {rt.sys.m}: repartitions {rep4.repartitions}, "
+        f"reused_blocks {rep4.reused_blocks} prepared_blocks "
+        f"{rep4.prepared_blocks}, 25 iterations (with the new partition, "
+        f"its factors and engine) in {t_join:.2f} s, residual "
+        f"{float(rep4.residuals[-1]):.3e}; captures by fleet size {caps} "
+        f"[{card}]")
+    del rt, rep1, rep2, rep3, rep4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # checkpoint() and recover() from a disk tier, on a cut system
+    edir = ROOT / "build" / "phase18_elastic"
+    shutil.rmtree(edir, ignore_errors=True)
+    csys = linsys.tall_gaussian(**RED_CUT, seed=1, device="cuda")
+    cprm = s.resolve_params(csys)
+    oracle = s.solve(csys, iters=2 * ITERS, **cprm)
+    cplan = lambda: Plan(redundancy=2, store=solvers.FactorStore(  # noqa
+        directory=str(edir / "store")))
+    rt = solvers.ElasticRuntime(s, csys, plan=cplan(), segment=25,
+                                checkpoint_dir=str(edir / "ckpt"), **cprm)
+    rt.run(iters=ITERS)
+    del rt
+    t = time.time()
+    rt = solvers.ElasticRuntime.recover(s, csys, str(edir / "ckpt"),
+                                        plan=cplan(), segment=25, **cprm)
+    t_rec = time.time() - t
+    assert (rt.reused_blocks, rt.prepared_blocks) == (csys.m, 0)
+    rep = rt.run(iters=ITERS)
+    assert rep.iters == 2 * ITERS
+    rx = float(torch.linalg.norm(rep.x - oracle.x) / torch.linalg.norm(
+        oracle.x))
+    assert torch.allclose(rep.x, oracle.x, rtol=1e-6, atol=1e-10), rx
+    say(f"phase 18 elastic recover (a cut system, tall_gaussian {RED_CUT}: "
+        f"the disk tier writes every block's A with its factors): "
+        f"checkpoint after each segment, a fresh runtime recovered from "
+        f"the disk tier and the checkpoint in {t_rec:.2f} s, "
+        f"reused_blocks {csys.m} prepared_blocks 0; {rep.iters} iterations "
+        f"in all; x vs the uninterrupted plain solve max rel {rx:.3e} "
+        f"[{card}]")
+    shutil.rmtree(edir, ignore_errors=True)
+
+    # the redundant mesh path: one NCCL rank against local
+    created = not dist.is_initialized()
+    mesh = mesh_lib.solver_mesh(1, 1)
+    s, prm = solvers.get("apc"), pinned["apc"][0]
+    rplan = Plan(redundancy=2, alive_schedule=rot, factors=F)
+    loc = s.solve(dsys, iters=ITERS, plan=rplan, **prm)
+    mplan = rplan.replace(backend="mesh", mesh=mesh)
+    r, t_mesh = timed_ms(lambda: s.solve(dsys, iters=ITERS, plan=mplan,
+                                         **prm))
+    _, t_loc = timed_ms(lambda: s.solve(dsys, iters=ITERS, plan=rplan,
+                                        **prm))
+    dx, dh = mesh_check("redundant mesh", r.x, r.residuals, r.errors,
+                        r.iters_to_tol, loc)
+    say(f"phase 18 redundant apc on the mesh, one rank over "
+        f"{dist.get_backend()}: vs local max|Δx| {dx:.3e} max|Δ history| "
+        f"{dh:.3e}; the whole solve {t_mesh / ITERS:.4f} ms an iteration "
+        f"(eager) against local's {t_loc / ITERS:.4f} (captured) [{card}]")
+    del r, loc
+    if created:
+        dist.destroy_process_group()
+    mem_peak = torch.cuda.max_memory_allocated()
+
+    # two gloo ranks (2 x 1) on the one card, on the cut system
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dict(cut=RED_CUT, iters=ITERS, world=2,
+               device=dev.resolve("cuda").type,
+               params={k: s_.resolve_params(csys) for k, s_ in (
+                   ("apc", solvers.get("apc")),
+                   ("cimmino", solvers.get("cimmino")))})
+    t = time.time()
+    g0, g1 = spawn_ranks("--red-rank", ROOT / "build" / "phase18", cfg,
+                         SERVE_DEADLINE)
+    for name in ("apc", "cimmino"):
+        plain = solvers.get(name).solve(csys, iters=ITERS,
+                                        **cfg["params"][name])
+        for key in (name, f"{name}/elastic"):
+            if f"{key}/x" not in g0:
+                continue
+            assert np.array_equal(g0[f"{key}/x"], g1[f"{key}/x"]), key
+            kdx, kdh = mesh_check(key, g0[f"{key}/x"], g0[f"{key}/res"],
+                                  None, g0[f"{key}/itt"], plain)
+            say(f"phase 18 two ranks over gloo on {cfg['device']}, mesh "
+                f"(data, model) (2, 1), {key} redundancy=2 "
+                + (f"(a death on rank 0's monitor after {ITERS // 3} "
+                   f"iterations)"
+                   if "elastic" in key else "(a rotating straggler)")
+                + f": vs the local plain solve max|Δx| {kdx:.3e} max|Δ "
+                f"history| {kdh:.3e}, x the same on both ranks; "
+                f"{float(g0[f'{key}/ms']) / ITERS:.4f} ms an iteration "
+                f"[{card}]")
+    say(f"phase 18 two ranks: the system cut to tall_gaussian {RED_CUT} "
+        f"(each rank makes it on its host and holds A and its replicated "
+        f"shard; gloo takes every all_reduce through the host), "
+        f"{time.time() - t:.1f} s in all")
+    say(f"phase 18 memory: resident {base / 1e9:.3f} GB before; peak "
+        f"{red_peak / 1e9:.3f} GB in the redundant solves (A, the "
+        f"replicated A and factors), {el_peak / 1e9:.3f} GB with the "
+        f"elastic runtime's two partitions, {mem_peak / 1e9:.3f} GB in "
+        f"all (max_memory_allocated) [{card}]")
+    say(f"phase 18: {time.time() - t18:.1f} s")
+
+
+def rotating_straggler(m):
+    """The covering schedule of tests/test_redundant.py: worker t mod m
+    stalls at iteration t."""
+    return lambda t: np.array([i != (t % m) for i in range(m)])
+
+
+def red_rank(argv) -> int:
+    """Phase 18's rank ``argv[0]``: ``chip_smoke.py --red-rank R DIR
+    CONFIG`` joins a gloo group through a FileStore in DIR, makes the
+    CONFIG's cut system, and runs redundant APC and Cimmino on a 2 x 1
+    mesh under the rotating straggler, then the elastic runtime's death
+    path (APC, the death on rank 0's monitor alone).  It writes rank R's
+    records to DIR/rankR.npz and prints nothing."""
+    rank, out, cfg = int(argv[0]), pathlib.Path(argv[1]), json.loads(argv[2])
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch import solvers
+    from repro_torch.data import linsys
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime.fault import HeartbeatMonitor
+    torch.set_num_threads(1)
+    device = torch.device(cfg["device"])
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    join_group(rank, out, cfg["world"])
+    got = {}
+    try:
+        system = linsys.tall_gaussian(**cfg["cut"], seed=1, device=device)
+        mesh = mesh_lib.make_mesh((cfg["world"], 1), ("data", "model"),
+                                  device=device)
+        rot = rotating_straggler(system.m)
+        for name in ("apc", "cimmino"):
+            s, prm = solvers.get(name), cfg["params"][name]
+            sync()
+            t = time.perf_counter()
+            r = s.solve(system, iters=cfg["iters"], plan=solvers.ExecutionPlan(
+                redundancy=2, alive_schedule=rot, backend="mesh", mesh=mesh),
+                **prm)
+            sync()
+            got[f"{name}/ms"] = (time.perf_counter() - t) * 1e3
+            got[f"{name}/x"] = r.x.cpu().numpy()
+            got[f"{name}/res"] = r.residuals.cpu().numpy()
+            got[f"{name}/itt"] = np.asarray(r.iters_to_tol)
+        s, prm = solvers.get("apc"), cfg["params"]["apc"]
+        mon = HeartbeatMonitor(n_workers=system.m)
+        rt = solvers.ElasticRuntime(s, system, monitor=mon, segment=25,
+                                    plan=solvers.ExecutionPlan(
+                                        redundancy=2, backend="mesh",
+                                        mesh=mesh), **prm)
+        sync()
+        t = time.perf_counter()
+        death = cfg["iters"] // 3
+        r1 = rt.run(iters=death)
+        if rank == 0:
+            mon.mark_dead(2)
+        r2 = rt.run(iters=cfg["iters"] - death)
+        sync()
+        assert r2.relowerings == 1
+        got["apc/elastic/ms"] = (time.perf_counter() - t) * 1e3
+        got["apc/elastic/x"] = r2.x.cpu().numpy()
+        res = torch.cat([r1.residuals, r2.residuals])
+        got["apc/elastic/res"] = res.cpu().numpy()
+        got["apc/elastic/itt"] = np.asarray(
+            solvers.iters_to_tolerance(res, 1e-6))
+    finally:
         dist.destroy_process_group()
     np.savez(out / f"rank{rank}.npz", **got)
     return 0
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--mesh-rank"]:
-        return mesh_rank(sys.argv[2:])
+    ranks = {"--mesh-rank": mesh_rank, "--serve-rank": serve_rank,
+             "--red-rank": red_rank}
+    if sys.argv[1:2] and sys.argv[1] in ranks:
+        return ranks[sys.argv[1]](sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs a CUDA device", file=sys.stderr)
@@ -2777,7 +3469,21 @@ def phases() -> int:
     # 16. the mesh backend ------------------------------------------------
     mesh_launches = mesh_phase(card, dsys, dfac, sp, fs, pinned, sp_pinned,
                                form_launches)
-    del dsys, dfac
+
+    # 17. mesh serving ----------------------------------------------------
+    serving_launches = mesh_serving_phase(card, form_launches, dsys, sp,
+                                          pinned, sp_pinned)
+
+    # 18. redundancy and the elastic runtime (no kernel) --------------------
+    # on the dense system alone: the kernels' B and the sparse path's
+    # systems and factors (its densified twin's B among them) go
+    chol = dfac.chol
+    del dfac, sp, fs, fd, msf, sparse_facs, vals, cols, Bv, vals16, Bv16, \
+        vals32, Bv32, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    redundancy_phase(card, dsys, chol, pinned)
+    del dsys, chol
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2815,6 +3521,7 @@ def phases() -> int:
             "name": kname, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[kname], "launches": main_launches[kname],
             "mesh_launches": mesh_launches[kname],
+            "mesh_serving_launches": serving_launches[kname],
             "max_abs_err": max_abs[(kname, "float64/float64")],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

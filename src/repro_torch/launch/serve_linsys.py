@@ -25,8 +25,15 @@ result).  The run ends with the SLO latency report (p50/p95/p99).
     PYTHONPATH=src python -m repro_torch.launch.serve_linsys --async \
         --requests 24 --arrival-rate 50 --pipeline-depth 2
 
-``--backend mesh`` is refused: mesh serving is not ported yet (ROADMAP
-A14b: rank 0 admits the requests and broadcasts each batch).
+``--backend mesh`` serves on the ``torch.distributed`` mesh backend, one
+rank a process: alone, a one-rank group (``launch/mesh.init_group``);
+under ``torchrun``, the ranks it starts.  Every rank makes and registers
+the same systems; rank 0 admits the stream, announces each batch to the
+others (``LinsysServer.serve_follower``) and prints, and ends the
+followers when it is done.
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m \
+        repro_torch.launch.serve_linsys --backend mesh --device cpu
 """
 from __future__ import annotations
 
@@ -35,10 +42,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as dev
 from repro_torch import solvers
 from repro_torch.data import linsys
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.solvers.capability import ExecutionPlan
 from repro_torch.solvers.pipeline import AsyncLinsysServer, Shed
 from repro_torch.solvers.serve import LinsysServer
@@ -86,11 +95,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
-    if args.backend == "mesh":
-        ap.error("--backend mesh serving is not ported yet (ROADMAP A14b); "
-                 "the port serves on one device (--backend local)")
 
-    device = dev.resolve(args.device)
+    device, say = dev.resolve(args.device), print
+    if args.backend == "mesh":
+        # the group first: under torchrun it decides this rank's device
+        device = mesh_lib.init_group(device)
+        if dist.get_rank() != 0:
+            say = lambda *a, **k: None      # noqa: E731 (rank 0 prints)
     dtype = torch.float64 if args.x64 else torch.float32
     store = FactorStore(capacity=args.store_capacity,
                         directory=args.store_dir)
@@ -114,9 +125,22 @@ def main(argv=None):
         fp = srv.register(sys_)
         fps.append(fp)
         systems.append(sys_)
-        print(f"registered system {i}: N={sys_.N} n={sys_.n} m={sys_.m} "
-              f"fingerprint {fp[:16]}...")
+        say(f"registered system {i}: N={sys_.N} n={sys_.n} m={sys_.m} "
+            f"fingerprint {fp[:16]}...")
+    if args.backend == "mesh":
+        say(f"mesh backend over {dist.get_world_size()} rank(s), "
+            f"{dist.get_backend()}: rank 0 admits")
+        if dist.get_rank() != 0:
+            srv.serve_follower()
+            return 0
+    try:
+        return _serve(args, srv, store, fps, systems, rng, where)
+    finally:
+        srv.close()             # on a mesh of several ranks: their stop
 
+
+def _serve(args, srv, store, fps, systems, rng, where) -> int:
+    """Rank 0's (or the one process's) request stream and its report."""
     picks = [int(rng.integers(0, args.systems))
              for _ in range(args.requests)]
     rhss = [rng.standard_normal(systems[i].N) for i in picks]

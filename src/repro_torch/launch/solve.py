@@ -17,20 +17,26 @@ prepare is a disk hit); ``--ckpt-dir`` checkpoints the final solver state
 ``--resume`` warm-starts from the latest one.  ``--use-mesh`` runs the
 method through the ``torch.distributed`` mesh backend, one rank a
 process: alone, a one-rank group; under ``torchrun``, the ranks it
-starts (rank 0 prints and checkpoints).  Redundancy is not offered yet
-(ROADMAP A15).
+starts (rank 0 prints and checkpoints).  ``--redundancy r`` (projection
+family, either backend) replicates the blocks r-redundantly for
+straggler tolerance, and ``--straggler-sim RATE`` stalls one random
+worker an iteration with that probability: the run still matches the
+no-failure one exactly (``repro_torch.solvers.redundant``).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.solve --problem ash608 \
         --workers 4 --iters 200 --use-kernel
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.solve \
         --workers 4 --use-mesh --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.solve --workers 8 \
+        --redundancy 2 --straggler-sim 0.5
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -52,6 +58,13 @@ def main(argv=None):
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--iters", type=int, default=500)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--redundancy", type=int, default=1,
+                    help="r-redundant blocks for straggler tolerance "
+                         "(projection-family methods, local or mesh)")
+    ap.add_argument("--straggler-sim", type=float, default=0.0,
+                    metavar="RATE",
+                    help="per-iteration probability that one random worker "
+                         "stalls (needs --redundancy >= 2 to stay covered)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--store-dir", default=None,
                     help="disk tier for the factor store — cached "
@@ -103,6 +116,24 @@ def main(argv=None):
            if rho is not None else ""))
 
     t0 = time.time()
+    if args.redundancy > 1 and not solver.supports_redundancy:
+        ap.error(f"--redundancy needs a projection-family method "
+                 f"(apc/consensus/cimmino); {args.method!r} does not "
+                 "support redundant execution")
+    alive_schedule = None
+    if args.straggler_sim > 0.0:
+        if args.redundancy < 2:
+            ap.error("--straggler-sim needs --redundancy >= 2 (a stalled "
+                     "worker is unrecoverable without a redundant holder)")
+        rng = np.random.default_rng(args.seed)
+        m, rate = sys_.m, args.straggler_sim
+
+        def alive_schedule(t):
+            a = np.ones(m, bool)
+            if rng.random() < rate:
+                a[rng.integers(0, m)] = False
+            return a
+
     # ALL factor acquisition goes through the content-addressed store: the
     # resume's restore template and the solve share ONE entry, and a resume
     # that has to re-prepare is counted (store.stats.resume_misses)
@@ -121,12 +152,17 @@ def main(argv=None):
             warm = ckpt.restore(args.ckpt_dir, probe)
             say(f"resuming from checkpointed state at iter {step} "
                 f"(factor store: {store.stats})")
+    if args.redundancy > 1:
+        say(f"redundant execution: r={args.redundancy}"
+            + (f", straggler rate {args.straggler_sim}"
+               if args.straggler_sim else ", no simulated stragglers"))
     if mesh is not None:
         shape = tuple(zip(mesh.mesh_dim_names, mesh.mesh.shape))
         say(f"mesh backend: {shape} over {dist.get_world_size()} rank(s)")
     plan = solvers.ExecutionPlan(
         backend="mesh" if args.use_mesh else "local", mesh=mesh,
-        kernel=args.use_kernel, warm_state=warm, store=store)
+        kernel=args.use_kernel, redundancy=args.redundancy,
+        alive_schedule=alive_schedule, warm_state=warm, store=store)
     res = solver.solve(sys_, iters=args.iters, plan=plan, **params)
     final_res = float(res.residuals[-1])
     if res.iters_to_tol != -1:

@@ -20,6 +20,14 @@ Cached factorizations and request serving (the serve-traffic hot path):
                                      pipeline_depth=2)
     with asrv:
         tickets = [asrv.submit(fp, b) for b in stream]
+
+Straggler tolerance and elasticity (the projection family)::
+
+    res = solvers.get("apc").solve(sys_, plan=solvers.ExecutionPlan(
+        redundancy=2, alive_schedule=lambda t: mask_t))
+    rt = solvers.ElasticRuntime(solvers.get("apc"), sys_,
+                                plan=solvers.ExecutionPlan(redundancy=2))
+    rt.monitor.mark_dead(2); rep = rt.run(iters=600)
 """
 from .api import Solver, SolveResult, iters_to_tolerance  # noqa: F401
 from .capability import (CapabilityError, ExecutionPlan,  # noqa: F401
@@ -31,3 +39,4 @@ from . import admm, gradient, projection  # noqa: F401, E402
 from .store import BlockReuse, FactorStore, fingerprint  # noqa: F401, E402
 from .serve import LinsysServer, StreamReport, solve_stream  # noqa: F401, E402
 from .pipeline import AsyncLinsysServer, Shed, Ticket  # noqa: F401, E402
+from .elastic import ElasticReport, ElasticRuntime  # noqa: F401, E402

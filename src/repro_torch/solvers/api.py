@@ -28,7 +28,10 @@ sharded over the ranks of a ``torch.distributed`` mesh
 (``solvers/mesh.py``) through the ``mesh_*`` hooks below: the row blocks
 over the worker axes, n optionally over the model axis, every master
 update a sum over the workers.  The least-squares hooks are written once
-against that psum contract and run locally with :data:`LOCAL_PSUM`.
+against that psum contract and run locally with :data:`LOCAL_PSUM`, and
+so are the ``red_*`` hooks of redundant execution
+(``ExecutionPlan(redundancy=r, alive_schedule=...)``,
+``solvers/redundant.py``), on either backend.
 """
 from __future__ import annotations
 
@@ -60,10 +63,6 @@ _LEGACY_PLAN_KWARGS = {
     "model_axis": "model_axis", "redundancy": "redundancy",
     "alive_schedule": "alive_schedule",
 }
-# the legacy kwargs naming plan fields the port's plan does not have yet,
-# and the ROADMAP item that brings each
-_UNPORTED_PLAN_KWARGS = {"alive_schedule": "A15"}
-
 
 def _coerce_plan(plan: Optional[ExecutionPlan], legacy: Dict[str, Any],
                  *, context: str) -> ExecutionPlan:
@@ -74,10 +73,7 @@ def _coerce_plan(plan: Optional[ExecutionPlan], legacy: Dict[str, Any],
     wins, loose legacy kwargs build one and emit exactly ONE
     ``DeprecationWarning`` per call (however many were passed), and
     mixing the two is a ``ValueError``: silently merging would make the
-    plan lie about what runs.  A loose kwarg naming a plan field the port
-    has not ported (``alive_schedule``) raises ``NotImplementedError``
-    naming its ROADMAP item, after the warning; ``redundancy=`` reaches
-    ``resolve_plan``, which raises so.
+    plan lie about what runs.
     """
     given = {k: v for k, v in legacy.items() if v is not _UNSET}
     if plan is not None:
@@ -98,13 +94,6 @@ def _coerce_plan(plan: Optional[ExecutionPlan], legacy: Dict[str, Any],
         f"(e.g. plan=ExecutionPlan("
         + ", ".join(f"{_LEGACY_PLAN_KWARGS[k]}=..." for k in sorted(given))
         + "))", DeprecationWarning, stacklevel=3)
-    unported = sorted(k for k in given if k in _UNPORTED_PLAN_KWARGS)
-    if unported:
-        raise NotImplementedError(
-            f"{context}: {unported} name plan fields that are not ported "
-            f"yet (ROADMAP "
-            + ", ".join(sorted({_UNPORTED_PLAN_KWARGS[k] for k in unported}))
-            + ")")
     return ExecutionPlan(**{_LEGACY_PLAN_KWARGS[k]: v
                             for k, v in given.items()})
 
@@ -176,6 +165,16 @@ class Solver:
     # True when ``prepare`` is per-block independent and every factor
     # leaf carries the leading worker axis (``FactorStore``'s block tier)
     supports_block_store: bool = False
+    # True for the projection family, which implements the ``red_*``
+    # hooks of redundant execution (solvers/redundant.py)
+    supports_redundancy: bool = False
+    # A solver that can rebuild a valid state for a NEW partition from
+    # the global estimate alone sets this and implements ``lift_state``:
+    # the cross-partition warm start of the elastic runtime.  States are
+    # global-SHAPED, but their per-block invariants (APC's A_i x_i = b_i)
+    # belong to one partition, so a plain warm start across a repartition
+    # would be wrong.
+    supports_lift: bool = False
 
     # ----- lifecycle hooks (override) -------------------------------------
     def default_params(self, sys: BlockSystem) -> Dict[str, float]:
@@ -370,6 +369,77 @@ class Solver:
         """``mesh_step_residual`` on the batched state; rsq is (k,)."""
         return self.mesh_step_residual(factors, Bb, states, params, ctx)
 
+    # ----- redundancy hooks (solvers/redundant.py) --------------------------
+    # Straggler-tolerant execution replicates the row blocks r-redundantly
+    # (the cyclic assignment, worker i holds blocks i, ..., i+r-1 mod m)
+    # and replaces the sum over the workers by a masked one that takes each
+    # block exactly once.  ``red_init``/``red_step`` are written ONCE
+    # against the psum contract: identities locally (``LOCAL_PSUM``), the
+    # ``MeshContext``'s collectives on the mesh.  Factors and b grow a slot
+    # axis, (m, r, ...); W is the (m, r) selection weight of an iteration.
+
+    def red_factors(self, factors: Any, assign) -> Any:
+        """Replicate b-independent factors along the cyclic assignment:
+        every tensor leaf's leading worker axis gathered through
+        ``assign.holder`` (right whenever every leaf is per-worker), in
+        the contiguous layout whatever the leaf's own (a triangular solve
+        rounds by its operand's layout, and factors from the store's block
+        tier are stacked where ``prepare``'s Cholesky factors are
+        column-major)."""
+        def rep(f):
+            if not isinstance(f, torch.Tensor):
+                return f
+            idx = torch.as_tensor(assign.holder, device=f.device)
+            return f[idx].contiguous()
+        return type(factors)(*map(rep, factors))
+
+    def red_init(self, factors: Any, b: torch.Tensor,
+                 params: Dict[str, float], W0, ctx) -> Any:
+        """The initial state, with the replicated internal layout, from
+        replicated factors/b and the all-alive selection weights ``W0``."""
+        raise NotImplementedError(
+            f"solver {self.name!r} does not implement redundant execution")
+
+    def red_step(self, factors: Any, b: torch.Tensor, state: Any,
+                 params: Dict[str, float], W, ctx) -> Any:
+        """One masked iteration: every replica updates, the master sum
+        takes each block once through ``W``."""
+        raise NotImplementedError(
+            f"solver {self.name!r} does not implement redundant execution")
+
+    def red_expand(self, state: Any, assign) -> Any:
+        """A plain global-shape state in the replicated internal layout
+        (replicas are identical copies).  Default: the identity, for
+        states with no per-block field."""
+        return state
+
+    def red_collapse(self, state: Any, assign) -> Any:
+        """The inverse of ``red_expand``: the plain global shape, so warm
+        starts and checkpoints cross redundant and plain runs."""
+        return state
+
+    def red_factor_placements(self, fpl: Any) -> Any:
+        """The placements of replicated factors from the plain ones
+        (``mesh_placements``' first): the slot axis, whole on its worker,
+        after the worker axis."""
+        return type(fpl)(*(None if p is None else (p[0], None) + tuple(p[1:])
+                           for p in fpl))
+
+    def red_state_placements(self, spl: Any) -> Any:
+        """The placements of the replicated internal state from the plain
+        ones (the default: the same; overridden where the state gains a
+        slot axis)."""
+        return spl
+
+    def lift_state(self, factors: Any, b: torch.Tensor,
+                   params: Dict[str, float], x: torch.Tensor) -> Any:
+        """A state for THIS partition warm-started from the global
+        estimate ``x`` of a differently partitioned run: every invariant
+        ``init`` establishes holds, and ``extract`` gives (about) x."""
+        raise NotImplementedError(
+            f"solver {self.name!r} cannot lift a state across partitions "
+            f"(supports_lift=False)")
+
     # ----- shared drivers --------------------------------------------------
     def resolve_params(self, sys: BlockSystem,
                        **overrides) -> Dict[str, float]:
@@ -430,6 +500,9 @@ class Solver:
         In least-squares mode the history is the optimality residual
         (``ls_moment``), the fused residual is off, and ``errors`` are
         taken against ``ls_reference`` when ``sys.x_true`` is None.
+        ``plan.redundancy``/``plan.alive_schedule`` (projection family,
+        either backend) run the straggler-tolerant redundant path with the
+        reference's exact semantics (``solvers/redundant.py``).
         The loose kwargs (``use_kernel=``, ``warm_state=``, ...) are the
         deprecated shim of :func:`_coerce_plan`.
         """
@@ -440,6 +513,15 @@ class Solver:
             model_axis=model_axis, redundancy=redundancy,
             alive_schedule=alive_schedule), context="solve")
         plan = resolve_plan(self, sys, plan, context="solve")
+        if plan.is_redundant:
+            from . import redundant
+            return redundant.solve_redundant(
+                self, sys, r=plan.redundancy, iters=iters, tol=tol,
+                alive_schedule=plan.alive_schedule,
+                warm_state=plan.warm_state, factors=plan.factors,
+                store=plan.store, backend=plan.backend, mesh=plan.mesh,
+                worker_axes=plan.worker_axes, model_axis=plan.model_axis,
+                **params)
         if plan.backend == "mesh":
             from . import mesh as mesh_backend
             return mesh_backend.solve_mesh(

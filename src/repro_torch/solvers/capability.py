@@ -8,9 +8,11 @@ A solver declares the system classes it supports::
 and :func:`resolve_plan` checks the system and the plan against it before
 any work happens.  ``backend="mesh"`` runs the solve sharded over a
 ``torch.distributed`` mesh (``solvers/mesh.py``); a mesh handed to the
-local backend is the reference's ``ValueError``.  ``redundancy > 1``, not
-ported yet (ROADMAP A15), raises ``NotImplementedError`` naming its item;
-it never degrades silently.
+local backend is the reference's ``ValueError``.  ``redundancy=r`` and
+``alive_schedule=`` (``is_redundant``) run the straggler-tolerant
+redundant path (``solvers/redundant.py``) on either backend; a redundant
+``solve_many`` and the kernel path with redundancy raise the reference's
+errors here, before any work.
 ``precision`` is checked as the reference checks it
 (``Solver._check_precision``), after the kernel flag is resolved.  The
 one downgrade is the reference's own, and it warns: ``kernel=True`` on a
@@ -84,7 +86,11 @@ class ExecutionPlan:
     ``model_axis``.  ``warm_state`` resumes from a prior state;
     ``factors`` skips the one-time factorization; ``store`` (a
     ``FactorStore``) obtains it through the content-addressed cache.
-    Plans are frozen: derive variants with :meth:`replace`.
+    ``redundancy=r`` replicates the row blocks r-redundantly and
+    ``alive_schedule`` (a callable t -> (m,) mask, an (m,) or (T, m) mask
+    array, or a ``runtime.fault.HeartbeatMonitor``) names the workers that
+    answer each iteration (``solvers/redundant.py``).  Plans are frozen:
+    derive variants with :meth:`replace`.
     """
 
     backend: str = "local"
@@ -95,6 +101,7 @@ class ExecutionPlan:
     model_axis: Optional[str] = "model"
     # payload fields
     mesh: Any = None
+    alive_schedule: Any = None
     store: Any = None
     warm_state: Any = None
     factors: Any = None
@@ -115,20 +122,25 @@ class ExecutionPlan:
         """Hashable dispatch identity: which compiled program this plan
         selects, the reference's tuple (``backend, kernel, precision,
         redundancy, has an alive schedule, worker axes, model axis``).
-        The port's plan has no schedule yet (ROADMAP A15): that field is
-        False.  Payload fields (mesh, store, warm_state, factors) are not
-        part of it."""
+        Payload fields (mesh, store, warm_state, factors and the schedule's
+        values) are not part of it: only whether a schedule exists."""
         return (self.backend, self.kernel, self.precision,
-                int(self.redundancy), False, self.worker_axes,
-                self.model_axis)
+                int(self.redundancy), self.alive_schedule is not None,
+                self.worker_axes, self.model_axis)
+
+    @property
+    def is_redundant(self) -> bool:
+        return self.redundancy != 1 or self.alive_schedule is not None
 
 
 def resolve_plan(solver, sys, plan: ExecutionPlan, *,
                  context: str = "solve") -> ExecutionPlan:
     """Validate ``plan`` against ``solver``/``sys`` once, before any work;
     returns the plan with ``kernel`` resolved (:func:`resolve_use_kernel`).
-    The order is the reference's: the sparse downgrade, then the
-    precision check against the resolved flag."""
+    The order is the reference's: the sparse downgrade, the precision
+    check against the resolved flag, the backend, the kernel, then the
+    redundancy conflicts (a redundant ``solve_many``; the kernel path with
+    redundancy, a :class:`CapabilityError`)."""
     check_capability(solver, sys, context=context)
     kernel = resolve_use_kernel(solver, sys, plan.kernel)
     solver._check_precision(plan.precision, kernel)
@@ -141,10 +153,26 @@ def resolve_plan(solver, sys, plan: ExecutionPlan, *,
     elif plan.backend != "mesh":
         raise ValueError(f"unknown backend {plan.backend!r}; "
                          "expected 'local' or 'mesh'")
-    if plan.redundancy > 1:
-        raise NotImplementedError(
-            "redundant execution is not ported yet (ROADMAP A15)")
     if plan.kernel and not solver.supports_kernel:
         raise ValueError(f"solver {solver.name!r} has no kernel path "
                          f"(kernel=True unsupported)")
+    if plan.is_redundant:
+        if context.startswith("solve_many"):
+            # fail loudly rather than run the batch without the straggler
+            # tolerance it asked for
+            raise ValueError(
+                "redundant execution is not supported by solve_many; run "
+                "solve(redundancy=..., alive_schedule=...) per right-hand "
+                "side, or batch without redundancy")
+        if plan.kernel:
+            fields = [f"redundancy={plan.redundancy}"]
+            if plan.alive_schedule is not None:
+                fields.append("alive_schedule=<set>")
+            raise CapabilityError(
+                f"solver {solver.name!r} cannot run kernel=True "
+                f"(use_kernel=True) together with {', '.join(fields)}: "
+                f"the coded replicated (m, r, p, n) layout has no CUDA "
+                f"kernel. Drop kernel=True to keep the straggler "
+                f"tolerance, or drop redundancy=/alive_schedule= to keep "
+                f"the kernels.")
     return plan

@@ -164,7 +164,8 @@ def default_linalg():
 
 class _LocalPsum:
     """The psum context of the local backend: one shard, so both sums are
-    identities.  Lets the records and the least-squares hooks be written
+    identities (and the workers are all local: the reference's
+    ``redundant._LocalContext``).  Lets the records and the least-squares hooks be written
     once against the ``MeshContext`` psum contract
     (``solvers/mesh.py``) and run on both backends."""
 
@@ -175,6 +176,10 @@ class _LocalPsum:
     @staticmethod
     def psum_model(x):
         return x
+
+    @staticmethod
+    def workers_total(m_local: int) -> int:
+        return m_local
 
 
 LOCAL_PSUM = _LocalPsum()

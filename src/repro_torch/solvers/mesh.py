@@ -530,3 +530,111 @@ def solve_many_mesh(solver, sys: BlockSystem, B, *, mesh=None,
     return SolveResult(
         name=solver.name, x=X, state=states, residuals=res, errors=None,
         params=prm, iters_to_tol=iters_to_tolerance(res, tol), tol=tol)
+
+
+# ---------------------------------------------------------------------------
+# Redundant execution on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _shard_replicated(t, spec, holder, ctx: MeshContext,
+                      device: torch.device):
+    """This rank's shard of the replicated tensor ``t[holder]`` ((m, r,
+    ...) from the per-worker (m, ...) ``t`` placed by ``spec``), made
+    without the whole replication: the columns cut first (a view), then
+    the rank's rows of ``holder`` gathered."""
+    if not isinstance(t, torch.Tensor) or spec is None:
+        return t
+    cut = list(_slices(spec, t.shape, ctx))
+    cut[0] = slice(None)
+    rows = _shard(torch.as_tensor(holder), ("w", None), ctx,
+                  t.device)                                  # (m_loc, r)
+    return t[tuple(cut)][rows].to(device).contiguous()
+
+
+class RedundantRunner:
+    """The mesh runner of redundant execution (counterpart of the
+    reference's ``RedundantRunner``).
+
+    Built once by ``redundant.RedundantEngine`` on ``backend="mesh"``:
+    each rank places its shard of A and b (the residual's operands) and of
+    the replicated (m, r, p, n) blocks, the slot axis whole on its worker
+    (``Solver.red_factor_placements``), and prepares them on the mesh
+    (``redundant._red_mesh_prepare``: the replicas as more worker blocks)
+    unless factors are given.  ``run`` re-enters the same eager step loop
+    (``executor.History`` with the ``MeshContext``) with a new selection
+    schedule of the same shape: the schedule arrives lowered (on rank 0,
+    broadcast: ``redundant._lowered``), so the ranks never disagree.
+    States go in and come out with GLOBAL shapes on every rank.
+    """
+
+    def __init__(self, solver, sys: BlockSystem, assign, prm, *, mesh=None,
+                 worker_axes: Sequence[str] = ("data",),
+                 model_axis: Optional[str] = "model", factors: Any = None):
+        from . import redundant as red  # redundant.py imports this module
+
+        if mesh is None:
+            mesh = mesh_lib.solver_mesh_for(sys.m, device=sys.device)
+        ctx = make_context(mesh, sys, worker_axes=worker_axes,
+                           model_axis=model_axis)
+        self.solver, self.assign, self.prm = solver, assign, prm
+        self.mesh, self.ctx = mesh, ctx
+        self.device = device = mesh_lib.mesh_device(mesh)
+        fpl, spl = solver.mesh_placements()
+        self._fpl = solver.red_factor_placements(fpl)
+        self._spl = solver.red_state_placements(spl)
+        holder = assign.holder
+        self._A = _shard(sys.A_blocks, ("w", None, "n"), ctx, device)
+        self._b = _shard(sys.b_blocks, ("w", None), ctx, device)
+        self._b_rep = _shard_replicated(sys.b_blocks, ("w", None), holder,
+                                        ctx, device)
+        if factors is None:
+            A_rep = _shard_replicated(sys.A_blocks, ("w", None, "n"),
+                                      holder, ctx, device)
+            self._frep = red._red_mesh_prepare(solver, A_rep, prm, ctx)
+        else:
+            f = solver.mesh_factors(factors)
+            self._frep = type(f)(*(
+                _shard_replicated(v, p, holder, ctx, device)
+                for v, p in zip(f, fpl)))
+        xt = sys.x_true
+        self._xt = None if xt is None else _shard(xt, ("n",), ctx, device)
+        self._W = None
+
+        def step(f_, b_, s_):
+            return solver.red_step(f_, self._b_rep, s_, prm, self._W, ctx)
+
+        self._history = executor.History(
+            step, solver.extract, self._frep, self._b, self._A,
+            x_true=self._xt, ctx=ctx)
+
+    def init_state(self, warm_state, W_all):
+        """A fresh on-mesh ``red_init`` (``warm_state`` None) or the
+        placed ``red_expand`` of a GLOBAL-shape warm state, gathered to
+        global shapes."""
+        if warm_state is None:
+            W = _shard(W_all, ("w", None), self.ctx, self.device)
+            state = self.solver.red_init(self._frep, self._b_rep, self.prm,
+                                         W, self.ctx)
+            return _gather_tree(state, self._spl, self.ctx)
+        return self.solver.red_expand(warm_state, self.assign)
+
+    def run(self, state, W_seq):
+        """One segment from the global ``state`` over the (T, m, r)
+        schedule: ``(state, residuals (T,), errors (T,))``, replicated."""
+        h, T = self._history, int(W_seq.shape[0])
+        W_seq = _shard(torch.as_tensor(W_seq), (None, "w", None), self.ctx,
+                       self.device).to(self._A.dtype)
+        res = h.b_norm.new_empty((T,))
+        err = res if h.x_true is None else h.b_norm.new_empty((T,))
+        state = _shard_tree(state, self._spl, self.ctx, self.device)
+        for t in range(T):
+            self._W = W_seq[t]
+            state, res[t], e = h.one(state)
+            if e is not None:
+                err[t] = e
+        return _gather_tree(state, self._spl, self.ctx), res, err
+
+    def cache_size(self) -> int:
+        """One step loop, built at construction (eager, ROADMAP A14c)."""
+        return 1

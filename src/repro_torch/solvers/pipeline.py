@@ -28,6 +28,12 @@ stages connected by bounded queues:
 A failed batch sets its exception on its tickets; nothing is retried and
 nothing falls back to the CPU.
 
+``backend="mesh"`` keeps exactly one thread a rank issuing collectives:
+on rank 0 the assembly thread announces each batch to the followers
+(``LinsysServer._assemble``) and runs it itself, without the pool, and
+``close()`` sends the followers the stop flag once that thread has
+ended; the other ranks run ``serve_follower()`` on their main thread.
+
     srv = AsyncLinsysServer(store, solver="apc", batch=4,
                             pipeline_depth=2, admit_capacity=64)
     fp = srv.register(sys)
@@ -144,7 +150,15 @@ class AsyncLinsysServer(LinsysServer):
         return self
 
     def close(self, drain: bool = True) -> None:
-        """Drain the pipeline (default) and stop the stage threads."""
+        """Drain the pipeline (default) and stop the stage threads; on a
+        mesh of several ranks, then send the followers the stop flag
+        (``LinsysServer.close``)."""
+        try:
+            self._stop_stages(drain)
+        finally:
+            super().close()
+
+    def _stop_stages(self, drain: bool) -> None:
         with self._lock:
             started = self._assembler is not None
             has_work = self._in_system > 0
@@ -179,8 +193,10 @@ class AsyncLinsysServer(LinsysServer):
 
         Validation is the sync server's, shared.  A full pipeline
         (``admit_capacity`` requests queued or in flight) resolves the
-        ticket's future IMMEDIATELY with ``Shed``.
+        ticket's future IMMEDIATELY with ``Shed``.  On a mesh of several
+        ranks, rank 0 alone admits.
         """
+        self._admits()
         _, rhs = self._validated(fp, rhs)
         fut: Future = Future()
         t = time.perf_counter()
@@ -261,7 +277,12 @@ class AsyncLinsysServer(LinsysServer):
             self._slots.acquire()
             with self._lock:
                 self._inflight += 1
-            self._pool.submit(self._execute, work)
+            if self.backend == "mesh":
+                # the collectives of a batch follow its announcement on
+                # this thread, the one thread of this rank that issues any
+                self._execute(work)
+            else:
+                self._pool.submit(self._execute, work)
 
     # ----- stage 3+4: execution pool, streaming completion ------------------
     def _execute(self, w: _Batch) -> None:
@@ -321,20 +342,24 @@ class AsyncLinsysServer(LinsysServer):
             "returns a Ticket whose future streams the result; use "
             "drain() (or ticket.result()) instead of step()")
 
-    def drain(self) -> List[Result]:
+    def drain(self, final: bool = False) -> List[Result]:
         """Block until every ticket since the last drain resolved; return
         the results in submission (rid) order — ``Served`` for admitted
         requests, ``Shed`` for rejected ones.  With zero outstanding
         tickets this is a true no-op ([] — no threads started, no
-        executor build)."""
-        with self._lock:
-            tickets, self._tickets = self._tickets, []
-            has_work = self._in_system > 0
-        if not tickets:
-            return []
-        if has_work:
-            self.start()
-        return [t.future.result() for t in tickets]
+        executor build).  ``final=True`` then closes the server."""
+        try:
+            with self._lock:
+                tickets, self._tickets = self._tickets, []
+                has_work = self._in_system > 0
+            if not tickets:
+                return []
+            if has_work:
+                self.start()
+            return [t.future.result() for t in tickets]
+        finally:
+            if final:
+                self.close()
 
     def latencies(self) -> np.ndarray:
         """Per-request submit→result latencies (seconds) so far."""

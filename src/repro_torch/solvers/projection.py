@@ -31,6 +31,14 @@ over the model axis between them: ``proj_gather`` → ``psum_model`` →
 ``cimmino_scatter`` (Cimmino), each on the (p, n/model) shard.  The
 sparse kernels run per worker, with the model axis off.  As in the
 reference, the mesh's kernel path asks no engine verdict.
+
+The ``red_*`` hooks run redundant execution (``solvers/redundant.py``):
+factors and b replicated to (m, r, ...) along the cyclic assignment, every
+replica updated, the master sum over the workers masked by the (m, r)
+selection weights W so each block counts once — torch library ops
+(einsum, batched Cholesky solves), as the reference's are XLA ops: the
+replicated layout has no kernel.  ``lift_state`` warm-starts a new
+partition from a global estimate (the elastic runtime's repartition).
 """
 from __future__ import annotations
 
@@ -141,6 +149,24 @@ def _row_projections(A, chol, b, xbar, ctx=LOCAL_PSUM):
     shards, A x̄ summed over the model axis)."""
     v = b - ctx.psum_model(blockops.bmatvec(A, xbar))
     return blockops.brmatvec(A, _gram_solve(chol, v)), v
+
+
+def _cho_solve_replicas(chol, u):
+    """G⁻¹u per replica: chol (m, r, p, p), u (m, r, p) — the Cholesky
+    factor's two triangular solves, batched over the m·r replicas.  On the
+    card they are cuBLAS's batched trsm, which a graph captures; MAGMA's
+    batched ``cholesky_solve`` cannot be captured, and cuSOLVER's is
+    several times slower at the main path's shapes (``chip_smoke.py``
+    phase 18 times the three)."""
+    y = torch.linalg.solve_triangular(chol, u.unsqueeze(-1), upper=False)
+    return torch.linalg.solve_triangular(chol.transpose(-1, -2), y,
+                                         upper=True).squeeze(-1)
+
+
+def _masked_sum(W, v):
+    """Σ_i Σ_k W[i, k] v[i, k] (the block-unique sum): W (m, r), v (m, r,
+    n) -> (n,)."""
+    return torch.einsum("mr,mrn->n", W.to(v.dtype), v)
 
 
 def _mesh_gram_chol(A, jitter: float, ctx):
@@ -319,6 +345,58 @@ class APCSolver(Solver):
         return (self._mesh_master(x_new, state, params["eta"], ctx),
                 ctx.psum_workers(torch.sum(u * u, dim=(-2, -1))))
 
+    # ----- redundant execution (solvers/redundant.py) ---------------------
+    # The internal state keeps APCState with x in the replicated (m, r, n)
+    # layout; x̄ stays global.  Eq. 2b becomes the W-masked block-unique
+    # mean, the same sum over the workers as above.
+    supports_redundancy = True
+
+    def red_init(self, factors, b, params, W0, ctx):
+        w = _cho_solve_replicas(factors.chol, b)
+        x0 = torch.einsum("mrpn,mrp->mrn", factors.A, w)  # min-norm a slot
+        m = ctx.workers_total(x0.shape[0])
+        return APCState(x=x0, xbar=ctx.psum_workers(_masked_sum(W0, x0)) / m,
+                        t=0)
+
+    def red_step(self, factors, b, state, params, W, ctx):
+        gamma, eta = params["gamma"], params["eta"]
+        d = state.xbar[None, None, :] - state.x          # (m, r, n)
+        u = ctx.psum_model(torch.einsum("mrpn,mrn->mrp", factors.A, d))
+        w = _cho_solve_replicas(factors.chol, u)
+        proj = d - torch.einsum("mrpn,mrp->mrn", factors.A, w)
+        x_new = state.x + gamma * proj                   # every replica
+        m = ctx.workers_total(x_new.shape[0])
+        s = ctx.psum_workers(_masked_sum(W, x_new))
+        return APCState(x=x_new,
+                        xbar=(eta / m) * s + (1.0 - eta) * state.xbar,
+                        t=state.t + 1)
+
+    def red_expand(self, state, assign):
+        x = torch.as_tensor(state.x)
+        return APCState(x=x[torch.as_tensor(assign.holder, device=x.device)],
+                        xbar=state.xbar, t=state.t)
+
+    def red_collapse(self, state, assign):
+        # slot 0 of worker j holds block j, and replicas are identical
+        return APCState(x=state.x[:, 0], xbar=state.xbar, t=state.t)
+
+    def red_state_placements(self, spl):
+        return APCState(x=("w", None, "n"), xbar=("n",), t=None)
+
+    # ----- cross-partition warm start (solvers/elastic.py) ----------------
+    # APC states belong to one partition: each x_i satisfies A_i x_i = b_i
+    # for ITS blocks.  The lift projects the global estimate onto every new
+    # block's feasible set, x_i = x + A_iᵀG_i⁻¹(b_i − A_i x), so the
+    # invariant the step relies on holds from the first iteration after a
+    # repartition, with x̄ carrying x verbatim.
+    supports_lift = True
+
+    def lift_state(self, factors, b, params, x):
+        v = b - blockops.bmatvec(factors.A, x)           # (m, p)
+        xi = x[None, :] + blockops.brmatvec(factors.A,
+                                            _gram_solve(factors.chol, v))
+        return APCState(x=xi, xbar=x, t=0)
+
 
 @register("consensus")
 class ConsensusSolver(APCSolver):
@@ -471,6 +549,32 @@ class CimminoSolver(Solver):
             xbar=state.xbar + params["nu"] * ctx.psum_workers(r),
             t=state.t + 1),
             ctx.psum_workers(torch.sum(v * v, dim=(-2, -1))))
+
+    # ----- redundant execution (solvers/redundant.py) ---------------------
+    # The state is the master estimate alone (already global-shaped): the
+    # masked sum of the row projections replaces the plain one.
+    supports_redundancy = True
+
+    def red_init(self, factors, b, params, W0, ctx):
+        return CimminoState(xbar=factors.A.new_zeros(factors.A.shape[3]),
+                            t=0)
+
+    def red_step(self, factors, b, state, params, W, ctx):
+        u = ctx.psum_model(torch.einsum("mrpn,n->mrp", factors.A,
+                                        state.xbar))
+        w = _cho_solve_replicas(factors.chol, b - u)
+        r = torch.einsum("mrpn,mrp->mrn", factors.A, w)  # row projections
+        s = ctx.psum_workers(_masked_sum(W, r))
+        return CimminoState(xbar=state.xbar + params["nu"] * s,
+                            t=state.t + 1)
+
+    # ----- cross-partition warm start (solvers/elastic.py) ----------------
+    # The state is the master estimate alone and carries no per-block
+    # invariant, so it lifts across any repartition verbatim.
+    supports_lift = True
+
+    def lift_state(self, factors, b, params, x):
+        return CimminoState(xbar=x, t=0)
 
     # ----- least-squares mode ---------------------------------------------
     # The Cimmino fixed point minimizes Σᵢ ‖L_i⁻¹(A_i x − b_i)‖², the

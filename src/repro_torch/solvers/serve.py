@@ -33,10 +33,40 @@ the next one.  Repeated right-hand sides always qualify; PERTURBED ones
 only for solvers whose state caches nothing RHS-dependent
 (``Solver.warm_rhs_ok``: the gradient family and Cimmino).
 
-Mesh serving (``backend="mesh"``) is not ported yet (ROADMAP A14b: every
-rank must see the same batches in the same order, so rank 0 admits the
-requests and broadcasts each batch): it raises ``NotImplementedError`` at
-construction.
+Mesh serving (``backend="mesh"``): each batch runs through
+``mesh.batched_runner`` on a ``_MeshExecutor``, every rank on its shard
+of A, the factors and the batch (placed once a system, the batch once a
+batch), eagerly (ROADMAP A14c brings capture).  ``torch.distributed`` is
+SPMD, where the reference is a single controller, so every rank must run
+the same collectives in the same order:
+
+  * ``register(sys)`` runs on every rank with the same system; the ranks
+    compare their fingerprints (one ``all_gather``) and raise on a
+    mismatch, before any other collective;
+  * rank 0 ALONE admits: ``submit``, ``step``, ``drain``, the FIFO
+    coalescing (and the async server's shedding) run there, and only
+    rank 0 answers requests.  For each batch it assembles, rank 0
+    broadcasts a small header (fingerprint, k, real requests, warm start,
+    a stop flag) and then the (k, N) right-hand sides;
+  * every other rank runs :meth:`LinsysServer.serve_follower`, which
+    receives each batch, runs it on its shards, and returns when the stop
+    flag comes.  Rank 0 sends the stop flag from :meth:`LinsysServer.close`
+    (or ``drain(final=True)``, or leaving a ``with`` block): call it from a
+    ``finally``, since a follower waiting on a broadcast that never comes
+    hangs.
+
+A one-rank group needs no follower: ``register``/``submit``/``drain`` work
+as the reference's single-process API.
+
+    srv = LinsysServer(store, solver="apc", batch=4, backend="mesh")
+    fp = srv.register(sys)                      # every rank
+    if dist.get_rank() == 0:
+        with srv:                               # close(): the stop flag
+            for b in stream:
+                srv.submit(fp, b)
+            served = srv.drain()
+    else:
+        srv.serve_follower()
 """
 from __future__ import annotations
 
@@ -47,7 +77,10 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.core.partition import BlockSystem
+from repro_torch.launch import mesh as mesh_lib
 
 from . import executor
 from .api import iters_to_tolerance
@@ -118,6 +151,7 @@ class _System:
                                     # (None: not placed, or released)
     last_states: Any = None         # prior batch's final states (warm start)
     last_Bb: Optional[np.ndarray] = None
+    mesh: Any = None                # backend="mesh": the system's mesh
 
 
 class _Batch(NamedTuple):
@@ -140,6 +174,65 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+class _MeshExecutor:
+    """The mesh twin of ``executor.LocalExecutor``: wraps
+    ``mesh.batched_runner`` and owns placement (the reference's
+    ``_MeshExecutor``).  Each rank places its own contiguous shard of A
+    and the factors once a system (:meth:`place_system`) and of each
+    batch (:meth:`place_B`); states come back with global shapes and go
+    back in sharded.  Eager (ROADMAP A14c)."""
+
+    def __init__(self, solver, prm, iters: int, sys: BlockSystem, mesh,
+                 worker_axes, model_axis, use_kernel: bool = False):
+        from . import mesh as mesh_backend
+        self.solver, self.use_kernel = solver, use_kernel
+        self.mesh = mesh
+        self.ctx = mesh_backend.make_context(
+            mesh, sys, worker_axes=worker_axes, model_axis=model_axis)
+        self.device = mesh_lib.mesh_device(mesh)
+        self.runner = mesh_backend.batched_runner(
+            solver, self.ctx, prm, iters, use_kernel=use_kernel,
+            a_placement=mesh_backend.operand_placement(sys),
+            ls_mode=sys.mode == "least_squares", fused_residual=use_kernel)
+
+    def place_system(self, sys: BlockSystem, factors):
+        from .mesh import _shard_tree
+        A = _shard_tree(sys.A_op, self.runner.A_placement, self.ctx,
+                        self.device)
+        f = _shard_tree(self.solver.mesh_factors(
+            factors, use_kernel=self.use_kernel),
+            self.runner.factor_placements, self.ctx, self.device)
+        return A, f
+
+    def place_B(self, Bb, A=None) -> torch.Tensor:
+        """This rank's shard of a (k, m, p) batch, on the mesh's device."""
+        from .mesh import _shard
+        return _shard(torch.as_tensor(Bb, device=self.device),
+                      self.runner.Bb_placement, self.ctx, self.device)
+
+    def run(self, A, factors, Bb, states=None):
+        from .mesh import _shard_tree
+        if states is None:
+            states = self.runner.init(factors, Bb)
+        else:
+            states = _shard_tree(states, self.runner.state_placements,
+                                 self.ctx, self.device)
+        return self.runner.run(A, Bb, factors, states)
+
+    def drop(self, A, factors) -> int:
+        """Nothing is captured: the placement dies with its references."""
+        return 0
+
+    def cache_size(self) -> int:
+        """One runner a key (eager: no program is captured)."""
+        return 1
+
+
+#: the header of a mesh batch: stop flag, k, real requests, warm start,
+#: then the fingerprint's bytes
+_HEADER = 4 + 128
+
+
 class LinsysServer:
     """Batched linear-system serving on the unified solver lifecycle.
 
@@ -156,17 +249,21 @@ class LinsysServer:
                  batch: int = 4, plan: Optional[ExecutionPlan] = None,
                  backend: str = "local", mesh=None,
                  warm_start: bool = False, use_kernel: bool = False,
-                 precision: str = "default", **params):
+                 precision: str = "default",
+                 worker_axes: Tuple[str, ...] = ("data",),
+                 model_axis: Optional[str] = "model", **params):
         if plan is not None:
             if not isinstance(plan, ExecutionPlan):
                 raise TypeError(f"plan must be an ExecutionPlan, got "
                                 f"{type(plan).__name__}")
             if (backend != "local" or mesh is not None or use_kernel
-                    or precision != "default"):
+                    or precision != "default"
+                    or tuple(worker_axes) != ("data",)
+                    or model_axis != "model"):
                 raise ValueError(
                     "pass the execution surface EITHER on plan= OR as "
                     "loose kwargs, not both")
-            if plan.redundancy > 1:
+            if plan.is_redundant:
                 raise ValueError(
                     "redundant execution is not servable: the coalesced "
                     "solve_many batches have no coded replicated layout; "
@@ -179,19 +276,20 @@ class LinsysServer:
                     "factors flow through the FactorStore")
             if store is None and plan.store is not None:
                 store = plan.store
-            backend = plan.backend
+            backend, mesh = plan.backend, plan.mesh
             use_kernel, precision = plan.kernel, plan.precision
+            worker_axes, model_axis = plan.worker_axes, plan.model_axis
         else:
             plan = ExecutionPlan(backend=backend, kernel=use_kernel,
-                                 precision=precision)
-        if backend == "mesh" or mesh is not None or (
-                plan is not None and plan.mesh is not None):
-            raise NotImplementedError(
-                "backend='mesh' serving is not ported yet (ROADMAP A14b): "
-                "the port serves on one device (backend='local')")
-        if backend != "local":
+                                 precision=precision, mesh=mesh,
+                                 worker_axes=tuple(worker_axes),
+                                 model_axis=model_axis)
+        if backend not in ("local", "mesh"):
             raise ValueError(f"unknown backend {backend!r}; "
                              "expected 'local' or 'mesh'")
+        if backend == "local" and mesh is not None:
+            raise ValueError("a mesh was passed but backend is 'local' "
+                             "— did you mean backend='mesh'?")
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
         from .registry import get
@@ -202,9 +300,12 @@ class LinsysServer:
                 f"solver {self.solver.name!r} is not projection-based and "
                 f"has no kernel path (use_kernel=True unsupported)")
         self.solver._check_precision(precision, use_kernel)
-        self.plan = dataclasses.replace(plan, store=None)
+        self.plan = dataclasses.replace(plan, store=None, mesh=None)
         self.iters, self.tol, self.batch = iters, tol, batch
-        self.backend = backend
+        self.backend, self.mesh = backend, mesh
+        self.worker_axes, self.model_axis = tuple(worker_axes), model_axis
+        self._meshes: Dict[int, Any] = {}     # m -> default mesh
+        self._stopped = False
         self.warm_start = warm_start
         self.use_kernel = use_kernel
         self.precision = precision
@@ -234,11 +335,123 @@ class LinsysServer:
             self.solver, sys, prm,
             dataclasses.replace(self.plan, kernel=use_kernel),
             self.batch, self.iters)
+        mesh = None
+        if self.backend == "mesh":
+            if self._world() > 1:
+                fps = [None] * dist.get_world_size()
+                dist.all_gather_object(fps, fp)
+                if len(set(fps)) != 1:
+                    raise ValueError(
+                        f"register() on a mesh needs the same system on "
+                        f"every rank; the ranks' fingerprints differ: "
+                        f"{[f[:16] for f in fps]}")
+            mesh = self._mesh_for(sys)
+            key += ((tuple(mesh.mesh.shape), mesh.mesh_dim_names),)
         self._systems[fp] = _System(
             sys=sys, prm=prm, dtype=_numpy_dtype(sys.A_blocks.dtype),
-            executor_key=key, use_kernel=use_kernel)
+            executor_key=key, use_kernel=use_kernel, mesh=mesh)
         self._queues.setdefault(fp, deque())
         return fp
+
+    # ----- the mesh: rank 0 admits, the other ranks follow ------------------
+    @staticmethod
+    def _world() -> int:
+        return dist.get_world_size() if dist.is_initialized() else 1
+
+    def _mesh_for(self, sys: BlockSystem):
+        """The server's mesh, or the default one for ``sys.m`` (built once
+        an m: building a mesh is collective)."""
+        if self.mesh is not None:
+            return self.mesh
+        if sys.m not in self._meshes:
+            self._meshes[sys.m] = mesh_lib.solver_mesh_for(
+                sys.m, device=sys.device)
+        return self._meshes[sys.m]
+
+    def _follows(self) -> bool:
+        """A mesh rank other than 0 of a group of several: it follows."""
+        return (self.backend == "mesh" and self._world() > 1
+                and dist.get_rank() != 0)
+
+    def _leads(self) -> bool:
+        """Rank 0 of a mesh group of several: it announces every batch."""
+        return (self.backend == "mesh" and self._world() > 1
+                and dist.get_rank() == 0)
+
+    def _header_device(self):
+        mesh = self.mesh or next(iter(self._meshes.values()), None)
+        return (mesh_lib.mesh_device(mesh) if mesh is not None
+                else torch.device("cpu"))
+
+    def _announce(self, fp: str = "", k: int = 0, n_real: int = 0,
+                  warm: bool = False, stop: bool = False, Bb=None):
+        """Rank 0: broadcast a batch's header, then its (k, N) right-hand
+        sides; followers: receive them.  Returns (stop, fp, n_real, warm,
+        the (k, m, p) batch on the host)."""
+        dev_ = self._header_device()
+        hdr = torch.zeros(_HEADER, dtype=torch.int64, device=dev_)
+        if dist.get_rank() == 0:
+            code = fp.encode()
+            if len(code) > _HEADER - 4:
+                raise ValueError(f"fingerprint {fp!r} too long to announce")
+            hdr[:4] = torch.as_tensor([int(stop), k, n_real, int(warm)])
+            hdr[4:4 + len(code)] = torch.as_tensor(list(code))
+        dist.broadcast(hdr, src=0)
+        vals = hdr.cpu().tolist()
+        stop, k, n_real, warm = bool(vals[0]), vals[1], vals[2], \
+            bool(vals[3])
+        if stop:
+            return True, "", 0, False, None
+        fp = bytes(v for v in vals[4:] if v).decode()
+        ent = self._systems.get(fp)
+        if ent is None:
+            raise KeyError(f"rank {dist.get_rank()} has not registered the "
+                           f"system {fp!r} that rank 0 announced")
+        m, p = ent.sys.m, ent.sys.p
+        buf = (torch.as_tensor(Bb.reshape(k, m * p), device=dev_)
+               if dist.get_rank() == 0 else
+               torch.empty((k, m * p), dtype=ent.sys.b_blocks.dtype,
+                           device=dev_))
+        dist.broadcast(buf, src=0)
+        return False, fp, n_real, warm, buf.cpu().numpy().reshape(k, m, p)
+
+    def serve_follower(self) -> int:
+        """A follower rank's serving loop (every mesh rank but 0 of a group
+        of several): receive each batch rank 0 announces, run it on this
+        rank's shards (the same store, placement and runner), and return
+        the number of batches served when rank 0's stop flag comes.  A
+        follower answers no request."""
+        if not self._follows():
+            raise RuntimeError(
+                "serve_follower() runs on the mesh ranks other than 0 of a "
+                "group of several; rank 0 admits (submit/step/drain)")
+        served = 0
+        while True:
+            stop, fp, _, warm, Bb = self._announce()
+            if stop:
+                self._stopped = True
+                return served
+            ent = self._systems[fp]
+            ex, _ = self._placed(fp, ent)
+            A = ent.A_placed
+            states, _, _ = ex.run(A, ent.factors_placed, ex.place_B(Bb, A),
+                                  ent.last_states if warm else None)
+            if self.warm_start:
+                ent.last_states = states
+            served += 1
+
+    def close(self) -> None:
+        """End the mesh service: rank 0 of a group of several sends the
+        stop flag to the followers (once).  Elsewhere a no-op."""
+        if self._leads() and not self._stopped:
+            self._stopped = True
+            self._announce(stop=True)
+
+    def __enter__(self) -> "LinsysServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def _validated(self, fp: str, rhs) -> Tuple[_System, np.ndarray]:
         """Shared admission validation: the fingerprint must have been
@@ -256,8 +469,19 @@ class LinsysServer:
                              f"({ent.sys.N},) for this system")
         return ent, rhs
 
+    def _admits(self) -> None:
+        if self._follows():
+            raise RuntimeError(
+                f"rank {dist.get_rank()} follows on this mesh: rank 0 "
+                f"admits and answers requests; run serve_follower() here")
+        if self._stopped:
+            raise RuntimeError("the mesh server was closed: its followers "
+                               "have stopped")
+
     def submit(self, fp: str, rhs) -> int:
-        """Enqueue one right-hand side for a registered system."""
+        """Enqueue one right-hand side for a registered system (on a mesh
+        of several ranks, rank 0 alone admits)."""
+        self._admits()
         _, rhs = self._validated(fp, rhs)
         rid = self._rid
         self._rid += 1
@@ -273,9 +497,16 @@ class LinsysServer:
         ex = self._executors.get(key)
         if ex is None:
             self.stats.executor_builds += 1
-            ex = executor.LocalExecutor(
-                self.solver, ent.prm, self.iters, use_kernel=ent.use_kernel,
-                ls_mode=ent.sys.mode == "least_squares")
+            if self.backend == "mesh":
+                ex = _MeshExecutor(self.solver, ent.prm, self.iters,
+                                   ent.sys, ent.mesh, self.worker_axes,
+                                   self.model_axis,
+                                   use_kernel=ent.use_kernel)
+            else:
+                ex = executor.LocalExecutor(
+                    self.solver, ent.prm, self.iters,
+                    use_kernel=ent.use_kernel,
+                    ls_mode=ent.sys.mode == "least_squares")
             self._executors[key] = ex
         return ex
 
@@ -310,6 +541,25 @@ class LinsysServer:
         placement, the warm-start decision and the batch's copy to the
         device (on the calling thread)."""
         ent = self._systems[fp]
+        Bb = np.stack([r.rhs for r in group]).reshape(
+            len(group), ent.sys.m, ent.sys.p)
+        warm = self._warm_ok(ent, Bb)
+        if self._leads():
+            # the followers learn the batch first: everything after this
+            # is the same, in the same order, on every rank
+            self._announce(fp, len(group), n_real, warm, Bb=Bb)
+        ex, src = self._placed(fp, ent)
+        return _Batch(fp=fp, ent=ent, ex=ex, group=list(group),
+                      n_real=n_real, A=ent.A_placed,
+                      factors=ent.factors_placed, src=src, Bb=Bb,
+                      Bb_dev=ex.place_B(Bb, ent.A_placed), warm=warm)
+
+    def _placed(self, fp: str, ent: _System):
+        """(executor, the store's factors) of a system, ``ent`` placed:
+        the factors through the store (with the server's ``precision``,
+        on the process's own linalg library whatever another thread
+        captures), the release of evicted placements, the executor, the
+        placement (``ent.A_placed``, ``ent.factors_placed``)."""
         with executor.default_linalg():
             factors = self.store.factors(self.solver, ent.sys, key=fp,
                                          use_kernel=ent.use_kernel,
@@ -321,13 +571,7 @@ class LinsysServer:
             ent.A_placed, ent.factors_placed = ex.place_system(ent.sys,
                                                                factors)
             ent.placed_src = factors
-        Bb = np.stack([r.rhs for r in group]).reshape(
-            len(group), ent.sys.m, ent.sys.p)
-        return _Batch(fp=fp, ent=ent, ex=ex, group=list(group),
-                      n_real=n_real, A=ent.A_placed,
-                      factors=ent.factors_placed, src=factors, Bb=Bb,
-                      Bb_dev=ex.place_B(Bb, ent.A_placed),
-                      warm=self._warm_ok(ent, Bb))
+        return ex, factors
 
     def _results(self, fp, group, n_real, X, res, warm):
         X = X.cpu().numpy()
@@ -354,6 +598,7 @@ class LinsysServer:
         With ZERO pending requests this is a true no-op: it returns []
         before any executor, store or device work.
         """
+        self._admits()
         pending = [(q[0].rid, fp) for fp, q in self._queues.items() if q]
         if not pending:
             return []
@@ -370,14 +615,19 @@ class LinsysServer:
         self.stats.warm_batches += int(b.warm)
         return self._results(fp, group, n_real, X, res, b.warm)
 
-    def drain(self):
-        """Serve until every queue is empty; results in served order."""
+    def drain(self, final: bool = False):
+        """Serve until every queue is empty; results in served order.
+        ``final=True`` then closes the mesh service (:meth:`close`)."""
         out = []
-        while True:
-            batch = self.step()
-            if not batch:
-                return out
-            out.extend(batch)
+        try:
+            while True:
+                batch = self.step()
+                if not batch:
+                    return out
+                out.extend(batch)
+        finally:
+            if final:
+                self.close()
 
 
 class StreamReport(NamedTuple):

@@ -164,8 +164,18 @@ def test_warm_state_resumes_exactly(systems, params):
 
 def test_plan_rejections(systems):
     s, sys_ = solvers.get("apc"), systems[1]
-    with pytest.raises(NotImplementedError, match="A15"):
-        s.solve(sys_, iters=1, plan=solvers.ExecutionPlan(redundancy=2),
+    # redundancy is ported (A15, tests/test_torch_redundant.py): the
+    # redundant solve is the plain one; with the kernel path it is the
+    # reference's CapabilityError
+    r = s.solve(sys_, iters=3, plan=solvers.ExecutionPlan(redundancy=2),
+                gamma=1.0, eta=1.0)
+    plain = s.solve(sys_, iters=3, gamma=1.0, eta=1.0)
+    assert r.state.t == 3
+    np.testing.assert_allclose(r.x.numpy(), plain.x.numpy(), rtol=1e-8,
+                               atol=1e-10)
+    with pytest.raises(solvers.CapabilityError, match="use_kernel"):
+        s.solve(sys_, iters=1, plan=solvers.ExecutionPlan(redundancy=2,
+                                                          kernel=True),
                 gamma=1.0, eta=1.0)
     # the mesh backend is ported (A14, tests/test_torch_mesh.py): a plan
     # without a mesh runs on a one-rank one over the process group

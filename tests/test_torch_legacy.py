@@ -183,19 +183,35 @@ def test_one_warning_however_many_kwargs(plan_sys):
     ({"alive_schedule": np.ones((5, 4), bool)}, "A15"),
 ])
 def test_unported_plan_fields_raise_naming_their_item(plan_sys, kw, item):
-    """The mesh kwargs (A14, ported) run on a one-rank mesh with
-    backend="mesh" (a mesh object with the local backend is the
-    reference's ValueError); redundancy= reaches resolve_plan and
-    alive_schedule= raises in the shim, naming A15.  Each after the one
-    warning, for solve and solve_many."""
-    _, ps = plan_sys
-    s = solvers.get("apc")
+    """Every plan field the shim once refused is ported now.  The mesh
+    kwargs (A14) run on a one-rank mesh with backend="mesh" (a mesh object
+    with the local backend is the reference's ValueError).  redundancy=
+    and alive_schedule= (A15) run solve's redundant path, held to the
+    reference's solve with the same kwargs (x rtol 1e-8 / atol 1e-10,
+    history rtol 1e-6 / atol 1e-12), and solve_many raises the
+    reference's ValueError naming it.  Each after the one warning."""
+    rs, ps = plan_sys
+    s, ref = solvers.get("apc"), ref_solvers.get("apc")
+    prm = ref.resolve_params(rs)
+    if item == "A15":
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            r_ref = ref.solve(rs, iters=5, **kw, **prm)
+            with pytest.raises(ValueError, match="solve_many"):
+                ref.solve_many(rs, np.ones((2, rs.N)), iters=5, **kw)
     for call, args in ((s.solve, {}), (s.solve_many,
                                        {"B": np.ones((2, ps.N))})):
         with warnings.catch_warnings(record=True) as rec:
             warnings.simplefilter("always")
-            if item == "A15":
-                with pytest.raises(NotImplementedError, match=item):
+            if item == "A15" and call == s.solve:
+                r = call(ps, iters=5, **kw, **prm)
+                np.testing.assert_allclose(r.x.numpy(), np.asarray(r_ref.x),
+                                           rtol=1e-8, atol=1e-10)
+                np.testing.assert_allclose(r.residuals.numpy(),
+                                           np.asarray(r_ref.residuals),
+                                           rtol=1e-6, atol=1e-12)
+            elif item == "A15":
+                with pytest.raises(ValueError, match="solve_many"):
                     call(ps, iters=5, **args, **kw)
             elif "mesh" in kw:
                 with pytest.raises(ValueError, match="backend='mesh'"):

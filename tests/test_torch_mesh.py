@@ -206,8 +206,11 @@ def test_mesh_rejects_kernel_and_unknown_backend(systems, mesh):
     with pytest.raises(ValueError, match="backend='mesh'"):
         s.solve_many(sys_, np.ones((2, sys_.N)), iters=5,
                      plan=ExecutionPlan(mesh=mesh))
-    with pytest.raises(NotImplementedError, match="A15"):
-        s.solve(sys_, iters=5, plan=_mesh_plan(mesh, redundancy=2))
+    # redundancy runs on the mesh (A15, tests/test_torch_redundant.py);
+    # with kernel=True it is the reference's CapabilityError
+    with pytest.raises(solvers.CapabilityError, match="use_kernel"):
+        s.solve(sys_, iters=5, plan=_mesh_plan(mesh, redundancy=2,
+                                               kernel=True))
 
 
 def test_mesh_context_validates_axes(systems, group):

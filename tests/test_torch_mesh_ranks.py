@@ -19,6 +19,13 @@ kernels with the model axis forced off; validation before any
 collective; the engine verdict measured on rank 0 and broadcast in the
 mesh's step loop, and a rank's own outside it; and the
 solve CLI with ``--use-mesh`` under a torchrun-style environment.
+Redundant execution and the elastic runtime at world 4 on a 2 x 2 mesh
+(twins of tests/test_redundant.py's and tests/test_elastic.py's
+subprocess parity cases), held to the reference's plain local run; and
+mesh serving at world 2 (1 x 2, the kernel path on column shards): rank
+0 admits and answers, the follower serves every batch and stops on the
+stop flag, for the sync and the async server and ``serve_linsys
+--backend mesh``, held to the reference's local servers.
 """
 import contextlib
 import io
@@ -45,6 +52,9 @@ SYS = dict(n=64, m=4, cond=10.0, seed=3)
 SPARSE = dict(n=192, m=4, bandwidth=6, seed=0)
 CLI_ARGS = ["--problem", "ash608", "--workers", "4", "--iters", "30",
             "--use-kernel"]
+SERVE_SYS = dict(n=48, m=4, cond=10.0, seed=0)
+SERVE_PRM = {"gamma": 1.0, "eta": 1.0}
+SERVE_ITERS = 40
 
 
 # ---------------------------------------------------------------------------
@@ -237,10 +247,111 @@ def _case_cli(rank, out, params):
     return {"lines": np.asarray(buf.getvalue().splitlines(), dtype=object)}
 
 
+def _case_redundant(rank, out, params):
+    """r = 2 under the rotating straggler on a 2 x 2 mesh, and the
+    schedule lowered on rank 0 alone: a schedule each rank would read
+    differently (uncoverable on rank 0 only) raises on every rank."""
+    from repro_torch import solvers
+    from repro_torch.data import linsys
+    from repro_torch.launch import mesh as mesh_lib
+    sys_ = linsys.conditioned_gaussian(**SYS, device="cpu")
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
+    got = {}
+    for name in PROJ:
+        _record(got, name, _solve(name, sys_, mesh, params, redundancy=2,
+                                  alive_schedule=_rotating))
+    alive = np.array([rank != 0, rank != 0, True, True])
+    try:
+        _solve("apc", sys_, mesh, params, iters=5, redundancy=2,
+               alive_schedule=alive)
+        got["raised"] = np.asarray("")
+    except RuntimeError as e:
+        got["raised"] = np.asarray(str(e))
+    dist.barrier()
+    return got
+
+
+def _rotating(t):
+    return np.array([i != (t % 4) for i in range(4)])
+
+
+def _case_elastic(rank, out, params):
+    """A death mid-run on a 2 x 2 mesh: marked on rank 0's monitor alone
+    (the membership is rank 0's, broadcast)."""
+    from repro_torch import solvers
+    from repro_torch.data import linsys
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime.fault import HeartbeatMonitor
+    sys_ = linsys.conditioned_gaussian(**SYS, device="cpu")
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
+    got = {}
+    for name in PROJ:
+        mon = HeartbeatMonitor(n_workers=4)
+        rt = solvers.ElasticRuntime(
+            solvers.get(name), sys_, monitor=mon, segment=25,
+            plan=solvers.ExecutionPlan(redundancy=2, backend="mesh",
+                                       mesh=mesh), **params[name])
+        r1 = rt.run(iters=50)
+        if rank == 0:
+            mon.mark_dead(2)
+        r2 = rt.run(iters=100)
+        got[f"{name}/x"] = r2.x.numpy()
+        got[f"{name}/res"] = torch.cat([r1.residuals, r2.residuals]).numpy()
+        got[f"{name}/books"] = np.asarray([r2.relowerings, r2.iters,
+                                           r2.segments, len(r2.events)])
+        got[f"{name}/caches"] = np.asarray(list(
+            rt.engine_cache_sizes().items()))
+    return got
+
+
+def _case_serve(rank, out, params):
+    """Mesh serving at world 2 on a 1 x 2 mesh (the kernel path's split
+    gather -> all_reduce -> scatter on column shards, the plain versions
+    here): the sync server, the async one, then serve_linsys."""
+    from repro_torch.data import linsys
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve_linsys as serve_cli
+    from repro_torch.solvers.pipeline import AsyncLinsysServer
+    from repro_torch.solvers.serve import LinsysServer
+    from repro_torch.solvers.store import FactorStore
+    sys_ = linsys.conditioned_gaussian(**SERVE_SYS, device="cpu")
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"), device="cpu")
+    got = {}
+    for tag, cls in (("sync", LinsysServer), ("async", AsyncLinsysServer)):
+        srv = cls(FactorStore(), solver="apc", iters=SERVE_ITERS, batch=2,
+                  backend="mesh", mesh=mesh, use_kernel=True,
+                  **SERVE_PRM)
+        fp = srv.register(sys_)
+        if rank == 0:
+            with srv:
+                for b in params["rhs"]:
+                    srv.submit(fp, b)
+                res = srv.drain()
+            got[f"{tag}/x"] = np.stack([r.x for r in res])
+            got[f"{tag}/res"] = np.asarray([r.residual for r in res])
+            got[f"{tag}/batches"] = np.asarray(srv.stats.batches)
+        else:
+            try:
+                srv.submit(fp, params["rhs"][0])
+                got[f"{tag}/refused"] = np.asarray("")
+            except RuntimeError as e:
+                got[f"{tag}/refused"] = np.asarray(str(e))
+            got[f"{tag}/batches"] = np.asarray(srv.serve_follower())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert serve_cli.main(["--backend", "mesh", "--device", "cpu",
+                               "--requests", "5", "--systems", "1",
+                               "--batch", "2", "--n", "32", "--iters", "60",
+                               "--use-kernel"]) == 0
+    got["cli"] = np.asarray(buf.getvalue().splitlines(), dtype=object)
+    return got
+
+
 CASES = {"2x2": _case_2x2, "kernel_1x2": _case_kernel_1x2,
          "sparse": _case_sparse, "validate": _case_validate,
          "engine": _case_engine, "engine_alone": _case_engine_alone,
-         "cli": _case_cli}
+         "cli": _case_cli, "redundant": _case_redundant,
+         "elastic": _case_elastic, "serve": _case_serve}
 
 
 # ---------------------------------------------------------------------------
@@ -454,3 +565,85 @@ def test_cli_use_mesh_world_2(tmp_path):
     lines = [ln for ln in lines if not ln.startswith("mesh backend")]
     assert lines[:-1] == ref_lines[:-1]
     assert lines[-1].startswith("done in") and "rel-error" in lines[-1]
+
+
+# ---------------------------------------------------------------------------
+# redundancy, the elastic runtime and mesh serving across ranks
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ref_plain(ref_sys):
+    """The reference's plain local solve of the projection family."""
+    from repro import solvers as ref_solvers
+    out = {}
+    for name in PROJ:
+        s = ref_solvers.get(name)
+        out[name] = s.solve(ref_sys, iters=ITERS, **s.resolve_params(ref_sys))
+    return out
+
+
+def test_redundant_mesh_parity_2x2(ref_sys, ref_plain, tmp_path):
+    """r = 2 with a rotating straggler on a 2 x 2 (data x model) mesh of
+    four ranks against the reference's plain local run (twin of
+    tests/test_redundant.py's subprocess parity); an uncoverable schedule
+    read on rank 0 alone raises on every rank."""
+    got = _run("redundant", 4, tmp_path, _ref_params(PROJ, ref_sys))
+    _same_on_every_rank([{k: v for k, v in g.items() if k != "raised"}
+                         for g in got])
+    for name in PROJ:
+        _match(got[0], name, ref_plain[name])
+        assert int(got[0][f"{name}/t"]) == ITERS
+    for g in got:
+        assert "unrecoverable" in str(g["raised"]), g["raised"]
+
+
+def test_elastic_death_parity_2x2(ref_sys, ref_plain, tmp_path):
+    """Death -> re-lower -> continue on a 2 x 2 mesh, the death marked on
+    rank 0's monitor alone, against the reference's uninterrupted local
+    run (twin of tests/test_elastic.py's subprocess parity)."""
+    got = _run("elastic", 4, tmp_path, _ref_params(PROJ, ref_sys))
+    _same_on_every_rank(got)
+    for name in PROJ:
+        np.testing.assert_allclose(got[0][f"{name}/res"],
+                                   np.asarray(ref_plain[name].residuals),
+                                   **H_TOL)
+        np.testing.assert_allclose(got[0][f"{name}/x"],
+                                   np.asarray(ref_plain[name].x), **X_TOL)
+        assert got[0][f"{name}/books"].tolist() == [1, ITERS, 4, 1]
+        assert got[0][f"{name}/caches"].tolist() == [[4, 1]]
+
+
+def test_mesh_serving_world_2(tmp_path):
+    """Rank 0 admits, announces and answers; the follower serves every
+    batch, answers nothing, refuses to admit, and stops on the stop flag;
+    the answers are the reference's local servers' (x rtol 1e-8 / atol
+    1e-10, the residual 1e-6 relative)."""
+    from repro.data import linsys as ref_linsys
+    from repro.solvers.pipeline import AsyncLinsysServer as RefAsync
+    from repro.solvers.serve import LinsysServer as RefServer
+    from repro.solvers.store import FactorStore as RefStore
+    rhs = np.random.default_rng(11).standard_normal((5, 48))
+    got = _run("serve", 2, tmp_path, {"rhs": rhs})
+    ref_sys = ref_linsys.conditioned_gaussian(**SERVE_SYS)
+    for tag, cls in (("sync", RefServer), ("async", RefAsync)):
+        srv = cls(RefStore(), solver="apc", iters=SERVE_ITERS, batch=2,
+                  use_kernel=True, **SERVE_PRM)
+        fp = srv.register(ref_sys)
+        for b in rhs:
+            srv.submit(fp, b)
+        ref = srv.drain()
+        if tag == "async":
+            srv.close()
+        np.testing.assert_allclose(got[0][f"{tag}/x"],
+                                   np.stack([np.asarray(r.x) for r in ref]),
+                                   **X_TOL)
+        np.testing.assert_allclose(got[0][f"{tag}/res"],
+                                   [r.residual for r in ref], rtol=1e-6)
+        assert int(got[0][f"{tag}/batches"]) == 3
+        assert int(got[1][f"{tag}/batches"]) == 3
+        assert "rank 0 admits" in str(got[1][f"{tag}/refused"])
+    lines = list(got[0]["cli"])
+    assert "mesh backend over 2 rank(s), gloo: rank 0 admits" in lines
+    assert any(ln.startswith("served 5 requests") for ln in lines), lines
+    assert list(got[1]["cli"]) == []

@@ -160,13 +160,19 @@ def test_submit_validation(sys_a):
 
 
 def test_unported_and_unservable_plans_are_refused():
-    with pytest.raises(NotImplementedError, match="A14b"):
-        LinsysServer(FactorStore(), backend="mesh")
-    with pytest.raises(NotImplementedError, match="A14b"):
-        LinsysServer(FactorStore(),
-                     plan=solvers.ExecutionPlan(backend="mesh"))
-    with pytest.raises(NotImplementedError, match="A14b"):
+    # mesh serving is ported (A14b, tests/test_torch_mesh_serve.py): the
+    # servers take backend="mesh", loose or on the plan; a mesh with the
+    # local backend is the reference's ValueError
+    for srv in (LinsysServer(FactorStore(), backend="mesh"),
+                LinsysServer(FactorStore(),
+                             plan=solvers.ExecutionPlan(backend="mesh")),
+                AsyncLinsysServer(FactorStore(), backend="mesh")):
+        assert srv.backend == "mesh" and srv.pending() == 0
+    with pytest.raises(ValueError, match="backend='mesh'"):
         AsyncLinsysServer(FactorStore(), mesh=object())
+    with pytest.raises(ValueError, match="EITHER"):
+        LinsysServer(FactorStore(), plan=solvers.ExecutionPlan(),
+                     model_axis=None)
     with pytest.raises(ValueError, match="not servable"):
         LinsysServer(FactorStore(),
                      plan=solvers.ExecutionPlan(redundancy=2))
@@ -896,9 +902,18 @@ def test_serve_linsys_cli_store_dir_and_mesh(tmp_path, capsys):
     assert cli.main(args + ["--async"]) == 0
     out = capsys.readouterr().out
     assert "disk_hits=1" in out and "misses=0" in out
-    with pytest.raises(SystemExit):
-        cli.main(["--backend", "mesh", "--device", "cpu"])
-    assert "A14b" in capsys.readouterr().err
+    # --backend mesh serves (A14b): alone, on a one-rank group, with the
+    # same store's disk tier
+    import torch.distributed as dist
+    had_group = dist.is_initialized()
+    try:
+        assert cli.main(args + ["--backend", "mesh"]) == 0
+    finally:
+        if not had_group and dist.is_initialized():
+            dist.destroy_process_group()
+    out = capsys.readouterr().out
+    assert "mesh backend over 1 rank(s), gloo: rank 0 admits" in out
+    assert "disk_hits=1" in out and "served 4 requests" in out
 
 
 # ---------------------------------------------------------------------------

@@ -284,6 +284,11 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             SPARSE_CORNERS=[dict(n=130, m=2, bandwidth=6),
                             dict(n=24, m=24, bandwidth=2)],
             LS_MID=dict(N=256, n=128, m=4, noise=0.5, seed=0),
+            RED_CUT=dict(N=192, n=96, m=4),
+            SERVE_CLI_ARGS=["--backend", "mesh", "--requests", "5",
+                            "--systems", "1", "--batch", "2", "--n", "32",
+                            "--workers", "4", "--iters", "40",
+                            "--use-kernel"],
             ITERS=40, LS_ITERS=900,
             smi=lambda: "NVIDIA H100 80GB HBM3, 700.00 W").items():
         monkeypatch.setattr(smoke, name, value)
@@ -501,7 +506,7 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert [k["name"] for k in kernels] == list(bp.KERNELS)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "forms",
-            "mesh_launches"}
+            "mesh_launches", "mesh_serving_launches"}
     form_keys = {"pair", "k", "ms", "row_dot_ms", "ring_ms", "bound_ms",
                  "bound_by", "launches", "max_abs_err", "library_ms",
                  "library"}
@@ -509,6 +514,7 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     for k in kernels:
         assert set(k) == keys and k["launches"] == 40, k
         assert k["mesh_launches"] == 40, k          # phase 16 (a)
+        assert k["mesh_serving_launches"] == 40, k  # phase 17 (a)
         assert np.isfinite([k["ms"], k["plain_ms"], k["bound_ms"]]).all()
         # the APC pair's all-bf16 form beside the four others, its
         # launches from phase 15's ops.block_projection
@@ -589,3 +595,52 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     # the spawned ranks see no faked card: they launch nothing
     assert all(x.count("instances launched none (plain versions)") == 2
                for x in p16 if x.startswith("phase 16 (b) mesh")), p16
+    # phase 17: mesh serving; (a) in this process on a one-rank group,
+    # every kernel's launches a mesh-served batch; (b) two spawned ranks
+    # (the CPU: plain versions), rank 0 admitting, the follower serving,
+    # then the serving CLI at world 2
+    p17 = [x for x in lines if x.startswith("phase 17 ")]
+    assert p17[0].startswith("phase 17 (a) mesh serving, mesh (('data', 1),"
+                             " ('model', 1)) over 1 rank(s), gloo"), p17
+    assert any(x.startswith("phase 17 (a) dense apc mesh server k=8")
+               and "launches a batch [40, 40, 40, 40] (apc_gather)" in x
+               for x in p17), p17
+    assert any(x.startswith("phase 17 (a) dense apc async mesh server")
+               and "bit-equal to the sync mesh server True" in x
+               for x in p17), p17
+    for label in ("dense cimmino precision=default",
+                  "sparse apc precision=mixed",
+                  "sparse cimmino precision=default"):
+        assert sum(x.startswith(f"phase 17 (a) {label} mesh server k=8")
+                   for x in p17) == 1, (label, p17)
+    assert any(x.startswith("phase 17 (b) two ranks over gloo on cpu")
+               and "the follower served 4 batches" in x
+               and "instances none (plain versions)" in x for x in p17), p17
+    assert any(x.startswith("phase 17 (b) serve_linsys --backend mesh at "
+                            "world 2") and "served 5 requests" in x
+               for x in p17), p17
+    # phase 18: redundancy and the elastic runtime, no kernel
+    p18 = [x for x in lines if x.startswith("phase 18 ")]
+    for sname in ("apc", "consensus", "cimmino"):
+        assert any(x.startswith(f"phase 18 {sname} redundancy=2")
+                   and "repeat bit-identical True" in x
+                   and "captured ≡ eager (disable_capture) True" in x
+                   and ("engine captures 1" in x) == (sname == "apc")
+                   for x in p18), (sname, p18)
+    assert any(x.startswith("phase 18 apc redundant iteration, its pieces")
+               and "two triangular solves" in x
+               and "cholesky_solve cuSOLVER" in x for x in p18), p18
+    assert any(x.startswith("phase 18 elastic apc") and "bit-equal to the "
+               "one-shot solve on the same schedule True" in x
+               and "grows the fleet 4 -> 5" in x
+               and "captures by fleet size {4: 1, 5: 1}" in x
+               for x in p18), p18
+    assert any(x.startswith("phase 18 elastic recover")
+               and "reused_blocks 4 prepared_blocks 0" in x for x in p18)
+    assert any(x.startswith("phase 18 redundant apc on the mesh, one rank")
+               for x in p18), p18
+    for key in ("apc redundancy", "cimmino redundancy",
+                "apc/elastic redundancy"):
+        assert sum(x.startswith("phase 18 two ranks over gloo on cpu")
+                   and f" {key}=2" in x for x in p18) == 1, (key, p18)
+    assert any(x.startswith("phase 18 memory:") for x in p18), p18
