@@ -141,20 +141,41 @@ script exits non-zero without its last line:
    against ``backend="local"``, x and the histories within the contract
    of tests/test_mesh_backend.py (x rtol 1e-8 / atol 1e-10, histories
    rtol 1e-6 / atol 1e-12, ``iters_to_tol`` equal), 150 launches of each
-   kernel, the whole solve's time mesh and local in turns; APC
-   ``solve_many`` k = K_MANY; sparse APC and Cimmino on the sparse
-   kernels; APC at ``precision="mixed"``; (b) two ranks on the one card
-   over gloo (NCCL refuses two ranks on one GPU), spawned as
+   kernel, most of them from the replays: every mesh history runs
+   captured into CUDA graphs (NCCL), one capture a solve (counted by
+   ``tracecheck``), and k = 1 and K_MANY (dense and sparse) are held bit
+   for bit to the same run under ``executor.disable_capture()``; ms an
+   iteration, mesh captured, mesh eager and local captured, in turns;
+   APC ``solve_many`` k = K_MANY against local; sparse APC and Cimmino on
+   the sparse kernels; APC at ``precision="mixed"``; (b) two ranks on the
+   one card over gloo (NCCL refuses two ranks on one GPU), spawned as
    ``chip_smoke.py --mesh-rank R DIR CONFIG``: meshes 1 data x 2 model
    (the split gather -> ``all_reduce`` -> scatter on column shards of
    n/2) and 2 data x 1 model, APC and Cimmino on the kernels, each held
-   to (a)'s local run within the same contract; each rank's four dense
+   to (a)'s local run within the same contract, with no capture (gloo
+   runs the same chunks eagerly); each rank's four dense
    kernels held against their plain versions on the operands of their
    first launch in that run (the rank's own shards); each rank's
    resident memory, the instances its launches took, launches, ms an
    iteration, and, from one more run with every ``all_reduce`` timed
    between two synchronizes, that run's ms an iteration and the
-   ``all_reduce``'s ms and share of it.
+   ``all_reduce``'s ms and share of it;
+17. mesh serving: (a) one NCCL rank, phase 14's dense traffic through
+   ``LinsysServer(backend="mesh")`` (one build and one capture, batches
+   2-4 quiet under ``tracecheck(steady_state=True)``, bit-equal to the
+   same server under ``disable_capture()`` and to the local server,
+   timed in turns with both) and ``AsyncLinsysServer``, then two batches
+   each of dense Cimmino, sparse mixed APC and sparse Cimmino against the
+   local server; (b) two gloo ranks (1 x 2), ``--serve-rank``: rank 0
+   admits and answers, the follower serves, no capture; the serving CLI
+   at world 2;
+18. redundancy and the elastic runtime on the dense system (no kernel):
+   APC, consensus, Cimmino at r = 2 under a rotating straggler against
+   the plain solve, captured ≡ eager; the elastic runtime's death,
+   rejoin and join; recovery from a disk tier; on one NCCL rank the
+   redundant mesh runner's one captured step ≡ ``disable_capture()`` and
+   a history split into segments ≡ one run, timed against eager and the
+   local engine; two gloo ranks (2 x 1, ``--red-rank``), no capture.
 
 Every other phase runs under ``REPRO_KERNEL_ENGINE=fused``, the pin the
 reference's own benchmarks use: the kernels those phases hold, count
@@ -905,6 +926,14 @@ def mesh_check(label, x, res, err, itt, loc) -> tuple[float, float]:
     return dx, dh
 
 
+def same_result(a, b) -> bool:
+    """Two SolveResults bit for bit: x, the histories, the counter."""
+    same = torch.equal(a.x, b.x) and torch.equal(a.residuals, b.residuals)
+    if a.errors is not None or b.errors is not None:
+        same = same and torch.equal(a.errors, b.errors)
+    return same and a.state.t == b.state.t
+
+
 def mesh_phase(card, dsys, dfac, sp, fs, pinned, sp_pinned,
                form_launches) -> dict:
     """Phase 16: the mesh backend on the card.  Returns the launches of
@@ -913,9 +942,11 @@ def mesh_phase(card, dsys, dfac, sp, fs, pinned, sp_pinned,
 
     from repro_torch import device as dev
     from repro_torch import solvers
+    from repro_torch.analysis import tracecheck
     from repro_torch.kernels import block_projection as bp
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.solvers import executor
     t16 = time.time()
     # (a) one rank over NCCL: the default group this process starts
     created = not dist.is_initialized()
@@ -926,41 +957,90 @@ def mesh_phase(card, dsys, dfac, sp, fs, pinned, sp_pinned,
     mplan = solvers.ExecutionPlan(backend="mesh", mesh=mesh, kernel=True)
     lplan = solvers.ExecutionPlan(kernel=True, factors=dfac)
     mesh_launches, local = {}, {}
+    chunk = executor.CHUNK
+    replayed = (ITERS - chunk) // chunk * chunk
+    from_replays = (f"{replayed} of them from {replayed // chunk} replays "
+                    f"of the captured {chunk}-step graph")
 
     def turns(fns, reps=4):
         """Median host ms of each whole solve (card idle to idle), the
-        solves timed in turns."""
+        solves timed in turns; a key ending in "eager" runs under
+        ``executor.disable_capture()``."""
         got = {k: [] for k in fns}
         for _ in range(reps):
             for k, fn in fns.items():
-                got[k].append(timed_ms(fn)[1])
+                with (executor.disable_capture() if k.endswith("eager")
+                      else contextlib.nullcontext()):
+                    got[k].append(timed_ms(fn)[1])
         return {k: float(np.median(v)) for k, v in got.items()}
 
+    def per_iter(ms):
+        return ", ".join(f"{k} {v / ITERS:.4f}" for k, v in ms.items())
+
+    def captured_vs_eager(label, run, pair, kernels):
+        """``run()`` captured (one capture, ITERS launches of each kernel,
+        from its replays) and under ``disable_capture()``, bit for bit."""
+        ops.reset_launch_counts()
+        with tracecheck() as tc:
+            cap = run()
+        torch.cuda.synchronize()
+        got = form_launches(pair)
+        assert got == {kn: ITERS if kn in kernels else 0
+                       for kn in bp.KERNELS}, (label, got)
+        caps = [e.fun for e in tc.traces("capture *")]
+        assert len(caps) == 1, (label, caps)
+        with executor.disable_capture():
+            eager = run()
+        same = same_result(cap, eager)
+        assert same, (label, float((cap.x - eager.x).abs().max()))
+        return caps[0], got
+
+    n_caps = 0
     for sname in ("apc", "consensus", "cimmino"):
         s, prm = solvers.get(sname), pinned[sname][0]
         loc = local[sname] = s.solve(dsys, iters=ITERS, plan=lplan, **prm)
         ops.reset_launch_counts()
-        r = s.solve(dsys, iters=ITERS, plan=mplan, **prm)  # on-mesh prepare
+        with tracecheck() as tc:
+            r = s.solve(dsys, iters=ITERS, plan=mplan, **prm)  # on-mesh prepare
         torch.cuda.synchronize()
         got = form_launches("f64")
         assert got == {kn: ITERS if kn in USES[sname] else 0
                        for kn in bp.KERNELS}, (sname, got)
+        assert len(tc.traces("capture *")) == 1, tc.summary()
         for kn in USES[sname]:
             mesh_launches.setdefault(kn, got[kn])
         dx, dh = mesh_check(sname, r.x, r.residuals, r.errors,
                             r.iters_to_tol, loc)
         fplan = mplan.replace(factors=dfac)
+        one = lambda: s.solve(dsys, iters=ITERS, plan=fplan,  # noqa: E731
+                              **prm)
+        _, Bk = consistent(dsys, K_MANY, 16)
+        many = lambda: s.solve_many(dsys, Bk, iters=ITERS,  # noqa: E731
+                                    plan=fplan, **prm)
+        cap1, _ = captured_vs_eager(f"{sname} k=1", one, "f64",
+                                    USES[sname])
+        cap8, _ = captured_vs_eager(f"{sname} k={K_MANY}", many, "f64",
+                                    USES[sname])
+        n_caps += 3
         ms = turns({
-            "mesh": lambda: s.solve(dsys, iters=ITERS, plan=fplan, **prm),
-            "local": lambda: s.solve(dsys, iters=ITERS, plan=lplan, **prm)})
+            "mesh captured": one, "mesh eager": one,
+            "local captured": lambda: s.solve(dsys, iters=ITERS,
+                                              plan=lplan, **prm)}, reps=3)
+        timed8 = ""
+        if sname == "apc":              # the others stream the same bytes
+            timed8 = "; k={} {}".format(K_MANY, per_iter(turns({
+                "mesh captured": many, "mesh eager": many,
+                "local captured": lambda: s.solve_many(
+                    dsys, Bk, iters=ITERS, plan=lplan, **prm)}, reps=3)))
         say(f"phase 16 (a) {sname} dense kernel=True {ITERS} iters: mesh vs "
             f"local max|Δx| {dx:.3e} max|Δ history| {dh:.3e} (x rtol "
             f"{MESH_X['rtol']:.0e} atol {MESH_X['atol']:.0e}, history rtol "
             f"{MESH_H['rtol']:.0e} atol {MESH_H['atol']:.0e}), iters_to_tol "
-            f"{r.iters_to_tol} both; launches {got}; whole solve ms an "
-            f"iteration (factors given, median of 4 in turns): mesh "
-            f"{ms['mesh'] / ITERS:.4f} (eager) local "
-            f"{ms['local'] / ITERS:.4f} (captured) [{card}]")
+            f"{r.iters_to_tol} both; launches {got}, {from_replays}; "
+            f"captured ({cap1}, {cap8}) ≡ disable_capture() bit for bit at "
+            f"k=1 and k={K_MANY} True; whole solve ms an iteration (factors "
+            f"given, median of 3 in turns): k=1 {per_iter(ms)}{timed8} "
+            f"[{card}]")
     s, prm = solvers.get("apc"), pinned["apc"][0]
     _, Bk = consistent(dsys, K_MANY, 16)
     loc = s.solve_many(dsys, Bk, iters=ITERS, plan=lplan, **prm)
@@ -977,8 +1057,8 @@ def mesh_phase(card, dsys, dfac, sp, fs, pinned, sp_pinned,
         f"{dx:.3e} max|Δ history| {dh:.3e}; launches {got} [{card}]")
     for sname in ("apc", "cimmino"):
         s, prm = solvers.get(sname), sp_pinned[sname][0]
-        loc = s.solve(sp, iters=ITERS, plan=solvers.ExecutionPlan(
-            kernel=True, factors=fs), **prm)
+        sloc = solvers.ExecutionPlan(kernel=True, factors=fs)
+        loc = s.solve(sp, iters=ITERS, plan=sloc, **prm)
         ops.reset_launch_counts()
         r = s.solve(sp, iters=ITERS, plan=mplan, **prm)
         torch.cuda.synchronize()
@@ -989,8 +1069,28 @@ def mesh_phase(card, dsys, dfac, sp, fs, pinned, sp_pinned,
             mesh_launches.setdefault(kn, got[kn])
         dx, dh = mesh_check(f"sparse {sname}", r.x, r.residuals, r.errors,
                             r.iters_to_tol, loc)
+        fplan = mplan.replace(factors=fs)
+        one = lambda: s.solve(sp, iters=ITERS, plan=fplan,  # noqa: E731
+                              **prm)
+        _, Bs = consistent(sp, K_MANY, 17)
+        many = lambda: s.solve_many(sp, Bs, iters=ITERS,  # noqa: E731
+                                    plan=fplan, **prm)
+        captured_vs_eager(f"sparse {sname} k=1", one, "f64",
+                          SPARSE_USES[sname])
+        captured_vs_eager(f"sparse {sname} k={K_MANY}", many, "f64",
+                          SPARSE_USES[sname])
+        n_caps += 2
+        ms = turns({"mesh captured": one, "mesh eager": one,
+                    "local captured": lambda: s.solve(sp, iters=ITERS,
+                                                      plan=sloc, **prm)})
+        ms8 = turns({"mesh captured": many, "mesh eager": many,
+                     "local captured": lambda: s.solve_many(
+                         sp, Bs, iters=ITERS, plan=sloc, **prm)})
         say(f"phase 16 (a) {sname} sparse kernel=True: mesh vs local "
-            f"max|Δx| {dx:.3e} max|Δ history| {dh:.3e}; launches {got} "
+            f"max|Δx| {dx:.3e} max|Δ history| {dh:.3e}; launches {got}; "
+            f"captured ≡ disable_capture() bit for bit at k=1 and "
+            f"k={K_MANY} True; whole solve ms an iteration (median of 4 in "
+            f"turns): k=1 {per_iter(ms)}; k={K_MANY} {per_iter(ms8)} "
             f"[{card}]")
     s, prm = solvers.get("apc"), pinned["apc"][0]
     mixed = dict(kernel=True, precision="mixed", factors=dfac)
@@ -1006,20 +1106,33 @@ def mesh_phase(card, dsys, dfac, sp, fs, pinned, sp_pinned,
                         r.iters_to_tol, loc)
     say(f"phase 16 (a) apc precision=mixed: mesh vs local max|Δx| {dx:.3e} "
         f"max|Δ history| {dh:.3e}; launches {got} [{card}]")
+    say(f"phase 16 (a) compile-once on NCCL: {n_caps} captured mesh "
+        f"histories checked against disable_capture(), one capture each "
+        f"(tracecheck); every mesh solve of (a) ran captured")
     if created:
         dist.destroy_process_group()
 
-    # (b) two ranks on the one card over gloo, each a process of its own
+    # (b) two ranks on the one card over gloo, each a process of its own;
+    # they need the memory this process's allocator caches (among it the
+    # pools of (a)'s freed graphs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 16 (b) before spawning: this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
     cfg = dict(full=FULL, iters=ITERS, world=2, shapes=MESH_SHAPES,
                device=dev.resolve("cuda").type,
                params={k: pinned[k][0] for k in ("apc", "cimmino")})
     t = time.time()
     ranks = spawn_ranks("--mesh-rank", ROOT / "build" / "phase16", cfg,
                         MESH_DEADLINE)
+    caps = [int(rk["captures"]) for rk in ranks]
+    assert caps == [0, 0], caps
     say(f"phase 16 (b) two ranks over gloo on {cfg['device']}: the system "
         f"{FULL} made on each rank's host in "
         f"{float(ranks[0]['t_data']):.2f} s, each rank copying its own "
-        f"shard alone; {time.time() - t:.1f} s in all")
+        f"shard alone; captures {caps} (gloo runs the same chunks "
+        f"eagerly); {time.time() - t:.1f} s in all")
     for shape in MESH_SHAPES:
         tag = "x".join(map(str, shape))
         for sname in ("apc", "cimmino"):
@@ -1090,64 +1203,65 @@ def mesh_rank(argv) -> int:
     join_group(rank, out, cfg["world"])
     got = {}
     try:
-        t = time.time()
-        system = linsys.tall_gaussian(**cfg["full"], seed=0, device="cpu")
-        got["t_data"] = time.time() - t
-        with env_var(ENGINE_ENV, "fused"):
-            for shape in cfg["shapes"]:
-                mesh = mesh_lib.make_mesh(shape, ("data", "model"),
-                                          device=device)
-                for sname in ("apc", "cimmino"):
-                    key = f"{'x'.join(map(str, shape))}/{sname}"
-                    s = solvers.get(sname)
-                    cs = mesh_backend.compile_solve(
-                        s, system, mesh=mesh, iters=cfg["iters"],
-                        use_kernel=True, **cfg["params"][sname])
-                    sync()
-                    got[f"{key}/gb"] = (torch.cuda.memory_allocated() / 1e9
-                                        if cuda else 0.0)
-                    ops.reset_launch_counts()
-                    with kernel_calls(ops, USES[sname]) as calls:
-                        (state, res, err), seen = launched_instances(
-                            lambda: cs.run(*cs.args))
+        with captures_into(got):
+            t = time.time()
+            system = linsys.tall_gaussian(**cfg["full"], seed=0, device="cpu")
+            got["t_data"] = time.time() - t
+            with env_var(ENGINE_ENV, "fused"):
+                for shape in cfg["shapes"]:
+                    mesh = mesh_lib.make_mesh(shape, ("data", "model"),
+                                              device=device)
+                    for sname in ("apc", "cimmino"):
+                        key = f"{'x'.join(map(str, shape))}/{sname}"
+                        s = solvers.get(sname)
+                        cs = mesh_backend.compile_solve(
+                            s, system, mesh=mesh, iters=cfg["iters"],
+                            use_kernel=True, **cfg["params"][sname])
                         sync()
-                    launches = ops.launch_counts()
-                    got[f"{key}/launches"] = np.asarray(
-                        [launches[kn] for kn in USES[sname]])
-                    got[f"{key}/inst"] = np.asarray(sorted(
-                        f"{kn}:{inst}" for kn, inst in seen))
-                    got[f"{key}/x"] = s.extract(state).cpu().numpy()
-                    got[f"{key}/res"] = res.cpu().numpy()
-                    got[f"{key}/err"] = err.cpu().numpy()
-                    got[f"{key}/itt"] = np.asarray(
-                        solvers.iters_to_tolerance(res, 1e-6))
-                    # each kernel on the operands of its first launch in
-                    # the run (this rank's shards) against its plain version
-                    for kn, (wrapper, args) in calls.items():
-                        y = wrapper(*args)
+                        got[f"{key}/gb"] = (torch.cuda.memory_allocated() / 1e9
+                                            if cuda else 0.0)
+                        ops.reset_launch_counts()
+                        with kernel_calls(ops, USES[sname]) as calls:
+                            (state, res, err), seen = launched_instances(
+                                lambda: cs.run(*cs.args))
+                            sync()
+                        launches = ops.launch_counts()
+                        got[f"{key}/launches"] = np.asarray(
+                            [launches[kn] for kn in USES[sname]])
+                        got[f"{key}/inst"] = np.asarray(sorted(
+                            f"{kn}:{inst}" for kn, inst in seen))
+                        got[f"{key}/x"] = s.extract(state).cpu().numpy()
+                        got[f"{key}/res"] = res.cpu().numpy()
+                        got[f"{key}/err"] = err.cpu().numpy()
+                        got[f"{key}/itt"] = np.asarray(
+                            solvers.iters_to_tolerance(res, 1e-6))
+                        # each kernel on the operands of its first launch in
+                        # the run (this rank's shards) against its plain version
+                        for kn, (wrapper, args) in calls.items():
+                            y = wrapper(*args)
+                            sync()
+                            e, d = rel_err(y, getattr(ops, WRAPPERS[kn][1])(
+                                *args))
+                            assert e < TOL[y.dtype], (key, kn, e)
+                            got[f"{key}/{kn}/err"] = d
+                            got[f"{key}/{kn}/shape"] = np.asarray(
+                                args[0].shape)
                         sync()
-                        e, d = rel_err(y, getattr(ops, WRAPPERS[kn][1])(
-                            *args))
-                        assert e < TOL[y.dtype], (key, kn, e)
-                        got[f"{key}/{kn}/err"] = d
-                        got[f"{key}/{kn}/shape"] = np.asarray(
-                            args[0].shape)
-                    sync()
-                    t = time.perf_counter()
-                    cs.run(*cs.args)
-                    sync()
-                    got[f"{key}/ms"] = (time.perf_counter() - t) * 1e3
-                    # the all_reduce's share, from one run whose every
-                    # all_reduce is timed between two synchronizes: the
-                    # share is of that run's own time
-                    with timed_collective("all_reduce", [0.0]) as spent:
                         t = time.perf_counter()
                         cs.run(*cs.args)
                         sync()
-                    got[f"{key}/ms_sync"] = (time.perf_counter() - t) * 1e3
-                    got[f"{key}/ms_ar"] = spent[0]
-                    # the next solve's resident GB holds none of these
-                    del cs, state, calls, wrapper, args, y
+                        got[f"{key}/ms"] = (time.perf_counter() - t) * 1e3
+                        # the all_reduce's share, from one run whose every
+                        # all_reduce is timed between two synchronizes: the
+                        # share is of that run's own time
+                        with timed_collective("all_reduce", [0.0], sync) as spent:
+                            t = time.perf_counter()
+                            cs.run(*cs.args)
+                            sync()
+                        got[f"{key}/ms_sync"] = (time.perf_counter() - t) * 1e3
+                        got[f"{key}/ms_ar"] = spent[0]
+                        # the next solve's resident GB holds none of these
+                        del cs, state, calls, wrapper, args, y
     finally:
         dist.destroy_process_group()
     np.savez(out / f"rank{rank}.npz", **got)
@@ -1179,6 +1293,16 @@ def spawn_ranks(flag: str, out: pathlib.Path, cfg: dict,
             for r in range(cfg["world"])]
 
 
+@contextlib.contextmanager
+def captures_into(got: dict):
+    """Inside, every CUDA graph capture (``tracecheck``) is counted into
+    ``got["captures"]``: a spawned gloo rank must capture none."""
+    from repro_torch.analysis import tracecheck
+    with tracecheck() as tc:
+        yield
+    got["captures"] = np.asarray(len(tc.traces("capture *")))
+
+
 def join_group(rank: int, out: pathlib.Path, world: int):
     """A spawned rank's gloo group, through a FileStore in ``out``."""
     import torch.distributed as dist
@@ -1187,13 +1311,12 @@ def join_group(rank: int, out: pathlib.Path, world: int):
 
 
 @contextlib.contextmanager
-def timed_collective(name: str, spent: list):
+def timed_collective(name: str, spent: list, sync):
     """Inside, each ``torch.distributed.<name>`` call is timed between
-    two synchronizes of the card, its ms added to ``spent[0]``."""
+    two calls of ``sync`` (the rank's device's synchronize), its ms added
+    to ``spent[0]``."""
     import torch.distributed as dist
     real = getattr(dist, name)
-    sync = (torch.cuda.synchronize if torch.cuda.is_available()
-            else (lambda: None))
 
     def timed(*a, **k):
         sync()
@@ -1238,10 +1361,12 @@ def mesh_serving_phase(card, form_launches, dsys, sp, pinned,
 
     from repro_torch import device as dev
     from repro_torch import solvers
+    from repro_torch.analysis import tracecheck
     from repro_torch.data import linsys
     from repro_torch.kernels import block_projection as bp
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.solvers import executor
     t17 = time.time()
     uses = lambda kns, n: {kn: n if kn in kns else 0  # noqa: E731
                            for kn in bp.KERNELS}
@@ -1257,29 +1382,48 @@ def mesh_serving_phase(card, form_launches, dsys, sp, pinned,
     kw = dict(solver="apc", iters=ITERS, batch=K_MANY, use_kernel=True)
     srvs = {"local": solvers.LinsysServer(store, **kw, **dprm),
             "mesh": solvers.LinsysServer(store, backend="mesh", mesh=mesh,
-                                         **kw, **dprm)}
+                                         **kw, **dprm),
+            "mesh eager": solvers.LinsysServer(store, backend="mesh",
+                                               mesh=mesh, **kw, **dprm)}
     fps = {tag: srv.register(dsys) for tag, srv in srvs.items()}
-    assert fps["local"] == fps["mesh"]
+    assert len(set(fps.values())) == 1
     for tag, srv in srvs.items():
         for b in rhs:
             srv.submit(fps[tag], b)
     outs = {tag: [] for tag in srvs}
     ms = {tag: [] for tag in srvs}
-    launched = []
-    for _ in range(4):                  # the batches, local and mesh in turns
+    launched = {tag: [] for tag in srvs}
+    events = []
+    for i in range(4):                  # the batches, the servers in turns
         for tag, srv in srvs.items():
             ops.reset_launch_counts()
-            out, t_ms = timed_ms(srv.step)
-            if tag == "mesh":
-                launched.append(form_launches("f64"))
+            with (executor.disable_capture() if tag == "mesh eager"
+                  else contextlib.nullcontext()), \
+                    tracecheck(steady_state=tag == "mesh" and i > 0) as tc:
+                out, t_ms = timed_ms(srv.step)
+            if tag == "mesh" and i == 0:
+                events = [e.fun for e in tc.traces()]
+            launched[tag].append(form_launches("f64"))
             outs[tag] += out
             ms[tag].append(t_ms)
     assert all(srv.step() == [] for srv in srvs.values())
-    for got in launched:
-        assert got == uses(USES["apc"], ITERS), got
+    chunk = executor.CHUNK
+    # the first captured batch adds its warm-up head's launches
+    for tag, first in (("mesh", ITERS + chunk), ("mesh eager", ITERS)):
+        assert launched[tag] == [uses(USES["apc"], first)] + [
+            uses(USES["apc"], ITERS)] * 3, (tag, launched[tag])
     msrv, local = srvs["mesh"], outs["local"]
-    assert msrv.stats.executor_builds == 1 and msrv.jit_cache_size() == 1
+    (mex,) = msrv._executors.values()
+    assert events == ["build apc.cold", "capture apc.cold"], events
+    assert (msrv.stats.executor_builds, mex.builds, mex.captures,
+            msrv.jit_cache_size()) == (1, 1, 1, 1)
+    assert srvs["mesh eager"]._executors[
+        next(iter(srvs["mesh eager"]._executors))].captures == 0
     assert [r.rid for r in outs["mesh"]] == list(range(n_req))
+    same = {tag: all(np.array_equal(a.x, b.x) and a.residual == b.residual
+                     for a, b in zip(outs["mesh"], outs[tag]))
+            for tag in ("mesh eager", "local")}
+    assert all(same.values()), same
     dx, dr = served_close("dense apc", [r.x for r in outs["mesh"]],
                           [r.residual for r in outs["mesh"]], local)
     err = max(float(np.linalg.norm(r.x - xs[r.rid].cpu().numpy())
@@ -1288,19 +1432,27 @@ def mesh_serving_phase(card, form_launches, dsys, sp, pinned,
     assert err <= 1e-8, err
     rate = {t: (n_req - K_MANY) / sum(v[1:]) * 1e3 for t, v in ms.items()}
     say(f"phase 17 (a) dense apc mesh server k={K_MANY}, {ITERS} "
-        f"iterations, {n_req} requests in 4 batches (3 pad slots): vs the "
-        f"local server's answers max|Δx| {dx:.3e} (rtol "
-        f"{MESH_X['rtol']:.0e} atol {MESH_X['atol']:.0e}), max rel Δ "
-        f"residual {dr:.3e} (tol {SERVE_RES_REL:.0e}); vs x_true max rel "
+        f"iterations, {n_req} requests in 4 batches (3 pad slots): the "
+        f"mesh server's first batch {events}, batches 2-4 quiet under "
+        f"tracecheck(steady_state=True); builds {mex.builds} captures "
+        f"{mex.captures} programs {msrv.jit_cache_size()}; bit-equal to "
+        f"the eager mesh server {same['mesh eager']} and to the local "
+        f"server {same['local']} (x and residuals); vs x_true max rel "
         f"{err:.3e}; launches a batch "
-        f"{[g['apc_gather'] for g in launched]} (apc_gather) "
-        f"{[g['apc_scatter'] for g in launched]} (apc_scatter); ms a batch "
-        f"mesh (eager) {', '.join(f'{v:.1f}' for v in ms['mesh'])}, local "
-        f"(captured) {', '.join(f'{v:.1f}' for v in ms['local'])} (in "
-        f"turns; local's first with the store miss's prepare and its "
-        f"capture); RHS/s over batches 2-4 mesh {rate['mesh']:.2f}, local "
-        f"{rate['local']:.2f} (padding excluded; host clock to "
-        f"synchronize()) [{card}]")
+        f"{[g['apc_gather'] for g in launched['mesh']]} (apc_gather) "
+        f"{[g['apc_scatter'] for g in launched['mesh']]} (apc_scatter; the "
+        f"first with its warm-up head's {chunk}); ms a batch "
+        + "; ".join(f"{tag} {', '.join(f'{v:.1f}' for v in ms[tag])}"
+                    for tag in ("mesh", "mesh eager", "local"))
+        + f" (mesh and local captured; in turns, each first with its "
+        f"capture, local's also with the store miss's prepare); RHS/s over "
+        f"batches 2-4 "
+        + ", ".join(f"{tag} {rate[tag]:.2f}" for tag in srvs)
+        + f" (padding excluded; host clock to synchronize()) [{card}]")
+    for srv in srvs.values():
+        srv.close()
+    assert msrv.jit_cache_size() == 0
+    launched = launched["mesh"]
     mesh_launches = {kn: launched[-1][kn] for kn in USES["apc"]}
     asrv = solvers.AsyncLinsysServer(store, backend="mesh", mesh=mesh,
                                      pipeline_depth=2, **kw, **dprm)
@@ -1310,12 +1462,15 @@ def mesh_serving_phase(card, form_launches, dsys, sp, pinned,
     ops.reset_launch_counts()
     aout, a_ms = timed_ms(asrv.drain)
     a_launched = form_launches("f64")
+    a_caps = sum(ex.captures for ex in asrv._executors.values())
     asrv.close()
-    assert a_launched == uses(USES["apc"], 4 * ITERS), a_launched
+    assert a_launched == uses(USES["apc"], 4 * ITERS + chunk), a_launched
+    assert a_caps == 1, a_caps
     adx, adr = served_close("async", [r.x for r in aout],
                             [r.residual for r in aout], local)
     same = all(np.array_equal(a.x, m.x) for a, m in zip(aout,
                                                         outs["mesh"]))
+    assert same
     rep = asrv.latency_report()
     say(f"phase 17 (a) dense apc async mesh server (its assembly thread "
         f"announces and runs each batch): {n_req} requests in {a_ms:.1f} ms "
@@ -1323,7 +1478,8 @@ def mesh_serving_phase(card, form_launches, dsys, sp, pinned,
         f"{rep['p50_ms']:.1f}/{rep['p95_ms']:.1f}/{rep['p99_ms']:.1f} ms "
         f"(all sent at t = 0); vs local max|Δx| {adx:.3e} max rel Δ "
         f"residual {adr:.3e}; bit-equal to the sync mesh server {same}; "
-        f"launches {a_launched} [{card}]")
+        f"captures {a_caps} (on the assembly thread); launches "
+        f"{a_launched} [{card}]")
     del srvs, msrv, asrv, aout, store
     gc.collect()
     # the other kernels: one batch each of dense Cimmino (on the cut
@@ -1339,7 +1495,7 @@ def mesh_serving_phase(card, form_launches, dsys, sp, pinned,
              "bf16_f64"),
             ("cimmino", sp, sp_pinned["cimmino"][0], "default",
              SPARSE_USES["cimmino"], "f64")):
-        _, Bs = consistent(system, K_MANY, 17)
+        _, Bs = consistent(system, 2 * K_MANY, 17)
         store = solvers.FactorStore()
         got = {}
         for tag, extra in (("local", {}),
@@ -1350,10 +1506,15 @@ def mesh_serving_phase(card, form_launches, dsys, sp, pinned,
             fp = srv.register(system)
             for b in Bs:
                 srv.submit(fp, b)
+            first, t_first = timed_ms(srv.step)     # its build and capture
             ops.reset_launch_counts()
-            got[tag] = timed_ms(srv.drain)
+            second, t_ms = timed_ms(srv.step)
+            got[tag] = (first + second, t_first, t_ms)
             if tag == "mesh":
                 counts = form_launches(pair)
+                (mex,) = srv._executors.values()
+                assert (mex.builds, mex.captures) == (1, 1), sname
+            srv.close()
         assert counts == uses(kernels, ITERS), (sname, counts)
         for kn in kernels:
             mesh_launches.setdefault(kn, counts[kn])
@@ -1363,11 +1524,12 @@ def mesh_serving_phase(card, form_launches, dsys, sp, pinned,
                                 [r.residual for r in mout], got["local"][0])
         say(f"phase 17 (a) {system.structure} {sname} precision={precision} "
             f"mesh server k={K_MANY}, N={system.N} n={system.n} m={system.m}, "
-            f"one batch: vs local max|Δx| "
-            f"{sdx:.3e} max rel Δ residual {sdr:.3e}; ms mesh "
-            f"{got['mesh'][1]:.1f}, local {got['local'][1]:.1f} (its first "
-            f"batch: the store's miss, the capture); launches {counts} "
-            f"[{card}]")
+            f"two batches: vs local max|Δx| "
+            f"{sdx:.3e} max rel Δ residual {sdr:.3e}; one capture; ms mesh "
+            f"{got['mesh'][1]:.1f} then {got['mesh'][2]:.1f}, local "
+            f"{got['local'][1]:.1f} then {got['local'][2]:.1f} (the first "
+            f"batch: the store's miss, the capture); launches of the second "
+            f"{counts} [{card}]")
         del store, srv, got, mout
     del csys
     if created:
@@ -1393,6 +1555,8 @@ def mesh_serving_phase(card, form_launches, dsys, sp, pinned,
     bdx, bdr = served_close("two ranks", g0["x"], g0["res"], local,
                             residual_tol=MESH_H)
     assert int(g1["served"]) == 4 and "rank 0 admits" in str(g1["refused"])
+    caps = [int(g["captures"]) for g in (g0, g1)]
+    assert caps == [0, 0], caps
     share = float(g0["ms_bcast"] / g0["ms_sync"])
     insts = []
     for i, g in enumerate((g0, g1)):
@@ -1418,7 +1582,8 @@ def mesh_serving_phase(card, form_launches, dsys, sp, pinned,
         f"broadcast between two synchronizes {float(g0['ms_sync']):.1f} ms, "
         f"the header's and the right-hand sides' broadcasts "
         f"{float(g0['ms_bcast']):.2f} ms of it ({100 * share:.2f} %); "
-        f"{'; '.join(insts)}; {time.time() - t:.1f} s in all [{card}]")
+        f"{'; '.join(insts)}; captures {caps}; {time.time() - t:.1f} s in "
+        f"all [{card}]")
     cut = " ".join(SERVE_CLI_ARGS)
     for line in g0["cli"]:
         say(f"phase 17 (b) serve_linsys --backend mesh at world 2 ({cut}): "
@@ -1458,67 +1623,68 @@ def serve_rank(argv) -> int:
     join_group(rank, out, cfg["world"])
     got = {}
     try:
-        system = linsys.tall_gaussian(**cfg["full"], seed=0, device=device)
-        mesh = mesh_lib.make_mesh((1, cfg["world"]), ("data", "model"),
-                                  device=device)
-        with env_var(ENGINE_ENV, "fused"):
-            srv = solvers.LinsysServer(
-                solvers.FactorStore(), solver="apc", iters=cfg["iters"],
-                batch=cfg["k"], backend="mesh", mesh=mesh, use_kernel=True,
-                **cfg["params"])
-            fp = srv.register(system)
-            ops.reset_launch_counts()
-            if rank == 0:
-                rhs = np.load(cfg["rhs"])
-                for b in rhs:
-                    srv.submit(fp, b)
-                served, ms = [], []
+        with captures_into(got):
+            system = linsys.tall_gaussian(**cfg["full"], seed=0, device=device)
+            mesh = mesh_lib.make_mesh((1, cfg["world"]), ("data", "model"),
+                                      device=device)
+            with env_var(ENGINE_ENV, "fused"):
+                srv = solvers.LinsysServer(
+                    solvers.FactorStore(), solver="apc", iters=cfg["iters"],
+                    batch=cfg["k"], backend="mesh", mesh=mesh, use_kernel=True,
+                    **cfg["params"])
+                fp = srv.register(system)
+                ops.reset_launch_counts()
+                if rank == 0:
+                    rhs = np.load(cfg["rhs"])
+                    for b in rhs:
+                        srv.submit(fp, b)
+                    served, ms = [], []
 
-                def batches():
-                    while True:
+                    def batches():
+                        while True:
+                            sync()
+                            t = time.perf_counter()
+                            batch = srv.step()
+                            sync()
+                            if not batch:
+                                return
+                            ms.append((time.perf_counter() - t) * 1e3)
+                            served.extend(batch)
+                    _, seen = launched_instances(batches)
+                    # one more batch, every broadcast between two synchronizes
+                    spent = [0.0]
+                    srv.submit(fp, rhs[0])
+                    with timed_collective("broadcast", spent, sync):
                         sync()
                         t = time.perf_counter()
-                        batch = srv.step()
+                        srv.step()
                         sync()
-                        if not batch:
-                            return
-                        ms.append((time.perf_counter() - t) * 1e3)
-                        served.extend(batch)
-                _, seen = launched_instances(batches)
-                # one more batch, every broadcast between two synchronizes
-                spent = [0.0]
-                srv.submit(fp, rhs[0])
-                with timed_collective("broadcast", spent):
-                    sync()
-                    t = time.perf_counter()
-                    srv.step()
-                    sync()
-                got["ms_sync"] = (time.perf_counter() - t) * 1e3
-                got["ms_bcast"] = spent[0]
-                srv.close()
-                got["x"] = np.stack([r.x for r in served])
-                got["res"] = np.asarray([r.residual for r in served])
-                got["ms"] = np.asarray(ms)
-            else:
-                try:
-                    srv.submit(fp, np.zeros(system.N))
-                    got["refused"] = np.asarray("")
-                except RuntimeError as e:
-                    got["refused"] = np.asarray(str(e))
-                n, seen = launched_instances(srv.serve_follower)
-                got["served"] = np.asarray(n - 1)   # less the timed batch
-            launches = ops.launch_counts()
-            got["launches"] = np.asarray([launches["apc_gather"],
-                                          launches["apc_scatter"]])
-            got["inst"] = np.asarray(sorted(f"{kn}:{inst}"
-                                            for kn, inst in seen))
-            del srv, system
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                assert serve_cli.main(
-                    cfg["cli"] + ["--device", cfg["device"]]) == 0
-            got["cli"] = np.asarray(buf.getvalue().splitlines(),
-                                    dtype=object)
+                    got["ms_sync"] = (time.perf_counter() - t) * 1e3
+                    got["ms_bcast"] = spent[0]
+                    srv.close()
+                    got["x"] = np.stack([r.x for r in served])
+                    got["res"] = np.asarray([r.residual for r in served])
+                    got["ms"] = np.asarray(ms)
+                else:
+                    try:
+                        srv.submit(fp, np.zeros(system.N))
+                        got["refused"] = np.asarray("")
+                    except RuntimeError as e:
+                        got["refused"] = np.asarray(str(e))
+                    n, seen = launched_instances(srv.serve_follower)
+                    got["served"] = np.asarray(n - 1)   # less the timed batch
+                launches = ops.launch_counts()
+                got["launches"] = np.asarray([launches["apc_gather"],
+                                              launches["apc_scatter"]])
+                got["inst"] = np.asarray(sorted(f"{kn}:{inst}"
+                                                for kn, inst in seen))
+                del srv, system
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    assert serve_cli.main(
+                        cfg["cli"] + ["--device", cfg["device"]]) == 0
+                got["cli"] = np.asarray(buf.getvalue().splitlines(),
+                                        dtype=object)
     finally:
         dist.destroy_process_group()
     np.savez(out / f"rank{rank}.npz", **got)
@@ -1612,7 +1778,7 @@ def redundancy_phase(card, dsys, chol, pinned) -> None:
         def cho(lib):
             with linalg_library(lib):
                 return torch.cholesky_solve(u.unsqueeze(-1), f.chol)
-        h = engine._history
+        h = engine._program.h
         part = medians_ms({
             "gather einsum": lambda: torch.einsum("mrpn,mrn->mrp", f.A, d),
             "two triangular solves": lambda: _cho_solve_replicas(f.chol, u),
@@ -1731,24 +1897,63 @@ def redundancy_phase(card, dsys, chol, pinned) -> None:
         f"[{card}]")
     shutil.rmtree(edir, ignore_errors=True)
 
-    # the redundant mesh path: one NCCL rank against local
+    # the redundant mesh path: one NCCL rank against local, its runner's
+    # one step captured (eager under disable_capture), a history split
+    # into segments against one run
     created = not dist.is_initialized()
     mesh = mesh_lib.solver_mesh(1, 1)
     s, prm = solvers.get("apc"), pinned["apc"][0]
     rplan = Plan(redundancy=2, alive_schedule=rot, factors=F)
     loc = s.solve(dsys, iters=ITERS, plan=rplan, **prm)
     mplan = rplan.replace(backend="mesh", mesh=mesh)
-    r, t_mesh = timed_ms(lambda: s.solve(dsys, iters=ITERS, plan=mplan,
-                                         **prm))
-    _, t_loc = timed_ms(lambda: s.solve(dsys, iters=ITERS, plan=rplan,
-                                        **prm))
+    r = s.solve(dsys, iters=ITERS, plan=mplan, **prm)
     dx, dh = mesh_check("redundant mesh", r.x, r.residuals, r.errors,
                         r.iters_to_tol, loc)
-    say(f"phase 18 redundant apc on the mesh, one rank over "
-        f"{dist.get_backend()}: vs local max|Δx| {dx:.3e} max|Δ history| "
-        f"{dh:.3e}; the whole solve {t_mesh / ITERS:.4f} ms an iteration "
-        f"(eager) against local's {t_loc / ITERS:.4f} (captured) [{card}]")
     del r, loc
+    engines = {"mesh": redundant.RedundantEngine(
+        s, dsys, r=2, backend="mesh", mesh=mesh, factors=F, **prm),
+        "local": redundant.RedundantEngine(s, dsys, r=2, factors=F, **prm)}
+    W = engines["mesh"].lower(redundant.resolve_schedule(rot, m, ITERS))
+    st0 = {tag: eng.init_state() for tag, eng in engines.items()}
+    mesh_eng = engines["mesh"]
+    one = mesh_eng.run(st0["mesh"], W)
+    cut = ITERS // 3
+    a = mesh_eng.run(st0["mesh"], W[:cut])
+    b = mesh_eng.run(a[0], W[cut:])
+    with executor.disable_capture():
+        eager = mesh_eng.run(st0["mesh"], W)
+    split = torch.equal(b[0].x, one[0].x) and torch.equal(
+        torch.cat([a[1], b[1]]), one[1]) and torch.equal(
+        torch.cat([a[2], b[2]]), one[2])
+    vs_eager = torch.equal(eager[0].x, one[0].x) and torch.equal(
+        eager[1], one[1]) and torch.equal(eager[2], one[2])
+    assert split and vs_eager, (split, vs_eager)
+    assert (mesh_eng.captures, mesh_eng.cache_size()) == (1, 1)
+    turns = {"mesh captured": [], "mesh eager": [], "local captured": []}
+    for _ in range(2):
+        for how in turns:
+            tag = how.split()[0]
+            with (executor.disable_capture() if how.endswith("eager")
+                  else contextlib.nullcontext()):
+                vs_local, t_ms = timed_ms(
+                    lambda: engines[tag].run(st0[tag], W))
+            turns[how].append(t_ms / ITERS)
+    same_local = torch.equal(vs_local[0].x, one[0].x) and torch.equal(
+        vs_local[1], one[1])
+    med = {how: float(np.median(v)) for how, v in turns.items()}
+    say(f"phase 18 redundant apc on the mesh, one rank over "
+        f"{dist.get_backend()}: the solve vs local max|Δx| {dx:.3e} max|Δ "
+        f"history| {dh:.3e}; the runner's one step captured "
+        f"(captures {mesh_eng.captures}, programs {mesh_eng.cache_size()}): "
+        f"≡ disable_capture() bit for bit {vs_eager}, a history split at "
+        f"{cut} ≡ one run {split}, ≡ the local engine's {same_local}; ms "
+        f"an iteration (a {ITERS}-step segment, median of 2 in turns) "
+        + ", ".join(f"{how} {v:.4f}" for how, v in med.items())
+        + f" [{card}]")
+    # the runner's graph holds the communicator's collectives: it goes
+    # before the group does
+    del engines, mesh_eng, one, a, b, eager, vs_local, st0, W
+    gc.collect()
     if created:
         dist.destroy_process_group()
     mem_peak = torch.cuda.max_memory_allocated()
@@ -1764,6 +1969,8 @@ def redundancy_phase(card, dsys, chol, pinned) -> None:
     t = time.time()
     g0, g1 = spawn_ranks("--red-rank", ROOT / "build" / "phase18", cfg,
                          SERVE_DEADLINE)
+    caps = [int(g["captures"]) for g in (g0, g1)]
+    assert caps == [0, 0], caps
     for name in ("apc", "cimmino"):
         plain = solvers.get(name).solve(csys, iters=ITERS,
                                         **cfg["params"][name])
@@ -1784,8 +1991,8 @@ def redundancy_phase(card, dsys, chol, pinned) -> None:
                 f"[{card}]")
     say(f"phase 18 two ranks: the system cut to tall_gaussian {RED_CUT} "
         f"(each rank makes it on its host and holds A and its replicated "
-        f"shard; gloo takes every all_reduce through the host), "
-        f"{time.time() - t:.1f} s in all")
+        f"shard; gloo takes every all_reduce through the host), captures "
+        f"{caps}, {time.time() - t:.1f} s in all")
     say(f"phase 18 memory: resident {base / 1e9:.3f} GB before; peak "
         f"{red_peak / 1e9:.3f} GB in the redundant solves (A, the "
         f"replicated A and factors), {el_peak / 1e9:.3f} GB with the "
@@ -1824,43 +2031,44 @@ def red_rank(argv) -> int:
     join_group(rank, out, cfg["world"])
     got = {}
     try:
-        system = linsys.tall_gaussian(**cfg["cut"], seed=1, device=device)
-        mesh = mesh_lib.make_mesh((cfg["world"], 1), ("data", "model"),
-                                  device=device)
-        rot = rotating_straggler(system.m)
-        for name in ("apc", "cimmino"):
-            s, prm = solvers.get(name), cfg["params"][name]
+        with captures_into(got):
+            system = linsys.tall_gaussian(**cfg["cut"], seed=1, device=device)
+            mesh = mesh_lib.make_mesh((cfg["world"], 1), ("data", "model"),
+                                      device=device)
+            rot = rotating_straggler(system.m)
+            for name in ("apc", "cimmino"):
+                s, prm = solvers.get(name), cfg["params"][name]
+                sync()
+                t = time.perf_counter()
+                r = s.solve(system, iters=cfg["iters"], plan=solvers.ExecutionPlan(
+                    redundancy=2, alive_schedule=rot, backend="mesh", mesh=mesh),
+                    **prm)
+                sync()
+                got[f"{name}/ms"] = (time.perf_counter() - t) * 1e3
+                got[f"{name}/x"] = r.x.cpu().numpy()
+                got[f"{name}/res"] = r.residuals.cpu().numpy()
+                got[f"{name}/itt"] = np.asarray(r.iters_to_tol)
+            s, prm = solvers.get("apc"), cfg["params"]["apc"]
+            mon = HeartbeatMonitor(n_workers=system.m)
+            rt = solvers.ElasticRuntime(s, system, monitor=mon, segment=25,
+                                        plan=solvers.ExecutionPlan(
+                                            redundancy=2, backend="mesh",
+                                            mesh=mesh), **prm)
             sync()
             t = time.perf_counter()
-            r = s.solve(system, iters=cfg["iters"], plan=solvers.ExecutionPlan(
-                redundancy=2, alive_schedule=rot, backend="mesh", mesh=mesh),
-                **prm)
+            death = cfg["iters"] // 3
+            r1 = rt.run(iters=death)
+            if rank == 0:
+                mon.mark_dead(2)
+            r2 = rt.run(iters=cfg["iters"] - death)
             sync()
-            got[f"{name}/ms"] = (time.perf_counter() - t) * 1e3
-            got[f"{name}/x"] = r.x.cpu().numpy()
-            got[f"{name}/res"] = r.residuals.cpu().numpy()
-            got[f"{name}/itt"] = np.asarray(r.iters_to_tol)
-        s, prm = solvers.get("apc"), cfg["params"]["apc"]
-        mon = HeartbeatMonitor(n_workers=system.m)
-        rt = solvers.ElasticRuntime(s, system, monitor=mon, segment=25,
-                                    plan=solvers.ExecutionPlan(
-                                        redundancy=2, backend="mesh",
-                                        mesh=mesh), **prm)
-        sync()
-        t = time.perf_counter()
-        death = cfg["iters"] // 3
-        r1 = rt.run(iters=death)
-        if rank == 0:
-            mon.mark_dead(2)
-        r2 = rt.run(iters=cfg["iters"] - death)
-        sync()
-        assert r2.relowerings == 1
-        got["apc/elastic/ms"] = (time.perf_counter() - t) * 1e3
-        got["apc/elastic/x"] = r2.x.cpu().numpy()
-        res = torch.cat([r1.residuals, r2.residuals])
-        got["apc/elastic/res"] = res.cpu().numpy()
-        got["apc/elastic/itt"] = np.asarray(
-            solvers.iters_to_tolerance(res, 1e-6))
+            assert r2.relowerings == 1
+            got["apc/elastic/ms"] = (time.perf_counter() - t) * 1e3
+            got["apc/elastic/x"] = r2.x.cpu().numpy()
+            res = torch.cat([r1.residuals, r2.residuals])
+            got["apc/elastic/res"] = res.cpu().numpy()
+            got["apc/elastic/itt"] = np.asarray(
+                solvers.iters_to_tolerance(res, 1e-6))
     finally:
         dist.destroy_process_group()
     np.savez(out / f"rank{rank}.npz", **got)
@@ -2086,8 +2294,9 @@ def phases() -> int:
 
     for spec in SPARSE_CORNERS:
         csys = linsys.banded_system(seed=0, device="cuda", **spec)
+        # each corner system's factors once, for its kernels' operands
         cf = solvers.get("apc").kernel_factors(
-            solvers.get("apc").prepare(csys.A_op, {}))
+            solvers.get("apc").prepare(csys.A_op, {}))  # repro: allow[R003]
         for dt in TOL:
             for k in (1, 5, K_MANY, 11):
                 X, Xb, V = sparse_inputs(cf.A.vals, csys.cols, csys.n, k, dt,
@@ -2145,7 +2354,9 @@ def phases() -> int:
     say(f"data: tall_gaussian N={sys_.N} n={n} m={m} float64 in "
         f"{time.time() - t:.2f} s")
     solver = solvers.get("apc")
-    factors = solver.kernel_factors(solver.prepare(sys_.A_op, {}))
+    # the main path's factors, timed and shared by the phases that follow
+    factors = solver.kernel_factors(
+        solver.prepare(sys_.A_op, {}))  # repro: allow[R003]
     rng = np.random.default_rng(1)
     for k in (1, K_MANY):
         X = torch.as_tensor(rng.standard_normal((k, m, n)), device="cuda")
@@ -2915,8 +3126,11 @@ def phases() -> int:
         + " ".join(f"{k} {v[1]:.6f}" for k, v in sp_pinned.items()))
     dn = sp.densified()
     t = time.time()
-    fs = solver.kernel_factors(solver.prepare(sp.A_op, {}))
-    fd = solver.kernel_factors(solver.prepare(dn.A_op, {}))
+    # the sparse and densified factorizations, timed against each other
+    fs = solver.kernel_factors(
+        solver.prepare(sp.A_op, {}))  # repro: allow[R003]
+    fd = solver.kernel_factors(
+        solver.prepare(dn.A_op, {}))  # repro: allow[R003]
     torch.cuda.synchronize()
     say(f"phase 9 factors: sparse (vals, Bvals {tuple(fs.B.shape)}) and "
         f"densified (B {tuple(fd.B.shape)}) in {time.time() - t:.2f} s")
@@ -3372,7 +3586,9 @@ def phases() -> int:
     # (b) the measured engine verdicts, no pin, then solves under them
     t = time.time()
     dsys = linsys.tall_gaussian(**FULL, seed=0, device="cuda")
-    dfac = solver.kernel_factors(solver.prepare(dsys.A_op, {}))
+    # the regenerated system's factors, handed to every later phase
+    dfac = solver.kernel_factors(
+        solver.prepare(dsys.A_op, {}))  # repro: allow[R003]
     torch.cuda.synchronize()
     say(f"phase 15 data: the dense main path regenerated, its kernel "
         f"factors, in {time.time() - t:.2f} s")

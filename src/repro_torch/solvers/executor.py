@@ -20,12 +20,20 @@ through ``ctypes``, and PyTorch's glue) without the host's launch work.
 * :class:`LocalExecutor`, the reusable program of serving (ROADMAP A13):
   one graph for the whole cold (init + T steps) or warm (T steps from
   given states) program of a placed system and batch shape, captured at
-  its first run and replayed for every later batch.
+  its first run and replayed for every later batch.  On the mesh
+  backend it runs a rank's shards with the mesh's context
+  (``serve._MeshExecutor`` places them).
+* :class:`StepProgram`, the redundant runners' one step, captured once
+  and replayed a step at a time with a per-step input copied in.
 
-On the CPU (only where the caller put the tensors there) both run the
-same bodies through the same static buffers and chunks, eagerly.  The
-tensors' device decides, by ``ops.on_cuda``, the predicate of the kernel
-ops.  A capture or a replay that fails raises: nothing retries eagerly.
+Whether a history is captured is :func:`capturable`'s one verdict: the
+tensors on the card (``ops.on_cuda``, the predicate of the kernel ops),
+capture not disabled, and every process group the history's context sums
+over NCCL, whose collectives a graph captures; gloo's go through the
+host, so a mesh on gloo runs eagerly.  Everywhere else (the CPU, where
+the caller put the tensors there, or gloo) the same bodies run through
+the same static buffers and chunks, eagerly.  A capture or a replay that
+fails raises: nothing retries eagerly.
 :func:`disable_capture` (the twin of ``jax.disable_jit``) runs every
 history as the plain eager loop, :func:`eager_history`, which is what
 the captured histories are held to.
@@ -50,9 +58,9 @@ from repro_torch.kernels import block_projection as bp
 from repro_torch.kernels import ops
 from repro_torch.solvers.capability import resolve_plan
 
-__all__ = ["CHUNK", "History", "LOCAL_PSUM", "LocalExecutor",
-           "default_linalg", "disable_capture", "eager_history",
-           "executor_key", "residual", "run_history"]
+__all__ = ["CHUNK", "History", "LOCAL_PSUM", "LocalExecutor", "StepProgram",
+           "capturable", "default_linalg", "disable_capture",
+           "eager_history", "executor_key", "residual", "run_history"]
 
 #: the steps one captured graph of a one-shot solve holds
 CHUNK = 16
@@ -74,6 +82,29 @@ def disable_capture():
 
 def _capturing(b: torch.Tensor) -> bool:
     return ops.on_cuda("history", b) and not _capture_disabled
+
+
+def _cuda_backend(group) -> str:
+    """The backend that carries a process group's collectives on CUDA
+    tensors: ``dist.get_backend``'s name, or where the group names one a
+    device (``"cpu:gloo,cuda:nccl"``) the one it names for ``cuda``."""
+    import torch.distributed as dist
+    name = str(dist.get_backend(group))
+    if ":" not in name:
+        return name
+    return dict(part.split(":", 1) for part in name.split(",")).get(
+        "cuda", "")
+
+
+def capturable(ctx, b: torch.Tensor) -> bool:
+    """Whether a history summing through ``ctx`` over tensors like ``b``
+    runs captured: ``b`` on the card and capture not disabled
+    (:func:`disable_capture`), and every process group of ``ctx``
+    (``ctx.groups()``: none locally, a ``MeshContext``'s worker and model
+    groups) on NCCL.  The one predicate of :func:`run_history`,
+    :class:`LocalExecutor` and :class:`StepProgram`."""
+    return _capturing(b) and all(_cuda_backend(g) == "nccl"
+                                 for g in ctx.groups())
 
 
 class _Shared:
@@ -180,6 +211,11 @@ class _LocalPsum:
     @staticmethod
     def workers_total(m_local: int) -> int:
         return m_local
+
+    @staticmethod
+    def groups() -> tuple:
+        """No process group: nothing stands in the way of a capture."""
+        return ()
 
 
 LOCAL_PSUM = _LocalPsum()
@@ -404,10 +440,12 @@ def run_history(h: History, state, iters: int, *, name: str = "history"):
     captured steps pick the same kernels as the eager ones (the kernel
     path's glue is elementwise and reductions; cuBLAS may choose another
     algorithm inside a graph).  The state counter ``t`` advances by
-    ``iters`` on the host."""
+    ``iters`` on the host.  On a mesh the eager head also makes each
+    group's first collective, where NCCL creates its communicator, which
+    no capture may do; it runs inside ``ops.rank0_decides`` there."""
     if _capture_disabled or iters == 0:
         return eager_history(h, state, iters)
-    capture = _capturing(h.b)
+    capture = capturable(h.ctx, h.b)
     with _linalg("cusolver") if capture else contextlib.nullcontext():
         t0 = state.t
         head = min(CHUNK, iters)
@@ -429,6 +467,70 @@ def run_history(h: History, state, iters: int, *, name: str = "history"):
         return (state, *h.close(
             state, torch.cat(res),
             None if h.x_true is None else torch.cat(err)))
+
+
+class StepProgram:
+    """One step of ``h``, run a step at a time, each step first copying
+    its row of a per-step input into ``inp``, a static buffer the step
+    reads (the redundant runners' (m, r) selection weights,
+    ``solvers.redundant``).
+
+    Where :func:`capturable` says so, the step is captured into a CUDA
+    graph at the first run (after a warm-up step on a throwaway state:
+    every kernel instance, library handle and communicator the graph
+    launches is first used outside it) and every step of every run is a
+    replay; elsewhere the same step runs eagerly through the same
+    buffers.  So a history split into runs anywhere is bit-equal to the
+    history in one run.  Under :func:`disable_capture` the plain eager
+    loop runs.  ``captures`` counts the graphs (one at most),
+    :meth:`cache_size` the step programs held.  ``h``'s step closes over
+    ``inp``, never over the program's owner: a graph is never in a
+    reference cycle."""
+
+    def __init__(self, h: History, inp: torch.Tensor, name: str):
+        self.h, self.inp, self.name = h, inp, name
+        self.captures = 0
+        self._loop: Optional[_Loop] = None
+
+    def cache_size(self) -> int:
+        return int(self._loop is not None)
+
+    def run(self, state, seq):
+        """``h``'s step over the T rows of ``seq`` from ``state``:
+        ``(state, residuals (T,), errors (T,))``, the errors the residuals
+        without ``x_true``."""
+        h, T = self.h, int(seq.shape[0])
+        res = h.b_norm.new_empty((T,))
+        err = res if h.x_true is None else h.b_norm.new_empty((T,))
+        if T == 0:
+            return state, res, err
+        t0 = state.t
+        if _capture_disabled:
+            for t in range(T):
+                self.inp.copy_(seq[t])
+                state, res[t], e = h.one(state)
+                if e is not None:
+                    err[t] = e
+            return state._replace(t=t0 + T), res, err
+        if self._loop is None:
+            self.inp.copy_(seq[0])
+            capture = capturable(h.ctx, h.b)
+            if capture:
+                h.steps(state, 1)
+                self.captures += 1
+            self._loop = _Loop(h, state, 1, capture=capture, name=self.name)
+        loop = self._loop
+        for buf, v in zip(loop.static, _tensors(state)):
+            buf.copy_(v)
+        for t in range(T):
+            self.inp.copy_(seq[t])
+            loop.program.run()
+            res[t:t + 1].copy_(loop.res)
+            if loop.err is not None:
+                err[t:t + 1].copy_(loop.err)
+        state = _with_tensors(loop.state,
+                              [v.clone() for v in _tensors(loop.state)])
+        return state._replace(t=t0 + T), res, err
 
 
 # ---------------------------------------------------------------------------
@@ -496,6 +598,15 @@ class LocalExecutor:
     new placement is a new build and a new capture.  On the CPU the same
     body runs eagerly through the same buffers.
 
+    ``ctx`` is the psum context the steps sum through: ``LOCAL_PSUM`` (the
+    solver's local hooks), or a mesh's ``MeshContext`` (its ``mesh_*``
+    hooks on this rank's shards, every record replicated), under which
+    the program is captured only where every group of the mesh is NCCL
+    (:func:`capturable`; the warm-up head makes each group's first
+    collective), and runs through the same buffers eagerly on gloo.  The
+    mesh's executor (``serve._MeshExecutor``) places the shards and
+    decides the verdicts on rank 0 around :meth:`run`.
+
     ``builds`` counts programs built (key misses, on any device),
     ``captures`` the graphs captured; :meth:`cache_size` is the number of
     programs held (the reference's ``jit_cache_size``).
@@ -511,9 +622,9 @@ class LocalExecutor:
     """
 
     def __init__(self, solver, prm, iters: int, use_kernel: bool = False,
-                 ls_mode: bool = False):
+                 ls_mode: bool = False, ctx=LOCAL_PSUM):
         self.solver, self.prm, self.iters = solver, dict(prm), iters
-        self.use_kernel, self.ls_mode = use_kernel, ls_mode
+        self.use_kernel, self.ls_mode, self.ctx = use_kernel, ls_mode, ctx
         self.fused = (use_kernel and solver.supports_fused_residual
                       and not ls_mode and iters > 0)
         self.builds = self.captures = 0
@@ -545,26 +656,48 @@ class LocalExecutor:
         in a graph.  First waits for each one's last run on the card,
         which may still be under way.  Returns the number dropped."""
         placement = _placement(A, factors)
+        return self._free(lambda key: key[1] == placement)
+
+    def release(self) -> int:
+        """Free every program, as :meth:`drop` does a placement's: a mesh
+        server's graphs hold its communicators' collectives, and go before
+        its process group does (``LinsysServer.close``)."""
+        return self._free(lambda key: True)
+
+    def _free(self, which) -> int:
         with self._lock:
             stale = [self._programs.pop(k) for k in list(self._programs)
-                     if k[1] == placement]
+                     if which(k)]
         for served in stale:
             if served.done is not None:
                 served.done.synchronize()
         return len(stale)
 
+    def _init(self, factors, Bb):
+        s, ctx = self.solver, self.ctx
+        if ctx is LOCAL_PSUM:
+            return s.init(factors, Bb, self.prm)
+        return s.mesh_init(factors, Bb, self.prm, ctx)
+
     def _history(self, served: _Served) -> History:
-        s, prm, Bb = self.solver, self.prm, served.Bb
-        residual_fn = (s._ls_residual(served.A, served.factors, prm, Bb)
-                       if self.ls_mode else None)
-        step_res = ((lambda f, bb, sts: s.step_many_residual(f, bb, sts,
-                                                             prm))
-                    if self.fused else None)
-        return History(
-            lambda f, bb, sts: s.step_many(f, bb, sts, prm,
-                                           use_kernel=self.use_kernel),
-            s.extract, served.factors, Bb, served.A,
-            residual_fn=residual_fn, step_residual=step_res, batched=True)
+        s, prm, Bb, ctx = self.solver, self.prm, served.Bb, self.ctx
+        kernel = self.use_kernel
+        residual_fn = (s._ls_residual(served.A, served.factors, prm, Bb,
+                                      ctx) if self.ls_mode else None)
+        if ctx is LOCAL_PSUM:
+            step = lambda f, bb, sts: s.step_many(  # noqa: E731
+                f, bb, sts, prm, use_kernel=kernel)
+            step_res = lambda f, bb, sts: s.step_many_residual(  # noqa: E731
+                f, bb, sts, prm)
+        else:
+            step = lambda f, bb, sts: s.mesh_step_many(  # noqa: E731
+                f, bb, sts, prm, ctx, use_kernel=kernel)
+            step_res = lambda f, bb, sts: s.mesh_step_many_residual(  # noqa: E731,E501
+                f, bb, sts, prm, ctx)
+        return History(step, s.extract, served.factors, Bb, served.A,
+                       residual_fn=residual_fn,
+                       step_residual=step_res if self.fused else None,
+                       batched=True, ctx=ctx)
 
     def _body(self, served: _Served, iters: int) -> None:
         states, res, _ = eager_history(self._history(served), served.states,
@@ -581,11 +714,12 @@ class LocalExecutor:
                          states=_with_tensors(states, static))
         if ops.on_cuda("history", Bb):
             served.done = torch.cuda.Event()
-        capture = _capturing(Bb)
+        capture = capturable(self.ctx, Bb)
         with _linalg("cusolver") if capture else contextlib.nullcontext():
             if capture:
-                # the warm-up head: every kernel instance, library handle
-                # and module the graph launches is first launched outside
+                # the warm-up head: every kernel instance, library handle,
+                # module and communicator the graph launches is first used
+                # outside
                 self._body(served, min(CHUNK, self.iters))
                 self.captures += 1
             served.program = _Program(
@@ -600,7 +734,7 @@ class LocalExecutor:
                Bb.device)
         if cold:
             with default_linalg():
-                states = self.solver.init(factors, Bb, self.prm)
+                states = self._init(factors, Bb)
         if self.use_kernel:
             # the engine and tile verdicts, before any build or capture
             self.solver.resolve_engine(factors, Bb.shape[0], Bb.dtype)

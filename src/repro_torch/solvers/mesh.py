@@ -31,12 +31,22 @@ come back with GLOBAL shapes on every rank, so warm starts and
 checkpoints cross backends both ways.
 
 The step loop is ``executor.History`` with the context summing its
-norms, run eagerly (``executor.eager_history``).  Every host-side
+norms, compiled once as the reference's ``jit(shard_map(...))``: run by
+``executor.run_history`` (solves and ``solve_many``), by the serving
+executor (``serve._MeshExecutor``) and, one step captured and replayed
+a step at a time, by :class:`RedundantRunner` (``executor
+.StepProgram``).  Where every group of the context is NCCL and the shards
+are on the card the loop is captured into CUDA graphs, whose replays
+launch the collectives with the kernels; on gloo (whose collectives go
+through the host) and on the CPU the same chunked bodies run through the
+same static buffers eagerly (``executor.capturable``).  A capture or
+replay that fails raises; nothing retries eagerly.  Every host-side
 decision rests on replicated values (the iteration count,
 ``iters_to_tol``, the engine and tile verdicts, which ``kernels.ops``
-takes on rank 0 and broadcasts inside the loop, ``ops.rank0_decides``), so
-every rank issues the same collectives in the same order; everything a
-solve validates (capability, axes, divisibility, precision) is checked
+takes on rank 0 and broadcasts in the loop's eager head, before any
+capture, ``ops.rank0_decides``), so every rank issues the same
+collectives, and captures the same graphs, in the same order; everything
+a solve validates (capability, axes, divisibility, precision) is checked
 before its first collective.
 
 Per-solver code lives in the ``mesh_*`` hooks of each solver
@@ -163,6 +173,14 @@ class MeshContext:
     def workers_total(self, m_local: int) -> int:
         """The global worker count m from a shard's worker axis."""
         return m_local * self.workers
+
+    def groups(self) -> tuple:
+        """The process groups the sums run over: the workers' and, with a
+        model axis, the column shards' (``executor.capturable`` captures
+        only where every one is NCCL)."""
+        if self.model_axis is None:
+            return (self._wgroup,)
+        return (self._wgroup, self.mesh.get_group(self.model_axis))
 
 
 def make_context(mesh, sys: BlockSystem, *,
@@ -405,7 +423,8 @@ def compile_solve(solver, sys: BlockSystem, *, mesh=None, iters: int = 1000,
             else None,
             step_residual=step_residual if fused else None, ctx=ctx)
         with ops.rank0_decides(device):
-            s_, res, err = executor.eager_history(h, s_, iters)
+            s_, res, err = executor.run_history(h, s_, iters,
+                                                name=f"{solver.name}.mesh")
         return _gather_tree(s_, spl, ctx), res, err
 
     return CompiledSolve(run=run, args=args, params=prm,
@@ -485,7 +504,8 @@ def batched_runner(solver, ctx: MeshContext, prm, iters: int,
             step_residual=step_residual if fused else None, batched=True,
             ctx=ctx)
         with ops.rank0_decides(mesh_lib.mesh_device(ctx.mesh)):
-            s_, res, _ = executor.eager_history(h, s_, iters)
+            s_, res, _ = executor.run_history(
+                h, s_, iters, name=f"{solver.name}.mesh_many")
         s_ = _gather_tree(s_, spl, ctx)
         return s_, solver.extract(s_), res
 
@@ -561,11 +581,14 @@ class RedundantRunner:
     the replicated (m, r, p, n) blocks, the slot axis whole on its worker
     (``Solver.red_factor_placements``), and prepares them on the mesh
     (``redundant._red_mesh_prepare``: the replicas as more worker blocks)
-    unless factors are given.  ``run`` re-enters the same eager step loop
-    (``executor.History`` with the ``MeshContext``) with a new selection
-    schedule of the same shape: the schedule arrives lowered (on rank 0,
-    broadcast: ``redundant._lowered``), so the ranks never disagree.
-    States go in and come out with GLOBAL shapes on every rank.
+    unless factors are given.  Its step (``executor.History`` with the
+    ``MeshContext``) reads this rank's (m_loc, r) selection weights from a
+    static buffer: an ``executor.StepProgram``, captured once on NCCL (as
+    the local engine's is on the card) and eager on gloo.  ``run``
+    re-enters it with a new schedule of the same shape: the schedule
+    arrives lowered (on rank 0, broadcast: ``redundant._lowered``), so
+    the ranks never disagree.  States go in and come out with GLOBAL
+    shapes on every rank.
     """
 
     def __init__(self, solver, sys: BlockSystem, assign, prm, *, mesh=None,
@@ -586,8 +609,8 @@ class RedundantRunner:
         holder = assign.holder
         self._A = _shard(sys.A_blocks, ("w", None, "n"), ctx, device)
         self._b = _shard(sys.b_blocks, ("w", None), ctx, device)
-        self._b_rep = _shard_replicated(sys.b_blocks, ("w", None), holder,
-                                        ctx, device)
+        b_rep = self._b_rep = _shard_replicated(sys.b_blocks, ("w", None),
+                                                holder, ctx, device)
         if factors is None:
             A_rep = _shard_replicated(sys.A_blocks, ("w", None, "n"),
                                       holder, ctx, device)
@@ -599,14 +622,21 @@ class RedundantRunner:
                 for v, p in zip(f, fpl)))
         xt = sys.x_true
         self._xt = None if xt is None else _shard(xt, ("n",), ctx, device)
-        self._W = None
+        # this rank's selection weights, the static buffer the step reads
+        W = b_rep.new_zeros(b_rep.shape[:2])
 
         def step(f_, b_, s_):
-            return solver.red_step(f_, self._b_rep, s_, prm, self._W, ctx)
+            return solver.red_step(f_, b_rep, s_, prm, W, ctx)
 
-        self._history = executor.History(
-            step, solver.extract, self._frep, self._b, self._A,
-            x_true=self._xt, ctx=ctx)
+        self._program = executor.StepProgram(
+            executor.History(step, solver.extract, self._frep, self._b,
+                             self._A, x_true=self._xt, ctx=ctx),
+            W, name=f"{solver.name}.redundant_mesh")
+
+    @property
+    def captures(self) -> int:
+        """The step's CUDA graphs (one on NCCL, after the first run)."""
+        return self._program.captures
 
     def init_state(self, warm_state, W_all):
         """A fresh on-mesh ``red_init`` (``warm_state`` None) or the
@@ -621,20 +651,15 @@ class RedundantRunner:
 
     def run(self, state, W_seq):
         """One segment from the global ``state`` over the (T, m, r)
-        schedule: ``(state, residuals (T,), errors (T,))``, replicated."""
-        h, T = self._history, int(W_seq.shape[0])
+        schedule: ``(state, residuals (T,), errors (T,))``, replicated;
+        every step a run of the one step program."""
         W_seq = _shard(torch.as_tensor(W_seq), (None, "w", None), self.ctx,
                        self.device).to(self._A.dtype)
-        res = h.b_norm.new_empty((T,))
-        err = res if h.x_true is None else h.b_norm.new_empty((T,))
         state = _shard_tree(state, self._spl, self.ctx, self.device)
-        for t in range(T):
-            self._W = W_seq[t]
-            state, res[t], e = h.one(state)
-            if e is not None:
-                err[t] = e
+        state, res, err = self._program.run(state, W_seq)
         return _gather_tree(state, self._spl, self.ctx), res, err
 
     def cache_size(self) -> int:
-        """One step loop, built at construction (eager, ROADMAP A14c)."""
-        return 1
+        """The step programs held: one after the first run, flat across
+        segments."""
+        return self._program.cache_size()

@@ -33,6 +33,9 @@ on rank 0 the assembly thread announces each batch to the followers
 (``LinsysServer._assemble``) and runs it itself, without the pool, and
 ``close()`` sends the followers the stop flag once that thread has
 ended; the other ranks run ``serve_follower()`` on their main thread.
+So the mesh executor's captures (NCCL) run on that thread alone, while
+no other thread of the rank issues work on the group's stream: the
+caller's thread only admits and waits.
 
     srv = AsyncLinsysServer(store, solver="apc", batch=4,
                             pipeline_depth=2, admit_capacity=64)

@@ -34,15 +34,16 @@ replicated internal state is a gather of the plain one, so warm starts and
 checkpoints cross redundant and plain runs, and local and mesh backends.
 
 Compile-once, in the port's idiom (:class:`RedundantEngine`): on the card
-one step is captured into a CUDA graph per engine, reading its selection
-weights from a static (m, r) buffer; a segment copies each iteration's
-weights in and replays.  A membership change that keeps the partition
-(a death) therefore costs a host-side lowering and copies, never a
-recapture.  Every step of a run is such a program run (the graph's
-warm-up step runs on a throwaway copy of the state), so a history
-split into segments anywhere is bit-equal to the history run in one.
-On the CPU the same step runs eagerly through the same buffers.  The
-replicated layout has no kernel (the reference refuses ``use_kernel`` with
+one step is captured into a CUDA graph per engine (``executor
+.StepProgram``; on a mesh, where every group is NCCL), reading its
+selection weights from a static (m, r) buffer; a segment copies each
+iteration's weights in and replays.  A membership change that keeps the
+partition (a death) therefore costs a host-side lowering and copies,
+never a recapture.  Every step of a run is such a program run (the
+graph's warm-up step runs on a throwaway copy of the state), so a
+history split into segments anywhere is bit-equal to the history run in
+one.  On the CPU (and on a gloo mesh) the same step runs eagerly through
+the same buffers.  The replicated layout has no kernel (the reference refuses ``use_kernel`` with
 redundancy): the steps are torch library ops, as the reference's are XLA
 ops; their Cholesky solves are triangular solves, which a graph captures
 (``projection._cho_solve_replicas``).
@@ -218,8 +219,8 @@ class RedundantEngine:
     size.  ``solve_redundant`` is one engine and one segment.
 
     ``captures`` counts the CUDA graphs captured (one an engine, on the
-    card); :meth:`cache_size` the step programs held (the reference's
-    jit-cache entries), flat across segments.
+    card or a mesh of NCCL groups); :meth:`cache_size` the step programs
+    held (the reference's jit-cache entries), flat across segments.
     """
 
     def __init__(self, solver, sys: BlockSystem, *, r: int,
@@ -234,11 +235,9 @@ class RedundantEngine:
         self.backend = backend
         self.prm = solver.resolve_params(sys, **params)
         self.dtype = sys.A_blocks.dtype
-        self.captures = 0
         self.W_all = torch.as_tensor(
             selection_weights(np.ones(sys.m, bool), sys.m, self.r),
             dtype=self.dtype, device=sys.device)
-        self._loop = None
         if backend == "mesh":
             from . import mesh as mesh_backend
             self._mesh_runner = mesh_backend.RedundantRunner(
@@ -260,12 +259,19 @@ class RedundantEngine:
         # the selection weights the step reads: one static buffer (the
         # step closes over the tensors, not the engine: a graph is never
         # in a reference cycle)
-        self._W = W = self.W_all.clone()
+        W = self.W_all.clone()
         prm, b_rep = self.prm, self._b_rep
-        self._history = executor.History(
+        self._program = executor.StepProgram(executor.History(
             lambda f, b, s: solver.red_step(f, b_rep, s, prm, W, _LOCAL),
             solver.extract, self._frep, sys.b_blocks, sys.A_blocks,
-            x_true=sys.x_true)
+            x_true=sys.x_true), W, name=f"{solver.name}.redundant")
+
+    @property
+    def captures(self) -> int:
+        """The CUDA graphs of the engine's step program (0 or 1)."""
+        if self._mesh_runner is not None:
+            return self._mesh_runner.captures
+        return self._program.captures
 
     def lower(self, alive) -> torch.Tensor:
         """(T, m) alive masks -> (T, m, r) selection weights on the
@@ -287,17 +293,6 @@ class RedundantEngine:
                                         self.W_all, _LOCAL)
         return self.solver.red_expand(warm_state, self.assign)
 
-    def _program(self, state, capture: bool):
-        """The one-step program over static buffers, built at the first
-        run: on the card a warm-up step on a throwaway copy of the state
-        (every handle and module the graph launches is first made
-        outside it), then the capture."""
-        if capture:
-            self._history.steps(state, 1)
-            self.captures += 1
-        return executor._Loop(self._history, state, 1, capture=capture,
-                              name=f"{self.solver.name}.redundant")
-
     def run(self, state, W_seq):
         """One segment: ``red_step`` over the T rows of ``W_seq`` from
         ``state``; returns ``(state, residuals (T,), errors (T,))`` (the
@@ -306,37 +301,8 @@ class RedundantEngine:
         ``executor.disable_capture()`` the same steps run eagerly."""
         if self._mesh_runner is not None:
             return self._mesh_runner.run(state, W_seq)
-        h, T = self._history, int(W_seq.shape[0])
-        W_seq = torch.as_tensor(W_seq, dtype=self.dtype,
-                                device=self.sys.device)
-        res = h.b_norm.new_empty((T,))
-        err = res if h.x_true is None else h.b_norm.new_empty((T,))
-        if T == 0:
-            return state, res, err
-        t0 = state.t
-        if executor._capture_disabled:
-            for t in range(T):
-                self._W.copy_(W_seq[t])
-                state, res[t], e = h.one(state)
-                if e is not None:
-                    err[t] = e
-            return state._replace(t=t0 + T), res, err
-        if self._loop is None:
-            self._W.copy_(W_seq[0])
-            self._loop = self._program(
-                state, executor._capturing(self.sys.A_blocks))
-        loop = self._loop
-        for buf, v in zip(loop.static, executor._tensors(state)):
-            buf.copy_(v)
-        for t in range(T):
-            self._W.copy_(W_seq[t])
-            loop.program.run()
-            res[t:t + 1].copy_(loop.res)
-            if loop.err is not None:
-                err[t:t + 1].copy_(loop.err)
-        state = executor._with_tensors(
-            loop.state, [v.clone() for v in executor._tensors(loop.state)])
-        return state._replace(t=t0 + T), res, err
+        return self._program.run(state, torch.as_tensor(
+            W_seq, dtype=self.dtype, device=self.sys.device))
 
     def collapse(self, state):
         """Replicated -> plain GLOBAL-shape state."""
@@ -347,7 +313,7 @@ class RedundantEngine:
         flat across segments, which the elastic runtime's callers check."""
         if self._mesh_runner is not None:
             return self._mesh_runner.cache_size()
-        return int(self._loop is not None)
+        return self._program.cache_size()
 
 
 def solve_redundant(solver, sys: BlockSystem, *, r: int, iters: int = 1000,

@@ -33,12 +33,14 @@ the next one.  Repeated right-hand sides always qualify; PERTURBED ones
 only for solvers whose state caches nothing RHS-dependent
 (``Solver.warm_rhs_ok``: the gradient family and Cimmino).
 
-Mesh serving (``backend="mesh"``): each batch runs through
-``mesh.batched_runner`` on a ``_MeshExecutor``, every rank on its shard
-of A, the factors and the batch (placed once a system, the batch once a
-batch), eagerly (ROADMAP A14c brings capture).  ``torch.distributed`` is
-SPMD, where the reference is a single controller, so every rank must run
-the same collectives in the same order:
+Mesh serving (``backend="mesh"``): each batch runs on a ``_MeshExecutor``,
+every rank on its shard of A, the factors and the batch (placed once a
+system, the batch once a batch), through the compile-once programs of
+``executor.LocalExecutor``: captured into one CUDA graph a key where the
+mesh's groups are NCCL, eager on gloo.  ``torch.distributed`` is SPMD,
+where the reference is a single controller, so every rank must run the
+same collectives (and build and capture the same programs) in the same
+order:
 
   * ``register(sys)`` runs on every rank with the same system; the ranks
     compare their fingerprints (one ``all_gather``) and raise on a
@@ -53,7 +55,9 @@ the same collectives in the same order:
     flag comes.  Rank 0 sends the stop flag from :meth:`LinsysServer.close`
     (or ``drain(final=True)``, or leaving a ``with`` block): call it from a
     ``finally``, since a follower waiting on a broadcast that never comes
-    hangs.
+    hangs.  ``close`` (and a follower at the stop flag) also frees the
+    mesh executors' graphs, which hold the communicators' collectives:
+    close a mesh server before ``dist.destroy_process_group()``.
 
 A one-rank group needs no follower: ``register``/``submit``/``drain`` work
 as the reference's single-process API.
@@ -80,6 +84,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.partition import BlockSystem
+from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
 
 from . import executor
@@ -175,12 +180,21 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
 
 
 class _MeshExecutor:
-    """The mesh twin of ``executor.LocalExecutor``: wraps
-    ``mesh.batched_runner`` and owns placement (the reference's
-    ``_MeshExecutor``).  Each rank places its own contiguous shard of A
-    and the factors once a system (:meth:`place_system`) and of each
-    batch (:meth:`place_B`); states come back with global shapes and go
-    back in sharded.  Eager (ROADMAP A14c)."""
+    """The mesh twin of ``executor.LocalExecutor`` (the reference's
+    ``_MeshExecutor``): a placement wrapper over one, whose steps sum
+    through the mesh's ``MeshContext``.  Each rank places its own
+    contiguous shard of A and the factors once a system
+    (:meth:`place_system`) and of each batch (:meth:`place_B`); states
+    come back with global shapes and go back in sharded.  The programs are
+    the local executor's, keyed the same way: on NCCL one CUDA graph a
+    key, captured at its first run (after the eager ``init`` and the
+    warm-up head, whose collectives come first) and replayed for every
+    later batch; on gloo the same body eagerly.  The engine and tile
+    verdicts are resolved on rank 0, before any build or capture
+    (``ops.rank0_decides``).  Every rank runs, and so builds and
+    captures, the same programs in the same order: rank 0 as it admits,
+    the followers as rank 0 announces (``LinsysServer.serve_follower``).
+    """
 
     def __init__(self, solver, prm, iters: int, sys: BlockSystem, mesh,
                  worker_axes, model_axis, use_kernel: bool = False):
@@ -190,10 +204,23 @@ class _MeshExecutor:
         self.ctx = mesh_backend.make_context(
             mesh, sys, worker_axes=worker_axes, model_axis=model_axis)
         self.device = mesh_lib.mesh_device(mesh)
+        ls_mode = sys.mode == "least_squares"
+        # the placements of the runner solve_many_mesh takes
         self.runner = mesh_backend.batched_runner(
             solver, self.ctx, prm, iters, use_kernel=use_kernel,
             a_placement=mesh_backend.operand_placement(sys),
-            ls_mode=sys.mode == "least_squares", fused_residual=use_kernel)
+            ls_mode=ls_mode, fused_residual=use_kernel)
+        self.local = executor.LocalExecutor(solver, prm, iters,
+                                            use_kernel=use_kernel,
+                                            ls_mode=ls_mode, ctx=self.ctx)
+
+    @property
+    def builds(self) -> int:
+        return self.local.builds
+
+    @property
+    def captures(self) -> int:
+        return self.local.captures
 
     def place_system(self, sys: BlockSystem, factors):
         from .mesh import _shard_tree
@@ -211,21 +238,26 @@ class _MeshExecutor:
                       self.runner.Bb_placement, self.ctx, self.device)
 
     def run(self, A, factors, Bb, states=None):
-        from .mesh import _shard_tree
-        if states is None:
-            states = self.runner.init(factors, Bb)
-        else:
-            states = _shard_tree(states, self.runner.state_placements,
-                                 self.ctx, self.device)
-        return self.runner.run(A, Bb, factors, states)
+        from .mesh import _gather_tree, _shard_tree
+        spl = self.runner.state_placements
+        if states is not None:
+            states = _shard_tree(states, spl, self.ctx, self.device)
+        with ops.rank0_decides(self.device):
+            states, _, res = self.local.run(A, factors, Bb, states)
+        states = _gather_tree(states, spl, self.ctx)
+        return states, self.solver.extract(states), res
 
     def drop(self, A, factors) -> int:
-        """Nothing is captured: the placement dies with its references."""
-        return 0
+        """Free the programs of a placement of this rank's shards."""
+        return self.local.drop(A, factors)
+
+    def release(self) -> int:
+        """Free every program (``LocalExecutor.release``)."""
+        return self.local.release()
 
     def cache_size(self) -> int:
-        """One runner a key (eager: no program is captured)."""
-        return 1
+        """The programs held, one a key (the local executor's)."""
+        return self.local.cache_size()
 
 
 #: the header of a mesh batch: stop flag, k, real requests, warm start,
@@ -430,6 +462,7 @@ class LinsysServer:
             stop, fp, _, warm, Bb = self._announce()
             if stop:
                 self._stopped = True
+                self._release_programs()
                 return served
             ent = self._systems[fp]
             ex, _ = self._placed(fp, ent)
@@ -442,10 +475,19 @@ class LinsysServer:
 
     def close(self) -> None:
         """End the mesh service: rank 0 of a group of several sends the
-        stop flag to the followers (once).  Elsewhere a no-op."""
+        stop flag to the followers (once); then every mesh executor's
+        programs are freed, their graphs holding collectives of the
+        group's communicators, which must go first.  A later batch builds
+        its program again.  On the local backend a no-op."""
         if self._leads() and not self._stopped:
             self._stopped = True
             self._announce(stop=True)
+        self._release_programs()
+
+    def _release_programs(self) -> None:
+        if self.backend == "mesh":
+            for ex in list(self._executors.values()):
+                ex.release()
 
     def __enter__(self) -> "LinsysServer":
         return self

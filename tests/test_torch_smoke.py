@@ -18,7 +18,11 @@ records the tensor operations of its body and leaves every tensor
 that existed before it as it was, as a capture on the card runs nothing;
 ``replay()`` runs the recorded operations again on the same tensors.  So
 the captured solves run here, and their launch counts come from the
-replays.  It also checks that the script refuses to run without a card.
+replays.  The in-process one-rank group of the mesh phases (16-18) is
+gloo here; the capture predicate is told it is NCCL
+(``executor._cuda_backend``), so the mesh's loops capture as on the
+card, while the spawned gloo ranks see no fake and capture nothing.  It
+also checks that the script refuses to run without a card.
 """
 import contextlib
 import importlib.util
@@ -36,6 +40,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from repro_torch import device as dev  # noqa: E402
 from repro_torch.kernels import block_projection as bp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.solvers import executor  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -321,6 +326,8 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     monkeypatch.setattr(ops, "_on_cuda",
                         lambda op, *t: on_cuda(op, *t) or True)
     monkeypatch.setattr(ops, "on_cuda", lambda op, *t: True)
+    # the one-rank group of phases 16-18 stands in for NCCL
+    monkeypatch.setattr(executor, "_cuda_backend", lambda group: "nccl")
     lib = tmp_path / "libblock_projection.so"
     lib.write_text("")
     ring = ("ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__"
@@ -580,6 +587,21 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                    for x in p16) == 1, label
     assert all("launches {" in x and ": 40" in x for x in p16
                if x.startswith("phase 16 (a) ") and "kernel=True" in x)
+    # every mesh history of (a) captured, held to disable_capture()
+    for sname in ("apc", "consensus", "cimmino"):
+        assert any(x.startswith(f"phase 16 (a) {sname} dense kernel=True")
+                   and "≡ disable_capture() bit for bit at k=1 and k=8 "
+                   "True" in x and "16 of them from 1 replays" in x
+                   and "mesh captured" in x and "mesh eager" in x
+                   and "local captured" in x for x in p16), sname
+    for sname in ("apc", "cimmino"):
+        assert any(x.startswith(f"phase 16 (a) {sname} sparse kernel=True")
+                   and "bit for bit at k=1 and k=8 True" in x
+                   for x in p16), sname
+    assert any(x.startswith("phase 16 (a) compile-once on NCCL: 13 "
+                            "captured mesh histories") for x in p16), p16
+    assert any(x.startswith("phase 16 (b) two ranks over gloo")
+               and "captures [0, 0]" in x for x in p16), p16
     assert any(x.startswith("phase 16 (b) two ranks over gloo on cpu")
                for x in p16), p16
     for shape in ("(1, 2)", "(2, 1)"):
@@ -603,8 +625,16 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert p17[0].startswith("phase 17 (a) mesh serving, mesh (('data', 1),"
                              " ('model', 1)) over 1 rank(s), gloo"), p17
     assert any(x.startswith("phase 17 (a) dense apc mesh server k=8")
-               and "launches a batch [40, 40, 40, 40] (apc_gather)" in x
+               and "launches a batch [56, 40, 40, 40] (apc_gather)" in x
+               and "['build apc.cold', 'capture apc.cold']" in x
+               and "builds 1 captures 1 programs 1" in x
+               and "bit-equal to the eager mesh server True and to the "
+               "local server True" in x for x in p17), p17
+    assert any(x.startswith("phase 17 (a) dense apc async mesh server")
+               and "captures 1 (on the assembly thread)" in x
                for x in p17), p17
+    assert any(x.startswith("phase 17 (b) two ranks over gloo")
+               and "captures [0, 0]" in x for x in p17), p17
     assert any(x.startswith("phase 17 (a) dense apc async mesh server")
                and "bit-equal to the sync mesh server True" in x
                for x in p17), p17
@@ -638,7 +668,11 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert any(x.startswith("phase 18 elastic recover")
                and "reused_blocks 4 prepared_blocks 0" in x for x in p18)
     assert any(x.startswith("phase 18 redundant apc on the mesh, one rank")
-               for x in p18), p18
+               and "(captures 1, programs 1)" in x
+               and "≡ disable_capture() bit for bit True" in x
+               and "split at 13 ≡ one run True" in x for x in p18), p18
+    assert any(x.startswith("phase 18 two ranks:") and "captures [0, 0]"
+               in x for x in p18), p18
     for key in ("apc redundancy", "cimmino redundancy",
                 "apc/elastic redundancy"):
         assert sum(x.startswith("phase 18 two ranks over gloo on cpu")
