@@ -176,6 +176,19 @@ script exits non-zero without its last line:
    redundant mesh runner's one captured step ≡ ``disable_capture()`` and
    a history split into segments ≡ one run, timed against eager and the
    local engine; two gloo ranks (2 x 1, ``--red-rank``), no capture.
+19. the LM framework's serving path (A19a) and the APC probe head, after
+   phase 18's memory is freed: (a) tinyllama-1.1b at full width and
+   depth in float32, prefill of 62 tokens and two decode steps against
+   the (2, 64) forward at tests/test_models.py's tolerances; (b) the
+   same weights cut to two layers, the card's logits against the CPU's
+   within 2e-5 of max + 1; (c) ``launch/serve.py`` in bfloat16 for
+   tinyllama-1.1b and qwen3-4b (8 requests, batch 4, prompt 128, 32 new
+   tokens), twice each: tokens equal, tok/s, one prefill's and one decode
+   step's ms, resident and peak memory; (d) examples/probe_apc.py's probe
+   on (a)'s features: ``fit_probe`` within 1e-3 of the float64 closed
+   form, and its normal system on ``ExecutionPlan(kernel=True)``, the
+   history within 1e-6 of the unfused one, ``apc_gather`` and
+   ``apc_scatter`` counted (the JSON line's ``lm_probe_launches``).
 
 Every other phase runs under ``REPRO_KERNEL_ENGINE=fused``, the pin the
 reference's own benchmarks use: the kernels those phases hold, count
@@ -266,6 +279,20 @@ SERVE_CLI_ARGS = ["--backend", "mesh", "--requests", "12", "--systems", "1",
                   "--iters", "150", "--use-kernel"]
 # phase 18: the system of the elastic recovery and of the two gloo ranks
 RED_CUT = dict(N=8192, n=4096, m=16)
+# phase 19: the LM serving path (A19a) and the APC probe head.  LM_SMOKE
+# takes each architecture's smoke config instead of the full one (the CPU
+# rehearsal only).
+LM_ARCH = "tinyllama-1.1b"          # (a), (b), (d): float32, full width
+LM_SMOKE = False
+LM_BATCH = (2, 64)                  # (a): prefill 62 tokens + 2 decode steps
+LM_CUT_LAYERS = 2                   # (b): card ≡ CPU on the weights cut so
+LM_CPU_TOL = 2e-5                   # (b): x (max|CPU| + 1)
+LM_SERVE = ("tinyllama-1.1b", "qwen3-4b")    # (c): bfloat16, full width
+LM_SERVE_ARGS = ["--requests", "8", "--batch", "4", "--prompt-len", "128",
+                 "--max-new", "32"]
+# (d): examples/probe_apc.py's probe on (a)'s features
+PROBE = dict(B=8, S=64, cols=64, m=4, lam=10.0, iters=2000)
+PROBE_HIST_REL = 1e-6               # kernel-path history vs the unfused one
 SOURCE = "src/repro_torch/kernels/csrc/block_projection.cu"
 REPLACES = {"apc_gather": "src/repro/kernels/block_projection.py:173",
             "apc_scatter": "src/repro/kernels/block_projection.py:210",
@@ -2001,6 +2028,185 @@ def redundancy_phase(card, dsys, chol, pinned) -> None:
     say(f"phase 18: {time.time() - t18:.1f} s")
 
 
+def lm_phase(card) -> dict:
+    """Phase 19: the LM framework's serving path for GQA decoders (A19a)
+    and the APC probe head on the card.  Returns the probe's kernel
+    launches by kernel (its kernel-path solve, counted from 0)."""
+    from repro_torch import configs, device as dev
+    from repro_torch import solvers
+    from repro_torch.core import partition
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model, sharding
+    from repro_torch.optim import apc_head
+    t19 = time.time()
+    device = dev.resolve()
+    say(f"phase 19 start: resident {torch.cuda.memory_allocated() / 1e9:.3f}"
+        f" GB allocated, {torch.cuda.memory_reserved() / 1e9:.3f} GB "
+        f"reserved; TF32 {torch.backends.cuda.matmul.allow_tf32}")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    get = configs.get_smoke if LM_SMOKE else configs.get
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    # (a) decode ≡ forward at full width and depth, float32 -------------
+    cfg = dataclasses.replace(get(LM_ARCH), dtype="float32")
+    t = time.time()
+    params = sharding.init_tree(model.model_abstract(cfg), gen(0),
+                                torch.float32, device)
+    torch.cuda.synchronize()
+    t_init = time.time() - t
+    B, S = LM_BATCH
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen(1),
+                         device=device)
+    with torch.inference_mode():
+        full, ms_cold = timed_ms(lambda: model.forward(
+            cfg, params, {"tokens": toks}))
+        _, ms_fwd = timed_ms(lambda: model.forward(
+            cfg, params, {"tokens": toks}))
+        cache = model.init_cache(cfg, B, S, torch.float32, device)
+        ll, cache = model.prefill(cfg, params, {"tokens": toks[:, :S - 2]},
+                                  cache)
+        devs = [float((ll[:, 0] - full[:, S - 3]).abs().max())]
+        ok = [torch.allclose(ll[:, 0], full[:, S - 3], rtol=1e-4, atol=1e-4)]
+        for pos in (S - 2, S - 1):
+            dl, cache = model.decode_step(cfg, params, toks[:, pos:pos + 1],
+                                          cache, pos)
+            devs.append(float((dl[:, 0] - full[:, pos]).abs().max()))
+            ok.append(torch.allclose(dl[:, 0], full[:, pos], rtol=1e-4,
+                                     atol=2e-4))
+    assert full.shape == (B, S, cfg.padded_vocab)
+    assert bool(torch.isfinite(full).all())
+    n_params = model.count_params(cfg)
+    say(f"phase 19 (a) {cfg.name} float32 ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params} parameters, "
+        f"drawn in {t_init:.2f} s): forward ({B}, {S}) in {ms_cold:.1f} ms "
+        f"cold, {ms_fwd:.1f} ms warm, "
+        f"max|logit| {float(full.abs().max()):.4f}; prefill {S - 2} + 2 "
+        f"decode steps vs forward max|Δ| {devs[0]:.3e} / {devs[1]:.3e} / "
+        f"{devs[2]:.3e} (rtol 1e-4, atol 1e-4 / 2e-4: {all(ok)})")
+    assert all(ok), devs
+
+    # (b) card ≡ CPU on the same weights cut to LM_CUT_LAYERS layers -----
+    cut = dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS)
+    cut_params = dict(params, decoder=dict(params["decoder"], slots=[
+        sharding.tree_map(lambda w: w[:LM_CUT_LAYERS], slot,
+                          is_leaf=lambda x: False)
+        for slot in params["decoder"]["slots"]]))
+    on_cpu = sharding.tree_map(lambda w: w.cpu(), cut_params,
+                               is_leaf=lambda x: False)
+    with torch.inference_mode():
+        card_logits = model.forward(cut, cut_params, {"tokens": toks})
+        cpu_logits = model.forward(cut, on_cpu, {"tokens": toks.cpu()})
+    e, d = rel_err(card_logits.cpu(), cpu_logits)
+    say(f"phase 19 (b) {cut.name} cut to {LM_CUT_LAYERS} layers, float32: "
+        f"the card's logits vs the CPU's max|Δ| {d:.3e}, "
+        f"{e:.3e} of max|CPU| + 1 (limit {LM_CPU_TOL})")
+    assert e <= LM_CPU_TOL, e
+    del cut_params, on_cpu, card_logits, cpu_logits, cache, ll
+
+    # (d) the APC probe on (a)'s features --------------------------------
+    pb, ps, cols = PROBE["B"], PROBE["S"], PROBE["cols"]
+    ptoks = torch.randint(0, cfg.vocab_size, (pb, ps), generator=gen(2),
+                          device=device)
+    with torch.inference_mode():
+        H = model.forward(cfg, params, {"tokens": ptoks})[..., :cols]
+    H = H.reshape(pb * ps, cols).double().cpu().numpy()
+    H = (H - H.mean(0)) / (H.std(0) + 1e-9)      # standardized features
+    rng = np.random.default_rng(2)
+    y = H @ rng.standard_normal(cols) + 0.01 * rng.standard_normal(len(H))
+    del params, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    lam, m, iters = PROBE["lam"], PROBE["m"], PROBE["iters"]
+    (w, res), ms_fit = timed_ms(lambda: apc_head.fit_probe(
+        H, y, m=m, lam=lam, iters=iters, device=device))
+    Ht = torch.as_tensor(H, device=device)
+    yt = torch.as_tensor(y, device=device)
+    A, b = apc_head.normal_system(Ht, yt, lam)
+    w_ref = np.linalg.solve(A.cpu().numpy(), b.cpu().numpy())
+    err = float(np.linalg.norm(w.cpu().numpy() - w_ref)
+                / np.linalg.norm(w_ref))
+    assert err < 1e-3, err
+    sys_ = partition.partition(A, b, m)
+    apc = solvers.get("apc")
+    plain = apc.solve(sys_, iters=iters)
+    ops.reset_launch_counts()
+    fused, ms_kernel = timed_ms(lambda: apc.solve(
+        sys_, iters=iters, plan=solvers.ExecutionPlan(kernel=True)))
+    launches = ops.launch_counts()
+    hp, hk = plain.residuals.cpu().numpy(), fused.residuals.cpu().numpy()
+    h_ok = np.allclose(hk, hp, rtol=PROBE_HIST_REL, atol=1e-12)
+    dx = float((fused.x - plain.x).abs().max())
+    say(f"phase 19 (d) probe (examples/probe_apc.py) on {cfg.name}'s "
+        f"features, {pb * ps} tokens x {cols} standardized logit columns, "
+        f"m={m}, lam={lam}, {iters} iterations: fit_probe vs the float64 "
+        f"closed form {err:.3e} (limit 1e-3) in {ms_fit:.1f} ms, history "
+        f"{float(res[0]):.2e} -> {float(res[-1]):.2e}, MSE "
+        f"{apc_head.probe_loss(Ht, yt, w):.4e}; the normal system with "
+        f"ExecutionPlan(kernel=True): history within rtol "
+        f"{PROBE_HIST_REL} / atol 1e-12 of the unfused one {h_ok} (max|Δ| "
+        f"{float(np.abs(hk - hp).max()):.3e}), max|Δx| {dx:.3e}, "
+        f"{ms_kernel:.1f} ms, launches "
+        f"{ {kn: launches[kn] for kn in USES['apc']} }")
+    assert h_ok
+    assert all(launches[kn] == iters for kn in USES["apc"]), launches
+    assert all(launches[kn] == 0 for kn in launches
+               if kn not in USES["apc"]), launches
+    del sys_, plain, fused, A, b, Ht, yt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the serving CLI in bfloat16 at full width ----------------------
+    for arch in LM_SERVE:
+        argv = ["--arch", arch, *(["--smoke"] if LM_SMOKE else []),
+                *LM_SERVE_ARGS]
+        torch.cuda.reset_peak_memory_stats()
+        reps = [serve.run(argv) for _ in range(2)]
+        same = all(np.array_equal(a, b) for a, b in zip(reps[0].tokens,
+                                                        reps[1].tokens))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        scfg = get(arch)
+        before = torch.cuda.memory_allocated()
+        sparams = sharding.init_tree(model.model_abstract(scfg), gen(0),
+                                     model.cache_dtype(scfg), device)
+        resident = torch.cuda.memory_allocated() / 1e9
+        weights = (torch.cuda.memory_allocated() - before) / 1e9
+        nb = int(LM_SERVE_ARGS[LM_SERVE_ARGS.index("--batch") + 1])
+        plen = int(LM_SERVE_ARGS[LM_SERVE_ARGS.index("--prompt-len") + 1])
+        new = int(LM_SERVE_ARGS[LM_SERVE_ARGS.index("--max-new") + 1])
+        prompts = torch.randint(0, scfg.vocab_size, (nb, plen),
+                                generator=gen(3), device=device)
+        cache = model.init_cache(scfg, nb, plen + new, device=device)
+        tok = prompts[:, :1]
+        with torch.inference_mode():
+            ms = medians_ms({
+                "prefill": lambda: model.prefill(
+                    scfg, sparams, {"tokens": prompts}, cache),
+                "decode": lambda: model.decode_step(
+                    scfg, sparams, tok, cache, plen)}, reps=5, batch=1)
+        say(f"phase 19 (c) serve {arch} ({scfg.dtype}, {scfg.n_layers} "
+            f"layers, d {scfg.d_model}, vocab {scfg.vocab_size} -> "
+            f"{scfg.padded_vocab}, qk_norm {scfg.qk_norm}) "
+            f"{' '.join(LM_SERVE_ARGS)}: {reps[0].served} requests, "
+            f"{reps[0].tok_per_s:.1f} / {reps[1].tok_per_s:.1f} tok/s in two "
+            f"runs ({reps[0].seconds:.2f} / {reps[1].seconds:.2f} s); "
+            f"greedy tokens equal across the runs {same}; one prefill "
+            f"({nb} x {plen}) {ms['prefill']:.2f} ms, one decode step "
+            f"{ms['decode']:.2f} ms (CUDA events, a call each, the host's "
+            f"launches included); parameters {weights:.3f} GB, resident "
+            f"{resident:.3f} GB with them, peak {peak:.3f} GB while "
+            f"serving")
+        assert same, arch
+        del sparams, cache, prompts, tok, reps
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"phase 19: {time.time() - t19:.1f} s")
+    say(card)
+    return {kn: launches[kn] for kn in launches}
+
+
 def rotating_straggler(m):
     """The covering schedule of tests/test_redundant.py: worker t mod m
     stalls at iteration t."""
@@ -3703,6 +3909,9 @@ def phases() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 19. the LM serving path and the APC probe head ----------------------
+    probe_launches = lm_phase(card)
+
     main_launches.update(
         {kn: sparse_launches["apc" if kn in SPARSE_USES["apc"]
                              else "cimmino"][kn]
@@ -3738,6 +3947,7 @@ def phases() -> int:
             "replaces": REPLACES[kname], "launches": main_launches[kname],
             "mesh_launches": mesh_launches[kname],
             "mesh_serving_launches": serving_launches[kname],
+            "lm_probe_launches": probe_launches[kname],
             "max_abs_err": max_abs[(kname, "float64/float64")],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -1,0 +1,17 @@
+"""Qwen3 4B — qk_norm, GQA [hf:Qwen/Qwen3-8B family; hf].
+
+36L d_model=2560 32H (GQA kv=8) d_ff=9728 vocab=151936, head_dim=128.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-4b", family="dense",
+    n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=9728, vocab_size=151936, qk_norm=True, rope_theta=1000000.0,
+)
+
+SMOKE = ModelConfig(
+    name="qwen3-4b-smoke", family="dense",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+    d_ff=128, vocab_size=256, qk_norm=True, dtype="float32",
+)

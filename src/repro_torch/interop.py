@@ -2,9 +2,10 @@
 
 The functions take plain numpy arrays (``np.asarray`` of a reference
 ``BlockSystem`` field, or of each field of a reference state or factors
-NamedTuple), so a system, its factors or an iteration state of ``repro``
-continue in ``repro_torch`` without this package importing anything of
-``repro``.  They copy: the port's tensors never alias the reference's
+NamedTuple, or a model's parameter or cache tree of numpy arrays), so a
+system, its factors, an iteration state or a model's weights of
+``repro`` continue in ``repro_torch`` without this package importing
+anything of ``repro``.  They copy: the port's tensors never alias the reference's
 (read-only) buffers.  Every state and factors type of the port has its
 reference namesake's fields in the same order, so :func:`from_numpy`
 converts any of them.  A bfloat16 array (``np.asarray`` of a JAX
@@ -77,3 +78,25 @@ def from_numpy(cls, *fields, device=None):
                          f"{len(fields)} arrays")
     return cls(*(convert(name, a) for name, a in zip(cls._fields, fields)))
 
+
+
+def _tree_from_numpy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_numpy(v, device) for v in tree]
+    return None if tree is None else _tensor(tree, device)
+
+
+def params_from_numpy(tree, device=None):
+    """The port's parameter tree from the reference's: nested dicts and
+    lists of numpy arrays (``jax.tree.map(np.asarray, params)``), the same
+    key paths, each array a tensor of its dtype (bfloat16 by its bits) on
+    ``device``."""
+    return _tree_from_numpy(tree, device)
+
+
+def cache_from_numpy(tree, device=None):
+    """The port's decode cache from the reference's (``jax.tree.map(
+    np.asarray, cache)``), key paths kept, as :func:`params_from_numpy`."""
+    return _tree_from_numpy(tree, device)

@@ -1,0 +1,287 @@
+"""Transformer building blocks: norms, RoPE, attention, MLPs (the port's
+counterpart of ``repro.models.layers``).
+
+Everything is functional: ``*_abstract(cfg)`` returns a pytree of
+``ParamSpec``, and ``*_apply(cfg, params, ...)`` is the forward over
+plain dicts of tensors.  The numerics follow the reference step for step,
+since bfloat16 shows every change of rounding order: the norms and RoPE
+compute in float32 and cast back; a learned qk-norm scale multiplies after
+that cast; attention scores and the PV product accumulate in float32 (the
+reference's ``preferred_element_type``), with the probabilities rounded
+to v's dtype first.
+
+Attention is the reference's own algorithm in plain torch ops: train and
+prefill run the chunked online-softmax ("flash") forward — a loop over key
+blocks carrying (max, sum, acc) — and decode attends over the whole cache
+masked by ``kv_len``.  No Pallas kernel backs it in the reference, so it
+is no kernel slot here; a hand-written attention kernel is later work.
+
+This slice (ROADMAP A19a) serves GQA decoders: MLA, the GELU MLP, MoE and
+SSM blocks have their abstract (shape) functions only, enough to count
+parameters and lay out caches for every config.  Their forwards are
+A19b; the flash backward is A19c.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .sharding import ParamSpec
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_abstract(dim: int):
+    return {"scale": ParamSpec((dim,), (None,), init="ones")}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dt)
+
+
+def l2norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Per-head qk-norm (Qwen3 style), no learned scale on the head axis."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding, half-split.  x (..., S, H, d) with d even;
+    positions (..., S)."""
+    d = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=x.device) / d))
+    ang = positions[..., None].float() * freqs              # (..., S, d/2)
+    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, d/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Flash-style chunked attention (GQA-aware), forward
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def pick_blk(sk: int) -> int:
+    """The largest listed key tile that divides Sk, else Sk itself."""
+    for b in (4096, 2048, 1024, 512, 256, 128, 64):
+        if sk % b == 0:
+            return b
+    return sk
+
+
+def _f32_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` with float32 accumulation and a float32 result, the
+    reference's ``preferred_element_type=float32`` (a bfloat16 product is
+    exact in float32)."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_offset: int = 0, causal: bool = True,
+                    blk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention forward over key blocks of ``blk``.
+
+    q (B,Sq,H,dq), k (B,Sk,K,dq), v (B,Sk,K,dv), H % K == 0, Sk % blk == 0;
+    query i sits at position ``q_offset + i``.  Returns (B,Sq,H,dv) in
+    q's dtype.  Masked scores are ``NEG_INF`` (not -inf), and the running
+    sum is clamped at 1e-30, as the reference's.
+    """
+    B, Sq, H, dq = q.shape
+    Sk, K, dv = k.shape[1], k.shape[2], v.shape[3]
+    if H % K or Sk % blk:
+        raise ValueError(f"flash_attention needs H % K == 0 and Sk % blk "
+                         f"== 0; got H={H} K={K} Sk={Sk} blk={blk}")
+    G = H // K
+    qg = q.reshape(B, Sq, K, G, dq)
+    scale = dq ** -0.5
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, G, Sq, dv), dtype=torch.float32,
+                      device=q.device)
+    for j in range(Sk // blk):
+        k_j = k[:, j * blk:(j + 1) * blk]
+        v_j = v[:, j * blk:(j + 1) * blk]
+        s = _f32_product("bqkgd,btkd->bkgqt", qg, k_j) * scale
+        if causal:
+            k_pos = j * blk + torch.arange(blk, device=q.device)
+            mask = q_pos[:, None] >= k_pos[None, :]
+            s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        pv = _f32_product("bkgqt,btkd->bkgqd", p.to(v_j.dtype), v_j)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    out = acc / l[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     kv_len) -> torch.Tensor:
+    """Direct attention for a few queries (decode) over the whole cache,
+    key positions >= ``kv_len`` masked."""
+    B, Sq, H, dq = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = q.reshape(B, Sq, K, G, dq)
+    scale = dq ** -0.5
+    s = _f32_product("bqkgd,btkd->bkgqt", qg, k) * scale
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    s = torch.where(k_pos < kv_len, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = _f32_product("bkgqt,btkd->bkgqd", p.to(v.dtype), v)
+    dv = v.shape[-1]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+
+def gqa_abstract(cfg: ModelConfig):
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": ParamSpec((D, H * hd), ("fsdp", "tensor")),
+        "wk": ParamSpec((D, K * hd), ("fsdp", "tensor")),
+        "wv": ParamSpec((D, K * hd), ("fsdp", "tensor")),
+        "wo": ParamSpec((H * hd, D), ("tensor", "fsdp")),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = ParamSpec((hd,), (None,), init="ones")
+        p["k_norm"] = ParamSpec((hd,), (None,), init="ones")
+    return p
+
+
+def gqa_cache_abstract(cfg: ModelConfig, batch: int, max_seq: int):
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    ax = ("batch", "kv_seq", None, None)
+    return {"k": ParamSpec((batch, max_seq, K, hd), ax),
+            "v": ParamSpec((batch, max_seq, K, hd), ax)}
+
+
+def gqa_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
+              cache=None, cache_len: int = None, cross=None,
+              causal: bool = True, rules=None):
+    """x (B, S, D).  Three modes:
+
+      train   (cache None):     flash attention over x itself.
+      prefill (cache, S > 1):   flash over x + write the cache at cache_len.
+      decode  (cache, S == 1):  insert the token, attend over the cache.
+
+    The cache ({"k", "v"}, (B, max_seq, K, hd)) is written in place at
+    ``cache_len`` (a Python int) and returned.  A write past the cache's
+    end raises: the reference's ``dynamic_update_slice`` would clamp the
+    start instead, and no caller may rely on either.  Prefill attends over
+    the fresh tokens only, as the reference's does.  ``cross`` (Whisper's
+    cross-attention) is ROADMAP A19b.
+    """
+    if cross is not None:
+        raise NotImplementedError("cross-attention (encoder-decoder) is "
+                                  "ROADMAP A19b, not ported yet")
+    B, S, D = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    if cfg.qk_norm:
+        q = l2norm(q, cfg.norm_eps) * p["q_norm"].to(q.dtype)
+    k = (x @ p["wk"]).reshape(B, S, K, hd)
+    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    if cfg.qk_norm:
+        k = l2norm(k, cfg.norm_eps) * p["k_norm"].to(k.dtype)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        start = int(cache_len)
+        ck, cv = cache["k"], cache["v"]
+        if start < 0 or start + S > ck.shape[1]:
+            raise ValueError(f"cache write at {start}..{start + S} outside "
+                             f"a cache of {ck.shape[1]} positions")
+        ck[:, start:start + S] = k.to(ck.dtype)
+        cv[:, start:start + S] = v.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
+        if S == 1:
+            out = decode_attention(q, ck, cv, kv_len=start + S)
+        else:
+            # prefill: the fresh tokens are the whole valid cache content
+            out = flash_attention(q, k, v, 0, True, pick_blk(S))
+    else:
+        out = flash_attention(q, k, v, 0, causal, pick_blk(k.shape[1]))
+    return out.reshape(B, S, H * hd) @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V2): shapes only (A19b)
+# ---------------------------------------------------------------------------
+
+
+def mla_abstract(cfg: ModelConfig):
+    D, H = cfg.d_model, cfg.n_heads
+    r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": ParamSpec((D, qr), ("fsdp", None)),
+        "q_norm": ParamSpec((qr,), (None,), init="ones"),
+        "wq_b": ParamSpec((qr, H * (dn + dr)), (None, "tensor")),
+        "wkv_a": ParamSpec((D, r + dr), ("fsdp", None)),
+        "kv_norm": ParamSpec((r,), (None,), init="ones"),
+        "wk_b": ParamSpec((r, H * dn), (None, "tensor")),
+        "wv_b": ParamSpec((r, H * dv), (None, "tensor")),
+        "wo": ParamSpec((H * dv, D), ("tensor", "fsdp")),
+    }
+
+
+def mla_cache_abstract(cfg: ModelConfig, batch: int, max_seq: int):
+    r, dr = cfg.kv_lora_rank, cfg.rope_head_dim
+    return {"ckv": ParamSpec((batch, max_seq, r), ("batch", "kv_seq", None)),
+            "krope": ParamSpec((batch, max_seq, dr),
+                               ("batch", "kv_seq", None))}
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def swiglu_abstract(d_model: int, d_ff: int):
+    return {"w_gate": ParamSpec((d_model, d_ff), ("fsdp", "tensor")),
+            "w_up": ParamSpec((d_model, d_ff), ("fsdp", "tensor")),
+            "w_down": ParamSpec((d_ff, d_model), ("tensor", "fsdp"))}
+
+
+def swiglu_apply(p, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def gelu_mlp_abstract(d_model: int, d_ff: int):
+    """Whisper's GELU MLP, shapes only.  For its forward (A19b):
+    ``jax.nn.gelu`` defaults to the tanh approximation
+    (``F.gelu(..., approximate="tanh")``)."""
+    return {"w_in": ParamSpec((d_model, d_ff), ("fsdp", "tensor")),
+            "b_in": ParamSpec((d_ff,), (None,), init="zeros"),
+            "w_out": ParamSpec((d_ff, d_model), ("tensor", "fsdp")),
+            "b_out": ParamSpec((d_model,), (None,), init="zeros")}

@@ -1,0 +1,222 @@
+"""Model assembly: abstract parameters, caches, forward and the serving
+steps (the port's counterpart of ``repro.models.model``).
+
+Batch conventions:
+  forward: {"tokens": (B,S) int [, "patches" (B,P,D)]} -> logits (B,S,V)
+  prefill: {"tokens": (B,S)} + empty cache -> last-position logits + cache
+  decode:  token (B,1) + cache + cache_len (a Python int) -> logits + cache
+
+This slice serves the ``dense`` and ``vlm`` families (GQA decoders with
+SwiGLU MLPs).  ``forward``, ``prefill`` and ``decode_step`` refuse the
+others (``moe``, ``ssm``, ``hybrid``, ``audio``, or MLA attention) with a
+``NotImplementedError`` naming ROADMAP A19b; their shapes, parameter
+counts and cache layouts are whole here.  ``loss_fn`` comes with training
+(A19c).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import device as dev
+
+from .config import ModelConfig
+from .sharding import ParamSpec, Rules, constrain, tree_leaves, tree_map
+from . import layers, ssm as ssm_mod, transformer
+
+#: the families whose forward is ROADMAP A19b
+UNPORTED_FAMILIES = ("moe", "ssm", "hybrid", "audio")
+
+# ---------------------------------------------------------------------------
+# Abstract parameters
+# ---------------------------------------------------------------------------
+
+
+def model_abstract(cfg: ModelConfig):
+    D, V = cfg.d_model, cfg.padded_vocab
+    p = {
+        "embed": ParamSpec((V, D), ("tensor", "fsdp")),
+        "decoder": transformer.decoder_abstract(cfg),
+        "final_norm": layers.rmsnorm_abstract(D),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ParamSpec((D, V), ("fsdp", "tensor"))
+    if cfg.is_encoder_decoder:
+        p["encoder"] = transformer.encoder_abstract(cfg)
+    return p
+
+
+def _slot_cache_abstract(cfg: ModelConfig, kind: str, batch: int,
+                         max_seq: int):
+    if kind == "ssm":
+        return {"attn": ssm_mod.ssm_cache_abstract(cfg, batch)}
+    if cfg.attn_type == "mla":
+        return {"attn": layers.mla_cache_abstract(cfg, batch, max_seq)}
+    return {"attn": layers.gqa_cache_abstract(cfg, batch, max_seq)}
+
+
+def cache_abstract(cfg: ModelConfig, batch: int, max_seq: int):
+    """Decode-cache pytree mirroring the decoder structure."""
+    nd = cfg.moe.first_dense if cfg.moe else 0
+    n_periods = (cfg.n_layers - nd) // len(cfg.pattern)
+    c = {
+        "prefix": [
+            _slot_cache_abstract(cfg, "attn", batch, max_seq)
+            for _ in range(nd)],
+        "slots": [
+            transformer._stack(
+                _slot_cache_abstract(cfg, kind, batch, max_seq), n_periods)
+            for kind in cfg.pattern],
+    }
+    if cfg.is_encoder_decoder:
+        K, hd = cfg.n_kv_heads, cfg.head_dim
+        Se = cfg.encoder_seq
+        ax = ("batch", None, None, None)
+        c["cross"] = {
+            "prefix": [
+                {"k": ParamSpec((batch, Se, K, hd), ax),
+                 "v": ParamSpec((batch, Se, K, hd), ax)} for _ in range(nd)],
+            "slots": [
+                transformer._stack(
+                    {"k": ParamSpec((batch, Se, K, hd), ax),
+                     "v": ParamSpec((batch, Se, K, hd), ax)}, n_periods)
+                for _ in cfg.pattern],
+        }
+    return c
+
+
+def cache_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+               device=None):
+    """Materialize a zeroed decode cache on ``device`` (resolved: ``cuda``
+    unless asked otherwise)."""
+    dtype = dtype or cache_dtype(cfg)
+    device = dev.resolve(device)
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=dtype,
+                                          device=device),
+                    cache_abstract(cfg, batch, max_seq))
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for a config whose forward this slice does not run."""
+    if cfg.family in UNPORTED_FAMILIES or cfg.attn_type != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} with attn_type "
+            f"{cfg.attn_type!r} is ROADMAP A19b (MLA, MoE, SSM/hybrid and "
+            f"encoder-decoder serving), not ported yet; this slice runs "
+            f"the dense and vlm GQA decoders")
+
+
+def _embed(cfg: ModelConfig, params, tokens):
+    return params["embed"][tokens]
+
+
+def _lm_logits(cfg: ModelConfig, params, h):
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["lm_head"]
+
+
+def forward(cfg: ModelConfig, params, batch, *, rules: Rules = None,
+            train: bool = False):
+    """Full-sequence forward -> logits (B, S_tokens, V).  A vision config
+    prepends ``batch["patches"]`` (B, P, D) to the token embeddings and
+    drops their positions from the logits."""
+    check_ported(cfg)
+    tokens = batch["tokens"]
+    h = _embed(cfg, params, tokens).to(cache_dtype(cfg))
+    n_prepend = 0
+    if cfg.frontend == "vision" and "patches" in batch:
+        patches = batch["patches"].to(h.dtype)
+        n_prepend = patches.shape[1]
+        h = torch.cat([patches, h], dim=1)
+    h = constrain(h, rules, "batch", "seq_sp", None)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, _ = transformer.decoder_apply(cfg, params["decoder"], h,
+                                     positions=positions, rules=rules,
+                                     train=train)
+    h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    if n_prepend:
+        h = h[:, n_prepend:, :]
+    return _lm_logits(cfg, params, h)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def prefill(cfg: ModelConfig, params, batch, cache, *, rules: Rules = None):
+    """Process the prompt, fill the cache (in place).  Returns
+    (last_logits (B,1,V), cache).
+
+    Only ``batch["tokens"]`` is read: a vision config's ``patches`` are
+    ignored here, as in the reference's prefill.
+    """
+    check_ported(cfg)
+    tokens = batch["tokens"]
+    h = _embed(cfg, params, tokens).to(cache_dtype(cfg))
+    h = constrain(h, rules, "batch", "seq_sp", None)
+    sub_cache = {k: v for k, v in cache.items() if k != "cross"}
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, new_cache = transformer.decoder_apply(
+        cfg, params["decoder"], h, positions=positions, rules=rules,
+        caches=sub_cache, cache_len=0)
+    h = layers.rmsnorm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
+    return _lm_logits(cfg, params, h), new_cache
+
+
+def decode_step(cfg: ModelConfig, params, token, cache, cache_len: int, *,
+                rules: Rules = None):
+    """One new token against a cache holding ``cache_len`` positions (a
+    Python int: no device value to read back in the decode loop).  Returns
+    (logits (B,1,V), cache), the cache written in place."""
+    check_ported(cfg)
+    cache_len = int(cache_len)
+    h = _embed(cfg, params, token).to(cache_dtype(cfg))
+    sub_cache = {k: v for k, v in cache.items() if k != "cross"}
+    positions = cache_len + torch.arange(1, device=h.device)
+    h, new_cache = transformer.decoder_apply(
+        cfg, params["decoder"], h, positions=positions, rules=rules,
+        caches=sub_cache, cache_len=cache_len)
+    h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return _lm_logits(cfg, params, h), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Parameter counting
+# ---------------------------------------------------------------------------
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count from the abstract tree.  active_only: replace
+    each MoE layer's expert bank with (top_k + n_shared) experts — the 6·N·D
+    'active parameters' convention for MoE FLOPs."""
+    total = sum(math.prod(s.shape)
+                for s in tree_leaves(model_abstract(cfg)))
+    if active_only and cfg.moe is not None:
+        mo = cfg.moe
+        D, F, E = cfg.d_model, mo.d_expert, mo.num_experts
+        per_expert = 3 * D * F
+        nd = mo.first_dense
+        n_moe = sum(
+            1 for s in range(len(cfg.pattern))
+            if transformer._slot_is_moe(cfg, s)) * (
+                (cfg.n_layers - nd) // len(cfg.pattern))
+        total -= n_moe * (E - mo.top_k) * per_expert
+    return total
+
+
+def non_embedding_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    n = count_params(cfg, active_only)
+    n -= cfg.padded_vocab * cfg.d_model        # input embedding table
+    return n

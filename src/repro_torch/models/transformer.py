@@ -1,0 +1,143 @@
+"""Decoder stack: periods of per-slot heterogeneous layers (the port's
+counterpart of ``repro.models.transformer``).
+
+The layer list is a repeating *pattern* of slots (config
+``layer_pattern``).  Weights are stacked per slot with a leading
+(n_periods,) axis, as the reference's; where it runs the periods under one
+``jax.lax.scan``, the port loops over them in Python, each period reading
+its slice of the stacked weights and caches (views, so a cache write lands
+in the stacked tensor, and the new caches stay stacked per slot).
+
+Layers that cannot join the uniform stack (DeepSeek-V2's first dense
+layer) are an unrolled prefix, as in the reference.
+"""
+from __future__ import annotations
+
+from .config import ModelConfig
+from .sharding import ParamSpec, Rules, constrain, tree_map
+from . import layers, moe, ssm
+
+# ---------------------------------------------------------------------------
+# Abstract parameter construction
+# ---------------------------------------------------------------------------
+
+
+def _stack(abstract, n: int):
+    """Prepend a stacked (n,) layer axis to every ParamSpec in a pytree."""
+    return tree_map(
+        lambda s: ParamSpec((n, *s.shape), (None, *s.logical), s.init,
+                            s.scale), abstract)
+
+
+def _slot_abstract(cfg: ModelConfig, kind: str, is_moe: bool,
+                   cross_attn: bool):
+    d = {"ln1": layers.rmsnorm_abstract(cfg.d_model)}
+    if kind == "attn":
+        d["attn"] = (layers.mla_abstract(cfg) if cfg.attn_type == "mla"
+                     else layers.gqa_abstract(cfg))
+    else:
+        d["attn"] = ssm.ssm_abstract(cfg)
+    if cross_attn:
+        d["ln_x"] = layers.rmsnorm_abstract(cfg.d_model)
+        d["xattn"] = layers.gqa_abstract(cfg)
+    if is_moe:
+        d["ln2"] = layers.rmsnorm_abstract(cfg.d_model)
+        d["mlp"] = moe.moe_abstract(cfg)
+    elif cfg.d_ff > 0:
+        d["ln2"] = layers.rmsnorm_abstract(cfg.d_model)
+        d["mlp"] = (layers.gelu_mlp_abstract(cfg.d_model, cfg.d_ff)
+                    if cfg.family == "audio"
+                    else layers.swiglu_abstract(cfg.d_model, cfg.d_ff))
+    return d
+
+
+def _slot_is_moe(cfg: ModelConfig, slot: int) -> bool:
+    if cfg.moe is None:
+        return False
+    return slot % cfg.moe.every_k == cfg.moe.every_k - 1 or cfg.moe.every_k == 1
+
+
+def decoder_abstract(cfg: ModelConfig):
+    nd = cfg.moe.first_dense if cfg.moe else 0
+    n_scanned = cfg.n_layers - nd
+    period = cfg.pattern
+    assert n_scanned % len(period) == 0
+    n_periods = n_scanned // len(period)
+    xattn = cfg.is_encoder_decoder
+    return {
+        "prefix": [
+            _slot_abstract(cfg, "attn", False, xattn) for _ in range(nd)],
+        "slots": [
+            _stack(_slot_abstract(cfg, kind, _slot_is_moe(cfg, s), xattn),
+                   n_periods)
+            for s, kind in enumerate(period)],
+    }
+
+
+def encoder_abstract(cfg: ModelConfig):
+    slot = {
+        "ln1": layers.rmsnorm_abstract(cfg.d_model),
+        "attn": layers.gqa_abstract(cfg),
+        "ln2": layers.rmsnorm_abstract(cfg.d_model),
+        "mlp": (layers.gelu_mlp_abstract(cfg.d_model, cfg.d_ff)
+                if cfg.family == "audio"
+                else layers.swiglu_abstract(cfg.d_model, cfg.d_ff)),
+    }
+    return {"slots": [_stack(slot, cfg.encoder_layers)],
+            "final_norm": layers.rmsnorm_abstract(cfg.d_model)}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_slot(cfg: ModelConfig, kind: str, sp, h, *, positions, rules,
+                cache=None, cache_len=None):
+    """One residual block: GQA attention + SwiGLU MLP, the blocks of the
+    ``dense`` and ``vlm`` families (``model.check_ported`` refuses the
+    others, ROADMAP A19b)."""
+    new_cache = {}
+    hn = layers.rmsnorm(sp["ln1"], h, cfg.norm_eps)
+    a, c = layers.gqa_apply(cfg, sp["attn"], hn, positions=positions,
+                            cache=None if cache is None else cache["attn"],
+                            cache_len=cache_len, rules=rules)
+    if c is not None:
+        new_cache["attn"] = c
+    h = h + a.to(h.dtype)
+    if "mlp" in sp:
+        hn = layers.rmsnorm(sp["ln2"], h, cfg.norm_eps)
+        h = h + layers.swiglu_apply(sp["mlp"], hn).to(h.dtype)
+    if h.shape[1] > 1:
+        h = constrain(h, rules, "batch", "seq_sp", None)
+    return h, (new_cache or None)
+
+
+def _period(tree, i: int):
+    """Period ``i``'s slice of a stacked slot tree (views)."""
+    return tree_map(lambda t: t[i], tree, is_leaf=lambda x: False)
+
+
+def decoder_apply(cfg: ModelConfig, dec_params, h, *, positions,
+                  rules: Rules = None, caches=None, cache_len=None,
+                  train: bool = False):
+    """Run the prefix layers, then the stacked periods, in order.
+
+    caches: {"prefix": [cache, ...], "slots": [stacked cache, ...]} or
+    None; written in place.  Returns (h, new_caches), new_caches being
+    ``caches`` (the same stacked tensors) or None.
+    """
+    period = cfg.pattern
+    for i, sp in enumerate(dec_params["prefix"]):
+        c = caches["prefix"][i] if caches is not None else None
+        h, _ = _apply_slot(cfg, "attn", sp, h, positions=positions,
+                           rules=rules, cache=c, cache_len=cache_len)
+    n_periods = (cfg.n_layers - len(dec_params["prefix"])) // len(period)
+    for i in range(n_periods):
+        for s, kind in enumerate(period):
+            c = (None if caches is None
+                 else _period(caches["slots"][s], i))
+            h, _ = _apply_slot(cfg, kind, _period(dec_params["slots"][s], i),
+                               h, positions=positions, rules=rules, cache=c,
+                               cache_len=cache_len)
+    return h, caches

@@ -295,6 +295,10 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                             "--workers", "4", "--iters", "40",
                             "--use-kernel"],
             ITERS=40, LS_ITERS=900,
+            # phase 19 on the smoke configs
+            LM_SMOKE=True, LM_BATCH=(2, 16),
+            LM_SERVE_ARGS=["--requests", "3", "--batch", "2", "--prompt-len",
+                           "8", "--max-new", "4"],
             smi=lambda: "NVIDIA H100 80GB HBM3, 700.00 W").items():
         monkeypatch.setattr(smoke, name, value)
     medians_ms = smoke.medians_ms
@@ -513,7 +517,7 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert [k["name"] for k in kernels] == list(bp.KERNELS)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "forms",
-            "mesh_launches", "mesh_serving_launches"}
+            "mesh_launches", "mesh_serving_launches", "lm_probe_launches"}
     form_keys = {"pair", "k", "ms", "row_dot_ms", "ring_ms", "bound_ms",
                  "bound_by", "launches", "max_abs_err", "library_ms",
                  "library"}
@@ -522,6 +526,9 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
         assert set(k) == keys and k["launches"] == 40, k
         assert k["mesh_launches"] == 40, k          # phase 16 (a)
         assert k["mesh_serving_launches"] == 40, k  # phase 17 (a)
+        # phase 19 (d): the probe's kernel-path solve, the APC pair alone
+        assert k["lm_probe_launches"] == (
+            smoke.PROBE["iters"] if k["name"] in bp.ALL_BF16 else 0), k
         assert np.isfinite([k["ms"], k["plain_ms"], k["bound_ms"]]).all()
         # the APC pair's all-bf16 form beside the four others, its
         # launches from phase 15's ops.block_projection
@@ -678,3 +685,22 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
         assert sum(x.startswith("phase 18 two ranks over gloo on cpu")
                    and f" {key}=2" in x for x in p18) == 1, (key, p18)
     assert any(x.startswith("phase 18 memory:") for x in p18), p18
+    # phase 19: the LM serving path on the smoke configs (the faked card
+    # is the CPU), decode ≡ forward, card ≡ CPU, the probe on the kernels,
+    # the serving CLI twice a config
+    p19 = [x for x in lines if x.startswith("phase 19 ")]
+    assert p19[0].startswith("phase 19 start: resident") and \
+        "TF32 False" in p19[0], p19
+    assert any(x.startswith("phase 19 (a) tinyllama-smoke float32")
+               and "(rtol 1e-4, atol 1e-4 / 2e-4: True)" in x
+               for x in p19), p19
+    assert any(x.startswith("phase 19 (b) tinyllama-smoke cut to 2 layers")
+               for x in p19), p19
+    assert any(x.startswith("phase 19 (d) probe") and "of the unfused one "
+               "True" in x and "'apc_gather': 2000, 'apc_scatter': 2000" in x
+               for x in p19), p19
+    for arch in ("tinyllama-1.1b", "qwen3-4b"):
+        assert sum(x.startswith(f"phase 19 (c) serve {arch} ")
+                   and "greedy tokens equal across the runs True" in x
+                   and "3 requests" in x for x in p19) == 1, (arch, p19)
+    assert sum(x.startswith("served 3 requests in ") for x in lines) == 4
