@@ -188,7 +188,24 @@ script exits non-zero without its last line:
    on (a)'s features: ``fit_probe`` within 1e-3 of the float64 closed
    form, and its normal system on ``ExecutionPlan(kernel=True)``, the
    history within 1e-6 of the unfused one, ``apc_gather`` and
-   ``apc_scatter`` counted (the JSON line's ``lm_probe_launches``).
+   ``apc_scatter`` counted (the JSON line's ``lm_probe_launches``);
+20. the LM serving path of the MoE, SSM, hybrid and MLA decoders (A19b
+   parts 1-3; no kernel backs it), once phases 1-19 have returned (what
+   they held freed; the largest tensors still on the card listed): (a) in float32, mamba2-130m at full
+   depth ((2, 512) forward, two SSD chunks; prefill 256, decode at 256 and
+   257), qwen3-moe-30b-a3b at 4 layers, jamba-v0.1-52b at one period of 8
+   and deepseek-v2-236b at 2 (the dense MLA layer and one MoE layer),
+   MoE at capacity factor 32, prefill and two decode steps against the
+   forward at tests/test_models.py's tolerances; (b) mamba2-130m, and
+   qwen3-moe-30b-a3b and deepseek-v2-236b cut to 2 layers, the card's
+   logits against the CPU's within 2e-5 of max + 1, and every MoE layer's
+   top-k expert ids equal (the smallest gap between the k-th and (k+1)-th
+   router probability printed); (c) bfloat16 serving (8 requests, batch
+   4, prompt 128, 32 new tokens) twice each: qwen3-moe-30b-a3b and
+   mamba2-130m through the CLI at full size, jamba-v0.1-52b at 8 layers
+   and deepseek-v2-236b at 4 through ``serve.serve``; tokens equal, tok/s,
+   a prefill's and a decode step's ms beside the step's bytes bound,
+   parameters and peak GB.
 
 Every other phase runs under ``REPRO_KERNEL_ENGINE=fused``, the pin the
 reference's own benchmarks use: the kernels those phases hold, count
@@ -292,6 +309,17 @@ LM_SERVE_ARGS = ["--requests", "8", "--batch", "4", "--prompt-len", "128",
                  "--max-new", "32"]
 # (d): examples/probe_apc.py's probe on (a)'s features
 PROBE = dict(B=8, S=64, cols=64, m=4, lam=10.0, iters=2000)
+# phase 20: the LM serving path of the MoE, SSM, hybrid and MLA decoders
+# (A19b parts 1-3), the published dimensions cut in depth only (None: the
+# full depth; a cut longer than a config is the config).  An SSM config's
+# (a) runs (2, 2 * chunk) tokens, prefill one chunk.
+LM20_DEPTH = {"mamba2-130m": None, "qwen3-moe-30b-a3b": 4,
+              "jamba-v0.1-52b": 8, "deepseek-v2-236b": 2}   # (a): float32
+LM20_NO_DROPS = 32.0                # (a): MoE capacity factor (no drops)
+LM20_CPU = {"mamba2-130m": None, "qwen3-moe-30b-a3b": 2,
+            "deepseek-v2-236b": 2}  # (b): card ≡ CPU on (a)'s weights cut
+LM20_CLI = ("qwen3-moe-30b-a3b", "mamba2-130m")   # (c): the CLI, full size
+LM20_CUT = {"jamba-v0.1-52b": 8, "deepseek-v2-236b": 4}   # (c): serve.serve
 PROBE_HIST_REL = 1e-6               # kernel-path history vs the unfused one
 SOURCE = "src/repro_torch/kernels/csrc/block_projection.cu"
 REPLACES = {"apc_gather": "src/repro/kernels/block_projection.py:173",
@@ -2028,6 +2056,62 @@ def redundancy_phase(card, dsys, chol, pinned) -> None:
     say(f"phase 18: {time.time() - t18:.1f} s")
 
 
+def serve_arg(name: str) -> int:
+    """The value of ``name`` in ``LM_SERVE_ARGS``."""
+    return int(LM_SERVE_ARGS[LM_SERVE_ARGS.index(name) + 1])
+
+
+def decode_vs_forward(cfg, params, toks, pre):
+    """The full forward of ``toks`` (B, S) (timed cold and warm), then a
+    prefill of its first ``pre`` tokens and decode steps at ``pre`` and
+    ``pre + 1``, each against the forward at its position at
+    tests/test_models.py's tolerances.  Returns (logits, ms cold, ms warm,
+    the three max|Δ|, the three verdicts)."""
+    from repro_torch.models import model
+    B, S = toks.shape
+    with torch.inference_mode():
+        full, ms_cold = timed_ms(lambda: model.forward(
+            cfg, params, {"tokens": toks}))
+        _, ms_fwd = timed_ms(lambda: model.forward(
+            cfg, params, {"tokens": toks}))
+        cache = model.init_cache(cfg, B, S, torch.float32, toks.device)
+        ll, cache = model.prefill(cfg, params, {"tokens": toks[:, :pre]},
+                                  cache)
+        devs = [float((ll[:, 0] - full[:, pre - 1]).abs().max())]
+        ok = [torch.allclose(ll[:, 0], full[:, pre - 1], rtol=1e-4,
+                             atol=1e-4)]
+        for pos in (pre, pre + 1):
+            dl, cache = model.decode_step(cfg, params, toks[:, pos:pos + 1],
+                                          cache, pos)
+            devs.append(float((dl[:, 0] - full[:, pos]).abs().max()))
+            ok.append(torch.allclose(dl[:, 0], full[:, pos], rtol=1e-4,
+                                     atol=2e-4))
+    assert full.shape == (B, S, cfg.padded_vocab)
+    assert bool(torch.isfinite(full).all())
+    return full, ms_cold, ms_fwd, devs, ok
+
+
+def step_ms(cfg, params, gen):
+    """CUDA-event medians of one prefill of ``LM_SERVE_ARGS``' batch of
+    prompts (drawn from ``gen``) and of one decode step after it, into a
+    fresh cache of the serving length.  Returns (ms by name, the cache,
+    the decode step's token)."""
+    from repro_torch.models import model
+    nb, plen = serve_arg("--batch"), serve_arg("--prompt-len")
+    prompts = torch.randint(0, cfg.vocab_size, (nb, plen), generator=gen,
+                            device=gen.device)
+    cache = model.init_cache(cfg, nb, plen + serve_arg("--max-new"),
+                             device=gen.device)
+    tok = prompts[:, :1]
+    with torch.inference_mode():
+        ms = medians_ms({
+            "prefill": lambda: model.prefill(
+                cfg, params, {"tokens": prompts}, cache),
+            "decode": lambda: model.decode_step(
+                cfg, params, tok, cache, plen)}, reps=5, batch=1)
+    return ms, (cache, tok)
+
+
 def lm_phase(card) -> dict:
     """Phase 19: the LM framework's serving path for GQA decoders (A19a)
     and the APC probe head on the card.  Returns the probe's kernel
@@ -2060,24 +2144,8 @@ def lm_phase(card) -> dict:
     B, S = LM_BATCH
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen(1),
                          device=device)
-    with torch.inference_mode():
-        full, ms_cold = timed_ms(lambda: model.forward(
-            cfg, params, {"tokens": toks}))
-        _, ms_fwd = timed_ms(lambda: model.forward(
-            cfg, params, {"tokens": toks}))
-        cache = model.init_cache(cfg, B, S, torch.float32, device)
-        ll, cache = model.prefill(cfg, params, {"tokens": toks[:, :S - 2]},
-                                  cache)
-        devs = [float((ll[:, 0] - full[:, S - 3]).abs().max())]
-        ok = [torch.allclose(ll[:, 0], full[:, S - 3], rtol=1e-4, atol=1e-4)]
-        for pos in (S - 2, S - 1):
-            dl, cache = model.decode_step(cfg, params, toks[:, pos:pos + 1],
-                                          cache, pos)
-            devs.append(float((dl[:, 0] - full[:, pos]).abs().max()))
-            ok.append(torch.allclose(dl[:, 0], full[:, pos], rtol=1e-4,
-                                     atol=2e-4))
-    assert full.shape == (B, S, cfg.padded_vocab)
-    assert bool(torch.isfinite(full).all())
+    full, ms_cold, ms_fwd, devs, ok = decode_vs_forward(cfg, params, toks,
+                                                        S - 2)
     n_params = model.count_params(cfg)
     say(f"phase 19 (a) {cfg.name} float32 ({cfg.n_layers} layers, d "
         f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params} parameters, "
@@ -2090,10 +2158,7 @@ def lm_phase(card) -> dict:
 
     # (b) card ≡ CPU on the same weights cut to LM_CUT_LAYERS layers -----
     cut = dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS)
-    cut_params = dict(params, decoder=dict(params["decoder"], slots=[
-        sharding.tree_map(lambda w: w[:LM_CUT_LAYERS], slot,
-                          is_leaf=lambda x: False)
-        for slot in params["decoder"]["slots"]]))
+    cut_params = lm_cut_params(params, cut)
     on_cpu = sharding.tree_map(lambda w: w.cpu(), cut_params,
                                is_leaf=lambda x: False)
     with torch.inference_mode():
@@ -2104,7 +2169,7 @@ def lm_phase(card) -> dict:
         f"the card's logits vs the CPU's max|Δ| {d:.3e}, "
         f"{e:.3e} of max|CPU| + 1 (limit {LM_CPU_TOL})")
     assert e <= LM_CPU_TOL, e
-    del cut_params, on_cpu, card_logits, cpu_logits, cache, ll
+    del cut_params, on_cpu, card_logits, cpu_logits
 
     # (d) the APC probe on (a)'s features --------------------------------
     pb, ps, cols = PROBE["B"], PROBE["S"], PROBE["cols"]
@@ -2173,19 +2238,8 @@ def lm_phase(card) -> dict:
                                      model.cache_dtype(scfg), device)
         resident = torch.cuda.memory_allocated() / 1e9
         weights = (torch.cuda.memory_allocated() - before) / 1e9
-        nb = int(LM_SERVE_ARGS[LM_SERVE_ARGS.index("--batch") + 1])
-        plen = int(LM_SERVE_ARGS[LM_SERVE_ARGS.index("--prompt-len") + 1])
-        new = int(LM_SERVE_ARGS[LM_SERVE_ARGS.index("--max-new") + 1])
-        prompts = torch.randint(0, scfg.vocab_size, (nb, plen),
-                                generator=gen(3), device=device)
-        cache = model.init_cache(scfg, nb, plen + new, device=device)
-        tok = prompts[:, :1]
-        with torch.inference_mode():
-            ms = medians_ms({
-                "prefill": lambda: model.prefill(
-                    scfg, sparams, {"tokens": prompts}, cache),
-                "decode": lambda: model.decode_step(
-                    scfg, sparams, tok, cache, plen)}, reps=5, batch=1)
+        nb, plen = serve_arg("--batch"), serve_arg("--prompt-len")
+        ms, _ = step_ms(scfg, sparams, gen(3))
         say(f"phase 19 (c) serve {arch} ({scfg.dtype}, {scfg.n_layers} "
             f"layers, d {scfg.d_model}, vocab {scfg.vocab_size} -> "
             f"{scfg.padded_vocab}, qk_norm {scfg.qk_norm}) "
@@ -2199,12 +2253,265 @@ def lm_phase(card) -> dict:
             f"{resident:.3f} GB with them, peak {peak:.3f} GB while "
             f"serving")
         assert same, arch
-        del sparams, cache, prompts, tok, reps
+        del sparams, reps
         gc.collect()
         torch.cuda.empty_cache()
     say(f"phase 19: {time.time() - t19:.1f} s")
     say(card)
     return {kn: launches[kn] for kn in launches}
+
+
+def lm_cut(cfg, layers):
+    """``cfg`` cut to its first ``layers`` layers (None, or at least its
+    depth: ``cfg`` itself)."""
+    if layers is None or layers >= cfg.n_layers:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def lm_cut_params(params, cfg):
+    """The leading layers of ``params`` that ``cfg`` (a depth cut) has:
+    its prefix, then each stacked slot's first periods (views)."""
+    from repro_torch.models import sharding
+    nd = cfg.moe.first_dense if cfg.moe else 0
+    periods = (cfg.n_layers - nd) // len(cfg.pattern)
+    dec = params["decoder"]
+    return dict(params, decoder=dict(dec, prefix=dec["prefix"][:nd], slots=[
+        sharding.tree_map(lambda w: w[:periods], slot,
+                          is_leaf=lambda x: False) for slot in dec["slots"]]))
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """The MoE router's (probs, gates, eids) of every call inside, in
+    order (``moe.route`` wrapped for the block's duration)."""
+    from repro_torch.models import moe
+    seen, route = [], moe.route
+
+    def record(cfg, router, xf):
+        out = route(cfg, router, xf)
+        seen.append(out)
+        return out
+    moe.route = record
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def lm_nbytes(tree) -> int:
+    from repro_torch.models import sharding
+    return sum(t.numel() * t.element_size() for t in sharding.tree_leaves(
+        tree, is_leaf=lambda x: False))
+
+
+def lm_decode_bound_ms(cfg, params, cache, bw, routes=()) -> tuple:
+    """The bytes bounds of one decode step, (every expert, routed experts):
+    every weight it reads once (the embedding table only where it is the
+    tied LM head: an untied one is read a row a token) and the cache once,
+    over the card's rate.  The first counts every expert of a MoE layer, as
+    the grouped product reads them all; the second only the experts that
+    ``routes`` (the step's ``recorded_routes``, one a MoE layer) send a
+    token to."""
+    w = lm_nbytes(params)
+    if not cfg.tie_embeddings:
+        w -= lm_nbytes(params["embed"])
+    every = (w + lm_nbytes(cache)) / bw * 1e3
+    moes = [sp["mlp"] for sp in params["decoder"]["slots"]
+            if "router" in (sp.get("mlp") or {})]
+    if not moes:
+        return every, every
+    names = ("w_gate", "w_up", "w_down")
+    assert len(routes) == sum(len(m["router"]) for m in moes), len(routes)
+    per_expert = lm_nbytes({k: moes[0][k][0, 0] for k in names})
+    unread = sum(lm_nbytes({k: m[k] for k in names}) for m in moes) \
+        - sum(len(eids.unique()) for _, _, eids in routes) * per_expert
+    return every, every - unread / bw * 1e3
+
+
+def device_time(run):
+    """(kernel ms summed from ``torch.profiler``'s key_averages, wall ms,
+    the three kernels with the most device time as (name, ms, launches))
+    over one ``run()``, the profiler on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+    return busy, wall, [(e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in top]
+
+
+def lm_families_phase(card, bw) -> None:
+    """Phase 20: the LM serving path of the MoE, SSM, hybrid and MLA
+    decoders (A19b parts 1-3).  No kernel backs it (the reference computes
+    MoE, SSD and MLA in XLA ops, no Pallas kernel)."""
+    from repro_torch import configs, device as dev
+    from repro_torch.launch import serve
+    from repro_torch.models import model, sharding
+    t20 = time.time()
+    device = dev.resolve()
+    say(f"phase 20 start: resident {torch.cuda.memory_allocated() / 1e9:.3f}"
+        f" GB allocated, {torch.cuda.memory_reserved() / 1e9:.3f} GB "
+        f"reserved")
+    get = configs.get_smoke if LM_SMOKE else configs.get
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) decode ≡ forward in float32; (b) card ≡ CPU, routes included ----
+    for arch, depth in LM20_DEPTH.items():
+        cfg = lm_cut(dataclasses.replace(get(arch), dtype="float32"), depth)
+        published = cfg
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=LM20_NO_DROPS))
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        params = sharding.init_tree(model.model_abstract(cfg), gen(0),
+                                    torch.float32, device)
+        torch.cuda.synchronize()
+        t_init = time.time() - t
+        if cfg.family == "ssm":
+            (B, S), pre = (2, 2 * cfg.ssm.chunk), cfg.ssm.chunk
+        else:
+            (B, S), pre = LM_BATCH, LM_BATCH[1] - 2
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen(1),
+                             device=device)
+        full, ms_cold, ms_fwd, devs, ok = decode_vs_forward(cfg, params,
+                                                            toks, pre)
+        mo = cfg.moe
+        experts = (f"{mo.num_experts} experts top-{mo.top_k}, {mo.n_shared} "
+                   f"shared, capacity factor {mo.capacity_factor}, "
+                   if mo else "")
+        say(f"phase 20 (a) {cfg.name} float32 ({cfg.family}, {cfg.n_layers} "
+            f"layers, pattern {'/'.join(cfg.pattern)}, attention "
+            f"{cfg.attn_type}, d {cfg.d_model}, vocab {cfg.vocab_size}, "
+            f"{experts}{model.count_params(cfg)} parameters, "
+            f"{lm_nbytes(params) / 1e9:.3f} GB, drawn in {t_init:.2f} s): "
+            f"forward ({B}, {S}) in {ms_cold:.1f} ms cold, {ms_fwd:.1f} ms "
+            f"warm, max|logit| {float(full.abs().max()):.4f}; prefill {pre} "
+            f"+ 2 decode steps vs forward at {pre - 1}, {pre}, {pre + 1} "
+            f"max|Δ| {devs[0]:.3e} / {devs[1]:.3e} / {devs[2]:.3e} (rtol "
+            f"1e-4, atol 1e-4 / 2e-4: {all(ok)}); peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        assert all(ok), (arch, devs)
+        del full
+        if arch in LM20_CPU:
+            cut = lm_cut(published, LM20_CPU[arch])
+            cut_params = lm_cut_params(params, cut)
+            on_cpu = sharding.tree_map(lambda w: w.cpu(), cut_params,
+                                       is_leaf=lambda x: False)
+            with torch.inference_mode():
+                with recorded_routes() as card_routes:
+                    card_logits = model.forward(cut, cut_params,
+                                                {"tokens": toks})
+                t = time.time()
+                with recorded_routes() as cpu_routes:
+                    cpu_logits = model.forward(cut, on_cpu,
+                                               {"tokens": toks.cpu()})
+                t_cpu = time.time() - t
+            e, d = rel_err(card_logits.cpu(), cpu_logits)
+            differ, gap = 0, math.inf
+            assert len(card_routes) == len(cpu_routes)
+            for (_, _, ec), (pc, _, ep) in zip(card_routes, cpu_routes):
+                differ += int((ec.cpu() != ep).any(-1).sum())
+                top = torch.sort(pc, dim=-1, descending=True).values
+                K = cut.moe.top_k
+                gap = min(gap, float((top[:, K - 1] - top[:, K]).min()))
+            routes = (f"; top-{cut.moe.top_k} routes of {len(cpu_routes)} "
+                      f"MoE layers x {B * S} tokens (capacity factor "
+                      f"{cut.moe.capacity_factor}): {differ} differ, the "
+                      f"smallest gap between the k-th and (k+1)-th router "
+                      f"probability {gap:.3e}" if cut.moe else "")
+            say(f"phase 20 (b) {cut.name} at {cut.n_layers} layers, float32, "
+                f"({B}, {S}) tokens: the card's logits vs the CPU's max|Δ| "
+                f"{d:.3e}, {e:.3e} of max|CPU| + 1 (limit {LM_CPU_TOL}; the "
+                f"CPU's forward {t_cpu:.1f} s){routes}")
+            assert e <= LM_CPU_TOL, (arch, e)
+            assert differ == 0, (arch, differ, gap)
+            del cut_params, on_cpu, card_logits, cpu_logits, card_routes, \
+                cpu_routes
+        del params, toks
+        free()
+
+    # (c) bfloat16 serving --------------------------------------------------
+    nb, plen = serve_arg("--batch"), serve_arg("--prompt-len")
+    for arch in (*LM20_CLI, *LM20_CUT):
+        scfg = lm_cut(get(arch), LM20_CUT.get(arch))
+        torch.cuda.reset_peak_memory_stats()
+        reps, sparams = [], None
+        if arch in LM20_CLI:
+            how = "the CLI (launch/serve.py)"
+            argv = ["--arch", arch, *(["--smoke"] if LM_SMOKE else []),
+                    *LM_SERVE_ARGS]
+            for _ in range(2):
+                reps.append(serve.run(argv))
+                free()
+        else:
+            how = f"serve.serve on the cut to {scfg.n_layers} layers"
+            sparams = sharding.init_tree(model.model_abstract(scfg), gen(0),
+                                         model.cache_dtype(scfg), device)
+            for _ in range(2):
+                reps.append(serve.serve(
+                    scfg, sparams, requests=serve_arg("--requests"),
+                    batch=nb, prompt_len=plen,
+                    max_new=serve_arg("--max-new"), device=device))
+        same = all(np.array_equal(a, b) for a, b in zip(reps[0].tokens,
+                                                        reps[1].tokens))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if sparams is None:
+            sparams = sharding.init_tree(model.model_abstract(scfg), gen(0),
+                                         model.cache_dtype(scfg), device)
+        ms, (cache, tok) = step_ms(scfg, sparams, gen(3))
+        with torch.inference_mode(), recorded_routes() as routes:
+            busy, wall, top = device_time(lambda: model.decode_step(
+                scfg, sparams, tok, cache, plen))
+        bound, routed = lm_decode_bound_ms(scfg, sparams, cache, bw, routes)
+        # only the faked card of the CPU rehearsal shows no device time
+        assert busy > 0 or LM_SMOKE, (arch, "no device time in the profile")
+        profiled = (
+            f"kernels {busy:.2f} ms of {wall:.2f} ms wall, the device idle "
+            f"{1 - busy / wall:.1%}; most device time: " + ", ".join(
+                f"{name[:48]} {ms:.2f} ms ({n})" for name, ms, n in top)
+            if busy > 0 else "the profiler shows no device time: the "
+            "device's idle share not measured")
+        n_routed = sum(len(eids.unique()) for _, _, eids in routes)
+        experts = (f"; {routed:.3f} ms with only the {n_routed} routed "
+                   f"experts of its {len(routes)} MoE layers read"
+                   if routes else "")
+        say(f"phase 20 (c) serve {arch} ({scfg.dtype}, {scfg.family}, "
+            f"{scfg.n_layers} layers, d {scfg.d_model}, vocab "
+            f"{scfg.vocab_size}) through {how}, "
+            f"{' '.join(LM_SERVE_ARGS)}: {reps[0].served} requests, "
+            f"{reps[0].tok_per_s:.1f} / {reps[1].tok_per_s:.1f} tok/s in two "
+            f"runs ({reps[0].seconds:.2f} / {reps[1].seconds:.2f} s); "
+            f"greedy tokens equal across the runs {same}; one prefill "
+            f"({nb} x {plen}) {ms['prefill']:.2f} ms, one decode step "
+            f"{ms['decode']:.2f} ms (CUDA events, a call each, the host's "
+            f"launches included; its bytes bound {bound:.3f} ms: the "
+            f"weights it reads, every expert, and the cache{experts}); one "
+            f"decode step profiled: {profiled}; parameters "
+            f"{lm_nbytes(sparams) / 1e9:.3f} GB, peak {peak:.3f} GB while "
+            f"serving")
+        assert same, arch
+        del sparams, cache, tok, reps
+        free()
+    say(f"phase 20: {time.time() - t20:.1f} s")
+    say(card)
 
 
 def rotating_straggler(m):
@@ -2291,10 +2598,25 @@ def main() -> int:
               "test needs a CUDA device", file=sys.stderr)
         return 1
     with env_var(ENGINE_ENV, "fused"):
-        return phases()
+        kernels, card, t0, bw = phases()
+    # 20. the LM serving path of the MoE, SSM, hybrid and MLA decoders,
+    # once phases 1-19 have returned: nothing they held stays on the card
+    # (qwen3-moe-30b-a3b's bf16 weights alone take 61 of its 80 GB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_families_phase(card, bw)
+    say(json.dumps({"kernels": kernels}))
+    say(f"total {time.time() - t0:.1f} s")
+    say(card)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
-def phases() -> int:
+def phases():
+    """Phases 1-19.  Returns (the ``{"kernels": [...]}`` line's list, the
+    card's ``nvidia-smi`` line, the start time, the card's memory rate)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import solvers
     from repro_torch.analysis import tracecheck
@@ -3952,13 +4274,7 @@ def phases() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "forms": forms})
-    say(json.dumps({"kernels": kernels}))
-    say(f"total {time.time() - t0:.1f} s")
-    say(card)
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels, card, t0, bw
 
 
 if __name__ == "__main__":

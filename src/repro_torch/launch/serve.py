@@ -8,7 +8,10 @@ Each batch is prefilled into a fresh cache of ``prompt_len + max_new``
 positions, then decoded greedily, the argmax taken over the real
 vocabulary (``[:vocab_size]`` of the padded logits).  Parameters are drawn
 from a seed (``sharding.init_tree``); a full config runs in its own dtype
-(bfloat16).  Runs on the card unless ``--device cpu``.
+(bfloat16).  Runs on the card unless ``--device cpu``.  Every
+decoder-only family serves (dense, vlm, moe, ssm, hybrid); ``serve`` is
+the same loop for a config object and its parameters, such as a depth
+cut of a published config.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --smoke --requests 6 --batch 2 --prompt-len 16 --max-new 8
@@ -77,9 +80,44 @@ class ServeReport(NamedTuple):
     tok_per_s: float
 
 
+def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
+          max_new: int, device) -> ServeReport:
+    """Serve ``requests`` random prompts (seed 0) in slot batches of
+    ``batch`` on ``params`` (the CLI's loop, for a config object: a depth
+    cut of a published config, say), printing the reference's lines."""
+    model.check_ported(cfg)
+    rules = sharding.Rules()
+    rng = np.random.default_rng(0)
+    queue = deque(rng.integers(0, cfg.vocab_size, size=prompt_len)
+                  for _ in range(requests))
+    extra = {}
+    if cfg.frontend == "vision":
+        extra["patches"] = torch.zeros(
+            (batch, cfg.num_patches, cfg.d_model),
+            dtype=model.cache_dtype(cfg), device=device)
+
+    done, tokens, t0 = 0, [], time.time()
+    decode = make_decode(cfg, rules)        # ONE decode step for all batches
+    while queue:
+        group, n_real = take_group(queue, batch)
+        prompts = torch.as_tensor(np.stack(group), dtype=torch.int64,
+                                  device=device)
+        toks = generate_batch(cfg, params, prompts, max_new, rules,
+                              extra, decode=decode).cpu().numpy()
+        tokens.append(toks)
+        done += n_real                      # padding is not traffic
+        print(f"batch of {n_real} (+{len(group) - n_real} pad): "
+              f"generated {toks.shape[1]} tokens each; "
+              f"sample: {toks[0][:8]}", flush=True)
+    dt = time.time() - t0
+    rate = done * max_new / dt
+    print(f"served {done} requests in {dt:.1f}s ({rate:.1f} tok/s)")
+    return ServeReport(tokens, done, dt, rate)
+
+
 def run(argv=None) -> ServeReport:
-    """Parse the CLI's arguments, serve, print the reference's lines and
-    return the report."""
+    """Parse the CLI's arguments, draw the parameters from seed 0, serve,
+    print the reference's lines and return the report."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -93,38 +131,12 @@ def run(argv=None) -> ServeReport:
 
     device = dev.resolve(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
-    model.check_ported(cfg)
-    rules = sharding.Rules()
     gen = torch.Generator(device=device).manual_seed(0)
     params = sharding.init_tree(model.model_abstract(cfg), gen,
                                 model.cache_dtype(cfg), device)
-
-    rng = np.random.default_rng(0)
-    queue = deque(rng.integers(0, cfg.vocab_size, size=args.prompt_len)
-                  for _ in range(args.requests))
-    extra = {}
-    if cfg.frontend == "vision":
-        extra["patches"] = torch.zeros(
-            (args.batch, cfg.num_patches, cfg.d_model),
-            dtype=model.cache_dtype(cfg), device=device)
-
-    done, tokens, t0 = 0, [], time.time()
-    decode = make_decode(cfg, rules)        # ONE decode step for all batches
-    while queue:
-        group, n_real = take_group(queue, args.batch)
-        prompts = torch.as_tensor(np.stack(group), dtype=torch.int64,
-                                  device=device)
-        toks = generate_batch(cfg, params, prompts, args.max_new, rules,
-                              extra, decode=decode).cpu().numpy()
-        tokens.append(toks)
-        done += n_real                      # padding is not traffic
-        print(f"batch of {n_real} (+{len(group) - n_real} pad): "
-              f"generated {toks.shape[1]} tokens each; "
-              f"sample: {toks[0][:8]}", flush=True)
-    dt = time.time() - t0
-    rate = done * args.max_new / dt
-    print(f"served {done} requests in {dt:.1f}s ({rate:.1f} tok/s)")
-    return ServeReport(tokens, done, dt, rate)
+    return serve(cfg, params, requests=args.requests, batch=args.batch,
+                 prompt_len=args.prompt_len, max_new=args.max_new,
+                 device=device)
 
 
 def main(argv=None) -> int:

@@ -16,10 +16,9 @@ blocks carrying (max, sum, acc) — and decode attends over the whole cache
 masked by ``kv_len``.  No Pallas kernel backs it in the reference, so it
 is no kernel slot here; a hand-written attention kernel is later work.
 
-This slice (ROADMAP A19a) serves GQA decoders: MLA, the GELU MLP, MoE and
-SSM blocks have their abstract (shape) functions only, enough to count
-parameters and lay out caches for every config.  Their forwards are
-A19b; the flash backward is A19c.
+GQA and MLA (DeepSeek-V2's latent attention, with its absorbed decode)
+serve; Whisper's GELU MLP and cross-attention have their shapes only
+(ROADMAP A19b part 4), and the flash backward is A19c.
 """
 from __future__ import annotations
 
@@ -235,7 +234,7 @@ def gqa_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
 
 
 # ---------------------------------------------------------------------------
-# MLA — multi-head latent attention (DeepSeek-V2): shapes only (A19b)
+# MLA — multi-head latent attention (DeepSeek-V2)
 # ---------------------------------------------------------------------------
 
 
@@ -260,6 +259,73 @@ def mla_cache_abstract(cfg: ModelConfig, batch: int, max_seq: int):
     return {"ckv": ParamSpec((batch, max_seq, r), ("batch", "kv_seq", None)),
             "krope": ParamSpec((batch, max_seq, dr),
                                ("batch", "kv_seq", None))}
+
+
+def _mla_qkv(cfg: ModelConfig, p, x: torch.Tensor, positions):
+    B, S, D = x.shape
+    H = cfg.n_heads
+    dn, dr, r = cfg.nope_head_dim, cfg.rope_head_dim, cfg.kv_lora_rank
+    q = rmsnorm({"scale": p["q_norm"]}, x @ p["wq_a"], cfg.norm_eps) \
+        @ p["wq_b"]
+    q = q.reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    kv = x @ p["wkv_a"]                                  # (B, S, r + dr)
+    ckv = rmsnorm({"scale": p["kv_norm"]}, kv[..., :r], cfg.norm_eps)
+    krope = rope(kv[..., r:][..., None, :], positions,
+                 cfg.rope_theta)[..., 0, :]              # (B, S, dr), shared
+    return q_nope, q_rope, ckv, krope
+
+
+def mla_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
+              cache=None, cache_len: int = None, rules=None):
+    """Multi-head latent attention.  Train and prefill expand K and V
+    from the latent and run ``flash_attention`` over the fresh tokens.
+    Decode (S == 1) takes the absorbed path: W_UK folds into q, and the
+    scores and values live in the r-space of the latent cache, which
+    holds (ckv, krope), r + dr values a token whatever the head count.
+
+    The cache is written in place at ``cache_len`` (a Python int); a
+    write past its end raises, as ``gqa_apply``'s does.
+    """
+    B, S, D = x.shape
+    H = cfg.n_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.nope_head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    q_nope, q_rope, ckv, krope = _mla_qkv(cfg, p, x, positions)
+
+    new_cache = None
+    if cache is not None:
+        start = int(cache_len)
+        cc, cr = cache["ckv"], cache["krope"]
+        if start < 0 or start + S > cc.shape[1]:
+            raise ValueError(f"cache write at {start}..{start + S} outside "
+                             f"a cache of {cc.shape[1]} positions")
+        cc[:, start:start + S] = ckv.to(cc.dtype)
+        cr[:, start:start + S] = krope.to(cr.dtype)
+        new_cache = {"ckv": cc, "krope": cr}
+        if S == 1:
+            wk_b = p["wk_b"].reshape(r, H, dn)
+            wv_b = p["wv_b"].reshape(r, H, dv)
+            q_c = torch.einsum("bshd,rhd->bshr", q_nope, wk_b)   # absorb W_UK
+            scale = (dn + dr) ** -0.5
+            s = (_f32_product("bshr,btr->bhst", q_c, cc)
+                 + _f32_product("bshd,btd->bhst", q_rope, cr)) * scale
+            k_pos = torch.arange(cc.shape[1], device=x.device)
+            s = torch.where(k_pos < start + S, s, NEG_INF)
+            prob = torch.softmax(s, dim=-1)
+            o_c = _f32_product("bhst,btr->bshr", prob.to(cc.dtype), cc)
+            out = torch.einsum("bshr,rhd->bshd", o_c.to(x.dtype), wv_b)
+            return out.reshape(B, S, H * dv) @ p["wo"], new_cache
+
+    # train / prefill: per-head K and V expanded from the latent
+    k_nope = torch.einsum("btr,rhd->bthd", ckv, p["wk_b"].reshape(r, H, dn))
+    v = torch.einsum("btr,rhd->bthd", ckv, p["wv_b"].reshape(r, H, dv))
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        *k_nope.shape[:3], dr)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = flash_attention(q, k, v, 0, True, pick_blk(k.shape[1]))
+    return out.reshape(B, S, H * dv) @ p["wo"], new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -6,12 +6,18 @@ Batch conventions:
   prefill: {"tokens": (B,S)} + empty cache -> last-position logits + cache
   decode:  token (B,1) + cache + cache_len (a Python int) -> logits + cache
 
-This slice serves the ``dense`` and ``vlm`` families (GQA decoders with
-SwiGLU MLPs).  ``forward``, ``prefill`` and ``decode_step`` refuse the
-others (``moe``, ``ssm``, ``hybrid``, ``audio``, or MLA attention) with a
-``NotImplementedError`` naming ROADMAP A19b; their shapes, parameter
-counts and cache layouts are whole here.  ``loss_fn`` comes with training
-(A19c).
+Every decoder-only family serves: ``dense`` and ``vlm`` (GQA), ``moe``
+(routed and shared experts; DeepSeek-V2's MLA attention and dense first
+layer), ``ssm`` (Mamba2) and ``hybrid`` (Jamba: SSM and attention slots,
+MoE on every second).  ``forward``, ``prefill`` and ``decode_step`` refuse
+the ``audio`` family (Whisper's encoder-decoder) with a
+``NotImplementedError`` naming ROADMAP A19b; its shapes, parameter counts
+and cache layouts are whole here.  ``loss_fn`` comes with training (A19c).
+
+Caches are updated in place (``transformer.decoder_apply``): attention
+writes its K/V or latent rows; an SSM block's state leaf turns float32 at
+the first bfloat16 decode step, as the reference's, the stacked leaf being
+replaced in the caller's tree.
 """
 from __future__ import annotations
 
@@ -25,8 +31,8 @@ from .config import ModelConfig
 from .sharding import ParamSpec, Rules, constrain, tree_leaves, tree_map
 from . import layers, ssm as ssm_mod, transformer
 
-#: the families whose forward is ROADMAP A19b
-UNPORTED_FAMILIES = ("moe", "ssm", "hybrid", "audio")
+#: the family whose forward is ROADMAP A19b part 4 (encoder-decoder)
+UNPORTED_FAMILIES = ("audio",)
 
 # ---------------------------------------------------------------------------
 # Abstract parameters
@@ -108,12 +114,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for a config whose forward this slice does not run."""
-    if cfg.family in UNPORTED_FAMILIES or cfg.attn_type != "gqa":
+    if cfg.family in UNPORTED_FAMILIES or cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with attn_type "
-            f"{cfg.attn_type!r} is ROADMAP A19b (MLA, MoE, SSM/hybrid and "
-            f"encoder-decoder serving), not ported yet; this slice runs "
-            f"the dense and vlm GQA decoders")
+            f"{cfg.name}: family {cfg.family!r} is ROADMAP A19b part 4 "
+            f"(encoder-decoder serving), not ported yet; the port serves "
+            f"the decoder-only families (dense, vlm, moe, ssm, hybrid)")
 
 
 def _embed(cfg: ModelConfig, params, tokens):

@@ -94,7 +94,10 @@ def init_tree(abstract, generator: torch.Generator, dtype: torch.dtype,
         std = spec.scale / (fan_in ** 0.5)
         x = torch.randn(spec.shape, generator=generator, dtype=dtype,
                         device=generator.device)
-        return (x * std).to(dtype).to(device)
+        # scaled in place: the same bits as ``x * std`` without a second
+        # copy of the leaf (a stacked expert bank can be a quarter of the
+        # card)
+        return x.mul_(std).to(device)
 
     def build(tree):       # leaves drawn in tree_leaves order
         if isinstance(tree, dict):

@@ -1,14 +1,28 @@
-"""Mamba2 (SSD) block: shapes only in this slice (the port's counterpart
-of ``repro.models.ssm``).
+"""Mamba2 block via SSD, state-space duality (arXiv:2405.21060; the port's
+counterpart of ``repro.models.ssm``).
 
-``ssm_abstract`` and ``ssm_cache_abstract`` are enough for
-``count_params`` and ``cache_abstract``; the chunked SSD scan and the
-decode recurrence (``ssm_apply``) are ROADMAP A19b.
+Train and prefill run the chunked SSD algorithm: the sequence is cut into
+Q-length chunks; within a chunk the recurrence is a masked quadratic form,
+and across chunks a Python loop carries the (B, H, N, P) state (the
+reference's ``lax.scan``).  Decode is the O(1) recurrence
+
+    h <- exp(dt·A) h + dt · B ⊗ x,   y = C·h + D·x.
+
+Dtypes follow the reference's promotion step for step: a bfloat16
+operand meeting a float32 one is widened (``torch.einsum`` refuses the
+mix JAX promotes), so in bfloat16 ``ssd_chunked`` returns y and the final
+state in float32, ``ssd_step`` returns its state in float32 and y in
+bfloat16, and the decode cache's state leaf turns float32 at the first
+decode step (``ssm_apply`` stores it uncast, as the reference's does).
 """
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
+
 from .config import ModelConfig
 from .sharding import ParamSpec
+from . import layers
 
 
 def ssm_abstract(cfg: ModelConfig):
@@ -42,3 +56,153 @@ def ssm_cache_abstract(cfg: ModelConfig, batch: int):
         "conv": ParamSpec((batch, sc.d_conv - 1, Din + 2 * N),
                           ("batch", None, None)),
     }
+
+
+def _promoted(*ts):
+    """``ts`` widened to their common dtype (JAX's promotion of a
+    bfloat16 operand meeting a float32 one)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
+def _einsum(eq: str, *ts) -> torch.Tensor:
+    return torch.einsum(eq, *_promoted(*ts))
+
+
+def _causal_conv_train(w, b, u):
+    """Depthwise causal conv over (B, L, C); width = w.shape[0].  The
+    shifted products are summed in order, in the input's dtype."""
+    dw, L = w.shape[0], u.shape[1]
+    u_pad = F.pad(u, (0, 0, dw - 1, 0))
+    out = u_pad[:, 0:L, :] * w[0]
+    for i in range(1, dw):
+        out = out + u_pad[:, i:i + L, :] * w[i]
+    return out + b
+
+
+def _causal_conv_step(w, b, conv_cache, u_new):
+    """conv_cache (B, dw-1, C); u_new (B, 1, C) -> (out (B,1,C), new cache)."""
+    window = torch.cat([conv_cache, u_new], dim=1)               # (B, dw, C)
+    out = _einsum("btc,tc->bc", window, w)[:, None, :] + b
+    return out, window[:, 1:, :]
+
+
+def ssd_chunked(x, dt, A, B, C, *, chunk: int):
+    """Chunked SSD scan.
+
+    x (B,L,H,P) pre-scaled inputs; dt (B,L,H) post-softplus; A (H,) negative;
+    B, C (B,L,N).  Returns (y (B,L,H,P), final_state (B,H,N,P)).
+    """
+    Bsz, L, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, L)
+    assert L % Q == 0, (L, Q)
+    nc = L // Q
+
+    def r(t):
+        return t.reshape(Bsz, nc, Q, *t.shape[2:])
+    xc, dtc, Bc, Cc = r(x), r(dt), r(B), r(C)
+
+    dA = dtc * A                                       # (B,c,Q,H) negative
+    # The within-chunk cumsum and its differences are taken in float64,
+    # each result rounded once to dA's dtype.  In float32 (the
+    # reference's) cs_i - cs_j cancels: a chunk of 256 at dt ~ 0.8 reaches
+    # |cs| ~ 200, where an ulp is 1.5e-5, and the decays' rounding then
+    # depends on the cumsum's summation order (ROADMAP C).
+    cs64 = torch.cumsum(dA.double(), dim=2)
+    cs = cs64.to(dA.dtype)
+
+    # ---- intra-chunk (masked quadratic form) -----------------------------
+    # att[b,c,i,j,h] = exp(cs_i - cs_j) * (C_i . B_j) * dt_j,  j <= i
+    seg = (cs64[:, :, :, None, :] - cs64[:, :, None, :, :]).to(dA.dtype)
+    idx = torch.arange(Q, device=x.device)
+    mask = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    decay = torch.exp(torch.where(mask, seg, -torch.inf))
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)              # (B,c,Q,Q)
+    att = cb[..., None] * decay * dtc[:, :, None, :, :]       # (B,c,Q,Q,H)
+    y_diag = _einsum("bcijh,bcjhp->bcihp", att, xc)
+
+    # ---- chunk states and the inter-chunk recurrence ---------------------
+    last = cs64[:, :, -1:, :]                                 # (B,c,1,H)
+    w_state = torch.exp((last - cs64).to(dA.dtype)) * dtc     # (B,c,Q,H)
+    states = _einsum("bcjn,bcjh,bcjhp->bchnp", Bc, w_state, xc).float()
+    chunk_decay = torch.exp(cs[:, :, -1, :]).float()          # (B,c,H)
+
+    h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)                                        # state entering
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_in = torch.stack(h_in, dim=1)                           # (B,c,H,N,P)
+
+    # ---- off-diagonal contribution ---------------------------------------
+    h_dec = (torch.exp(cs)[..., None, None] * h_in[:, :, None]).to(x.dtype)
+    y_off = torch.einsum("bcin,bcihnp->bcihp", Cc, h_dec)     # (B,c,Q,H,P)
+    y = (y_diag + y_off).reshape(Bsz, L, H, P)
+    return y, h
+
+
+def ssd_step(state, x, dt, A, B, C):
+    """One-token recurrence.  state (B,H,N,P); x (B,H,P); dt (B,H);
+    B, C (B,N)."""
+    dA = torch.exp(dt * A)                                    # (B,H)
+    upd = torch.einsum("bn,bh,bhp->bhnp", B, dt, x)
+    state = state * dA[:, :, None, None] + upd.to(state.dtype)
+    y = torch.einsum("bn,bhnp->bhp", C, state.to(x.dtype))
+    return state, y
+
+
+def ssm_apply(cfg: ModelConfig, p, xres: torch.Tensor, *, cache=None):
+    """Full Mamba2 block.  xres (B, S, D) -> (out, new_cache).
+
+    ``new_cache`` ({"conv", "state"}) holds new tensors, not writes into
+    ``cache``: the caller stores them (``transformer.decoder_apply``),
+    widening a stacked leaf whose dtype the step changed.
+    """
+    sc = cfg.ssm
+    Bsz, S, D = xres.shape
+    Din = sc.d_inner(D)
+    H, N, P = sc.n_heads(D), sc.d_state, sc.head_dim
+
+    zx = xres @ p["w_zx"]
+    z, xin = zx[..., :Din], zx[..., Din:]
+    bc = xres @ p["w_bc"]
+    dt_raw = xres @ p["w_dt"]
+    conv_in = torch.cat([xin, bc], dim=-1)                    # (B,S,Din+2N)
+
+    new_cache = None
+    if cache is None or S > 1:
+        conv_out = _causal_conv_train(p["conv_w"], p["conv_b"], conv_in)
+        if cache is not None:       # prefill: keep the conv tail for decode
+            new_cache = {"conv": conv_in[:, S - (sc.d_conv - 1):, :].to(
+                cache["conv"].dtype)}
+    else:
+        conv_out, conv_state = _causal_conv_step(
+            p["conv_w"], p["conv_b"], cache["conv"], conv_in)
+        new_cache = {"conv": conv_state.to(cache["conv"].dtype)}
+    conv_out = F.silu(conv_out)
+    xc = conv_out[..., :Din].reshape(Bsz, S, H, P)
+    Bmat = conv_out[..., Din:Din + N]
+    Cmat = conv_out[..., Din + N:]
+
+    A = -torch.exp(p["A_log"].float())
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+
+    if cache is None or S > 1:
+        y, hT = ssd_chunked(xc, dt.to(xc.dtype), A, Bmat, Cmat,
+                            chunk=sc.chunk)
+        if cache is not None:
+            new_cache["state"] = hT.to(cache["state"].dtype)
+    else:
+        state, y1 = ssd_step(cache["state"], xc[:, 0],
+                             dt[:, 0].to(xc.dtype), A, Bmat[:, 0],
+                             Cmat[:, 0])
+        new_cache["state"] = state
+        y = y1[:, None]
+    y = y + p["D_skip"].to(y.dtype)[None, None, :, None] * xc
+    y = y.reshape(Bsz, S, Din)
+    y = layers.rmsnorm({"scale": p["norm"]}, y * F.silu(z), cfg.norm_eps)
+    y, w_out = _promoted(y, p["w_out"])
+    return y @ w_out, new_cache

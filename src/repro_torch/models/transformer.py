@@ -5,8 +5,11 @@ The layer list is a repeating *pattern* of slots (config
 ``layer_pattern``).  Weights are stacked per slot with a leading
 (n_periods,) axis, as the reference's; where it runs the periods under one
 ``jax.lax.scan``, the port loops over them in Python, each period reading
-its slice of the stacked weights and caches (views, so a cache write lands
-in the stacked tensor, and the new caches stay stacked per slot).
+its slice of the stacked weights and caches (views, so an attention
+block's cache write lands in the stacked tensor, and the new caches stay
+stacked per slot; an SSM block's new conv tail and state are copied into
+their period's place, see ``_store``).  A slot is GQA or MLA attention
+or a Mamba2 (SSD) block, followed by a SwiGLU or a MoE.
 
 Layers that cannot join the uniform stack (DeepSeek-V2's first dense
 layer) are an unrolled prefix, as in the reference.
@@ -94,20 +97,31 @@ def encoder_abstract(cfg: ModelConfig):
 
 def _apply_slot(cfg: ModelConfig, kind: str, sp, h, *, positions, rules,
                 cache=None, cache_len=None):
-    """One residual block: GQA attention + SwiGLU MLP, the blocks of the
-    ``dense`` and ``vlm`` families (``model.check_ported`` refuses the
-    others, ROADMAP A19b)."""
+    """One residual block: (GQA | MLA | SSM) + (SwiGLU | MoE).  Returns
+    (h, the block's new cache or None).  Whisper's cross-attention and
+    GELU MLP are ROADMAP A19b part 4 (``model.check_ported`` refuses
+    them)."""
     new_cache = {}
     hn = layers.rmsnorm(sp["ln1"], h, cfg.norm_eps)
-    a, c = layers.gqa_apply(cfg, sp["attn"], hn, positions=positions,
-                            cache=None if cache is None else cache["attn"],
-                            cache_len=cache_len, rules=rules)
+    c_in = None if cache is None else cache["attn"]
+    if kind == "ssm":
+        a, c = ssm.ssm_apply(cfg, sp["attn"], hn, cache=c_in)
+    elif cfg.attn_type == "mla":
+        a, c = layers.mla_apply(cfg, sp["attn"], hn, positions=positions,
+                                cache=c_in, cache_len=cache_len, rules=rules)
+    else:
+        a, c = layers.gqa_apply(cfg, sp["attn"], hn, positions=positions,
+                                cache=c_in, cache_len=cache_len, rules=rules)
     if c is not None:
         new_cache["attn"] = c
     h = h + a.to(h.dtype)
     if "mlp" in sp:
         hn = layers.rmsnorm(sp["ln2"], h, cfg.norm_eps)
-        h = h + layers.swiglu_apply(sp["mlp"], hn).to(h.dtype)
+        if "router" in sp["mlp"]:
+            f = moe.moe_apply(cfg, sp["mlp"], hn, rules=rules)
+        else:
+            f = layers.swiglu_apply(sp["mlp"], hn)
+        h = h + f.to(h.dtype)
     if h.shape[1] > 1:
         h = constrain(h, rules, "batch", "seq_sp", None)
     return h, (new_cache or None)
@@ -118,17 +132,34 @@ def _period(tree, i: int):
     return tree_map(lambda t: t[i], tree, is_leaf=lambda x: False)
 
 
+def _store(tree, i, old, new) -> None:
+    """Put a block's new cache ``new`` in its place, period ``i`` of the
+    stacked ``tree``, ``old`` being the period's views the block was
+    given.  A leaf the block wrote in place (attention's caches) is left
+    as it is; a new one (the SSM block's) is copied in.  Where the new
+    leaf's dtype differs (the SSM state, float32 after a bfloat16 decode
+    step, as the reference's), the stacked leaf is first replaced by its
+    copy in that dtype, so the change reaches the caller's tree."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _store(tree[k], i, old[k], v)
+        elif v is not old[k]:
+            if v.dtype != tree[k].dtype:
+                tree[k] = tree[k].to(v.dtype)
+            tree[k][i].copy_(v)
+
+
 def decoder_apply(cfg: ModelConfig, dec_params, h, *, positions,
                   rules: Rules = None, caches=None, cache_len=None,
                   train: bool = False):
     """Run the prefix layers, then the stacked periods, in order.
 
     caches: {"prefix": [cache, ...], "slots": [stacked cache, ...]} or
-    None; written in place.  Returns (h, new_caches), new_caches being
-    ``caches`` (the same stacked tensors) or None.
+    None; updated in place (``_store``).  Returns (h, new_caches),
+    new_caches being ``caches`` (the same tree) or None.
     """
     period = cfg.pattern
-    for i, sp in enumerate(dec_params["prefix"]):
+    for i, sp in enumerate(dec_params["prefix"]):   # attention: in place
         c = caches["prefix"][i] if caches is not None else None
         h, _ = _apply_slot(cfg, "attn", sp, h, positions=positions,
                            rules=rules, cache=c, cache_len=cache_len)
@@ -137,7 +168,9 @@ def decoder_apply(cfg: ModelConfig, dec_params, h, *, positions,
         for s, kind in enumerate(period):
             c = (None if caches is None
                  else _period(caches["slots"][s], i))
-            h, _ = _apply_slot(cfg, kind, _period(dec_params["slots"][s], i),
-                               h, positions=positions, rules=rules, cache=c,
-                               cache_len=cache_len)
+            h, nc = _apply_slot(cfg, kind, _period(dec_params["slots"][s], i),
+                                h, positions=positions, rules=rules, cache=c,
+                                cache_len=cache_len)
+            if nc is not None:
+                _store(caches["slots"][s], i, c, nc)
     return h, caches

@@ -3,9 +3,11 @@ reference, on the CPU.
 
 Serving: on parameters drawn by the reference's ``init_tree`` and carried
 across, ``generate_batch`` emits the reference's greedy tokens, twice the
-same; the decode step built by ``make_decode`` is the one every step
-goes through; ``main`` serves a smoke config with ``--device cpu`` and
-refuses to start without a card otherwise.
+same, for the GQA, MoE, SSM, hybrid and MLA smoke configs; the decode
+step built by ``make_decode`` is the one every step goes through; ``main``
+serves each with ``--device cpu`` (``serve`` the same tokens on a config
+object), refuses whisper-tiny (A19b part 4), and refuses to start without
+a card otherwise.
 
 Probe: ``fit_probe`` on tests/test_system.py's ridge inputs gives the
 reference's w within 1e-9 relative (float64 APC on both sides), m reduced
@@ -35,8 +37,12 @@ RULES = ref_sharding.Rules(batch=("data",), fsdp=None, tensor=None,
                            seq_sp=None, kv_seq=None)
 
 
+NEW_FAMILIES = ["qwen3-moe-30b-a3b", "mamba2-130m", "jamba-v0.1-52b",
+                "deepseek-v2-236b"]
+
+
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-4b",
-                                  "pixtral-12b"])
+                                  "pixtral-12b"] + NEW_FAMILIES)
 def test_generate_batch_tokens_equal_the_references(arch):
     ref_cfg, cfg = ref_configs.get_smoke(arch), configs.get_smoke(arch)
     rp = ref_sharding.init_tree(ref_model.model_abstract(ref_cfg),
@@ -76,7 +82,31 @@ def test_serve_main_on_the_cpu(capsys):
     assert rep.tokens[0].shape == (2, 3)
     assert serve.take_group is linsys_serve.take_group
     with pytest.raises(NotImplementedError, match="A19b"):
-        serve.main(["--arch", "mamba2-130m", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "whisper-tiny", "--smoke", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_serve_main_serves_the_new_families_on_the_cpu(arch, capsys):
+    """The CLI serves each MoE, SSM, hybrid and MLA smoke config, twice
+    the same tokens; ``serve`` on the same config and parameters (the
+    path a depth cut takes) emits them too."""
+    argv = ["--arch", arch, "--smoke", "--requests", "3", "--batch", "2",
+            "--prompt-len", "8", "--max-new", "4", "--device", "cpu"]
+    reps = [serve.run(argv) for _ in range(2)]
+    out = capsys.readouterr().out.splitlines()
+    assert sum(x.startswith("served 3 requests in ") for x in out) == 2
+    assert reps[0].served == 3 and [t.shape for t in reps[0].tokens] == [
+        (2, 4), (2, 4)]
+    for a, b in zip(reps[0].tokens, reps[1].tokens):
+        np.testing.assert_array_equal(a, b)
+    cfg = configs.get_smoke(arch)
+    params = sharding.init_tree(model.model_abstract(cfg),
+                                torch.Generator().manual_seed(0),
+                                model.cache_dtype(cfg), "cpu")
+    rep = serve.serve(cfg, params, requests=3, batch=2, prompt_len=8,
+                      max_new=4, device=torch.device("cpu"))
+    for a, b in zip(rep.tokens, reps[0].tokens):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_serve_main_wants_a_card_by_default():

@@ -6,11 +6,16 @@ parameter and cache trees have the reference's key paths and shapes, and
 ``count_params`` is the same integer (with and without ``active_only``).
 
 Numerics: parameters are drawn by the reference's ``init_tree(PRNGKey(0))``
-and carried across (``interop.params_from_numpy``).  For every ``dense``
-and ``vlm`` smoke config the port's ``forward`` logits, and its
-``prefill`` plus two ``decode_step`` logits and caches, agree with the
-reference's within 2e-5 * (max|ref| + 1) in float32; each is also held to
-its own forward at tests/test_models.py's tolerances.  The layers
+and carried across (``interop.params_from_numpy``).  For every served
+smoke config (the GQA decoders, the MoE, SSM and hybrid ones, DeepSeek-V2's
+MLA) the port's ``forward`` logits, and its ``prefill`` plus two
+``decode_step`` logits and caches, agree with the reference's within
+2e-5 * (max|ref| + 1) in float32; each is also held to its own forward at
+tests/test_models.py's tolerances (MoE at capacity factor 32, as there,
+so that no entry drops).  In bfloat16 at the configs' own capacity, every
+cache leaf's path, dtype and value after prefill and after each decode
+step is the reference's, the SSM state turning float32 at the first
+step.  The layers
 (``rmsnorm``, ``l2norm``, ``rope``, ``flash_attention`` over causal,
 q_offset, block size, group size and dtype, ``decode_attention``) agree
 with the reference's in float32 (same bound) and bfloat16 (8e-2 relative,
@@ -38,7 +43,8 @@ torch.set_num_threads(1)
 RULES = ref_sharding.Rules(batch=("data",), fsdp=None, tensor=None,
                            seq_sp=None, kv_seq=None)
 SERVED = ["tinyllama-1.1b", "qwen3-4b", "deepseek-7b", "deepseek-coder-33b",
-          "pixtral-12b"]
+          "pixtral-12b", "qwen3-moe-30b-a3b", "mamba2-130m", "jamba-v0.1-52b",
+          "deepseek-v2-236b"]
 UNPORTED = [a for a in ref_configs.ARCHS if a not in SERVED]
 F32 = 2e-5          # x (max|ref| + 1), float32, port against reference
 BF16 = 8e-2         # x (max|ref| + 1), bfloat16
@@ -176,6 +182,23 @@ def test_init_tree_keeps_the_reference_rule():
         a["embed"]
 
 
+def test_init_tree_scales_in_place_to_the_same_bits():
+    """Each normal leaf is scaled in place (no second copy of a stacked
+    expert bank): the bits of ``randn * std`` from the same generator."""
+    abstract = {"a": sharding.ParamSpec((3, 64, 48), (None, None, None)),
+                "b": sharding.ParamSpec((96,), (None,), scale=0.5),
+                "c": sharding.ParamSpec((5, 7), (None, None), init="ones")}
+    for dtype in (torch.float32, torch.bfloat16):
+        got = sharding.init_tree(abstract, torch.Generator().manual_seed(4),
+                                 dtype, "cpu")
+        gen = torch.Generator().manual_seed(4)
+        for key, std in (("a", 1 / 64 ** 0.5), ("b", 0.5 / 96 ** 0.5)):
+            x = torch.randn(abstract[key].shape, generator=gen, dtype=dtype)
+            assert got[key].dtype == dtype
+            assert torch.equal(got[key], x * std), key
+        assert torch.equal(got["c"], torch.ones(5, 7, dtype=dtype))
+
+
 def test_init_tree_wants_a_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -189,9 +212,19 @@ def test_init_tree_wants_a_card_by_default():
 # ---------------------------------------------------------------------------
 
 
+def _no_drops(cfg):
+    """A MoE config at capacity factor 32 (tests/test_models.py's setting
+    for decode ≡ forward: no entry drops); any other config as it is."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=32.0))
+
+
 @pytest.mark.parametrize("arch", SERVED)
 def test_forward_prefill_decode_match_the_reference(arch):
-    ref_cfg, cfg = ref_configs.get_smoke(arch), configs.get_smoke(arch)
+    ref_cfg = _no_drops(ref_configs.get_smoke(arch))
+    cfg = _no_drops(configs.get_smoke(arch))
     rp = _ref_params(ref_cfg)
     pp = interop.params_from_numpy(_np(rp), device="cpu")
     B, S = 2, 16
@@ -269,6 +302,87 @@ def test_cache_write_past_the_end_raises():
     model.decode_step(cfg, pp, tok, cache, 3)
     with pytest.raises(ValueError, match="outside"):
         model.decode_step(cfg, pp, tok, cache, 4)
+
+
+def test_latent_cache_write_past_the_end_raises():
+    """MLA's (ckv, krope) cache is written in place as GQA's is, and a
+    write past its end raises as GQA's does."""
+    cfg = configs.get_smoke("deepseek-v2-236b")
+    pp = sharding.init_tree(model.model_abstract(cfg),
+                            torch.Generator().manual_seed(0), torch.float32,
+                            "cpu")
+    cache = model.init_cache(cfg, 1, 4, device="cpu")
+    ckv = cache["prefix"][0]["attn"]["ckv"]
+    tok = torch.zeros((1, 1), dtype=torch.int64)
+    _, out = model.decode_step(cfg, pp, tok, cache, 3)
+    assert out["prefix"][0]["attn"]["ckv"] is ckv
+    assert float(ckv[:, 3].abs().max()) > 0 and not ckv[:, :3].any()
+    with pytest.raises(ValueError, match="outside"):
+        model.decode_step(cfg, pp, tok, cache, 4)
+
+
+def test_check_ported_refuses_only_the_encoder_decoder():
+    for arch in ref_configs.ARCHS:
+        for cfg in (configs.get(arch), configs.get_smoke(arch)):
+            if arch in UNPORTED:
+                with pytest.raises(NotImplementedError, match="A19b part 4"):
+                    model.check_ported(cfg)
+            else:
+                model.check_ported(cfg)
+    assert UNPORTED == ["whisper-tiny"]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-130m",
+                                  "jamba-v0.1-52b"])
+def test_bfloat16_caches_match_the_reference(arch):
+    """bfloat16 at the config's own capacity factor: after prefill and
+    after each of two decode steps, the cache tree has the reference's key
+    paths, dtypes and values (8e-2 of max + 1), the logits too.  The SSM
+    state leaf is bfloat16 after prefill and float32 from the first decode
+    step on, in the tree the caller passed, as the reference's scan hands
+    it back.  (DeepSeek-V2 is not among them: the reference's absorbed
+    MLA decode cannot run in bfloat16 on the CPU, XLA refusing its
+    bf16 x bf16 -> f32 products; its latent cache keeps its dtype.)"""
+    ref_cfg = dataclasses.replace(ref_configs.get_smoke(arch),
+                                  dtype="bfloat16")
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="bfloat16")
+    rp = ref_sharding.init_tree(ref_model.model_abstract(ref_cfg),
+                                jax.random.PRNGKey(0), jnp.bfloat16)
+    pp = interop.params_from_numpy(_np(rp), device="cpu")
+    B, S = 2, 16
+    rb = _ref_batch(ref_cfg, B, S)
+    pb = _port_batch(rb)
+    ref_cache = ref_model.init_cache(ref_cfg, B, 32)
+    cache = model.init_cache(cfg, B, 32, device="cpu")
+    callers = cache["slots"]
+
+    def same(got_cache, want_cache):
+        got, want = _paths(got_cache), _paths(_np(want_cache))
+        assert got.keys() == want.keys()
+        for p in want:
+            assert str(got[p].dtype)[6:] == str(want[p].dtype), p
+            _close(got[p], want[p].astype(np.float32), BF16)
+        return {p: got[p].dtype for p in got if p[-1] == "state"}
+
+    rl, ref_cache = ref_model.prefill(
+        ref_cfg, rp, {"tokens": rb["tokens"][:, :S - 2]}, ref_cache,
+        rules=RULES)
+    pl, cache = model.prefill(cfg, pp, {"tokens": pb["tokens"][:, :S - 2]},
+                              cache)
+    _close(pl, np.asarray(rl.astype(jnp.float32)), BF16)
+    states = same(cache, ref_cache)
+    assert set(states.values()) <= {torch.bfloat16}
+    assert bool(states) == (cfg.ssm is not None)
+    for pos in (S - 2, S - 1):
+        rd, ref_cache = ref_model.decode_step(
+            ref_cfg, rp, rb["tokens"][:, pos:pos + 1], ref_cache,
+            jnp.asarray(pos, jnp.int32), rules=RULES)
+        pd, cache = model.decode_step(cfg, pp, pb["tokens"][:, pos:pos + 1],
+                                      cache, pos)
+        _close(pd, np.asarray(rd.astype(jnp.float32)), BF16)
+        states = same(cache, ref_cache)
+        assert set(states.values()) <= {torch.float32}
+    assert cache["slots"] is callers    # the caller's tree, updated
 
 
 # ---------------------------------------------------------------------------

@@ -295,7 +295,7 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                             "--workers", "4", "--iters", "40",
                             "--use-kernel"],
             ITERS=40, LS_ITERS=900,
-            # phase 19 on the smoke configs
+            # phases 19 and 20 on the smoke configs
             LM_SMOKE=True, LM_BATCH=(2, 16),
             LM_SERVE_ARGS=["--requests", "3", "--batch", "2", "--prompt-len",
                            "8", "--max-new", "4"],
@@ -703,4 +703,38 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
         assert sum(x.startswith(f"phase 19 (c) serve {arch} ")
                    and "greedy tokens equal across the runs True" in x
                    and "3 requests" in x for x in p19) == 1, (arch, p19)
-    assert sum(x.startswith("served 3 requests in ") for x in lines) == 4
+    # phase 20: the MoE, SSM, hybrid and MLA decoders on their smoke
+    # configs, decode ≡ forward, card ≡ CPU with the routes, serving twice
+    # a config (the CLI for two, serve.serve on a cut for two)
+    p20 = [x for x in lines if x.startswith("phase 20 ")]
+    assert p20[0].startswith("phase 20 start: resident"), p20
+    for name in ("mamba2-smoke", "qwen3-moe-smoke", "jamba-smoke",
+                 "deepseek-v2-smoke"):
+        assert sum(x.startswith(f"phase 20 (a) {name} float32")
+                   and "(rtol 1e-4, atol 1e-4 / 2e-4: True)" in x
+                   for x in p20) == 1, (name, p20)
+    assert any(x.startswith("phase 20 (a) mamba2-smoke") and
+               "forward (2, 64)" in x and "prefill 32 + 2 decode steps" in x
+               for x in p20), p20
+    assert any(x.startswith("phase 20 (b) mamba2-smoke at 2 layers")
+               and "routes" not in x for x in p20), p20
+    for name in ("qwen3-moe-smoke", "deepseek-v2-smoke"):
+        assert any(x.startswith(f"phase 20 (b) {name} at 2 layers")
+                   and "MoE layers x 32 tokens (capacity factor 1.25): 0 "
+                   "differ" in x for x in p20), (name, p20)
+    for arch, how in (("qwen3-moe-30b-a3b", "the CLI"),
+                      ("mamba2-130m", "the CLI"),
+                      ("jamba-v0.1-52b", "serve.serve on the cut to 4 "
+                       "layers"),
+                      ("deepseek-v2-236b", "serve.serve on the cut to 3 "
+                       "layers")):
+        assert sum(x.startswith(f"phase 20 (c) serve {arch} ")
+                   and f"through {how}" in x
+                   and "greedy tokens equal across the runs True" in x
+                   and "3 requests" in x and "bytes bound" in x
+                   and ("routed experts of its" in x)
+                   == (arch != "mamba2-130m")
+                   and "idle share not measured" in x
+                   for x in p20) == 1, (arch, p20)
+    assert sum(x.startswith("phase 20: ") for x in lines) == 1
+    assert sum(x.startswith("served 3 requests in ") for x in lines) == 12
