@@ -205,9 +205,39 @@ script exits non-zero without its last line:
    mamba2-130m through the CLI at full size, jamba-v0.1-52b at 8 layers
    and deepseek-v2-236b at 4 through ``serve.serve``; tokens equal, tok/s,
    a prefill's and a decode step's ms beside the step's bytes bound,
-   parameters and peak GB.
+   parameters and peak GB;
+21. Whisper's encoder-decoder serving (A19b part 4; no kernel backs it) at
+   its published width and depth (4 + 4 layers, d 384, 1500 frames):
+   (a) in float32, on frames drawn as 0.1·N(0, 1), prefill 62 + 2 decode
+   steps against the (2, 64) forward at tests/test_models.py's
+   tolerances; (b) the card's logits and cross cache against the CPU's
+   within 2e-5 of max + 1; (c) bfloat16 serving through the CLI (zero
+   frames, 8 requests, batch 4, prompt 128, 32 new tokens) twice: tokens
+   equal, tok/s, a prefill (the encoder included) and a decode step
+   beside the step's bytes bound (the decoder's weights, the self and the
+   cross cache), one decode step profiled;
+22. the LM training path (A19c; no kernel backs it): (a) one float32
+   train step of each of the ten smoke configs on the card against the
+   CPU, the same parameters and batch — loss within 2e-5 of |loss| + 1,
+   each gradient leaf within 1e-4 of the leaf's max|g_CPU| (the worst
+   leaf printed), AdamW on the CPU's gradients within 1e-6 — the card's
+   step run twice under ``torch.use_deterministic_algorithms(True,
+   warn_only=True)``: bit-equal, or the ops that warn named beside the
+   measured max|Δ|; (b) the flash backward (an autograd.Function) at
+   tinyllama-1.1b's heads, B 1, S 8192, bf16, against plain autograd
+   through the same loop (8e-2 of max + 1), its peak memory above the
+   inputs and the memory kept from forward to backward each under a
+   tenth of plain autograd's, at a 512-key block and at the train path's
+   own block; (c) the train CLI at full width on
+   tinyllama-1.1b (12 steps, batch 8, seq 512, bf16, checkpoints every
+   6; the loss falls), resumed to 14 steps from step 12, then
+   ``train.loop`` on whisper-tiny and mamba2-130m (6 steps each) and
+   qwen3-moe-30b-a3b cut to 2 layers (2 steps): ms a step, tokens/s, peak
+   GB and the 6·N·tokens FLOP bound at the card's dense bf16 peak.  Each
+   of phases 21 and 22 prints its seconds, resident and peak GB and the
+   card's name and power limit.
 
-Every other phase runs under ``REPRO_KERNEL_ENGINE=fused``, the pin the
+Phases 1-19 run under ``REPRO_KERNEL_ENGINE=fused``, the pin the
 reference's own benchmarks use: the kernels those phases hold, count
 and time run whatever the measured engine verdict would choose.
 
@@ -320,6 +350,30 @@ LM20_CPU = {"mamba2-130m": None, "qwen3-moe-30b-a3b": 2,
             "deepseek-v2-236b": 2}  # (b): card ≡ CPU on (a)'s weights cut
 LM20_CLI = ("qwen3-moe-30b-a3b", "mamba2-130m")   # (c): the CLI, full size
 LM20_CUT = {"jamba-v0.1-52b": 8, "deepseek-v2-236b": 4}   # (c): serve.serve
+# phase 21: Whisper's encoder-decoder serving (A19b part 4) at published
+# width and depth; (a), (b) on frames drawn as LM21_FRAMES * N(0, 1), (c)
+# through the CLI (zero frames) on LM_SERVE_ARGS
+LM21_ARCH = "whisper-tiny"
+LM21_FRAMES = 0.1
+# phase 22: training (A19c).  (a) one float32 step of every smoke config,
+# card against CPU, on TRAIN_BATCH tokens of the synthetic stream
+TRAIN_BATCH = (2, 32)
+TRAIN_GRAD = 1e-4                   # (a): x max|g_CPU| of each leaf
+TRAIN_UPDATE = 1e-6                 # (a): AdamW on the CPU's gradients
+# (b) the flash backward at tinyllama-1.1b's heads and 8192 tokens, bf16,
+# against plain autograd through the same loop, at a 512-key block and at
+# the train path's own block (pick_blk), the memory gated at both
+FLASH_LEN = dict(B=1, S=8192, H=32, K=4, d=64)
+FLASH_BLK = 512
+FLASH_PEAK_RATIO = 0.1              # the Function's peak under this share
+# (c) the train CLI at full width, then the same loop on other configs
+# (None: full depth), with the number of steps each
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_CLI_ARGS = ["--steps", "12", "--batch", "8", "--seq", "512",
+                  "--ckpt-every", "6"]
+TRAIN_RESUME_STEPS = 14
+TRAIN_MORE = {"whisper-tiny": (None, 6), "mamba2-130m": (None, 6),
+              "qwen3-moe-30b-a3b": (2, 2)}
 PROBE_HIST_REL = 1e-6               # kernel-path history vs the unfused one
 SOURCE = "src/repro_torch/kernels/csrc/block_projection.cu"
 REPLACES = {"apc_gather": "src/repro/kernels/block_projection.py:173",
@@ -2061,22 +2115,22 @@ def serve_arg(name: str) -> int:
     return int(LM_SERVE_ARGS[LM_SERVE_ARGS.index(name) + 1])
 
 
-def decode_vs_forward(cfg, params, toks, pre):
+def decode_vs_forward(cfg, params, toks, pre, extra=None):
     """The full forward of ``toks`` (B, S) (timed cold and warm), then a
     prefill of its first ``pre`` tokens and decode steps at ``pre`` and
     ``pre + 1``, each against the forward at its position at
-    tests/test_models.py's tolerances.  Returns (logits, ms cold, ms warm,
-    the three max|Δ|, the three verdicts)."""
+    tests/test_models.py's tolerances; ``extra`` (Whisper's frames) goes
+    into the forward's and the prefill's batch.  Returns (logits, ms
+    cold, ms warm, the three max|Δ|, the three verdicts)."""
     from repro_torch.models import model
     B, S = toks.shape
+    batch = dict(extra or {}, tokens=toks)
     with torch.inference_mode():
-        full, ms_cold = timed_ms(lambda: model.forward(
-            cfg, params, {"tokens": toks}))
-        _, ms_fwd = timed_ms(lambda: model.forward(
-            cfg, params, {"tokens": toks}))
+        full, ms_cold = timed_ms(lambda: model.forward(cfg, params, batch))
+        _, ms_fwd = timed_ms(lambda: model.forward(cfg, params, batch))
         cache = model.init_cache(cfg, B, S, torch.float32, toks.device)
-        ll, cache = model.prefill(cfg, params, {"tokens": toks[:, :pre]},
-                                  cache)
+        ll, cache = model.prefill(cfg, params,
+                                  dict(batch, tokens=toks[:, :pre]), cache)
         devs = [float((ll[:, 0] - full[:, pre - 1]).abs().max())]
         ok = [torch.allclose(ll[:, 0], full[:, pre - 1], rtol=1e-4,
                              atol=1e-4)]
@@ -2102,11 +2156,15 @@ def step_ms(cfg, params, gen):
                             device=gen.device)
     cache = model.init_cache(cfg, nb, plen + serve_arg("--max-new"),
                              device=gen.device)
+    batch = {"tokens": prompts}
+    if cfg.frontend == "audio":         # the CLI's zero frames
+        batch["frames"] = torch.zeros(
+            (nb, cfg.encoder_seq, cfg.d_model), dtype=model.cache_dtype(cfg),
+            device=gen.device)
     tok = prompts[:, :1]
     with torch.inference_mode():
         ms = medians_ms({
-            "prefill": lambda: model.prefill(
-                cfg, params, {"tokens": prompts}, cache),
+            "prefill": lambda: model.prefill(cfg, params, batch, cache),
             "decode": lambda: model.decode_step(
                 cfg, params, tok, cache, plen)}, reps=5, batch=1)
     return ms, (cache, tok)
@@ -2308,16 +2366,21 @@ def lm_nbytes(tree) -> int:
 def lm_decode_bound_ms(cfg, params, cache, bw, routes=()) -> tuple:
     """The bytes bounds of one decode step, (every expert, routed experts):
     every weight it reads once (the embedding table only where it is the
-    tied LM head: an untied one is read a row a token) and the cache once,
-    over the card's rate.  The first counts every expert of a MoE layer, as
-    the grouped product reads them all; the second only the experts that
-    ``routes`` (the step's ``recorded_routes``, one a MoE layer) send a
-    token to."""
-    w = lm_nbytes(params)
+    tied LM head: an untied one is read a row a token; an encoder's
+    weights and the decoder's cross projections wk, wv and k_norm, which
+    only prefill reads, not at all) and the cache once (Whisper's cross
+    cache included), over the card's rate.  The first counts every expert
+    of a MoE layer, as the grouped product reads them all; the second only
+    the experts that ``routes`` (the step's ``recorded_routes``, one a MoE
+    layer) send a token to."""
+    dec = params["decoder"]
+    w = lm_nbytes(params) - lm_nbytes(params.get("encoder")) - sum(
+        lm_nbytes({k: sp["xattn"].get(k) for k in ("wk", "wv", "k_norm")})
+        for sp in (*dec["prefix"], *dec["slots"]) if "xattn" in sp)
     if not cfg.tie_embeddings:
         w -= lm_nbytes(params["embed"])
     every = (w + lm_nbytes(cache)) / bw * 1e3
-    moes = [sp["mlp"] for sp in params["decoder"]["slots"]
+    moes = [sp["mlp"] for sp in dec["slots"]
             if "router" in (sp.get("mlp") or {})]
     if not moes:
         return every, every
@@ -2514,6 +2577,394 @@ def lm_families_phase(card, bw) -> None:
     say(card)
 
 
+def phase_memory() -> str:
+    """The card's resident and peak GB (max_memory_allocated since the
+    last reset)."""
+    return (f"resident {torch.cuda.memory_allocated() / 1e9:.3f} GB, peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+
+def whisper_phase(card, bw) -> None:
+    """Phase 21: Whisper's encoder-decoder serving (A19b part 4) at its
+    published width and depth.  No kernel backs it (the reference runs
+    the encoder and the cross-attention in XLA ops)."""
+    from repro_torch import configs, device as dev
+    from repro_torch.launch import serve
+    from repro_torch.models import model, sharding
+    t21 = time.time()
+    device = dev.resolve()
+    torch.cuda.reset_peak_memory_stats()
+    say(f"phase 21 start: {phase_memory()}")
+    get = configs.get_smoke if LM_SMOKE else configs.get
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    # (a) decode ≡ forward in float32; (b) the card against the CPU ------
+    cfg = dataclasses.replace(get(LM21_ARCH), dtype="float32")
+    params = sharding.init_tree(model.model_abstract(cfg), gen(0),
+                                torch.float32, device)
+    B, S = LM_BATCH
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen(1),
+                         device=device)
+    frames = LM21_FRAMES * torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                       generator=gen(2), device=device)
+    full, ms_cold, ms_fwd, devs, ok = decode_vs_forward(
+        cfg, params, toks, S - 2, {"frames": frames})
+    say(f"phase 21 (a) {cfg.name} float32 ({cfg.encoder_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.encoder_seq} frames of {LM21_FRAMES}·N(0, 1), vocab "
+        f"{cfg.vocab_size}, {model.count_params(cfg)} parameters): forward "
+        f"({B}, {S}) in {ms_cold:.1f} ms cold, {ms_fwd:.1f} ms warm, "
+        f"max|logit| {float(full.abs().max()):.4f}; prefill {S - 2} + 2 "
+        f"decode steps vs forward max|Δ| {devs[0]:.3e} / {devs[1]:.3e} / "
+        f"{devs[2]:.3e} (rtol 1e-4, atol 1e-4 / 2e-4: {all(ok)})")
+    assert all(ok), devs
+    on_cpu = sharding.tree_map(lambda w: w.cpu(), params,
+                               is_leaf=lambda x: False)
+    errs, t = {}, time.time()
+    with torch.inference_mode():
+        for where, p, tk, fr in (("card", params, toks, frames),
+                                 ("cpu", on_cpu, toks.cpu(), frames.cpu())):
+            cache = model.init_cache(cfg, B, S, torch.float32, tk.device)
+            logits = model.forward(cfg, p, {"tokens": tk, "frames": fr})
+            _, cache = model.prefill(cfg, p, {"tokens": tk[:, :S - 2],
+                                              "frames": fr}, cache)
+            errs[where] = [logits] + sharding.tree_leaves(
+                cache["cross"], is_leaf=lambda x: False)
+    t_cpu = time.time() - t
+    worst = [rel_err(a.cpu(), b) for a, b in zip(errs["card"], errs["cpu"])]
+    e_cross = max(e for e, _ in worst[1:])
+    say(f"phase 21 (b) {cfg.name} float32, ({B}, {S}) tokens: the card's "
+        f"logits vs the CPU's max|Δ| {worst[0][1]:.3e}, {worst[0][0]:.3e} "
+        f"of max|CPU| + 1; the {len(worst) - 1} cross-cache leaves after "
+        f"prefill at most {e_cross:.3e} (limit {LM_CPU_TOL}; the card and "
+        f"the CPU together {t_cpu:.1f} s)")
+    assert max(e for e, _ in worst) <= LM_CPU_TOL, worst
+    del params, on_cpu, full, errs, frames, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) bfloat16 serving through the CLI ---------------------------------
+    scfg = get(LM21_ARCH)
+    argv = ["--arch", LM21_ARCH, *(["--smoke"] if LM_SMOKE else []),
+            *LM_SERVE_ARGS]
+    torch.cuda.reset_peak_memory_stats()
+    reps = [serve.run(argv) for _ in range(2)]
+    same = all(np.array_equal(a, b) for a, b in zip(reps[0].tokens,
+                                                    reps[1].tokens))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    sparams = sharding.init_tree(model.model_abstract(scfg), gen(0),
+                                 model.cache_dtype(scfg), device)
+    ms, (cache, tok) = step_ms(scfg, sparams, gen(3))
+    plen = serve_arg("--prompt-len")
+    with torch.inference_mode():
+        busy, wall, top = device_time(lambda: model.decode_step(
+            scfg, sparams, tok, cache, plen))
+    bound, _ = lm_decode_bound_ms(scfg, sparams, cache, bw)
+    assert busy > 0 or LM_SMOKE, "no device time in the profile"
+    profiled = (
+        f"kernels {busy:.2f} ms of {wall:.2f} ms wall, the device idle "
+        f"{1 - busy / wall:.1%}" if busy > 0 else "the profiler shows no "
+        "device time: the device's idle share not measured")
+    say(f"phase 21 (c) serve {LM21_ARCH} ({scfg.dtype}, "
+        f"{scfg.encoder_layers} + {scfg.n_layers} layers, d {scfg.d_model}, "
+        f"vocab {scfg.vocab_size}, zero frames) through the CLI "
+        f"(launch/serve.py), {' '.join(LM_SERVE_ARGS)}: {reps[0].served} "
+        f"requests, {reps[0].tok_per_s:.1f} / {reps[1].tok_per_s:.1f} tok/s "
+        f"in two runs ({reps[0].seconds:.2f} / {reps[1].seconds:.2f} s); "
+        f"greedy tokens equal across the runs {same}; one prefill "
+        f"({serve_arg('--batch')} x {plen}, the encoder included) "
+        f"{ms['prefill']:.2f} ms, one decode step {ms['decode']:.2f} ms "
+        f"(CUDA events, a call each; its bytes bound {bound:.4f} ms: the "
+        f"decoder's weights but the cross projections, the self cache and "
+        f"the cross cache, "
+        f"{lm_nbytes(cache['cross']) / 1e6:.1f} MB of it); one decode step "
+        f"profiled: {profiled}; parameters {lm_nbytes(sparams) / 1e9:.3f} "
+        f"GB, peak {peak:.3f} GB while serving")
+    assert same
+    del sparams, cache, tok, reps
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 21: {time.time() - t21:.1f} s, {phase_memory()}")
+    say(card)
+
+
+def tree_paths(tree, prefix="") -> list:
+    """The dotted key paths of ``tree``'s leaves in ``tree_leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in tree_paths(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree)
+                for p in tree_paths(t, f"{prefix}{i}.")]
+    return [] if tree is None else [prefix[:-1]]
+
+
+def train_cpu_step(cfg, device):
+    """Phase 22 (a) for one smoke config in float32: the same parameters
+    (seed 0) and batch (the synthetic stream's step 0, Whisper's frames
+    and pixtral's patches drawn) on the card and the CPU; two card runs
+    under ``torch.use_deterministic_algorithms(True, warn_only=True)``.
+    Returns the line's text, or raises."""
+    import warnings
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train
+    from repro_torch.models import sharding
+    from repro_torch.optim import adamw
+    leaf = lambda x: False  # noqa: E731
+    params = train.init_params(cfg, device)
+    B, S = TRAIN_BATCH
+    gen = torch.Generator(device=device).manual_seed(1)
+    batch = train.full_batch(cfg, synthetic.make_batch(
+        synthetic.DataConfig(cfg.vocab_size, S, B), 0, device=device))
+    for key, scale in (("patches", 0.02), ("frames", LM21_FRAMES)):
+        if key in batch:
+            batch[key] = scale * torch.randn(batch[key].shape,
+                                             generator=gen, device=device)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            runs = [train.loss_and_grads(cfg, params, batch)
+                    for _ in range(2)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+    refused = sorted({str(w.message).split("\n")[0][:90] for w in caught
+                      if "deterministic" in str(w.message)})
+    (loss, grads), (loss2, grads2) = runs
+    g_l = sharding.tree_leaves(grads, leaf)
+    rerun = max([float((loss - loss2).abs())] + [
+        float((a - b).abs().max()) for a, b in zip(
+            g_l, sharding.tree_leaves(grads2, leaf))])
+    bitwise = rerun == 0.0
+    cpu_p = sharding.tree_map(lambda t: t.detach().cpu().requires_grad_(),
+                              params, leaf)
+    cpu_b = {k: v.cpu() for k, v in batch.items()}
+    c_loss, c_grads = train.loss_and_grads(cfg, cpu_p, cpu_b)
+    e_loss = abs(float(loss) - float(c_loss))
+    worst, where = 0.0, ""
+    for name, a, b in zip(tree_paths(grads), g_l,
+                          sharding.tree_leaves(c_grads, leaf)):
+        r = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                  1e-30)
+        if r >= worst:
+            worst, where = r, name
+    acfg = adamw.AdamWConfig(lr=1e-3)
+    new_card, _ = adamw.update(acfg, sharding.tree_map(
+        lambda g: g.to(device), c_grads, leaf), adamw.init(params), params)
+    new_cpu, _ = adamw.update(acfg, c_grads, adamw.init(cpu_p), cpu_p)
+    e_upd = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for a, b in zip(sharding.tree_leaves(new_card, leaf),
+                                sharding.tree_leaves(new_cpu, leaf)))
+    text = (f"{cfg.name} ({cfg.family}, {len(g_l)} leaves): loss "
+            f"{float(loss):.6f}, vs the CPU's {e_loss:.3e} (limit "
+            f"{LM_CPU_TOL} x (|loss| + 1)); worst gradient leaf {where} at "
+            f"{worst:.3e} of its max|g_CPU| (limit {TRAIN_GRAD}); AdamW on "
+            f"the CPU's gradients max|Δ| {e_upd:.3e} (limit {TRAIN_UPDATE}); "
+            f"two card runs under deterministic algorithms "
+            + ("bit-equal" if bitwise else f"differ by max|Δ| {rerun:.3e}")
+            + ("; ops without a deterministic implementation: "
+               + " | ".join(refused) if refused else ""))
+    assert e_loss <= LM_CPU_TOL * (abs(float(c_loss)) + 1.0), text
+    assert worst <= TRAIN_GRAD, text
+    assert e_upd <= TRAIN_UPDATE, text
+    assert bitwise or refused, text
+    return text
+
+
+def flash_memory(fn, q, k, v, do):
+    """(dq, dk, dv, GB kept from the forward to the backward, peak GB
+    above the inputs, ms) of ``fn(q, k, v)`` and its backward."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    out = fn(q, k, v)
+    kept = (torch.cuda.memory_allocated() - base) / 1e9
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return grads, kept, peak, ms
+
+
+def profiled_train_step(cfg, device, nb, seq):
+    """(busy ms, wall ms, top kernels) of one train step of ``cfg`` (seed
+    0 parameters, the synthetic stream's step 0 at (nb, seq)) after one
+    unprofiled step, ``torch.profiler`` on (``device_time``)."""
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    acfg = adamw.AdamWConfig(lr=1e-3)
+    state = [train.init_params(cfg, device)]
+    state.append(adamw.init(state[0]))
+    batch = train.full_batch(cfg, synthetic.make_batch(
+        synthetic.DataConfig(cfg.vocab_size, seq, nb), 0, device=device))
+
+    def step():
+        state[0], state[1], _, _ = train.train_step(cfg, acfg, *state,
+                                                    batch, 1.0)
+    step()
+    return device_time(step)
+
+
+def train_phase(card, peaks) -> None:
+    """Phase 22: the LM training path (A19c).  No kernel backs it (the
+    reference computes attention, its custom backward, the loss and AdamW
+    in XLA ops)."""
+    from repro_torch import configs, device as dev
+    from repro_torch.launch import train
+    from repro_torch.models import layers, model
+    t22 = time.time()
+    device = dev.resolve()
+    torch.cuda.reset_peak_memory_stats()
+    say(f"phase 22 start: {phase_memory()}")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) one float32 step of every smoke config, card against CPU ---------
+    for arch in configs.ARCHS:
+        cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+        say(f"phase 22 (a) {train_cpu_step(cfg, device)}")
+        free()
+
+    # (b) the flash backward at length ---------------------------------------
+    B, S, H, K, d = (FLASH_LEN[x] for x in ("B", "S", "H", "K", "d"))
+    gen = torch.Generator(device=device).manual_seed(5)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(
+        torch.bfloat16) for shape in (
+        (B, S, H, d), (B, S, K, d), (B, S, K, d), (B, S, H, d)))
+    for x in (q, k, v):
+        x.requires_grad_()
+    plain_tiles = B * H * S * S * 4 / 1e9
+    for blk in (FLASH_BLK, layers.pick_blk(S)):
+        fn, kept_f, peak_f, ms_f = flash_memory(
+            lambda a, b, c: layers.flash_attention(a, b, c, 0, True, blk),
+            q, k, v, do)
+        pl, kept_p, peak_p, ms_p = flash_memory(
+            lambda a, b, c: layers._flash_fwd(a, b, c, 0, True, blk)[0],
+            q, k, v, do)
+        errs = [rel_err(a.float(), b.float()) for a, b in zip(fn, pl)]
+        say(f"phase 22 (b) flash backward, tinyllama-1.1b's heads ({H} "
+            f"query, {K} KV, hd {d}), B {B}, S {S}, causal, bf16, blk {blk}"
+            f"{' (pick_blk)' if blk == layers.pick_blk(S) else ''}: dq / dk "
+            f"/ dv vs plain autograd through the same loop max|Δ| "
+            + " / ".join(f"{dd:.3e}" for _, dd in errs)
+            + f", at most {max(e for e, _ in errs):.3e} of max + 1 (limit "
+            f"{BF16_TOL}); kept from forward to backward {kept_f:.3f} GB vs "
+            f"{kept_p:.3f} GB (B·H·S²·4 = {plain_tiles:.2f} GB of float32 "
+            f"tiles); peak above the inputs {peak_f:.3f} GB vs {peak_p:.3f} "
+            f"GB ({peak_f / max(peak_p, 1e-12):.3f} of it, limit "
+            f"{FLASH_PEAK_RATIO}; {layers._row_chunk(B, H, S, blk)} query "
+            f"rows a chunk); forward + backward {ms_f:.1f} ms vs "
+            f"{ms_p:.1f} ms (host clock, cold)")
+        assert max(e for e, _ in errs) <= BF16_TOL, errs
+        assert kept_f <= FLASH_PEAK_RATIO * kept_p or LM_SMOKE, \
+            (kept_f, kept_p)
+        assert peak_f <= FLASH_PEAK_RATIO * peak_p or LM_SMOKE, \
+            (peak_f, peak_p)
+        del fn, pl
+        free()
+    del q, k, v, do
+    free()
+
+    # (c) the train CLI at full width, then the loop on three more ---------
+    get = configs.get_smoke if LM_SMOKE else configs.get
+    ckpt_dir = ROOT / "build" / "phase22_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    steps = int(TRAIN_CLI_ARGS[TRAIN_CLI_ARGS.index("--steps") + 1])
+    nb = int(TRAIN_CLI_ARGS[TRAIN_CLI_ARGS.index("--batch") + 1])
+    seq = int(TRAIN_CLI_ARGS[TRAIN_CLI_ARGS.index("--seq") + 1])
+    argv = ["--arch", TRAIN_ARCH, *(["--smoke"] if LM_SMOKE else []),
+            *TRAIN_CLI_ARGS, "--ckpt-dir", str(ckpt_dir)]
+
+    def figures(cfg, rep, wall, profiled=True) -> str:
+        n = len(rep.losses)
+        steady = (rep.seconds - rep.first_step_seconds - rep.ckpt_seconds) \
+            / max(n - 1, 1)
+        flops = 6 * model.non_embedding_params(cfg, active_only=True) \
+            * nb * seq
+        bound = flops / peaks[torch.bfloat16] * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = ""
+        if profiled:
+            free()
+            busy, pwall, top = profiled_train_step(cfg, device, nb, seq)
+            assert busy > 0 or LM_SMOKE, (cfg.name, "no device time")
+            prof = ("; one step profiled: " + (
+                f"kernels {busy:.1f} ms of {pwall:.1f} ms wall, the device "
+                f"idle {1 - busy / pwall:.1%}; most device time: "
+                + ", ".join(f"{name[:48]} {ms:.1f} ms ({c})"
+                            for name, ms, c in top)
+                if busy > 0 else "the profiler shows no device time: the "
+                "device's idle share not measured"))
+        return (f"loss {rep.losses[0]:.4f} -> {rep.losses[-1]:.4f} over "
+                f"steps {rep.start_step}-{rep.start_step + n - 1}; the run "
+                f"{wall:.1f} s in all (drawing the parameters, a restore "
+                f"where there is a checkpoint, the loop with "
+                f"{rep.ckpt_seconds:.1f} s of checkpoint writes); the first "
+                f"step "
+                f"{rep.first_step_seconds * 1e3:.0f} ms, then "
+                f"{steady * 1e3:.1f} ms a step ({nb * seq / steady:.0f} "
+                f"tokens/s; host clock, the loop's end synchronized, the "
+                f"checkpoints' seconds taken out); its "
+                f"FLOP bound 6·N·tokens = {flops / 1e12:.2f} TFLOP (N "
+                f"{model.non_embedding_params(cfg, active_only=True)} "
+                f"non-embedding, active) at "
+                f"{peaks[torch.bfloat16] / 1e12:.0f} TFLOP/s (the dense "
+                f"bf16 peak of NVIDIA's data sheet for this card) "
+                f"{bound:.2f} ms, {bound / (steady * 1e3):.1%} of the step; "
+                f"peak {peak:.3f} GB{prof}")
+
+    cfg = get(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    rep, _ = captured_stdout(lambda: train.run(argv), "phase 22 (c) cli",
+                             card)
+    wall = time.time() - t
+    say(f"phase 22 (c) train {TRAIN_ARCH} ({cfg.dtype}, {cfg.n_layers} "
+        f"layers, d {cfg.d_model}) through the CLI, "
+        f"{' '.join(TRAIN_CLI_ARGS)}: {figures(cfg, rep, wall)}")
+    assert all(math.isfinite(x) for x in rep.losses), rep.losses
+    assert rep.start_step == 0 and len(rep.losses) == steps
+    assert rep.losses[steps - 1] < rep.losses[0], rep.losses
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    argv[argv.index("--steps") + 1] = str(TRAIN_RESUME_STEPS)
+    t = time.time()
+    rep, text = captured_stdout(lambda: train.run(argv),
+                                "phase 22 (c) cli resumed", card)
+    wall = time.time() - t
+    say(f"phase 22 (c) train {TRAIN_ARCH} resumed with --steps "
+        f"{TRAIN_RESUME_STEPS}: {figures(cfg, rep, wall, profiled=False)}")
+    assert f"resumed from step {steps}" in text, text
+    assert rep.start_step == steps and all(
+        math.isfinite(x) for x in rep.losses), rep
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free()
+    for arch, (depth, n) in TRAIN_MORE.items():
+        mcfg = lm_cut(get(arch), depth)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        rep, _ = captured_stdout(lambda: train.loop(
+            mcfg, steps=n, batch=nb, seq=seq, device=device),
+            f"phase 22 (c) {arch}", card)
+        wall = time.time() - t
+        say(f"phase 22 (c) train {arch} ({mcfg.dtype}, {mcfg.family}, "
+            f"{mcfg.n_layers} layers, d {mcfg.d_model}) through "
+            f"train.loop, {n} steps, batch {nb}, seq {seq}: "
+            f"{figures(mcfg, rep, wall)}")
+        assert len(rep.losses) == n and all(
+            math.isfinite(x) for x in rep.losses), (arch, rep.losses)
+        free()
+    say(f"phase 22: {time.time() - t22:.1f} s, {phase_memory()}")
+    say(card)
+
+
 def rotating_straggler(m):
     """The covering schedule of tests/test_redundant.py: worker t mod m
     stalls at iteration t."""
@@ -2605,6 +3056,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_families_phase(card, bw)
+    # 21. Whisper's encoder-decoder serving; 22. the LM training path
+    whisper_phase(card, bw)
+    train_phase(card, card_rates(torch.cuda.get_device_name(0))[1])
     say(json.dumps({"kernels": kernels}))
     say(f"total {time.time() - t0:.1f} s")
     say(card)

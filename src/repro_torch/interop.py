@@ -23,6 +23,7 @@ import torch
 from repro_torch import device as dev
 from repro_torch.core.blockops import SparseBlocks
 from repro_torch.core.partition import BlockSystem
+from repro_torch.optim.adamw import AdamWState
 
 
 def _int64(a, device):
@@ -100,3 +101,12 @@ def cache_from_numpy(tree, device=None):
     """The port's decode cache from the reference's (``jax.tree.map(
     np.asarray, cache)``), key paths kept, as :func:`params_from_numpy`."""
     return _tree_from_numpy(tree, device)
+
+
+def adamw_state_from_numpy(step, m, v, device=None):
+    """The port's ``optim.adamw.AdamWState`` from the reference's fields
+    (``jax.tree.map(np.asarray, state)``): the 0-d int32 step becomes an
+    int, the float32 moment trees convert as :func:`params_from_numpy`."""
+    return AdamWState(step=int(np.asarray(step)),
+                      m=_tree_from_numpy(m, device),
+                      v=_tree_from_numpy(v, device))

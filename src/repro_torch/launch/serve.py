@@ -8,10 +8,11 @@ Each batch is prefilled into a fresh cache of ``prompt_len + max_new``
 positions, then decoded greedily, the argmax taken over the real
 vocabulary (``[:vocab_size]`` of the padded logits).  Parameters are drawn
 from a seed (``sharding.init_tree``); a full config runs in its own dtype
-(bfloat16).  Runs on the card unless ``--device cpu``.  Every
-decoder-only family serves (dense, vlm, moe, ssm, hybrid); ``serve`` is
-the same loop for a config object and its parameters, such as a depth
-cut of a published config.
+(bfloat16).  Runs on the card unless ``--device cpu``.  Every family
+serves (dense, vlm, moe, ssm, hybrid, and Whisper's encoder-decoder on
+zero frames, as the reference's CLI feeds it); ``serve`` is the same loop
+for a config object and its parameters, such as a depth cut of a
+published config.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --smoke --requests 6 --batch 2 --prompt-len 16 --max-new 8
@@ -85,7 +86,6 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
     """Serve ``requests`` random prompts (seed 0) in slot batches of
     ``batch`` on ``params`` (the CLI's loop, for a config object: a depth
     cut of a published config, say), printing the reference's lines."""
-    model.check_ported(cfg)
     rules = sharding.Rules()
     rng = np.random.default_rng(0)
     queue = deque(rng.integers(0, cfg.vocab_size, size=prompt_len)
@@ -94,6 +94,10 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
     if cfg.frontend == "vision":
         extra["patches"] = torch.zeros(
             (batch, cfg.num_patches, cfg.d_model),
+            dtype=model.cache_dtype(cfg), device=device)
+    if cfg.frontend == "audio":
+        extra["frames"] = torch.zeros(
+            (batch, cfg.encoder_seq, cfg.d_model),
             dtype=model.cache_dtype(cfg), device=device)
 
     done, tokens, t0 = 0, [], time.time()

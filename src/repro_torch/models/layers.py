@@ -13,12 +13,15 @@ to v's dtype first.
 Attention is the reference's own algorithm in plain torch ops: train and
 prefill run the chunked online-softmax ("flash") forward — a loop over key
 blocks carrying (max, sum, acc) — and decode attends over the whole cache
-masked by ``kv_len``.  No Pallas kernel backs it in the reference, so it
-is no kernel slot here; a hand-written attention kernel is later work.
+masked by ``kv_len``.  ``flash_attention`` is a ``torch.autograd.Function``
+with the reference's block-recompute backward (its custom VJP): it saves
+(q, k, v, out, lse) and recomputes each probability tile from them.  No
+Pallas kernel backs any of it in the reference, so it is no kernel slot
+here; a hand-written attention kernel is later work.
 
-GQA and MLA (DeepSeek-V2's latent attention, with its absorbed decode)
-serve; Whisper's GELU MLP and cross-attention have their shapes only
-(ROADMAP A19b part 4), and the flash backward is A19c.
+GQA and MLA (DeepSeek-V2's latent attention, with its absorbed decode),
+Whisper's cross-attention (``cross_kv`` and the ``cross=`` path of
+``gqa_apply``), SwiGLU and Whisper's GELU MLP.
 """
 from __future__ import annotations
 
@@ -94,48 +97,150 @@ def _f32_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.float(), b.float())
 
 
+# a float32 (query rows x blk) score tile above this many bytes splits the
+# query rows into chunks (each row's arithmetic is unchanged)
+TILE_BYTES = 1 << 28
+
+
+def _row_chunk(B: int, H: int, Sq: int, blk: int) -> int:
+    """Query rows a chunk: all Sq, or as many as keep one float32 score
+    tile of a key block within ``TILE_BYTES`` (at least one)."""
+    return max(1, min(Sq, TILE_BYTES // (B * H * blk * 4)))
+
+
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               q_offset: int, causal: bool, blk: int):
+    """Online-softmax forward.  Returns (out (B,Sq,H,dv) in q's dtype,
+    lse (B,K,G,Sq) float32): the log-sum-exp is the only statistic the
+    backward needs; no (Sq x Sk) tensor outlives a block.  Query rows are
+    independent, so a long query runs in chunks of ``_row_chunk`` rows,
+    each over every key block."""
+    B, Sq, H, dq = q.shape
+    Sk, K, dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // K
+    qg = q.reshape(B, Sq, K, G, dq)
+    scale = dq ** -0.5
+    out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, K, G, Sq), dtype=torch.float32, device=q.device)
+    rows = _row_chunk(B, H, Sq, blk)
+    for i in range(0, Sq, rows):
+        r = slice(i, min(i + rows, Sq))
+        n = r.stop - i
+        q_pos = q_offset + torch.arange(i, r.stop, device=q.device)
+        m = torch.full((B, K, G, n), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, K, G, n), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, K, G, n, dv), dtype=torch.float32,
+                          device=q.device)
+        for j in range(Sk // blk):
+            k_j = k[:, j * blk:(j + 1) * blk]
+            v_j = v[:, j * blk:(j + 1) * blk]
+            s = _f32_product("bqkgd,btkd->bkgqt", qg[:, r], k_j) * scale
+            if causal:
+                k_pos = j * blk + torch.arange(blk, device=q.device)
+                mask = q_pos[:, None] >= k_pos[None, :]
+                s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            del s
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pv = _f32_product("bkgqt,btkd->bkgqd", p.to(v_j.dtype), v_j)
+            del p
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        l = torch.clamp(l, min=1e-30)
+        out[:, r] = (acc / l[..., None]).permute(0, 3, 1, 2, 4).reshape(
+            B, n, H, dv).to(q.dtype)
+        lse[..., r] = m + torch.log(l)
+    return out, lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, q_offset: int, causal: bool,
+               blk: int):
+    """The reference's block-recompute backward: each block's probability
+    tile is rebuilt from (q, k_j, lse); the products take their operands
+    in the storage dtype with float32 accumulation, ``ds`` is rounded to
+    k's dtype, and dq, dk and dv accumulate in float32, each cast to the
+    storage dtype once.  The query rows run in the forward's chunks (dk
+    and dv summed over them; one chunk is the reference's arithmetic).
+    The elementwise steps run in place on the block's tiles (the same
+    values as the reference's expressions: IEEE products commute), so
+    that at most about two float32 (rows x blk) tiles are live at once."""
+    B, Sq, H, dq = q.shape
+    Sk, K, dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // K
+    scale = dq ** -0.5
+    qg = q.reshape(B, Sq, K, G, dq)
+    do = dout.reshape(B, Sq, K, G, dv)
+    og = out.reshape(B, Sq, K, G, dv)
+    delta = _f32_product("bqkgd,bqkgd->bkgq", do, og)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq_acc = torch.zeros((B, Sq, K, G, dq), **f32)
+    dk = torch.zeros((B, Sk, K, dq), **f32)
+    dvv = torch.zeros((B, Sk, K, dv), **f32)
+    rows = _row_chunk(B, H, Sq, blk)
+    for i in range(0, Sq, rows):
+        r = slice(i, min(i + rows, Sq))
+        q_pos = q_offset + torch.arange(i, r.stop, device=q.device)
+        for j in range(Sk // blk):
+            t = slice(j * blk, (j + 1) * blk)
+            k_j, v_j = k[:, t], v[:, t]
+            p = _f32_product("bqkgd,btkd->bkgqt", qg[:, r], k_j).mul_(scale)
+            if causal:
+                k_pos = j * blk + torch.arange(blk, device=q.device)
+                p.masked_fill_(q_pos[:, None] < k_pos[None, :], NEG_INF)
+            p.sub_(lse[..., r, None]).exp_()                    # normalized
+            dvv[:, t] += _f32_product("bkgqt,bqkgd->btkd", p.to(do.dtype),
+                                      do[:, r])
+            ds = _f32_product("bqkgd,btkd->bkgqt", do[:, r], v_j)  # dp
+            ds = ds.sub_(delta[..., r, None]).mul_(p).mul_(scale).to(
+                k_j.dtype)
+            del p
+            dq_acc[:, r] += _f32_product("bkgqt,btkd->bqkgd", ds, k_j)
+            dk[:, t] += _f32_product("bkgqt,bqkgd->btkd", ds, qg[:, r])
+    return (dq_acc.reshape(B, Sq, H, dq).to(q.dtype), dk.to(k.dtype),
+            dvv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``custom_vjp``: saves (q, k, v, out, lse) only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, causal, blk):
+        out, lse = _flash_fwd(q, k, v, q_offset, causal, blk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.static = (q_offset, causal, blk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.static)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int = 0, causal: bool = True,
                     blk: int = 1024) -> torch.Tensor:
-    """Online-softmax attention forward over key blocks of ``blk``.
+    """Online-softmax attention over key blocks of ``blk``, with a
+    block-recompute backward.
 
     q (B,Sq,H,dq), k (B,Sk,K,dq), v (B,Sk,K,dv), H % K == 0, Sk % blk == 0;
     query i sits at position ``q_offset + i``.  Returns (B,Sq,H,dv) in
     q's dtype.  Masked scores are ``NEG_INF`` (not -inf), and the running
-    sum is clamped at 1e-30, as the reference's.
+    sum is clamped at 1e-30, as the reference's.  Plain autograd through
+    the loop would keep every probability tile, B·H·Sq·Sk float32 values
+    in all; the backward recomputes each tile from the saved log-sum-exp
+    instead (``q_offset``, ``causal`` and ``blk`` take no gradient).  A
+    tile holds at most ``TILE_BYTES``: beyond that the query rows run in
+    chunks, which bounds the transient memory at any length.
     """
-    B, Sq, H, dq = q.shape
-    Sk, K, dv = k.shape[1], k.shape[2], v.shape[3]
+    H, Sk, K = q.shape[2], k.shape[1], k.shape[2]
     if H % K or Sk % blk:
         raise ValueError(f"flash_attention needs H % K == 0 and Sk % blk "
                          f"== 0; got H={H} K={K} Sk={Sk} blk={blk}")
-    G = H // K
-    qg = q.reshape(B, Sq, K, G, dq)
-    scale = dq ** -0.5
-    q_pos = q_offset + torch.arange(Sq, device=q.device)
-    m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, K, G, Sq, dv), dtype=torch.float32,
-                      device=q.device)
-    for j in range(Sk // blk):
-        k_j = k[:, j * blk:(j + 1) * blk]
-        v_j = v[:, j * blk:(j + 1) * blk]
-        s = _f32_product("bqkgd,btkd->bkgqt", qg, k_j) * scale
-        if causal:
-            k_pos = j * blk + torch.arange(blk, device=q.device)
-            mask = q_pos[:, None] >= k_pos[None, :]
-            s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        pv = _f32_product("bkgqt,btkd->bkgqd", p.to(v_j.dtype), v_j)
-        acc = acc * alpha[..., None] + pv
-        m = m_new
-    l = torch.clamp(l, min=1e-30)
-    out = acc / l[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(q.dtype)
+    return _Flash.apply(q, k, v, q_offset, causal, blk)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -182,6 +287,18 @@ def gqa_cache_abstract(cfg: ModelConfig, batch: int, max_seq: int):
             "v": ParamSpec((batch, max_seq, K, hd), ax)}
 
 
+def cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
+    """Project the encoder output (B, Se, D) once into Whisper's cross
+    (k, v), each (B, Se, K, hd): cached across decode steps."""
+    B, Se, _ = enc_out.shape
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    k = (enc_out @ p["wk"]).reshape(B, Se, K, hd)
+    v = (enc_out @ p["wv"]).reshape(B, Se, K, hd)
+    if cfg.qk_norm:
+        k = l2norm(k, cfg.norm_eps) * p["k_norm"].to(k.dtype)
+    return k, v
+
+
 def gqa_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
               cache=None, cache_len: int = None, cross=None,
               causal: bool = True, rules=None):
@@ -195,17 +312,22 @@ def gqa_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     ``cache_len`` (a Python int) and returned.  A write past the cache's
     end raises: the reference's ``dynamic_update_slice`` would clamp the
     start instead, and no caller may rely on either.  Prefill attends over
-    the fresh tokens only, as the reference's does.  ``cross`` (Whisper's
-    cross-attention) is ROADMAP A19b.
+    the fresh tokens only, as the reference's does.
+
+    ``cross``: Whisper's precomputed (k, v) from ``cross_kv``, which
+    replace the self-attention K/V whole: no rope, no mask, every query
+    over all Se keys (``decode_attention``, in training and prefill too,
+    as in the reference), and no cache.
     """
-    if cross is not None:
-        raise NotImplementedError("cross-attention (encoder-decoder) is "
-                                  "ROADMAP A19b, not ported yet")
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     if cfg.qk_norm:
         q = l2norm(q, cfg.norm_eps) * p["q_norm"].to(q.dtype)
+    if cross is not None:
+        k, v = cross
+        out = decode_attention(q, k, v, kv_len=k.shape[1])
+        return out.reshape(B, S, H * hd) @ p["wo"], None
     k = (x @ p["wk"]).reshape(B, S, K, hd)
     v = (x @ p["wv"]).reshape(B, S, K, hd)
     if cfg.qk_norm:
@@ -344,10 +466,15 @@ def swiglu_apply(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def gelu_mlp_abstract(d_model: int, d_ff: int):
-    """Whisper's GELU MLP, shapes only.  For its forward (A19b):
-    ``jax.nn.gelu`` defaults to the tanh approximation
-    (``F.gelu(..., approximate="tanh")``)."""
+    """Whisper's GELU MLP."""
     return {"w_in": ParamSpec((d_model, d_ff), ("fsdp", "tensor")),
             "b_in": ParamSpec((d_ff,), (None,), init="zeros"),
             "w_out": ParamSpec((d_ff, d_model), ("tensor", "fsdp")),
             "b_out": ParamSpec((d_model,), (None,), init="zeros")}
+
+
+def gelu_mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation, not the exact
+    erf form (they differ by up to ~5e-4 near |x| = 2.7)."""
+    h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
+    return h @ p["w_out"] + p["b_out"]

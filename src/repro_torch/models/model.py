@@ -2,22 +2,27 @@
 steps (the port's counterpart of ``repro.models.model``).
 
 Batch conventions:
-  forward: {"tokens": (B,S) int [, "patches" (B,P,D)]} -> logits (B,S,V)
-  prefill: {"tokens": (B,S)} + empty cache -> last-position logits + cache
+  forward: {"tokens": (B,S) int [, "patches" (B,P,D) | "frames" (B,Se,D)]}
+           -> logits (B,S,V)
+  loss_fn: forward's batch + {"labels": (B,S) int, < 0 masked} -> scalar
+  prefill: {"tokens": (B,S) [, "frames"]} + empty cache -> last-position
+           logits + cache
   decode:  token (B,1) + cache + cache_len (a Python int) -> logits + cache
 
-Every decoder-only family serves: ``dense`` and ``vlm`` (GQA), ``moe``
+Every family serves and trains: ``dense`` and ``vlm`` (GQA), ``moe``
 (routed and shared experts; DeepSeek-V2's MLA attention and dense first
-layer), ``ssm`` (Mamba2) and ``hybrid`` (Jamba: SSM and attention slots,
-MoE on every second).  ``forward``, ``prefill`` and ``decode_step`` refuse
-the ``audio`` family (Whisper's encoder-decoder) with a
-``NotImplementedError`` naming ROADMAP A19b; its shapes, parameter counts
-and cache layouts are whole here.  ``loss_fn`` comes with training (A19c).
+layer), ``ssm`` (Mamba2), ``hybrid`` (Jamba: SSM and attention slots,
+MoE on every second) and ``audio`` (Whisper: the encoder runs over
+``frames``, and every decoder layer cross-attends its output, projected
+once per layer into (k, v)).
 
 Caches are updated in place (``transformer.decoder_apply``): attention
 writes its K/V or latent rows; an SSM block's state leaf turns float32 at
 the first bfloat16 decode step, as the reference's, the stacked leaf being
-replaced in the caller's tree.
+replaced in the caller's tree.  Prefill puts Whisper's cross (k, v) into
+``cache["cross"]`` (the leaves replaced, in the projections' dtype, as the
+reference's prefill returns them); decode reads them and never rewrites
+them.
 """
 from __future__ import annotations
 
@@ -30,9 +35,6 @@ from repro_torch import device as dev
 from .config import ModelConfig
 from .sharding import ParamSpec, Rules, constrain, tree_leaves, tree_map
 from . import layers, ssm as ssm_mod, transformer
-
-#: the family whose forward is ROADMAP A19b part 4 (encoder-decoder)
-UNPORTED_FAMILIES = ("audio",)
 
 # ---------------------------------------------------------------------------
 # Abstract parameters
@@ -112,15 +114,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 # ---------------------------------------------------------------------------
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a config whose forward this slice does not run."""
-    if cfg.family in UNPORTED_FAMILIES or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is ROADMAP A19b part 4 "
-            f"(encoder-decoder serving), not ported yet; the port serves "
-            f"the decoder-only families (dense, vlm, moe, ssm, hybrid)")
-
-
 def _embed(cfg: ModelConfig, params, tokens):
     return params["embed"][tokens]
 
@@ -131,12 +124,49 @@ def _lm_logits(cfg: ModelConfig, params, h):
     return h @ params["lm_head"]
 
 
+def _cross_stack(cfg: ModelConfig, params, enc_out):
+    """Each decoder layer's cross (k, v) from the encoder output: a pair
+    per prefix layer, and per slot the pair stacked over the periods."""
+    dec = params["decoder"]
+    prefix = [layers.cross_kv(cfg, sp["xattn"], enc_out)
+              for sp in dec["prefix"]]
+    slots = []
+    for slot in dec["slots"]:
+        kvs = [layers.cross_kv(cfg, transformer._period(slot["xattn"], i),
+                               enc_out)
+               for i in range(slot["xattn"]["wk"].shape[0])]
+        slots.append(tuple(torch.stack(t) for t in zip(*kvs)))
+    return {"prefix": prefix, "slots": slots}
+
+
+def _encode(cfg: ModelConfig, params, batch, dtype, rules):
+    """The cross stack of an encoder-decoder config, else None."""
+    if not cfg.is_encoder_decoder:
+        return None
+    enc_out = transformer.encoder_apply(
+        cfg, params["encoder"], batch["frames"].to(dtype), rules=rules)
+    return _cross_stack(cfg, params, enc_out)
+
+
+def cross_stack_to_cache(cross_stack):
+    to_dict = lambda kv: {"k": kv[0], "v": kv[1]}  # noqa: E731
+    return {"prefix": [to_dict(kv) for kv in cross_stack["prefix"]],
+            "slots": [to_dict(kv) for kv in cross_stack["slots"]]}
+
+
+def cache_to_cross_stack(cross_cache):
+    to_kv = lambda d: (d["k"], d["v"])  # noqa: E731
+    return {"prefix": [to_kv(d) for d in cross_cache["prefix"]],
+            "slots": [to_kv(d) for d in cross_cache["slots"]]}
+
+
 def forward(cfg: ModelConfig, params, batch, *, rules: Rules = None,
             train: bool = False):
     """Full-sequence forward -> logits (B, S_tokens, V).  A vision config
     prepends ``batch["patches"]`` (B, P, D) to the token embeddings and
-    drops their positions from the logits."""
-    check_ported(cfg)
+    drops their positions from the logits; an encoder-decoder one encodes
+    ``batch["frames"]`` (B, Se, D).  ``train`` recomputes each decoder
+    period in the backward (``transformer.decoder_apply``)."""
     tokens = batch["tokens"]
     h = _embed(cfg, params, tokens).to(cache_dtype(cfg))
     n_prepend = 0
@@ -145,14 +175,33 @@ def forward(cfg: ModelConfig, params, batch, *, rules: Rules = None,
         n_prepend = patches.shape[1]
         h = torch.cat([patches, h], dim=1)
     h = constrain(h, rules, "batch", "seq_sp", None)
+    cross_stack = _encode(cfg, params, batch, h.dtype, rules)
     positions = torch.arange(h.shape[1], device=h.device)
     h, _ = transformer.decoder_apply(cfg, params["decoder"], h,
                                      positions=positions, rules=rules,
-                                     train=train)
+                                     cross_kv_stack=cross_stack, train=train)
     h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if n_prepend:
         h = h[:, n_prepend:, :]
     return _lm_logits(cfg, params, h)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, rules: Rules = None):
+    """Next-token cross entropy (labels shifted by the caller), over the
+    float32 logits, the vocab-pad columns set to -1e30, labels < 0
+    masked, the sum over the max(count, 1) unmasked ones."""
+    logits = forward(cfg, params, batch, rules=rules, train=True).float()
+    labels = batch["labels"]
+    if cfg.padded_vocab != cfg.vocab_size:      # mask vocab-pad columns
+        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = torch.where(col < cfg.vocab_size, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    # a masked label gathers column 0 (the reference's take wraps -1 to
+    # the last): either way its term is multiplied by 0
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -164,18 +213,24 @@ def prefill(cfg: ModelConfig, params, batch, cache, *, rules: Rules = None):
     """Process the prompt, fill the cache (in place).  Returns
     (last_logits (B,1,V), cache).
 
-    Only ``batch["tokens"]`` is read: a vision config's ``patches`` are
-    ignored here, as in the reference's prefill.
+    A vision config's ``patches`` are ignored here, as in the reference's
+    prefill; an encoder-decoder config encodes ``batch["frames"]`` and
+    writes each layer's cross (k, v) into ``cache["cross"]``'s leaves.
     """
-    check_ported(cfg)
     tokens = batch["tokens"]
     h = _embed(cfg, params, tokens).to(cache_dtype(cfg))
     h = constrain(h, rules, "batch", "seq_sp", None)
     sub_cache = {k: v for k, v in cache.items() if k != "cross"}
+    cross_stack = _encode(cfg, params, batch, h.dtype, rules)
     positions = torch.arange(h.shape[1], device=h.device)
     h, new_cache = transformer.decoder_apply(
         cfg, params["decoder"], h, positions=positions, rules=rules,
-        caches=sub_cache, cache_len=0)
+        caches=sub_cache, cache_len=0, cross_kv_stack=cross_stack)
+    if cross_stack is not None:
+        for dst, src in zip(tree_leaves(cache["cross"]),
+                            tree_leaves(cross_stack_to_cache(cross_stack))):
+            dst.copy_(src)
+        new_cache["cross"] = cache["cross"]
     h = layers.rmsnorm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
     return _lm_logits(cfg, params, h), new_cache
 
@@ -185,14 +240,17 @@ def decode_step(cfg: ModelConfig, params, token, cache, cache_len: int, *,
     """One new token against a cache holding ``cache_len`` positions (a
     Python int: no device value to read back in the decode loop).  Returns
     (logits (B,1,V), cache), the cache written in place."""
-    check_ported(cfg)
     cache_len = int(cache_len)
     h = _embed(cfg, params, token).to(cache_dtype(cfg))
     sub_cache = {k: v for k, v in cache.items() if k != "cross"}
+    cross_stack = (cache_to_cross_stack(cache["cross"])
+                   if cfg.is_encoder_decoder else None)
     positions = cache_len + torch.arange(1, device=h.device)
     h, new_cache = transformer.decoder_apply(
         cfg, params["decoder"], h, positions=positions, rules=rules,
-        caches=sub_cache, cache_len=cache_len)
+        caches=sub_cache, cache_len=cache_len, cross_kv_stack=cross_stack)
+    if cfg.is_encoder_decoder:
+        new_cache["cross"] = cache["cross"]
     h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _lm_logits(cfg, params, h), new_cache
 

@@ -4,8 +4,8 @@ counterpart of ``repro.models.sharding``).
 Parameters are declared as a pytree (nested dicts and lists) of
 :class:`ParamSpec` leaves: shape, logical axis names and the init rule.
 :func:`init_tree` materializes them from an explicit ``torch.Generator``;
-:func:`tree_map` and :func:`tree_leaves` walk such trees (dict keys in
-sorted order, as ``jax.tree`` flattens them).
+:func:`tree_map`, :func:`tree_leaves` and :func:`tree_unflatten` walk
+such trees (dict keys in sorted order, as ``jax.tree`` flattens them).
 
 :class:`Rules` keeps the reference's fields so that call sites read the
 same, but this slice runs on one device: :func:`constrain` is the
@@ -68,6 +68,23 @@ def tree_leaves(tree, is_leaf=_is_spec) -> list:
     if isinstance(tree, (list, tuple)) and not is_leaf(tree):
         return [x for t in tree for x in tree_leaves(t, is_leaf)]
     return [] if tree is None else [tree]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s tree (dicts, lists, tuples) with its leaves replaced by
+    ``leaves``, taken in ``tree_leaves`` order; None stays None."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            made = {k: build(node[k]) for k in sorted(node)}
+            return {k: made[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            out = [build(t) for t in node]
+            return out if isinstance(node, list) else tuple(out)
+        return None if node is None else next(it)
+
+    return build(like)
 
 
 def init_tree(abstract, generator: torch.Generator, dtype: torch.dtype,

@@ -9,12 +9,22 @@ its slice of the stacked weights and caches (views, so an attention
 block's cache write lands in the stacked tensor, and the new caches stay
 stacked per slot; an SSM block's new conv tail and state are copied into
 their period's place, see ``_store``).  A slot is GQA or MLA attention
-or a Mamba2 (SSD) block, followed by a SwiGLU or a MoE.
+or a Mamba2 (SSD) block, then Whisper's cross-attention where the model
+has an encoder, then a SwiGLU, a GELU MLP or a MoE.
 
 Layers that cannot join the uniform stack (DeepSeek-V2's first dense
 layer) are an unrolled prefix, as in the reference.
+
+Remat: in training (no caches, no cross stack) each period runs under
+``torch.utils.checkpoint`` (non-reentrant), the twin of the reference's
+``jax.checkpoint(nothing_saveable)`` over its scan body: a period's
+activations are recomputed in the backward, and only the residual
+stream between periods is kept.
 """
 from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .sharding import ParamSpec, Rules, constrain, tree_map
@@ -96,11 +106,10 @@ def encoder_abstract(cfg: ModelConfig):
 
 
 def _apply_slot(cfg: ModelConfig, kind: str, sp, h, *, positions, rules,
-                cache=None, cache_len=None):
-    """One residual block: (GQA | MLA | SSM) + (SwiGLU | MoE).  Returns
-    (h, the block's new cache or None).  Whisper's cross-attention and
-    GELU MLP are ROADMAP A19b part 4 (``model.check_ported`` refuses
-    them)."""
+                cache=None, cache_len=None, cross=None):
+    """One residual block: (GQA | MLA | SSM) [+ cross-attention] +
+    (SwiGLU | GELU MLP | MoE).  Returns (h, the block's new cache or
+    None)."""
     new_cache = {}
     hn = layers.rmsnorm(sp["ln1"], h, cfg.norm_eps)
     c_in = None if cache is None else cache["attn"]
@@ -115,12 +124,19 @@ def _apply_slot(cfg: ModelConfig, kind: str, sp, h, *, positions, rules,
     if c is not None:
         new_cache["attn"] = c
     h = h + a.to(h.dtype)
+    if cross is not None:
+        hx = layers.rmsnorm(sp["ln_x"], h, cfg.norm_eps)
+        a, _ = layers.gqa_apply(cfg, sp["xattn"], hx, positions=positions,
+                                cross=cross)
+        h = h + a.to(h.dtype)
     if "mlp" in sp:
         hn = layers.rmsnorm(sp["ln2"], h, cfg.norm_eps)
         if "router" in sp["mlp"]:
             f = moe.moe_apply(cfg, sp["mlp"], hn, rules=rules)
-        else:
+        elif "w_gate" in sp["mlp"]:
             f = layers.swiglu_apply(sp["mlp"], hn)
+        else:
+            f = layers.gelu_mlp_apply(sp["mlp"], hn)
         h = h + f.to(h.dtype)
     if h.shape[1] > 1:
         h = constrain(h, rules, "batch", "seq_sp", None)
@@ -151,26 +167,65 @@ def _store(tree, i, old, new) -> None:
 
 def decoder_apply(cfg: ModelConfig, dec_params, h, *, positions,
                   rules: Rules = None, caches=None, cache_len=None,
-                  train: bool = False):
+                  cross_kv_stack=None, train: bool = False):
     """Run the prefix layers, then the stacked periods, in order.
 
     caches: {"prefix": [cache, ...], "slots": [stacked cache, ...]} or
-    None; updated in place (``_store``).  Returns (h, new_caches),
-    new_caches being ``caches`` (the same tree) or None.
+    None; updated in place (``_store``).  cross_kv_stack: {"prefix":
+    [(k, v), ...], "slots": [(k, v) stacked per period, ...]} or None.
+    ``train`` (with neither) recomputes each period in the backward.
+    Returns (h, new_caches), new_caches being ``caches`` (the same tree)
+    or None.
     """
     period = cfg.pattern
     for i, sp in enumerate(dec_params["prefix"]):   # attention: in place
         c = caches["prefix"][i] if caches is not None else None
+        cr = cross_kv_stack["prefix"][i] if cross_kv_stack else None
         h, _ = _apply_slot(cfg, "attn", sp, h, positions=positions,
-                           rules=rules, cache=c, cache_len=cache_len)
+                           rules=rules, cache=c, cache_len=cache_len,
+                           cross=cr)
     n_periods = (cfg.n_layers - len(dec_params["prefix"])) // len(period)
+    if train and caches is None and cross_kv_stack is None:
+        def period_fwd(h, i):
+            for s, kind in enumerate(period):
+                h, _ = _apply_slot(cfg, kind,
+                                   _period(dec_params["slots"][s], i), h,
+                                   positions=positions, rules=rules)
+            return h
+        for i in range(n_periods):
+            h = checkpoint(period_fwd, h, i, use_reentrant=False)
+        return h, None
     for i in range(n_periods):
         for s, kind in enumerate(period):
             c = (None if caches is None
                  else _period(caches["slots"][s], i))
+            cr = (None if cross_kv_stack is None else
+                  tuple(t[i] for t in cross_kv_stack["slots"][s]))
             h, nc = _apply_slot(cfg, kind, _period(dec_params["slots"][s], i),
                                 h, positions=positions, rules=rules, cache=c,
-                                cache_len=cache_len)
+                                cache_len=cache_len, cross=cr)
             if nc is not None:
                 _store(caches["slots"][s], i, c, nc)
     return h, caches
+
+
+def encoder_apply(cfg: ModelConfig, enc_params, frames, *, rules: Rules = None):
+    """Whisper's encoder over frames (B, Se, D), the precomputed frame
+    embeddings (the frontend is a stub, as in the reference): per layer
+    non-causal GQA self-attention (rope included, as the reference's)
+    and the MLP, then the final rmsnorm."""
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    h = frames
+    slots = enc_params["slots"][0]
+    for i in range(cfg.encoder_layers):
+        sp = _period(slots, i)
+        hn = layers.rmsnorm(sp["ln1"], h, cfg.norm_eps)
+        a, _ = layers.gqa_apply(cfg, sp["attn"], hn, positions=positions,
+                                causal=False)
+        h = h + a
+        hn = layers.rmsnorm(sp["ln2"], h, cfg.norm_eps)
+        if "w_gate" in sp["mlp"]:
+            h = h + layers.swiglu_apply(sp["mlp"], hn)
+        else:
+            h = h + layers.gelu_mlp_apply(sp["mlp"], hn)
+    return layers.rmsnorm(enc_params["final_norm"], h, cfg.norm_eps)

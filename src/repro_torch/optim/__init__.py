@@ -1,3 +1,4 @@
 """Optimizers and solver heads of the LM framework (the port's
-counterpart of ``repro.optim``): the APC probe head (``apc_head``).
-AdamW, the schedule and gradient compression are ROADMAP A19c."""
+counterpart of ``repro.optim``): AdamW (``adamw``), the LR schedules
+(``schedule``), int8 gradient compression with error feedback
+(``compress``) and the APC probe head (``apc_head``)."""

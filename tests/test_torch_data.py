@@ -1,5 +1,10 @@
 """The port's data layer against the JAX reference: generators, block
-systems, spectral analysis, the device rule and the import boundary."""
+systems, spectral analysis, the device rule and the import boundary;
+and the synthetic LM data: tests/test_data.py's four synthetic cases on
+the port (determinism, host sharding, the label shift, the vocabulary),
+and the port's int64 batches equal to the reference's int32 ones for
+several steps, hosts and configs, on the device asked for (a card by
+default)."""
 import ast
 import pathlib
 
@@ -11,9 +16,10 @@ torch = pytest.importorskip("torch")
 from repro.core import partition as ref_partition  # noqa: E402
 from repro.core import spectral as ref_spectral  # noqa: E402
 from repro.data import linsys as ref_linsys  # noqa: E402
+from repro.data import synthetic as ref_synthetic  # noqa: E402
 from repro_torch import device as dev  # noqa: E402
 from repro_torch.core import blockops, partition, spectral  # noqa: E402
-from repro_torch.data import linsys  # noqa: E402
+from repro_torch.data import linsys, synthetic  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -167,3 +173,75 @@ def test_port_imports_neither_jax_nor_reference():
         for mod in _imports(path):
             head = mod.split(".")[0]
             assert head not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+# ---------------------------------------------------------------------------
+# synthetic LM data
+# ---------------------------------------------------------------------------
+
+
+def _batch(cfg, step, **kw):
+    return synthetic.make_batch(cfg, step, device="cpu", **kw)
+
+
+def test_batches_deterministic():
+    cfg = synthetic.DataConfig(vocab_size=100, seq_len=16, global_batch=4)
+    b1, b2 = _batch(cfg, 7), _batch(cfg, 7)
+    assert torch.equal(b1["tokens"], b2["tokens"])
+    assert not torch.equal(b1["tokens"], _batch(cfg, 8)["tokens"])
+
+
+def test_host_sharding_partitions_global_batch():
+    cfg = synthetic.DataConfig(vocab_size=100, seq_len=8, global_batch=8)
+    full = _batch(cfg, 3)
+    shards = [_batch(cfg, 3, host_id=h, num_hosts=4) for h in range(4)]
+    assert torch.equal(torch.cat([s["tokens"] for s in shards]),
+                       full["tokens"])
+    with pytest.raises(ValueError, match="split"):
+        _batch(cfg, 3, num_hosts=3)
+
+
+def test_labels_are_next_token():
+    cfg = synthetic.DataConfig(vocab_size=100, seq_len=12, global_batch=2)
+    b = _batch(cfg, 0)
+    assert b["tokens"].shape == (2, 12)
+    assert torch.equal(b["tokens"][:, 1:], b["labels"][:, :-1])
+
+
+def test_tokens_in_vocab():
+    cfg = synthetic.DataConfig(vocab_size=50, seq_len=64, global_batch=4)
+    b = _batch(cfg, 2)
+    assert int(b["tokens"].max()) < 50 and int(b["tokens"].min()) >= 0
+
+
+@pytest.mark.parametrize("kw", [dict(vocab_size=100, seq_len=16,
+                                     global_batch=4),
+                                dict(vocab_size=32000, seq_len=128,
+                                     global_batch=8, seed=7),
+                                dict(vocab_size=50, seq_len=9,
+                                     global_batch=6, zipf_a=1.5, ngram=2)])
+def test_batches_equal_the_references(kw):
+    cfg = synthetic.DataConfig(**kw)
+    ref = ref_synthetic.DataConfig(**kw)
+    hosts = [(0, 1), (1, 2)] + ([(2, 3)] if cfg.global_batch % 3 == 0
+                                else [])
+    for host_id, num_hosts in hosts:
+        it = synthetic.batches(cfg, 5, host_id=host_id, num_hosts=num_hosts,
+                               device="cpu")
+        ref_it = ref_synthetic.batches(ref, 5, host_id=host_id,
+                                       num_hosts=num_hosts)
+        for _ in range(3):
+            got, want = next(it), next(ref_it)
+            assert got.keys() == want.keys()
+            for k in want:
+                assert got[k].dtype == torch.int64
+                np.testing.assert_array_equal(got[k].numpy(),
+                                              np.asarray(want[k]))
+
+
+def test_make_batch_wants_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    cfg = synthetic.DataConfig(vocab_size=10, seq_len=4, global_batch=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthetic.make_batch(cfg, 0)

@@ -5,6 +5,8 @@ port's static checker is clean on all of them (the first step of
 scripts/ci_torch.sh).  The smokes assert what their reference twins
 assert; here each must exit 0 and print its OK line.
 
+The training example and the port's training and data modules import
+no JAX either (``launch/train.py`` is among the modules portlint reads).
 The scripts are started together, one thread each, when the first test
 of the file asks for them (the ``launched`` fixture); each test waits
 for its own, and whatever still runs at the end of the module is killed.
@@ -31,6 +33,11 @@ EXAMPLES = {
     "distributed_solve_torch.py": (["--ranks", "4"],
                                    "max deviation from single-host"),
     "probe_apc_torch.py": ([], "deviation from closed-form ridge"),
+    # ({tmp}: the fixture's directory) a fresh checkpoint directory; four
+    # steps reach no checkpoint, so the last step's line is the sign
+    "train_lm_torch.py": (["--steps", "4",
+                           "--ckpt-dir", "{tmp}/train_lm_ckpt"],
+                          "step     3  loss "),
 }
 
 
@@ -54,10 +61,11 @@ def launched():
     stderr file, start time)."""
     jobs = {f"smoke {s}": [REPO / "scripts" / "smokes_torch" / f"{s}.py",
                            "--device", "cpu"] for s in SMOKES}
-    jobs.update({f"example {e}": [REPO / "examples" / e, "--device", "cpu",
-                                  *extra]
-                 for e, (extra, _) in EXAMPLES.items()})
     with tempfile.TemporaryDirectory(prefix="scripts_") as tmp:
+        jobs.update({f"example {e}": [REPO / "examples" / e, "--device",
+                                      "cpu", *(a.format(tmp=tmp)
+                                               for a in extra)]
+                     for e, (extra, _) in EXAMPLES.items()})
         procs = {}
         for name, args in jobs.items():
             out = open(os.path.join(tmp, name + ".out"), "w+")
@@ -111,6 +119,13 @@ def test_scripts_import_no_jax_and_lint_clean():
         for bad in ("import jax", "from jax", "import repro\n", "from repro ",
                     "from repro.", "import repro."):
             assert bad not in text, (p, bad)
+    for mod in ("launch/train.py", "optim/adamw.py", "optim/schedule.py",
+                "optim/compress.py", "data/synthetic.py"):
+        text = (REPO / "src" / "repro_torch" / mod).read_text()
+        for bad in ("import jax", "from jax", "from repro.",
+                    "import repro."):
+            assert bad not in text, (mod, bad)
+    assert (REPO / "examples" / "train_lm_torch.py") in paths
     out = _run(["-m", "repro_torch.analysis", "src/repro_torch",
                 "chip_smoke.py", *paths])
     assert "portlint: clean" in out

@@ -3,11 +3,12 @@ reference, on the CPU.
 
 Serving: on parameters drawn by the reference's ``init_tree`` and carried
 across, ``generate_batch`` emits the reference's greedy tokens, twice the
-same, for the GQA, MoE, SSM, hybrid and MLA smoke configs; the decode
-step built by ``make_decode`` is the one every step goes through; ``main``
-serves each with ``--device cpu`` (``serve`` the same tokens on a config
-object), refuses whisper-tiny (A19b part 4), and refuses to start without
-a card otherwise.
+same, for the GQA, MoE, SSM, hybrid, MLA and encoder-decoder smoke
+configs (Whisper on frames drawn as 0.1·N(0, 1)); the decode step built
+by ``make_decode`` is the one every step goes through; ``main`` serves
+each with ``--device cpu`` (``serve`` the same tokens on a config
+object; Whisper on the reference CLI's zero frames), and refuses to
+start without a card otherwise.
 
 Probe: ``fit_probe`` on tests/test_system.py's ridge inputs gives the
 reference's w within 1e-9 relative (float64 APC on both sides), m reduced
@@ -38,7 +39,7 @@ RULES = ref_sharding.Rules(batch=("data",), fsdp=None, tensor=None,
 
 
 NEW_FAMILIES = ["qwen3-moe-30b-a3b", "mamba2-130m", "jamba-v0.1-52b",
-                "deepseek-v2-236b"]
+                "deepseek-v2-236b", "whisper-tiny"]
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-4b",
@@ -51,8 +52,14 @@ def test_generate_batch_tokens_equal_the_references(arch):
                                    device="cpu")
     prompts = np.array(jax.random.randint(jax.random.PRNGKey(1), (2, 8), 0,
                                           ref_cfg.vocab_size))
+    extra, ref_extra = None, None
+    if cfg.frontend == "audio":
+        frames = 0.1 * np.random.default_rng(2).standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        extra = {"frames": torch.as_tensor(frames)}
+        ref_extra = {"frames": jnp.asarray(frames)}
     want = np.asarray(ref_serve.generate_batch(
-        ref_cfg, rp, jnp.asarray(prompts), 6, RULES))
+        ref_cfg, rp, jnp.asarray(prompts), 6, RULES, ref_extra))
     calls = []
     decode = serve.make_decode(cfg)
 
@@ -60,7 +67,8 @@ def test_generate_batch_tokens_equal_the_references(arch):
         calls.append(a[3])
         return decode(*a)
     runs = [serve.generate_batch(cfg, pp, torch.as_tensor(prompts).long(), 6,
-                                 decode=counted) for _ in range(2)]
+                                 extra=extra, decode=counted)
+            for _ in range(2)]
     assert runs[0].shape == (2, 6) and runs[0].dtype == torch.int64
     np.testing.assert_array_equal(runs[0].numpy(), want)
     assert torch.equal(runs[0], runs[1])
@@ -81,15 +89,19 @@ def test_serve_main_on_the_cpu(capsys):
     assert rep.served == 3 and len(rep.tokens) == 2
     assert rep.tokens[0].shape == (2, 3)
     assert serve.take_group is linsys_serve.take_group
-    with pytest.raises(NotImplementedError, match="A19b"):
-        serve.main(["--arch", "whisper-tiny", "--smoke", "--device", "cpu"])
+    # the encoder-decoder serves too, on the reference CLI's zero frames
+    rep = serve.run(["--arch", "whisper-tiny", "--smoke", "--requests", "3",
+                     "--batch", "2", "--prompt-len", "5", "--max-new", "3",
+                     "--device", "cpu"])
+    assert rep.served == 3 and [t.shape for t in rep.tokens] == [(2, 3),
+                                                                 (2, 3)]
 
 
 @pytest.mark.parametrize("arch", NEW_FAMILIES)
 def test_serve_main_serves_the_new_families_on_the_cpu(arch, capsys):
-    """The CLI serves each MoE, SSM, hybrid and MLA smoke config, twice
-    the same tokens; ``serve`` on the same config and parameters (the
-    path a depth cut takes) emits them too."""
+    """The CLI serves each MoE, SSM, hybrid, MLA and encoder-decoder
+    smoke config, twice the same tokens; ``serve`` on the same config and
+    parameters (the path a depth cut takes) emits them too."""
     argv = ["--arch", arch, "--smoke", "--requests", "3", "--batch", "2",
             "--prompt-len", "8", "--max-new", "4", "--device", "cpu"]
     reps = [serve.run(argv) for _ in range(2)]

@@ -299,6 +299,10 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             LM_SMOKE=True, LM_BATCH=(2, 16),
             LM_SERVE_ARGS=["--requests", "3", "--batch", "2", "--prompt-len",
                            "8", "--max-new", "4"],
+            # phase 22 at a tiny size
+            FLASH_LEN=dict(B=1, S=64, H=4, K=2, d=16), FLASH_BLK=16,
+            TRAIN_CLI_ARGS=["--steps", "12", "--batch", "2", "--seq", "32",
+                            "--ckpt-every", "6"],
             smi=lambda: "NVIDIA H100 80GB HBM3, 700.00 W").items():
         monkeypatch.setattr(smoke, name, value)
     medians_ms = smoke.medians_ms
@@ -737,4 +741,45 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                    and "idle share not measured" in x
                    for x in p20) == 1, (arch, p20)
     assert sum(x.startswith("phase 20: ") for x in lines) == 1
-    assert sum(x.startswith("served 3 requests in ") for x in lines) == 12
+    # phase 21: Whisper on its smoke config, decode ≡ forward, card ≡ CPU
+    # (logits and cross cache), the CLI twice
+    p21 = [x for x in lines if x.startswith("phase 21 ")]
+    assert p21[0].startswith("phase 21 start: resident"), p21
+    assert any(x.startswith("phase 21 (a) whisper-smoke float32 (2 encoder "
+                            "+ 2 decoder layers") and "64 frames" in x
+               and "(rtol 1e-4, atol 1e-4 / 2e-4: True)" in x
+               for x in p21), p21
+    assert any(x.startswith("phase 21 (b) whisper-smoke float32")
+               and "the 2 cross-cache leaves" in x for x in p21), p21
+    assert sum(x.startswith("phase 21 (c) serve whisper-tiny ")
+               and "greedy tokens equal across the runs True" in x
+               and "3 requests" in x and "bytes bound" in x
+               and "idle share not measured" in x for x in p21) == 1, p21
+    assert sum(x.startswith("phase 21: ") and "peak" in x
+               for x in lines) == 1
+    # phase 22: the ten smoke configs' train steps, the flash backward at
+    # both blocks, the CLI and its resume, the loop on three more configs
+    p22 = [x for x in lines if x.startswith("phase 22 ")]
+    assert p22[0].startswith("phase 22 start: resident"), p22
+    for arch in ("tinyllama-smoke", "whisper-smoke", "qwen3-moe-smoke",
+                 "mamba2-smoke", "jamba-smoke", "deepseek-v2-smoke"):
+        assert sum(x.startswith(f"phase 22 (a) {arch} ")
+                   and "two card runs under deterministic algorithms "
+                   "bit-equal" in x for x in p22) == 1, (arch, p22)
+    assert sum(x.startswith("phase 22 (a) ") for x in p22) == 10, p22
+    assert [x.split(", causal, bf16, ")[1].split(":")[0] for x in p22
+            if x.startswith("phase 22 (b) flash backward")] == [
+        "blk 16", "blk 64 (pick_blk)"], p22
+    assert any(x.startswith("phase 22 (c) train tinyllama-1.1b (float32, 2 "
+                            "layers") and "steps 0-11" in x for x in p22), p22
+    assert any(x.startswith("phase 22 (c) train tinyllama-1.1b resumed with "
+                            "--steps 14") and "steps 12-13" in x
+               for x in p22), p22
+    assert any("phase 22 (c) cli resumed: resumed from step 12" in x
+               for x in lines)
+    for arch in ("whisper-tiny", "mamba2-130m", "qwen3-moe-30b-a3b"):
+        assert sum(x.startswith(f"phase 22 (c) train {arch} ")
+                   and "through train.loop" in x and "tokens/s" in x
+                   and "FLOP bound" in x for x in p22) == 1, (arch, p22)
+    assert sum(x.startswith("phase 22: ") for x in lines) == 1
+    assert sum(x.startswith("served 3 requests in ") for x in lines) == 14
