@@ -235,7 +235,21 @@ script exits non-zero without its last line:
    qwen3-moe-30b-a3b cut to 2 layers (2 steps): ms a step, tokens/s, peak
    GB and the 6·N·tokens FLOP bound at the card's dense bf16 peak.  Each
    of phases 21 and 22 prints its seconds, resident and peak GB and the
-   card's name and power limit.
+   card's name and power limit;
+23. sharding (A19d; no kernel backs it): (a) the dry-run (no card: meta
+   DTensors on torch's fake process group), its cells started with the
+   script in processes of their own while the kernels build — the APC
+   solver iteration on the (16, 16) and (2, 16, 16) meshes and one
+   shape an architecture on the second (``DRYRUN_CELLS``) — each cell's
+   per-device FLOPs, bytes, collective bytes, peak GB against 80 and
+   bottleneck, any FAILED cell failing the script; (b) the sharded path
+   on a one-rank NCCL mesh (gloo's DTensor collectives crash a rank on
+   CUDA tensors, and NCCL refuses two ranks on one card): tinyllama-1.1b
+   float32 at 2 layers, forward, prefill + 4 decode steps and one AdamW
+   step against the plain one-rank run within 2e-5 of max + 1, and
+   qwen3-moe-30b-a3b at 2 layers through the expert-parallel path
+   against the global one, no entry dropped on either; ms a step of
+   each beside the other.
 
 Phases 1-19 run under ``REPRO_KERNEL_ENGINE=fused``, the pin the
 reference's own benchmarks use: the kernels those phases hold, count
@@ -375,6 +389,26 @@ TRAIN_RESUME_STEPS = 14
 TRAIN_MORE = {"whisper-tiny": (None, 6), "mamba2-130m": (None, 6),
               "qwen3-moe-30b-a3b": (2, 2)}
 PROBE_HIST_REL = 1e-6               # kernel-path history vs the unfused one
+# phase 23: sharding and the dry-run launchers (A19d).  (a) the dry-run
+# (no card: meta tensors on the fake process group), started at the
+# script's start in processes of its own, DRYRUN_PARALLEL at a time, and
+# read in phase 23: the solver cells on both meshes, and one shape per
+# architecture on the multi-pod mesh (every shape among them)
+DRYRUN_CELLS = {"tinyllama-1.1b": "train_4k", "deepseek-7b": "prefill_32k",
+                "deepseek-coder-33b": "decode_32k", "qwen3-4b": "train_4k",
+                "deepseek-v2-236b": "decode_32k",
+                "qwen3-moe-30b-a3b": "train_4k",
+                "jamba-v0.1-52b": "long_500k", "pixtral-12b": "prefill_32k",
+                "mamba2-130m": "train_4k", "whisper-tiny": "train_4k"}
+DRYRUN_PARALLEL = 5
+DRYRUN_DEADLINE = 600.0             # seconds from the start, all cells
+# (b) the sharded path on the card (DTensors on a one-rank NCCL mesh),
+# float32 at published width, cut in depth, against the plain one-rank run
+SHARD_ARCH, SHARD_LAYERS = "tinyllama-1.1b", 2
+SHARD_BATCH = (2, 64)               # prefill 64, then SHARD_DECODE steps
+SHARD_DECODE = 4
+SHARD_MOE = ("qwen3-moe-30b-a3b", 2)
+SHARD_TOL = 2e-5                    # x (max|one rank| + 1)
 SOURCE = "src/repro_torch/kernels/csrc/block_projection.cu"
 REPLACES = {"apc_gather": "src/repro/kernels/block_projection.py:173",
             "apc_scatter": "src/repro/kernels/block_projection.py:210",
@@ -2965,6 +2999,274 @@ def train_phase(card, peaks) -> None:
     say(card)
 
 
+class DryRun:
+    """Phase 23 (a)'s dry-run cells, each ``python -m
+    repro_torch.launch.dryrun`` in a process of its own (the fake process
+    group is a process's default group), ``DRYRUN_PARALLEL`` at a time,
+    from a thread started with the script; their records land in
+    ``build/dryrun/<tag>.json``.  ``join`` waits for them until the
+    deadline, then kills what still runs."""
+
+    def __init__(self):
+        import threading
+        self.out = ROOT / "build" / "dryrun"
+        shutil.rmtree(self.out, ignore_errors=True)
+        self.out.mkdir(parents=True)
+        self.jobs = [("solver", ["--solver", "--both-meshes"])] + [
+            (f"{arch}_{shape}", ["--arch", arch, "--shape", shape,
+                                 "--multi-pod"])
+            for arch, shape in DRYRUN_CELLS.items()]
+        self.rc, self.seconds, self.procs = {}, {}, []
+        self.t0 = time.time()
+        self.stop = False
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        todo, running = list(self.jobs), []
+        while (todo or running) and not self.stop:
+            while todo and len(running) < DRYRUN_PARALLEL and not self.stop:
+                tag, args = todo.pop(0)
+                with open(self.out / f"{tag}.out", "w") as log:
+                    p = subprocess.Popen(
+                        [sys.executable, "-m", "repro_torch.launch.dryrun",
+                         *args, "--json", str(self.out / f"{tag}.json")],
+                        env=env, stdout=log, stderr=subprocess.STDOUT)
+                self.procs.append(p)
+                running.append((tag, p, time.time()))
+            time.sleep(0.2)
+            for job in list(running):
+                tag, p, t = job
+                if p.poll() is not None:
+                    running.remove(job)
+                    self.rc[tag], self.seconds[tag] = p.returncode, \
+                        time.time() - t
+
+    def join(self) -> dict:
+        """{tag: (rc, seconds, records)} of every job; a job cut by the
+        deadline has rc None."""
+        self.thread.join(timeout=max(1.0, DRYRUN_DEADLINE -
+                                     (time.time() - self.t0)))
+        self.close()
+        out = {}
+        for tag, _ in self.jobs:
+            path = self.out / f"{tag}.json"
+            recs = json.loads(path.read_text()) if path.exists() else []
+            out[tag] = (self.rc.get(tag), self.seconds.get(tag), recs)
+        return out
+
+    def close(self) -> None:
+        """Stop starting cells and kill every one still running."""
+        self.stop = True
+        self.thread.join(timeout=5.0)
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def dryrun_phase(dry: DryRun, card) -> None:
+    """Phase 23 (a): the dry-run's cells, each record's per-device peak
+    against the card's 80 GB and its bottleneck; any FAILED cell, or a
+    job that did not end with 0, fails the script."""
+    got = dry.join()
+    n = {"ok": 0, "skipped": 0, "FAILED": 0}
+    for tag, (rc, secs, recs) in got.items():
+        assert rc == 0 and recs, (tag, rc, (dry.out / f"{tag}.out")
+                                  .read_text()[-3000:])
+        for r in recs:
+            n[r["status"] if r["status"] in n else "FAILED"] += 1
+            if r["status"] != "ok":
+                say(f"phase 23 (a) {r['arch']} {r['shape']} {r['mesh']}: "
+                    f"{r['status']} {r.get('reason', r.get('error', ''))}")
+                continue
+            f, mem = r["roofline"], r["memory"]
+            say(f"phase 23 (a) {r['arch']} {r['shape']} {r['mesh']} "
+                f"(traced in {r['trace_s']} s of the job's {secs:.1f}): "
+                f"peak {mem['peak_bytes'] / 1e9:.2f} GB a device "
+                f"({'fits' if mem['fits_80gb'] else 'does not fit'} 80 GB), "
+                f"arguments {mem['argument_bytes'] / 1e9:.2f} GB; "
+                f"FLOPs {f['flops_dev']:.4e}, HBM {f['hbm_bytes_dev']:.4e} B, "
+                f"collective {f['coll_bytes_dev']:.4e} B a device; t_comp "
+                f"{f['t_compute']:.4e} t_mem {f['t_memory']:.4e} t_coll "
+                f"{f['t_collective']:.4e} s -> {f['bottleneck']}; useful "
+                f"{f['useful_ratio']:.3f}, roofline {f['roofline_fraction']:.4f}")
+    say(f"phase 23 (a) dry-run: {n['ok']} ok, {n['skipped']} skipped, "
+        f"{n['FAILED']} FAILED (the solver cells on both meshes, one shape "
+        f"an architecture on 2x16x16; the H100 SXM's constants, "
+        f"launch/analysis.py) [{card}]")
+    assert n["FAILED"] == 0 and n["ok"] == 4 + len(DRYRUN_CELLS), n
+
+
+def sharded_phase(card, device="cuda") -> None:
+    """Phase 23 (b): the sharded path on the card.  The parameters, the
+    caches, the optimizer state and the batch are DTensors on a one-rank
+    NCCL mesh (gloo's DTensor collectives crash a rank on CUDA tensors:
+    PERF.md §7), placed by the logical-axis rules; forward, prefill +
+    decode and one AdamW step against the plain one-rank run on the same
+    seed-0 weights, and the expert-parallel MoE against the global one at
+    a capacity where nothing drops."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.models import model, moe, sharding
+    from repro_torch.optim import adamw
+    t23 = time.time()
+    created = not dist.is_initialized()
+    mesh = mesh_lib.make_host_mesh(1, 1, device=device)
+    dev = mesh_lib.mesh_device(mesh)
+    rules = sharding.rules_for_mesh(mesh)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    say(f"phase 23 (b) mesh {tuple(mesh.mesh.shape)} "
+        f"{tuple(mesh.mesh_dim_names)} over {dist.get_world_size()} "
+        f"rank(s), {dist.get_backend()} on {dev}")
+
+    def place(t, logical):
+        return sharding.local_part(t, mesh, sharding.placements(
+            sharding.to_pspec(logical, rules), mesh))
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def close(got, want, what):
+        got = (got.full_tensor() if sharding.is_dtensor(got) else got).detach()
+        want = want.detach().double()
+        e = float((got.double() - want).abs().max()) / (
+            float(want.abs().max()) + 1.0)
+        assert e < SHARD_TOL, (what, e)
+        return e
+
+    get = configs.get_smoke if LM_SMOKE else configs.get
+    cfg = dataclasses.replace(lm_cut(get(SHARD_ARCH), SHARD_LAYERS),
+                              dtype="float32")
+    ab = model.model_abstract(cfg)
+    params = sharding.init_tree(ab, torch.Generator(dev).manual_seed(0),
+                                torch.float32, dev)
+    for t in sharding.tree_leaves(params):
+        t.requires_grad_()
+    dp = sharding.shard_tree(params, ab, rules, mesh)
+    B, S = SHARD_BATCH
+    tok = torch.randint(0, cfg.vocab_size, (B, S + SHARD_DECODE + 1),
+                        generator=torch.Generator(dev).manual_seed(1),
+                        device=dev)
+    errs, ms = {}, {}
+    with torch.no_grad():
+        for label, run in (("one rank", lambda: model.forward(
+                cfg, params, {"tokens": tok[:, :S]})), ("sharded", lambda:
+                model.forward(cfg, dp, {"tokens": place(tok[:, :S], (
+                    "batch", None))}, rules=rules))):
+            run()                   # the first call pays the propagation
+            out, ms[f"forward {label}"] = timed(run)
+            if label == "one rank":
+                ref = out
+        errs["forward"] = close(out, ref, "forward")
+        caches = {}
+        for label, p, r, put in (("one rank", params, None,
+                                  lambda t, ax: t),
+                                 ("sharded", dp, rules, place)):
+            cache = sharding.tree_map(
+                lambda s: put(torch.zeros(s.shape, device=dev), s.logical),
+                model.cache_abstract(cfg, B, S + SHARD_DECODE))
+            steps, (lg, cache) = [], model.prefill(
+                cfg, p, {"tokens": put(tok[:, :S], ("batch", None))}, cache,
+                rules=r)
+            steps.append(lg)
+            for i in range(SHARD_DECODE):
+                (lg, cache), t = timed(lambda: model.decode_step(
+                    cfg, p, put(tok[:, S + i:S + i + 1], ("batch", None)),
+                    cache, S + i, rules=r))
+                steps.append(lg)
+                ms[f"decode step {label}"] = t
+            caches[label] = steps
+        errs["prefill + decode"] = max(
+            close(g, w, "decode") for g, w in zip(caches["sharded"],
+                                                  caches["one rank"]))
+    acfg = adamw.AdamWConfig(lr=1e-3)
+    batch = {"tokens": tok[:, :S], "labels": tok[:, 1:S + 1]}
+    res = {}
+    for label, p, r in (("one rank", params, None), ("sharded", dp, rules)):
+        b = batch if r is None else train.place_batch(batch, r)
+        opt = adamw.init(p)
+        (newp, _, loss, _), ms[f"train step {label}"] = timed(
+            lambda: train.train_step(cfg, acfg, p, opt, b, 1.0, rules=r))
+        res[label] = (loss, newp)
+    errs["train loss"] = close(res["sharded"][0], res["one rank"][0], "loss")
+    errs["train params"] = max(close(g, w, "params") for g, w in zip(
+        sharding.tree_leaves(res["sharded"][1]),
+        sharding.tree_leaves(res["one rank"][1])))
+    del res, caches
+    say(f"phase 23 (b) {cfg.name} float32, {cfg.n_layers} of "
+        f"{get(SHARD_ARCH).n_layers} layers, d {cfg.d_model}, ({B}, {S}) "
+        f"tokens, {SHARD_DECODE} decode steps, one AdamW step: sharded vs "
+        f"one rank " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {SHARD_TOL:.0e} of max + 1); ms " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ms.items()) + f" [{card}]")
+
+    # the expert-parallel MoE against the global path, nothing dropped
+    arch, depth = SHARD_MOE
+    mcfg = lm_cut(get(arch), depth)
+    mcfg = dataclasses.replace(mcfg, dtype="float32", moe=dataclasses.replace(
+        mcfg.moe, capacity_factor=LM20_NO_DROPS))
+    mab = model.model_abstract(mcfg)
+    mp = sharding.init_tree(mab, torch.Generator(dev).manual_seed(0),
+                            torch.float32, dev)
+    mdp = sharding.shard_tree(mp, mab, rules, mesh)
+    drops, calls = {"sharded": 0, "global": 0}, {"sharded": 0}
+    real_apply, real_sharded = moe.moe_apply, moe._moe_sharded
+
+    def spy_apply(c, p, x, rules=None):
+        if rules is None:
+            drops["global"] += moe.dropped_entries(
+                c, p["router"], x.reshape(-1, x.shape[-1]))
+        else:       # each batch shard's tokens, as the sharded path routes
+            xl = x.redistribute(mesh, sharding.placements(
+                sharding.to_pspec(("batch", None, None), rules),
+                mesh)).to_local()
+            drops["sharded"] += moe.dropped_entries(
+                c, p["router"].full_tensor(), xl.reshape(-1, x.shape[-1]))
+        return real_apply(c, p, x, rules=rules)
+
+    def spy_sharded(*a, **k):
+        out = real_sharded(*a, **k)
+        calls["sharded"] += out is not None
+        return out
+    mtok = tok[:, :S] % mcfg.vocab_size
+    moe.moe_apply, moe._moe_sharded = spy_apply, spy_sharded
+    try:
+        with torch.no_grad():
+            want, t_one = timed(lambda: model.forward(
+                mcfg, mp, {"tokens": mtok}))
+            got, t_sh = timed(lambda: model.forward(
+                mcfg, mdp, {"tokens": place(mtok, ("batch", None))},
+                rules=rules))
+    finally:
+        moe.moe_apply, moe._moe_sharded = real_apply, real_sharded
+    e = close(got, want, "moe")
+    # the MoE layers: each stacks its three expert banks over the periods
+    n_moe = sum(s.shape[0] for s in sharding.tree_leaves(mab)
+                if len(s.shape) == 4) // 3
+    assert calls["sharded"] == n_moe and drops == {"sharded": 0,
+                                                   "global": 0}, (calls, drops)
+    say(f"phase 23 (b) {mcfg.name} float32, {mcfg.n_layers} of "
+        f"{get(arch).n_layers} layers, {mcfg.moe.num_experts} experts on "
+        f"the rank, capacity factor {LM20_NO_DROPS}: the expert-parallel "
+        f"path ({calls['sharded']} MoE layers) vs the global one max|Δ| "
+        f"{e:.3e} of max + 1, dropped entries {drops}; ms forward sharded "
+        f"{t_sh:.2f} (the first call, the propagation included), one rank "
+        f"{t_one:.2f} [{card}]")
+    del mp, mdp, params, dp
+    if created:
+        dist.destroy_process_group()
+    say(f"phase 23: {time.time() - t23:.1f} s, {phase_memory()}")
+    say(card)
+
+
 def rotating_straggler(m):
     """The covering schedule of tests/test_redundant.py: worker t mod m
     stalls at iteration t."""
@@ -3048,8 +3350,19 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs a CUDA device", file=sys.stderr)
         return 1
-    with env_var(ENGINE_ENV, "fused"):
-        kernels, card, t0, bw = phases()
+    # 23 (a). the dry-run's cells (no card), in processes of their own
+    # from now on
+    dry = DryRun()
+    try:
+        with env_var(ENGINE_ENV, "fused"):
+            kernels, card, t0, bw = phases()
+        return finish(dry, kernels, card, t0, bw)
+    finally:
+        dry.close()
+
+
+def finish(dry, kernels, card, t0, bw) -> int:
+    """Phases 20-23, then the kernels line and the last lines."""
     # 20. the LM serving path of the MoE, SSM, hybrid and MLA decoders,
     # once phases 1-19 have returned: nothing they held stays on the card
     # (qwen3-moe-30b-a3b's bf16 weights alone take 61 of its 80 GB)
@@ -3059,6 +3372,12 @@ def main() -> int:
     # 21. Whisper's encoder-decoder serving; 22. the LM training path
     whisper_phase(card, bw)
     train_phase(card, card_rates(torch.cuda.get_device_name(0))[1])
+    # 23. sharding: (a) the dry-run's cells, (b) the sharded path
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dryrun_phase(dry, card)
+    sharded_phase(card)
     say(json.dumps({"kernels": kernels}))
     say(f"total {time.time() - t0:.1f} s")
     say(card)

@@ -31,8 +31,12 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch import device as dev
 
-__all__ = ["init_group", "make_host_mesh", "make_mesh", "mesh_device",
-           "solver_mesh", "solver_mesh_for"]
+__all__ = ["MULTI_POD", "SINGLE_POD", "init_group", "make_host_mesh",
+           "make_mesh", "make_production_mesh", "mesh_device", "solver_mesh",
+           "solver_mesh_for"]
+
+SINGLE_POD = (16, 16)
+MULTI_POD = (2, 16, 16)
 
 
 def init_group(device=None) -> torch.device:
@@ -90,6 +94,34 @@ def mesh_device(mesh: DeviceMesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The production mesh of the dry-run: (16, 16) ``("data", "model")``,
+    or (2, 16, 16) ``("pod", "data", "model")`` with ``multi_pod``, the
+    reference's shapes, over torch's fake process group of 256 or 512
+    ranks in this one process (this process is rank 0; collectives
+    complete without moving data).  The fake group becomes the process's
+    default group: one already up must be a fake group, which is replaced
+    where its size differs; a real one raises.  The dry-run's tensors are
+    ``meta`` tensors on it, so nothing is allocated and no card is
+    needed."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape = MULTI_POD if multi_pod else SINGLE_POD
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = math.prod(shape)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()} group is up: the "
+                               f"production mesh needs the fake group as "
+                               f"the process's default group")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+    return DeviceMesh("cpu", torch.arange(world).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device=None) -> DeviceMesh:

@@ -22,14 +22,24 @@ here; a hand-written attention kernel is later work.
 GQA and MLA (DeepSeek-V2's latent attention, with its absorbed decode),
 Whisper's cross-attention (``cross_kv`` and the ``cross=`` path of
 ``gqa_apply``), SwiGLU and Whisper's GELU MLP.
+
+On a mesh (``rules`` with one, DTensor operands) attention runs on each
+rank's local shards (``_local_attention``: the batch over the batch
+axes, the query heads or rows over the model axis), a decode over a
+cache whose keys are split over the model axis takes its softmax across
+ranks (``_split_key_attention``, ``_mla_decode_local``), and the cache
+is written shard by shard (``write_rows``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+import math
+
 from .config import ModelConfig
-from .sharding import ParamSpec
+from .sharding import (ParamSpec, constrain, from_local, is_dtensor,
+                       merge, mesh_sizes, placements, unflatten)
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -222,7 +232,7 @@ class _Flash(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int = 0, causal: bool = True,
-                    blk: int = 1024) -> torch.Tensor:
+                    blk: int = 1024, rules=None) -> torch.Tensor:
     """Online-softmax attention over key blocks of ``blk``, with a
     block-recompute backward.
 
@@ -234,19 +244,156 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in all; the backward recomputes each tile from the saved log-sum-exp
     instead (``q_offset``, ``causal`` and ``blk`` take no gradient).  A
     tile holds at most ``TILE_BYTES``: beyond that the query rows run in
-    chunks, which bounds the transient memory at any length.
+    chunks, which bounds the transient memory at any length.  DTensor
+    operands run on local shards (``_local_attention``, ``rules``'
+    layout).
     """
     H, Sk, K = q.shape[2], k.shape[1], k.shape[2]
     if H % K or Sk % blk:
         raise ValueError(f"flash_attention needs H % K == 0 and Sk % blk "
                          f"== 0; got H={H} K={K} Sk={Sk} blk={blk}")
+    if is_dtensor(q):       # DTensor does not enter a custom Function
+        return _local_attention(
+            lambda ql, kl, vl, row: _Flash.apply(ql, kl, vl, q_offset + row,
+                                                 causal, blk), q, k, v, rules)
     return _Flash.apply(q, k, v, q_offset, causal, blk)
 
 
+def _flash_layout(rules, B: int, Sq: int, H: int, K: int):
+    """Where a sharded attention runs: (batch placement axes, the model
+    axis's dim in q, or None).  The batch splits over the batch axes where
+    they divide B.  Over the model axis the query heads split where they
+    divide and each rank's heads group onto whole kv heads (a rank then
+    reads only its kv heads); else the query rows split (each rank over
+    every key)."""
+    sizes = mesh_sizes(rules.mesh)
+    baxes = tuple(a for a in rules.batch if a in sizes)
+    if not baxes or B % math.prod(sizes[a] for a in baxes):
+        baxes = ()
+    tax = rules.tensor
+    if tax is None:
+        return baxes, None
+    n_t, G = sizes[tax], H // K
+    h = H // n_t
+    if H % n_t == 0 and (h % G == 0 or G % h == 0):
+        return baxes, 2
+    return baxes, 1
+
+
+def _local_attention(fn, q, k, v, rules):
+    """Attention ``fn(q, k, v, first_row)`` run on each rank's local
+    shards, laid out by ``_flash_layout``: the batch split over the batch
+    axes, and over the model axis the query heads (each rank slicing its
+    kv heads from k and v, which arrive whole over it) or the query rows
+    (``first_row`` the rank's first; the output gathered back to whole
+    rows, so that the output projection takes the (B·S) rows of a
+    batch-split tensor).  k's and v's gradients leave each rank as
+    partial sums over the model axis, which DTensor reduces."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = q.device_mesh
+    B, Sq, H, _ = q.shape
+    K = k.shape[2]
+    baxes, qdim = _flash_layout(rules, B, Sq, H, K)
+    names = tuple(mesh.mesh_dim_names)
+    bspec = (baxes if len(baxes) > 1 else baxes[0]) if baxes else None
+    qspec = [bspec, None, None, None]
+    if qdim is not None:
+        qspec[qdim] = rules.tensor
+    q_pl = placements(tuple(qspec), mesh)
+    kv_pl = placements((bspec, None, None, None), mesh)
+    kv_grad = tuple(Partial() if n == rules.tensor and qdim is not None
+                    else pl for n, pl in zip(names, kv_pl))
+    ql = q.redistribute(mesh, q_pl).to_local(grad_placements=q_pl)
+    kl = k.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    vl = v.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    _, off = compute_local_shape_and_global_offset(q.shape, mesh, q_pl)
+    if qdim == 2:
+        G = H // K
+        lo = off[2] // G
+        hi = (off[2] + ql.shape[2] - 1) // G + 1
+        kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+    shape = (*q.shape[:3], v.shape[3])
+    out = from_local(fn(ql, kl, vl, off[1] if qdim == 1 else 0), mesh,
+                     q_pl, shape)
+    if qdim == 1:   # gathered rows, their local tensor made contiguous
+        out = from_local(out.redistribute(mesh, kv_pl).to_local(), mesh,
+                         kv_pl, shape)
+    return out
+
+
+def _model_dim(x, rules):
+    """The index of the rules' model axis in ``x``'s mesh, or None."""
+    names = tuple(x.device_mesh.mesh_dim_names)
+    return names.index(rules.tensor) if rules.tensor in names else None
+
+
+def _split_keys(rules, cache) -> bool:
+    """Whether a DTensor cache has its sequence (keys) split over the
+    model axis (``kv_seq``)."""
+    i = _model_dim(cache, rules)
+    return i is not None and cache.placements[i].is_shard(1)
+
+
+def _split_key_softmax(s, k_pos, kv_len, mesh, i):
+    """``softmax(where(k_pos < kv_len, s, NEG_INF))`` over the last dim
+    of local scores ``s`` whose keys (global positions ``k_pos``) are
+    split over mesh dim ``i``: the maximum and the sum taken over every
+    rank's keys (two all-reduces), each probability the one-device one
+    up to the sum's order (flash-decoding)."""
+    import torch.distributed._functional_collectives as funcol
+    s = torch.where(k_pos < kv_len, s, NEG_INF)
+    m = funcol.all_reduce(s.amax(dim=-1, keepdim=True), "max", (mesh, i))
+    e = torch.exp(s - m)
+    return e / funcol.all_reduce(e.sum(dim=-1, keepdim=True), "sum",
+                                 (mesh, i))
+
+
+def _split_key_attention(q, k, v, kv_len, rules):
+    """``decode_attention`` over a cache whose keys are split over the
+    model axis (no gradient: the decode step): every rank scores all the
+    query heads against its own keys, the softmax runs across ranks
+    (``_split_key_softmax``), and the partial outputs are summed over
+    the model axis.  The batch keeps the cache's split."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh, i = k.device_mesh, _model_dim(k, rules)
+    kv_pl = tuple(k.placements)
+    q_pl = tuple(Replicate() if j == i else p for j, p in enumerate(kv_pl))
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl, vl = k.to_local(), v.redistribute(mesh, kv_pl).to_local()
+    _, off = compute_local_shape_and_global_offset(k.shape, mesh, kv_pl)
+    B, Sq, H, dq = ql.shape
+    K = kl.shape[2]
+    qg = ql.reshape(B, Sq, K, H // K, dq)
+    s = _f32_product("bqkgd,btkd->bkgqt", qg, kl) * dq ** -0.5
+    k_pos = off[1] + torch.arange(kl.shape[1], device=ql.device)
+    p = _split_key_softmax(s, k_pos, kv_len, mesh, i)
+    out = funcol.all_reduce(_f32_product("bkgqt,btkd->bkgqd",
+                                         p.to(vl.dtype), vl), "sum",
+                            (mesh, i))
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, vl.shape[-1])
+    return from_local(out.to(ql.dtype), mesh, q_pl,
+                      (*q.shape[:3], v.shape[3]))
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     kv_len) -> torch.Tensor:
+                     kv_len, rules=None) -> torch.Tensor:
     """Direct attention for a few queries (decode) over the whole cache,
-    key positions >= ``kv_len`` masked."""
+    key positions >= ``kv_len`` masked.  On DTensors it runs on local
+    shards: across ranks over a cache whose keys are split
+    (``_split_key_attention``), else as ``flash_attention`` does
+    (``_local_attention``)."""
+    if is_dtensor(q):
+        if _split_keys(rules, k):
+            return _split_key_attention(q, k, v, kv_len, rules)
+        return _local_attention(
+            lambda ql, kl, vl, row: decode_attention(ql, kl, vl,
+                                                     kv_len=kv_len),
+            q, k, v, rules)
     B, Sq, H, dq = q.shape
     K = k.shape[2]
     G = H // K
@@ -292,8 +439,8 @@ def cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
     (k, v), each (B, Se, K, hd): cached across decode steps."""
     B, Se, _ = enc_out.shape
     K, hd = cfg.n_kv_heads, cfg.head_dim
-    k = (enc_out @ p["wk"]).reshape(B, Se, K, hd)
-    v = (enc_out @ p["wv"]).reshape(B, Se, K, hd)
+    k = unflatten(enc_out @ p["wk"], -1, (K, hd))
+    v = unflatten(enc_out @ p["wv"], -1, (K, hd))
     if cfg.qk_norm:
         k = l2norm(k, cfg.norm_eps) * p["k_norm"].to(k.dtype)
     return k, v
@@ -321,15 +468,15 @@ def gqa_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     """
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    q = unflatten(x @ p["wq"], -1, (H, hd))
     if cfg.qk_norm:
         q = l2norm(q, cfg.norm_eps) * p["q_norm"].to(q.dtype)
     if cross is not None:
         k, v = cross
-        out = decode_attention(q, k, v, kv_len=k.shape[1])
-        return out.reshape(B, S, H * hd) @ p["wo"], None
-    k = (x @ p["wk"]).reshape(B, S, K, hd)
-    v = (x @ p["wv"]).reshape(B, S, K, hd)
+        out = decode_attention(q, k, v, kv_len=k.shape[1], rules=rules)
+        return merge(out, 2) @ p["wo"], None
+    k = unflatten(x @ p["wk"], -1, (K, hd))
+    v = unflatten(x @ p["wv"], -1, (K, hd))
     if cfg.qk_norm:
         k = l2norm(k, cfg.norm_eps) * p["k_norm"].to(k.dtype)
     q = rope(q, positions, cfg.rope_theta)
@@ -339,20 +486,52 @@ def gqa_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     if cache is not None:
         start = int(cache_len)
         ck, cv = cache["k"], cache["v"]
-        if start < 0 or start + S > ck.shape[1]:
-            raise ValueError(f"cache write at {start}..{start + S} outside "
-                             f"a cache of {ck.shape[1]} positions")
-        ck[:, start:start + S] = k.to(ck.dtype)
-        cv[:, start:start + S] = v.to(cv.dtype)
+        write_rows(ck, start, k)
+        write_rows(cv, start, v)
         new_cache = {"k": ck, "v": cv}
         if S == 1:
-            out = decode_attention(q, ck, cv, kv_len=start + S)
+            out = decode_attention(q, ck, cv, kv_len=start + S, rules=rules)
         else:
             # prefill: the fresh tokens are the whole valid cache content
-            out = flash_attention(q, k, v, 0, True, pick_blk(S))
+            out = flash_attention(q, k, v, 0, True, pick_blk(S), rules)
     else:
-        out = flash_attention(q, k, v, 0, causal, pick_blk(k.shape[1]))
-    return out.reshape(B, S, H * hd) @ p["wo"], new_cache
+        out = flash_attention(q, k, v, 0, causal, pick_blk(k.shape[1]),
+                              rules)
+    return merge(out, 2) @ p["wo"], new_cache
+
+
+def write_rows(cache: torch.Tensor, start: int, new: torch.Tensor) -> None:
+    """``cache[:, start:start + S] = new`` in place, in the cache's dtype;
+    a write past the cache's end raises (the reference's
+    ``dynamic_update_slice`` would clamp the start, and no caller may rely
+    on either).
+
+    A DTensor cache (its ``kv_seq`` dim split over the model axis) is
+    written shard by shard: ``new`` goes to the cache's batch placement,
+    whole in every other dim, and each rank copies the rows that fall in
+    its own slice of the sequence."""
+    S = new.shape[1]
+    if start < 0 or start + S > cache.shape[1]:
+        raise ValueError(f"cache write at {start}..{start + S} outside "
+                         f"a cache of {cache.shape[1]} positions")
+    if not is_dtensor(cache):
+        cache[:, start:start + S] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = cache.device_mesh
+    pl = tuple(p if p == Shard(0) else Replicate() for p in cache.placements)
+    src = (new if is_dtensor(new) else
+           from_local(new, mesh, (Replicate(),) * mesh.ndim, new.shape))
+    src = src.redistribute(mesh, pl).to_local()
+    shape, off = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    lo, hi = max(start, off[1]), min(start + S, off[1] + shape[1])
+    if lo < hi:
+        with torch.no_grad():
+            cache.to_local()[:, lo - off[1]:hi - off[1]] = \
+                src[:, lo - start:hi - start].to(cache.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +568,7 @@ def _mla_qkv(cfg: ModelConfig, p, x: torch.Tensor, positions):
     dn, dr, r = cfg.nope_head_dim, cfg.rope_head_dim, cfg.kv_lora_rank
     q = rmsnorm({"scale": p["q_norm"]}, x @ p["wq_a"], cfg.norm_eps) \
         @ p["wq_b"]
-    q = q.reshape(B, S, H, dn + dr)
+    q = unflatten(q, -1, (H, dn + dr))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     kv = x @ p["wkv_a"]                                  # (B, S, r + dr)
@@ -397,6 +576,38 @@ def _mla_qkv(cfg: ModelConfig, p, x: torch.Tensor, positions):
     krope = rope(kv[..., r:][..., None, :], positions,
                  cfg.rope_theta)[..., 0, :]              # (B, S, dr), shared
     return q_nope, q_rope, ckv, krope
+
+
+def _mla_decode_local(q_c, q_rope, cc, cr, kv_len, scale, rules):
+    """The absorbed MLA decode's attention in the latent space on local
+    shards: every rank holds all the heads and scores them against its
+    own latent rows; where the rows are split over the model axis
+    (``kv_seq``) the softmax and the output sum run across ranks
+    (``_split_key_softmax``).  Returns o_c (B, S, H, r) float32, whole
+    over the model axis, split as the cache's batch."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = cc.device_mesh
+    i = _model_dim(cc, rules) if _split_keys(rules, cc) else None
+    kv_pl = tuple(cc.placements)
+    q_pl = tuple(Replicate() if p.is_shard(1) else p for p in kv_pl)
+    qcl = q_c.redistribute(mesh, q_pl).to_local()
+    qrl = q_rope.redistribute(mesh, q_pl).to_local()
+    ccl, crl = cc.to_local(), cr.redistribute(mesh, kv_pl).to_local()
+    _, off = compute_local_shape_and_global_offset(cc.shape, mesh, kv_pl)
+    s = (_f32_product("bshr,btr->bhst", qcl, ccl)
+         + _f32_product("bshd,btd->bhst", qrl, crl)) * scale
+    k_pos = off[1] + torch.arange(ccl.shape[1], device=ccl.device)
+    if i is None:
+        prob = torch.softmax(torch.where(k_pos < kv_len, s, NEG_INF), dim=-1)
+    else:
+        prob = _split_key_softmax(s, k_pos, kv_len, mesh, i)
+    o_c = _f32_product("bhst,btr->bshr", prob.to(ccl.dtype), ccl)
+    if i is not None:
+        o_c = funcol.all_reduce(o_c, "sum", (mesh, i))
+    return from_local(o_c, mesh, q_pl, (*q_c.shape[:3], cc.shape[2]))
 
 
 def mla_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
@@ -420,34 +631,42 @@ def mla_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     if cache is not None:
         start = int(cache_len)
         cc, cr = cache["ckv"], cache["krope"]
-        if start < 0 or start + S > cc.shape[1]:
-            raise ValueError(f"cache write at {start}..{start + S} outside "
-                             f"a cache of {cc.shape[1]} positions")
-        cc[:, start:start + S] = ckv.to(cc.dtype)
-        cr[:, start:start + S] = krope.to(cr.dtype)
+        write_rows(cc, start, ckv)
+        write_rows(cr, start, krope)
         new_cache = {"ckv": cc, "krope": cr}
         if S == 1:
-            wk_b = p["wk_b"].reshape(r, H, dn)
-            wv_b = p["wv_b"].reshape(r, H, dv)
+            wk_b = unflatten(p["wk_b"], 1, (H, dn))
+            wv_b = unflatten(p["wv_b"], 1, (H, dv))
             q_c = torch.einsum("bshd,rhd->bshr", q_nope, wk_b)   # absorb W_UK
             scale = (dn + dr) ** -0.5
-            s = (_f32_product("bshr,btr->bhst", q_c, cc)
-                 + _f32_product("bshd,btd->bhst", q_rope, cr)) * scale
-            k_pos = torch.arange(cc.shape[1], device=x.device)
-            s = torch.where(k_pos < start + S, s, NEG_INF)
-            prob = torch.softmax(s, dim=-1)
-            o_c = _f32_product("bhst,btr->bshr", prob.to(cc.dtype), cc)
+            if is_dtensor(cc):
+                o_c = _mla_decode_local(q_c, q_rope, cc, cr, start + S,
+                                        scale, rules)
+            else:
+                s = (_f32_product("bshr,btr->bhst", q_c, cc)
+                     + _f32_product("bshd,btd->bhst", q_rope, cr)) * scale
+                k_pos = torch.arange(cc.shape[1], device=x.device)
+                s = torch.where(k_pos < start + S, s, NEG_INF)
+                prob = torch.softmax(s, dim=-1)
+                o_c = _f32_product("bhst,btr->bshr", prob.to(cc.dtype), cc)
             out = torch.einsum("bshr,rhd->bshd", o_c.to(x.dtype), wv_b)
-            return out.reshape(B, S, H * dv) @ p["wo"], new_cache
+            return merge(out, 2) @ p["wo"], new_cache
 
     # train / prefill: per-head K and V expanded from the latent
-    k_nope = torch.einsum("btr,rhd->bthd", ckv, p["wk_b"].reshape(r, H, dn))
-    v = torch.einsum("btr,rhd->bthd", ckv, p["wv_b"].reshape(r, H, dv))
+    k_nope = torch.einsum("btr,rhd->bthd", ckv, unflatten(p["wk_b"], 1, (H, dn)))
+    v = torch.einsum("btr,rhd->bthd", ckv, unflatten(p["wv_b"], 1, (H, dv)))
     k = torch.cat([k_nope, krope[:, :, None, :].expand(
         *k_nope.shape[:3], dr)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    out = flash_attention(q, k, v, 0, True, pick_blk(k.shape[1]))
-    return out.reshape(B, S, H * dv) @ p["wo"], new_cache
+    # the expanded K and V are H·(dn + dr) wide, some 5x the residual
+    # stream: attention runs head-sharded, as the reference constrains it
+    q = constrain(q, rules, "batch", None, "tensor", None)
+    k = constrain(k, rules, "batch", None, "tensor", None)
+    v = constrain(v, rules, "batch", None, "tensor", None)
+    out = flash_attention(q, k, v, 0, True, pick_blk(k.shape[1]), rules)
+    out = constrain(merge(out, 2), rules, "batch", None,
+                    "tensor")
+    return out @ p["wo"], new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -29,11 +29,13 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import device as dev
 
 from .config import ModelConfig
-from .sharding import ParamSpec, Rules, constrain, tree_leaves, tree_map
+from .sharding import (ParamSpec, Rules, constrain, from_local, is_dtensor,
+                       meshed, placements, to_pspec, tree_leaves, tree_map)
 from . import layers, ssm as ssm_mod, transformer
 
 # ---------------------------------------------------------------------------
@@ -114,8 +116,43 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg: ModelConfig, params, tokens):
+def _embed(cfg: ModelConfig, params, tokens, rules=None):
+    if is_dtensor(params["embed"]):
+        return _embed_sharded(params["embed"], tokens, rules)
     return params["embed"][tokens]
+
+
+def _embed_sharded(table, tokens, rules):
+    """The rows of ``tokens`` from a DTensor table, vocab-parallel, as
+    Megatron's embedding: the table split over the model axis by rows
+    (its ``fsdp`` columns gathered), each rank looking up the tokens that
+    fall in its rows (zeros for the others), one sum over the model axis.
+    The tokens keep their batch split.  DTensor's own lookup refuses a
+    batch split on two mesh dims (pod, data) in torch 2.11 and misplaces
+    its masked partial rows in 2.13."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh, tax = table.device_mesh, rules.tensor
+    names = tuple(mesh.mesh_dim_names)
+    tok_pl = tuple(Replicate() if n == tax else p
+                   for n, p in zip(names, tokens.placements))
+    t_pl = placements(to_pspec(("tensor", None), rules), mesh)
+    # the table's gradient sums the tokens of every batch shard
+    t_grad = tuple(Partial() if q.is_shard() else p
+                   for p, q in zip(t_pl, tok_pl))
+    tl = tokens.redistribute(mesh, tok_pl).to_local()
+    wl = table.redistribute(mesh, t_pl).to_local(grad_placements=t_grad)
+    shape, off = compute_local_shape_and_global_offset(table.shape, mesh,
+                                                       t_pl)
+    rel = tl - off[0]
+    inside = (rel >= 0) & (rel < shape[0])
+    rows = torch.where(inside[..., None],
+                       F.embedding(torch.where(inside, rel, 0), wl), 0.0)
+    out = from_local(rows, mesh, tuple(Partial() if n == tax else p
+                                       for n, p in zip(names, tok_pl)),
+                     (*tokens.shape, table.shape[1]))
+    return out.redistribute(mesh, tok_pl)
 
 
 def _lm_logits(cfg: ModelConfig, params, h):
@@ -160,6 +197,7 @@ def cache_to_cross_stack(cross_cache):
             "slots": [to_kv(d) for d in cross_cache["slots"]]}
 
 
+@meshed
 def forward(cfg: ModelConfig, params, batch, *, rules: Rules = None,
             train: bool = False):
     """Full-sequence forward -> logits (B, S_tokens, V).  A vision config
@@ -168,7 +206,7 @@ def forward(cfg: ModelConfig, params, batch, *, rules: Rules = None,
     ``batch["frames"]`` (B, Se, D).  ``train`` recomputes each decoder
     period in the backward (``transformer.decoder_apply``)."""
     tokens = batch["tokens"]
-    h = _embed(cfg, params, tokens).to(cache_dtype(cfg))
+    h = _embed(cfg, params, tokens, rules).to(cache_dtype(cfg))
     n_prepend = 0
     if cfg.frontend == "vision" and "patches" in batch:
         patches = batch["patches"].to(h.dtype)
@@ -181,11 +219,13 @@ def forward(cfg: ModelConfig, params, batch, *, rules: Rules = None,
                                      positions=positions, rules=rules,
                                      cross_kv_stack=cross_stack, train=train)
     h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = constrain(h, rules, "batch", None, None)
     if n_prepend:
         h = h[:, n_prepend:, :]
     return _lm_logits(cfg, params, h)
 
 
+@meshed
 def loss_fn(cfg: ModelConfig, params, batch, *, rules: Rules = None):
     """Next-token cross entropy (labels shifted by the caller), over the
     float32 logits, the vocab-pad columns set to -1e30, labels < 0
@@ -198,7 +238,16 @@ def loss_fn(cfg: ModelConfig, params, batch, *, rules: Rules = None):
     logz = torch.logsumexp(logits, dim=-1)
     # a masked label gathers column 0 (the reference's take wraps -1 to
     # the last): either way its term is multiplied by 0
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    if is_dtensor(logits):
+        # the same value, summed over one hit and exact zeros: DTensor's
+        # gather from vocab-sharded logits fails to reduce its masked
+        # partial result (torch 2.11-2.13)
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(col == labels.clamp(min=0)[..., None], logits,
+                           0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1,
+                            labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
@@ -209,6 +258,7 @@ def loss_fn(cfg: ModelConfig, params, batch, *, rules: Rules = None):
 # ---------------------------------------------------------------------------
 
 
+@meshed
 def prefill(cfg: ModelConfig, params, batch, cache, *, rules: Rules = None):
     """Process the prompt, fill the cache (in place).  Returns
     (last_logits (B,1,V), cache).
@@ -218,7 +268,7 @@ def prefill(cfg: ModelConfig, params, batch, cache, *, rules: Rules = None):
     writes each layer's cross (k, v) into ``cache["cross"]``'s leaves.
     """
     tokens = batch["tokens"]
-    h = _embed(cfg, params, tokens).to(cache_dtype(cfg))
+    h = _embed(cfg, params, tokens, rules).to(cache_dtype(cfg))
     h = constrain(h, rules, "batch", "seq_sp", None)
     sub_cache = {k: v for k, v in cache.items() if k != "cross"}
     cross_stack = _encode(cfg, params, batch, h.dtype, rules)
@@ -231,17 +281,19 @@ def prefill(cfg: ModelConfig, params, batch, cache, *, rules: Rules = None):
                             tree_leaves(cross_stack_to_cache(cross_stack))):
             dst.copy_(src)
         new_cache["cross"] = cache["cross"]
+    h = constrain(h, rules, "batch", None, None)
     h = layers.rmsnorm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
     return _lm_logits(cfg, params, h), new_cache
 
 
+@meshed
 def decode_step(cfg: ModelConfig, params, token, cache, cache_len: int, *,
                 rules: Rules = None):
     """One new token against a cache holding ``cache_len`` positions (a
     Python int: no device value to read back in the decode loop).  Returns
     (logits (B,1,V), cache), the cache written in place."""
     cache_len = int(cache_len)
-    h = _embed(cfg, params, token).to(cache_dtype(cfg))
+    h = _embed(cfg, params, token, rules).to(cache_dtype(cfg))
     sub_cache = {k: v for k, v in cache.items() if k != "cross"}
     cross_stack = (cache_to_cross_stack(cache["cross"])
                    if cfg.is_encoder_decoder else None)

@@ -17,11 +17,14 @@ decode step (``ssm_apply`` stores it uncast, as the reference's does).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .sharding import ParamSpec
+from .sharding import (ParamSpec, from_local, is_dtensor, merge, mesh_sizes,
+                       placements, unflatten)
 from . import layers
 
 
@@ -75,7 +78,10 @@ def _causal_conv_train(w, b, u):
     """Depthwise causal conv over (B, L, C); width = w.shape[0].  The
     shifted products are summed in order, in the input's dtype."""
     dw, L = w.shape[0], u.shape[1]
-    u_pad = F.pad(u, (0, 0, dw - 1, 0))
+    # the zero rows by a concatenation, not F.pad (which DTensor
+    # misplaces in torch 2.11)
+    u_pad = torch.cat([torch.zeros_like(u[:, :1]).expand(-1, dw - 1, -1),
+                       u], dim=1)
     out = u_pad[:, 0:L, :] * w[0]
     for i in range(1, dw):
         out = out + u_pad[:, i:i + L, :] * w[i]
@@ -89,20 +95,31 @@ def _causal_conv_step(w, b, conv_cache, u_new):
     return out, window[:, 1:, :]
 
 
-def ssd_chunked(x, dt, A, B, C, *, chunk: int):
+def ssd_chunked(x, dt, A, B, C, *, chunk: int, rules=None):
     """Chunked SSD scan.
 
     x (B,L,H,P) pre-scaled inputs; dt (B,L,H) post-softplus; A (H,) negative;
-    B, C (B,L,N).  Returns (y (B,L,H,P), final_state (B,H,N,P)).
+    B, C (B,L,N).  Returns (y (B,L,H,P), final_state (B,H,N,P)).  On
+    DTensors it runs on local shards (``_heads_local``).
     """
     Bsz, L, H, P = x.shape
+    if is_dtensor(x):
+        return _heads_local(
+            lambda *a: ssd_chunked(*a, chunk=chunk), rules, Bsz, H, (
+                (x, ("batch", None, "heads", None), False),
+                (dt, ("batch", None, "heads"), False),
+                (A, ("heads",), False), (B, ("batch", None, None), True),
+                (C, ("batch", None, None), True)), (
+                (("batch", None, "heads", None), x.shape),
+                (("batch", "heads", None, None),
+                 (Bsz, H, B.shape[-1], P))))
     N = B.shape[-1]
     Q = min(chunk, L)
     assert L % Q == 0, (L, Q)
     nc = L // Q
 
     def r(t):
-        return t.reshape(Bsz, nc, Q, *t.shape[2:])
+        return unflatten(t, 1, (nc, Q))
     xc, dtc, Bc, Cc = r(x), r(dt), r(B), r(C)
 
     dA = dtc * A                                       # (B,c,Q,H) negative
@@ -140,13 +157,63 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int):
     # ---- off-diagonal contribution ---------------------------------------
     h_dec = (torch.exp(cs)[..., None, None] * h_in[:, :, None]).to(x.dtype)
     y_off = torch.einsum("bcin,bcihnp->bcihp", Cc, h_dec)     # (B,c,Q,H,P)
-    y = (y_diag + y_off).reshape(Bsz, L, H, P)
+    y = merge(y_diag + y_off, 1)
     return y, h
 
 
-def ssd_step(state, x, dt, A, B, C):
+def _heads_local(fn, rules, B: int, H: int, args, outs):
+    """``fn`` (``ssd_chunked`` or ``ssd_step``) on each rank's local
+    shards: the batch split over the batch axes where they divide B, and
+    the heads over the model axis where they divide H (else whole on
+    every rank of it).  ``args``: (tensor, logical spec, heads-free) —
+    a heads-free operand (SSD's B and C) is whole over the model axis and
+    its gradient leaves each rank as a partial sum, which DTensor
+    reduces.  ``outs``: each output's (spec, global shape).  Specs name
+    ``"batch"`` and ``"heads"``; a gradient is summed over the ranks that
+    used its operand whole."""
+    from torch.distributed.tensor import Partial
+    mesh = next(a for a, _, _ in args if is_dtensor(a)).device_mesh
+    sizes = mesh_sizes(mesh)
+    baxes = tuple(a for a in rules.batch if a in sizes)
+    if not baxes or B % math.prod(sizes[a] for a in baxes):
+        baxes = ()
+    bspec = (baxes if len(baxes) > 1 else baxes[0]) if baxes else None
+    tax = rules.tensor if rules.tensor in sizes else None
+    hspec = tax if tax and H % sizes[tax] == 0 else None
+    names = tuple(mesh.mesh_dim_names)
+
+    def pl(spec):
+        return placements(tuple({"batch": bspec, "heads": hspec}.get(a)
+                                for a in spec), mesh)
+
+    local = []
+    for t, spec, shared in args:
+        want = pl(spec)
+        # a gradient sums over the ranks whose shards used the operand
+        # whole: the model axis for a heads-free one, the batch axes for
+        # one without a batch dim (A)
+        sums = (tax,) if shared and hspec else ()
+        sums += baxes if "batch" not in spec else ()
+        grad = tuple(Partial() if n in sums else q
+                     for n, q in zip(names, want))
+        local.append(t.redistribute(mesh, want).to_local(grad_placements=grad))
+    got = fn(*local)
+    return tuple(from_local(g, mesh, pl(spec), shape)
+                 for g, (spec, shape) in zip(got, outs))
+
+
+def ssd_step(state, x, dt, A, B, C, rules=None):
     """One-token recurrence.  state (B,H,N,P); x (B,H,P); dt (B,H);
-    B, C (B,N)."""
+    B, C (B,N).  On DTensors it runs on local shards (``_heads_local``)."""
+    if is_dtensor(x):
+        Bsz, H = x.shape[:2]
+        return _heads_local(ssd_step, rules, Bsz, H, (
+            (state, ("batch", "heads", None, None), False),
+            (x, ("batch", "heads", None), False),
+            (dt, ("batch", "heads"), False), (A, ("heads",), False),
+            (B, ("batch", None), True), (C, ("batch", None), True)), (
+            (("batch", "heads", None, None), state.shape),
+            (("batch", "heads", None), x.shape)))
     dA = torch.exp(dt * A)                                    # (B,H)
     upd = torch.einsum("bn,bh,bhp->bhnp", B, dt, x)
     state = state * dA[:, :, None, None] + upd.to(state.dtype)
@@ -154,7 +221,8 @@ def ssd_step(state, x, dt, A, B, C):
     return state, y
 
 
-def ssm_apply(cfg: ModelConfig, p, xres: torch.Tensor, *, cache=None):
+def ssm_apply(cfg: ModelConfig, p, xres: torch.Tensor, *, cache=None,
+              rules=None):
     """Full Mamba2 block.  xres (B, S, D) -> (out, new_cache).
 
     ``new_cache`` ({"conv", "state"}) holds new tensors, not writes into
@@ -183,7 +251,7 @@ def ssm_apply(cfg: ModelConfig, p, xres: torch.Tensor, *, cache=None):
             p["conv_w"], p["conv_b"], cache["conv"], conv_in)
         new_cache = {"conv": conv_state.to(cache["conv"].dtype)}
     conv_out = F.silu(conv_out)
-    xc = conv_out[..., :Din].reshape(Bsz, S, H, P)
+    xc = unflatten(conv_out[..., :Din], -1, (H, P))
     Bmat = conv_out[..., Din:Din + N]
     Cmat = conv_out[..., Din + N:]
 
@@ -192,17 +260,17 @@ def ssm_apply(cfg: ModelConfig, p, xres: torch.Tensor, *, cache=None):
 
     if cache is None or S > 1:
         y, hT = ssd_chunked(xc, dt.to(xc.dtype), A, Bmat, Cmat,
-                            chunk=sc.chunk)
+                            chunk=sc.chunk, rules=rules)
         if cache is not None:
             new_cache["state"] = hT.to(cache["state"].dtype)
     else:
         state, y1 = ssd_step(cache["state"], xc[:, 0],
                              dt[:, 0].to(xc.dtype), A, Bmat[:, 0],
-                             Cmat[:, 0])
+                             Cmat[:, 0], rules=rules)
         new_cache["state"] = state
         y = y1[:, None]
     y = y + p["D_skip"].to(y.dtype)[None, None, :, None] * xc
-    y = y.reshape(Bsz, S, Din)
+    y = merge(y, 2)
     y = layers.rmsnorm({"scale": p["norm"]}, y * F.silu(z), cfg.norm_eps)
     y, w_out = _promoted(y, p["w_out"])
     return y @ w_out, new_cache

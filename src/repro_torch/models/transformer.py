@@ -105,16 +105,36 @@ def encoder_abstract(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def _gathered(x, rules):
+    """A block's normed input with its sequence whole on each rank: the
+    residual stream is split over ``seq_sp`` between blocks (the
+    reference's constraint), and is gathered before the projections, as
+    Megatron's sequence parallelism does (DTensor cannot merge a split
+    sequence dim into the rows of a product)."""
+    return constrain(x, rules, "batch", None, None)
+
+
+def _residual(a, h, rules):
+    """A block's output ``a`` placed as the residual stream ``h`` it is
+    added to (split over ``seq_sp`` where S > 1), by a redistribute that
+    autograd records: its gradient then goes back to ``a``'s own
+    placements, not the stream's split sequence."""
+    if h.shape[1] > 1:
+        a = constrain(a, rules, "batch", "seq_sp", None)
+    return a.to(h.dtype)
+
+
 def _apply_slot(cfg: ModelConfig, kind: str, sp, h, *, positions, rules,
                 cache=None, cache_len=None, cross=None):
     """One residual block: (GQA | MLA | SSM) [+ cross-attention] +
     (SwiGLU | GELU MLP | MoE).  Returns (h, the block's new cache or
     None)."""
     new_cache = {}
-    hn = layers.rmsnorm(sp["ln1"], h, cfg.norm_eps)
+    hn = _gathered(layers.rmsnorm(sp["ln1"], h, cfg.norm_eps), rules)
     c_in = None if cache is None else cache["attn"]
     if kind == "ssm":
-        a, c = ssm.ssm_apply(cfg, sp["attn"], hn, cache=c_in)
+        a, c = ssm.ssm_apply(cfg, sp["attn"], hn, cache=c_in,
+                             rules=rules)
     elif cfg.attn_type == "mla":
         a, c = layers.mla_apply(cfg, sp["attn"], hn, positions=positions,
                                 cache=c_in, cache_len=cache_len, rules=rules)
@@ -123,21 +143,21 @@ def _apply_slot(cfg: ModelConfig, kind: str, sp, h, *, positions, rules,
                                 cache=c_in, cache_len=cache_len, rules=rules)
     if c is not None:
         new_cache["attn"] = c
-    h = h + a.to(h.dtype)
+    h = h + _residual(a, h, rules)
     if cross is not None:
-        hx = layers.rmsnorm(sp["ln_x"], h, cfg.norm_eps)
+        hx = _gathered(layers.rmsnorm(sp["ln_x"], h, cfg.norm_eps), rules)
         a, _ = layers.gqa_apply(cfg, sp["xattn"], hx, positions=positions,
-                                cross=cross)
-        h = h + a.to(h.dtype)
+                                cross=cross, rules=rules)
+        h = h + _residual(a, h, rules)
     if "mlp" in sp:
-        hn = layers.rmsnorm(sp["ln2"], h, cfg.norm_eps)
+        hn = _gathered(layers.rmsnorm(sp["ln2"], h, cfg.norm_eps), rules)
         if "router" in sp["mlp"]:
             f = moe.moe_apply(cfg, sp["mlp"], hn, rules=rules)
         elif "w_gate" in sp["mlp"]:
             f = layers.swiglu_apply(sp["mlp"], hn)
         else:
             f = layers.gelu_mlp_apply(sp["mlp"], hn)
-        h = h + f.to(h.dtype)
+        h = h + _residual(f, h, rules)
     if h.shape[1] > 1:
         h = constrain(h, rules, "batch", "seq_sp", None)
     return h, (new_cache or None)
@@ -219,11 +239,11 @@ def encoder_apply(cfg: ModelConfig, enc_params, frames, *, rules: Rules = None):
     slots = enc_params["slots"][0]
     for i in range(cfg.encoder_layers):
         sp = _period(slots, i)
-        hn = layers.rmsnorm(sp["ln1"], h, cfg.norm_eps)
+        hn = _gathered(layers.rmsnorm(sp["ln1"], h, cfg.norm_eps), rules)
         a, _ = layers.gqa_apply(cfg, sp["attn"], hn, positions=positions,
-                                causal=False)
+                                causal=False, rules=rules)
         h = h + a
-        hn = layers.rmsnorm(sp["ln2"], h, cfg.norm_eps)
+        hn = _gathered(layers.rmsnorm(sp["ln2"], h, cfg.norm_eps), rules)
         if "w_gate" in sp["mlp"]:
             h = h + layers.swiglu_apply(sp["mlp"], hn)
         else:

@@ -10,8 +10,13 @@ predecessor's ``requires_grad``) and a new state, computed under
 bias corrections ``1 - b**step`` and every moment in float32.
 
 The step counter is a Python int (the reference's 0-d int32 array; the
-checkpoint writes it as one).  ``abstract_state`` and ``state_pspecs``
-(the reference's dry-run and sharding helpers) wait for ROADMAP A19d.
+checkpoint writes it as one).  Leaves may be DTensors (sharded
+training): the moments then take their parameters' placements (ZeRO
+style, as the reference's state shares its parameters' specs), each
+gradient is first redistributed to its parameter's placements, and the
+clipping norm is the global one, summed across shards.
+``abstract_state`` and ``state_pspecs`` are the dry-run's and the
+sharding's views of the state.
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.sharding import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.sharding import (implicit_replication, is_dtensor,
+                                        is_pspec, tree_leaves, tree_map,
+                                        tree_unflatten)
 
 
 
@@ -41,11 +48,31 @@ class AdamWState(NamedTuple):
 
 
 def init(params) -> AdamWState:
-    """Zero float32 moments on each parameter's device, step 0."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    """Zero float32 moments on each parameter's device (a DTensor's with
+    its placements), step 0."""
+    zeros = lambda p: torch.zeros_like(  # noqa: E731
+        p, dtype=torch.float32, requires_grad=False)
     return AdamWState(step=0, m=tree_map(zeros, params),
                       v=tree_map(zeros, params))
+
+
+def abstract_state(params_abstract) -> AdamWState:
+    """The state of a tree of ``meta`` parameter tensors, as ``meta``
+    tensors (the dry-run: nothing allocated): float32 moments, and the
+    step as the reference's 0-d int32."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32,  # noqa: E731
+                                device="meta")
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      m=tree_map(f32, params_abstract),
+                      v=tree_map(f32, params_abstract))
+
+
+def state_pspecs(param_pspecs) -> AdamWState:
+    """The state's specs (tuples, ``sharding.to_pspec``): the moments
+    mirror the parameters', the step is replicated (``()``)."""
+    same = lambda s: s  # noqa: E731
+    return AdamWState(step=(), m=tree_map(same, param_pspecs, is_pspec),
+                      v=tree_map(same, param_pspecs, is_pspec))
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -63,6 +90,22 @@ def _f32(x: float) -> torch.Tensor:
 def update(cfg: AdamWConfig, grads, state: AdamWState, params, *,
            lr_scale=1.0):
     """One AdamW step.  Returns (new params, new state)."""
+    leaves = tree_leaves(params)
+    with implicit_replication(any(is_dtensor(p) for p in leaves)):
+        return _update(cfg, grads, state, params, lr_scale)
+
+
+def placed(g, p):
+    """Gradient ``g`` in its parameter's placements (a DTensor's partial
+    sums reduced, or its shards cut, as the parameter's are)."""
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _update(cfg: AdamWConfig, grads, state: AdamWState, params, lr_scale):
+    grads = tree_unflatten(params, [placed(g, p) for g, p in zip(
+        tree_leaves(grads), tree_leaves(params))])
     step = state.step + 1
     scale = None
     if cfg.clip_norm is not None:

@@ -5,8 +5,11 @@ port's static checker is clean on all of them (the first step of
 scripts/ci_torch.sh).  The smokes assert what their reference twins
 assert; here each must exit 0 and print its OK line.
 
-The training example and the port's training and data modules import
-no JAX either (``launch/train.py`` is among the modules portlint reads).
+The training example, the port's training and data modules, its
+sharding layer and its dry-run launchers (``launch/cells.py``,
+``launch/analysis.py``, ``launch/dryrun.py``) import no JAX and nothing
+of ``repro`` either (``launch/train.py`` is among the modules portlint
+reads).
 The scripts are started together, one thread each, when the first test
 of the file asks for them (the ``launched`` fixture); each test waits
 for its own, and whatever still runs at the end of the module is killed.
@@ -120,7 +123,9 @@ def test_scripts_import_no_jax_and_lint_clean():
                     "from repro.", "import repro."):
             assert bad not in text, (p, bad)
     for mod in ("launch/train.py", "optim/adamw.py", "optim/schedule.py",
-                "optim/compress.py", "data/synthetic.py"):
+                "optim/compress.py", "data/synthetic.py", "launch/cells.py",
+                "launch/analysis.py", "launch/dryrun.py",
+                "models/sharding.py"):
         text = (REPO / "src" / "repro_torch" / mod).read_text()
         for bad in ("import jax", "from jax", "from repro.",
                     "import repro."):

@@ -25,7 +25,7 @@ from repro.models import layers as ref_layers  # noqa: E402
 from repro.models import moe as ref_moe  # noqa: E402
 from repro.models import sharding as ref_sharding  # noqa: E402
 from repro_torch import interop  # noqa: E402
-from repro_torch.models import config, layers, moe, sharding  # noqa: E402
+from repro_torch.models import config, layers, moe  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -184,13 +184,6 @@ def test_bfloat16_routes_and_output_are_the_references():
     y = moe.moe_apply(cfg, pp, x)
     assert y.dtype == torch.bfloat16
     _close(y, ref_moe.moe_apply(ref_cfg, rp, xj).astype(jnp.float32), BF16)
-
-
-def test_a_mesh_is_refused():
-    _, cfg = _cfgs()
-    rules = dataclasses.replace(sharding.Rules(), mesh=object())
-    with pytest.raises(NotImplementedError, match="A19d"):
-        moe.moe_apply(cfg, {}, torch.zeros((1, 2, cfg.d_model)), rules=rules)
 
 
 def test_bfloat16_silu_within_two_ulps_of_the_references():

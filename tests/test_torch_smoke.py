@@ -303,6 +303,8 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             FLASH_LEN=dict(B=1, S=64, H=4, K=2, d=16), FLASH_BLK=16,
             TRAIN_CLI_ARGS=["--steps", "12", "--batch", "2", "--seq", "32",
                             "--ckpt-every", "6"],
+            # phase 23 (a): one multi-pod cell beside the solver cells
+            DRYRUN_CELLS={"whisper-tiny": "decode_32k"},
             smi=lambda: "NVIDIA H100 80GB HBM3, 700.00 W").items():
         monkeypatch.setattr(smoke, name, value)
     medians_ms = smoke.medians_ms
@@ -782,4 +784,17 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                    and "through train.loop" in x and "tokens/s" in x
                    and "FLOP bound" in x for x in p22) == 1, (arch, p22)
     assert sum(x.startswith("phase 22: ") for x in lines) == 1
+    # phase 23: the dry-run's cells (the solver's four and one LM cell),
+    # and the sharded path equal to the one-rank run, nothing dropped
+    assert any(x.startswith("phase 23 (a) dry-run: 5 ok, 0 skipped, 0 "
+                            "FAILED") for x in lines)
+    assert sum(x.startswith("phase 23 (a) apc-solver ") for x in lines) == 4
+    assert any(x.startswith("phase 23 (a) whisper-tiny decode_32k 2x16x16 ")
+               and "fits 80 GB" in x for x in lines)
+    assert any(x.startswith("phase 23 (b) tinyllama-smoke float32")
+               and "forward 0.000e+00" in x for x in lines)
+    assert any(x.startswith("phase 23 (b) qwen3-moe-smoke float32") and
+               "dropped entries {'sharded': 0, 'global': 0}" in x
+               for x in lines)
+    assert sum(x.startswith("phase 23: ") for x in lines) == 1
     assert sum(x.startswith("served 3 requests in ") for x in lines) == 14

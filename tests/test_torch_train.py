@@ -17,8 +17,8 @@ vocab-pad columns are masked; a period recomputed in the backward
 train CLI (``launch.train``) on the CPU tracks the reference's loop over
 three steps within 1e-4 relative, checkpoints and resumes (the twin of
 tests/test_system.py's ``test_train_driver_checkpoints_and_resumes``,
-in-process), resumes exactly, and refuses a mesh (A19d) and a missing
-card.
+in-process), resumes exactly, and refuses a missing card (its mesh
+runs are in tests/test_torch_sharding.py).
 """
 import dataclasses
 import shutil
@@ -407,13 +407,7 @@ def test_train_resumes_exactly(tmp_path):
     assert resumed.losses == whole.losses[3:]
 
 
-def test_train_refuses_a_mesh_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="A19d"):
-        train.main(["--arch", "tinyllama-1.1b", "--smoke", "--data", "2",
-                    "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A19d"):
-        train.main(["--arch", "tinyllama-1.1b", "--smoke", "--model-axis",
-                    "2", "--device", "cpu"])
+def test_train_refuses_a_missing_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA"):
