@@ -7,10 +7,12 @@ Phases, one stdout line (or a few) each; any failure raises and the
 script exits non-zero without its last line:
 
 1. environment: versions, the card's name and power limit, TF32 off, and
-   the CUDA kernels built from the checkout's sources, with each
+   the CUDA kernels built from the checkout's sources (a library for
+   each dtype pair, the nvcc processes started together), with each
    instance's registers, shared memory and spill bytes (none allowed in
    the ring instances that compute in float64, the bf16-stored ones
-   included, and each of the seven rings present);
+   included, each of the seven rings present, and both instances of
+   all seven kernels in the all-bf16 form);
 2. kernel vs plain version on the card: ``apc_gather``/``apc_scatter``
    and ``cimmino_gather``/``cimmino_scatter`` against their plain PyTorch
    versions at ragged shapes and at the main path's shapes, and
@@ -68,7 +70,7 @@ script exits non-zero without its last line:
    densified iterations and the sparse mixed ones (the sparse ones also
    in a captured 10-step graph), with the card's clocks as in phase 8,
    then the ``{"kernels": [...]}`` line with all seven, each with its
-   forms;
+   five forms (the all-bf16 one from phase 15 (a));
 12. ``precision="mixed"`` (bf16-stored A and B, float64 x), in two
    halves: after phase 7 on the dense system and after phase 9 on the
    sparse one, APC, consensus and Cimmino — exactly one launch of each
@@ -121,12 +123,19 @@ script exits non-zero without its last line:
    CLI sync and ``--async`` on one ``--store-dir`` (the second run a disk
    hit) and the solve CLI with ``--ckpt-dir``/``--resume`` twice;
 15. the kernel ops layer (after phase 14, with the card's clocks as in
-   phase 8): (a) the all-bf16 ``apc_gather``/``apc_scatter`` at the dense
-   main path's shapes, k = 1 and K_MANY, every instance
-   ``gather_instance`` admits against the plain version (8e-2 of
-   max|plain| + 1), timed beside the bytes bound, the plain version and
-   ``torch.matmul`` in bf16, and ``ops.block_projection`` all-bf16 end to
-   end; (b) the measured engine verdict (``ops.use_fused``, no pin) of the
+   phase 8): (a) the all-bf16 form of all seven kernels (both forms of
+   ``sparse_scatter``) at the dense main path's shapes and the sparse
+   path's, k = 1 and K_MANY, every instance ``gather_instance`` admits
+   against the plain version (8e-2 of max|plain| + 1, max|Δ| in bf16
+   ulps beside it), the ring bit-identical to the row dot (the gathers;
+   a scatter's packed row dot sums in another order) and, but for the
+   APC scatters, to the bf16/float32 ring on the operands widened,
+   rounded to bf16; each timed beside the bytes bound, the plain version
+   and ``torch.matmul`` (dense) or ``torch.bmm`` on the operands
+   gathered beforehand (sparse) in bf16; then ``ops.block_projection``,
+   ``ops.cimmino_update``, ``ops.sparse_proj_update`` and
+   ``ops.sparse_cimmino_update`` all-bf16 end to end, one launch of each
+   kernel they use, through the bf16_bf16 entries; (b) the measured engine verdict (``ops.use_fused``, no pin) of the
    four families at the dense and sparse main path's shapes, k = 1 and
    K_MANY, with both times, then APC and Cimmino ``solve_many`` (k =
    K_MANY, 150 iterations) on each system with no pin: the kernels
@@ -543,6 +552,13 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """(max|Δ| / (max|want| + 1), max|Δ|)"""
     d = float((got.double() - want.double()).abs().max())
     return d / (float(want.double().abs().max()) + 1.0), d
+
+
+def bf16_ulps(d: float, want: torch.Tensor) -> float:
+    """max|Δ| ``d`` in units in the last place of a bf16 number in the
+    binade of max|want| (8 significant bits)."""
+    top = float(want.double().abs().max())
+    return d / 2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0
 
 
 def pair_label(matrix: torch.Tensor, x: torch.Tensor) -> str:
@@ -3423,9 +3439,12 @@ def phases():
     torch.backends.cudnn.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
     tb = time.time()
-    lib = bp.build()["block_projection.cu"]
-    say(f"phase 1 build: {time.time() - tb:.2f} s ({SOURCE}, sm_90a)")
-    ptxas = ptxas_summary(lib.with_suffix(".log").read_text(),
+    libs = bp.build()
+    say(f"phase 1 build: {time.time() - tb:.2f} s ({SOURCE}, sm_90a, a "
+        f"library for each of the {len(libs)} dtype pairs, their nvcc "
+        f"processes started together)")
+    ptxas = ptxas_summary("".join(lib.with_suffix(".log").read_text()
+                                  for lib in libs.values()),
                           bp.ring_smem_bytes)
     say("phase 1 ptxas: " + "; ".join(ptxas))
     for tag in ("f64", "bf16/f64"):      # every float64-compute ring
@@ -3433,9 +3452,9 @@ def phases():
         assert all(" spill 0 B:" in x for x in rings), rings
         assert {x.split()[0] for x in rings} == {
             f"{kn}_ring" for kn in bp.RINGS}, rings
-    # the all-bf16 form: the APC pair's two instances alone
+    # the all-bf16 form: both instances of every kernel
     assert {x.split()[0] for x in ptxas if x.split()[1] == "bf16"} == {
-        f"{kn}{inst}" for kn in bp.ALL_BF16 for inst in ("", "_ring")}, \
+        f"{kn}{inst}" for kn in bp.KERNELS for inst in ("", "_ring")}, \
         ptxas
 
     # 2. kernel vs plain version ------------------------------------------
@@ -4797,92 +4816,235 @@ def phases():
     clocks("phase 15 start")
     dm, dp, dn = FULL["m"], FULL["N"] // FULL["m"], FULL["n"]
     shape = f"m={dm} p={dp} n={dn}"
-    # (a) the all-bf16 apc_gather/apc_scatter at the dense main path's
-    # shapes; the scatter takes the plain gather's U (bf16, as between the
-    # two passes)
+    # (a) the all-bf16 form of every kernel at the dense main path's
+    # shapes and the sparse path's; a scatter takes its gather's plain U
+    # (bf16, as between the two passes), a Cimmino scatter a seeded V
     bf_launches = {}
     A16 = randn(151, dm, dp, dn, dtype=BF16)
     B16 = randn(152, dm, dn, dp, dtype=BF16)
+    # phase 11's bf16-stored sparse factors (precision="mixed")
+    scols = fs.A.cols
+    sm, spp, sn, sw = sp.m, sp.p, sp.n, scols.shape[1]
+    sshape = f"m={sm} p={spp} w={sw} n={sn}"
+    f32 = torch.Tensor.float
     for k in (1, K_MANY):
         X16 = randn(153 + k, k, dm, dn, dtype=BF16).transpose(0, 1)
         Xb16 = randn(154 + k, k, dn, dtype=BF16)
+        V16 = randn(155 + k, k, dm, dp, dtype=BF16).transpose(0, 1)
         U16 = ops.apc_gather_ref(A16, X16, Xb16)
-        Y16 = ops.apc_scatter_ref(B16, X16, Xb16, U16, 0.9)
+        sX = randn(156 + k, k, sm, sn, dtype=BF16).transpose(0, 1)
+        sXb = randn(157 + k, k, sn, dtype=BF16)
+        sV = randn(158 + k, sm, k, spp, dtype=BF16)
+        sU = ops.sparse_gather_ref(vals16, scols, sX, sXb)
+        sY0 = ops._axpy(sX, sXb, 0.9)
+        sR0 = torch.zeros_like(sY0)
+        idx = scols[:, None, :].expand(sm, k, sw)
+        # the library yardstick's operands, gathered beforehand
+        sD = torch.take_along_dim(sXb - sX, idx, dim=-1)
+        sXs = torch.take_along_dim(sXb.expand(sm, k, sn), idx, dim=-1)
         torch.cuda.synchronize()
         mkn, mkp, kn_, mpn = dm * k * dn, dm * k * dp, k * dn, dm * dp * dn
+        flops = 2 * dm * k * dp * dn
+        mkw, smkp, mwp = sm * k * sw, sm * k * spp, sm * sw * spp
+        sflops, ci = 2 * sm * k * spp * sw, 8 * sm * sw
+        # each spec: launch(instance) on a fresh output; the plain
+        # version's result; the matrix and the operands the ring copies;
+        # the same ring on the operands widened to float32 (its bf16/f32
+        # entries), rounded to bf16: the all-bf16 ring's bits, but for
+        # the APC scatters, which round otherwise; the timed calls;
+        # (bytes, operations) of its work
         specs = {
             "apc_gather": dict(
-                launch=lambda inst=None: bp.apc_gather(A16, X16, Xb16,
-                                                      _instance=inst),
-                want=U16, fits=bp.gather_instance(A16, X16, Xb16),
-                default=bp.gather_instance(A16, X16, Xb16),
+                shape=shape, launch=lambda inst=None: bp.apc_gather(
+                    A16, X16, Xb16, _instance=inst),
+                want=U16, matrix=A16, copied=(X16, Xb16),
+                wide=lambda: bp.apc_gather(A16, f32(X16), f32(Xb16),
+                                           _instance="ring"),
                 plain=lambda: ops.apc_gather_ref(A16, X16, Xb16),
                 library=lambda D=Xb16 - X16: torch.matmul(
                     D, A16.transpose(1, 2)),
-                work=(2 * (mpn + mkn + kn_ + mkp), 2 * dm * k * dp * dn
-                      + mkn)),
+                work=(2 * (mpn + mkn + kn_ + mkp), flops + mkn)),
             "apc_scatter": dict(
-                launch=lambda inst=None: bp.apc_scatter(
+                shape=shape, launch=lambda inst=None: bp.apc_scatter(
                     B16, X16, Xb16, U16, 0.9, _instance=inst),
-                want=Y16, fits=bp.gather_instance(B16, U16),
-                default=bp.gather_instance(B16, U16, scatter=True),
+                want=ops.apc_scatter_ref(B16, X16, Xb16, U16, 0.9),
+                matrix=B16, copied=(U16,), wide=None,
                 plain=lambda: ops.apc_scatter_ref(B16, X16, Xb16, U16, 0.9),
                 library=lambda: torch.matmul(U16, B16.transpose(1, 2)),
-                work=(2 * (mpn + 2 * mkn + kn_ + mkp), 2 * dm * k * dp * dn
-                      + 4 * mkn)),
+                work=(2 * (mpn + 2 * mkn + kn_ + mkp), flops + 4 * mkn)),
+            "cimmino_gather": dict(
+                shape=shape, launch=lambda inst=None: bp.cimmino_gather(
+                    A16, Xb16, _instance=inst),
+                want=ops.cimmino_gather_ref(A16, Xb16), matrix=A16,
+                copied=(Xb16,),
+                wide=lambda: bp.cimmino_gather(A16, f32(Xb16),
+                                               _instance="ring"),
+                plain=lambda: ops.cimmino_gather_ref(A16, Xb16),
+                library=lambda: torch.matmul(Xb16, A16.transpose(1, 2)),
+                work=(2 * (mpn + kn_ + mkp), flops)),
+            "cimmino_scatter": dict(
+                shape=shape, launch=lambda inst=None: bp.cimmino_scatter(
+                    B16, V16, _instance=inst),
+                want=ops.cimmino_scatter_ref(B16, V16), matrix=B16,
+                copied=(V16,),
+                wide=lambda: bp.cimmino_scatter(B16, f32(V16),
+                                                _instance="ring"),
+                plain=lambda: ops.cimmino_scatter_ref(B16, V16),
+                library=lambda: torch.matmul(V16, B16.transpose(1, 2)),
+                work=(2 * (mpn + mkp + mkn), flops)),
+            "sparse_gather": dict(
+                shape=sshape, launch=lambda inst=None: bp.sparse_gather(
+                    vals16, scols, sX, sXb, _instance=inst),
+                want=sU, matrix=vals16, copied=(),
+                wide=lambda: bp.sparse_gather(vals16, scols, f32(sX),
+                                              f32(sXb), _instance="ring"),
+                plain=lambda: ops.sparse_gather_ref(vals16, scols, sX, sXb),
+                library=lambda: torch.bmm(sD, vals16.transpose(1, 2)),
+                work=(2 * mwp + ci + 2 * (2 * mkw + smkp), sflops + mkw)),
+            "sparse_cimmino_gather": dict(
+                shape=sshape,
+                launch=lambda inst=None: bp.sparse_cimmino_gather(
+                    vals16, scols, sXb, _instance=inst),
+                want=ops.sparse_cimmino_gather_ref(vals16, scols, sXb),
+                matrix=vals16, copied=(),
+                wide=lambda: bp.sparse_cimmino_gather(
+                    vals16, scols, f32(sXb), _instance="ring"),
+                plain=lambda: ops.sparse_cimmino_gather_ref(vals16, scols,
+                                                            sXb),
+                library=lambda: torch.bmm(sXs, vals16.transpose(1, 2)),
+                work=(2 * mwp + ci + 2 * (mkw + smkp), sflops)),
+            "sparse_scatter": dict(
+                shape=sshape, launch=lambda inst=None: bp.sparse_scatter(
+                    Bv16, scols, sU, sY0.clone(), X=sX, Xbar=sXb, gamma=0.9,
+                    _instance=inst),
+                want=ops.sparse_scatter_ref(Bv16, scols, sU, sY0, sX, sXb,
+                                            0.9),
+                matrix=Bv16, copied=(sU,), wide=None,
+                timed=lambda inst=None: bp.sparse_scatter(
+                    Bv16, scols, sU, sY0, X=sX, Xbar=sXb, gamma=0.9,
+                    _instance=inst),
+                plain=lambda: ops.sparse_scatter_ref(Bv16, scols, sU, sY0,
+                                                     sX, sXb, 0.9),
+                library=lambda: torch.bmm(sU, Bv16.transpose(1, 2)),
+                work=(2 * mwp + ci + 2 * (smkp + 3 * mkw), sflops + 4 * mkw)),
+            "sparse_scatter cimmino": dict(
+                shape=sshape + " (Cimmino form)",
+                launch=lambda inst=None: bp.sparse_scatter(
+                    Bv16, scols, sV, sR0.clone(), _instance=inst),
+                want=ops.sparse_scatter_ref(Bv16, scols, sV, sR0),
+                matrix=Bv16, copied=(sV,),
+                wide=lambda: bp.sparse_scatter(Bv16, scols, f32(sV),
+                                               f32(sR0), _instance="ring"),
+                timed=lambda inst=None: bp.sparse_scatter(
+                    Bv16, scols, sV, sR0, _instance=inst),
+                plain=lambda: ops.sparse_scatter_ref(Bv16, scols, sV, sR0),
+                library=lambda: torch.bmm(sV, Bv16.transpose(1, 2)),
+                work=(2 * mwp + ci + 2 * (smkp + mkw), sflops)),
         }
         timed = {}
-        for kname, sp_ in specs.items():
+        for key, sp_ in specs.items():
+            kname = key.split()[0]
+            scatter = kname in bp.SCATTERS
+            fits = bp.gather_instance(sp_["matrix"], *sp_["copied"])
+            default = bp.gather_instance(sp_["matrix"], *sp_["copied"],
+                                         scatter=scatter)
             insts = [i for i in bp.INSTANCES
-                     if i == "row_dot" or sp_["fits"] == "ring"]
+                     if i == "row_dot" or fits == "ring"]
             outs = {i: sp_["launch"](i) for i in insts}
             torch.cuda.synchronize()
             errs = {i: rel_err(o, sp_["want"]) for i, o in outs.items()}
             for i, (e, _) in errs.items():
-                assert outs[i].dtype == BF16 and e < BF16_TOL, (kname, k, i,
-                                                                e)
+                assert outs[i].dtype == BF16 and e < BF16_TOL, (key, k, i, e)
             max_abs[(kname, BF)] = max(
                 [max_abs.get((kname, BF), 0.0)]
                 + [d for _, d in errs.values()])
-            same = (torch.equal(outs["ring"], outs["row_dot"])
-                    if "ring" in outs else None)
-            say(f"phase 15 {kname} k={k} {shape} {BF}: " + "; ".join(
-                f"{i} {e:.3e}" for i, (e, _) in errs.items())
-                + f" (tol {BF16_TOL:.0e}); ring≡row_dot {same}; the "
-                f"launcher takes the {sp_['default']}")
-            timed.update({(kname, "ms"): sp_["launch"],
-                          (kname, "row_dot_ms"): lambda f=sp_["launch"]: f(
-                              "row_dot"),
-                          (kname, "plain_ms"): sp_["plain"],
-                          (kname, "library_ms"): sp_["library"]})
-            if kname in bp.SCATTERS and sp_["fits"] == "ring":
-                timed[(kname, "ring_ms")] = lambda f=sp_["launch"]: f("ring")
+            same = wide = None
+            if "ring" in outs:
+                # the scatters' row dot is the packed one, summing in
+                # another order than the ring (phase 2)
+                same = torch.equal(outs["ring"], outs["row_dot"])
+                assert same or scatter, (key, k)
+                if sp_["wide"] is not None:
+                    wide = torch.equal(outs["ring"], sp_["wide"]().to(BF16))
+                    assert wide, (key, k)
+            say(f"phase 15 {kname} k={k} {sp_['shape']} {BF}: " + "; ".join(
+                f"{i} {e:.3e} (max|Δ| {bf16_ulps(d, sp_['want']):.2f} ulps)"
+                for i, (e, d) in errs.items())
+                + f" (tol {BF16_TOL:.0e}); ring≡row_dot {same}; "
+                f"ring≡bf16/f32 ring rounded {wide}; the launcher takes "
+                f"the {default}")
+            call = sp_.get("timed", sp_["launch"])
+            timed.update({(key, "ms"): call,
+                          (key, "row_dot_ms"): lambda f=call: f("row_dot"),
+                          (key, "plain_ms"): sp_["plain"],
+                          (key, "library_ms"): sp_["library"]})
+            if scatter and fits == "ring":
+                timed[(key, "ring_ms")] = lambda f=call: f("ring")
         t = medians_ms(timed)
-        for kname, sp_ in specs.items():
-            f = {key: v for (kn, key), v in t.items() if kn == kname}
+        for key, sp_ in specs.items():
+            kname = key.split()[0]
+            f = {name: v for (kn, name), v in t.items() if kn == key}
             f["bound_ms"], f["bound_by"] = bound(sp_["work"], BF16)
-            rows[(kname, k)]["forms"][BF] = f
+            rows[(key, k)]["forms"][BF] = f
             b_ = f["bound_ms"]
-            say(f"phase 15 {kname} k={k} {shape} {BF}: {f['ms']:.4f} ms "
-                f"(bound {b_:.4f} ms by {f['bound_by']}, "
+            lib = ("torch.matmul" if kname in USES["apc"] + USES["cimmino"]
+                   else "torch.bmm (operands gathered beforehand)")
+            say(f"phase 15 {kname} k={k} {sp_['shape']} {BF}: "
+                f"{f['ms']:.4f} ms (bound {b_:.4f} ms by {f['bound_by']}, "
                 f"{b_ / f['ms']:.1%} of it), row-dot instance "
                 f"{f['row_dot_ms']:.4f} ms"
                 + (f", ring instance {f['ring_ms']:.4f} ms"
                    if "ring_ms" in f else "")
-                + f", plain {f['plain_ms']:.4f} ms, torch.matmul bf16 "
+                + f", plain {f['plain_ms']:.4f} ms, {lib} bf16 "
                 f"{f['library_ms']:.4f} ms [{card}]")
-        # ops.block_projection all-bf16 end to end (k = 1: no batch axis)
-        Xe, Xbe = (X16[:, 0], Xb16[0]) if k == 1 else (X16, Xb16)
-        ops.reset_launch_counts()
-        Y = ops.block_projection(A16, B16, Xe, Xbe, 0.9)
-        got = bf_launches[k] = form_launches("bf16_bf16")
-        assert got == {kn: 1 if kn in USES["apc"] else 0
-                       for kn in bp.KERNELS}, got
-        e, _ = rel_err(Y, ops.block_projection_ref(A16, B16, Xe, Xbe, 0.9))
-        assert Y.dtype == BF16 and Y.shape == Xe.shape and e < BF16_TOL, e
-        say(f"phase 15 ops.block_projection k={k} {shape} {BF}: vs plain "
-            f"{e:.3e} (tol {BF16_TOL:.0e}), launches {got}")
-        del X16, Xb16, U16, Y16, Y, timed, specs
+        # the ops end to end, each launching once each kernel it uses
+        # (k = 1: no batch axis)
+        one = (lambda t, a: t.select(a, 0)) if k == 1 else (
+            lambda t, a: t)
+        Xe, Xbe, Ve = one(X16, 1), one(Xb16, 0), one(V16, 1)
+        sXe, sXbe, sVe = one(sX, 1), one(sXb, 0), one(sV, 1)
+        runs = {
+            "block_projection": (
+                "apc", lambda: ops.block_projection(A16, B16, Xe, Xbe, 0.9),
+                lambda: ops.block_projection_ref(A16, B16, Xe, Xbe, 0.9)),
+            "cimmino_update": (
+                "cimmino", lambda: ops.cimmino_update(A16, B16, Ve, Xbe),
+                lambda: ops.cimmino_update_ref(A16, B16, Ve, Xbe)),
+            "sparse_proj_update": (
+                "sparse apc", lambda: ops.sparse_proj_update(
+                    vals16, scols, Bv16, sXe, sXbe, 0.9),
+                lambda: ops.sparse_proj_update_ref(vals16, scols, Bv16,
+                                                   sXe, sXbe, 0.9)),
+            "sparse_cimmino_update": (
+                "sparse cimmino", lambda: ops.sparse_cimmino_update(
+                    vals16, scols, Bv16, sVe, sXbe),
+                lambda: ops.sparse_cimmino_update_ref(vals16, scols, Bv16,
+                                                      sVe, sXbe))}
+        for op, (path, run, plain) in runs.items():
+            uses = (SPARSE_USES if path.startswith("sparse") else USES)[
+                path.split()[-1]]
+            ops.reset_launch_counts()
+            got_out = run()
+            got = form_launches("bf16_bf16")
+            assert got == {kn: 1 if kn in uses else 0
+                           for kn in bp.KERNELS}, (op, got)
+            if k == 1:
+                bf_launches.update({kn: got[kn] for kn in uses})
+            outs = got_out if isinstance(got_out, tuple) else (got_out,)
+            wants = plain()
+            wants = wants if isinstance(wants, tuple) else (wants,)
+            errs = []
+            for o, w_ in zip(outs, wants):
+                e, _ = rel_err(o, w_)
+                assert o.dtype == BF16 and o.shape == w_.shape and (
+                    e < BF16_TOL), (op, e)
+                errs.append(e)
+            say(f"phase 15 ops.{op} k={k} "
+                f"{sshape if path.startswith('sparse') else shape} {BF}: "
+                f"vs plain " + ", ".join(f"{e:.3e}" for e in errs)
+                + f" (tol {BF16_TOL:.0e}), launches {got}")
+        del X16, Xb16, V16, U16, sX, sXb, sV, sU, sY0, sR0, sD, sXs
+        del timed, specs, runs
     del A16, B16
     # (b) the measured engine verdicts, no pin, then solves under them
     t = time.time()
@@ -5022,7 +5184,7 @@ def phases():
     form_main = {F64: main_launches, F32: by_kernel(f32_launches),
                  "bfloat16/float64": by_kernel(mixed_launches),
                  "bfloat16/float32": by_kernel(mixed32_launches),
-                 BF: bf_launches[1]}
+                 BF: bf_launches}
     kernels = []
     for kname in bp.KERNELS:
         r = rows[(kname, 1)]

@@ -6,10 +6,11 @@ and, over the compressed support of sparse systems, ``sparse_gather``,
 Counterpart of ``repro.kernels.block_projection`` (the Pallas TPU kernels).
 The kernels live in ``csrc/block_projection.cu`` (see the note there for
 their design); this module compiles them with ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface at first use, keyed by a
-hash of the sources and flags, under ``build/repro_torch_kernels/`` in
-the checkout, and calls them through ``ctypes`` on PyTorch's current
-stream.
+at first use, once per dtype pair of :data:`PAIRS` (all the ``nvcc``
+processes started together), into one shared library a pair with a
+plain C interface, keyed by a hash of the source and flags, under
+``build/repro_torch_kernels/`` in the checkout, and calls them through
+``ctypes`` on PyTorch's current stream.
 
 The launchers take CUDA tensors only; every check of device, dtype,
 shape and strides happens here, before a pointer reaches the kernel.
@@ -37,10 +38,9 @@ beside the compute dtype of the other operands, which is also its output
 dtype and, but for bfloat16, its accumulation dtype (the reference's
 ``_acc_dtype`` follows X): float64/float64, float32/float32, the
 bf16-stored forms of ``precision="mixed"``, bfloat16/float64 and
-bfloat16/float32, and for ``apc_gather``/``apc_scatter`` alone the
-all-bf16 form, bfloat16/bfloat16, which accumulates in float32 and
-rounds U and Y to bfloat16 (:data:`ALL_BF16`).  Each pair has its own C
-entries (:data:`PAIRS`).
+bfloat16/float32, and the all-bf16 form, bfloat16/bfloat16, which
+accumulates in float32 and rounds each result to bfloat16.  Every
+kernel has C entries for each of these pairs (:data:`PAIRS`).
 
 Every launcher takes ``kc``, the k-chunk of its launch (the batch rows a
 block carries: one of :data:`KC_VALUES`, the instances the library
@@ -81,27 +81,16 @@ GATHERS = ("apc_gather", "cimmino_gather", "sparse_gather",
 SCATTERS = ("apc_scatter", "cimmino_scatter", "sparse_scatter")
 RINGS = GATHERS + SCATTERS
 #: the C entries' suffix of each (matrix dtype, compute dtype) pair the
-#: kernels take: <kernel>_<suffix>
+#: kernels take: <kernel>_<suffix>, in the library of the pair, which
+#: ``nvcc`` builds with -DREPRO_PAIR=<its place here>
 PAIRS = {(torch.float64, torch.float64): "f64",
          (torch.float32, torch.float32): "f32",
          (torch.bfloat16, torch.float64): "bf16_f64",
          (torch.bfloat16, torch.float32): "bf16_f32",
          (torch.bfloat16, torch.bfloat16): "bf16_bf16"}
-#: the kernels with the all-bf16 entries (the reference reaches its
-#: bfloat16 x only through ``ops.block_projection``); the other five take
-#: the first four pairs of :data:`PAIRS`
-ALL_BF16 = ("apc_gather", "apc_scatter")
 #: the k-chunks the library instantiates (csrc/block_projection.cu
 #: with_kc)
 KC_VALUES = (1, 2, 4, 8)
-
-
-def pairs(name: str) -> dict:
-    """The dtype pairs of :data:`PAIRS` that kernel ``name`` has C entries
-    for."""
-    if name in ALL_BF16:
-        return PAIRS
-    return {pr: sfx for pr, sfx in PAIRS.items() if sfx != "bf16_bf16"}
 
 
 #: the instances of the kernels in :data:`RINGS`, by the int64 their C
@@ -116,7 +105,7 @@ _ALIGN = 16
 
 #: launches so far, by (kernel, suffix of its dtype pair's C entry)
 _launches = {(name, suffix): 0 for name in KERNELS
-             for suffix in pairs(name).values()}
+             for suffix in PAIRS.values()}
 _libs: dict = {}
 
 
@@ -145,6 +134,8 @@ def reset_launch_counts() -> None:
 # several); a capture holds back only its own thread's launches
 _count_lock = threading.Lock()
 _capture = threading.local()
+# one build and load of the libraries, whichever thread launches first
+_build_lock = threading.Lock()
 
 
 def count_launch(name: str, suffix: str) -> None:
@@ -197,8 +188,10 @@ def _nvcc() -> str:
 
 
 def build(sources=SOURCES) -> dict:
-    """Compile each source into its own shared library, all ``nvcc``
-    processes started together; returns {source: library path}.
+    """Compile each source once per dtype pair of :data:`PAIRS` (with
+    -DREPRO_PAIR=<the pair's place>) into a shared library of its own,
+    all ``nvcc`` processes started together; returns {(source, suffix):
+    library path}.
 
     A library whose hash-keyed path exists is reused.  Each build writes
     a temporary file and renames it into place, so a concurrent build of
@@ -209,23 +202,25 @@ def build(sources=SOURCES) -> dict:
     procs, paths = [], {}
     for src in sources:
         text = (CSRC / src).read_bytes()
-        key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
-        out = BUILD_ROOT / key.hexdigest()[:16] / (
-            "lib" + pathlib.Path(src).stem + ".so")
-        paths[src] = out
-        if out.exists():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        nvcc = nvcc or _nvcc()
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs.append((src, tmp, out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        for i, suffix in enumerate(PAIRS.values()):
+            flags = (*NVCC_FLAGS, f"-DREPRO_PAIR={i}")
+            key = hashlib.sha256(text + " ".join(flags).encode())
+            out = BUILD_ROOT / key.hexdigest()[:16] / (
+                f"lib{pathlib.Path(src).stem}_{suffix}.so")
+            paths[(src, suffix)] = out
+            if out.exists():
+                continue
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            nvcc = nvcc or _nvcc()
+            cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC / src)]
+            procs.append((f"{src} {suffix}", tmp, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
-    for src, tmp, out, proc in procs:
+    for unit, tmp, out, proc in procs:
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
-            failed.append(f"{src}:\n{log}")
+            failed.append(f"{unit}:\n{log}")
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
@@ -236,7 +231,7 @@ def build(sources=SOURCES) -> dict:
 
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
 #: ctypes argument types of each C entry (``<kernel>_<suffix>``, every
-#: suffix of :func:`pairs`), in the order of the extern "C" signatures in
+#: suffix of :data:`PAIRS`), in the order of the extern "C" signatures in
 #: csrc/block_projection.cu; ``kc`` 0 is the library's own k-chunk
 ARGTYPES = {
     # A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k, su_w, su_k, instance,
@@ -267,19 +262,23 @@ ARGTYPES = {
 RING_SMEM_ARGTYPES = [_I64] * 4
 
 
-def _library() -> ctypes.CDLL:
-    if "block_projection" in _libs:
-        return _libs["block_projection"]
-    lib = ctypes.CDLL(str(build()["block_projection.cu"]))
-    for kernel, argtypes in ARGTYPES.items():
-        for suffix in pairs(kernel).values():
-            fn = getattr(lib, f"{kernel}_{suffix}")
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    lib.gather_ring_smem.argtypes = RING_SMEM_ARGTYPES
-    lib.gather_ring_smem.restype = _I64
-    _libs["block_projection"] = lib
-    return lib
+def _library(suffix: str) -> ctypes.CDLL:
+    """The library of the dtype pair whose C entries end in ``suffix``
+    (every pair's is built at the first call)."""
+    if suffix in _libs:
+        return _libs[suffix]
+    with _build_lock:
+        if not _libs:
+            for (_, sfx), path in build().items():
+                lib = ctypes.CDLL(str(path))
+                for kernel, argtypes in ARGTYPES.items():
+                    fn = getattr(lib, f"{kernel}_{sfx}")
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                lib.gather_ring_smem.argtypes = RING_SMEM_ARGTYPES
+                lib.gather_ring_smem.restype = _I64
+                _libs[sfx] = lib
+    return _libs[suffix]
 
 
 def ring_smem_bytes(matrix_dtype: torch.dtype, dtype: torch.dtype, k: int,
@@ -289,8 +288,9 @@ def ring_smem_bytes(matrix_dtype: torch.dtype, dtype: torch.dtype, k: int,
     its matrix in ``matrix_dtype`` and the compute type ``dtype``, in
     bytes (from the built library)."""
     size = lambda dt: torch.empty((), dtype=dt).element_size()  # noqa: E731
-    return int(_library().gather_ring_smem(size(matrix_dtype), size(dtype),
-                                           k, FORMS[form]))
+    form_id = FORMS[form]
+    return int(_library(PAIRS[(matrix_dtype, dtype)]).gather_ring_smem(
+        size(matrix_dtype), size(dtype), k, form_id))
 
 
 def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
@@ -357,7 +357,7 @@ def _check(name: str, index=None, **operands) -> dict:
     ``operands`` maps a label to ``(tensor, axes)``, ``axes`` naming each
     dimension ("mpn", "mkn", "kn", ...): every tensor must be on one CUDA
     device, the first operand (the matrix stack) in the matrix dtype and
-    every other in one compute dtype, a pair of ``pairs(name)``; every
+    every other in one compute dtype, a pair of :data:`PAIRS`; every
     axis letter must bind to one size, the matrix stack must be
     contiguous and the others need a unit stride along their last axis.
     ``index`` is the sparse kernels' ``(cols, "mw")``: a contiguous int64
@@ -386,10 +386,10 @@ def _check(name: str, index=None, **operands) -> dict:
                         f"{sorted(map(str, dtypes))}; every operand but "
                         f"the matrix must share one dtype")
     pair = (matrix.dtype, dtypes.pop())
-    if pair not in pairs(name):
+    if pair not in PAIRS:
         raise TypeError(f"{name}: matrix {pair[0]} with operands {pair[1]} "
                         f"unsupported; the kernel takes "
-                        + ", ".join(f"{a}/{b}" for a, b in pairs(name)))
+                        + ", ".join(f"{a}/{b}" for a, b in PAIRS))
     sizes: dict = {}
     for i, (label, (t, axes)) in enumerate(operands.items()):
         if t.dim() != len(axes) or any(
@@ -413,7 +413,7 @@ def _launch(name: str, matrix: torch.Tensor, out: torch.Tensor,
     their device's current stream, count it, and raise on a nonzero
     ``cudaGetLastError()``."""
     suffix = PAIRS[(matrix.dtype, out.dtype)]
-    fn = getattr(_library(), f"{name}_{suffix}")
+    fn = getattr(_library(suffix), f"{name}_{suffix}")
     with torch.cuda.device(matrix.device):
         stream = torch.cuda.current_stream().cuda_stream
         count_launch(name, suffix)

@@ -117,7 +117,8 @@
 //     KC rows of X̄ and, in the APC form, of X (dense: 16 bytes a lane;
 //     sparse: one cp.async of one element a lane at the support column
 //     cols[w, c], which the producer reads once, a step ahead, so no copy
-//     waits on it).  The operand costs 2·KC/64 of A's bytes (APC) or
+//     waits on it; a bf16 element, too small for a cp.async, through a
+//     register).  The operand costs 2·KC/64 of A's bytes (APC) or
 //     KC/64 (Cimmino: X̄ alone, the one (k, n) buffer every worker
 //     reads), from L2, beside A and not between barriers.
 //   * gives each consumer warp 8 rows and all KC batch rows: 8·KC
@@ -174,21 +175,32 @@
 // precision="mixed": the accumulation type follows X, not the stored
 // A/B).  The consumer widens each element of the matrix to Acc<T> once,
 // exactly (bf16 ⊂ f32 ⊂ f64), and feeds the widened value to all KC
-// batch rows.  The all-bf16 form (apc_gather_bf16_bf16,
-// apc_scatter_bf16_bf16: the reference's apc_gather/apc_scatter on bf16
-// x) takes T = bf16 and accumulates in f32 (_acc_dtype): each operand
-// element is widened to f32 as it is read, the difference X̄ − X is
-// taken in f32, γ is the bf16-rounded value in f32, and each output is
-// rounded to bf16 as it is stored (U between the two passes, and Y).
-// Its scatter ring reads X and X̄ after the tree (a one-element
-// cp.async moves at least 4 bytes).  The other five kernels take the
-// first four pairs only.  The ring sizes its stage by the compute type:
-// C = 512 / sizeof(T) columns a stage, so the operand's rows are 512
-// bytes as in the f64/f32 rings, and the matrix's rows C·sizeof(TM)
-// bytes (128 for bf16/f64, 256 for bf16/f32, 512 for bf16/bf16); the
-// stages are smaller, so more of them fit (at most kRingMaxStages); the
-// all-bf16 APC stage at KC = 8 is 40 KiB, five stages in the 200 KiB
-// budget.  The wrapper rejects every other pair.
+// batch rows.  The all-bf16 form (<kernel>_bf16_bf16, every kernel: the
+// reference's kernels on bf16 x) takes T = bf16 and accumulates in f32
+// (_acc_dtype): each operand element is widened to f32 as it is read,
+// the difference X̄ − X is taken in f32, γ is the bf16-rounded value in
+// f32, and each output is rounded to bf16 as it is stored (U between
+// the two passes, R, C, Y).  The APC form of sparse_scatter rounds
+// where the reference's ops.sparse_proj_update does (apc_out): the
+// pre-pass X + γ(X̄ − X) and C each to bf16, then their difference
+// X + γ(X̄ − X) − γ·C, so it agrees with ops.sparse_scatter_ref to
+// within the rounding of C's sum order.  A one-element cp.async moves
+// at least 4 bytes, so in bf16 the APC scatter rings read X and X̄
+// after the tree, and the sparse gathers' producers stage the support
+// columns of X̄ (and X) through a register: an ld.global, then an
+// st.shared, which the stage's full barrier orders by a release
+// arrival of the thread beside its cp.async one (stage_arrive).  The
+// ring sizes its stage by the compute type: C = 512 / sizeof(T) columns
+// a stage, so the operand's rows are 512 bytes as in the f64/f32 rings,
+// and the matrix's rows C·sizeof(TM) bytes (128 for bf16/f64, 256 for
+// bf16/f32, 512 for bf16/bf16); the stages are smaller, so more of them
+// fit (at most kRingMaxStages); the all-bf16 APC stage at KC = 8 is
+// 40 KiB, five stages in the 200 KiB budget.  The wrapper rejects every
+// other pair.
+//
+// Each pair's entries are a library of their own: the wrapper compiles
+// this file once per pair (-DREPRO_PAIR=0..4, block_projection.PAIRS'
+// order), the five nvcc processes at once.
 //
 // KC, the batch rows a block (a ring tile) carries, is 1, 2, 4 or 8: the
 // entry's kc argument where the caller pins or measured one
@@ -279,6 +291,27 @@ float gamma_of<__nv_bfloat16>(double g) {
   u &= 0xffff0000u;
   memcpy(&f, &u, sizeof f);
   return f;
+}
+
+// The APC forms' output X + γ((X̄ − X) − C) at one element, from x, x̄
+// and the reduced C in the accumulator type.  The all-bf16 sparse form
+// (kSparse) rounds as the reference's ops.sparse_proj_update and
+// ops.sparse_scatter_ref do: the pre-pass Y0 = X + γ(X̄ − X) to bf16, C
+// to bf16, then Y0 − γ·C once more, each operation in f32 and rounded
+// to nearest (no contraction to an FMA: the plain version's separate
+// operations).
+template <typename T, bool kSparse>
+__device__ __forceinline__ T apc_out(Acc<T> x, Acc<T> xb, Acc<T> gamma,
+                                     Acc<T> c) {
+  if constexpr (kSparse && std::is_same_v<T, __nv_bfloat16>) {
+    const float y0 = __bfloat162float(__float2bfloat16_rn(
+        __fadd_rn(x, __fmul_rn(gamma, __fsub_rn(xb, x)))));
+    const float c16 = __bfloat162float(__float2bfloat16_rn(c));
+    return __float2bfloat16_rn(__fsub_rn(y0, __fmul_rn(gamma, c16)));
+  } else {
+    const Acc<T> d = xb - x;
+    return narrow<T>(x + gamma * (d - c));
+  }
 }
 
 constexpr int kThreads = 256;
@@ -563,9 +596,9 @@ __device__ __forceinline__ void scatter_block(
     if (kk < kvalid && j < n) {
       const int64_t jo = kSparse ? cols[w * n + j] : j;
       if constexpr (kAxpy) {
-        const TA x = widen<TA>(X[w * sx_w + (k0 + kk) * sx_k + jo]);
-        const TA d = widen<TA>(Xbar[(k0 + kk) * sxb_k + jo]) - x;
-        Yw[kk * sy_k + jo] = narrow<T>(x + gamma * (d - Cs[kk][jj]));
+        Yw[kk * sy_k + jo] = apc_out<T, kSparse>(
+            widen<TA>(X[w * sx_w + (k0 + kk) * sx_k + jo]),
+            widen<TA>(Xbar[(k0 + kk) * sxb_k + jo]), gamma, Cs[kk][jj]);
       } else {
         Yw[kk * sy_k + jo] = narrow<T>(Cs[kk][jj]);
       }
@@ -717,6 +750,23 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                    smem_addr(bar)) : "memory");
 }
 
+// A producer thread's arrival on a stage's full barrier.  With kStores
+// (the bf16 sparse gathers, whose support columns went through a
+// register into shared memory) the cp.async arrival adds one to the
+// pending count itself (no .noinc: it holds the phase until the copies
+// land) and the thread's counted arrival is a plain one, with release
+// semantics, after its st.shared; the consumers' wait acquires.
+template <bool kStores>
+__device__ __forceinline__ void stage_arrive(uint64_t* bar) {
+  if constexpr (kStores) {
+    asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                     smem_addr(bar)) : "memory");
+    mbar_arrive(bar);
+  } else {
+    cp_async_arrive(bar);
+  }
+}
+
 // A tile: rows row0 .. row0 + rows of worker w's matrix against its
 // batch rows k0 .. k0 + kvalid.
 struct RingTile {
@@ -776,10 +826,12 @@ __device__ __forceinline__ void ring_cols(int64_t (&g)[C / 32],
 // rows q = pw, pw + 4, ... of the right operand's KC (Cimmino) or 2·KC
 // (kDiff) rows (X̄ row q, or X row q − KC; dense: 16 bytes a lane,
 // sparse: one element a lane at its support column) — and arrive on the
-// stage's full barrier once they have landed.  Under kSparse, `g` holds
-// the support columns of the step and is refilled with the next step's
-// (the next tile's first, of worker next_w, after the last chunk): each
-// index is read a step before the copies that need it.  Under
+// stage's full barrier once they have landed (stage_arrive; a 2-byte
+// support element, which no cp.async moves, through a register).
+// Under kSparse, `g` holds the support columns of the step and is
+// refilled with the next step's (the next tile's first, of worker
+// next_w, after the last chunk): each index is read a step before the
+// copies that need it.  Under
 // kPerWorker (the scatters: the Cimmino form, dense) the operand is
 // worker w's own rows, at Xbar + w·sxb_w, not the one shared X̄.  `it`
 // counts the block's (tile, chunk) steps: stage it % S, round it / S.
@@ -798,6 +850,7 @@ __device__ __forceinline__ void ring_produce(
   constexpr int kPer = 16 / sizeof(T);           // operand elements a piece
   constexpr int kMPer = 16 / sizeof(TM);         // matrix elements a piece
   constexpr int kRowsAtOnce = 32 / Cfg::kPieces;
+  constexpr bool kStores = kSparse && sizeof(T) < 4;
   const int pw = threadIdx.x / 32 - kRingWarps;
   const int lane = threadIdx.x % 32;
   const int piece = lane % Cfg::kPieces;
@@ -832,7 +885,15 @@ __device__ __forceinline__ void ring_produce(
       const T* src = q < KC ? Xbar + (tl.k0 + kk) * sxb_k
                             : X + tl.w * sx_w + (tl.k0 + kk) * sx_k;
       if constexpr (kPerWorker) src += tl.w * sxb_w;
-      if constexpr (kSparse) {
+      if constexpr (kStores) {
+        T v[C / 32];
+#pragma unroll
+        for (int j = 0; j < C / 32; ++j)
+          if (lane + 32 * j < nv) v[j] = src[gc[j]];
+#pragma unroll
+        for (int j = 0; j < C / 32; ++j)
+          if (lane + 32 * j < nv) dst[lane + 32 * j] = v[j];
+      } else if constexpr (kSparse) {
 #pragma unroll
         for (int j = 0; j < C / 32; ++j)
           if (lane + 32 * j < nv)
@@ -841,7 +902,7 @@ __device__ __forceinline__ void ring_produce(
         cp_async16(dst + lane * kPer, src + c0 + lane * kPer);
       }
     }
-    cp_async_arrive(&ring_full[s]);
+    stage_arrive<kStores>(&ring_full[s]);
   }
 }
 
@@ -1144,13 +1205,12 @@ struct RingScatterStore {
       const int64_t i = tl.k0 + kk;
       T* y = Y + tl.w * sy_w + i * sy_k + jo;
       if constexpr (kStaged) {
-        const TA x = staged()[2 * h][lane];
-        const TA d = staged()[2 * h + 1][lane] - x;
-        *y = narrow<T>(x + gamma * (d - v[h]));
+        *y = apc_out<T, kSparse>(staged()[2 * h][lane],
+                                 staged()[2 * h + 1][lane], gamma, v[h]);
       } else if constexpr (kAxpy) {
-        const TA x = widen<TA>(X[tl.w * sx_w + i * sx_k + jo]);
-        const TA d = widen<TA>(Xbar[i * sxb_k + jo]) - x;
-        *y = narrow<T>(x + gamma * (d - v[h]));
+        *y = apc_out<T, kSparse>(widen<TA>(X[tl.w * sx_w + i * sx_k + jo]),
+                                 widen<TA>(Xbar[i * sxb_k + jo]), gamma,
+                                 v[h]);
       } else {
         *y = narrow<T>(v[h]);
       }
@@ -1358,9 +1418,7 @@ void launch_ring(int smem, int64_t m, int64_t rows, int64_t k,
             s>>>(args...);
 }
 
-// The gather ring kernel of a form, the only one instantiated (the
-// all-bf16 pair has the APC form alone: a sparse gather's ring copies
-// 2-byte elements, which cp.async does not move).
+// The gather ring kernel of a form, the only one instantiated.
 template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
 constexpr auto gather_ring_kernel() {
   if constexpr (kDiff && kSparse)
@@ -1639,11 +1697,10 @@ int sparse_scatter(const void* Bvals, const void* cols, const void* X,
 
 extern "C" {
 
-// The C entries of each (matrix, compute) type pair: <kernel>_<SUFFIX>.
-// kc is the k-chunk (0: the library's own, kc_for(k)).  The APC pair has
-// an entry for every pair of block_projection.PAIRS, the all-bf16 one
-// (bf16_bf16) included; the other five for the first four.
-#define REPRO_APC_ENTRIES(SUFFIX, TM, T)                                     \
+// The C entries of each (matrix, compute) type pair: <kernel>_<SUFFIX>,
+// every kernel for every pair of block_projection.PAIRS.  kc is the
+// k-chunk (0: the library's own, kc_for(k)).
+#define REPRO_ENTRIES(SUFFIX, TM, T)                                         \
   int apc_gather_##SUFFIX(const void* A, const void* X, const void* Xbar,    \
                           void* U, int64_t m, int64_t p, int64_t n,          \
                           int64_t k, int64_t sx_w, int64_t sx_k,             \
@@ -1661,10 +1718,7 @@ extern "C" {
     return apc_scatter<TM, T>(B, X, Xbar, U, gamma, Y, m, n, p, k, sx_w,     \
                               sx_k, sxb_k, su_w, su_k, sy_w, sy_k, instance, \
                               kc, stream);                                   \
-  }
-
-#define REPRO_ENTRIES(SUFFIX, TM, T)                                         \
-  REPRO_APC_ENTRIES(SUFFIX, TM, T)                                           \
+  }                                                                          \
   int cimmino_gather_##SUFFIX(const void* A, const void* Xbar, void* U,      \
                               int64_t m, int64_t p, int64_t n, int64_t k,    \
                               int64_t sxb_k, int64_t su_w, int64_t su_k,     \
@@ -1712,14 +1766,22 @@ extern "C" {
                                  sy_k, instance, kc, stream);                \
   }
 
+// One pair a library (REPRO_PAIR: its place in block_projection.PAIRS).
+#if REPRO_PAIR == 0
 REPRO_ENTRIES(f64, double, double)
+#elif REPRO_PAIR == 1
 REPRO_ENTRIES(f32, float, float)
+#elif REPRO_PAIR == 2
 REPRO_ENTRIES(bf16_f64, __nv_bfloat16, double)
+#elif REPRO_PAIR == 3
 REPRO_ENTRIES(bf16_f32, __nv_bfloat16, float)
-REPRO_APC_ENTRIES(bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+#elif REPRO_PAIR == 4
+REPRO_ENTRIES(bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+#else
+#error "compile with -DREPRO_PAIR=0..4 (block_projection.build)"
+#endif
 
 #undef REPRO_ENTRIES
-#undef REPRO_APC_ENTRIES
 
 // The ring instance's dynamic shared memory at the k-chunk of k, in
 // bytes, for a matrix of matrix_itemsize bytes (8, 4 or 2), a compute

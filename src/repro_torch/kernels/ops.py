@@ -20,11 +20,15 @@ storage dtype beside the compute dtype of the other operands, a pair of
 ``precision="mixed"``, bfloat16 matrices with float64 or float32
 operands; results come in the compute dtype.  The plain versions widen a
 bfloat16 matrix to the compute dtype first (exact), as JAX promotes
-where ``torch.einsum`` refuses mixed dtypes.  ``proj_gather``,
-``proj_scatter`` and ``block_projection`` also take the all-bf16 form
-(bfloat16 matrices and operands, the reference's ``block_projection``
-on bfloat16 x): float32 accumulation, U rounded to bfloat16 between the
-two passes, γ applied as its bfloat16 value, Y in bfloat16.
+where ``torch.einsum`` refuses mixed dtypes.  Every op also takes the
+all-bf16 form (bfloat16 matrices and operands, the reference's ops on
+bfloat16 x): float32 accumulation (``_acc``), γ applied as its bfloat16
+value (``_gamma``), results in bfloat16, rounded where the reference's
+ops round them: U between the two passes (before b − U in Cimmino), C
+before it is scaled and added at the support columns, the sparse
+pre-pass X + γ(X̄ − X) (``_axpy``) and the sum at the support columns.
+For float64, float32 and the bf16-stored pairs ``_acc`` is the compute
+dtype and these roundings are the identity.
 
 The engine and tile choice of the reference's ops (ROADMAP A11), with
 its names and environment variables:
@@ -129,18 +133,32 @@ def block_projection_ref(A, B, X, Xbar, gamma):
 
 def cimmino_gather_ref(A, Xbar):
     """U = A_w X̄ per worker: A (m, p, n); X̄ (n,) or (k, n) -> U (m, p) or
-    (m, k, p)."""
-    return torch.einsum("mpn,...n->m...p", A.to(Xbar.dtype), Xbar)
+    (m, k, p), accumulated in ``_acc(X̄.dtype)``, returned in X̄'s
+    dtype."""
+    acc = _acc(Xbar.dtype)
+    return torch.einsum("mpn,...n->m...p", A.to(acc),
+                        Xbar.to(acc)).to(Xbar.dtype)
 
 
 def cimmino_scatter_ref(B, V):
-    """R = B_w V_w per worker: B (m, n, p); V (m, p) or (m, k, p)."""
-    return torch.einsum("mnp,m...p->m...n", B.to(V.dtype), V)
+    """R = B_w V_w per worker: B (m, n, p); V (m, p) or (m, k, p);
+    accumulated in ``_acc(V.dtype)``, returned in V's dtype."""
+    acc = _acc(V.dtype)
+    return torch.einsum("mnp,m...p->m...n", B.to(acc), V.to(acc)).to(V.dtype)
 
 
 def cimmino_update_ref(A, B, b, Xbar):
-    """The full row projection R = B_w (b_w − A_w X̄) per worker."""
+    """The full row projection R = B_w (b_w − A_w X̄) per worker (U in
+    X̄'s dtype before b − U)."""
     return cimmino_scatter_ref(B, b - cimmino_gather_ref(A, Xbar))
+
+
+def _axpy(X, Xbar, gamma):
+    """The pre-pass X + γ(X̄ − X), computed in ``_acc(X.dtype)`` with γ
+    as ``_gamma`` gives it, rounded once to X's dtype."""
+    acc = _acc(X.dtype)
+    x = X.to(acc)
+    return (x + _gamma(gamma, X.dtype) * (Xbar.to(acc) - x)).to(X.dtype)
 
 
 def _support(cols, D):
@@ -153,26 +171,37 @@ def _support(cols, D):
 
 def sparse_gather_ref(vals, cols, X, Xbar):
     """U = vals_w (X̄ − X_w)[cols_w] per worker: vals (m, p, w); cols
-    (m, w); X (m, n) or (m, k, n); X̄ (n,) or (k, n) -> (m, [k,] p)."""
-    return torch.einsum("mpw,m...w->m...p", vals.to(X.dtype),
-                        _support(cols, Xbar - X)[0])
+    (m, w); X (m, n) or (m, k, n); X̄ (n,) or (k, n) -> (m, [k,] p),
+    accumulated in ``_acc(X.dtype)``, returned in X's dtype."""
+    acc = _acc(X.dtype)
+    return torch.einsum("mpw,m...w->m...p", vals.to(acc),
+                        _support(cols, Xbar.to(acc) - X.to(acc))[0]
+                        ).to(X.dtype)
 
 
 def sparse_cimmino_gather_ref(vals, cols, Xbar):
-    """U = vals_w X̄[cols_w] per worker -> (m, p) or (m, k, p)."""
-    Xb = Xbar.expand((vals.shape[0],) + Xbar.shape)   # (m, [k,] n)
-    return torch.einsum("mpw,m...w->m...p", vals.to(Xbar.dtype),
-                        _support(cols, Xb)[0])
+    """U = vals_w X̄[cols_w] per worker -> (m, p) or (m, k, p), accumulated
+    in ``_acc(X̄.dtype)``, returned in X̄'s dtype."""
+    acc = _acc(Xbar.dtype)
+    Xb = Xbar.to(acc).expand((vals.shape[0],) + Xbar.shape)  # (m, [k,] n)
+    return torch.einsum("mpw,m...w->m...p", vals.to(acc),
+                        _support(cols, Xb)[0]).to(Xbar.dtype)
 
 
 def sparse_scatter_ref(Bvals, cols, U, out, X=None, Xbar=None, gamma=0.0):
     """``out`` (m, [k,] n) with C = Bvals_w U_w scatter-added at cols_w,
     as the reference adds: C itself (Cimmino form), or −γC when X and X̄
-    are given (APC form; ``out`` then already holds X + γ(X̄ − X)).
-    Returns a new tensor."""
-    C = torch.einsum("mwp,m...p->m...w", Bvals.to(U.dtype), U)
+    are given (APC form; ``out`` then already holds X + γ(X̄ − X)).  C is
+    accumulated in ``_acc(U.dtype)`` and rounded to U's dtype, then
+    scaled (γ as ``_gamma`` gives it) and added in that accumulation
+    dtype, and the sum rounded to ``out``'s dtype.  Returns a new
+    tensor."""
+    acc = _acc(U.dtype)
+    C = torch.einsum("mwp,m...p->m...w", Bvals.to(acc),
+                     U.to(acc)).to(U.dtype).to(acc)
     idx = _support(cols, out)[1]
-    return out.scatter_add(-1, idx, C if X is None else -gamma * C)
+    add = C if X is None else -_gamma(gamma, U.dtype) * C
+    return out.to(acc).scatter_add(-1, idx, add).to(out.dtype)
 
 
 def sparse_proj_update_ref(vals, cols, Bvals, X, Xbar, gamma):
@@ -180,7 +209,7 @@ def sparse_proj_update_ref(vals, cols, Bvals, X, Xbar, gamma):
     (the reference's ``sparse_proj_update_ref`` per worker): returns
     (Y, U), Y = X + γ(X̄ − X) − γ Bvals U at cols."""
     U = sparse_gather_ref(vals, cols, X, Xbar)
-    Y = X + gamma * (Xbar - X)
+    Y = _axpy(X, Xbar, gamma)
     return sparse_scatter_ref(Bvals, cols, U, Y, X, Xbar, gamma), U
 
 
@@ -211,28 +240,20 @@ def on_cuda(op: str, *tensors: torch.Tensor) -> bool:
     return kinds == {"cuda"}
 
 
-#: the kernel whose dtype pairs (``block_projection.pairs``) an op takes,
-#: where its name is not the kernel's
-_OP_KERNEL = {"proj_gather": "apc_gather", "proj_scatter": "apc_scatter",
-              "sparse_proj_update": "sparse_gather",
-              "sparse_cimmino_update": "sparse_cimmino_gather"}
-
-
 def _on_cuda(op: str, matrices: tuple, *operands: torch.Tensor) -> bool:
     """:func:`on_cuda` of every tensor; raises, besides, on dtypes the
     kernels do not take: the ``matrices`` in one dtype and the
-    ``operands`` in one, a pair of ``block_projection.pairs`` of the op's
-    kernel (the all-bf16 pair: the APC ops alone)."""
+    ``operands`` in one, a pair of ``block_projection.PAIRS`` (every
+    kernel takes each)."""
     cuda = on_cuda(op, *matrices, *operands)
     mats = {t.dtype for t in matrices}
     dtypes = {t.dtype for t in operands}
-    pairs = bp.pairs(_OP_KERNEL.get(op, op))
     if (len(mats) != 1 or len(dtypes) != 1
-            or (*mats, *dtypes) not in pairs):
+            or (*mats, *dtypes) not in bp.PAIRS):
         raise TypeError(
             f"{op}: dtypes {sorted(map(str, mats))} (matrices) with "
             f"{sorted(map(str, dtypes))} (operands); expected one of "
-            + ", ".join(f"{a}/{b}" for a, b in pairs))
+            + ", ".join(f"{a}/{b}" for a, b in bp.PAIRS))
     return cuda
 
 
@@ -329,7 +350,7 @@ def sparse_proj_update(vals, cols, Bvals, X, Xbar, gamma: float):
     Y in X's shape, U (m, [k,] p) = vals_w (X̄ − X_w)[cols_w], the fused
     residual source.  On CUDA: one ``sparse_gather`` launch (the support
     gather happens in its staged loads), the AXPY pre-pass
-    Y = X + γ(X̄ − X) for the off-support columns, and one
+    Y = X + γ(X̄ − X) for the off-support columns (``_axpy``), and one
     ``sparse_scatter`` launch that stores the support columns of Y."""
     cuda = _on_cuda("sparse_proj_update", (vals, Bvals), X, Xbar)
     kc = launch_kc(vals, vals.shape[2], vals.shape[1], _k(X, 3), X.dtype)
@@ -338,7 +359,7 @@ def sparse_proj_update(vals, cols, Bvals, X, Xbar, gamma: float):
         return sparse_proj_update_ref(vals, cols, Bvals, X, Xbar, gamma)
     X3, Xb2, squeeze = _rows(X, Xbar)
     U = bp.sparse_gather(vals, cols, X3, Xb2, kc=kc)
-    Y = X3 + gamma * (Xb2 - X3)
+    Y = _axpy(X3, Xb2, gamma)
     bp.sparse_scatter(Bvals, cols, U, Y, X=X3, Xbar=Xb2, gamma=gamma, kc=kc)
     return (Y.squeeze(1), U.squeeze(1)) if squeeze else (Y, U)
 

@@ -29,7 +29,8 @@ from repro_torch.kernels import ops  # noqa: E402
 
 torch.set_num_threads(1)
 
-TOL = {np.float32: 2e-5, np.float64: 1e-12}     # tests/test_kernels.py
+# tests/test_kernels.py; bf16 relative to max|ref| + 1, as its TOL
+TOL = {np.float32: 2e-5, np.float64: 1e-12, jnp.bfloat16: 8e-2}
 M = 3
 SYS = dict(n=80, m=4, cond=10.0, seed=11)
 HIST = dict(rtol=0, atol=1e-10)
@@ -57,19 +58,30 @@ def _inputs(p, n, k, dtype, seed=5):
     return [a.astype(dtype) for a in (A, B, xb, b)]
 
 
+def _torch(a):
+    """A numpy array as a torch tensor, a bf16 one bit for bit."""
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(np.asarray(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.as_tensor(a)
+
+
 def _err(got, want):
+    if isinstance(got, torch.Tensor):
+        got = got.double().numpy()
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
     assert got.shape == want.shape, (got.shape, want.shape)
     return np.abs(got - want).max() / (np.abs(want).max() + 1.0)
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, jnp.bfloat16])
 @pytest.mark.parametrize("p,n,k", [(8, 128, 1), (16, 512, 16), (7, 130, 5),
                                    (1, 128, 4), (24, 896, 1)])
 def test_cimmino_ops_match_reference(p, n, k, dtype):
     """m = 3 workers against the reference's worker-vmapped Pallas ops
-    and its jnp oracles."""
+    and its jnp oracles; bfloat16 is the all-bf16 form, fed the same
+    bits."""
     A, B, xb, b = _inputs(p, n, k, dtype)
     J = [jnp.asarray(a) for a in (A, B, xb, b)]
     u_ref = jax.vmap(ref_ops.cimmino_gather, in_axes=(0, None))(J[0], J[2])
@@ -79,11 +91,11 @@ def test_cimmino_ops_match_reference(p, n, k, dtype):
         J[0], J[1], J[3], J[2])
     full_or = jax.vmap(ref_ref.cimmino_update_ref, in_axes=(0, 0, 0, None))(
         J[0], J[1], J[3], J[2])
-    T = [torch.as_tensor(a) for a in (A, B, xb, b)]
+    T = [_torch(a) for a in (A, B, xb, b)]
     before = ops.launch_counts()
     u = ops.cimmino_gather(T[0], T[2])
     # the scatter consumes the reference's v, as its test does
-    r = ops.cimmino_scatter(T[1], torch.as_tensor(np.array(v_ref)))
+    r = ops.cimmino_scatter(T[1], _torch(np.array(v_ref)))
     full = ops.cimmino_update(T[0], T[1], T[3], T[2])
     assert ops.launch_counts() == before     # CPU tensors never launch
     assert u.dtype == r.dtype == full.dtype == T[0].dtype

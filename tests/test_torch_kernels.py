@@ -8,6 +8,7 @@ relative to max|ref| + 1).  The CUDA kernels themselves are held against
 the same plain versions on the card by chip_smoke.py.
 """
 import contextlib
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -115,7 +116,8 @@ def test_transposed_batch_view_is_accepted():
 
 def test_no_fallback_between_kernel_and_plain_version():
     """The raw launchers take CUDA tensors only, and the ops accept only
-    all-CPU or all-CUDA operands of one float32/float64 dtype."""
+    all-CPU or all-CUDA operands of one dtype pair of
+    ``block_projection.PAIRS``."""
     A, B, X, Xb = (torch.as_tensor(a) for a in _inputs(4, 16, 2,
                                                         np.float64))
     before = ops.launch_counts()
@@ -131,8 +133,8 @@ def test_no_fallback_between_kernel_and_plain_version():
         ops.proj_gather(A, X.float(), Xb)
     with pytest.raises(TypeError, match="dtypes"):
         ops.cimmino_update(A.bfloat16(), B.bfloat16(),
-                           torch.zeros(M, 4, dtype=torch.bfloat16),
-                           Xb.bfloat16())
+                           torch.zeros(M, 4, dtype=torch.float16),
+                           Xb.half())
     assert ops.launch_counts() == before
 
 
@@ -142,7 +144,8 @@ def test_ctypes_signatures_match_the_cuda_source():
     import ctypes
     import re
     src = (bp.CSRC / "block_projection.cu").read_text()
-    # the entries come from one macro, instantiated once per dtype pair
+    # the entries come from one macro, instantiated once per dtype pair,
+    # each in a library of its own
     body = src[src.index('extern "C" {'):].replace("\\\n", "\n")
     kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
              "int64_t": ctypes.c_int64, "double": ctypes.c_double}
@@ -159,20 +162,13 @@ def test_ctypes_signatures_match_the_cuda_source():
     assert found == len(bp.KERNELS)
     cxx = {torch.float64: "double", torch.float32: "float",
            torch.bfloat16: "__nv_bfloat16"}
-    # every kernel's entries for the first four pairs, the APC pair's
-    # alone for the all-bf16 one
-    assert re.findall(r"^REPRO_ENTRIES\((\w+), (\w+), (\w+)\)$", body,
-                      re.M) == [(suffix, cxx[tm], cxx[t]) for (tm, t), suffix
-                                in bp.pairs("cimmino_gather").items()]
-    assert re.findall(r"^REPRO_APC_ENTRIES\((\w+), (\w+), (\w+)\)$",
-                      body, re.M) == [
-        (suffix, cxx[tm], cxx[t]) for (tm, t), suffix in bp.PAIRS.items()
-        if (tm, t) not in bp.pairs("cimmino_gather")]
-    assert all(bp.pairs(kn) == bp.PAIRS for kn in bp.ALL_BF16)
-    assert [kn for kn in bp.KERNELS if re.search(
-        rf"int {kn}_##SUFFIX", body[body.index("#define REPRO_APC_ENTRIES"):
-                                    body.index("#define REPRO_ENTRIES")])
-            ] == list(bp.ALL_BF16)
+    # every kernel's entries for every pair, the all-bf16 one included,
+    # each pair under the -DREPRO_PAIR of its place in PAIRS
+    assert re.findall(r"^#(?:el)?if REPRO_PAIR == (\d)\nREPRO_ENTRIES\("
+                      r"(\w+), (\w+), (\w+)\)$", body, re.M) == [
+        (str(i), suffix, cxx[tm], cxx[t])
+        for i, ((tm, t), suffix) in enumerate(bp.PAIRS.items())]
+    assert "REPRO_APC_ENTRIES" not in src
     # the ring's shared-memory query returns int64_t and takes the form
     (params,) = re.findall(r"int64_t gather_ring_smem\(([^)]*)\)", body)
     assert types(params) == bp.RING_SMEM_ARGTYPES
@@ -406,6 +402,43 @@ def test_scatter_launchers_pass_their_instance(monkeypatch, kernel, p, k,
     assert name == kernel and args[-2:] == (bp.INSTANCES[want], 0)
 
 
+def test_build_compiles_a_library_a_pair_all_at_once(monkeypatch,
+                                                     tmp_path):
+    """``build`` starts one ``nvcc`` a dtype pair of ``PAIRS`` (the source
+    with -DREPRO_PAIR=<its place>) before it waits for any, keeps each
+    compiler's output beside its library, and reuses what exists."""
+    started, waited = [], []
+
+    class Proc:
+        returncode = 0
+
+        def __init__(self, cmd, **_):
+            started.append(cmd)
+            self.out = pathlib.Path(cmd[cmd.index("-o") + 1])
+
+        def communicate(self):
+            waited.append(len(started))
+            self.out.write_text("")
+            return b"ptxas info", None
+
+    monkeypatch.setattr(bp, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(bp, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(bp.subprocess, "Popen", Proc)
+    paths = bp.build()
+    assert list(paths) == [("block_projection.cu", sfx)
+                           for sfx in bp.PAIRS.values()]
+    assert [c[c.index("-o") - 1] for c in started] == [
+        f"-DREPRO_PAIR={i}" for i in range(len(bp.PAIRS))]
+    assert waited == [len(bp.PAIRS)] * len(bp.PAIRS)
+    for (_, sfx), path in paths.items():
+        assert path.name == f"libblock_projection_{sfx}.so"
+        assert path.exists()
+        assert path.with_suffix(".log").read_text() == "ptxas info"
+    assert len({path.parent for path in paths.values()}) == len(bp.PAIRS)
+    started.clear()
+    assert bp.build() == paths and started == []
+
+
 def test_ring_smem_bytes_takes_the_form(monkeypatch):
     """``ring_smem_bytes`` hands the library the matrix's and the compute
     type's itemsizes, k and the form's int64; an unknown form raises
@@ -417,13 +450,17 @@ def test_ring_smem_bytes_takes_the_form(monkeypatch):
             asked.append((matrix_itemsize, itemsize, k, form))
             return 1
 
-    monkeypatch.setattr(bp, "_library", Lib)
+    libs = []
+    monkeypatch.setattr(bp, "_library",
+                        lambda suffix: libs.append(suffix) or Lib())
     assert bp.ring_smem_bytes(torch.float64, torch.float64, 8,
                               "cimmino") == 1
     assert bp.ring_smem_bytes(torch.float32, torch.float32, 3, "apc") == 1
     assert bp.ring_smem_bytes(torch.bfloat16, torch.float64, 2, "apc") == 1
     assert asked == [(8, 8, 8, bp.FORMS["cimmino"]),
                      (4, 4, 3, bp.FORMS["apc"]), (2, 8, 2, bp.FORMS["apc"])]
+    # each pair's library answers for its own pair
+    assert libs == ["f64", "f32", "bf16_f64"]
     with pytest.raises(KeyError):
         bp.ring_smem_bytes(torch.float64, torch.float64, 8, "sparse")
     assert len(asked) == 3
@@ -444,23 +481,24 @@ def test_launch_counts_by_dtype_pair(monkeypatch, pair):
     class Stream:
         cuda_stream = 7
 
-    monkeypatch.setattr(bp, "_library", Lib)
+    libs = []
+    monkeypatch.setattr(bp, "_library",
+                        lambda suffix: libs.append(suffix) or Lib())
     monkeypatch.setattr(torch.cuda, "device",
                         lambda _: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", Stream)
     monkeypatch.setattr(bp, "_launches", dict.fromkeys(bp._launches, 0))
     matrix_dtype, dtype = pair
     suffix = bp.PAIRS[pair]
-    # a kernel with the pair's entries: the all-bf16 pair is the APC
-    # kernels' alone
-    kname = ("cimmino_scatter" if pair in bp.pairs("cimmino_scatter")
-             else "apc_scatter")
+    # every kernel has every pair's entries
+    kname = "cimmino_scatter"
     bp._launch(kname, torch.zeros(1, dtype=matrix_dtype),
                torch.zeros(1, dtype=dtype), 1, 2)
     bp._launch(kname, torch.zeros(1, dtype=matrix_dtype),
                torch.zeros(1, dtype=dtype), 3, 4)
     assert called == [(f"{kname}_{suffix}", (1, 2, 7)),
                       (f"{kname}_{suffix}", (3, 4, 7))]
+    assert libs == [suffix, suffix]
     want = {kn: 2 if kn == kname else 0 for kn in bp.KERNELS}
     assert bp.launch_counts() == bp.launch_counts(suffix) == want
     for other in set(bp.PAIRS.values()) - {suffix}:

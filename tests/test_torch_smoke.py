@@ -207,7 +207,7 @@ def fake_cuda_graphs(monkeypatch):
 def _contract(name, matrix, operands, cols=None, kc=None):
     assert matrix.is_contiguous(), (name, "matrix stack not contiguous")
     assert len({t.dtype for t in operands}) == 1, name
-    assert (matrix.dtype, operands[0].dtype) in bp.pairs(name), name
+    assert (matrix.dtype, operands[0].dtype) in bp.PAIRS, name
     assert kc is None or kc in bp.KC_VALUES, (name, kc)
     for t in operands:
         assert t.shape[-1] <= 1 or t.stride(-1) == 1, (name, t.stride())
@@ -356,15 +356,15 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             ring.format(f"{len(kn) + 12}{kn}_ring_kernel", tm,
                         "Lb1E" if kn == "sparse_scatter" else "")
             for kn in bp.RINGS for tm in ("d", "13__nv_bfloat16"))
-        # the all-bf16 APC pair (its compute type mangled as "S0_"), both
-        # instances
+        # the all-bf16 form (its compute type mangled as "S0_"), both
+        # instances of every kernel
         + "".join(
             ring.format(f"{len(kn) + len(inst) + 7}{kn}{inst}_kernel",
                         "13__nv_bfloat16", "").replace(
                 "bfloat16dLi8E", "bfloat16S0_Li8E")
-            for kn in bp.ALL_BF16 for inst in ("", "_ring")))
+            for kn in bp.KERNELS for inst in ("", "_ring")))
     monkeypatch.setattr(bp, "build", lambda sources=bp.SOURCES: {
-        "block_projection.cu": lib})
+        ("block_projection.cu", "f64"): lib})
     # the two forms' stage sizes at KC = 8: (64 + 16) and (64 + 8) rows of
     # 512 bytes, 5 stages each (the scatters' rings: the Cimmino form)
     monkeypatch.setattr(bp, "ring_smem_bytes", lambda mdt, dt, k, form: {
@@ -534,14 +534,14 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
         assert k["mesh_serving_launches"] == 40, k  # phase 17 (a)
         # phase 19 (d): the probe's kernel-path solve, the APC pair alone
         assert k["lm_probe_launches"] == (
-            smoke.PROBE["iters"] if k["name"] in bp.ALL_BF16 else 0), k
+            smoke.PROBE["iters"] if k["name"] in smoke.USES["apc"]
+            else 0), k
         assert np.isfinite([k["ms"], k["plain_ms"], k["bound_ms"]]).all()
-        # the APC pair's all-bf16 form beside the four others, its
-        # launches from phase 15's ops.block_projection
-        allbf = k["name"] in bp.ALL_BF16
-        assert [f["pair"] for f in k["forms"]] == list(pairs) + [bf] * allbf
+        # the all-bf16 form beside the four others, its launches from
+        # phase 15's ops run end to end
+        assert [f["pair"] for f in k["forms"]] == list(pairs) + [bf]
         # each form's count from its own runs
-        assert [f["launches"] for f in k["forms"]] == [40] * 4 + [1] * allbf
+        assert [f["launches"] for f in k["forms"]] == [40] * 4 + [1]
         for f in k["forms"]:
             assert set(f) == form_keys and np.isfinite(f["ms"]), f
             assert (f["row_dot_ms"] is None) == (
@@ -557,18 +557,32 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             assert np.isfinite([f["library_ms"], f["bound_ms"],
                                 f["max_abs_err"]]).all(), f
             assert f["library"] is None and f["bound_by"] == "bytes", f
-    # phase 15: the all-bf16 pair at k = 1 and 8 (every instance, then
-    # its times) and end to end, the engine verdicts without a pin (the
-    # faked card is the CPU: the heuristic), the solves under them, the
-    # k-chunk pins
+    # phase 15: the all-bf16 form of every kernel at k = 1 and 8 (every
+    # instance, then its times; both forms of sparse_scatter) and the four
+    # ops end to end, the engine verdicts without a pin (the faked card is
+    # the CPU: the heuristic), the solves under them, the k-chunk pins
     p15 = [x for x in lines if x.startswith("phase 15 ")]
-    for kn in bp.ALL_BF16:
+    for kn in bp.KERNELS:
+        lib = ("torch.bmm (operands gathered beforehand) bf16"
+               if kn.startswith("sparse") else "torch.matmul bf16")
         for k in (1, 8):
             got = [x for x in p15 if x.startswith(f"phase 15 {kn} k={k} ")]
-            assert len(got) == 2 and "row_dot" in got[0] and (
-                "torch.matmul bf16" in got[1]), got
-    assert sum(x.startswith("phase 15 ops.block_projection k=")
-               for x in p15) == 2
+            forms = 2 if kn == "sparse_scatter" else 1
+            assert len(got) == 2 * forms, got
+            checks, times = got[:forms], got[forms:]
+            assert all("row_dot" in x and "ulps" in x for x in checks), got
+            assert all(lib in x for x in times), got
+            # the gathers' two instances agree bit for bit, and the
+            # rings but the APC scatters' with the bf16/f32 ring rounded
+            assert kn in bp.SCATTERS or all("ring≡row_dot True" in x
+                                            for x in checks), got
+            assert all(("ring≡bf16/f32 ring rounded True" in x) == (
+                kn not in ("apc_scatter", "sparse_scatter")
+                or "Cimmino form" in x) for x in checks), got
+    for op in ("block_projection", "cimmino_update", "sparse_proj_update",
+               "sparse_cimmino_update"):
+        assert sum(x.startswith(f"phase 15 ops.{op} k=")
+                   for x in p15) == 2, op
     engine = [x for x in p15 if x.startswith("phase 15 engine ")]
     assert len(engine) == 8 and all(
         "not measured (the heuristic)" in x for x in engine), engine

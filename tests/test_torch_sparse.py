@@ -42,7 +42,8 @@ from repro_torch.solvers.projection import ProjFactors  # noqa: E402
 
 torch.set_num_threads(1)
 
-TOL = {np.float32: 2e-5, np.float64: 1e-12}     # tests/test_kernels.py
+# tests/test_kernels.py; bf16 relative to max|ref| + 1, as its TOL
+TOL = {np.float32: 2e-5, np.float64: 1e-12, jnp.bfloat16: 8e-2}
 # tests/test_modes.py::test_sparse_matches_densified
 X_TOL = dict(rtol=1e-8, atol=1e-10)
 HIST_TOL = dict(rtol=1e-6, atol=1e-12)
@@ -82,7 +83,17 @@ def sparse_sys(corner):
 
 
 def _np(t):
-    return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    if isinstance(t, torch.Tensor):
+        return (t.double() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(t)
+
+
+def _torch(a):
+    """A numpy array as a torch tensor, a bf16 one bit for bit."""
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(np.asarray(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.as_tensor(a)
 
 
 def _close(a, b, **tol):
@@ -236,12 +247,13 @@ def _op_inputs(sys_, k, dtype, seed=5):
     return [a if a.dtype == np.int64 else a.astype(dtype) for a in arrs]
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, jnp.bfloat16])
 @pytest.mark.parametrize("k", [1, 3])
 @pytest.mark.parametrize("key", sorted(CORNERS))
 def test_sparse_ops_match_reference(corner, key, k, dtype):
     """Both sparse ops against the reference's worker-vmapped Pallas ops
-    (interpret mode) and its jnp oracles, at the corner shapes."""
+    (interpret mode) and its jnp oracles, at the corner shapes;
+    bfloat16 is the all-bf16 form, fed the same bits."""
     vals, cols, Bv, X, Xb, b = _op_inputs(corner(key)[1], k, dtype)
     J = [jnp.asarray(a) for a in (vals, cols.astype(np.int32), Bv, X, Xb,
                                   b)]
@@ -251,7 +263,7 @@ def test_sparse_ops_match_reference(corner, key, k, dtype):
                           (0, 0, 0, 0, None, None))(*J[:5], GAMMA)
     r_ref, c_ref = jax.vmap(ref_ops.sparse_cimmino_update,
                             (0, 0, 0, 0, None))(*J[:3], J[5], J[4])
-    T = [torch.as_tensor(a) for a in (vals, cols, Bv, X, Xb, b)]
+    T = [_torch(a) for a in (vals, cols, Bv, X, Xb, b)]
     before = ops.launch_counts()
     y, u = ops.sparse_proj_update(*T[:5], GAMMA)
     r, c = ops.sparse_cimmino_update(*T[:3], T[5], T[4])
