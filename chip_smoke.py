@@ -11,8 +11,10 @@ script exits non-zero without its last line:
    each dtype pair, the nvcc processes started together), with each
    instance's registers, shared memory and spill bytes (none allowed in
    the ring instances that compute in float64, the bf16-stored ones
-   included, each of the seven rings present, and both instances of
-   all seven kernels in the all-bf16 form);
+   included, nor in either instance of the tensor-core form, the
+   bf16/float64 ``apc_gather`` and ``apc_scatter``, at KC = 1, 2, 4, 8;
+   each of the seven rings present, and both instances of all seven
+   kernels in the all-bf16 form);
 2. kernel vs plain version on the card: ``apc_gather``/``apc_scatter``
    and ``cimmino_gather``/``cimmino_scatter`` against their plain PyTorch
    versions at ragged shapes and at the main path's shapes, and
@@ -26,7 +28,9 @@ script exits non-zero without its last line:
    ``sparse_scatter`` (the ring, where its alignment admits the shape,
    and the row dot) against the plain version and bit-identical to each
    other (a bf16-stored scatter's ring to the ring on its matrix widened,
-   as its row dot sums in another order);
+   as its row dot sums in another order; but the bf16/float64
+   ``apc_scatter``, whose two instances issue the same tensor-core
+   products in one order: ring ≡ row dot);
 3. the APC main path at full size: a 32768 x 16384 tall Gaussian system
    on 16 workers (float64), ``analyze``, then ``solve`` on the kernel
    path — error to x_true, one launch of each kernel per iteration, the
@@ -48,7 +52,9 @@ script exits non-zero without its last line:
    the row-dot instance of a gather (float64) and of ``apc_scatter`` and
    ``cimmino_scatter`` (every form, each beside its ring forced), with
    the ring asserted to be the instance the main path's shapes take (but
-   a float64 or float32 scatter at k = 1: the row dot); and of the whole
+   a float64 or float32 scatter at k = 1: the row dot), the tensor-core
+   form's lines beside the times of the DFMA ring it replaced (PERF.md
+   §6, "NVIDIA H100 80GB HBM3, 700.00 W"); and of the whole
    APC and Cimmino iterations,
    float64 and mixed, eager and inside a captured 10-step CUDA graph,
    with the card's clocks, power, temperature and
@@ -268,8 +274,11 @@ Every time is the median over rounds of a run of back-to-back calls
 between two CUDA events, divided by the run's length: the host's time
 to launch a call then overlaps the card's work on the one before.
 
-The last line is ``{"ok": true, "device": {...}}``.  Imports only torch,
-numpy and repro_torch.
+Before the last lines: the ``{"kernels": [...]}`` line, each phase's
+wall time (from its first line to the next phase's, in print order: the
+script's 1200 s limit shows there first) and the total.  The last line
+is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy and
+repro_torch.
 """
 from __future__ import annotations
 
@@ -314,6 +323,11 @@ MIXED_FORMS = ((BF16, torch.float64), (BF16, torch.float32))
 NO_LIBRARY = ("none: torch.matmul and torch.bmm refuse a bfloat16 matrix "
               "with float64 or float32 operands, and upcasting first is "
               "a second pass over the matrix")
+# the tensor-core form's kernels (bp.MMA_FORMS) on the DFMA ring it
+# replaced, ms at k = 1 and 8 (PERF.md §6, "NVIDIA H100 80GB HBM3,
+# 700.00 W"), printed beside phase 8's times
+DFMA_MIXED_MS = {("apc_gather", 1): 0.3818, ("apc_gather", 8): 0.8301,
+                 ("apc_scatter", 1): 0.3839, ("apc_scatter", 8): 0.7801}
 RAGGED = [(7, 130), (1, 128), (24, 896)]
 # the sparse path's system, and the banded corner systems of phase 2
 # (tests/test_kernel_corners.py, plus a support one chunk and a bit wide)
@@ -443,8 +457,25 @@ WRAPPERS = {"apc_gather": ("proj_gather", "apc_gather_ref"),
             "cimmino_scatter": ("cimmino_scatter", "cimmino_scatter_ref")}
 
 
+# when each phase's first line was printed, in print order (phase_spans)
+PHASE_STARTS: dict = {}
+
+
 def say(*parts) -> None:
+    hit = re.match(r"phase (\d+)", str(parts[0])) if parts else None
+    if hit:
+        PHASE_STARTS.setdefault(hit[1], time.time())
     print(*parts, flush=True)
+
+
+def phase_spans(end: float) -> str:
+    """'1 57.1 s, 2 80.3 s, ...': the wall time from each phase's first
+    line to the next phase's first line (the last one's to ``end``), in
+    print order; the dry-run of phase 23 (a) runs beside the others."""
+    starts = list(PHASE_STARTS.items())
+    ends = [t for _, t in starts[1:]] + [end]
+    return ", ".join(f"{ph} {e - t:.1f} s"
+                     for (ph, t), e in zip(starts, ends))
 
 
 def launched_instances(run):
@@ -573,14 +604,16 @@ MANGLED = {"d": (torch.float64, "f64"), "f": (torch.float32, "f32"),
            "13__nv_bfloat16": (BF16, "bf16")}
 
 
-def ptxas_summary(log: str, dynamic_smem) -> list[str]:
+def ptxas_summary(log: str, dynamic_smem, mma_forms=()) -> list[str]:
     """'apc_gather f64 KC=8 spill 0 B: 128 regs, smem 16384 B' per kernel
     instance, from nvcc's -Xptxas=-v output ('bf16/f64' for a bf16-stored
     matrix with float64 compute; the sparse scatter's two forms are tagged
     apc/cimmino; a ring instance's shared memory adds
     ``dynamic_smem(matrix dtype, dtype, KC, form)`` bytes of dynamic
     shared memory, the form "apc" for the APC gathers' rings, else
-    "cimmino": the Cimmino gathers' and the scatters' stage)."""
+    "cimmino": the Cimmino gathers' and the scatters' stage; "apc_mma"
+    and "cimmino_mma" for the rings of ``mma_forms``, (kernel, pair
+    suffix) pairs: the tensor-core form's, bp.MMA_FORMS)."""
     out, kernel = [], None
     for line in log.splitlines():
         hit = re.search(r"entry function '\S*?((?:apc|cimmino|sparse)_\w+?)"
@@ -597,6 +630,9 @@ def ptxas_summary(log: str, dynamic_smem) -> list[str]:
             form = ("apc" if hit[1] in ("apc_gather_ring",
                                         "sparse_gather_ring")
                     else "cimmino")
+            suffix = name if mname == name else f"{mname}_{name}"
+            if ring and (hit[1][:-len("_ring")], suffix) in mma_forms:
+                form += "_mma"
             kc = int(hit[4])
         spill = re.search(r"(\d+) bytes spill stores", line)
         if kernel and spill:
@@ -3366,6 +3402,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs a CUDA device", file=sys.stderr)
         return 1
+    PHASE_STARTS.clear()
     # 23 (a). the dry-run's cells (no card), in processes of their own
     # from now on
     dry = DryRun()
@@ -3395,6 +3432,7 @@ def finish(dry, kernels, card, t0, bw) -> int:
     dryrun_phase(dry, card)
     sharded_phase(card)
     say(json.dumps({"kernels": kernels}))
+    say("phase spans: " + phase_spans(time.time()))
     say(f"total {time.time() - t0:.1f} s")
     say(card)
     say(json.dumps({"ok": True, "device": {
@@ -3445,13 +3483,20 @@ def phases():
         f"processes started together)")
     ptxas = ptxas_summary("".join(lib.with_suffix(".log").read_text()
                                   for lib in libs.values()),
-                          bp.ring_smem_bytes)
+                          bp.ring_smem_bytes, bp.MMA_FORMS)
     say("phase 1 ptxas: " + "; ".join(ptxas))
     for tag in ("f64", "bf16/f64"):      # every float64-compute ring
         rings = [x for x in ptxas if x.split()[1] == tag and "_ring " in x]
         assert all(" spill 0 B:" in x for x in rings), rings
         assert {x.split()[0] for x in rings} == {
             f"{kn}_ring" for kn in bp.RINGS}, rings
+    # the tensor-core form: both instances at every KC, none spilling
+    mma = [x for x in ptxas if x.split()[1] == "bf16/f64"
+           and x.split()[0].replace("_ring", "") in dict(bp.MMA_FORMS)]
+    assert {(x.split()[0], x.split()[2]) for x in mma} == {
+        (f"{kn}{inst}", f"KC={kc}") for kn, _ in bp.MMA_FORMS
+        for inst in ("", "_ring") for kc in bp.KC_VALUES}, mma
+    assert all(" spill 0 B:" in x for x in mma), mma
     # the all-bf16 form: both instances of every kernel
     assert {x.split()[0] for x in ptxas if x.split()[1] == "bf16"} == {
         f"{kn}{inst}" for kn in bp.KERNELS for inst in ("", "_ring")}, \
@@ -3474,9 +3519,10 @@ def phases():
         """Both instances of a kernel of bp.RINGS, ``launch(instance,
         matrix)``: the row dot, and the ring where ``gather_instance``
         admits these operands; each against the plain version, and the
-        two bit-identical — but for a bf16-stored scatter, whose row dot
-        sums in the packed order: its ring is bit-identical to the ring on
-        the matrix widened to the compute dtype.  Returns what held."""
+        two bit-identical — but for a bf16-stored scatter outside
+        bp.MMA_FORMS, whose row dot sums in the packed order: its ring is
+        bit-identical to the ring on the matrix widened to the compute
+        dtype.  Returns what held."""
         ring = bp.gather_instance(matrix, *copied) == "ring"
         outs = {inst: launch(inst, matrix) for inst in bp.INSTANCES
                 if inst == "row_dot" or ring}
@@ -3485,7 +3531,9 @@ def phases():
             check(kname, got.reshape(want.shape), want, pr, label, record)
         if not ring:
             return "row_dot"
-        if kname in bp.SCATTERS and matrix.dtype == BF16:
+        if kname in bp.SCATTERS and matrix.dtype == BF16 and (
+                kname, bp.PAIRS[(matrix.dtype, want.dtype)]) \
+                not in bp.MMA_FORMS:
             wide = launch("ring", matrix.to(copied[0].dtype))
             assert torch.equal(outs["ring"], wide), (kname, label)
             return "ring≡widened ring"
@@ -4207,6 +4255,14 @@ def phases():
             keep.add("library_ms")
         return {key: fn for key, fn in calls.items() if key in keep}
 
+    def dfma_note(kname, k, pr, ms, b):
+        """Beside a tensor-core form's time: the DFMA ring's before it."""
+        old = DFMA_MIXED_MS.get((kname, k))
+        if old is None or pr != "bfloat16/float64":
+            return ""
+        return (f"; tensor cores (mma.sync f64), the DFMA ring before them "
+                f"{old:.4f} ms ({b / old:.1%} of the bound), {old / ms:.2f}x")
+
     def time_kernel(phase, kname, k, shape, forms, library, key=None):
         """CUDA-event medians, in turns, of a kernel in each of its forms
         (``forms``: form label -> (calls, work, compute dtype), the calls
@@ -4234,7 +4290,8 @@ def phases():
                 + (f", plain {f['plain_ms']:.4f} ms" if "plain_ms" in f
                    else "")
                 + (f", {library} {f['library_ms']:.4f} ms"
-                   if "library_ms" in f else ", library none"))
+                   if "library_ms" in f else ", library none")
+                + dfma_note(kname, k, pr, f["ms"], b))
         r.update(r["forms"][F64])
         rows[(key or kname, k)] = r
 

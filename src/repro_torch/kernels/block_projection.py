@@ -28,7 +28,10 @@ All seven kernels (the four gathers ``apc_gather``, ``sparse_gather``,
 ``apc_scatter``, ``cimmino_scatter``, ``sparse_scatter`` in both forms)
 have two instances, one kernel each: the "ring" for Hopper (producer
 warps streaming 16-byte copies through a shared-memory ring to consumer
-warps), and the "row dot" for the shapes the ring cannot copy.
+warps), and the "row dot" for the shapes the ring cannot copy.  The
+dense APC pair with a bf16 matrix and float64 operands
+(:data:`MMA_FORMS`) runs its products on the FP64 tensor cores, in both
+instances.
 :func:`gather_instance` picks one by the operands' shape and alignment
 (and, for a scatter, its dtype pair at k = 1), and both count as the
 same kernel.
@@ -91,15 +94,24 @@ PAIRS = {(torch.float64, torch.float64): "f64",
 #: the k-chunks the library instantiates (csrc/block_projection.cu
 #: with_kc)
 KC_VALUES = (1, 2, 4, 8)
+#: the kernels, by the suffix of their pair, whose products run on the
+#: FP64 tensor cores (csrc/block_projection.cu kMmaForm): the dense APC
+#: pair with a bf16 matrix and float64 operands.  Both instances of each
+#: sum in one order, so its ring and row dot are bit-identical.
+MMA_FORMS = (("apc_gather", "bf16_f64"), ("apc_scatter", "bf16_f64"))
 
 
 #: the instances of the kernels in :data:`RINGS`, by the int64 their C
 #: entries take (csrc/block_projection.cu kRowDot, kRing)
 INSTANCES = {"row_dot": 0, "ring": 1}
 #: the ring's forms, by the int64 gather_ring_smem takes (kApcForm,
-#: kCimminoForm): the APC gathers stage X̄ and X, the Cimmino gathers X̄,
-#: the scatters U (or V), each in the Cimmino form's stage
-FORMS = {"apc": 0, "cimmino": 1}
+#: kCimminoForm, kApcMmaForm, kCimminoMmaForm): the APC gathers stage X̄
+#: and X, the Cimmino gathers X̄, the scatters U (or V), each in the
+#: Cimmino form's stage; the "_mma" forms are the same stages in the
+#: layout of the FP64 tensor cores' consumer, with its scratch (the
+#: bf16/float64 ``apc_gather``: "apc_mma", ``apc_scatter``:
+#: "cimmino_mma"; the library answers 0 for any other pair)
+FORMS = {"apc": 0, "cimmino": 1, "apc_mma": 2, "cimmino_mma": 3}
 # the ring's copies move 16 bytes between 16-byte-aligned addresses
 _ALIGN = 16
 
@@ -283,10 +295,11 @@ def _library(suffix: str) -> ctypes.CDLL:
 
 def ring_smem_bytes(matrix_dtype: torch.dtype, dtype: torch.dtype, k: int,
                     form: str) -> int:
-    """Dynamic shared memory of the ring instance of ``form`` ("apc" or
-    "cimmino", a key of :data:`FORMS`) that a k-row batch launches, with
-    its matrix in ``matrix_dtype`` and the compute type ``dtype``, in
-    bytes (from the built library)."""
+    """Dynamic shared memory of the ring instance of ``form`` (a key of
+    :data:`FORMS`) that a k-row batch launches, with its matrix in
+    ``matrix_dtype`` and the compute type ``dtype``, in bytes (from the
+    built library; 0 for an "_mma" form of another pair than
+    bfloat16/float64)."""
     size = lambda dt: torch.empty((), dtype=dt).element_size()  # noqa: E731
     form_id = FORMS[form]
     return int(_library(PAIRS[(matrix_dtype, dtype)]).gather_ring_smem(

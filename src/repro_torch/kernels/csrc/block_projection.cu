@@ -43,7 +43,8 @@
 // exactly once, with coalesced loads, and keeps everything else out of
 // HBM:
 //
-//   * All seven kernels have the same "row dot" over a row-major matrix M
+//   * All seven kernels have the same "row dot" (but the tensor-core
+//     form's, below) over a row-major matrix M
 //     (gathers: M = A_w or vals_w, rows l, columns j; scatters: M = B_w
 //     or Bvals_w, rows j, columns l) against a small right operand (APC
 //     gather: D = X̄ − X, formed on the fly; Cimmino gather: X̄;
@@ -153,6 +154,58 @@
 // 168 registers; and setmaxnreg, moving registers from the producers to
 // the consumers, which hung the kernel.
 //
+// The tensor-core form.  The dense APC pair with a bf16 matrix and
+// float64 operands (apc_gather_bf16_f64 and apc_scatter_bf16_f64, the
+// main path's precision="mixed"; kMmaForm) streams a quarter of the
+// float64 form's bytes, so at k = 8 the DFMA consumer above, not the
+// bytes, set its pace (39–42 % of the bound).  Its products run on the
+// FP64 tensor cores (mma.sync m16n8k8 .f64), in a ring of its own shape:
+//
+//   * M = the matrix's rows (l of A_w, j of B_w), N = the k-chunk's 8
+//     batch rows (zero past KC and the tile's), K = its columns.  Each
+//     output is one accumulator chain of mmas over the columns in
+//     increasing order, 8 a k-step (k-slot t of a step at column 2t,
+//     t + 4 at 2t + 1): every batch row sees the same operations whatever
+//     KC is and the other rows hold, so a batch row is bit-identical to a
+//     k = 1 call; the row dot of this form issues the same mmas on the
+//     same fragments, loaded straight from global memory (any shape, any
+//     alignment), so it is bit-identical to the ring.
+//   * A tile is 256 rows (kMmaRows): 8 consumer warps of 32 rows (two
+//     mmas of 16), each against every column, so a stage's operand rows
+//     are read from L2 once per 256 rows of the matrix: a quarter of its
+//     bytes in the gather at KC = 8 (X̄ and X), an eighth in the scatter
+//     (U).  On the card an SM takes in about 3.2–3.8 TB/s of L2 traffic
+//     in all, matrix and operand alike: with the rings' 64-row tiles the
+//     gather's operand equalled its matrix, and it ran at half its bound
+//     whatever its consumer did.
+//   * Blocks take whole tiles, T = m·ceil(k/KC)·ceil(p/256) of them on
+//     min(SMs, T) blocks: the ring's depth is sized for a 256-row stage,
+//     so a part tile streams at its share of the rate, and a block whose
+//     equal share of rows straddled a worker took twice as long as one
+//     whose share did not.
+//   * The consumers read the matrix with ldmatrix (a k-step's 16-byte
+//     piece of 32 rows a warp) and the operand with 16-byte loads (the
+//     step's 2 columns of a batch row a lane); the producers store piece
+//     j of matrix row r at j ^ (r & 7) and of operand row kk at
+//     j ^ 4·(kk & 1), so neither read has a bank conflict.  The matrix
+//     copies fetch 256-byte L2 blocks (.L2::256B): a stage takes 128
+//     bytes of each of its 256 rows, and the next stage finds the next
+//     128 in L2.
+//   * Each bf16 is widened to float64 once, through float32, and feeds
+//     its 8 batch rows in one mma; every warp forms the X̄ − X of its
+//     fragments (8 times a stage: with the consumers' arithmetic removed
+//     altogether the kernel ran no faster).  The epilogues take the sums
+//     from the fragment: the gather stores U, the scatter X + γ((X̄ − X) − C),
+//     loading X and X̄ at the fragment's places.  No shuffle tree and no
+//     cross-warp reduction.
+//
+// Tried on the card for this form and dropped (PERF.md): 64-row tiles
+// with the columns of a stage split over the 8 warps and their sums
+// reduced through shared memory (the operand traffic above); 256-row
+// tiles over equal shares of rows (the part tiles above); the integer
+// widening (below); an L2 evict-first policy on the matrix (no change);
+// and m16n8k16 (no faster than k8).
+//
 // A 16-byte cp.async moves 16 bytes between 16-byte-aligned addresses.
 // So the ring needs the rows of its matrix (A, vals, B, Bvals) and every
 // base and row stride it copies from (dense gathers: X̄, and X in the
@@ -169,13 +222,13 @@
 // Two types name every kernel: the matrix type TM of A, B, vals and
 // Bvals, and the compute type T of X, X̄, U, V, Y and R; a third
 // follows from T, the accumulator type Acc<T>.  f64 accumulates in f64,
-// f32 in f32 (DFMA/FFMA; no tensor cores, no TF32).  The entries
-// <kernel>_f64 and <kernel>_f32 take TM = T; <kernel>_bf16_f64 and
-// <kernel>_bf16_f32 take a bf16 matrix (the reference's
-// precision="mixed": the accumulation type follows X, not the stored
-// A/B).  The consumer widens each element of the matrix to Acc<T> once,
-// exactly (bf16 ⊂ f32 ⊂ f64), and feeds the widened value to all KC
-// batch rows.  The all-bf16 form (<kernel>_bf16_bf16, every kernel: the
+// f32 in f32: DFMA/FFMA, no TF32, and tensor cores only in the
+// tensor-core form above (float64 mma, float64 products and sums).  The entries <kernel>_f64 and
+// <kernel>_f32 take TM = T; <kernel>_bf16_f64 and <kernel>_bf16_f32 take
+// a bf16 matrix (the reference's precision="mixed": the accumulation
+// type follows X, not the stored A/B).  The consumer widens each element
+// of the matrix to Acc<T> once, exactly (bf16 ⊂ f32 ⊂ f64), and feeds
+// the widened value to all KC batch rows.  The all-bf16 form (<kernel>_bf16_bf16, every kernel: the
 // reference's kernels on bf16 x) takes T = bf16 and accumulates in f32
 // (_acc_dtype): each operand element is widened to f32 as it is read,
 // the difference X̄ − X is taken in f32, γ is the bf16-rounded value in
@@ -239,7 +292,8 @@ __device__ __forceinline__ float widen<float, __nv_bfloat16>(
 // integer constructions of the f64 bits against it (the f32 bits shifted
 // into the f64 fields and rescaled by 2^896 in one exact multiply; the
 // exponent rebiased, zeros and subnormals on a branch): both were slower
-// in the ring gathers at k = 1 and k = 8 (PERF.md).
+// in the DFMA ring gathers at k = 1 and k = 8, and the first again in the
+// tensor-core form (widen_pair; PERF.md).
 template <>
 __device__ __forceinline__ double widen<double, __nv_bfloat16>(
     __nv_bfloat16 x) {
@@ -341,7 +395,11 @@ constexpr int kGatherRows = 4;
 // 16384 registers a lane: 168 a thread.  A ring is of the APC form
 // (kDiff: the operand X̄ − X) or the Cimmino form (X̄).
 constexpr int64_t kRowDot = 0, kRing = 1;          // the entries' instance
-constexpr int64_t kApcForm = 0, kCimminoForm = 1;  // gather_ring_smem's form
+// gather_ring_smem's forms: a stage of X̄ and X (kApcForm), of X̄, U or V
+// alone (kCimminoForm), and the same in the tensor-core form's layout
+// (kApcMmaForm: apc_gather, kCimminoMmaForm: apc_scatter; bf16/f64 only)
+constexpr int64_t kApcForm = 0, kCimminoForm = 1, kApcMmaForm = 2,
+                  kCimminoMmaForm = 3;
 constexpr int kRingWarps = 8;                      // consumer warps
 constexpr int kRingWarpRows = 8;
 constexpr int kRingRows = kRingWarps * kRingWarpRows;
@@ -351,16 +409,31 @@ constexpr int kRingSegment = 512;       // bytes of an operand row a stage
 constexpr int kRingBudget = 200 * 1024;
 constexpr int kRingMaxStages = 16;
 
-// A stage holds C = kCols columns: M[kRingRows][kCols] in TM, then
-// X̄[KC][kCols] and, under kDiff, X[KC][kCols] in T (kOperandRows rows
-// of the right operand, 512 bytes each).  A matrix row segment is
-// kPieces 16-byte copies.
-template <typename TM, typename T, int KC, bool kDiff>
+// The form whose products run on the FP64 tensor cores (header): the
+// dense APC pair (apc_gather, apc_scatter) with a bf16 matrix and
+// float64 operands.  kApc: the gather's kDiff, the scatter's kAxpy.
+template <typename TM, typename T, bool kApc, bool kSparse>
+constexpr bool kMmaForm = std::is_same_v<TM, __nv_bfloat16> &&
+                          std::is_same_v<T, double> && kApc && !kSparse;
+
+// The tensor-core form's tile: each consumer warp owns 32 of its rows
+// (two mmas of 16) against every column.
+constexpr int kMmaWarpRows = 32;
+constexpr int kMmaRows = kRingWarps * kMmaWarpRows;
+
+// A stage holds C = kCols columns: M[rows][kCols] in TM (kRingRows rows,
+// kMmaRows under kMma), then X̄[KC][kCols] and, under kDiff, X[KC][kCols]
+// in T (kOperandRows rows of the right operand, 512 bytes each).  A
+// matrix row segment is kPieces 16-byte copies.  Under kMma (the
+// tensor-core form) the producers store their pieces swizzled
+// (mma_matrix_piece, mma_operand_piece).
+template <typename TM, typename T, int KC, bool kDiff, bool kMma = false>
 struct Ring {
+  static constexpr int kRows = kMma ? kMmaRows : kRingRows;
   static constexpr int kCols = kRingSegment / sizeof(T);
   static constexpr int kRowBytes = kCols * sizeof(TM);
   static constexpr int kPieces = kRowBytes / 16;
-  static constexpr int kMatrixBytes = kRingRows * kRowBytes;
+  static constexpr int kMatrixBytes = kRows * kRowBytes;
   static constexpr int kOperandRows = (kDiff ? 2 : 1) * KC;
   static constexpr int kStageBytes =
       kMatrixBytes + kOperandRows * kRingSegment;
@@ -369,7 +442,21 @@ struct Ring {
   static constexpr int kSmem = kStages * kStageBytes;
   static_assert(kStages >= 2 && kCols % 32 == 0 && 32 % kPieces == 0,
                 "ring shape");
+  static_assert(!kMma || kPieces == 8,
+                "a k-step's 8 columns are one piece of each matrix row");
 };
+
+// Where the tensor-core form's producers store piece j of matrix row r
+// and of operand row kk (X̄ row kk, or X row kk): ldmatrix reads one
+// piece of each of 8 consecutive rows, and a 16-byte load's phase the
+// same piece of two consecutive operand rows, each in a bank group of
+// its own.
+__host__ __device__ constexpr int mma_matrix_piece(int r, int j) {
+  return j ^ (r & 7);
+}
+__host__ __device__ constexpr int mma_operand_piece(int kk, int j) {
+  return j ^ ((kk & 1) << 2);
+}
 
 // A packed row dot (the bf16 scatters) loads 16 bytes of a row a lane:
 // lane l takes the kPack consecutive columns c0 + kPack·l ... of each
@@ -380,7 +467,8 @@ struct Ring {
 // with 2-byte elements it issues four times the loads per byte of f64
 // and was bound by them (PERF.md).  So a bf16 scatter's two instances
 // sum in two orders: its ring is bit-identical to the f64 (f32) ring on
-// the matrix widened, its packed row dot is not.
+// the matrix widened, its packed row dot is not.  (The tensor-core
+// form's apc_scatter has neither: its two instances are bit-identical.)
 constexpr int kPack = 16 / sizeof(__nv_bfloat16);
 static_assert(kChunk == 32 * kPack, "one pack a lane a chunk");
 
@@ -608,37 +696,12 @@ __device__ __forceinline__ void scatter_block(
 
 template <typename TM, typename T, int KC, int R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-apc_gather_kernel(const TM* __restrict__ A, const T* __restrict__ X,
-                  const T* __restrict__ Xbar, T* __restrict__ U,
-                  int64_t p, int64_t n, int64_t k, int64_t sx_w,
-                  int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  __shared__ Acc<T> Vs[KC][kChunk];
-  gather_block<TM, T, KC, R, true, false>(A, X, Xbar, nullptr, U, p, n, k,
-                                      sx_w, sx_k, sxb_k, su_w, su_k, Vs);
-}
-
-template <typename TM, typename T, int KC, int R>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
 cimmino_gather_kernel(const TM* __restrict__ A, const T* __restrict__ Xbar,
                       T* __restrict__ U, int64_t p, int64_t n, int64_t k,
                       int64_t sxb_k, int64_t su_w, int64_t su_k) {
   __shared__ Acc<T> Vs[KC][kChunk];
   gather_block<TM, T, KC, R, false, false>(A, nullptr, Xbar, nullptr, U, p, n,
                                        k, 0, 0, sxb_k, su_w, su_k, Vs);
-}
-
-template <typename TM, typename T, int KC, int R>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-apc_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ X,
-                   const T* __restrict__ Xbar, const T* __restrict__ U,
-                   Acc<T> gamma, T* __restrict__ Y, int64_t n, int64_t p,
-                   int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
-                   int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
-  __shared__ Acc<T> Vs[KC][kChunk];
-  __shared__ Acc<T> Cs[KC][kWarps * R];        // the reduced B·U per row
-  scatter_block<TM, T, KC, R, true, false>(B, nullptr, X, Xbar, U, gamma, Y, n,
-                                       p, k, sx_w, sx_k, sxb_k, su_w, su_k,
-                                       sy_w, sy_k, Vs, Cs);
 }
 
 template <typename TM, typename T, int KC, int R>
@@ -735,6 +798,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                    smem_addr(dst)), "l"(src) : "memory");
 }
 
+// The same, fetching the 256-byte L2 block around src from device memory
+// (the tensor-core form's matrix rows: a stage takes 128 bytes of each,
+// the next stage the next 128).
+__device__ __forceinline__ void cp_async16_l2_256(void* dst,
+                                                  const void* src) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
 // One element from global to shared, asynchronously.
 template <typename T>
 __device__ __forceinline__ void cp_async_element(T* dst, const T* src) {
@@ -793,7 +865,7 @@ __shared__ RingWalk ring_walks[kRingWarps];
 // block b takes the rows [total·b / grid, total·(b + 1) / grid), an equal
 // share to within one row, cut into tiles of at most 64 rows that never
 // cross a worker or a k-chunk.  This is the tile at row g of [g, end).
-template <int KC>
+template <int KC, int kRows = kRingRows>
 __device__ __forceinline__ RingTile ring_tile(int64_t g, int64_t end,
                                               int64_t p, int64_t k) {
   const int64_t unit = g / p;
@@ -802,7 +874,7 @@ __device__ __forceinline__ RingTile ring_tile(int64_t g, int64_t end,
   r.w = unit / k_tiles;
   r.k0 = unit % k_tiles * KC;
   r.row0 = g - unit * p;
-  r.rows = static_cast<int>(min64(min64(p - r.row0, end - g), kRingRows));
+  r.rows = static_cast<int>(min64(min64(p - r.row0, end - g), kRows));
   r.kvalid = static_cast<int>(min64(k - r.k0, KC));
   return r;
 }
@@ -835,8 +907,10 @@ __device__ __forceinline__ void ring_cols(int64_t (&g)[C / 32],
 // kPerWorker (the scatters: the Cimmino form, dense) the operand is
 // worker w's own rows, at Xbar + w·sxb_w, not the one shared X̄.  `it`
 // counts the block's (tile, chunk) steps: stage it % S, round it / S.
+// Under kMma each piece goes to its swizzled place (mma_matrix_piece,
+// mma_operand_piece).
 template <typename TM, typename T, int KC, bool kDiff, bool kSparse,
-          bool kPerWorker>
+          bool kPerWorker, bool kMma>
 __device__ __forceinline__ void ring_produce(
     const RingTile& tl, int64_t next_w,
     int64_t (&g)[Ring<TM, T, KC, kDiff>::kCols / 32],
@@ -844,7 +918,8 @@ __device__ __forceinline__ void ring_produce(
     const T* __restrict__ X, const T* __restrict__ Xbar, int64_t p,
     int64_t n, int64_t sx_w, int64_t sx_k, int64_t sxb_k, uint32_t& it,
     int64_t sxb_w) {
-  using Cfg = Ring<TM, T, KC, kDiff>;
+  using Cfg = Ring<TM, T, KC, kDiff, kMma>;
+  static_assert(!kMma || !kSparse, "the tensor-core form is dense");
   static_assert(!kPerWorker || !(kDiff || kSparse), "a scatter's operand");
   constexpr int C = Cfg::kCols;
   constexpr int kPer = 16 / sizeof(T);           // operand elements a piece
@@ -876,8 +951,13 @@ __device__ __forceinline__ void ring_produce(
     }
     if (piece < mpieces)
       for (int r = pw * kRowsAtOnce + lane / Cfg::kPieces; r < tl.rows;
-           r += kRingLoaders * kRowsAtOnce)
-        cp_async16(Ms + r * C + piece * kMPer, Mt + r * n + c0);
+           r += kRingLoaders * kRowsAtOnce) {
+        if constexpr (kMma)
+          cp_async16_l2_256(Ms + r * C + mma_matrix_piece(r, piece) * kMPer,
+                            Mt + r * n + c0);
+        else
+          cp_async16(Ms + r * C + piece * kMPer, Mt + r * n + c0);
+      }
     for (int q = pw; q < Cfg::kOperandRows; q += kRingLoaders) {
       const int kk = q % KC;
       if (kk >= tl.kvalid) continue;
@@ -899,7 +979,8 @@ __device__ __forceinline__ void ring_produce(
           if (lane + 32 * j < nv)
             cp_async_element(dst + lane + 32 * j, src + gc[j]);
       } else if (lane < opieces) {
-        cp_async16(dst + lane * kPer, src + c0 + lane * kPer);
+        cp_async16(dst + (kMma ? mma_operand_piece(kk, lane) : lane) * kPer,
+                   src + c0 + lane * kPer);
       }
     }
     stage_arrive<kStores>(&ring_full[s]);
@@ -1218,17 +1299,305 @@ struct RingScatterStore {
   }
 };
 
+// ---------------------------------------------------------------------------
+// The tensor-core form: the dense APC pair, bf16 matrix, float64 operands
+// (see the header)
+// ---------------------------------------------------------------------------
+
+// D += A·B on the FP64 tensor cores, mma.sync m16n8k8: A (16 x 8) in
+// a0..a3, B (8 x 8) in b0, b1, D (16 x 8) in d0..d3.  Lane 4g + t holds
+// A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]; B[t][g],
+// B[t + 4][g]; D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1].
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// Four 8 x 8 matrices of 16-bit elements from shared memory: lanes
+// 8i .. 8i + 7 name the rows of matrix i, and lane 4g + t receives in
+// r[i] the 32-bit word t of row g of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(row)));
+}
+
+// The two bf16 of a 32-bit word (the low half first) as float64, exactly,
+// through float32 (F2F.F64.F32; the integer construction of the header's
+// widen note was slower here too: scripts/probe_mma_widen.py).
+__device__ __forceinline__ void widen_pair(uint32_t w, double& lo,
+                                           double& hi) {
+  lo = static_cast<double>(__uint_as_float(w << 16));
+  hi = static_cast<double>(__uint_as_float(w & 0xffff0000u));
+}
+
+// One k-step of a consumer warp: 8 columns (the mma's k) of its 32 rows
+// (two mmas of 16) against the 8 batch rows (n; zero past the tile's).
+// w[i] holds rows 8i + g, columns 2t and 2t + 1 of the 8: k-slot t is
+// column 2t and slot t + 4 column 2t + 1, so each bf16 word feeds a0
+// and a2 (or a1 and a3), and b = (D[g][2t], D[g][2t + 1]).
+__device__ __forceinline__ void mma_rows(double (&acc)[2][4],
+                                         const uint32_t (&w)[4],
+                                         const double (&b)[2]) {
+#pragma unroll
+  for (int rb = 0; rb < 2; ++rb) {
+    double a[4];
+    widen_pair(w[2 * rb], a[0], a[2]);
+    widen_pair(w[2 * rb + 1], a[1], a[3]);
+    mma_f64(acc[rb], a, b);
+  }
+}
+
+// The ring's k-steps of one stage (Ring<..., kMma>), those below its nv
+// valid columns, in column order: the warp's 32 rows of the k-step's
+// piece through one ldmatrix.x4, and the operand's pair of columns (X̄,
+// or X̄ − X under kDiff) through one 16-byte load each, from their
+// swizzled places.  `live`: this lane's batch row is one of the tile's.
+template <int KC, bool kDiff>
+__device__ __forceinline__ void mma_stage(const unsigned char* stage,
+                                          int64_t nv, bool live,
+                                          double (&acc)[2][4]) {
+  using Cfg = Ring<__nv_bfloat16, double, KC, kDiff, true>;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row = kMmaWarpRows * (threadIdx.x / 32) + lane;
+  const unsigned char* mrow = stage + row * Cfg::kRowBytes;
+  const double* xb =
+      reinterpret_cast<const double*>(stage + Cfg::kMatrixBytes) +
+      g * Cfg::kCols;
+#pragma unroll
+  for (int s = 0; s < Cfg::kPieces; ++s) {
+    if (8 * s >= nv) break;
+    uint32_t w[4];
+    ldmatrix_x4(w, mrow + mma_matrix_piece(row, s) * 16);
+    double b[2] = {0.0, 0.0};
+    if (live) {
+      const double* v = xb + 2 * mma_operand_piece(g, 4 * s + t);
+      const double2 e = *reinterpret_cast<const double2*>(v);
+      b[0] = e.x;
+      b[1] = e.y;
+      if constexpr (kDiff) {
+        const double2 x =
+            *reinterpret_cast<const double2*>(v + KC * Cfg::kCols);
+        b[0] -= x.x;
+        b[1] -= x.y;
+      }
+    }
+    mma_rows(acc, w, b);
+  }
+}
+
+// The row dot's fragments of the k-step at column c, the same values
+// read from global memory: the warp's rows of M (rows x n, row-major;
+// zero past `rows` and n) and the operand X̄ (rows g of Xb, sxb_k
+// apart), minus X under kDiff, zero past n and outside the live batch
+// rows.
+template <bool kDiff>
+__device__ __forceinline__ void mma_global(
+    const __nv_bfloat16* __restrict__ M, int rows, int64_t n, int64_t c,
+    const double* __restrict__ Xb, const double* __restrict__ X,
+    int64_t sxb_k, int64_t sx_k, bool live, double (&acc)[2][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4;
+  const int r0 = kMmaWarpRows * (threadIdx.x / 32);
+  const int64_t cc = c + 2 * (lane % 4);
+  const uint16_t* bits = reinterpret_cast<const uint16_t*>(M);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 8 * i + g;
+    const uint32_t lo = r < rows && cc < n ? bits[r * n + cc] : 0u;
+    const uint32_t hi = r < rows && cc + 1 < n ? bits[r * n + cc + 1] : 0u;
+    w[i] = lo | hi << 16;
+  }
+  double b[2] = {0.0, 0.0};
+  if (live) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (cc + e < n) {
+        b[e] = Xb[g * sxb_k + cc + e];
+        if constexpr (kDiff) b[e] -= X[g * sx_k + cc + e];
+      }
+  }
+  mma_rows(acc, w, b);
+}
+
+// Calls f(row in the tile, batch row kk, sum) for each of this lane's
+// sums: d0..d3 of the warp's two mmas, rows r0 + 16rb + g (+ 8) and
+// batch rows 2t, 2t + 1.
+template <typename F>
+__device__ __forceinline__ void mma_sums(const double (&acc)[2][4], F f) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = kMmaWarpRows * (threadIdx.x / 32) + lane / 4;
+#pragma unroll
+  for (int rb = 0; rb < 2; ++rb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f(r0 + 16 * rb + 8 * (i >> 1), 2 * (lane % 4) + (i & 1), acc[rb][i]);
+}
+
+// The gather's epilogue, from the fragment: U[w, k0 + kk, row0 + r].
+struct MmaGatherStore {
+  double* __restrict__ U;
+  int64_t su_w, su_k;
+  __device__ __forceinline__ void operator()(const double (&acc)[2][4],
+                                             const RingTile& tl) const {
+    double* Ut = U + tl.w * su_w + tl.k0 * su_k + tl.row0;
+    mma_sums(acc, [&](int r, int kk, double sum) {
+      if (r < tl.rows && kk < tl.kvalid) Ut[kk * su_k + r] = sum;
+    });
+  }
+};
+
+// The scatter's epilogue, fused: Y = X + γ((X̄ − X) − C) at the tile's
+// rows j = row0 + r of batch row k0 + kk, all of a lane's X and X̄
+// loaded before the first store.
+struct MmaScatterStore {
+  const double* __restrict__ X;
+  const double* __restrict__ Xbar;
+  double gamma;
+  double* __restrict__ Y;
+  int64_t sx_w, sx_k, sxb_k, sy_w, sy_k;
+  __device__ __forceinline__ void operator()(const double (&acc)[2][4],
+                                             const RingTile& tl) const {
+    const double* Xt = X + tl.w * sx_w + tl.k0 * sx_k + tl.row0;
+    const double* Xbt = Xbar + tl.k0 * sxb_k + tl.row0;
+    double x[2][4] = {}, xb[2][4] = {};
+    int q = 0;
+    mma_sums(acc, [&](int r, int kk, double) {
+      if (r < tl.rows && kk < tl.kvalid) {
+        x[q / 4][q % 4] = Xt[kk * sx_k + r];
+        xb[q / 4][q % 4] = Xbt[kk * sxb_k + r];
+      }
+      ++q;
+    });
+    double* Yt = Y + tl.w * sy_w + tl.k0 * sy_k + tl.row0;
+    q = 0;
+    mma_sums(acc, [&](int r, int kk, double c) {
+      if (r < tl.rows && kk < tl.kvalid)
+        Yt[kk * sy_k + r] =
+            apc_out<double, false>(x[q / 4][q % 4], xb[q / 4][q % 4], gamma,
+                                   c);
+      ++q;
+    });
+  }
+};
+
+// A consumer warp of the tensor-core ring, over the rows [g, end) in
+// tiles of up to 256 rows: its 32 rows of each tile against every
+// stage as it lands, then `store` (MmaGatherStore, MmaScatterStore).  A
+// warp with no rows in the tile still waits for and releases every
+// stage.
+template <int KC, bool kDiff, typename Store>
+__device__ __forceinline__ void mma_consume(int64_t g, int64_t end,
+                                            int64_t p, int64_t n, int64_t k,
+                                            Store store) {
+  using Cfg = Ring<__nv_bfloat16, double, KC, kDiff, true>;
+  const int lane = threadIdx.x % 32;
+  const int r0 = kMmaWarpRows * (threadIdx.x / 32);
+  uint32_t it = 0;
+  while (g < end) {
+    const RingTile tl = ring_tile<KC, kMmaRows>(g, end, p, k);
+    g += tl.rows;
+    const bool active = r0 < tl.rows, live = lane / 4 < tl.kvalid;
+    double acc[2][4] = {};
+    for (int64_t c0 = 0; c0 < n; c0 += Cfg::kCols, ++it) {
+      const int s = it % Cfg::kStages;
+      mbar_wait(&ring_full[s], (it / Cfg::kStages) & 1);
+      if (active)
+        mma_stage<KC, kDiff>(ring_smem + s * Cfg::kStageBytes, n - c0, live,
+                             acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&ring_empty[s]);
+    }
+    if (active) store(acc, tl);
+  }
+}
+
+// The row dot of the tensor-core form: block (x, w, k-chunk) is the tile
+// of the 256 rows row0 = 256x .. of M_w (rows x n) against batch rows
+// k0 = KC·(k-chunk) .., each warp its 32 rows against the same k-steps
+// in the same order, with the same epilogue: bit for bit the ring's
+// sums, from fragments loaded straight from global memory (any shape,
+// any alignment).  M is the worker stack (m, rows, n), Xb the operand
+// rows (X̄, or U_w at w·sxb_w), X the APC gather's (null otherwise).
+template <int KC, bool kDiff, typename Store>
+__device__ __forceinline__ void mma_row_dot(
+    const __nv_bfloat16* __restrict__ M, const double* __restrict__ X,
+    const double* __restrict__ Xb, int64_t rows, int64_t n, int64_t k,
+    int64_t sx_w, int64_t sx_k, int64_t sxb_w, int64_t sxb_k,
+    Store store) {
+  RingTile tl;
+  tl.w = blockIdx.y;
+  tl.k0 = static_cast<int64_t>(blockIdx.z) * KC;
+  tl.row0 = static_cast<int64_t>(blockIdx.x) * kMmaRows;
+  tl.rows = static_cast<int>(min64(rows - tl.row0, kMmaRows));
+  tl.kvalid = static_cast<int>(min64(k - tl.k0, KC));
+  if (kMmaWarpRows * static_cast<int>(threadIdx.x / 32) >= tl.rows) return;
+  const bool live = threadIdx.x % 32 / 4 < tl.kvalid;
+  const __nv_bfloat16* Mt = M + (tl.w * rows + tl.row0) * n;
+  const double* Xbt = Xb + tl.w * sxb_w + tl.k0 * sxb_k;
+  const double* Xt = kDiff ? X + tl.w * sx_w + tl.k0 * sx_k : nullptr;
+  double acc[2][4] = {};
+  for (int64_t c = 0; c < n; c += 8)
+    mma_global<kDiff>(Mt, tl.rows, n, c, Xbt, Xt, sxb_k, sx_k, live, acc);
+  store(acc, tl);
+}
+
+// The APC pair's row-dot kernels: in the tensor-core form the row dot
+// above, 64 rows a block; in every other form the row dot of
+// gather_block and scatter_block.
+template <typename TM, typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+apc_gather_kernel(const TM* __restrict__ A, const T* __restrict__ X,
+                  const T* __restrict__ Xbar, T* __restrict__ U,
+                  int64_t p, int64_t n, int64_t k, int64_t sx_w,
+                  int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k) {
+  if constexpr (kMmaForm<TM, T, true, false>) {
+    mma_row_dot<KC, true>(A, X, Xbar, p, n, k, sx_w, sx_k, 0, sxb_k,
+                          MmaGatherStore{U, su_w, su_k});
+  } else {
+    __shared__ Acc<T> Vs[KC][kChunk];
+    gather_block<TM, T, KC, R, true, false>(A, X, Xbar, nullptr, U, p, n, k,
+                                            sx_w, sx_k, sxb_k, su_w, su_k,
+                                            Vs);
+  }
+}
+
+template <typename TM, typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+apc_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ X,
+                   const T* __restrict__ Xbar, const T* __restrict__ U,
+                   Acc<T> gamma, T* __restrict__ Y, int64_t n, int64_t p,
+                   int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
+                   int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
+  if constexpr (kMmaForm<TM, T, true, false>) {
+    mma_row_dot<KC, false>(
+        B, nullptr, U, n, p, k, 0, 0, su_w, su_k,
+        MmaScatterStore{X, Xbar, gamma, Y, sx_w, sx_k, sxb_k, sy_w, sy_k});
+  } else {
+    __shared__ Acc<T> Vs[KC][kChunk];
+    __shared__ Acc<T> Cs[KC][kWarps * R];      // the reduced B·U per row
+    scatter_block<TM, T, KC, R, true, false>(B, nullptr, X, Xbar, U, gamma,
+                                             Y, n, p, k, sx_w, sx_k, sxb_k,
+                                             su_w, su_k, sy_w, sy_k, Vs, Cs);
+  }
+}
+
 // The ring over the m·ceil(k/KC)·p rows of M (p x n a worker): warps
 // 8..11 copy (ring_produce), warps 0..7 compute and hand each tile's sums
-// to `store`; both walk the block's tiles.
+// to `store`; both walk the block's tiles.  kMma: the tensor-core form's
+// stage layout and consumer (mma_consume).
 template <typename TM, typename T, int KC, bool kDiff, bool kSparse,
-          bool kPerWorker, typename Store>
+          bool kPerWorker, bool kMma, typename Store>
 __device__ __forceinline__ void ring_run(
     const TM* __restrict__ M, const int64_t* __restrict__ cols,
     const T* __restrict__ X, const T* __restrict__ Xbar, int64_t m,
     int64_t p, int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
     int64_t sxb_w, int64_t sxb_k, Store store) {
-  using Cfg = Ring<TM, T, KC, kDiff>;
+  using Cfg = Ring<TM, T, KC, kDiff, kMma>;
   if (threadIdx.x == 0) {
     for (int s = 0; s < Cfg::kStages; ++s) {
       mbar_init(&ring_full[s], 32 * kRingLoaders);  // every producer thread
@@ -1237,25 +1606,42 @@ __device__ __forceinline__ void ring_run(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int64_t total = m * ((k + KC - 1) / KC) * p;
-  const int64_t end = total * (blockIdx.x + 1) / gridDim.x;
-  int64_t g = total * blockIdx.x / gridDim.x;
+  int64_t g, end;
+  if constexpr (kMma) {
+    // whole tiles: block b takes the tiles [T·b / grid, T·(b + 1) / grid)
+    // of the T = m·ceil(k/KC)·ceil(p/256), each from row 256j of a
+    // (worker, k-chunk) unit
+    const int64_t per = (p + Cfg::kRows - 1) / Cfg::kRows;
+    const int64_t tiles = m * ((k + KC - 1) / KC) * per;
+    const auto first_row = [&](int64_t t) {
+      return t / per * p + t % per * Cfg::kRows;
+    };
+    g = first_row(tiles * blockIdx.x / gridDim.x);
+    end = first_row(tiles * (blockIdx.x + 1) / gridDim.x);
+  } else {
+    const int64_t total = m * ((k + KC - 1) / KC) * p;
+    end = total * (blockIdx.x + 1) / gridDim.x;
+    g = total * blockIdx.x / gridDim.x;
+  }
   const int warp = threadIdx.x / 32;
   if (warp >= kRingWarps) {
     uint32_t it = 0;
-    RingTile tl = ring_tile<KC>(g, end, p, k);
+    RingTile tl = ring_tile<KC, Cfg::kRows>(g, end, p, k);
     int64_t cg[Cfg::kCols / 32] = {};      // support columns, a step ahead
     if (kSparse && g < end) ring_cols<Cfg::kCols>(cg, cols, tl.w, 0, n);
     while (g < end) {
       const int64_t gn = g + tl.rows;
-      const RingTile next = gn < end ? ring_tile<KC>(gn, end, p, k) : tl;
-      ring_produce<TM, T, KC, kDiff, kSparse, kPerWorker>(
+      const RingTile next =
+          gn < end ? ring_tile<KC, Cfg::kRows>(gn, end, p, k) : tl;
+      ring_produce<TM, T, KC, kDiff, kSparse, kPerWorker, kMma>(
           tl, gn < end ? next.w : -1, cg, M, cols, X, Xbar, p, n, sx_w, sx_k,
           sxb_k, it, sxb_w);
       g = gn;
       tl = next;
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else if constexpr (kMma) {
+    mma_consume<KC, kDiff>(g, end, p, n, k, store);
   } else {
     ring_consume<TM, T, KC, kDiff>(g, end, p, n, k, store);
   }
@@ -1270,9 +1656,15 @@ __device__ __forceinline__ void gather_ring(
     const T* __restrict__ X, const T* __restrict__ Xbar, T* __restrict__ U,
     int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
     int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  ring_run<TM, T, KC, kDiff, kSparse, false>(
-      M, cols, X, Xbar, m, p, n, k, sx_w, sx_k, 0, sxb_k,
-      RingGatherStore<T, KC>{U, su_w, su_k});
+  if constexpr (kMmaForm<TM, T, kDiff, kSparse>) {
+    ring_run<TM, T, KC, kDiff, kSparse, false, true>(
+        M, cols, X, Xbar, m, p, n, k, sx_w, sx_k, 0, sxb_k,
+        MmaGatherStore{U, su_w, su_k});
+  } else {
+    ring_run<TM, T, KC, kDiff, kSparse, false, false>(
+        M, cols, X, Xbar, m, p, n, k, sx_w, sx_k, 0, sxb_k,
+        RingGatherStore<T, KC>{U, su_w, su_k});
+  }
 }
 
 // C[w, i, j] = sum_l U[w, i, l] · M[w, j, l] over the rows j of M = B_w
@@ -1286,10 +1678,16 @@ __device__ __forceinline__ void scatter_ring(
     const T* __restrict__ U, Acc<T> gamma, T* __restrict__ Y, int64_t m,
     int64_t n, int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
     int64_t sxb_k, int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
-  ring_run<TM, T, KC, false, false, true>(
-      M, nullptr, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
-      RingScatterStore<T, KC, kAxpy, kSparse>{cols, X, Xbar, gamma, Y, n,
-                                              sx_w, sx_k, sxb_k, sy_w, sy_k});
+  if constexpr (kMmaForm<TM, T, kAxpy, kSparse>) {
+    ring_run<TM, T, KC, false, false, true, true>(
+        M, nullptr, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
+        MmaScatterStore{X, Xbar, gamma, Y, sx_w, sx_k, sxb_k, sy_w, sy_k});
+  } else {
+    ring_run<TM, T, KC, false, false, true, false>(
+        M, nullptr, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
+        RingScatterStore<T, KC, kAxpy, kSparse>{
+            cols, X, Xbar, gamma, Y, n, sx_w, sx_k, sxb_k, sy_w, sy_k});
+  }
 }
 
 // The four gather ring kernels share one parameter list; a dense kernel
@@ -1395,7 +1793,7 @@ sparse_scatter_ring_kernel(const TM* __restrict__ Bvals,
 // SM (the ring's shared memory admits no second), and no more blocks
 // than 64-row tiles.  The dynamic shared memory above 48 KB is opted into
 // once per device and kernel.
-template <auto kKernel, int KC, typename... Args>
+template <auto kKernel, int KC, bool kMma = false, typename... Args>
 void launch_ring(int smem, int64_t m, int64_t rows, int64_t k,
                  cudaStream_t s, Args... args) {
   static std::atomic<uint64_t> opted_in{0};          // a bit per device
@@ -1412,8 +1810,10 @@ void launch_ring(int smem, int64_t m, int64_t rows, int64_t k,
       return;
     opted_in.fetch_or(bit);
   }
-  const int64_t tiles = (m * ((k + KC - 1) / KC) * rows + kRingRows - 1) /
-                        kRingRows;
+  const int64_t units = m * ((k + KC - 1) / KC);
+  const int64_t tiles =
+      kMma ? units * ((rows + kMmaRows - 1) / kMmaRows)
+           : (units * rows + kRingRows - 1) / kRingRows;
   kKernel<<<static_cast<unsigned>(min64(sms, tiles)), kRingThreads, smem,
             s>>>(args...);
 }
@@ -1439,8 +1839,10 @@ void launch_gather_ring(const void* M, const void* cols, const void* X,
                         int64_t sxb_k, int64_t su_w, int64_t su_k,
                         cudaStream_t s) {
   constexpr auto kernel = gather_ring_kernel<TM, T, KC, kDiff, kSparse>();
-  launch_ring<kernel, KC>(
-      Ring<TM, T, KC, kDiff>::kSmem, m, p, k, s, static_cast<const TM*>(M),
+  constexpr bool kMma = kMmaForm<TM, T, kDiff, kSparse>;
+  launch_ring<kernel, KC, kMma>(
+      Ring<TM, T, KC, kDiff, kMma>::kSmem, m, p, k, s,
+      static_cast<const TM*>(M),
       static_cast<const int64_t*>(cols), static_cast<const T*>(X),
       static_cast<const T*>(Xbar), static_cast<T*>(U), m, p, n, k, sx_w, sx_k,
       sxb_k, su_w, su_k);
@@ -1497,8 +1899,11 @@ int apc_gather(const void* A, const void* X, const void* Xbar, void* U,
           s);
       return;
     }
-    apc_gather_kernel<TM, T, KC, kGatherRows>
-        <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
+    // the tensor-core form's row dot takes a tile's 256 rows a block
+    constexpr int R =
+        kMmaForm<TM, T, true, false> ? kMmaRows / kWarps : kGatherRows;
+    apc_gather_kernel<TM, T, KC, R>
+        <<<grid_for(p, m, k, KC, R), kThreads, 0, s>>>(
             static_cast<const TM*>(A), static_cast<const T*>(X),
             static_cast<const T*>(Xbar), static_cast<T*>(U), p, n, k, sx_w,
             sx_k, sxb_k, su_w, su_k);
@@ -1544,15 +1949,17 @@ int apc_scatter(const void* B, const void* X, const void* Xbar,
   with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_ring<&apc_scatter_ring_kernel<TM, T, KC>, KC>(
-          Ring<TM, T, KC, false>::kSmem, m, n, k, s,
+      constexpr bool kMma = kMmaForm<TM, T, true, false>;
+      launch_ring<&apc_scatter_ring_kernel<TM, T, KC>, KC, kMma>(
+          Ring<TM, T, KC, false, kMma>::kSmem, m, n, k, s,
           static_cast<const TM*>(B), static_cast<const T*>(X),
           static_cast<const T*>(Xbar), static_cast<const T*>(U),
           gamma_of<T>(gamma), static_cast<T*>(Y), m, n, p, k, sx_w, sx_k,
           sxb_k, su_w, su_k, sy_w, sy_k);
       return;
     }
-    constexpr int R = scatter_rows<TM, KC>();
+    constexpr int R = kMmaForm<TM, T, true, false> ? kMmaRows / kWarps
+                                                   : scatter_rows<TM, KC>();
     apc_scatter_kernel<TM, T, KC, R>
         <<<grid_for(n, m, k, KC, R), kThreads, 0, s>>>(
             static_cast<const TM*>(B), static_cast<const T*>(X),
@@ -1786,18 +2193,30 @@ REPRO_ENTRIES(bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 // The ring instance's dynamic shared memory at the k-chunk of k, in
 // bytes, for a matrix of matrix_itemsize bytes (8, 4 or 2), a compute
 // type of itemsize bytes (8, 4, or 2 beside a bf16 matrix) and a form
-// (kApcForm or kCimminoForm); 0 for any other.
+// (kApcForm, kCimminoForm, and for bf16/f64 kApcMmaForm and
+// kCimminoMmaForm); 0 for any other.
 int64_t gather_ring_smem(int64_t matrix_itemsize, int64_t itemsize,
                          int64_t k, int64_t form) {
-  if (form != kApcForm && form != kCimminoForm) return 0;
+  const bool mma = form == kApcMmaForm || form == kCimminoMmaForm;
+  if (form < kApcForm || form > kCimminoMmaForm ||
+      (mma && (matrix_itemsize != 2 || itemsize != 8)))
+    return 0;
+  const bool diff = form == kApcForm || form == kApcMmaForm;
   int64_t bytes = 0;
   with_kc(kc_for(k), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     const auto of = [&](auto tm, auto t) {
       using TM = decltype(tm);
       using T = decltype(t);
-      bytes = form == kApcForm ? Ring<TM, T, KC, true>::kSmem
-                               : Ring<TM, T, KC, false>::kSmem;
+      if constexpr (kMmaForm<TM, T, true, false>) {
+        if (mma) {
+          bytes = diff ? Ring<TM, T, KC, true, true>::kSmem
+                       : Ring<TM, T, KC, false, true>::kSmem;
+          return;
+        }
+      }
+      bytes = diff ? Ring<TM, T, KC, true>::kSmem
+                   : Ring<TM, T, KC, false>::kSmem;
     };
     if (matrix_itemsize == 8 && itemsize == 8)
       of(double{}, double{});

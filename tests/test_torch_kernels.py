@@ -173,8 +173,13 @@ def test_ctypes_signatures_match_the_cuda_source():
     (params,) = re.findall(r"int64_t gather_ring_smem\(([^)]*)\)", body)
     assert types(params) == bp.RING_SMEM_ARGTYPES
     assert params.split(",")[-1].split() == ["int64_t", "form"]
-    assert "kApcForm = {apc}, kCimminoForm = {cimmino};".format(
-        **bp.FORMS) in src
+    # each form's int64 (kApcForm, kCimminoForm, kApcMmaForm,
+    # kCimminoMmaForm) as FORMS names it
+    camel = {name: "".join(w.title() for w in name.split("_"))
+             for name in bp.FORMS}
+    assert {name: int(v) for name, v in re.findall(
+        r"\bk(Apc\w*?|Cimmino\w*?)Form = (\d+)", src)} == {
+        camel[name]: v for name, v in bp.FORMS.items()}
     # every kernel, the four gathers and the three scatters, takes its
     # instance and then its k-chunk as the two int64 before the stream
     assert sorted(bp.RINGS) == sorted(bp.KERNELS)
@@ -457,13 +462,20 @@ def test_ring_smem_bytes_takes_the_form(monkeypatch):
                               "cimmino") == 1
     assert bp.ring_smem_bytes(torch.float32, torch.float32, 3, "apc") == 1
     assert bp.ring_smem_bytes(torch.bfloat16, torch.float64, 2, "apc") == 1
+    # the tensor-core form's stages: apc_gather's and apc_scatter's
+    assert bp.ring_smem_bytes(torch.bfloat16, torch.float64, 8,
+                              "apc_mma") == 1
+    assert bp.ring_smem_bytes(torch.bfloat16, torch.float64, 1,
+                              "cimmino_mma") == 1
     assert asked == [(8, 8, 8, bp.FORMS["cimmino"]),
-                     (4, 4, 3, bp.FORMS["apc"]), (2, 8, 2, bp.FORMS["apc"])]
+                     (4, 4, 3, bp.FORMS["apc"]), (2, 8, 2, bp.FORMS["apc"]),
+                     (2, 8, 8, bp.FORMS["apc_mma"]),
+                     (2, 8, 1, bp.FORMS["cimmino_mma"])]
     # each pair's library answers for its own pair
-    assert libs == ["f64", "f32", "bf16_f64"]
+    assert libs == ["f64", "f32", "bf16_f64", "bf16_f64", "bf16_f64"]
     with pytest.raises(KeyError):
         bp.ring_smem_bytes(torch.float64, torch.float64, 8, "sparse")
-    assert len(asked) == 3
+    assert len(asked) == 5
 
 
 @pytest.mark.parametrize("pair", list(bp.PAIRS))
@@ -507,3 +519,72 @@ def test_launch_counts_by_dtype_pair(monkeypatch, pair):
         bp.launch_counts("f16")
     bp.reset_launch_counts()
     assert bp.launch_counts(suffix) == dict.fromkeys(bp.KERNELS, 0)
+
+
+def test_mma_forms_are_the_dense_apc_pair_in_bf16_f64():
+    """The tensor-core form is the dense APC pair with a bf16 matrix and
+    float64 operands, and nothing else: ``MMA_FORMS`` names it, the
+    source selects it on the (bf16, double) pair and the APC flag of a
+    dense kernel, and every form's stage query has its own int64."""
+    src = (bp.CSRC / "block_projection.cu").read_text()
+    assert bp.MMA_FORMS == (("apc_gather", "bf16_f64"),
+                            ("apc_scatter", "bf16_f64"))
+    assert all(kn in bp.KERNELS and pair in bp.PAIRS.values()
+               for kn, pair in bp.MMA_FORMS)
+    assert ("constexpr bool kMmaForm = std::is_same_v<TM, __nv_bfloat16> "
+            "&&\n                          std::is_same_v<T, double> && "
+            "kApc && !kSparse;") in src
+    # the gathers' ring on kDiff, the scatters' on kAxpy
+    assert "kMmaForm<TM, T, kDiff, kSparse>" in src
+    assert "kMmaForm<TM, T, kAxpy, kSparse>" in src
+    assert set(bp.FORMS) == {"apc", "cimmino", "apc_mma", "cimmino_mma"}
+
+
+@pytest.mark.parametrize("kernel", ["apc_gather", "apc_scatter"])
+@pytest.mark.parametrize("n,k,kc,offset,want,want_kc", [
+    (2048, 8, None, False, "ring", 0),     # the main path's rows, k = 8
+    (2048, 1, None, False, "ring", 0),     # k = 1: the ring (a bf16 matrix)
+    (2048, 8, 4, False, "ring", 4),        # a pinned or measured k-chunk
+    (2048, 3, 2, False, "ring", 2),
+    (136, 5, None, False, "ring", 0),      # 272-byte bf16 rows
+    (130, 8, None, False, "row_dot", 0),   # 260 bytes: not a multiple of 16
+    (7, 1, None, False, "row_dot", 0),
+    (2048, 8, None, True, "row_dot", 0),   # the matrix at an odd offset
+])
+def test_mma_form_instance_and_kc_by_shape(monkeypatch, kernel, n, k, kc,
+                                           offset, want, want_kc):
+    """The bf16/float64 APC pair takes the ring wherever its 16-byte
+    copies fit the bf16 rows and the float64 operands' strides, at every
+    k (a bf16 scatter takes the ring at k = 1 too), and the row dot of
+    its form elsewhere; the launcher hands the entry that instance and
+    the k-chunk (0: the library's own, kc_for(k)).  (The entries cannot
+    run here: the device checks and the launch are stood in for.)"""
+    calls = []
+
+    def check(name, index=None, **operands):       # the sizes alone
+        return {ax: size for t, axes in operands.values()
+                for ax, size in zip(axes, t.shape)}
+
+    monkeypatch.setattr(bp, "_check", check)
+    monkeypatch.setattr(bp, "_launch", lambda name, matrix, out, *args:
+                        calls.append((name, matrix.dtype, out.dtype,
+                                      args)))
+    m, rows = 2, 24
+    M = torch.empty((m, rows, n), dtype=torch.bfloat16)
+    if offset:
+        M = _offset(M)
+    X = torch.empty((k, m, n if kernel == "apc_gather" else rows),
+                    dtype=torch.float64).transpose(0, 1)
+    Xb = torch.empty((k, X.shape[-1]), dtype=torch.float64)
+    if kernel == "apc_gather":
+        bp.apc_gather(M, X, Xb, kc=kc)
+    else:
+        U = torch.empty((k, m, n), dtype=torch.float64).transpose(0, 1)
+        bp.apc_scatter(M, X, Xb, U, 0.9, kc=kc)
+    ((name, mdt, dt, args),) = calls
+    assert (name, mdt, dt) == (kernel, torch.bfloat16, torch.float64)
+    assert (name, bp.PAIRS[(mdt, dt)]) in bp.MMA_FORMS
+    assert args[-2:] == (bp.INSTANCES[want], want_kc)
+    with pytest.raises(ValueError, match="k-chunk"):
+        bp.apc_gather(M, X, Xb, kc=16) if kernel == "apc_gather" else \
+            bp.apc_scatter(M, X, Xb, U, 0.9, kc=3)

@@ -362,13 +362,24 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             ring.format(f"{len(kn) + len(inst) + 7}{kn}{inst}_kernel",
                         "13__nv_bfloat16", "").replace(
                 "bfloat16dLi8E", "bfloat16S0_Li8E")
-            for kn in bp.KERNELS for inst in ("", "_ring")))
+            for kn in bp.KERNELS for inst in ("", "_ring"))
+        # the tensor-core form: both instances at every KC (the ring's
+        # KC = 8 line is above)
+        + "".join(
+            ring.format(f"{len(kn) + len(inst) + 7}{kn}{inst}_kernel",
+                        "13__nv_bfloat16", "" if inst else "Li32E").replace(
+                "Li8E", f"Li{kc}E", 1)
+            for kn, _ in bp.MMA_FORMS for inst in ("", "_ring")
+            for kc in bp.KC_VALUES if inst == "" or kc != 8))
     monkeypatch.setattr(bp, "build", lambda sources=bp.SOURCES: {
         ("block_projection.cu", "f64"): lib})
     # the two forms' stage sizes at KC = 8: (64 + 16) and (64 + 8) rows of
-    # 512 bytes, 5 stages each (the scatters' rings: the Cimmino form)
+    # 512 bytes, 5 stages each (the scatters' rings: the Cimmino form);
+    # the tensor-core form's: 256 rows of 128 bytes and 16 (8) operand
+    # rows, 5 stages
     monkeypatch.setattr(bp, "ring_smem_bytes", lambda mdt, dt, k, form: {
-        "apc": 204800, "cimmino": 184320}[form])
+        "apc": 204800, "cimmino": 184320, "apc_mma": 204800,
+        "cimmino_mma": 184320 + 1}[form])
     for name, fn in _fake_launchers().items():
         monkeypatch.setattr(bp, name, fn)
     monkeypatch.setattr(bp, "_launches", dict.fromkeys(bp._launches, 0))
@@ -378,6 +389,10 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert lines[-1] == ('{"ok": true, "device": {"platform": "gpu", "kind": '
                          '"NVIDIA H100 80GB HBM3", "count": 1}}')
     assert lines[-2] == "NVIDIA H100 80GB HBM3, 700.00 W"
+    # the wall time of each phase, in print order, beside the total
+    spans = next(x for x in lines if x.startswith("phase spans: "))
+    assert [x.split()[0] for x in spans[len("phase spans: "):].split(
+        ", ")][:3] == ["1", "2", "3"], spans
     text = "\n".join(lines)
     assert ("sparse_scatter f64 KC=8 apc spill 0 B: 128 regs, smem 16384 B; "
             "apc_gather_ring f64 KC=8 spill 0 B: 168 regs, smem 128 B + "
@@ -391,20 +406,39 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             "+ 184320 B dynamic") in text
     assert ("sparse_scatter_ring f64 KC=8 apc spill 0 B: 168 regs, smem 128 "
             "B + 184320 B dynamic") in text
-    # and the bf16-stored instances, tagged by their matrix/compute types
+    # and the bf16-stored instances, tagged by their matrix/compute types;
+    # the tensor-core form's rings with its own stages, both its
+    # instances at every KC
     assert ("apc_gather_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem 128 B "
             "+ 204800 B dynamic") in text
+    assert ("apc_scatter_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem 128 B "
+            "+ 184321 B dynamic") in text
+    assert ("cimmino_scatter_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem "
+            "128 B + 184320 B dynamic") in text
+    for kn, _ in bp.MMA_FORMS:
+        for kc in bp.KC_VALUES:
+            assert f"{kn} bf16/f64 KC={kc} spill 0 B: " in text, (kn, kc)
+            assert f"{kn}_ring bf16/f64 KC={kc} spill 0 B: " in text, (kn,
+                                                                      kc)
     # both instances of the four gathers and the three scatters (both
     # forms of sparse_scatter) where the ring fits, the row dot alone where
     # it does not (f32 rows of 130, p = 7); a bf16-stored scatter's ring
-    # equals the ring on the widened matrix
+    # equals the ring on the widened matrix, but the tensor-core form's
+    # apc_scatter, whose ring equals its row dot
     scatters = ("apc_scatter", "cimmino_scatter", "sparse_scatter apc",
                 "sparse_scatter cimmino")
     for kn in bp.GATHERS + scatters:
         assert f"{kn} ring≡row_dot" in text, kn
     for kn in scatters:
-        assert any(f" bfloat16/float64: " in x and f"{kn} ring≡widened ring"
-                   in x for x in lines), kn
+        for pr in ("bfloat16/float64", "bfloat16/float32"):
+            mma = (kn, bp.PAIRS[(torch.bfloat16, getattr(
+                torch, pr.split("/")[1]))]) in bp.MMA_FORMS
+            assert any(f" {pr}: " in x and f"{kn} ring≡"
+                       + ("row_dot" if mma else "widened ring") in x
+                       for x in lines), (kn, pr)
+            assert not any(f" {pr}: " in x and f"{kn} ring≡"
+                           + ("widened ring" if mma else "row_dot") in x
+                           for x in lines), (kn, pr)
     assert any("n=130" in x and "float32" in x and "apc_gather row_dot" in x
                and "apc_scatter row_dot" in x
                and "cimmino_gather row_dot" in x
@@ -463,6 +497,13 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                 assert all(("torch." in x) == (pr[0] == "f") for x in got)
     assert sum(x.startswith("phase 8 iteration k=") and "precision=mixed" in x
                for x in lines) == 2
+    # the tensor-core form's times beside the DFMA ring's, k = 1 and 8
+    for kn, _ in bp.MMA_FORMS:
+        assert sum(x.startswith(f"phase 8 {kn} k=")
+                   and " bfloat16/float64: " in x
+                   and "the DFMA ring before them" in x
+                   for x in lines) == 2, kn
+    assert sum("the DFMA ring before them" in x for x in lines) == 4
     assert sum(x.startswith("phase 11 iteration k=")
                and "precision=mixed" in x for x in lines) == 4
     # phase 13: every kernel-path solve captured and held to the eager
