@@ -11,10 +11,11 @@ script exits non-zero without its last line:
    each dtype pair, the nvcc processes started together), with each
    instance's registers, shared memory and spill bytes (none allowed in
    the ring instances that compute in float64, the bf16-stored ones
-   included, nor in either instance of the tensor-core form, the
-   bf16/float64 ``apc_gather`` and ``apc_scatter``, at KC = 1, 2, 4, 8;
-   each of the seven rings present, and both instances of all seven
-   kernels in the all-bf16 form);
+   included, nor in either instance of the tensor-core forms
+   (``bp.MMA_FORMS``: the four dense kernels in bf16/float64 and the
+   float64 ``cimmino_scatter``) at KC = 1, 2, 4, 8, all of which must
+   be there; each of the seven rings present, and both instances of all
+   seven kernels in the all-bf16 form);
 2. kernel vs plain version on the card: ``apc_gather``/``apc_scatter``
    and ``cimmino_gather``/``cimmino_scatter`` against their plain PyTorch
    versions at ragged shapes and at the main path's shapes, and
@@ -28,9 +29,10 @@ script exits non-zero without its last line:
    ``sparse_scatter`` (the ring, where its alignment admits the shape,
    and the row dot) against the plain version and bit-identical to each
    other (a bf16-stored scatter's ring to the ring on its matrix widened,
-   as its row dot sums in another order; but the bf16/float64
-   ``apc_scatter``, whose two instances issue the same tensor-core
-   products in one order: ring ≡ row dot);
+   as its row dot sums in another order; but the tensor-core forms, the
+   bf16/float64 ``apc_scatter`` and ``cimmino_scatter`` among them,
+   whose two instances issue the same products in one order: ring ≡ row
+   dot);
 3. the APC main path at full size: a 32768 x 16384 tall Gaussian system
    on 16 workers (float64), ``analyze``, then ``solve`` on the kernel
    path — error to x_true, one launch of each kernel per iteration, the
@@ -52,22 +54,25 @@ script exits non-zero without its last line:
    the row-dot instance of a gather (float64) and of ``apc_scatter`` and
    ``cimmino_scatter`` (every form, each beside its ring forced), with
    the ring asserted to be the instance the main path's shapes take (but
-   a float64 or float32 scatter at k = 1: the row dot), the tensor-core
-   form's lines beside the times of the DFMA ring it replaced (PERF.md
-   §6, "NVIDIA H100 80GB HBM3, 700.00 W"); and of the whole
+   a float64 or float32 scatter at k = 1 outside the tensor-core forms:
+   the row dot), the tensor-core forms' lines beside the times of the
+   DFMA instances they replaced (PERF.md §6, "NVIDIA H100 80GB HBM3,
+   700.00 W"); and of the whole
    APC and Cimmino iterations,
    float64 and mixed, eager and inside a captured 10-step CUDA graph,
    with the card's clocks, power, temperature and
    throttle reasons at the phase's start and end;
 9. the sparse path at full size: a banded 32768 x 32768 system on 16
-   workers (float64, support width 2064), one spectral analysis, then
+   workers (float64, support width 2064), one spectral analysis
+   (``banded_mu``: the extremes of X from an eigvalsh of half its size,
+   held to X's own eigenvalues on phase 14's cut system), then
    APC, consensus and Cimmino on the sparse kernels — exactly one launch
    of each of its kernels per iteration, the history against the
    unfused sparse path, x against the densified system's dense-kernel
    solve, a bit-identical repeat — and APC and Cimmino ``solve_many``
    with 8 right-hand sides;
 10. least squares: the CLI on ``tall_noisy`` (Cimmino on its kernels,
-   DGD), an 8192 x 4096 noisy system solved by Cimmino and DGD against
+   DGD), a 4096 x 2048 noisy system solved by Cimmino and DGD against
    each solver's ``ls_reference``, and the CLI on ``banded`` with APC on
    the sparse kernels;
 11. CUDA-event times of the sparse kernels as in phase 8 (torch.bmm on
@@ -104,7 +109,8 @@ script exits non-zero without its last line:
    capture, the second and third runs quiet under
    ``tracecheck(steady_state=True)``, the first batch's x intact after
    the third, each batch against ``solve_many``;
-14. serving (after phase 13): the dense main path regenerated and served
+14. serving (after phase 13): the dense main path's system and kernel
+   factors, kept from phase 2 (the dense system of phases 14-18), served
    by ``LinsysServer`` over a ``FactorStore`` (APC on the kernels, k =
    K_MANY, 29 seeded consistent right-hand sides: 4 batches, 3 pad
    slots) — 1 store miss then 3 hits, 1 executor build and 1 capture,
@@ -118,7 +124,9 @@ script exits non-zero without its last line:
    process's own linalg library, cuSOLVER and MAGMA; the same traffic
    through ``AsyncLinsysServer`` (bit-equal, 0 shed, latency
    p50/p95/p99) and an overload (``admit_capacity``, explicit ``Shed``);
-   APC at ``precision="mixed"`` on the sparse system and a second one
+   APC at ``precision="mixed"`` on ``SERVE_SPARSE`` (the sparse path's
+   banded system cut to n = 8192, with its own spectrum: a register
+   hashes a system's whole A on the host) and a second one
    (its rows doubled) from a cold store, requests interleaved, through
    both servers (bf16 store entries in each, bit-equal: the async
    server's second miss runs while the first system's program is
@@ -180,14 +188,15 @@ script exits non-zero without its last line:
    2-4 quiet under ``tracecheck(steady_state=True)``, bit-equal to the
    same server under ``disable_capture()`` and to the local server,
    timed in turns with both) and ``AsyncLinsysServer``, then two batches
-   each of dense Cimmino, sparse mixed APC and sparse Cimmino against the
-   local server; (b) two gloo ranks (1 x 2), ``--serve-rank``: rank 0
+   each of dense Cimmino, sparse mixed APC and sparse Cimmino (on phase
+   14's ``SERVE_SPARSE`` system) against the local server; (b) two gloo ranks (1 x 2), ``--serve-rank``: rank 0
    admits and answers, the follower serves, no capture; the serving CLI
    at world 2;
 18. redundancy and the elastic runtime on the dense system (no kernel):
    APC, consensus, Cimmino at r = 2 under a rotating straggler against
    the plain solve, captured ≡ eager; the elastic runtime's death,
-   rejoin and join; recovery from a disk tier; on one NCCL rank the
+   rejoin and join and its recovery from a disk tier (on ``RED_CUT``:
+   each build and repartition fingerprints every block on the host); on one NCCL rank the
    redundant mesh runner's one captured step ≡ ``disable_capture()`` and
    a history split into segments ≡ one run, timed against eager and the
    local engine; two gloo ranks (2 x 1, ``--red-rank``), no capture.
@@ -323,19 +332,31 @@ MIXED_FORMS = ((BF16, torch.float64), (BF16, torch.float32))
 NO_LIBRARY = ("none: torch.matmul and torch.bmm refuse a bfloat16 matrix "
               "with float64 or float32 operands, and upcasting first is "
               "a second pass over the matrix")
-# the tensor-core form's kernels (bp.MMA_FORMS) on the DFMA ring it
+# the tensor-core forms' kernels (bp.MMA_FORMS) on the DFMA ring they
 # replaced, ms at k = 1 and 8 (PERF.md §6, "NVIDIA H100 80GB HBM3,
-# 700.00 W"), printed beside phase 8's times
+# 700.00 W"), printed beside phase 8's times: the bf16/float64 four,
+# and the float64 cimmino_scatter (at k = 1 its DFMA row dot, the
+# instance the launcher took there)
 DFMA_MIXED_MS = {("apc_gather", 1): 0.3818, ("apc_gather", 8): 0.8301,
-                 ("apc_scatter", 1): 0.3839, ("apc_scatter", 8): 0.7801}
+                 ("apc_scatter", 1): 0.3839, ("apc_scatter", 8): 0.7801,
+                 ("cimmino_gather", 1): 0.3832, ("cimmino_gather", 8): 0.7239,
+                 ("cimmino_scatter", 1): 0.3771,
+                 ("cimmino_scatter", 8): 0.7763}
+DFMA_F64_MS = {("cimmino_scatter", 1): 1.3482, ("cimmino_scatter", 8): 1.4570}
 RAGGED = [(7, 130), (1, 128), (24, 896)]
 # the sparse path's system, and the banded corner systems of phase 2
 # (tests/test_kernel_corners.py, plus a support one chunk and a bit wide)
 SPARSE = dict(n=32768, m=16, bandwidth=8)
+# the sparse traffic of the servers (phases 14 and 17 (a)): the sparse
+# path's banded system cut in scale, as each register hashes a system's
+# whole (m, p, n) A on the host, 12 s at the sparse path's size
+SERVE_SPARSE = dict(n=8192, m=16, bandwidth=8)
 SPARSE_CORNERS = [dict(n=130, m=2, bandwidth=6), dict(n=24, m=24, bandwidth=2),
                   dict(n=192, m=4, bandwidth=6),
                   dict(n=1024, m=4, bandwidth=8)]
-LS_MID = dict(N=8192, n=4096, m=8, noise=0.5, seed=0)
+# phase 10: the least-squares system (its two references, a Cholesky a
+# block and an lstsq, run on the host)
+LS_MID = dict(N=4096, n=2048, m=8, noise=0.5, seed=0)
 LS_ITERS = 600
 # (HBM bytes/s, float64, float32 and dense bf16 peak op/s) from NVIDIA's
 # data sheets, matched on the name nvidia-smi reports; the first match
@@ -735,6 +756,48 @@ def captured_stdout(fn, label, card):
     return out, text
 
 
+def banded_mu(spectral, system) -> tuple:
+    """((mu_min, mu_max) of X = (1/m) sum_i P_i, the side of the eigvalsh
+    that found them) for a system whose blocks' column supports each meet
+    only their neighbours' (asserted), as a banded system's do.  The even
+    blocks' row-space projectors then have disjoint supports and sum to
+    one projector P_e, the odd ones' to P_o, and X = (P_e + P_o) / m.  The
+    eigenvalues of a sum of two projectors whose ranges span R^n are 1 ±
+    the cosines of their principal angles (and 1 where the ranges' sizes
+    differ), so mu = (1 ∓ s) / m, s the largest singular value of Q_eᵀ Q_o,
+    whose nonzero blocks are L_i⁻¹ A_i A_jᵀ L_j⁻ᵀ for |i − j| = 1 (L_i L_iᵀ
+    = A_i A_iᵀ): one eigvalsh of about n/2 x n/2 instead of X's n x n."""
+    A = system.A_blocks
+    m, p, n = A.shape
+    nz = (A != 0).any(dim=1).to(A.dtype)
+    meet = nz @ nz.T
+    assert not meet.triu(2).any(), "supports meet past their neighbours"
+    L = torch.linalg.cholesky(A @ A.transpose(1, 2))
+    ne, no = (m + 1) // 2, m // 2
+    M = torch.zeros(ne * p, no * p, dtype=A.dtype, device=A.device)
+    for i in range(m - 1):
+        W = torch.linalg.solve_triangular(L[i], A[i] @ A[i + 1].T,
+                                          upper=False)
+        W = torch.linalg.solve_triangular(L[i + 1], W.T, upper=False).T
+        e, o = (i, i + 1) if i % 2 == 0 else (i + 1, i)
+        M[e // 2 * p:(e // 2 + 1) * p, o // 2 * p:(o // 2 + 1) * p] = (
+            W if i % 2 == 0 else W.T)
+    G = M.T @ M if no < ne else M @ M.T
+    s = math.sqrt(max(float(spectral.eigvalsh(G)[-1]), 0.0))
+    return ((1.0 - s) / m, (1.0 + s) / m), G.shape[0]
+
+
+def sparse_pinned(spectral, mu, m) -> dict:
+    """The sparse solvers' pinned parameters and rates from mu(X): the
+    closed forms each one's analyze() applies."""
+    apc_p = spectral.apc_optimal(*mu)
+    nu_m, rho_cim = spectral.cimmino_optimal(*mu)
+    return {"apc": ({"gamma": apc_p.gamma, "eta": apc_p.eta}, apc_p.rho),
+            "consensus": ({"gamma": 1.0, "eta": 1.0},
+                          spectral.consensus_rate(mu[0])),
+            "cimmino": ({"nu": nu_m / m}, rho_cim)}
+
+
 def consistent(system, count, seed):
     """``count`` seeded solutions xs (on the card) and their right-hand
     sides A xs on the host, as a client sends them."""
@@ -754,19 +817,19 @@ def groups(rhs, k):
     return out
 
 
-def serving_phase(card, form_launches, dprm, sp, sp_pinned) -> None:
+def serving_phase(card, form_launches, dprm, dsys, sp, sp_pinned) -> None:
     """Phase 14: ``LinsysServer`` and ``AsyncLinsysServer`` over a
-    ``FactorStore`` on the dense main path and the sparse path, the disk
-    tier, and the two CLIs (module docstring)."""
+    ``FactorStore`` on the dense main path (``dsys``) and the sparse path,
+    the disk tier, and the two CLIs (module docstring)."""
     from repro_torch import solvers
     from repro_torch.analysis import tracecheck
-    from repro_torch.data import linsys
     from repro_torch.kernels import block_projection as bp
     from repro_torch.kernels import ops
     from repro_torch.launch import serve_linsys as serve_cli
     from repro_torch.launch import solve as solve_cli
     from repro_torch.solvers import executor
     from repro_torch.solvers.pipeline import Shed
+    from repro_torch.solvers.store import block_fingerprint
 
     s = solvers.get("apc")
     head = min(executor.CHUNK, ITERS)
@@ -774,18 +837,19 @@ def serving_phase(card, form_launches, dprm, sp, sp_pinned) -> None:
                            for kn in bp.KERNELS}
 
     # -- the dense main path, sync ---------------------------------------
-    t = time.time()
-    dsys = linsys.tall_gaussian(**FULL, seed=0, device="cuda")
-    torch.cuda.synchronize()
     a_bytes = dsys.A_blocks.numel() * dsys.A_blocks.element_size()
     n_req = 3 * K_MANY + 5
     xs, rhs = consistent(dsys, n_req, 14)
-    say(f"phase 14 data: tall_gaussian N={dsys.N} n={dsys.n} m={dsys.m} "
-        f"float64 in {time.time() - t:.2f} s; {n_req} right-hand sides")
+    say(f"phase 14 data: {n_req} right-hand sides of the dense system")
     fp_key, fp_ms = timed_ms(lambda: solvers.fingerprint("apc", dsys, dprm))
+    # the chunks through the pinned buffer hash what a host copy hashes
+    same_fp = (block_fingerprint("apc", dsys.A_blocks[0], dprm)
+               == block_fingerprint("apc", dsys.A_blocks[0].cpu(), dprm))
+    assert same_fp
     say(f"phase 14 fingerprint: A {a_bytes / 1e9:.2f} GB copied from the "
-        f"card and hashed (sha256) on the host in {fp_ms:.1f} ms "
-        f"({a_bytes / fp_ms / 1e6:.2f} GB/s) [{card}]")
+        f"card (in chunks through a pinned buffer) and hashed (sha256) on "
+        f"the host in {fp_ms:.1f} ms ({a_bytes / fp_ms / 1e6:.2f} GB/s); a "
+        f"block's digest from the card ≡ its host copy's {same_fp} [{card}]")
     store = solvers.FactorStore()
     srv = solvers.LinsysServer(store, solver="apc", iters=ITERS,
                                batch=K_MANY, use_kernel=True, **dprm)
@@ -867,7 +931,8 @@ def serving_phase(card, form_launches, dprm, sp, sp_pinned) -> None:
         f"{(n_req - K_MANY) / sum(ms[1:]) * 1e3:.2f} RHS/s over batches "
         f"2-4, padding excluded (host clock to synchronize()) [{card}]")
     say(f"phase 14 dense apc server memory: resident {base / 1e9:.3f} GB "
-        f"before (A and b), +{(resident - base) / 1e9:.3f} GB after the "
+        f"before (A and b, the kernel factors phases 15-18 take, the sparse "
+        f"path's), +{(resident - base) / 1e9:.3f} GB after the "
         f"first batch (B {b_bytes / 1e9:.3f} GB, the Cholesky factors, the "
         f"graph's pool), peak +{(first_peak - base) / 1e9:.3f} GB in it "
         f"(prepare); batches 2-4 peak {steady_peak / 1e9:.3f} GB "
@@ -1995,23 +2060,28 @@ def redundancy_phase(card, dsys, chol, pinned) -> None:
         torch.cuda.empty_cache()
     red_peak = torch.cuda.max_memory_allocated()
 
-    # the elastic runtime: a death, a same-size rejoin, a join 16 -> 17
-    s, prm = solvers.get("apc"), pinned["apc"][0]
-    mon = HeartbeatMonitor(n_workers=m)
+    # the elastic runtime on a cut system (each build and each
+    # repartition fingerprints every block of A on the host): a death, a
+    # same-size rejoin, a join 16 -> 17
+    s = solvers.get("apc")
+    csys = linsys.tall_gaussian(**RED_CUT, seed=1, device="cuda")
+    cprm = s.resolve_params(csys)
+    cm = csys.m
+    mon = HeartbeatMonitor(n_workers=cm)
     t = time.time()
     # a store that keeps one system and one block: its block tier would
     # otherwise hold a copy of every block of A
     rt = solvers.ElasticRuntime(
-        s, dsys, plan=Plan(redundancy=2, store=solvers.FactorStore(
-            capacity=1, block_capacity=1)), monitor=mon, segment=25, **prm)
+        s, csys, plan=Plan(redundancy=2, store=solvers.FactorStore(
+            capacity=1, block_capacity=1)), monitor=mon, segment=25, **cprm)
     t_build = time.time() - t
-    mask = np.ones(m, bool)
+    mask = np.ones(cm, bool)
     mask[2] = False
     death = ITERS // 3                  # worker 2 dies after this many
-    sched = np.stack([np.ones(m, bool)] * death + [mask] * (ITERS - death))
-    ref = s.solve(dsys, iters=ITERS, plan=Plan(
+    sched = np.stack([np.ones(cm, bool)] * death + [mask] * (ITERS - death))
+    ref = s.solve(csys, iters=ITERS, plan=Plan(
         redundancy=2, alive_schedule=sched, factors=rt._current.factors),
-        **prm)
+        **cprm)
     gc.collect()
     rep1 = rt.run(iters=death)
     sizes = rt.engine_cache_sizes()
@@ -2028,7 +2098,7 @@ def redundancy_phase(card, dsys, chol, pinned) -> None:
     del ref
     mon.rejoin(2, resynced=True)
     rep3 = rt.run(iters=25)
-    assert rep3.repartitions == 0 and rep3.fleet == tuple(range(m))
+    assert rep3.repartitions == 0 and rep3.fleet == tuple(range(cm))
     assert rt.engine_cache_sizes() == sizes
     mon.join(resynced=True)
     gc.collect()
@@ -2037,12 +2107,13 @@ def redundancy_phase(card, dsys, chol, pinned) -> None:
     rep4 = rt.run(iters=25)
     torch.cuda.synchronize()
     t_join = time.time() - t
-    assert rep4.repartitions == 1 and rt.sys.m == m + 1, rep4.fleet
+    assert rep4.repartitions == 1 and rt.sys.m == cm + 1, rep4.fleet
     assert bool(torch.isfinite(rep4.residuals).all())
     caps = {size: part.engine.captures for size, part in rt._parts.items()}
-    assert caps == {m: 1, m + 1: 1}, caps
+    assert caps == {cm: 1, cm + 1: 1}, caps
     el_peak = torch.cuda.max_memory_allocated()
-    say(f"phase 18 elastic apc redundancy=2, segments of 25: built in "
+    say(f"phase 18 elastic apc redundancy=2 on tall_gaussian {RED_CUT} "
+        f"(the system of the recovery below), segments of 25: built in "
         f"{t_build:.2f} s (the blocks' fingerprints and factors through "
         f"the store's block tier); worker 2 dies after {death} iterations: "
         f"re-lowered ({rep2.relowerings}), {ITERS - death} more in "
@@ -2051,7 +2122,7 @@ def redundancy_phase(card, dsys, chol, pinned) -> None:
         f"schedule {bit}, the engine's programs {sizes} before and after "
         f"(captures 1); rejoin at the same size: repartitions "
         f"{rep3.repartitions}, fleet of {len(rep3.fleet)}; a join grows the "
-        f"fleet {m} -> {rt.sys.m}: repartitions {rep4.repartitions}, "
+        f"fleet {cm} -> {rt.sys.m}: repartitions {rep4.repartitions}, "
         f"reused_blocks {rep4.reused_blocks} prepared_blocks "
         f"{rep4.prepared_blocks}, 25 iterations (with the new partition, "
         f"its factors and engine) in {t_join:.2f} s, residual "
@@ -2064,8 +2135,6 @@ def redundancy_phase(card, dsys, chol, pinned) -> None:
     # checkpoint() and recover() from a disk tier, on a cut system
     edir = ROOT / "build" / "phase18_elastic"
     shutil.rmtree(edir, ignore_errors=True)
-    csys = linsys.tall_gaussian(**RED_CUT, seed=1, device="cuda")
-    cprm = s.resolve_params(csys)
     oracle = s.solve(csys, iters=2 * ITERS, **cprm)
     cplan = lambda: Plan(redundancy=2, store=solvers.FactorStore(  # noqa
         directory=str(edir / "store")))
@@ -3490,12 +3559,14 @@ def phases():
         assert all(" spill 0 B:" in x for x in rings), rings
         assert {x.split()[0] for x in rings} == {
             f"{kn}_ring" for kn in bp.RINGS}, rings
-    # the tensor-core form: both instances at every KC, none spilling
-    mma = [x for x in ptxas if x.split()[1] == "bf16/f64"
-           and x.split()[0].replace("_ring", "") in dict(bp.MMA_FORMS)]
-    assert {(x.split()[0], x.split()[2]) for x in mma} == {
-        (f"{kn}{inst}", f"KC={kc}") for kn, _ in bp.MMA_FORMS
-        for inst in ("", "_ring") for kc in bp.KC_VALUES}, mma
+    # the tensor-core forms: both instances at every KC, none spilling
+    mma = [x for x in ptxas if (x.split()[0].replace("_ring", ""),
+                                x.split()[1].replace("/", "_"))
+           in bp.MMA_FORMS]
+    assert {tuple(x.split()[:3]) for x in mma} == {
+        (f"{kn}{inst}", sfx.replace("_", "/"), f"KC={kc}")
+        for kn, sfx in bp.MMA_FORMS for inst in ("", "_ring")
+        for kc in bp.KC_VALUES}, mma
     assert all(" spill 0 B:" in x for x in mma), mma
     # the all-bf16 form: both instances of every kernel
     assert {x.split()[0] for x in ptxas if x.split()[1] == "bf16"} == {
@@ -4256,11 +4327,14 @@ def phases():
         return {key: fn for key, fn in calls.items() if key in keep}
 
     def dfma_note(kname, k, pr, ms, b):
-        """Beside a tensor-core form's time: the DFMA ring's before it."""
-        old = DFMA_MIXED_MS.get((kname, k))
-        if old is None or pr != "bfloat16/float64":
+        """Beside a tensor-core form's time: the DFMA instance's before
+        it (the ring; the float64 cimmino_scatter's row dot at k = 1)."""
+        old = {"bfloat16/float64": DFMA_MIXED_MS,
+               F64: DFMA_F64_MS}.get(pr, {}).get((kname, k))
+        if old is None:
             return ""
-        return (f"; tensor cores (mma.sync f64), the DFMA ring before them "
+        was = "row dot" if (pr, k) == (F64, 1) else "ring"
+        return (f"; tensor cores (mma.sync f64), the DFMA {was} before them "
                 f"{old:.4f} ms ({b / old:.1%} of the bound), {old / ms:.2f}x")
 
     def time_kernel(phase, kname, k, shape, forms, library, key=None):
@@ -4383,16 +4457,18 @@ def phases():
                                  dense_work(2, 4), torch.float32)}
         # the ring is the instance the main path's shapes take, in every
         # form, but for the scatters' fixed rule: the row dot at k = 1
-        # with a float64 or float32 matrix
+        # with a float64 or float32 matrix outside bp.MMA_FORMS
         for A_, B_, X_, Xb_, U_, V_ in ((A, B, X3, Xb, U, V),
                                         (A32, B32, X3f, Xbf, Uf, Vf),
                                         (A16, B16, X3, Xb, U, V),
                                         (A16, B16, X3f, Xbf, Uf, Vf)):
             assert bp.gather_instance(A_, X_, Xb_) == "ring"
             assert bp.gather_instance(A_, Xb_) == "ring"
-            for S_ in (U_, V_):
-                assert bp.gather_instance(B_, S_, scatter=True) == (
-                    "row_dot" if k == 1 and B_.dtype != BF16 else "ring")
+            for kn, S_ in (("apc_scatter", U_), ("cimmino_scatter", V_)):
+                mma = (kn, bp.PAIRS[(B_.dtype, S_.dtype)]) in bp.MMA_FORMS
+                assert bp.gather_instance(B_, S_, scatter=kn) == (
+                    "row_dot" if k == 1 and B_.dtype != BF16 and not mma
+                    else "ring")
         if k == 1:
             st = APCState(x=X[0], xbar=Xb[0], t=0)
             cst = CimminoState(xbar=Xb[0], t=0)
@@ -4472,6 +4548,9 @@ def phases():
 
     main_launches = {kn: (launches if kn in USES["apc"] else cim_launches)[kn]
                      for kn in USES["apc"] + USES["cimmino"]}
+    # the main path's system and its kernel factors stay, the dense system
+    # of phases 14-18
+    dsys, dfac = sys_, factors
     del sys_, factors, mf, res, res_u, res2, A, B, A16, B16, A32, B32, X, \
         X3, Xb
     gc.collect()
@@ -4486,20 +4565,13 @@ def phases():
         f"{SPARSE['bandwidth']} float64: p={p} w={w}, generator "
         f"{time.time() - t:.2f} s")
     t = time.time()
-    X = spectral.x_matrix(sp)
-    mu = spectral.mu_extremes(X)
-    del X
-    torch.cuda.empty_cache()
+    mu, half = banded_mu(spectral, sp)
     torch.cuda.synchronize()
-    apc_p = spectral.apc_optimal(*mu)
-    nu_m, rho_cim = spectral.cimmino_optimal(*mu)
-    sp_pinned = {
-        "apc": ({"gamma": apc_p.gamma, "eta": apc_p.eta}, apc_p.rho),
-        "consensus": ({"gamma": 1.0, "eta": 1.0},
-                      spectral.consensus_rate(mu[0])),
-        "cimmino": ({"nu": nu_m / m}, rho_cim)}
+    sp_pinned = sparse_pinned(spectral, mu, m)
     say(f"phase 9 spectrum: mu(X) [{mu[0]:.6e}, {mu[1]:.6e}] in "
-        f"{time.time() - t:.2f} s (x_matrix + eigvalsh of {n}^2); rho "
+        f"{time.time() - t:.2f} s (banded_mu: one eigvalsh of {half}^2, "
+        f"where X's own is {n}^2, MAGMA's past 32767, 77-92 s alone; the "
+        f"identity held to x_matrix + eigvalsh in phase 14); rho "
         + " ".join(f"{k} {v[1]:.6f}" for k, v in sp_pinned.items()))
     dn = sp.densified()
     t = time.time()
@@ -4715,7 +4787,8 @@ def phases():
                                (vals16, Bv16, U), (vals16, Bv16, Uf)):
             assert bp.gather_instance(vals_) == "ring"
             for U2 in (U_, V.to(U_.dtype)):
-                assert bp.gather_instance(Bv_, U2, scatter=True) == (
+                assert bp.gather_instance(
+                    Bv_, U2, scatter="sparse_scatter") == (
                     "row_dot" if k == 1 and Bv_.dtype != BF16 else "ring")
         for key in SPARSE_USES["apc"] + ("sparse_cimmino_gather",
                                          "sparse_scatter cimmino"):
@@ -4866,7 +4939,35 @@ def phases():
     del ex, outs, batches, xs, Bm
 
     # 14. serving: the factor store, the servers, the CLI -----------------
-    serving_phase(card, form_launches, pinned["apc"][0], sp, sp_pinned)
+    # the dense system: the main path's, kept from phase 2 with its kernel
+    # factors; the servers' sparse traffic (phases 14 and 17 (a)): the sparse
+    # path's banded system cut in scale, with its own spectrum
+    t = time.time()
+    ssp = linsys.banded_system(**SERVE_SPARSE, seed=0, device="cuda")
+    smu = spectral.mu_extremes(spectral.x_matrix(ssp))
+    torch.cuda.synchronize()
+    t_x = time.time() - t
+    # phase 9's identity against X's own eigenvalues
+    bmu = banded_mu(spectral, ssp)[0]
+    dmu = max(abs(a - b) for a, b in zip(smu, bmu))
+    assert dmu <= 1e-12, (smu, bmu)
+    ssp_pinned = sparse_pinned(spectral, smu, ssp.m)
+    # its kernels' k-chunks measured for the servers' k before their
+    # batches, as phases 9-13 measured the sparse path's before phase 14
+    # ("measure tiles" would otherwise ride in a server's first batch)
+    wB = consistent(ssp, K_MANY, 13)[1]
+    for sname, prec in (("apc", "mixed"), ("cimmino", "default")):
+        solvers.get(sname).solve_many(
+            ssp, wB, iters=1, plan=solvers.ExecutionPlan(
+                kernel=True, precision=prec), **ssp_pinned[sname][0])
+    say(f"phase 14 data: the servers' sparse system, banded_system "
+        f"{SERVE_SPARSE} (the sparse path's cut in scale: a register hashes "
+        f"a system's whole (m, p, n) A on the host) with its spectrum "
+        f"(x_matrix + eigvalsh of {ssp.n}^2) in {t_x:.2f} s; banded_mu "
+        f"within {dmu:.1e} of it (limit 1e-12); rho "
+        + " ".join(f"{k} {v[1]:.6f}" for k, v in ssp_pinned.items()))
+    serving_phase(card, form_launches, pinned["apc"][0], dsys, ssp,
+                  ssp_pinned)
 
     # 15. the kernel ops layer: all-bf16, engine verdicts, k-chunks --------
     t15 = time.time()
@@ -5004,7 +5105,7 @@ def phases():
             scatter = kname in bp.SCATTERS
             fits = bp.gather_instance(sp_["matrix"], *sp_["copied"])
             default = bp.gather_instance(sp_["matrix"], *sp_["copied"],
-                                         scatter=scatter)
+                                         scatter=kname if scatter else None)
             insts = [i for i in bp.INSTANCES
                      if i == "row_dot" or fits == "ring"]
             outs = {i: sp_["launch"](i) for i in insts}
@@ -5103,15 +5204,8 @@ def phases():
         del X16, Xb16, V16, U16, sX, sXb, sV, sU, sY0, sR0, sD, sXs
         del timed, specs, runs
     del A16, B16
-    # (b) the measured engine verdicts, no pin, then solves under them
-    t = time.time()
-    dsys = linsys.tall_gaussian(**FULL, seed=0, device="cuda")
-    # the regenerated system's factors, handed to every later phase
-    dfac = solver.kernel_factors(
-        solver.prepare(dsys.A_op, {}))  # repro: allow[R003]
-    torch.cuda.synchronize()
-    say(f"phase 15 data: the dense main path regenerated, its kernel "
-        f"factors, in {time.time() - t:.2f} s")
+    # (b) the measured engine verdicts, no pin, then solves under them, on
+    # phase 14's dense system and factors
     sw = fs.A.vals.shape[2]
     where = {"apc": (dfac.A, dp, dn, None), "cimmino": (dfac.A, dp, dn, None),
              "apc_sparse": (fs.A.vals, sp.p, sp.n, sw),
@@ -5207,15 +5301,15 @@ def phases():
                                form_launches)
 
     # 17. mesh serving ----------------------------------------------------
-    serving_launches = mesh_serving_phase(card, form_launches, dsys, sp,
-                                          pinned, sp_pinned)
+    serving_launches = mesh_serving_phase(card, form_launches, dsys, ssp,
+                                          pinned, ssp_pinned)
 
     # 18. redundancy and the elastic runtime (no kernel) --------------------
     # on the dense system alone: the kernels' B and the sparse path's
     # systems and factors (its densified twin's B among them) go
     chol = dfac.chol
-    del dfac, sp, fs, fd, msf, sparse_facs, vals, cols, Bv, vals16, Bv16, \
-        vals32, Bv32, b
+    del dfac, sp, ssp, fs, fd, msf, sparse_facs, vals, cols, Bv, vals16, \
+        Bv16, vals32, Bv32, b
     gc.collect()
     torch.cuda.empty_cache()
     redundancy_phase(card, dsys, chol, pinned)

@@ -182,7 +182,7 @@ def check(name, lib, strict):
                 "apc_scatter": (lambda inst, kk=slice(None): bp.apc_scatter(
                     B, X[:, kk], Xb[kk], U[:, kk], 0.9, _instance=inst),
                     ops.apc_scatter_ref(B, X, Xb, U, 0.9), (B, U),
-                    dict(scatter=True))}
+                    dict(scatter="apc_scatter"))}
             for kn, (launch, want, ops_, kw) in runs.items():
                 ring = bp.gather_instance(*ops_, **kw) == "ring"
                 got = {inst: launch(inst) for inst in ("row_dot", "ring")

@@ -29,12 +29,12 @@ All seven kernels (the four gathers ``apc_gather``, ``sparse_gather``,
 have two instances, one kernel each: the "ring" for Hopper (producer
 warps streaming 16-byte copies through a shared-memory ring to consumer
 warps), and the "row dot" for the shapes the ring cannot copy.  The
-dense APC pair with a bf16 matrix and float64 operands
-(:data:`MMA_FORMS`) runs its products on the FP64 tensor cores, in both
-instances.
+four dense kernels with a bf16 matrix and float64 operands, and the
+float64 ``cimmino_scatter`` (:data:`MMA_FORMS`), run their products on
+the FP64 tensor cores, in both instances.
 :func:`gather_instance` picks one by the operands' shape and alignment
-(and, for a scatter, its dtype pair at k = 1), and both count as the
-same kernel.
+(and, for a scatter, its kernel and dtype pair at k = 1), and both
+count as the same kernel.
 
 Each kernel takes its matrix (A, B, vals or Bvals) in a storage dtype
 beside the compute dtype of the other operands, which is also its output
@@ -95,10 +95,14 @@ PAIRS = {(torch.float64, torch.float64): "f64",
 #: with_kc)
 KC_VALUES = (1, 2, 4, 8)
 #: the kernels, by the suffix of their pair, whose products run on the
-#: FP64 tensor cores (csrc/block_projection.cu kMmaForm): the dense APC
-#: pair with a bf16 matrix and float64 operands.  Both instances of each
-#: sum in one order, so its ring and row dot are bit-identical.
-MMA_FORMS = (("apc_gather", "bf16_f64"), ("apc_scatter", "bf16_f64"))
+#: FP64 tensor cores: the four dense kernels with a bf16 matrix and
+#: float64 operands (csrc/block_projection.cu kMmaForm), and the float64
+#: ``cimmino_scatter`` (kMmaF64Form), in a ring of 256-row tiles whose
+#: sums stay in the mma fragment.  Both instances of each sum in one
+#: order, so its ring and row dot are bit-identical.
+MMA_FORMS = (("apc_gather", "bf16_f64"), ("apc_scatter", "bf16_f64"),
+             ("cimmino_gather", "bf16_f64"), ("cimmino_scatter", "bf16_f64"),
+             ("cimmino_scatter", "f64"))
 
 
 #: the instances of the kernels in :data:`RINGS`, by the int64 their C
@@ -108,9 +112,10 @@ INSTANCES = {"row_dot": 0, "ring": 1}
 #: kCimminoForm, kApcMmaForm, kCimminoMmaForm): the APC gathers stage X̄
 #: and X, the Cimmino gathers X̄, the scatters U (or V), each in the
 #: Cimmino form's stage; the "_mma" forms are the same stages in the
-#: layout of the FP64 tensor cores' consumer, with its scratch (the
-#: bf16/float64 ``apc_gather``: "apc_mma", ``apc_scatter``:
-#: "cimmino_mma"; the library answers 0 for any other pair)
+#: layout of the FP64 tensor cores' consumer (:data:`MMA_FORMS`: the
+#: bf16/float64 ``apc_gather``: "apc_mma"; the other bf16/float64 three
+#: and the float64 ``cimmino_scatter``: "cimmino_mma"; the library
+#: answers 0 for any other pair)
 FORMS = {"apc": 0, "cimmino": 1, "apc_mma": 2, "cimmino_mma": 3}
 # the ring's copies move 16 bytes between 16-byte-aligned addresses
 _ALIGN = 16
@@ -299,7 +304,7 @@ def ring_smem_bytes(matrix_dtype: torch.dtype, dtype: torch.dtype, k: int,
     :data:`FORMS`) that a k-row batch launches, with its matrix in
     ``matrix_dtype`` and the compute type ``dtype``, in bytes (from the
     built library; 0 for an "_mma" form of another pair than
-    bfloat16/float64)."""
+    bfloat16/float64, but "cimmino_mma" in float64)."""
     size = lambda dt: torch.empty((), dtype=dt).element_size()  # noqa: E731
     form_id = FORMS[form]
     return int(_library(PAIRS[(matrix_dtype, dtype)]).gather_ring_smem(
@@ -307,7 +312,7 @@ def ring_smem_bytes(matrix_dtype: torch.dtype, dtype: torch.dtype, k: int,
 
 
 def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
-                    forced: str = None, scatter: bool = False) -> str:
+                    forced: str = None, scatter: str = None) -> str:
     """The instance of a kernel of :data:`RINGS` for these operands:
     "ring" when every row it copies in 16-byte pieces is a non-empty
     16-byte multiple at a 16-byte-aligned address — the rows of
@@ -322,11 +327,14 @@ def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
     float64 operands).  Strides of axes of size 1 are never used and do
     not count.
 
-    ``scatter`` marks a scatter's operands (``copied`` its staged V or U,
-    (m, k, p)).  There one fixed rule on the dtype pair and k comes on
-    top: a float64 or float32 matrix at k = 1 takes the row dot, which
-    the chip timed ahead of the ring in that case alone (PERF.md §6); a
-    bf16 matrix, or k > 1, takes the ring where it fits.
+    ``scatter`` names the scatter (one of :data:`SCATTERS`) whose
+    operands these are (``copied`` its staged V or U, (m, k, p)).  There
+    one fixed rule on the kernel, the dtype pair and k comes on top: a
+    float64 or float32 matrix at k = 1 takes the row dot, which the chip
+    timed ahead of the DFMA ring in that case alone (PERF.md §6); a bf16
+    matrix, a form of :data:`MMA_FORMS` (the float64 ``cimmino_scatter``,
+    whose row dot issues the ring's mmas from global memory and trails
+    its ring), or k > 1 takes the ring where it fits.
 
     ``forced`` names an instance to take instead (chip_smoke.py times
     both at the main path's shapes); forcing "ring" on operands it cannot
@@ -336,6 +344,9 @@ def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
     if forced is not None and forced not in INSTANCES:
         raise ValueError(f"unknown instance {forced!r}; expected one of "
                          f"{sorted(INSTANCES)}")
+    if scatter is not None and scatter not in SCATTERS:
+        raise ValueError(f"unknown scatter {scatter!r}; expected one of "
+                         f"{SCATTERS}")
     tensors = (matrix, *copied)
     steps = [matrix.shape[-1] * matrix.element_size()] + [
         t.stride(i) * t.element_size() for t in tensors
@@ -348,7 +359,9 @@ def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
                          "base addresses; these operands take the row dot")
     if forced:
         return forced
-    if scatter and matrix.dtype != torch.bfloat16 and copied[0].shape[-2] == 1:
+    if (scatter and matrix.dtype != torch.bfloat16
+            and copied[0].shape[-2] == 1 and (scatter, PAIRS.get(
+                (matrix.dtype, copied[0].dtype))) not in MMA_FORMS):
         return "row_dot"
     return "ring" if fits else "row_dot"
 
@@ -462,12 +475,12 @@ def apc_scatter(B: torch.Tensor, X: torch.Tensor, Xbar: torch.Tensor,
     B (m, n, p) contiguous; X (m, k, n) and U (m, k, p) with unit stride
     along their last axis; X̄ (k, n) shared by all workers; γ a Python
     float (a runtime kernel argument).  Y is allocated in X's layout.
-    The instance is ``gather_instance(B, U, scatter=True)``, or
+    The instance is ``gather_instance(B, U, scatter="apc_scatter")``, or
     ``_instance`` where given.
     """
     d = _check("apc_scatter", B=(B, "mnp"), X=(X, "mkn"), Xbar=(Xbar, "kn"),
                U=(U, "mkp"))
-    instance = gather_instance(B, U, forced=_instance, scatter=True)
+    instance = gather_instance(B, U, forced=_instance, scatter="apc_scatter")
     Y = torch.empty_like(X)
     _launch("apc_scatter", B, Y, B.data_ptr(), X.data_ptr(),
             Xbar.data_ptr(), U.data_ptr(), float(gamma), Y.data_ptr(),
@@ -504,11 +517,12 @@ def cimmino_scatter(B: torch.Tensor, V: torch.Tensor, *, kc: int = None,
     B (m, n, p) contiguous; V (m, k, p) with unit stride along p (any
     worker/row strides, so the (m, k, p) view of a (k, m, p) batch goes
     in uncopied).  Returns R (m, k, n), contiguous, in V's dtype.  The
-    instance is ``gather_instance(B, V, scatter=True)``, or ``_instance``
-    where given.
+    instance is ``gather_instance(B, V, scatter="cimmino_scatter")``, or
+    ``_instance`` where given.
     """
     d = _check("cimmino_scatter", B=(B, "mnp"), V=(V, "mkp"))
-    instance = gather_instance(B, V, forced=_instance, scatter=True)
+    instance = gather_instance(B, V, forced=_instance,
+                               scatter="cimmino_scatter")
     R = torch.empty((d["m"], d["k"], d["n"]), dtype=V.dtype, device=B.device)
     _launch("cimmino_scatter", B, R, B.data_ptr(), V.data_ptr(),
             R.data_ptr(), d["m"], d["n"], d["p"], d["k"], V.stride(0),
@@ -583,8 +597,8 @@ def sparse_scatter(Bvals: torch.Tensor, cols: torch.Tensor, U: torch.Tensor,
     Bvals (m, w, p) contiguous; cols (m, w) contiguous int64; U, X and
     out with unit stride along their last axis (any worker/row strides);
     X̄ (k, n).  Returns ``out``.  The instance is
-    ``gather_instance(Bvals, U, scatter=True)``, or ``_instance`` where
-    given.
+    ``gather_instance(Bvals, U, scatter="sparse_scatter")``, or
+    ``_instance`` where given.
     """
     cimmino = X is None
     operands = dict(Bvals=(Bvals, "mwp"), U=(U, "mkp"), out=(out, "mkn"))
@@ -594,7 +608,7 @@ def sparse_scatter(Bvals: torch.Tensor, cols: torch.Tensor, U: torch.Tensor,
             raise ValueError("sparse_scatter: out must not alias X")
     d = _check("sparse_scatter", index=(cols, "mw"), **operands)
     instance = gather_instance(Bvals, U, forced=_instance,
-                               scatter=True)
+                               scatter="sparse_scatter")
     _launch("sparse_scatter", Bvals, out, Bvals.data_ptr(),
             cols.data_ptr(), None if cimmino else X.data_ptr(),
             None if cimmino else Xbar.data_ptr(), U.data_ptr(), float(gamma),

@@ -154,12 +154,14 @@
 // 168 registers; and setmaxnreg, moving registers from the producers to
 // the consumers, which hung the kernel.
 //
-// The tensor-core form.  The dense APC pair with a bf16 matrix and
-// float64 operands (apc_gather_bf16_f64 and apc_scatter_bf16_f64, the
-// main path's precision="mixed"; kMmaForm) streams a quarter of the
-// float64 form's bytes, so at k = 8 the DFMA consumer above, not the
-// bytes, set its pace (39–42 % of the bound).  Its products run on the
-// FP64 tensor cores (mma.sync m16n8k8 .f64), in a ring of its own shape:
+// The tensor-core form.  The four dense kernels with a bf16 matrix and
+// float64 operands (apc_gather, apc_scatter, cimmino_gather and
+// cimmino_scatter _bf16_f64, the main path's precision="mixed";
+// kMmaForm) stream a quarter of the float64 form's bytes, so at k = 8
+// the DFMA consumer above, not the bytes, set their pace (39–44 % of the
+// bound).  Their products run on the FP64 tensor cores (mma.sync
+// m16n8k8 .f64), in a ring of its own shape; so do the float64
+// cimmino_scatter's (kMmaF64Form, below):
 //
 //   * M = the matrix's rows (l of A_w, j of B_w), N = the k-chunk's 8
 //     batch rows (zero past KC and the tile's), K = its columns.  Each
@@ -173,8 +175,9 @@
 //   * A tile is 256 rows (kMmaRows): 8 consumer warps of 32 rows (two
 //     mmas of 16), each against every column, so a stage's operand rows
 //     are read from L2 once per 256 rows of the matrix: a quarter of its
-//     bytes in the gather at KC = 8 (X̄ and X), an eighth in the scatter
-//     (U).  On the card an SM takes in about 3.2–3.8 TB/s of L2 traffic
+//     bytes in the APC gather at KC = 8 (X̄ and X), an eighth in the
+//     Cimmino gather (X̄) and the scatters (U, V).  On the card an SM
+//     takes in about 3.2–3.8 TB/s of L2 traffic
 //     in all, matrix and operand alike: with the rings' 64-row tiles the
 //     gather's operand equalled its matrix, and it ran at half its bound
 //     whatever its consumer did.
@@ -195,9 +198,22 @@
 //     its 8 batch rows in one mma; every warp forms the X̄ − X of its
 //     fragments (8 times a stage: with the consumers' arithmetic removed
 //     altogether the kernel ran no faster).  The epilogues take the sums
-//     from the fragment: the gather stores U, the scatter X + γ((X̄ − X) − C),
+//     from the fragment: the gathers store U and the Cimmino scatter R
+//     as they are (MmaStore), the APC scatter X + γ((X̄ − X) − C),
 //     loading X and X̄ at the fragment's places.  No shuffle tree and no
 //     cross-warp reduction.
+//   * The float64 cimmino_scatter (R = V·Bᵀ; kMmaF64Form) takes the same
+//     ring: its DFMA ring (64-row tiles, 512-byte segments) lost a fixed
+//     time a tile, 31 tiles a block at the main path's shapes, each
+//     ending in the reduce-scatter tree, and trailed torch.matmul at
+//     k = 8.  Its stage takes 128 bytes (16 columns, two k-steps) of each
+//     of 256 rows of B_w, six stages in the budget; the consumers read a
+//     lane's pair of columns of its 4 rows with 16-byte loads from the
+//     operand's swizzled layout and feed them to the mma unwidened, zero
+//     past the ragged chunk's columns (a float64 row is a 16-byte
+//     multiple: an even p, not a multiple of 8).  Its row dot issues the
+//     same mmas.  Float64 arithmetic does not bind it (8.6 GFLOP at
+//     k = 8: 0.13 ms on the tensor cores against 1.29 ms of bytes).
 //
 // Tried on the card for this form and dropped (PERF.md): 64-row tiles
 // with the columns of a stage split over the 8 warps and their sums
@@ -217,7 +233,9 @@
 // passed to the entry as one int64 (kRowDot or kRing); a scatter with a
 // float64 or float32 matrix at k = 1 takes the row dot there too, a
 // fixed rule from the chip's timings (its one batch row is no stage's
-// worth of reuse, and the ring's per-tile cost is not earned back).
+// worth of reuse, and the DFMA ring's per-tile cost is not earned back),
+// but for the float64 cimmino_scatter, whose tensor-core row dot trails
+// its ring at every k (block_projection.MMA_FORMS).
 //
 // Two types name every kernel: the matrix type TM of A, B, vals and
 // Bvals, and the compute type T of X, X̄, U, V, Y and R; a third
@@ -397,7 +415,8 @@ constexpr int kGatherRows = 4;
 constexpr int64_t kRowDot = 0, kRing = 1;          // the entries' instance
 // gather_ring_smem's forms: a stage of X̄ and X (kApcForm), of X̄, U or V
 // alone (kCimminoForm), and the same in the tensor-core form's layout
-// (kApcMmaForm: apc_gather, kCimminoMmaForm: apc_scatter; bf16/f64 only)
+// (kApcMmaForm: apc_gather; kCimminoMmaForm: the other three bf16/f64
+// kernels and the f64 cimmino_scatter)
 constexpr int64_t kApcForm = 0, kCimminoForm = 1, kApcMmaForm = 2,
                   kCimminoMmaForm = 3;
 constexpr int kRingWarps = 8;                      // consumer warps
@@ -409,54 +428,72 @@ constexpr int kRingSegment = 512;       // bytes of an operand row a stage
 constexpr int kRingBudget = 200 * 1024;
 constexpr int kRingMaxStages = 16;
 
-// The form whose products run on the FP64 tensor cores (header): the
-// dense APC pair (apc_gather, apc_scatter) with a bf16 matrix and
-// float64 operands.  kApc: the gather's kDiff, the scatter's kAxpy.
-template <typename TM, typename T, bool kApc, bool kSparse>
+// The forms whose products run on the FP64 tensor cores (header): the
+// four dense kernels with a bf16 matrix and float64 operands
+// (apc_gather, apc_scatter, cimmino_gather, cimmino_scatter).
+template <typename TM, typename T, bool kSparse>
 constexpr bool kMmaForm = std::is_same_v<TM, __nv_bfloat16> &&
-                          std::is_same_v<T, double> && kApc && !kSparse;
+                          std::is_same_v<T, double> && !kSparse;
+
+// The float64 Cimmino scatter (cimmino_scatter_f64) on the same
+// consumer, its matrix read as float64 fragments (header).  kAxpy: the
+// APC scatter's epilogue, which keeps its DFMA ring.
+template <typename TM, typename T, bool kAxpy, bool kSparse>
+constexpr bool kMmaF64Form = std::is_same_v<TM, double> &&
+                             std::is_same_v<T, double> && !kAxpy &&
+                             !kSparse;
 
 // The tensor-core form's tile: each consumer warp owns 32 of its rows
-// (two mmas of 16) against every column.
+// (two mmas of 16) against every column; a stage takes 128 bytes of each
+// matrix row (half a 256-byte L2 block): 64 bf16 or 16 float64 columns.
 constexpr int kMmaWarpRows = 32;
 constexpr int kMmaRows = kRingWarps * kMmaWarpRows;
-
-// A stage holds C = kCols columns: M[rows][kCols] in TM (kRingRows rows,
-// kMmaRows under kMma), then X̄[KC][kCols] and, under kDiff, X[KC][kCols]
-// in T (kOperandRows rows of the right operand, 512 bytes each).  A
-// matrix row segment is kPieces 16-byte copies.  Under kMma (the
-// tensor-core form) the producers store their pieces swizzled
-// (mma_matrix_piece, mma_operand_piece).
-template <typename TM, typename T, int KC, bool kDiff, bool kMma = false>
-struct Ring {
-  static constexpr int kRows = kMma ? kMmaRows : kRingRows;
-  static constexpr int kCols = kRingSegment / sizeof(T);
-  static constexpr int kRowBytes = kCols * sizeof(TM);
-  static constexpr int kPieces = kRowBytes / 16;
-  static constexpr int kMatrixBytes = kRows * kRowBytes;
-  static constexpr int kOperandRows = (kDiff ? 2 : 1) * KC;
-  static constexpr int kStageBytes =
-      kMatrixBytes + kOperandRows * kRingSegment;
-  static constexpr int kStages =
-      static_cast<int>(min64(kRingBudget / kStageBytes, kRingMaxStages));
-  static constexpr int kSmem = kStages * kStageBytes;
-  static_assert(kStages >= 2 && kCols % 32 == 0 && 32 % kPieces == 0,
-                "ring shape");
-  static_assert(!kMma || kPieces == 8,
-                "a k-step's 8 columns are one piece of each matrix row");
-};
+constexpr int kMmaSegment = 128;
 
 // Where the tensor-core form's producers store piece j of matrix row r
 // and of operand row kk (X̄ row kk, or X row kk): ldmatrix reads one
-// piece of each of 8 consecutive rows, and a 16-byte load's phase the
-// same piece of two consecutive operand rows, each in a bank group of
-// its own.
+// piece of each of 8 consecutive bf16 rows, and a 16-byte load's phase
+// the same piece of two consecutive operand rows (or float64 matrix
+// rows: a lane's pair of columns), each in a bank group of its own.
 __host__ __device__ constexpr int mma_matrix_piece(int r, int j) {
   return j ^ (r & 7);
 }
 __host__ __device__ constexpr int mma_operand_piece(int kk, int j) {
   return j ^ ((kk & 1) << 2);
 }
+
+// A stage holds C = kCols columns: M[rows][kCols] in TM (kRingRows rows,
+// kMmaRows under kMma), then X̄[KC][kCols] and, under kDiff, X[KC][kCols]
+// in T (kOperandRows rows of the right operand, kOperandBytes each: 512,
+// or 128 in the float64 tensor-core form).  A matrix row segment is
+// kPieces 16-byte copies.  Under kMma (the tensor-core form) the
+// producers store their pieces swizzled (matrix_piece,
+// mma_operand_piece).
+template <typename TM, typename T, int KC, bool kDiff, bool kMma = false>
+struct Ring {
+  static constexpr int kRows = kMma ? kMmaRows : kRingRows;
+  static constexpr int kCols = kMma ? kMmaSegment / sizeof(TM)
+                                    : kRingSegment / sizeof(T);
+  static constexpr int kRowBytes = kCols * sizeof(TM);
+  static constexpr int kPieces = kRowBytes / 16;
+  static constexpr int kMatrixBytes = kRows * kRowBytes;
+  static constexpr int kOperandRows = (kDiff ? 2 : 1) * KC;
+  static constexpr int kOperandBytes = kCols * sizeof(T);
+  static constexpr int kStageBytes =
+      kMatrixBytes + kOperandRows * kOperandBytes;
+  static constexpr int kStages =
+      static_cast<int>(min64(kRingBudget / kStageBytes, kRingMaxStages));
+  static constexpr int kSmem = kStages * kStageBytes;
+  static_assert(kStages >= 2 && kCols % 8 == 0 && 32 % kPieces == 0 &&
+                    (kMma || kCols % 32 == 0),
+                "ring shape");
+  static_assert(!kMma || kPieces == 8, "a matrix row segment is 8 pieces");
+  // The place of piece j of matrix row r under kMma: ldmatrix's layout
+  // for a bf16 matrix, the operand's for a float64 one.
+  __host__ __device__ static constexpr int matrix_piece(int r, int j) {
+    return sizeof(TM) == 2 ? mma_matrix_piece(r, j) : mma_operand_piece(r, j);
+  }
+};
 
 // A packed row dot (the bf16 scatters) loads 16 bytes of a row a lane:
 // lane l takes the kPack consecutive columns c0 + kPack·l ... of each
@@ -468,7 +505,7 @@ __host__ __device__ constexpr int mma_operand_piece(int kk, int j) {
 // and was bound by them (PERF.md).  So a bf16 scatter's two instances
 // sum in two orders: its ring is bit-identical to the f64 (f32) ring on
 // the matrix widened, its packed row dot is not.  (The tensor-core
-// form's apc_scatter has neither: its two instances are bit-identical.)
+// form's scatters have neither: their two instances are bit-identical.)
 constexpr int kPack = 16 / sizeof(__nv_bfloat16);
 static_assert(kChunk == 32 * kPack, "one pack a lane a chunk");
 
@@ -694,29 +731,6 @@ __device__ __forceinline__ void scatter_block(
   }
 }
 
-template <typename TM, typename T, int KC, int R>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-cimmino_gather_kernel(const TM* __restrict__ A, const T* __restrict__ Xbar,
-                      T* __restrict__ U, int64_t p, int64_t n, int64_t k,
-                      int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  __shared__ Acc<T> Vs[KC][kChunk];
-  gather_block<TM, T, KC, R, false, false>(A, nullptr, Xbar, nullptr, U, p, n,
-                                       k, 0, 0, sxb_k, su_w, su_k, Vs);
-}
-
-template <typename TM, typename T, int KC, int R>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-cimmino_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ V,
-                       T* __restrict__ Rout, int64_t n, int64_t p,
-                       int64_t k, int64_t sv_w, int64_t sv_k, int64_t sr_w,
-                       int64_t sr_k) {
-  __shared__ Acc<T> Vs[KC][kChunk];
-  __shared__ Acc<T> Cs[KC][kWarps * R];        // the reduced B·V per row
-  scatter_block<TM, T, KC, R, false, false>(B, nullptr, nullptr, nullptr, V,
-                                        Acc<T>(0), Rout, n, p, k, 0, 0, 0, sv_w,
-                                        sv_k, sr_w, sr_k, Vs, Cs);
-}
-
 // The sparse kernels: w is the support width, the row-dot's column count
 // (gathers) or row count (scatters).
 template <typename TM, typename T, int KC, int R>
@@ -907,7 +921,7 @@ __device__ __forceinline__ void ring_cols(int64_t (&g)[C / 32],
 // kPerWorker (the scatters: the Cimmino form, dense) the operand is
 // worker w's own rows, at Xbar + w·sxb_w, not the one shared X̄.  `it`
 // counts the block's (tile, chunk) steps: stage it % S, round it / S.
-// Under kMma each piece goes to its swizzled place (mma_matrix_piece,
+// Under kMma each piece goes to its swizzled place (Ring::matrix_piece,
 // mma_operand_piece).
 template <typename TM, typename T, int KC, bool kDiff, bool kSparse,
           bool kPerWorker, bool kMma>
@@ -940,20 +954,22 @@ __device__ __forceinline__ void ring_produce(
     T* XBs = reinterpret_cast<T*>(stage + Cfg::kMatrixBytes);
     T* Xs = XBs + KC * C;
     mbar_wait(&ring_empty[s], ((it / Cfg::kStages) & 1) ^ 1);
-    int64_t gc[C / 32] = {};
-    if (kSparse && pw < Cfg::kOperandRows) {
+    int64_t gc[sizeof(g) / sizeof(g[0])] = {};
+    if constexpr (kSparse) {
+      if (pw < Cfg::kOperandRows) {
 #pragma unroll
-      for (int j = 0; j < C / 32; ++j) gc[j] = g[j];
-      if (c0 + C < n)
-        ring_cols<C>(g, cols, tl.w, c0 + C, n);
-      else if (next_w >= 0)
-        ring_cols<C>(g, cols, next_w, 0, n);
+        for (int j = 0; j < C / 32; ++j) gc[j] = g[j];
+        if (c0 + C < n)
+          ring_cols<C>(g, cols, tl.w, c0 + C, n);
+        else if (next_w >= 0)
+          ring_cols<C>(g, cols, next_w, 0, n);
+      }
     }
     if (piece < mpieces)
       for (int r = pw * kRowsAtOnce + lane / Cfg::kPieces; r < tl.rows;
            r += kRingLoaders * kRowsAtOnce) {
         if constexpr (kMma)
-          cp_async16_l2_256(Ms + r * C + mma_matrix_piece(r, piece) * kMPer,
+          cp_async16_l2_256(Ms + r * C + Cfg::matrix_piece(r, piece) * kMPer,
                             Mt + r * n + c0);
         else
           cp_async16(Ms + r * C + piece * kMPer, Mt + r * n + c0);
@@ -1352,29 +1368,47 @@ __device__ __forceinline__ void mma_rows(double (&acc)[2][4],
   }
 }
 
+// The same with a float64 matrix: f[i] holds rows 8i + g, columns 2t
+// and 2t + 1 of the 8, each fed to the mma as it is.
+__device__ __forceinline__ void mma_rows(double (&acc)[2][4],
+                                         const double (&f)[4][2],
+                                         const double (&b)[2]) {
+#pragma unroll
+  for (int rb = 0; rb < 2; ++rb) {
+    const double a[4] = {f[2 * rb][0], f[2 * rb + 1][0], f[2 * rb][1],
+                         f[2 * rb + 1][1]};
+    mma_f64(acc[rb], a, b);
+  }
+}
+
 // The ring's k-steps of one stage (Ring<..., kMma>), those below its nv
-// valid columns, in column order: the warp's 32 rows of the k-step's
-// piece through one ldmatrix.x4, and the operand's pair of columns (X̄,
+// valid columns, in column order, and the operand's pair of columns (X̄,
 // or X̄ − X under kDiff) through one 16-byte load each, from their
-// swizzled places.  `live`: this lane's batch row is one of the tile's.
-template <int KC, bool kDiff>
+// swizzled places.  A bf16 matrix: the warp's 32 rows of the k-step's
+// piece through one ldmatrix.x4; a float64 one (16 columns, two k-steps,
+// a stage): a lane's pair of columns of each of its 4 rows through a
+// 16-byte load, both pairs zero past nv (a float64 row is a 16-byte
+// multiple, so nv is even, not a multiple of 8).  `live`: this lane's
+// batch row is one of the tile's.
+template <typename TM, int KC, bool kDiff>
 __device__ __forceinline__ void mma_stage(const unsigned char* stage,
                                           int64_t nv, bool live,
                                           double (&acc)[2][4]) {
-  using Cfg = Ring<__nv_bfloat16, double, KC, kDiff, true>;
+  using Cfg = Ring<TM, double, KC, kDiff, true>;
+  constexpr bool kWide = sizeof(TM) == 8;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int row = kMmaWarpRows * (threadIdx.x / 32) + lane;
+  const int r0 = kMmaWarpRows * (threadIdx.x / 32);
+  const int row = r0 + lane;
   const unsigned char* mrow = stage + row * Cfg::kRowBytes;
   const double* xb =
       reinterpret_cast<const double*>(stage + Cfg::kMatrixBytes) +
       g * Cfg::kCols;
 #pragma unroll
-  for (int s = 0; s < Cfg::kPieces; ++s) {
+  for (int s = 0; s < Cfg::kCols / 8; ++s) {
     if (8 * s >= nv) break;
-    uint32_t w[4];
-    ldmatrix_x4(w, mrow + mma_matrix_piece(row, s) * 16);
+    const bool valid = !kWide || 8 * s + 2 * t < nv;
     double b[2] = {0.0, 0.0};
-    if (live) {
+    if (live && valid) {
       const double* v = xb + 2 * mma_operand_piece(g, 4 * s + t);
       const double2 e = *reinterpret_cast<const double2*>(v);
       b[0] = e.x;
@@ -1386,7 +1420,24 @@ __device__ __forceinline__ void mma_stage(const unsigned char* stage,
         b[1] -= x.y;
       }
     }
-    mma_rows(acc, w, b);
+    if constexpr (kWide) {
+      double f[4][2] = {};
+      if (valid)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + 8 * i + g;
+          const double2 e = *reinterpret_cast<const double2*>(
+              stage + r * Cfg::kRowBytes +
+              Cfg::matrix_piece(r, 4 * s + t) * 16);
+          f[i][0] = e.x;
+          f[i][1] = e.y;
+        }
+      mma_rows(acc, f, b);
+    } else {
+      uint32_t w[4];
+      ldmatrix_x4(w, mrow + Cfg::matrix_piece(row, s) * 16);
+      mma_rows(acc, w, b);
+    }
   }
 }
 
@@ -1395,22 +1446,28 @@ __device__ __forceinline__ void mma_stage(const unsigned char* stage,
 // zero past `rows` and n) and the operand X̄ (rows g of Xb, sxb_k
 // apart), minus X under kDiff, zero past n and outside the live batch
 // rows.
-template <bool kDiff>
+template <typename TM, bool kDiff>
 __device__ __forceinline__ void mma_global(
-    const __nv_bfloat16* __restrict__ M, int rows, int64_t n, int64_t c,
+    const TM* __restrict__ M, int rows, int64_t n, int64_t c,
     const double* __restrict__ Xb, const double* __restrict__ X,
     int64_t sxb_k, int64_t sx_k, bool live, double (&acc)[2][4]) {
   const int lane = threadIdx.x % 32, g = lane / 4;
   const int r0 = kMmaWarpRows * (threadIdx.x / 32);
   const int64_t cc = c + 2 * (lane % 4);
-  const uint16_t* bits = reinterpret_cast<const uint16_t*>(M);
   uint32_t w[4];
+  double f[4][2];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + 8 * i + g;
-    const uint32_t lo = r < rows && cc < n ? bits[r * n + cc] : 0u;
-    const uint32_t hi = r < rows && cc + 1 < n ? bits[r * n + cc + 1] : 0u;
-    w[i] = lo | hi << 16;
+    if constexpr (sizeof(TM) == 8) {
+      f[i][0] = r < rows && cc < n ? M[r * n + cc] : 0.0;
+      f[i][1] = r < rows && cc + 1 < n ? M[r * n + cc + 1] : 0.0;
+    } else {
+      const uint16_t* bits = reinterpret_cast<const uint16_t*>(M);
+      const uint32_t lo = r < rows && cc < n ? bits[r * n + cc] : 0u;
+      const uint32_t hi = r < rows && cc + 1 < n ? bits[r * n + cc + 1] : 0u;
+      w[i] = lo | hi << 16;
+    }
   }
   double b[2] = {0.0, 0.0};
   if (live) {
@@ -1421,7 +1478,10 @@ __device__ __forceinline__ void mma_global(
         if constexpr (kDiff) b[e] -= X[g * sx_k + cc + e];
       }
   }
-  mma_rows(acc, w, b);
+  if constexpr (sizeof(TM) == 8)
+    mma_rows(acc, f, b);
+  else
+    mma_rows(acc, w, b);
 }
 
 // Calls f(row in the tile, batch row kk, sum) for each of this lane's
@@ -1438,15 +1498,16 @@ __device__ __forceinline__ void mma_sums(const double (&acc)[2][4], F f) {
       f(r0 + 16 * rb + 8 * (i >> 1), 2 * (lane % 4) + (i & 1), acc[rb][i]);
 }
 
-// The gather's epilogue, from the fragment: U[w, k0 + kk, row0 + r].
-struct MmaGatherStore {
-  double* __restrict__ U;
-  int64_t su_w, su_k;
+// The plain epilogue, from the fragment: each sum stored as it is at
+// out[w, k0 + kk, row0 + r] (the gathers' U, the Cimmino scatter's R).
+struct MmaStore {
+  double* __restrict__ out;
+  int64_t so_w, so_k;
   __device__ __forceinline__ void operator()(const double (&acc)[2][4],
                                              const RingTile& tl) const {
-    double* Ut = U + tl.w * su_w + tl.k0 * su_k + tl.row0;
+    double* Ot = out + tl.w * so_w + tl.k0 * so_k + tl.row0;
     mma_sums(acc, [&](int r, int kk, double sum) {
-      if (r < tl.rows && kk < tl.kvalid) Ut[kk * su_k + r] = sum;
+      if (r < tl.rows && kk < tl.kvalid) Ot[kk * so_k + r] = sum;
     });
   }
 };
@@ -1487,14 +1548,13 @@ struct MmaScatterStore {
 
 // A consumer warp of the tensor-core ring, over the rows [g, end) in
 // tiles of up to 256 rows: its 32 rows of each tile against every
-// stage as it lands, then `store` (MmaGatherStore, MmaScatterStore).  A
-// warp with no rows in the tile still waits for and releases every
-// stage.
-template <int KC, bool kDiff, typename Store>
+// stage as it lands, then `store` (MmaStore, MmaScatterStore).  A warp
+// with no rows in the tile still waits for and releases every stage.
+template <typename TM, int KC, bool kDiff, typename Store>
 __device__ __forceinline__ void mma_consume(int64_t g, int64_t end,
                                             int64_t p, int64_t n, int64_t k,
                                             Store store) {
-  using Cfg = Ring<__nv_bfloat16, double, KC, kDiff, true>;
+  using Cfg = Ring<TM, double, KC, kDiff, true>;
   const int lane = threadIdx.x % 32;
   const int r0 = kMmaWarpRows * (threadIdx.x / 32);
   uint32_t it = 0;
@@ -1507,8 +1567,8 @@ __device__ __forceinline__ void mma_consume(int64_t g, int64_t end,
       const int s = it % Cfg::kStages;
       mbar_wait(&ring_full[s], (it / Cfg::kStages) & 1);
       if (active)
-        mma_stage<KC, kDiff>(ring_smem + s * Cfg::kStageBytes, n - c0, live,
-                             acc);
+        mma_stage<TM, KC, kDiff>(ring_smem + s * Cfg::kStageBytes, n - c0,
+                                 live, acc);
       __syncwarp();
       if (lane == 0) mbar_arrive(&ring_empty[s]);
     }
@@ -1522,10 +1582,11 @@ __device__ __forceinline__ void mma_consume(int64_t g, int64_t end,
 // in the same order, with the same epilogue: bit for bit the ring's
 // sums, from fragments loaded straight from global memory (any shape,
 // any alignment).  M is the worker stack (m, rows, n), Xb the operand
-// rows (X̄, or U_w at w·sxb_w), X the APC gather's (null otherwise).
-template <int KC, bool kDiff, typename Store>
+// rows (X̄, or U_w / V_w at w·sxb_w), X the APC gather's (null
+// otherwise).
+template <typename TM, int KC, bool kDiff, typename Store>
 __device__ __forceinline__ void mma_row_dot(
-    const __nv_bfloat16* __restrict__ M, const double* __restrict__ X,
+    const TM* __restrict__ M, const double* __restrict__ X,
     const double* __restrict__ Xb, int64_t rows, int64_t n, int64_t k,
     int64_t sx_w, int64_t sx_k, int64_t sxb_w, int64_t sxb_k,
     Store store) {
@@ -1537,17 +1598,18 @@ __device__ __forceinline__ void mma_row_dot(
   tl.kvalid = static_cast<int>(min64(k - tl.k0, KC));
   if (kMmaWarpRows * static_cast<int>(threadIdx.x / 32) >= tl.rows) return;
   const bool live = threadIdx.x % 32 / 4 < tl.kvalid;
-  const __nv_bfloat16* Mt = M + (tl.w * rows + tl.row0) * n;
+  const TM* Mt = M + (tl.w * rows + tl.row0) * n;
   const double* Xbt = Xb + tl.w * sxb_w + tl.k0 * sxb_k;
   const double* Xt = kDiff ? X + tl.w * sx_w + tl.k0 * sx_k : nullptr;
   double acc[2][4] = {};
   for (int64_t c = 0; c < n; c += 8)
-    mma_global<kDiff>(Mt, tl.rows, n, c, Xbt, Xt, sxb_k, sx_k, live, acc);
+    mma_global<TM, kDiff>(Mt, tl.rows, n, c, Xbt, Xt, sxb_k, sx_k, live,
+                          acc);
   store(acc, tl);
 }
 
-// The APC pair's row-dot kernels: in the tensor-core form the row dot
-// above, 64 rows a block; in every other form the row dot of
+// The dense kernels' row-dot kernels: in the tensor-core forms the row
+// dot above, 256 rows a block; in every other form the row dot of
 // gather_block and scatter_block.
 template <typename TM, typename T, int KC, int R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -1555,9 +1617,9 @@ apc_gather_kernel(const TM* __restrict__ A, const T* __restrict__ X,
                   const T* __restrict__ Xbar, T* __restrict__ U,
                   int64_t p, int64_t n, int64_t k, int64_t sx_w,
                   int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  if constexpr (kMmaForm<TM, T, true, false>) {
-    mma_row_dot<KC, true>(A, X, Xbar, p, n, k, sx_w, sx_k, 0, sxb_k,
-                          MmaGatherStore{U, su_w, su_k});
+  if constexpr (kMmaForm<TM, T, false>) {
+    mma_row_dot<TM, KC, true>(A, X, Xbar, p, n, k, sx_w, sx_k, 0, sxb_k,
+                              MmaStore{U, su_w, su_k});
   } else {
     __shared__ Acc<T> Vs[KC][kChunk];
     gather_block<TM, T, KC, R, true, false>(A, X, Xbar, nullptr, U, p, n, k,
@@ -1573,8 +1635,8 @@ apc_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ X,
                    Acc<T> gamma, T* __restrict__ Y, int64_t n, int64_t p,
                    int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                    int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
-  if constexpr (kMmaForm<TM, T, true, false>) {
-    mma_row_dot<KC, false>(
+  if constexpr (kMmaForm<TM, T, false>) {
+    mma_row_dot<TM, KC, false>(
         B, nullptr, U, n, p, k, 0, 0, su_w, su_k,
         MmaScatterStore{X, Xbar, gamma, Y, sx_w, sx_k, sxb_k, sy_w, sy_k});
   } else {
@@ -1583,6 +1645,42 @@ apc_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ X,
     scatter_block<TM, T, KC, R, true, false>(B, nullptr, X, Xbar, U, gamma,
                                              Y, n, p, k, sx_w, sx_k, sxb_k,
                                              su_w, su_k, sy_w, sy_k, Vs, Cs);
+  }
+}
+
+template <typename TM, typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+cimmino_gather_kernel(const TM* __restrict__ A, const T* __restrict__ Xbar,
+                      T* __restrict__ U, int64_t p, int64_t n, int64_t k,
+                      int64_t sxb_k, int64_t su_w, int64_t su_k) {
+  if constexpr (kMmaForm<TM, T, false>) {
+    mma_row_dot<TM, KC, false>(A, nullptr, Xbar, p, n, k, 0, 0, 0, sxb_k,
+                               MmaStore{U, su_w, su_k});
+  } else {
+    __shared__ Acc<T> Vs[KC][kChunk];
+    gather_block<TM, T, KC, R, false, false>(A, nullptr, Xbar, nullptr, U, p,
+                                             n, k, 0, 0, sxb_k, su_w, su_k,
+                                             Vs);
+  }
+}
+
+template <typename TM, typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+cimmino_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ V,
+                       T* __restrict__ Rout, int64_t n, int64_t p,
+                       int64_t k, int64_t sv_w, int64_t sv_k, int64_t sr_w,
+                       int64_t sr_k) {
+  if constexpr (kMmaForm<TM, T, false> ||
+                kMmaF64Form<TM, T, false, false>) {
+    mma_row_dot<TM, KC, false>(B, nullptr, V, n, p, k, 0, 0, sv_w, sv_k,
+                               MmaStore{Rout, sr_w, sr_k});
+  } else {
+    __shared__ Acc<T> Vs[KC][kChunk];
+    __shared__ Acc<T> Cs[KC][kWarps * R];      // the reduced B·V per row
+    scatter_block<TM, T, KC, R, false, false>(B, nullptr, nullptr, nullptr,
+                                              V, Acc<T>(0), Rout, n, p, k, 0,
+                                              0, 0, sv_w, sv_k, sr_w, sr_k,
+                                              Vs, Cs);
   }
 }
 
@@ -1627,8 +1725,10 @@ __device__ __forceinline__ void ring_run(
   if (warp >= kRingWarps) {
     uint32_t it = 0;
     RingTile tl = ring_tile<KC, Cfg::kRows>(g, end, p, k);
-    int64_t cg[Cfg::kCols / 32] = {};      // support columns, a step ahead
-    if (kSparse && g < end) ring_cols<Cfg::kCols>(cg, cols, tl.w, 0, n);
+    // support columns, a step ahead (kSparse: Cfg is the 512-byte stage)
+    int64_t cg[Ring<TM, T, KC, kDiff>::kCols / 32] = {};
+    if constexpr (kSparse)
+      if (g < end) ring_cols<Cfg::kCols>(cg, cols, tl.w, 0, n);
     while (g < end) {
       const int64_t gn = g + tl.rows;
       const RingTile next =
@@ -1641,7 +1741,7 @@ __device__ __forceinline__ void ring_run(
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   } else if constexpr (kMma) {
-    mma_consume<KC, kDiff>(g, end, p, n, k, store);
+    mma_consume<TM, KC, kDiff>(g, end, p, n, k, store);
   } else {
     ring_consume<TM, T, KC, kDiff>(g, end, p, n, k, store);
   }
@@ -1656,10 +1756,10 @@ __device__ __forceinline__ void gather_ring(
     const T* __restrict__ X, const T* __restrict__ Xbar, T* __restrict__ U,
     int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
     int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  if constexpr (kMmaForm<TM, T, kDiff, kSparse>) {
+  if constexpr (kMmaForm<TM, T, kSparse>) {
     ring_run<TM, T, KC, kDiff, kSparse, false, true>(
         M, cols, X, Xbar, m, p, n, k, sx_w, sx_k, 0, sxb_k,
-        MmaGatherStore{U, su_w, su_k});
+        MmaStore{U, su_w, su_k});
   } else {
     ring_run<TM, T, KC, kDiff, kSparse, false, false>(
         M, cols, X, Xbar, m, p, n, k, sx_w, sx_k, 0, sxb_k,
@@ -1670,7 +1770,8 @@ __device__ __forceinline__ void gather_ring(
 // C[w, i, j] = sum_l U[w, i, l] · M[w, j, l] over the rows j of M = B_w
 // (n x p; Bvals_w, w x p, under kSparse), streamed as the Cimmino
 // gathers stream A with U_w (V_w) as their X̄, then the scatter's
-// epilogue (RingScatterStore).
+// epilogue (RingScatterStore; in the tensor-core forms MmaScatterStore
+// under kAxpy, MmaStore otherwise).
 template <typename TM, typename T, int KC, bool kAxpy, bool kSparse>
 __device__ __forceinline__ void scatter_ring(
     const TM* __restrict__ M, const int64_t* __restrict__ cols,
@@ -1678,10 +1779,15 @@ __device__ __forceinline__ void scatter_ring(
     const T* __restrict__ U, Acc<T> gamma, T* __restrict__ Y, int64_t m,
     int64_t n, int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
     int64_t sxb_k, int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
-  if constexpr (kMmaForm<TM, T, kAxpy, kSparse>) {
+  if constexpr (kMmaForm<TM, T, kSparse> && kAxpy) {
     ring_run<TM, T, KC, false, false, true, true>(
         M, nullptr, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
         MmaScatterStore{X, Xbar, gamma, Y, sx_w, sx_k, sxb_k, sy_w, sy_k});
+  } else if constexpr (kMmaForm<TM, T, kSparse> ||
+                       kMmaF64Form<TM, T, kAxpy, kSparse>) {
+    ring_run<TM, T, KC, false, false, true, true>(
+        M, nullptr, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
+        MmaStore{Y, sy_w, sy_k});
   } else {
     ring_run<TM, T, KC, false, false, true, false>(
         M, nullptr, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
@@ -1839,7 +1945,7 @@ void launch_gather_ring(const void* M, const void* cols, const void* X,
                         int64_t sxb_k, int64_t su_w, int64_t su_k,
                         cudaStream_t s) {
   constexpr auto kernel = gather_ring_kernel<TM, T, KC, kDiff, kSparse>();
-  constexpr bool kMma = kMmaForm<TM, T, kDiff, kSparse>;
+  constexpr bool kMma = kMmaForm<TM, T, kSparse>;
   launch_ring<kernel, KC, kMma>(
       Ring<TM, T, KC, kDiff, kMma>::kSmem, m, p, k, s,
       static_cast<const TM*>(M),
@@ -1901,7 +2007,7 @@ int apc_gather(const void* A, const void* X, const void* Xbar, void* U,
     }
     // the tensor-core form's row dot takes a tile's 256 rows a block
     constexpr int R =
-        kMmaForm<TM, T, true, false> ? kMmaRows / kWarps : kGatherRows;
+        kMmaForm<TM, T, false> ? kMmaRows / kWarps : kGatherRows;
     apc_gather_kernel<TM, T, KC, R>
         <<<grid_for(p, m, k, KC, R), kThreads, 0, s>>>(
             static_cast<const TM*>(A), static_cast<const T*>(X),
@@ -1928,8 +2034,10 @@ int cimmino_gather(const void* A, const void* Xbar, void* U, int64_t m,
           s);
       return;
     }
-    cimmino_gather_kernel<TM, T, KC, kGatherRows>
-        <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
+    constexpr int R =
+        kMmaForm<TM, T, false> ? kMmaRows / kWarps : kGatherRows;
+    cimmino_gather_kernel<TM, T, KC, R>
+        <<<grid_for(p, m, k, KC, R), kThreads, 0, s>>>(
             static_cast<const TM*>(A), static_cast<const T*>(Xbar),
             static_cast<T*>(U), p, n, k, sxb_k, su_w, su_k);
   });
@@ -1949,7 +2057,7 @@ int apc_scatter(const void* B, const void* X, const void* Xbar,
   with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      constexpr bool kMma = kMmaForm<TM, T, true, false>;
+      constexpr bool kMma = kMmaForm<TM, T, false>;
       launch_ring<&apc_scatter_ring_kernel<TM, T, KC>, KC, kMma>(
           Ring<TM, T, KC, false, kMma>::kSmem, m, n, k, s,
           static_cast<const TM*>(B), static_cast<const T*>(X),
@@ -1958,8 +2066,8 @@ int apc_scatter(const void* B, const void* X, const void* Xbar,
           sxb_k, su_w, su_k, sy_w, sy_k);
       return;
     }
-    constexpr int R = kMmaForm<TM, T, true, false> ? kMmaRows / kWarps
-                                                   : scatter_rows<TM, KC>();
+    constexpr int R = kMmaForm<TM, T, false> ? kMmaRows / kWarps
+                                             : scatter_rows<TM, KC>();
     apc_scatter_kernel<TM, T, KC, R>
         <<<grid_for(n, m, k, KC, R), kThreads, 0, s>>>(
             static_cast<const TM*>(B), static_cast<const T*>(X),
@@ -1981,14 +2089,16 @@ int cimmino_scatter(const void* B, const void* V, void* Rout, int64_t m,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
+    constexpr bool kMma =
+        kMmaForm<TM, T, false> || kMmaF64Form<TM, T, false, false>;
     if (instance == kRing) {
-      launch_ring<&cimmino_scatter_ring_kernel<TM, T, KC>, KC>(
-          Ring<TM, T, KC, false>::kSmem, m, n, k, s,
+      launch_ring<&cimmino_scatter_ring_kernel<TM, T, KC>, KC, kMma>(
+          Ring<TM, T, KC, false, kMma>::kSmem, m, n, k, s,
           static_cast<const TM*>(B), static_cast<const T*>(V),
           static_cast<T*>(Rout), m, n, p, k, sv_w, sv_k, sr_w, sr_k);
       return;
     }
-    constexpr int R = scatter_rows<TM, KC>();
+    constexpr int R = kMma ? kMmaRows / kWarps : scatter_rows<TM, KC>();
     cimmino_scatter_kernel<TM, T, KC, R>
         <<<grid_for(n, m, k, KC, R), kThreads, 0, s>>>(
             static_cast<const TM*>(B), static_cast<const T*>(V),
@@ -2193,13 +2303,16 @@ REPRO_ENTRIES(bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 // The ring instance's dynamic shared memory at the k-chunk of k, in
 // bytes, for a matrix of matrix_itemsize bytes (8, 4 or 2), a compute
 // type of itemsize bytes (8, 4, or 2 beside a bf16 matrix) and a form
-// (kApcForm, kCimminoForm, and for bf16/f64 kApcMmaForm and
-// kCimminoMmaForm); 0 for any other.
+// (kApcForm, kCimminoForm, for bf16/f64 kApcMmaForm and kCimminoMmaForm,
+// for f64 kCimminoMmaForm: the float64 Cimmino scatter's); 0 for any
+// other.
 int64_t gather_ring_smem(int64_t matrix_itemsize, int64_t itemsize,
                          int64_t k, int64_t form) {
   const bool mma = form == kApcMmaForm || form == kCimminoMmaForm;
   if (form < kApcForm || form > kCimminoMmaForm ||
-      (mma && (matrix_itemsize != 2 || itemsize != 8)))
+      (mma && !(itemsize == 8 && (matrix_itemsize == 2 ||
+                                  (matrix_itemsize == 8 &&
+                                   form == kCimminoMmaForm)))))
     return 0;
   const bool diff = form == kApcForm || form == kApcMmaForm;
   int64_t bytes = 0;
@@ -2208,10 +2321,16 @@ int64_t gather_ring_smem(int64_t matrix_itemsize, int64_t itemsize,
     const auto of = [&](auto tm, auto t) {
       using TM = decltype(tm);
       using T = decltype(t);
-      if constexpr (kMmaForm<TM, T, true, false>) {
+      if constexpr (kMmaForm<TM, T, false>) {
         if (mma) {
           bytes = diff ? Ring<TM, T, KC, true, true>::kSmem
                        : Ring<TM, T, KC, false, true>::kSmem;
+          return;
+        }
+      }
+      if constexpr (kMmaF64Form<TM, T, false, false>) {
+        if (mma) {
+          bytes = Ring<TM, T, KC, false, true>::kSmem;
           return;
         }
       }

@@ -20,9 +20,10 @@ the parameters and the optimizer state placed as DTensors by
 ``sharding.shard_tree``, and each batch split over ``batch``.  The loop
 is otherwise the same.  Checkpoints hold the full (global) leaves, as the
 reference's do, written by rank 0: a sharded run resumes on one device
-and a one-device run resumes sharded.  ``--compress-grads`` (whole
-leaves quantized in blocks) runs on one device only.  Under ``torchrun``
-the group is NCCL, one rank a card (``mesh.init_group``).
+and a one-device run resumes sharded.  ``--compress-grads`` quantizes
+each gradient leaf's global value in blocks, on a mesh too, its error
+buffers laid out as the parameters (``optim/compress.py``).  Under
+``torchrun`` the group is NCCL, one rank a card (``mesh.init_group``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --smoke --steps 20 --batch 8 --seq 128 --ckpt-dir build/ckpt
@@ -239,10 +240,6 @@ def run(argv=None) -> TrainReport:
     device = dev.resolve(args.device)
     rules = None
     if args.data * args.model_axis > 1:
-        if args.compress_grads:
-            raise ValueError("--compress-grads quantizes whole gradient "
-                             "leaves: it runs on one device, not on a "
-                             f"{args.data} x {args.model_axis} mesh")
         mesh = mesh_lib.make_host_mesh(args.data, args.model_axis, device)
         device = mesh_lib.mesh_device(mesh)
         rules = sharding.rules_for_mesh(mesh)

@@ -11,6 +11,15 @@ all-reduce would deliver:
     grads, err = compress.compress_decompress(grads, err)   # per step
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
+
+On a mesh (DTensor gradients, ``launch/train.py`` sharded) the error
+buffers are laid out as the parameters: DTensors of their placements,
+each rank holding its shard.  Each leaf is quantized on its global value,
+in the same 256-element blocks as on one device (the reference quantizes
+its global leaves under the mesh): the gradient and the buffer are
+gathered whole on every rank, and the dequantized gradient and the new
+buffer are cut back to the buffer's placements.  The buffers are not
+checkpointed, as the reference's are not.
 """
 from __future__ import annotations
 
@@ -19,7 +28,8 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.sharding import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.sharding import (is_dtensor, local_part, tree_leaves,
+                                        tree_map, tree_unflatten)
 
 BLOCK = 256
 
@@ -47,9 +57,13 @@ def dequantize(qg: QGrad, shape, dtype) -> torch.Tensor:
 
 
 def init_error(params):
-    """Error-feedback buffers (float32, mirroring the parameter tree)."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    """Error-feedback buffers (float32, mirroring the parameter tree; a
+    DTensor parameter's in its placements)."""
+    def zeros(p):
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=torch.float32)
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return tree_map(zeros, params)
 
 
 @torch.no_grad()
@@ -57,6 +71,10 @@ def compress_decompress(grads, error) -> Tuple[dict, dict]:
     """Per-leaf quantize -> dequantize with error feedback.  Returns
     (the decompressed grads in their dtypes, the new error buffers)."""
     def one(g, e):
+        if is_dtensor(e):
+            whole = one(g.full_tensor(), e.full_tensor())
+            return tuple(local_part(t, e.device_mesh, e.placements)
+                         for t in whole)
         corrected = g.float() + e
         deq = dequantize(quantize(corrected), g.shape, torch.float32)
         return deq.to(g.dtype), corrected - deq

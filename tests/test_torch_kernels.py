@@ -306,6 +306,7 @@ def test_forced_instance(form):
         bp.gather_instance(*fits, forced="tensor_core")
 
 
+@pytest.mark.parametrize("kernel", bp.SCATTERS)
 @pytest.mark.parametrize("k", [1, 2, 8])
 @pytest.mark.parametrize("matrix,operand,ring_at_k1", [
     (torch.float64, torch.float64, False),
@@ -313,22 +314,31 @@ def test_forced_instance(form):
     (torch.bfloat16, torch.float64, True),
     (torch.bfloat16, torch.float32, True)])
 def test_scatter_instance_at_k1_follows_the_dtype_pair(matrix, operand,
-                                                       ring_at_k1, k):
+                                                       ring_at_k1, k,
+                                                       kernel):
     """A scatter's fixed rule: at k = 1 a float64 or float32 matrix takes
-    the row dot though the ring fits, a bf16 one the ring; at k > 1 every
-    pair takes the ring.  Forcing either instance still holds, and the
-    gathers' operands (no ``scatter``) are not touched by the rule."""
+    the row dot though the ring fits, but in a form of ``MMA_FORMS`` (the
+    float64 ``cimmino_scatter``), and a bf16 one the ring; at k > 1
+    every pair takes the ring.  Forcing either instance still holds, the
+    gathers' operands (no ``scatter``) are not touched by the rule, and
+    an unknown scatter raises."""
     B = torch.empty((2, 5, 2048), dtype=matrix)              # (m, n, p)
     V = torch.empty((k, 2, 2048), dtype=operand).transpose(0, 1)
-    want = "ring" if k > 1 or ring_at_k1 else "row_dot"
-    assert bp.gather_instance(B, V, scatter=True) == want
+    mma = (kernel, bp.PAIRS[(matrix, operand)]) in bp.MMA_FORMS
+    assert mma == (operand == torch.float64 and kernel != "sparse_scatter"
+                   and (matrix == torch.bfloat16
+                        or kernel == "cimmino_scatter"))
+    want = "ring" if k > 1 or ring_at_k1 or mma else "row_dot"
+    assert bp.gather_instance(B, V, scatter=kernel) == want
     assert bp.gather_instance(B, V) == "ring"
     for forced in bp.INSTANCES:
         assert bp.gather_instance(B, V, forced=forced,
-                                  scatter=True) == forced
+                                  scatter=kernel) == forced
     # rows the ring cannot copy take the row dot whatever the rule says
     assert bp.gather_instance(B[..., :7], V[..., :7],
-                              scatter=True) == "row_dot"
+                              scatter=kernel) == "row_dot"
+    with pytest.raises(ValueError, match="unknown scatter"):
+        bp.gather_instance(B, V, scatter="apc_gather")
 
 
 @pytest.mark.parametrize("instance", [None, "ring", "row_dot"])
@@ -368,8 +378,9 @@ def test_gather_instance_argument_never_reaches_the_cpu(instance):
 def test_scatter_launchers_pass_their_instance(monkeypatch, kernel, p, k,
                                                forced, want):
     """The scatters hand their C entry the instance that
-    ``gather_instance(matrix, staged operand, scatter=True)`` picks (the
-    row dot at k = 1 in float64), or the forced one, as the int64 before
+    ``gather_instance(matrix, staged operand, scatter=name)`` picks (the
+    row dot at k = 1 in float64, but the ring in ``cimmino_scatter``'s
+    tensor-core form), or the forced one, as the int64 before
     the k-chunk (0, the library's own, unless one is given) and the
     stream; forcing the ring on rows it cannot copy raises before any
     launch.  (The entries cannot run here: the device checks and the
@@ -404,6 +415,8 @@ def test_scatter_launchers_pass_their_instance(monkeypatch, kernel, p, k,
         return
     launch()
     ((name, args),) = calls
+    if (p, k, forced, kernel) == (8, 1, None, "cimmino_scatter"):
+        want = "ring"              # the float64 tensor-core form at k = 1
     assert name == kernel and args[-2:] == (bp.INSTANCES[want], 0)
 
 
@@ -462,20 +475,24 @@ def test_ring_smem_bytes_takes_the_form(monkeypatch):
                               "cimmino") == 1
     assert bp.ring_smem_bytes(torch.float32, torch.float32, 3, "apc") == 1
     assert bp.ring_smem_bytes(torch.bfloat16, torch.float64, 2, "apc") == 1
-    # the tensor-core form's stages: apc_gather's and apc_scatter's
+    # the tensor-core form's stages: the APC gather's, the other three
+    # bf16/float64 kernels', and the float64 Cimmino scatter's
     assert bp.ring_smem_bytes(torch.bfloat16, torch.float64, 8,
                               "apc_mma") == 1
     assert bp.ring_smem_bytes(torch.bfloat16, torch.float64, 1,
                               "cimmino_mma") == 1
+    assert bp.ring_smem_bytes(torch.float64, torch.float64, 8,
+                              "cimmino_mma") == 1
     assert asked == [(8, 8, 8, bp.FORMS["cimmino"]),
                      (4, 4, 3, bp.FORMS["apc"]), (2, 8, 2, bp.FORMS["apc"]),
                      (2, 8, 8, bp.FORMS["apc_mma"]),
-                     (2, 8, 1, bp.FORMS["cimmino_mma"])]
+                     (2, 8, 1, bp.FORMS["cimmino_mma"]),
+                     (8, 8, 8, bp.FORMS["cimmino_mma"])]
     # each pair's library answers for its own pair
-    assert libs == ["f64", "f32", "bf16_f64", "bf16_f64", "bf16_f64"]
+    assert libs == ["f64", "f32", "bf16_f64", "bf16_f64", "bf16_f64", "f64"]
     with pytest.raises(KeyError):
         bp.ring_smem_bytes(torch.float64, torch.float64, 8, "sparse")
-    assert len(asked) == 5
+    assert len(asked) == 6
 
 
 @pytest.mark.parametrize("pair", list(bp.PAIRS))
@@ -521,26 +538,35 @@ def test_launch_counts_by_dtype_pair(monkeypatch, pair):
     assert bp.launch_counts(suffix) == dict.fromkeys(bp.KERNELS, 0)
 
 
-def test_mma_forms_are_the_dense_apc_pair_in_bf16_f64():
-    """The tensor-core form is the dense APC pair with a bf16 matrix and
-    float64 operands, and nothing else: ``MMA_FORMS`` names it, the
-    source selects it on the (bf16, double) pair and the APC flag of a
-    dense kernel, and every form's stage query has its own int64."""
+def test_mma_forms_are_the_dense_bf16_f64_kernels_and_the_f64_cimmino_scatter():
+    """The tensor-core form is the four dense kernels with a bf16 matrix
+    and float64 operands, and the float64 Cimmino scatter, and nothing
+    else: ``MMA_FORMS`` names them, the source selects the first on the
+    (bf16, double) pair of any dense kernel and the second on the
+    (double, double) pair of a scatter without the APC epilogue, and
+    every form's stage query has its own int64."""
     src = (bp.CSRC / "block_projection.cu").read_text()
-    assert bp.MMA_FORMS == (("apc_gather", "bf16_f64"),
-                            ("apc_scatter", "bf16_f64"))
+    dense = ("apc_gather", "apc_scatter", "cimmino_gather", "cimmino_scatter")
+    assert bp.MMA_FORMS == tuple((kn, "bf16_f64") for kn in dense) + (
+        ("cimmino_scatter", "f64"),)
     assert all(kn in bp.KERNELS and pair in bp.PAIRS.values()
                for kn, pair in bp.MMA_FORMS)
     assert ("constexpr bool kMmaForm = std::is_same_v<TM, __nv_bfloat16> "
             "&&\n                          std::is_same_v<T, double> && "
-            "kApc && !kSparse;") in src
-    # the gathers' ring on kDiff, the scatters' on kAxpy
-    assert "kMmaForm<TM, T, kDiff, kSparse>" in src
-    assert "kMmaForm<TM, T, kAxpy, kSparse>" in src
+            "!kSparse;") in src
+    assert ("constexpr bool kMmaF64Form = std::is_same_v<TM, double> &&\n"
+            "                             std::is_same_v<T, double> && "
+            "!kAxpy &&\n                             !kSparse;") in src
+    # the gathers' and the scatters' rings take it by their sparse flag,
+    # the float64 form by the scatter's epilogue too
+    assert "kMmaForm<TM, T, kSparse>" in src
+    assert "kMmaF64Form<TM, T, kAxpy, kSparse>" in src
+    assert "bool kApc" not in src
     assert set(bp.FORMS) == {"apc", "cimmino", "apc_mma", "cimmino_mma"}
 
 
-@pytest.mark.parametrize("kernel", ["apc_gather", "apc_scatter"])
+@pytest.mark.parametrize("kernel", ["apc_gather", "apc_scatter",
+                                    "cimmino_gather", "cimmino_scatter"])
 @pytest.mark.parametrize("n,k,kc,offset,want,want_kc", [
     (2048, 8, None, False, "ring", 0),     # the main path's rows, k = 8
     (2048, 1, None, False, "ring", 0),     # k = 1: the ring (a bf16 matrix)
@@ -553,12 +579,13 @@ def test_mma_forms_are_the_dense_apc_pair_in_bf16_f64():
 ])
 def test_mma_form_instance_and_kc_by_shape(monkeypatch, kernel, n, k, kc,
                                            offset, want, want_kc):
-    """The bf16/float64 APC pair takes the ring wherever its 16-byte
-    copies fit the bf16 rows and the float64 operands' strides, at every
-    k (a bf16 scatter takes the ring at k = 1 too), and the row dot of
-    its form elsewhere; the launcher hands the entry that instance and
-    the k-chunk (0: the library's own, kc_for(k)).  (The entries cannot
-    run here: the device checks and the launch are stood in for.)"""
+    """The four dense bf16/float64 kernels take the ring wherever its
+    16-byte copies fit the bf16 rows and the float64 operands' strides,
+    at every k (a bf16 scatter takes the ring at k = 1 too), and the row
+    dot of their form elsewhere; the launcher hands the entry that
+    instance and the k-chunk (0: the library's own, kc_for(k)).  (The
+    entries cannot run here: the device checks and the launch are stood
+    in for.)"""
     calls = []
 
     def check(name, index=None, **operands):       # the sizes alone
@@ -573,18 +600,21 @@ def test_mma_form_instance_and_kc_by_shape(monkeypatch, kernel, n, k, kc,
     M = torch.empty((m, rows, n), dtype=torch.bfloat16)
     if offset:
         M = _offset(M)
-    X = torch.empty((k, m, n if kernel == "apc_gather" else rows),
+    gather = kernel.endswith("gather")
+    X = torch.empty((k, m, n if gather else rows),
                     dtype=torch.float64).transpose(0, 1)
     Xb = torch.empty((k, X.shape[-1]), dtype=torch.float64)
-    if kernel == "apc_gather":
-        bp.apc_gather(M, X, Xb, kc=kc)
-    else:
-        U = torch.empty((k, m, n), dtype=torch.float64).transpose(0, 1)
-        bp.apc_scatter(M, X, Xb, U, 0.9, kc=kc)
+    U = torch.empty((k, m, n), dtype=torch.float64).transpose(0, 1)
+    launch = {"apc_gather": lambda kc: bp.apc_gather(M, X, Xb, kc=kc),
+              "apc_scatter": lambda kc: bp.apc_scatter(M, X, Xb, U, 0.9,
+                                                       kc=kc),
+              "cimmino_gather": lambda kc: bp.cimmino_gather(M, Xb, kc=kc),
+              "cimmino_scatter": lambda kc: bp.cimmino_scatter(M, U,
+                                                               kc=kc)}[kernel]
+    launch(kc)
     ((name, mdt, dt, args),) = calls
     assert (name, mdt, dt) == (kernel, torch.bfloat16, torch.float64)
     assert (name, bp.PAIRS[(mdt, dt)]) in bp.MMA_FORMS
     assert args[-2:] == (bp.INSTANCES[want], want_kc)
     with pytest.raises(ValueError, match="k-chunk"):
-        bp.apc_gather(M, X, Xb, kc=16) if kernel == "apc_gather" else \
-            bp.apc_scatter(M, X, Xb, U, 0.9, kc=3)
+        launch(16 if gather else 3)

@@ -151,7 +151,8 @@ def _case_kernel_1x2(rank, out, params):
     X = torch.zeros(sys_.m, k, sys_.n // 2, dtype=A.dtype)
     U = torch.zeros(sys_.m, k, sys_.p, dtype=A.dtype)
     got["instances"] = np.asarray([bp.gather_instance(A, X, X[0]),
-                                   bp.gather_instance(B_, U, scatter=True)])
+                                   bp.gather_instance(B_, U,
+                                                      scatter="apc_scatter")])
     return got
 
 

@@ -232,7 +232,8 @@ def _fake_launchers():
 
     def apc_scatter(B, X, Xb, U, gamma, *, kc=None, _instance=None):
         _contract("apc_scatter", B, [X, Xb, U], kc=kc)
-        bp.gather_instance(B, U, forced=_instance, scatter=True)
+        bp.gather_instance(B, U, forced=_instance,
+                           scatter="apc_scatter")
         return _by_row(Xb.shape[0], lambda i: ops.apc_scatter_ref(
             B, X[:, i], Xb[i], U[:, i], gamma))
 
@@ -244,7 +245,8 @@ def _fake_launchers():
 
     def cimmino_scatter(B, V, *, kc=None, _instance=None):
         _contract("cimmino_scatter", B, [V], kc=kc)
-        bp.gather_instance(B, V, forced=_instance, scatter=True)
+        bp.gather_instance(B, V, forced=_instance,
+                           scatter="cimmino_scatter")
         return _by_row(V.shape[1], lambda i: ops.cimmino_scatter_ref(
             B, V[:, i])).contiguous()
 
@@ -264,7 +266,8 @@ def _fake_launchers():
                        kc=None, _instance=None):
         _contract("sparse_scatter", Bv,
                   [U, out] + ([] if X is None else [X, Xbar]), cols, kc)
-        bp.gather_instance(Bv, U, forced=_instance, scatter=True)
+        bp.gather_instance(Bv, U, forced=_instance,
+                           scatter="sparse_scatter")
         C = _by_row(U.shape[1], lambda i: torch.einsum(
             "mwp,mkp->mkw", Bv.to(U.dtype), U[:, i]))
         idx = cols[:, None, :].expand(out.shape[:-1] + (-1,))
@@ -286,6 +289,7 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     for name, value in dict(
             FULL=dict(N=256, n=128, m=4),
             SPARSE=dict(n=640, m=4, bandwidth=8),
+            SERVE_SPARSE=dict(n=320, m=4, bandwidth=8),
             SPARSE_CORNERS=[dict(n=130, m=2, bandwidth=6),
                             dict(n=24, m=24, bandwidth=2)],
             LS_MID=dict(N=256, n=128, m=4, noise=0.5, seed=0),
@@ -363,23 +367,26 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                         "13__nv_bfloat16", "").replace(
                 "bfloat16dLi8E", "bfloat16S0_Li8E")
             for kn in bp.KERNELS for inst in ("", "_ring"))
-        # the tensor-core form: both instances at every KC (the ring's
+        # the tensor-core forms: both instances at every KC (the ring's
         # KC = 8 line is above)
         + "".join(
             ring.format(f"{len(kn) + len(inst) + 7}{kn}{inst}_kernel",
-                        "13__nv_bfloat16", "" if inst else "Li32E").replace(
+                        "d" if sfx == "f64" else "13__nv_bfloat16",
+                        "" if inst else "Li32E").replace(
                 "Li8E", f"Li{kc}E", 1)
-            for kn, _ in bp.MMA_FORMS for inst in ("", "_ring")
+            for kn, sfx in bp.MMA_FORMS for inst in ("", "_ring")
             for kc in bp.KC_VALUES if inst == "" or kc != 8))
     monkeypatch.setattr(bp, "build", lambda sources=bp.SOURCES: {
         ("block_projection.cu", "f64"): lib})
     # the two forms' stage sizes at KC = 8: (64 + 16) and (64 + 8) rows of
     # 512 bytes, 5 stages each (the scatters' rings: the Cimmino form);
     # the tensor-core form's: 256 rows of 128 bytes and 16 (8) operand
-    # rows, 5 stages
+    # rows of 512, 5 stages; the float64 Cimmino scatter's: 256 rows of
+    # 128 bytes and 8 operand rows of 128, 6 stages
     monkeypatch.setattr(bp, "ring_smem_bytes", lambda mdt, dt, k, form: {
         "apc": 204800, "cimmino": 184320, "apc_mma": 204800,
-        "cimmino_mma": 184320 + 1}[form])
+        "cimmino_mma": 202752 if mdt == torch.float64 else 184320 + 1}[
+            form])
     for name, fn in _fake_launchers().items():
         monkeypatch.setattr(bp, name, fn)
     monkeypatch.setattr(bp, "_launches", dict.fromkeys(bp._launches, 0))
@@ -403,28 +410,29 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert ("sparse_cimmino_gather_ring f64 KC=8 spill 0 B: 168 regs, smem "
             "128 B + 184320 B dynamic") in text
     assert ("cimmino_scatter_ring f64 KC=8 spill 0 B: 168 regs, smem 128 B "
-            "+ 184320 B dynamic") in text
+            "+ 202752 B dynamic") in text
     assert ("sparse_scatter_ring f64 KC=8 apc spill 0 B: 168 regs, smem 128 "
             "B + 184320 B dynamic") in text
     # and the bf16-stored instances, tagged by their matrix/compute types;
-    # the tensor-core form's rings with its own stages, both its
-    # instances at every KC
+    # the tensor-core forms' rings with their own stages, both their
+    # instances at every KC; the bf16-stored sparse rings the DFMA ones
     assert ("apc_gather_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem 128 B "
             "+ 204800 B dynamic") in text
-    assert ("apc_scatter_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem 128 B "
-            "+ 184321 B dynamic") in text
-    assert ("cimmino_scatter_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem "
-            "128 B + 184320 B dynamic") in text
-    for kn, _ in bp.MMA_FORMS:
+    for kn in ("apc_scatter", "cimmino_gather", "cimmino_scatter"):
+        assert (f"{kn}_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem 128 B "
+                "+ 184321 B dynamic") in text, kn
+    assert ("sparse_cimmino_gather_ring bf16/f64 KC=8 spill 0 B: 168 regs, "
+            "smem 128 B + 184320 B dynamic") in text
+    for kn, sfx in bp.MMA_FORMS:
+        tag = sfx.replace("_", "/")
         for kc in bp.KC_VALUES:
-            assert f"{kn} bf16/f64 KC={kc} spill 0 B: " in text, (kn, kc)
-            assert f"{kn}_ring bf16/f64 KC={kc} spill 0 B: " in text, (kn,
-                                                                      kc)
+            assert f"{kn} {tag} KC={kc} spill 0 B: " in text, (kn, kc)
+            assert f"{kn}_ring {tag} KC={kc} spill 0 B: " in text, (kn, kc)
     # both instances of the four gathers and the three scatters (both
     # forms of sparse_scatter) where the ring fits, the row dot alone where
     # it does not (f32 rows of 130, p = 7); a bf16-stored scatter's ring
-    # equals the ring on the widened matrix, but the tensor-core form's
-    # apc_scatter, whose ring equals its row dot
+    # equals the ring on the widened matrix, but the tensor-core forms'
+    # apc_scatter and cimmino_scatter, whose rings equal their row dots
     scatters = ("apc_scatter", "cimmino_scatter", "sparse_scatter apc",
                 "sparse_scatter cimmino")
     for kn in bp.GATHERS + scatters:
@@ -497,13 +505,18 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                 assert all(("torch." in x) == (pr[0] == "f") for x in got)
     assert sum(x.startswith("phase 8 iteration k=") and "precision=mixed" in x
                for x in lines) == 2
-    # the tensor-core form's times beside the DFMA ring's, k = 1 and 8
-    for kn, _ in bp.MMA_FORMS:
-        assert sum(x.startswith(f"phase 8 {kn} k=")
-                   and " bfloat16/float64: " in x
-                   and "the DFMA ring before them" in x
-                   for x in lines) == 2, kn
-    assert sum("the DFMA ring before them" in x for x in lines) == 4
+    # the tensor-core forms' times beside the DFMA instances', k = 1 and
+    # 8 (the float64 cimmino_scatter's row dot at k = 1, its ring at 8)
+    for kn, sfx in bp.MMA_FORMS:
+        pr = {"f64": "float64/float64", "bf16_f64": "bfloat16/float64"}[sfx]
+        notes = [x for x in lines if x.startswith(f"phase 8 {kn} k=")
+                 and f" {pr}: " in x and "before them" in x]
+        assert len(notes) == 2, (kn, sfx)
+        assert all("the DFMA ring before them" in x
+                   or (sfx == "f64" and " k=1 " in x
+                       and "the DFMA row dot before them" in x)
+                   for x in notes), notes
+    assert sum("before them" in x for x in lines) == 2 * len(bp.MMA_FORMS)
     assert sum(x.startswith("phase 11 iteration k=")
                and "precision=mixed" in x for x in lines) == 4
     # phase 13: every kernel-path solve captured and held to the eager

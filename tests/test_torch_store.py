@@ -28,6 +28,7 @@ from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.core.apc import APCState  # noqa: E402
 from repro_torch.core.partition import BlockSystem, partition  # noqa: E402
 from repro_torch.data import linsys  # noqa: E402
+from repro_torch.solvers import store as store_mod  # noqa: E402
 from repro_torch.solvers.store import (FactorStore, block_fingerprint,  # noqa: E402,E501
                                        fingerprint)
 
@@ -216,6 +217,26 @@ def test_fingerprint_is_content_addressed(sys_a, sys_b):
     assert k != fingerprint("apc", sys_b, PRM)
     assert k != fingerprint("cimmino", sys_a, PRM)
     assert k != fingerprint("apc", sys_a, {"gamma": 1.5, "eta": 1.0})
+
+
+@pytest.mark.parametrize("chunk", [7, 1000, 1 << 26])
+def test_fingerprint_hashes_in_chunks_what_a_whole_host_copy_hashes(
+        monkeypatch, sys_a, chunk):
+    """The digests hash a tensor in chunks (a CUDA tensor's through one
+    pinned buffer): the same bytes as the whole C-order host array, any
+    chunk size, a strided block included."""
+    import hashlib
+    monkeypatch.setattr(store_mod, "_HASH_CHUNK", chunk)
+    A = np.ascontiguousarray(sys_a.A_blocks.numpy())
+    h = hashlib.sha256()
+    for token in ("solver=apc", f"partition={A.shape}", f"dtype={A.dtype}"):
+        h.update(token.encode())
+    store_mod._param_tokens(h, PRM)
+    h.update(memoryview(A).cast("B"))
+    assert fingerprint("apc", sys_a, PRM) == h.hexdigest()
+    strided = sys_a.A_blocks.transpose(1, 2)[1]
+    assert block_fingerprint("apc", strided, PRM) == block_fingerprint(
+        "apc", np.ascontiguousarray(strided.numpy()), PRM)
 
 
 def test_fingerprint_normalizes_numeric_param_types(sys_a):
