@@ -12,10 +12,11 @@ script exits non-zero without its last line:
    instance's registers, shared memory and spill bytes (none allowed in
    the ring instances that compute in float64, the bf16-stored ones
    included, nor in either instance of the tensor-core forms
-   (``bp.MMA_FORMS``: the four dense kernels in bf16/float64 and the
-   float64 ``cimmino_scatter``) at KC = 1, 2, 4, 8, all of which must
-   be there; each of the seven rings present, and both instances of all
-   seven kernels in the all-bf16 form);
+   (``bp.MMA_FORMS``: the four dense kernels and the two sparse gathers
+   in bf16/float64, the float64 ``cimmino_scatter`` and the float64
+   sparse gathers) at KC = 1, 2, 4, 8, all of which must be there; each
+   of the seven rings present, and both instances of all seven kernels
+   in the all-bf16 form);
 2. kernel vs plain version on the card: ``apc_gather``/``apc_scatter``
    and ``cimmino_gather``/``cimmino_scatter`` against their plain PyTorch
    versions at ragged shapes and at the main path's shapes, and
@@ -23,8 +24,9 @@ script exits non-zero without its last line:
    reference's sparse corner shapes (odd support width, p = 1, even), a
    support width of one chunk and a bit, and the sparse path's shapes;
    float64 and float32, each with its matrix in its own dtype and in
-   bfloat16 (the mixed forms), k = 1..11, a batch row bit-identical to a
-   k = 1 call; both instances of each of the four gathers, of
+   bfloat16 (the mixed forms), and the all-bf16 sparse gathers, k =
+   1..11, a batch row bit-identical to a k = 1 call; both instances of
+   each of the four gathers, of
    ``apc_scatter``, of ``cimmino_scatter`` and of both forms of
    ``sparse_scatter`` (the ring, where its alignment admits the shape,
    and the row dot) against the plain version and bit-identical to each
@@ -77,7 +79,10 @@ script exits non-zero without its last line:
    the sparse kernels;
 11. CUDA-event times of the sparse kernels as in phase 8 (torch.bmm on
    the pre-gathered operands; both forms of ``sparse_scatter``, each
-   with its row-dot instance in every form), and of the sparse and
+   with its row-dot instance in every form), each kernel and library
+   call also as 10 calls replayed from a CUDA graph (``graph_ms``: an
+   eager call of a sparse kernel is its launcher's host work), and of
+   the sparse and
    densified iterations and the sparse mixed ones (the sparse ones also
    in a captured 10-step graph), with the card's clocks as in phase 8,
    then the ``{"kernels": [...]}`` line with all seven, each with its
@@ -334,15 +339,23 @@ NO_LIBRARY = ("none: torch.matmul and torch.bmm refuse a bfloat16 matrix "
               "a second pass over the matrix")
 # the tensor-core forms' kernels (bp.MMA_FORMS) on the DFMA ring they
 # replaced, ms at k = 1 and 8 (PERF.md §6, "NVIDIA H100 80GB HBM3,
-# 700.00 W"), printed beside phase 8's times: the bf16/float64 four,
-# and the float64 cimmino_scatter (at k = 1 its DFMA row dot, the
-# instance the launcher took there)
+# 700.00 W"), printed beside phase 8's and 11's times: the dense
+# bf16/float64 four, the float64 cimmino_scatter (at k = 1 its DFMA row
+# dot, the instance the launcher took there), and the sparse gathers in
+# bf16/float64 and float64 (their DFMA ring, the support gathered
+# element by element in its producers)
 DFMA_MIXED_MS = {("apc_gather", 1): 0.3818, ("apc_gather", 8): 0.8301,
                  ("apc_scatter", 1): 0.3839, ("apc_scatter", 8): 0.7801,
                  ("cimmino_gather", 1): 0.3832, ("cimmino_gather", 8): 0.7239,
                  ("cimmino_scatter", 1): 0.3771,
-                 ("cimmino_scatter", 8): 0.7763}
-DFMA_F64_MS = {("cimmino_scatter", 1): 1.3482, ("cimmino_scatter", 8): 1.4570}
+                 ("cimmino_scatter", 8): 0.7763,
+                 ("sparse_gather", 1): 0.0840, ("sparse_gather", 8): 0.1315,
+                 ("sparse_cimmino_gather", 1): 0.0854,
+                 ("sparse_cimmino_gather", 8): 0.1181}
+DFMA_F64_MS = {("cimmino_scatter", 1): 1.3482, ("cimmino_scatter", 8): 1.4570,
+               ("sparse_gather", 1): 0.1851, ("sparse_gather", 8): 0.2004,
+               ("sparse_cimmino_gather", 1): 0.1858,
+               ("sparse_cimmino_gather", 8): 0.1974}
 RAGGED = [(7, 130), (1, 128), (24, 896)]
 # the sparse path's system, and the banded corner systems of phase 2
 # (tests/test_kernel_corners.py, plus a support one chunk and a bit wide)
@@ -632,11 +645,20 @@ def ptxas_summary(log: str, dynamic_smem, mma_forms=()) -> list[str]:
     apc/cimmino; a ring instance's shared memory adds
     ``dynamic_smem(matrix dtype, dtype, KC, form)`` bytes of dynamic
     shared memory, the form "apc" for the APC gathers' rings, else
-    "cimmino": the Cimmino gathers' and the scatters' stage; "apc_mma"
-    and "cimmino_mma" for the rings of ``mma_forms``, (kernel, pair
-    suffix) pairs: the tensor-core form's, bp.MMA_FORMS)."""
+    "cimmino": the Cimmino gather's and the scatters' stage; "apc_mma"
+    and "cimmino_mma" for the dense rings of ``mma_forms``, (kernel, pair
+    suffix) pairs: the tensor-core form's, bp.MMA_FORMS; "sparse" for the
+    sparse gathers' rings, in every pair); and the sparse gathers'
+    pre-pass, 'support_operand f64 apc: 30 regs, smem 0 B' (apc:
+    sparse_gather's X̄ − X, cimmino: X̄)."""
     out, kernel = [], None
     for line in log.splitlines():
+        pre = re.search(r"entry function '\S*?support_operand_kernelI"
+                        r"(d|f|13__nv_bfloat16)Lb([01])E", line)
+        if pre:
+            kernel = (f"support_operand {MANGLED[pre[1]][1]} "
+                      + ("apc" if pre[2] == "1" else "cimmino"))
+            ring = False
         hit = re.search(r"entry function '\S*?((?:apc|cimmino|sparse)_\w+?)"
                         r"_kernelI(d|f|13__nv_bfloat16)([df]|S\d*_)Li(\d+)E"
                         r"(?:Li\d+E)?(?:Lb([01]))?", line)
@@ -648,11 +670,13 @@ def ptxas_summary(log: str, dynamic_smem, mma_forms=()) -> list[str]:
                       + ("" if hit[5] is None else
                          " apc" if hit[5] == "1" else " cimmino"))
             ring = hit[1].endswith("_ring")
-            form = ("apc" if hit[1] in ("apc_gather_ring",
-                                        "sparse_gather_ring")
+            form = ("sparse" if hit[1] in ("sparse_gather_ring",
+                                           "sparse_cimmino_gather_ring")
+                    else "apc" if hit[1] == "apc_gather_ring"
                     else "cimmino")
             suffix = name if mname == name else f"{mname}_{name}"
-            if ring and (hit[1][:-len("_ring")], suffix) in mma_forms:
+            if (ring and form != "sparse"
+                    and (hit[1][:-len("_ring")], suffix) in mma_forms):
                 form += "_mma"
             kc = int(hit[4])
         spill = re.search(r"(\d+) bytes spill stores", line)
@@ -3569,7 +3593,8 @@ def phases():
         for kc in bp.KC_VALUES}, mma
     assert all(" spill 0 B:" in x for x in mma), mma
     # the all-bf16 form: both instances of every kernel
-    assert {x.split()[0] for x in ptxas if x.split()[1] == "bf16"} == {
+    assert {x.split()[0] for x in ptxas if x.split()[1] == "bf16"
+            and not x.startswith("support_operand")} == {
         f"{kn}{inst}" for kn in bp.KERNELS for inst in ("", "_ring")}, \
         ptxas
 
@@ -3731,6 +3756,43 @@ def phases():
             X, Xb, V = X[:, 0], Xb[0], V[:, 0]
         return X, Xb, V
 
+    def bf16_sparse_gathers(vals, cols, X, Xb, label):
+        """The all-bf16 sparse gathers (phase 15 (a) times them) on the
+        bf16-rounded operands: both instances, the ring where vals' rows
+        admit it, against the plain versions at BF16_TOL, ring ≡ row dot,
+        and the last batch row ≡ a k = 1 call, bit for bit."""
+        v, x, xb = vals.to(BF16), X.to(BF16), Xb.to(BF16)
+        X3, Xb3 = (x, xb) if x.dim() == 3 else (x[:, None], xb[None])
+        ring = bp.gather_instance(v) == "ring"
+        errs = {}
+        for kname, launch, want in (
+                ("sparse_gather", lambda inst, kk=slice(None):
+                 bp.sparse_gather(v, cols, X3[:, kk], Xb3[kk],
+                                  _instance=inst),
+                 ops.sparse_gather_ref(v, cols, X3, Xb3)),
+                ("sparse_cimmino_gather", lambda inst, kk=slice(None):
+                 bp.sparse_cimmino_gather(v, cols, Xb3[kk], _instance=inst),
+                 ops.sparse_cimmino_gather_ref(v, cols, Xb3))):
+            outs = {inst: launch(inst) for inst in bp.INSTANCES
+                    if inst == "row_dot" or ring}
+            torch.cuda.synchronize()
+            for inst, got in outs.items():
+                e, d = rel_err(got, want)
+                assert got.dtype == BF16 and e < BF16_TOL, (kname, label,
+                                                           inst, e)
+                errs[kname] = max(errs.get(kname, 0.0), e)
+                i = X3.shape[1] - 1
+                assert torch.equal(launch(inst, slice(i, i + 1)),
+                                   got[:, i:]), (kname, label, inst)
+            if ring:
+                assert torch.equal(outs["ring"], outs["row_dot"]), (kname,
+                                                                   label)
+        say(f"phase 2 {label} bfloat16/bfloat16: " + " ".join(
+            f"{kn} {e:.3e}" for kn, e in errs.items())
+            + f" (tol {BF16_TOL:.0e}); sparse gathers "
+            + ("ring≡row_dot" if ring else "row_dot")
+            + "; batch row ≡ k=1 call")
+
     for spec in SPARSE_CORNERS:
         csys = linsys.banded_system(seed=0, device="cuda", **spec)
         # each corner system's factors once, for its kernels' operands
@@ -3740,11 +3802,13 @@ def phases():
             for k in (1, 5, K_MANY, 11):
                 X, Xb, V = sparse_inputs(cf.A.vals, csys.cols, csys.n, k, dt,
                                          seed=csys.n + k)
+                label = (f"banded n={csys.n} m={csys.m} p={csys.p} "
+                         f"w={csys.cols.shape[1]} k={k}")
                 for mdt in (dt, BF16):
                     compare_sparse(cf.A.vals.to(mdt), csys.cols,
-                                   cf.B.to(mdt), X, Xb, V, 0.83,
-                                   f"banded n={csys.n} m={csys.m} "
-                                   f"p={csys.p} w={csys.cols.shape[1]} k={k}")
+                                   cf.B.to(mdt), X, Xb, V, 0.83, label)
+                if dt == torch.float64:
+                    bf16_sparse_gathers(cf.A.vals, csys.cols, X, Xb, label)
     # the sparse path's shapes: its band support, seeded values, and the
     # padded slots zeroed as as_sparse leaves them
     sn, sm, sbw = SPARSE["n"], SPARSE["m"], SPARSE["bandwidth"]
@@ -3769,10 +3833,12 @@ def phases():
     for k in (1, K_MANY):
         for dt in TOL:
             X, Xb, V = sparse_inputs(svals, scols, sn, k, dt, seed=k)
+            label = f"sparse path m={sm} p={sp_p} w={sw} n={sn} k={k}"
             for mdt in (dt, BF16):
                 compare_sparse(svals.to(mdt), scols, sBv.to(mdt), X, Xb, V,
-                               0.9, f"sparse path m={sm} p={sp_p} w={sw} "
-                               f"n={sn} k={k}", record=True)
+                               0.9, label, record=True)
+            if dt == torch.float64:
+                bf16_sparse_gathers(svals, scols, X, Xb, label)
     del svals, sBv
 
     for dt in TOL:
@@ -4329,24 +4395,35 @@ def phases():
     def dfma_note(kname, k, pr, ms, b):
         """Beside a tensor-core form's time: the DFMA instance's before
         it (the ring; the float64 cimmino_scatter's row dot at k = 1)."""
+        sfx = {"bfloat16/float64": "bf16_f64", F64: "f64"}.get(pr)
         old = {"bfloat16/float64": DFMA_MIXED_MS,
                F64: DFMA_F64_MS}.get(pr, {}).get((kname, k))
-        if old is None:
+        if old is None or (kname, sfx) not in bp.MMA_FORMS:
             return ""
-        was = "row dot" if (pr, k) == (F64, 1) else "ring"
+        was = ("row dot" if (kname, pr, k) == ("cimmino_scatter", F64, 1)
+               else "ring")
         return (f"; tensor cores (mma.sync f64), the DFMA {was} before them "
                 f"{old:.4f} ms ({b / old:.1%} of the bound), {old / ms:.2f}x")
 
-    def time_kernel(phase, kname, k, shape, forms, library, key=None):
+    def time_kernel(phase, kname, k, shape, forms, library, key=None,
+                    captured=False):
         """CUDA-event medians, in turns, of a kernel in each of its forms
         (``forms``: form label -> (calls, work, compute dtype), the calls
         those of form_calls), each beside its bound from its work =
         (bytes, operations); kept in ``rows[(key or kname, k)]`` (the
         float64 form's numbers at the top, every form's under "forms") and
-        printed, a line a form."""
+        printed, a line a form.  ``captured``: the kernel and the library
+        call also as 10 calls replayed from a CUDA graph (``graph_ms``,
+        ``graph_library_ms``: the device's time, which the launcher's host
+        work exceeds at the sparse shapes' 0.05-0.1 ms)."""
         timed = {(pr, name): fn for pr, (calls, _, _) in forms.items()
                  for name, fn in form_calls(kname, pr, calls).items()}
         t = medians_ms(timed)
+        if captured:
+            t.update({(pr, f"graph_{name}"): v / 10 for (pr, name), v in
+                      medians_ms({key_: graphed(timed[key_]) for key_ in timed
+                                  if key_[1] in ("ms", "library_ms")},
+                                 batch=1).items()})
         r = {"forms": {}}
         for pr, (_, work, dt) in forms.items():
             f = {name: v for (fpr, name), v in t.items() if fpr == pr}
@@ -4365,6 +4442,10 @@ def phases():
                    else "")
                 + (f", {library} {f['library_ms']:.4f} ms"
                    if "library_ms" in f else ", library none")
+                + (f"; in a 10-call CUDA graph {f['graph_ms']:.4f} ms "
+                   f"({b / f['graph_ms']:.1%})" if "graph_ms" in f else "")
+                + (f", the library {f['graph_library_ms']:.4f} ms"
+                   if "graph_library_ms" in f else "")
                 + dfma_note(kname, k, pr, f["ms"], b))
         r.update(r["forms"][F64])
         rows[(key or kname, k)] = r
@@ -4798,7 +4879,7 @@ def phases():
                         {pr: (calls[key], work[key], dt)
                          for pr, (calls, work, dt) in forms.items()},
                         "torch.bmm (operands gathered beforehand, "
-                        "gather/scatter excluded)", key=key)
+                        "gather/scatter excluded)", key=key, captured=True)
         if k == 1:      # what a single call between two events also times
             one = medians_ms({"ms": forms[F64][0]["sparse_gather"]["ms"]},
                              batch=1)["ms"]
@@ -5139,6 +5220,13 @@ def phases():
             if scatter and fits == "ring":
                 timed[(key, "ring_ms")] = lambda f=call: f("ring")
         t = medians_ms(timed)
+        # the sparse gathers and their library call also as 10 calls
+        # replayed from a CUDA graph: the device's time (phase 11)
+        t.update({(key, f"graph_{name}"): v / 10 for (key, name), v in
+                  medians_ms({key_: graphed(fn) for key_, fn in timed.items()
+                              if key_[0] in bp.GATHERS[2:]
+                              and key_[1] in ("ms", "library_ms")},
+                             batch=1).items()})
         for key, sp_ in specs.items():
             kname = key.split()[0]
             f = {name: v for (kn, name), v in t.items() if kn == key}
@@ -5154,7 +5242,11 @@ def phases():
                 + (f", ring instance {f['ring_ms']:.4f} ms"
                    if "ring_ms" in f else "")
                 + f", plain {f['plain_ms']:.4f} ms, {lib} bf16 "
-                f"{f['library_ms']:.4f} ms [{card}]")
+                f"{f['library_ms']:.4f} ms"
+                + (f"; in a 10-call CUDA graph {f['graph_ms']:.4f} ms "
+                   f"({b_ / f['graph_ms']:.1%}), the library "
+                   f"{f['graph_library_ms']:.4f} ms" if "graph_ms" in f
+                   else "") + f" [{card}]")
         # the ops end to end, each launching once each kernel it uses
         # (k = 1: no batch axis)
         one = (lambda t, a: t.select(a, 0)) if k == 1 else (
@@ -5343,6 +5435,7 @@ def phases():
         for pr, f in r["forms"].items():
             forms.append({
                 "pair": pr, "k": 1, "ms": f["ms"],
+                "graph_ms": f.get("graph_ms"),
                 "row_dot_ms": f.get("row_dot_ms"),
                 "ring_ms": f.get("ring_ms"), "bound_ms": f["bound_ms"],
                 "bound_by": f["bound_by"],

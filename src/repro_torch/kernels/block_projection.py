@@ -29,9 +29,13 @@ All seven kernels (the four gathers ``apc_gather``, ``sparse_gather``,
 have two instances, one kernel each: the "ring" for Hopper (producer
 warps streaming 16-byte copies through a shared-memory ring to consumer
 warps), and the "row dot" for the shapes the ring cannot copy.  The
-four dense kernels with a bf16 matrix and float64 operands, and the
-float64 ``cimmino_scatter`` (:data:`MMA_FORMS`), run their products on
-the FP64 tensor cores, in both instances.
+kernels but ``sparse_scatter`` with a bf16 matrix and float64 operands,
+the float64 ``cimmino_scatter`` and the float64 sparse gathers
+(:data:`MMA_FORMS`), run their products on the FP64 tensor cores, in
+both instances.  The sparse gathers' launch is two kernels: a pre-pass
+that writes their support operand (X̄ − X, or X̄, at each worker's
+support columns, in the accumulation dtype) into a buffer the launcher
+allocates, then the ring or the row dot over vals against it.
 :func:`gather_instance` picks one by the operands' shape and alignment
 (and, for a scatter, its kernel and dtype pair at k = 1), and both
 count as the same kernel.
@@ -95,28 +99,35 @@ PAIRS = {(torch.float64, torch.float64): "f64",
 #: with_kc)
 KC_VALUES = (1, 2, 4, 8)
 #: the kernels, by the suffix of their pair, whose products run on the
-#: FP64 tensor cores: the four dense kernels with a bf16 matrix and
-#: float64 operands (csrc/block_projection.cu kMmaForm), and the float64
-#: ``cimmino_scatter`` (kMmaF64Form), in a ring of 256-row tiles whose
-#: sums stay in the mma fragment.  Both instances of each sum in one
-#: order, so its ring and row dot are bit-identical.
+#: FP64 tensor cores: the kernels but ``sparse_scatter`` with a bf16
+#: matrix and float64 operands (csrc/block_projection.cu kMmaForm), the
+#: float64 ``cimmino_scatter`` (kMmaF64Form) and the float64 sparse
+#: gathers (kSparseMma), in a ring of 256-row tiles whose sums stay in
+#: the mma fragment.  Both instances of each sum in one order, so its
+#: ring and row dot are bit-identical.
 MMA_FORMS = (("apc_gather", "bf16_f64"), ("apc_scatter", "bf16_f64"),
              ("cimmino_gather", "bf16_f64"), ("cimmino_scatter", "bf16_f64"),
-             ("cimmino_scatter", "f64"))
+             ("sparse_gather", "bf16_f64"),
+             ("sparse_cimmino_gather", "bf16_f64"),
+             ("cimmino_scatter", "f64"), ("sparse_gather", "f64"),
+             ("sparse_cimmino_gather", "f64"))
 
 
 #: the instances of the kernels in :data:`RINGS`, by the int64 their C
 #: entries take (csrc/block_projection.cu kRowDot, kRing)
 INSTANCES = {"row_dot": 0, "ring": 1}
 #: the ring's forms, by the int64 gather_ring_smem takes (kApcForm,
-#: kCimminoForm, kApcMmaForm, kCimminoMmaForm): the APC gathers stage X̄
-#: and X, the Cimmino gathers X̄, the scatters U (or V), each in the
-#: Cimmino form's stage; the "_mma" forms are the same stages in the
-#: layout of the FP64 tensor cores' consumer (:data:`MMA_FORMS`: the
-#: bf16/float64 ``apc_gather``: "apc_mma"; the other bf16/float64 three
-#: and the float64 ``cimmino_scatter``: "cimmino_mma"; the library
-#: answers 0 for any other pair)
-FORMS = {"apc": 0, "cimmino": 1, "apc_mma": 2, "cimmino_mma": 3}
+#: kCimminoForm, kApcMmaForm, kCimminoMmaForm, kSparseForm): the dense
+#: APC gather stages X̄ and X, the dense Cimmino gather X̄, the scatters
+#: U (or V), each in the Cimmino form's stage; the "_mma" forms are the
+#: same stages in the layout of the FP64 tensor cores' consumer (the
+#: bf16/float64 ``apc_gather``: "apc_mma"; the other dense bf16/float64
+#: three and the float64 ``cimmino_scatter``: "cimmino_mma"; the library
+#: answers 0 for any other pair); "sparse" is the two sparse gathers'
+#: stage of their support operand, in its accumulation dtype, in the
+#: layout of their consumer (:data:`MMA_FORMS`), for every pair
+FORMS = {"apc": 0, "cimmino": 1, "apc_mma": 2, "cimmino_mma": 3,
+         "sparse": 4}
 # the ring's copies move 16 bytes between 16-byte-aligned addresses
 _ALIGN = 16
 
@@ -262,12 +273,13 @@ ARGTYPES = {
     "cimmino_gather": [_PTR] * 3 + [_I64] * 9 + [_PTR],
     # B, V, R, m, n, p, k, sv_w, sv_k, sr_w, sr_k, instance, kc, stream
     "cimmino_scatter": [_PTR] * 3 + [_I64] * 10 + [_PTR],
-    # vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k, sxb_k, su_w, su_k,
-    # instance, kc, stream
-    "sparse_gather": [_PTR] * 5 + [_I64] * 11 + [_PTR],
-    # vals, cols, Xbar, U, m, p, w, k, sxb_k, su_w, su_k, instance, kc,
-    # stream
-    "sparse_cimmino_gather": [_PTR] * 4 + [_I64] * 9 + [_PTR],
+    # vals, cols, X, Xbar, U, O, m, p, w, wp, k, sx_w, sx_k, sxb_k, su_w,
+    # su_k, instance, kc, stream (O: the support operand's buffer,
+    # (m, k, wp))
+    "sparse_gather": [_PTR] * 6 + [_I64] * 12 + [_PTR],
+    # vals, cols, Xbar, U, O, m, p, w, wp, k, sxb_k, su_w, su_k, instance,
+    # kc, stream
+    "sparse_cimmino_gather": [_PTR] * 5 + [_I64] * 10 + [_PTR],
     # Bvals, cols, X, Xbar, U, gamma, Y, m, w, p, k, sx_w, sx_k, sxb_k,
     # su_w, su_k, sy_w, sy_k, instance, kc, stream (X and Xbar null: the
     # Cimmino form)
@@ -322,7 +334,8 @@ def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
     ``cimmino_scatter`` V, ``apc_scatter`` and ``sparse_scatter`` U (the
     staged operand; the APC forms read X and X̄ element by element in
     their epilogue, and every scatter writes its output there); the sparse
-    gathers gather X and X̄ element by element and copy none.  Each
+    gathers copy their support operand, which their launcher allocates
+    (:func:`support_buffer`), so none is named.  Each
     tensor's strides count in its own element size (a bf16 matrix beside
     float64 operands).  Strides of axes of size 1 are never used and do
     not count.
@@ -531,11 +544,24 @@ def cimmino_scatter(B: torch.Tensor, V: torch.Tensor, *, kc: int = None,
     return R
 
 
+def support_buffer(m: int, k: int, w: int, dtype: torch.dtype,
+                   device) -> torch.Tensor:
+    """The sparse gathers' support operand buffer, (m, k, wp) in the
+    accumulation dtype of ``dtype`` (float32 for bfloat16, else
+    ``dtype``), its rows ``wp`` ≥ ``w`` elements, the smallest 16-byte
+    multiple: the pre-pass writes X̄ − X (or X̄) at each worker's support
+    columns into its first w columns and zeros past them."""
+    acc = torch.float32 if dtype == torch.bfloat16 else dtype
+    per = _ALIGN // acc.itemsize
+    return torch.empty((m, k, -(-w // per) * per), dtype=acc, device=device)
+
+
 def sparse_gather(vals: torch.Tensor, cols: torch.Tensor, X: torch.Tensor,
                   Xbar: torch.Tensor, *, kc: int = None,
                   _instance: str = None) -> torch.Tensor:
-    """U = vals·(X̄ − X)[cols]ᵀ for every worker, in one launch: the
-    support gather happens in the kernel's staged loads.
+    """U = vals·(X̄ − X)[cols]ᵀ for every worker, in one launch of the
+    entry: the pre-pass writes (X̄ − X)[cols] into a
+    :func:`support_buffer`, then the ring or the row dot reads it.
 
     vals (m, p, w) contiguous; cols (m, w) contiguous int64 with values
     in [0, n); X (m, k, n) with unit stride along n (any worker/row
@@ -548,18 +574,21 @@ def sparse_gather(vals: torch.Tensor, cols: torch.Tensor, X: torch.Tensor,
     instance = gather_instance(vals, forced=_instance)
     U = torch.empty((d["m"], d["k"], d["p"]), dtype=X.dtype,
                     device=vals.device)
+    O = support_buffer(d["m"], d["k"], d["w"], X.dtype, vals.device)
     _launch("sparse_gather", vals, U, vals.data_ptr(),
             cols.data_ptr(), X.data_ptr(), Xbar.data_ptr(), U.data_ptr(),
-            d["m"], d["p"], d["w"], d["k"], X.stride(0), X.stride(1),
-            Xbar.stride(0), U.stride(0), U.stride(1), INSTANCES[instance],
-            _kc(kc))
+            O.data_ptr(), d["m"], d["p"], d["w"], O.shape[-1], d["k"],
+            X.stride(0), X.stride(1), Xbar.stride(0), U.stride(0),
+            U.stride(1), INSTANCES[instance], _kc(kc))
     return U
 
 
 def sparse_cimmino_gather(vals: torch.Tensor, cols: torch.Tensor,
                           Xbar: torch.Tensor, *, kc: int = None,
                           _instance: str = None) -> torch.Tensor:
-    """U = vals·X̄[cols]ᵀ for every worker, in one launch.
+    """U = vals·X̄[cols]ᵀ for every worker, in one launch of the entry:
+    the pre-pass writes X̄[cols] into a :func:`support_buffer`, then the
+    ring or the row dot reads it.
 
     vals (m, p, w) contiguous; cols (m, w) contiguous int64 with values
     in [0, n); X̄ (k, n) with unit stride along n.  Returns U (m, k, p),
@@ -571,10 +600,11 @@ def sparse_cimmino_gather(vals: torch.Tensor, cols: torch.Tensor,
     instance = gather_instance(vals, forced=_instance)
     U = torch.empty((d["m"], d["k"], d["p"]), dtype=Xbar.dtype,
                     device=vals.device)
+    O = support_buffer(d["m"], d["k"], d["w"], Xbar.dtype, vals.device)
     _launch("sparse_cimmino_gather", vals, U, vals.data_ptr(),
-            cols.data_ptr(), Xbar.data_ptr(), U.data_ptr(), d["m"], d["p"],
-            d["w"], d["k"], Xbar.stride(0), U.stride(0), U.stride(1),
-            INSTANCES[instance], _kc(kc))
+            cols.data_ptr(), Xbar.data_ptr(), U.data_ptr(), O.data_ptr(),
+            d["m"], d["p"], d["w"], O.shape[-1], d["k"], Xbar.stride(0),
+            U.stride(0), U.stride(1), INSTANCES[instance], _kc(kc))
     return U
 
 

@@ -75,10 +75,22 @@
 //   * The sparse kernels are the same row dots over the compressed tiles
 //     (each streams vals or Bvals once: about w/n of the dense bytes).
 //     The TPU version gathers X[:, cols] before its kernel and
-//     scatter-adds the result after it in XLA; here the gather is part of
-//     the staged load (cols is read once per chunk, and no (m, k, w) copy
-//     of the support columns is ever written), and the scatter is the
-//     epilogue, which STORES each row's value at its column cols[w, j].
+//     scatter-adds the result after it in XLA.  Here each sparse gather
+//     is two launches of one entry: a pre-pass (support_operand_kernel)
+//     writes the support operand O (m, k, wp), O[w, i, c] =
+//     X̄[i, cols[w, c]] − X[w, i, cols[w, c]] (sparse_gather) or
+//     X̄[i, cols[w, c]] (sparse_cimmino_gather), in the accumulator type
+//     Acc<T> (the difference taken there, as a consumer takes it, so
+//     every output rounds as before), its rows padded with zeros to a
+//     16-byte multiple wp ≥ w (0.8 % of vals' bytes at the sparse path's
+//     f64 k = 8); then both gathers are the Cimmino form's row dot or
+//     ring over vals_w with O_w for X̄, a per-worker operand the ring
+//     stages with 16-byte copies (its launch the pre-pass's programmatic
+//     dependent, launch_ring).  A gather inside the ring's producers
+//     repeats itself for every tile, moves a bf16 element through a
+//     register, and timed slower on the card even in a 256-row tile
+//     (PERF.md).  The scatter is the epilogue, which STORES each row's
+//     value at its column cols[w, j].
 //     That is exact because a block repeats only the index of an all-zero
 //     column (the padding of as_sparse), whose Bvals row is zero, so every
 //     copy stores the same value; the system's constructor checks it.
@@ -114,14 +126,12 @@
 //     consumer warps done reading it.  S is what fits in 200 KiB: 5 or 6
 //     stages, so 128–165 KiB are in flight per SM (bf16: 8 to 16 smaller
 //     stages).
-//   * stages the right operand with the A stage that uses it: the stage's
-//     KC rows of X̄ and, in the APC form, of X (dense: 16 bytes a lane;
-//     sparse: one cp.async of one element a lane at the support column
-//     cols[w, c], which the producer reads once, a step ahead, so no copy
-//     waits on it; a bf16 element, too small for a cp.async, through a
-//     register).  The operand costs 2·KC/64 of A's bytes (APC) or
-//     KC/64 (Cimmino: X̄ alone, the one (k, n) buffer every worker
-//     reads), from L2, beside A and not between barriers.
+//   * stages the right operand with the A stage that uses it, 16 bytes a
+//     lane: the stage's KC rows of X̄ and, in the APC form, of X.  The
+//     operand costs 2·KC/64 of A's bytes (APC) or KC/64 (Cimmino: X̄
+//     alone, the one (k, n) buffer every worker reads, or a worker's own
+//     rows: the scatters' U or V, the sparse gathers' O), from L2, beside
+//     A and not between barriers.
 //   * gives each consumer warp 8 rows and all KC batch rows: 8·KC
 //     accumulators (64 f64 at KC = 8: 128 of its 168 registers; the
 //     tile's coordinates wait in shared memory meanwhile, so nothing
@@ -154,14 +164,17 @@
 // 168 registers; and setmaxnreg, moving registers from the producers to
 // the consumers, which hung the kernel.
 //
-// The tensor-core form.  The four dense kernels with a bf16 matrix and
-// float64 operands (apc_gather, apc_scatter, cimmino_gather and
-// cimmino_scatter _bf16_f64, the main path's precision="mixed";
+// The tensor-core form.  The kernels with a bf16 matrix and float64
+// operands (apc_gather, apc_scatter, cimmino_gather, cimmino_scatter and
+// the two sparse gathers _bf16_f64, the main path's precision="mixed";
 // kMmaForm) stream a quarter of the float64 form's bytes, so at k = 8
 // the DFMA consumer above, not the bytes, set their pace (39–44 % of the
-// bound).  Their products run on the FP64 tensor cores (mma.sync
-// m16n8k8 .f64), in a ring of its own shape; so do the float64
-// cimmino_scatter's (kMmaF64Form, below):
+// bound; the sparse gathers 32–35 %).  Their products run on the FP64
+// tensor cores (mma.sync m16n8k8 .f64), in a ring of its own shape; so
+// do the float64 cimmino_scatter's (kMmaF64Form, below) and the float64
+// sparse gathers' (kSparseMma; the sparse gathers' ring is the Cimmino
+// form's with O_w as its per-worker operand, as the scatters' with U_w
+// or V_w; sparse_scatter keeps its DFMA ring):
 //
 //   * M = the matrix's rows (l of A_w, j of B_w), N = the k-chunk's 8
 //     batch rows (zero past KC and the tile's), K = its columns.  Each
@@ -225,7 +238,8 @@
 // A 16-byte cp.async moves 16 bytes between 16-byte-aligned addresses.
 // So the ring needs the rows of its matrix (A, vals, B, Bvals) and every
 // base and row stride it copies from (dense gathers: X̄, and X in the
-// APC form; scatters: U or V) to be 16-byte multiples: f64 with an even
+// APC form; scatters: U or V; the sparse gathers' O is allocated so) to
+// be 16-byte multiples: f64 with an even
 // row length, f32 with one divisible by 4, bf16 by 8.  Other shapes
 // (n = 130 or 7 in f32, an odd support width, p = 7, a view at an odd
 // offset, an empty row) take the row dot.  The choice is by shape,
@@ -257,10 +271,8 @@
 // X + γ(X̄ − X) − γ·C, so it agrees with ops.sparse_scatter_ref to
 // within the rounding of C's sum order.  A one-element cp.async moves
 // at least 4 bytes, so in bf16 the APC scatter rings read X and X̄
-// after the tree, and the sparse gathers' producers stage the support
-// columns of X̄ (and X) through a register: an ld.global, then an
-// st.shared, which the stage's full barrier orders by a release
-// arrival of the thread beside its cp.async one (stage_arrive).  The
+// after the tree.  The sparse gathers' O is float32 in the all-bf16
+// form (Acc<T>): their ring is the bf16/f32 one, storing U in bf16.  The
 // ring sizes its stage by the compute type: C = 512 / sizeof(T) columns
 // a stage, so the operand's rows are 512 bytes as in the f64/f32 rings,
 // and the matrix's rows C·sizeof(TM) bytes (128 for bf16/f64, 256 for
@@ -415,10 +427,11 @@ constexpr int kGatherRows = 4;
 constexpr int64_t kRowDot = 0, kRing = 1;          // the entries' instance
 // gather_ring_smem's forms: a stage of X̄ and X (kApcForm), of X̄, U or V
 // alone (kCimminoForm), and the same in the tensor-core form's layout
-// (kApcMmaForm: apc_gather; kCimminoMmaForm: the other three bf16/f64
-// kernels and the f64 cimmino_scatter)
+// (kApcMmaForm: apc_gather; kCimminoMmaForm: the dense bf16/f64 Cimmino
+// pair and apc_scatter, and the f64 cimmino_scatter); the sparse
+// gathers' stage of their support operand (kSparseForm)
 constexpr int64_t kApcForm = 0, kCimminoForm = 1, kApcMmaForm = 2,
-                  kCimminoMmaForm = 3;
+                  kCimminoMmaForm = 3, kSparseForm = 4;
 constexpr int kRingWarps = 8;                      // consumer warps
 constexpr int kRingWarpRows = 8;
 constexpr int kRingRows = kRingWarps * kRingWarpRows;
@@ -429,11 +442,12 @@ constexpr int kRingBudget = 200 * 1024;
 constexpr int kRingMaxStages = 16;
 
 // The forms whose products run on the FP64 tensor cores (header): the
-// four dense kernels with a bf16 matrix and float64 operands
-// (apc_gather, apc_scatter, cimmino_gather, cimmino_scatter).
-template <typename TM, typename T, bool kSparse>
+// kernels with a bf16 matrix and float64 operands (apc_gather,
+// apc_scatter, cimmino_gather, cimmino_scatter and the two sparse
+// gathers; sparse_scatter keeps its DFMA ring).
+template <typename TM, typename T>
 constexpr bool kMmaForm = std::is_same_v<TM, __nv_bfloat16> &&
-                          std::is_same_v<T, double> && !kSparse;
+                          std::is_same_v<T, double>;
 
 // The float64 Cimmino scatter (cimmino_scatter_f64) on the same
 // consumer, its matrix read as float64 fragments (header).  kAxpy: the
@@ -442,6 +456,16 @@ template <typename TM, typename T, bool kAxpy, bool kSparse>
 constexpr bool kMmaF64Form = std::is_same_v<TM, double> &&
                              std::is_same_v<T, double> && !kAxpy &&
                              !kSparse;
+
+// The sparse gathers' consumer (header): the tensor-core form in
+// bf16/f64 and in f64 (float64 fragments, as the float64 Cimmino
+// scatter's: a probe on the card timed it level with the 64-row DFMA
+// ring at k = 1 and 6 % ahead at k = 8, PERF.md); the FFMA ring in f32,
+// bf16/f32 and bf16/bf16.
+template <typename TM, typename T>
+constexpr bool kSparseMma =
+    kMmaForm<TM, T> ||
+    (std::is_same_v<TM, double> && std::is_same_v<T, double>);
 
 // The tensor-core form's tile: each consumer warp owns 32 of its rows
 // (two mmas of 16) against every column; a stage takes 128 bytes of each
@@ -604,15 +628,13 @@ __device__ __forceinline__ void row_dot(const TM* __restrict__ M,
 }
 
 // Gather staging: Vs[kk][c] = X̄[i, g] − X[w, i, g] (APC, kDiff) or
-// X̄[i, g] (Cimmino, X unused), i = k0 + kk, at the global column
-// g = c0 + c, or g = cols[c0 + c] of this worker's support (kSparse; n is
-// then the support width), in the accumulator type.
-template <typename T, int KC, bool kDiff, bool kSparse>
+// X̄[i, g] (Cimmino, X unused), i = k0 + kk, at the column g = c0 + c,
+// in the accumulator type.
+template <typename T, int KC, bool kDiff>
 struct StageXbar {
   using TA = Acc<T>;
   const T* X;
   const T* Xbar;
-  const int64_t* cols;
   int64_t n, kvalid, sx_k, sxb_k;
   __device__ void operator()(int64_t c0, TA (*Vs)[kChunk]) const {
     for (int idx = threadIdx.x; idx < KC * kChunk; idx += kThreads) {
@@ -621,9 +643,8 @@ struct StageXbar {
       const int64_t col = c0 + c;
       TA v = TA(0);
       if (kk < kvalid && col < n) {
-        const int64_t g = kSparse ? cols[col] : col;
-        v = widen<TA>(Xbar[kk * sxb_k + g]);
-        if constexpr (kDiff) v -= widen<TA>(X[kk * sx_k + g]);
+        v = widen<TA>(Xbar[kk * sxb_k + col]);
+        if constexpr (kDiff) v -= widen<TA>(X[kk * sx_k + col]);
       }
       Vs[kk][c] = v;
     }
@@ -649,23 +670,25 @@ struct StageU {
 };
 
 // The gather of block (blockIdx.x, w, k-chunk): U[w, i, l] for this
-// block's 8 R rows l of A_w (p x n; vals_w, p x w, under kSparse)
-// against the X̄-staged operand.
+// block's 8 R rows l of A_w (p x n; vals_w, p x w, for the sparse
+// gathers) against the X̄-staged operand, X̄ at Xbar + w·sxb_w (the
+// sparse gathers' support operand in TX = Acc<T>; dense: TX = T, one X̄
+// for every worker, sxb_w = 0).
 // grid (ceil(p / (8 R)), m, ceil(k / KC))
-template <typename TM, typename T, int KC, int R, bool kDiff, bool kSparse>
+template <typename TM, typename T, int KC, int R, bool kDiff,
+          typename TX = T>
 __device__ __forceinline__ void gather_block(
-    const TM* __restrict__ A, const T* __restrict__ X,
-    const T* __restrict__ Xbar, const int64_t* __restrict__ cols,
-    T* __restrict__ U, int64_t p, int64_t n, int64_t k, int64_t sx_w,
-    int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
-    Acc<T> (*Vs)[kChunk]) {
+    const TM* __restrict__ A, const TX* __restrict__ X,
+    const TX* __restrict__ Xbar, T* __restrict__ U, int64_t p, int64_t n,
+    int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_w, int64_t sxb_k,
+    int64_t su_w, int64_t su_k, Acc<T> (*Vs)[kChunk]) {
   const int64_t w = blockIdx.y;
   const int64_t k0 = static_cast<int64_t>(blockIdx.z) * KC;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (kWarps * R);
   const int64_t kvalid = k - k0 < KC ? k - k0 : KC;
-  StageXbar<T, KC, kDiff, kSparse> stage{
-      kDiff ? X + w * sx_w + k0 * sx_k : X, Xbar + k0 * sxb_k,
-      kSparse ? cols + w * n : cols, n, kvalid, sx_k, sxb_k};
+  StageXbar<TX, KC, kDiff> stage{kDiff ? X + w * sx_w + k0 * sx_k : X,
+                                 Xbar + w * sxb_w + k0 * sxb_k, n, kvalid,
+                                 sx_k, sxb_k};
   Acc<T> acc[R][KC];
   row_dot<TM, Acc<T>, KC, R, false>(A + w * p * n, p, n, row0, stage, Vs,
                                     acc);
@@ -731,33 +754,7 @@ __device__ __forceinline__ void scatter_block(
   }
 }
 
-// The sparse kernels: w is the support width, the row-dot's column count
-// (gathers) or row count (scatters).
-template <typename TM, typename T, int KC, int R>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-sparse_gather_kernel(const TM* __restrict__ vals,
-                     const int64_t* __restrict__ cols,
-                     const T* __restrict__ X, const T* __restrict__ Xbar,
-                     T* __restrict__ U, int64_t p, int64_t w, int64_t k,
-                     int64_t sx_w, int64_t sx_k, int64_t sxb_k, int64_t su_w,
-                     int64_t su_k) {
-  __shared__ Acc<T> Vs[KC][kChunk];
-  gather_block<TM, T, KC, R, true, true>(vals, X, Xbar, cols, U, p, w, k, sx_w,
-                                     sx_k, sxb_k, su_w, su_k, Vs);
-}
-
-template <typename TM, typename T, int KC, int R>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-sparse_cimmino_gather_kernel(const TM* __restrict__ vals,
-                             const int64_t* __restrict__ cols,
-                             const T* __restrict__ Xbar, T* __restrict__ U,
-                             int64_t p, int64_t w, int64_t k, int64_t sxb_k,
-                             int64_t su_w, int64_t su_k) {
-  __shared__ Acc<T> Vs[KC][kChunk];
-  gather_block<TM, T, KC, R, false, true>(vals, nullptr, Xbar, cols, U, p, w,
-                                      k, 0, 0, sxb_k, su_w, su_k, Vs);
-}
-
+// The sparse scatter: w is the support width, the row dot's row count.
 template <typename TM, typename T, int KC, int R, bool kAxpy>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 sparse_scatter_kernel(const TM* __restrict__ Bvals,
@@ -836,23 +833,6 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                    smem_addr(bar)) : "memory");
 }
 
-// A producer thread's arrival on a stage's full barrier.  With kStores
-// (the bf16 sparse gathers, whose support columns went through a
-// register into shared memory) the cp.async arrival adds one to the
-// pending count itself (no .noinc: it holds the phase until the copies
-// land) and the thread's counted arrival is a plain one, with release
-// semantics, after its st.shared; the consumers' wait acquires.
-template <bool kStores>
-__device__ __forceinline__ void stage_arrive(uint64_t* bar) {
-  if constexpr (kStores) {
-    asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
-                     smem_addr(bar)) : "memory");
-    mbar_arrive(bar);
-  } else {
-    cp_async_arrive(bar);
-  }
-}
-
 // A tile: rows row0 .. row0 + rows of worker w's matrix against its
 // batch rows k0 .. k0 + kvalid.
 struct RingTile {
@@ -893,53 +873,30 @@ __device__ __forceinline__ RingTile ring_tile(int64_t g, int64_t end,
   return r;
 }
 
-// The support columns of the step at column c0 of worker w's cols that
-// lane l copies X̄ and X at: cols[w, c0 + l + 32 j] (0 past the end).
-template <int C>
-__device__ __forceinline__ void ring_cols(int64_t (&g)[C / 32],
-                                          const int64_t* __restrict__ cols,
-                                          int64_t w, int64_t c0, int64_t n) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < C / 32; ++j)
-    g[j] = c0 + lane + 32 * j < n ? cols[w * n + c0 + lane + 32 * j] : 0;
-}
-
 // A producer warp (pw of kRingLoaders): for every chunk of the tile, wait
-// for its stage to empty, then copy its share into it — rows of M (16
-// bytes a lane; a row segment is kPieces copies, so a warp copies
+// for its stage to empty, then copy its share into it, 16 bytes a lane —
+// rows of M (a row segment is kPieces copies, so a warp copies
 // 32 / kPieces rows at once: rows pw, pw + 4, ... in f64 and f32) and
 // rows q = pw, pw + 4, ... of the right operand's KC (Cimmino) or 2·KC
-// (kDiff) rows (X̄ row q, or X row q − KC; dense: 16 bytes a lane,
-// sparse: one element a lane at its support column) — and arrive on the
-// stage's full barrier once they have landed (stage_arrive; a 2-byte
-// support element, which no cp.async moves, through a register).
-// Under kSparse, `g` holds the support columns of the step and is
-// refilled with the next step's (the next tile's first, of worker
-// next_w, after the last chunk): each index is read a step before the
-// copies that need it.  Under
-// kPerWorker (the scatters: the Cimmino form, dense) the operand is
-// worker w's own rows, at Xbar + w·sxb_w, not the one shared X̄.  `it`
-// counts the block's (tile, chunk) steps: stage it % S, round it / S.
-// Under kMma each piece goes to its swizzled place (Ring::matrix_piece,
-// mma_operand_piece).
-template <typename TM, typename T, int KC, bool kDiff, bool kSparse,
-          bool kPerWorker, bool kMma>
+// (kDiff) rows (X̄ row q, or X row q − KC) — and arrive on the stage's
+// full barrier once they have landed.  Under kPerWorker (the scatters'
+// U or V, the sparse gathers' support operand: the Cimmino form) the
+// operand is worker w's own rows, at Xbar + w·sxb_w, not the one shared
+// X̄.  `it` counts the block's (tile, chunk) steps: stage it % S, round
+// it / S.  Under kMma each piece goes to its swizzled place
+// (Ring::matrix_piece, mma_operand_piece).
+template <typename TM, typename T, int KC, bool kDiff, bool kPerWorker,
+          bool kMma>
 __device__ __forceinline__ void ring_produce(
-    const RingTile& tl, int64_t next_w,
-    int64_t (&g)[Ring<TM, T, KC, kDiff>::kCols / 32],
-    const TM* __restrict__ M, const int64_t* __restrict__ cols,
-    const T* __restrict__ X, const T* __restrict__ Xbar, int64_t p,
-    int64_t n, int64_t sx_w, int64_t sx_k, int64_t sxb_k, uint32_t& it,
-    int64_t sxb_w) {
+    const RingTile& tl, const TM* __restrict__ M, const T* __restrict__ X,
+    const T* __restrict__ Xbar, int64_t p, int64_t n, int64_t sx_w,
+    int64_t sx_k, int64_t sxb_w, int64_t sxb_k, uint32_t& it) {
   using Cfg = Ring<TM, T, KC, kDiff, kMma>;
-  static_assert(!kMma || !kSparse, "the tensor-core form is dense");
-  static_assert(!kPerWorker || !(kDiff || kSparse), "a scatter's operand");
+  static_assert(!kPerWorker || !kDiff, "a per-worker operand is one row");
   constexpr int C = Cfg::kCols;
   constexpr int kPer = 16 / sizeof(T);           // operand elements a piece
   constexpr int kMPer = 16 / sizeof(TM);         // matrix elements a piece
   constexpr int kRowsAtOnce = 32 / Cfg::kPieces;
-  constexpr bool kStores = kSparse && sizeof(T) < 4;
   const int pw = threadIdx.x / 32 - kRingWarps;
   const int lane = threadIdx.x % 32;
   const int piece = lane % Cfg::kPieces;
@@ -954,17 +911,6 @@ __device__ __forceinline__ void ring_produce(
     T* XBs = reinterpret_cast<T*>(stage + Cfg::kMatrixBytes);
     T* Xs = XBs + KC * C;
     mbar_wait(&ring_empty[s], ((it / Cfg::kStages) & 1) ^ 1);
-    int64_t gc[sizeof(g) / sizeof(g[0])] = {};
-    if constexpr (kSparse) {
-      if (pw < Cfg::kOperandRows) {
-#pragma unroll
-        for (int j = 0; j < C / 32; ++j) gc[j] = g[j];
-        if (c0 + C < n)
-          ring_cols<C>(g, cols, tl.w, c0 + C, n);
-        else if (next_w >= 0)
-          ring_cols<C>(g, cols, next_w, 0, n);
-      }
-    }
     if (piece < mpieces)
       for (int r = pw * kRowsAtOnce + lane / Cfg::kPieces; r < tl.rows;
            r += kRingLoaders * kRowsAtOnce) {
@@ -981,25 +927,11 @@ __device__ __forceinline__ void ring_produce(
       const T* src = q < KC ? Xbar + (tl.k0 + kk) * sxb_k
                             : X + tl.w * sx_w + (tl.k0 + kk) * sx_k;
       if constexpr (kPerWorker) src += tl.w * sxb_w;
-      if constexpr (kStores) {
-        T v[C / 32];
-#pragma unroll
-        for (int j = 0; j < C / 32; ++j)
-          if (lane + 32 * j < nv) v[j] = src[gc[j]];
-#pragma unroll
-        for (int j = 0; j < C / 32; ++j)
-          if (lane + 32 * j < nv) dst[lane + 32 * j] = v[j];
-      } else if constexpr (kSparse) {
-#pragma unroll
-        for (int j = 0; j < C / 32; ++j)
-          if (lane + 32 * j < nv)
-            cp_async_element(dst + lane + 32 * j, src + gc[j]);
-      } else if (lane < opieces) {
+      if (lane < opieces)
         cp_async16(dst + (kMma ? mma_operand_piece(kk, lane) : lane) * kPer,
                    src + c0 + lane * kPer);
-      }
     }
-    stage_arrive<kStores>(&ring_full[s]);
+    cp_async_arrive(&ring_full[s]);
   }
 }
 
@@ -1617,14 +1549,13 @@ apc_gather_kernel(const TM* __restrict__ A, const T* __restrict__ X,
                   const T* __restrict__ Xbar, T* __restrict__ U,
                   int64_t p, int64_t n, int64_t k, int64_t sx_w,
                   int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  if constexpr (kMmaForm<TM, T, false>) {
+  if constexpr (kMmaForm<TM, T>) {
     mma_row_dot<TM, KC, true>(A, X, Xbar, p, n, k, sx_w, sx_k, 0, sxb_k,
                               MmaStore{U, su_w, su_k});
   } else {
     __shared__ Acc<T> Vs[KC][kChunk];
-    gather_block<TM, T, KC, R, true, false>(A, X, Xbar, nullptr, U, p, n, k,
-                                            sx_w, sx_k, sxb_k, su_w, su_k,
-                                            Vs);
+    gather_block<TM, T, KC, R, true>(A, X, Xbar, U, p, n, k, sx_w, sx_k, 0,
+                                     sxb_k, su_w, su_k, Vs);
   }
 }
 
@@ -1635,7 +1566,7 @@ apc_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ X,
                    Acc<T> gamma, T* __restrict__ Y, int64_t n, int64_t p,
                    int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                    int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
-  if constexpr (kMmaForm<TM, T, false>) {
+  if constexpr (kMmaForm<TM, T>) {
     mma_row_dot<TM, KC, false>(
         B, nullptr, U, n, p, k, 0, 0, su_w, su_k,
         MmaScatterStore{X, Xbar, gamma, Y, sx_w, sx_k, sxb_k, sy_w, sy_k});
@@ -1653,14 +1584,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 cimmino_gather_kernel(const TM* __restrict__ A, const T* __restrict__ Xbar,
                       T* __restrict__ U, int64_t p, int64_t n, int64_t k,
                       int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  if constexpr (kMmaForm<TM, T, false>) {
+  if constexpr (kMmaForm<TM, T>) {
     mma_row_dot<TM, KC, false>(A, nullptr, Xbar, p, n, k, 0, 0, 0, sxb_k,
                                MmaStore{U, su_w, su_k});
   } else {
     __shared__ Acc<T> Vs[KC][kChunk];
-    gather_block<TM, T, KC, R, false, false>(A, nullptr, Xbar, nullptr, U, p,
-                                             n, k, 0, 0, sxb_k, su_w, su_k,
-                                             Vs);
+    gather_block<TM, T, KC, R, false, T>(A, nullptr, Xbar, U, p, n, k, 0, 0,
+                                         0, sxb_k, su_w, su_k, Vs);
   }
 }
 
@@ -1670,8 +1600,7 @@ cimmino_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ V,
                        T* __restrict__ Rout, int64_t n, int64_t p,
                        int64_t k, int64_t sv_w, int64_t sv_k, int64_t sr_w,
                        int64_t sr_k) {
-  if constexpr (kMmaForm<TM, T, false> ||
-                kMmaF64Form<TM, T, false, false>) {
+  if constexpr (kMmaForm<TM, T> || kMmaF64Form<TM, T, false, false>) {
     mma_row_dot<TM, KC, false>(B, nullptr, V, n, p, k, 0, 0, sv_w, sv_k,
                                MmaStore{Rout, sr_w, sr_k});
   } else {
@@ -1684,17 +1613,83 @@ cimmino_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ V,
   }
 }
 
+// The sparse gathers' support operand (header): O[w, i, c] =
+// X̄[i, cols[w, c]] − X[w, i, cols[w, c]] (kDiff, sparse_gather) or
+// X̄[i, cols[w, c]] (sparse_cimmino_gather) in the accumulator type, the
+// difference taken there as the consumers take it, for c < w, and 0 for
+// w ≤ c < wp; O is (m, k, wp), contiguous.  One thread an element, in
+// O's order, so its stores, its cols loads and, on a band, its X̄ and X
+// loads are coalesced.
+template <typename T, bool kDiff>
+__global__ void __launch_bounds__(kThreads)
+support_operand_kernel(const int64_t* __restrict__ cols,
+                       const T* __restrict__ X, const T* __restrict__ Xbar,
+                       Acc<T>* __restrict__ O, int64_t m, int64_t w,
+                       int64_t wp, int64_t k, int64_t sx_w, int64_t sx_k,
+                       int64_t sxb_k) {
+  const int64_t total = m * k * wp;
+  // the ring after it may start its blocks (launch_ring's kDependent)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int64_t c = e % wp, i = e / wp % k, v = e / wp / k;
+    Acc<T> o = Acc<T>(0);
+    if (c < w) {
+      const int64_t g = cols[v * w + c];
+      o = widen<Acc<T>>(Xbar[i * sxb_k + g]);
+      if constexpr (kDiff) o -= widen<Acc<T>>(X[v * sx_w + i * sx_k + g]);
+    }
+    O[e] = o;
+  }
+}
+
+// The sparse gathers' row dot over vals_w (p x w) against the support
+// operand O_w (k x wp at O + w·so_w, in Acc<T>): the tensor-core form's
+// (kSparseMma; R = 32 rows a warp) or gather_block's Cimmino form with a
+// per-worker X̄.  Its two kernels are one; each keeps its name.
+template <typename TM, typename T, int KC, int R>
+__device__ __forceinline__ void sparse_row_dot(
+    const TM* __restrict__ vals, const Acc<T>* __restrict__ O,
+    T* __restrict__ U, int64_t p, int64_t w, int64_t k, int64_t so_w,
+    int64_t so_k, int64_t su_w, int64_t su_k) {
+  if constexpr (kSparseMma<TM, T>) {
+    mma_row_dot<TM, KC, false>(vals, nullptr, O, p, w, k, 0, 0, so_w, so_k,
+                               MmaStore{U, su_w, su_k});
+  } else {
+    __shared__ Acc<T> Vs[KC][kChunk];
+    gather_block<TM, T, KC, R, false, Acc<T>>(vals, nullptr, O, U, p, w, k, 0,
+                                              0, so_w, so_k, su_w, su_k, Vs);
+  }
+}
+
+template <typename TM, typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+sparse_gather_kernel(const TM* __restrict__ vals,
+                     const Acc<T>* __restrict__ O, T* __restrict__ U,
+                     int64_t p, int64_t w, int64_t k, int64_t so_w,
+                     int64_t so_k, int64_t su_w, int64_t su_k) {
+  sparse_row_dot<TM, T, KC, R>(vals, O, U, p, w, k, so_w, so_k, su_w, su_k);
+}
+
+template <typename TM, typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+sparse_cimmino_gather_kernel(const TM* __restrict__ vals,
+                             const Acc<T>* __restrict__ O, T* __restrict__ U,
+                             int64_t p, int64_t w, int64_t k, int64_t so_w,
+                             int64_t so_k, int64_t su_w, int64_t su_k) {
+  sparse_row_dot<TM, T, KC, R>(vals, O, U, p, w, k, so_w, so_k, su_w, su_k);
+}
+
 // The ring over the m·ceil(k/KC)·p rows of M (p x n a worker): warps
 // 8..11 copy (ring_produce), warps 0..7 compute and hand each tile's sums
 // to `store`; both walk the block's tiles.  kMma: the tensor-core form's
 // stage layout and consumer (mma_consume).
-template <typename TM, typename T, int KC, bool kDiff, bool kSparse,
-          bool kPerWorker, bool kMma, typename Store>
+template <typename TM, typename T, int KC, bool kDiff, bool kPerWorker,
+          bool kMma, typename Store>
 __device__ __forceinline__ void ring_run(
-    const TM* __restrict__ M, const int64_t* __restrict__ cols,
-    const T* __restrict__ X, const T* __restrict__ Xbar, int64_t m,
-    int64_t p, int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
-    int64_t sxb_w, int64_t sxb_k, Store store) {
+    const TM* __restrict__ M, const T* __restrict__ X,
+    const T* __restrict__ Xbar, int64_t m, int64_t p, int64_t n, int64_t k,
+    int64_t sx_w, int64_t sx_k, int64_t sxb_w, int64_t sxb_k, Store store) {
   using Cfg = Ring<TM, T, KC, kDiff, kMma>;
   if (threadIdx.x == 0) {
     for (int s = 0; s < Cfg::kStages; ++s) {
@@ -1723,21 +1718,15 @@ __device__ __forceinline__ void ring_run(
   }
   const int warp = threadIdx.x / 32;
   if (warp >= kRingWarps) {
+    // a dependent launch's copies wait for the kernel before it (a no-op
+    // otherwise: launch_ring's kDependent)
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
     uint32_t it = 0;
-    RingTile tl = ring_tile<KC, Cfg::kRows>(g, end, p, k);
-    // support columns, a step ahead (kSparse: Cfg is the 512-byte stage)
-    int64_t cg[Ring<TM, T, KC, kDiff>::kCols / 32] = {};
-    if constexpr (kSparse)
-      if (g < end) ring_cols<Cfg::kCols>(cg, cols, tl.w, 0, n);
     while (g < end) {
-      const int64_t gn = g + tl.rows;
-      const RingTile next =
-          gn < end ? ring_tile<KC, Cfg::kRows>(gn, end, p, k) : tl;
-      ring_produce<TM, T, KC, kDiff, kSparse, kPerWorker, kMma>(
-          tl, gn < end ? next.w : -1, cg, M, cols, X, Xbar, p, n, sx_w, sx_k,
-          sxb_k, it, sxb_w);
-      g = gn;
-      tl = next;
+      const RingTile tl = ring_tile<KC, Cfg::kRows>(g, end, p, k);
+      ring_produce<TM, T, KC, kDiff, kPerWorker, kMma>(
+          tl, M, X, Xbar, p, n, sx_w, sx_k, sxb_w, sxb_k, it);
+      g += tl.rows;
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   } else if constexpr (kMma) {
@@ -1747,22 +1736,40 @@ __device__ __forceinline__ void ring_run(
   }
 }
 
-// U[w, i, l] = sum_j (X̄[i, g_j] − X[w, i, g_j]) · M[w, l, j] (kDiff;
-// X̄[i, g_j] alone otherwise, X unused) with g_j = j (dense: M = A) or
-// cols[w, j] (kSparse: M = vals, n = w).
-template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
+// U[w, i, l] = sum_j (X̄[i, j] − X[w, i, j]) · A[w, l, j] (kDiff; X̄[i, j]
+// alone otherwise, X unused).
+template <typename TM, typename T, int KC, bool kDiff>
 __device__ __forceinline__ void gather_ring(
-    const TM* __restrict__ M, const int64_t* __restrict__ cols,
-    const T* __restrict__ X, const T* __restrict__ Xbar, T* __restrict__ U,
-    int64_t m, int64_t p, int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
-    int64_t sxb_k, int64_t su_w, int64_t su_k) {
-  if constexpr (kMmaForm<TM, T, kSparse>) {
-    ring_run<TM, T, KC, kDiff, kSparse, false, true>(
-        M, cols, X, Xbar, m, p, n, k, sx_w, sx_k, 0, sxb_k,
-        MmaStore{U, su_w, su_k});
+    const TM* __restrict__ A, const T* __restrict__ X,
+    const T* __restrict__ Xbar, T* __restrict__ U, int64_t m, int64_t p,
+    int64_t n, int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
+    int64_t su_w, int64_t su_k) {
+  if constexpr (kMmaForm<TM, T>) {
+    ring_run<TM, T, KC, kDiff, false, true>(A, X, Xbar, m, p, n, k, sx_w,
+                                            sx_k, 0, sxb_k,
+                                            MmaStore{U, su_w, su_k});
   } else {
-    ring_run<TM, T, KC, kDiff, kSparse, false, false>(
-        M, cols, X, Xbar, m, p, n, k, sx_w, sx_k, 0, sxb_k,
+    ring_run<TM, T, KC, kDiff, false, false>(
+        A, X, Xbar, m, p, n, k, sx_w, sx_k, 0, sxb_k,
+        RingGatherStore<T, KC>{U, su_w, su_k});
+  }
+}
+
+// The sparse gathers' ring: the Cimmino form over vals_w (p x w) with
+// the per-worker support operand O_w in Acc<T> for X̄ (the tensor-core
+// form's under kSparseMma), storing U in T.
+template <typename TM, typename T, int KC>
+__device__ __forceinline__ void sparse_ring(
+    const TM* __restrict__ vals, const Acc<T>* __restrict__ O,
+    T* __restrict__ U, int64_t m, int64_t p, int64_t w, int64_t k,
+    int64_t so_w, int64_t so_k, int64_t su_w, int64_t su_k) {
+  if constexpr (kSparseMma<TM, T>) {
+    ring_run<TM, T, KC, false, true, true>(vals, nullptr, O, m, p, w, k, 0, 0,
+                                           so_w, so_k,
+                                           MmaStore{U, su_w, su_k});
+  } else {
+    ring_run<TM, Acc<T>, KC, false, true, false>(
+        vals, nullptr, O, m, p, w, k, 0, 0, so_w, so_k,
         RingGatherStore<T, KC>{U, su_w, su_k});
   }
 }
@@ -1771,7 +1778,7 @@ __device__ __forceinline__ void gather_ring(
 // (n x p; Bvals_w, w x p, under kSparse), streamed as the Cimmino
 // gathers stream A with U_w (V_w) as their X̄, then the scatter's
 // epilogue (RingScatterStore; in the tensor-core forms MmaScatterStore
-// under kAxpy, MmaStore otherwise).
+// under kAxpy, MmaStore otherwise; sparse_scatter keeps the DFMA ring).
 template <typename TM, typename T, int KC, bool kAxpy, bool kSparse>
 __device__ __forceinline__ void scatter_ring(
     const TM* __restrict__ M, const int64_t* __restrict__ cols,
@@ -1779,75 +1786,66 @@ __device__ __forceinline__ void scatter_ring(
     const T* __restrict__ U, Acc<T> gamma, T* __restrict__ Y, int64_t m,
     int64_t n, int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
     int64_t sxb_k, int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
-  if constexpr (kMmaForm<TM, T, kSparse> && kAxpy) {
-    ring_run<TM, T, KC, false, false, true, true>(
-        M, nullptr, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
+  constexpr bool kMma = kMmaForm<TM, T> && !kSparse;
+  if constexpr (kMma && kAxpy) {
+    ring_run<TM, T, KC, false, true, true>(
+        M, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
         MmaScatterStore{X, Xbar, gamma, Y, sx_w, sx_k, sxb_k, sy_w, sy_k});
-  } else if constexpr (kMmaForm<TM, T, kSparse> ||
-                       kMmaF64Form<TM, T, kAxpy, kSparse>) {
-    ring_run<TM, T, KC, false, false, true, true>(
-        M, nullptr, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
-        MmaStore{Y, sy_w, sy_k});
+  } else if constexpr (kMma || kMmaF64Form<TM, T, kAxpy, kSparse>) {
+    ring_run<TM, T, KC, false, true, true>(M, nullptr, U, m, n, p, k, 0, 0,
+                                           su_w, su_k,
+                                           MmaStore{Y, sy_w, sy_k});
   } else {
-    ring_run<TM, T, KC, false, false, true, false>(
-        M, nullptr, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
+    ring_run<TM, T, KC, false, true, false>(
+        M, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
         RingScatterStore<T, KC, kAxpy, kSparse>{
             cols, X, Xbar, gamma, Y, n, sx_w, sx_k, sxb_k, sy_w, sy_k});
   }
 }
 
-// The four gather ring kernels share one parameter list; a dense kernel
-// does not read cols, nor a Cimmino one X and its strides.
+// The dense gather ring kernels share one parameter list; the Cimmino
+// one does not read X and its strides.
 template <typename TM, typename T, int KC>
 __global__ void __launch_bounds__(kRingThreads, 1)
-apc_gather_ring_kernel(const TM* __restrict__ A,
-                       const int64_t* __restrict__ cols,
-                       const T* __restrict__ X, const T* __restrict__ Xbar,
-                       T* __restrict__ U, int64_t m, int64_t p, int64_t n,
-                       int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
+apc_gather_ring_kernel(const TM* __restrict__ A, const T* __restrict__ X,
+                       const T* __restrict__ Xbar, T* __restrict__ U,
+                       int64_t m, int64_t p, int64_t n, int64_t k,
+                       int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                        int64_t su_w, int64_t su_k) {
-  gather_ring<TM, T, KC, true, false>(A, cols, X, Xbar, U, m, p, n, k, sx_w,
-                                  sx_k, sxb_k, su_w, su_k);
+  gather_ring<TM, T, KC, true>(A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k,
+                               su_w, su_k);
 }
 
 template <typename TM, typename T, int KC>
 __global__ void __launch_bounds__(kRingThreads, 1)
-sparse_gather_ring_kernel(const TM* __restrict__ vals,
-                          const int64_t* __restrict__ cols,
-                          const T* __restrict__ X,
-                          const T* __restrict__ Xbar, T* __restrict__ U,
-                          int64_t m, int64_t p, int64_t w, int64_t k,
-                          int64_t sx_w, int64_t sx_k, int64_t sxb_k,
-                          int64_t su_w, int64_t su_k) {
-  gather_ring<TM, T, KC, true, true>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,
-                                 sx_k, sxb_k, su_w, su_k);
-}
-
-template <typename TM, typename T, int KC>
-__global__ void __launch_bounds__(kRingThreads, 1)
-cimmino_gather_ring_kernel(const TM* __restrict__ A,
-                           const int64_t* __restrict__ cols,
-                           const T* __restrict__ X,
+cimmino_gather_ring_kernel(const TM* __restrict__ A, const T* __restrict__ X,
                            const T* __restrict__ Xbar, T* __restrict__ U,
                            int64_t m, int64_t p, int64_t n, int64_t k,
                            int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                            int64_t su_w, int64_t su_k) {
-  gather_ring<TM, T, KC, false, false>(A, cols, X, Xbar, U, m, p, n, k, sx_w,
-                                   sx_k, sxb_k, su_w, su_k);
+  gather_ring<TM, T, KC, false>(A, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k,
+                                su_w, su_k);
+}
+
+// The sparse gathers' ring kernels: one ring, each kernel its name.
+template <typename TM, typename T, int KC>
+__global__ void __launch_bounds__(kRingThreads, 1)
+sparse_gather_ring_kernel(const TM* __restrict__ vals,
+                          const Acc<T>* __restrict__ O, T* __restrict__ U,
+                          int64_t m, int64_t p, int64_t w, int64_t k,
+                          int64_t so_w, int64_t so_k, int64_t su_w,
+                          int64_t su_k) {
+  sparse_ring<TM, T, KC>(vals, O, U, m, p, w, k, so_w, so_k, su_w, su_k);
 }
 
 template <typename TM, typename T, int KC>
 __global__ void __launch_bounds__(kRingThreads, 1)
 sparse_cimmino_gather_ring_kernel(const TM* __restrict__ vals,
-                                  const int64_t* __restrict__ cols,
-                                  const T* __restrict__ X,
-                                  const T* __restrict__ Xbar,
+                                  const Acc<T>* __restrict__ O,
                                   T* __restrict__ U, int64_t m, int64_t p,
-                                  int64_t w, int64_t k, int64_t sx_w,
-                                  int64_t sx_k, int64_t sxb_k, int64_t su_w,
-                                  int64_t su_k) {
-  gather_ring<TM, T, KC, false, true>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,
-                                  sx_k, sxb_k, su_w, su_k);
+                                  int64_t w, int64_t k, int64_t so_w,
+                                  int64_t so_k, int64_t su_w, int64_t su_k) {
+  sparse_ring<TM, T, KC>(vals, O, U, m, p, w, k, so_w, so_k, su_w, su_k);
 }
 
 // The scatter ring kernels: the parameter lists of their row-dot twins
@@ -1898,8 +1896,14 @@ sparse_scatter_ring_kernel(const TM* __restrict__ Bvals,
 // walk with smem bytes of dynamic shared memory: one persistent block per
 // SM (the ring's shared memory admits no second), and no more blocks
 // than 64-row tiles.  The dynamic shared memory above 48 KB is opted into
-// once per device and kernel.
-template <auto kKernel, int KC, bool kMma = false, typename... Args>
+// once per device and kernel.  kDependent (the sparse gathers' ring,
+// after their pre-pass): a programmatic dependent launch, so the ring's
+// blocks start while the pre-pass runs and its producers wait for it
+// (griddepcontrol.wait, ring_run); its consumers read no global memory
+// the pre-pass or a kernel before it writes.  A probe on the card timed
+// it 0.6–1.9 µs a call ahead of a plain launch (PERF.md).
+template <auto kKernel, int KC, bool kMma = false, bool kDependent = false,
+          typename... Args>
 void launch_ring(int smem, int64_t m, int64_t rows, int64_t k,
                  cudaStream_t s, Args... args) {
   static std::atomic<uint64_t> opted_in{0};          // a bit per device
@@ -1920,36 +1924,36 @@ void launch_ring(int smem, int64_t m, int64_t rows, int64_t k,
   const int64_t tiles =
       kMma ? units * ((rows + kMmaRows - 1) / kMmaRows)
            : (units * rows + kRingRows - 1) / kRingRows;
-  kKernel<<<static_cast<unsigned>(min64(sms, tiles)), kRingThreads, smem,
-            s>>>(args...);
+  const unsigned grid = static_cast<unsigned>(min64(sms, tiles));
+  if constexpr (kDependent) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(kRingThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaLaunchKernelEx(&cfg, kKernel, args...);
+  } else {
+    kKernel<<<grid, kRingThreads, smem, s>>>(args...);
+  }
 }
 
-// The gather ring kernel of a form, the only one instantiated.
-template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
-constexpr auto gather_ring_kernel() {
-  if constexpr (kDiff && kSparse)
-    return &sparse_gather_ring_kernel<TM, T, KC>;
-  else if constexpr (kDiff)
-    return &apc_gather_ring_kernel<TM, T, KC>;
-  else if constexpr (kSparse)
-    return &sparse_cimmino_gather_ring_kernel<TM, T, KC>;
-  else
-    return &cimmino_gather_ring_kernel<TM, T, KC>;
-}
-
-// The gathers' ring: the kernel of its form, over the rows of A (vals).
-template <typename TM, typename T, int KC, bool kDiff, bool kSparse>
-void launch_gather_ring(const void* M, const void* cols, const void* X,
-                        const void* Xbar, void* U, int64_t m, int64_t p,
-                        int64_t n, int64_t k, int64_t sx_w, int64_t sx_k,
-                        int64_t sxb_k, int64_t su_w, int64_t su_k,
-                        cudaStream_t s) {
-  constexpr auto kernel = gather_ring_kernel<TM, T, KC, kDiff, kSparse>();
-  constexpr bool kMma = kMmaForm<TM, T, kSparse>;
+// The dense gathers' ring: the kernel of its form, over the rows of A.
+template <typename TM, typename T, int KC, bool kDiff>
+void launch_gather_ring(const void* A, const void* X, const void* Xbar,
+                        void* U, int64_t m, int64_t p, int64_t n, int64_t k,
+                        int64_t sx_w, int64_t sx_k, int64_t sxb_k,
+                        int64_t su_w, int64_t su_k, cudaStream_t s) {
+  constexpr auto kernel = kDiff ? &apc_gather_ring_kernel<TM, T, KC>
+                                : &cimmino_gather_ring_kernel<TM, T, KC>;
+  constexpr bool kMma = kMmaForm<TM, T>;
   launch_ring<kernel, KC, kMma>(
       Ring<TM, T, KC, kDiff, kMma>::kSmem, m, p, k, s,
-      static_cast<const TM*>(M),
-      static_cast<const int64_t*>(cols), static_cast<const T*>(X),
+      static_cast<const TM*>(A), static_cast<const T*>(X),
       static_cast<const T*>(Xbar), static_cast<T*>(U), m, p, n, k, sx_w, sx_k,
       sxb_k, su_w, su_k);
 }
@@ -2000,14 +2004,12 @@ int apc_gather(const void* A, const void* X, const void* Xbar, void* U,
   with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_gather_ring<TM, T, KC, true, false>(
-          A, nullptr, X, Xbar, U, m, p, n, k, sx_w, sx_k, sxb_k, su_w, su_k,
-          s);
+      launch_gather_ring<TM, T, KC, true>(A, X, Xbar, U, m, p, n, k, sx_w,
+                                          sx_k, sxb_k, su_w, su_k, s);
       return;
     }
     // the tensor-core form's row dot takes a tile's 256 rows a block
-    constexpr int R =
-        kMmaForm<TM, T, false> ? kMmaRows / kWarps : kGatherRows;
+    constexpr int R = kMmaForm<TM, T> ? kMmaRows / kWarps : kGatherRows;
     apc_gather_kernel<TM, T, KC, R>
         <<<grid_for(p, m, k, KC, R), kThreads, 0, s>>>(
             static_cast<const TM*>(A), static_cast<const T*>(X),
@@ -2029,13 +2031,11 @@ int cimmino_gather(const void* A, const void* Xbar, void* U, int64_t m,
   with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      launch_gather_ring<TM, T, KC, false, false>(
-          A, nullptr, nullptr, Xbar, U, m, p, n, k, 0, 0, sxb_k, su_w, su_k,
-          s);
+      launch_gather_ring<TM, T, KC, false>(A, nullptr, Xbar, U, m, p, n, k,
+                                           0, 0, sxb_k, su_w, su_k, s);
       return;
     }
-    constexpr int R =
-        kMmaForm<TM, T, false> ? kMmaRows / kWarps : kGatherRows;
+    constexpr int R = kMmaForm<TM, T> ? kMmaRows / kWarps : kGatherRows;
     cimmino_gather_kernel<TM, T, KC, R>
         <<<grid_for(p, m, k, KC, R), kThreads, 0, s>>>(
             static_cast<const TM*>(A), static_cast<const T*>(Xbar),
@@ -2057,7 +2057,7 @@ int apc_scatter(const void* B, const void* X, const void* Xbar,
   with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (instance == kRing) {
-      constexpr bool kMma = kMmaForm<TM, T, false>;
+      constexpr bool kMma = kMmaForm<TM, T>;
       launch_ring<&apc_scatter_ring_kernel<TM, T, KC>, KC, kMma>(
           Ring<TM, T, KC, false, kMma>::kSmem, m, n, k, s,
           static_cast<const TM*>(B), static_cast<const T*>(X),
@@ -2066,8 +2066,8 @@ int apc_scatter(const void* B, const void* X, const void* Xbar,
           sxb_k, su_w, su_k, sy_w, sy_k);
       return;
     }
-    constexpr int R = kMmaForm<TM, T, false> ? kMmaRows / kWarps
-                                             : scatter_rows<TM, KC>();
+    constexpr int R =
+        kMmaForm<TM, T> ? kMmaRows / kWarps : scatter_rows<TM, KC>();
     apc_scatter_kernel<TM, T, KC, R>
         <<<grid_for(n, m, k, KC, R), kThreads, 0, s>>>(
             static_cast<const TM*>(B), static_cast<const T*>(X),
@@ -2090,7 +2090,7 @@ int cimmino_scatter(const void* B, const void* V, void* Rout, int64_t m,
   with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     constexpr bool kMma =
-        kMmaForm<TM, T, false> || kMmaF64Form<TM, T, false, false>;
+        kMmaForm<TM, T> || kMmaF64Form<TM, T, false, false>;
     if (instance == kRing) {
       launch_ring<&cimmino_scatter_ring_kernel<TM, T, KC>, KC, kMma>(
           Ring<TM, T, KC, false, kMma>::kSmem, m, n, k, s,
@@ -2107,55 +2107,52 @@ int cimmino_scatter(const void* B, const void* V, void* Rout, int64_t m,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TM, typename T>
-int sparse_gather(const void* vals, const void* cols, const void* X,
-                  const void* Xbar, void* U, int64_t m, int64_t p,
-                  int64_t w, int64_t k, int64_t sx_w, int64_t sx_k,
-                  int64_t sxb_k, int64_t su_w, int64_t su_k,
-                  int64_t instance, int64_t kc, void* stream) {
-  if ((instance != kRowDot && instance != kRing) || !kc_valid(kc))
+// The sparse gathers (header): the pre-pass writes the support operand
+// O (m, k, wp) in Acc<T> (wp ≥ w, O's rows 16-byte multiples), then the
+// ring or the row dot over vals reads it.  kDiff: sparse_gather (O =
+// X̄ₛ − Xₛ); else sparse_cimmino_gather (O = X̄ₛ, X unused).
+template <typename TM, typename T, bool kDiff>
+int sparse_gathers(const void* vals, const void* cols, const void* X,
+                   const void* Xbar, void* U, void* O, int64_t m, int64_t p,
+                   int64_t w, int64_t wp, int64_t k, int64_t sx_w,
+                   int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k,
+                   int64_t instance, int64_t kc, void* stream) {
+  using TA = Acc<T>;
+  if ((instance != kRowDot && instance != kRing) || !kc_valid(kc) ||
+      wp < w || wp * static_cast<int64_t>(sizeof(TA)) % 16 != 0)
     return cudaErrorInvalidValue;
   if (m == 0 || p == 0 || k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wp > 0) {
+    const int64_t blocks = min64((m * k * wp + kThreads - 1) / kThreads,
+                                 int64_t{1} << 20);
+    support_operand_kernel<T, kDiff>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+            static_cast<const int64_t*>(cols), static_cast<const T*>(X),
+            static_cast<const T*>(Xbar), static_cast<TA*>(O), m, w, wp, k,
+            sx_w, sx_k, sxb_k);
+  }
+  const TA* Ot = static_cast<const TA*>(O);
+  T* Ut = static_cast<T*>(U);
   with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
+    constexpr bool kMma = kSparseMma<TM, T>;
+    const TM* M = static_cast<const TM*>(vals);
     if (instance == kRing) {
-      launch_gather_ring<TM, T, KC, true, true>(
-          vals, cols, X, Xbar, U, m, p, w, k, sx_w, sx_k, sxb_k, su_w, su_k,
-          s);
+      constexpr auto kernel = kDiff
+                                  ? &sparse_gather_ring_kernel<TM, T, KC>
+                                  : &sparse_cimmino_gather_ring_kernel<TM, T, KC>;
+      launch_ring<kernel, KC, kMma, true>(
+          Ring<TM, TA, KC, false, kMma>::kSmem, m, p, k, s, M, Ot, Ut, m, p,
+          w, k, k * wp, wp, su_w, su_k);
       return;
     }
-    sparse_gather_kernel<TM, T, KC, kGatherRows>
-        <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
-            static_cast<const TM*>(vals), static_cast<const int64_t*>(cols),
-            static_cast<const T*>(X), static_cast<const T*>(Xbar),
-            static_cast<T*>(U), p, w, k, sx_w, sx_k, sxb_k, su_w, su_k);
-  });
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename TM, typename T>
-int sparse_cimmino_gather(const void* vals, const void* cols,
-                          const void* Xbar, void* U, int64_t m, int64_t p,
-                          int64_t w, int64_t k, int64_t sxb_k, int64_t su_w,
-                          int64_t su_k, int64_t instance, int64_t kc, void* stream) {
-  if ((instance != kRowDot && instance != kRing) || !kc_valid(kc))
-    return cudaErrorInvalidValue;
-  if (m == 0 || p == 0 || k == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  with_kc(kc_of(k, kc), [&](auto kc) {
-    constexpr int KC = decltype(kc)::value;
-    if (instance == kRing) {
-      launch_gather_ring<TM, T, KC, false, true>(
-          vals, cols, nullptr, Xbar, U, m, p, w, k, 0, 0, sxb_k, su_w, su_k,
-          s);
-      return;
-    }
-    sparse_cimmino_gather_kernel<TM, T, KC, kGatherRows>
-        <<<grid_for(p, m, k, KC, kGatherRows), kThreads, 0, s>>>(
-            static_cast<const TM*>(vals), static_cast<const int64_t*>(cols),
-            static_cast<const T*>(Xbar), static_cast<T*>(U), p, w, k, sxb_k,
-            su_w, su_k);
+    constexpr int R = kMma ? kMmaRows / kWarps : kGatherRows;
+    constexpr auto kernel = kDiff
+                                ? &sparse_gather_kernel<TM, T, KC, R>
+                                : &sparse_cimmino_gather_kernel<TM, T, KC, R>;
+    kernel<<<grid_for(p, m, k, KC, R), kThreads, 0, s>>>(
+        M, Ot, Ut, p, w, k, k * wp, wp, su_w, su_k);
   });
   return static_cast<int>(cudaGetLastError());
 }
@@ -2251,24 +2248,23 @@ extern "C" {
     return cimmino_scatter<TM, T>(B, V, R, m, n, p, k, sv_w, sv_k, sr_w,     \
                                   sr_k, instance, kc, stream);               \
   }                                                                          \
-  int sparse_gather_##SUFFIX(const void* vals, const void* cols,             \
-                             const void* X, const void* Xbar, void* U,       \
-                             int64_t m, int64_t p, int64_t w, int64_t k,     \
-                             int64_t sx_w, int64_t sx_k, int64_t sxb_k,      \
-                             int64_t su_w, int64_t su_k, int64_t instance,   \
-                             int64_t kc, void* stream) {                     \
-    return sparse_gather<TM, T>(vals, cols, X, Xbar, U, m, p, w, k, sx_w,    \
-                                sx_k, sxb_k, su_w, su_k, instance, kc,       \
-                                stream);                                     \
+  int sparse_gather_##SUFFIX(                                                \
+      const void* vals, const void* cols, const void* X, const void* Xbar,   \
+      void* U, void* O, int64_t m, int64_t p, int64_t w, int64_t wp,         \
+      int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k, int64_t su_w,    \
+      int64_t su_k, int64_t instance, int64_t kc, void* stream) {            \
+    return sparse_gathers<TM, T, true>(vals, cols, X, Xbar, U, O, m, p, w,   \
+                                       wp, k, sx_w, sx_k, sxb_k, su_w, su_k, \
+                                       instance, kc, stream);                \
   }                                                                          \
   int sparse_cimmino_gather_##SUFFIX(                                        \
       const void* vals, const void* cols, const void* Xbar, void* U,         \
-      int64_t m, int64_t p, int64_t w, int64_t k, int64_t sxb_k,             \
-      int64_t su_w, int64_t su_k, int64_t instance, int64_t kc,              \
-      void* stream) {                                                        \
-    return sparse_cimmino_gather<TM, T>(vals, cols, Xbar, U, m, p, w, k,     \
-                                        sxb_k, su_w, su_k, instance, kc,     \
-                                        stream);                             \
+      void* O, int64_t m, int64_t p, int64_t w, int64_t wp, int64_t k,       \
+      int64_t sxb_k, int64_t su_w, int64_t su_k, int64_t instance,           \
+      int64_t kc, void* stream) {                                            \
+    return sparse_gathers<TM, T, false>(vals, cols, nullptr, Xbar, U, O, m,  \
+                                        p, w, wp, k, 0, 0, sxb_k, su_w,      \
+                                        su_k, instance, kc, stream);         \
   }                                                                          \
   int sparse_scatter_##SUFFIX(const void* Bvals, const void* cols,           \
                               const void* X, const void* Xbar,               \
@@ -2304,12 +2300,12 @@ REPRO_ENTRIES(bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 // bytes, for a matrix of matrix_itemsize bytes (8, 4 or 2), a compute
 // type of itemsize bytes (8, 4, or 2 beside a bf16 matrix) and a form
 // (kApcForm, kCimminoForm, for bf16/f64 kApcMmaForm and kCimminoMmaForm,
-// for f64 kCimminoMmaForm: the float64 Cimmino scatter's); 0 for any
-// other.
+// for f64 kCimminoMmaForm: the float64 Cimmino scatter's; kSparseForm:
+// the sparse gathers' stage, whatever their consumer); 0 for any other.
 int64_t gather_ring_smem(int64_t matrix_itemsize, int64_t itemsize,
                          int64_t k, int64_t form) {
   const bool mma = form == kApcMmaForm || form == kCimminoMmaForm;
-  if (form < kApcForm || form > kCimminoMmaForm ||
+  if (form < kApcForm || form > kSparseForm ||
       (mma && !(itemsize == 8 && (matrix_itemsize == 2 ||
                                   (matrix_itemsize == 8 &&
                                    form == kCimminoMmaForm)))))
@@ -2321,16 +2317,14 @@ int64_t gather_ring_smem(int64_t matrix_itemsize, int64_t itemsize,
     const auto of = [&](auto tm, auto t) {
       using TM = decltype(tm);
       using T = decltype(t);
-      if constexpr (kMmaForm<TM, T, false>) {
+      if (form == kSparseForm) {
+        bytes = Ring<TM, Acc<T>, KC, false, kSparseMma<TM, T>>::kSmem;
+        return;
+      }
+      if constexpr (kMmaForm<TM, T> || kMmaF64Form<TM, T, false, false>) {
         if (mma) {
           bytes = diff ? Ring<TM, T, KC, true, true>::kSmem
                        : Ring<TM, T, KC, false, true>::kSmem;
-          return;
-        }
-      }
-      if constexpr (kMmaF64Form<TM, T, false, false>) {
-        if (mma) {
-          bytes = Ring<TM, T, KC, false, true>::kSmem;
           return;
         }
       }

@@ -169,23 +169,37 @@ def _support(cols, D):
     return torch.take_along_dim(D, idx, dim=-1), idx
 
 
+def support_ref(cols, Xbar, X=None):
+    """The sparse gathers' pre-pass, their support operand: X̄ − X_w at
+    each worker's support columns (the reference's ``xb2[:, cols]`` and
+    ``x2[:, cols]``, their difference taken in ``_acc``), or X̄ there
+    when X is None (``xb2[:, cols]``): cols (m, w); X̄ (n,) or (k, n); X
+    (m, n) or (m, k, n) -> (m, [k,] w) in ``_acc(X̄.dtype)``.  The
+    kernels' buffer holds it in its first w columns
+    (``block_projection.support_buffer``)."""
+    acc = _acc(Xbar.dtype)
+    Xb = Xbar.to(acc).expand((cols.shape[0],) + Xbar.shape)  # (m, [k,] n)
+    O = _support(cols, Xb)[0]
+    return O if X is None else O - _support(cols, X.to(acc))[0]
+
+
 def sparse_gather_ref(vals, cols, X, Xbar):
     """U = vals_w (X̄ − X_w)[cols_w] per worker: vals (m, p, w); cols
     (m, w); X (m, n) or (m, k, n); X̄ (n,) or (k, n) -> (m, [k,] p),
-    accumulated in ``_acc(X.dtype)``, returned in X's dtype."""
+    accumulated in ``_acc(X.dtype)`` over :func:`support_ref`, returned
+    in X's dtype."""
     acc = _acc(X.dtype)
     return torch.einsum("mpw,m...w->m...p", vals.to(acc),
-                        _support(cols, Xbar.to(acc) - X.to(acc))[0]
-                        ).to(X.dtype)
+                        support_ref(cols, Xbar, X)).to(X.dtype)
 
 
 def sparse_cimmino_gather_ref(vals, cols, Xbar):
     """U = vals_w X̄[cols_w] per worker -> (m, p) or (m, k, p), accumulated
-    in ``_acc(X̄.dtype)``, returned in X̄'s dtype."""
+    in ``_acc(X̄.dtype)`` over :func:`support_ref`, returned in X̄'s
+    dtype."""
     acc = _acc(Xbar.dtype)
-    Xb = Xbar.to(acc).expand((vals.shape[0],) + Xbar.shape)  # (m, [k,] n)
     return torch.einsum("mpw,m...w->m...p", vals.to(acc),
-                        _support(cols, Xb)[0]).to(Xbar.dtype)
+                        support_ref(cols, Xbar)).to(Xbar.dtype)
 
 
 def sparse_scatter_ref(Bvals, cols, U, out, X=None, Xbar=None, gamma=0.0):
@@ -348,8 +362,8 @@ def cimmino_update(A, B, b, Xbar):
 def sparse_proj_update(vals, cols, Bvals, X, Xbar, gamma: float):
     """The sparse APC/consensus worker update for every worker -> (Y, U),
     Y in X's shape, U (m, [k,] p) = vals_w (X̄ − X_w)[cols_w], the fused
-    residual source.  On CUDA: one ``sparse_gather`` launch (the support
-    gather happens in its staged loads), the AXPY pre-pass
+    residual source.  On CUDA: one ``sparse_gather`` launch (its
+    pre-pass gathers the support operand), the AXPY pre-pass
     Y = X + γ(X̄ − X) for the off-support columns (``_axpy``), and one
     ``sparse_scatter`` launch that stores the support columns of Y."""
     cuda = _on_cuda("sparse_proj_update", (vals, Bvals), X, Xbar)

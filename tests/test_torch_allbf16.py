@@ -237,6 +237,28 @@ def test_sparse_rounding_points(k):
     assert torch.equal(R, torch.zeros_like(X).scatter(-1, idx, C))
 
 
+@pytest.mark.parametrize("k", [None, 3])
+def test_sparse_support_operand_is_float32(k):
+    """The all-bf16 sparse gathers' support operand (their pre-pass,
+    ``ops.support_ref``; the kernels' ``bp.support_buffer``) is float32:
+    X̄ − X taken in float32 and kept so, X̄ widened exactly.  A bf16
+    buffer would round the difference, and U with it."""
+    f = torch.Tensor.float
+    vals, cols, Bv, X, Xb, b = _sparse_inputs(k)
+    idx = cols if X.dim() == 2 else cols[:, None, :].expand(
+        X.shape[:-1] + (-1,))
+    D = ops.support_ref(cols, Xb, X)
+    assert D.dtype == torch.float32
+    assert torch.equal(D, torch.take_along_dim(f(Xb) - f(X), idx, dim=-1))
+    assert torch.equal(ops.support_ref(cols, Xb), torch.take_along_dim(
+        f(Xb).expand(X.shape), idx, dim=-1))
+    assert not torch.equal(D, f(_bf(D)))
+    assert not torch.equal(ops.sparse_gather_ref(vals, cols, X, Xb), _bf(
+        torch.einsum("mpw,m...w->m...p", f(vals), f(_bf(D)))))
+    assert bp.support_buffer(3, 2, 40, torch.bfloat16, "cpu").dtype == \
+        torch.float32
+
+
 def _frozen_plain(A, B, vals, cols, Bv, X, Xb, b, gamma):
     """The plain versions as they computed before the all-bf16 form
     (each in the operands' dtype, the matrix widened to it)."""

@@ -174,11 +174,11 @@ def test_ctypes_signatures_match_the_cuda_source():
     assert types(params) == bp.RING_SMEM_ARGTYPES
     assert params.split(",")[-1].split() == ["int64_t", "form"]
     # each form's int64 (kApcForm, kCimminoForm, kApcMmaForm,
-    # kCimminoMmaForm) as FORMS names it
+    # kCimminoMmaForm, kSparseForm) as FORMS names it
     camel = {name: "".join(w.title() for w in name.split("_"))
              for name in bp.FORMS}
     assert {name: int(v) for name, v in re.findall(
-        r"\bk(Apc\w*?|Cimmino\w*?)Form = (\d+)", src)} == {
+        r"\bk(Apc\w*?|Cimmino\w*?|Sparse)Form = (\d+)", src)} == {
         camel[name]: v for name, v in bp.FORMS.items()}
     # every kernel, the four gathers and the three scatters, takes its
     # instance and then its k-chunk as the two int64 before the stream
@@ -483,16 +483,21 @@ def test_ring_smem_bytes_takes_the_form(monkeypatch):
                               "cimmino_mma") == 1
     assert bp.ring_smem_bytes(torch.float64, torch.float64, 8,
                               "cimmino_mma") == 1
+    # the sparse gathers' stage of their support operand, every pair
+    assert bp.ring_smem_bytes(torch.bfloat16, torch.bfloat16, 8,
+                              "sparse") == 1
     assert asked == [(8, 8, 8, bp.FORMS["cimmino"]),
                      (4, 4, 3, bp.FORMS["apc"]), (2, 8, 2, bp.FORMS["apc"]),
                      (2, 8, 8, bp.FORMS["apc_mma"]),
                      (2, 8, 1, bp.FORMS["cimmino_mma"]),
-                     (8, 8, 8, bp.FORMS["cimmino_mma"])]
+                     (8, 8, 8, bp.FORMS["cimmino_mma"]),
+                     (2, 2, 8, bp.FORMS["sparse"])]
     # each pair's library answers for its own pair
-    assert libs == ["f64", "f32", "bf16_f64", "bf16_f64", "bf16_f64", "f64"]
+    assert libs == ["f64", "f32", "bf16_f64", "bf16_f64", "bf16_f64", "f64",
+                    "bf16_bf16"]
     with pytest.raises(KeyError):
-        bp.ring_smem_bytes(torch.float64, torch.float64, 8, "sparse")
-    assert len(asked) == 6
+        bp.ring_smem_bytes(torch.float64, torch.float64, 8, "dense")
+    assert len(asked) == 7
 
 
 @pytest.mark.parametrize("pair", list(bp.PAIRS))
@@ -539,30 +544,37 @@ def test_launch_counts_by_dtype_pair(monkeypatch, pair):
 
 
 def test_mma_forms_are_the_dense_bf16_f64_kernels_and_the_f64_cimmino_scatter():
-    """The tensor-core form is the four dense kernels with a bf16 matrix
-    and float64 operands, and the float64 Cimmino scatter, and nothing
-    else: ``MMA_FORMS`` names them, the source selects the first on the
-    (bf16, double) pair of any dense kernel and the second on the
-    (double, double) pair of a scatter without the APC epilogue, and
-    every form's stage query has its own int64."""
+    """The tensor-core form is the kernels but ``sparse_scatter`` with a
+    bf16 matrix and float64 operands, the float64 Cimmino scatter and the
+    float64 sparse gathers, and nothing else: ``MMA_FORMS`` names them,
+    the source selects the first on the (bf16, double) pair of any kernel
+    but the sparse scatter, the second on the (double, double) pair of a
+    scatter without the APC epilogue, the third by kSparseMma, and every
+    form's stage query has its own int64."""
     src = (bp.CSRC / "block_projection.cu").read_text()
     dense = ("apc_gather", "apc_scatter", "cimmino_gather", "cimmino_scatter")
-    assert bp.MMA_FORMS == tuple((kn, "bf16_f64") for kn in dense) + (
-        ("cimmino_scatter", "f64"),)
+    sparse = ("sparse_gather", "sparse_cimmino_gather")
+    assert bp.MMA_FORMS == tuple((kn, "bf16_f64") for kn in dense + sparse) \
+        + (("cimmino_scatter", "f64"),) + tuple((kn, "f64") for kn in sparse)
     assert all(kn in bp.KERNELS and pair in bp.PAIRS.values()
                for kn, pair in bp.MMA_FORMS)
     assert ("constexpr bool kMmaForm = std::is_same_v<TM, __nv_bfloat16> "
-            "&&\n                          std::is_same_v<T, double> && "
-            "!kSparse;") in src
+            "&&\n                          std::is_same_v<T, double>;") in src
     assert ("constexpr bool kMmaF64Form = std::is_same_v<TM, double> &&\n"
             "                             std::is_same_v<T, double> && "
             "!kAxpy &&\n                             !kSparse;") in src
-    # the gathers' and the scatters' rings take it by their sparse flag,
-    # the float64 form by the scatter's epilogue too
-    assert "kMmaForm<TM, T, kSparse>" in src
+    # the sparse gathers' consumer: kMmaForm's pair and the float64 one
+    assert ("constexpr bool kSparseMma =\n    kMmaForm<TM, T> ||\n"
+            "    (std::is_same_v<TM, double> && std::is_same_v<T, double>);"
+            ) in src
+    # the scatters' rings take it but the sparse one, the float64 form by
+    # the scatter's epilogue too; the sparse gathers by kSparseMma
+    assert "constexpr bool kMma = kMmaForm<TM, T> && !kSparse;" in src
     assert "kMmaF64Form<TM, T, kAxpy, kSparse>" in src
+    assert src.count("kSparseMma<TM, T>") >= 3
     assert "bool kApc" not in src
-    assert set(bp.FORMS) == {"apc", "cimmino", "apc_mma", "cimmino_mma"}
+    assert set(bp.FORMS) == {"apc", "cimmino", "apc_mma", "cimmino_mma",
+                             "sparse"}
 
 
 @pytest.mark.parametrize("kernel", ["apc_gather", "apc_scatter",
@@ -618,3 +630,58 @@ def test_mma_form_instance_and_kc_by_shape(monkeypatch, kernel, n, k, kc,
     assert args[-2:] == (bp.INSTANCES[want], want_kc)
     with pytest.raises(ValueError, match="k-chunk"):
         launch(16 if gather else 3)
+
+
+@pytest.mark.parametrize("w,dtype,acc,wp", [
+    (2064, torch.float64, torch.float64, 2064),   # the sparse path's width
+    (71, torch.float64, torch.float64, 72),       # an odd width, padded
+    (71, torch.float32, torch.float32, 72),
+    (71, torch.bfloat16, torch.float32, 72),      # all-bf16: float32
+    (5, torch.float32, torch.float32, 8),
+    (2, torch.float64, torch.float64, 2),
+])
+@pytest.mark.parametrize("kernel", ["sparse_gather", "sparse_cimmino_gather"])
+def test_sparse_gathers_launch_with_their_support_buffer(monkeypatch, kernel,
+                                                         w, dtype, acc, wp):
+    """Each sparse gather's launch hands its entry a fresh support buffer
+    (``support_buffer``: (m, k, wp) in the accumulation dtype, wp the
+    smallest 16-byte multiple ≥ w) and wp beside w; the instance is
+    vals' alone, and a bf16 matrix with float64 operands is a form of
+    ``MMA_FORMS``, as is the float64 form.  (The entries cannot run
+    here: the device checks and the launch are stood in for.)"""
+    calls = []
+
+    def check(name, index=None, **operands):       # the sizes alone
+        return {ax: size for t, axes in operands.values()
+                for ax, size in zip(axes, t.shape)}
+
+    monkeypatch.setattr(bp, "_check", check)
+    monkeypatch.setattr(bp, "_launch", lambda name, matrix, out, *args:
+                        calls.append((name, matrix, out, args)))
+    buffers = []
+    real = bp.support_buffer
+    monkeypatch.setattr(bp, "support_buffer", lambda *a: buffers.append(
+        real(*a)) or buffers[-1])
+    m, p, n, k = 2, 24, 300, 3
+    mdt = torch.bfloat16 if dtype == torch.bfloat16 else dtype
+    vals = torch.empty((m, p, w), dtype=mdt)
+    cols = torch.zeros((m, w), dtype=torch.int64)
+    X = torch.empty((k, m, n), dtype=dtype).transpose(0, 1)
+    Xb = torch.empty((k, n), dtype=dtype)
+    if kernel == "sparse_gather":
+        U = bp.sparse_gather(vals, cols, X, Xb, kc=4)
+    else:
+        U = bp.sparse_cimmino_gather(vals, cols, Xb, kc=4)
+    ((name, matrix, out, args),) = calls
+    (O,) = buffers
+    assert name == kernel and matrix is vals and out is U
+    assert O.shape == (m, k, wp) and O.dtype == acc
+    assert O.is_contiguous() and wp * O.element_size() % 16 == 0
+    ptrs = 6 if kernel == "sparse_gather" else 5
+    assert args[ptrs - 1] == O.data_ptr()
+    assert args[ptrs:ptrs + 5] == (m, p, w, wp, k)
+    assert args[-2:] == (bp.INSTANCES[bp.gather_instance(vals)], 4)
+    assert len(args) + 1 == len(bp.ARGTYPES[kernel])
+    for pair in ((torch.bfloat16, torch.float64),
+                 (torch.float64, torch.float64)):
+        assert (kernel, bp.PAIRS[pair]) in bp.MMA_FORMS

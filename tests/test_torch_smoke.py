@@ -385,8 +385,8 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     # 128 bytes and 8 operand rows of 128, 6 stages
     monkeypatch.setattr(bp, "ring_smem_bytes", lambda mdt, dt, k, form: {
         "apc": 204800, "cimmino": 184320, "apc_mma": 204800,
-        "cimmino_mma": 202752 if mdt == torch.float64 else 184320 + 1}[
-            form])
+        "cimmino_mma": 202752 if mdt == torch.float64 else 184320 + 1,
+        "sparse": 202752 + 2}[form])
     for name, fn in _fake_launchers().items():
         monkeypatch.setattr(bp, name, fn)
     monkeypatch.setattr(bp, "_launches", dict.fromkeys(bp._launches, 0))
@@ -408,20 +408,23 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert ("cimmino_gather_ring f64 KC=8 spill 0 B: 168 regs, smem 128 B + "
             "184320 B dynamic") in text
     assert ("sparse_cimmino_gather_ring f64 KC=8 spill 0 B: 168 regs, smem "
-            "128 B + 184320 B dynamic") in text
+            "128 B + 202754 B dynamic") in text
     assert ("cimmino_scatter_ring f64 KC=8 spill 0 B: 168 regs, smem 128 B "
             "+ 202752 B dynamic") in text
     assert ("sparse_scatter_ring f64 KC=8 apc spill 0 B: 168 regs, smem 128 "
             "B + 184320 B dynamic") in text
     # and the bf16-stored instances, tagged by their matrix/compute types;
     # the tensor-core forms' rings with their own stages, both their
-    # instances at every KC; the bf16-stored sparse rings the DFMA ones
+    # instances at every KC; the sparse gathers' rings their own stage
     assert ("apc_gather_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem 128 B "
             "+ 204800 B dynamic") in text
     for kn in ("apc_scatter", "cimmino_gather", "cimmino_scatter"):
         assert (f"{kn}_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem 128 B "
                 "+ 184321 B dynamic") in text, kn
-    assert ("sparse_cimmino_gather_ring bf16/f64 KC=8 spill 0 B: 168 regs, "
+    for kn in ("sparse_gather", "sparse_cimmino_gather"):
+        assert (f"{kn}_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem 128 B "
+                "+ 202754 B dynamic") in text, kn
+    assert ("sparse_scatter_ring bf16/f64 KC=8 apc spill 0 B: 168 regs, "
             "smem 128 B + 184320 B dynamic") in text
     for kn, sfx in bp.MMA_FORMS:
         tag = sfx.replace("_", "/")
@@ -509,7 +512,8 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     # 8 (the float64 cimmino_scatter's row dot at k = 1, its ring at 8)
     for kn, sfx in bp.MMA_FORMS:
         pr = {"f64": "float64/float64", "bf16_f64": "bfloat16/float64"}[sfx]
-        notes = [x for x in lines if x.startswith(f"phase 8 {kn} k=")
+        phase = 11 if kn.startswith("sparse") else 8
+        notes = [x for x in lines if x.startswith(f"phase {phase} {kn} k=")
                  and f" {pr}: " in x and "before them" in x]
         assert len(notes) == 2, (kn, sfx)
         assert all("the DFMA ring before them" in x
@@ -578,9 +582,9 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "forms",
             "mesh_launches", "mesh_serving_launches", "lm_probe_launches"}
-    form_keys = {"pair", "k", "ms", "row_dot_ms", "ring_ms", "bound_ms",
-                 "bound_by", "launches", "max_abs_err", "library_ms",
-                 "library"}
+    form_keys = {"pair", "k", "ms", "graph_ms", "row_dot_ms", "ring_ms",
+                 "bound_ms", "bound_by", "launches", "max_abs_err",
+                 "library_ms", "library"}
     bf = "bfloat16/bfloat16"
     for k in kernels:
         assert set(k) == keys and k["launches"] == 40, k
@@ -603,6 +607,11 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                     k["name"] in bp.GATHERS and f is not k["forms"][0]
                     and f["pair"] != bf))
             assert (f["ring_ms"] is None) == (k["name"] not in bp.SCATTERS)
+            # phase 11 (the sparse kernels) and 15 (a) (the all-bf16 sparse
+            # gathers) also time in a CUDA graph
+            assert (f["graph_ms"] is None) == (
+                not k["name"].startswith("sparse") or (
+                    f["pair"] == bf and k["name"] not in bp.GATHERS)), (k, f)
         assert np.isfinite(k["forms"][1]["library_ms"])
         for f in k["forms"][2:4]:
             assert f["library_ms"] is None

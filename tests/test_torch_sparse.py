@@ -322,6 +322,68 @@ def test_sparse_launchers_take_cuda_tensors_only(corner):
     assert ops.launch_counts() == before
 
 
+def _bits(a):
+    """An array's bits, as unsigned integers of its width."""
+    a = np.asarray(a)
+    return a.view(f"u{a.dtype.itemsize}")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, jnp.bfloat16])
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("key", sorted(CORNERS))
+def test_support_ref_is_the_reference_support_gather(corner, key, k, dtype):
+    """``ops.support_ref``, the plain version of the sparse gathers'
+    pre-pass, against the reference's support gathers on the same
+    seeded bits (``xs = x2[:, cols]``, ``xbs = xb2[:, cols]`` of
+    src/repro/kernels/ops.py sparse_proj_update, ``xbs`` of
+    sparse_cimmino_update), worker by worker, bit for bit: X̄ₛ alone, and
+    X̄ₛ − Xₛ taken in the accumulation dtype (float32 for bf16, as the
+    reference's kernel widens both before it subtracts).  The corners
+    hold an odd support width (71) and, where a worker's band is short,
+    the repeated all-zero padding column of as_sparse."""
+    vals, cols, Bv, X, Xb, b = _op_inputs(corner(key)[1], k, dtype)
+    if key == "p1":                 # as_sparse's padding repeats an index
+        assert any(len(set(c)) < len(c) for c in cols.tolist())
+    acc = np.float32 if dtype == jnp.bfloat16 else dtype
+    x2 = X[:, None] if k == 1 else X                  # (m, k, n)
+    xb2 = jnp.asarray(Xb[None] if k == 1 else Xb)     # (k, n)
+    xs = np.stack([np.asarray(jnp.asarray(x)[:, jnp.asarray(c, jnp.int32)])
+                   for x, c in zip(x2, cols)])
+    xbs = np.stack([np.asarray(xb2[:, jnp.asarray(c, jnp.int32)])
+                    for c in cols])
+    want = {"cimmino": xbs.astype(acc),
+            "apc": np.asarray(jnp.asarray(xbs).astype(acc)
+                              - jnp.asarray(xs).astype(acc))}
+    got = {"cimmino": ops.support_ref(torch.as_tensor(cols), _torch(Xb)),
+           "apc": ops.support_ref(torch.as_tensor(cols), _torch(Xb),
+                                  _torch(X))}
+    for form, g in got.items():
+        assert g.dtype == ops._acc(_torch(Xb).dtype), form
+        g = g.numpy() if k > 1 else g.numpy()[:, None]
+        assert g.shape == want[form].shape, form
+        assert np.array_equal(_bits(g), _bits(want[form])), form
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, jnp.bfloat16])
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("key", sorted(CORNERS))
+def test_sparse_gather_refs_over_support_ref_keep_their_bits(corner, key, k,
+                                                             dtype):
+    """``sparse_gather_ref`` and ``sparse_cimmino_gather_ref``, composed
+    from ``support_ref``, give the bits of their earlier form, which took
+    X̄ − X over every column and then gathered the support."""
+    vals, cols, Bv, X, Xb, b = (_torch(a) for a in _op_inputs(
+        corner(key)[1], k, dtype))
+    acc = ops._acc(X.dtype)
+    m = cols.shape[0]
+    u = torch.einsum("mpw,m...w->m...p", vals.to(acc), ops._support(
+        cols, Xb.to(acc) - X.to(acc))[0]).to(X.dtype)
+    uc = torch.einsum("mpw,m...w->m...p", vals.to(acc), ops._support(
+        cols, Xb.to(acc).expand((m,) + Xb.shape))[0]).to(Xb.dtype)
+    assert torch.equal(ops.sparse_gather_ref(vals, cols, X, Xb), u)
+    assert torch.equal(ops.sparse_cimmino_gather_ref(vals, cols, Xb), uc)
+
+
 # the corner systems' support widths and the instance of sparse_gather
 # each takes: vals rows of 71 (odd) or 5 f64 are not 16-byte multiples
 @pytest.mark.parametrize("key,dtype,want", [
@@ -329,9 +391,10 @@ def test_sparse_launchers_take_cuda_tensors_only(corner):
     ("p1", np.float64, "row_dot"),
     ("even", np.float64, "ring"),
     ("even", np.float32, "ring"),
+    ("even", jnp.bfloat16, "row_dot"),   # 120-byte bf16 rows
 ])
 def test_sparse_gather_instance_at_the_corners(corner, key, dtype, want):
-    vals, cols, Bv, X, Xb, b = (torch.as_tensor(a) for a in _op_inputs(
+    vals, cols, Bv, X, Xb, b = (_torch(a) for a in _op_inputs(
         corner(key)[1], 3, dtype))
     assert vals.shape[-1] == {"odd-w-n130": 71, "p1": 5, "even": 60}[key]
     assert bp.gather_instance(vals) == want
@@ -340,9 +403,11 @@ def test_sparse_gather_instance_at_the_corners(corner, key, dtype, want):
 def test_sparse_gather_instance_on_the_sparse_path():
     """The sparse path's banded system (m = 16, p = 2048) has support
     width 2064: 16512-byte f64 rows take the ring, whatever its p; f32 rows
-    of 8256 bytes too; an odd width does not, nor a view at an odd
-    offset."""
-    for dtype in (torch.float64, torch.float32):
+    of 8256 bytes and bf16 rows of 4128 (the mixed and all-bf16 forms)
+    too; an odd width does not, nor a view at an odd offset.  The support
+    operand the ring copies is the launcher's own buffer
+    (``bp.support_buffer``), aligned whatever the width."""
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
         assert bp.gather_instance(torch.empty((2, 3, 2064),
                                               dtype=dtype)) == "ring"
         assert bp.gather_instance(torch.empty((2, 3, 2063),
