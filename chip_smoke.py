@@ -12,11 +12,12 @@ script exits non-zero without its last line:
    instance's registers, shared memory and spill bytes (none allowed in
    the ring instances that compute in float64, the bf16-stored ones
    included, nor in either instance of the tensor-core forms
-   (``bp.MMA_FORMS``: the four dense kernels and the two sparse gathers
-   in bf16/float64, the float64 ``cimmino_scatter`` and the float64
-   sparse gathers) at KC = 1, 2, 4, 8, all of which must be there; each
-   of the seven rings present, and both instances of all seven kernels
-   in the all-bf16 form);
+   (``bp.MMA_FORMS``: the seven kernels in bf16/float64, the float64
+   ``cimmino_scatter`` and the three float64 sparse kernels;
+   ``bp.BF16_MMA_FORMS``: the all-bf16 ``sparse_scatter``) at KC = 1, 2,
+   4, 8, both forms of ``sparse_scatter``, all of which must be there;
+   each of the seven rings present, and both instances of all seven
+   kernels in the all-bf16 form);
 2. kernel vs plain version on the card: ``apc_gather``/``apc_scatter``
    and ``cimmino_gather``/``cimmino_scatter`` against their plain PyTorch
    versions at ragged shapes and at the main path's shapes, and
@@ -32,9 +33,8 @@ script exits non-zero without its last line:
    and the row dot) against the plain version and bit-identical to each
    other (a bf16-stored scatter's ring to the ring on its matrix widened,
    as its row dot sums in another order; but the tensor-core forms, the
-   bf16/float64 ``apc_scatter`` and ``cimmino_scatter`` among them,
-   whose two instances issue the same products in one order: ring ≡ row
-   dot);
+   bf16/float64 scatters among them, whose two instances issue the same
+   products in one order: ring ≡ row dot);
 3. the APC main path at full size: a 32768 x 16384 tall Gaussian system
    on 16 workers (float64), ``analyze``, then ``solve`` on the kernel
    path — error to x_true, one launch of each kernel per iteration, the
@@ -79,9 +79,11 @@ script exits non-zero without its last line:
    the sparse kernels;
 11. CUDA-event times of the sparse kernels as in phase 8 (torch.bmm on
    the pre-gathered operands; both forms of ``sparse_scatter``, each
-   with its row-dot instance in every form), each kernel and library
-   call also as 10 calls replayed from a CUDA graph (``graph_ms``: an
-   eager call of a sparse kernel is its launcher's host work), and of
+   with its row-dot instance in every form; the ring at every k), each
+   kernel and library call also as 10 calls replayed from a CUDA graph
+   (``graph_ms``: an eager call of a sparse kernel is its launcher's host
+   work; ``sparse_scatter``'s tensor-core forms beside the parent's DFMA
+   graph times), and of
    the sparse and
    densified iterations and the sparse mixed ones (the sparse ones also
    in a captured 10-step graph), with the card's clocks as in phase 8,
@@ -146,10 +148,12 @@ script exits non-zero without its last line:
    ``sparse_scatter``) at the dense main path's shapes and the sparse
    path's, k = 1 and K_MANY, every instance ``gather_instance`` admits
    against the plain version (8e-2 of max|plain| + 1, max|Δ| in bf16
-   ulps beside it), the ring bit-identical to the row dot (the gathers;
-   a scatter's packed row dot sums in another order) and, but for the
-   APC scatters, to the bf16/float32 ring on the operands widened,
-   rounded to bf16; each timed beside the bytes bound, the plain version
+   ulps beside it), the ring bit-identical to the row dot (the gathers
+   and ``sparse_scatter`` on the bf16 tensor cores; a dense scatter's
+   packed row dot sums in another order) and, for the gathers and
+   ``cimmino_scatter``, to the bf16/float32 ring on the operands
+   widened, rounded to bf16; each timed beside the bytes bound (the
+   sparse kernels also in a 10-call CUDA graph), the plain version
    and ``torch.matmul`` (dense) or ``torch.bmm`` on the operands
    gathered beforehand (sparse) in bf16; then ``ops.block_projection``,
    ``ops.cimmino_update``, ``ops.sparse_proj_update`` and
@@ -341,9 +345,13 @@ NO_LIBRARY = ("none: torch.matmul and torch.bmm refuse a bfloat16 matrix "
 # replaced, ms at k = 1 and 8 (PERF.md §6, "NVIDIA H100 80GB HBM3,
 # 700.00 W"), printed beside phase 8's and 11's times: the dense
 # bf16/float64 four, the float64 cimmino_scatter (at k = 1 its DFMA row
-# dot, the instance the launcher took there), and the sparse gathers in
+# dot, the instance the launcher took there), the sparse gathers in
 # bf16/float64 and float64 (their DFMA ring, the support gathered
-# element by element in its producers)
+# element by element in its producers), and both forms of sparse_scatter
+# in bf16/float64 and float64 (PERF.md §6, scripts/
+# probe_sparse_scatter.py: graph times of the parent's 64-row DFMA ring,
+# at k = 1 in float64 its DFMA row dot, the launcher's instance there;
+# set beside phase 11's graph times)
 DFMA_MIXED_MS = {("apc_gather", 1): 0.3818, ("apc_gather", 8): 0.8301,
                  ("apc_scatter", 1): 0.3839, ("apc_scatter", 8): 0.7801,
                  ("cimmino_gather", 1): 0.3832, ("cimmino_gather", 8): 0.7239,
@@ -351,11 +359,17 @@ DFMA_MIXED_MS = {("apc_gather", 1): 0.3818, ("apc_gather", 8): 0.8301,
                  ("cimmino_scatter", 8): 0.7763,
                  ("sparse_gather", 1): 0.0840, ("sparse_gather", 8): 0.1315,
                  ("sparse_cimmino_gather", 1): 0.0854,
-                 ("sparse_cimmino_gather", 8): 0.1181}
+                 ("sparse_cimmino_gather", 8): 0.1181,
+                 ("sparse_scatter", 1): 0.0560, ("sparse_scatter", 8): 0.1020,
+                 ("sparse_scatter cimmino", 1): 0.0536,
+                 ("sparse_scatter cimmino", 8): 0.0984}
 DFMA_F64_MS = {("cimmino_scatter", 1): 1.3482, ("cimmino_scatter", 8): 1.4570,
                ("sparse_gather", 1): 0.1851, ("sparse_gather", 8): 0.2004,
                ("sparse_cimmino_gather", 1): 0.1858,
-               ("sparse_cimmino_gather", 8): 0.1974}
+               ("sparse_cimmino_gather", 8): 0.1974,
+               ("sparse_scatter", 1): 0.1753, ("sparse_scatter", 8): 0.1912,
+               ("sparse_scatter cimmino", 1): 0.1742,
+               ("sparse_scatter cimmino", 8): 0.1859}
 RAGGED = [(7, 130), (1, 128), (24, 896)]
 # the sparse path's system, and the banded corner systems of phase 2
 # (tests/test_kernel_corners.py, plus a support one chunk and a bit wide)
@@ -648,7 +662,8 @@ def ptxas_summary(log: str, dynamic_smem, mma_forms=()) -> list[str]:
     "cimmino": the Cimmino gather's and the scatters' stage; "apc_mma"
     and "cimmino_mma" for the dense rings of ``mma_forms``, (kernel, pair
     suffix) pairs: the tensor-core form's, bp.MMA_FORMS; "sparse" for the
-    sparse gathers' rings, in every pair); and the sparse gathers'
+    sparse gathers' rings, "sparse_scatter" for sparse_scatter's, in
+    every pair); and the sparse gathers'
     pre-pass, 'support_operand f64 apc: 30 regs, smem 0 B' (apc:
     sparse_gather's X̄ − X, cimmino: X̄)."""
     out, kernel = [], None
@@ -672,10 +687,12 @@ def ptxas_summary(log: str, dynamic_smem, mma_forms=()) -> list[str]:
             ring = hit[1].endswith("_ring")
             form = ("sparse" if hit[1] in ("sparse_gather_ring",
                                            "sparse_cimmino_gather_ring")
+                    else "sparse_scatter"
+                    if hit[1] == "sparse_scatter_ring"
                     else "apc" if hit[1] == "apc_gather_ring"
                     else "cimmino")
             suffix = name if mname == name else f"{mname}_{name}"
-            if (ring and form != "sparse"
+            if (ring and form in ("apc", "cimmino")
                     and (hit[1][:-len("_ring")], suffix) in mma_forms):
                 form += "_mma"
             kc = int(hit[4])
@@ -3583,14 +3600,22 @@ def phases():
         assert all(" spill 0 B:" in x for x in rings), rings
         assert {x.split()[0] for x in rings} == {
             f"{kn}_ring" for kn in bp.RINGS}, rings
-    # the tensor-core forms: both instances at every KC, none spilling
+    # the tensor-core forms (the FP64 and the bf16 ones): both instances
+    # at every KC (sparse_scatter's in both epilogues), none spilling
+    tags = {sfx: "bf16" if sfx == "bf16_bf16" else sfx.replace("_", "/")
+            for sfx in bp.PAIRS.values()}
+    tc_forms = bp.MMA_FORMS + bp.BF16_MMA_FORMS
     mma = [x for x in ptxas if (x.split()[0].replace("_ring", ""),
-                                x.split()[1].replace("/", "_"))
-           in bp.MMA_FORMS]
-    assert {tuple(x.split()[:3]) for x in mma} == {
-        (f"{kn}{inst}", sfx.replace("_", "/"), f"KC={kc}")
-        for kn, sfx in bp.MMA_FORMS for inst in ("", "_ring")
-        for kc in bp.KC_VALUES}, mma
+                                x.split()[1]) in {
+        (kn, tags[sfx]) for kn, sfx in tc_forms}]
+    assert {tuple(x.split()[:3]) + tuple(
+        w for w in x.split()[3:4] if w in ("apc", "cimmino"))
+            for x in mma} == {
+        (f"{kn}{inst}", tags[sfx], f"KC={kc}") + form
+        for kn, sfx in tc_forms for inst in ("", "_ring")
+        for kc in bp.KC_VALUES
+        for form in ((("apc",), ("cimmino",)) if kn == "sparse_scatter"
+                     else ((),))}, mma
     assert all(" spill 0 B:" in x for x in mma), mma
     # the all-bf16 form: both instances of every kernel
     assert {x.split()[0] for x in ptxas if x.split()[1] == "bf16"
@@ -4392,16 +4417,19 @@ def phases():
             keep.add("library_ms")
         return {key: fn for key, fn in calls.items() if key in keep}
 
-    def dfma_note(kname, k, pr, ms, b):
+    def dfma_note(key, k, pr, f, b):
         """Beside a tensor-core form's time: the DFMA instance's before
-        it (the ring; the float64 cimmino_scatter's row dot at k = 1)."""
+        it (the ring; the float64 scatters' row dot at k = 1), against
+        ``f``'s eager time, or its graph time for sparse_scatter."""
+        kname = key.split()[0]
         sfx = {"bfloat16/float64": "bf16_f64", F64: "f64"}.get(pr)
         old = {"bfloat16/float64": DFMA_MIXED_MS,
-               F64: DFMA_F64_MS}.get(pr, {}).get((kname, k))
+               F64: DFMA_F64_MS}.get(pr, {}).get((key, k))
         if old is None or (kname, sfx) not in bp.MMA_FORMS:
             return ""
-        was = ("row dot" if (kname, pr, k) == ("cimmino_scatter", F64, 1)
-               else "ring")
+        was = ("row dot" if pr == F64 and k == 1 and kname in (
+            "cimmino_scatter", "sparse_scatter") else "ring")
+        ms = f["graph_ms"] if kname == "sparse_scatter" else f["ms"]
         return (f"; tensor cores (mma.sync f64), the DFMA {was} before them "
                 f"{old:.4f} ms ({b / old:.1%} of the bound), {old / ms:.2f}x")
 
@@ -4446,7 +4474,7 @@ def phases():
                    f"({b / f['graph_ms']:.1%})" if "graph_ms" in f else "")
                 + (f", the library {f['graph_library_ms']:.4f} ms"
                    if "graph_library_ms" in f else "")
-                + dfma_note(kname, k, pr, f["ms"], b))
+                + dfma_note(key or kname, k, pr, f, b))
         r.update(r["forms"][F64])
         rows[(key or kname, k)] = r
 
@@ -4862,15 +4890,14 @@ def phases():
                 sparse_calls(vals16, Bv16, X3f, Xbf, Uf, Vf, Y0f, R0f, Dsf,
                              Xsf), sparse_work(2, 4), torch.float32)}
         # the ring is the instance the sparse path's shapes take, in every
-        # form: both sparse gathers (vals alone decides) and both forms of
-        # the scatter (Bvals and U), but for the scatter's fixed rule
+        # form and at every k: both sparse gathers (vals alone decides)
+        # and both forms of the scatter (Bvals and U)
         for vals_, Bv_, U_ in ((vals, Bv, U), (vals32, Bv32, Uf),
                                (vals16, Bv16, U), (vals16, Bv16, Uf)):
             assert bp.gather_instance(vals_) == "ring"
             for U2 in (U_, V.to(U_.dtype)):
                 assert bp.gather_instance(
-                    Bv_, U2, scatter="sparse_scatter") == (
-                    "row_dot" if k == 1 and Bv_.dtype != BF16 else "ring")
+                    Bv_, U2, scatter="sparse_scatter") == "ring"
         for key in SPARSE_USES["apc"] + ("sparse_cimmino_gather",
                                          "sparse_scatter cimmino"):
             kname, _, form = key.partition(" ")
@@ -5172,8 +5199,7 @@ def phases():
                     Bv16, scols, sV, sR0.clone(), _instance=inst),
                 want=ops.sparse_scatter_ref(Bv16, scols, sV, sR0),
                 matrix=Bv16, copied=(sV,),
-                wide=lambda: bp.sparse_scatter(Bv16, scols, f32(sV),
-                                               f32(sR0), _instance="ring"),
+                wide=None,
                 timed=lambda inst=None: bp.sparse_scatter(
                     Bv16, scols, sV, sR0, _instance=inst),
                 plain=lambda: ops.sparse_scatter_ref(Bv16, scols, sV, sR0),
@@ -5199,10 +5225,12 @@ def phases():
                 + [d for _, d in errs.values()])
             same = wide = None
             if "ring" in outs:
-                # the scatters' row dot is the packed one, summing in
-                # another order than the ring (phase 2)
+                # the dense scatters' row dot is the packed one, summing in
+                # another order than the ring (phase 2); sparse_scatter's
+                # two instances issue the same bf16 mmas
                 same = torch.equal(outs["ring"], outs["row_dot"])
-                assert same or scatter, (key, k)
+                assert same or (scatter and (kname, "bf16_bf16")
+                                not in bp.BF16_MMA_FORMS), (key, k)
                 if sp_["wide"] is not None:
                     wide = torch.equal(outs["ring"], sp_["wide"]().to(BF16))
                     assert wide, (key, k)
@@ -5220,11 +5248,12 @@ def phases():
             if scatter and fits == "ring":
                 timed[(key, "ring_ms")] = lambda f=call: f("ring")
         t = medians_ms(timed)
-        # the sparse gathers and their library call also as 10 calls
+        # the sparse kernels and their library call also as 10 calls
         # replayed from a CUDA graph: the device's time (phase 11)
         t.update({(key, f"graph_{name}"): v / 10 for (key, name), v in
                   medians_ms({key_: graphed(fn) for key_, fn in timed.items()
-                              if key_[0] in bp.GATHERS[2:]
+                              if key_[0].split()[0] in bp.GATHERS[2:]
+                              + ("sparse_scatter",)
                               and key_[1] in ("ms", "library_ms")},
                              batch=1).items()})
         for key, sp_ in specs.items():

@@ -29,10 +29,11 @@ All seven kernels (the four gathers ``apc_gather``, ``sparse_gather``,
 have two instances, one kernel each: the "ring" for Hopper (producer
 warps streaming 16-byte copies through a shared-memory ring to consumer
 warps), and the "row dot" for the shapes the ring cannot copy.  The
-kernels but ``sparse_scatter`` with a bf16 matrix and float64 operands,
-the float64 ``cimmino_scatter`` and the float64 sparse gathers
-(:data:`MMA_FORMS`), run their products on the FP64 tensor cores, in
-both instances.  The sparse gathers' launch is two kernels: a pre-pass
+kernels with a bf16 matrix and float64 operands, the float64
+``cimmino_scatter`` and the float64 sparse kernels (:data:`MMA_FORMS`)
+run their products on the FP64 tensor cores, in both instances, and the
+all-bf16 ``sparse_scatter`` on the bf16 ones (:data:`BF16_MMA_FORMS`).
+The sparse gathers' launch is two kernels: a pre-pass
 that writes their support operand (X̄ − X, or X̄, at each worker's
 support columns, in the accumulation dtype) into a buffer the launcher
 allocates, then the ring or the row dot over vals against it.
@@ -99,25 +100,32 @@ PAIRS = {(torch.float64, torch.float64): "f64",
 #: with_kc)
 KC_VALUES = (1, 2, 4, 8)
 #: the kernels, by the suffix of their pair, whose products run on the
-#: FP64 tensor cores: the kernels but ``sparse_scatter`` with a bf16
-#: matrix and float64 operands (csrc/block_projection.cu kMmaForm), the
-#: float64 ``cimmino_scatter`` (kMmaF64Form) and the float64 sparse
-#: gathers (kSparseMma), in a ring of 256-row tiles whose sums stay in
-#: the mma fragment.  Both instances of each sum in one order, so its
-#: ring and row dot are bit-identical.
+#: FP64 tensor cores: the kernels with a bf16 matrix and float64 operands
+#: (csrc/block_projection.cu kMmaForm), the float64 ``cimmino_scatter``
+#: (kMmaF64Form) and the float64 sparse kernels (kSparseMma), in a ring
+#: of 256-row tiles whose sums stay in the mma fragment.  Both instances
+#: of each sum in one order, so its ring and row dot are bit-identical.
 MMA_FORMS = (("apc_gather", "bf16_f64"), ("apc_scatter", "bf16_f64"),
              ("cimmino_gather", "bf16_f64"), ("cimmino_scatter", "bf16_f64"),
              ("sparse_gather", "bf16_f64"),
              ("sparse_cimmino_gather", "bf16_f64"),
+             ("sparse_scatter", "bf16_f64"),
              ("cimmino_scatter", "f64"), ("sparse_gather", "f64"),
-             ("sparse_cimmino_gather", "f64"))
+             ("sparse_cimmino_gather", "f64"), ("sparse_scatter", "f64"))
+#: the all-bf16 kernels whose products run on the bf16 tensor cores
+#: (mma.sync m16n8k16, float32 sums; kBf16Mma), in the same 256-row ring:
+#: ``sparse_scatter``, both forms.  Its two instances too are
+#: bit-identical; the sums' order is the tensor cores', not the FFMA
+#: rings'.
+BF16_MMA_FORMS = (("sparse_scatter", "bf16_bf16"),)
 
 
 #: the instances of the kernels in :data:`RINGS`, by the int64 their C
 #: entries take (csrc/block_projection.cu kRowDot, kRing)
 INSTANCES = {"row_dot": 0, "ring": 1}
 #: the ring's forms, by the int64 gather_ring_smem takes (kApcForm,
-#: kCimminoForm, kApcMmaForm, kCimminoMmaForm, kSparseForm): the dense
+#: kCimminoForm, kApcMmaForm, kCimminoMmaForm, kSparseForm,
+#: kSparseScatterForm): the dense
 #: APC gather stages X̄ and X, the dense Cimmino gather X̄, the scatters
 #: U (or V), each in the Cimmino form's stage; the "_mma" forms are the
 #: same stages in the layout of the FP64 tensor cores' consumer (the
@@ -125,9 +133,13 @@ INSTANCES = {"row_dot": 0, "ring": 1}
 #: three and the float64 ``cimmino_scatter``: "cimmino_mma"; the library
 #: answers 0 for any other pair); "sparse" is the two sparse gathers'
 #: stage of their support operand, in its accumulation dtype, in the
-#: layout of their consumer (:data:`MMA_FORMS`), for every pair
+#: layout of their consumer (:data:`MMA_FORMS`), for every pair;
+#: "sparse_scatter" is ``sparse_scatter``'s, for every pair: in its
+#: tensor-core forms (:data:`MMA_FORMS`, :data:`BF16_MMA_FORMS`) a
+#: 256-row stage holding two units' operand rows (a tile may run from
+#: one worker's rows into the next's), else the Cimmino form's
 FORMS = {"apc": 0, "cimmino": 1, "apc_mma": 2, "cimmino_mma": 3,
-         "sparse": 4}
+         "sparse": 4, "sparse_scatter": 5}
 # the ring's copies move 16 bytes between 16-byte-aligned addresses
 _ALIGN = 16
 
@@ -343,11 +355,13 @@ def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
     ``scatter`` names the scatter (one of :data:`SCATTERS`) whose
     operands these are (``copied`` its staged V or U, (m, k, p)).  There
     one fixed rule on the kernel, the dtype pair and k comes on top: a
-    float64 or float32 matrix at k = 1 takes the row dot, which the chip
-    timed ahead of the DFMA ring in that case alone (PERF.md §6); a bf16
-    matrix, a form of :data:`MMA_FORMS` (the float64 ``cimmino_scatter``,
-    whose row dot issues the ring's mmas from global memory and trails
-    its ring), or k > 1 takes the ring where it fits.
+    dense scatter with a float64 or float32 matrix at k = 1 takes the
+    row dot, which the chip timed ahead of the DFMA/FFMA ring in that
+    case alone (PERF.md §6); a bf16 matrix, a form of :data:`MMA_FORMS`
+    (the float64 ``cimmino_scatter``, whose row dot issues the ring's
+    mmas from global memory and trails its ring), ``sparse_scatter``
+    (every form's ring ahead of its row dot at the sparse path's shapes,
+    PERF.md §6) or k > 1 takes the ring where it fits.
 
     ``forced`` names an instance to take instead (chip_smoke.py times
     both at the main path's shapes); forcing "ring" on operands it cannot
@@ -372,7 +386,8 @@ def gather_instance(matrix: torch.Tensor, *copied: torch.Tensor,
                          "base addresses; these operands take the row dot")
     if forced:
         return forced
-    if (scatter and matrix.dtype != torch.bfloat16
+    if (scatter in ("apc_scatter", "cimmino_scatter")
+            and matrix.dtype != torch.bfloat16
             and copied[0].shape[-2] == 1 and (scatter, PAIRS.get(
                 (matrix.dtype, copied[0].dtype))) not in MMA_FORMS):
         return "row_dot"

@@ -155,7 +155,9 @@
 // at column j (dense) or cols[w, j] (sparse), C in the Cimmino forms
 // (R = V·Bᵀ) and X + γ((X̄ − X) − C) in the APC forms (apc_scatter, and
 // sparse_scatter given X), reading X, X̄ and cols only there, after the
-// accumulators are gone.
+// accumulators are gone (the APC forms in 4-byte and 8-byte types copy
+// X and X̄, at cols[w, j] in the sparse one, into shared memory before
+// the tree, RingScatterStore).
 //
 // Tried on the card and dropped for the gathers, each slower than this
 // design or not working (PERF.md): one 1-D bulk copy (cp.async.bulk) per
@@ -165,16 +167,16 @@
 // the consumers, which hung the kernel.
 //
 // The tensor-core form.  The kernels with a bf16 matrix and float64
-// operands (apc_gather, apc_scatter, cimmino_gather, cimmino_scatter and
-// the two sparse gathers _bf16_f64, the main path's precision="mixed";
-// kMmaForm) stream a quarter of the float64 form's bytes, so at k = 8
-// the DFMA consumer above, not the bytes, set their pace (39–44 % of the
-// bound; the sparse gathers 32–35 %).  Their products run on the FP64
-// tensor cores (mma.sync m16n8k8 .f64), in a ring of its own shape; so
-// do the float64 cimmino_scatter's (kMmaF64Form, below) and the float64
-// sparse gathers' (kSparseMma; the sparse gathers' ring is the Cimmino
-// form's with O_w as its per-worker operand, as the scatters' with U_w
-// or V_w; sparse_scatter keeps its DFMA ring):
+// operands (every kernel's _bf16_f64, the main path's
+// precision="mixed"; kMmaForm) stream a quarter of the float64 form's
+// bytes, so at k = 8 the DFMA consumer above, not the bytes, set their
+// pace (39–44 % of the bound; the sparse kernels 32–42 %).  Their
+// products run on the FP64 tensor cores (mma.sync m16n8k8 .f64), in a
+// ring of its own shape; so do the float64 cimmino_scatter's
+// (kMmaF64Form, below) and the float64 sparse kernels' (kSparseMma; the
+// sparse gathers' ring is the Cimmino form's with O_w as its per-worker
+// operand, as the scatters' with U_w or V_w), and the all-bf16
+// sparse_scatter's on the bf16 tensor cores (kBf16Mma, below):
 //
 //   * M = the matrix's rows (l of A_w, j of B_w), N = the k-chunk's 8
 //     batch rows (zero past KC and the tile's), K = its columns.  Each
@@ -195,10 +197,20 @@
 //     gather's operand equalled its matrix, and it ran at half its bound
 //     whatever its consumer did.
 //   * Blocks take whole tiles, T = m·ceil(k/KC)·ceil(p/256) of them on
-//     min(SMs, T) blocks: the ring's depth is sized for a 256-row stage,
-//     so a part tile streams at its share of the rate, and a block whose
-//     equal share of rows straddled a worker took twice as long as one
-//     whose share did not.
+//     min(SMs, T) blocks (MmaWalk): the ring's depth is sized for a
+//     256-row stage, so a part tile streams at its share of the rate, and
+//     a block whose equal share of rows straddled a worker took twice as
+//     long as one whose share did not.  sparse_scatter's rows rarely end
+//     on a tile (the sparse path's w = 2064 = 8·256 + 16: whole tiles
+//     gave 12 of 132 blocks two, and its 16 part tiles on the 4 blocks
+//     the full ones leave free ran slower still, a part tile costing its
+//     stages, not its rows), so its tiles may run on into the next unit
+//     (SpanWalk): the units' rows in 16-row groups split evenly over the
+//     blocks, a tile at most 256 rows over at most two units, rows
+//     16rb .. 16rb + 15 of a warp taking the operand rows of their unit
+//     (the stage holds two units' KC rows) and storing at their unit's
+//     places: one tile of 240 or 256 rows a block at the sparse path's
+//     shapes.
 //   * The consumers read the matrix with ldmatrix (a k-step's 16-byte
 //     piece of 32 rows a warp) and the operand with 16-byte loads (the
 //     step's 2 columns of a batch row a lane); the producers store piece
@@ -215,6 +227,19 @@
 //     as they are (MmaStore), the APC scatter X + γ((X̄ − X) − C),
 //     loading X and X̄ at the fragment's places.  No shuffle tree and no
 //     cross-warp reduction.
+//   * sparse_scatter's epilogue (MmaSparseStore) reads its lane's cols
+//     and, in the APC form, X and X̄ there (as a tile starts in the
+//     float64 forms, after its stages in all-bf16), and stores at cols
+//     from the fragment after the tile's stages.
+//   * The all-bf16 sparse_scatter (kBf16Mma) runs mma.sync m16n8k16 bf16
+//     with float32 accumulators on the same ring and walk: a 64-column
+//     stage is four k-steps of 16, the matrix read with two ldmatrix.x4
+//     and the operand (bf16, its pieces stored as the matrix's) with one
+//     ldmatrix.x2 a k-step; each output one accumulator chain over the
+//     columns in order, so its ring and row dot are bit-identical and a
+//     batch row is a k = 1 call's, though the sums' order is the tensor
+//     cores', not the FFMA ring's (within the bf16 tolerance of the plain
+//     version).  The FFMA ring it replaced trailed torch.bmm at k = 8.
 //   * The float64 cimmino_scatter (R = V·Bᵀ; kMmaF64Form) takes the same
 //     ring: its DFMA ring (64-row tiles, 512-byte segments) lost a fixed
 //     time a tile, 31 tiles a block at the main path's shapes, each
@@ -244,18 +269,20 @@
 // (n = 130 or 7 in f32, an odd support width, p = 7, a view at an odd
 // offset, an empty row) take the row dot.  The choice is by shape,
 // made once in the Python wrapper (block_projection.gather_instance) and
-// passed to the entry as one int64 (kRowDot or kRing); a scatter with a
-// float64 or float32 matrix at k = 1 takes the row dot there too, a
-// fixed rule from the chip's timings (its one batch row is no stage's
+// passed to the entry as one int64 (kRowDot or kRing); a dense scatter
+// with a float64 or float32 matrix at k = 1 takes the row dot there too,
+// a fixed rule from the chip's timings (its one batch row is no stage's
 // worth of reuse, and the DFMA ring's per-tile cost is not earned back),
 // but for the float64 cimmino_scatter, whose tensor-core row dot trails
-// its ring at every k (block_projection.MMA_FORMS).
+// its ring at every k (block_projection.MMA_FORMS); sparse_scatter's
+// ring leads its row dot in every form at k = 1 too.
 //
 // Two types name every kernel: the matrix type TM of A, B, vals and
 // Bvals, and the compute type T of X, X̄, U, V, Y and R; a third
 // follows from T, the accumulator type Acc<T>.  f64 accumulates in f64,
 // f32 in f32: DFMA/FFMA, no TF32, and tensor cores only in the
-// tensor-core form above (float64 mma, float64 products and sums).  The entries <kernel>_f64 and
+// tensor-core form above (float64 mma, float64 products and sums; the
+// all-bf16 sparse_scatter's bf16 mma, float32 sums).  The entries <kernel>_f64 and
 // <kernel>_f32 take TM = T; <kernel>_bf16_f64 and <kernel>_bf16_f32 take
 // a bf16 matrix (the reference's precision="mixed": the accumulation
 // type follows X, not the stored A/B).  The consumer widens each element
@@ -270,8 +297,8 @@
 // pre-pass X + γ(X̄ − X) and C each to bf16, then their difference
 // X + γ(X̄ − X) − γ·C, so it agrees with ops.sparse_scatter_ref to
 // within the rounding of C's sum order.  A one-element cp.async moves
-// at least 4 bytes, so in bf16 the APC scatter rings read X and X̄
-// after the tree.  The sparse gathers' O is float32 in the all-bf16
+// at least 4 bytes, so in bf16 the dense APC scatter's ring reads X and
+// X̄ after the tree.  The sparse gathers' O is float32 in the all-bf16
 // form (Acc<T>): their ring is the bf16/f32 one, storing U in bf16.  The
 // ring sizes its stage by the compute type: C = 512 / sizeof(T) columns
 // a stage, so the operand's rows are 512 bytes as in the f64/f32 rings,
@@ -429,9 +456,12 @@ constexpr int64_t kRowDot = 0, kRing = 1;          // the entries' instance
 // alone (kCimminoForm), and the same in the tensor-core form's layout
 // (kApcMmaForm: apc_gather; kCimminoMmaForm: the dense bf16/f64 Cimmino
 // pair and apc_scatter, and the f64 cimmino_scatter); the sparse
-// gathers' stage of their support operand (kSparseForm)
+// gathers' stage of their support operand (kSparseForm); sparse_scatter's
+// (kSparseScatterForm: its tensor-core forms' stage holds two units'
+// operand rows)
 constexpr int64_t kApcForm = 0, kCimminoForm = 1, kApcMmaForm = 2,
-                  kCimminoMmaForm = 3, kSparseForm = 4;
+                  kCimminoMmaForm = 3, kSparseForm = 4,
+                  kSparseScatterForm = 5;
 constexpr int kRingWarps = 8;                      // consumer warps
 constexpr int kRingWarpRows = 8;
 constexpr int kRingRows = kRingWarps * kRingWarpRows;
@@ -443,29 +473,38 @@ constexpr int kRingMaxStages = 16;
 
 // The forms whose products run on the FP64 tensor cores (header): the
 // kernels with a bf16 matrix and float64 operands (apc_gather,
-// apc_scatter, cimmino_gather, cimmino_scatter and the two sparse
-// gathers; sparse_scatter keeps its DFMA ring).
+// apc_scatter, cimmino_gather, cimmino_scatter, the two sparse gathers
+// and sparse_scatter).
 template <typename TM, typename T>
 constexpr bool kMmaForm = std::is_same_v<TM, __nv_bfloat16> &&
                           std::is_same_v<T, double>;
 
 // The float64 Cimmino scatter (cimmino_scatter_f64) on the same
 // consumer, its matrix read as float64 fragments (header).  kAxpy: the
-// APC scatter's epilogue, which keeps its DFMA ring.
-template <typename TM, typename T, bool kAxpy, bool kSparse>
+// dense APC scatter's epilogue, which keeps its DFMA ring.
+template <typename TM, typename T, bool kAxpy>
 constexpr bool kMmaF64Form = std::is_same_v<TM, double> &&
-                             std::is_same_v<T, double> && !kAxpy &&
-                             !kSparse;
+                             std::is_same_v<T, double> && !kAxpy;
 
-// The sparse gathers' consumer (header): the tensor-core form in
+// The sparse kernels' FP64 tensor-core consumer (header): the form in
 // bf16/f64 and in f64 (float64 fragments, as the float64 Cimmino
-// scatter's: a probe on the card timed it level with the 64-row DFMA
-// ring at k = 1 and 6 % ahead at k = 8, PERF.md); the FFMA ring in f32,
-// bf16/f32 and bf16/bf16.
+// scatter's: a probe on the card timed the sparse gathers' level with
+// the 64-row DFMA ring at k = 1 and 6 % ahead at k = 8, PERF.md); the
+// FFMA ring in f32, bf16/f32 and, for the gathers, bf16/bf16.
 template <typename TM, typename T>
 constexpr bool kSparseMma =
     kMmaForm<TM, T> ||
     (std::is_same_v<TM, double> && std::is_same_v<T, double>);
+
+// The all-bf16 form on the bf16 tensor cores (mma.sync m16n8k16, float32
+// accumulators; header): sparse_scatter's.
+template <typename TM, typename T>
+constexpr bool kBf16Mma = std::is_same_v<TM, __nv_bfloat16> &&
+                          std::is_same_v<T, __nv_bfloat16>;
+
+// sparse_scatter's tensor-core forms, both instances, both epilogues.
+template <typename TM, typename T>
+constexpr bool kSparseScatterMma = kSparseMma<TM, T> || kBf16Mma<TM, T>;
 
 // The tensor-core form's tile: each consumer warp owns 32 of its rows
 // (two mmas of 16) against every column; a stage takes 128 bytes of each
@@ -476,9 +515,10 @@ constexpr int kMmaSegment = 128;
 
 // Where the tensor-core form's producers store piece j of matrix row r
 // and of operand row kk (X̄ row kk, or X row kk): ldmatrix reads one
-// piece of each of 8 consecutive bf16 rows, and a 16-byte load's phase
-// the same piece of two consecutive operand rows (or float64 matrix
-// rows: a lane's pair of columns), each in a bank group of its own.
+// piece of each of 8 consecutive bf16 rows (a bf16 operand's rows too),
+// and a 16-byte load's phase the same piece of two consecutive operand
+// rows (or float64 matrix rows: a lane's pair of columns), each in a
+// bank group of its own.
 __host__ __device__ constexpr int mma_matrix_piece(int r, int j) {
   return j ^ (r & 7);
 }
@@ -516,6 +556,13 @@ struct Ring {
   // for a bf16 matrix, the operand's for a float64 one.
   __host__ __device__ static constexpr int matrix_piece(int r, int j) {
     return sizeof(TM) == 2 ? mma_matrix_piece(r, j) : mma_operand_piece(r, j);
+  }
+  // The place of piece j of operand row kk under kMma: ldmatrix's layout
+  // for a bf16 operand (the all-bf16 form), the 16-byte loads' for a
+  // float64 one.
+  __host__ __device__ static constexpr int operand_piece(int kk, int j) {
+    return sizeof(T) == 2 ? mma_matrix_piece(kk, j)
+                          : mma_operand_piece(kk, j);
   }
 };
 
@@ -754,24 +801,6 @@ __device__ __forceinline__ void scatter_block(
   }
 }
 
-// The sparse scatter: w is the support width, the row dot's row count.
-template <typename TM, typename T, int KC, int R, bool kAxpy>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-sparse_scatter_kernel(const TM* __restrict__ Bvals,
-                      const int64_t* __restrict__ cols,
-                      const T* __restrict__ X, const T* __restrict__ Xbar,
-                      const T* __restrict__ U, Acc<T> gamma,
-                      T* __restrict__ Y, int64_t w, int64_t p, int64_t k,
-                      int64_t sx_w,
-                      int64_t sx_k, int64_t sxb_k, int64_t su_w,
-                      int64_t su_k, int64_t sy_w, int64_t sy_k) {
-  __shared__ Acc<T> Vs[KC][kChunk];
-  __shared__ Acc<T> Cs[KC][kWarps * R];        // the reduced Bvals·U per row
-  scatter_block<TM, T, KC, R, kAxpy, true>(Bvals, cols, X, Xbar, U, gamma, Y, w,
-                                       p, k, sx_w, sx_k, sxb_k, su_w, su_k,
-                                       sy_w, sy_k, Vs, Cs);
-}
-
 // ---------------------------------------------------------------------------
 // The ring instance of every kernel (see the header)
 // ---------------------------------------------------------------------------
@@ -834,10 +863,16 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 }
 
 // A tile: rows row0 .. row0 + rows of worker w's matrix against its
-// batch rows k0 .. k0 + kvalid.
+// batch rows k0 .. k0 + kvalid.  sparse_scatter's tensor-core walk
+// (SpanWalk) lets a tile's rows run on into the next unit: its first
+// `split` rows are the unit (w, k0)'s from row0, the rest the unit (w2,
+// k02)'s from row 0 (split = rows in the tensor-core form's other
+// walks; unset in the DFMA/FFMA ring's).
 struct RingTile {
   int64_t w, k0, row0;
   int rows, kvalid;
+  int split, kvalid2;
+  int64_t w2, k02;
 };
 
 // A consumer warp's place in the walk: the next tile's first row g of
@@ -859,7 +894,7 @@ __shared__ RingWalk ring_walks[kRingWarps];
 // block b takes the rows [total·b / grid, total·(b + 1) / grid), an equal
 // share to within one row, cut into tiles of at most 64 rows that never
 // cross a worker or a k-chunk.  This is the tile at row g of [g, end).
-template <int KC, int kRows = kRingRows>
+template <int KC>
 __device__ __forceinline__ RingTile ring_tile(int64_t g, int64_t end,
                                               int64_t p, int64_t k) {
   const int64_t unit = g / p;
@@ -868,7 +903,7 @@ __device__ __forceinline__ RingTile ring_tile(int64_t g, int64_t end,
   r.w = unit / k_tiles;
   r.k0 = unit % k_tiles * KC;
   r.row0 = g - unit * p;
-  r.rows = static_cast<int>(min64(min64(p - r.row0, end - g), kRows));
+  r.rows = static_cast<int>(min64(min64(p - r.row0, end - g), kRingRows));
   r.kvalid = static_cast<int>(min64(k - r.k0, KC));
   return r;
 }
@@ -884,15 +919,20 @@ __device__ __forceinline__ RingTile ring_tile(int64_t g, int64_t end,
 // operand is worker w's own rows, at Xbar + w·sxb_w, not the one shared
 // X̄.  `it` counts the block's (tile, chunk) steps: stage it % S, round
 // it / S.  Under kMma each piece goes to its swizzled place
-// (Ring::matrix_piece, mma_operand_piece).
+// (Ring::matrix_piece, Ring::operand_piece).  kSpan (sparse_scatter's
+// tensor-core ring, per worker): a tile's rows from `split` on are the
+// second unit's, rows past a unit's p are not copied (a unit's last
+// 16-row group), and the second unit's KC operand rows go where the APC
+// form's X rows go.
 template <typename TM, typename T, int KC, bool kDiff, bool kPerWorker,
-          bool kMma>
+          bool kMma, bool kSpan = false>
 __device__ __forceinline__ void ring_produce(
     const RingTile& tl, const TM* __restrict__ M, const T* __restrict__ X,
     const T* __restrict__ Xbar, int64_t p, int64_t n, int64_t sx_w,
     int64_t sx_k, int64_t sxb_w, int64_t sxb_k, uint32_t& it) {
-  using Cfg = Ring<TM, T, KC, kDiff, kMma>;
+  using Cfg = Ring<TM, T, KC, kDiff || kSpan, kMma>;
   static_assert(!kPerWorker || !kDiff, "a per-worker operand is one row");
+  static_assert(!kSpan || (kMma && kPerWorker), "a span: the mma scatter");
   constexpr int C = Cfg::kCols;
   constexpr int kPer = 16 / sizeof(T);           // operand elements a piece
   constexpr int kMPer = 16 / sizeof(TM);         // matrix elements a piece
@@ -901,6 +941,12 @@ __device__ __forceinline__ void ring_produce(
   const int lane = threadIdx.x % 32;
   const int piece = lane % Cfg::kPieces;
   const TM* Mt = M + (tl.w * p + tl.row0) * n + piece * kMPer;
+  // kSpan: the second unit's rows, tile row r at Mt2 + r·n; the rows
+  // r < real of the first unit and r < real2 of the second hold data
+  const TM* Mt2 = kSpan ? M + (tl.w2 * p - tl.split) * n + piece * kMPer
+                       : nullptr;
+  const int real = kSpan ? static_cast<int>(min64(tl.split, p - tl.row0)) : 0;
+  const int64_t real2 = kSpan ? tl.split + p : 0;
   for (int64_t c0 = 0; c0 < n; c0 += C, ++it) {
     const int s = it % Cfg::kStages;
     const int nv = static_cast<int>(min64(n - c0, C));
@@ -914,21 +960,37 @@ __device__ __forceinline__ void ring_produce(
     if (piece < mpieces)
       for (int r = pw * kRowsAtOnce + lane / Cfg::kPieces; r < tl.rows;
            r += kRingLoaders * kRowsAtOnce) {
-        if constexpr (kMma)
+        if constexpr (kSpan) {
+          const bool first = r < tl.split;
+          if (first ? r >= real : r >= real2) continue;
+          cp_async16_l2_256(Ms + r * C + Cfg::matrix_piece(r, piece) * kMPer,
+                            (first ? Mt : Mt2) + r * n + c0);
+        } else if constexpr (kMma) {
           cp_async16_l2_256(Ms + r * C + Cfg::matrix_piece(r, piece) * kMPer,
                             Mt + r * n + c0);
-        else
+        } else {
           cp_async16(Ms + r * C + piece * kMPer, Mt + r * n + c0);
+        }
       }
     for (int q = pw; q < Cfg::kOperandRows; q += kRingLoaders) {
       const int kk = q % KC;
-      if (kk >= tl.kvalid) continue;
-      T* dst = (q < KC ? XBs : Xs) + kk * C;
-      const T* src = q < KC ? Xbar + (tl.k0 + kk) * sxb_k
-                            : X + tl.w * sx_w + (tl.k0 + kk) * sx_k;
-      if constexpr (kPerWorker) src += tl.w * sxb_w;
+      const bool second = q >= KC;
+      T* dst = (second ? Xs : XBs) + kk * C;
+      const T* src;
+      if constexpr (kSpan) {
+        if (second ? tl.split >= tl.rows || kk >= tl.kvalid2
+                   : kk >= tl.kvalid)
+          continue;
+        src = second ? Xbar + tl.w2 * sxb_w + (tl.k02 + kk) * sxb_k
+                     : Xbar + tl.w * sxb_w + (tl.k0 + kk) * sxb_k;
+      } else {
+        if (kk >= tl.kvalid) continue;
+        src = second ? X + tl.w * sx_w + (tl.k0 + kk) * sx_k
+                     : Xbar + (tl.k0 + kk) * sxb_k;
+        if constexpr (kPerWorker) src += tl.w * sxb_w;
+      }
       if (lane < opieces)
-        cp_async16(dst + (kMma ? mma_operand_piece(kk, lane) : lane) * kPer,
+        cp_async16(dst + (kMma ? Cfg::operand_piece(kk, lane) : lane) * kPer,
                    src + c0 + lane * kPer);
     }
     cp_async_arrive(&ring_full[s]);
@@ -1164,14 +1226,20 @@ __device__ __forceinline__ void reduce_scatter(T (&v)[N], int lane) {
 // set the ring's pace: in probes on the card that form trailed the
 // Cimmino ring by a few per cent in f64 and more in f32; loaded into
 // registers before the tree, X and X̄ spilled the f64 instance (PERF.md).
-// The sparse form reads cols first and keeps its loads after the tree.
+// The sparse APC form (f32 and bf16/f32: the other pairs take the
+// tensor-core ring) reads its lane's cols[w, j] first and copies X and
+// X̄ at that column so, but at KC = 1, whose short tree hides less than
+// the cols load costs before it (a probe on the card: 5 % faster at
+// KC = 8, 1 % slower at KC = 1, PERF.md); the sparse Cimmino form reads
+// cols after the tree.
 template <typename T, int KC, bool kAxpy, bool kSparse>
 struct RingScatterStore {
   static constexpr int N = kRingWarpRows * KC;
   static constexpr int H = N >= 32 ? N / 32 : 1;   // sums a lane holds
   // a one-element cp.async moves 4, 8 or 16 bytes: a bf16 X reads after
-  // the tree, as the sparse form does
-  static constexpr bool kStaged = kAxpy && !kSparse && sizeof(T) >= 4;
+  // the tree
+  static constexpr bool kStaged =
+      kAxpy && sizeof(T) >= 4 && !(kSparse && KC == 1);
   using TA = Acc<T>;
   const int64_t* __restrict__ cols;
   const T* __restrict__ X;
@@ -1187,30 +1255,40 @@ struct RingScatterStore {
   }
 
   // The copies of X and X̄ at the lane's outputs (lane l holds the sums
-  // q = l·N/32/H, ... of operator()), where it stores any.
-  __device__ __forceinline__ void prefetch(const RingTile& tl, int r0,
-                                           int lane) const {
+  // q = l·N/32/H, ... of operator()), where it stores any; returns their
+  // column (cols[w, j] under kSparse).
+  __device__ __forceinline__ int64_t prefetch(const RingTile& tl, int r0,
+                                              int lane) const {
     if constexpr (N < 32)
-      if (lane % (32 / N) != 0) return;
+      if (lane % (32 / N) != 0) return 0;
     const int q = lane * N / 32 / H;
     const int r = q % kRingWarpRows;
-    if (r0 + r >= tl.rows) return;
+    if (r0 + r >= tl.rows) return 0;
     const int64_t j = tl.row0 + r0 + r;
+    const int64_t jo = kSparse ? cols[tl.w * rows + j] : j;
     T (*s)[32] = staged();
 #pragma unroll
     for (int h = 0; h < H; ++h) {
       const int kk = q / kRingWarpRows * H + h;
       if (kk >= tl.kvalid) continue;
       const int64_t i = tl.k0 + kk;
-      cp_async_element(&s[2 * h][lane], X + tl.w * sx_w + i * sx_k + j);
-      cp_async_element(&s[2 * h + 1][lane], Xbar + i * sxb_k + j);
+      cp_async_element(&s[2 * h][lane], X + tl.w * sx_w + i * sx_k + jo);
+      cp_async_element(&s[2 * h + 1][lane], Xbar + i * sxb_k + jo);
     }
+    return jo;
   }
 
   __device__ __forceinline__ void operator()(TA (&acc)[kRingWarpRows][KC],
                                              const RingWalk* walk, int r0,
                                              int lane) const {
-    if constexpr (kStaged) prefetch(walk->tl, r0, lane);
+    // the sparse form's column, read before the tree (the dense one's
+    // is j, formed after it)
+    constexpr bool kEarly = kStaged && kSparse;
+    int64_t jo = 0;
+    if constexpr (kEarly)
+      jo = prefetch(walk->tl, r0, lane);
+    else if constexpr (kStaged)
+      prefetch(walk->tl, r0, lane);
     TA v[N];
 #pragma unroll
     for (int r = 0; r < kRingWarpRows; ++r)
@@ -1224,8 +1302,10 @@ struct RingScatterStore {
     const int r = q % kRingWarpRows;
     const RingTile tl = walk->tl;
     if (r0 + r >= tl.rows) return;
-    const int64_t j = tl.row0 + r0 + r;
-    const int64_t jo = kSparse ? cols[tl.w * rows + j] : j;
+    if constexpr (!kEarly) {
+      const int64_t j = tl.row0 + r0 + r;
+      jo = kSparse ? cols[tl.w * rows + j] : j;
+    }
     if constexpr (kStaged) asm volatile("cp.async.wait_all;\n" ::: "memory");
 #pragma unroll
     for (int h = 0; h < H; ++h) {
@@ -1274,6 +1354,27 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
       : "r"(smem_addr(row)));
 }
 
+// The same for two matrices (lanes 0 .. 15 name their rows).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(row)));
+}
+
+// D += A·B on the bf16 tensor cores with float32 accumulators,
+// mma.sync m16n8k16: A (16 x 16 bf16) in a0..a3, B (16 x 8) in b0, b1, D
+// (16 x 8 float32) in d0..d3.  Lane 4g + t holds the bf16 pairs
+// A[g][2t, 2t + 1], A[g + 8][2t, ..], A[g][2t + 8, ..], A[g + 8][2t + 8,
+// ..]; B[2t, 2t + 1][g], B[2t + 8, 2t + 9][g]; and D as mma_f64 does.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // The two bf16 of a 32-bit word (the low half first) as float64, exactly,
 // through float32 (F2F.F64.F32; the integer construction of the header's
 // widen note was slower here too: scripts/probe_mma_widen.py).
@@ -1287,16 +1388,19 @@ __device__ __forceinline__ void widen_pair(uint32_t w, double& lo,
 // (two mmas of 16) against the 8 batch rows (n; zero past the tile's).
 // w[i] holds rows 8i + g, columns 2t and 2t + 1 of the 8: k-slot t is
 // column 2t and slot t + 4 column 2t + 1, so each bf16 word feeds a0
-// and a2 (or a1 and a3), and b = (D[g][2t], D[g][2t + 1]).
+// and a2 (or a1 and a3), and b = (D[g][2t], D[g][2t + 1]); rows 16rb ..
+// 16rb + 15 take b0 (rb = 0) or b1 (a span's second unit may start at
+// row 16).
 __device__ __forceinline__ void mma_rows(double (&acc)[2][4],
                                          const uint32_t (&w)[4],
-                                         const double (&b)[2]) {
+                                         const double (&b0)[2],
+                                         const double (&b1)[2]) {
 #pragma unroll
   for (int rb = 0; rb < 2; ++rb) {
     double a[4];
     widen_pair(w[2 * rb], a[0], a[2]);
     widen_pair(w[2 * rb + 1], a[1], a[3]);
-    mma_f64(acc[rb], a, b);
+    mma_f64(acc[rb], a, rb ? b1 : b0);
   }
 }
 
@@ -1304,12 +1408,13 @@ __device__ __forceinline__ void mma_rows(double (&acc)[2][4],
 // and 2t + 1 of the 8, each fed to the mma as it is.
 __device__ __forceinline__ void mma_rows(double (&acc)[2][4],
                                          const double (&f)[4][2],
-                                         const double (&b)[2]) {
+                                         const double (&b0)[2],
+                                         const double (&b1)[2]) {
 #pragma unroll
   for (int rb = 0; rb < 2; ++rb) {
     const double a[4] = {f[2 * rb][0], f[2 * rb + 1][0], f[2 * rb][1],
                          f[2 * rb + 1][1]};
-    mma_f64(acc[rb], a, b);
+    mma_f64(acc[rb], a, rb ? b1 : b0);
   }
 }
 
@@ -1320,37 +1425,61 @@ __device__ __forceinline__ void mma_rows(double (&acc)[2][4],
 // piece through one ldmatrix.x4; a float64 one (16 columns, two k-steps,
 // a stage): a lane's pair of columns of each of its 4 rows through a
 // 16-byte load, both pairs zero past nv (a float64 row is a 16-byte
-// multiple, so nv is even, not a multiple of 8).  `live`: this lane's
-// batch row is one of the tile's.
-template <typename TM, int KC, bool kDiff>
+// multiple, so nv is even, not a multiple of 8).  live[rb]: this lane's
+// batch row is one of the tile's; under kSpan rows 16rb .. 16rb + 15
+// take the operand rows of set[rb] (0: the tile's first unit, 1: its
+// second, stored where the APC form's X rows are), live[rb] by that
+// unit's batch rows.
+template <typename TM, int KC, bool kDiff, bool kSpan = false>
 __device__ __forceinline__ void mma_stage(const unsigned char* stage,
-                                          int64_t nv, bool live,
+                                          int64_t nv, const int (&set)[2],
+                                          const bool (&live)[2],
                                           double (&acc)[2][4]) {
-  using Cfg = Ring<TM, double, KC, kDiff, true>;
+  using Cfg = Ring<TM, double, KC, kDiff || kSpan, true>;
+  static_assert(!(kDiff && kSpan), "a span: the Cimmino form's operand");
   constexpr bool kWide = sizeof(TM) == 8;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int r0 = kMmaWarpRows * (threadIdx.x / 32);
   const int row = r0 + lane;
   const unsigned char* mrow = stage + row * Cfg::kRowBytes;
-  const double* xb =
-      reinterpret_cast<const double*>(stage + Cfg::kMatrixBytes) +
-      g * Cfg::kCols;
+  const double* xb_row0 =
+      reinterpret_cast<const double*>(stage + Cfg::kMatrixBytes);
+  const double* xb = xb_row0 + g * Cfg::kCols;
 #pragma unroll
   for (int s = 0; s < Cfg::kCols / 8; ++s) {
     if (8 * s >= nv) break;
     const bool valid = !kWide || 8 * s + 2 * t < nv;
-    double b[2] = {0.0, 0.0};
-    if (live && valid) {
-      const double* v = xb + 2 * mma_operand_piece(g, 4 * s + t);
-      const double2 e = *reinterpret_cast<const double2*>(v);
-      b[0] = e.x;
-      b[1] = e.y;
-      if constexpr (kDiff) {
-        const double2 x =
-            *reinterpret_cast<const double2*>(v + KC * Cfg::kCols);
-        b[0] -= x.x;
-        b[1] -= x.y;
+    double b[2][2] = {};
+    if constexpr (kSpan) {
+      // without a branch: every lane loads its pair from a row of each
+      // set (its batch row, or row 0 past KC) and keeps it where live (a
+      // branch a set here compiled to divergent loads the mmas waited
+      // on, 11 % slower at KC = 1 in a probe on the card, PERF.md)
+      const double* v = xb_row0 + (g < KC ? g : 0) * Cfg::kCols +
+                        2 * mma_operand_piece(g, 4 * s + t);
+#pragma unroll
+      for (int rb = 0; rb < 2; ++rb) {
+        const double2 e = *reinterpret_cast<const double2*>(
+            v + set[rb] * KC * Cfg::kCols);
+        const bool keep = live[rb] && valid;
+        b[rb][0] = keep ? e.x : 0.0;
+        b[rb][1] = keep ? e.y : 0.0;
       }
+    } else {
+      if (live[0] && valid) {
+        const double* v = xb + 2 * mma_operand_piece(g, 4 * s + t);
+        const double2 e = *reinterpret_cast<const double2*>(v);
+        b[0][0] = e.x;
+        b[0][1] = e.y;
+        if constexpr (kDiff) {
+          const double2 x =
+              *reinterpret_cast<const double2*>(v + KC * Cfg::kCols);
+          b[0][0] -= x.x;
+          b[0][1] -= x.y;
+        }
+      }
+      b[1][0] = b[0][0];
+      b[1][1] = b[0][1];
     }
     if constexpr (kWide) {
       double f[4][2] = {};
@@ -1364,11 +1493,11 @@ __device__ __forceinline__ void mma_stage(const unsigned char* stage,
           f[i][0] = e.x;
           f[i][1] = e.y;
         }
-      mma_rows(acc, f, b);
+      mma_rows(acc, f, b[0], b[1]);
     } else {
       uint32_t w[4];
       ldmatrix_x4(w, mrow + Cfg::matrix_piece(row, s) * 16);
-      mma_rows(acc, w, b);
+      mma_rows(acc, w, b[0], b[1]);
     }
   }
 }
@@ -1411,16 +1540,100 @@ __device__ __forceinline__ void mma_global(
       }
   }
   if constexpr (sizeof(TM) == 8)
-    mma_rows(acc, f, b);
+    mma_rows(acc, f, b, b);
   else
-    mma_rows(acc, w, b);
+    mma_rows(acc, w, b, b);
+}
+
+// The all-bf16 form's k-steps of one stage (Ring<bf16, bf16, KC, kSpan,
+// true>: 64 columns, four k-steps of 16), those below its nv valid
+// columns (a multiple of 8), in column order, on the bf16 tensor cores:
+// the warp's 32 rows of a k-step through two ldmatrix.x4 (rows 16rb ..
+// 16rb + 15, the step's two pieces), the operand's through one
+// ldmatrix.x2 (the KC rows of set[rb], the same two pieces; lanes past
+// KC name row 0, and every batch row past the tile's is zero: live[rb],
+// as mma_stage's).  A step whose upper 8 columns are past nv takes zeros
+// there in both fragments: the stage holds another stage's bytes past
+// nv.
+template <int KC, bool kSpan>
+__device__ __forceinline__ void mma_stage_bf16(const unsigned char* stage,
+                                               int64_t nv,
+                                               const int (&set)[2],
+                                               const bool (&live)[2],
+                                               float (&acc)[2][4]) {
+  using Cfg = Ring<__nv_bfloat16, __nv_bfloat16, KC, kSpan, true>;
+  const int lane = threadIdx.x % 32;
+  const int r0 = kMmaWarpRows * (threadIdx.x / 32);
+  const int kk = lane % 8 < KC ? lane % 8 : 0;
+  const unsigned char* orow =
+      stage + Cfg::kMatrixBytes + kk * Cfg::kOperandBytes;
+  const bool two = kSpan && set[1] != set[0];
+#pragma unroll
+  for (int s = 0; s < Cfg::kCols / 16; ++s) {
+    if (16 * s >= nv) break;
+    const bool upper = 16 * s + 8 < nv;
+    const int piece = Cfg::operand_piece(kk, 2 * s + lane / 8 % 2) * 16;
+    uint32_t b[2][2];
+#pragma unroll
+    for (int rb = 0; rb < 2; ++rb) {
+      if (rb == 1 && !two) {
+        b[1][0] = b[0][0];
+        b[1][1] = b[0][1];
+        continue;
+      }
+      ldmatrix_x2(b[rb], orow + set[rb] * KC * Cfg::kOperandBytes + piece);
+      if (!live[rb]) b[rb][0] = b[rb][1] = 0u;
+      if (!upper) b[rb][1] = 0u;
+    }
+#pragma unroll
+    for (int rb = 0; rb < 2; ++rb) {
+      const int row = r0 + 16 * rb + lane % 16;
+      uint32_t a[4];
+      ldmatrix_x4(a, stage + row * Cfg::kRowBytes +
+                         Cfg::matrix_piece(row, 2 * s + lane / 16) * 16);
+      if (!upper) a[2] = a[3] = 0u;
+      mma_bf16(acc[rb], a, b[rb]);
+    }
+  }
+}
+
+// The all-bf16 row dot's fragments of the k-step at column c, the same
+// values read from global memory: the warp's rows of M (rows x n; zero
+// past `rows` and n) and the operand (rows g of Xb, sxb_k apart; zero
+// past n and outside the live batch rows).
+__device__ __forceinline__ void mma_global_bf16(
+    const __nv_bfloat16* __restrict__ M, int rows, int64_t n, int64_t c,
+    const __nv_bfloat16* __restrict__ Xb, int64_t sxb_k, bool live,
+    float (&acc)[2][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4;
+  const int r0 = kMmaWarpRows * (threadIdx.x / 32);
+  const int64_t cc = c + 2 * (lane % 4);
+  const uint16_t* mb = reinterpret_cast<const uint16_t*>(M);
+  const uint16_t* xb = reinterpret_cast<const uint16_t*>(Xb) + g * sxb_k;
+  // the bf16 pair at columns j, j + 1 of a row, zero past n
+  const auto pair = [n](const uint16_t* row, bool ok, int64_t j) {
+    const uint32_t lo = ok && j < n ? row[j] : 0u;
+    const uint32_t hi = ok && j + 1 < n ? row[j + 1] : 0u;
+    return lo | hi << 16;
+  };
+  const uint32_t b[2] = {pair(xb, live, cc), pair(xb, live, cc + 8)};
+#pragma unroll
+  for (int rb = 0; rb < 2; ++rb) {
+    const int ra = r0 + 16 * rb + g, rc = ra + 8;
+    const uint16_t* Ma = mb + ra * n;
+    const uint16_t* Mc = mb + rc * n;
+    const uint32_t a[4] = {pair(Ma, ra < rows, cc), pair(Mc, rc < rows, cc),
+                           pair(Ma, ra < rows, cc + 8),
+                           pair(Mc, rc < rows, cc + 8)};
+    mma_bf16(acc[rb], a, b);
+  }
 }
 
 // Calls f(row in the tile, batch row kk, sum) for each of this lane's
 // sums: d0..d3 of the warp's two mmas, rows r0 + 16rb + g (+ 8) and
-// batch rows 2t, 2t + 1.
-template <typename F>
-__device__ __forceinline__ void mma_sums(const double (&acc)[2][4], F f) {
+// batch rows 2t, 2t + 1 (float64 m16n8k8 and float32 m16n8k16 alike).
+template <typename TA, typename F>
+__device__ __forceinline__ void mma_sums(const TA (&acc)[2][4], F f) {
   const int lane = threadIdx.x % 32;
   const int r0 = kMmaWarpRows * (threadIdx.x / 32) + lane / 4;
 #pragma unroll
@@ -1430,13 +1643,19 @@ __device__ __forceinline__ void mma_sums(const double (&acc)[2][4], F f) {
       f(r0 + 16 * rb + 8 * (i >> 1), 2 * (lane % 4) + (i & 1), acc[rb][i]);
 }
 
+// An epilogue's values loaded as a tile starts, before its stages
+// (`load`), handed to the epilogue after them: none for the dense ones.
+struct NoPre {};
+
 // The plain epilogue, from the fragment: each sum stored as it is at
 // out[w, k0 + kk, row0 + r] (the gathers' U, the Cimmino scatter's R).
 struct MmaStore {
   double* __restrict__ out;
   int64_t so_w, so_k;
+  __device__ __forceinline__ NoPre load(const RingTile&) const { return {}; }
   __device__ __forceinline__ void operator()(const double (&acc)[2][4],
-                                             const RingTile& tl) const {
+                                             const RingTile& tl,
+                                             NoPre) const {
     double* Ot = out + tl.w * so_w + tl.k0 * so_k + tl.row0;
     mma_sums(acc, [&](int r, int kk, double sum) {
       if (r < tl.rows && kk < tl.kvalid) Ot[kk * so_k + r] = sum;
@@ -1453,8 +1672,10 @@ struct MmaScatterStore {
   double gamma;
   double* __restrict__ Y;
   int64_t sx_w, sx_k, sxb_k, sy_w, sy_k;
+  __device__ __forceinline__ NoPre load(const RingTile&) const { return {}; }
   __device__ __forceinline__ void operator()(const double (&acc)[2][4],
-                                             const RingTile& tl) const {
+                                             const RingTile& tl,
+                                             NoPre) const {
     const double* Xt = X + tl.w * sx_w + tl.k0 * sx_k + tl.row0;
     const double* Xbt = Xbar + tl.k0 * sxb_k + tl.row0;
     double x[2][4] = {}, xb[2][4] = {};
@@ -1478,33 +1699,216 @@ struct MmaScatterStore {
   }
 };
 
-// A consumer warp of the tensor-core ring, over the rows [g, end) in
-// tiles of up to 256 rows: its 32 rows of each tile against every
-// stage as it lands, then `store` (MmaStore, MmaScatterStore).  A warp
-// with no rows in the tile still waits for and releases every stage.
-template <typename TM, int KC, bool kDiff, typename Store>
-__device__ __forceinline__ void mma_consume(int64_t g, int64_t end,
-                                            int64_t p, int64_t n, int64_t k,
-                                            Store store) {
-  using Cfg = Ring<TM, double, KC, kDiff, true>;
+// sparse_scatter's epilogue from the fragment, both forms (header): at
+// out[w, k0 + kk, cols[w, j]] for the tile's rows j of each unit, C as it
+// is (the Cimmino form), or X + γ((X̄ − X) − C) under kAxpy with the
+// rounding of apc_out<T, true>.  `read` reads the lane's 4 rows' cols
+// and, under kAxpy, its 8 X and X̄ at them; in the float64 forms (kEarly)
+// `load` reads them as the tile starts, so their latency hides behind
+// the tile's stages (a block walks one tile at the sparse path's
+// shapes), while the all-bf16 form reads them after its stages (a probe
+// on the card timed its APC form 4 % faster so at k = 8, the float64
+// forms 0–3 % slower, PERF.md).  Lane 4g + t holds tile rows r0 + g + 8i
+// (i = 2rb + h, mma_sums' order) and batch rows 2t + e; rows 16rb ..
+// 16rb + 15 are the second unit's from `split` on (SpanWalk), and a row
+// past its unit's `rows` (a unit's last 16-row group) is none.
+template <typename T, bool kAxpy>
+struct MmaSparseStore {
+  using TA = Acc<T>;
+  static constexpr bool kEarly = sizeof(T) == 8;
+  const int64_t* __restrict__ cols;
+  const T* __restrict__ X;
+  const T* __restrict__ Xbar;
+  TA gamma;
+  T* __restrict__ Y;
+  int64_t rows, sx_w, sx_k, sxb_k, sy_w, sy_k;
+  struct Pre {
+    int64_t jo[4];
+    TA x[kAxpy ? 8 : 1], xb[kAxpy ? 8 : 1];
+  };
+  // The unit of the lane's row slot i, its row j there (−1: none), and
+  // whether batch row kk is one of the unit's.
+  struct Slot {
+    int64_t w, k0, j;
+    int kvalid;
+  };
+  __device__ __forceinline__ Slot slot(const RingTile& tl, int i) const {
+    const int r = kMmaWarpRows * (threadIdx.x / 32) + threadIdx.x % 32 / 4 +
+                  8 * i;
+    const bool first = kMmaWarpRows * (threadIdx.x / 32) + 16 * (i / 2) <
+                       tl.split;
+    Slot sl{first ? tl.w : tl.w2, first ? tl.k0 : tl.k02,
+            first ? tl.row0 + r : r - tl.split,
+            first ? tl.kvalid : tl.kvalid2};
+    if (r >= tl.rows || sl.j >= rows) sl.j = -1;
+    return sl;
+  }
+  __device__ __forceinline__ Pre read(const RingTile& tl) const {
+    const int t = threadIdx.x % 4;
+    Pre pre;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const Slot sl = slot(tl, i);
+      pre.jo[i] = sl.j < 0 ? 0 : cols[sl.w * rows + sl.j];
+      if constexpr (kAxpy) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kk = 2 * t + e;
+          const bool ok = sl.j >= 0 && kk < sl.kvalid;
+          const int64_t kr = sl.k0 + kk;
+          pre.x[2 * i + e] =
+              ok ? widen<TA>(X[sl.w * sx_w + kr * sx_k + pre.jo[i]]) : TA(0);
+          pre.xb[2 * i + e] =
+              ok ? widen<TA>(Xbar[kr * sxb_k + pre.jo[i]]) : TA(0);
+        }
+      }
+    }
+    return pre;
+  }
+  __device__ __forceinline__ Pre load(const RingTile& tl) const {
+    if constexpr (kEarly) return read(tl);
+    return Pre{};
+  }
+  __device__ __forceinline__ void operator()(const TA (&acc)[2][4],
+                                             const RingTile& tl,
+                                             const Pre& early) const {
+    const Pre pre = kEarly ? early : read(tl);
+    const int t = threadIdx.x % 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const Slot sl = slot(tl, i);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kk = 2 * t + e;
+        if (sl.j < 0 || kk >= sl.kvalid) continue;
+        const TA c = acc[i / 2][2 * (i % 2) + e];
+        T* y = Y + sl.w * sy_w + (sl.k0 + kk) * sy_k + pre.jo[i];
+        if constexpr (kAxpy)
+          *y = apc_out<T, true>(pre.x[2 * i + e], pre.xb[2 * i + e], gamma,
+                                c);
+        else
+          *y = narrow<T>(c);
+      }
+    }
+  }
+};
+
+// A block's whole tiles in the tensor-core form (header): the tiles
+// [t, t_end) of T = units·per, tile t from row 256·(t % per) of unit t /
+// per, at most 256 rows.  A unit is a (worker, k-chunk) pair,
+// worker-major; `rows` is the matrix's rows a worker.  Block b of G takes
+// the tiles [T·b / G, T·(b + 1) / G).
+struct MmaWalk {
+  int64_t t, t_end, per;
+
+  template <int KC>
+  __device__ __forceinline__ static MmaWalk of(int64_t m, int64_t rows,
+                                               int64_t k) {
+    const int64_t per = (rows + kMmaRows - 1) / kMmaRows;
+    const int64_t tiles = m * ((k + KC - 1) / KC) * per;
+    return {tiles * blockIdx.x / gridDim.x,
+            tiles * (blockIdx.x + 1) / gridDim.x, per};
+  }
+
+  template <int KC>
+  __device__ __forceinline__ bool next(RingTile& tl, int64_t rows,
+                                       int64_t k) {
+    if (t >= t_end) return false;
+    const int64_t unit = t / per, k_tiles = (k + KC - 1) / KC;
+    tl.w = unit / k_tiles;
+    tl.k0 = unit % k_tiles * KC;
+    tl.row0 = t % per * kMmaRows;
+    tl.rows = static_cast<int>(min64(rows - tl.row0, kMmaRows));
+    tl.kvalid = static_cast<int>(min64(k - tl.k0, KC));
+    tl.split = tl.rows;
+    ++t;
+    return true;
+  }
+};
+
+// sparse_scatter's walk (kSpan, header): a worker's rows rarely end on a
+// tile (the sparse path's 2064 = 8·256 + 16), and whole tiles a block
+// gave 12 of 132 blocks two at its shapes, while a part tile costs its
+// stages, not its rows.  Here the units' rows go in 16-row groups (a
+// unit's last group padded past its rows: per = ceil(rows / 16) a unit),
+// block b takes the groups [Gt·b / G, Gt·(b + 1) / G) of the Gt =
+// units·per, and cuts them into tiles of at most 16 groups that span at
+// most two units: one tile of 240 or 256 rows a block at the sparse
+// path's shapes (1.02 times the mean), each stage of it 256 rows'
+// worth.
+struct SpanWalk {
+  int64_t g, end, per;
+
+  template <int KC>
+  __device__ __forceinline__ static SpanWalk of(int64_t m, int64_t rows,
+                                                int64_t k) {
+    const int64_t per = (rows + 15) / 16;
+    const int64_t groups = m * ((k + KC - 1) / KC) * per;
+    return {groups * blockIdx.x / gridDim.x,
+            groups * (blockIdx.x + 1) / gridDim.x, per};
+  }
+
+  template <int KC>
+  __device__ __forceinline__ bool next(RingTile& tl, int64_t, int64_t k) {
+    if (g >= end) return false;
+    const int64_t unit = g / per, k_tiles = (k + KC - 1) / KC;
+    const int64_t stop =
+        min64(min64(end, g + kMmaRows / 16), (unit + 2) * per);
+    tl.w = unit / k_tiles;
+    tl.k0 = unit % k_tiles * KC;
+    tl.row0 = (g - unit * per) * 16;
+    tl.rows = static_cast<int>(stop - g) * 16;
+    tl.kvalid = static_cast<int>(min64(k - tl.k0, KC));
+    tl.split = static_cast<int>(min64(stop, (unit + 1) * per) - g) * 16;
+    tl.w2 = (unit + 1) / k_tiles;
+    tl.k02 = (unit + 1) % k_tiles * KC;
+    tl.kvalid2 = static_cast<int>(min64(k - tl.k02, KC));
+    g = stop;
+    return true;
+  }
+};
+
+// A consumer warp of the tensor-core ring, over its block's walk
+// (MmaWalk, or SpanWalk under kSpan): its 32 rows of each tile against
+// every stage as it lands, then `store` (MmaStore, MmaScatterStore,
+// MmaSparseStore) with what its `load` read as the tile started.  A warp
+// with no rows in the tile still waits for and releases every stage.  T:
+// double (the FP64 tensor cores), or bf16 (the all-bf16 form, float32
+// sums).
+template <typename TM, typename T, int KC, bool kDiff, bool kSpan,
+          typename Walk, typename Store>
+__device__ __forceinline__ void mma_consume(Walk walk, int64_t p, int64_t n,
+                                            int64_t k, Store store) {
+  using Cfg = Ring<TM, T, KC, kDiff || kSpan, true>;
+  static_assert(sizeof(T) == 8 || !kDiff, "the all-bf16 ring: Cimmino form");
   const int lane = threadIdx.x % 32;
   const int r0 = kMmaWarpRows * (threadIdx.x / 32);
   uint32_t it = 0;
-  while (g < end) {
-    const RingTile tl = ring_tile<KC, kMmaRows>(g, end, p, k);
-    g += tl.rows;
-    const bool active = r0 < tl.rows, live = lane / 4 < tl.kvalid;
-    double acc[2][4] = {};
+  for (RingTile tl; walk.template next<KC>(tl, p, k);) {
+    const bool active = r0 < tl.rows;
+    int set[2] = {0, 0};
+    bool live[2];
+#pragma unroll
+    for (int rb = 0; rb < 2; ++rb) {
+      if (kSpan) set[rb] = r0 + 16 * rb >= tl.split;
+      live[rb] = lane / 4 < (set[rb] ? tl.kvalid2 : tl.kvalid);
+    }
+    const auto pre = store.load(tl);
+    Acc<T> acc[2][4] = {};
     for (int64_t c0 = 0; c0 < n; c0 += Cfg::kCols, ++it) {
       const int s = it % Cfg::kStages;
       mbar_wait(&ring_full[s], (it / Cfg::kStages) & 1);
-      if (active)
-        mma_stage<TM, KC, kDiff>(ring_smem + s * Cfg::kStageBytes, n - c0,
-                                 live, acc);
+      if (active) {
+        const unsigned char* stage = ring_smem + s * Cfg::kStageBytes;
+        if constexpr (sizeof(T) == 2)
+          mma_stage_bf16<KC, kSpan>(stage, n - c0, set, live, acc);
+        else
+          mma_stage<TM, KC, kDiff, kSpan>(stage, n - c0, set, live, acc);
+      }
       __syncwarp();
       if (lane == 0) mbar_arrive(&ring_empty[s]);
     }
-    if (active) store(acc, tl);
+    if (active) store(acc, tl, pre);
   }
 }
 
@@ -1515,11 +1919,11 @@ __device__ __forceinline__ void mma_consume(int64_t g, int64_t end,
 // sums, from fragments loaded straight from global memory (any shape,
 // any alignment).  M is the worker stack (m, rows, n), Xb the operand
 // rows (X̄, or U_w / V_w at w·sxb_w), X the APC gather's (null
-// otherwise).
-template <typename TM, int KC, bool kDiff, typename Store>
+// otherwise); T as mma_consume's.
+template <typename TM, typename T, int KC, bool kDiff, typename Store>
 __device__ __forceinline__ void mma_row_dot(
-    const TM* __restrict__ M, const double* __restrict__ X,
-    const double* __restrict__ Xb, int64_t rows, int64_t n, int64_t k,
+    const TM* __restrict__ M, const T* __restrict__ X,
+    const T* __restrict__ Xb, int64_t rows, int64_t n, int64_t k,
     int64_t sx_w, int64_t sx_k, int64_t sxb_w, int64_t sxb_k,
     Store store) {
   RingTile tl;
@@ -1528,16 +1932,24 @@ __device__ __forceinline__ void mma_row_dot(
   tl.row0 = static_cast<int64_t>(blockIdx.x) * kMmaRows;
   tl.rows = static_cast<int>(min64(rows - tl.row0, kMmaRows));
   tl.kvalid = static_cast<int>(min64(k - tl.k0, KC));
+  tl.split = tl.rows;
   if (kMmaWarpRows * static_cast<int>(threadIdx.x / 32) >= tl.rows) return;
   const bool live = threadIdx.x % 32 / 4 < tl.kvalid;
   const TM* Mt = M + (tl.w * rows + tl.row0) * n;
-  const double* Xbt = Xb + tl.w * sxb_w + tl.k0 * sxb_k;
-  const double* Xt = kDiff ? X + tl.w * sx_w + tl.k0 * sx_k : nullptr;
-  double acc[2][4] = {};
-  for (int64_t c = 0; c < n; c += 8)
-    mma_global<TM, kDiff>(Mt, tl.rows, n, c, Xbt, Xt, sxb_k, sx_k, live,
-                          acc);
-  store(acc, tl);
+  const T* Xbt = Xb + tl.w * sxb_w + tl.k0 * sxb_k;
+  const T* Xt = kDiff ? X + tl.w * sx_w + tl.k0 * sx_k : nullptr;
+  const auto pre = store.load(tl);
+  Acc<T> acc[2][4] = {};
+  if constexpr (sizeof(T) == 2) {
+    static_assert(!kDiff, "the all-bf16 row dot: Cimmino form");
+    for (int64_t c = 0; c < n; c += 16)
+      mma_global_bf16(Mt, tl.rows, n, c, Xbt, sxb_k, live, acc);
+  } else {
+    for (int64_t c = 0; c < n; c += 8)
+      mma_global<TM, kDiff>(Mt, tl.rows, n, c, Xbt, Xt, sxb_k, sx_k, live,
+                            acc);
+  }
+  store(acc, tl, pre);
 }
 
 // The dense kernels' row-dot kernels: in the tensor-core forms the row
@@ -1550,8 +1962,8 @@ apc_gather_kernel(const TM* __restrict__ A, const T* __restrict__ X,
                   int64_t p, int64_t n, int64_t k, int64_t sx_w,
                   int64_t sx_k, int64_t sxb_k, int64_t su_w, int64_t su_k) {
   if constexpr (kMmaForm<TM, T>) {
-    mma_row_dot<TM, KC, true>(A, X, Xbar, p, n, k, sx_w, sx_k, 0, sxb_k,
-                              MmaStore{U, su_w, su_k});
+    mma_row_dot<TM, T, KC, true>(A, X, Xbar, p, n, k, sx_w, sx_k, 0, sxb_k,
+                                 MmaStore{U, su_w, su_k});
   } else {
     __shared__ Acc<T> Vs[KC][kChunk];
     gather_block<TM, T, KC, R, true>(A, X, Xbar, U, p, n, k, sx_w, sx_k, 0,
@@ -1567,7 +1979,7 @@ apc_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ X,
                    int64_t k, int64_t sx_w, int64_t sx_k, int64_t sxb_k,
                    int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
   if constexpr (kMmaForm<TM, T>) {
-    mma_row_dot<TM, KC, false>(
+    mma_row_dot<TM, T, KC, false>(
         B, nullptr, U, n, p, k, 0, 0, su_w, su_k,
         MmaScatterStore{X, Xbar, gamma, Y, sx_w, sx_k, sxb_k, sy_w, sy_k});
   } else {
@@ -1585,8 +1997,8 @@ cimmino_gather_kernel(const TM* __restrict__ A, const T* __restrict__ Xbar,
                       T* __restrict__ U, int64_t p, int64_t n, int64_t k,
                       int64_t sxb_k, int64_t su_w, int64_t su_k) {
   if constexpr (kMmaForm<TM, T>) {
-    mma_row_dot<TM, KC, false>(A, nullptr, Xbar, p, n, k, 0, 0, 0, sxb_k,
-                               MmaStore{U, su_w, su_k});
+    mma_row_dot<TM, T, KC, false>(A, nullptr, Xbar, p, n, k, 0, 0, 0, sxb_k,
+                                  MmaStore{U, su_w, su_k});
   } else {
     __shared__ Acc<T> Vs[KC][kChunk];
     gather_block<TM, T, KC, R, false, T>(A, nullptr, Xbar, U, p, n, k, 0, 0,
@@ -1600,9 +2012,9 @@ cimmino_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ V,
                        T* __restrict__ Rout, int64_t n, int64_t p,
                        int64_t k, int64_t sv_w, int64_t sv_k, int64_t sr_w,
                        int64_t sr_k) {
-  if constexpr (kMmaForm<TM, T> || kMmaF64Form<TM, T, false, false>) {
-    mma_row_dot<TM, KC, false>(B, nullptr, V, n, p, k, 0, 0, sv_w, sv_k,
-                               MmaStore{Rout, sr_w, sr_k});
+  if constexpr (kMmaForm<TM, T> || kMmaF64Form<TM, T, false>) {
+    mma_row_dot<TM, T, KC, false>(B, nullptr, V, n, p, k, 0, 0, sv_w, sv_k,
+                                  MmaStore{Rout, sr_w, sr_k});
   } else {
     __shared__ Acc<T> Vs[KC][kChunk];
     __shared__ Acc<T> Cs[KC][kWarps * R];      // the reduced B·V per row
@@ -1610,6 +2022,31 @@ cimmino_scatter_kernel(const TM* __restrict__ B, const T* __restrict__ V,
                                               V, Acc<T>(0), Rout, n, p, k, 0,
                                               0, 0, sv_w, sv_k, sr_w, sr_k,
                                               Vs, Cs);
+  }
+}
+
+// The sparse scatter: w is the support width, the row dot's row count;
+// the tensor-core forms' row dot (kSparseScatterMma) or scatter_block's.
+template <typename TM, typename T, int KC, int R, bool kAxpy>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+sparse_scatter_kernel(const TM* __restrict__ Bvals,
+                      const int64_t* __restrict__ cols,
+                      const T* __restrict__ X, const T* __restrict__ Xbar,
+                      const T* __restrict__ U, Acc<T> gamma,
+                      T* __restrict__ Y, int64_t w, int64_t p, int64_t k,
+                      int64_t sx_w, int64_t sx_k, int64_t sxb_k, int64_t su_w,
+                      int64_t su_k, int64_t sy_w, int64_t sy_k) {
+  if constexpr (kSparseScatterMma<TM, T>) {
+    mma_row_dot<TM, T, KC, false>(
+        Bvals, nullptr, U, w, p, k, 0, 0, su_w, su_k,
+        MmaSparseStore<T, kAxpy>{cols, X, Xbar, gamma, Y, w, sx_w, sx_k,
+                                 sxb_k, sy_w, sy_k});
+  } else {
+    __shared__ Acc<T> Vs[KC][kChunk];
+    __shared__ Acc<T> Cs[KC][kWarps * R];      // the reduced Bvals·U per row
+    scatter_block<TM, T, KC, R, kAxpy, true>(Bvals, cols, X, Xbar, U, gamma,
+                                             Y, w, p, k, sx_w, sx_k, sxb_k,
+                                             su_w, su_k, sy_w, sy_k, Vs, Cs);
   }
 }
 
@@ -1653,8 +2090,8 @@ __device__ __forceinline__ void sparse_row_dot(
     T* __restrict__ U, int64_t p, int64_t w, int64_t k, int64_t so_w,
     int64_t so_k, int64_t su_w, int64_t su_k) {
   if constexpr (kSparseMma<TM, T>) {
-    mma_row_dot<TM, KC, false>(vals, nullptr, O, p, w, k, 0, 0, so_w, so_k,
-                               MmaStore{U, su_w, su_k});
+    mma_row_dot<TM, T, KC, false>(vals, nullptr, O, p, w, k, 0, 0, so_w,
+                                  so_k, MmaStore{U, su_w, su_k});
   } else {
     __shared__ Acc<T> Vs[KC][kChunk];
     gather_block<TM, T, KC, R, false, Acc<T>>(vals, nullptr, O, U, p, w, k, 0,
@@ -1683,14 +2120,15 @@ sparse_cimmino_gather_kernel(const TM* __restrict__ vals,
 // The ring over the m·ceil(k/KC)·p rows of M (p x n a worker): warps
 // 8..11 copy (ring_produce), warps 0..7 compute and hand each tile's sums
 // to `store`; both walk the block's tiles.  kMma: the tensor-core form's
-// stage layout and consumer (mma_consume).
+// stage layout, walk (MmaWalk; kSpan, sparse_scatter's: SpanWalk, its
+// stage holding two units' operand rows) and consumer (mma_consume).
 template <typename TM, typename T, int KC, bool kDiff, bool kPerWorker,
-          bool kMma, typename Store>
+          bool kMma, bool kSpan = false, typename Store>
 __device__ __forceinline__ void ring_run(
     const TM* __restrict__ M, const T* __restrict__ X,
     const T* __restrict__ Xbar, int64_t m, int64_t p, int64_t n, int64_t k,
     int64_t sx_w, int64_t sx_k, int64_t sxb_w, int64_t sxb_k, Store store) {
-  using Cfg = Ring<TM, T, KC, kDiff, kMma>;
+  using Cfg = Ring<TM, T, KC, kDiff || kSpan, kMma>;
   if (threadIdx.x == 0) {
     for (int s = 0; s < Cfg::kStages; ++s) {
       mbar_init(&ring_full[s], 32 * kRingLoaders);  // every producer thread
@@ -1699,40 +2137,39 @@ __device__ __forceinline__ void ring_run(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  int64_t g, end;
+  const int warp = threadIdx.x / 32;
   if constexpr (kMma) {
-    // whole tiles: block b takes the tiles [T·b / grid, T·(b + 1) / grid)
-    // of the T = m·ceil(k/KC)·ceil(p/256), each from row 256j of a
-    // (worker, k-chunk) unit
-    const int64_t per = (p + Cfg::kRows - 1) / Cfg::kRows;
-    const int64_t tiles = m * ((k + KC - 1) / KC) * per;
-    const auto first_row = [&](int64_t t) {
-      return t / per * p + t % per * Cfg::kRows;
-    };
-    g = first_row(tiles * blockIdx.x / gridDim.x);
-    end = first_row(tiles * (blockIdx.x + 1) / gridDim.x);
+    using Walk = std::conditional_t<kSpan, SpanWalk, MmaWalk>;
+    Walk walk = Walk::template of<KC>(m, p, k);
+    if (warp >= kRingWarps) {
+      // a dependent launch's copies wait for the kernel before it (a no-op
+      // otherwise: launch_ring's kDependent)
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
+      uint32_t it = 0;
+      for (RingTile tl; walk.template next<KC>(tl, p, k);)
+        ring_produce<TM, T, KC, kDiff, kPerWorker, true, kSpan>(
+            tl, M, X, Xbar, p, n, sx_w, sx_k, sxb_w, sxb_k, it);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    } else {
+      mma_consume<TM, T, KC, kDiff, kSpan>(walk, p, n, k, store);
+    }
   } else {
     const int64_t total = m * ((k + KC - 1) / KC) * p;
-    end = total * (blockIdx.x + 1) / gridDim.x;
-    g = total * blockIdx.x / gridDim.x;
-  }
-  const int warp = threadIdx.x / 32;
-  if (warp >= kRingWarps) {
-    // a dependent launch's copies wait for the kernel before it (a no-op
-    // otherwise: launch_ring's kDependent)
-    asm volatile("griddepcontrol.wait;\n" ::: "memory");
-    uint32_t it = 0;
-    while (g < end) {
-      const RingTile tl = ring_tile<KC, Cfg::kRows>(g, end, p, k);
-      ring_produce<TM, T, KC, kDiff, kPerWorker, kMma>(
-          tl, M, X, Xbar, p, n, sx_w, sx_k, sxb_w, sxb_k, it);
-      g += tl.rows;
+    int64_t g = total * blockIdx.x / gridDim.x;
+    const int64_t end = total * (blockIdx.x + 1) / gridDim.x;
+    if (warp >= kRingWarps) {
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
+      uint32_t it = 0;
+      while (g < end) {
+        const RingTile tl = ring_tile<KC>(g, end, p, k);
+        ring_produce<TM, T, KC, kDiff, kPerWorker, false>(
+            tl, M, X, Xbar, p, n, sx_w, sx_k, sxb_w, sxb_k, it);
+        g += tl.rows;
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    } else {
+      ring_consume<TM, T, KC, kDiff>(g, end, p, n, k, store);
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-  } else if constexpr (kMma) {
-    mma_consume<TM, KC, kDiff>(g, end, p, n, k, store);
-  } else {
-    ring_consume<TM, T, KC, kDiff>(g, end, p, n, k, store);
   }
 }
 
@@ -1777,8 +2214,9 @@ __device__ __forceinline__ void sparse_ring(
 // C[w, i, j] = sum_l U[w, i, l] · M[w, j, l] over the rows j of M = B_w
 // (n x p; Bvals_w, w x p, under kSparse), streamed as the Cimmino
 // gathers stream A with U_w (V_w) as their X̄, then the scatter's
-// epilogue (RingScatterStore; in the tensor-core forms MmaScatterStore
-// under kAxpy, MmaStore otherwise; sparse_scatter keeps the DFMA ring).
+// epilogue (RingScatterStore; in the dense tensor-core forms
+// MmaScatterStore under kAxpy, MmaStore otherwise; in sparse_scatter's,
+// kSparseScatterMma, MmaSparseStore on the span walk).
 template <typename TM, typename T, int KC, bool kAxpy, bool kSparse>
 __device__ __forceinline__ void scatter_ring(
     const TM* __restrict__ M, const int64_t* __restrict__ cols,
@@ -1787,11 +2225,16 @@ __device__ __forceinline__ void scatter_ring(
     int64_t n, int64_t p, int64_t k, int64_t sx_w, int64_t sx_k,
     int64_t sxb_k, int64_t su_w, int64_t su_k, int64_t sy_w, int64_t sy_k) {
   constexpr bool kMma = kMmaForm<TM, T> && !kSparse;
-  if constexpr (kMma && kAxpy) {
+  if constexpr (kSparse && kSparseScatterMma<TM, T>) {
+    ring_run<TM, T, KC, false, true, true, true>(
+        M, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
+        MmaSparseStore<T, kAxpy>{cols, X, Xbar, gamma, Y, n, sx_w, sx_k,
+                                 sxb_k, sy_w, sy_k});
+  } else if constexpr (kMma && kAxpy) {
     ring_run<TM, T, KC, false, true, true>(
         M, nullptr, U, m, n, p, k, 0, 0, su_w, su_k,
         MmaScatterStore{X, Xbar, gamma, Y, sx_w, sx_k, sxb_k, sy_w, sy_k});
-  } else if constexpr (kMma || kMmaF64Form<TM, T, kAxpy, kSparse>) {
+  } else if constexpr (kMma || (kMmaF64Form<TM, T, kAxpy> && !kSparse)) {
     ring_run<TM, T, KC, false, true, true>(M, nullptr, U, m, n, p, k, 0, 0,
                                            su_w, su_k,
                                            MmaStore{Y, sy_w, sy_k});
@@ -2089,8 +2532,7 @@ int cimmino_scatter(const void* B, const void* V, void* Rout, int64_t m,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
-    constexpr bool kMma =
-        kMmaForm<TM, T> || kMmaF64Form<TM, T, false, false>;
+    constexpr bool kMma = kMmaForm<TM, T> || kMmaF64Form<TM, T, false>;
     if (instance == kRing) {
       launch_ring<&cimmino_scatter_ring_kernel<TM, T, KC>, KC, kMma>(
           Ring<TM, T, KC, false, kMma>::kSmem, m, n, k, s,
@@ -2157,6 +2599,14 @@ int sparse_gathers(const void* vals, const void* cols, const void* X,
   return static_cast<int>(cudaGetLastError());
 }
 
+// sparse_scatter's ring stage: the span ring's (two units' operand rows)
+// in its tensor-core forms, the Cimmino form's otherwise.
+template <typename TM, typename T, int KC>
+constexpr int sparse_scatter_smem() {
+  constexpr bool kMma = kSparseScatterMma<TM, T>;
+  return Ring<TM, T, KC, kMma, kMma>::kSmem;
+}
+
 // Both forms of sparse_scatter: the APC form when X is given (it reads X
 // and X̄), the Cimmino form when X is null.
 template <typename TM, typename T>
@@ -2172,11 +2622,12 @@ int sparse_scatter(const void* Bvals, const void* cols, const void* X,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_kc(kc_of(k, kc), [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
+    constexpr bool kMma = kSparseScatterMma<TM, T>;
     if (instance == kRing) {
       const auto ring = [&](auto axpy) {
         launch_ring<&sparse_scatter_ring_kernel<TM, T, KC, decltype(axpy)::value>,
-                    KC>(
-            Ring<TM, T, KC, false>::kSmem, m, w, k, s,
+                    KC, kMma>(
+            sparse_scatter_smem<TM, T, KC>(), m, w, k, s,
             static_cast<const TM*>(Bvals), static_cast<const int64_t*>(cols),
             static_cast<const T*>(X), static_cast<const T*>(Xbar),
             static_cast<const T*>(U), gamma_of<T>(gamma),
@@ -2189,7 +2640,7 @@ int sparse_scatter(const void* Bvals, const void* cols, const void* X,
         ring(std::false_type{});
       return;
     }
-    constexpr int R = scatter_rows<TM, KC>();
+    constexpr int R = kMma ? kMmaRows / kWarps : scatter_rows<TM, KC>();
     const dim3 grid = grid_for(w, m, k, KC, R);
     const auto launch = [&](auto kernel) {
       kernel<<<grid, kThreads, 0, s>>>(
@@ -2301,11 +2752,12 @@ REPRO_ENTRIES(bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 // type of itemsize bytes (8, 4, or 2 beside a bf16 matrix) and a form
 // (kApcForm, kCimminoForm, for bf16/f64 kApcMmaForm and kCimminoMmaForm,
 // for f64 kCimminoMmaForm: the float64 Cimmino scatter's; kSparseForm:
-// the sparse gathers' stage, whatever their consumer); 0 for any other.
+// the sparse gathers' stage, kSparseScatterForm: sparse_scatter's, each
+// whatever its consumer); 0 for any other.
 int64_t gather_ring_smem(int64_t matrix_itemsize, int64_t itemsize,
                          int64_t k, int64_t form) {
   const bool mma = form == kApcMmaForm || form == kCimminoMmaForm;
-  if (form < kApcForm || form > kSparseForm ||
+  if (form < kApcForm || form > kSparseScatterForm ||
       (mma && !(itemsize == 8 && (matrix_itemsize == 2 ||
                                   (matrix_itemsize == 8 &&
                                    form == kCimminoMmaForm)))))
@@ -2321,7 +2773,11 @@ int64_t gather_ring_smem(int64_t matrix_itemsize, int64_t itemsize,
         bytes = Ring<TM, Acc<T>, KC, false, kSparseMma<TM, T>>::kSmem;
         return;
       }
-      if constexpr (kMmaForm<TM, T> || kMmaF64Form<TM, T, false, false>) {
+      if (form == kSparseScatterForm) {
+        bytes = sparse_scatter_smem<TM, T, KC>();
+        return;
+      }
+      if constexpr (kMmaForm<TM, T> || kMmaF64Form<TM, T, false>) {
         if (mma) {
           bytes = diff ? Ring<TM, T, KC, true, true>::kSmem
                        : Ring<TM, T, KC, false, true>::kSmem;

@@ -174,11 +174,11 @@ def test_ctypes_signatures_match_the_cuda_source():
     assert types(params) == bp.RING_SMEM_ARGTYPES
     assert params.split(",")[-1].split() == ["int64_t", "form"]
     # each form's int64 (kApcForm, kCimminoForm, kApcMmaForm,
-    # kCimminoMmaForm, kSparseForm) as FORMS names it
+    # kCimminoMmaForm, kSparseForm, kSparseScatterForm) as FORMS names it
     camel = {name: "".join(w.title() for w in name.split("_"))
              for name in bp.FORMS}
     assert {name: int(v) for name, v in re.findall(
-        r"\bk(Apc\w*?|Cimmino\w*?|Sparse)Form = (\d+)", src)} == {
+        r"\bk(Apc\w*?|Cimmino\w*?|Sparse\w*?)Form = (\d+)", src)} == {
         camel[name]: v for name, v in bp.FORMS.items()}
     # every kernel, the four gathers and the three scatters, takes its
     # instance and then its k-chunk as the two int64 before the stream
@@ -316,19 +316,22 @@ def test_forced_instance(form):
 def test_scatter_instance_at_k1_follows_the_dtype_pair(matrix, operand,
                                                        ring_at_k1, k,
                                                        kernel):
-    """A scatter's fixed rule: at k = 1 a float64 or float32 matrix takes
-    the row dot though the ring fits, but in a form of ``MMA_FORMS`` (the
-    float64 ``cimmino_scatter``), and a bf16 one the ring; at k > 1
+    """A scatter's fixed rule: at k = 1 a dense scatter's float64 or
+    float32 matrix takes the row dot though the ring fits, but in a form
+    of ``MMA_FORMS`` (the float64 ``cimmino_scatter``), and a bf16 one
+    the ring; ``sparse_scatter`` takes the ring in every pair (its
+    float64 and bf16/float64 forms on the FP64 tensor cores); at k > 1
     every pair takes the ring.  Forcing either instance still holds, the
     gathers' operands (no ``scatter``) are not touched by the rule, and
     an unknown scatter raises."""
     B = torch.empty((2, 5, 2048), dtype=matrix)              # (m, n, p)
     V = torch.empty((k, 2, 2048), dtype=operand).transpose(0, 1)
     mma = (kernel, bp.PAIRS[(matrix, operand)]) in bp.MMA_FORMS
-    assert mma == (operand == torch.float64 and kernel != "sparse_scatter"
-                   and (matrix == torch.bfloat16
-                        or kernel == "cimmino_scatter"))
-    want = "ring" if k > 1 or ring_at_k1 or mma else "row_dot"
+    assert mma == (operand == torch.float64 and (
+        matrix == torch.bfloat16
+        or kernel in ("cimmino_scatter", "sparse_scatter")))
+    want = ("ring" if k > 1 or ring_at_k1 or mma
+            or kernel == "sparse_scatter" else "row_dot")
     assert bp.gather_instance(B, V, scatter=kernel) == want
     assert bp.gather_instance(B, V) == "ring"
     for forced in bp.INSTANCES:
@@ -380,7 +383,8 @@ def test_scatter_launchers_pass_their_instance(monkeypatch, kernel, p, k,
     """The scatters hand their C entry the instance that
     ``gather_instance(matrix, staged operand, scatter=name)`` picks (the
     row dot at k = 1 in float64, but the ring in ``cimmino_scatter``'s
-    tensor-core form), or the forced one, as the int64 before
+    and ``sparse_scatter``'s tensor-core forms), or the forced one, as the
+    int64 before
     the k-chunk (0, the library's own, unless one is given) and the
     stream; forcing the ring on rows it cannot copy raises before any
     launch.  (The entries cannot run here: the device checks and the
@@ -415,8 +419,8 @@ def test_scatter_launchers_pass_their_instance(monkeypatch, kernel, p, k,
         return
     launch()
     ((name, args),) = calls
-    if (p, k, forced, kernel) == (8, 1, None, "cimmino_scatter"):
-        want = "ring"              # the float64 tensor-core form at k = 1
+    if (p, k, forced) == (8, 1, None) and kernel != "apc_scatter":
+        want = "ring"             # the float64 tensor-core forms at k = 1
     assert name == kernel and args[-2:] == (bp.INSTANCES[want], 0)
 
 
@@ -483,21 +487,25 @@ def test_ring_smem_bytes_takes_the_form(monkeypatch):
                               "cimmino_mma") == 1
     assert bp.ring_smem_bytes(torch.float64, torch.float64, 8,
                               "cimmino_mma") == 1
-    # the sparse gathers' stage of their support operand, every pair
+    # the sparse gathers' stage of their support operand, every pair;
+    # sparse_scatter's, every pair
     assert bp.ring_smem_bytes(torch.bfloat16, torch.bfloat16, 8,
                               "sparse") == 1
+    assert bp.ring_smem_bytes(torch.bfloat16, torch.bfloat16, 1,
+                              "sparse_scatter") == 1
     assert asked == [(8, 8, 8, bp.FORMS["cimmino"]),
                      (4, 4, 3, bp.FORMS["apc"]), (2, 8, 2, bp.FORMS["apc"]),
                      (2, 8, 8, bp.FORMS["apc_mma"]),
                      (2, 8, 1, bp.FORMS["cimmino_mma"]),
                      (8, 8, 8, bp.FORMS["cimmino_mma"]),
-                     (2, 2, 8, bp.FORMS["sparse"])]
+                     (2, 2, 8, bp.FORMS["sparse"]),
+                     (2, 2, 1, bp.FORMS["sparse_scatter"])]
     # each pair's library answers for its own pair
     assert libs == ["f64", "f32", "bf16_f64", "bf16_f64", "bf16_f64", "f64",
-                    "bf16_bf16"]
+                    "bf16_bf16", "bf16_bf16"]
     with pytest.raises(KeyError):
         bp.ring_smem_bytes(torch.float64, torch.float64, 8, "dense")
-    assert len(asked) == 7
+    assert len(asked) == 8
 
 
 @pytest.mark.parametrize("pair", list(bp.PAIRS))
@@ -544,37 +552,51 @@ def test_launch_counts_by_dtype_pair(monkeypatch, pair):
 
 
 def test_mma_forms_are_the_dense_bf16_f64_kernels_and_the_f64_cimmino_scatter():
-    """The tensor-core form is the kernels but ``sparse_scatter`` with a
-    bf16 matrix and float64 operands, the float64 Cimmino scatter and the
-    float64 sparse gathers, and nothing else: ``MMA_FORMS`` names them,
-    the source selects the first on the (bf16, double) pair of any kernel
-    but the sparse scatter, the second on the (double, double) pair of a
-    scatter without the APC epilogue, the third by kSparseMma, and every
-    form's stage query has its own int64."""
+    """The FP64 tensor-core form is every kernel with a bf16 matrix and
+    float64 operands, the float64 Cimmino scatter and the float64 sparse
+    kernels, and nothing else: ``MMA_FORMS`` names them, the source
+    selects the first on the (bf16, double) pair of any kernel, the
+    second on the (double, double) pair of a dense scatter without the
+    APC epilogue, the third by kSparseMma (the sparse gathers, and
+    sparse_scatter through kSparseScatterMma); the all-bf16
+    ``sparse_scatter`` alone runs on the bf16 tensor cores
+    (``BF16_MMA_FORMS``, kBf16Mma); and every form's stage query has its
+    own int64."""
     src = (bp.CSRC / "block_projection.cu").read_text()
     dense = ("apc_gather", "apc_scatter", "cimmino_gather", "cimmino_scatter")
-    sparse = ("sparse_gather", "sparse_cimmino_gather")
+    sparse = ("sparse_gather", "sparse_cimmino_gather", "sparse_scatter")
     assert bp.MMA_FORMS == tuple((kn, "bf16_f64") for kn in dense + sparse) \
         + (("cimmino_scatter", "f64"),) + tuple((kn, "f64") for kn in sparse)
+    assert bp.BF16_MMA_FORMS == (("sparse_scatter", "bf16_bf16"),)
     assert all(kn in bp.KERNELS and pair in bp.PAIRS.values()
-               for kn, pair in bp.MMA_FORMS)
+               for kn, pair in bp.MMA_FORMS + bp.BF16_MMA_FORMS)
     assert ("constexpr bool kMmaForm = std::is_same_v<TM, __nv_bfloat16> "
             "&&\n                          std::is_same_v<T, double>;") in src
     assert ("constexpr bool kMmaF64Form = std::is_same_v<TM, double> &&\n"
             "                             std::is_same_v<T, double> && "
-            "!kAxpy &&\n                             !kSparse;") in src
-    # the sparse gathers' consumer: kMmaForm's pair and the float64 one
+            "!kAxpy;") in src
+    # the sparse kernels' FP64 consumer: kMmaForm's pair and the float64
+    # one; sparse_scatter's adds the all-bf16 pair on the bf16 mma
     assert ("constexpr bool kSparseMma =\n    kMmaForm<TM, T> ||\n"
             "    (std::is_same_v<TM, double> && std::is_same_v<T, double>);"
             ) in src
-    # the scatters' rings take it but the sparse one, the float64 form by
-    # the scatter's epilogue too; the sparse gathers by kSparseMma
+    assert ("constexpr bool kBf16Mma = std::is_same_v<TM, __nv_bfloat16> &&\n"
+            "                          std::is_same_v<T, __nv_bfloat16>;"
+            ) in src
+    assert ("constexpr bool kSparseScatterMma = kSparseMma<TM, T> || "
+            "kBf16Mma<TM, T>;") in src
+    # the dense scatters' rings take kMmaForm, the float64 form by the
+    # scatter's epilogue too; sparse_scatter's ring, row dot and stage
+    # kSparseScatterMma, on the span walk; the sparse gathers kSparseMma
     assert "constexpr bool kMma = kMmaForm<TM, T> && !kSparse;" in src
-    assert "kMmaF64Form<TM, T, kAxpy, kSparse>" in src
-    assert src.count("kSparseMma<TM, T>") >= 3
+    assert "(kMmaF64Form<TM, T, kAxpy> && !kSparse)" in src
+    assert "if constexpr (kSparse && kSparseScatterMma<TM, T>) {" in src
+    assert "ring_run<TM, T, KC, false, true, true, true>(" in src
+    assert src.count("kSparseScatterMma<TM, T>") >= 4
+    assert src.count("kSparseMma<TM, T>") >= 4
     assert "bool kApc" not in src
     assert set(bp.FORMS) == {"apc", "cimmino", "apc_mma", "cimmino_mma",
-                             "sparse"}
+                             "sparse", "sparse_scatter"}
 
 
 @pytest.mark.parametrize("kernel", ["apc_gather", "apc_scatter",
@@ -685,3 +707,189 @@ def test_sparse_gathers_launch_with_their_support_buffer(monkeypatch, kernel,
     for pair in ((torch.bfloat16, torch.float64),
                  (torch.float64, torch.float64)):
         assert (kernel, bp.PAIRS[pair]) in bp.MMA_FORMS
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("form", ["apc", "cimmino"])
+@pytest.mark.parametrize("k,kc", [(1, None), (3, 2), (8, None)])
+@pytest.mark.parametrize("pair", list(bp.PAIRS), ids=list(bp.PAIRS.values()))
+def test_sparse_scatter_launch_by_pair_k_form_and_alignment(
+        monkeypatch, pair, k, kc, form, aligned):
+    """``sparse_scatter`` hands its pair's C entry the ring wherever the
+    rows of Bvals and U are 16-byte multiples, at every k (k = 1 too) and
+    in every pair: the float64 and bf16/float64 forms on the FP64 tensor
+    cores (``MMA_FORMS``), the all-bf16 one on the bf16 tensor cores
+    (``BF16_MMA_FORMS``), float32 and bf16/float32 on the FFMA ring; an
+    odd p takes the row dot.  Beside it the k-chunk (0: the library's
+    own), the pointers (X and X̄ null in the Cimmino form), the sizes
+    (m, w, p, k) and the strides, as many and in the order of
+    ``ARGTYPES``.  (The entries cannot run here: the device checks and
+    the launch are stood in for.)"""
+    calls = []
+
+    def check(name, index=None, **operands):       # the sizes alone
+        return {ax: size for t, axes in operands.values()
+                for ax, size in zip(axes, t.shape)}
+
+    monkeypatch.setattr(bp, "_check", check)
+    monkeypatch.setattr(bp, "_launch", lambda name, matrix, out, *args:
+                        calls.append((name, matrix, out, args)))
+    mdt, dt = pair
+    m, w, n = 2, 24, 300
+    p = 2048 if aligned else 2047            # an odd row: no 16 bytes
+    Bv = torch.empty((m, w, p), dtype=mdt)
+    cols = torch.zeros((m, w), dtype=torch.int64)
+    U = torch.empty((k, m, p), dtype=dt).transpose(0, 1)
+    out = torch.empty((k, m, n), dtype=dt).transpose(0, 1)
+    X = torch.empty((k, m, n), dtype=dt).transpose(0, 1)
+    Xb = torch.empty((k, n), dtype=dt)
+    kw = dict(X=X, Xbar=Xb, gamma=0.9) if form == "apc" else {}
+    assert bp.sparse_scatter(Bv, cols, U, out, kc=kc, **kw) is out
+    ((name, matrix, o, args),) = calls
+    assert (name, matrix, o) == ("sparse_scatter", Bv, out)
+    assert len(args) + 1 == len(bp.ARGTYPES["sparse_scatter"])
+    apc = form == "apc"
+    assert args[:7] == (Bv.data_ptr(), cols.data_ptr(),
+                        X.data_ptr() if apc else None,
+                        Xb.data_ptr() if apc else None, U.data_ptr(),
+                        0.9 if apc else 0.0, out.data_ptr())
+    assert args[7:11] == (m, w, p, k)
+    assert args[11:18] == ((X.stride(0), X.stride(1), Xb.stride(0)) if apc
+                           else (0, 0, 0)) + (U.stride(0), U.stride(1),
+                                              out.stride(0), out.stride(1))
+    want = "ring" if aligned else "row_dot"
+    assert args[-2:] == (bp.INSTANCES[want], kc or 0)
+    sfx = bp.PAIRS[pair]
+    assert (("sparse_scatter", sfx) in bp.MMA_FORMS) == (
+        dt == torch.float64)
+    assert (("sparse_scatter", sfx) in bp.BF16_MMA_FORMS) == (
+        dt == torch.bfloat16)
+
+
+# Stand-ins for the two CUDA headers the kernel source includes: enough
+# for libclang to parse it as CUDA device code without a toolkit.
+_CUDA_RUNTIME_STUB = r"""
+#pragma once
+#include <stddef.h>
+#include <stdint.h>
+#define __global__ __attribute__((global))
+#define __device__ __attribute__((device))
+#define __host__ __attribute__((host))
+#define __shared__ __attribute__((shared))
+#define __forceinline__ __attribute__((always_inline))
+#define __launch_bounds__(...) __attribute__((launch_bounds(__VA_ARGS__)))
+#define __restrict__ __restrict
+#define __align__(n) __attribute__((aligned(n)))
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+typedef struct CUstream_st* cudaStream_t;
+struct dim3 {
+  unsigned x, y, z;
+  __host__ __device__ dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1)
+      : x(a), y(b), z(c) {}
+};
+struct uint3 { unsigned x, y, z; };
+extern __device__ uint3 threadIdx, blockIdx;
+extern __device__ dim3 gridDim, blockDim;
+struct uint4 { unsigned x, y, z, w; };
+struct double2 { double x, y; };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaLaunchAttributeID {
+  cudaLaunchAttributeProgrammaticStreamSerialization = 5
+};
+union cudaLaunchAttributeValue {
+  int programmaticStreamSerializationAllowed;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+cudaError_t cudaGetDevice(int*);
+cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int);
+template <typename F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int);
+template <typename F, typename... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t*, F, A...);
+cudaError_t cudaGetLastError();
+int cudaConfigureCall(dim3, dim3, size_t = 0, cudaStream_t = 0);
+__device__ void __syncthreads();
+__device__ void __syncwarp(unsigned = 0xffffffffu);
+template <typename T>
+__device__ T __shfl_xor_sync(unsigned, T, int);
+__device__ float __uint_as_float(unsigned);
+__device__ float __fadd_rn(float, float);
+__device__ float __fsub_rn(float, float);
+__device__ float __fmul_rn(float, float);
+__host__ __device__ unsigned long long __cvta_generic_to_shared(const void*);
+__device__ double fma(double, double, double);
+__device__ float fma(float, float, float);
+"""
+_CUDA_BF16_STUB = r"""
+#pragma once
+#include "cuda_runtime.h"
+struct __nv_bfloat16 {
+  unsigned short x;
+  __host__ __device__ __nv_bfloat16() {}
+  __host__ __device__ __nv_bfloat16(float);
+  __host__ __device__ operator float() const;
+};
+__device__ float __bfloat162float(__nv_bfloat16);
+__device__ __nv_bfloat16 __float2bfloat16_rn(float);
+"""
+
+
+def _libclang_errors(cindex, path, include, resource, pair):
+    """libclang's error diagnostics of the CUDA source at ``path``
+    compiled for the device with -DREPRO_PAIR=``pair``, against the stub
+    headers in ``include``: (line, message) pairs."""
+    tu = cindex.Index.create().parse(str(path), args=[
+        "-x", "cuda", "--cuda-device-only", "-nocudainc", "-nocudalib",
+        "--cuda-gpu-arch=sm_90a", "-std=c++17", f"-I{include}", "-isystem",
+        resource, f"-DREPRO_PAIR={pair}"])
+    return [(d.location.line, d.spelling) for d in tu.diagnostics
+            if d.severity >= cindex.Diagnostic.Error]
+
+
+@pytest.mark.parametrize("pair", range(len(bp.PAIRS)),
+                         ids=list(bp.PAIRS.values()))
+def test_cuda_source_parses_without_errors_for_every_pair(tmp_path, pair):
+    """``block_projection.cu`` has no template, deduction or type error
+    in any pair's library: libclang parses it as CUDA device code for
+    sm_90a with -DREPRO_PAIR=<the pair's place in PAIRS>, against stub
+    CUDA headers, and reports no error — while the same source with one
+    call's template arguments cut short (the compute type dropped from
+    sparse_scatter's ring kernel, which every pair's entry launches)
+    reports one, so the parse does check the kernels' instantiations.
+    Skips without the libclang bindings or a C compiler's own headers."""
+    import shutil
+    import subprocess
+    cindex = pytest.importorskip("clang.cindex")
+    try:
+        cindex.Index.create()
+    except Exception as e:                      # no loadable libclang
+        pytest.skip(f"libclang does not load: {e}")
+    cc = next((c for c in ("cc", "gcc", "clang") if shutil.which(c)), None)
+    if cc is None:
+        pytest.skip("no C compiler for stddef.h's directory")
+    resource = subprocess.run([cc, "-print-file-name=include"],
+                              capture_output=True, text=True).stdout.strip()
+    if not (pathlib.Path(resource) / "stddef.h").exists():
+        pytest.skip(f"{cc} names no directory with stddef.h")
+    (tmp_path / "cuda_runtime.h").write_text(_CUDA_RUNTIME_STUB)
+    (tmp_path / "cuda_bf16.h").write_text(_CUDA_BF16_STUB)
+    src = bp.CSRC / "block_projection.cu"
+    assert _libclang_errors(cindex, src, tmp_path, resource, pair) == []
+    call = "launch_ring<&sparse_scatter_ring_kernel<TM, T, KC, decltype"
+    text = src.read_text()
+    assert text.count(call) == 1
+    broken = tmp_path / "broken.cu"
+    broken.write_text(text.replace(call, call.replace("TM, T, KC", "TM, KC")))
+    assert _libclang_errors(cindex, broken, tmp_path, resource, pair)

@@ -364,18 +364,24 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
         # instances of every kernel
         + "".join(
             ring.format(f"{len(kn) + len(inst) + 7}{kn}{inst}_kernel",
-                        "13__nv_bfloat16", "").replace(
+                        "13__nv_bfloat16",
+                        "Lb1E" if kn == "sparse_scatter" else "").replace(
                 "bfloat16dLi8E", "bfloat16S0_Li8E")
             for kn in bp.KERNELS for inst in ("", "_ring"))
         # the tensor-core forms: both instances at every KC (the ring's
-        # KC = 8 line is above)
+        # KC = 8 line is above), sparse_scatter's in both epilogues, the
+        # all-bf16 one's too
         + "".join(
             ring.format(f"{len(kn) + len(inst) + 7}{kn}{inst}_kernel",
                         "d" if sfx == "f64" else "13__nv_bfloat16",
-                        "" if inst else "Li32E").replace(
-                "Li8E", f"Li{kc}E", 1)
-            for kn, sfx in bp.MMA_FORMS for inst in ("", "_ring")
-            for kc in bp.KC_VALUES if inst == "" or kc != 8))
+                        ("" if inst else "Li32E") + ax).replace(
+                "Li8E", f"Li{kc}E", 1).replace(
+                "bfloat16dLi", "bfloat16S0_Li" if sfx == "bf16_bf16"
+                else "bfloat16dLi")
+            for kn, sfx in bp.MMA_FORMS + bp.BF16_MMA_FORMS
+            for inst in ("", "_ring") for kc in bp.KC_VALUES
+            for ax in (("Lb0E", "Lb1E") if kn == "sparse_scatter" else ("",))
+            if inst == "" or kc != 8 or kn == "sparse_scatter"))
     monkeypatch.setattr(bp, "build", lambda sources=bp.SOURCES: {
         ("block_projection.cu", "f64"): lib})
     # the two forms' stage sizes at KC = 8: (64 + 16) and (64 + 8) rows of
@@ -386,7 +392,7 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     monkeypatch.setattr(bp, "ring_smem_bytes", lambda mdt, dt, k, form: {
         "apc": 204800, "cimmino": 184320, "apc_mma": 204800,
         "cimmino_mma": 202752 if mdt == torch.float64 else 184320 + 1,
-        "sparse": 202752 + 2}[form])
+        "sparse": 202752 + 2, "sparse_scatter": 174080}[form])
     for name, fn in _fake_launchers().items():
         monkeypatch.setattr(bp, name, fn)
     monkeypatch.setattr(bp, "_launches", dict.fromkeys(bp._launches, 0))
@@ -412,7 +418,7 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert ("cimmino_scatter_ring f64 KC=8 spill 0 B: 168 regs, smem 128 B "
             "+ 202752 B dynamic") in text
     assert ("sparse_scatter_ring f64 KC=8 apc spill 0 B: 168 regs, smem 128 "
-            "B + 184320 B dynamic") in text
+            "B + 174080 B dynamic") in text
     # and the bf16-stored instances, tagged by their matrix/compute types;
     # the tensor-core forms' rings with their own stages, both their
     # instances at every KC; the sparse gathers' rings their own stage
@@ -425,24 +431,28 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
         assert (f"{kn}_ring bf16/f64 KC=8 spill 0 B: 168 regs, smem 128 B "
                 "+ 202754 B dynamic") in text, kn
     assert ("sparse_scatter_ring bf16/f64 KC=8 apc spill 0 B: 168 regs, "
-            "smem 128 B + 184320 B dynamic") in text
-    for kn, sfx in bp.MMA_FORMS:
-        tag = sfx.replace("_", "/")
+            "smem 128 B + 174080 B dynamic") in text
+    for kn, sfx in bp.MMA_FORMS + bp.BF16_MMA_FORMS:
+        tag = "bf16" if sfx == "bf16_bf16" else sfx.replace("_", "/")
         for kc in bp.KC_VALUES:
-            assert f"{kn} {tag} KC={kc} spill 0 B: " in text, (kn, kc)
-            assert f"{kn}_ring {tag} KC={kc} spill 0 B: " in text, (kn, kc)
+            for ax in ((" apc", " cimmino") if kn == "sparse_scatter"
+                       else ("",)):
+                assert f"{kn} {tag} KC={kc}{ax} spill 0 B: " in text, (
+                    kn, kc, ax)
+                assert f"{kn}_ring {tag} KC={kc}{ax} spill 0 B: " in text, (
+                    kn, kc, ax)
     # both instances of the four gathers and the three scatters (both
     # forms of sparse_scatter) where the ring fits, the row dot alone where
     # it does not (f32 rows of 130, p = 7); a bf16-stored scatter's ring
     # equals the ring on the widened matrix, but the tensor-core forms'
-    # apc_scatter and cimmino_scatter, whose rings equal their row dots
+    # (bf16/float64), whose rings equal their row dots
     scatters = ("apc_scatter", "cimmino_scatter", "sparse_scatter apc",
                 "sparse_scatter cimmino")
     for kn in bp.GATHERS + scatters:
         assert f"{kn} ring≡row_dot" in text, kn
     for kn in scatters:
         for pr in ("bfloat16/float64", "bfloat16/float32"):
-            mma = (kn, bp.PAIRS[(torch.bfloat16, getattr(
+            mma = (kn.split()[0], bp.PAIRS[(torch.bfloat16, getattr(
                 torch, pr.split("/")[1]))]) in bp.MMA_FORMS
             assert any(f" {pr}: " in x and f"{kn} ring≡"
                        + ("row_dot" if mma else "widened ring") in x
@@ -509,18 +519,20 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
     assert sum(x.startswith("phase 8 iteration k=") and "precision=mixed" in x
                for x in lines) == 2
     # the tensor-core forms' times beside the DFMA instances', k = 1 and
-    # 8 (the float64 cimmino_scatter's row dot at k = 1, its ring at 8)
+    # 8 (the float64 scatters' row dot at k = 1, their ring at 8; both
+    # forms of sparse_scatter)
     for kn, sfx in bp.MMA_FORMS:
         pr = {"f64": "float64/float64", "bf16_f64": "bfloat16/float64"}[sfx]
         phase = 11 if kn.startswith("sparse") else 8
         notes = [x for x in lines if x.startswith(f"phase {phase} {kn} k=")
                  and f" {pr}: " in x and "before them" in x]
-        assert len(notes) == 2, (kn, sfx)
+        assert len(notes) == (4 if kn == "sparse_scatter" else 2), (kn, sfx)
         assert all("the DFMA ring before them" in x
                    or (sfx == "f64" and " k=1 " in x
                        and "the DFMA row dot before them" in x)
                    for x in notes), notes
-    assert sum("before them" in x for x in lines) == 2 * len(bp.MMA_FORMS)
+    assert sum("before them" in x for x in lines) == 2 * len(bp.MMA_FORMS) \
+        + 2 * sum(kn == "sparse_scatter" for kn, _ in bp.MMA_FORMS)
     assert sum(x.startswith("phase 11 iteration k=")
                and "precision=mixed" in x for x in lines) == 4
     # phase 13: every kernel-path solve captured and held to the eager
@@ -607,11 +619,10 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
                     k["name"] in bp.GATHERS and f is not k["forms"][0]
                     and f["pair"] != bf))
             assert (f["ring_ms"] is None) == (k["name"] not in bp.SCATTERS)
-            # phase 11 (the sparse kernels) and 15 (a) (the all-bf16 sparse
-            # gathers) also time in a CUDA graph
+            # phase 11 (the sparse kernels) and 15 (a) (their all-bf16
+            # forms) also time in a CUDA graph
             assert (f["graph_ms"] is None) == (
-                not k["name"].startswith("sparse") or (
-                    f["pair"] == bf and k["name"] not in bp.GATHERS)), (k, f)
+                not k["name"].startswith("sparse")), (k, f)
         assert np.isfinite(k["forms"][1]["library_ms"])
         for f in k["forms"][2:4]:
             assert f["library_ms"] is None
@@ -635,13 +646,15 @@ def test_chip_smoke_runs_end_to_end_on_a_faked_card(monkeypatch, capsys,
             checks, times = got[:forms], got[forms:]
             assert all("row_dot" in x and "ulps" in x for x in checks), got
             assert all(lib in x for x in times), got
-            # the gathers' two instances agree bit for bit, and the
-            # rings but the APC scatters' with the bf16/f32 ring rounded
-            assert kn in bp.SCATTERS or all("ring≡row_dot True" in x
-                                            for x in checks), got
+            # the gathers' and sparse_scatter's (the bf16 tensor cores)
+            # two instances agree bit for bit, and the rings but the
+            # scatters on the tensor cores and apc_scatter's with the
+            # bf16/f32 ring rounded
+            assert kn in ("apc_scatter", "cimmino_scatter") or all(
+                "ring≡row_dot True" in x for x in checks), got
             assert all(("ring≡bf16/f32 ring rounded True" in x) == (
-                kn not in ("apc_scatter", "sparse_scatter")
-                or "Cimmino form" in x) for x in checks), got
+                kn not in ("apc_scatter", "sparse_scatter"))
+                for x in checks), got
     for op in ("block_projection", "cimmino_update", "sparse_proj_update",
                "sparse_cimmino_update"):
         assert sum(x.startswith(f"phase 15 ops.{op} k=")

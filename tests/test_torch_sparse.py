@@ -418,6 +418,36 @@ def test_sparse_gather_instance_on_the_sparse_path():
         bp.gather_instance(flat[1:].view(2, 3, 2064), forced="ring")
 
 
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("pair", list(bp.PAIRS), ids=list(bp.PAIRS.values()))
+def test_sparse_scatter_instance_on_the_sparse_path(pair, k):
+    """At the sparse path's p = 2048, ``sparse_scatter`` takes its ring in
+    every pair at k = 1 and k = 8, the staged U or V the (m, k, p) view
+    of a (k, m, p) batch: the FP64 tensor cores in float64 and
+    bf16/float64 (``MMA_FORMS``), the bf16 ones in all-bf16
+    (``BF16_MMA_FORMS``), the FFMA ring in float32 and bf16/float32 — no
+    fixed k = 1 rule, as the dense float64 and float32 scatters keep.  An
+    odd p, or U at an odd offset, takes the row dot."""
+    mdt, dt = pair
+    Bv = torch.empty((2, 3, 2048), dtype=mdt)           # (m, w, p)
+    U = torch.empty((k, 2, 2048), dtype=dt).transpose(0, 1)
+    assert bp.gather_instance(Bv, U, scatter="sparse_scatter") == "ring"
+    assert bp.gather_instance(Bv[..., :2047], U[..., :2047],
+                              scatter="sparse_scatter") == "row_dot"
+    flat = torch.empty(k * 2 * 2048 + 1, dtype=dt)
+    U_off = flat[1:].view(k, 2, 2048).transpose(0, 1)
+    assert bp.gather_instance(Bv, U_off,
+                              scatter="sparse_scatter") == "row_dot"
+    tc = {"f64": bp.MMA_FORMS, "bf16_f64": bp.MMA_FORMS,
+          "bf16_bf16": bp.BF16_MMA_FORMS}.get(bp.PAIRS[pair], ())
+    assert ("sparse_scatter", bp.PAIRS[pair]) in tc or dt == torch.float32
+    # the dense float64 scatter without a tensor-core form keeps the row
+    # dot at k = 1
+    if pair == (torch.float64, torch.float64):
+        assert bp.gather_instance(Bv, U, scatter="apc_scatter") == (
+            "row_dot" if k == 1 else "ring")
+
+
 @pytest.mark.parametrize("instance", [None, "ring", "row_dot"])
 def test_sparse_gather_instance_argument_never_reaches_the_cpu(corner,
                                                                instance):
